@@ -1,0 +1,79 @@
+"""Weights from the JAX reference's param tree into the port's modules.
+
+The bridge is numpy (and plain attributes for the config): the caller turns the reference's tree into numpy
+leaves (``jax.tree.map(np.asarray, params)``) and hands it here, so the
+port never imports JAX.  Blocks stacked ``(G, ...)`` along the scan axis
+under ``blocks["{i}:{kind}"]`` become one module per layer (layer
+``g * len(pattern) + i``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.linear import QLinear
+from repro_torch.core.spec import QuantSpec
+from repro_torch.device import resolve
+from repro_torch.models import common, layers, transformer
+from repro_torch.models.config import ModelConfig
+
+
+def config_from_jax(jcfg) -> ModelConfig:
+    """The port's config from a reference ``ModelConfig`` (read by
+    attribute; the fields the port's decoder uses)."""
+    names = {f.name for f in dataclasses.fields(ModelConfig)} - {"quant"}
+    q = jcfg.quant
+    return ModelConfig(**{n: getattr(jcfg, n) for n in names},
+                       quant=QuantSpec(mode=q.mode, d=q.d,
+                                       scale_block=q.scale_block,
+                                       storage=q.storage, codebook=q.codebook))
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def _linear(tree: dict, device) -> QLinear:
+    return QLinear({k: _t(v, device) for k, v in tree.items()})
+
+
+def _norm(tree: dict, device) -> common.Norm:
+    return common.Norm(_t(tree["scale"], device),
+                       _t(tree["bias"], device) if "bias" in tree else None)
+
+
+def _block(tree: dict, device) -> transformer.Block:
+    a, m = tree["attn"], tree["mlp"]
+    norms = ((_norm(a["q_norm"], device), _norm(a["k_norm"], device))
+             if "q_norm" in a else ())
+    attn = layers.Attention(*(_linear(a[n], device)
+                              for n in ("wq", "wk", "wv", "wo")), *norms)
+    mlp = common.MLP(_linear(m["up"], device), _linear(m["down"], device),
+                     _linear(m["gate"], device) if "gate" in m else None)
+    return transformer.Block(_norm(tree["ln1"], device), attn,
+                             _norm(tree["ln2"], device), mlp)
+
+
+def _index(tree, g: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return np.asarray(tree)[g]
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None
+                    ) -> transformer.Transformer:
+    """Build the port's model from the reference's numpy param tree."""
+    dev = resolve(device)
+    pattern = cfg.block_pattern
+    blocks = []
+    for layer in range(cfg.num_layers):
+        g, i = divmod(layer, len(pattern))
+        blocks.append(_block(_index(tree["blocks"][f"{i}:{pattern[i]}"], g),
+                             dev))
+    head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
+    return transformer.Transformer(_t(tree["embedding"], dev),
+                                   _norm(tree["final_norm"], dev), blocks,
+                                   head)

@@ -1,0 +1,97 @@
+"""QuantizedLinear — msGeMM as a linear-layer execution mode; port of
+repro.core.linear (the spec path; the deprecated ``QuantConfig`` shim and
+the calibration observer are not ported).
+
+A layer's weights are registered buffers of a :class:`QLinear`:
+
+* ``bf16`` mode: ``w`` (out, in) dense;
+* quantized modes: ``idx`` int32 (out, ceil(in/d)) LUT indices (storage
+  ``packed_idx``) or ``u8`` (out, ceil(in/2)) two codes a byte
+  (``packed_u8``), ``scales`` f32 (out, ceil(in/scale_block)) and the
+  optional ``codebook`` (16,).
+
+Activations are row-major ``x (..., in) -> y (..., out)``; the weight is
+the paper's ``M (out, in)``.  How a linear runs is decided per shape by
+``repro_torch.dispatch``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import dispatch
+from repro_torch.core import packing, scales
+from repro_torch.core.spec import DENSE, QuantSpec
+
+
+class QLinear(nn.Module):
+    """One linear's weight leaves, held as buffers (no gradients: the
+    port serves)."""
+
+    def __init__(self, params: dict[str, torch.Tensor]):
+        super().__init__()
+        self.load(params)
+
+    def load(self, params: dict[str, torch.Tensor]) -> None:
+        """Replace every leaf with ``params`` (quantize_model swaps a dense
+        ``w`` for ``idx``/``scales`` in place)."""
+        for name in list(self._buffers):
+            del self._buffers[name]
+        for name, t in params.items():
+            self.register_buffer(name, t)
+
+    def params(self) -> dict[str, torch.Tensor]:
+        return dict(self._buffers)
+
+
+def init(in_dim: int, out_dim: int, spec: QuantSpec = DENSE, *,
+         generator: torch.Generator, device=None, dtype=torch.float32,
+         init_scale: float | None = None) -> dict:
+    """Random params: a normal (out, in) weight scaled by ``in_dim**-0.5``,
+    quantized per ``spec``.  ``generator`` must live on ``device``."""
+    scale = init_scale if init_scale is not None else in_dim**-0.5
+    w = torch.randn((out_dim, in_dim), generator=generator,
+                    device=device or generator.device) * scale
+    return from_dense(w, spec, dtype=dtype)
+
+
+def from_dense(w: torch.Tensor, spec: QuantSpec = DENSE, *,
+               dtype=torch.float32, codebook=None) -> dict:
+    """This layer's params from a dense (out, in) weight.  With
+    ``spec.codebook == 'learned'`` and no table, the uniform int4 values
+    are stored as a placeholder, as the reference does."""
+    if spec.mode == "bf16":
+        return {"w": w.to(dtype)}
+    if codebook is None and spec.codebook == "learned":
+        codebook = packing.b_values(torch.float32, w.device)
+    if codebook is not None:
+        qt = scales.quantize_codebook(w, codebook, spec.scale_block)
+    else:
+        qt = scales.quantize_int4(w, spec.scale_block)
+    return from_quantized(qt, spec)
+
+
+def from_quantized(qt: scales.QuantizedTensor, spec: QuantSpec) -> dict:
+    out_dim, in_dim = qt.shape
+    p = {"scales": qt.scales.to(torch.float32).contiguous()}
+    if spec.storage == "packed_idx":
+        p["idx"] = packing.pack_indices(
+            qt.codes, spec.resolve_d(in_dim, out_dim)).contiguous()
+    else:
+        p["u8"] = packing.pack_storage(qt.codes).contiguous()
+    if qt.codebook is not None:
+        p["codebook"] = torch.as_tensor(qt.codebook, dtype=torch.float32)
+    return p
+
+
+def apply(params, x: torch.Tensor, spec: QuantSpec = DENSE, *,
+          in_dim: int | None = None, plan=None, epilogue=None, bias=None,
+          residual=None) -> torch.Tensor:
+    """x (..., in) -> y (..., out) through the dispatch registry.
+    ``params`` is a dict of leaves or a :class:`QLinear`."""
+    if isinstance(params, QLinear):
+        params = params.params()
+    return dispatch.execute(params, x, spec, in_dim=in_dim,
+                            plan_override=plan, epilogue=epilogue, bias=bias,
+                            residual=residual)

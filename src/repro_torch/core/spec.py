@@ -1,0 +1,70 @@
+"""QuantSpec — a frozen description of what the weights are; port of
+repro.core.spec (the deprecated ``QuantConfig`` shim is not ported).
+
+It says nothing about how a GeMM runs: that is ``repro_torch.dispatch``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.core import scales
+
+MODES = ("bf16", "int4_dequant", "msgemm")
+STORAGES = ("packed_idx", "packed_u8")
+CODEBOOKS = ("none", "learned")
+
+
+def _speedup(m: int, k: int, d: int) -> float:
+    """Paper Eq. 15 at b=1: C(GeMM) / C(msGeMM) = m·k / (16^d·k + (k/d-1)·m)."""
+    return m * k / (16**d * k + (k // d - 1) * m)
+
+
+@dataclass(frozen=True)
+class QuantSpec:
+    """mode: ``bf16`` | ``int4_dequant`` | ``msgemm``.  d: LUT depth in
+    [1, 4] or ``'adaptive'`` (per-linear argmax of Eq. 15).  scale_block:
+    §3.3 row-block size, 0 resolves to 12·d.  storage: ``packed_idx`` |
+    ``packed_u8``.  codebook: ``none`` | ``learned``."""
+
+    mode: str = "bf16"
+    d: int | str = 3
+    scale_block: int = 0
+    storage: str = "packed_idx"
+    codebook: str = "none"
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"unknown quant mode {self.mode!r}; one of {MODES}")
+        if self.storage not in STORAGES:
+            raise ValueError(
+                f"unknown storage {self.storage!r}; one of {STORAGES}")
+        if self.codebook not in CODEBOOKS:
+            raise ValueError(
+                f"unknown codebook policy {self.codebook!r}; one of {CODEBOOKS}")
+        if self.d != "adaptive":
+            if not isinstance(self.d, int) or not 1 <= self.d <= 4:
+                raise ValueError(
+                    f"LUT depth d={self.d!r} must be 'adaptive' or an int in "
+                    "[1, 4] (the 16^d LUT is produced in full)")
+        if self.scale_block < 0:
+            raise ValueError(f"scale_block={self.scale_block} must be >= 0")
+        if self.d != "adaptive" and self.scale_block == 0:
+            object.__setattr__(self, "scale_block", 12 * int(self.d))
+        elif self.scale_block == 0:
+            object.__setattr__(self, "scale_block", 12)
+        if self.mode == "msgemm":
+            scales.check_applicable(
+                self.scale_block, 2 if self.d == "adaptive" else int(self.d))
+
+    def resolve_d(self, in_dim: int, out_dim: int) -> int:
+        """The depth this linear uses (static in the shapes)."""
+        if self.d != "adaptive":
+            return int(self.d)
+        d_star = max(range(2, 5), key=lambda d: _speedup(out_dim, in_dim, d))
+        while self.scale_block % d_star:  # the block must stay a multiple of d
+            d_star -= 1
+        return max(d_star, 2)
+
+
+DENSE = QuantSpec(mode="bf16")

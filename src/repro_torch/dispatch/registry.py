@@ -1,0 +1,105 @@
+"""Pluggable execution-backend registry; port of repro.dispatch.registry
+(registration, capability checks, selection by priority and device).
+Quarantine waits for the resilience slice.
+
+A backend's ``run`` has the signature::
+
+    run(spec, plan, params, x, *, k, epilogue=None, bias=None,
+        residual=None) -> y
+
+with ``x (..., k)`` row-major activations and ``y (..., m)``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from repro_torch.core.spec import QuantSpec
+
+
+def _always(device_type: str) -> bool:
+    return True
+
+
+def _no_epilogue(epilogue) -> bool:
+    """Default: fuse nothing (``execute`` applies the epilogue after run)."""
+    return False
+
+
+@dataclass(frozen=True)
+class Backend:
+    """A registered execution path with its capability envelope."""
+
+    name: str
+    modes: tuple[str, ...]
+    run: Callable
+    is_available: Callable[[str], bool] = _always  # device type -> bool
+    priority: int = 0
+    d_range: tuple[int, int] = (1, 4)
+    storages: tuple[str, ...] = ("packed_idx", "packed_u8")
+    codebooks: tuple[str, ...] = ("none", "learned")
+    epilogue_ok: Callable = _no_epilogue
+    description: str = ""
+
+    def supports(self, spec: QuantSpec, d: int) -> bool:
+        """Can this backend execute weights described by ``spec`` at depth d?"""
+        return (spec.mode in self.modes and spec.storage in self.storages
+                and spec.codebook in self.codebooks
+                and (spec.mode != "msgemm"
+                     or self.d_range[0] <= d <= self.d_range[1]))
+
+
+_REGISTRY: dict[str, Backend] = {}
+
+
+def register_backend(name: str, *, modes, run, is_available=_always,
+                     priority: int = 0, d_range=(1, 4),
+                     storages=("packed_idx", "packed_u8"),
+                     codebooks=("none", "learned"), epilogue_ok=_no_epilogue,
+                     description: str = "", overwrite: bool = False) -> Backend:
+    """Register an execution backend; duplicate names raise unless
+    ``overwrite``."""
+    if name in _REGISTRY and not overwrite:
+        raise ValueError(f"backend {name!r} already registered; "
+                         "pass overwrite=True to replace it")
+    be = Backend(name=name, modes=tuple(modes), run=run,
+                 is_available=is_available, priority=priority,
+                 d_range=tuple(d_range), storages=tuple(storages),
+                 codebooks=tuple(codebooks), epilogue_ok=epilogue_ok,
+                 description=description)
+    _REGISTRY[name] = be
+    return be
+
+
+def get_backend(name: str) -> Backend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def backend_names() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def available_backends(spec: QuantSpec, d: int, device_type: str
+                       ) -> list[Backend]:
+    """Backends that can run ``spec`` on ``device_type``, best first
+    (priority descending, then name)."""
+    cands = [b for b in _REGISTRY.values()
+             if b.supports(spec, d) and b.is_available(device_type)]
+    return sorted(cands, key=lambda b: (-b.priority, b.name))
+
+
+def select_backend(spec: QuantSpec, d: int, device_type: str) -> Backend:
+    """Deterministic auto-selection: the highest-priority capable backend."""
+    cands = available_backends(spec, d, device_type)
+    if not cands:
+        raise ValueError(
+            f"no backend can execute mode={spec.mode!r} d={d} "
+            f"storage={spec.storage!r} codebook={spec.codebook!r} on "
+            f"{device_type!r}; registered: {backend_names()}")
+    return cands[0]

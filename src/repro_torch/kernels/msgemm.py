@@ -1,0 +1,272 @@
+"""msGeMM kernel for Hopper (``csrc/msgemm.cu``), its plain PyTorch
+version, and its launch counter.
+
+Replaces the Pallas TPU kernel ``repro/kernels/msgemm.py::msgemm_pallas``:
+the fused grid (``_kernel_fused`` + ``_consume_tile``, pallas_call at line
+252) and, with the identity epilogue, the legacy grid (``_kernel_legacy``,
+pallas_call at line 212), which differ only in where the accumulator lives.
+
+What bounds it on an H100.  Per call the function must read the int32
+LUT indices (m·ceil(k/d)·4 B), the scales, x, and write the output; at
+3.35 TB/s the index bytes dominate (5.6 MB for a 2048x2048 linear at d=3:
+1.7 µs).  Its operations are the LUT produce, per chunk and column 16·d
+distinct products and about one add per entry (16^d entries; those that
+share a prefix share its sum), plus m·ceil(k/d)·b gather-adds, all in f32
+outside the tensor cores (67 TFLOP/s); at small m (256 rows) and b = 8
+the produce makes the operations the bound.  ``chip_smoke.py`` computes
+both bounds per shape.
+
+What the design does about it.  The LUT tile of one chunk and TB columns
+(16^d·TB floats: 128 KiB at d=3, TB=8) is built once per block in shared
+memory and gathered by every one of the block's 512 or 2048 rows, so the
+produce is amortized over m as the paper intends and the gather never
+leaves the SM.  The contraction is split across blocks along whole scale
+blocks (split-K) so that a decode-shaped GeMM, with few row tiles, still
+fills the 132 SMs; a second small kernel adds the splits in j order and
+applies the epilogue.  d=4's 256 KiB table does not fit a block's 227 KB
+of shared memory, so d=4 builds it in a device-memory scratch that the
+wrapper allocates.  Indices are read as stored (int32), each row's
+sequence of chunks from its own cache lines.
+
+Op order (see ``csrc/msgemm.cu``) is the Pallas kernel's with one j-tile
+per split: gathers summed in chunk order within a scale block, one scale
+multiply per block, splits added in j order, then
+``cast(act(total + bias) + residual)``.  :func:`msgemm_plain` repeats it
+with separate PyTorch ops, so kernel and plain version agree bit for bit
+except inside ``tanh``/``exp`` of the gelu/silu epilogues.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import lut as lut_mod
+from repro_torch.core.epilogue import act_fn
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "msgemm.cu"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+ACTS = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
+OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+THREADS = 256  # kThreads in csrc/msgemm.cu
+
+# Kernel launches since the last reset; the main path's callers set it to
+# 0, drive the model, and read it to prove every GeMM went through the
+# kernel.  Only msgemm_cuda adds to it.
+launches = 0
+
+
+class Tiles(NamedTuple):
+    """One launch's work split (``ops.msgemm_tiles`` picks it).
+
+    tb: batch columns per block (1, 4 or 8); rpt: rows per thread (2 or
+    8, so a block owns 256·rpt rows); tj: LUT chunks per contraction
+    split, a multiple of scale_block // d.  Only ``tj`` changes the
+    arithmetic (the split sums are added in j order); the plain version
+    takes it too, so both devices give the same bits.
+    """
+
+    tb: int
+    rpt: int
+    tj: int
+
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/msgemm.cu`` for sm_90a into ``BUILD_DIR`` (once per
+    source content) and return the shared library's path."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    lib = BUILD_DIR / f"libmsgemm-{tag}.so"
+    if lib.exists():
+        return lib
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found: the msGeMM kernel is built "
+                           "with the CUDA toolkit at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stderr, end="")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.msgemm_launch
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                           + [ctypes.c_longlong] * 6
+                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _check(idx, x, scales, values, d, scale_block, bias, residual):
+    """Validate shapes/dtypes/devices; returns (m, k, kc, b, cpb, nsb)."""
+    if idx.dim() != 2 or x.dim() != 2:
+        raise ValueError(f"idx (m, kc) and x (k, b) must be 2-D, got "
+                         f"{tuple(idx.shape)} and {tuple(x.shape)}")
+    m, kc = idx.shape
+    k, b = x.shape
+    if not 1 <= d <= 4 or scale_block % d:
+        raise ValueError(f"need 1 <= d <= 4 and d | scale_block "
+                         f"(d={d}, scale_block={scale_block})")
+    cpb = scale_block // d
+    nsb = -(-kc // cpb)
+    if kc != -(-k // d):
+        raise ValueError(f"idx has {kc} chunks, x has k={k} (d={d})")
+    if tuple(scales.shape) != (m, nsb):
+        raise ValueError(f"scales {tuple(scales.shape)} != {(m, nsb)}")
+    if tuple(values.shape) != (16,):
+        raise ValueError(f"values {tuple(values.shape)} != (16,)")
+    if bias is not None and tuple(bias.shape) != (m,):
+        raise ValueError(f"bias {tuple(bias.shape)} != {(m,)}")
+    if residual is not None and tuple(residual.shape) != (m, b):
+        raise ValueError(f"residual {tuple(residual.shape)} != {(m, b)}")
+    dev = idx.device
+    for name, t in (("x", x), ("scales", scales), ("values", values),
+                    ("bias", bias), ("residual", residual)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} on {t.device}, idx on {dev}")
+    return m, k, kc, b, cpb, nsb
+
+
+def msgemm_cuda(idx: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
+                values: torch.Tensor, *, d: int, scale_block: int,
+                tiles: Tiles, act: str = "none",
+                bias: torch.Tensor | None = None,
+                residual: torch.Tensor | None = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """y (m, b) = cast(act(dequant(idx) @ x + bias) + residual) on the GPU.
+
+    idx (m, ceil(k/d)) int32 contiguous; x (k, b) float32, any strides;
+    scales (m, ceil(k/scale_block)) float32 contiguous; values (16,) the
+    code->value table; bias (m,), residual (m, b) float32 (any strides).
+    The result is an (m, b) view of a (b, m) buffer, so the model's
+    row-major layout is its transpose without a copy.
+    """
+    global launches
+    m, k, kc, b, cpb, nsb = _check(idx, x, scales, values, d, scale_block,
+                                   bias, residual)
+    if idx.device.type != "cuda":
+        raise ValueError(f"msgemm_cuda needs CUDA tensors, got {idx.device}")
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError("idx must be contiguous int32")
+    for name, t in (("x", x), ("scales", scales), ("values", values),
+                    ("bias", bias), ("residual", residual)):
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("scales", scales), ("values", values), ("bias", bias)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out_dtype not in OUT_TYPES:
+        raise ValueError(f"unsupported out_dtype {out_dtype}")
+    if tiles.tb not in (1, 4, 8) or tiles.rpt not in (2, 8) \
+            or tiles.tj <= 0 or tiles.tj % cpb:
+        raise ValueError(f"bad tiles {tiles} for scale_block // d = {cpb}")
+    nsplit = -(-kc // tiles.tj)
+    dev = idx.device
+    out = torch.empty((b, m), dtype=out_dtype, device=dev).t()
+    ws = (torch.empty((nsplit, m, b), dtype=torch.float32, device=dev)
+          if nsplit > 1 else None)
+    lut_scratch = None
+    if d == 4:
+        nblocks = (-(-m // (THREADS * tiles.rpt))) * nsplit * (-(-b // tiles.tb))
+        lut_scratch = torch.empty(nblocks * 16**4 * tiles.tb,
+                                  dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rs = residual.stride() if residual is not None else (0, 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _load().msgemm_launch(
+        ptr(idx), ptr(x), ptr(scales), ptr(values), ptr(bias), ptr(residual),
+        ptr(out), ptr(ws), ptr(lut_scratch),
+        m, k, kc, b, d, cpb, nsb, tiles.tj, nsplit, tiles.tb, tiles.rpt,
+        x.stride(0), x.stride(1), rs[0], rs[1], out.stride(0), out.stride(1),
+        ACTS[act], OUT_TYPES[out_dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"msgemm kernel launch failed: CUDA error {err} "
+                           f"(m={m}, k={k}, b={b}, d={d}, tiles={tiles})")
+    launches += 1
+    return out
+
+
+def epilogue_cols(acc: torch.Tensor, act: str, bias, residual,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """The fused writeback in the kernels' (m, b) column layout:
+    ``cast(act(acc + bias) + residual)`` on the f32 accumulator."""
+    if bias is not None:
+        acc = acc + bias.to(torch.float32)[:, None]
+    acc = act_fn(act)(acc)
+    if residual is not None:
+        acc = acc + residual.to(torch.float32)
+    return acc.to(out_dtype)
+
+
+def msgemm_plain(idx: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
+                 values: torch.Tensor, *, d: int, scale_block: int,
+                 tiles: Tiles, act: str = "none",
+                 bias: torch.Tensor | None = None,
+                 residual: torch.Tensor | None = None,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, in the kernel's op order
+    (the counterpart of ``repro.kernels.ref.msgemm_tiled_ref``, vectorised
+    over rows and columns; one LUT per scale block, not the whole k)."""
+    m, k, kc, b, cpb, nsb = _check(idx, x, scales, values, d, scale_block,
+                                   bias, residual)
+    dev = idx.device
+    xp = torch.zeros((kc * d, b), dtype=torch.float32, device=dev)
+    xp[:k] = x.to(torch.float32)
+    xc = xp.reshape(kc, d, b)
+    basis = values.to(torch.float32)[lut_mod.tuple_codes(d, dev)]  # (N, d)
+    sc = scales.to(torch.float32)
+    total = None
+    for j0 in range(0, kc, tiles.tj):  # one contraction split
+        acc = torch.zeros((m, b), dtype=torch.float32, device=dev)
+        for c0 in range(j0, min(j0 + tiles.tj, kc), cpb):  # one scale block
+            c1 = min(c0 + cpb, kc)
+            # lut[c, n, col] = sum_r basis[n, r] * x[(c0+c)*d + r, col]
+            lut = basis[None, :, 0, None] * xc[c0:c1, 0, None, :]
+            for r in range(1, d):
+                lut = lut + basis[None, :, r, None] * xc[c0:c1, r, None, :]
+            part = torch.zeros((m, b), dtype=torch.float32, device=dev)
+            for c in range(c1 - c0):
+                part = part + lut[c].index_select(0, idx[:, c0 + c].long())
+            acc = acc + part * sc[:, c0 // cpb, None]
+        total = acc if total is None else total + acc
+    return epilogue_cols(total, act, bias, residual, out_dtype)
+
+
+def msgemm(idx, x, scales, values, **kw) -> torch.Tensor:
+    """Route by device: the kernel for CUDA tensors, the plain version for
+    CPU tensors; anything else raises.  There is no fallback from one to
+    the other."""
+    if x.device.type == "cuda":
+        return msgemm_cuda(idx, x, scales, values, **kw)
+    if x.device.type == "cpu":
+        return msgemm_plain(idx, x, scales, values, **kw)
+    raise ValueError(f"msgemm: unsupported device {x.device}")

@@ -1,0 +1,88 @@
+"""Public wrapper around the msGeMM kernel; port of repro.kernels.ops.
+
+It handles the vector-x squeeze, the epilogue operands in the kernel's
+(m, b) column layout, the code->value table, and the Hopper tile choice.
+The kernel masks ragged rows, columns and chunks itself, so nothing is
+padded to tile multiples here (the TPU wrapper had to pad every operand).
+None of the TPU VMEM budgeting carries over.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.core.epilogue import Epilogue, torch_dtype
+from repro_torch.kernels import msgemm as _ms
+from repro_torch.kernels.msgemm import Tiles
+
+# H100 SXM streaming multiprocessors.  A constant, not a device query, so
+# the CPU path picks the same contraction split (and so the same bits) as
+# the card.
+NUM_SMS = 132
+
+
+def msgemm_tiles(m: int, kc: int, b: int, d: int, scale_block: int) -> Tiles:
+    """Hopper tile choice for (m rows, kc LUT chunks, b columns).
+
+    tb: the batch columns one LUT tile serves (1, 4 or 8).  rpt: rows per
+    thread; a block of 256 threads owns 512 rows for small m and 2048
+    otherwise, so one LUT build feeds as many gathers as registers allow.
+    tj: the contraction is split along whole scale blocks until about two
+    blocks per SM are in flight (decode shapes have few row tiles).
+    """
+    tb = 1 if b == 1 else (4 if b <= 4 else 8)
+    rpt = 2 if m <= 512 else 8
+    cpb = scale_block // d
+    nsb = -(-kc // cpb)
+    tiles = -(-m // (256 * rpt)) * -(-b // tb)
+    want = min(max(1, -(-2 * NUM_SMS // tiles)), nsb)
+    return Tiles(tb=tb, rpt=rpt, tj=-(-nsb // want) * cpb)
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_values(device: torch.device) -> torch.Tensor:
+    return packing.b_values(torch.float32, device)
+
+
+def msgemm(idx: torch.Tensor, x: torch.Tensor, d: int, *,
+           scales: torch.Tensor, scale_block: int = 36,
+           codebook: torch.Tensor | None = None, tiles: Tiles | None = None,
+           epilogue: Epilogue | None = None,
+           bias: torch.Tensor | None = None,
+           residual: torch.Tensor | None = None) -> torch.Tensor:
+    """y (m, b) = epilogue(dequant(idx) @ x (k, b)) through the kernel
+    (CUDA tensors) or its plain version (CPU tensors).
+
+    idx (m, ceil(k/d)) int32 LUT indices; x (k, b) or (k,); scales (m,
+    ceil(k/scale_block)); codebook: optional (16,) value table (entry 0 must
+    be 0), the uniform int4 grid when None.  ``epilogue`` is fused:
+    ``bias`` is (m,), ``residual`` (m, b) column layout.  The output dtype
+    is ``epilogue.out_dtype``, float32 when unset.
+    """
+    ep = epilogue or Epilogue()
+    if ep.bias != (bias is not None) or ep.residual != (residual is not None):
+        raise ValueError("bias/residual arrays must match the epilogue flags "
+                         f"(epilogue={ep}, bias given={bias is not None}, "
+                         f"residual given={residual is not None})")
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+        if residual is not None and residual.ndim == 1:
+            residual = residual[:, None]
+    m, kc = idx.shape
+    if tiles is None:
+        tiles = msgemm_tiles(m, kc, x.shape[1], d, scale_block)
+    values = (_int4_values(x.device) if codebook is None
+              else codebook.to(torch.float32).contiguous())
+    f32 = lambda t: None if t is None else t.to(torch.float32)  # noqa: E731
+    y = _ms.msgemm(
+        idx.to(torch.int32).contiguous(), f32(x),
+        f32(scales).contiguous(), values, d=d, scale_block=scale_block,
+        tiles=tiles, act=ep.act,
+        bias=None if bias is None else f32(bias).contiguous(),
+        residual=f32(residual),
+        out_dtype=torch_dtype(ep.out_dtype) or torch.float32)
+    return y[:, 0] if squeeze else y

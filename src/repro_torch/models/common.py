@@ -1,0 +1,108 @@
+"""Shared building blocks — norms, linear glue, soft-cap, MLP; port of
+repro.models.common.  The port is single-device for now, so the
+reference's sharding constraints have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core import linear as qlinear
+from repro_torch.core.epilogue import Epilogue
+
+
+class Norm(nn.Module):
+    """RMSNorm (``scale``) or LayerNorm (``scale`` + ``bias``) weights."""
+
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor | None = None):
+        super().__init__()
+        self.register_buffer("scale", scale)
+        if bias is not None:
+            self.register_buffer("bias", bias)
+
+
+def norm_init(d: int, kind: str, *, device=None) -> Norm:
+    return Norm(torch.ones(d, device=device),
+                torch.zeros(d, device=device) if kind == "layernorm" else None)
+
+
+def norm_apply(p: Norm, x: torch.Tensor, kind: str, *,
+               rms_offset: bool = False, eps: float = 1e-6) -> torch.Tensor:
+    """Computed in float32, cast back to x's dtype; gemma scales by (1 + w)."""
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        w = (1.0 + p.scale) if rms_offset else p.scale
+        return (y * w).to(x.dtype)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p.scale + p.bias).to(x.dtype)
+
+
+def linear_init(in_dim: int, out_dim: int, cfg, quant=qlinear.DENSE, *,
+                generator: torch.Generator, device=None, scale=None
+                ) -> qlinear.QLinear:
+    return qlinear.QLinear(qlinear.init(
+        in_dim, out_dim, quant, generator=generator, device=device,
+        dtype=getattr(torch, cfg.param_dtype), init_scale=scale))
+
+
+def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, act="none",
+                 bias=None, residual=None, out_dtype=None) -> torch.Tensor:
+    """``act``/``bias``/``residual``/``out_dtype`` describe the tail
+    ``y = act(Wx + bias) + residual`` (cast to ``out_dtype``); it becomes an
+    Epilogue that the msGeMM kernel fuses into its final write."""
+    ep = None
+    if act != "none" or bias is not None or residual is not None \
+            or out_dtype is not None:
+        ep = Epilogue(act=act, bias=bias is not None,
+                      residual=residual is not None, out_dtype=out_dtype)
+    return qlinear.apply(p, x, quant, in_dim=in_dim, epilogue=ep, bias=bias,
+                         residual=residual)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """gemma2 logit soft-capping: cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap) if cap else x
+
+
+class MLP(nn.Module):
+    """up / down (+ gate for GeGLU/SwiGLU) linears."""
+
+    def __init__(self, up, down, gate=None):
+        super().__init__()
+        self.up, self.down = up, down
+        if gate is not None:
+            self.gate = gate
+
+
+def mlp_init(cfg, d_ff: int, quant=None, *, generator: torch.Generator,
+             device=None) -> MLP:
+    q = quant if quant is not None else cfg.quant
+    d = cfg.d_model
+    kw = dict(generator=generator, device=device)
+    up = linear_init(d, d_ff, cfg, q, **kw)
+    down = linear_init(d_ff, d, cfg, q, **kw)
+    gate = (linear_init(d, d_ff, cfg, q, **kw)
+            if cfg.mlp_activation in ("swiglu", "geglu") else None)
+    return MLP(up, down, gate)
+
+
+def mlp_apply(p: MLP, x: torch.Tensor, cfg, quant=None, *,
+              residual=None) -> torch.Tensor:
+    """MLP with the element-wise tail folded into the linears' epilogues:
+    the (gate's) activation into its projection, ``residual`` (the block
+    input) into the down projection."""
+    q = quant if quant is not None else cfg.quant
+    act_name = {"swiglu": "silu", "geglu": "gelu",
+                "gelu": "gelu"}[cfg.mlp_activation]
+    if hasattr(p, "gate"):
+        up = linear_apply(p.up, x, q, in_dim=cfg.d_model)
+        gate = linear_apply(p.gate, x, q, in_dim=cfg.d_model, act=act_name)
+        h = gate * up
+    else:
+        h = linear_apply(p.up, x, q, in_dim=cfg.d_model, act=act_name)
+    return linear_apply(p.down, h, q, in_dim=h.shape[-1], residual=residual)

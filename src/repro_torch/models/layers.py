@@ -1,0 +1,185 @@
+"""Attention (GQA/MQA, RoPE, sliding window, soft-cap) with full-sequence,
+single-step-decode and paged paths; port of repro.models.layers.
+
+The paged path keeps a full-precision KV pool; the quantized pool and its
+paged-attention kernel arrive with the quantized-KV slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import common
+
+NEG_INF = -1e30  # finite mask value: masked entries get probability exactly 0
+
+
+# ---------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x (B, S, H, Dh), positions (B, S) -> rotated x.  The rotation pairs
+    the two halves of Dh (not interleaved pairs), as the reference."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs  # (B, S, Dh/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+class Attention(nn.Module):
+    """wq / wk / wv / wo linears (+ q/k norms when ``cfg.qk_norm``)."""
+
+    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        if q_norm is not None:
+            self.q_norm, self.k_norm = q_norm, k_norm
+
+
+def attn_init(cfg, *, generator: torch.Generator, device=None) -> Attention:
+    d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(generator=generator, device=device)
+    lin = lambda i, o: common.linear_init(i, o, cfg, cfg.quant, **kw)  # noqa: E731
+    norms = ((common.norm_init(dh, "rmsnorm", device=device),
+              common.norm_init(dh, "rmsnorm", device=device))
+             if cfg.qk_norm else ())
+    return Attention(lin(d, h * dh), lin(d, hk * dh), lin(d, hk * dh),
+                     lin(h * dh, d), *norms)
+
+
+def _qkv(p: Attention, cfg, x, positions):
+    B = x.shape[0]
+    h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = common.linear_apply(p.wq, x, cfg.quant, in_dim=cfg.d_model)
+    k = common.linear_apply(p.wk, x, cfg.quant, in_dim=cfg.d_model)
+    v = common.linear_apply(p.wv, x, cfg.quant, in_dim=cfg.d_model)
+    q = q.reshape(B, -1, h, dh)
+    k = k.reshape(B, -1, hk, dh)
+    v = v.reshape(B, -1, hk, dh)
+    if cfg.qk_norm:
+        q = common.norm_apply(p.q_norm, q, "rmsnorm")
+        k = common.norm_apply(p.k_norm, k, "rmsnorm")
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(cfg, q, k, v, mask) -> torch.Tensor:
+    """q (B,Sq,H,Dh), k/v (B,Skv,Hk,Dh), mask (B|1,1,Sq,Skv) bool or None.
+    The reference's einsum + softmax with a finite mask value."""
+    B, Sq, h, dh = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(B, Sq, hk, h // hk, dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                          k.to(torch.float32)) * dh**-0.5
+    logits = common.softcap(logits, cfg.attn_logit_softcap)
+    if mask is not None:
+        logits = torch.where(mask[:, :, None] if mask.ndim == 4 else mask,
+                             logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    return out.reshape(B, Sq, h * dh).to(q.dtype)
+
+
+def causal_mask(Sq: int, Skv: int, *, window: int = 0, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(1, 1, Sq, Skv) bool; offset = start position of the query block."""
+    qpos = offset + torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m[None, None]
+
+
+def view_mask(Skv: int, positions: torch.Tensor, *, window: int = 0
+              ) -> torch.Tensor:
+    """Causal (+ window) mask over a logically ordered KV view: view index
+    w holds the KV of position w.  positions (B, C) -> (B, C, Skv) bool."""
+    kpos = torch.arange(Skv, device=positions.device)[None, None, :]
+    qpos = positions[:, :, None]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m
+
+
+def attn_apply(p: Attention, cfg, x, positions, *, window: int = 0,
+               causal: bool = True, return_kv: bool = False, residual=None):
+    """Full-sequence self-attention (prefill).  ``residual`` rides the
+    output projection's epilogue.  Above ``cfg.attn_chunk`` the queries
+    run in chunks (exact math, bounded logits memory)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions)
+    C = cfg.attn_chunk
+    if C and S > C and S % C == 0:
+        outs = [_sdpa(cfg, q[:, i:i + C], k, v,
+                      causal_mask(C, S, window=window, offset=i,
+                                  device=x.device) if causal else None)
+                for i in range(0, S, C)]
+        out = torch.cat(outs, dim=1)
+    else:
+        m = causal_mask(S, S, window=window, device=x.device) \
+            if causal else None
+        out = _sdpa(cfg, q, k, v, m)
+    out = common.linear_apply(p.wo, out, cfg.quant,
+                              in_dim=cfg.num_heads * cfg.head_dim,
+                              residual=residual)
+    return (out, k, v) if return_kv else out
+
+
+def attn_decode(p: Attention, cfg, x, cache_k, cache_v, pos, *,
+                window: int = 0, residual=None):
+    """Single-token decode.  x (B, 1, d); cache (B, Skv, Hk, Dh); pos (B,).
+    The new K/V are written into the caches in place (the reference
+    returns updated copies)."""
+    q, k, v = _qkv(p, cfg, x, pos[:, None])
+    B, Skv = cache_k.shape[0], cache_k.shape[1]
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, pos] = v[:, 0].to(cache_v.dtype)
+    m = view_mask(Skv, pos[:, None], window=window)[:, 0]
+    out = _sdpa(cfg, q, cache_k, cache_v, m[:, None, None, :])
+    out = common.linear_apply(p.wo, out, cfg.quant,
+                              in_dim=cfg.num_heads * cfg.head_dim,
+                              residual=residual)
+    return out, cache_k, cache_v
+
+
+def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,
+               view_slots, *, window: int = 0, residual=None):
+    """Self-attention over a paged KV pool — one chunked-prefill step
+    (C > 1) or one batched decode step (C == 1).
+
+    x (B, C, d); cache {"k", "v"} (num_blocks, bs, Hk, Dh) full precision;
+    positions/write_slots (B, C); view_slots (B, W) flat pool slots such
+    that view index w holds position w (scratch-padded).  The pool is
+    updated in place with ``index_copy_`` (the reference scatters into a
+    donated copy); masked view entries get probability exactly 0.
+
+    Returns (out, cache).
+    """
+    q, k, v = _qkv(p, cfg, x, positions)
+    k_pool, v_pool = cache["k"], cache["v"]
+    nb, bs, hk, dh = k_pool.shape
+    kp = k_pool.view(nb * bs, hk, dh)
+    vp = v_pool.view(nb * bs, hk, dh)
+    ws = write_slots.reshape(-1).long()
+    kp.index_copy_(0, ws, k.reshape(-1, hk, dh).to(kp.dtype))
+    vp.index_copy_(0, ws, v.reshape(-1, hk, dh).to(vp.dtype))
+    vs = view_slots.long()
+    m = view_mask(view_slots.shape[1], positions, window=window)
+    out = _sdpa(cfg, q, kp[vs], vp[vs], m[:, None])
+    out = common.linear_apply(p.wo, out, cfg.quant,
+                              in_dim=cfg.num_heads * cfg.head_dim,
+                              residual=residual)
+    return out, cache

@@ -1,0 +1,206 @@
+"""Decoder-only model assembly for ``attn``/``local`` blocks — embeddings,
+the block stack, dense and paged KV caches, forward / prefill / decode;
+port of repro.models.transformer.
+
+Blocks live in an ``nn.ModuleList`` (one module per layer) where the
+reference stacks them ``(G, ...)`` for ``lax.scan``; caches are a list of
+per-layer ``{"k", "v"}`` dicts.  Functions take the model as ``params``,
+like the reference's param trees, and update caches in place.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve
+from repro_torch.models import common, layers
+from repro_torch.models.config import ModelConfig
+
+
+class Block(nn.Module):
+    """Pre-norm attention + MLP block."""
+
+    def __init__(self, ln1, attn, ln2, mlp):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+
+def block_init(cfg: ModelConfig, *, generator: torch.Generator,
+               device=None) -> Block:
+    kw = dict(generator=generator, device=device)
+    return Block(common.norm_init(cfg.d_model, cfg.norm, device=device),
+                 layers.attn_init(cfg, **kw),
+                 common.norm_init(cfg.d_model, cfg.norm, device=device),
+                 common.mlp_init(cfg, cfg.d_ff, **kw))
+
+
+class Transformer(nn.Module):
+    """embedding (vocab, d) f32, final_norm, blocks, and lm_head when the
+    embeddings are not tied."""
+
+    def __init__(self, embedding: torch.Tensor, final_norm: common.Norm,
+                 blocks: list[Block], lm_head=None):
+        super().__init__()
+        self.register_buffer("embedding", embedding)
+        self.final_norm = final_norm
+        self.blocks = nn.ModuleList(blocks)
+        if lm_head is not None:
+            self.lm_head = lm_head
+
+
+def init_params(cfg: ModelConfig, *, generator: torch.Generator,
+                device=None, quant=None) -> Transformer:
+    """Random weights from ``generator`` (which must live on ``device``).
+
+    With ``quant`` (a QuantSpec), every block — and an untied lm_head — is
+    quantized by ``quant.quantize_model`` right after it is drawn, so no
+    more than one block's dense weights exist at a time (this is how a
+    full-width model fits the card); the caller then serves with
+    ``cfg.replace(quant=quant)``.
+    """
+    from repro_torch.quant import quantize_model
+
+    dev = resolve(device)
+    kw = dict(generator=generator, device=dev)
+    emb = torch.empty((cfg.vocab_size, cfg.d_model), device=dev)
+    nn.init.trunc_normal_(emb, a=-2.0, b=2.0, generator=generator)
+    blocks = []
+    for _ in range(cfg.num_layers):
+        blk = block_init(cfg, **kw)
+        if quant is not None:
+            quantize_model(blk, quant)
+        blocks.append(blk)
+    head = None
+    if not cfg.tie_embeddings:
+        head = common.linear_init(cfg.d_model, cfg.vocab_size, cfg,
+                                  cfg.quant, **kw)
+        if quant is not None:
+            holder = nn.Module()
+            holder.lm_head = head
+            quantize_model(holder, quant)
+    return Transformer(emb, common.norm_init(cfg.d_model, cfg.norm,
+                                             device=dev), blocks, head)
+
+
+def block_apply(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
+                mode: str = "train", cache: dict | None = None, pos=None,
+                paged=None):
+    """One block.  mode: ``train`` (full sequence, no cache), ``prefill``
+    (full sequence, writes the prompt's K/V at 0), ``decode`` (one token
+    at ``pos``), ``paged`` (``paged`` = (write_slots, view_slots) over the
+    layer's block pool).  The block input rides the out-projection's and
+    the down-projection's fused residual epilogues.  Returns x."""
+    window = cfg.sliding_window if kind == "local" else 0
+    h = common.norm_apply(p.ln1, x, cfg.norm, rms_offset=cfg.rms_offset)
+    if mode == "paged":
+        write_slots, view_slots = paged
+        x, _ = layers.attn_paged(p.attn, cfg, h, cache, positions,
+                                 write_slots, view_slots, window=window,
+                                 residual=x)
+    elif mode == "decode":
+        x, _, _ = layers.attn_decode(p.attn, cfg, h, cache["k"], cache["v"],
+                                     pos, window=window, residual=x)
+    elif cache is not None:  # prefill
+        x, k, v = layers.attn_apply(p.attn, cfg, h, positions, window=window,
+                                    return_kv=True, residual=x)
+        cache["k"][:, :k.shape[1]] = k.to(cache["k"].dtype)
+        cache["v"][:, :v.shape[1]] = v.to(cache["v"].dtype)
+    else:
+        x = layers.attn_apply(p.attn, cfg, h, positions, window=window,
+                              residual=x)
+    h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
+    return common.mlp_apply(p.mlp, h, cfg, residual=x)
+
+
+def _stack_apply(params: Transformer, cfg: ModelConfig, x, positions, *,
+                 mode="train", cache=None, pos=None, paged=None):
+    for i, blk in enumerate(params.blocks):
+        x = block_apply(blk, cfg, cfg.kind(i), x, positions, mode=mode,
+                        cache=cache[i] if cache is not None else None,
+                        pos=pos, paged=paged)
+    return x
+
+
+def embed_inputs(params: Transformer, cfg: ModelConfig, tokens):
+    """tokens (B, S) -> (B, S, d): gathered in f32, scaled by sqrt(d) for
+    gemma, then cast to ``cfg.dtype``."""
+    x = params.embedding[tokens.long()]
+    if cfg.embed_scale:
+        x = x * cfg.d_model**0.5
+    return x.to(getattr(torch, cfg.dtype))
+
+
+def logits_from_hidden(params: Transformer, cfg: ModelConfig, x):
+    x = common.norm_apply(params.final_norm, x, cfg.norm,
+                          rms_offset=cfg.rms_offset)
+    if cfg.tie_embeddings:
+        logits = torch.matmul(x.to(torch.float32),
+                              params.embedding.to(torch.float32).t())
+    else:
+        logits = common.linear_apply(params.lm_head, x, cfg.quant,
+                                     in_dim=cfg.d_model).to(torch.float32)
+    return common.softcap(logits, cfg.final_logit_softcap)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def forward(params: Transformer, cfg: ModelConfig, tokens) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, V)."""
+    B, S = tokens.shape
+    x = embed_inputs(params, cfg, tokens)
+    x = _stack_apply(params, cfg, x, _positions(B, S, tokens.device))
+    return logits_from_hidden(params, cfg, x)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, *, device=None) -> list[dict]:
+    """Per-layer dense (batch, max_len, Hk, Dh) K/V caches for decode."""
+    dev = resolve(device)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            for _ in range(cfg.num_layers)]
+
+
+def prefill(params: Transformer, cfg: ModelConfig, tokens, cache):
+    """Run the prompt, filling ``cache``.  Returns (logits_last (B, V),
+    cache)."""
+    B, S = tokens.shape
+    x = embed_inputs(params, cfg, tokens)
+    x = _stack_apply(params, cfg, x, _positions(B, S, tokens.device),
+                     mode="prefill", cache=cache)
+    return logits_from_hidden(params, cfg, x[:, -1:, :])[:, 0], cache
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     dtype=torch.float32, *, device=None) -> list[dict]:
+    """Per-layer (num_blocks, bs, Hk, Dh) K/V block pools for paged serving;
+    sequences own disjoint blocks through host-side block tables."""
+    dev = resolve(device)
+    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            for _ in range(cfg.num_layers)]
+
+
+def forward_paged(params: Transformer, cfg: ModelConfig, tokens, pool,
+                  positions, write_slots, view_slots):
+    """One paged serving step — a prefill chunk (C > 1) or a decode batch
+    (C == 1) through the same code.  tokens/positions/write_slots (B, C);
+    view_slots (B, W).  Returns (logits (B, C, V), pool)."""
+    x = embed_inputs(params, cfg, tokens)
+    x = _stack_apply(params, cfg, x, positions, mode="paged", cache=pool,
+                     paged=(write_slots, view_slots))
+    return logits_from_hidden(params, cfg, x), pool
+
+
+def decode_step(params: Transformer, cfg: ModelConfig, token, cache, pos):
+    """One decode step.  token (B,), pos (B,).  Returns (logits (B, V),
+    cache)."""
+    x = embed_inputs(params, cfg, token[:, None])
+    x = _stack_apply(params, cfg, x, pos[:, None], mode="decode",
+                     cache=cache, pos=pos)
+    return logits_from_hidden(params, cfg, x)[:, 0], cache

@@ -1,0 +1,76 @@
+"""Serving runtime over the port's model; port of repro.runtime.serve.
+
+Two cache layouts share the model code:
+
+* static — dense (batch, max_len, ...) caches, fixed batch
+  (``init_cache`` / ``prefill_step`` / ``decode_step`` / ``generate``);
+* paged  — a shared block pool + per-sequence view indices
+  (``init_paged_cache`` / ``paged_step``), driven by
+  ``repro_torch.serving.Engine``.
+
+``paged_step`` is phase-agnostic: a prefill chunk is a (1, C) call and a
+decode batch a (B, 1) call of the same function.  Generation here is
+greedy; sampled decoding lives in the engine's host-side sampler.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, *, device=None):
+    return transformer.init_cache(cfg, batch, max_len, dtype, device=device)
+
+
+def prefill_step(params, cfg: ModelConfig, tokens, cache):
+    return transformer.prefill(params, cfg, tokens, cache)
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, pos):
+    return transformer.decode_step(params, cfg, token, cache, pos)
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     dtype=torch.float32, *, device=None):
+    return transformer.init_paged_cache(cfg, num_blocks, block_size, dtype,
+                                        device=device)
+
+
+def paged_step(params, cfg: ModelConfig, tokens, pool, positions,
+               write_slots, view_slots, last_idx):
+    """One serving step over the paged pool.  ``last_idx`` (B,) picks the
+    chunk position whose next-token logits each row returns.
+    Returns (logits (B, V), pool)."""
+    logits, pool = transformer.forward_paged(
+        params, cfg, tokens, pool, positions, write_slots, view_slots)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return logits[rows, last_idx.long()], pool
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def generate(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+             max_new_tokens: int, max_len: int | None = None,
+             cache_dtype=torch.float32) -> torch.Tensor:
+    """Batched greedy generation (prefill + decode loop) on ``tokens``'
+    device.  tokens (B, S) -> (B, max_new_tokens) int32."""
+    B, S = tokens.shape
+    max_len = max_len or (S + max_new_tokens)
+    cache = init_cache(cfg, B, max_len, cache_dtype, device=tokens.device)
+    logits, cache = prefill_step(params, cfg, tokens, cache)
+    tok = greedy(logits)
+    out = [tok]
+    for i in range(max_new_tokens - 1):
+        # tok was produced for position S + i; decode it there for the next
+        pos = torch.full((B,), S + i, dtype=torch.int64, device=tokens.device)
+        logits, cache = decode_step(params, cfg, tok, cache, pos)
+        tok = greedy(logits)
+        out.append(tok)
+    return torch.stack(out, dim=1)
