@@ -2,27 +2,52 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, as on the card
-    python3 chip_smoke.py --profile  # also profile an engine run
+    python3 chip_smoke.py --profile  # also profile the engine: msgemm
+                                     # weights with the full-precision and
+                                     # the kv8 pool, and int4 weights
 
 Phases, any failure exits non-zero before the last line is printed:
 
-1. build   — compile ``kernels/csrc/msgemm.cu`` for sm_90a from the checkout.
-2. kernels — the msGeMM kernel against its plain PyTorch version on the
-   card at every gemma-2b GeMM shape (b = 1, 4, 8) with each shape's own
-   epilogue and the operands as the engine passes them (x and residual
-   transposed views of the (b, .) activations, bfloat16 output), a
-   vocab-sized (256000 x 2048) GeMM, and small d = 1, 2, 4 and
-   learned-codebook cases with contiguous operands.  Bit-exact on exact inputs (integer activations,
-   power-of-two scales); rtol = atol = 1e-5 on random floats (the two share
-   one op order, so only gelu/silu's tanh/exp may differ).  Each case is
-   timed: kernel, plain version, one torch.matmul on the dequantized weight
-   (a yardstick only) and the least time the card could take.
+1. build   — compile every ``kernels/csrc/*.cu`` for sm_90a from the
+   checkout, one ``nvcc`` per source, all started together.
+2. kernels — each kernel against its plain PyTorch version on the card:
+   * msGeMM at every gemma-2b GeMM shape (b = 1, 4, 8) with each shape's
+     own epilogue and the operands as the engine passes them (x and
+     residual transposed views of the (b, .) activations, bfloat16
+     output), a vocab-sized (256000 x 2048) GeMM, and small d = 1, 2, 4
+     and learned-codebook cases with contiguous operands;
+   * the int4 GeMM at the same gemma-2b shapes and layout, the vocab-sized
+     GeMM with the identity epilogue (the legacy grid's counterpart) and
+     small ragged cases with bias, relu/silu/gelu and a residual;
+   Both GeMMs: bit-exact on exact inputs (integer activations,
+   power-of-two scales); rtol = atol = 1e-5 on random floats with f32
+   output, one bf16 ulp (rtol = 2^-7) with bf16 output (kernel and plain
+   version share one op order, so only gelu/silu's tanh/exp may differ).
+   * paged attention over the quantized pool at gemma-2b decode
+     (B=4, C=1) and prefill-chunk (B=1, C=8) shapes, each at kv8, kv4 and
+     kv4 with a codebook, a long context (B=8, W=4096) at kv8 and kv4, and
+     a soft-capped windowed GQA case (gemma2-9b's attention shape).  The
+     kernel, its plain version and the torch backend (gather, dequantize,
+     sdpa) agree within rtol = atol = 2e-5 on f32 outputs, one bf16 ulp
+     on bf16 outputs.
+   Each case is timed: kernel, plain version, one PyTorch call as a
+   yardstick (``torch.matmul`` on the dequantized weight; sdpa on the
+   dequantized view) and the least time the card could take.
 3. main    — full-width gemma-2b with random weights from a seed, quantized
    on the card (msgemm, d=3, scale_block=36), served by the continuous
    engine with the serve CLI's defaults (4 slots, block 8, prefill chunk 8)
    on 6 requests of 4-16 prompt tokens and 16 new tokens.  Every request
    must finish, match the static ``generate`` path token for token, and the
-   kernel's launch count must be exactly 126 (7 GeMMs x 18 layers) per step.
+   msGeMM launch count must be exactly 126 (7 GeMMs x 18 layers) per step.
+   The same model and stream are then served with a quantized KV pool, kv8
+   and kv4, each once through the paged-attention kernel (auto-selected)
+   and once forced to the torch backend: every request finishes, the two
+   routes give the same tokens, paged-attention launches are exactly 18
+   per step on the kernel run and 0 on the torch run, msGeMM launches stay
+   126 per step.  Last, gemma-2b is built again from seed 0 with int4
+   weights (``int4_dequant``, the same codes and scales) and serves the
+   stream: every request finishes and matches static ``generate``, int4
+   launches are exactly 126 per step and msGeMM launches 0.
 4. report  — the card's name and power limit, then a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Details go to
@@ -32,6 +57,7 @@ The last line is ``{"ok": true, "device": {...}}``.  Details go to
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -43,6 +69,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2**-7, atol=1e-5)  # one bf16 ulp
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)   # tests/test_kvq.py's, two routes
 L2_BYTES = 50 * 2**20
 L2_FLUSH_BYTES = 120 * 2**20  # cycle index copies past the L2
 MAX_COPIES = 256
@@ -102,12 +130,82 @@ def work(m, k, b, d, sb, has_bias, has_res, out_bytes):
     return nbytes, ops
 
 
+def with_bound(result, nbytes, nops):
+    """Add the least time the card could take: bytes over the HBM rate or
+    operations over the f32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    result.update(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
+                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return result
+
+
+def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
+              act, bias, residual, out_dtype, engine_layout, **kw):
+    """Check ``kernel(weight, x, scales, **kw)`` against ``plain`` on exact
+    inputs (integer x, power-of-two scales: bit-exact unless gelu/silu)
+    and on random floats (within one ulp of the output type: the two share
+    one op order), then time it: kernel with its weight cycled past the
+    L2, plain version, and one ``torch.matmul`` on ``dense(weight,
+    scales)``, the dequantized f32 weight.  ``engine_layout``: x (k, b)
+    and the residual (m, b) are transposed views of (b, k) and (b, m)
+    buffers, as the dispatch backends pass the model's activations."""
+    import torch
+
+    name = result["name"]
+    tol = FLOAT_TOL if out_dtype == torch.float32 else BF16_TOL
+
+    def cols(rows, draw):
+        """A (rows, b) operand, in the engine's layout when asked."""
+        return draw(b, rows).t() if engine_layout else draw(rows, b)
+
+    for exact in (True, False):
+        if exact:
+            sc = 2.0 ** torch.randint(-2, 3, (m, nsb), generator=g,
+                                      device="cuda").float()
+            rnd = lambda *s: torch.randint(  # noqa: E731
+                -4, 5, s, generator=g, device="cuda").float()
+        else:
+            sc = torch.rand((m, nsb), generator=g, device="cuda") + 0.1
+            rnd = lambda *s: torch.randn(  # noqa: E731
+                s, generator=g, device="cuda")
+        x = cols(k, rnd)
+        kw.update(act=act, bias=rnd(m) if bias else None,
+                  residual=cols(m, rnd) if residual else None,
+                  out_dtype=out_dtype)
+        got = kernel(weight, x, sc, **kw)
+        torch.cuda.synchronize()
+        want = plain(weight, x, sc, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        if exact and act in ("none", "relu"):
+            check(err == 0.0, f"{name}: kernel != plain on exact inputs "
+                              f"(max abs err {err})")
+        else:
+            torch.testing.assert_close(got.float(), want.float(), **tol,
+                                       msg=lambda s: f"{name}: {s}")
+        result["exact_max_abs_err" if exact else "max_abs_err"] = err
+    # timing, on the random-float inputs
+    wbytes = weight.numel() * weight.element_size()
+    copies = max(1, min(MAX_COPIES, math.ceil(L2_FLUSH_BYTES / wbytes)))
+    weights = [weight] + [weight.clone() for _ in range(copies - 1)]
+    result["weight_cycled_bytes"] = copies * wbytes
+    result["weight_l2_resident"] = copies * wbytes <= L2_BYTES
+    calls = [lambda w=w: kernel(w, x, sc, **kw) for w in weights]
+    result["ms"] = device_ms(calls, reps=max(20, 2 * copies))
+    result["host_ms"] = wall_ms(calls[0], reps=20)
+    del weights, calls
+    result["plain_ms"] = wall_ms(lambda: plain(weight, x, sc, **kw), reps=2)
+    w = dense(weight, sc)
+    wcopies = max(1, min(8, math.ceil(L2_FLUSH_BYTES / (w.numel() * 4))))
+    ws = [w] + [w.clone() for _ in range(wcopies - 1)]
+    result["library_ms"] = device_ms(
+        [lambda w_=w_: torch.matmul(w_, x) for w_ in ws], reps=20)
+    return result
+
+
 def kernel_case(name, m, k, b, *, d=3, sb=36, act="none", bias=False,
                 residual=False, codebook=False, out_dtype=None,
                 engine_layout=False, seed=0):
-    """One kernel-vs-plain case.  ``engine_layout``: x (k, b) and the
-    residual (m, b) are transposed views of (b, k) and (b, m) buffers, as
-    ``backends.run_msgemm_cuda`` passes the model's activations."""
+    """One msGeMM kernel-vs-plain case (see :func:`gemm_case`)."""
     import torch
 
     from repro_torch.core import packing
@@ -130,63 +228,18 @@ def kernel_case(name, m, k, b, *, d=3, sb=36, act="none", bias=False,
                   bias=bias, residual=residual, codebook=codebook,
                   out_dtype=str(out_dtype).removeprefix("torch."),
                   engine_layout=engine_layout, tiles=list(tiles))
-    # kernel and plain version share one op order: exact everywhere but in
-    # gelu/silu's tanh/exp, and then within one ulp of the output type
-    tol = FLOAT_TOL if out_dtype == torch.float32 else dict(rtol=2**-7,
-                                                            atol=1e-5)
-    def cols(rows, draw):
-        """A (rows, b) operand, in the engine's layout when asked."""
-        return draw(b, rows).t() if engine_layout else draw(rows, b)
-
-    for exact in (True, False):
-        if exact:
-            sc = 2.0 ** torch.randint(-2, 3, (m, nsb), generator=g,
-                                      device="cuda").float()
-            rnd = lambda *s: torch.randint(  # noqa: E731
-                -4, 5, s, generator=g, device="cuda").float()
-        else:
-            sc = torch.rand((m, nsb), generator=g, device="cuda") + 0.1
-            rnd = lambda *s: torch.randn(  # noqa: E731
-                s, generator=g, device="cuda")
-        x = cols(k, rnd)
-        kw = dict(d=d, scale_block=sb, tiles=tiles, act=act,
-                  bias=rnd(m) if bias else None,
-                  residual=cols(m, rnd) if residual else None,
-                  out_dtype=out_dtype)
-        got = ms.msgemm_cuda(idx, x, sc, values, **kw)
-        torch.cuda.synchronize()
-        want = ms.msgemm_plain(idx, x, sc, values, **kw)
-        err = float((got.float() - want.float()).abs().max())
-        if exact and act in ("none", "relu"):
-            check(err == 0.0, f"{name}: kernel != plain on exact inputs "
-                              f"(max abs err {err})")
-        else:
-            torch.testing.assert_close(got.float(), want.float(), **tol,
-                                       msg=lambda s: f"{name}: {s}")
-        result["exact_max_abs_err" if exact else "max_abs_err"] = err
-    # timing, on the random-float inputs
-    copies = max(1, min(MAX_COPIES,
-                        math.ceil(L2_FLUSH_BYTES / (idx.numel() * 4))))
-    idxs = [idx] + [idx.clone() for _ in range(copies - 1)]
-    result["idx_cycled_bytes"] = copies * idx.numel() * 4
-    result["idx_l2_resident"] = result["idx_cycled_bytes"] <= L2_BYTES
-    calls = [lambda i=i: ms.msgemm_cuda(i, x, sc, values, **kw) for i in idxs]
-    result["ms"] = device_ms(calls, reps=max(20, 2 * copies))
-    result["host_ms"] = wall_ms(calls[0], reps=20)
-    result["plain_ms"] = wall_ms(
-        lambda: ms.msgemm_plain(idx, x, sc, values, **kw), reps=2)
-    w = (values[codes.long()] * torch.repeat_interleave(sc, sb, 1)[:, :k])
-    wcopies = max(1, min(8, math.ceil(L2_FLUSH_BYTES / (w.numel() * 4))))
-    ws = [w] + [w.clone() for _ in range(wcopies - 1)]
-    result["library_ms"] = device_ms(
-        [lambda w_=w_: torch.matmul(w_, x) for w_ in ws], reps=20)
-    del ws, w
-    nbytes, nops = work(m, k, b, d, sb, bias, residual,
-                        torch.empty((), dtype=out_dtype).element_size())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
-    result.update(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
-                  bound_by="bytes" if t_bytes >= t_ops else "operations")
-    return result
+    gemm_case(
+        result, g, idx,
+        lambda i, x, sc, **kw: ms.msgemm_cuda(i, x, sc, values, **kw),
+        lambda i, x, sc, **kw: ms.msgemm_plain(i, x, sc, values, **kw),
+        lambda i, sc: (values[codes.long()]
+                       * torch.repeat_interleave(sc, sb, 1)[:, :k]),
+        m=m, k=k, b=b, nsb=nsb, act=act, bias=bias, residual=residual,
+        out_dtype=out_dtype, engine_layout=engine_layout, d=d,
+        scale_block=sb, tiles=tiles)
+    return with_bound(result, *work(
+        m, k, b, d, sb, bias, residual,
+        torch.empty((), dtype=out_dtype).element_size()))
 
 
 GEMMA_GEMMS = [  # (name, m, k, epilogue kwargs) of one gemma-2b block
@@ -233,88 +286,425 @@ def phase_kernels():
     return cases
 
 
+def int4_work(m, k, b, sb, has_bias, has_res, out_bytes):
+    """(bytes, ops) the int4 GeMM needs: packed codes, scales and x read
+    once, the output written once; one scale multiply per weight, one
+    multiply-add per (weight, column), the epilogue's adds."""
+    nsb = -(-k // sb)
+    nbytes = (m * -(-k // 2) + m * nsb * 4 + k * b * 4 + m * b * out_bytes
+              + (m * 4 if has_bias else 0) + (m * b * 4 if has_res else 0))
+    ops = m * k + 2 * m * k * b + m * b * (int(has_bias) + int(has_res))
+    return nbytes, ops
+
+
+def int4_case(name, m, k, b, *, sb=36, act="none", bias=False,
+              residual=False, out_dtype=None, engine_layout=False, seed=0):
+    """One int4 kernel-vs-plain case (see :func:`gemm_case`)."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import ops
+
+    out_dtype = out_dtype or torch.float32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nsb = -(-k // sb)
+    codes = torch.randint(0, 16, (m, k), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    u8 = packing.pack_storage(codes).contiguous()
+    tiles = ops.int4_tiles(m, k, b)
+    result = dict(name=name, m=m, k=k, b=b, scale_block=sb, act=act,
+                  bias=bias, residual=residual,
+                  out_dtype=str(out_dtype).removeprefix("torch."),
+                  engine_layout=engine_layout, tiles=list(tiles))
+    gemm_case(
+        result, g, u8,
+        lambda u, x, sc, **kw: i4.int4_matmul_cuda(u, sc, x, **kw),
+        lambda u, x, sc, **kw: i4.int4_matmul_plain(u, sc, x, **kw),
+        lambda u, sc: i4.dequantize(u, sc, k, sb),
+        m=m, k=k, b=b, nsb=nsb, act=act, bias=bias, residual=residual,
+        out_dtype=out_dtype, engine_layout=engine_layout, scale_block=sb,
+        tiles=tiles)
+    return with_bound(result, *int4_work(
+        m, k, b, sb, bias, residual,
+        torch.empty((), dtype=out_dtype).element_size()))
+
+
+def phase_int4_kernels():
+    import torch
+
+    specs = [(n, m, k, b, dict(ep, out_dtype=torch.bfloat16,
+                               engine_layout=True))
+             for b in (1, 4, 8) for n, m, k, ep in GEMMA_GEMMS if n != "wv"]
+    specs += [
+        ("vocab", 256000, 2048, 8, {}),
+        ("small-relu-bias", 512, 1000, 4, dict(sb=12, bias=True,
+                                                act="relu")),
+        ("small-silu-res", 100, 301, 3, dict(sb=36, act="silu",
+                                             residual=True)),
+        ("small-gelu-bf16", 1000, 777, 9,
+         dict(sb=32, act="gelu", bias=True, residual=True,
+              out_dtype=torch.bfloat16)),
+    ]
+    cases = []
+    for i, (name, m, k, b, ep) in enumerate(specs):
+        t0 = time.perf_counter()
+        r = int4_case(name, m, k, b, seed=100 + i, **ep)
+        cases.append(r)
+        print(f"[int4] {name:15s} m={m:6d} k={k:5d} b={b} act={r['act']:4s} "
+              f"kernel={r['ms']:.4f}ms host={r['host_ms']:.4f}ms "
+              f"plain={r['plain_ms']:.2f}ms matmul={r['library_ms']:.4f}ms "
+              f"bound={r['bound_ms']:.4f}ms ({r['bound_by']}) "
+              f"err={r['max_abs_err']:.3g} "
+              f"exact_err={r['exact_max_abs_err']:.3g} "
+              f"[{time.perf_counter() - t0:.1f}s]", flush=True)
+    return cases
+
+
+def attn_work(positions, B, C, H, hk, dh, dhp, bs, nseq, window, q_bytes):
+    """(bytes, ops) one paged-attention call needs for this run's
+    positions: the codes and scales (k and v) of the view blocks that
+    hold a position some query of the row may attend to (from the
+    window's first to the largest query position), q, the output, the
+    block tables and positions read or written once; per needed slot
+    2·Dh multiply-adds per (query, head) for q·k and p·v, and one scale
+    multiply per dequantized K/V element."""
+    import torch
+
+    hi = ((positions.clamp(min=0).amax(1) // bs) + 1).clamp(max=nseq)
+    lo = ((positions.amin(1) - window + 1).clamp(min=0) // bs if window
+          else torch.zeros_like(hi))
+    slots = int((hi - lo).clamp(min=0).sum()) * bs
+    nbytes = (2 * slots * hk * (dhp + 4) + 2 * B * C * H * dh * q_bytes
+              + B * nseq * 4 + B * C * 4)
+    ops = slots * (C * H * 4 * dh + 2 * hk * dh)
+    return nbytes, ops
+
+
+def attn_case(name, B, C, H, hk, dh, bs, W, *, bits, codebook=False,
+              softcap=0.0, window=0, q_dtype=None, seed=0):
+    """One paged-attention case: the kernel, its plain version and the
+    torch backend (kvq.attention.run_torch) on one quantized pool."""
+    import torch
+
+    from repro_torch import kvq
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kvq import attention as kv_attn
+    from repro_torch.models import layers
+
+    q_dtype = q_dtype or torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nseq = W // bs
+    nb = 1 + B * nseq
+    cb = None
+    if codebook:
+        cb = tuple([0.0] + sorted(torch.randn(15, generator=g,
+                                              device="cuda").tolist()))
+    spec = kvq.KVQuantSpec(bits, codebook=cb)
+    pool = {}
+    for n in ("k", "v"):
+        vals = torch.randn((nb, bs, hk, dh), generator=g, device="cuda")
+        pool[n], pool[f"{n}_scale"] = kvq.kv_quantize(vals, spec)
+    tables = (torch.randperm(nb - 1, generator=g, device="cuda") + 1) \
+        .reshape(B, nseq).to(torch.int32)
+    # each row's last query sits in its view's last block
+    last = W - 1 - torch.randint(0, bs, (B, 1), generator=g, device="cuda")
+    positions = (last - (C - 1) + torch.arange(C, device="cuda")) \
+        .to(torch.int32)
+    view_slots = (tables.long()[:, :, None] * bs
+                  + torch.arange(bs, device="cuda")).reshape(B, W)
+    q = torch.randn((B, C, H, dh), generator=g, device="cuda").to(q_dtype)
+
+    class Cfg:
+        num_heads, num_kv_heads, head_dim = H, hk, dh
+        attn_logit_softcap = softcap
+
+    kw = dict(bits=bits, block_size=bs, window=window, softcap=softcap,
+              codebook=None if cb is None else torch.tensor(cb,
+                                                            device="cuda"))
+    leaves = (pool["k"], pool["k_scale"], pool["v"], pool["v_scale"])
+    got = pa.paged_attention_cuda(q, *leaves, tables, positions, **kw)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(q, *leaves, tables, positions, **kw)
+    ref = kv_attn.run_torch(spec, Cfg, q, pool, view_slots, positions,
+                            window=window).reshape(B, C, H, dh)
+    tol = ATTN_TOL if q_dtype == torch.float32 else BF16_TOL
+    for a, b_, what in ((got, want, "kernel vs plain"),
+                        (got, ref, "kernel vs torch backend"),
+                        (want, ref, "plain vs torch backend")):
+        torch.testing.assert_close(a.float(), b_.float(), **tol,
+                                   msg=lambda s: f"{name} {what}: {s}")
+    result = dict(
+        name=name, B=B, C=C, H=H, Hk=hk, Dh=dh, block_size=bs, W=W,
+        bits=bits, codebook=codebook, softcap=softcap, window=window,
+        q_dtype=str(q_dtype).removeprefix("torch."),
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        torch_backend_max_abs_err=float((got.float() - ref.float())
+                                        .abs().max()))
+    # timing: whole pools cycled past the L2, as a layer's pool would be
+    # cold after the other 17 layers ran
+    pool_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    copies = max(1, min(MAX_COPIES, math.ceil(L2_FLUSH_BYTES / pool_bytes)))
+    pools = [leaves] + [tuple(t.clone() for t in leaves)
+                        for _ in range(copies - 1)]
+    result["pool_cycled_bytes"] = copies * pool_bytes
+    calls = [lambda lv=lv: pa.paged_attention_cuda(q, *lv, tables,
+                                                   positions, **kw)
+             for lv in pools]
+    result["ms"] = device_ms(calls, reps=max(20, 2 * copies))
+    result["host_ms"] = wall_ms(calls[0], reps=20)
+    del pools, calls
+    result["plain_ms"] = wall_ms(lambda: pa.paged_attention_plain(
+        q, *leaves, tables, positions, **kw), reps=2)
+    # yardstick: one sdpa on the already-dequantized f32 view (no softcap;
+    # the query heads of a group folded into its kv head's query axis)
+    g_ = H // hk
+    dq = lambda c, s: kvq.kv_dequantize(  # noqa: E731
+        c.view(nb * bs, hk, -1)[view_slots], s.view(nb * bs, hk)[view_slots],
+        spec, dh).permute(0, 2, 1, 3).contiguous()  # (B, Hk, W, Dh)
+    kf, vf = dq(pool["k"], pool["k_scale"]), dq(pool["v"], pool["v_scale"])
+    qf = q.float().reshape(B, C, hk, g_, dh).permute(0, 2, 3, 1, 4) \
+        .reshape(B, hk, g_ * C, dh)
+    mask = layers.view_mask(W, positions, window=window)[:, None] \
+        .repeat(1, 1, g_, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    result["library_ms"] = device_ms(
+        [lambda: sdpa(qf, kf, vf, attn_mask=mask, scale=dh**-0.5)], reps=20)
+    return with_bound(result, *attn_work(
+        positions, B, C, H, hk, dh, spec.packed_dim(dh), bs, nseq, window,
+        q.element_size()))
+
+
+def phase_attn_kernels():
+    import torch
+
+    gemma = dict(H=8, hk=1, dh=256, bs=8)
+    kvs = [("kv8", dict(bits=8)), ("kv4", dict(bits=4)),
+           ("kv4cb", dict(bits=4, codebook=True))]
+    specs = [(f"decode-{n}", dict(gemma, B=4, C=1, W=32, **kv))
+             for n, kv in kvs]
+    specs += [(f"prefill-{n}", dict(gemma, B=1, C=8, W=32, **kv))
+              for n, kv in kvs]
+    specs += [(f"long-{n}", dict(gemma, B=8, C=1, W=4096, **kv))
+              for n, kv in kvs[:2]]
+    specs += [("gemma2-9b-softcap-window",
+               dict(B=4, C=1, H=16, hk=8, dh=256, bs=8, W=256, bits=8,
+                    softcap=50.0, window=64, q_dtype=torch.float32))]
+    cases = []
+    for i, (name, kw) in enumerate(specs):
+        t0 = time.perf_counter()
+        r = attn_case(name, seed=200 + i, **kw)
+        cases.append(r)
+        print(f"[attn] {name:26s} B={r['B']} C={r['C']} W={r['W']:5d} "
+              f"kernel={r['ms']:.4f}ms host={r['host_ms']:.4f}ms "
+              f"plain={r['plain_ms']:.2f}ms sdpa={r['library_ms']:.4f}ms "
+              f"bound={r['bound_ms']:.5f}ms ({r['bound_by']}) "
+              f"err={r['max_abs_err']:.3g} "
+              f"vs_torch={r['torch_backend_max_abs_err']:.3g} "
+              f"[{time.perf_counter() - t0:.1f}s]", flush=True)
+    return cases
+
+
 # ----------------------------------------------------------------- phase 3
-def phase_main():
+NEW_TOKENS, PROMPT_LEN = 16, 16
+
+
+def serve(tag, model, cfg, **engine_kw):
+    """Serve the request stream once through the continuous engine with
+    the serve CLI's defaults.  Every kernel's launch count is set to 0
+    just before the run and read just after it.  Checks that every
+    request finished with all its tokens."""
+    import torch
+
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import msgemm as ms
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving import Engine, poisson_stream
+
+    reqs = poisson_stream(6, cfg.vocab_size, max_new_tokens=NEW_TOKENS,
+                          rate=50.0, min_prompt=PROMPT_LEN // 4,
+                          max_prompt=PROMPT_LEN, seed=0)
+    engine = Engine(model, cfg, max_slots=4, block_size=8, prefill_chunk=8,
+                    max_model_len=PROMPT_LEN + NEW_TOKENS, **engine_kw)
+    counters = dict(msgemm=ms, int4_matmul=i4, paged_attention=pa)
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in counters.items()}
+    steps = engine.num_steps
+    check(steps > 0, f"[{tag}] the engine took no step")
+    check(sorted(results) == list(range(len(reqs))),
+          f"[{tag}] finished {sorted(results)} of {len(reqs)} requests")
+    for rid, seq in sorted(results.items()):
+        check(seq.status == "ok" and len(seq.generated) == NEW_TOKENS,
+              f"[{tag}] request {rid}: status {seq.status}, "
+              f"{len(seq.generated)} tokens")
+    s = engine.metrics()
+    print(f"[{tag}] served {len(results)} requests, {s['generated_tokens']} "
+          f"tokens in {run_s:.2f}s over {steps} steps "
+          f"({s['prefill_steps']} prefill, {s['decode_steps']} decode): "
+          f"{s['tok_per_s']:.1f} tok/s, latency p50 "
+          f"{s['latency_p50_s'] * 1e3:.1f}ms p95 "
+          f"{s['latency_p95_s'] * 1e3:.1f}ms; launches {launches}",
+          flush=True)
+    return dict(reqs=reqs, run_s=run_s, steps=steps, launches=launches,
+                metrics=s,
+                tokens={rid: seq.generated for rid, seq in results.items()})
+
+
+def check_static(tag, model, cfg, run):
+    """Engine tokens == the static ``generate`` path for every request."""
+    import torch
+
+    from repro_torch.runtime import serve as SV
+
+    for rid, toks in sorted(run["tokens"].items()):
+        prompt = torch.tensor([run["reqs"][rid].prompt], dtype=torch.int32,
+                              device="cuda")
+        ref = [int(t) for t in SV.generate(model, cfg, prompt,
+                                           max_new_tokens=NEW_TOKENS)[0]]
+        check(ref == toks, f"[{tag}] request {rid}: engine tokens {toks} "
+                           f"!= static {ref}")
+
+
+def build_gemma(spec):
+    """Full-width gemma-2b from seed 0, quantized on the card per spec."""
     import torch
 
     from repro_torch.configs.gemma_2b import CONFIG
-    from repro_torch.core.spec import QuantSpec
     from repro_torch.device import generator
-    from repro_torch.kernels import msgemm as ms
     from repro_torch.models import transformer
     from repro_torch.quant import quantized_size_bytes
-    from repro_torch.runtime import serve as SV
-    from repro_torch.serving import Engine, poisson_stream
 
-    spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = transformer.init_params(CONFIG, generator=generator(0, "cuda"),
                                     device="cuda", quant=spec)
     torch.cuda.synchronize()
-    cfg = CONFIG.replace(quant=spec)
     build_s = time.perf_counter() - t0
-    print(f"[main] gemma-2b built and quantized on the card in {build_s:.1f}s "
-          f"({quantized_size_bytes(model) / 2**30:.2f} GiB of buffers, peak "
+    size = quantized_size_bytes(model)
+    print(f"[main] gemma-2b built and quantized ({spec.mode}, "
+          f"{spec.storage}) on the card in {build_s:.1f}s "
+          f"({size / 2**30:.2f} GiB of buffers, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", flush=True)
+    return model, CONFIG.replace(quant=spec), build_s, size
 
-    new, prompt_len = 16, 16
-    reqs = poisson_stream(6, cfg.vocab_size, max_new_tokens=new, rate=50.0,
-                          min_prompt=prompt_len // 4, max_prompt=prompt_len,
-                          seed=0)
-    engine = Engine(model, cfg, max_slots=4, block_size=8, prefill_chunk=8,
-                    max_model_len=prompt_len + new)
-    ms.launches = 0
-    t0 = time.perf_counter()
-    results = engine.run(reqs)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = ms.launches
-    steps = engine.num_steps
-    check(launches == 126 * steps and steps > 0,
-          f"kernel launches {launches} != 126 x {steps} engine steps")
-    check(sorted(results) == list(range(len(reqs))),
-          f"finished {sorted(results)} of {len(reqs)} requests")
-    for rid, seq in sorted(results.items()):
-        check(seq.status == "ok" and len(seq.generated) == new,
-              f"request {rid}: status {seq.status}, "
-              f"{len(seq.generated)} tokens")
-    s = engine.metrics()
-    print(f"[main] served {len(results)} requests, {s['generated_tokens']} "
-          f"tokens in {run_s:.2f}s over {steps} steps "
-          f"({s['prefill_steps']} prefill, {s['decode_steps']} decode): "
-          f"{s['tok_per_s']:.1f} tok/s, latency p50 "
-          f"{s['latency_p50_s'] * 1e3:.1f}ms p95 "
-          f"{s['latency_p95_s'] * 1e3:.1f}ms; msgemm launches {launches}",
-          flush=True)
 
-    for rid, seq in sorted(results.items()):
-        toks = torch.tensor([seq.req.prompt], dtype=torch.int32,
-                            device="cuda")
-        ref = SV.generate(model, cfg, toks, max_new_tokens=new)
-        check([int(t) for t in ref[0]] == seq.generated,
-              f"request {rid}: engine tokens {seq.generated} != static "
-              f"{[int(t) for t in ref[0]]}")
+def phase_main():
+    import torch
+
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import transformer
+
+    spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
+    model, cfg, build_s, size = build_gemma(spec)
+    run = serve("main", model, cfg)
+    steps, launches = run["steps"], run["launches"]
+    check(launches["msgemm"] == 126 * steps,
+          f"msgemm launches {launches['msgemm']} != 126 x {steps} engine "
+          "steps")
+    check(launches["int4_matmul"] == 0 and launches["paged_attention"] == 0,
+          f"full-precision msgemm run launched other kernels: {launches}")
+    check_static("main", model, cfg, run)
     with torch.no_grad():
-        toks = torch.tensor([reqs[0].prompt], dtype=torch.int32,
+        toks = torch.tensor([run["reqs"][0].prompt], dtype=torch.int32,
                             device="cuda")
         logits = transformer.forward(model, cfg, toks)
-    check(tuple(logits.shape) == (1, len(reqs[0].prompt), cfg.vocab_size)
+    check(tuple(logits.shape) == (1, toks.shape[1], cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"forward logits {tuple(logits.shape)} not finite/expected")
     print("[main] engine tokens == static generate for every request; "
           "forward logits finite", flush=True)
-    return dict(build_s=build_s, run_s=run_s, steps=steps,
-                launches=launches, metrics=s,
-                tokens={rid: seq.generated for rid, seq in results.items()},
+    run.pop("reqs")
+    return dict(run, build_s=build_s, model_bytes=size, model=model,
+                cfg=cfg)
+
+
+def phase_main_kvq(model, cfg, kv16_tokens):
+    """The msgemm model served with a quantized KV pool: kv8 and kv4, each
+    through the paged-attention kernel (auto-selected) and forced to the
+    torch backend."""
+    import torch
+
+    from repro_torch import kvq
+
+    out = {}
+    for bits in (8, 4):
+        runs = {}
+        for route, backend in (("kernel", None), ("torch", "paged_attn_torch")):
+            spec = kvq.KVQuantSpec(bits, backend=backend)
+            want = "paged_attn_cuda" if backend is None else backend
+            check(kvq.attention.select(spec, "cuda") == want,
+                  f"kv{bits} {route}: selected "
+                  f"{kvq.attention.select(spec, 'cuda')}, want {want}")
+            tag = f"kv{bits}-{route}"
+            run = serve(tag, model, cfg, kv_quant=spec)
+            steps, launches = run["steps"], run["launches"]
+            want_pa = 18 * steps if route == "kernel" else 0
+            check(launches["paged_attention"] == want_pa,
+                  f"[{tag}] paged-attention launches "
+                  f"{launches['paged_attention']} != {want_pa}")
+            check(launches["msgemm"] == 126 * steps,
+                  f"[{tag}] msgemm launches {launches['msgemm']} != 126 x "
+                  f"{steps}")
+            run.pop("reqs")
+            runs[route] = run
+        for rid, toks in runs["kernel"]["tokens"].items():
+            check(toks == runs["torch"]["tokens"][rid],
+                  f"kv{bits} request {rid}: kernel route {toks} != torch "
+                  f"route {runs['torch']['tokens'][rid]}")
+        spec = kvq.KVQuantSpec(bits)
+        bpt = kvq.bytes_per_token(cfg, spec)
+        f32 = kvq.bytes_per_token(cfg, None, torch.float32)
+        bf16 = kvq.bytes_per_token(cfg, None, torch.bfloat16)
+        same = sum(toks == kv16_tokens[rid]
+                   for rid, toks in runs["kernel"]["tokens"].items())
+        print(f"[kv{bits}] kernel and torch routes agree on every request; "
+              f"pool {bpt} B/token vs {f32} (f32 pool, the engine's "
+              f"default) and {bf16} (bf16): {f32 / bpt:.2f}x and "
+              f"{bf16 / bpt:.2f}x; {same}/{len(kv16_tokens)} requests "
+              f"equal the full-precision pool's tokens", flush=True)
+        out[f"kv{bits}"] = dict(runs, bytes_per_token=bpt,
+                                f32_bytes_per_token=f32,
+                                bf16_bytes_per_token=bf16,
+                                same_as_kv16=same)
+    return out
+
+
+def phase_main_int4(msgemm_tokens):
+    """gemma-2b from the same seed with int4 weights (the msgemm run's
+    codes and scales) through the int4 kernel."""
+    from repro_torch.core.spec import QuantSpec
+
+    spec = QuantSpec(mode="int4_dequant", d=3, scale_block=36,
+                     storage="packed_u8")
+    model, cfg, build_s, size = build_gemma(spec)
+    run = serve("int4", model, cfg)
+    steps, launches = run["steps"], run["launches"]
+    check(launches["int4_matmul"] == 126 * steps,
+          f"[int4] int4 launches {launches['int4_matmul']} != 126 x {steps}")
+    check(launches["msgemm"] == 0 and launches["paged_attention"] == 0,
+          f"[int4] other kernels launched: {launches}")
+    check_static("int4", model, cfg, run)
+    same = sum(toks == msgemm_tokens[rid]
+               for rid, toks in run["tokens"].items())
+    print(f"[int4] engine tokens == static generate for every request; "
+          f"{same}/{len(msgemm_tokens)} requests equal the msgemm run's "
+          "tokens", flush=True)
+    run.pop("reqs")
+    return dict(run, build_s=build_s, model_bytes=size, same_as_msgemm=same,
                 model=model, cfg=cfg)
 
 
-def phase_profile(model, cfg):
+def phase_profile(tag, model, cfg, **engine_kw):
     """Where an engine step's time goes: the same request stream, all
     arriving at once, under torch.profiler; device time by kernel name
     and the device's busy share of the wall time (profiler on, so the
-    host side is slower than unprofiled)."""
+    host side is slower than unprofiled).  ``engine_kw`` as for
+    :func:`serve` (``kv_quant``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -324,7 +714,7 @@ def phase_profile(model, cfg):
     reqs = poisson_stream(6, cfg.vocab_size, max_new_tokens=16, rate=0.0,
                           min_prompt=4, max_prompt=16, seed=1)
     engine = Engine(model, cfg, max_slots=4, block_size=8, prefill_chunk=8,
-                    max_model_len=32)
+                    max_model_len=32, **engine_kw)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -345,10 +735,10 @@ def phase_profile(model, cfg):
                prefill_steps=engine.num_prefill_steps,
                top=[dict(name=n[:120], device_ms=t, count=c)
                     for n, t, c in rows[:12]])
-    print(f"[profile] {engine.num_steps} steps in {wall_s * 1e3:.1f}ms wall, "
-          f"device busy {busy_ms:.1f}ms ({out['busy_share']:.1%})")
+    print(f"[profile {tag}] {engine.num_steps} steps in {wall_s * 1e3:.1f}ms "
+          f"wall, device busy {busy_ms:.1f}ms ({out['busy_share']:.1%})")
     for r in out["top"]:
-        print(f"[profile]   {r['device_ms']:9.3f}ms x{r['count']:5d} "
+        print(f"[profile {tag}]   {r['device_ms']:9.3f}ms x{r['count']:5d} "
               f"{r['name'][:90]}")
     return out
 
@@ -357,7 +747,8 @@ def phase_profile(model, cfg):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile an engine run (torch.profiler)")
+                    help="also profile the engine (torch.profiler) with "
+                         "msgemm weights at kv16 and kv8, and int4 weights")
     args = ap.parse_args()
     try:
         import torch
@@ -369,7 +760,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.kernels import msgemm as ms
+        from repro_torch.kernels import nvcc
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
@@ -379,15 +770,30 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    lib = ms.build(verbose=True)
+    libs = nvcc.build_all(verbose=True)
     build_s = time.perf_counter() - t0
-    print(f"[build] {lib.name} in {build_s:.1f}s", flush=True)
+    print(f"[build] {', '.join(p.name for p in libs.values())} in "
+          f"{build_s:.1f}s", flush=True)
 
     cases = phase_kernels()
+    int4_cases = phase_int4_kernels()
+    attn_cases = phase_attn_kernels()
     main_path = phase_main()
     model, cfg = main_path.pop("model"), main_path.pop("cfg")
+    kvq_path = phase_main_kvq(model, cfg, main_path["tokens"])
     if args.profile:
-        main_path["profile"] = phase_profile(model, cfg)
+        from repro_torch.kvq import KVQuantSpec
+
+        main_path["profile"] = phase_profile("msgemm", model, cfg)
+        kvq_path["kv8"]["profile"] = phase_profile(
+            "msgemm-kv8", model, cfg, kv_quant=KVQuantSpec(8))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4_path = phase_main_int4(main_path["tokens"])
+    model, cfg = int4_path.pop("model"), int4_path.pop("cfg")
+    if args.profile:
+        int4_path["profile"] = phase_profile("int4", model, cfg)
     del model
 
     smi = subprocess.run(
@@ -396,31 +802,50 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else f"nvidia-smi failed: {smi.stderr.strip()}"
 
-    # the JSON line's numbers: one gemma-2b layer's seven GeMMs at the
-    # engine's decode shape (b = max_slots = 4), summed
-    layer = [c for c in cases if c["b"] == 4 and c["name"] in
-             {n for n, *_ in GEMMA_GEMMS}]
-    layer += [dict(c, name="wv") for c in layer if c["name"] == "wk"]
-    tot = {key: sum(c[key] for c in layer)
-           for key in ("ms", "plain_ms", "library_ms", "bytes", "ops")}
-    t_bytes = tot["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = tot["ops"] / F32_OPS_PER_S * 1e3
-    kernels = [{
-        "name": "msgemm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/msgemm.cu",
-        "replaces": "src/repro/kernels/msgemm.py:252",
-        "launches": main_path["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": tot["library_ms"],
-        "shape": "sum of one gemma-2b layer's 7 GeMMs at b=4",
-    }]
+    def layer_entry(gemm_cases):
+        """Timing keys summed over one gemma-2b layer's seven GeMMs at the
+        engine's decode shape (b = max_slots = 4)."""
+        layer = [c for c in gemm_cases if c["b"] == 4 and c["name"] in
+                 {n for n, *_ in GEMMA_GEMMS}]
+        layer += [dict(c, name="wv") for c in layer if c["name"] == "wk"]
+        tot = {key: sum(c[key] for c in layer)
+               for key in ("ms", "plain_ms", "library_ms", "bytes", "ops")}
+        return with_bound(
+            {"max_abs_err": max(c["max_abs_err"] for c in gemm_cases),
+             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+             "library_ms": tot["library_ms"],
+             "shape": "sum of one gemma-2b layer's 7 GeMMs at b=4"},
+            tot["bytes"], tot["ops"])
+
+    decode = next(c for c in attn_cases if c["name"] == "decode-kv8")
+    kernels = [
+        {"name": "msgemm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/msgemm.cu",
+         "replaces": "src/repro/kernels/msgemm.py:252",
+         "launches": main_path["launches"]["msgemm"], **layer_entry(cases)},
+        {"name": "int4_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/int4_matmul.cu",
+         "replaces": "src/repro/kernels/int4_matmul.py:165",
+         "launches": int4_path["launches"]["int4_matmul"],
+         **layer_entry(int4_cases)},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:157",
+         "launches": sum(kvq_path[kv]["kernel"]["launches"]
+                         ["paged_attention"] for kv in ("kv8", "kv4")),
+         "max_abs_err": max(c["max_abs_err"] for c in attn_cases),
+         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+         "library_ms": decode["library_ms"],
+         "shape": "gemma-2b decode at kv8: B=4, C=1, H=8, Hk=1, Dh=256, "
+                  "block 8, 32 view slots; library_ms is sdpa on the "
+                  "dequantized f32 view"},
+    ]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, cases=cases, main=main_path,
+        card=card, build_s=build_s, cases=cases, int4_cases=int4_cases,
+        attn_cases=attn_cases, main=main_path, kvq=kvq_path, int4=int4_path,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     print(f"[report] total {time.perf_counter() - t_start:.1f}s")
     print(card)

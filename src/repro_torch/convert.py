@@ -17,19 +17,30 @@ import torch
 from repro_torch.core.linear import QLinear
 from repro_torch.core.spec import QuantSpec
 from repro_torch.device import resolve
+from repro_torch.kvq.spec import KVQuantSpec
 from repro_torch.models import common, layers, transformer
 from repro_torch.models.config import ModelConfig
+
+
+# the reference's paged-attention backends and their port counterparts
+KV_BACKENDS = {"paged_attn_jnp": "paged_attn_torch",
+               "paged_attn_pallas": "paged_attn_cuda"}
 
 
 def config_from_jax(jcfg) -> ModelConfig:
     """The port's config from a reference ``ModelConfig`` (read by
     attribute; the fields the port's decoder uses)."""
-    names = {f.name for f in dataclasses.fields(ModelConfig)} - {"quant"}
-    q = jcfg.quant
+    names = {f.name for f in dataclasses.fields(ModelConfig)} \
+        - {"quant", "kv_quant"}
+    q, kq = jcfg.quant, jcfg.kv_quant
+    kv = None if kq is None else KVQuantSpec(
+        bits=kq.bits, codebook=kq.codebook,
+        backend=KV_BACKENDS.get(kq.backend, kq.backend))
     return ModelConfig(**{n: getattr(jcfg, n) for n in names},
                        quant=QuantSpec(mode=q.mode, d=q.d,
                                        scale_block=q.scale_block,
-                                       storage=q.storage, codebook=q.codebook))
+                                       storage=q.storage, codebook=q.codebook),
+                       kv_quant=kv)
 
 
 def _t(a, device) -> torch.Tensor:

@@ -20,16 +20,17 @@ from repro_torch.dispatch.registry import (  # noqa: F401
 )
 from repro_torch.dispatch import backends as _backends  # noqa: F401 (registers)
 from repro_torch.kernels import ops
+from repro_torch.kernels.int4_matmul import Int4Tiles
 from repro_torch.kernels.msgemm import Tiles
 
 
 @dataclass(frozen=True)
 class ExecPlan:
-    """backend: registered backend name.  tiles: the msGeMM kernel's work
-    split (None: the kernel wrapper's heuristic)."""
+    """backend: registered backend name.  tiles: the msGeMM or int4
+    kernel's work split (None: the kernel wrapper's heuristic)."""
 
     backend: str
-    tiles: Tiles | None = None
+    tiles: Tiles | Int4Tiles | None = None
 
 
 def plan_d(spec: QuantSpec, m: int, k: int) -> int:
@@ -44,6 +45,8 @@ def heuristic_plan(spec: QuantSpec, d: int, m: int, k: int, batch: int,
     if backend == "msgemm_cuda":
         return ExecPlan(backend=backend, tiles=ops.msgemm_tiles(
             m, math.ceil(k / d), batch, d, spec.scale_block))
+    if backend == "int4_cuda":
+        return ExecPlan(backend=backend, tiles=ops.int4_tiles(m, k, batch))
     return ExecPlan(backend=backend)
 
 
@@ -75,7 +78,8 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
     """Run one linear ``x (..., k) -> y (..., m)`` through the registry.
 
     ``epilogue`` describes ``y = act(y + bias) + residual`` (then cast).
-    A backend that can fuses it (``msgemm_cuda``); otherwise the same ops
+    A backend that can fuses it (``msgemm_cuda``, ``int4_cuda``); otherwise
+    the same ops
     run after the GeMM (``apply_epilogue``).
     ``bias`` is (m,); ``residual`` matches the output (..., m).
     """

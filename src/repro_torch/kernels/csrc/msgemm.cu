@@ -4,8 +4,9 @@
 // grid; with the identity epilogue this kernel computes the legacy one).
 // The design and its bound are described in repro_torch/kernels/msgemm.py.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC -o libmsgemm.so msgemm.cu
+// Build (repro_torch/kernels/nvcc.py): nvcc -gencode
+//   arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+//   -I csrc -o libmsgemm.so msgemm.cu
 // Plain C interface, loaded with ctypes.
 //
 // Work split.  A block owns TM = 256*RPT output rows, TB batch columns and
@@ -29,17 +30,14 @@
 //   total = ((acc_split0 + acc_split1) + ...)
 //   out   = cast(act(total + bias) + residual)
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "epilogue.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3 };
-enum OutType { OUT_F32 = 0, OUT_BF16 = 1, OUT_F16 = 2 };
 
 struct Params {
   const int32_t* idx;     // (m, kc) row-major LUT indices
@@ -56,35 +54,12 @@ struct Params {
   int act, out_type;
 };
 
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case ACT_RELU:
-      return v < 0.0f ? 0.0f : v;
-    case ACT_GELU: {  // tanh approximation, as jax.nn.gelu
-      const float inner = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-      return 0.5f * v * (1.0f + tanhf(inner));
-    }
-    case ACT_SILU:
-      return v / (1.0f + expf(-v));
-    default:
-      return v;
-  }
-}
-
 __device__ __forceinline__ void finish(const Params& p, int row, int col,
                                        float acc) {
-  float t = acc;
-  if (p.bias) t = __fadd_rn(t, p.bias[row]);
-  t = activate(t, p.act);
-  if (p.res) t = __fadd_rn(t, p.res[row * p.rs_m + col * p.rs_b]);
-  const long long off = row * p.os_m + col * p.os_b;
-  if (p.out_type == OUT_BF16) {
-    reinterpret_cast<__nv_bfloat16*>(p.out)[off] = __float2bfloat16_rn(t);
-  } else if (p.out_type == OUT_F16) {
-    reinterpret_cast<__half*>(p.out)[off] = __float2half_rn(t);
-  } else {
-    reinterpret_cast<float*>(p.out)[off] = t;
-  }
+  epi::finish(acc, p.bias != nullptr, p.bias ? p.bias[row] : 0.0f, p.act,
+              p.res != nullptr,
+              p.res ? p.res[row * p.rs_m + col * p.rs_b] : 0.0f, p.out,
+              row * p.os_m + col * p.os_b, p.out_type);
 }
 
 template <int D, int TB, int RPT, bool SMEM_LUT>

@@ -39,27 +39,21 @@ except inside ``tanh``/``exp`` of the gelu/silu epilogues.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import lut as lut_mod
 from repro_torch.core.epilogue import act_fn
+from repro_torch.kernels import nvcc
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "msgemm.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-
+# the codes of csrc/epilogue.cuh's Act and DType enums
 ACTS = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 THREADS = 256  # kThreads in csrc/msgemm.cu
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+             + [ctypes.c_longlong] * 6
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 # Kernel launches since the last reset; the main path's callers set it to
 # 0, drive the model, and read it to prove every GeMM went through the
@@ -80,50 +74,6 @@ class Tiles(NamedTuple):
     tb: int
     rpt: int
     tj: int
-
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/msgemm.cu`` for sm_90a into ``BUILD_DIR`` (once per
-    source content) and return the shared library's path."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libmsgemm-{tag}.so"
-    if lib.exists():
-        return lib
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(nvcc).exists():
-        raise RuntimeError("nvcc not found: the msGeMM kernel is built "
-                           "with the CUDA toolkit at first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.msgemm_launch
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
-                           + [ctypes.c_longlong] * 6
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def _check(idx, x, scales, values, d, scale_block, bias, residual):
@@ -202,7 +152,7 @@ def msgemm_cuda(idx: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rs = residual.stride() if residual is not None else (0, 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _load().msgemm_launch(
+    err = nvcc.load("msgemm", "msgemm_launch", _ARGTYPES)(
         ptr(idx), ptr(x), ptr(scales), ptr(values), ptr(bias), ptr(residual),
         ptr(out), ptr(ws), ptr(lut_scratch),
         m, k, kc, b, d, cpb, nsb, tiles.tj, nsplit, tiles.tb, tiles.rpt,

@@ -1,8 +1,9 @@
-"""Public wrapper around the msGeMM kernel; port of repro.kernels.ops.
+"""Public wrappers around the msGeMM and int4 GeMM kernels; port of
+repro.kernels.ops.
 
-It handles the vector-x squeeze, the epilogue operands in the kernel's
+They handle the vector-x squeeze, the epilogue operands in the kernels'
 (m, b) column layout, the code->value table, and the Hopper tile choice.
-The kernel masks ragged rows, columns and chunks itself, so nothing is
+The kernels mask ragged rows, columns and k themselves, so nothing is
 padded to tile multiples here (the TPU wrapper had to pad every operand).
 None of the TPU VMEM budgeting carries over.
 """
@@ -15,7 +16,9 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.epilogue import Epilogue, torch_dtype
+from repro_torch.kernels import int4_matmul as _i4
 from repro_torch.kernels import msgemm as _ms
+from repro_torch.kernels.int4_matmul import Int4Tiles
 from repro_torch.kernels.msgemm import Tiles
 
 # H100 SXM streaming multiprocessors.  A constant, not a device query, so
@@ -82,6 +85,50 @@ def msgemm(idx: torch.Tensor, x: torch.Tensor, d: int, *,
         idx.to(torch.int32).contiguous(), f32(x),
         f32(scales).contiguous(), values, d=d, scale_block=scale_block,
         tiles=tiles, act=ep.act,
+        bias=None if bias is None else f32(bias).contiguous(),
+        residual=f32(residual),
+        out_dtype=torch_dtype(ep.out_dtype) or torch.float32)
+    return y[:, 0] if squeeze else y
+
+
+def int4_tiles(m: int, k: int, b: int) -> Int4Tiles:
+    """Hopper tile choice for the int4 kernel: tb columns per block (the
+    batch, rounded up to 1, 2, 4 or 8) and an x tile of tk codes that
+    keeps tb·tk floats at 32 KiB of shared memory."""
+    tb = next(t for t in (1, 2, 4, 8) if t >= min(b, 8))
+    step = _i4.STEP
+    return Int4Tiles(tb=tb, tk=min(-(-k // step) * step, 8192 // tb))
+
+
+def int4_matmul(u8: torch.Tensor, scales: torch.Tensor, x: torch.Tensor, *,
+                scale_block: int = 32, tiles: Int4Tiles | None = None,
+                epilogue: Epilogue | None = None,
+                bias: torch.Tensor | None = None,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+    """y (m, b) = epilogue(dequant(packed u8 (m, k/2)) @ x (k, b)) through
+    the int4 kernel (CUDA tensors) or its plain version (CPU tensors).
+
+    scales (m, ceil(k/scale_block)); x (k, b) or (k,).  ``epilogue`` is
+    fused: ``bias`` is (m,), ``residual`` (m, b) column layout.  The output
+    dtype is ``epilogue.out_dtype``, float32 when unset.  A ragged last
+    scale block and odd k are masked in the kernel, not padded.
+    """
+    ep = epilogue or Epilogue()
+    if ep.bias != (bias is not None) or ep.residual != (residual is not None):
+        raise ValueError("bias/residual arrays must match the epilogue flags "
+                         f"(epilogue={ep}, bias given={bias is not None}, "
+                         f"residual given={residual is not None})")
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+        if residual is not None and residual.ndim == 1:
+            residual = residual[:, None]
+    if tiles is None:
+        tiles = int4_tiles(u8.shape[0], x.shape[0], x.shape[1])
+    f32 = lambda t: None if t is None else t.to(torch.float32)  # noqa: E731
+    y = _i4.int4_matmul(
+        u8.contiguous(), f32(scales).contiguous(), f32(x),
+        scale_block=scale_block, tiles=tiles, act=ep.act,
         bias=None if bias is None else f32(bias).contiguous(),
         residual=f32(residual),
         out_dtype=torch_dtype(ep.out_dtype) or torch.float32)

@@ -1,0 +1,28 @@
+"""Quantized paged KV cache; port of repro.kvq.
+
+The pool stores low-bit codes and per-slot, per-head scales instead of
+full-precision values (2-4x+ more resident sequences per pool byte), and
+the CUDA paged-attention kernel dequantizes K/V on chip at read time.
+
+* :class:`KVQuantSpec` — frozen storage description (``ModelConfig.kv_quant``);
+* :func:`kv_quantize` / :func:`kv_dequantize` — the write and read ops;
+* :func:`init_kv_pool`, :func:`bytes_per_token`, :func:`pool_bytes`,
+  :func:`blocks_for_bytes`, :func:`capacity_table` — pool tensors and the
+  capacity arithmetic the engine sizes pools with;
+* :mod:`repro_torch.kvq.attention` — the paged-attention backends
+  (importing this package registers them).
+
+Fitting a codebook (the reference's ``fit_kv_codebook`` and
+``kv_reconstruction_error``) waits for the calibration slice; a spec with
+an explicit 16-value codebook works.
+"""
+
+from repro_torch.kvq import attention  # noqa: F401  (registers backends)
+from repro_torch.kvq.pool import (  # noqa: F401
+    blocks_for_bytes, bytes_per_token, capacity_table, init_kv_pool,
+    pool_bytes,
+)
+from repro_torch.kvq.quantize import (  # noqa: F401
+    kv_dequantize, kv_quantize, pack_codes, unpack_codes,
+)
+from repro_torch.kvq.spec import KVQuantSpec  # noqa: F401

@@ -11,6 +11,7 @@ import dataclasses
 from dataclasses import dataclass, field
 
 from repro_torch.core.spec import DENSE, QuantSpec
+from repro_torch.kvq.spec import KVQuantSpec
 
 BLOCK_KINDS = ("attn", "local")
 
@@ -47,6 +48,8 @@ class ModelConfig:
     dtype: str = "float32"  # activation compute dtype
     param_dtype: str = "float32"
     quant: QuantSpec = field(default_factory=lambda: DENSE)
+    # quantized paged KV pool (None: full precision)
+    kv_quant: KVQuantSpec | None = None
 
     def __post_init__(self):
         if self.head_dim == 0:

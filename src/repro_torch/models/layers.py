@@ -1,8 +1,9 @@
 """Attention (GQA/MQA, RoPE, sliding window, soft-cap) with full-sequence,
 single-step-decode and paged paths; port of repro.models.layers.
 
-The paged path keeps a full-precision KV pool; the quantized pool and its
-paged-attention kernel arrive with the quantized-KV slice.
+The paged path keeps a full-precision KV pool, or with ``cfg.kv_quant``
+the quantized pool of repro_torch.kvq, read through its paged-attention
+backends.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch import kvq
 from repro_torch.models import common
 
 NEG_INF = -1e30  # finite mask value: masked entries get probability exactly 0
@@ -160,7 +162,9 @@ def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,
     """Self-attention over a paged KV pool — one chunked-prefill step
     (C > 1) or one batched decode step (C == 1).
 
-    x (B, C, d); cache {"k", "v"} (num_blocks, bs, Hk, Dh) full precision;
+    x (B, C, d); cache {"k", "v"} (num_blocks, bs, Hk, Dh) at full
+    precision, or the quantized {"k", "k_scale", "v", "v_scale"} layout
+    of repro_torch.kvq.pool when ``cfg.kv_quant`` is set;
     positions/write_slots (B, C); view_slots (B, W) flat pool slots such
     that view index w holds position w (scratch-padded).  The pool is
     updated in place with ``index_copy_`` (the reference scatters into a
@@ -169,17 +173,41 @@ def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,
     Returns (out, cache).
     """
     q, k, v = _qkv(p, cfg, x, positions)
-    k_pool, v_pool = cache["k"], cache["v"]
-    nb, bs, hk, dh = k_pool.shape
-    kp = k_pool.view(nb * bs, hk, dh)
-    vp = v_pool.view(nb * bs, hk, dh)
-    ws = write_slots.reshape(-1).long()
-    kp.index_copy_(0, ws, k.reshape(-1, hk, dh).to(kp.dtype))
-    vp.index_copy_(0, ws, v.reshape(-1, hk, dh).to(vp.dtype))
-    vs = view_slots.long()
-    m = view_mask(view_slots.shape[1], positions, window=window)
-    out = _sdpa(cfg, q, kp[vs], vp[vs], m[:, None])
+    if cfg.kv_quant is not None:
+        out = _attn_paged_quantized(cfg, q, k, v, cache, positions,
+                                    write_slots, view_slots, window=window)
+    else:
+        k_pool, v_pool = cache["k"], cache["v"]
+        nb, bs, hk, dh = k_pool.shape
+        kp = k_pool.view(nb * bs, hk, dh)
+        vp = v_pool.view(nb * bs, hk, dh)
+        ws = write_slots.reshape(-1).long()
+        kp.index_copy_(0, ws, k.reshape(-1, hk, dh).to(kp.dtype))
+        vp.index_copy_(0, ws, v.reshape(-1, hk, dh).to(vp.dtype))
+        vs = view_slots.long()
+        m = view_mask(view_slots.shape[1], positions, window=window)
+        out = _sdpa(cfg, q, kp[vs], vp[vs], m[:, None])
     out = common.linear_apply(p.wo, out, cfg.quant,
                               in_dim=cfg.num_heads * cfg.head_dim,
                               residual=residual)
     return out, cache
+
+
+def _attn_paged_quantized(cfg, q, k, v, cache, positions, write_slots,
+                          view_slots, *, window: int = 0):
+    """Quantize on write into the codes + scales pool (in place, as the
+    full-precision branch), then run the attention through the selected
+    paged-attention backend (repro_torch.kvq.attention: the torch
+    gather-and-dequantize reference, or the CUDA kernel that dequantizes
+    on chip).  Returns (B, C, H*Dh)."""
+    spec = cfg.kv_quant
+    nb, bs, hk, dhp = cache["k"].shape
+    ws = write_slots.reshape(-1).long()
+    for name, new in (("k", k), ("v", v)):
+        codes, scales = kvq.kv_quantize(new, spec)  # (B,C,Hk,Dhp), (B,C,Hk)
+        cache[name].view(nb * bs, hk, dhp).index_copy_(
+            0, ws, codes.reshape(-1, hk, dhp))
+        cache[f"{name}_scale"].view(nb * bs, hk).index_copy_(
+            0, ws, scales.reshape(-1, hk))
+    return kvq.attention.run(spec, cfg, q, cache, view_slots, positions,
+                             window=window)

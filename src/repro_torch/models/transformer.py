@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch import kvq
 from repro_torch.device import resolve
 from repro_torch.models import common, layers
 from repro_torch.models.config import ModelConfig
@@ -176,10 +177,20 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, cache):
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     dtype=torch.float32, *, device=None) -> list[dict]:
+                     dtype=torch.float32, *, device=None,
+                     kv_spec=None) -> list[dict]:
     """Per-layer (num_blocks, bs, Hk, Dh) K/V block pools for paged serving;
-    sequences own disjoint blocks through host-side block tables."""
+    sequences own disjoint blocks through host-side block tables.
+    ``kv_spec`` (default ``cfg.kv_quant``) lays each pool out as the
+    quantized {"k", "k_scale", "v", "v_scale"} of repro_torch.kvq.pool:
+    the same block and slot indexing, fewer bytes per token."""
     dev = resolve(device)
+    if kv_spec is None:
+        kv_spec = cfg.kv_quant
+    if kv_spec is not None:
+        return [kvq.init_kv_pool(kv_spec, num_blocks, block_size,
+                                 cfg.num_kv_heads, cfg.head_dim, device=dev)
+                for _ in range(cfg.num_layers)]
     shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
              "v": torch.zeros(shape, dtype=dtype, device=dev)}

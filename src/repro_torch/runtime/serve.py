@@ -35,9 +35,11 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     dtype=torch.float32, *, device=None):
+                     dtype=torch.float32, *, device=None, kv_spec=None):
+    """Paged KV block pool; ``kv_spec`` (default ``cfg.kv_quant``) selects
+    the quantized codes + scales layout (repro_torch.kvq)."""
     return transformer.init_paged_cache(cfg, num_blocks, block_size, dtype,
-                                        device=device)
+                                        device=device, kv_spec=kv_spec)
 
 
 def paged_step(params, cfg: ModelConfig, tokens, pool, positions,

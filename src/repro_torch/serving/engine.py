@@ -22,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import kvq
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import serve as SV
 from repro_torch.serving import kv_blocks
@@ -37,7 +38,13 @@ class Engine:
     positions.  num_blocks: pool size incl. the reserved scratch block;
     the default never preempts (max_slots full-length sequences).
     max_model_len: per-sequence position budget.  prefill_chunk: prefill
-    tokens per iteration.  on_token: optional ``f(rid, token, text)``
+    tokens per iteration.  kv_quant: a ``repro_torch.kvq.KVQuantSpec`` —
+    store the pool as low-bit codes + scales and read it through the
+    paged-attention backends (the CUDA kernel on the GPU); None keeps the
+    full-precision ``cache_dtype`` pool.  kv_pool_bytes: size the pool by
+    a device-byte budget at its actual storage cost
+    (``kvq.blocks_for_bytes``) instead of ``num_blocks`` (ignored when
+    ``num_blocks`` is given).  on_token: optional ``f(rid, token, text)``
     streaming callback.  sample_seed: seeds the host-side sampler used
     for requests with temperature > 0.
     """
@@ -45,16 +52,24 @@ class Engine:
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
                  block_size: int = 16, num_blocks: int | None = None,
                  max_model_len: int | None = None, prefill_chunk: int = 16,
-                 cache_dtype=torch.float32, on_token=None,
+                 cache_dtype=torch.float32, kv_quant=None,
+                 kv_pool_bytes: int | None = None, on_token=None,
                  clock=time.perf_counter, sample_seed: int = 0):
         self.params = params
+        if kv_quant is not None:
+            cfg = cfg.replace(kv_quant=kv_quant)
         self.cfg = cfg
         self.device = params.embedding.device
         self.max_model_len = max_model_len or cfg.max_seq_len
         self.block_size = block_size
         self.max_blocks_per_seq = -(-self.max_model_len // block_size)
         if num_blocks is None:
-            num_blocks = max_slots * self.max_blocks_per_seq + 1
+            if kv_pool_bytes is not None:
+                num_blocks = kvq.blocks_for_bytes(
+                    cfg, kv_pool_bytes, block_size, cfg.kv_quant,
+                    cache_dtype)
+            else:
+                num_blocks = max_slots * self.max_blocks_per_seq + 1
         self.pool = BlockPool(num_blocks, block_size)
         self.kv = SV.init_paged_cache(cfg, num_blocks, block_size,
                                       cache_dtype, device=self.device)

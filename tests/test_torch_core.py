@@ -237,8 +237,12 @@ def test_dispatch_selects_and_rejects():
     ms_spec = t_spec.QuantSpec(mode="msgemm", d=3, scale_block=12)
     assert dispatch.plan(ms_spec, 16, 24, 4).backend == "msgemm_cuda"
     assert dispatch.plan(t_spec.DENSE, 16, 24, 4).backend == "dense"
+    i4_spec = t_spec.QuantSpec(mode="int4_dequant")
+    assert dispatch.plan(i4_spec, 16, 24, 4).backend == "int4_cuda"
+    # int4 with a learned codebook has no port backend yet
     with pytest.raises(ValueError, match="no backend"):
-        dispatch.plan(t_spec.QuantSpec(mode="int4_dequant"), 16, 24, 4)
+        dispatch.plan(t_spec.QuantSpec(mode="int4_dequant",
+                                       codebook="learned"), 16, 24, 4)
     w = torch.randn(16, 24, generator=torch.Generator().manual_seed(0))
     p = t_linear.from_dense(w, ms_spec)
     x = torch.randn(2, 24)

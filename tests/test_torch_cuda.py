@@ -1,12 +1,17 @@
-"""The msGeMM CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (msGeMM, int4 GeMM, paged attention) against their
+plain PyTorch versions, on the card.
 
 Marked ``cuda``: skips without a GPU.  Imports torch only (the machine
 with the card has no JAX); run there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
-Kernel and plain version share one op order, so results are bit-exact
-with the identity epilogue (on random floats too) and within rtol = atol
-= 1e-5 with gelu, whose tanh differs in the last ulps.
+The GeMM kernels and their plain versions share one op order, so results
+are bit-exact with the identity epilogue (on random floats too) and
+within rtol = atol = 1e-5 with gelu, whose tanh differs in the last ulps.
+Paged attention sums each dot product in another order than its plain
+version (a warp's shuffle tree against torch's einsum): rtol = atol =
+2e-5 on f32 outputs, the tolerance tests/test_kvq.py allows the
+reference's two routes, and one bf16 ulp (rtol = 2^-7) on bf16 outputs.
 """
 
 import numpy as np
@@ -58,3 +63,102 @@ def test_cuda_kernel_matches_plain(d, sb, m, k, b):
                 assert torch.equal(got, want)
             else:
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------- int4 GeMM
+I4_SHAPES = [  # (scale_block, m, k, b)
+    (36, 24, 90, 4),
+    (12, 7, 131, 3),
+    (36, 40, 300, 9),
+    (32, 9, 1100, 2),
+    (36, 16384, 2048, 4),  # gemma-2b gate/up
+    (36, 2048, 16384, 1),  # gemma-2b down
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb,m,k,b", I4_SHAPES)
+def test_int4_kernel_matches_plain(sb, m, k, b):
+    from repro_torch.kernels import int4_matmul as i4
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    rng = np.random.default_rng(m + k + b)
+    codes = torch.from_numpy(rng.integers(0, 16, size=(m, k)).astype(np.uint8))
+    u8 = packing.pack_storage(codes).contiguous().cuda()
+    nsb = -(-k // sb)
+    for exact in (True, False):
+        x = (rng.integers(-4, 5, size=(b, k)) if exact
+             else rng.standard_normal((b, k))).astype(np.float32)
+        sc = (2.0 ** rng.integers(-2, 3, size=(m, nsb)) if exact
+              else (np.abs(rng.standard_normal((m, nsb))) + 0.1) * k**-0.5)
+        # x and the residual as the engine passes them: (k, b) and (m, b)
+        # transposed views of row-major activations
+        xt = torch.from_numpy(x).cuda().t()
+        st = torch.from_numpy(sc.astype(np.float32)).cuda()
+        res = torch.from_numpy(rng.integers(-3, 4, size=(b, m))
+                               .astype(np.float32)).cuda().t()
+        tiles = ops.int4_tiles(m, k, b)
+        for act, out_dtype in (("none", torch.float32),
+                               ("gelu", torch.float32),
+                               ("none", torch.bfloat16)):
+            kw = dict(scale_block=sb, tiles=tiles, act=act, residual=res,
+                      out_dtype=out_dtype)
+            got = i4.int4_matmul_cuda(u8, st, xt, **kw)
+            want = i4.int4_matmul_plain(u8, st, xt, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype
+            if act == "none":  # one op order: bit-exact
+                assert torch.equal(got, want)
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------- paged attention
+PA_CASES = [  # (B, C, H, Hk, Dh, bs, nseq, kv spec, softcap, window)
+    (2, 4, 4, 2, 16, 8, 3, dict(bits=8), 0.0, 0),
+    (2, 3, 4, 2, 17, 4, 5, dict(bits=4), 5.0, 0),
+    (3, 1, 6, 3, 32, 8, 4, dict(bits=4, codebook=True), 0.0, 7),
+    (4, 1, 8, 1, 256, 8, 4, dict(bits=8), 0.0, 0),  # gemma-2b decode
+    (1, 8, 8, 1, 256, 8, 4, dict(bits=4), 0.0, 0),  # gemma-2b prefill
+    (2, 1, 16, 8, 256, 8, 8, dict(bits=8), 50.0, 24),  # gemma2-9b shape
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,H,hk,dh,bs,nseq,kv,softcap,window", PA_CASES)
+def test_paged_attention_kernel_matches_plain(B, C, H, hk, dh, bs, nseq, kv,
+                                              softcap, window):
+    from repro_torch import kvq
+    from repro_torch.kernels import paged_attention as pa
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    rng = np.random.default_rng(B * 100 + H + dh)
+    cb = None
+    if kv.get("codebook"):
+        cb = tuple([0.0] + sorted(rng.normal(size=15).tolist()))
+    spec = kvq.KVQuantSpec(kv["bits"], codebook=cb)
+    nb = 1 + B * nseq
+    pool = {}
+    for name in ("k", "v"):
+        vals = torch.from_numpy(rng.standard_normal((nb, bs, hk, dh))
+                                .astype(np.float32)).cuda()
+        pool[name], pool[f"{name}_scale"] = kvq.kv_quantize(vals, spec)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb))
+                              .reshape(B, nseq).astype(np.int32)).cuda()
+    pos = torch.from_numpy(rng.integers(0, nseq * bs, size=(B, C))
+                           .astype(np.int32)).cuda()
+    q32 = torch.from_numpy(rng.standard_normal((B, C, H, dh))
+                           .astype(np.float32)).cuda()
+    kw = dict(bits=spec.bits, block_size=bs, window=window, softcap=softcap,
+              codebook=None if cb is None else torch.tensor(cb).cuda())
+    args = (pool["k"], pool["k_scale"], pool["v"], pool["v_scale"], tables,
+            pos)
+    for q, tol in ((q32, dict(rtol=2e-5, atol=2e-5)),
+                   (q32.to(torch.bfloat16), dict(rtol=2**-7, atol=1e-5))):
+        got = pa.paged_attention_cuda(q, *args, **kw)
+        want = pa.paged_attention_plain(q, *args, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype
+        torch.testing.assert_close(got.float(), want.float(), **tol)

@@ -1,0 +1,35 @@
+"""The port stands alone: importing every module of ``repro_torch`` in a
+fresh interpreter pulls in neither JAX nor the JAX package ``repro``.
+The machine with the card has no JAX, so a stray import would only show
+there; this test catches it on the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    res = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    count, bad = (res.stdout.splitlines() + [""])[:2]
+    assert int(count) >= 30  # the walk reached every module
+    assert bad == "", f"the port imported {bad}"
