@@ -9,14 +9,16 @@
 Phases, any failure exits non-zero before the last line is printed:
 
 1. build   — compile every ``kernels/csrc/*.cu`` for sm_90a from the
-   checkout, one ``nvcc`` per source, all started together.
+   checkout, one ``nvcc`` per source, all started together, and print
+   ``-Xptxas -v``'s registers, shared memory and spills.
 2. kernels — each kernel against its plain PyTorch version on the card:
-   * msGeMM at every gemma-2b GeMM shape (b = 1, 4, 8) with each shape's
-     own epilogue and the operands as the engine passes them (x and
-     residual transposed views of the (b, .) activations, bfloat16
-     output), a vocab-sized (256000 x 2048) GeMM, and small d = 1, 2, 4
-     and learned-codebook cases with contiguous operands;
-   * the int4 GeMM at the same gemma-2b shapes and layout, the vocab-sized
+   * msGeMM at every gemma-2b GeMM shape (b = 1, 4, 8) and every gemma2-9b
+     GeMM shape (b = 4) with each shape's own epilogue and the operands as
+     the engine passes them (x and residual transposed views of the
+     (b, .) activations, bfloat16 output), a vocab-sized (256000 x 2048)
+     GeMM, and small d = 1, 2, 4 and learned-codebook cases with
+     contiguous operands;
+   * the int4 GeMM at the same gemma shapes and layout, the vocab-sized
      GeMM with the identity epilogue (the legacy grid's counterpart) and
      small ragged cases with bias, relu/silu/gelu and a residual;
    Both GeMMs: bit-exact on exact inputs (integer activations,
@@ -25,15 +27,22 @@ Phases, any failure exits non-zero before the last line is printed:
    version share one op order, so only gelu/silu's tanh/exp may differ).
    * paged attention over the quantized pool at gemma-2b decode
      (B=4, C=1) and prefill-chunk (B=1, C=8) shapes, each at kv8, kv4 and
-     kv4 with a codebook, a long context (B=8, W=4096) at kv8 and kv4, and
-     a soft-capped windowed GQA case (gemma2-9b's attention shape).  The
-     kernel, its plain version and the torch backend (gather, dequantize,
-     sdpa) agree within rtol = atol = 2e-5 on f32 outputs, one bf16 ulp
-     on bf16 outputs.
+     kv4 with a codebook, a long context (B=8, W=4096) at kv8 and kv4, a
+     soft-capped windowed GQA case, and gemma2-9b's served kv8 decode
+     step.  The kernel, its plain version and the torch backend (gather,
+     dequantize, sdpa) agree within rtol = atol = 2e-5 on f32 outputs, one
+     bf16 ulp on bf16 outputs.
    Each case is timed: kernel, plain version, one PyTorch call as a
    yardstick (``torch.matmul`` on the dequantized weight; sdpa on the
    dequantized view) and the least time the card could take.
-3. main    — full-width gemma-2b with random weights from a seed, quantized
+3. flash   — the flash-attention op (``kernels.ops.flash_attention``, the
+   reference's public layout) at gemma-2b's and gemma2-9b's 8k prefill
+   shapes (global and 4096-window local layers, soft-cap 50), a 32k
+   sequence and a ragged windowed one, in bf16 and f32: the op's path is
+   driven once with the launch counts at 0 (flash launches only), then
+   each output is held against the plain version (f32 within 2e-5, bf16
+   within one bf16 ulp) and kernel, plain version and sdpa are timed.
+4. main    — full-width gemma-2b with random weights from a seed, quantized
    on the card (msgemm, d=3, scale_block=36), served by the continuous
    engine with the serve CLI's defaults (4 slots, block 8, prefill chunk 8)
    on 6 requests of 4-16 prompt tokens and 16 new tokens.  Every request
@@ -44,11 +53,20 @@ Phases, any failure exits non-zero before the last line is printed:
    and once forced to the torch backend: every request finishes, the two
    routes give the same tokens, paged-attention launches are exactly 18
    per step on the kernel run and 0 on the torch run, msGeMM launches stay
-   126 per step.  Last, gemma-2b is built again from seed 0 with int4
+   126 per step.  Then gemma-2b is built again from seed 0 with int4
    weights (``int4_dequant``, the same codes and scales) and serves the
    stream: every request finishes and matches static ``generate``, int4
    launches are exactly 126 per step and msGeMM launches 0.
-4. report  — the card's name and power limit, then a ``kernels`` JSON line.
+5. gemma2-9b — full-width gemma2-9b (42 layers, d_model 3584, vocab
+   256000) from seed 0 through the port's serve CLI
+   (``repro_torch.launch.serve.main``, in process): msgemm weights with
+   ``--check`` (294 msGeMM launches per step, no other kernel); the same
+   model at ``--kv-bits 8`` through the paged-attention kernel (42
+   launches per step) and through the torch route (same tokens); int4
+   weights with ``--check`` (294 int4 launches per step); and one request
+   of 4,440 prompt tokens, past the 4096-token window, with int4 weights
+   and ``--check``.
+6. report  — the card's name and power limit, then a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Needs no network; imports nothing of JAX.
@@ -251,17 +269,31 @@ GEMMA_GEMMS = [  # (name, m, k, epilogue kwargs) of one gemma-2b block
     ("up", 16384, 2048, {}),
     ("down", 2048, 16384, dict(residual=True)),
 ]
+GEMMA2_GEMMS = [  # the same for one gemma2-9b block (wv as wk)
+    ("g2-wq", 4096, 3584, {}),
+    ("g2-wk", 2048, 3584, {}),
+    ("g2-wo", 3584, 4096, dict(residual=True)),
+    ("g2-gate", 14336, 3584, dict(act="gelu")),
+    ("g2-up", 14336, 3584, {}),
+    ("g2-down", 3584, 14336, dict(residual=True)),
+]
+
+
+def engine_specs(gemms, widths):
+    """(name, m, k, b, kwargs) of ``gemms`` at each batch width, as the
+    engine runs them: x and residual transposed views, bf16 out."""
+    import torch
+
+    return [(n, m, k, b, dict(e, out_dtype=torch.bfloat16,
+                              engine_layout=True))
+            for b in widths for n, m, k, e in gemms if n != "wv"]
 
 
 def phase_kernels():
     import torch
 
     cases = []
-    # the gemma-2b GeMMs as the engine runs them: bf16 model, so bf16 out
-    specs = [(n, m, k, b, dict(ep, out_dtype=torch.bfloat16,
-                               engine_layout=True))
-             for b in (1, 4, 8) for n, m, k, ep in GEMMA_GEMMS if n != "wv"]
-    specs += [
+    specs = engine_specs(GEMMA_GEMMS, (1, 4, 8)) + [
         ("vocab", 256000, 2048, 8, {}),
         ("small-d1", 512, 1000, 4, dict(d=1, sb=12, bias=True, act="relu")),
         ("small-d2", 512, 1000, 5, dict(d=2, sb=24, act="silu",
@@ -271,7 +303,7 @@ def phase_kernels():
         ("codebook-bf16", 1000, 777, 3,
          dict(codebook=True, act="gelu", bias=True, residual=True,
               out_dtype=torch.bfloat16)),
-    ]
+    ] + engine_specs(GEMMA2_GEMMS, (4,))
     for i, (name, m, k, b, ep) in enumerate(specs):
         t0 = time.perf_counter()
         r = kernel_case(name, m, k, b, seed=i, **ep)
@@ -333,10 +365,7 @@ def int4_case(name, m, k, b, *, sb=36, act="none", bias=False,
 def phase_int4_kernels():
     import torch
 
-    specs = [(n, m, k, b, dict(ep, out_dtype=torch.bfloat16,
-                               engine_layout=True))
-             for b in (1, 4, 8) for n, m, k, ep in GEMMA_GEMMS if n != "wv"]
-    specs += [
+    specs = engine_specs(GEMMA_GEMMS, (1, 4, 8)) + [
         ("vocab", 256000, 2048, 8, {}),
         ("small-relu-bias", 512, 1000, 4, dict(sb=12, bias=True,
                                                 act="relu")),
@@ -345,7 +374,7 @@ def phase_int4_kernels():
         ("small-gelu-bf16", 1000, 777, 9,
          dict(sb=32, act="gelu", bias=True, residual=True,
               out_dtype=torch.bfloat16)),
-    ]
+    ] + engine_specs(GEMMA2_GEMMS, (4,))
     cases = []
     for i, (name, m, k, b, ep) in enumerate(specs):
         t0 = time.perf_counter()
@@ -490,6 +519,10 @@ def phase_attn_kernels():
     specs += [("gemma2-9b-softcap-window",
                dict(B=4, C=1, H=16, hk=8, dh=256, bs=8, W=256, bits=8,
                     softcap=50.0, window=64, q_dtype=torch.float32))]
+    # gemma2-9b's served decode step at kv8 (window 4096, softcap 50)
+    specs += [("gemma2-9b-decode-kv8",
+               dict(B=4, C=1, H=16, hk=8, dh=256, bs=8, W=32, bits=8,
+                    softcap=50.0, window=4096))]
     cases = []
     for i, (name, kw) in enumerate(specs):
         t0 = time.perf_counter()
@@ -516,9 +549,7 @@ def serve(tag, model, cfg, **engine_kw):
     request finished with all its tokens."""
     import torch
 
-    from repro_torch.kernels import int4_matmul as i4
-    from repro_torch.kernels import msgemm as ms
-    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import KERNELS as counters
     from repro_torch.serving import Engine, poisson_stream
 
     reqs = poisson_stream(6, cfg.vocab_size, max_new_tokens=NEW_TOKENS,
@@ -526,7 +557,6 @@ def serve(tag, model, cfg, **engine_kw):
                           max_prompt=PROMPT_LEN, seed=0)
     engine = Engine(model, cfg, max_slots=4, block_size=8, prefill_chunk=8,
                     max_model_len=PROMPT_LEN + NEW_TOKENS, **engine_kw)
-    counters = dict(msgemm=ms, int4_matmul=i4, paged_attention=pa)
     for mod in counters.values():
         mod.launches = 0
     t0 = time.perf_counter()
@@ -536,6 +566,8 @@ def serve(tag, model, cfg, **engine_kw):
     launches = {name: mod.launches for name, mod in counters.items()}
     steps = engine.num_steps
     check(steps > 0, f"[{tag}] the engine took no step")
+    check(launches["flash_attention"] == 0,
+          f"[{tag}] the engine launched the flash kernel: {launches}")
     check(sorted(results) == list(range(len(reqs))),
           f"[{tag}] finished {sorted(results)} of {len(reqs)} requests")
     for rid, seq in sorted(results.items()):
@@ -743,6 +775,255 @@ def phase_profile(tag, model, cfg, **engine_kw):
     return out
 
 
+# ------------------------------------------------------- flash attention
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+FLASH_CASES = [  # (name, H, Hk, S, window, softcap), B = 1, dh = 256
+    ("gemma-2b-prefill-8k", 8, 1, 8192, 0, 0.0),
+    ("gemma2-9b-global-8k", 16, 8, 8192, 0, 50.0),
+    ("gemma2-9b-local-8k", 16, 8, 8192, 4096, 50.0),
+    ("prefill_32k-b1", 8, 1, 32768, 0, 0.0),
+    ("ragged-1000-window-100", 8, 1, 1000, 100, 0.0),
+]
+
+
+def visible_pairs(sq: int, skv: int, window: int) -> int:
+    """Causal (q, k) pairs the mask lets through, positions from 0."""
+    import numpy as np
+
+    q = np.arange(sq)
+    hi = np.minimum(q, skv - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def sdpa_yardstick(q, k, v, window: int):
+    """Device ms of one sdpa call on bf16 copies of the native-layout
+    inputs (is_causal, or an explicit boolean mask for a window) and the
+    name of the kernel it ran, from a profile of one call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    kw = dict(enable_gqa=True)
+    if window:
+        S = q.shape[2]
+        pos = torch.arange(S, device="cuda")
+        kw["attn_mask"] = ((pos[None, :] <= pos[:, None])
+                           & (pos[None, :] > pos[:, None] - window))
+    else:
+        kw["is_causal"] = True
+    call = lambda: sdpa(qb, kb, vb, **kw)  # noqa: E731
+    ms = device_ms([call], reps=10)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    return ms, rows[0].key[:100] if rows else "not measured"
+
+
+def phase_flash():
+    """The flash-attention op at the prefill shapes of gemma-2b and
+    gemma2-9b, a 32k sequence and a ragged windowed one, in bf16 and f32,
+    through ``ops.flash_attention``'s public layout.  The op's path is
+    driven once with the launch counts set to 0 just before and read just
+    after; its outputs are then held against the plain version (f32
+    within 2e-5, bf16 within one bf16 ulp), and kernel, plain version and
+    sdpa are timed."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as cli
+
+    g = torch.Generator(device="cuda").manual_seed(300)
+    inputs = []
+    for name, H, hk, S, window, softcap in FLASH_CASES:
+        shapes = ((1, S, H, 256), (1, S, hk, 256), (1, S, hk, 256))
+        f32 = [torch.randn(s, generator=g, device="cuda") for s in shapes]
+        for dtype in (torch.bfloat16, torch.float32):
+            inputs.append((name, dtype, [t.to(dtype) for t in f32],
+                           dict(causal=True, window=window,
+                                softcap=softcap)))
+    # the op's path, as a caller runs it
+    for mod in cli.KERNELS.values():
+        mod.launches = 0
+    outs = [ops.flash_attention(*qkv, **kw) for _, _, qkv, kw in inputs]
+    torch.cuda.synchronize()
+    launches = cli.launch_counts()
+    check(launches == dict(msgemm=0, int4_matmul=0, paged_attention=0,
+                           flash_attention=len(inputs)),
+          f"[flash] launches {launches} != {len(inputs)} flash only")
+    cases, yard = [], {}
+    for (name, dtype, qkv, kw), got in zip(inputs, outs):
+        t0 = time.perf_counter()
+        want = ops.flash_attention(*qkv, kernel=fa.flash_attention_plain,
+                                   **kw)
+        tol = ATTN_TOL if dtype == torch.float32 else BF16_TOL
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=lambda m: f"[flash] {name}: {m}")
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()), f"[flash] {name}: not finite")
+        del want
+        native = [t.transpose(1, 2).contiguous() for t in qkv]
+        one = lambda: fa.flash_attention_cuda(*native, **kw)  # noqa: E731
+        t_one = wall_ms(one, reps=1)
+        reps = max(3, min(50, math.ceil(300 / max(t_one, 1e-3))))
+        ms = device_ms([one], reps=reps)
+        plain_ms = wall_ms(lambda: fa.flash_attention_plain(*native, **kw),
+                           reps=1)
+        B, S, H, dh = qkv[0].shape
+        hk = qkv[1].shape[2]
+        pairs = visible_pairs(S, S, kw["window"])
+        elt = qkv[0].element_size()
+        nbytes = (2 * B * S * H * dh + 2 * B * S * hk * dh) * elt
+        nops = 4 * dh * H * pairs * B
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
+        if kw["softcap"]:
+            library_ms, library = None, "no single call (soft-cap)"
+        else:
+            if name not in yard:
+                yard[name] = sdpa_yardstick(*native, kw["window"])
+            library_ms, library = yard[name]
+        r = dict(name=name, dtype=str(dtype).removeprefix("torch."), B=B,
+                 S=S, H=H, Hk=hk, dh=dh, window=kw["window"],
+                 softcap=kw["softcap"], pairs=pairs, max_abs_err=err,
+                 ms=ms, reps=reps, plain_ms=plain_ms, library_ms=library_ms,
+                 library=library, bytes=nbytes, ops=nops,
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+        r["tflops"] = nops / (ms * 1e-3) / 1e12
+        cases.append(r)
+        del native
+        sdpa_txt = "-" if library_ms is None else f"{library_ms:.3f}ms"
+        print(f"[flash] {name:24s} {r['dtype']:8s} kernel={ms:.3f}ms "
+              f"({r['tflops']:.1f} TFLOP/s) plain={plain_ms:.1f}ms "
+              f"sdpa={sdpa_txt} ({library}) bound={r['bound_ms']:.4f}ms "
+              f"({r['bound_by']}) err={err:.3g} "
+              f"[{time.perf_counter() - t0:.1f}s]", flush=True)
+    del outs, inputs
+    return dict(cases=cases, launches=launches)
+
+
+# ------------------------------------------------- gemma2-9b, the serve CLI
+LONG_PROMPT = dict(prompt_len=5000, seed=0)  # draws one 4,440-token prompt
+
+
+def serve_cli(tag, argv, per_step):
+    """One in-process run of ``repro_torch.launch.serve.main`` with
+    gemma2-9b, every launch count set to 0 just before and read just
+    after.  Checks full width, that every request finished, and that the
+    engine's run launched each kernel exactly ``per_step[name]`` times a
+    step (0 if unnamed).  Returns what chip_smoke.json keeps of the run;
+    the model is freed."""
+    import torch
+
+    from repro_torch.configs.gemma2_9b import CONFIG
+    from repro_torch.launch import serve as cli
+
+    argv = ["--arch", "gemma2_9b", "--engine", "continuous", *argv]
+    print(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    for mod in cli.KERNELS.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    total = cli.launch_counts()
+    cfg = out.pop("cfg")
+    del out["params"]
+    steps, launches, m = out["steps"], out["launches"], out["metrics"]
+    check(cfg.replace(quant=CONFIG.quant) == CONFIG,
+          f"[{tag}] not gemma2-9b at full width: {cfg}")
+    check(steps > 0 and all(s.status == "ok"
+                            for s in out["results"].values()),
+          f"[{tag}] not every request finished")
+    want = {name: per_step.get(name, 0) * steps for name in cli.KERNELS}
+    check(launches == want, f"[{tag}] engine launches {launches} != {want} "
+                            f"({per_step} a step over {steps} steps)")
+    run = dict(steps=steps, run_s=out["run_s"], wall_s=wall_s,
+               launches=launches, total_launches=total, metrics=m,
+               build=out["build"],
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               checked=out.get("checked", 0),
+               prompts=[len(s.req.prompt) for s in out["results"].values()],
+               tokens={rid: s.generated for rid, s in out["results"].items()})
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] build {run['build']['build_s']:.1f}s, buffers "
+          f"{run['build']['buffer_bytes'] / 2**30:.2f} GiB, peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB; {m['tok_per_s']:.2f} "
+          f"tok/s, latency p50 {m['latency_p50_s'] * 1e3:.1f}ms p95 "
+          f"{m['latency_p95_s'] * 1e3:.1f}ms over {steps} steps; engine "
+          f"launches {launches}; with the check {total} "
+          f"[{wall_s:.1f}s]", flush=True)
+    return run
+
+
+def phase_gemma2_9b():
+    """gemma2-9b at full width (42 layers, d_model 3584, vocab 256000) from
+    seed 0 through the port's serve CLI: msgemm weights with --check; the
+    same weights at kv8 through the paged-attention kernel and through the
+    torch route; int4 weights with --check; and one request longer than
+    the 4096-token window, int4 weights, --check."""
+    from repro_torch.configs.gemma2_9b import CONFIG
+
+    gemms = 7 * CONFIG.num_layers  # weight GeMMs per engine step
+    out = {"msgemm": serve_cli("gemma2-9b msgemm",
+                               ["--quant", "msgemm", "--check"],
+                               dict(msgemm=gemms))}
+    check(out["msgemm"]["checked"] == 6,
+          "[gemma2-9b msgemm] --check did not run")
+    runs = {}
+    for route, extra, attn in (
+            ("kernel", [], CONFIG.num_layers),
+            ("torch", ["--backend", "paged_attn_torch"], 0)):
+        runs[route] = serve_cli(
+            f"gemma2-9b kv8 {route}",
+            ["--quant", "msgemm", "--kv-bits", "8", *extra],
+            dict(msgemm=gemms, paged_attention=attn))
+    for rid, toks in runs["kernel"]["tokens"].items():
+        check(toks == runs["torch"]["tokens"][rid],
+              f"[gemma2-9b kv8] request {rid}: kernel route {toks} != torch "
+              f"route {runs['torch']['tokens'][rid]}")
+    same = sum(t == out["msgemm"]["tokens"][rid]
+               for rid, t in runs["kernel"]["tokens"].items())
+    print(f"[gemma2-9b kv8] kernel and torch routes agree on every request; "
+          f"{same}/6 equal the f32 pool's tokens", flush=True)
+    out["kv8"] = dict(runs, same_as_f32_pool=same)
+
+    out["int4"] = serve_cli("gemma2-9b int4",
+                            ["--quant", "int4_dequant", "--check"],
+                            dict(int4_matmul=gemms))
+    check(out["int4"]["checked"] == 6, "[gemma2-9b int4] --check did not run")
+    out["int4"]["same_as_msgemm"] = sum(
+        t == out["msgemm"]["tokens"][rid]
+        for rid, t in out["int4"]["tokens"].items())
+
+    # past the window: int4 weights (3x faster a layer than msGeMM), the
+    # prompt in 256-token prefill chunks, one slot
+    long = serve_cli("gemma2-9b long", [
+        "--quant", "int4_dequant", "--check", "--num-requests", "1",
+        "--max-slots", "1", "--prefill-chunk", "256",
+        "--prompt-len", str(LONG_PROMPT["prompt_len"]),
+        "--seed", str(LONG_PROMPT["seed"])], dict(int4_matmul=gemms))
+    check(long["prompts"][0] > CONFIG.sliding_window and long["checked"] == 1,
+          f"[gemma2-9b long] prompt {long['prompts']} not past the window "
+          f"{CONFIG.sliding_window}, or unchecked")
+    out["long"] = long
+    print(f"[gemma2-9b long] a {long['prompts'][0]}-token prompt (window "
+          f"{CONFIG.sliding_window}) served, tokens == static generate",
+          flush=True)
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -778,6 +1059,7 @@ def main() -> int:
     cases = phase_kernels()
     int4_cases = phase_int4_kernels()
     attn_cases = phase_attn_kernels()
+    flash = phase_flash()
     main_path = phase_main()
     model, cfg = main_path.pop("model"), main_path.pop("cfg")
     kvq_path = phase_main_kvq(model, cfg, main_path["tokens"])
@@ -795,6 +1077,9 @@ def main() -> int:
     if args.profile:
         int4_path["profile"] = phase_profile("int4", model, cfg)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma2 = phase_gemma2_9b()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -802,37 +1087,47 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else f"nvidia-smi failed: {smi.stderr.strip()}"
 
-    def layer_entry(gemm_cases):
-        """Timing keys summed over one gemma-2b layer's seven GeMMs at the
-        engine's decode shape (b = max_slots = 4)."""
-        layer = [c for c in gemm_cases if c["b"] == 4 and c["name"] in
-                 {n for n, *_ in GEMMA_GEMMS}]
-        layer += [dict(c, name="wv") for c in layer if c["name"] == "wk"]
+    def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b"):
+        """Timing keys summed over one layer's seven GeMMs at the engine's
+        decode shape (b = max_slots = 4; wv is timed as wk)."""
+        names = {n for n, *_ in gemms}
+        layer = [c for c in gemm_cases if c["b"] == 4 and c["name"] in names]
+        layer += [dict(c, name=c["name"].replace("wk", "wv"))
+                  for c in layer if c["name"].endswith("wk")]
         tot = {key: sum(c[key] for c in layer)
                for key in ("ms", "plain_ms", "library_ms", "bytes", "ops")}
         return with_bound(
             {"max_abs_err": max(c["max_abs_err"] for c in gemm_cases),
              "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "library_ms": tot["library_ms"],
-             "shape": "sum of one gemma-2b layer's 7 GeMMs at b=4"},
+             "shape": f"sum of one {model} layer's 7 GeMMs at b=4"},
             tot["bytes"], tot["ops"])
 
+    # every path's engine runs, each read with the counts set to 0 before
+    runs = ([main_path, int4_path]
+            + [kvq_path[kv][r] for kv in ("kv8", "kv4")
+               for r in ("kernel", "torch")]
+            + [gemma2[k] for k in ("msgemm", "int4", "long")]
+            + [gemma2["kv8"][r] for r in ("kernel", "torch")])
+    launched = {name: sum(r["launches"][name] for r in runs
+                          if name in r["launches"])
+                for name in ("msgemm", "int4_matmul", "paged_attention")}
     decode = next(c for c in attn_cases if c["name"] == "decode-kv8")
+    fl = next(c for c in flash["cases"] if c["dtype"] == "bfloat16"
+              and c["name"] == "gemma-2b-prefill-8k")
     kernels = [
         {"name": "msgemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/msgemm.cu",
          "replaces": "src/repro/kernels/msgemm.py:252",
-         "launches": main_path["launches"]["msgemm"], **layer_entry(cases)},
+         "launches": launched["msgemm"], **layer_entry(cases)},
         {"name": "int4_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/int4_matmul.cu",
          "replaces": "src/repro/kernels/int4_matmul.py:165",
-         "launches": int4_path["launches"]["int4_matmul"],
-         **layer_entry(int4_cases)},
+         "launches": launched["int4_matmul"], **layer_entry(int4_cases)},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:157",
-         "launches": sum(kvq_path[kv]["kernel"]["launches"]
-                         ["paged_attention"] for kv in ("kv8", "kv4")),
+         "launches": launched["paged_attention"],
          "max_abs_err": max(c["max_abs_err"] for c in attn_cases),
          "ms": decode["ms"], "plain_ms": decode["plain_ms"],
          "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -840,12 +1135,29 @@ def main() -> int:
          "shape": "gemma-2b decode at kv8: B=4, C=1, H=8, Hk=1, Dh=256, "
                   "block 8, 32 view slots; library_ms is sdpa on the "
                   "dequantized f32 view"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:104",
+         "launches": flash["launches"]["flash_attention"],
+         "max_abs_err": max(c["max_abs_err"] for c in flash["cases"]),
+         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+         "library_ms": fl["library_ms"],
+         "shape": "gemma-2b prefill, bf16: B=1, H=8, Hk=1, dh=256, S=8192, "
+                  "causal; launches are the op's path (5 shapes x bf16, "
+                  "f32); library_ms is sdpa(is_causal, enable_gqa)"},
     ]
+    layers = {"gemma2-9b msgemm": layer_entry(cases, GEMMA2_GEMMS,
+                                              "gemma2-9b"),
+              "gemma2-9b int4": layer_entry(int4_cases, GEMMA2_GEMMS,
+                                            "gemma2-9b")}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, cases=cases, int4_cases=int4_cases,
-        attn_cases=attn_cases, main=main_path, kvq=kvq_path, int4=int4_path,
+        card=card, build_s=build_s, ptxas=nvcc.reports, cases=cases,
+        int4_cases=int4_cases, attn_cases=attn_cases, flash=flash,
+        main=main_path, kvq=kvq_path,
+        int4=int4_path, gemma2_9b=gemma2, gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     print(f"[report] total {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -1,0 +1,38 @@
+"""Architecture registry of the port; port of repro.configs.
+
+One module per ported architecture, each exporting ``CONFIG`` (the exact
+public config) and ``SMOKE`` (a reduced config of the same family for CPU
+tests).  ``get_config(name)`` / ``get_smoke(name)`` take a module name or
+one of its public aliases.  The reference's other architectures need
+block kinds, encoder-decoder and frontends that the port does not have
+yet (ROADMAP A11): asking for any other name raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ("gemma_2b", "gemma2_9b")
+
+ALIASES = {
+    "gemma-2b": "gemma_2b",
+    "gemma2-9b": "gemma2_9b",
+}
+
+
+
+def _module(name: str):
+    name = ALIASES.get(name, name)
+    if name not in ARCHS:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported (ROADMAP A11, other "
+            f"architectures); ported: {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str):
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str):
+    return _module(name).SMOKE

@@ -1,0 +1,223 @@
+"""Flash attention for Hopper (``csrc/flash_attention.cu``), its plain
+PyTorch version, and its launch counter.
+
+Replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention_pallas`` (``_kernel``,
+pallas_call at line 104): causal, windowed and soft-capped GQA attention
+over q (B, H, Sq, dh) and k/v (B, Hk, Skv, dh), kv head ``h // (H //
+Hk)``, with the online-softmax recurrence over key tiles
+
+    m' = max(m, rowmax(s));  p = exp(s - m');  c = exp(m - m')
+    l' = c·l + rowsum(p);    acc' = c·acc + p @ v
+
+and ``acc / max(l, 1e-30)`` in q's dtype at the end.
+
+What bounds it on an H100.  A call reads q, k and v once and writes the
+output (75 MB at gemma-2b's 8k prefill in bf16: 0.023 ms at 3.35 TB/s),
+and does 4·dh operations per (query head, visible (q, k) pair): 2.75e11
+at that shape, 0.28 ms on the bf16 tensor cores (989 TFLOP/s) and 4.1 ms
+in f32 (67 TFLOP/s).  At prefill shapes it is bound by operations, by two
+orders of magnitude.
+
+What the design does about it.  The TPU kernel stages a kv head's whole
+(Skv, dh) K and V per grid step (32 MiB in f32 at 32k); here one CUDA
+block owns 64 query rows of one head and streams 64-key tiles of K and V
+through shared memory in a loop that takes the place of the TPU's
+``fori_loop``, with m, l and the (64, dh) accumulator in registers.  The
+loop starts at the first tile that reaches the lowest window start of the
+block's rows and ends at the causal diagonal, so a gemma2-9b local layer
+at 8k does three quarters of a global one's work, and the grid launches
+the longest causal rows first.  Both products run as register-blocked f32 FMA
+(4x4 outputs a thread): right and simple first.  Tensor cores (bf16
+``mma``/``wgmma``), TMA and warp specialisation, which the operation bound
+asks for, are a later PR's work.
+
+Numerics follow the Pallas kernel: q is multiplied by ``dh**-0.5`` before
+the dot, softcap is ``c·tanh(s/c)`` before the mask, masked logits are the
+finite ``NEG_INF = -1e30`` (never -inf: a tile masked for a row before any
+visible key gives p = 1, and the next visible tile's corr = exp(-1e30 - m)
+= 0 erases it exactly, so skipping the tiles below the window changes no
+bit of a row that sees a key), and q and k positions both start at 0.
+Keys past the end of k do not exist: they get probability exactly 0.
+:func:`flash_attention_plain` runs the same recurrence over the same key
+tiles; kernel and plain version differ only in the order of the sums
+inside a dot product and in the last ulps of tanh and exp.
+"""
+
+from __future__ import annotations
+
+import bisect
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import nvcc
+from repro_torch.kernels.msgemm import OUT_TYPES
+
+NEG_INF = -1e30
+TQ = TK = 64  # kTQ, kTK in csrc/flash_attention.cu
+MAX_HEAD_DIM = 256  # kMaxDh: four float4 columns a thread
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+# Kernel launches since the last reset; only flash_attention_cuda adds to
+# it, so a run of the op can prove that it went through the kernel.
+launches = 0
+
+
+class FlashTiles(NamedTuple):
+    """Query rows per block (tq) and keys per streamed tile (tk).  The
+    tiles fix where the online softmax rescales, so the kernel and the
+    plain version take the same ones."""
+
+    tq: int
+    tk: int
+
+
+def flash_tiles(dh: int) -> FlashTiles:
+    """The Hopper tiles for a head dim: the kernel's 64 x 64 for every
+    head dim it takes (up to 256), whatever the sequence lengths."""
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} > {MAX_HEAD_DIM}: the flash kernel "
+                         "keeps four float4 columns of a row a thread")
+    return FlashTiles(TQ, TK)
+
+
+def _check(q, k, v):
+    """Validate shapes and devices; returns (B, H, Sq, dh, Hk, Skv)."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q (B, H, Sq, dh) and k/v (B, Hk, Skv, dh) must "
+                         f"be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}")
+    B, H, Sq, dh = q.shape
+    Hk, Skv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Hk, Skv, dh) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"({B}, Hk, Skv, {dh})")
+    if H % Hk:
+        raise ValueError(f"{H} query heads do not group onto {Hk} kv heads")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    return B, H, Sq, dh, Hk, Skv
+
+
+def key_tiles(nq: int, nk: int, *, tq: int, tk: int, causal: bool,
+              window: int, skip_below_window: bool = True):
+    """Per query tile i, the key tiles [lo_i, hi_i) it visits: from the
+    tile holding its rows' lowest window start (0 without a window or
+    with ``skip_below_window`` off) to the causal diagonal, as the
+    Pallas kernel bounds it (every tile when not causal)."""
+    lo, hi = [], []
+    for i in range(nq):
+        lo.append(max(0, i * tq - window + 1) // tk
+                  if window and skip_below_window else 0)
+        hi.append(min(-(-((i + 1) * tq) // tk), nk) if causal else nk)
+    return lo, hi
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0, tq: int = TQ,
+                         tk: int = TK) -> torch.Tensor:
+    """(B, H, Sq, dh) attention output in q's dtype, on the GPU.
+
+    q (B, H, Sq, dh), k/v (B, Hk, Skv, dh), each contiguous f32, bf16 or
+    f16 (they may differ); H % Hk == 0; dh <= 256.  Only the 64 x 64 tiles
+    are compiled."""
+    global launches
+    B, H, Sq, dh, Hk, Skv = _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
+                         f"{q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in OUT_TYPES or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32/bf16/f16, got "
+                             f"{t.dtype}")
+    if (tq, tk) != (TQ, TK):
+        raise ValueError(f"the kernel is compiled for tiles ({TQ}, {TK}), "
+                         f"got ({tq}, {tk})")
+    flash_tiles(dh)  # the head-dim limit
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = nvcc.load("flash_attention", "flash_attention_launch", _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, Hk, Sq, Skv, dh, int(causal), int(window),
+        OUT_TYPES[q.dtype], OUT_TYPES[k.dtype], OUT_TYPES[v.dtype],
+        float(softcap), float(dh**-0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
+                           f"error {err} (B={B}, H={H}, Hk={Hk}, Sq={Sq}, "
+                           f"Skv={Skv}, dh={dh})")
+    launches += 1
+    return out
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0, tq: int = TQ, tk: int = TK,
+                          skip_below_window: bool = True) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the same recurrence over the
+    same key tiles in the kernel's op order, vectorized over heads and
+    query tiles (so it stays usable at 32k on the card).  Each key tile's
+    scores are computed for every row from the first query tile that
+    visits it, and the rows of the tiles that do not (past the causal
+    diagonal's end, or below their window with ``skip_below_window``)
+    keep their state: so the products have the same shapes either way,
+    and skipping changes no bit of a row that sees a key."""
+    B, H, Sq, dh, Hk, Skv = _check(q, k, v)
+    g = H // Hk
+    dev, f32 = q.device, torch.float32
+    scale = torch.tensor(dh**-0.5, dtype=f32, device=dev)
+    qs = (q.to(f32) * scale).reshape(B, Hk, g, Sq, dh)
+    m = torch.full((B, Hk, g, Sq), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((B, Hk, g, Sq), dtype=f32, device=dev)
+    acc = torch.zeros((B, Hk, g, Sq, dh), dtype=f32, device=dev)
+    nq, nk = -(-Sq // tq), -(-Skv // tk)
+    lo, hi = key_tiles(nq, nk, tq=tq, tk=tk, causal=causal, window=window,
+                       skip_below_window=skip_below_window)
+    qpos = torch.arange(Sq, device=dev)
+    for j in range(nk):
+        # lo and hi do not decrease with i: tiles [i0, i1) visit tile j
+        i0, i1 = bisect.bisect_right(hi, j), bisect.bisect_right(lo, j)
+        if i0 >= i1:
+            continue
+        r0 = i0 * tq
+        k0, k1 = j * tk, min((j + 1) * tk, Skv)
+        kb, vb = k[:, :, k0:k1].to(f32), v[:, :, k0:k1].to(f32)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qs[:, :, :, r0:], kb)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        qp = qpos[r0:, None]
+        kp = torch.arange(k0, k1, device=dev)[None, :]
+        ok = torch.ones((Sq - r0, k1 - k0), dtype=torch.bool, device=dev)
+        if causal:
+            ok &= kp <= qp
+        if window:
+            ok &= kp > qp - window
+        s = torch.where(ok, s, NEG_INF)
+        m_old, l_old, acc_old = m[..., r0:], l[..., r0:], acc[..., r0:, :]
+        m_new = torch.maximum(m_old, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_old - m_new)
+        l_new = corr * l_old + p.sum(-1)
+        acc_new = (corr[..., None] * acc_old
+                   + torch.einsum("bhgqk,bhkd->bhgqd", p, vb))
+        live = qpos[r0:] < i1 * tq  # rows of the tiles that visit j
+        m[..., r0:] = torch.where(live, m_new, m_old)
+        l[..., r0:] = torch.where(live, l_new, l_old)
+        acc[..., r0:, :] = torch.where(live[:, None], acc_new, acc_old)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, Sq, dh).to(q.dtype)
+
+
+def flash_attention(q, k, v, **kw) -> torch.Tensor:
+    """Route by device: the kernel for CUDA tensors, the plain version for
+    CPU tensors; anything else raises.  There is no fallback."""
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, **kw)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, **kw)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")

@@ -23,6 +23,9 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# ``-Xptxas -v`` reports (registers, shared memory, spills) of the sources
+# built with ``verbose=True``, by source stem
+reports: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
@@ -81,6 +84,7 @@ def build_all(names=None, *, verbose: bool = False) -> dict[str, Path]:
                           f"\n{err}")
             continue
         if verbose:
+            reports[src.stem] = err
             print(f"[nvcc] {src.name}\n{err}", end="")
         os.replace(tmp, libs[src.stem])
     if failed:

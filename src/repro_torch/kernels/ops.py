@@ -1,11 +1,13 @@
-"""Public wrappers around the msGeMM and int4 GeMM kernels; port of
-repro.kernels.ops.
+"""Public wrappers around the msGeMM, int4 GeMM and flash-attention
+kernels; port of repro.kernels.ops.
 
-They handle the vector-x squeeze, the epilogue operands in the kernels'
-(m, b) column layout, the code->value table, and the Hopper tile choice.
-The kernels mask ragged rows, columns and k themselves, so nothing is
-padded to tile multiples here (the TPU wrapper had to pad every operand).
-None of the TPU VMEM budgeting carries over.
+The GeMM wrappers handle the vector-x squeeze, the epilogue operands in
+the kernels' (m, b) column layout, the code->value table, and the Hopper
+tile choice.  Those kernels mask ragged rows, columns and k themselves,
+so nothing is padded to tile multiples there (the TPU wrapper had to pad
+every operand).  None of the TPU VMEM budgeting carries over.
+:func:`flash_attention` keeps the reference's public layout and its
+padding, which decides what queries past the last key see.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.epilogue import Epilogue, torch_dtype
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int4_matmul as _i4
 from repro_torch.kernels import msgemm as _ms
 from repro_torch.kernels.int4_matmul import Int4Tiles
@@ -133,3 +136,44 @@ def int4_matmul(u8: torch.Tensor, scales: torch.Tensor, x: torch.Tensor, *,
         residual=f32(residual),
         out_dtype=torch_dtype(ep.out_dtype) or torch.float32)
     return y[:, 0] if squeeze else y
+
+
+def _round_up(v: int, t: int) -> int:
+    return -(-v // t) * t
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, kernel=None) -> torch.Tensor:
+    """Multi-head attention through the flash kernel (CUDA tensors) or its
+    plain version (CPU tensors).
+
+    q (B, Sq, H, dh), k/v (B, Skv, Hk, dh) with H % Hk == 0 -> (B, Sq, H,
+    dh) in q's dtype.  GQA kv heads are not repeated: the kernel maps
+    query head h to kv head h // (H // Hk).  Sq and Skv are padded with
+    zeros to the lengths the reference pads to, multiples of its TPU tile
+    min(128, round_up(S, 8)): under causal masking a query past the last
+    key then sees the zero keys up to its own position, as in the
+    reference.  The port's kernel tiles (``flash_tiles``) are its own; the
+    kernel masks the ragged edge past the padded lengths.  A non-causal
+    call needs Skv a multiple of that tile (ValueError otherwise, where the
+    reference asserts).  ``kernel``: the native-layout function to run
+    (default: by device); checks pass ``flash_attention_plain``."""
+    B, Sq, H, dh = q.shape
+    Skv, Hk = k.shape[1], k.shape[2]
+    if H % Hk:
+        raise ValueError(f"{H} query heads do not group onto {Hk} kv heads")
+    sqp = _round_up(Sq, min(128, _round_up(Sq, 8)))
+    skp = _round_up(Skv, min(128, _round_up(Skv, 8)))
+    if not causal and skp != Skv:
+        raise ValueError(f"non-causal flash attention needs Skv={Skv} a "
+                         f"multiple of its tile (padded length {skp})")
+    pad = torch.nn.functional.pad
+    qt = pad(q, (0, 0, 0, 0, 0, sqp - Sq)).transpose(1, 2).contiguous()
+    kt = pad(k, (0, 0, 0, 0, 0, skp - Skv)).transpose(1, 2).contiguous()
+    vt = pad(v, (0, 0, 0, 0, 0, skp - Skv)).transpose(1, 2).contiguous()
+    tiles = _fa.flash_tiles(dh)
+    o = (kernel or _fa.flash_attention)(
+        qt, kt, vt, causal=causal, window=window, softcap=softcap,
+        tq=tiles.tq, tk=tiles.tk)
+    return o.transpose(1, 2)[:, :Sq]

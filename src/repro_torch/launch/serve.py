@@ -1,0 +1,317 @@
+"""Serving entry point of the port: build a model from a seed, quantize its
+weights for msGeMM (or int4-dequant, or keep them dense) on the device,
+and serve generation; port of repro.launch.serve.
+
+Two engines:
+
+* ``--engine static``      fixed-shape batched prefill + decode
+  (runtime.serve.generate);
+* ``--engine continuous``  the continuous-batching engine over the paged
+  KV pool (repro_torch.serving), driven by a simulated Poisson stream of
+  mixed-length requests; ``--check`` holds every request's tokens to the
+  static path's.
+
+On the card (the default device):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b \\
+        --quant msgemm --engine continuous --check
+
+and on the CPU at smoke width:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \\
+        --smoke --device cpu --engine continuous --check
+
+Flags of slices not ported yet are not defined, so argparse refuses them:
+``--mesh``, ``--mesh-rules``, ``--shard-collective``, ``--shard-pipeline``,
+``--shard-impl`` and ``--force-host-devices`` (ROADMAP A13, multi-GPU);
+``--autotune``, ``--autotune-cache``, ``--metrics-json``, ``--trace-out``,
+``--prom-port`` and ``--check-regressions`` (A8, autotune and
+observability); ``--faults``, ``--fault-seed``, ``--watchdog``,
+``--deadline-s``, ``--ttft-deadline-s`` and ``--max-queue`` (A10,
+resilience); ``--calibration`` (A9).  ``--kv-codebook learned`` is refused:
+fitting the codebook needs ``kvq/fit.py`` (A6, with calibration, A9).
+
+``--backend`` takes the registry's names.  A paged-attention backend
+(``paged_attn_torch``, ``paged_attn_cuda``) forces the route of a
+quantized KV pool; a GeMM backend must be the one that serves ``--quant``
+(the port has one per mode; the reference's alternatives wait for A3).
+
+:func:`main` returns what it ran (model, config, build and run figures,
+kernel launches over the engine's run), so a script can drive it in
+process.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import configs, dispatch
+from repro_torch.core.spec import DENSE, QuantSpec
+from repro_torch.device import generator, resolve
+from repro_torch.kernels import flash_attention, int4_matmul, msgemm
+from repro_torch.kernels import paged_attention
+from repro_torch.kvq import KVQuantSpec
+from repro_torch.kvq import attention as kv_attention
+from repro_torch.models import transformer as T
+from repro_torch.quant import quantized_size_bytes
+from repro_torch.runtime import serve as SV
+
+# every kernel's module, whose ``launches`` counts its launches
+KERNELS = {"msgemm": msgemm, "int4_matmul": int4_matmul,
+           "paged_attention": paged_attention,
+           "flash_attention": flash_attention}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def quant_spec(args) -> QuantSpec | None:
+    """--quant/--d -> the weights' QuantSpec (None: dense).  int4 weights
+    are stored two codes a byte, as the int4 kernel reads them."""
+    if args.quant == "bf16":
+        return None
+    storage = "packed_u8" if args.quant == "int4_dequant" else "packed_idx"
+    return QuantSpec(mode=args.quant, d=args.d, scale_block=12 * args.d,
+                     storage=storage)
+
+
+def build_model(args, device: torch.device):
+    """Random weights from ``--seed``, drawn and quantized block by block
+    on ``device`` (no more than one block's dense weights at a time).
+    Returns (params, cfg, figures)."""
+    cfg = (configs.get_smoke(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    spec = quant_spec(args)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=generator(args.seed, device),
+                           device=device, quant=spec)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    if spec is not None:
+        cfg = cfg.replace(quant=spec)
+    size = quantized_size_bytes(params)
+    figures = dict(build_s=build_s, buffer_bytes=size)
+    peak = ""
+    if device.type == "cuda":
+        figures["build_peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        peak = f", peak {figures['build_peak_bytes'] / 2**30:.2f} GiB"
+    print(f"[serve] {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}) built with {args.quant} weights on {device} in "
+          f"{build_s:.1f}s: {size / 2**30:.2f} GiB of buffers{peak}",
+          flush=True)
+    return params, cfg, figures
+
+
+def backends_from_args(args):
+    """--backend -> the paged-attention backend to force (or None).  A GeMM
+    backend is checked against --quant and is then the one the registry
+    picks anyway."""
+    if args.backend == "auto":
+        return None
+    be = dispatch.get_backend(args.backend)
+    if "paged_attn" in be.modes:
+        if args.kv_bits == 16:
+            raise SystemExit(f"--backend {args.backend} routes a quantized "
+                             "KV pool: pass --kv-bits 8 or 4")
+        return args.backend
+    spec = quant_spec(args) or DENSE
+    if not be.supports(spec, int(spec.d)):
+        raise SystemExit(
+            f"--backend {args.backend} cannot run --quant {args.quant}; the "
+            "port has one GeMM backend per mode (others: ROADMAP A3)")
+    return None
+
+
+def run_static(args, params, cfg, device: torch.device):
+    """Batched greedy generation on random prompts from ``--seed``."""
+    g = generator(args.seed, device)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=g, device=device, dtype=torch.int32)
+    t0 = time.perf_counter()
+    out = SV.generate(params, cfg, tokens, max_new_tokens=args.new_tokens)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    print(f"[serve] generated {tuple(out.shape)} in {dt:.2f}s "
+          f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+    print(out[:, :12].tolist())
+    return dict(tokens=out, run_s=dt)
+
+
+def make_request_stream(args, cfg):
+    """Mixed-length prompts with Poisson (exponential inter-arrival)
+    timing, deterministic in --seed."""
+    from repro_torch.serving import poisson_stream
+
+    return poisson_stream(args.num_requests, cfg.vocab_size,
+                          max_new_tokens=args.new_tokens,
+                          rate=args.arrival_rate,
+                          min_prompt=max(1, args.prompt_len // 4),
+                          max_prompt=args.prompt_len, seed=args.seed)
+
+
+def kv_spec_from_args(args, kv_backend=None) -> KVQuantSpec | None:
+    """--kv-bits -> KVQuantSpec (None at 16 bits), with the forced
+    attention backend if any."""
+    if args.kv_bits == 16:
+        return None
+    return KVQuantSpec(bits=args.kv_bits, backend=kv_backend)
+
+
+def check_static(results, params, cfg, device: torch.device) -> int:
+    """Every finished request's tokens == static ``generate`` on its
+    prompt; SystemExit otherwise.  Returns the number checked."""
+    live = {rid: seq for rid, seq in results.items() if seq.status == "ok"}
+    bad = []
+    for rid, seq in sorted(live.items()):
+        prompt = torch.tensor([list(seq.req.prompt)], dtype=torch.int32,
+                              device=device)
+        ref = SV.generate(params, cfg, prompt,
+                          max_new_tokens=seq.req.max_new_tokens)
+        if [int(t) for t in ref[0]] != seq.generated:
+            bad.append(rid)
+    print(f"[serve] static-path parity check: {len(live) - len(bad)}/"
+          f"{len(live)} identical ({len(results) - len(live)} non-ok "
+          "skipped)", flush=True)
+    if bad:
+        raise SystemExit(f"continuous engine diverged from the static path "
+                         f"on requests {bad}")
+    return len(live)
+
+
+def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
+    """Serve the request stream through the continuous engine.  Kernel
+    launches are counted over the engine's run alone (not the check)."""
+    from repro_torch.serving import Engine
+
+    kv_spec = kv_spec_from_args(args, kv_backend)
+    if kv_spec is not None:
+        print(f"[serve] quantized KV cache: kv{kv_spec.bits}, attention "
+              f"through {kv_attention.select(kv_spec, device.type)}")
+    engine = Engine(params, cfg, max_slots=args.max_slots,
+                    block_size=args.block_size,
+                    num_blocks=args.num_blocks or None,
+                    max_model_len=args.prompt_len + args.new_tokens,
+                    prefill_chunk=args.prefill_chunk, kv_quant=kv_spec,
+                    kv_pool_bytes=(int(args.kv_pool_mib * 2**20)
+                                   if args.kv_pool_mib else None))
+    reqs = make_request_stream(args, cfg)
+    print(f"[serve] continuous engine: {len(reqs)} requests, prompt lens "
+          f"{sorted(len(r.prompt) for r in reqs)}, rate="
+          f"{args.arrival_rate or 'inf'} req/s, block_size="
+          f"{args.block_size}, slots={args.max_slots}, prefill chunk "
+          f"{args.prefill_chunk}", flush=True)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    after = launch_counts()
+    launches = {name: after[name] - before[name] for name in KERNELS}
+    for rid in sorted(results):
+        m = results[rid].metrics()
+        print(f"  req {rid}: prompt={m['prompt_tokens']:4d} "
+              f"new={m['new_tokens']:3d} status={m['status']} "
+              f"ttft={m.get('ttft_s', 0.0) * 1e3:8.1f}ms "
+              f"lat={m.get('latency_s', 0.0) * 1e3:8.1f}ms "
+              f"tok={results[rid].generated[:8]}")
+    s = engine.metrics()
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    print(f"[serve] {s['generated_tokens']} tokens in {dt:.2f}s over "
+          f"{engine.num_steps} steps ({s['prefill_steps']} prefill, "
+          f"{s['decode_steps']} decode): {s['tok_per_s']:.2f} tok/s, "
+          f"latency p50 {(s['latency_p50_s'] or 0.0) * 1e3:.1f}ms p95 "
+          f"{(s['latency_p95_s'] or 0.0) * 1e3:.1f}ms, preemptions "
+          f"{s['preemptions']}"
+          + ("" if peak is None else f", peak {peak / 2**30:.2f} GiB")
+          + f"; launches {launches}", flush=True)
+    out = dict(results=results, metrics=s, steps=engine.num_steps,
+               run_s=dt, launches=launches, kv_spec=kv_spec)
+    if args.check:
+        out["checked"] = check_static(results, params, cfg, device)
+    return out
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="Serve a model of the port with msGeMM, int4 or dense "
+                    "weights (static or continuous engine).")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--quant", default="msgemm",
+                    choices=["bf16", "int4_dequant", "msgemm"])
+    ap.add_argument("--d", type=int, default=3, help="LUT depth (paper d)")
+    ap.add_argument("--engine", default="static",
+                    choices=["static", "continuous"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    # continuous-engine knobs
+    ap.add_argument("--num-requests", type=int, default=6)
+    ap.add_argument("--arrival-rate", type=float, default=50.0,
+                    help="mean req/s of the Poisson stream (<=0: all at t=0)")
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--block-size", type=int, default=8)
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="KV pool blocks (0: sized to never preempt)")
+    ap.add_argument("--prefill-chunk", type=int, default=8)
+    # quantized KV cache (repro_torch.kvq; continuous engine only)
+    ap.add_argument("--kv-bits", type=int, default=16, choices=[16, 8, 4],
+                    help="paged KV pool storage: 16 = full precision, "
+                         "8/4 = quantized codes + per-slot scales")
+    ap.add_argument("--kv-codebook", default="uniform",
+                    choices=["uniform", "learned"],
+                    help="4-bit code map; 'learned' needs kvq/fit.py, not "
+                         "ported yet")
+    ap.add_argument("--kv-pool-mib", type=float, default=0,
+                    help="size the KV pool by a device-byte budget (MiB) "
+                         "instead of --num-blocks")
+    ap.add_argument("--check", action="store_true",
+                    help="assert token parity vs the static generate path")
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto"] + dispatch.backend_names(),
+                    help="force a registered backend (see the module's "
+                         "docstring)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; there is no fallback")
+    args = ap.parse_args(argv)
+    if args.kv_codebook == "learned":
+        ap.error("--kv-codebook learned fits a codebook with kvq/fit.py, "
+                 "which is not ported yet (ROADMAP A6/A9)")
+    return args
+
+
+def main(argv=None) -> dict:
+    """Run the CLI on ``argv``.  Returns params, cfg, the build figures and
+    the run's results."""
+    args = parse_args(argv)
+    device = resolve(args.device)
+    kv_backend = backends_from_args(args)
+    params, cfg, build = build_model(args, device)
+    if args.engine == "continuous":
+        run = run_continuous(args, params, cfg, device, kv_backend)
+    else:
+        if args.kv_bits != 16 or args.kv_pool_mib:
+            print("[serve] --kv-bits/--kv-pool-mib apply to the paged pool "
+                  "only; ignored by --engine static")
+        run = run_static(args, params, cfg, device)
+    return dict(params=params, cfg=cfg, build=build, **run)
+
+
+if __name__ == "__main__":
+    main()

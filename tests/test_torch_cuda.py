@@ -1,5 +1,5 @@
-"""The CUDA kernels (msGeMM, int4 GeMM, paged attention) against their
-plain PyTorch versions, on the card.
+"""The CUDA kernels (msGeMM, int4 GeMM, paged attention, flash attention)
+against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: skips without a GPU.  Imports torch only (the machine
 with the card has no JAX); run there with
@@ -12,6 +12,8 @@ Paged attention sums each dot product in another order than its plain
 version (a warp's shuffle tree against torch's einsum): rtol = atol =
 2e-5 on f32 outputs, the tolerance tests/test_kvq.py allows the
 reference's two routes, and one bf16 ulp (rtol = 2^-7) on bf16 outputs.
+Flash attention likewise (2e-5 is tests/test_kernels.py's own), its
+tanh and exp differing from torch's in the last ulps besides.
 """
 
 import numpy as np
@@ -162,3 +164,46 @@ def test_paged_attention_kernel_matches_plain(B, C, H, hk, dh, bs, nseq, kv,
         torch.cuda.synchronize()
         assert got.dtype == q.dtype
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# ------------------------------------------------------- flash attention
+FA_CASES = [  # (B, Sq, Skv, H, Hk, dh, causal, window, softcap)
+    (2, 37, 37, 4, 2, 16, True, 0, 0.0),
+    (1, 130, 70, 6, 3, 12, True, 64, 20.0),
+    (2, 64, 128, 4, 1, 8, False, 20, 0.0),
+    (1, 200, 200, 2, 2, 17, True, 70, 0.0),
+    (1, 1024, 1024, 8, 1, 256, True, 0, 0.0),  # gemma-2b prefill
+    (1, 1024, 1024, 16, 8, 256, True, 512, 50.0),  # gemma2-9b local layer
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,hk,dh,causal,window,softcap", FA_CASES)
+def test_flash_attention_kernel_matches_plain(B, Sq, Skv, H, hk, dh, causal,
+                                              window, softcap):
+    from repro_torch.kernels import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    rng = np.random.default_rng(Sq + H + dh)
+    q32, k32, v32 = (torch.from_numpy(rng.standard_normal(s)
+                                      .astype(np.float32)).cuda()
+                     for s in ((B, H, Sq, dh), (B, hk, Skv, dh),
+                               (B, hk, Skv, dh)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    for dtype, tol in ((torch.float32, dict(rtol=2e-5, atol=2e-5)),
+                       (torch.bfloat16, dict(rtol=2**-7, atol=1e-5))):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        before = fa.launches
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1 and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        # the public layout: (B, S, H, dh), padded as the reference pads
+        if causal or Skv % 8 == 0:
+            pub = [t.transpose(1, 2) for t in (q, k, v)]
+            got = ops.flash_attention(*pub, **kw)
+            want = ops.flash_attention(*pub, kernel=fa.flash_attention_plain,
+                                       **kw)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
