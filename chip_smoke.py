@@ -5,6 +5,9 @@
     python3 chip_smoke.py --profile  # also profile the engine: msgemm
                                      # weights with the full-precision and
                                      # the kv8 pool, and int4 weights
+    python3 chip_smoke.py --sweep    # only: build, then time every msGeMM
+                                     # variant (rows per block) at the
+                                     # engine's shapes
 
 Phases, any failure exits non-zero before the last line is printed:
 
@@ -17,7 +20,9 @@ Phases, any failure exits non-zero before the last line is printed:
      the engine passes them (x and residual transposed views of the
      (b, .) activations, bfloat16 output), a vocab-sized (256000 x 2048)
      GeMM, and small d = 1, 2, 4 and learned-codebook cases with
-     contiguous operands;
+     contiguous operands; the engine shapes and the vocab case once with
+     f32 and once with bf16 x and residual (the engine's), each line
+     with its tiles, kernel/matmul and PR 13's kernel/matmul;
    * the int4 GeMM at the same gemma shapes and layout, the vocab-sized
      GeMM with the identity epilogue (the legacy grid's counterpart) and
      small ragged cases with bias, relu/silu/gelu and a residual;
@@ -133,15 +138,18 @@ def wall_ms(fn, reps: int) -> float:
 
 
 # ----------------------------------------------------------------- phase 2
-def work(m, k, b, d, sb, has_bias, has_res, out_bytes):
-    """(bytes, ops) the function needs: each input read once, the output
-    written once; per chunk and column the LUT's 16·d distinct products
-    and one add per entry of each length 2..d (entries that share a prefix
-    share its sum), one gather-add per (row, chunk, column), one
-    multiply-add per (row, scale block, column), the epilogue's adds."""
+def work(m, k, b, d, sb, has_bias, has_res, out_bytes, x_bytes=4):
+    """(bytes, ops) the function needs: each input read once (x and the
+    residual at ``x_bytes`` an element, the type the kernel reads), the
+    output written once; per chunk and column the LUT's 16·d distinct
+    products and one add per entry of each length 2..d (entries that
+    share a prefix share its sum), one gather-add per (row, chunk,
+    column), one multiply-add per (row, scale block, column), the
+    epilogue's adds."""
     kc, nsb = -(-k // d), -(-k // sb)
-    nbytes = (m * kc * 4 + m * nsb * 4 + k * b * 4 + 16 * 4 + m * b * out_bytes
-              + (m * 4 if has_bias else 0) + (m * b * 4 if has_res else 0))
+    nbytes = (m * kc * 4 + m * nsb * 4 + k * b * x_bytes + 16 * 4
+              + m * b * out_bytes + (m * 4 if has_bias else 0)
+              + (m * b * x_bytes if has_res else 0))
     produce = 16 * d + sum(16**i for i in range(2, d + 1))
     ops = (produce * kc * b + m * kc * b + 2 * m * nsb * b
            + m * b * (int(has_bias) + int(has_res)))
@@ -158,7 +166,8 @@ def with_bound(result, nbytes, nops):
 
 
 def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
-              act, bias, residual, out_dtype, engine_layout, **kw):
+              act, bias, residual, out_dtype, engine_layout,
+              x_dtype=None, **kw):
     """Check ``kernel(weight, x, scales, **kw)`` against ``plain`` on exact
     inputs (integer x, power-of-two scales: bit-exact unless gelu/silu)
     and on random floats (within one ulp of the output type: the two share
@@ -166,15 +175,18 @@ def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
     L2, plain version, and one ``torch.matmul`` on ``dense(weight,
     scales)``, the dequantized f32 weight.  ``engine_layout``: x (k, b)
     and the residual (m, b) are transposed views of (b, k) and (b, m)
-    buffers, as the dispatch backends pass the model's activations."""
+    buffers, as the dispatch backends pass the model's activations.
+    ``x_dtype``: the type of x and the residual (float32 when None)."""
     import torch
 
     name = result["name"]
     tol = FLOAT_TOL if out_dtype == torch.float32 else BF16_TOL
+    x_dtype = x_dtype or torch.float32
 
     def cols(rows, draw):
         """A (rows, b) operand, in the engine's layout when asked."""
-        return draw(b, rows).t() if engine_layout else draw(rows, b)
+        return (draw(b, rows).to(x_dtype).t() if engine_layout
+                else draw(rows, b).to(x_dtype))
 
     for exact in (True, False):
         if exact:
@@ -215,14 +227,15 @@ def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
     w = dense(weight, sc)
     wcopies = max(1, min(8, math.ceil(L2_FLUSH_BYTES / (w.numel() * 4))))
     ws = [w] + [w.clone() for _ in range(wcopies - 1)]
+    xf = x.float()  # the yardstick multiplies in f32, as PR 13's did
     result["library_ms"] = device_ms(
-        [lambda w_=w_: torch.matmul(w_, x) for w_ in ws], reps=20)
+        [lambda w_=w_: torch.matmul(w_, xf) for w_ in ws], reps=20)
     return result
 
 
 def kernel_case(name, m, k, b, *, d=3, sb=36, act="none", bias=False,
                 residual=False, codebook=False, out_dtype=None,
-                engine_layout=False, seed=0):
+                engine_layout=False, x_dtype=None, seed=0):
     """One msGeMM kernel-vs-plain case (see :func:`gemm_case`)."""
     import torch
 
@@ -231,6 +244,7 @@ def kernel_case(name, m, k, b, *, d=3, sb=36, act="none", bias=False,
     from repro_torch.kernels import ops
 
     out_dtype = out_dtype or torch.float32
+    x_dtype = x_dtype or torch.float32
     g = torch.Generator(device="cuda").manual_seed(seed)
     kc, nsb = -(-k // d), -(-k // sb)
     codes = torch.randint(0, 16, (m, k), generator=g, device="cuda",
@@ -245,7 +259,9 @@ def kernel_case(name, m, k, b, *, d=3, sb=36, act="none", bias=False,
     result = dict(name=name, m=m, k=k, b=b, d=d, scale_block=sb, act=act,
                   bias=bias, residual=residual, codebook=codebook,
                   out_dtype=str(out_dtype).removeprefix("torch."),
-                  engine_layout=engine_layout, tiles=list(tiles))
+                  engine_layout=engine_layout,
+                  x_dtype=str(x_dtype).removeprefix("torch."),
+                  tiles=tiles._asdict())
     gemm_case(
         result, g, idx,
         lambda i, x, sc, **kw: ms.msgemm_cuda(i, x, sc, values, **kw),
@@ -253,11 +269,12 @@ def kernel_case(name, m, k, b, *, d=3, sb=36, act="none", bias=False,
         lambda i, sc: (values[codes.long()]
                        * torch.repeat_interleave(sc, sb, 1)[:, :k]),
         m=m, k=k, b=b, nsb=nsb, act=act, bias=bias, residual=residual,
-        out_dtype=out_dtype, engine_layout=engine_layout, d=d,
-        scale_block=sb, tiles=tiles)
+        out_dtype=out_dtype, engine_layout=engine_layout, x_dtype=x_dtype,
+        d=d, scale_block=sb, tiles=tiles)
     return with_bound(result, *work(
         m, k, b, d, sb, bias, residual,
-        torch.empty((), dtype=out_dtype).element_size()))
+        torch.empty((), dtype=out_dtype).element_size(),
+        torch.empty((), dtype=x_dtype).element_size()))
 
 
 GEMMA_GEMMS = [  # (name, m, k, epilogue kwargs) of one gemma-2b block
@@ -279,19 +296,45 @@ GEMMA2_GEMMS = [  # the same for one gemma2-9b block (wv as wk)
 ]
 
 
-def engine_specs(gemms, widths):
+# kernel/matmul of the msGeMM kernel before its redesign, per (case, b):
+# PR 13's final chip_smoke.py call, NVIDIA H100 80GB HBM3, 700.00 W
+# (f32 x and residual, the matmul yardstick on the dequantized f32 weight)
+PR13_RATIO = {
+    ("wq", 1): 3.92, ("wk", 1): 5.24, ("wo", 1): 3.92, ("gate", 1): 4.43,
+    ("up", 1): 4.04, ("down", 1): 4.02,
+    ("wq", 4): 3.38, ("wk", 4): 5.09, ("wo", 4): 3.37, ("gate", 4): 3.01,
+    ("up", 4): 2.98, ("down", 4): 2.93,
+    ("wq", 8): 6.03, ("wk", 8): 7.97, ("wo", 8): 5.89, ("gate", 8): 5.80,
+    ("up", 8): 5.85, ("down", 8): 5.89,
+    ("vocab", 8): 3.40, ("small-d1", 4): 1.25, ("small-d2", 5): 1.55,
+    ("small-d4", 4): 42.75, ("small-d4-b1", 1): 27.48,
+    ("codebook-bf16", 3): 3.47,
+    ("g2-wq", 4): 2.69, ("g2-wk", 4): 2.65, ("g2-wo", 4): 2.75,
+    ("g2-gate", 4): 3.94, ("g2-up", 4): 3.94, ("g2-down", 4): 3.84,
+}
+
+
+def engine_specs(gemms, widths, x_dtype=None):
     """(name, m, k, b, kwargs) of ``gemms`` at each batch width, as the
-    engine runs them: x and residual transposed views, bf16 out."""
+    engine runs them: x and residual transposed views, bf16 out; x and
+    the residual in ``x_dtype`` (float32 when None; the engine's are
+    bfloat16)."""
     import torch
 
+    xd = {} if x_dtype is None else dict(x_dtype=x_dtype)
     return [(n, m, k, b, dict(e, out_dtype=torch.bfloat16,
-                              engine_layout=True))
+                              engine_layout=True, **xd))
             for b in widths for n, m, k, e in gemms if n != "wv"]
+
+
+def tiles_str(t):
+    return f"tb={t['tb']} rows={t['rows']} stage={t['stage']} tj={t['tj']}"
 
 
 def phase_kernels():
     import torch
 
+    bf16 = torch.bfloat16
     cases = []
     specs = engine_specs(GEMMA_GEMMS, (1, 4, 8)) + [
         ("vocab", 256000, 2048, 8, {}),
@@ -303,19 +346,94 @@ def phase_kernels():
         ("codebook-bf16", 1000, 777, 3,
          dict(codebook=True, act="gelu", bias=True, residual=True,
               out_dtype=torch.bfloat16)),
-    ] + engine_specs(GEMMA2_GEMMS, (4,))
+    ] + engine_specs(GEMMA2_GEMMS, (4,)) + (
+        engine_specs(GEMMA_GEMMS, (1, 4, 8), bf16)
+        + [("vocab", 256000, 2048, 8, dict(x_dtype=bf16))]
+        + engine_specs(GEMMA2_GEMMS, (4,), bf16))
     for i, (name, m, k, b, ep) in enumerate(specs):
         t0 = time.perf_counter()
         r = kernel_case(name, m, k, b, seed=i, **ep)
+        r["ratio"] = r["ms"] / r["library_ms"]
+        r["pr13_ratio"] = PR13_RATIO.get((name, b))
         cases.append(r)
         print(f"[kernels] {name:14s} m={m:6d} k={k:5d} b={b} d={r['d']} "
-              f"act={r['act']:4s} kernel={r['ms']:.4f}ms "
-              f"host={r['host_ms']:.4f}ms plain={r['plain_ms']:.2f}ms "
-              f"matmul={r['library_ms']:.4f}ms bound={r['bound_ms']:.4f}ms "
-              f"({r['bound_by']}) err={r['max_abs_err']:.3g} "
+              f"x={r['x_dtype']:8s} act={r['act']:4s} "
+              f"kernel={r['ms']:.4f}ms host={r['host_ms']:.4f}ms "
+              f"plain={r['plain_ms']:.2f}ms matmul={r['library_ms']:.4f}ms "
+              f"kernel/matmul={r['ratio']:.2f} (PR 13: {r['pr13_ratio']}) "
+              f"bound={r['bound_ms']:.4f}ms ({r['bound_by']}) "
+              f"err={r['max_abs_err']:.3g} "
               f"exact_err={r['exact_max_abs_err']:.3g} "
+              f"[{tiles_str(r['tiles'])}] "
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
+    f32 = [c for c in cases if c["x_dtype"] == "float32"
+           and c["pr13_ratio"] is not None]
+    below = [c for c in f32 if c["ratio"] < c["pr13_ratio"]]
+    print(f"[kernels] kernel/matmul below PR 13's at {len(below)} of "
+          f"{len(f32)} f32 cases", flush=True)
     return cases
+
+
+def phase_sweep():
+    """Time every msGeMM variant (rows per block) at the engine's shapes,
+    with bf16 x as the engine passes it; each variant's output is checked
+    bit for bit against the plain version on exact inputs first.  Written
+    to chiprun_out/sweep.json."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels import msgemm as ms
+    from repro_torch.kernels import ops
+
+    bf16 = torch.bfloat16
+    values = packing.b_values(torch.float32, "cuda")
+    specs = ([(n, m, k, b) for n, m, k, b, _ in
+              engine_specs(GEMMA_GEMMS, (1, 4, 8))
+              + engine_specs(GEMMA2_GEMMS, (4,))]
+             + [("vocab", 256000, 2048, 8)])
+    rows_of = []
+    for name, m, k, b in specs:
+        d, sb = 3, 36
+        kc, nsb = -(-k // d), -(-k // sb)
+        g = torch.Generator(device="cuda").manual_seed(m + k + b)
+        codes = torch.randint(0, 16, (m, k), generator=g, device="cuda",
+                              dtype=torch.uint8)
+        idx = packing.pack_indices(codes, d).contiguous()
+        del codes
+        x = torch.randint(-4, 5, (b, k), generator=g, device="cuda") \
+            .to(bf16).t()
+        sc = 2.0 ** torch.randint(-2, 3, (m, nsb), generator=g,
+                                  device="cuda").float()
+        kw = dict(d=d, scale_block=sb, out_dtype=bf16)
+        want = ms.msgemm_plain(idx, x, sc, values,
+                               tiles=ops.msgemm_tiles(m, kc, b, d, sb), **kw)
+        wbytes = idx.numel() * 4
+        copies = max(1, min(MAX_COPIES, math.ceil(L2_FLUSH_BYTES / wbytes)))
+        idxs = [idx] + [idx.clone() for _ in range(copies - 1)]
+        tb = 1 if b == 1 else 4
+        picked = ops.msgemm_tiles(m, kc, b, d, sb)
+        line = []
+        for rows in (512, 1024, 2048):
+            t = ops.split_tiles(m, kc, b, d, sb, tb=tb, rows=rows)
+            if ms.smem_bytes(d, tb, rows, t.stage) > ms.SMEM_LIMIT:
+                continue
+            got = ms.msgemm_cuda(idx, x, sc, values, tiles=t, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"sweep {name} b={b} {t}: kernel != plain")
+            t_ms = device_ms([lambda i=i: ms.msgemm_cuda(
+                i, x, sc, values, tiles=t, **kw) for i in idxs],
+                reps=max(20, 2 * copies))
+            rows_of.append(dict(name=name, m=m, k=k, b=b,
+                                tiles=t._asdict(), ms=t_ms,
+                                picked=t == picked))
+            line.append(f"{rows}:{t_ms:.4f}" + ("*" if t == picked else ""))
+        print(f"[sweep] {name:8s} b={b} " + " ".join(line), flush=True)
+        del idxs, idx
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "sweep.json").write_text(json.dumps(rows_of, indent=1))
+    return rows_of
 
 
 def int4_work(m, k, b, sb, has_bias, has_res, out_bytes):
@@ -1030,6 +1148,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile the engine (torch.profiler) with "
                          "msgemm weights at kv16 and kv8, and int4 weights")
+    ap.add_argument("--sweep", action="store_true",
+                    help="only build and time every msGeMM variant at the "
+                         "engine's shapes (chiprun_out/sweep.json)")
     args = ap.parse_args()
     try:
         import torch
@@ -1056,6 +1177,9 @@ def main() -> int:
     print(f"[build] {', '.join(p.name for p in libs.values())} in "
           f"{build_s:.1f}s", flush=True)
 
+    if args.sweep:
+        phase_sweep()
+        return 0
     cases = phase_kernels()
     int4_cases = phase_int4_kernels()
     attn_cases = phase_attn_kernels()
@@ -1087,11 +1211,14 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else f"nvidia-smi failed: {smi.stderr.strip()}"
 
-    def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b"):
+    def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b",
+                    x_dtype="float32"):
         """Timing keys summed over one layer's seven GeMMs at the engine's
-        decode shape (b = max_slots = 4; wv is timed as wk)."""
+        decode shape (b = max_slots = 4; wv is timed as wk), x and the
+        residual in ``x_dtype``."""
         names = {n for n, *_ in gemms}
-        layer = [c for c in gemm_cases if c["b"] == 4 and c["name"] in names]
+        layer = [c for c in gemm_cases if c["b"] == 4 and c["name"] in names
+                 and c.get("x_dtype", x_dtype) == x_dtype]
         layer += [dict(c, name=c["name"].replace("wk", "wv"))
                   for c in layer if c["name"].endswith("wk")]
         tot = {key: sum(c[key] for c in layer)
@@ -1100,7 +1227,8 @@ def main() -> int:
             {"max_abs_err": max(c["max_abs_err"] for c in gemm_cases),
              "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "library_ms": tot["library_ms"],
-             "shape": f"sum of one {model} layer's 7 GeMMs at b=4"},
+             "shape": f"sum of one {model} layer's 7 GeMMs at b=4, "
+                      f"{x_dtype} x"},
             tot["bytes"], tot["ops"])
 
     # every path's engine runs, each read with the counts set to 0 before
@@ -1149,6 +1277,9 @@ def main() -> int:
     ]
     layers = {"gemma2-9b msgemm": layer_entry(cases, GEMMA2_GEMMS,
                                               "gemma2-9b"),
+              "gemma-2b msgemm bf16": layer_entry(cases, x_dtype="bfloat16"),
+              "gemma2-9b msgemm bf16": layer_entry(
+                  cases, GEMMA2_GEMMS, "gemma2-9b", "bfloat16"),
               "gemma2-9b int4": layer_entry(int4_cases, GEMMA2_GEMMS,
                                             "gemma2-9b")}
     out = ROOT / "chiprun_out"
@@ -1159,6 +1290,10 @@ def main() -> int:
         main=main_path, kvq=kvq_path,
         int4=int4_path, gemma2_9b=gemma2, gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
+    for key, e in [("gemma-2b msgemm", kernels[0])] + list(layers.items()):
+        print(f"[report] {key} layer: kernel {e['ms']:.4f} ms, matmul "
+              f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['shape']})")
     print(f"[report] total {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,26 +7,42 @@ the fused grid (``_kernel_fused`` + ``_consume_tile``, pallas_call at line
 pallas_call at line 212), which differ only in where the accumulator lives.
 
 What bounds it on an H100.  Per call the function must read the int32
-LUT indices (m·ceil(k/d)·4 B), the scales, x, and write the output; at
-3.35 TB/s the index bytes dominate (5.6 MB for a 2048x2048 linear at d=3:
-1.7 µs).  Its operations are the LUT produce, per chunk and column 16·d
-distinct products and about one add per entry (16^d entries; those that
-share a prefix share its sum), plus m·ceil(k/d)·b gather-adds, all in f32
-outside the tensor cores (67 TFLOP/s); at small m (256 rows) and b = 8
-the produce makes the operations the bound.  ``chip_smoke.py`` computes
-both bounds per shape.
+LUT indices (m·ceil(k/d)·4 B), the scales, x and the residual in their
+own type, and write the output; at 3.35 TB/s the index bytes dominate
+(5.6 MB for a 2048x2048 linear at d=3: 1.7 µs).  Its operations are the
+LUT produce, per chunk and column 16·d distinct products and about one
+add per entry, plus m·ceil(k/d)·b gather-adds, all in f32 outside the
+tensor cores (67 TFLOP/s).  Both bounds are about 10x below its time: at
+one 512-thread block per SM a chunk goes to building its 16^d·TB table
+values in shared memory (about a third), to the staged index copies and
+the gathers' bank conflicts, and to fixed costs (launch, the split
+reduction, the barrier a chunk); ``tools/msgemm_probe.py`` measures the
+split (PERF.md, PR 14).
 
-What the design does about it.  The LUT tile of one chunk and TB columns
-(16^d·TB floats: 128 KiB at d=3, TB=8) is built once per block in shared
-memory and gathered by every one of the block's 512 or 2048 rows, so the
-produce is amortized over m as the paper intends and the gather never
-leaves the SM.  The contraction is split across blocks along whole scale
-blocks (split-K) so that a decode-shaped GeMM, with few row tiles, still
-fills the 132 SMs; a second small kernel adds the splits in j order and
-applies the epilogue.  d=4's 256 KiB table does not fit a block's 227 KB
-of shared memory, so d=4 builds it in a device-memory scratch that the
-wrapper allocates.  Indices are read as stored (int32), each row's
-sequence of chunks from its own cache lines.
+What the design does about it.
+* One table per chunk serves a block of 1024 rows, built once, as the TPU
+  kernel builds it on the first m-step only; the contraction is split
+  along whole scale blocks so that the blocks fill the 132 SMs, and a
+  second small kernel adds the splits in j order and applies the
+  epilogue.  (Sharing one build across a thread block cluster, with the
+  entries stored into every block's shared memory or read from the
+  builder's, and splitting builder and gatherer warps were measured
+  slower and left out.)
+* Cheap produce in the reference's op order: each thread's entries share
+  their last two codes, whose products it takes once a chunk; the rest of
+  each sum is formed in registers, one float4 store an entry,
+  neighbouring threads on neighbouring entries.
+* Two table buffers: chunk j+1's table is built while chunk j's is
+  gathered, one block barrier per chunk in place of three.
+* Staged, coalesced index loads: a block copies its (rows x ``stage``)
+  index tile into shared memory with 16-byte ``cp.async`` copies (L2
+  only) a stage ahead, from the 16-byte boundary at or below each row's
+  first chunk; x of a stage is staged beside it.  (TMA cannot: the index
+  rows are 2,732 B apart at k = 2048, not a multiple of 16.)
+* x and the residual are read in their own type (bf16 from the engine)
+  and widened in registers, so the wrapper copies nothing.
+* d=4's 256 KiB table does not fit a block's 227 KB of shared memory: it
+  is built in a device-memory scratch per block, at TB = 1.
 
 Op order (see ``csrc/msgemm.cu``) is the Pallas kernel's with one j-tile
 per split: gathers summed in chunk order within a scale block, one scale
@@ -50,10 +66,11 @@ from repro_torch.kernels import nvcc
 # the codes of csrc/epilogue.cuh's Act and DType enums
 ACTS = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-THREADS = 256  # kThreads in csrc/msgemm.cu
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+THREADS = 512  # kThreads in csrc/msgemm.cu
+SMEM_LIMIT = 232_448  # shared memory a block may use on an H100 (227 KB)
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
              + [ctypes.c_longlong] * 6
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 # Kernel launches since the last reset; the main path's callers set it to
 # 0, drive the model, and read it to prove every GeMM went through the
@@ -64,16 +81,47 @@ launches = 0
 class Tiles(NamedTuple):
     """One launch's work split (``ops.msgemm_tiles`` picks it).
 
-    tb: batch columns per block (1, 4 or 8); rpt: rows per thread (2 or
-    8, so a block owns 256·rpt rows); tj: LUT chunks per contraction
-    split, a multiple of scale_block // d.  Only ``tj`` changes the
-    arithmetic (the split sums are added in j order); the plain version
-    takes it too, so both devices give the same bits.
+    tb: batch columns per block (1 or 4; 1 at d = 4).  rows: output rows
+    per block, 512·rpt with rpt in 1, 2, 4.  stage: LUT chunks per staged
+    index tile (4, 8, 16 or 32).  tj: LUT chunks per contraction split, a
+    multiple of scale_block // d.  Only ``tj`` changes the arithmetic (the
+    split sums are added in j order); the plain version takes it too, so
+    both devices give the same bits.
     """
 
     tb: int
-    rpt: int
+    rows: int
+    stage: int
     tj: int
+
+
+def smem_bytes(d: int, tb: int, rows: int, stage: int) -> int:
+    """Dynamic shared memory of one block, the formula of ``csrc/msgemm.cu``
+    (``smem_bytes``), in 4-byte words times 4: two 16^d x tb tables (d <
+    4), two staged x tiles (stage x d x tb), 16 code values, two staged
+    index tiles of rows x (stage + 4) words (a row's 16-byte vectors from
+    the boundary at or below its first chunk)."""
+    table = 2 * 16**d * tb if d < 4 else 0
+    return 4 * (table + 2 * stage * d * tb + 16 + 2 * rows * (stage + 4))
+
+
+def grid(m: int, kc: int, b: int, tiles: Tiles) -> tuple[int, int, int]:
+    """The kernel's grid: row tiles, contraction splits, column tiles."""
+    return -(-m // tiles.rows), -(-kc // tiles.tj), -(-b // tiles.tb)
+
+
+def check_tiles(tiles: Tiles, d: int, cpb: int) -> None:
+    """Raise unless ``tiles`` names a variant ``csrc/msgemm.cu`` builds and
+    a block of it fits the card's shared memory."""
+    t = tiles
+    ok = (t.tb in ((1,) if d == 4 else (1, 4))
+          and t.rows in tuple(THREADS * r for r in (1, 2, 4))
+          and t.stage in (4, 8, 16, 32)
+          and t.tj > 0 and t.tj % cpb == 0
+          and smem_bytes(d, t.tb, t.rows, t.stage) <= SMEM_LIMIT)
+    if not ok:
+        raise ValueError(f"bad tiles {tiles} for d = {d}, "
+                         f"scale_block // d = {cpb}")
 
 
 def _check(idx, x, scales, values, d, scale_block, bias, residual):
@@ -114,40 +162,41 @@ def msgemm_cuda(idx: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """y (m, b) = cast(act(dequant(idx) @ x + bias) + residual) on the GPU.
 
-    idx (m, ceil(k/d)) int32 contiguous; x (k, b) float32, any strides;
-    scales (m, ceil(k/scale_block)) float32 contiguous; values (16,) the
-    code->value table; bias (m,), residual (m, b) float32 (any strides).
-    The result is an (m, b) view of a (b, m) buffer, so the model's
-    row-major layout is its transpose without a copy.
+    idx (m, ceil(k/d)) int32 contiguous; x (k, b) float32, bfloat16 or
+    float16, any strides; scales (m, ceil(k/scale_block)) float32
+    contiguous; values (16,) the code->value table; bias (m,) float32;
+    residual (m, b) float32, bfloat16 or float16 (any strides).  The
+    result is an (m, b) view of a (b, m) buffer, so the model's row-major
+    layout is its transpose without a copy.
     """
     global launches
     m, k, kc, b, cpb, nsb = _check(idx, x, scales, values, d, scale_block,
                                    bias, residual)
     if idx.device.type != "cuda":
         raise ValueError(f"msgemm_cuda needs CUDA tensors, got {idx.device}")
-    if idx.dtype != torch.int32 or not idx.is_contiguous():
-        raise ValueError("idx must be contiguous int32")
-    for name, t in (("x", x), ("scales", scales), ("values", values),
-                    ("bias", bias), ("residual", residual)):
+    if idx.dtype != torch.int32 or not idx.is_contiguous() \
+            or idx.data_ptr() % 16:
+        raise ValueError("idx must be contiguous int32, 16-byte aligned")
+    for name, t in (("x", x), ("residual", residual)):
+        if t is not None and t.dtype not in OUT_TYPES:
+            raise ValueError(f"{name} must be float32, bfloat16 or float16, "
+                             f"got {t.dtype}")
+    for name, t in (("scales", scales), ("values", values), ("bias", bias)):
         if t is not None and t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
-    for name, t in (("scales", scales), ("values", values), ("bias", bias)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if out_dtype not in OUT_TYPES:
         raise ValueError(f"unsupported out_dtype {out_dtype}")
-    if tiles.tb not in (1, 4, 8) or tiles.rpt not in (2, 8) \
-            or tiles.tj <= 0 or tiles.tj % cpb:
-        raise ValueError(f"bad tiles {tiles} for scale_block // d = {cpb}")
-    nsplit = -(-kc // tiles.tj)
+    check_tiles(tiles, d, cpb)
+    gx, nsplit, gz = grid(m, kc, b, tiles)
     dev = idx.device
     out = torch.empty((b, m), dtype=out_dtype, device=dev).t()
-    ws = (torch.empty((nsplit, m, b), dtype=torch.float32, device=dev)
+    ws = (torch.empty((nsplit, b, m), dtype=torch.float32, device=dev)
           if nsplit > 1 else None)
     lut_scratch = None
-    if d == 4:
-        nblocks = (-(-m // (THREADS * tiles.rpt))) * nsplit * (-(-b // tiles.tb))
-        lut_scratch = torch.empty(nblocks * 16**4 * tiles.tb,
+    if d == 4:  # two tables per block of the grid
+        lut_scratch = torch.empty(gx * nsplit * gz * 2 * 16**4 * tiles.tb,
                                   dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rs = residual.stride() if residual is not None else (0, 0)
@@ -155,9 +204,11 @@ def msgemm_cuda(idx: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
     err = nvcc.load("msgemm", "msgemm_launch", _ARGTYPES)(
         ptr(idx), ptr(x), ptr(scales), ptr(values), ptr(bias), ptr(residual),
         ptr(out), ptr(ws), ptr(lut_scratch),
-        m, k, kc, b, d, cpb, nsb, tiles.tj, nsplit, tiles.tb, tiles.rpt,
+        m, k, kc, b, d, cpb, nsb, tiles.tj, nsplit, tiles.tb,
+        tiles.rows // THREADS, tiles.stage.bit_length() - 1,
         x.stride(0), x.stride(1), rs[0], rs[1], out.stride(0), out.stride(1),
-        ACTS[act], OUT_TYPES[out_dtype], stream)
+        ACTS[act], OUT_TYPES[out_dtype], OUT_TYPES[x.dtype],
+        OUT_TYPES[residual.dtype] if residual is not None else 0, stream)
     if err != 0:
         raise RuntimeError(f"msgemm kernel launch failed: CUDA error {err} "
                            f"(m={m}, k={k}, b={b}, d={d}, tiles={tiles})")

@@ -13,6 +13,7 @@ padding, which decides what queries past the last key see.
 from __future__ import annotations
 
 import functools
+import heapq
 
 import torch
 
@@ -28,24 +29,71 @@ from repro_torch.kernels.msgemm import Tiles
 # the CPU path picks the same contraction split (and so the same bits) as
 # the card.
 NUM_SMS = 132
+SM_SMEM = 233_472  # shared memory of one SM; each block also takes 1 KiB
+STAGE_WORDS = 8192  # indices in one staged tile: rows x stage
+BLOCK_OVERHEAD = 2  # a block's fixed cost (prologue, epilogue) in chunks
+# m x kc from which 2048-row blocks beat 1024-row ones at tb = 1 (on the
+# card: gemma-2b gate and down, 11.2M, faster; wq, 1.4M, slower)
+ROW_CHUNKS_2048 = 4_000_000
 
 
+@functools.lru_cache(maxsize=None)
 def msgemm_tiles(m: int, kc: int, b: int, d: int, scale_block: int) -> Tiles:
-    """Hopper tile choice for (m rows, kc LUT chunks, b columns).
+    """Hopper tile choice for (m rows, kc LUT chunks, b columns), a
+    function of the shape alone.
 
-    tb: the batch columns one LUT tile serves (1, 4 or 8).  rpt: rows per
-    thread; a block of 256 threads owns 512 rows for small m and 2048
-    otherwise, so one LUT build feeds as many gathers as registers allow.
-    tj: the contraction is split along whole scale blocks until about two
-    blocks per SM are in flight (decode shapes have few row tiles).
+    tb: the batch columns one table serves (4, or 1 for b = 1 and d = 4);
+    b > 4 runs as several column tiles, each with its own table.  rows:
+    1024 a block (512 for m <= 512), so one table build serves as many
+    rows as a block's shared memory allows at tb = 4 (two 64 KiB tables
+    and two staged index tiles); at tb = 1 the tables are a quarter of
+    that and 2048 rows fit, which pays once the GeMM has enough row-chunks
+    (ROW_CHUNKS_2048) for the split to fill the card with fewer row tiles.
+    stage and tj: :func:`split_tiles`.
     """
-    tb = 1 if b == 1 else (4 if b <= 4 else 8)
-    rpt = 2 if m <= 512 else 8
+    tb = 1 if b == 1 or d == 4 else 4
+    rows = (512 if m <= 512 else
+            2048 if tb == 1 and m * kc >= ROW_CHUNKS_2048 else 1024)
+    return split_tiles(m, kc, b, d, scale_block, tb=tb, rows=rows)
+
+
+def _makespan(row_tiles: int, col_tiles: int, works: list[int],
+              slots: int) -> int:
+    """When the last block ends, if blocks start in launch order (row tile
+    fastest, then split, then column tile) on the first free of ``slots``
+    and split s's blocks take ``works[s]``."""
+    free = [0] * slots
+    for _ in range(col_tiles):
+        for w in works:
+            for _ in range(row_tiles):
+                heapq.heapreplace(free, free[0] + w)
+    return max(free)
+
+
+def split_tiles(m: int, kc: int, b: int, d: int, scale_block: int, *,
+                tb: int, rows: int) -> Tiles:
+    """The rest of a tile choice once tb and rows are fixed: the index
+    stage of STAGE_WORDS indices, and tj, whole scale blocks per
+    contraction split, the one whose blocks end soonest on NUM_SMS SMs
+    (as many blocks an SM as this variant's shared memory allows), a block
+    costing its chunks plus BLOCK_OVERHEAD; ties go to fewer splits."""
+    stage = STAGE_WORDS // rows
     cpb = scale_block // d
     nsb = -(-kc // cpb)
-    tiles = -(-m // (256 * rpt)) * -(-b // tb)
-    want = min(max(1, -(-2 * NUM_SMS // tiles)), nsb)
-    return Tiles(tb=tb, rpt=rpt, tj=-(-nsb // want) * cpb)
+    tiles = Tiles(tb=tb, rows=rows, stage=stage, tj=nsb * cpb)
+    gx, _, gz = _ms.grid(m, kc, b, tiles)
+    smem = _ms.smem_bytes(d, tb, rows, stage)
+    slots = NUM_SMS * max(1, min(2048 // _ms.THREADS,
+                                 SM_SMEM // (smem + 1024)))
+    best = None
+    for tj in sorted({-(-nsb // w) * cpb for w in
+                      range(1, min(nsb, 2 * slots // (gx * gz) + 1) + 1)},
+                     reverse=True):
+        works = [min(tj, kc - j) + BLOCK_OVERHEAD for j in range(0, kc, tj)]
+        span = _makespan(gx, gz, works, slots)
+        if best is None or span < best[0]:
+            best = (span, tj)
+    return tiles._replace(tj=best[1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,12 +132,19 @@ def msgemm(idx: torch.Tensor, x: torch.Tensor, d: int, *,
     values = (_int4_values(x.device) if codebook is None
               else codebook.to(torch.float32).contiguous())
     f32 = lambda t: None if t is None else t.to(torch.float32)  # noqa: E731
+    # x and the residual go as they are when the kernel reads their type
+    # (the engine's bf16 activations); the widening to f32 is exact
+    own = lambda t: t if t is None or t.dtype in _ms.OUT_TYPES \
+        else f32(t)  # noqa: E731
+    idx = idx.to(torch.int32).contiguous()
+    if idx.data_ptr() % 16:  # the kernel copies 16-byte vectors of idx
+        idx = idx.clone()
     y = _ms.msgemm(
-        idx.to(torch.int32).contiguous(), f32(x),
+        idx, own(x),
         f32(scales).contiguous(), values, d=d, scale_block=scale_block,
         tiles=tiles, act=ep.act,
         bias=None if bias is None else f32(bias).contiguous(),
-        residual=f32(residual),
+        residual=own(residual),
         out_dtype=torch_dtype(ep.out_dtype) or torch.float32)
     return y[:, 0] if squeeze else y
 

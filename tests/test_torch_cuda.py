@@ -67,6 +67,89 @@ def test_cuda_kernel_matches_plain(d, sb, m, k, b):
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+# (name, d, scale_block, m, k, b, tiles or None for the picker's, x and
+# residual dtype, engine layout): the variants and edges of the kernel
+VARIANTS = [
+    ("bf16-engine-gate", 3, 36, 16384, 2048, 4, None, "bfloat16", True),
+    ("bf16-engine-down-b1", 3, 36, 2048, 16384, 1, None, "bfloat16", True),
+    ("bf16-engine-wk-b8", 3, 36, 256, 2048, 8, None, "bfloat16", True),
+    ("m-ragged-rows1024", 3, 36, 2348, 2048, 4,
+     ms.Tiles(tb=4, rows=1024, stage=8, tj=96), "float32", False),
+    ("m-ragged-rows512-bf16", 3, 12, 1300, 300, 3,
+     ms.Tiles(tb=4, rows=512, stage=16, tj=20), "bfloat16", True),
+    ("kc-below-stage", 3, 6, 600, 30, 4,
+     ms.Tiles(tb=4, rows=512, stage=16, tj=10), "float32", False),
+    ("single-split", 3, 36, 1000, 900, 4,
+     ms.Tiles(tb=4, rows=1024, stage=8, tj=300), "float32", False),
+    ("many-splits", 3, 36, 2048, 2048, 4,
+     ms.Tiles(tb=4, rows=512, stage=16, tj=12), "bfloat16", True),
+    ("d1", 1, 6, 300, 100, 5, None, "float32", False),
+    ("d2-tb1", 2, 8, 300, 130, 1, None, "bfloat16", True),
+    ("d4-tb1", 4, 8, 200, 90, 3, None, "float32", False),
+    ("d3-tb1-rows2048", 3, 12, 5000, 301, 2,
+     ms.Tiles(tb=1, rows=2048, stage=4, tj=40), "float32", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VARIANTS, ids=lambda c: c[0])
+def test_cuda_kernel_variants_match_plain(case):
+    """bf16 operands in the engine's transposed layout, m that is not a
+    multiple of a block's rows, kc below one index stage, one split and
+    many, d = 1, 2, 4 and TB = 1: each bit-exact against the plain version
+    with the identity epilogue (random floats), within 1e-5 with gelu."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    _, d, sb, m, k, b, tiles, xdt, engine = case
+    xdt = getattr(torch, xdt)
+    rng = np.random.default_rng(m * 7 + k + b)
+    codes = rng.integers(0, 16, size=(m, k)).astype(np.uint8)
+    nsb = -(-k // sb)
+    idx = packing.pack_indices(torch.from_numpy(codes), d).cuda()
+    kc = idx.shape[1]
+    tiles = tiles or ops.msgemm_tiles(m, kc, b, d, sb)
+
+    def cols(rows):  # (rows, b) in xdt, transposed view when engine
+        a = rng.standard_normal((b, rows) if engine else (rows, b))
+        t = torch.from_numpy(a.astype(np.float32)).cuda().to(xdt)
+        return t.t() if engine else t
+
+    x, res = cols(k), cols(m)
+    st = torch.from_numpy((np.abs(rng.standard_normal((m, nsb))) + 0.1)
+                          .astype(np.float32)).cuda()
+    vals = packing.b_values(device="cuda")
+    for act in ("none", "gelu"):
+        kw = dict(d=d, scale_block=sb, tiles=tiles, act=act, residual=res,
+                  out_dtype=torch.bfloat16 if engine else torch.float32)
+        got = ms.msgemm_cuda(idx, x, st, vals, **kw)
+        want = ms.msgemm_plain(idx, x, st, vals, **kw)
+        torch.cuda.synchronize()
+        if act == "none":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=1e-5,
+                                       atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_smem_formula_matches_kernel():
+    """msgemm.smem_bytes mirrors csrc/msgemm.cu's formula."""
+    import ctypes
+
+    from repro_torch.kernels import nvcc
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    fn = nvcc.load("msgemm", "msgemm_smem_bytes", [ctypes.c_int] * 4)
+    fn.restype = ctypes.c_longlong
+    for d in (1, 2, 3, 4):
+        for tb in (1, 4):
+            for rows in (512, 1024, 2048):
+                for stage in (4, 8, 16, 32):
+                    assert fn(d, tb, rows, stage) == \
+                        ms.smem_bytes(d, tb, rows, stage)
+
+
 # ------------------------------------------------------------- int4 GeMM
 I4_SHAPES = [  # (scale_block, m, k, b)
     (36, 24, 90, 4),

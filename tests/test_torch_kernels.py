@@ -163,19 +163,35 @@ def test_split_changes_no_exact_result(tj):
     d, sb, m, k, b = 3, 9, 20, 90, 4
     rng = np.random.default_rng(4)
     codes, x, sc = _mk(rng, m, k, b, sb, exact=True)
-    base = _port(codes, x, sc, d, sb, tiles=ms.Tiles(4, 2, 3)).numpy()
-    got = _port(codes, x, sc, d, sb, tiles=ms.Tiles(4, 2, tj)).numpy()
+    tiles = ms.Tiles(tb=4, rows=512, stage=16, tj=3)
+    base = _port(codes, x, sc, d, sb, tiles=tiles).numpy()
+    got = _port(codes, x, sc, d, sb, tiles=tiles._replace(tj=tj)).numpy()
     np.testing.assert_array_equal(got, base)
 
 
 def test_hopper_tiles():
+    """The picker at the engine's shapes: 1024-row blocks (512 for small
+    m, 2048 for large ones at b = 1), the index stage sized to the row
+    tile, tj whole scale blocks."""
     t = ops.msgemm_tiles(2048, 683, 4, 3, 36)
-    assert (t.tb, t.rpt) == (4, 8) and t.tj % 12 == 0
+    assert (t.tb, t.rows, t.stage) == (4, 1024, 8)
+    assert t.tj % 12 == 0 and -(-683 // t.tj) > 1  # split-K fills the card
+    t = ops.msgemm_tiles(16384, 683, 4, 3, 36)
+    assert (t.tb, t.rows, t.stage, t.tj) == (4, 1024, 8, 84)
+    # wk/wv: one row tile; b = 1 reads one column, in 2048-row blocks for
+    # the large GeMMs
     t = ops.msgemm_tiles(256, 683, 1, 3, 36)
-    assert (t.tb, t.rpt) == (1, 2)
-    # a vocab-sized m already fills the card: little or no split
+    assert (t.tb, t.rows) == (1, 512)
+    assert ops.msgemm_tiles(2048, 683, 1, 3, 36).rows == 1024
+    assert ops.msgemm_tiles(16384, 683, 1, 3, 36)[:3] == (1, 2048, 4)
+    assert ops.msgemm_tiles(2048, 5462, 1, 3, 36).rows == 2048
+    # b = 8 runs as two column tiles of 4
+    assert ops.msgemm_tiles(2048, 683, 8, 3, 36).tb == 4
+    # a vocab-sized m already fills the card: no split
     t = ops.msgemm_tiles(256000, 683, 8, 3, 36)
-    assert -(-683 // t.tj) <= 3
+    assert -(-683 // t.tj) == 1
+    # d = 4: one column a table
+    assert ops.msgemm_tiles(2048, 500, 4, 4, 48)[:2] == (1, 1024)
 
 
 def test_wrapper_routes_by_device_without_fallback():
