@@ -7,7 +7,11 @@
                                      # the kv8 pool, and int4 weights
     python3 chip_smoke.py --sweep    # only: build, then time every msGeMM
                                      # variant (rows per block) at the
-                                     # engine's shapes
+                                     # engine's shapes, every flash tile
+                                     # variant at the 8k prefill shapes
+                                     # and every paged-attention chunk
+                                     # length (--sweep msgemm or
+                                     # --sweep attention: one half)
 
 Phases, any failure exits non-zero before the last line is printed:
 
@@ -377,8 +381,8 @@ def phase_kernels():
 def phase_sweep():
     """Time every msGeMM variant (rows per block) at the engine's shapes,
     with bf16 x as the engine passes it; each variant's output is checked
-    bit for bit against the plain version on exact inputs first.  Written
-    to chiprun_out/sweep.json."""
+    bit for bit against the plain version on exact inputs first.  Returns
+    the rows of chiprun_out/sweep.json."""
     import torch
 
     from repro_torch.core import packing
@@ -430,9 +434,103 @@ def phase_sweep():
             line.append(f"{rows}:{t_ms:.4f}" + ("*" if t == picked else ""))
         print(f"[sweep] {name:8s} b={b} " + " ".join(line), flush=True)
         del idxs, idx
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "sweep.json").write_text(json.dumps(rows_of, indent=1))
+    return rows_of
+
+
+FLASH_SWEEP = ("gemma-2b-prefill-8k", "gemma2-9b-local-8k")
+ATTN_SWEEP = ("decode-kv8", "prefill-kv8", "long-kv8", "long-kv4",
+              "gemma2-9b-decode-kv8", "gemma2-9b-long-kv8")
+ATTN_CHUNKS = (32, 64, 128, 256)
+
+
+def phase_sweep_attention():
+    """Time every compiled bf16 flash variant at head-dim class 256
+    (tiles, warps, ring depth) at the 8k prefill shapes, and the
+    paged-attention kernel at each chunk length (rows a block as the
+    wrapper picks them) and at each other rows-a-block count at the
+    default chunk, at the engine's and the long-view shapes; each variant
+    is checked against the plain version at the same tiles or chunk first
+    (one bf16 ulp; 2e-5 for f32 q)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    rows_of = []
+    g = torch.Generator(device="cuda").manual_seed(301)
+    for name, H, hk, S, window, softcap in FLASH_CASES:
+        if name not in FLASH_SWEEP:
+            continue
+        q, k, v = (torch.randn((1, h, S, 256), generator=g, device="cuda")
+                   .to(torch.bfloat16) for h in (H, hk, hk))
+        kw = dict(causal=True, window=window, softcap=softcap)
+        nops = 4 * 256 * H * visible_pairs(S, S, window)
+        line = []
+        for dt, dc, tq, tk, st in fa.MMA_VARIANTS:
+            if dt != torch.bfloat16 or dc != 256:
+                continue
+            tiles = dict(tq=tq, tk=tk)
+            got = fa.flash_attention_cuda(q, k, v, stages=st, **tiles, **kw)
+            want = fa.flash_attention_plain(q, k, v, **tiles, **kw)
+            torch.testing.assert_close(
+                got.float(), want.float(), **BF16_TOL,
+                msg=lambda m: f"[sweep] flash {name} {tq}/{tk}/{st}: {m}")
+            del got, want
+            ms = device_ms([lambda: fa.flash_attention_cuda(
+                q, k, v, stages=st, **tiles, **kw)], reps=10)
+            picked = (tq, tk, st) == fa.MMA_TILES[256]
+            rows_of.append(dict(kernel="flash_attention", name=name, tq=tq,
+                                tk=tk, stages=st, ms=ms,
+                                tflops=nops / (ms * 1e-3) / 1e12,
+                                picked=picked))
+            line.append(f"{tq}/{tk}/{st}:{ms:.3f}" + ("*" if picked else ""))
+        print(f"[sweep] flash {name} (tq/tk/stages:ms) " + " ".join(line),
+              flush=True)
+        del q, k, v
+    for i, (name, spec) in enumerate(attn_specs()):
+        if name not in ATTN_SWEEP:
+            continue
+        a = attn_inputs(seed=400 + i, **spec)
+        tol = ATTN_TOL if a["q"].dtype == torch.float32 else BF16_TOL
+        args = (a["q"], *a["leaves"], a["tables"], a["positions"])
+        pool_bytes = sum(t.numel() * t.element_size() for t in a["leaves"])
+        copies = max(1, min(MAX_COPIES,
+                            math.ceil(L2_FLUSH_BYTES / pool_bytes)))
+        pools = [a["leaves"]] + [tuple(t.clone() for t in a["leaves"])
+                                 for _ in range(copies - 1)]
+        line = []
+        rows = spec["C"] * spec["H"] // spec["hk"]
+        dhp = a["leaves"][0].shape[3]
+        auto = {}
+        for chunk in ATTN_CHUNKS:
+            nch = -(-spec["W"] // chunk)
+            auto[chunk] = pa.rows_per_block(
+                rows, nch * spec["hk"] * spec["B"])
+        variants = [(chunk, None) for chunk in ATTN_CHUNKS] + [
+            (pa.CHUNK, rb) for rb in (1, 2, 4, 8)
+            if rb < 2 * rows and rb != auto[pa.CHUNK]]
+        for chunk, rb in variants:
+            if pa.smem_bytes(dhp, spec["bits"], chunk,
+                             rb or auto[chunk]) > pa.MAX_SMEM:
+                continue
+            kw = dict(a["kw"], chunk=chunk)
+            got = pa.paged_attention_cuda(*args, rows=rb, **kw)
+            want = pa.paged_attention_plain(*args, **kw)
+            torch.testing.assert_close(
+                got.float(), want.float(), **tol,
+                msg=lambda m: f"[sweep] attn {name} chunk {chunk}: {m}")
+            ms = device_ms([lambda lv=lv: pa.paged_attention_cuda(
+                a["q"], *lv, a["tables"], a["positions"], rows=rb, **kw)
+                for lv in pools], reps=max(20, 2 * copies))
+            picked = chunk == pa.CHUNK and rb is None
+            rb = rb or auto[chunk]
+            rows_of.append(dict(kernel="paged_attention", name=name,
+                                chunk=chunk, rows_per_block=rb, ms=ms,
+                                picked=picked))
+            line.append(f"{chunk}/{rb}:{ms:.4f}" + ("*" if picked else ""))
+        print(f"[sweep] attn {name} (chunk/rows a block:ms) " + " ".join(line),
+              flush=True)
+        del pools, a
     return rows_of
 
 
@@ -528,16 +626,13 @@ def attn_work(positions, B, C, H, hk, dh, dhp, bs, nseq, window, q_bytes):
     return nbytes, ops
 
 
-def attn_case(name, B, C, H, hk, dh, bs, W, *, bits, codebook=False,
-              softcap=0.0, window=0, q_dtype=None, seed=0):
-    """One paged-attention case: the kernel, its plain version and the
-    torch backend (kvq.attention.run_torch) on one quantized pool."""
+def attn_inputs(B, C, H, hk, dh, bs, W, *, bits, codebook=False,
+                softcap=0.0, window=0, q_dtype=None, seed=0):
+    """One quantized pool and its call: each row's last query in its
+    view's last block, the block tables a random permutation."""
     import torch
 
     from repro_torch import kvq
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kvq import attention as kv_attn
-    from repro_torch.models import layers
 
     q_dtype = q_dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -554,22 +649,46 @@ def attn_case(name, B, C, H, hk, dh, bs, W, *, bits, codebook=False,
         pool[n], pool[f"{n}_scale"] = kvq.kv_quantize(vals, spec)
     tables = (torch.randperm(nb - 1, generator=g, device="cuda") + 1) \
         .reshape(B, nseq).to(torch.int32)
-    # each row's last query sits in its view's last block
     last = W - 1 - torch.randint(0, bs, (B, 1), generator=g, device="cuda")
     positions = (last - (C - 1) + torch.arange(C, device="cuda")) \
         .to(torch.int32)
     view_slots = (tables.long()[:, :, None] * bs
                   + torch.arange(bs, device="cuda")).reshape(B, W)
     q = torch.randn((B, C, H, dh), generator=g, device="cuda").to(q_dtype)
+    kw = dict(bits=bits, block_size=bs, window=window, softcap=softcap,
+              codebook=None if cb is None else torch.tensor(cb,
+                                                            device="cuda"))
+    leaves = (pool["k"], pool["k_scale"], pool["v"], pool["v_scale"])
+    return dict(q=q, leaves=leaves, tables=tables, positions=positions,
+                view_slots=view_slots, pool=pool, spec=spec, kw=kw, nb=nb,
+                nseq=nseq)
+
+
+def attn_case(name, B, C, H, hk, dh, bs, W, *, bits, codebook=False,
+              softcap=0.0, window=0, q_dtype=None, seed=0):
+    """One paged-attention case: the kernel, its plain version and the
+    torch backend (kvq.attention.run_torch) on one quantized pool."""
+    import torch
+
+    from repro_torch import kvq
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kvq import attention as kv_attn
+    from repro_torch.models import layers
+
+    q_dtype = q_dtype or torch.bfloat16
+    a = attn_inputs(B, C, H, hk, dh, bs, W, bits=bits, codebook=codebook,
+                    softcap=softcap, window=window, q_dtype=q_dtype,
+                    seed=seed)
+    q, leaves, tables, positions = (a["q"], a["leaves"], a["tables"],
+                                    a["positions"])
+    view_slots, pool, spec, kw = (a["view_slots"], a["pool"], a["spec"],
+                                  a["kw"])
+    nb, nseq = a["nb"], a["nseq"]
 
     class Cfg:
         num_heads, num_kv_heads, head_dim = H, hk, dh
         attn_logit_softcap = softcap
 
-    kw = dict(bits=bits, block_size=bs, window=window, softcap=softcap,
-              codebook=None if cb is None else torch.tensor(cb,
-                                                            device="cuda"))
-    leaves = (pool["k"], pool["k_scale"], pool["v"], pool["v_scale"])
     got = pa.paged_attention_cuda(q, *leaves, tables, positions, **kw)
     torch.cuda.synchronize()
     want = pa.paged_attention_plain(q, *leaves, tables, positions, **kw)
@@ -622,7 +741,20 @@ def attn_case(name, B, C, H, hk, dh, bs, W, *, bits, codebook=False,
         q.element_size()))
 
 
-def phase_attn_kernels():
+# Device ms of the paged-attention kernel before its redesign (one CUDA
+# block per (row, kv head) walking the block table), NVIDIA H100 80GB
+# HBM3 at 700.00 W: chip_smoke.py at commit 60ca82e (its PERF.md table);
+# gemma2-9b-decode-kv8 at commit bdb566c (its PERF.md kernel table).
+OLD_ATTN_MS = {
+    "decode-kv8": 0.0336, "decode-kv4": 0.0358, "decode-kv4cb": 0.0357,
+    "prefill-kv8": 0.0568, "prefill-kv4": 0.0589, "prefill-kv4cb": 0.0587,
+    "long-kv8": 3.826, "long-kv4": 4.321,
+    "gemma2-9b-softcap-window": 0.1237, "gemma2-9b-decode-kv8": 0.0194,
+}
+
+
+def attn_specs():
+    """(name, attn_case kwargs) of every paged-attention case."""
     import torch
 
     gemma = dict(H=8, hk=1, dh=256, bs=8)
@@ -641,13 +773,25 @@ def phase_attn_kernels():
     specs += [("gemma2-9b-decode-kv8",
                dict(B=4, C=1, H=16, hk=8, dh=256, bs=8, W=32, bits=8,
                     softcap=50.0, window=4096))]
+    # and the same over a long view, where the split over chunks pays most
+    specs += [("gemma2-9b-long-kv8",
+               dict(B=4, C=1, H=16, hk=8, dh=256, bs=8, W=4096, bits=8,
+                    softcap=50.0, window=4096))]
+    return specs
+
+
+def phase_attn_kernels():
+    specs = attn_specs()
     cases = []
     for i, (name, kw) in enumerate(specs):
         t0 = time.perf_counter()
         r = attn_case(name, seed=200 + i, **kw)
+        r["old_ms"] = OLD_ATTN_MS.get(name)
         cases.append(r)
+        old = "-" if r["old_ms"] is None else f"{r['old_ms']:.4f}ms"
         print(f"[attn] {name:26s} B={r['B']} C={r['C']} W={r['W']:5d} "
-              f"kernel={r['ms']:.4f}ms host={r['host_ms']:.4f}ms "
+              f"kernel={r['ms']:.4f}ms (before the redesign: {old}) "
+              f"host={r['host_ms']:.4f}ms "
               f"plain={r['plain_ms']:.2f}ms sdpa={r['library_ms']:.4f}ms "
               f"bound={r['bound_ms']:.5f}ms ({r['bound_by']}) "
               f"err={r['max_abs_err']:.3g} "
@@ -895,6 +1039,21 @@ def phase_profile(tag, model, cfg, **engine_kw):
 
 # ------------------------------------------------------- flash attention
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# Device ms of the flash kernel before its redesign (f32 FMA on 64 x 64
+# tiles whatever the input type), NVIDIA H100 80GB HBM3 at 700.00 W: the
+# first full chip_smoke.py run of commit bdb566c (its PERF.md table)
+OLD_FLASH_MS = {
+    ("gemma-2b-prefill-8k", "bfloat16"): 20.65,
+    ("gemma-2b-prefill-8k", "float32"): 29.78,
+    ("gemma2-9b-global-8k", "bfloat16"): 45.50,
+    ("gemma2-9b-global-8k", "float32"): 64.93,
+    ("gemma2-9b-local-8k", "bfloat16"): 32.59,
+    ("gemma2-9b-local-8k", "float32"): 43.56,
+    ("prefill_32k-b1", "bfloat16"): 347.4,
+    ("prefill_32k-b1", "float32"): 532.3,
+    ("ragged-1000-window-100", "bfloat16"): 0.137,
+    ("ragged-1000-window-100", "float32"): 0.181,
+}
 FLASH_CASES = [  # (name, H, Hk, S, window, softcap), B = 1, dh = 256
     ("gemma-2b-prefill-8k", 8, 1, 8192, 0, 0.0),
     ("gemma2-9b-global-8k", 16, 8, 8192, 0, 50.0),
@@ -1015,11 +1174,13 @@ def phase_flash():
                  bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations")
         r["tflops"] = nops / (ms * 1e-3) / 1e12
+        r["old_ms"] = OLD_FLASH_MS.get((name, r["dtype"]))
         cases.append(r)
         del native
         sdpa_txt = "-" if library_ms is None else f"{library_ms:.3f}ms"
         print(f"[flash] {name:24s} {r['dtype']:8s} kernel={ms:.3f}ms "
-              f"({r['tflops']:.1f} TFLOP/s) plain={plain_ms:.1f}ms "
+              f"({r['tflops']:.1f} TFLOP/s; before the redesign "
+              f"{r['old_ms']}ms) plain={plain_ms:.1f}ms "
               f"sdpa={sdpa_txt} ({library}) bound={r['bound_ms']:.4f}ms "
               f"({r['bound_by']}) err={err:.3g} "
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
@@ -1148,9 +1309,12 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile the engine (torch.profiler) with "
                          "msgemm weights at kv16 and kv8, and int4 weights")
-    ap.add_argument("--sweep", action="store_true",
-                    help="only build and time every msGeMM variant at the "
-                         "engine's shapes (chiprun_out/sweep.json)")
+    ap.add_argument("--sweep", nargs="?", const="all",
+                    choices=("all", "msgemm", "attention"),
+                    help="only build and time the kernel variants: msGeMM "
+                         "rows per block, flash tiles and stages, "
+                         "paged-attention chunk lengths, or one of the "
+                         "two halves (chiprun_out/sweep.json)")
     args = ap.parse_args()
     try:
         import torch
@@ -1178,7 +1342,14 @@ def main() -> int:
           f"{build_s:.1f}s", flush=True)
 
     if args.sweep:
-        phase_sweep()
+        rows = []
+        if args.sweep in ("all", "msgemm"):
+            rows += phase_sweep()
+        if args.sweep in ("all", "attention"):
+            rows += phase_sweep_attention()
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "sweep.json").write_text(json.dumps(rows, indent=1))
         return 0
     cases = phase_kernels()
     int4_cases = phase_int4_kernels()

@@ -227,8 +227,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qt = pad(q, (0, 0, 0, 0, 0, sqp - Sq)).transpose(1, 2).contiguous()
     kt = pad(k, (0, 0, 0, 0, 0, skp - Skv)).transpose(1, 2).contiguous()
     vt = pad(v, (0, 0, 0, 0, 0, skp - Skv)).transpose(1, 2).contiguous()
-    tiles = _fa.flash_tiles(dh)
     o = (kernel or _fa.flash_attention)(
-        qt, kt, vt, causal=causal, window=window, softcap=softcap,
-        tq=tiles.tq, tk=tiles.tk)
+        qt, kt, vt, causal=causal, window=window, softcap=softcap)
     return o.transpose(1, 2)[:, :Sq]

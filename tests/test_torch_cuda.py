@@ -9,11 +9,14 @@ The GeMM kernels and their plain versions share one op order, so results
 are bit-exact with the identity epilogue (on random floats too) and
 within rtol = atol = 1e-5 with gelu, whose tanh differs in the last ulps.
 Paged attention sums each dot product in another order than its plain
-version (a warp's shuffle tree against torch's einsum): rtol = atol =
-2e-5 on f32 outputs, the tolerance tests/test_kvq.py allows the
-reference's two routes, and one bf16 ulp (rtol = 2^-7) on bf16 outputs.
-Flash attention likewise (2e-5 is tests/test_kernels.py's own), its
-tanh and exp differing from torch's in the last ulps besides.
+version (a shuffle tree against torch's einsum), over the same chunks of
+the view and with the same combine: rtol = atol = 2e-5 on f32 outputs,
+the tolerance tests/test_kvq.py allows the reference's two routes, and
+one bf16 ulp (rtol = 2^-7) on bf16 outputs.  Flash attention likewise
+(2e-5 is tests/test_kernels.py's own; on the tensor cores the mma's sums
+against torch's, with p split into the same hi and lo halves), its tanh
+and exp differing from torch's in the last ulps besides; one f16 ulp
+(rtol = 2^-10) on f16 outputs.
 """
 
 import numpy as np
@@ -207,6 +210,9 @@ PA_CASES = [  # (B, C, H, Hk, Dh, bs, nseq, kv spec, softcap, window)
     (4, 1, 8, 1, 256, 8, 4, dict(bits=8), 0.0, 0),  # gemma-2b decode
     (1, 8, 8, 1, 256, 8, 4, dict(bits=4), 0.0, 0),  # gemma-2b prefill
     (2, 1, 16, 8, 256, 8, 8, dict(bits=8), 50.0, 24),  # gemma2-9b shape
+    (2, 1, 8, 1, 256, 8, 512, dict(bits=8), 0.0, 0),  # W = 4096
+    (2, 1, 16, 8, 256, 8, 512, dict(bits=4), 50.0, 1000),  # W = 4096
+    (2, 2, 4, 2, 64, 1, 257, dict(bits=8), 5.0, 0),  # two chunks + 1 slot
 ]
 
 
@@ -257,6 +263,9 @@ FA_CASES = [  # (B, Sq, Skv, H, Hk, dh, causal, window, softcap)
     (1, 200, 200, 2, 2, 17, True, 70, 0.0),
     (1, 1024, 1024, 8, 1, 256, True, 0, 0.0),  # gemma-2b prefill
     (1, 1024, 1024, 16, 8, 256, True, 512, 50.0),  # gemma2-9b local layer
+    (2, 256, 256, 4, 2, 64, True, 0, 0.0),
+    (1, 512, 512, 8, 2, 128, True, 0, 10.0),
+    (1, 777, 777, 4, 2, 256, True, 300, 0.0),  # ragged Sq, many tiles
 ]
 
 
@@ -290,3 +299,93 @@ def test_flash_attention_kernel_matches_plain(B, Sq, Skv, H, hk, dh, causal,
             want = ops.flash_attention(*pub, kernel=fa.flash_attention_plain,
                                        **kw)
             torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_tensor_core_variants_match_plain(dtype):
+    """Every compiled tensor-core variant of its type (head-dim classes,
+    tiles and ring depths) against the plain version at the same tiles,
+    within one ulp of the type; the launch fails for a variant that is
+    not compiled."""
+    from repro_torch.kernels import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dt = getattr(torch, dtype)
+    tol = dict(rtol=2**-7 if dt == torch.bfloat16 else 2**-10, atol=1e-5)
+    rng = np.random.default_rng(11)
+    for _, dc, tq, tk, st in (v for v in fa.MMA_VARIANTS if v[0] == dt):
+        dh = dc if dc < 256 else 200 + (tq + tk + st) % 56
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .cuda().to(dt)
+                   for s in ((1, 4, 300, dh), (1, 2, 300, dh),
+                             (1, 2, 300, dh)))
+        kw = dict(causal=True, window=130, softcap=20.0, tq=tq, tk=tk)
+        got = fa.flash_attention_cuda(q, k, v, stages=st, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=lambda m: f"{dc} {tq} {tk} {st}: {m}")
+    with pytest.raises(ValueError, match="no tensor-core variant"):
+        fa.flash_attention_cuda(q, k, v, tq=32, tk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 64, 256])
+def test_paged_attention_chunk_lengths_match_plain(chunk):
+    """The kernel at other chunk lengths and rows per block against the
+    plain version at the same chunk: views of many chunks, a row whose
+    window starts past its first chunks, a row whose later chunks are
+    empty."""
+    from repro_torch import kvq
+    from repro_torch.kernels import paged_attention as pa
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    rng = np.random.default_rng(chunk)
+    B, C, H, hk, dh, bs, nseq = 3, 2, 8, 2, 128, 8, 80
+    spec = kvq.KVQuantSpec(8)
+    nb = 1 + B * nseq
+    pool = {}
+    for name in ("k", "v"):
+        vals = torch.from_numpy(rng.standard_normal((nb, bs, hk, dh))
+                                .astype(np.float32)).cuda()
+        pool[name], pool[f"{name}_scale"] = kvq.kv_quantize(vals, spec)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb))
+                              .reshape(B, nseq).astype(np.int32)).cuda()
+    pos = torch.tensor([[600, 639], [5, 40], [300, 301]], dtype=torch.int32,
+                       device="cuda")
+    q = torch.from_numpy(rng.standard_normal((B, C, H, dh))
+                         .astype(np.float32)).cuda().to(torch.bfloat16)
+    args = (q, pool["k"], pool["k_scale"], pool["v"], pool["v_scale"],
+            tables, pos)
+    for window, rows in ((0, None), (100, None), (100, 1), (0, 8)):
+        kw = dict(bits=8, block_size=bs, window=window, softcap=30.0,
+                  chunk=chunk)
+        got = pa.paged_attention_cuda(*args, rows=rows, **kw)
+        want = pa.paged_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_paged_smem_formula_matches_kernel():
+    """paged_attention.smem_bytes mirrors csrc/paged_attention.cu's."""
+    import ctypes
+
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels import paged_attention as pa
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    fn = nvcc.load("paged_attention", "paged_attention_smem_bytes",
+                   [ctypes.c_int] * 4)
+    fn.restype = ctypes.c_longlong
+    for dhp in (8, 9, 16, 128, 256):
+        for bits in (8, 4):
+            for chunk in (16, 128, 256):
+                for rb in (1, 2, 4, 8):
+                    assert fn(dhp, bits, chunk, rb) == \
+                        pa.smem_bytes(dhp, bits, chunk, rb)

@@ -9,6 +9,8 @@ tests/test_torch_cuda.py.
 Tolerances: rtol = atol = 2e-5 for attention, the reference's own
 (tests/test_kernels.py): the port's tiles (64 x 64) rescale the online
 softmax at other keys than the TPU tiles, and sums run in another order.
+bf16 and f16 inputs take the kernel's tensor-core op order, held against
+the f32 route within one ulp of the output type (rtol 2^-7, 2^-10).
 3e-5 against the model's ``_sdpa``, as the reference allows its kernel.
 The GeMM oracles: bit-identical on exact inputs (integers, power-of-two
 scales), rtol = atol = 1e-5 on random floats.
@@ -194,6 +196,56 @@ def test_flash_bf16_in_bf16_out():
     want = ops.flash_attention(q.float(), k.float(), v.float(), causal=True,
                                window=12, softcap=30.0)
     torch.testing.assert_close(got.float(), want, rtol=2**-7, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("S,dh,kw", [
+    (70, 128, dict(causal=True, window=30, softcap=20.0)),
+    (150, 128, dict(causal=True)),
+    (40, 256, dict(causal=True, softcap=50.0)),
+    (140, 256, dict(causal=True, window=100)),
+], ids=["dh128-window-softcap", "dh128-two-tiles", "dh256-softcap",
+        "dh256-window"])
+def test_flash_tensor_core_route_matches_f32_route(S, dh, kw, dtype):
+    """The tensor-core route's op order (the scale after the dot, a
+    scale that is not a power of two at dh = 128; p split into hi and
+    lo halves for p·v) within one ulp of the output type of the f32
+    route on the same values, through the op's public layout."""
+    dt = getattr(torch, dtype)
+    ulp = 2**-7 if dt == torch.bfloat16 else 2**-10
+    q, k, v = (torch.from_numpy(t).to(dt)
+               for t in _qkv(S + dh, 1, S, S, 4, 2, dh))
+    assert fa.tensor_core_dtype(*(t.transpose(1, 2) for t in (q, k, v))) \
+        == dt
+    got = ops.flash_attention(q, k, v, **kw)
+    assert got.dtype == dt
+    want = ops.flash_attention(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(got.float(), want, rtol=ulp, atol=1e-5)
+
+
+def test_flash_routes_and_tiles():
+    """bf16 or f16 q, k and v all of one type take the tensor-core route
+    and its tiles per head-dim class; f32 or mixed types the FMA route's
+    64 x 64, unchanged; every class has a compiled variant of both
+    types."""
+    bf, f32 = torch.bfloat16, torch.float32
+    t = {d: torch.zeros(1, dtype=d) for d in (bf, f32)}
+    assert fa.tensor_core_dtype(t[bf], t[bf], t[bf]) == bf
+    assert fa.tensor_core_dtype(t[bf], t[f32], t[bf]) is None
+    assert fa.tensor_core_dtype(t[f32], t[f32], t[f32]) is None
+    assert tuple(fa.flash_tiles(256)) == (64, 64, 1)
+    assert [fa.dh_class(d) for d in (8, 16, 17, 64, 65, 200, 256)] == \
+        [16, 16, 32, 64, 128, 256, 256]
+    for dc in (16, 32, 64, 128, 256):
+        tiles = fa.flash_tiles(dc, bf)
+        for dt in fa.TENSOR_CORE_TYPES:
+            assert (dt, dc, *tiles) in fa.MMA_VARIANTS
+    # the plain version takes the route's tiles by default
+    q, k, v = (torch.from_numpy(x).transpose(1, 2).contiguous().to(bf)
+               for x in _qkv(9, 1, 200, 200, 2, 1, 64))
+    tq, tk, _ = fa.flash_tiles(64, bf)
+    assert torch.equal(fa.flash_attention_plain(q, k, v),
+                       fa.flash_attention_plain(q, k, v, tq=tq, tk=tk))
 
 
 def test_wrapper_routes_by_device_without_fallback():

@@ -8,7 +8,8 @@
   JAX Pallas kernel (interpret mode) and its jnp reference within
   rtol = atol = 2e-5, the tolerance tests/test_kvq.py allows the
   reference's two routes (the sums inside a dot product run in another
-  order);
+  order), also over views of several chunks, whose partial softmaxes the
+  plain version merges as the kernel does;
 * the port's engine with ``kv_quant`` gives the JAX engine's greedy tokens
   on the same weights, through either port backend, with preemption too.
 """
@@ -236,6 +237,97 @@ def test_plain_bf16_q_and_early_end():
     np.testing.assert_allclose(
         full.float().numpy().reshape(want.shape),
         np.asarray(want.astype(jnp.float32)), rtol=2**-7, atol=2**-7)
+
+
+# views split into chunks of the kernel's fixed length (pa.CHUNK = 128
+# view slots, and 16): (name, window, positions of the two rows)
+CHUNK_CASES = [
+    ("straddle", 0, [[120, 135, 159], [3, 70, 140]]),
+    ("window-past-chunk-0", 20, [[150, 155, 159], [140, 141, 158]]),
+    ("later-chunks-empty", 0, [[2, 9, 15], [100, 130, 159]]),
+]
+
+
+@pytest.mark.parametrize("name,window,positions", CHUNK_CASES,
+                         ids=[c[0] for c in CHUNK_CASES])
+def test_plain_chunks_match_pallas_and_jnp(name, window, positions):
+    """The plain version's chunked softmax and combine against the JAX
+    package's Pallas kernel (interpret mode) and its jnp reference over a
+    160-slot view: across a chunk boundary, with a row whose window starts
+    past chunk 0 (so that chunk is skipped), and with a row whose later
+    chunks are empty; at the default chunk and at 16 slots."""
+    B, C, H, hk, dh, bs, nseq = 2, 3, 4, 2, 16, 8, 20
+    nb = 1 + B * nseq
+    rng = np.random.default_rng(len(name))
+    jspec = JKVSpec(8)
+    kc, ks = jkvq.kv_quantize(jnp.asarray(rng.normal(size=(nb, bs, hk, dh)),
+                                          jnp.float32), jspec)
+    vc, vs = jkvq.kv_quantize(jnp.asarray(rng.normal(size=(nb, bs, hk, dh)),
+                                          jnp.float32), jspec)
+    pool = {"k": kc, "k_scale": ks, "v": vc, "v_scale": vs}
+    q = rng.normal(size=(B, C, H, dh)).astype(np.float32)
+    blocks = rng.permutation(np.arange(1, nb)).reshape(B, nseq)
+    vslots = (blocks[:, :, None] * bs + np.arange(bs)).reshape(B, -1) \
+        .astype(np.int32)
+    pos = np.asarray(positions, dtype=np.int32)
+
+    class Cfg:
+        num_heads, num_kv_heads, head_dim = H, hk, dh
+        attn_logit_softcap = 10.0
+
+    args = (jnp.asarray(q), pool, jnp.asarray(vslots), jnp.asarray(pos))
+    pallas = np.asarray(j_attn.run_pallas(jspec, Cfg, *args, window=window))
+    ref = np.asarray(j_attn.run_jnp(jspec, Cfg, *args, window=window))
+    tpool = {n: torch.from_numpy(np.array(a)) for n, a in pool.items()}
+    targs = (torch.from_numpy(q), tpool["k"], tpool["k_scale"], tpool["v"],
+             tpool["v_scale"], torch.from_numpy(blocks.astype(np.int32)),
+             torch.from_numpy(pos))
+    lo, hi, _ = pa.live_chunks(torch.from_numpy(pos), block_size=bs,
+                               nseq=nseq, window=window, chunk=16)
+    if name == "window-past-chunk-0":
+        assert int(lo.min()) > 0
+    if name == "later-chunks-empty":
+        assert int(hi[0]) == 1 and int(hi[1]) == 10
+    for chunk in (pa.CHUNK, 16):
+        got = pa.paged_attention_plain(
+            *targs, bits=8, block_size=bs, window=window, softcap=10.0,
+            chunk=chunk).reshape(B, C, H * dh).numpy()
+        np.testing.assert_allclose(got, pallas, **TOL)
+        np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_chunk_partials_and_rows_per_block():
+    """A chunk a row does not need adds exactly 0: cutting the block table
+    to the blocks the positions reach gives the same bits at chunk 16 as
+    the full table; the kernel's rows per block fill the card where the
+    grid allows and fit its shared memory."""
+    Cfg, jspec, pool, q, vslots, positions, tpool, blocks = _attn_case(
+        SPECS["kv4"], 5.0, 0, seed=3)
+    positions = np.minimum(positions, 15)  # chunk 0 (blocks 0, 1) only
+    kw = dict(bits=4, block_size=8, chunk=16, softcap=5.0)
+    pargs = (tpool["k"], tpool["k_scale"], tpool["v"], tpool["v_scale"])
+    qt = torch.from_numpy(q)
+    full = pa.paged_attention_plain(
+        qt, *pargs, torch.from_numpy(blocks.astype(np.int32)),
+        torch.from_numpy(positions), **kw)
+    short = pa.paged_attention_plain(
+        qt, *pargs, torch.from_numpy(blocks[:, :2].astype(np.int32)),
+        torch.from_numpy(positions), **kw)
+    assert torch.equal(full, short)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pa.paged_attention_plain(qt, *pargs,
+                                 torch.from_numpy(blocks.astype(np.int32)),
+                                 torch.from_numpy(positions), bits=4,
+                                 block_size=8, chunk=24)
+    # gemma-2b decode (8 heads on 1, 4 rows, 1 chunk): one row a block;
+    # 8 rows of a 4096-slot view (32 chunks): 8 rows a block
+    assert pa.rows_per_block(8, 1 * 1 * 4) == 1
+    assert pa.rows_per_block(8, 32 * 1 * 8) == 8
+    assert pa.rows_per_block(2, 32 * 8 * 4) == 2
+    assert pa.rows_per_block(3, 10**4) == 4
+    for bits, dhp in ((8, 256), (4, 128)):
+        for rb in (1, 2, 4, 8):
+            assert pa.smem_bytes(dhp, bits, pa.CHUNK, rb) <= pa.MAX_SMEM
 
 
 def test_wrapper_routes_by_device_without_fallback():
