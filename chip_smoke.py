@@ -8,10 +8,10 @@
     python3 chip_smoke.py --sweep    # only: build, then time every msGeMM
                                      # variant (rows per block) at the
                                      # engine's shapes, every flash tile
-                                     # variant at the 8k prefill shapes
-                                     # and every paged-attention chunk
-                                     # length (--sweep msgemm or
-                                     # --sweep attention: one half)
+                                     # variant at the 8k prefill shapes,
+                                     # every paged-attention chunk length
+                                     # and int4 split count (--sweep
+                                     # msgemm, attention or int4: one)
 
 Phases, any failure exits non-zero before the last line is printed:
 
@@ -27,9 +27,13 @@ Phases, any failure exits non-zero before the last line is printed:
      contiguous operands; the engine shapes and the vocab case once with
      f32 and once with bf16 x and residual (the engine's), each line
      with its tiles, kernel/matmul and PR 13's kernel/matmul;
-   * the int4 GeMM at the same gemma shapes and layout, the vocab-sized
-     GeMM with the identity epilogue (the legacy grid's counterpart) and
-     small ragged cases with bias, relu/silu/gelu and a residual;
+   * the int4 GeMM at the same gemma shapes and layout, once with f32 and
+     once with bf16 x and residual (the engine's), the vocab-sized GeMM
+     with the identity epilogue (the legacy grid's counterpart) and small
+     ragged cases with bias, relu/silu/gelu and a residual, each line with
+     its tiles (contraction splits) and its time before the redesign
+     (``OLD_INT4_MS``); the none/relu epilogues bit-exact on random
+     floats too;
    Both GeMMs: bit-exact on exact inputs (integer activations,
    power-of-two scales); rtol = atol = 1e-5 on random floats with f32
    output, one bf16 ulp (rtol = 2^-7) with bf16 output (kernel and plain
@@ -534,20 +538,42 @@ def phase_sweep_attention():
     return rows_of
 
 
-def int4_work(m, k, b, sb, has_bias, has_res, out_bytes):
-    """(bytes, ops) the int4 GeMM needs: packed codes, scales and x read
+def int4_work(m, k, b, sb, has_bias, has_res, out_bytes, x_bytes=4):
+    """(bytes, ops) the int4 GeMM needs: packed codes, scales, x and the
+    residual (at ``x_bytes`` an element, the type the kernel reads) read
     once, the output written once; one scale multiply per weight, one
     multiply-add per (weight, column), the epilogue's adds."""
     nsb = -(-k // sb)
-    nbytes = (m * -(-k // 2) + m * nsb * 4 + k * b * 4 + m * b * out_bytes
-              + (m * 4 if has_bias else 0) + (m * b * 4 if has_res else 0))
+    nbytes = (m * -(-k // 2) + m * nsb * 4 + k * b * x_bytes
+              + m * b * out_bytes + (m * 4 if has_bias else 0)
+              + (m * b * x_bytes if has_res else 0))
     ops = m * k + 2 * m * k * b + m * b * (int(has_bias) + int(has_res))
     return nbytes, ops
 
 
+# Device ms of the int4 kernel before its redesign (32-row blocks walking
+# all of k, the scale before every product), per (case, b), f32 x and
+# residual: chip_smoke.py on commit 5c970e3, NVIDIA H100 80GB HBM3 at
+# 700.00 W (quoted in PERF.md section 6)
+OLD_INT4_MS = {
+    ("wq", 1): 0.0142, ("wk", 1): 0.0137, ("wo", 1): 0.0142,
+    ("gate", 1): 0.0298, ("up", 1): 0.0294, ("down", 1): 0.0895,
+    ("wq", 4): 0.0214, ("wk", 4): 0.0207, ("wo", 4): 0.0215,
+    ("gate", 4): 0.0503, ("up", 4): 0.0489, ("down", 4): 0.1322,
+    ("wq", 8): 0.0330, ("wk", 8): 0.0317, ("wo", 8): 0.0332,
+    ("gate", 8): 0.0823, ("up", 8): 0.0808, ("down", 8): 0.1994,
+    ("vocab", 8): 1.1866, ("small-relu-bias", 4): 0.0141,
+    ("small-silu-res", 3): 0.0098, ("small-gelu-bf16", 9): 0.0245,
+    ("g2-wq", 4): 0.0342, ("g2-wk", 4): 0.0342, ("g2-wo", 4): 0.0376,
+    ("g2-gate", 4): 0.0833, ("g2-up", 4): 0.0817, ("g2-down", 4): 0.1193,
+}
+
+
 def int4_case(name, m, k, b, *, sb=36, act="none", bias=False,
-              residual=False, out_dtype=None, engine_layout=False, seed=0):
-    """One int4 kernel-vs-plain case (see :func:`gemm_case`)."""
+              residual=False, out_dtype=None, engine_layout=False,
+              x_dtype=None, seed=0):
+    """One int4 kernel-vs-plain case (see :func:`gemm_case`); the
+    none/relu epilogues bit-exact on random floats too."""
     import torch
 
     from repro_torch.core import packing
@@ -555,6 +581,7 @@ def int4_case(name, m, k, b, *, sb=36, act="none", bias=False,
     from repro_torch.kernels import ops
 
     out_dtype = out_dtype or torch.float32
+    x_dtype = x_dtype or torch.float32
     g = torch.Generator(device="cuda").manual_seed(seed)
     nsb = -(-k // sb)
     codes = torch.randint(0, 16, (m, k), generator=g, device="cuda",
@@ -564,23 +591,36 @@ def int4_case(name, m, k, b, *, sb=36, act="none", bias=False,
     result = dict(name=name, m=m, k=k, b=b, scale_block=sb, act=act,
                   bias=bias, residual=residual,
                   out_dtype=str(out_dtype).removeprefix("torch."),
-                  engine_layout=engine_layout, tiles=list(tiles))
+                  engine_layout=engine_layout,
+                  x_dtype=str(x_dtype).removeprefix("torch."),
+                  tiles=tiles._asdict(), old_ms=OLD_INT4_MS.get((name, b)))
     gemm_case(
         result, g, u8,
         lambda u, x, sc, **kw: i4.int4_matmul_cuda(u, sc, x, **kw),
         lambda u, x, sc, **kw: i4.int4_matmul_plain(u, sc, x, **kw),
         lambda u, sc: i4.dequantize(u, sc, k, sb),
         m=m, k=k, b=b, nsb=nsb, act=act, bias=bias, residual=residual,
-        out_dtype=out_dtype, engine_layout=engine_layout, scale_block=sb,
-        tiles=tiles)
+        out_dtype=out_dtype, engine_layout=engine_layout, x_dtype=x_dtype,
+        scale_block=sb, tiles=tiles)
+    # kernel and plain version round every sum alike: none/relu bit-exact
+    # on the random floats too
+    check(act not in ("none", "relu") or result["max_abs_err"] == 0.0,
+          f"{name}: kernel != plain on random inputs "
+          f"(max abs err {result['max_abs_err']})")
     return with_bound(result, *int4_work(
         m, k, b, sb, bias, residual,
-        torch.empty((), dtype=out_dtype).element_size()))
+        torch.empty((), dtype=out_dtype).element_size(),
+        torch.empty((), dtype=x_dtype).element_size()))
+
+
+def int4_tiles_str(t):
+    return f"tb={t['tb']} tk={t['tk']} nsplit={t['nsplit']}"
 
 
 def phase_int4_kernels():
     import torch
 
+    bf16 = torch.bfloat16
     specs = engine_specs(GEMMA_GEMMS, (1, 4, 8)) + [
         ("vocab", 256000, 2048, 8, {}),
         ("small-relu-bias", 512, 1000, 4, dict(sb=12, bias=True,
@@ -590,20 +630,99 @@ def phase_int4_kernels():
         ("small-gelu-bf16", 1000, 777, 9,
          dict(sb=32, act="gelu", bias=True, residual=True,
               out_dtype=torch.bfloat16)),
-    ] + engine_specs(GEMMA2_GEMMS, (4,))
+    ] + engine_specs(GEMMA2_GEMMS, (4,)) + (
+        engine_specs(GEMMA_GEMMS, (1, 4, 8), bf16)
+        + engine_specs(GEMMA2_GEMMS, (4,), bf16))
     cases = []
     for i, (name, m, k, b, ep) in enumerate(specs):
         t0 = time.perf_counter()
         r = int4_case(name, m, k, b, seed=100 + i, **ep)
         cases.append(r)
-        print(f"[int4] {name:15s} m={m:6d} k={k:5d} b={b} act={r['act']:4s} "
-              f"kernel={r['ms']:.4f}ms host={r['host_ms']:.4f}ms "
+        print(f"[int4] {name:15s} m={m:6d} k={k:5d} b={b} "
+              f"x={r['x_dtype']:8s} act={r['act']:4s} "
+              f"kernel={r['ms']:.4f}ms (before, f32 x: {r['old_ms']}) "
+              f"host={r['host_ms']:.4f}ms "
               f"plain={r['plain_ms']:.2f}ms matmul={r['library_ms']:.4f}ms "
               f"bound={r['bound_ms']:.4f}ms ({r['bound_by']}) "
               f"err={r['max_abs_err']:.3g} "
               f"exact_err={r['exact_max_abs_err']:.3g} "
+              f"[{int4_tiles_str(r['tiles'])}] "
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
+    old = [c for c in cases if c["old_ms"] is not None]
+    slower = [f"{c['name']} b={c['b']} x={c['x_dtype']}" for c in old
+              if c["ms"] > c["old_ms"]]
+    print(f"[int4] faster than before the redesign at "
+          f"{len(old) - len(slower)} of "
+          f"{len(old)} cases; slower: {slower or 'none'}", flush=True)
     return cases
+
+
+INT4_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 32, 64)
+
+
+def phase_sweep_int4():
+    """Time the int4 kernel at each contraction split count at the
+    engine's shapes, with bf16 x and residual as the engine passes them;
+    each split count's output is checked bit for bit against the plain
+    version on exact inputs first.  Returns the rows of
+    chiprun_out/sweep.json."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import ops
+
+    bf16 = torch.bfloat16
+    rows_of = []
+    for name, m, k, b, ep in (engine_specs(GEMMA_GEMMS, (1, 4, 8), bf16)
+                              + engine_specs(GEMMA2_GEMMS, (4,), bf16)):
+        sb = 36
+        nsb = -(-k // sb)
+        g = torch.Generator(device="cuda").manual_seed(m + k + b)
+        codes = torch.randint(0, 16, (m, k), generator=g, device="cuda",
+                              dtype=torch.uint8)
+        u8 = packing.pack_storage(codes).contiguous()
+        del codes
+        x = torch.randint(-4, 5, (b, k), generator=g, device="cuda") \
+            .to(bf16).t()
+        res = (torch.randint(-4, 5, (b, m), generator=g, device="cuda")
+               .to(bf16).t() if ep.get("residual") else None)
+        sc = 2.0 ** torch.randint(-2, 3, (m, nsb), generator=g,
+                                  device="cuda").float()
+        kw = dict(scale_block=sb, act=ep.get("act", "none"), residual=res,
+                  out_dtype=bf16)
+        copies = max(1, min(MAX_COPIES, math.ceil(L2_FLUSH_BYTES / u8.numel())))
+        u8s = [u8] + [u8.clone() for _ in range(copies - 1)]
+        picked = ops.int4_tiles(m, k, b)
+        counts = sorted({i4.split_steps(k, n)[1]
+                         for n in INT4_SPLITS + (picked.nsplit,)})
+        line = []
+        for n in counts:
+            per = i4.split_steps(k, n)[0]
+            t = picked._replace(nsplit=n, tk=min(per * i4.STEP,
+                                                  8192 // picked.tb))
+            got = i4.int4_matmul_cuda(u8, sc, x, tiles=t, **kw)
+            want = i4.int4_matmul_plain(u8, sc, x, tiles=t, **kw)
+            torch.cuda.synchronize()
+            if kw["act"] == "none":
+                check(torch.equal(got, want),
+                      f"sweep int4 {name} b={b} {t}: kernel != plain")
+            else:  # gelu: tanh's last ulps
+                torch.testing.assert_close(
+                    got.float(), want.float(), **BF16_TOL,
+                    msg=lambda s: f"sweep int4 {name} b={b} {t}: {s}")
+            t_ms = device_ms([lambda u=u: i4.int4_matmul_cuda(
+                u, sc, x, tiles=t, **kw) for u in u8s],
+                reps=max(20, 2 * copies))
+            rows_of.append(dict(kernel="int4_matmul", name=name, m=m, k=k,
+                                b=b, tiles=t._asdict(), ms=t_ms,
+                                old_ms=OLD_INT4_MS.get((name, b)),
+                                picked=t == picked))
+            line.append(f"{n}:{t_ms:.4f}" + ("*" if t == picked else ""))
+        print(f"[sweep] int4 {name:8s} b={b} (nsplit:ms; before "
+              f"{OLD_INT4_MS.get((name, b))}) " + " ".join(line), flush=True)
+        del u8s, u8
+    return rows_of
 
 
 def attn_work(positions, B, C, H, hk, dh, dhp, bs, nseq, window, q_bytes):
@@ -1310,11 +1429,11 @@ def main() -> int:
                     help="also profile the engine (torch.profiler) with "
                          "msgemm weights at kv16 and kv8, and int4 weights")
     ap.add_argument("--sweep", nargs="?", const="all",
-                    choices=("all", "msgemm", "attention"),
+                    choices=("all", "msgemm", "attention", "int4"),
                     help="only build and time the kernel variants: msGeMM "
                          "rows per block, flash tiles and stages, "
-                         "paged-attention chunk lengths, or one of the "
-                         "two halves (chiprun_out/sweep.json)")
+                         "paged-attention chunk lengths, int4 GeMM split "
+                         "counts, or one of those (chiprun_out/sweep.json)")
     args = ap.parse_args()
     try:
         import torch
@@ -1347,6 +1466,8 @@ def main() -> int:
             rows += phase_sweep()
         if args.sweep in ("all", "attention"):
             rows += phase_sweep_attention()
+        if args.sweep in ("all", "int4"):
+            rows += phase_sweep_int4()
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "sweep.json").write_text(json.dumps(rows, indent=1))
@@ -1452,7 +1573,11 @@ def main() -> int:
               "gemma2-9b msgemm bf16": layer_entry(
                   cases, GEMMA2_GEMMS, "gemma2-9b", "bfloat16"),
               "gemma2-9b int4": layer_entry(int4_cases, GEMMA2_GEMMS,
-                                            "gemma2-9b")}
+                                            "gemma2-9b"),
+              "gemma-2b int4 bf16": layer_entry(int4_cases,
+                                                x_dtype="bfloat16"),
+              "gemma2-9b int4 bf16": layer_entry(
+                  int4_cases, GEMMA2_GEMMS, "gemma2-9b", "bfloat16")}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
@@ -1461,7 +1586,8 @@ def main() -> int:
         main=main_path, kvq=kvq_path,
         int4=int4_path, gemma2_9b=gemma2, gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
-    for key, e in [("gemma-2b msgemm", kernels[0])] + list(layers.items()):
+    for key, e in ([("gemma-2b msgemm", kernels[0]),
+                    ("gemma-2b int4", kernels[1])] + list(layers.items())):
         print(f"[report] {key} layer: kernel {e['ms']:.4f} ms, matmul "
               f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
               f"({e['shape']})")

@@ -8,9 +8,9 @@ Replaces the Pallas TPU kernel
 epilogue, the legacy grid (``_kernel_legacy``, pallas_call at line 133);
 both run ``_dequant_dot``.  It is the baseline the paper's msGeMM is
 measured against: unpack two codes per byte (hi nibble first), map them
-two's complement (``c <= 7 ? c : c - 16``), multiply by the row-block
-scale *before* the product (msGeMM scales after the gathers), accumulate
-in f32 over all of k, then ``cast(act(acc + bias) + residual)``.
+two's complement (``c <= 7 ? c : c - 16``), scale by the row-block scale,
+accumulate in f32 over all of k, then ``cast(act(acc + bias) +
+residual)``.
 
 What bounds it on an H100.  Per call it must read 0.5 B per weight plus
 the f32 scales, x, and write the output; at decode batch sizes that is
@@ -21,26 +21,52 @@ indices at d = 3 (m·ceil(k/3)·4 B, 44.7 MB: about 14.5 µs including its
 scales).  That decides the paper's comparison on this card: msGeMM's LUT
 indices carry 10.7 bits per weight where the packed codes carry 4.
 
-What the design does about it.  A simple kernel: blocks of 8 warps own 32
-rows (4 per warp) and up to 8 batch columns; the x tile sits in shared
-memory, laid out so the 32 lanes read consecutive words, and is reused by
-every row of the block; each lane streams 4 packed bytes per row per 256
-codes (coalesced 128-byte warp loads).  No tensor cores: ``mma``/``wgmma``
-on dequantized bf16 tiles is the kernel's later work.  Ragged k (a last
-scale block shorter than ``scale_block``, an odd k) and ragged rows and
-columns are masked in the kernel; nothing is padded.
+What the design does about it.
+* Split k to fill the card.  A GeMM with few row tiles (gemma-2b's down,
+  64 of them over k = 16384; wk and wv, 8) would leave most of the 132
+  SMs idle, so the contraction is split in whole 256-code steps, the
+  grid being (row tiles, splits, column tiles), as many splits as make
+  the blocks end soonest (``ops.int4_tiles``); a second small kernel adds
+  the splits' f32 partials in split order and applies the epilogue.
+* Few instructions a code.  Blocks of 8 warps own 32 rows (4 a warp; 16
+  rows, 2 a warp, at 8 batch columns, for the registers) and up to 8
+  batch columns.  A code becomes its float with one byte permute and one
+  add (an int-to-float conversion runs at an eighth of the fma rate), and
+  the scale is applied once per segment (a lane's codes inside one scale
+  block), not before every product: one fma per code and column with
+  bf16 or f16 x.
+* Shared memory that keeps up.  A block stages its split's x, widened to
+  f32, in tiles laid out so that a lane reads 4 columns of one code with
+  one conflict-free vector load, and each value read serves a warp's 4
+  rows (shared memory's 128 bytes a clock would bound the kernel at
+  fewer); the tile's scales for the block's rows are staged beside it.
+* Loads ahead.  Each lane streams 4 packed bytes of each of its rows per
+  256 codes (coalesced 128-byte warp loads), one step ahead of their
+  arithmetic.
+* x and the residual are read in their own type (f32, or the engine's
+  bf16 or f16) and widened in registers, so the wrapper copies nothing.
+No tensor cores: ``mma``/``wgmma`` on dequantized bf16 tiles is the
+kernel's later work.  Ragged k (a last scale block shorter than
+``scale_block``, an odd k) and ragged rows and columns are masked in the
+kernel; nothing is padded.
 
-Op order (see ``csrc/int4_matmul.cu``): lane L of a warp sums the codes
-k = 256·S + 8·L + t in k order with separate round-to-nearest multiplies
-and adds, the 32 lane sums meet in an xor-shuffle tree, then the
-epilogue.  :func:`int4_matmul_plain` repeats exactly these sums, so the
-kernel and the plain version agree bit for bit except inside the
-gelu/silu epilogues' tanh/exp.
+Op order (see ``csrc/int4_matmul.cu``): per split, lane L of a warp sums
+the codes k = 256·S + 8·L + t in k order, ``seg = seg + b(code)·x``
+within a segment (separate round-to-nearest multiply and add; with bf16
+or f16 x the product is exact, so an fma gives the same bits) and
+``acc = acc + seg·scale`` when the segment ends (at the end of its scale
+block or of the split); the 32 lane sums meet in an xor-shuffle tree;
+the splits' sums are added in split order; then the epilogue.
+:func:`int4_matmul_plain` repeats exactly these sums, so the kernel and
+the plain version agree bit for bit except inside the gelu/silu
+epilogues' tanh/exp.  The reference scales each weight before the dot,
+so on random floats the two differ in rounding order only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -51,11 +77,15 @@ from repro_torch.kernels.msgemm import ACTS, OUT_TYPES, epilogue_cols
 LANES = 32   # lanes of a warp: the kernel's k interleave
 WORD = 8     # codes per lane per 256-code step (4 packed bytes)
 STEP = LANES * WORD
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+SMEM_BLOCK = 48 * 1024  # shared memory a block stages at most (the
+                        # default a launch may take without opting in)
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
              + [ctypes.c_longlong] * 6
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int] * 4
+             + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
 
-# Kernel launches since the last reset; only int4_matmul_cuda adds to it.
+# Kernel launches since the last reset; only int4_matmul_cuda adds to it,
+# once a call (a split call's reduction kernel is not counted apart).
 launches = 0
 
 
@@ -63,12 +93,49 @@ class Int4Tiles(NamedTuple):
     """One launch's work split (``ops.int4_tiles`` picks it).
 
     tb: batch columns per block (1, 2, 4 or 8); tk: codes of x held in
-    shared memory at a time (a multiple of 256).  Neither changes the
-    arithmetic: each lane's sum runs over the same codes in the same order.
+    shared memory at a time (a multiple of 256); nsplit: contraction
+    splits, each a range of whole 256-code steps (:func:`split_steps`).
+    Only ``nsplit`` changes the arithmetic (a segment ends where a split
+    ends, and the splits' sums are added in order); the plain version
+    takes it too, so both devices give the same bits.
     """
 
     tb: int
     tk: int
+    nsplit: int
+
+
+def rows_per_block(tb: int) -> int:
+    """Output rows of a block: 8 warps of 4 rows, of 2 at tb = 8
+    (``rows_per_warp`` in ``csrc/int4_matmul.cu``)."""
+    return 8 * (2 if tb == 8 else 4)
+
+
+def smem_bytes(tb: int, tk: int, scale_block: int) -> int:
+    """Shared memory of one block (``smem_bytes`` in
+    ``csrc/int4_matmul.cu``): the x tile, tb x tk f32, and the scales of
+    the tile's scale blocks (at most tk // scale_block + 2) for the
+    block's rows."""
+    return 4 * (tb * tk + rows_per_block(tb) * (tk // scale_block + 2))
+
+
+def stage_codes(tiles: Int4Tiles, scale_block: int) -> int:
+    """The x tile the kernel stages: ``tiles.tk`` codes, or fewer (whole
+    steps, at least one) where the tile's scales would take the block
+    past SMEM_BLOCK bytes (small scale blocks)."""
+    tk = tiles.tk
+    while tk > STEP and smem_bytes(tiles.tb, tk, scale_block) > SMEM_BLOCK:
+        tk -= STEP
+    return tk
+
+
+def split_steps(k: int, nsplit: int) -> tuple[int, int]:
+    """(256-code steps per split, splits) when k is cut into ``nsplit``
+    ranges of whole steps, at most one a step; ranges that would be empty
+    are dropped."""
+    steps = -(-max(k, 1) // STEP)
+    per = -(-steps // max(1, min(nsplit, steps)))
+    return per, -(-steps // per)
 
 
 def _check(u8, scales, x, scale_block, bias, residual):
@@ -104,10 +171,11 @@ def int4_matmul_cuda(u8: torch.Tensor, scales: torch.Tensor,
     """y (m, b) = cast(act(dequant(u8) @ x + bias) + residual) on the GPU.
 
     u8 (m, ceil(k/2)) uint8 contiguous; scales (m, ceil(k/scale_block))
-    f32 contiguous; x (k, b) f32, any strides; bias (m,) f32 contiguous,
-    residual (m, b) f32, any strides.  The result is an (m, b) view of a
-    (b, m) buffer, so the model's row-major layout is its transpose
-    without a copy.
+    f32 contiguous; x (k, b) float32, bfloat16 or float16, any strides;
+    bias (m,) f32 contiguous; residual (m, b) float32, bfloat16 or
+    float16, any strides.  The result is an (m, b) view of a (b, m)
+    buffer, so the model's row-major layout is its transpose without a
+    copy.
     """
     global launches
     m, k, b, nsb = _check(u8, scales, x, scale_block, bias, residual)
@@ -116,28 +184,44 @@ def int4_matmul_cuda(u8: torch.Tensor, scales: torch.Tensor,
                          f"{u8.device}")
     if u8.dtype != torch.uint8 or not u8.is_contiguous():
         raise ValueError("u8 must be contiguous uint8")
-    for name, t in (("x", x), ("scales", scales), ("bias", bias),
-                    ("residual", residual)):
+    for name, t in (("x", x), ("residual", residual)):
+        if t is not None and t.dtype not in OUT_TYPES:
+            raise ValueError(f"{name} must be float32, bfloat16 or float16, "
+                             f"got {t.dtype}")
+    for name, t in (("scales", scales), ("bias", bias)):
         if t is not None and t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
-    for name, t in (("scales", scales), ("bias", bias)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if out_dtype not in OUT_TYPES:
         raise ValueError(f"unsupported out_dtype {out_dtype}")
-    if tiles.tb not in (1, 2, 4, 8) or tiles.tk <= 0 or tiles.tk % STEP:
+    if (tiles.tb not in (1, 2, 4, 8) or tiles.tk <= 0 or tiles.tk % STEP
+            or tiles.nsplit < 1):
         raise ValueError(f"bad tiles {tiles}")
-    out = torch.empty((b, m), dtype=out_dtype, device=u8.device).t()
+    tk = stage_codes(tiles, scale_block)
+    if (k + STEP) * scale_block >= 2**32:  # the kernel's block_of
+        raise ValueError(f"k={k} x scale_block={scale_block} too large")
+    per, nsplit = split_steps(k, tiles.nsplit)
+    dev = u8.device
+    out = torch.empty((b, m), dtype=out_dtype, device=dev).t()
+    ws = (torch.empty((nsplit, b, m), dtype=torch.float32, device=dev)
+          if nsplit > 1 else None)
     # 4-byte word loads need every row start 4-byte aligned
     vec = int(u8.shape[1] % 4 == 0 and u8.data_ptr() % 4 == 0)
+    # x staged with 16-byte loads along k where each column allows them
+    x_vec = int(x.stride(0) == 1 and x.data_ptr() % 16 == 0
+                and (b == 1 or x.stride(1) * x.element_size() % 16 == 0))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rs = residual.stride() if residual is not None else (0, 0)
-    stream = torch.cuda.current_stream(u8.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = nvcc.load("int4_matmul", "int4_matmul_launch", _ARGTYPES)(
         ptr(u8), ptr(scales), ptr(x), ptr(bias), ptr(residual), ptr(out),
-        m, k, u8.shape[1], b, nsb, scale_block, tiles.tk, tiles.tb, vec,
-        x.stride(0), x.stride(1), rs[0], rs[1], out.stride(0), out.stride(1),
-        ACTS[act], OUT_TYPES[out_dtype], stream)
+        ptr(ws), m, k, u8.shape[1], b, nsb, scale_block, tk,
+        tk // scale_block + 2, per, nsplit, tiles.tb, vec, x.stride(0), x.stride(1), rs[0], rs[1],
+        out.stride(0), out.stride(1), ACTS[act], OUT_TYPES[out_dtype],
+        OUT_TYPES[x.dtype],
+        OUT_TYPES[residual.dtype] if residual is not None else 0,
+        0 if scale_block == 1 else 2**32 // scale_block + 1, x_vec, stream)
     if err != 0:
         raise RuntimeError(f"int4 kernel launch failed: CUDA error {err} "
                            f"(m={m}, k={k}, b={b}, tiles={tiles})")
@@ -145,16 +229,57 @@ def int4_matmul_cuda(u8: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def _codes(u8: torch.Tensor, k: int) -> torch.Tensor:
+    """The (m, k) f32 two's-complement value of each code, hi nibble
+    first."""
+    c = torch.stack([u8 >> 4, u8 & 0xF], dim=-1).reshape(u8.shape[0], -1)
+    c = c[:, :k].to(torch.int32)
+    return torch.where(c <= 7, c, c - 16).to(torch.float32)
+
+
 def dequantize(u8: torch.Tensor, scales: torch.Tensor, k: int,
                scale_block: int) -> torch.Tensor:
     """The (m, k) f32 weight the kernel multiplies: two's-complement value
     of each code (hi nibble first) times its row-block scale."""
-    c = torch.stack([u8 >> 4, u8 & 0xF], dim=-1).reshape(u8.shape[0], -1)
-    c = c[:, :k].to(torch.int32)
-    vals = torch.where(c <= 7, c, c - 16).to(torch.float32)
     q = torch.repeat_interleave(scales.to(torch.float32), scale_block,
                                 dim=1)[:, :k]
-    return vals * q
+    return _codes(u8, k) * q
+
+
+@functools.lru_cache(maxsize=256)
+def _segment_ends(k: int, scale_block: int, per: int, nsplit: int,
+                  device: torch.device):
+    """Where the lanes' segments end, split by split: for each (step s,
+    code t) of the split, ``(s, t, lanes, blocks)`` with the lanes whose
+    segment of scale block ``blocks`` ends before their code t of step s
+    (None when no lane's does), then the lanes' last segments,
+    ``(lanes, blocks)``, which end with the split.  The kernel's flushes,
+    as the host computes them from k alone."""
+    out = []
+    for sp in range(nsplit):
+        cur = [-1] * LANES
+        events = []
+        for s in range(sp * per, (sp + 1) * per):
+            for t in range(WORD):
+                ends = []
+                for lane in range(LANES):
+                    kk = s * STEP + lane * WORD + t
+                    if kk < k and kk // scale_block != cur[lane]:
+                        if cur[lane] >= 0:
+                            ends.append((lane, cur[lane]))
+                        cur[lane] = kk // scale_block
+                events.append((s, t, *_lane_blocks(ends, device)))
+        last = [(lane, c) for lane, c in enumerate(cur) if c >= 0]
+        out.append((events, _lane_blocks(last, device)))
+    return out
+
+
+def _lane_blocks(pairs, device):
+    if not pairs:
+        return None, None
+    lanes, blocks = zip(*pairs)
+    return (torch.tensor(lanes, device=device),
+            torch.tensor(blocks, device=device))
 
 
 def int4_matmul_plain(u8: torch.Tensor, scales: torch.Tensor,
@@ -164,26 +289,40 @@ def int4_matmul_plain(u8: torch.Tensor, scales: torch.Tensor,
                       residual: torch.Tensor | None = None,
                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel's function in plain PyTorch, in the kernel's op order
-    (the counterpart of ``repro.kernels.ref.int4_matmul_ref``): per-lane
-    sums over k = 256·S + 8·L + t, the shuffle tree, the epilogue.
-    ``tiles`` is accepted for the kernel's signature and changes nothing."""
+    (the counterpart of ``repro.kernels.ref.int4_matmul_ref``): per split,
+    per-lane segment sums over k = 256·S + 8·L + t, one scale multiply a
+    segment, the shuffle tree; the splits added in order; the epilogue.
+    Of ``tiles`` only ``nsplit`` counts (one split when None).  x and the
+    residual of any float type are widened to f32, which is exact."""
     m, k, b, nsb = _check(u8, scales, x, scale_block, bias, residual)
     dev = u8.device
-    ns = -(-k // STEP)
+    per, nsplit = split_steps(k, tiles.nsplit if tiles is not None else 1)
+    ns = per * nsplit
     w = torch.zeros((m, ns * STEP), dtype=torch.float32, device=dev)
-    w[:, :k] = dequantize(u8, scales, k, scale_block)
+    w[:, :k] = _codes(u8, k)
     xp = torch.zeros((ns * STEP, b), dtype=torch.float32, device=dev)
     xp[:k] = x.to(torch.float32)
-    w = w.reshape(m, ns, LANES, WORD)
-    xp = xp.reshape(ns, LANES, WORD, b)
-    lane = torch.zeros((m, LANES, b), dtype=torch.float32, device=dev)
-    for s in range(ns):
-        for t in range(WORD):
-            lane = lane + w[:, s, :, t, None] * xp[None, s, :, t, :]
-    while lane.shape[1] > 1:  # xor-shuffle tree, as lane 0 sees it
-        half = lane.shape[1] // 2
-        lane = lane[:, :half] + lane[:, half:]
-    return epilogue_cols(lane[:, 0], act, bias, residual, out_dtype)
+    nl = min(LANES, -(-k // WORD))  # lanes with codes; the rest sum 0
+    w = w.reshape(m, ns, LANES, WORD)[:, :, :nl]
+    xp = xp.reshape(ns, LANES, WORD, b)[:, :nl]
+    sc = scales.to(torch.float32)
+    total = None
+    for events, (lanes, blocks) in _segment_ends(k, scale_block, per,
+                                                 nsplit, dev):
+        acc = torch.zeros((m, LANES, b), dtype=torch.float32, device=dev)
+        seg = torch.zeros((m, nl, b), dtype=torch.float32, device=dev)
+        for s, t, ends, ended in events:
+            if ends is not None:  # acc + seg * scale, then a new segment
+                acc[:, ends] = acc[:, ends] + seg[:, ends] * sc[:, ended, None]
+                seg[:, ends] = 0.0
+            seg = seg + w[:, s, :, t, None] * xp[None, s, :, t, :]
+        if lanes is not None:
+            acc[:, lanes] = acc[:, lanes] + seg[:, lanes] * sc[:, blocks, None]
+        while acc.shape[1] > 1:  # xor-shuffle tree, as lane 0 sees it
+            half = acc.shape[1] // 2
+            acc = acc[:, :half] + acc[:, half:]
+        total = acc[:, 0] if total is None else total + acc[:, 0]
+    return epilogue_cols(total, act, bias, residual, out_dtype)
 
 
 def int4_matmul(u8, scales, x, **kw) -> torch.Tensor:

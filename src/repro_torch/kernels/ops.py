@@ -32,6 +32,11 @@ NUM_SMS = 132
 SM_SMEM = 233_472  # shared memory of one SM; each block also takes 1 KiB
 STAGE_WORDS = 8192  # indices in one staged tile: rows x stage
 BLOCK_OVERHEAD = 2  # a block's fixed cost (prologue, epilogue) in chunks
+# a block's fixed cost (x and scale staging, epilogue) in 256-code steps
+# of the int4 kernel: at a fixed share of steps an SM, its time grew by
+# about a step for every further block (gemma-2b's down at b = 1, 4 to 64
+# splits; PERF.md section 6)
+INT4_BLOCK_OVERHEAD = 1
 # m x kc from which 2048-row blocks beat 1024-row ones at tb = 1 (on the
 # card: gemma-2b gate and down, 11.2M, faster; wq, 1.4M, slower)
 ROW_CHUNKS_2048 = 4_000_000
@@ -149,13 +154,37 @@ def msgemm(idx: torch.Tensor, x: torch.Tensor, d: int, *,
     return y[:, 0] if squeeze else y
 
 
+@functools.lru_cache(maxsize=None)
 def int4_tiles(m: int, k: int, b: int) -> Int4Tiles:
-    """Hopper tile choice for the int4 kernel: tb columns per block (the
-    batch, rounded up to 1, 2, 4 or 8) and an x tile of tk codes that
-    keeps tb·tk floats at 32 KiB of shared memory."""
+    """Hopper tile choice for the int4 kernel, a function of the shape
+    alone: tb columns per block (the batch, rounded up to 1, 2, 4 or 8);
+    nsplit, the contraction splits (whole 256-code steps) whose blocks
+    end soonest on NUM_SMS SMs; and an x tile of tk codes, a split's
+    range at most, that keeps tb·tk floats at 32 KiB of shared memory.
+
+    The split's cost model: the blocks spread evenly over the SMs, and an
+    SM takes its share of blocks times a block's steps plus
+    INT4_BLOCK_OVERHEAD, but never less than two blocks' worth (one block
+    of 8 warps cannot hide the loads' latency); ties go to fewer splits.
+    So gemma-2b's down (64 row tiles over 64 steps at b = 4) takes 4
+    splits and wk/wv (8 row tiles) 8, while gate/up (512 row tiles) keep
+    one: the fewest splits that bring the grid to about two blocks an SM,
+    where the blocks divide evenly over the SMs.  On the card it picks
+    the fastest split count of ``chip_smoke.py --sweep int4``, or one
+    within a few per cent, at every engine shape (PERF.md section 6)."""
     tb = next(t for t in (1, 2, 4, 8) if t >= min(b, 8))
-    step = _i4.STEP
-    return Int4Tiles(tb=tb, tk=min(-(-k // step) * step, 8192 // tb))
+    blocks = -(-m // _i4.rows_per_block(tb)) * -(-b // tb)
+    steps = -(-max(k, 1) // _i4.STEP)
+    best = None
+    for n in range(1, steps + 1):
+        per, splits = _i4.split_steps(k, n)
+        cost = (max(2, -(-blocks * splits // NUM_SMS))
+                * (per + INT4_BLOCK_OVERHEAD))
+        if splits == n and (best is None or cost < best[0]):
+            best = (cost, per, n)
+    _, per, nsplit = best
+    return Int4Tiles(tb=tb, tk=min(per * _i4.STEP, 8192 // tb),
+                     nsplit=nsplit)
 
 
 def int4_matmul(u8: torch.Tensor, scales: torch.Tensor, x: torch.Tensor, *,
@@ -184,11 +213,15 @@ def int4_matmul(u8: torch.Tensor, scales: torch.Tensor, x: torch.Tensor, *,
     if tiles is None:
         tiles = int4_tiles(u8.shape[0], x.shape[0], x.shape[1])
     f32 = lambda t: None if t is None else t.to(torch.float32)  # noqa: E731
+    # x and the residual go as they are when the kernel reads their type
+    # (the engine's bf16 activations); the widening to f32 is exact
+    own = lambda t: t if t is None or t.dtype in _ms.OUT_TYPES \
+        else f32(t)  # noqa: E731
     y = _i4.int4_matmul(
-        u8.contiguous(), f32(scales).contiguous(), f32(x),
+        u8.contiguous(), f32(scales).contiguous(), own(x),
         scale_block=scale_block, tiles=tiles, act=ep.act,
         bias=None if bias is None else f32(bias).contiguous(),
-        residual=f32(residual),
+        residual=own(residual),
         out_dtype=torch_dtype(ep.out_dtype) or torch.float32)
     return y[:, 0] if squeeze else y
 

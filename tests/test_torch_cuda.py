@@ -161,6 +161,10 @@ I4_SHAPES = [  # (scale_block, m, k, b)
     (32, 9, 1100, 2),
     (36, 16384, 2048, 4),  # gemma-2b gate/up
     (36, 2048, 16384, 1),  # gemma-2b down
+    (36, 2048, 16384, 4),  # gemma-2b down at b = 4: 5 splits
+    (36, 256, 2048, 4),  # gemma-2b wk/wv at b = 4: 8 splits
+    (300, 33, 2000, 5),  # scale blocks longer than a 256-code step
+    (36, 100, 4100, 4),  # rows of 2050 bytes: byte-wise loads
 ]
 
 
@@ -200,6 +204,72 @@ def test_int4_kernel_matches_plain(sb, m, k, b):
                 assert torch.equal(got, want)
             else:
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_int4_smem_formula_matches_kernel():
+    """int4_matmul.smem_bytes mirrors csrc/int4_matmul.cu's formula."""
+    import ctypes
+
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import nvcc
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    fn = nvcc.load("int4_matmul", "int4_smem_bytes", [ctypes.c_int] * 3)
+    fn.restype = ctypes.c_longlong
+    for tb in (1, 2, 4, 8):
+        for tk in (256, 1024, 8192):
+            for sb in (1, 12, 36, 300):
+                assert fn(tb, tk, tk // sb + 2) == i4.smem_bytes(tb, tk, sb)
+
+
+I4_HALF_SHAPES = [  # (scale_block, m, k, b)
+    (36, 2048, 16384, 4),  # gemma-2b down
+    (36, 256, 2048, 4),  # gemma-2b wk/wv
+    (36, 2048, 2048, 8),  # gemma-2b wq/wo
+    (12, 7, 1300, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("sb,m,k,b", I4_HALF_SHAPES)
+def test_int4_kernel_half_x_matches_plain(sb, m, k, b, dtype):
+    """bf16/f16 x and residual as the engine passes them, read by the
+    kernel in their own type: bit-exact against the plain version on
+    random floats (none and relu epilogues) at the picked split and at
+    one, two and as many splits as 256-code steps."""
+    from repro_torch.kernels import int4_matmul as i4
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(m + k + b)
+    codes = torch.randint(0, 16, (m, k), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    u8 = packing.pack_storage(codes).contiguous()
+    nsb = -(-k // sb)
+    sc = (torch.rand((m, nsb), generator=g, device="cuda") + 0.1) * k**-0.5
+    xt = torch.randn((b, k), generator=g, device="cuda").to(dt).t()
+    res = torch.randn((b, m), generator=g, device="cuda").to(dt).t()
+    picked = ops.int4_tiles(m, k, b)
+    steps = -(-k // i4.STEP)
+    for n in sorted({picked.nsplit, 1, 2, steps}):
+        tiles = picked._replace(nsplit=n)
+        for act, out_dtype in (("none", torch.bfloat16),
+                               ("relu", torch.float32),
+                               ("gelu", torch.bfloat16)):
+            kw = dict(scale_block=sb, tiles=tiles, act=act, residual=res,
+                      out_dtype=out_dtype)
+            got = i4.int4_matmul_cuda(u8, sc, xt, **kw)
+            want = i4.int4_matmul_plain(u8, sc, xt, **kw)
+            torch.cuda.synchronize()
+            if act in ("none", "relu"):
+                assert torch.equal(got, want), (n, act)
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=2**-7, atol=1e-5)
 
 
 # ------------------------------------------------------- paged attention

@@ -10,8 +10,9 @@ plain version in tests/test_torch_cuda.py.
 Tolerances: on exactly representable inputs (integer activations,
 power-of-two scales) every sum is exact, so results are bit-identical
 whatever the op order; on random floats the plain version sums per lane
-in the kernel's interleave while the Pallas kernel dots whole k tiles, so
-they agree within rtol = atol = 1e-5.  Logits: rtol = atol = 1e-4, as
+in the kernel's interleave and scales once per segment (a lane's codes
+inside one scale block) while the Pallas kernel scales each weight and
+dots whole k tiles, so they agree within rtol = atol = 1e-5.  Logits: rtol = atol = 1e-4, as
 tests/test_torch_model.py allows (the JAX model runs ``int4_jnp``, a
 dequantize-then-matmul in XLA's order).
 """
@@ -181,11 +182,129 @@ def test_vector_x_and_strided_operands():
 
 
 def test_hopper_tiles():
-    assert ops.int4_tiles(16384, 2048, 4) == i4.Int4Tiles(4, 2048)
-    assert ops.int4_tiles(2048, 16384, 1) == i4.Int4Tiles(1, 8192)
-    assert ops.int4_tiles(256000, 2048, 8) == i4.Int4Tiles(8, 1024)
+    """The picker at the engine's shapes: the batch as tb, the split count
+    whose blocks end soonest on the card (the fastest, or within a few
+    per cent, in the card's sweep), x tiles of a split's range at most
+    32 KiB, shortened where small scale blocks' scales need the room."""
+    assert ops.int4_tiles(16384, 2048, 4) == i4.Int4Tiles(4, 2048, 1)
+    assert ops.int4_tiles(2048, 16384, 1) == i4.Int4Tiles(1, 4096, 4)
+    assert ops.int4_tiles(256000, 2048, 8) == i4.Int4Tiles(8, 1024, 1)
+    # gemma-2b down, wq/wo and wk/wv at b = 4
+    assert ops.int4_tiles(2048, 16384, 4) == i4.Int4Tiles(4, 2048, 4)
+    assert ops.int4_tiles(2048, 2048, 4) == i4.Int4Tiles(4, 512, 4)
+    assert ops.int4_tiles(256, 2048, 4) == i4.Int4Tiles(4, 256, 8)
+    # gemma2-9b's gate/up and down at b = 4
+    assert ops.int4_tiles(14336, 3584, 4).nsplit == 2
+    assert ops.int4_tiles(3584, 14336, 4).nsplit == 7
     t = ops.int4_tiles(24, 90, 3)
-    assert t.tb == 4 and t.tk == 256 and t.tb * t.tk * 4 <= 32 * 1024
+    assert t == i4.Int4Tiles(4, 256, 1)
+    for m, k, b in ((2048, 16384, 4), (256, 2048, 1), (14336, 3584, 8)):
+        t = ops.int4_tiles(m, k, b)
+        per, n = i4.split_steps(k, t.nsplit)
+        assert n == t.nsplit and t.tk <= per * i4.STEP
+        assert t.tb * t.tk * 4 <= 32 * 1024
+    # the staged tile: x and the tile's scales within SMEM_BLOCK bytes
+    assert i4.stage_codes(i4.Int4Tiles(4, 2048, 1), 36) == 2048
+    assert i4.stage_codes(i4.Int4Tiles(1, 8192, 1), 36) == 6400
+    assert i4.stage_codes(i4.Int4Tiles(4, 2048, 1), 1) == 256
+    for tiles, sb in ((i4.Int4Tiles(1, 8192, 1), 36),
+                      (i4.Int4Tiles(8, 1024, 1), 2)):
+        tk = i4.stage_codes(tiles, sb)
+        assert i4.smem_bytes(tiles.tb, tk, sb) <= i4.SMEM_BLOCK
+
+
+# (scale_block, m, k, b): several 256-code steps; a scale block longer
+# than a step (a lane's segment spans steps and is cut where a split ends)
+SPLIT_SHAPES = [(36, 9, 1100, 2), (12, 7, 1300, 3), (300, 5, 1000, 2)]
+
+
+@pytest.mark.parametrize("nsplit", [2, 3, 5])
+@pytest.mark.parametrize("sb,m,k,b", SPLIT_SHAPES)
+def test_plain_split_counts(sb, m, k, b, nsplit):
+    """Every split count gives the same bits on exact inputs (and the
+    reference's); on floats, split s's sum is the one-split sum of the
+    codes in its range (x zeroed elsewhere adds exact zeros to the same
+    segments), and the splits are added in order."""
+    rng = np.random.default_rng(sb + m + k + b + nsplit)
+    tiles = lambda n: i4.Int4Tiles(tb=4, tk=256, nsplit=n)  # noqa: E731
+    for exact in (True, False):
+        u8, x, sc = _mk(rng, m, k, b, sb, exact)
+        args = (torch.from_numpy(u8), torch.from_numpy(sc))
+        got = i4.int4_matmul_plain(*args, torch.from_numpy(x),
+                                   scale_block=sb, tiles=tiles(nsplit))
+        if exact:
+            one = i4.int4_matmul_plain(*args, torch.from_numpy(x),
+                                       scale_block=sb, tiles=tiles(1))
+            assert torch.equal(got, one)
+            want = j_ref.int4_matmul_ref(jnp.asarray(u8), jnp.asarray(sc),
+                                         jnp.asarray(x), scale_block=sb)
+            np.testing.assert_array_equal(got.numpy(), _f32(want))
+            continue
+        per, n = i4.split_steps(k, nsplit)
+        total = None
+        for s in range(n):
+            xs = np.zeros_like(x)
+            lo, hi = s * per * i4.STEP, (s + 1) * per * i4.STEP
+            xs[lo:hi] = x[lo:hi]
+            part = i4.int4_matmul_plain(*args, torch.from_numpy(xs),
+                                        scale_block=sb, tiles=tiles(1))
+            total = part if total is None else total + part
+        assert torch.equal(got, total)
+        assert not torch.equal(got, i4.int4_matmul_plain(
+            *args, torch.from_numpy(x), scale_block=sb, tiles=tiles(1)))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("sb,m,k,b", SHAPES[:2] + SPLIT_SHAPES[:1])
+def test_plain_half_x_vs_pallas(sb, m, k, b, dtype):
+    """bf16/f16 x and residual (the engine's activations) give the bits
+    of the same values in f32, and agree with the Pallas kernel on them
+    (exactly on exact inputs, within TOL on floats)."""
+    rng = np.random.default_rng(sb + m + k + b)
+    dt = getattr(torch, dtype)
+    for exact in (True, False):
+        u8, x, sc = _mk(rng, m, k, b, sb, exact)
+        xh = torch.from_numpy(x).to(dt)
+        res = torch.from_numpy(rng.standard_normal((m, b))
+                               .astype(np.float32)).to(dt)
+        ep = Epilogue(residual=True)
+        args = (torch.from_numpy(u8), torch.from_numpy(sc))
+        got = ops.int4_matmul(*args, xh, scale_block=sb, epilogue=ep,
+                              residual=res)
+        same = ops.int4_matmul(*args, xh.float(), scale_block=sb,
+                               epilogue=ep, residual=res.float())
+        assert torch.equal(got, same)
+        want = j_ops.int4_matmul(
+            jnp.asarray(u8), jnp.asarray(sc), jnp.asarray(xh.float().numpy()),
+            scale_block=sb, epilogue=JEpilogue(residual=True),
+            residual=jnp.asarray(res.float().numpy()))
+        if exact:
+            np.testing.assert_array_equal(got.numpy(), _f32(want))
+        else:
+            np.testing.assert_allclose(got.numpy(), _f32(want), **TOL)
+
+
+def test_wrapper_passes_half_x_and_residual_unconverted(monkeypatch):
+    """ops.int4_matmul hands bf16 x and residual to the kernel function as
+    they are (no widening copy); other types are widened to f32."""
+    seen = []
+    real = i4.int4_matmul
+
+    def spy(u8, scales, x, **kw):
+        seen.append((x, kw["residual"]))
+        return real(u8, scales, x, **kw)
+
+    monkeypatch.setattr(i4, "int4_matmul", spy)
+    rng = np.random.default_rng(5)
+    u8, x, sc = _mk(rng, 8, 40, 3, 12, exact=True)
+    args = (torch.from_numpy(u8), torch.from_numpy(sc))
+    xb = torch.from_numpy(x).to(torch.bfloat16).t().contiguous().t()
+    res = torch.ones((3, 8), dtype=torch.bfloat16).t()
+    ops.int4_matmul(*args, xb, scale_block=12,
+                    epilogue=Epilogue(residual=True), residual=res)
+    assert seen[-1][0] is xb and seen[-1][1] is res
+    ops.int4_matmul(*args, xb.to(torch.float64), scale_block=12)
+    assert seen[-1][0].dtype == torch.float32
 
 
 def test_wrapper_routes_by_device_without_fallback():
