@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, as on the card
-    python3 chip_smoke.py --profile  # also profile the engine: msgemm
-                                     # weights with the full-precision and
-                                     # the kv8 pool, and int4 weights
+    python3 chip_smoke.py --profile  # also profile the engine on both
+                                     # step routes (CUDA graph, eager):
+                                     # msgemm weights with the f32 and the
+                                     # kv8 pool, and int4 weights
     python3 chip_smoke.py --sweep    # only: build, then time every msGeMM
                                      # variant (rows per block) at the
                                      # engine's shapes, every flash tile
@@ -58,27 +59,38 @@ Phases, any failure exits non-zero before the last line is printed:
 4. main    — full-width gemma-2b with random weights from a seed, quantized
    on the card (msgemm, d=3, scale_block=36), served by the continuous
    engine with the serve CLI's defaults (4 slots, block 8, prefill chunk 8)
-   on 6 requests of 4-16 prompt tokens and 16 new tokens.  Every request
+   on 6 requests of 4-16 prompt tokens and 16 new tokens.  Every engine
+   run here and in phase 5 takes the default route, each step shape a
+   captured CUDA graph replayed, and its launch counts are the replays'
+   (each replay adds the launches its capture recorded).  Every request
    must finish, match the static ``generate`` path token for token, and the
    msGeMM launch count must be exactly 126 (7 GeMMs x 18 layers) per step.
+   The same stream then runs on the eager route (``cuda_graph=False``):
+   the same tokens and steps, 126 launches a step.
    The same model and stream are then served with a quantized KV pool, kv8
    and kv4, each once through the paged-attention kernel (auto-selected)
    and once forced to the torch backend: every request finishes, the two
    routes give the same tokens, paged-attention launches are exactly 18
    per step on the kernel run and 0 on the torch run, msGeMM launches stay
-   126 per step.  Then gemma-2b is built again from seed 0 with int4
+   126 per step; the kv8 kernel run again on the eager route, with the
+   same tokens.  Then gemma-2b is built again from seed 0 with int4
    weights (``int4_dequant``, the same codes and scales) and serves the
    stream: every request finishes and matches static ``generate``, int4
-   launches are exactly 126 per step and msGeMM launches 0.
+   launches are exactly 126 per step and msGeMM launches 0; then on the
+   eager route, with the same tokens.
 5. gemma2-9b — full-width gemma2-9b (42 layers, d_model 3584, vocab
    256000) from seed 0 through the port's serve CLI
    (``repro_torch.launch.serve.main``, in process): msgemm weights with
    ``--check`` (294 msGeMM launches per step, no other kernel); the same
    model at ``--kv-bits 8`` through the paged-attention kernel (42
-   launches per step) and through the torch route (same tokens); int4
-   weights with ``--check`` (294 int4 launches per step); and one request
-   of 4,440 prompt tokens, past the 4096-token window, with int4 weights
-   and ``--check``.
+   launches per step) and through the torch route (same tokens), that run
+   writing ``--metrics-json`` and ``--trace-out`` (both valid under the
+   port's validators, the reference's series names, one ``gemm.*`` device
+   event per GeMM and step from the graph replays); int4 weights with
+   ``--check`` (294 int4 launches per step); and one request of 4,440
+   prompt tokens, past the 4096-token window, with int4 weights and
+   ``--check``.  The msgemm, int4 and long runs again with
+   ``--no-cuda-graph``: the same tokens.
 6. report  — the card's name and power limit, then a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Details go to
@@ -938,6 +950,9 @@ def serve(tag, model, cfg, **engine_kw):
                           max_prompt=PROMPT_LEN, seed=0)
     engine = Engine(model, cfg, max_slots=4, block_size=8, prefill_chunk=8,
                     max_model_len=PROMPT_LEN + NEW_TOKENS, **engine_kw)
+    route = "graph" if engine.runner.cuda_graph else "eager"
+    check(route == ("eager" if engine_kw.get("cuda_graph") is False
+                    else "graph"), f"[{tag}] engine took the {route} route")
     for mod in counters.values():
         mod.launches = 0
     t0 = time.perf_counter()
@@ -956,16 +971,41 @@ def serve(tag, model, cfg, **engine_kw):
               f"[{tag}] request {rid}: status {seq.status}, "
               f"{len(seq.generated)} tokens")
     s = engine.metrics()
-    print(f"[{tag}] served {len(results)} requests, {s['generated_tokens']} "
-          f"tokens in {run_s:.2f}s over {steps} steps "
+    print(f"[{tag}] {route} route: served {len(results)} requests, "
+          f"{s['generated_tokens']} tokens in {run_s:.2f}s over {steps} steps "
+          f"({run_s * 1e3 / steps:.2f} ms a step) "
           f"({s['prefill_steps']} prefill, {s['decode_steps']} decode): "
           f"{s['tok_per_s']:.1f} tok/s, latency p50 "
           f"{s['latency_p50_s'] * 1e3:.1f}ms p95 "
           f"{s['latency_p95_s'] * 1e3:.1f}ms; launches {launches}",
           flush=True)
     return dict(reqs=reqs, run_s=run_s, steps=steps, launches=launches,
-                metrics=s,
+                metrics=s, route=route, step_ms=run_s * 1e3 / steps,
                 tokens={rid: seq.generated for rid, seq in results.items()})
+
+
+def check_eager(tag, model, cfg, graph_run, per_step, **engine_kw):
+    """The same stream through the eager route (``cuda_graph=False``):
+    the graph route's tokens (which the caller held to static
+    ``generate``'s), the same steps, and ``per_step`` launches a step of
+    each named kernel, 0 of the others, as the graph run's replays
+    counted them."""
+    run = serve(f"{tag}-eager", model, cfg, cuda_graph=False, **engine_kw)
+    check(run["tokens"] == graph_run["tokens"],
+          f"[{tag}] eager route tokens {run['tokens']} != graph route "
+          f"{graph_run['tokens']}")
+    check(run["steps"] == graph_run["steps"],
+          f"[{tag}] eager route took {run['steps']} steps, graph route "
+          f"{graph_run['steps']}")
+    want = {name: per_step.get(name, 0) * run["steps"]
+            for name in run["launches"]}
+    check(run["launches"] == want,
+          f"[{tag}] eager route launches {run['launches']} != {want}")
+    print(f"[{tag}] eager route == graph route, token for token; step "
+          f"{run['step_ms']:.2f} ms eager, {graph_run['step_ms']:.2f} ms "
+          f"graph", flush=True)
+    run.pop("reqs")
+    return run
 
 
 def check_static(tag, model, cfg, run):
@@ -1022,6 +1062,7 @@ def phase_main():
     check(launches["int4_matmul"] == 0 and launches["paged_attention"] == 0,
           f"full-precision msgemm run launched other kernels: {launches}")
     check_static("main", model, cfg, run)
+    eager = check_eager("main", model, cfg, run, dict(msgemm=126))
     with torch.no_grad():
         toks = torch.tensor([run["reqs"][0].prompt], dtype=torch.int32,
                             device="cuda")
@@ -1032,8 +1073,8 @@ def phase_main():
     print("[main] engine tokens == static generate for every request; "
           "forward logits finite", flush=True)
     run.pop("reqs")
-    return dict(run, build_s=build_s, model_bytes=size, model=model,
-                cfg=cfg)
+    return dict(run, eager=eager, build_s=build_s, model_bytes=size,
+                model=model, cfg=cfg)
 
 
 def phase_main_kvq(model, cfg, kv16_tokens):
@@ -1063,6 +1104,10 @@ def phase_main_kvq(model, cfg, kv16_tokens):
             check(launches["msgemm"] == 126 * steps,
                   f"[{tag}] msgemm launches {launches['msgemm']} != 126 x "
                   f"{steps}")
+            if bits == 8 and route == "kernel":
+                runs["kernel-eager"] = check_eager(
+                    tag, model, cfg, run,
+                    dict(msgemm=126, paged_attention=18), kv_quant=spec)
             run.pop("reqs")
             runs[route] = run
         for rid, toks in runs["kernel"]["tokens"].items():
@@ -1102,6 +1147,8 @@ def phase_main_int4(msgemm_tokens):
     check(launches["msgemm"] == 0 and launches["paged_attention"] == 0,
           f"[int4] other kernels launched: {launches}")
     check_static("int4", model, cfg, run)
+    run["eager"] = check_eager("int4", model, cfg, run,
+                               dict(int4_matmul=126))
     same = sum(toks == msgemm_tokens[rid]
                for rid, toks in run["tokens"].items())
     print(f"[int4] engine tokens == static generate for every request; "
@@ -1113,11 +1160,14 @@ def phase_main_int4(msgemm_tokens):
 
 
 def phase_profile(tag, model, cfg, **engine_kw):
-    """Where an engine step's time goes: the same request stream, all
-    arriving at once, under torch.profiler; device time by kernel name
-    and the device's busy share of the wall time (profiler on, so the
-    host side is slower than unprofiled).  ``engine_kw`` as for
-    :func:`serve` (``kv_quant``)."""
+    """Where an engine step's time goes, on both step routes: the same
+    request stream, all arriving at once, first unprofiled (wall ms a
+    step and tokens/s), then again through the same engine under
+    torch.profiler (device time by kernel name, and device busy ms against
+    the profiled wall; the profiler slows the host side, most on the eager
+    route).  The graph run's kernels are the replays' own: the profiler
+    sees each kernel of a graph.  ``engine_kw`` as for :func:`serve`
+    (``kv_quant``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1126,33 +1176,52 @@ def phase_profile(tag, model, cfg, **engine_kw):
 
     reqs = poisson_stream(6, cfg.vocab_size, max_new_tokens=16, rate=0.0,
                           min_prompt=4, max_prompt=16, seed=1)
-    engine = Engine(model, cfg, max_slots=4, block_size=8, prefill_chunk=8,
-                    max_model_len=32, **engine_kw)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    out = {}
+    for route, graph in (("graph", True), ("eager", False)):
+        engine = Engine(model, cfg, max_slots=4, block_size=8,
+                        prefill_chunk=8, max_model_len=32, cuda_graph=graph,
+                        **engine_kw)
         t0 = time.perf_counter()
         engine.run(reqs)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    # device-side events only (kernels, copies): a CPU op's device time
-    # would count its kernels a second time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    check(busy_ms > 0, "profiler saw no device time")
-    out = dict(wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
-               busy_share=busy_ms / (wall_s * 1e3), steps=engine.num_steps,
-               prefill_steps=engine.num_prefill_steps,
-               top=[dict(name=n[:120], device_ms=t, count=c)
-                    for n, t, c in rows[:12]])
-    print(f"[profile {tag}] {engine.num_steps} steps in {wall_s * 1e3:.1f}ms "
-          f"wall, device busy {busy_ms:.1f}ms ({out['busy_share']:.1%})")
-    for r in out["top"]:
-        print(f"[profile {tag}]   {r['device_ms']:9.3f}ms x{r['count']:5d} "
-              f"{r['name'][:90]}")
+        plain_s = time.perf_counter() - t0
+        steps, tok_s = engine.num_steps, engine.metrics()["tok_per_s"]
+        engine.reset_metrics()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.run(reqs)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        check(engine.num_steps == steps,
+              f"[profile {tag} {route}] {engine.num_steps} steps profiled, "
+              f"{steps} unprofiled")
+        # device-side events only (kernels, copies): a CPU op's device time
+        # would count its kernels a second time
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows)
+        check(busy_ms > 0, f"[profile {tag} {route}] profiler saw no "
+                           "device time")
+        r = out[route] = dict(
+            steps=steps, prefill_steps=engine.num_prefill_steps,
+            step_ms=plain_s * 1e3 / steps, tok_per_s=tok_s,
+            wall_ms=wall_s * 1e3, device_busy_ms=busy_ms,
+            busy_share=busy_ms / (wall_s * 1e3),
+            busy_share_unprofiled=min(1.0, busy_ms / (plain_s * 1e3)),
+            top=[dict(name=n[:120], device_ms=t, count=c)
+                 for n, t, c in rows[:12]])
+        print(f"[profile {tag} {route}] {steps} steps, unprofiled "
+              f"{r['step_ms']:.2f} ms a step, {tok_s:.1f} tok/s; profiled "
+              f"{wall_s * 1e3:.1f} ms wall, device busy {busy_ms:.1f} ms "
+              f"({r['busy_share']:.1%}; {r['busy_share_unprofiled']:.1%} "
+              "of the unprofiled wall)", flush=True)
+        for t in r["top"]:
+            print(f"[profile {tag} {route}]   {t['device_ms']:9.3f}ms "
+                  f"x{t['count']:5d} {t['name'][:90]}")
     return out
 
 
@@ -1345,7 +1414,11 @@ def serve_cli(tag, argv, per_step):
     want = {name: per_step.get(name, 0) * steps for name in cli.KERNELS}
     check(launches == want, f"[{tag}] engine launches {launches} != {want} "
                             f"({per_step} a step over {steps} steps)")
-    run = dict(steps=steps, run_s=out["run_s"], wall_s=wall_s,
+    route = "graph" if out["cuda_graph"] else "eager"
+    check(route == ("eager" if "--no-cuda-graph" in argv else "graph"),
+          f"[{tag}] the engine took the {route} route")
+    run = dict(steps=steps, run_s=out["run_s"], wall_s=wall_s, route=route,
+               step_ms=out["run_s"] * 1e3 / steps,
                launches=launches, total_launches=total, metrics=m,
                build=out["build"],
                peak_bytes=torch.cuda.max_memory_allocated(),
@@ -1357,32 +1430,98 @@ def serve_cli(tag, argv, per_step):
     torch.cuda.empty_cache()
     print(f"[{tag}] build {run['build']['build_s']:.1f}s, buffers "
           f"{run['build']['buffer_bytes'] / 2**30:.2f} GiB, peak "
-          f"{run['peak_bytes'] / 2**30:.2f} GiB; {m['tok_per_s']:.2f} "
-          f"tok/s, latency p50 {m['latency_p50_s'] * 1e3:.1f}ms p95 "
-          f"{m['latency_p95_s'] * 1e3:.1f}ms over {steps} steps; engine "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB; {route} route "
+          f"{m['tok_per_s']:.2f} tok/s, latency p50 "
+          f"{m['latency_p50_s'] * 1e3:.1f}ms p95 "
+          f"{m['latency_p95_s'] * 1e3:.1f}ms over {steps} steps "
+          f"({run['step_ms']:.2f} ms a step); engine "
           f"launches {launches}; with the check {total} "
           f"[{wall_s:.1f}s]", flush=True)
     return run
 
 
+def cli_eager(tag, argv, per_step, graph_run):
+    """The same CLI run with ``--no-cuda-graph``: the graph route's tokens
+    (held to static ``generate``'s by its ``--check``) and steps."""
+    argv = [a for a in argv if a != "--check"]
+    run = serve_cli(f"{tag} eager", [*argv, "--no-cuda-graph"], per_step)
+    check(run["tokens"] == graph_run["tokens"] and
+          run["steps"] == graph_run["steps"],
+          f"[{tag}] eager route tokens {run['tokens']} != graph route "
+          f"{graph_run['tokens']}")
+    print(f"[{tag}] eager route == graph route, token for token; "
+          f"{run['metrics']['tok_per_s']:.2f} tok/s eager, "
+          f"{graph_run['metrics']['tok_per_s']:.2f} graph", flush=True)
+    return run
+
+
+def check_artifacts(run, metrics_path, trace_path, steps_per_kind):
+    """The serve CLI's --metrics-json and --trace-out files: valid under
+    the port's validators, with the reference's series names, and the
+    graph replays' device marks (``gemm.*`` and ``kv_dequant``, one per
+    call a step) in the trace."""
+    from repro_torch import obs
+
+    for path, errs in ((metrics_path, obs.validate_snapshot_file(
+            metrics_path)), (trace_path, obs.validate_trace_file(
+                trace_path))):
+        check(errs == [], f"[artifacts] {path} invalid: {errs[:5]}")
+    snap = json.loads(Path(metrics_path).read_text())
+    names = {r["name"] for kind in ("counters", "gauges", "histograms")
+             for r in snap[kind]}
+    want = {"serving_requests_submitted_total",
+            "serving_requests_finished_total", "serving_ttft_s",
+            "serving_request_latency_s", "serving_intertoken_s",
+            "serving_step_s", "kv_pool_bytes", "kv_bytes_per_token",
+            "kv_capacity_seqs", "kv_dequant_hbm_bytes", "kernel_gemm_s",
+            "kv_dequant_s"}
+    check(want <= names, f"[artifacts] snapshot lacks {want - names}")
+    doc = json.loads(Path(trace_path).read_text())
+    count = {}
+    for ev in doc["traceEvents"]:
+        key = ev["name"].split(".")[0]
+        count[key] = count.get(key, 0) + (ev["ph"] == "X")
+    steps = run["steps"]
+    for key, per_step in steps_per_kind.items():
+        check(count.get(key, 0) == per_step * steps,
+              f"[artifacts] {count.get(key, 0)} {key} events in the trace, "
+              f"want {per_step} x {steps} steps")
+    check(count.get("engine", 0) == steps,
+          f"[artifacts] {count.get('engine', 0)} engine spans, {steps} steps")
+    print(f"[artifacts] {metrics_path} and {trace_path} valid: "
+          f"{len(names)} series, {len(doc['traceEvents'])} trace events "
+          f"({count})", flush=True)
+    return dict(series=len(names), events=len(doc["traceEvents"]),
+                complete_events=count)
+
+
 def phase_gemma2_9b():
     """gemma2-9b at full width (42 layers, d_model 3584, vocab 256000) from
-    seed 0 through the port's serve CLI: msgemm weights with --check; the
-    same weights at kv8 through the paged-attention kernel and through the
-    torch route; int4 weights with --check; and one request longer than
-    the 4096-token window, int4 weights, --check."""
+    seed 0 through the port's serve CLI: msgemm weights with --check, and
+    again on the eager route (--no-cuda-graph); the same weights at kv8
+    through the paged-attention kernel and through the torch route (that
+    run writes --metrics-json and --trace-out); int4 weights with --check
+    and eager; and one request longer than the 4096-token window, int4
+    weights, --check, and eager."""
     from repro_torch.configs.gemma2_9b import CONFIG
 
     gemms = 7 * CONFIG.num_layers  # weight GeMMs per engine step
-    out = {"msgemm": serve_cli("gemma2-9b msgemm",
-                               ["--quant", "msgemm", "--check"],
+    msgemm = ["--quant", "msgemm", "--check"]
+    out = {"msgemm": serve_cli("gemma2-9b msgemm", msgemm,
                                dict(msgemm=gemms))}
     check(out["msgemm"]["checked"] == 6,
           "[gemma2-9b msgemm] --check did not run")
+    out["msgemm-eager"] = cli_eager("gemma2-9b msgemm", msgemm,
+                                    dict(msgemm=gemms), out["msgemm"])
     runs = {}
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    paths = (str(outdir / "serve_metrics.json"),
+             str(outdir / "serve_trace.json"))
     for route, extra, attn in (
             ("kernel", [], CONFIG.num_layers),
-            ("torch", ["--backend", "paged_attn_torch"], 0)):
+            ("torch", ["--backend", "paged_attn_torch", "--metrics-json",
+                       paths[0], "--trace-out", paths[1]], 0)):
         runs[route] = serve_cli(
             f"gemma2-9b kv8 {route}",
             ["--quant", "msgemm", "--kv-bits", "8", *extra],
@@ -1396,26 +1535,32 @@ def phase_gemma2_9b():
     print(f"[gemma2-9b kv8] kernel and torch routes agree on every request; "
           f"{same}/6 equal the f32 pool's tokens", flush=True)
     out["kv8"] = dict(runs, same_as_f32_pool=same)
+    out["artifacts"] = check_artifacts(
+        runs["torch"], *paths, dict(gemm=gemms, kv_dequant=CONFIG.num_layers))
 
-    out["int4"] = serve_cli("gemma2-9b int4",
-                            ["--quant", "int4_dequant", "--check"],
-                            dict(int4_matmul=gemms))
+    int4 = ["--quant", "int4_dequant", "--check"]
+    out["int4"] = serve_cli("gemma2-9b int4", int4, dict(int4_matmul=gemms))
     check(out["int4"]["checked"] == 6, "[gemma2-9b int4] --check did not run")
     out["int4"]["same_as_msgemm"] = sum(
         t == out["msgemm"]["tokens"][rid]
         for rid, t in out["int4"]["tokens"].items())
+    out["int4-eager"] = cli_eager("gemma2-9b int4", int4,
+                                  dict(int4_matmul=gemms), out["int4"])
 
     # past the window: int4 weights (3x faster a layer than msGeMM), the
     # prompt in 256-token prefill chunks, one slot
-    long = serve_cli("gemma2-9b long", [
+    long_argv = [
         "--quant", "int4_dequant", "--check", "--num-requests", "1",
         "--max-slots", "1", "--prefill-chunk", "256",
         "--prompt-len", str(LONG_PROMPT["prompt_len"]),
-        "--seed", str(LONG_PROMPT["seed"])], dict(int4_matmul=gemms))
+        "--seed", str(LONG_PROMPT["seed"])]
+    long = serve_cli("gemma2-9b long", long_argv, dict(int4_matmul=gemms))
     check(long["prompts"][0] > CONFIG.sliding_window and long["checked"] == 1,
           f"[gemma2-9b long] prompt {long['prompts']} not past the window "
           f"{CONFIG.sliding_window}, or unchecked")
     out["long"] = long
+    out["long-eager"] = cli_eager("gemma2-9b long", long_argv,
+                                  dict(int4_matmul=gemms), long)
     print(f"[gemma2-9b long] a {long['prompts'][0]}-token prompt (window "
           f"{CONFIG.sliding_window}) served, tokens == static generate",
           flush=True)
@@ -1524,10 +1669,12 @@ def main() -> int:
             tot["bytes"], tot["ops"])
 
     # every path's engine runs, each read with the counts set to 0 before
-    runs = ([main_path, int4_path]
+    runs = ([main_path, main_path["eager"], int4_path, int4_path["eager"],
+             kvq_path["kv8"]["kernel-eager"]]
             + [kvq_path[kv][r] for kv in ("kv8", "kv4")
                for r in ("kernel", "torch")]
-            + [gemma2[k] for k in ("msgemm", "int4", "long")]
+            + [gemma2[k] for k in ("msgemm", "int4", "long", "msgemm-eager",
+                                   "int4-eager", "long-eager")]
             + [gemma2["kv8"][r] for r in ("kernel", "torch")])
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])

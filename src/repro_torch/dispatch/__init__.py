@@ -5,6 +5,13 @@ repro.dispatch (registry, heuristic plans, ``execute``).
 paths; ``plan()`` maps (spec, m, k, batch, device) to a frozen
 :class:`ExecPlan` by heuristic; ``execute()`` runs one linear through it.
 Autotuning, the plan cache, sharding and quarantine wait for their slices.
+
+Each ``execute`` reports through ``repro_torch.obs`` under the reference's
+names: ``dispatch_epilogue_total{fused}`` once per call that carries a
+non-identity epilogue (the reference counts once per traced call site;
+here that is once per eager call and once per CUDA graph capture), and a
+device mark ``gemm.<backend>.m<m>.k<k>.b<b>`` around the backend call,
+observed into ``kernel_gemm_s`` when tracing is on.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+from repro_torch import obs
 from repro_torch.core.epilogue import Epilogue, apply_epilogue
 from repro_torch.core.spec import QuantSpec
 from repro_torch.dispatch.registry import (  # noqa: F401
@@ -101,9 +109,23 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
     if residual is not None and (epilogue is None or not epilogue.residual):
         raise ValueError("residual array given but the epilogue does not "
                          "declare residual=True")
-    if epilogue is not None and not epilogue.is_identity \
-            and be.epilogue_ok(epilogue):
-        return be.run(spec, p, params, x, k=k, epilogue=epilogue, bias=bias,
-                      residual=residual)
+    fuse = (epilogue is not None and not epilogue.is_identity
+            and be.epilogue_ok(epilogue))
+    if epilogue is not None and not epilogue.is_identity:
+        obs.registry().counter(
+            "dispatch_epilogue_total",
+            help="non-identity epilogues by fused/unfused execution",
+            fused="true" if fuse else "false").inc()
+    mark = f"gemm.{be.name}.m{m}.k{k}.b{batch}"
+    labels = {"backend": be.name, "m": m, "k": k, "b": batch,
+              "mode": spec.mode, "d": d, "sb": spec.scale_block}
+    x = obs.mark_begin(x, mark)
+    if fuse:
+        y = be.run(spec, p, params, x, k=k, epilogue=epilogue, bias=bias,
+                   residual=residual)
+        return obs.mark_end(y, mark, cat="gemm", hist="kernel_gemm_s",
+                            hist_labels=labels)
     y = be.run(spec, p, params, x, k=k)
+    y = obs.mark_end(y, mark, cat="gemm", hist="kernel_gemm_s",
+                     hist_labels=labels)
     return apply_epilogue(y, epilogue, bias=bias, residual=residual)

@@ -22,8 +22,13 @@ from repro_torch.core.epilogue import Epilogue, torch_dtype
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int4_matmul as _i4
 from repro_torch.kernels import msgemm as _ms
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels.int4_matmul import Int4Tiles
 from repro_torch.kernels.msgemm import Tiles
+
+# every kernel's module, whose ``launches`` counts its launches
+KERNELS = {"msgemm": _ms, "int4_matmul": _i4, "paged_attention": _pa,
+           "flash_attention": _fa}
 
 # H100 SXM streaming multiprocessors.  A constant, not a device query, so
 # the CPU path picks the same contraction split (and so the same bits) as
@@ -99,6 +104,10 @@ def split_tiles(m: int, kc: int, b: int, d: int, scale_block: int, *,
         if best is None or span < best[0]:
             best = (span, tj)
     return tiles._replace(tj=best[1])
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.launches for name, mod in KERNELS.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,14 +21,14 @@ waits for the multi-GPU slice.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dispatch import registry
 from repro_torch.kernels import paged_attention as pa
-from repro_torch.kvq.quantize import kv_dequantize
+from repro_torch.kvq.quantize import codebook_tensor, kv_dequantize
 from repro_torch.kvq.spec import KVQuantSpec
 
 KV_STORAGE = "kv_u8"
@@ -53,17 +53,15 @@ def run_torch(spec: KVQuantSpec, cfg, q, pool, view_slots, positions, *,
     nb, bs, hk, dhp = pool["k"].shape
     dh = q.shape[-1]
     vs = view_slots.long()
-    k_view = kv_dequantize(pool["k"].view(nb * bs, hk, dhp)[vs],
-                           pool["k_scale"].view(nb * bs, hk)[vs], spec, dh)
+    kc = obs.mark_begin(pool["k"].view(nb * bs, hk, dhp), "kv_dequant")
+    k_view = kv_dequantize(kc[vs], pool["k_scale"].view(nb * bs, hk)[vs],
+                           spec, dh)
     v_view = kv_dequantize(pool["v"].view(nb * bs, hk, dhp)[vs],
                            pool["v_scale"].view(nb * bs, hk)[vs], spec, dh)
+    v_view = obs.mark_end(v_view, "kv_dequant", cat="kv",
+                          hist="kv_dequant_s")
     m = layers.view_mask(view_slots.shape[1], positions, window=window)
     return layers._sdpa(cfg, q, k_view, v_view, m[:, None])
-
-
-@functools.lru_cache(maxsize=None)
-def _codebook(values: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def run_cuda(spec: KVQuantSpec, cfg, q, pool, view_slots, positions, *,
@@ -79,7 +77,7 @@ def run_cuda(spec: KVQuantSpec, cfg, q, pool, view_slots, positions, *,
         pool["v_scale"], block_tables,
         positions.to(torch.int32).contiguous(), bits=spec.bits,
         codebook=(None if spec.codebook is None
-                  else _codebook(spec.codebook, q.device)),
+                  else codebook_tensor(spec.codebook, q.device)),
         block_size=bs, window=window,
         softcap=float(cfg.attn_logit_softcap or 0.0))
     return out.reshape(B, C, H * dh)

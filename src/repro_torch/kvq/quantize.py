@@ -10,10 +10,25 @@ reference's.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import packing
 from repro_torch.kvq.spec import KVQuantSpec
+
+
+@functools.lru_cache(maxsize=None)
+def codebook_tensor(values: tuple, device: torch.device) -> torch.Tensor:
+    """A spec's codebook as an f32 tensor on ``device``, made once: a
+    host-to-device copy per call would be illegal inside a CUDA graph
+    capture (so is the uniform grid's, :func:`_int4_grid`)."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_grid(device: torch.device) -> torch.Tensor:
+    return packing.b_values(torch.float32, device)
 
 
 def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -52,8 +67,7 @@ def kv_quantize(x: torch.Tensor, spec: KVQuantSpec
         mask = 0xFF if spec.bits == 8 else 0xF  # two's complement in u8
         codes = (q & mask).to(torch.uint8)
     else:
-        cb = torch.tensor(spec.codebook, dtype=torch.float32,
-                          device=x.device)
+        cb = codebook_tensor(spec.codebook, x.device)
         codes = torch.argmin((z[..., None] - cb).abs(), dim=-1) \
             .to(torch.uint8)
     return pack_codes(codes, spec.bits), scale
@@ -64,11 +78,10 @@ def decode_values(codes: torch.Tensor, spec: KVQuantSpec) -> torch.Tensor:
     table lookup, before the scale multiply)."""
     c = codes.to(torch.int64)
     if spec.codebook is not None:
-        return torch.tensor(spec.codebook, dtype=torch.float32,
-                            device=codes.device)[c]
+        return codebook_tensor(spec.codebook, codes.device)[c]
     if spec.bits == 8:
         return torch.where(c < 128, c, c - 256).to(torch.float32)
-    return packing.b_values(torch.float32, codes.device)[c]
+    return _int4_grid(codes.device)[c]
 
 
 def kv_dequantize(packed: torch.Tensor, scales: torch.Tensor,

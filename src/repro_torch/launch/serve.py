@@ -21,12 +21,20 @@ and on the CPU at smoke width:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \\
         --smoke --device cpu --engine continuous --check
 
+The continuous engine runs each step shape as a captured CUDA graph on the
+card; ``--no-cuda-graph`` runs the same step eagerly, for comparison.
+Observability as in the reference: ``--metrics-json PATH`` writes the
+registry snapshot on exit, ``--trace-out PATH`` turns tracing on before
+the model is built (the graphs record the device marks staged at their
+capture) and writes Chrome-trace JSON on exit, ``--prom-port N`` serves
+``/metrics`` for the run.  Both files validate with
+``repro_torch.obs.validate_snapshot_file`` / ``validate_trace_file``.
+
 Flags of slices not ported yet are not defined, so argparse refuses them:
 ``--mesh``, ``--mesh-rules``, ``--shard-collective``, ``--shard-pipeline``,
 ``--shard-impl`` and ``--force-host-devices`` (ROADMAP A13, multi-GPU);
-``--autotune``, ``--autotune-cache``, ``--metrics-json``, ``--trace-out``,
-``--prom-port`` and ``--check-regressions`` (A8, autotune and
-observability); ``--faults``, ``--fault-seed``, ``--watchdog``,
+``--autotune``, ``--autotune-cache`` and ``--check-regressions`` (A3/A8,
+the plan layer and the perf model); ``--faults``, ``--fault-seed``, ``--watchdog``,
 ``--deadline-s``, ``--ttft-deadline-s`` and ``--max-queue`` (A10,
 resilience); ``--calibration`` (A9).  ``--kv-codebook learned`` is refused:
 fitting the codebook needs ``kvq/fit.py`` (A6, with calibration, A9).
@@ -44,30 +52,20 @@ process.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import torch
 
-from repro_torch import configs, dispatch
+from repro_torch import configs, dispatch, obs
 from repro_torch.core.spec import DENSE, QuantSpec
 from repro_torch.device import generator, resolve
-from repro_torch.kernels import flash_attention, int4_matmul, msgemm
-from repro_torch.kernels import paged_attention
+from repro_torch.kernels.ops import KERNELS, launch_counts
 from repro_torch.kvq import KVQuantSpec
 from repro_torch.kvq import attention as kv_attention
 from repro_torch.models import transformer as T
 from repro_torch.quant import quantized_size_bytes
 from repro_torch.runtime import serve as SV
-
-# every kernel's module, whose ``launches`` counts its launches
-KERNELS = {"msgemm": msgemm, "int4_matmul": int4_matmul,
-           "paged_attention": paged_attention,
-           "flash_attention": flash_attention}
-
-
-def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in KERNELS.items()}
-
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -204,13 +202,16 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
                     max_model_len=args.prompt_len + args.new_tokens,
                     prefill_chunk=args.prefill_chunk, kv_quant=kv_spec,
                     kv_pool_bytes=(int(args.kv_pool_mib * 2**20)
-                                   if args.kv_pool_mib else None))
+                                   if args.kv_pool_mib else None),
+                    cuda_graph=False if args.no_cuda_graph else None)
     reqs = make_request_stream(args, cfg)
     print(f"[serve] continuous engine: {len(reqs)} requests, prompt lens "
           f"{sorted(len(r.prompt) for r in reqs)}, rate="
           f"{args.arrival_rate or 'inf'} req/s, block_size="
           f"{args.block_size}, slots={args.max_slots}, prefill chunk "
-          f"{args.prefill_chunk}", flush=True)
+          f"{args.prefill_chunk}, step "
+          f"{'CUDA graphs' if engine.runner.cuda_graph else 'eager'}",
+          flush=True)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     before = launch_counts()
@@ -239,7 +240,8 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
           + ("" if peak is None else f", peak {peak / 2**30:.2f} GiB")
           + f"; launches {launches}", flush=True)
     out = dict(results=results, metrics=s, steps=engine.num_steps,
-               run_s=dt, launches=launches, kv_spec=kv_spec)
+               run_s=dt, launches=launches, kv_spec=kv_spec,
+               cuda_graph=engine.runner.cuda_graph)
     if args.check:
         out["checked"] = check_static(results, params, cfg, device)
     return out
@@ -289,6 +291,19 @@ def parse_args(argv=None):
                          "docstring)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no fallback")
+    ap.add_argument("--no-cuda-graph", action="store_true",
+                    help="run the continuous engine's step eagerly instead "
+                         "of replaying its captured CUDA graphs")
+    # observability (repro_torch.obs): all off by default
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write a versioned registry snapshot "
+                         "(obs.metrics) on exit")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable tracing and write Chrome-trace JSON "
+                         "(load at https://ui.perfetto.dev) on exit")
+    ap.add_argument("--prom-port", type=int, default=0,
+                    help="expose /metrics in Prometheus text format on "
+                         "this port for the lifetime of the run")
     args = ap.parse_args(argv)
     if args.kv_codebook == "learned":
         ap.error("--kv-codebook learned fits a codebook with kvq/fit.py, "
@@ -302,15 +317,44 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve(args.device)
     kv_backend = backends_from_args(args)
-    params, cfg, build = build_model(args, device)
-    if args.engine == "continuous":
-        run = run_continuous(args, params, cfg, device, kv_backend)
-    else:
-        if args.kv_bits != 16 or args.kv_pool_mib:
-            print("[serve] --kv-bits/--kv-pool-mib apply to the paged pool "
-                  "only; ignored by --engine static")
-        run = run_static(args, params, cfg, device)
-    return dict(params=params, cfg=cfg, build=build, **run)
+    # tracing must be on before the engine captures its step: device marks
+    # are staged at capture, so a later enable records host spans only
+    if args.trace_out:
+        obs.enable_tracing(clear=True)
+    prom = None
+    if args.prom_port:
+        prom = obs.serve_prometheus(args.prom_port)
+        print(f"[serve] prometheus /metrics on port "
+              f"{prom.server_address[1]}")
+    try:
+        params, cfg, build = build_model(args, device)
+        if args.engine == "continuous":
+            run = run_continuous(args, params, cfg, device, kv_backend)
+        else:
+            if args.kv_bits != 16 or args.kv_pool_mib:
+                print("[serve] --kv-bits/--kv-pool-mib apply to the paged "
+                      "pool only; ignored by --engine static")
+            run = run_static(args, params, cfg, device)
+        return dict(params=params, cfg=cfg, build=build, **run)
+    finally:
+        if args.trace_out:
+            _sync(device)
+            obs.tracer().save(args.trace_out)
+            obs.disable_tracing()
+            print(f"[serve] wrote trace {args.trace_out} "
+                  f"({len(obs.tracer().events())} events)")
+        if args.metrics_json:
+            snap = obs.registry().snapshot(extra={
+                "arch": args.arch, "quant": args.quant,
+                "engine": args.engine, "backend": args.backend,
+                "kv_bits": args.kv_bits, "kv_codebook": args.kv_codebook,
+                "no_cuda_graph": args.no_cuda_graph,
+                "device": str(device)})
+            with open(args.metrics_json, "w") as f:
+                json.dump(snap, f, indent=1)
+            print(f"[serve] wrote metrics snapshot {args.metrics_json}")
+        if prom is not None:
+            prom.shutdown()
 
 
 if __name__ == "__main__":

@@ -9,8 +9,11 @@ Two cache layouts share the model code:
   ``repro_torch.serving.Engine``.
 
 ``paged_step`` is phase-agnostic: a prefill chunk is a (1, C) call and a
-decode batch a (B, 1) call of the same function.  Generation here is
-greedy; sampled decoding lives in the engine's host-side sampler.
+decode batch a (B, 1) call of the same function.  ``generate`` is greedy;
+:func:`sample` draws from an explicit ``torch.Generator`` (the reference
+draws with a ``jax.random`` key, so the two give different numbers from
+one seed).  The serving engine samples on the host with the reference's
+numpy draws instead, so its sampled tokens match the reference's.
 """
 
 from __future__ import annotations
@@ -55,6 +58,26 @@ def paged_step(params, cfg: ModelConfig, tokens, pool, positions,
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def sample(logits: torch.Tensor, generator: torch.Generator | None = None,
+           temperature: float = 1.0) -> torch.Tensor:
+    """Greedy at temperature 0, else one draw per row of ``logits`` (..., V)
+    from softmax(logits / temperature), int32 of shape (...)."""
+    if temperature == 0.0:
+        return greedy(logits)
+    probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+    draw = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                             generator=generator)
+    return draw.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+def decode_positions(cfg: ModelConfig, batch: int, seq_len: int, *,
+                     device=None) -> torch.Tensor:
+    """Positions (batch,) int32 of a decode_step at context length
+    ``seq_len``."""
+    return torch.full((batch,), seq_len - 1, dtype=torch.int32,
+                      device=device)
 
 
 @torch.no_grad()

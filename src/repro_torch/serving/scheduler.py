@@ -1,7 +1,11 @@
-"""Continuous-batching scheduler (a copy of repro.serving.scheduler
-without the metrics and trace hooks): FCFS admission into a fixed set of
-decode slots, token-budgeted prefill chunking, and preemption/eviction
-when the KV block pool is exhausted.
+"""Continuous-batching scheduler; port of repro.serving.scheduler: FCFS
+admission into a fixed set of decode slots, token-budgeted prefill
+chunking, and preemption/eviction when the KV block pool is exhausted.
+It reports through ``repro_torch.obs`` under the reference's names
+(``serving_queue_wait_s``, ``serving_admissions_total``,
+``serving_preemptions_total``, ``serving_evicted_blocks_total``,
+``scheduler_preempt_thrash_total``; instants ``scheduler.admit`` and
+``scheduler.preempt``).
 
 Policy (vLLM-style, simplified):
 
@@ -33,6 +37,7 @@ import heapq
 import time
 from collections import deque
 
+from repro_torch import obs
 from repro_torch.serving.kv_blocks import BlockPool
 from repro_torch.serving.request import Phase, Sequence
 
@@ -61,7 +66,6 @@ class Scheduler:
         self.num_preemptions = 0
         self.num_evicted_blocks = 0
         self.num_thrash = 0
-        self.queue_waits: list[float] = []  # per admission, seconds
 
     # ------------------------------------------------------------- state
     def has_work(self) -> bool:
@@ -84,7 +88,15 @@ class Scheduler:
             if got is None:
                 return  # FCFS: the head waits for blocks, nobody skips it
             self.waiting.popleft()
-            self.queue_waits.append(max(0.0, self.clock() - seq.t_enqueue))
+            reg = obs.registry()
+            reg.histogram("serving_queue_wait_s",
+                          help="waiting-queue residency per admission"
+                          ).observe(max(0.0, self.clock() - seq.t_enqueue))
+            p95 = reg.histogram("serving_queue_wait_s").percentile(95)
+            if p95 is not None:
+                reg.gauge("serving_queue_wait_p95_s",
+                          help="p95 queue wait (admission-time estimate)"
+                          ).set(p95)
             seq.blocks = got
             seq.slot = heapq.heappop(self._free_slots)
             seq.phase = Phase.PREFILL
@@ -93,6 +105,11 @@ class Scheduler:
             self._seqno += 1
             self.num_admitted += 1
             self.running.append(seq)
+            reg.counter("serving_admissions_total",
+                        help="sequences admitted to a decode slot").inc()
+            obs.tracer().instant("scheduler.admit", cat="serving",
+                                 rid=seq.req.rid, slot=seq.slot,
+                                 blocks=len(seq.blocks))
 
     # -------------------------------------------------------- scheduling
     def schedule(self):
@@ -133,6 +150,16 @@ class Scheduler:
         self.num_preemptions += 1
         victim.preemptions += 1
         self.num_evicted_blocks += len(victim.blocks)
+        reg = obs.registry()
+        reg.counter("serving_preemptions_total",
+                    help="sequences evicted on pool exhaustion").inc()
+        reg.counter("serving_evicted_blocks_total",
+                    help="KV blocks freed by preemption").inc(
+                        len(victim.blocks))
+        obs.tracer().instant("scheduler.preempt", cat="serving",
+                             rid=victim.req.rid,
+                             blocks=len(victim.blocks),
+                             generated=len(victim.generated))
         victim.t_last_token = None  # next gap is requeue, not decode cadence
         self.pool.free(victim.blocks)
         victim.blocks = []
@@ -149,6 +176,10 @@ class Scheduler:
                           MAX_BACKOFF_TICKS)
             victim.readmit_after_tick = self.tick + backoff
             self.num_thrash += 1
+            reg.counter(
+                "scheduler_preempt_thrash_total",
+                help="preemptions that tripped the re-admission backoff"
+            ).inc()
         # victims are picked newest-first, so appendleft keeps the waiting
         # queue sorted by original admission order
         victim.t_enqueue = self.clock()

@@ -459,3 +459,110 @@ def test_paged_smem_formula_matches_kernel():
                 for rb in (1, 2, 4, 8):
                     assert fn(dhp, bits, chunk, rb) == \
                         pa.smem_bytes(dhp, bits, chunk, rb)
+
+
+# ----------------------------------------- the engine's step as a CUDA graph
+def _small_engine_model(mode):
+    """The gemma-2b smoke config (2 layers, d_model 64) from seed 0 on the
+    card, with msgemm or int4 weights; kv8 is msgemm weights on a kv8
+    pool, kv4-torch on a kv4 pool read through the torch route (a
+    gather and dequantize through the uniform grid's table, which the
+    capture must find on the card).  Returns (params, cfg, engine
+    kwargs)."""
+    from repro_torch import configs
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.device import generator
+    from repro_torch.kvq import KVQuantSpec
+    from repro_torch.models import transformer
+
+    spec = (QuantSpec(mode="int4_dequant", d=3, scale_block=36,
+                      storage="packed_u8") if mode == "int4"
+            else QuantSpec(mode="msgemm", d=3, scale_block=36))
+    cfg = configs.get_smoke("gemma_2b")
+    params = transformer.init_params(cfg, generator=generator(0, "cuda"),
+                                     device="cuda", quant=spec)
+    kw = {"kv8": dict(kv_quant=KVQuantSpec(8)),
+          "kv4-torch": dict(kv_quant=KVQuantSpec(
+              4, backend="paged_attn_torch"))}.get(mode, {})
+    return params, cfg.replace(quant=spec), kw
+
+
+def _serve_small(params, cfg, cuda_graph, **kw):
+    """Six requests through the engine; the launch counts are set to 0
+    after the engine (and its graphs) were built."""
+    from repro_torch.kernels.ops import KERNELS, launch_counts
+    from repro_torch.serving import Engine, poisson_stream
+
+    reqs = poisson_stream(6, cfg.vocab_size, max_new_tokens=8, rate=0.0,
+                          min_prompt=3, max_prompt=16, seed=0)
+    eng = Engine(params, cfg, max_slots=4, block_size=8, prefill_chunk=8,
+                 max_model_len=24, cuda_graph=cuda_graph, **kw)
+    for mod in KERNELS.values():
+        mod.launches = 0
+    res = eng.run(reqs, wait_for_arrivals=False)
+    torch.cuda.synchronize()
+    return ({rid: s.generated for rid, s in res.items()}, launch_counts(),
+            eng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["msgemm", "kv8", "kv4-torch", "int4"])
+def test_engine_graph_route_matches_eager_route(mode):
+    """Graph replays give the eager route's tokens, and the launch counts
+    added per replay equal the eager route's launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    params, cfg, kw = _small_engine_model(mode)
+    g_toks, g_launches, g_eng = _serve_small(params, cfg, None, **kw)
+    e_toks, e_launches, e_eng = _serve_small(params, cfg, False, **kw)
+    assert g_eng.runner.cuda_graph and not e_eng.runner.cuda_graph
+    assert g_toks == e_toks
+    assert g_eng.num_steps == e_eng.num_steps
+    assert g_launches == e_launches
+    gemms = 7 * cfg.num_layers
+    weight = "int4_matmul" if mode == "int4" else "msgemm"
+    assert g_launches[weight] == gemms * g_eng.num_steps
+    assert g_launches["paged_attention"] == (
+        cfg.num_layers * g_eng.num_steps if mode == "kv8" else 0)
+
+
+@pytest.mark.cuda
+def test_traced_capture_times_gemms_inside_a_replay():
+    """Tracing on at capture: every replay records the gemm marks, which
+    resolve into device-lane events whose durations sum to no more than
+    the replay's wall time, and into kernel_gemm_s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import time
+
+    from repro_torch import obs
+    from repro_torch.obs import trace as TR
+    from repro_torch.serving import Engine
+    from repro_torch.serving.engine import STEP_INPUTS
+
+    params, cfg, _ = _small_engine_model("msgemm")
+    obs.enable_tracing(clear=True)
+    try:
+        eng = Engine(params, cfg, max_slots=4, block_size=8, prefill_chunk=8,
+                     max_model_len=24)
+        shape = eng.runner.shapes["decode"]
+        assert len(shape.marks) == 7 * cfg.num_layers
+        idle = [shape.host[k].numpy().copy() for k in STEP_INPUTS]
+        obs.registry().reset(prefix="kernel_")
+        for _ in range(3):
+            obs.tracer().clear()
+            t0 = time.perf_counter()
+            eng.runner("decode", *idle)
+            wall_us = (time.perf_counter() - t0) * 1e6
+            gemms = [e for e in obs.tracer().events()
+                     if e["name"].startswith("gemm.")]
+            assert len(gemms) == 7 * cfg.num_layers
+            assert all(e["tid"] == TR.TID_DEVICE and e["dur"] > 0
+                       for e in gemms)
+            assert sum(e["dur"] for e in gemms) <= wall_us
+        hists = [s for s in obs.registry().series("histogram")
+                 if s.name == "kernel_gemm_s"]
+        assert sum(h.count for h in hists) == 3 * 7 * cfg.num_layers
+    finally:
+        obs.disable_tracing()
+        obs.tracer().clear()

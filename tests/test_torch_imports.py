@@ -30,6 +30,7 @@ MUST_IMPORT = {
     "repro_torch.configs.gemma_2b", "repro_torch.configs.gemma2_9b",
     "repro_torch.launch", "repro_torch.launch.serve",
     "repro_torch.serving.engine", "repro_torch.kvq.attention",
+    "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
 }
 
 

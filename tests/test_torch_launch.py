@@ -119,7 +119,9 @@ def test_serve_cli_static_engine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "model=2"], ["--autotune"], ["--metrics-json", "m.json"],
+    # "metrics": --metrics-json/--trace-out/--prom-port are ported; the
+    # perf-model sentinel that reads the kernel metrics is not (A8)
+    ["--mesh", "model=2"], ["--autotune"], ["--check-regressions"],
     ["--faults", "all"], ["--watchdog"], ["--calibration", "c.json"],
     ["--kv-bits", "4", "--kv-codebook", "learned"],
 ], ids=["mesh", "autotune", "metrics", "faults", "watchdog", "calibration",

@@ -19,7 +19,7 @@ from repro.models.config import ModelConfig as JConfig  # noqa: E402
 from repro.quant import quantize_model as j_quantize  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, obs  # noqa: E402
 from repro_torch.runtime import serve as TSV  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     BlockPool, Engine, Phase, Request, Scheduler, Sequence,
@@ -131,6 +131,7 @@ def _seq(rid, plen, new=4):
 
 
 def test_scheduler_admits_fcfs_within_blocks():
+    obs.registry().reset(prefix="serving_")
     pool = BlockPool(num_blocks=5, block_size=4)
     sched = Scheduler(pool, max_slots=4, prefill_chunk=8)
     big, small, third, fourth = _seq(0, 12), _seq(1, 4), _seq(2, 8), \
@@ -147,7 +148,8 @@ def test_scheduler_admits_fcfs_within_blocks():
     sched.finish(big)
     sched._admit()
     assert third.admit_seqno < fourth.admit_seqno
-    assert len(sched.queue_waits) == 4
+    # one queue-wait observation per admission, in the registry
+    assert obs.registry().value("histogram", "serving_queue_wait_s") == 4
 
 
 def test_scheduler_preempts_latest_and_self():
