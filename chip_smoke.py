@@ -78,6 +78,34 @@ Phases, any failure exits non-zero before the last line is printed:
    stream: every request finishes and matches static ``generate``, int4
    launches are exactly 126 per step and msGeMM launches 0; then on the
    eager route, with the same tokens.
+   Then the plan phase (``repro_torch.dispatch``, ``obs.perfmodel``), on
+   the msgemm model and again on the int4 one, its plan cache and
+   calibration in ``chiprun_out/``: an engine built with
+   ``autotune=True`` times every candidate tile choice of the kernel at
+   every GeMM key of both step shapes (decode b = 4, prefill chunk b = 8:
+   8 keys a model), one line per key (the heuristic's tiles and device
+   ms, the winner's, the candidates, whether the winner is the
+   heuristic); every candidate of every key tuned is bit-exact against
+   the plain version at the same tiles on exact inputs; the stream is
+   served through the tuned plans on the graph and then the eager route
+   (tokens == static generate under the same policy and cache, 126
+   launches a step), with step ms and tokens/s beside phase 4's untuned
+   run; a second engine from the reloaded cache, traced, times no
+   candidate.  Then the slice's entry points, in process, at full-width
+   gemma-2b msgemm with a fresh plan cache: ``python -m
+   repro_torch.launch.serve --autotune --autotune-cache P --metrics-json
+   M --check --check-regressions`` tunes the keys of both step shapes and
+   of the static check, serves them (tokens == static generate) and skips
+   the sentinel (no calibration yet); ``python -m repro_torch.obs
+   --calibrate`` fits the perf model from both plan caches' timing rows
+   and M's ``kernel_gemm_s`` series (the fitted constants and the fit's
+   relative errors are printed); the calibration and M validate; the
+   serve CLI again with ``--calibration`` times no candidate, gives the
+   same tokens and passes the sentinel at 3x over its own series; ``python
+   -m repro_torch.obs --check-regressions`` exits 0 on the training
+   sources and 1 with the slowest timing row x100.  Every timing (the
+   tuner's, phase 2's, the sweeps') is ``kernels.ops.time_call``: calls
+   back to back over copies of the weights past the L2, behind a sleep.
 5. gemma2-9b — full-width gemma2-9b (42 layers, d_model 3584, vocab
    256000) from seed 0 through the port's serve CLI
    (``repro_torch.launch.serve.main``, in process): msgemm weights with
@@ -103,20 +131,16 @@ import argparse
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2**-7, atol=1e-5)  # one bf16 ulp
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)   # tests/test_kvq.py's, two routes
-L2_BYTES = 50 * 2**20
-L2_FLUSH_BYTES = 120 * 2**20  # cycle index copies past the L2
-MAX_COPIES = 256
 
 
 def check(cond: bool, msg: str) -> None:
@@ -124,25 +148,25 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+def card():
+    """The H100 SXM row of ``repro_torch.obs.costs`` (HBM bytes/s, f32
+    ops/s outside the tensor cores, bf16 tensor-core FLOP/s): the one
+    source of the kernels' bounds and of the perf model's roofline."""
+    from repro_torch.obs import costs
+
+    return costs.DEVICES["cuda"]
+
+
 # ----------------------------------------------------------------- timing
 def device_ms(fns, reps: int) -> float:
-    """Device time per call, cycling over ``fns``.  A long ``_sleep`` is
-    queued first so the host enqueues every call while the card is busy:
-    the events then bracket back-to-back kernels, not host gaps."""
+    """Device ms per call, cycling over ``fns``: ``kernels.ops.time_call``,
+    the autotuner's timer (calls back to back behind a sleep, so the
+    events bracket the kernels, not host gaps)."""
     import torch
 
-    for f in fns[:2]:
-        f()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(reps * 200e-6 * 2e9))
-    start.record()
-    for i in range(reps):
-        fns[i % len(fns)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from repro_torch.kernels import ops
+
+    return ops.time_call(fns, torch.device("cuda"), reps) * 1e3
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -179,7 +203,9 @@ def work(m, k, b, d, sb, has_bias, has_res, out_bytes, x_bytes=4):
 def with_bound(result, nbytes, nops):
     """Add the least time the card could take: bytes over the HBM rate or
     operations over the f32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    dev = card()
+    t_bytes = nbytes / dev.mem_bw * 1e3
+    t_ops = nops / dev.vector_flops * 1e3
     result.update(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
                   bound_by="bytes" if t_bytes >= t_ops else "operations")
     return result
@@ -198,6 +224,8 @@ def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
     buffers, as the dispatch backends pass the model's activations.
     ``x_dtype``: the type of x and the residual (float32 when None)."""
     import torch
+
+    from repro_torch.kernels import ops
 
     name = result["name"]
     tol = FLOAT_TOL if out_dtype == torch.float32 else BF16_TOL
@@ -235,17 +263,17 @@ def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
         result["exact_max_abs_err" if exact else "max_abs_err"] = err
     # timing, on the random-float inputs
     wbytes = weight.numel() * weight.element_size()
-    copies = max(1, min(MAX_COPIES, math.ceil(L2_FLUSH_BYTES / wbytes)))
+    copies = ops.copies_past_l2(wbytes)
     weights = [weight] + [weight.clone() for _ in range(copies - 1)]
     result["weight_cycled_bytes"] = copies * wbytes
-    result["weight_l2_resident"] = copies * wbytes <= L2_BYTES
+    result["weight_l2_resident"] = copies * wbytes <= ops.L2_BYTES
     calls = [lambda w=w: kernel(w, x, sc, **kw) for w in weights]
     result["ms"] = device_ms(calls, reps=max(20, 2 * copies))
     result["host_ms"] = wall_ms(calls[0], reps=20)
     del weights, calls
     result["plain_ms"] = wall_ms(lambda: plain(weight, x, sc, **kw), reps=2)
     w = dense(weight, sc)
-    wcopies = max(1, min(8, math.ceil(L2_FLUSH_BYTES / (w.numel() * 4))))
+    wcopies = ops.copies_past_l2(w.numel() * 4, cap=8)
     ws = [w] + [w.clone() for _ in range(wcopies - 1)]
     xf = x.float()  # the yardstick multiplies in f32, as PR 13's did
     result["library_ms"] = device_ms(
@@ -395,10 +423,12 @@ def phase_kernels():
 
 
 def phase_sweep():
-    """Time every msGeMM variant (rows per block) at the engine's shapes,
-    with bf16 x as the engine passes it; each variant's output is checked
-    bit for bit against the plain version on exact inputs first.  Returns
-    the rows of chiprun_out/sweep.json."""
+    """Time every msGeMM variant the autotuner weighs
+    (``ops.msgemm_variants``: rows per block, the best splits of each) at
+    the engine's shapes, with bf16 x as the engine passes it; each
+    variant's output is checked bit for bit against the plain version at
+    the same tiles on exact inputs first.  Returns the rows of
+    chiprun_out/sweep.json."""
     import torch
 
     from repro_torch.core import packing
@@ -425,19 +455,14 @@ def phase_sweep():
         sc = 2.0 ** torch.randint(-2, 3, (m, nsb), generator=g,
                                   device="cuda").float()
         kw = dict(d=d, scale_block=sb, out_dtype=bf16)
-        want = ms.msgemm_plain(idx, x, sc, values,
-                               tiles=ops.msgemm_tiles(m, kc, b, d, sb), **kw)
         wbytes = idx.numel() * 4
-        copies = max(1, min(MAX_COPIES, math.ceil(L2_FLUSH_BYTES / wbytes)))
+        copies = ops.copies_past_l2(wbytes)
         idxs = [idx] + [idx.clone() for _ in range(copies - 1)]
-        tb = 1 if b == 1 else 4
         picked = ops.msgemm_tiles(m, kc, b, d, sb)
         line = []
-        for rows in (512, 1024, 2048):
-            t = ops.split_tiles(m, kc, b, d, sb, tb=tb, rows=rows)
-            if ms.smem_bytes(d, tb, rows, t.stage) > ms.SMEM_LIMIT:
-                continue
+        for t in ops.msgemm_variants(m, kc, b, d, sb):
             got = ms.msgemm_cuda(idx, x, sc, values, tiles=t, **kw)
+            want = ms.msgemm_plain(idx, x, sc, values, tiles=t, **kw)
             torch.cuda.synchronize()
             check(torch.equal(got, want),
                   f"sweep {name} b={b} {t}: kernel != plain")
@@ -447,8 +472,10 @@ def phase_sweep():
             rows_of.append(dict(name=name, m=m, k=k, b=b,
                                 tiles=t._asdict(), ms=t_ms,
                                 picked=t == picked))
-            line.append(f"{rows}:{t_ms:.4f}" + ("*" if t == picked else ""))
-        print(f"[sweep] {name:8s} b={b} " + " ".join(line), flush=True)
+            line.append(f"{t.rows}/{t.tj}:{t_ms:.4f}"
+                        + ("*" if t == picked else ""))
+        print(f"[sweep] {name:8s} b={b} (rows/tj:ms) " + " ".join(line),
+              flush=True)
         del idxs, idx
     return rows_of
 
@@ -470,6 +497,7 @@ def phase_sweep_attention():
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
 
     rows_of = []
@@ -510,8 +538,7 @@ def phase_sweep_attention():
         tol = ATTN_TOL if a["q"].dtype == torch.float32 else BF16_TOL
         args = (a["q"], *a["leaves"], a["tables"], a["positions"])
         pool_bytes = sum(t.numel() * t.element_size() for t in a["leaves"])
-        copies = max(1, min(MAX_COPIES,
-                            math.ceil(L2_FLUSH_BYTES / pool_bytes)))
+        copies = ops.copies_past_l2(pool_bytes)
         pools = [a["leaves"]] + [tuple(t.clone() for t in a["leaves"])
                                  for _ in range(copies - 1)]
         line = []
@@ -669,12 +696,10 @@ def phase_int4_kernels():
     return cases
 
 
-INT4_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 32, 64)
-
-
 def phase_sweep_int4():
-    """Time the int4 kernel at each contraction split count at the
-    engine's shapes, with bf16 x and residual as the engine passes them;
+    """Time the int4 kernel at each contraction split count the autotuner
+    weighs (``ops.int4_variants``) at the engine's shapes, with bf16 x
+    and residual as the engine passes them;
     each split count's output is checked bit for bit against the plain
     version on exact inputs first.  Returns the rows of
     chiprun_out/sweep.json."""
@@ -703,16 +728,11 @@ def phase_sweep_int4():
                                   device="cuda").float()
         kw = dict(scale_block=sb, act=ep.get("act", "none"), residual=res,
                   out_dtype=bf16)
-        copies = max(1, min(MAX_COPIES, math.ceil(L2_FLUSH_BYTES / u8.numel())))
+        copies = ops.copies_past_l2(u8.numel())
         u8s = [u8] + [u8.clone() for _ in range(copies - 1)]
         picked = ops.int4_tiles(m, k, b)
-        counts = sorted({i4.split_steps(k, n)[1]
-                         for n in INT4_SPLITS + (picked.nsplit,)})
         line = []
-        for n in counts:
-            per = i4.split_steps(k, n)[0]
-            t = picked._replace(nsplit=n, tk=min(per * i4.STEP,
-                                                  8192 // picked.tb))
+        for t in ops.int4_variants(m, k, b):
             got = i4.int4_matmul_cuda(u8, sc, x, tiles=t, **kw)
             want = i4.int4_matmul_plain(u8, sc, x, tiles=t, **kw)
             torch.cuda.synchronize()
@@ -730,7 +750,8 @@ def phase_sweep_int4():
                                 b=b, tiles=t._asdict(), ms=t_ms,
                                 old_ms=OLD_INT4_MS.get((name, b)),
                                 picked=t == picked))
-            line.append(f"{n}:{t_ms:.4f}" + ("*" if t == picked else ""))
+            line.append(f"{t.nsplit}:{t_ms:.4f}"
+                        + ("*" if t == picked else ""))
         print(f"[sweep] int4 {name:8s} b={b} (nsplit:ms; before "
               f"{OLD_INT4_MS.get((name, b))}) " + " ".join(line), flush=True)
         del u8s, u8
@@ -802,6 +823,7 @@ def attn_case(name, B, C, H, hk, dh, bs, W, *, bits, codebook=False,
     import torch
 
     from repro_torch import kvq
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kvq import attention as kv_attn
     from repro_torch.models import layers
@@ -841,7 +863,7 @@ def attn_case(name, B, C, H, hk, dh, bs, W, *, bits, codebook=False,
     # timing: whole pools cycled past the L2, as a layer's pool would be
     # cold after the other 17 layers ran
     pool_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    copies = max(1, min(MAX_COPIES, math.ceil(L2_FLUSH_BYTES / pool_bytes)))
+    copies = ops.copies_past_l2(pool_bytes)
     pools = [leaves] + [tuple(t.clone() for t in leaves)
                         for _ in range(copies - 1)]
     result["pool_cycled_bytes"] = copies * pool_bytes
@@ -981,7 +1003,8 @@ def serve(tag, model, cfg, **engine_kw):
           flush=True)
     return dict(reqs=reqs, run_s=run_s, steps=steps, launches=launches,
                 metrics=s, route=route, step_ms=run_s * 1e3 / steps,
-                tokens={rid: seq.generated for rid, seq in results.items()})
+                tokens={rid: seq.generated for rid, seq in results.items()},
+                exec_plans=engine.exec_plans)
 
 
 def check_eager(tag, model, cfg, graph_run, per_step, **engine_kw):
@@ -1008,17 +1031,20 @@ def check_eager(tag, model, cfg, graph_run, per_step, **engine_kw):
     return run
 
 
-def check_static(tag, model, cfg, run):
-    """Engine tokens == the static ``generate`` path for every request."""
+def check_static(tag, model, cfg, run, policy=None):
+    """Engine tokens == the static ``generate`` path for every request,
+    run under ``policy`` (the engine's, with tuned plans)."""
     import torch
 
+    from repro_torch import dispatch
     from repro_torch.runtime import serve as SV
 
     for rid, toks in sorted(run["tokens"].items()):
         prompt = torch.tensor([run["reqs"][rid].prompt], dtype=torch.int32,
                               device="cuda")
-        ref = [int(t) for t in SV.generate(model, cfg, prompt,
-                                           max_new_tokens=NEW_TOKENS)[0]]
+        with dispatch.using_policy(policy):
+            ref = [int(t) for t in SV.generate(
+                model, cfg, prompt, max_new_tokens=NEW_TOKENS)[0]]
         check(ref == toks, f"[{tag}] request {rid}: engine tokens {toks} "
                            f"!= static {ref}")
 
@@ -1225,8 +1251,267 @@ def phase_profile(tag, model, cfg, **engine_kw):
     return out
 
 
+# ------------------------------------------------------------ plan phase
+PLAN_CACHE = ROOT / "chiprun_out" / "plan_cache.json"
+PLAN_CLI = ROOT / "chiprun_out" / "plan_cli.json"
+PLAN_METRICS = ROOT / "chiprun_out" / "plan_metrics.json"
+CALIBRATION = ROOT / "chiprun_out" / "calibration.json"
+
+
+def plan_key_line(key, plan, rows):
+    """One tuned key: the heuristic's tiles and device ms, the winner's,
+    the number of candidates, and whether the winner is the heuristic."""
+    from repro_torch import dispatch
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.dispatch import autotune as at
+    from repro_torch.obs import perfmodel as pm
+
+    info = pm.parse_plan_key(key)
+    spec = QuantSpec(mode=info["mode"], d=info["d"],
+                     scale_block=info["scale_block"], storage=info["storage"])
+    base = dispatch.heuristic_plan(spec, info["d"], info["m"], info["k"],
+                                   info["b"], info["backend"]).tiles
+    by = {at.tiles_from(r): r["s"] * 1e3 for r in rows}
+    won = next(at.tiles_from(r) for r in rows if r["winner"])
+    check(won == plan.tiles, f"[plan] {key}: winner row {won} != cached "
+                             f"plan {plan.tiles}")
+    line = dict(key=key, backend=info["backend"], m=info["m"],
+                k=info["k"], b=info["b"], heuristic=base._asdict(),
+                heuristic_ms=by[base], winner=won._asdict(),
+                winner_ms=by[won], candidates=len(rows),
+                winner_is_heuristic=won == base,
+                gain=1.0 - by[won] / by[base])
+    print(f"[plan] {info['backend']:11s} m={info['m']:5d} k={info['k']:5d} "
+          f"b={info['b']:2d}: heuristic {tuple(base)} {by[base]:.4f} ms, "
+          f"winner {tuple(won)} {by[won]:.4f} ms ({line['gain']:+.1%}), "
+          f"{len(rows)} candidates, winner "
+          f"{'is' if won == base else 'is not'} the heuristic", flush=True)
+    return line
+
+
+def check_candidates(key):
+    """Every candidate of a tuned key against the plain version at the
+    same tiles on exact inputs (integer bf16 x in the engine's transposed
+    layout, power-of-two scales): bit for bit."""
+    import torch
+
+    from repro_torch import dispatch
+    from repro_torch.core import packing
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.dispatch import autotune as at
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import msgemm as ms
+    from repro_torch.obs import perfmodel as pm
+
+    info = pm.parse_plan_key(key)
+    m, k, b, d, sb = (info[f] for f in ("m", "k", "b", "d", "scale_block"))
+    spec = QuantSpec(mode=info["mode"], d=d, scale_block=sb,
+                     storage=info["storage"])
+    g = torch.Generator(device="cuda").manual_seed(m + k + b)
+    codes = torch.randint(0, 16, (m, k), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    x = torch.randint(-4, 5, (b, k), generator=g, device="cuda") \
+        .to(torch.bfloat16).t()
+    sc = 2.0 ** torch.randint(-2, 3, (m, -(-k // sb)), generator=g,
+                              device="cuda").float()
+    kw = dict(scale_block=sb, out_dtype=torch.bfloat16)
+    cands = at.candidate_plans(spec, d, m, k, b, info["backend"], "cuda")
+    if info["backend"] == "msgemm_cuda":
+        idx = packing.pack_indices(codes, d).contiguous()
+        values = packing.b_values(torch.float32, "cuda")
+        run = lambda f, t: f(idx, x, sc, values, d=d, tiles=t, **kw)  # noqa
+        kernel, plain = ms.msgemm_cuda, ms.msgemm_plain
+    else:
+        u8 = packing.pack_storage(codes).contiguous()
+        run = lambda f, t: f(u8, sc, x, tiles=t, **kw)  # noqa: E731
+        kernel, plain = i4.int4_matmul_cuda, i4.int4_matmul_plain
+    for p in cands:
+        got = run(kernel, p.tiles)
+        want = run(plain, p.tiles)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"[plan] {key} {p.tiles}: kernel != plain on exact inputs")
+    check(dispatch.heuristic_plan(spec, d, m, k, b, info["backend"])
+          in cands, f"[plan] {key}: the heuristic is no candidate")
+    return len(cands)
+
+
+def phase_plan(tag, model, cfg, untuned, per_step, n_keys=8):
+    """The plan layer on one gemma-2b model: autotune every GeMM key of
+    both step shapes at engine build (into chiprun_out/plan_cache.json),
+    one line per key, every candidate bit-exact against the plain
+    version; serve the stream through the tuned plans on the graph and
+    then the eager route (tokens == static generate under the same
+    policy and cache, ``per_step`` launches a step); then a second engine
+    from the reloaded cache, traced (its kernel_gemm_s series feed the
+    calibration), must time no candidate and give the same tokens.
+    ``n_keys``: the distinct GeMM keys the two step shapes request."""
+    from repro_torch import dispatch, obs
+    from repro_torch.dispatch import autotune as at
+
+    policy = dispatch.ExecPolicy(autotune=True)
+    before = set(dispatch.cache().timing_keys())
+    at.num_timed_candidates = 0
+    t0 = time.perf_counter()
+    run = serve(f"{tag}-tuned", model, cfg, autotune=True)
+    timed = at.num_timed_candidates
+    plans = run.pop("exec_plans")
+    gemm_keys = sorted(k for k, p in plans.items() if p.tiles is not None)
+    check(len(gemm_keys) == n_keys,
+          f"[{tag}] {len(gemm_keys)} GeMM keys, not {n_keys} (gemma-2b: 4 "
+          f"shapes x 2 step shapes): {gemm_keys}")
+    lines = [plan_key_line(key, plans[key], dispatch.cache().timings(key))
+             for key in gemm_keys]
+    check(timed == sum(ln["candidates"] for ln in lines),
+          f"[{tag}] timed {timed} candidates, the keys list "
+          f"{sum(ln['candidates'] for ln in lines)}")
+    steps, launches = run["steps"], run["launches"]
+    want = {name: per_step.get(name, 0) * steps for name in launches}
+    check(launches == want, f"[{tag}-tuned] launches {launches} != {want}")
+    check_static(f"{tag}-tuned", model, cfg, run, policy)
+    tuned_keys = sorted(set(dispatch.cache().timing_keys()) - before)
+    checked = sum(check_candidates(key) for key in tuned_keys)
+    eager = check_eager(f"{tag}-tuned", model, cfg, run, per_step,
+                        autotune=True)
+    eager.pop("exec_plans")
+    moved = [ln for ln in lines if not ln["winner_is_heuristic"]]
+    print(f"[{tag}] {len(gemm_keys)} keys tuned ({timed} candidates) and "
+          f"served in {time.perf_counter() - t0:.1f}s; {len(moved)} moved "
+          f"off the heuristic; {checked} candidates of "
+          f"{len(tuned_keys)} tuned keys bit-exact; "
+          f"tuned: {run['step_ms']:.2f} ms a step, "
+          f"{run['metrics']['tok_per_s']:.1f} tok/s (graph), "
+          f"{eager['step_ms']:.2f} ms eager; untuned (phase 4): "
+          f"{untuned['step_ms']:.2f} ms, "
+          f"{untuned['metrics']['tok_per_s']:.1f} tok/s, "
+          f"{untuned['eager']['step_ms']:.2f} ms eager", flush=True)
+
+    dispatch.set_cache_path(PLAN_CACHE)  # a fresh view of the file
+    at.num_timed_candidates = 0
+    obs.enable_tracing(clear=True)
+    try:
+        traced = serve(f"{tag}-reloaded", model, cfg, autotune=True)
+    finally:
+        obs.disable_tracing()
+    check(at.num_timed_candidates == 0,
+          f"[{tag}] the reloaded build timed {at.num_timed_candidates} "
+          "candidates")
+    check(traced.pop("exec_plans") == plans,
+          f"[{tag}] the reloaded build resolved other plans")
+    check(traced["tokens"] == run["tokens"],
+          f"[{tag}] the reloaded, traced run gave other tokens")
+    print(f"[{tag}] reloaded cache: 0 candidates timed, same plans and "
+          "tokens (traced run)", flush=True)
+    run.pop("reqs")
+    traced.pop("reqs")
+    return dict(run, eager=eager, traced=traced, keys=lines,
+                timed=timed, checked_candidates=checked)
+
+
+def obs_cli(tag, argv, want_rc):
+    """One in-process run of ``python -m repro_torch.obs``; its exit code
+    must be ``want_rc``."""
+    from repro_torch.obs.__main__ import main as obs_main
+
+    print(f"[{tag}] python -m repro_torch.obs {' '.join(argv)}", flush=True)
+    rc = obs_main(argv)
+    check(rc == want_rc, f"[{tag}] exit {rc}, want {want_rc}")
+
+
+def phase_plan_cli():
+    """The slice's own entry points at full-width gemma-2b msgemm, the
+    serve CLI's plan cache ``PLAN_CLI`` fresh: ``python -m
+    repro_torch.launch.serve --autotune --autotune-cache PLAN_CLI
+    --metrics-json PLAN_METRICS --check --check-regressions`` tunes every
+    key of both step shapes and of the static check, serves (tokens ==
+    static generate under the same policy and cache) and skips the
+    sentinel (no calibration yet); ``python -m repro_torch.obs
+    --calibrate`` fits the perf model from both plan caches and that
+    snapshot (whose kernel_gemm_s series hold the plan phase's traced runs
+    and this one); the calibration and snapshot validate; the serve CLI
+    again with ``--calibration`` times no candidate, gives the same tokens
+    and passes the sentinel over its own kernel_gemm_s series; ``python
+    -m repro_torch.obs --check-regressions`` exits 0 on the training
+    sources and 1 once the slowest timing row is x100."""
+    from repro_torch import obs
+    from repro_torch.dispatch import autotune as at
+    from repro_torch.obs import perfmodel as pm
+
+    PLAN_CLI.unlink(missing_ok=True)
+    tune = ["--quant", "msgemm", "--autotune", "--autotune-cache",
+            str(PLAN_CLI)]
+    at.num_timed_candidates = 0
+    tuned = serve_cli("plan-cli tune", [
+        *tune, "--check", "--metrics-json", str(PLAN_METRICS),
+        "--check-regressions"], dict(msgemm=126), arch="gemma_2b")
+    timed = at.num_timed_candidates
+    check(tuned["checked"] == 6, "[plan-cli tune] --check did not run")
+    check(timed > 0 and tuned["autotuned"] == tuned["plans"] == 8,
+          f"[plan-cli tune] {tuned['autotuned']} of {tuned['plans']} plans "
+          f"autotuned at build ({timed} candidates timed), want 8 of 8")
+    check(tuned["regressions"] is None,
+          "[plan-cli tune] the sentinel ran without a calibration")
+    sources = ["--plan-cache", str(PLAN_CACHE), "--plan-cache",
+               str(PLAN_CLI), "--metrics", str(PLAN_METRICS)]
+    obs_cli("plan-cli calibrate", ["--calibrate", *sources,
+                                   "--calibration", str(CALIBRATION)], 0)
+    obs_cli("plan-cli validate", [
+        "--validate-calibration", str(CALIBRATION),
+        "--validate-snapshot", str(PLAN_METRICS)], 0)
+    device, interpret = pm.current_partition("cuda")
+    snap = json.loads(PLAN_METRICS.read_text())
+    check(pm.samples_from_snapshot(snap),
+          f"[plan-cli] the snapshot has no kernel_gemm_s sample of {device}")
+    cal = pm.load_calibration(CALIBRATION, device=device,
+                              interpret=interpret)
+    check(cal is not None, f"[plan-cli] no calibration of ({device}, "
+                           f"interpret={interpret}) at {CALIBRATION}")
+    for bk, consts in sorted(cal.constants.items()):
+        print(f"[fit] {bk:11s} " + " ".join(
+            f"{n}={v:.4g}" for n, v in consts.items()), flush=True)
+    print(f"[fit] {cal.fit['n_samples']} samples on {device}: median "
+          f"relative error {cal.fit['median_abs_rel_err']:.3f}, rms "
+          f"{cal.fit['rms_rel_err']:.3f}, max "
+          f"{cal.fit['max_abs_rel_err']:.3f}", flush=True)
+
+    obs.registry().reset(prefix="kernel_")
+    at.num_timed_candidates = 0
+    again = serve_cli("plan-cli sentinel", [
+        *tune, "--check-regressions", "--calibration", str(CALIBRATION)],
+        dict(msgemm=126), arch="gemma_2b")
+    report = again["regressions"]
+    check(at.num_timed_candidates == 0,
+          f"[plan-cli sentinel] timed {at.num_timed_candidates} candidates "
+          "from the warm cache")
+    check(again["tokens"] == tuned["tokens"],
+          "[plan-cli sentinel] other tokens than the tuning run's")
+    check(report is not None and report["ok"] and report["n_samples"] > 0,
+          f"[plan-cli sentinel] the sentinel did not pass: {report}")
+    obs_cli("plan-cli check", ["--check-regressions", *sources,
+                               "--calibration", str(CALIBRATION)], 0)
+    doc = json.loads(PLAN_CLI.read_text())
+    doc.pop("crc", None)  # a hand edit: the stale stamp would quarantine it
+    key, row = max(((k, r) for k, rows in doc["timings"].items()
+                    for r in rows), key=lambda kr: kr[1]["s"])
+    row["s"] *= 100
+    bad = PLAN_CLI.with_name("plan_cli_x100.json")
+    bad.write_text(json.dumps(doc))
+    obs_cli("plan-cli x100", [
+        "--check-regressions", "--plan-cache", str(PLAN_CACHE),
+        "--plan-cache", str(bad), "--metrics", str(PLAN_METRICS),
+        "--calibration", str(CALIBRATION)], 1)
+    print(f"[plan-cli] serve --autotune tuned {tuned['plans']} keys "
+          f"({timed} candidates) and matched static generate; calibrated "
+          f"from {cal.fit['n_samples']} samples; the sentinel passed "
+          f"{report['n_samples']} series of the next run (0 candidates "
+          f"timed) and the training sources at {pm.DEFAULT_TOLERANCE:g}x, "
+          f"and flagged {key}'s slowest row x100", flush=True)
+    obs.registry().reset(prefix="kernel_")
+    return dict(tune=tuned, sentinel=again, timed=timed,
+                calibration=cal.as_dict(), x100_key=key)
+
+
 # ------------------------------------------------------- flash attention
-BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # Device ms of the flash kernel before its redesign (f32 FMA on 64 x 64
 # tiles whatever the input type), NVIDIA H100 80GB HBM3 at 700.00 W: the
 # first full chip_smoke.py run of commit bdb566c (its PERF.md table)
@@ -1346,8 +1631,10 @@ def phase_flash():
         elt = qkv[0].element_size()
         nbytes = (2 * B * S * H * dh + 2 * B * S * hk * dh) * elt
         nops = 4 * dh * H * pairs * B
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
+        dev = card()
+        peak = (dev.matmul_flops if dtype == torch.bfloat16
+                else dev.vector_flops)
+        t_bytes, t_ops = nbytes / dev.mem_bw * 1e3, nops / peak * 1e3
         if kw["softcap"]:
             library_ms, library = None, "no single call (soft-cap)"
         else:
@@ -1380,19 +1667,20 @@ def phase_flash():
 LONG_PROMPT = dict(prompt_len=5000, seed=0)  # draws one 4,440-token prompt
 
 
-def serve_cli(tag, argv, per_step):
+def serve_cli(tag, argv, per_step, arch="gemma2_9b"):
     """One in-process run of ``repro_torch.launch.serve.main`` with
-    gemma2-9b, every launch count set to 0 just before and read just
+    ``arch``, every launch count set to 0 just before and read just
     after.  Checks full width, that every request finished, and that the
     engine's run launched each kernel exactly ``per_step[name]`` times a
     step (0 if unnamed).  Returns what chip_smoke.json keeps of the run;
     the model is freed."""
     import torch
 
-    from repro_torch.configs.gemma2_9b import CONFIG
+    from repro_torch import configs
     from repro_torch.launch import serve as cli
 
-    argv = ["--arch", "gemma2_9b", "--engine", "continuous", *argv]
+    CONFIG = configs.get_config(arch)
+    argv = ["--arch", arch, "--engine", "continuous", *argv]
     print(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
     for mod in cli.KERNELS.values():
@@ -1407,7 +1695,7 @@ def serve_cli(tag, argv, per_step):
     del out["params"]
     steps, launches, m = out["steps"], out["launches"], out["metrics"]
     check(cfg.replace(quant=CONFIG.quant) == CONFIG,
-          f"[{tag}] not gemma2-9b at full width: {cfg}")
+          f"[{tag}] not {arch} at full width: {cfg}")
     check(steps > 0 and all(s.status == "ok"
                             for s in out["results"].values()),
           f"[{tag}] not every request finished")
@@ -1423,6 +1711,10 @@ def serve_cli(tag, argv, per_step):
                build=out["build"],
                peak_bytes=torch.cuda.max_memory_allocated(),
                checked=out.get("checked", 0),
+               plans=len(out["exec_plans"]),
+               autotuned=sum(p.source == "autotuned"
+                             for p in out["exec_plans"].values()),
+               regressions=out.get("regressions"),
                prompts=[len(s.req.prompt) for s in out["results"].values()],
                tokens={rid: s.generated for rid, s in out["results"].items()})
     del out
@@ -1598,6 +1890,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    # every plan lookup of this run, from the first engine on, reads the
+    # plan cache in chiprun_out/, empty at the start, never the user's;
+    # no calibration yet, so the plan phase's tuner sweeps in full
+    from repro_torch import dispatch, obs
+
+    PLAN_CACHE.parent.mkdir(exist_ok=True)
+    for path in (PLAN_CACHE, PLAN_CLI, PLAN_METRICS, CALIBRATION):
+        path.unlink(missing_ok=True)
+    os.environ["REPRO_PLAN_CACHE"] = str(PLAN_CACHE)
+    os.environ["REPRO_CALIBRATION"] = str(CALIBRATION)
+    dispatch.set_cache_path(PLAN_CACHE)
 
     t0 = time.perf_counter()
     libs = nvcc.build_all(verbose=True)
@@ -1630,6 +1933,12 @@ def main() -> int:
         main_path["profile"] = phase_profile("msgemm", model, cfg)
         kvq_path["kv8"]["profile"] = phase_profile(
             "msgemm-kv8", model, cfg, kv_quant=KVQuantSpec(8))
+    # the plan phase; every later path runs without a tuning policy
+    check(len(dispatch.cache()) == 0,
+          "[plan] the untuned paths wrote the plan cache")
+    obs.registry().reset(prefix="kernel_")
+    plan_path = {"msgemm": phase_plan("plan-msgemm", model, cfg, main_path,
+                                      dict(msgemm=126))}
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1637,9 +1946,13 @@ def main() -> int:
     model, cfg = int4_path.pop("model"), int4_path.pop("cfg")
     if args.profile:
         int4_path["profile"] = phase_profile("int4", model, cfg)
+    plan_path["int4"] = phase_plan("plan-int4", model, cfg, int4_path,
+                                   dict(int4_matmul=126))
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    plan_path["cli"] = phase_plan_cli()
+    dispatch.set_cache_path(PLAN_CACHE)  # the serve CLI pointed it away
     gemma2 = phase_gemma2_9b()
 
     smi = subprocess.run(
@@ -1673,6 +1986,10 @@ def main() -> int:
              kvq_path["kv8"]["kernel-eager"]]
             + [kvq_path[kv][r] for kv in ("kv8", "kv4")
                for r in ("kernel", "torch")]
+            + [plan_path[mode][r] if r else plan_path[mode]
+               for mode in ("msgemm", "int4") for r in ("", "eager",
+                                                        "traced")]
+            + [plan_path["cli"][r] for r in ("tune", "sentinel")]
             + [gemma2[k] for k in ("msgemm", "int4", "long", "msgemm-eager",
                                    "int4-eager", "long-eager")]
             + [gemma2["kv8"][r] for r in ("kernel", "torch")])
@@ -1731,7 +2048,7 @@ def main() -> int:
         card=card, build_s=build_s, ptxas=nvcc.reports, cases=cases,
         int4_cases=int4_cases, attn_cases=attn_cases, flash=flash,
         main=main_path, kvq=kvq_path,
-        int4=int4_path, gemma2_9b=gemma2, gemma2_9b_layers=layers,
+        int4=int4_path, plan=plan_path, gemma2_9b=gemma2, gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     for key, e in ([("gemma-2b msgemm", kernels[0]),
                     ("gemma-2b int4", kernels[1])] + list(layers.items())):

@@ -1,23 +1,20 @@
 """QuantSpec — a frozen description of what the weights are; port of
-repro.core.spec (the deprecated ``QuantConfig`` shim is not ported).
+repro.core.spec (the deprecated ``QuantConfig`` shim is not ported: the
+port never had callers to migrate, so :func:`as_spec` takes a QuantSpec
+only).
 
 It says nothing about how a GeMM runs: that is ``repro_torch.dispatch``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
-from repro_torch.core import scales
+from repro_torch.core import complexity, scales
 
 MODES = ("bf16", "int4_dequant", "msgemm")
 STORAGES = ("packed_idx", "packed_u8")
 CODEBOOKS = ("none", "learned")
-
-
-def _speedup(m: int, k: int, d: int) -> float:
-    """Paper Eq. 15 at b=1: C(GeMM) / C(msGeMM) = m·k / (16^d·k + (k/d-1)·m)."""
-    return m * k / (16**d * k + (k // d - 1) * m)
 
 
 @dataclass(frozen=True)
@@ -61,10 +58,20 @@ class QuantSpec:
         """The depth this linear uses (static in the shapes)."""
         if self.d != "adaptive":
             return int(self.d)
-        d_star = max(range(2, 5), key=lambda d: _speedup(out_dim, in_dim, d))
+        d_star, _ = complexity.best_d(out_dim, in_dim, range(2, 5))
         while self.scale_block % d_star:  # the block must stay a multiple of d
             d_star -= 1
         return max(d_star, 2)
 
+    def with_mode(self, mode: str) -> "QuantSpec":
+        return replace(self, mode=mode)
+
 
 DENSE = QuantSpec(mode="bf16")
+
+
+def as_spec(spec) -> QuantSpec:
+    """``spec`` itself when it is a QuantSpec; TypeError otherwise."""
+    if isinstance(spec, QuantSpec):
+        return spec
+    raise TypeError(f"expected QuantSpec, got {type(spec)!r}")

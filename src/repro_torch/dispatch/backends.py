@@ -81,7 +81,7 @@ register_backend(
 register_backend(
     "msgemm_cuda", modes=("msgemm",), run=run_msgemm_cuda, priority=60,
     is_available=lambda dev: dev in ("cuda", "cpu"),
-    epilogue_ok=lambda ep: True,
+    tunable=("rows", "stage", "tj"), epilogue_ok=lambda ep: True,
     description="hand-written Hopper msGeMM kernel: shared-memory LUT "
                 "produce, gather-add consume, fused epilogue")
 
@@ -89,6 +89,6 @@ register_backend(
     "int4_cuda", modes=("int4_dequant",), run=run_int4_cuda, priority=60,
     is_available=lambda dev: dev in ("cuda", "cpu"),
     codebooks=("none",),  # the kernel dequantizes the uniform int4 grid
-    epilogue_ok=lambda ep: True,
+    tunable=("tk", "nsplit"), epilogue_ok=lambda ep: True,
     description="hand-written Hopper int4 kernel: unpack, scale, dot, "
                 "fused epilogue (the paper's dequantize-then-GeMM baseline)")

@@ -1,6 +1,7 @@
 """Pluggable execution-backend registry; port of repro.dispatch.registry
-(registration, capability checks, selection by priority and device).
-Quarantine waits for the resilience slice.
+(registration, capability checks, selection by priority and device, and
+the process-local quarantine that selection skips; its callers, the NaN
+guard and the watchdog, wait for the resilience slice).
 
 A backend's ``run`` has the signature::
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+from repro_torch import obs
 from repro_torch.core.spec import QuantSpec
 
 
@@ -39,6 +41,7 @@ class Backend:
     d_range: tuple[int, int] = (1, 4)
     storages: tuple[str, ...] = ("packed_idx", "packed_u8")
     codebooks: tuple[str, ...] = ("none", "learned")
+    tunable: tuple[str, ...] = ()  # tile fields the autotuner explores
     epilogue_ok: Callable = _no_epilogue
     description: str = ""
 
@@ -52,11 +55,54 @@ class Backend:
 
 _REGISTRY: dict[str, Backend] = {}
 
+# Runtime quarantine: backend name -> reason.  A quarantined backend is
+# skipped by auto-selection and by forced-policy resolution, so a
+# misbehaving path degrades to the next backend instead of crashing the
+# server.  Process-local, never persisted, cleared by clear_quarantine().
+_QUARANTINED: dict[str, str] = {}
+
+
+def _quarantine_changed() -> None:
+    from repro_torch.dispatch.plan import invalidate
+
+    invalidate()  # resolved plans depend on the quarantine
+    obs.registry().gauge("dispatch_backends_quarantined").set(
+        len(_QUARANTINED))
+
+
+def quarantine_backend(name: str, reason: str = "") -> None:
+    """Mark a backend suspect; selection skips it until cleared (unless
+    that would leave a spec with no candidate: see available_backends)."""
+    get_backend(name)  # raise on unknown names
+    _QUARANTINED[name] = reason or "quarantined"
+    obs.registry().counter(
+        "dispatch_backend_quarantined_total", backend=name).inc()
+    _quarantine_changed()
+
+
+def clear_quarantine(name: str | None = None) -> None:
+    """Lift quarantine for one backend, or all when name is None."""
+    if name is None:
+        _QUARANTINED.clear()
+    else:
+        _QUARANTINED.pop(name, None)
+    _quarantine_changed()
+
+
+def is_quarantined(name: str) -> bool:
+    return name in _QUARANTINED
+
+
+def quarantined() -> dict[str, str]:
+    """Snapshot of the current quarantine list (name -> reason)."""
+    return dict(_QUARANTINED)
+
 
 def register_backend(name: str, *, modes, run, is_available=_always,
                      priority: int = 0, d_range=(1, 4),
                      storages=("packed_idx", "packed_u8"),
-                     codebooks=("none", "learned"), epilogue_ok=_no_epilogue,
+                     codebooks=("none", "learned"), tunable=(),
+                     epilogue_ok=_no_epilogue,
                      description: str = "", overwrite: bool = False) -> Backend:
     """Register an execution backend; duplicate names raise unless
     ``overwrite``."""
@@ -66,8 +112,8 @@ def register_backend(name: str, *, modes, run, is_available=_always,
     be = Backend(name=name, modes=tuple(modes), run=run,
                  is_available=is_available, priority=priority,
                  d_range=tuple(d_range), storages=tuple(storages),
-                 codebooks=tuple(codebooks), epilogue_ok=epilogue_ok,
-                 description=description)
+                 codebooks=tuple(codebooks), tunable=tuple(tunable),
+                 epilogue_ok=epilogue_ok, description=description)
     _REGISTRY[name] = be
     return be
 
@@ -91,6 +137,10 @@ def available_backends(spec: QuantSpec, d: int, device_type: str
     (priority descending, then name)."""
     cands = [b for b in _REGISTRY.values()
              if b.supports(spec, d) and b.is_available(device_type)]
+    if _QUARANTINED:
+        # never quarantine into an empty candidate set: serving a suspect
+        # backend beats serving nothing
+        cands = [b for b in cands if b.name not in _QUARANTINED] or cands
     return sorted(cands, key=lambda b: (-b.priority, b.name))
 
 

@@ -14,7 +14,10 @@ from __future__ import annotations
 
 import functools
 import heapq
+import math
+import time
 
+import numpy as np
 import torch
 
 from repro_torch.core import packing
@@ -42,6 +45,15 @@ BLOCK_OVERHEAD = 2  # a block's fixed cost (prologue, epilogue) in chunks
 # about a step for every further block (gemma-2b's down at b = 1, 4 to 64
 # splits; PERF.md section 6)
 INT4_BLOCK_OVERHEAD = 1
+# a timed call cycles over copies of its weights, at least this many bytes
+# of them (the L2 holds 50 MB), so each call reads its weights from HBM as
+# an engine step finds a layer's
+L2_BYTES = 50 * 2**20
+L2_FLUSH_BYTES = 120 * 2**20
+MAX_COPIES = 256
+# cycles the card sleeps per timed call while the host enqueues the calls
+# (200 us at 2 GHz): the events then bracket the kernels, not the host
+SLEEP_CYCLES_PER_CALL = 400_000
 # m x kc from which 2048-row blocks beat 1024-row ones at tb = 1 (on the
 # card: gemma-2b gate and down, 11.2M, faster; wq, 1.4M, slower)
 ROW_CHUNKS_2048 = 4_000_000
@@ -80,30 +92,66 @@ def _makespan(row_tiles: int, col_tiles: int, works: list[int],
     return max(free)
 
 
-def split_tiles(m: int, kc: int, b: int, d: int, scale_block: int, *,
-                tb: int, rows: int) -> Tiles:
-    """The rest of a tile choice once tb and rows are fixed: the index
-    stage of STAGE_WORDS indices, and tj, whole scale blocks per
-    contraction split, the one whose blocks end soonest on NUM_SMS SMs
-    (as many blocks an SM as this variant's shared memory allows), a block
-    costing its chunks plus BLOCK_OVERHEAD; ties go to fewer splits."""
-    stage = STAGE_WORDS // rows
+def _slots(d: int, tiles: Tiles) -> int:
+    """Blocks of ``tiles`` in flight on the card at once: NUM_SMS SMs, as
+    many blocks an SM as the threads and the variant's shared memory
+    allow."""
+    smem = _ms.smem_bytes(d, tiles.tb, tiles.rows, tiles.stage)
+    return NUM_SMS * max(1, min(2048 // _ms.THREADS,
+                                SM_SMEM // (smem + 1024)))
+
+
+def msgemm_span(m: int, kc: int, b: int, d: int, tiles: Tiles) -> int:
+    """When the last block of ``tiles``' grid ends, in LUT chunks, if
+    blocks start in launch order on the first free of :func:`_slots` and
+    a block costs its chunks plus BLOCK_OVERHEAD (the split picker's cost,
+    and the perf model's work term)."""
+    gx, _, gz = _ms.grid(m, kc, b, tiles)
+    works = [min(tiles.tj, kc - j) + BLOCK_OVERHEAD
+             for j in range(0, kc, tiles.tj)]
+    return _makespan(gx, gz, works, _slots(d, tiles))
+
+
+def split_ranking(m: int, kc: int, b: int, d: int, scale_block: int, *,
+                  tb: int, rows: int) -> list[Tiles]:
+    """Every split :func:`split_tiles` weighs once tb and rows are fixed,
+    best first: the index stage of STAGE_WORDS indices, and tj, whole
+    scale blocks per contraction split, ranked by :func:`msgemm_span`;
+    ties go to fewer splits."""
     cpb = scale_block // d
     nsb = -(-kc // cpb)
-    tiles = Tiles(tb=tb, rows=rows, stage=stage, tj=nsb * cpb)
+    tiles = Tiles(tb=tb, rows=rows, stage=STAGE_WORDS // rows, tj=nsb * cpb)
     gx, _, gz = _ms.grid(m, kc, b, tiles)
-    smem = _ms.smem_bytes(d, tb, rows, stage)
-    slots = NUM_SMS * max(1, min(2048 // _ms.THREADS,
-                                 SM_SMEM // (smem + 1024)))
-    best = None
-    for tj in sorted({-(-nsb // w) * cpb for w in
-                      range(1, min(nsb, 2 * slots // (gx * gz) + 1) + 1)},
-                     reverse=True):
-        works = [min(tj, kc - j) + BLOCK_OVERHEAD for j in range(0, kc, tj)]
-        span = _makespan(gx, gz, works, slots)
-        if best is None or span < best[0]:
-            best = (span, tj)
-    return tiles._replace(tj=best[1])
+    slots = _slots(d, tiles)
+    ranked = sorted(
+        (msgemm_span(m, kc, b, d, tiles._replace(tj=tj)), -tj)
+        for tj in {-(-nsb // w) * cpb for w in
+                   range(1, min(nsb, 2 * slots // (gx * gz) + 1) + 1)})
+    return [tiles._replace(tj=-neg) for _, neg in ranked]
+
+
+def split_tiles(m: int, kc: int, b: int, d: int, scale_block: int, *,
+                tb: int, rows: int) -> Tiles:
+    """The rest of a tile choice once tb and rows are fixed: the best of
+    :func:`split_ranking`."""
+    return split_ranking(m, kc, b, d, scale_block, tb=tb, rows=rows)[0]
+
+
+def msgemm_variants(m: int, kc: int, b: int, d: int, scale_block: int, *,
+                    top: int = 3) -> list[Tiles]:
+    """The msGeMM tile choices worth timing at one shape (the autotuner's
+    candidates, ``chip_smoke.py --sweep msgemm``'s variants): the
+    picker's tb, each row block (512, 1024, 2048) whose block fits the
+    card's shared memory, and for each the ``top`` best splits of
+    :func:`split_ranking`.  :func:`msgemm_tiles`'s choice is always one
+    of them."""
+    tb = msgemm_tiles(m, kc, b, d, scale_block).tb
+    out = []
+    for rows in (512, 1024, 2048):
+        if _ms.smem_bytes(d, tb, rows, STAGE_WORDS // rows) <= _ms.SMEM_LIMIT:
+            out += split_ranking(m, kc, b, d, scale_block, tb=tb,
+                                 rows=rows)[:top]
+    return out
 
 
 def launch_counts() -> dict[str, int]:
@@ -171,10 +219,9 @@ def int4_tiles(m: int, k: int, b: int) -> Int4Tiles:
     end soonest on NUM_SMS SMs; and an x tile of tk codes, a split's
     range at most, that keeps tb·tk floats at 32 KiB of shared memory.
 
-    The split's cost model: the blocks spread evenly over the SMs, and an
-    SM takes its share of blocks times a block's steps plus
-    INT4_BLOCK_OVERHEAD, but never less than two blocks' worth (one block
-    of 8 warps cannot hide the loads' latency); ties go to fewer splits.
+    The split's cost model is :func:`int4_span` (never less than two
+    blocks' worth an SM: one block of 8 warps cannot hide the loads'
+    latency); ties go to fewer splits.
     So gemma-2b's down (64 row tiles over 64 steps at b = 4) takes 4
     splits and wk/wv (8 row tiles) 8, while gate/up (512 row tiles) keep
     one: the fewest splits that bring the grid to about two blocks an SM,
@@ -182,18 +229,47 @@ def int4_tiles(m: int, k: int, b: int) -> Int4Tiles:
     the fastest split count of ``chip_smoke.py --sweep int4``, or one
     within a few per cent, at every engine shape (PERF.md section 6)."""
     tb = next(t for t in (1, 2, 4, 8) if t >= min(b, 8))
-    blocks = -(-m // _i4.rows_per_block(tb)) * -(-b // tb)
     steps = -(-max(k, 1) // _i4.STEP)
     best = None
     for n in range(1, steps + 1):
         per, splits = _i4.split_steps(k, n)
-        cost = (max(2, -(-blocks * splits // NUM_SMS))
-                * (per + INT4_BLOCK_OVERHEAD))
-        if splits == n and (best is None or cost < best[0]):
-            best = (cost, per, n)
-    _, per, nsplit = best
-    return Int4Tiles(tb=tb, tk=min(per * _i4.STEP, 8192 // tb),
-                     nsplit=nsplit)
+        if splits != n:
+            continue
+        tiles = Int4Tiles(tb=tb, tk=min(per * _i4.STEP, 8192 // tb),
+                          nsplit=n)
+        cost = int4_span(m, k, b, tiles)
+        if best is None or cost < best[0]:
+            best = (cost, tiles)
+    return best[1]
+
+
+def int4_span(m: int, k: int, b: int, tiles: Int4Tiles) -> int:
+    """The split picker's cost of ``tiles``, in 256-code steps: the blocks
+    spread evenly over NUM_SMS SMs, and an SM takes its share of blocks
+    (never less than two blocks' worth) times a block's steps plus
+    INT4_BLOCK_OVERHEAD (also the perf model's work term)."""
+    blocks = -(-m // _i4.rows_per_block(tiles.tb)) * -(-b // tiles.tb)
+    per, splits = _i4.split_steps(k, tiles.nsplit)
+    return (max(2, -(-blocks * splits // NUM_SMS))
+            * (per + INT4_BLOCK_OVERHEAD))
+
+
+def int4_variants(m: int, k: int, b: int) -> list[Int4Tiles]:
+    """The int4 tile choices worth timing at one shape (the autotuner's
+    candidates, ``chip_smoke.py --sweep int4``'s variants): the picker's
+    tb with every split count that :func:`int4_matmul.split_steps` admits
+    (no empty split) up to four times the picker's, each with its tk
+    derived as :func:`int4_tiles` derives it.  The picker's choice is one
+    of them."""
+    picked = int4_tiles(m, k, b)
+    out = []
+    for n in range(1, 4 * picked.nsplit + 1):
+        per, splits = _i4.split_steps(k, n)
+        if splits == n:
+            out.append(Int4Tiles(tb=picked.tb,
+                                 tk=min(per * _i4.STEP, 8192 // picked.tb),
+                                 nsplit=n))
+    return out
 
 
 def int4_matmul(u8: torch.Tensor, scales: torch.Tensor, x: torch.Tensor, *,
@@ -233,6 +309,96 @@ def int4_matmul(u8: torch.Tensor, scales: torch.Tensor, x: torch.Tensor, *,
         residual=own(residual),
         out_dtype=torch_dtype(ep.out_dtype) or torch.float32)
     return y[:, 0] if squeeze else y
+
+
+def copies_past_l2(nbytes: int, cap: int = MAX_COPIES) -> int:
+    """How many copies of an ``nbytes`` weight a timed call cycles over:
+    enough to pass ``L2_FLUSH_BYTES``, at most ``cap``."""
+    return max(1, min(cap, math.ceil(L2_FLUSH_BYTES / max(nbytes, 1))))
+
+
+def time_call(fns, device: torch.device, reps: int) -> float:
+    """Seconds a call of ``fns`` (the same call over copies of its
+    weights, :func:`copies_past_l2`), after a warm-up call of the first
+    two (which builds the kernel and sets its shared-memory limit).  On
+    the card: ``reps`` calls cycling over ``fns``, queued back to back
+    behind a sleep (so the host enqueues them while the card is busy) and
+    bracketed by two CUDA events, as a graph replay runs a step's kernels;
+    device time over ``reps``.  On the CPU: the best wall time of
+    ``reps`` calls of ``fns[0]``."""
+    for f in fns[:2]:
+        f()
+    reps = max(reps, 1)
+    if device.type != "cuda":
+        best = math.inf
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fns[0]()
+            best = min(best, time.perf_counter() - t0)
+        return best
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * SLEEP_CYCLES_PER_CALL)
+    start.record()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / reps
+
+
+def profile_gemm(kind: str, m: int, k: int, b: int, *, d: int = 3,
+                 scale_block: int | None = None, reps: int = 3,
+                 device="cuda", seed: int = 0) -> dict:
+    """Time one kernel call on data made with numpy from ``seed`` (codes,
+    scales, bf16 x as the engine passes it) and annotate it with the
+    analytic cost model (``obs.costs``, the device's row): the time, the
+    produce/consume split, bytes moved, and the achieved share of the
+    roofline.  ``kind``: 'msgemm' | 'int4'.  Times with
+    :func:`time_call` (device time on the card over ``reps`` calls, at
+    least two a weight copy; the best of ``reps`` wall times on the CPU),
+    observes ``kernel_profile_s`` and returns the annotated row, with the
+    partition it was measured in (``device``, ``interpret``: the plain
+    version ran), as ``obs.perfmodel.samples_from_bench`` reads it."""
+    from repro_torch import obs
+    from repro_torch.device import resolve
+    from repro_torch.dispatch.plan import device_name
+    from repro_torch.obs import costs
+
+    dev = resolve(device)
+    sb = scale_block if scale_block is not None else 12 * d
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((k, b)).astype(np.float32)) \
+        .to(dev, torch.bfloat16)
+    sc = torch.from_numpy((np.abs(rng.standard_normal(
+        (m, -(-k // sb)))) + 0.1).astype(np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, 16, size=(m, k))
+                             .astype(np.uint8)).to(dev)
+    if kind == "msgemm":
+        w = packing.pack_indices(codes, d).contiguous()
+        call = lambda w: msgemm(w, x, d, scales=sc,  # noqa: E731
+                                scale_block=sb)
+        quant = "msgemm"
+    elif kind == "int4":
+        w = packing.pack_storage(codes).contiguous()
+        call = lambda w: int4_matmul(w, sc, x, scale_block=sb)  # noqa: E731
+        quant = "int4_dequant"
+    else:
+        raise ValueError(f"kind={kind!r} must be 'msgemm' or 'int4'")
+    n = copies_past_l2(w.numel() * w.element_size()) \
+        if dev.type == "cuda" else 1
+    ws = [w] + [w.clone() for _ in range(n - 1)]
+    best = time_call([lambda w=w: call(w) for w in ws], dev,
+                     max(reps, 2 * n) if dev.type == "cuda" else reps)
+    row = costs.annotate(best, m, k, b, quant=quant, d=d,
+                         dev=costs.device(dev.type))
+    row.update(kind=kind, scale_block=sb, device=device_name(dev.type),
+               interpret=dev.type != "cuda")
+    obs.registry().histogram(
+        "kernel_profile_s", help="profiled kernel time",
+        kind=kind, m=m, k=k, b=b).observe(best)
+    return row
 
 
 def _round_up(v: int, t: int) -> int:

@@ -30,19 +30,31 @@ capture) and writes Chrome-trace JSON on exit, ``--prom-port N`` serves
 ``/metrics`` for the run.  Both files validate with
 ``repro_torch.obs.validate_snapshot_file`` / ``validate_trace_file``.
 
+Execution planning as in the reference: ``--backend NAME`` forces a
+registered GeMM backend through ``dispatch.ExecPolicy`` (linears whose
+weights it cannot run fall back to auto-selection), ``--autotune[=model|
+full]`` times the Hopper kernels' tile choices for every GeMM key the
+engine's two step shapes (or the static path's) will request and serves
+the winners, persisted to ``--autotune-cache PATH`` (default
+``$REPRO_PLAN_CACHE``, else the user cache directory).  ``--check`` runs
+the static path under the same policy and cache.
+``--check-regressions`` turns tracing on, and after the run prices every
+``kernel_gemm_s`` series with the perf model of ``--calibration PATH``
+(``python -m repro_torch.obs --calibrate``): exit 1 when a kernel ran
+slower than 3x its prediction; without a calibration of this device's
+partition it skips with a note.
+
 Flags of slices not ported yet are not defined, so argparse refuses them:
 ``--mesh``, ``--mesh-rules``, ``--shard-collective``, ``--shard-pipeline``,
 ``--shard-impl`` and ``--force-host-devices`` (ROADMAP A13, multi-GPU);
-``--autotune``, ``--autotune-cache`` and ``--check-regressions`` (A3/A8,
-the plan layer and the perf model); ``--faults``, ``--fault-seed``, ``--watchdog``,
-``--deadline-s``, ``--ttft-deadline-s`` and ``--max-queue`` (A10,
-resilience); ``--calibration`` (A9).  ``--kv-codebook learned`` is refused:
-fitting the codebook needs ``kvq/fit.py`` (A6, with calibration, A9).
+``--faults``, ``--fault-seed``, ``--watchdog``, ``--deadline-s``,
+``--ttft-deadline-s`` and ``--max-queue`` (A10, resilience).
+``--kv-codebook learned`` is refused: fitting the codebook needs
+``kvq/fit.py`` (A4).
 
 ``--backend`` takes the registry's names.  A paged-attention backend
 (``paged_attn_torch``, ``paged_attn_cuda``) forces the route of a
-quantized KV pool; a GeMM backend must be the one that serves ``--quant``
-(the port has one per mode; the reference's alternatives wait for A3).
+quantized KV pool.
 
 :func:`main` returns what it ran (model, config, build and run figures,
 kernel launches over the engine's run), so a script can drive it in
@@ -53,12 +65,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import torch
 
 from repro_torch import configs, dispatch, obs
-from repro_torch.core.spec import DENSE, QuantSpec
+from repro_torch.core.spec import QuantSpec
 from repro_torch.device import generator, resolve
 from repro_torch.kernels.ops import KERNELS, launch_counts
 from repro_torch.kvq import KVQuantSpec
@@ -66,6 +79,7 @@ from repro_torch.kvq import attention as kv_attention
 from repro_torch.models import transformer as T
 from repro_torch.quant import quantized_size_bytes
 from repro_torch.runtime import serve as SV
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -112,23 +126,70 @@ def build_model(args, device: torch.device):
 
 
 def backends_from_args(args):
-    """--backend -> the paged-attention backend to force (or None).  A GeMM
-    backend is checked against --quant and is then the one the registry
-    picks anyway."""
-    if args.backend == "auto":
+    """--backend -> the paged-attention backend to force (or None); a GeMM
+    backend reaches the linears through :func:`exec_policy`."""
+    if args.backend == "auto" or gemm_backend(args) is not None:
         return None
-    be = dispatch.get_backend(args.backend)
-    if "paged_attn" in be.modes:
-        if args.kv_bits == 16:
-            raise SystemExit(f"--backend {args.backend} routes a quantized "
-                             "KV pool: pass --kv-bits 8 or 4")
-        return args.backend
-    spec = quant_spec(args) or DENSE
-    if not be.supports(spec, int(spec.d)):
+    if args.kv_bits == 16:
+        raise SystemExit(f"--backend {args.backend} routes a quantized KV "
+                         "pool: pass --kv-bits 8 or 4")
+    return args.backend
+
+
+def gemm_backend(args) -> str | None:
+    """--backend when it names a GeMM backend, else None."""
+    if args.backend == "auto" or "paged_attn" in dispatch.get_backend(
+            args.backend).modes:
+        return None
+    return args.backend
+
+
+def exec_policy(args) -> dispatch.ExecPolicy | None:
+    """The CLI's execution choices as an ExecPolicy (None: defaults)."""
+    backend = gemm_backend(args)
+    if backend is None and not args.autotune:
+        return None
+    return dispatch.ExecPolicy(backend=backend, autotune=args.autotune)
+
+
+def check_run_regressions(args, device: torch.device) -> dict | None:
+    """The perf-model regression sentinel over this run's ``kernel_gemm_s``
+    series (``obs.perfmodel``).  SystemExit when a kernel ran slower than
+    the tolerance allows; a missing calibration, or one of another
+    partition (device, plain version or kernel), skips with a note.
+    Returns the report, None when skipped."""
+    from repro_torch.obs import perfmodel as pm
+
+    dev, interpret = pm.current_partition(device.type)
+    cal = pm.load_calibration(args.calibration, device=dev,
+                              interpret=interpret)
+    if cal is None:
+        path = args.calibration or pm.default_calibration_path()
+        print(f"[serve] check-regressions: no calibration of partition "
+              f"({dev}, interpret={interpret}) at {path}; skipped "
+              "(python -m repro_torch.obs --calibrate)", file=sys.stderr)
+        return None
+    report = pm.check_regressions(
+        pm.samples_from_registry(device_type=device.type), cal)
+    print(pm.render_report(report))
+    if not report["n_samples"]:
+        print("[serve] check-regressions: no kernel_gemm_s samples "
+              "recorded", file=sys.stderr)
+    elif not report["ok"]:
         raise SystemExit(
-            f"--backend {args.backend} cannot run --quant {args.quant}; the "
-            "port has one GeMM backend per mode (others: ROADMAP A3)")
-    return None
+            f"[serve] check-regressions: {report['n_outliers']} kernel "
+            f"timing(s) exceeded {report['tolerance']:g}x the model "
+            "prediction")
+    return report
+
+
+def warm_generate(params, cfg, tokens, policy) -> dict:
+    """Resolve the plans static ``generate`` on ``tokens`` will request:
+    one prefill and one decode step under ``dispatch.collecting()``
+    enumerate the keys, which ``dispatch.warm`` tunes or looks up."""
+    with dispatch.collecting() as reqs, dispatch.using_policy(policy):
+        SV.generate(params, cfg, tokens, max_new_tokens=2)
+    return dispatch.warm(reqs, policy=policy)
 
 
 def run_static(args, params, cfg, device: torch.device):
@@ -136,6 +197,11 @@ def run_static(args, params, cfg, device: torch.device):
     g = generator(args.seed, device)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=g, device=device, dtype=torch.int32)
+    policy = exec_policy(args)
+    if policy is not None and policy.autotune:
+        plans = warm_generate(params, cfg, tokens, policy)
+        print(f"[serve] resolved {len(plans)} exec plans before the run "
+              f"(cache={dispatch.cache().path})")
     t0 = time.perf_counter()
     out = SV.generate(params, cfg, tokens, max_new_tokens=args.new_tokens)
     _sync(device)
@@ -166,16 +232,19 @@ def kv_spec_from_args(args, kv_backend=None) -> KVQuantSpec | None:
     return KVQuantSpec(bits=args.kv_bits, backend=kv_backend)
 
 
-def check_static(results, params, cfg, device: torch.device) -> int:
+def check_static(results, params, cfg, device: torch.device,
+                 policy=None) -> int:
     """Every finished request's tokens == static ``generate`` on its
-    prompt; SystemExit otherwise.  Returns the number checked."""
+    prompt, under ``policy`` (the engine's: a tuned plan can change the
+    last bits); SystemExit otherwise.  Returns the number checked."""
     live = {rid: seq for rid, seq in results.items() if seq.status == "ok"}
     bad = []
     for rid, seq in sorted(live.items()):
         prompt = torch.tensor([list(seq.req.prompt)], dtype=torch.int32,
                               device=device)
-        ref = SV.generate(params, cfg, prompt,
-                          max_new_tokens=seq.req.max_new_tokens)
+        with dispatch.using_policy(policy):
+            ref = SV.generate(params, cfg, prompt,
+                              max_new_tokens=seq.req.max_new_tokens)
         if [int(t) for t in ref[0]] != seq.generated:
             bad.append(rid)
     print(f"[serve] static-path parity check: {len(live) - len(bad)}/"
@@ -203,7 +272,9 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
                     prefill_chunk=args.prefill_chunk, kv_quant=kv_spec,
                     kv_pool_bytes=(int(args.kv_pool_mib * 2**20)
                                    if args.kv_pool_mib else None),
-                    cuda_graph=False if args.no_cuda_graph else None)
+                    cuda_graph=False if args.no_cuda_graph else None,
+                    backend=gemm_backend(args), autotune=args.autotune,
+                    autotune_cache=args.autotune_cache)
     reqs = make_request_stream(args, cfg)
     print(f"[serve] continuous engine: {len(reqs)} requests, prompt lens "
           f"{sorted(len(r.prompt) for r in reqs)}, rate="
@@ -212,6 +283,13 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
           f"{args.prefill_chunk}, step "
           f"{'CUDA graphs' if engine.runner.cuda_graph else 'eager'}",
           flush=True)
+    if engine.exec_plans:
+        tuned = sum(p.source == "autotuned"
+                    for p in engine.exec_plans.values())
+        print(f"[serve] resolved {len(engine.exec_plans)} exec plans at "
+              f"build, {tuned} autotuned (autotune="
+              f"{args.autotune or 'off'}, cache={dispatch.cache().path})",
+              flush=True)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     before = launch_counts()
@@ -241,9 +319,11 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
           + f"; launches {launches}", flush=True)
     out = dict(results=results, metrics=s, steps=engine.num_steps,
                run_s=dt, launches=launches, kv_spec=kv_spec,
-               cuda_graph=engine.runner.cuda_graph)
+               cuda_graph=engine.runner.cuda_graph,
+               exec_plans=engine.exec_plans)
     if args.check:
-        out["checked"] = check_static(results, params, cfg, device)
+        out["checked"] = check_static(results, params, cfg, device,
+                                      exec_policy(args))
     return out
 
 
@@ -289,6 +369,17 @@ def parse_args(argv=None):
                     choices=["auto"] + dispatch.backend_names(),
                     help="force a registered backend (see the module's "
                          "docstring)")
+    # execution planning (repro_torch.dispatch)
+    ap.add_argument("--autotune", nargs="?", const=True, default=False,
+                    choices=["model", "full"], metavar="MODE",
+                    help="time the kernels' tile choices per GeMM shape and "
+                         "persist the winners to the plan cache; the bare "
+                         "flag prunes the sweep with the perf model when a "
+                         "calibration exists, '=model'/'=full' force the "
+                         "pruned/exhaustive sweep")
+    ap.add_argument("--autotune-cache", default=None, metavar="PATH",
+                    help="plan-cache JSON path (default: REPRO_PLAN_CACHE "
+                         "or ~/.cache/msgemm-repro-torch/plans.json)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no fallback")
     ap.add_argument("--no-cuda-graph", action="store_true",
@@ -304,10 +395,18 @@ def parse_args(argv=None):
     ap.add_argument("--prom-port", type=int, default=0,
                     help="expose /metrics in Prometheus text format on "
                          "this port for the lifetime of the run")
+    ap.add_argument("--check-regressions", action="store_true",
+                    help="after the run, compare measured kernel times "
+                         "with the calibrated perf model (obs.perfmodel); "
+                         "exit 1 on outliers; turns tracing on")
+    ap.add_argument("--calibration", default=None, metavar="PATH",
+                    help="perf-model calibration.json for "
+                         "--check-regressions (default: $REPRO_CALIBRATION "
+                         "or the user cache dir)")
     args = ap.parse_args(argv)
     if args.kv_codebook == "learned":
         ap.error("--kv-codebook learned fits a codebook with kvq/fit.py, "
-                 "which is not ported yet (ROADMAP A6/A9)")
+                 "which is not ported yet (ROADMAP A4)")
     return args
 
 
@@ -318,8 +417,9 @@ def main(argv=None) -> dict:
     device = resolve(args.device)
     kv_backend = backends_from_args(args)
     # tracing must be on before the engine captures its step: device marks
-    # are staged at capture, so a later enable records host spans only
-    if args.trace_out:
+    # are staged at capture, so a later enable records host spans only;
+    # the sentinel reads the kernel_gemm_s series those marks fill
+    if args.trace_out or args.check_regressions:
         obs.enable_tracing(clear=True)
     prom = None
     if args.prom_port:
@@ -334,7 +434,13 @@ def main(argv=None) -> dict:
             if args.kv_bits != 16 or args.kv_pool_mib:
                 print("[serve] --kv-bits/--kv-pool-mib apply to the paged "
                       "pool only; ignored by --engine static")
-            run = run_static(args, params, cfg, device)
+            if args.autotune_cache is not None:
+                dispatch.set_cache_path(args.autotune_cache)
+            with dispatch.using_policy(exec_policy(args)):
+                run = run_static(args, params, cfg, device)
+        if args.check_regressions:
+            _sync(device)
+            run["regressions"] = check_run_regressions(args, device)
         return dict(params=params, cfg=cfg, build=build, **run)
     finally:
         if args.trace_out:
@@ -343,13 +449,18 @@ def main(argv=None) -> dict:
             obs.disable_tracing()
             print(f"[serve] wrote trace {args.trace_out} "
                   f"({len(obs.tracer().events())} events)")
+        elif args.check_regressions:
+            obs.disable_tracing()  # it was on for the sentinel only
         if args.metrics_json:
             snap = obs.registry().snapshot(extra={
                 "arch": args.arch, "quant": args.quant,
                 "engine": args.engine, "backend": args.backend,
                 "kv_bits": args.kv_bits, "kv_codebook": args.kv_codebook,
                 "no_cuda_graph": args.no_cuda_graph,
-                "device": str(device)})
+                "device": str(device), "autotune": args.autotune,
+                # the perf model's partition of this run's kernel series
+                "plan_device": dispatch.device_name(device.type),
+                "interpret": device.type != "cuda"})
             with open(args.metrics_json, "w") as f:
                 json.dump(snap, f, indent=1)
             print(f"[serve] wrote metrics snapshot {args.metrics_json}")

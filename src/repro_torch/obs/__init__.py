@@ -1,6 +1,5 @@
-"""Observability layer: metrics registry and structured tracer; port of
-repro.obs (its ``costs``, ``perfmodel``, ``artifacts`` and ``__main__``
-wait for the plan-layer slice).
+"""Observability layer: metrics registry, structured tracer, cost model,
+perf model and artifact integrity; port of repro.obs.
 
 One import surface for the rest of the port::
 
@@ -38,6 +37,19 @@ from repro_torch.obs.trace import (  # noqa: F401
     validate_trace_file,
 )
 
+from repro_torch.obs import costs  # noqa: F401,E402  (re-export module)
+from repro_torch.obs import perfmodel  # noqa: F401,E402  (re-export module)
+
+
+def __getattr__(name):
+    # lazy: obs.artifacts imports repro_torch.obs back for the registry, so
+    # a top-level import here would be circular
+    if name == "artifacts":
+        import importlib
+        return importlib.import_module("repro_torch.obs.artifacts")
+    raise AttributeError(name)
+
+
 __all__ = [
     "Registry", "registry", "serve_prometheus",
     "validate_snapshot", "validate_snapshot_file",
@@ -45,4 +57,5 @@ __all__ = [
     "Tracer", "tracer", "enable_tracing", "disable_tracing",
     "mark_begin", "mark_end",
     "validate_trace", "validate_trace_file", "TRACE_SCHEMA_VERSION",
+    "costs", "perfmodel",
 ]

@@ -16,6 +16,14 @@ copied into the graph's static buffers (the pool is written in place, so
 nothing needs donating).  On the CPU, or with ``cuda_graph=False``, the
 same runner calls the step eagerly.
 
+Execution planning as in the reference: with a ``backend`` or
+``autotune`` request the engine builds an ``ExecPolicy`` and resolves
+every GeMM's plan at build (``StepRunner.resolve_plans``: one idle step
+of each shape under ``dispatch.collecting()`` enumerates the keys, and
+``dispatch.warm`` tunes or looks them up), before anything is captured;
+every step then runs under ``dispatch.using_policy``.  With neither the
+policy is None and nothing changes.
+
 The engine reports through ``repro_torch.obs`` under the reference's
 series and span names (``serving_*``, ``kv_*``, ``engine.prefill_chunk``,
 ``engine.decode_step``, ``request.submit``/``finish``), so the two
@@ -34,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import kvq, obs
+from repro_torch import dispatch, kvq, obs
 from repro_torch.kernels.ops import KERNELS
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import serve as SV
@@ -115,6 +123,10 @@ class StepRunner:
     call of the same shape.  Without ``cuda_graph`` the step runs eagerly
     through the same staging.  A capture or replay failure raises.
 
+    ``policy``: the engine's ExecPolicy (None: the process default),
+    active around every step; when given, :meth:`resolve_plans` runs
+    before any capture and ``exec_plans`` holds its plans.
+
     Launch counts: a capture records each kernel module's launches without
     running them, so they are taken back and added again on every
     replay; the modules' ``launches`` read the same per step on both
@@ -124,20 +136,38 @@ class StepRunner:
 
     def __init__(self, params, cfg: ModelConfig, kv, device: torch.device,
                  shapes: dict, *, width: int, block_size: int,
-                 cuda_graph: bool):
+                 cuda_graph: bool, policy=None):
         if cuda_graph and device.type != "cuda":
             raise ValueError(f"cuda_graph needs a CUDA device, not {device}")
         self.params, self.cfg, self.kv, self.device = params, cfg, kv, device
         self.cuda_graph = cuda_graph
+        self.policy = policy
         self.shapes = {name: _Shape(b, c, width, block_size, device)
                        for name, (b, c) in shapes.items()}
+        self.exec_plans: dict = {}
+        if policy is not None:
+            self.exec_plans = self.resolve_plans()
         if cuda_graph:
             pool = torch.cuda.graph_pool_handle()
             for shape in self.shapes.values():
                 self._capture(shape, pool)
 
+    def resolve_plans(self) -> dict:
+        """Collect the plan keys of both step shapes by running each
+        shape's idle step once (it writes only scratch, as a capture's
+        warm-up does), then warm them under the policy: tuned, or read
+        from the plan cache, before any capture.  Returns {plan key:
+        plan}."""
+        tr = obs.tracer()
+        tr.resolve_marks(tr.take_marks())  # marks staged before it
+        with dispatch.collecting() as reqs:
+            for shape in self.shapes.values():
+                self._step(shape)
+        tr.take_marks()  # the collection's marks time no step
+        return dispatch.warm(reqs, policy=self.policy)
+
     def _step(self, shape: _Shape):
-        with torch.no_grad():
+        with torch.no_grad(), dispatch.using_policy(self.policy):
             logits, _ = SV.paged_step(
                 self.params, self.cfg, shape.dev["tokens"], self.kv,
                 shape.dev["positions"], shape.dev["write_slots"],
@@ -204,7 +234,11 @@ class Engine:
     as a captured CUDA graph (:class:`StepRunner`); None means on for a
     CUDA device, and False on CUDA is the eager route.  The graphs are
     captured here, so enable tracing before building the engine to get
-    the device marks of its steps.
+    the device marks of its steps.  backend / autotune / autotune_cache:
+    the execution policy (``dispatch.ExecPolicy``: a forced GeMM backend,
+    autotuning False/True/'model'/'full', and the plan-cache file); with
+    any of backend or autotune set, every GeMM's plan is resolved at
+    build (``exec_plans``), tuned plans included, before the capture.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
@@ -213,7 +247,8 @@ class Engine:
                  cache_dtype=torch.float32, kv_quant=None,
                  kv_pool_bytes: int | None = None, on_token=None,
                  clock=time.perf_counter, sample_seed: int = 0,
-                 cuda_graph: bool | None = None):
+                 cuda_graph: bool | None = None, backend: str | None = None,
+                 autotune: bool | str = False, autotune_cache=None):
         self.params = params
         if kv_quant is not None:
             cfg = cfg.replace(kv_quant=kv_quant)
@@ -249,11 +284,21 @@ class Engine:
         self._export_kv_gauges(num_blocks, cache_dtype)
         if cuda_graph is None:
             cuda_graph = self.device.type == "cuda"
+        # with no backend and no autotune request the policy is None and
+        # the process default applies, exactly as before
+        self._policy = None
+        if backend is not None or autotune:
+            if autotune_cache is not None:
+                dispatch.set_cache_path(autotune_cache)
+            self._policy = dispatch.ExecPolicy(backend=backend,
+                                               autotune=autotune)
         self.runner = StepRunner(
             params, cfg, self.kv, self.device,
             {"prefill": (1, prefill_chunk), "decode": (max_slots, 1)},
             width=self.max_blocks_per_seq * block_size,
-            block_size=block_size, cuda_graph=cuda_graph)
+            block_size=block_size, cuda_graph=cuda_graph,
+            policy=self._policy)
+        self.exec_plans = self.runner.exec_plans
 
     def _export_kv_gauges(self, num_blocks: int, cache_dtype) -> None:
         """Pool-capacity gauges (kv_* prefix, not serving_*: capacity is a

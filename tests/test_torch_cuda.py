@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_plan_isolation import (  # noqa: E402,F401  (autouse)
+    isolated_plan_cache, isolated_plan_cache_module)
 
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.kernels import msgemm as ms  # noqa: E402
@@ -487,16 +489,23 @@ def _small_engine_model(mode):
     return params, cfg.replace(quant=spec), kw
 
 
-def _serve_small(params, cfg, cuda_graph, **kw):
-    """Six requests through the engine; the launch counts are set to 0
-    after the engine (and its graphs) were built."""
+def _small_engine(params, cfg, cuda_graph, **kw):
+    from repro_torch.serving import Engine
+
+    return Engine(params, cfg, max_slots=4, block_size=8, prefill_chunk=8,
+                  max_model_len=24, cuda_graph=cuda_graph, **kw)
+
+
+def _serve_small(params, cfg, cuda_graph, eng=None, **kw):
+    """Six requests through the engine (``eng``, else one built here);
+    the launch counts are set to 0 after the engine (and its graphs) were
+    built."""
     from repro_torch.kernels.ops import KERNELS, launch_counts
-    from repro_torch.serving import Engine, poisson_stream
+    from repro_torch.serving import poisson_stream
 
     reqs = poisson_stream(6, cfg.vocab_size, max_new_tokens=8, rate=0.0,
                           min_prompt=3, max_prompt=16, seed=0)
-    eng = Engine(params, cfg, max_slots=4, block_size=8, prefill_chunk=8,
-                 max_model_len=24, cuda_graph=cuda_graph, **kw)
+    eng = eng or _small_engine(params, cfg, cuda_graph, **kw)
     for mod in KERNELS.values():
         mod.launches = 0
     res = eng.run(reqs, wait_for_arrivals=False)
@@ -566,3 +575,50 @@ def test_traced_capture_times_gemms_inside_a_replay():
     finally:
         obs.disable_tracing()
         obs.tracer().clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["msgemm", "int4"])
+def test_engine_autotune_on_the_card(mode, tmp_path):
+    """``Engine(autotune=True)`` times the kernels' tile choices at build,
+    before the capture, which then resolves every GeMM from the warm
+    cache; the first steps on each route add no plan-cache miss (the
+    eager engine built with no plan memoized), the routes give the same
+    tokens, and a rebuild from the reloaded cache times nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch import dispatch, obs
+    from repro_torch.dispatch import autotune as at
+    from repro_torch.dispatch.plan import invalidate
+
+    def misses():
+        return obs.registry().value("counter", "dispatch_plan_cache_total",
+                                    result="miss") or 0
+
+    params, cfg, kw = _small_engine_model(mode)
+    dispatch.set_cache_path(tmp_path / "plans.json")
+    try:
+        obs.registry().reset(prefix="dispatch_")
+        at.num_timed_candidates = 0
+        g_eng = _small_engine(params, cfg, None, autotune=True, **kw)
+        timed = at.num_timed_candidates
+        tuned = [p for p in g_eng.exec_plans.values() if p.tiles is not None]
+        assert timed > 0 and tuned and g_eng.runner.cuda_graph
+        assert all(p.source == "autotuned" for p in tuned)
+        assert misses() == 0  # the capture found every plan in the cache
+        g_toks, _, _ = _serve_small(params, cfg, None, eng=g_eng)
+        assert misses() == 0 and at.num_timed_candidates == timed
+        invalidate()  # the eager engine's steps resolve afresh
+        e_eng = _small_engine(params, cfg, False, autotune=True, **kw)
+        assert at.num_timed_candidates == timed  # all cached
+        e_toks, _, _ = _serve_small(params, cfg, False, eng=e_eng)
+        assert misses() == 0 and at.num_timed_candidates == timed
+        assert g_toks == e_toks and e_eng.exec_plans == g_eng.exec_plans
+        dispatch.set_cache_path(tmp_path / "plans.json")
+        at.num_timed_candidates = 0
+        r_toks, _, r_eng = _serve_small(params, cfg, None, autotune=True,
+                                        **kw)
+        assert at.num_timed_candidates == 0 and r_toks == g_toks
+        assert r_eng.exec_plans == g_eng.exec_plans
+    finally:
+        dispatch.set_cache_path(None)

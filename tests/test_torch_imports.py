@@ -31,6 +31,10 @@ MUST_IMPORT = {
     "repro_torch.launch", "repro_torch.launch.serve",
     "repro_torch.serving.engine", "repro_torch.kvq.attention",
     "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+    "repro_torch.obs.costs", "repro_torch.obs.perfmodel",
+    "repro_torch.obs.artifacts", "repro_torch.obs.__main__",
+    "repro_torch.core.complexity", "repro_torch.dispatch.plan",
+    "repro_torch.dispatch.autotune", "repro_torch.dispatch.__main__",
 }
 
 

@@ -6,10 +6,14 @@ full-precision and an int8 KV pool; ``repro_torch.launch.serve.main``
 passes its ``--check`` for both ported architectures at msgemm,
 int4_dequant and kv8, and refuses what is not ported."""
 
+import json
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_plan_isolation import (  # noqa: E402,F401  (autouse)
+    isolated_plan_cache, isolated_plan_cache_module)
 # one intra-op thread each: the suite runs in parallel workers
 torch.set_num_threads(1)
 
@@ -22,7 +26,7 @@ from repro.models import transformer as JT  # noqa: E402
 from repro.quant import quantize_model as j_quantize  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
-from repro_torch import configs, convert  # noqa: E402
+from repro_torch import configs, convert, obs  # noqa: E402
 from repro_torch.kvq import KVQuantSpec  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serving import Engine, Request  # noqa: E402
@@ -119,13 +123,9 @@ def test_serve_cli_static_engine():
 
 
 @pytest.mark.parametrize("flags", [
-    # "metrics": --metrics-json/--trace-out/--prom-port are ported; the
-    # perf-model sentinel that reads the kernel metrics is not (A8)
-    ["--mesh", "model=2"], ["--autotune"], ["--check-regressions"],
-    ["--faults", "all"], ["--watchdog"], ["--calibration", "c.json"],
+    ["--mesh", "model=2"], ["--faults", "all"], ["--watchdog"],
     ["--kv-bits", "4", "--kv-codebook", "learned"],
-], ids=["mesh", "autotune", "metrics", "faults", "watchdog", "calibration",
-        "learned-codebook"])
+], ids=["mesh", "faults", "watchdog", "learned-codebook"])
 def test_serve_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
@@ -136,12 +136,75 @@ def test_serve_cli_refuses_unported_flags(flags, capsys):
 
 
 def test_serve_cli_refuses_a_backend_that_cannot_run_the_weights():
-    with pytest.raises(SystemExit, match="cannot run"):
-        serve.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
-                    "--quant", "msgemm", "--backend", "int4_cuda"])
+    # a GeMM backend reaches the linears through ExecPolicy.backend, and
+    # linears whose weights it cannot run fall back to auto-selection
+    out = _main("gemma_2b", "--quant", "msgemm", "--backend", "int4_cuda")
+    assert out["checked"] == 3
+    assert {p.backend for p in out["exec_plans"].values()} == {"msgemm_cuda"}
     with pytest.raises(SystemExit, match="kv-bits"):
         serve.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
                     "--backend", "paged_attn_cuda"])
+
+
+def _plan_cli(tmp_path, *extra):
+    return _main("gemma_2b", "--quant", "int4_dequant", "--autotune-cache",
+                 str(tmp_path / "plans.json"), *extra)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--autotune"], ["--autotune=full"], ["--autotune=model"]],
+    ids=["autotune", "autotune-full", "autotune-model"])
+def test_serve_cli_autotunes_the_engine_and_the_check(tmp_path, flags):
+    """--autotune times the engine's keys at build and serves the winners;
+    --check runs the static path under the same policy and cache."""
+    from repro_torch.dispatch import autotune as at
+
+    out = _plan_cli(tmp_path, *flags)
+    assert out["checked"] == 3
+    tuned = [p for p in out["exec_plans"].values() if p.tiles is not None]
+    assert tuned and all(p.source == "autotuned" for p in tuned)
+    keys = at.PlanCache(tmp_path / "plans.json").timing_keys()
+    assert len(keys) > len(tuned)  # the static path's keys tuned too
+    assert any("|b1|" in k for k in keys)  # its decode steps
+    out = _plan_cli(tmp_path, "--engine", "static", *flags)
+    assert tuple(out["tokens"].shape) == (4, 6)
+
+
+def test_serve_cli_check_regressions_skips_without_calibration(tmp_path,
+                                                              capsys):
+    obs.registry().reset()
+    out = _plan_cli(tmp_path, "--check-regressions", "--calibration",
+                    str(tmp_path / "none.json"))
+    assert out["regressions"] is None
+    assert "skipped" in capsys.readouterr().err
+    # the flag turned tracing on for the run, so the kernel series filled
+    assert any(r["name"] == "kernel_gemm_s" and r["count"]
+               for r in obs.registry().snapshot()["histograms"])
+    assert not obs.tracer().enabled
+
+
+def test_serve_cli_check_regressions_with_its_own_calibration(tmp_path,
+                                                              capsys):
+    """A run with --autotune --metrics-json, a calibration fitted from its
+    plan cache and snapshot (python -m repro_torch.obs --calibrate), then
+    --check-regressions --calibration against it: exit 0, a report of
+    this run's kernel series."""
+    from repro_torch.obs.__main__ import main as obs_main
+
+    cache, snap = tmp_path / "plans.json", tmp_path / "m.json"
+    calib = tmp_path / "c.json"
+    _plan_cli(tmp_path, "--autotune", "--metrics-json", str(snap),
+              "--check-regressions")
+    ctx = json.loads(snap.read_text())["context"]
+    assert ctx["plan_device"] == "cpu" and ctx["interpret"] is True
+    assert obs_main(["--calibrate", "--plan-cache", str(cache),
+                     "--metrics", str(snap), "--calibration",
+                     str(calib)]) == 0
+    out = _plan_cli(tmp_path, "--autotune", "--check-regressions",
+                    "--calibration", str(calib))
+    report = out["regressions"]
+    assert report["ok"] and report["n_samples"] > 0
+    assert "verdict: OK" in capsys.readouterr().out
 
 
 def test_serve_cli_needs_a_card_unless_told_cpu(monkeypatch):

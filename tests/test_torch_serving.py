@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_plan_isolation import (  # noqa: E402,F401  (autouse)
+    isolated_plan_cache, isolated_plan_cache_module)
 # one intra-op thread each: the suite runs in parallel workers
 torch.set_num_threads(1)
 
