@@ -106,6 +106,25 @@ Phases, any failure exits non-zero before the last line is printed:
    sources and 1 with the slowest timing row x100.  Every timing (the
    tuner's, phase 2's, the sweeps') is ``kernels.ops.time_call``: calls
    back to back over copies of the weights past the L2, behind a sleep.
+   Then the calibration phase (``repro_torch.calib``, ``kvq.fit``): dense
+   full-width gemma-2b from seed 0 is calibrated on the card at full
+   depth to learned per-layer msgemm tables (``Recipe()``, 4 batches of
+   4 x 128 tokens of the lcg ``SyntheticStream``); the stats and fit
+   times, the aggregate uniform and learned weighted errors (the learned
+   must be lower), the linears with learned <= uniform and the peak
+   memory are printed.  The GPTQ and model-scope recipes run at full
+   width on 2 layers; the quality report (perplexity with the mean CE,
+   logit MSE, top-1 agreement) covers the dense model, uniform msgemm from
+   the same weights and the learned model; the learned K/V table and its
+   reconstruction error against the uniform grid's are printed.  The
+   learned model serves the stream on the graph and the eager route
+   (tokens == static generate, 126 msGeMM launches a step, every linear
+   on its own learned table), a learned int4 model serves it on
+   ``int4_torch`` (every plan, tokens == static generate, no kernel
+   launched), and the serve CLI runs ``--kv-bits 4 --kv-codebook learned
+   --check`` through ``paged_attn_cuda`` and ``paged_attn_torch`` (the
+   direct fit's table, the same tokens, 18 attention launches a step on
+   the kernel route).
 5. gemma2-9b — full-width gemma2-9b (42 layers, d_model 3584, vocab
    256000) from seed 0 through the port's serve CLI
    (``repro_torch.launch.serve.main``, in process): msgemm weights with
@@ -1663,6 +1682,271 @@ def phase_flash():
     return dict(cases=cases, launches=launches)
 
 
+# ------------------------------------------------------- calibration phase
+CALIB_DATA = dict(vocab_size=256000, seq_len=129, global_batch=4, mode="lcg")
+CALIB_REDUCED_LAYERS = 2  # the gptq and model-scope recipes' depth
+
+
+def calib_line(tag, res, stats_s, fit_s):
+    """Print and return one calibration's figures: times, the aggregate
+    weighted errors, how many linears have learned <= uniform."""
+    import torch
+
+    agg = res.report["aggregate"]
+    leaves = {p: e for p, e in res.report.items() if p != "aggregate"}
+    better = sum(e["learned_weighted_err"] <= e["uniform_weighted_err"]
+                 for e in leaves.values())
+    line = dict(stats_s=stats_s, fit_s=fit_s,
+                num_linears=agg["num_linears"],
+                uniform_weighted_err=agg["uniform_weighted_err"],
+                learned_weighted_err=agg["learned_weighted_err"],
+                learned_le_uniform=better,
+                peak_bytes=torch.cuda.max_memory_allocated())
+    print(f"[{tag}] stats {stats_s:.2f}s, fit {fit_s:.2f}s; weighted error "
+          f"uniform {agg['uniform_weighted_err']:.6e}, learned "
+          f"{agg['learned_weighted_err']:.6e} "
+          f"({agg['learned_weighted_err'] / agg['uniform_weighted_err']:.4f}"
+          f"x); learned <= uniform at {better} of {len(leaves)} linears; "
+          f"peak {line['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    check(agg["num_linears"] == len(leaves) == len(res.codebooks),
+          f"[{tag}] the report lists {len(leaves)} linears of "
+          f"{agg['num_linears']}")
+    check(math.isfinite(agg["learned_weighted_err"]),
+          f"[{tag}] learned error not finite")
+    return line
+
+
+def timed_calibrate(tag, model, cfg, stream, recipe, quant):
+    """``calib.calibrate`` on the card, its stats timed by a separate
+    ``calib.collect`` over the same batches first (the fit is the rest)."""
+    import torch
+
+    from repro_torch import calib
+    from repro_torch.calib.stats import batches_from
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    calib.collect(model, cfg, batches_from(stream, recipe.calib_steps),
+                  mode=recipe.stats_mode)
+    torch.cuda.synchronize()
+    stats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = calib.calibrate(model, cfg, stream, recipe, quant=quant)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    return res, calib_line(tag, res, stats_s, total_s - stats_s)
+
+
+def check_learned_tables(tag, res):
+    """Every linear of the calibrated model holds its own learned table
+    (the fitted one, not the uniform grid)."""
+    import torch
+
+    from repro_torch.core import packing
+
+    uniform = packing.b_values(torch.float32, "cuda")
+    mods = dict(res.params.named_modules())
+    for path, table in res.codebooks.items():
+        held = mods[path].params().get("codebook")
+        check(held is not None and held.is_cuda and torch.equal(held, table),
+              f"[{tag}] {path} does not hold its fitted table")
+        check(not torch.equal(held, uniform),
+              f"[{tag}] {path} holds the uniform grid")
+
+
+def phase_calib(untuned=None, untuned_int4=None):
+    """Calibration (``repro_torch.calib``, ``kvq.fit``) at full-width
+    gemma-2b on the card: dense weights from seed 0, learned per-layer
+    msgemm tables at full depth (gate: aggregate learned error below
+    uniform's); the gptq and model-scope recipes at 2 layers; the quality
+    report of dense, uniform and learned models; the learned model served
+    on both step routes (tokens == static generate, 126 msGeMM launches a
+    step, every linear on its own table); a learned int4 model on
+    int4_torch; and ``--kv-codebook learned`` kv4 through the serve CLI on
+    both attention routes.  ``untuned``/``untuned_int4``: phase 4's
+    uniform msgemm and int4 runs, printed beside."""
+    import torch
+
+    from repro_torch import calib, dispatch, kvq
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.device import generator
+    from repro_torch.calib.stats import batches_from
+    from repro_torch.kvq.fit import kv_reconstruction_error
+    from repro_torch.models import transformer
+    from repro_torch.runtime import serve as SV
+    from repro_torch.runtime.train import cross_entropy
+
+    t_phase = time.perf_counter()
+    out = {}
+    stream = SyntheticStream(DataConfig(**CALIB_DATA))
+    spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
+    dense = transformer.init_params(CONFIG, generator=generator(0, "cuda"),
+                                    device="cuda")
+    res, out["msgemm"] = timed_calibrate(
+        "calib msgemm", dense, CONFIG, stream, calib.Recipe(), spec)
+    check(out["msgemm"]["num_linears"] == 7 * CONFIG.num_layers,
+          f"[calib msgemm] {out['msgemm']['num_linears']} linears, not 126")
+    check(out["msgemm"]["learned_weighted_err"]
+          < out["msgemm"]["uniform_weighted_err"],
+          "[calib msgemm] the learned tables' aggregate error is not below "
+          "the uniform grid's")
+    check_learned_tables("calib msgemm", res)
+
+    # other recipes at reduced depth (the first two layers' weights)
+    small_cfg = CONFIG.replace(num_layers=CALIB_REDUCED_LAYERS)
+    small = transformer.init_params(
+        small_cfg, generator=generator(0, "cuda"), device="cuda")
+    for name, recipe in (("gptq", calib.Recipe(rounding="gptq")),
+                         ("model", calib.Recipe(scope="model"))):
+        r, out[name] = timed_calibrate(
+            f"calib {name} ({CALIB_REDUCED_LAYERS} layers)", small,
+            small_cfg, stream, recipe, spec)
+        if name == "model":
+            first = next(iter(r.codebooks.values()))
+            check(all(torch.equal(t, first) for t in r.codebooks.values()),
+                  "[calib model] the linears do not share one table")
+        del r
+    del small
+
+    # quality: dense, uniform msgemm from the same weights, learned
+    qcfg = CONFIG.replace(quant=res.quant)
+    uniform = transformer.init_params(CONFIG, generator=generator(0, "cuda"),
+                                      device="cuda", quant=spec)
+    variants = {"uniform": (uniform, CONFIG.replace(quant=spec)),
+                "learned": (res.params, qcfg)}
+    rep = calib.quality.compare(dense, CONFIG, variants, stream, steps=1)
+    # random weights at full width give a CE of hundreds of nats, past
+    # float64's exp: print the mean CE (log-perplexity) beside it
+    batch = batches_from(stream, 1)[0]
+    with torch.no_grad():
+        for name, (m, c) in {"bf16": (dense, CONFIG), **variants}.items():
+            ce, _ = cross_entropy(transformer.forward(m, c, batch["tokens"]),
+                                  batch["labels"])
+            rep[name]["mean_ce"] = float(ce)
+    for name, m in rep.items():
+        print(f"[calib quality] {name:8s} perplexity {m['perplexity']:.4g} "
+              f"(mean CE {m['mean_ce']:.4f} nats), logit MSE "
+              f"{m['logit_mse']:.6e}, top-1 agreement "
+              f"{m['top1_agree']:.4f}", flush=True)
+    out["quality"] = {name: {k: (v if math.isfinite(v) else str(v))
+                             for k, v in m.items()}
+                      for name, m in rep.items()}
+
+    # the learned K/V table the serve CLI fits (the same model and draw)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kv_tokens = torch.randint(0, CONFIG.vocab_size,
+                              (2, min(32, CONFIG.max_seq_len)), generator=g,
+                              device="cuda", dtype=torch.int32)
+    kv_batches = [{"tokens": kv_tokens}]
+    ucfg = CONFIG.replace(quant=spec)
+    kv_table = kvq.fit_kv_codebook(uniform, ucfg, kv_batches)
+    kv_err = {name: kv_reconstruction_error(
+        uniform, ucfg, kv_batches, kvq.KVQuantSpec(4, codebook=cb))
+        for name, cb in (("uniform", None), ("learned", kv_table))}
+    print(f"[calib kv] table fitted from gemma-2b's K/V: "
+          + " ".join(f"{v:.4f}" for v in kv_table)
+          + f"; reconstruction error uniform {kv_err['uniform']:.6e}, "
+          f"learned {kv_err['learned']:.6e}", flush=True)
+    check(kv_err["learned"] <= kv_err["uniform"],
+          "[calib kv] the learned KV table reconstructs worse than uniform")
+    out["kv_fit"] = dict(table=kv_table, reconstruction_error=kv_err)
+    del uniform, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve the learned msgemm model on both routes
+    run = serve("calib-msgemm", res.params, qcfg)
+    steps, launches = run["steps"], run["launches"]
+    check(launches == dict(launches, msgemm=126 * steps, int4_matmul=0,
+                           paged_attention=0),
+          f"[calib-msgemm] launches {launches} != 126 msGeMM x {steps} "
+          "steps and no other kernel")
+    check_static("calib-msgemm", res.params, qcfg, run)
+    run["eager"] = check_eager("calib-msgemm", res.params, qcfg, run,
+                               dict(msgemm=126))
+    run.pop("reqs")
+    run.pop("exec_plans")
+    run["eager"].pop("exec_plans")
+    base = (f"; uniform msgemm (phase 4): {untuned['step_ms']:.2f} ms, "
+            f"{untuned['metrics']['tok_per_s']:.1f} tok/s"
+            if untuned else "")
+    print(f"[calib-msgemm] learned tables: engine tokens == static "
+          f"generate on both routes, 126 msGeMM launches a step; "
+          f"{run['step_ms']:.2f} ms a step, "
+          f"{run['metrics']['tok_per_s']:.1f} tok/s (graph), "
+          f"{run['eager']['step_ms']:.2f} ms eager{base}", flush=True)
+    out["serve"] = run
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # learned int4: int4_torch (the int4 kernel takes the uniform grid)
+    dense = transformer.init_params(CONFIG, generator=generator(0, "cuda"),
+                                    device="cuda")
+    spec4 = QuantSpec(mode="int4_dequant", d=3, scale_block=36,
+                      storage="packed_u8")
+    res4, out["int4"] = timed_calibrate(
+        "calib int4", dense, CONFIG, stream, calib.Recipe(), spec4)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_learned_tables("calib int4", res4)
+    q4 = CONFIG.replace(quant=res4.quant)
+    run4 = serve("calib-int4", res4.params, q4)
+    check(all(n == 0 for n in run4["launches"].values()),
+          f"[calib-int4] a kernel launched: {run4['launches']}")
+    with dispatch.collecting() as reqs:
+        SV.generate(res4.params, q4, torch.tensor(
+            [run4["reqs"][0].prompt], dtype=torch.int32, device="cuda"),
+            max_new_tokens=2)
+    backends = {r.backend for r in reqs}
+    check(backends == {"int4_torch"},
+          f"[calib-int4] the plans picked {backends}, not int4_torch")
+    check_static("calib-int4", res4.params, q4, run4)
+    run4.pop("reqs")
+    run4.pop("exec_plans")
+    base = (f"; uniform int4 (phase 4, the kernel): "
+            f"{untuned_int4['step_ms']:.2f} ms, "
+            f"{untuned_int4['metrics']['tok_per_s']:.1f} tok/s"
+            if untuned_int4 else "")
+    print(f"[calib-int4] learned tables on int4_torch for all "
+          f"{len(reqs)} GeMM plans: engine tokens == static generate; "
+          f"{run4['step_ms']:.2f} ms a step, "
+          f"{run4['metrics']['tok_per_s']:.1f} tok/s (graph){base}",
+          flush=True)
+    out["int4"]["serve"] = run4
+    del res4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the serve CLI fits the KV table itself: both attention routes
+    cli = {}
+    for route, backend, attn in (("kernel", "paged_attn_cuda", 18),
+                                 ("torch", "paged_attn_torch", 0)):
+        cli[route] = serve_cli(
+            f"calib kv4-learned {route}",
+            ["--quant", "msgemm", "--kv-bits", "4", "--kv-codebook",
+             "learned", "--backend", backend, "--check"],
+            dict(msgemm=126, paged_attention=attn), arch="gemma_2b")
+        check(cli[route]["checked"] == 6,
+              f"[calib kv4-learned {route}] --check did not run")
+        check(cli[route]["kv_codebook"] == kv_table,
+              f"[calib kv4-learned {route}] the CLI fitted "
+              f"{cli[route]['kv_codebook']}, not {kv_table}")
+    check(cli["kernel"]["tokens"] == cli["torch"]["tokens"],
+          f"[calib kv4-learned] kernel route {cli['kernel']['tokens']} != "
+          f"torch route {cli['torch']['tokens']}")
+    print("[calib kv4-learned] the CLI's fitted table serves both routes "
+          "with the same tokens, --check 6/6 each", flush=True)
+    out["kv4_learned"] = cli
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[calib] phase {out['phase_s']:.1f}s", flush=True)
+    return out
+
+
 # ------------------------------------------------- gemma2-9b, the serve CLI
 LONG_PROMPT = dict(prompt_len=5000, seed=0)  # draws one 4,440-token prompt
 
@@ -1716,6 +2000,8 @@ def serve_cli(tag, argv, per_step, arch="gemma2_9b"):
                              for p in out["exec_plans"].values()),
                regressions=out.get("regressions"),
                prompts=[len(s.req.prompt) for s in out["results"].values()],
+               kv_codebook=(None if out.get("kv_spec") is None
+                            else out["kv_spec"].codebook),
                tokens={rid: s.generated for rid, s in out["results"].items()})
     del out
     gc.collect()
@@ -1953,6 +2239,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     plan_path["cli"] = phase_plan_cli()
     dispatch.set_cache_path(PLAN_CACHE)  # the serve CLI pointed it away
+    calib_path = phase_calib(main_path, int4_path)
     gemma2 = phase_gemma2_9b()
 
     smi = subprocess.run(
@@ -1990,6 +2277,9 @@ def main() -> int:
                for mode in ("msgemm", "int4") for r in ("", "eager",
                                                         "traced")]
             + [plan_path["cli"][r] for r in ("tune", "sentinel")]
+            + [calib_path["serve"], calib_path["serve"]["eager"],
+               calib_path["int4"]["serve"]]
+            + [calib_path["kv4_learned"][r] for r in ("kernel", "torch")]
             + [gemma2[k] for k in ("msgemm", "int4", "long", "msgemm-eager",
                                    "int4-eager", "long-eager")]
             + [gemma2["kv8"][r] for r in ("kernel", "torch")])
@@ -2048,7 +2338,8 @@ def main() -> int:
         card=card, build_s=build_s, ptxas=nvcc.reports, cases=cases,
         int4_cases=int4_cases, attn_cases=attn_cases, flash=flash,
         main=main_path, kvq=kvq_path,
-        int4=int4_path, plan=plan_path, gemma2_9b=gemma2, gemma2_9b_layers=layers,
+        int4=int4_path, plan=plan_path, calib=calib_path, gemma2_9b=gemma2,
+        gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     for key, e in ([("gemma-2b msgemm", kernels[0]),
                     ("gemma-2b int4", kernels[1])] + list(layers.items())):

@@ -4,7 +4,10 @@ The bridge is numpy (and plain attributes for the config): the caller turns the 
 leaves (``jax.tree.map(np.asarray, params)``) and hands it here, so the
 port never imports JAX.  Blocks stacked ``(G, ...)`` along the scan axis
 under ``blocks["{i}:{kind}"]`` become one module per layer (layer
-``g * len(pattern) + i``).
+``g * len(pattern) + i``); so do a calibrated tree's stacked ``(G, 16)``
+codebooks, one ``(16,)`` table per layer.  :func:`port_path` maps a
+reference param path (a calibration report's or codebook's key) and its
+slice to the port's module path.
 """
 
 from __future__ import annotations
@@ -88,3 +91,15 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None
     return transformer.Transformer(_t(tree["embedding"], dev),
                                    _norm(tree["final_norm"], dev), blocks,
                                    head)
+
+
+def port_path(path: str, g: int, cfg: ModelConfig) -> str:
+    """The port's module path of slice ``g`` of the reference param path
+    ``path``: ``blocks/{i}:{kind}/attn/wq`` -> ``blocks.{layer}.attn.wq``
+    with layer ``g * len(cfg.block_pattern) + i``; an unstacked path
+    (``lm_head``) keeps its name (and g is 0)."""
+    parts = path.split("/")
+    if parts[0] != "blocks":
+        return ".".join(parts)
+    layer = g * len(cfg.block_pattern) + int(parts[1].split(":")[0])
+    return ".".join(["blocks", str(layer), *parts[2:]])

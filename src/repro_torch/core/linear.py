@@ -1,6 +1,6 @@
 """QuantizedLinear — msGeMM as a linear-layer execution mode; port of
-repro.core.linear (the spec path; the deprecated ``QuantConfig`` shim and
-the calibration observer are not ported).
+repro.core.linear (the spec path and the calibration observer; the
+deprecated ``QuantConfig`` shim is not ported).
 
 A layer's weights are registered buffers of a :class:`QLinear`:
 
@@ -45,6 +45,20 @@ class QLinear(nn.Module):
         return dict(self._buffers)
 
 
+# Optional activation-statistics observer (repro_torch.calib.stats installs
+# one during calibration through set_observer; None costs nothing).  Kept
+# here so core never imports calib.
+_OBSERVER = None
+
+
+def set_observer(obs) -> None:
+    """Install (or clear, with None) the linear-input observer.  While set,
+    every tagged :func:`apply` reports its input activations to
+    ``obs.record(tag, x)``, before the GeMM runs."""
+    global _OBSERVER
+    _OBSERVER = obs
+
+
 def init(in_dim: int, out_dim: int, spec: QuantSpec = DENSE, *,
          generator: torch.Generator, device=None, dtype=torch.float32,
          init_scale: float | None = None) -> dict:
@@ -86,10 +100,14 @@ def from_quantized(qt: scales.QuantizedTensor, spec: QuantSpec) -> dict:
 
 
 def apply(params, x: torch.Tensor, spec: QuantSpec = DENSE, *,
-          in_dim: int | None = None, plan=None, epilogue=None, bias=None,
-          residual=None) -> torch.Tensor:
+          in_dim: int | None = None, tag: str | None = None, plan=None,
+          epilogue=None, bias=None, residual=None) -> torch.Tensor:
     """x (..., in) -> y (..., out) through the dispatch registry.
-    ``params`` is a dict of leaves or a :class:`QLinear`."""
+    ``params`` is a dict of leaves or a :class:`QLinear`.  ``tag`` names
+    this linear for the activation-statistics observer (calibration); it
+    does not change the computation."""
+    if _OBSERVER is not None and tag is not None:
+        _OBSERVER.record(tag, x)
     if isinstance(params, QLinear):
         params = params.params()
     return dispatch.execute(params, x, spec, in_dim=in_dim,

@@ -96,3 +96,23 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     vals = values[qt.codes.long()]
     q = torch.repeat_interleave(qt.scales, qt.block, dim=1)[:, :k]
     return (vals * q).to(dtype)
+
+
+def quantization_error(w: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Max absolute reconstruction error."""
+    return (w - dequantize(qt, w.dtype)).abs().max()
+
+
+def weighted_quantization_error(w: torch.Tensor, qt: QuantizedTensor,
+                                col_weights=None) -> torch.Tensor:
+    """Activation-aware reconstruction error: mean over rows of
+    ``sum_j cw_j (w_ij - deq_ij)^2 / sum_j cw_j`` — the proxy for the
+    layer-output MSE ``E||(W - Q)x||^2`` under diagonal input second
+    moments ``cw_j = E[x_j^2]`` (repro_torch.calib's fitting objective).
+    Computed in float32, in the reference's op order."""
+    err = (w.to(torch.float32) - dequantize(qt, torch.float32)) ** 2
+    if col_weights is None:
+        return err.mean()
+    cw = torch.as_tensor(col_weights, device=w.device).to(torch.float32)
+    cw = cw / cw.sum().clamp_min(1e-30)
+    return (err * cw[None, :]).sum(dim=1).mean()

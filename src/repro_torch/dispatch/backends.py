@@ -6,10 +6,17 @@
 * ``int4_cuda``: the hand-written int4 dequantize-then-dot kernel (the
   counterpart of ``int4_pallas``), uniform grid only, fused epilogue.
 
+* ``msgemm_torch``: LUT produce then gather consume in plain torch,
+  multiplying each chunk by its scale (the counterpart of ``msgemm_jnp``);
+  priority 50, below the kernel on both devices.
+* ``int4_torch``: dequantize onto the uniform grid or the leaf's learned
+  codebook, then ``torch.matmul`` (the counterpart of ``int4_jnp``);
+  priority 50, below ``int4_cuda`` for uniform weights and the only
+  backend for learned int4 weights, as ``int4_jnp`` is in the reference
+  (``int4_pallas`` refuses codebooks).
+
 On CPU tensors each kernel backend runs its kernel's plain PyTorch
-version.  The jnp msGeMM and int4 backends (``int4_jnp`` also serves
-learned-codebook int4 weights) and ``dense_fallback`` wait for their
-slices, so a quantized model here has exactly one execution path.
+version.  ``dense_fallback`` waits for the resilience slice.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import lut, packing, scales
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.dispatch.registry import register_backend
 from repro_torch.kernels import ops as kops
@@ -74,6 +81,36 @@ def run_int4_cuda(spec, plan, params, x, *, k, epilogue=None, bias=None,
     return y.t().reshape(*batch, m)
 
 
+def _codes(params, spec, k: int, d: int) -> torch.Tensor:
+    if spec.storage == "packed_idx":
+        return packing.unpack_indices(params["idx"], d, k)
+    return packing.unpack_storage(params["u8"], k)
+
+
+def run_int4_torch(spec, plan, params, x, *, k, epilogue=None, bias=None,
+                   residual=None):
+    m = params["scales"].shape[0]
+    codes = _codes(params, spec, k, spec.resolve_d(k, m))
+    qt = scales.QuantizedTensor(
+        codes=codes, scales=params["scales"], block=spec.scale_block,
+        shape=(m, k), codebook=params.get("codebook"))
+    return torch.matmul(x, scales.dequantize(qt, x.dtype).t())
+
+
+def run_msgemm_torch(spec, plan, params, x, *, k, epilogue=None, bias=None,
+                     residual=None):
+    m = params["scales"].shape[0]
+    d = spec.resolve_d(k, m)
+    batch = x.shape[:-1]
+    table = lut.produce(x.reshape(-1, k).t(), d, dtype=torch.float32,
+                        codebook=params.get("codebook"))
+    idx = (params["idx"] if spec.storage == "packed_idx"
+           else packing.indices_from_storage(params["u8"], d, k))
+    y = lut.consume(table, idx, scales=params["scales"],
+                    scale_block=spec.scale_block, d=d)
+    return y.t().reshape(*batch, m).to(x.dtype)
+
+
 register_backend(
     "dense", modes=("bf16",), run=run_dense, priority=100,
     description="dense matmul (the paper's naive GeMM, Eq. 14)")
@@ -92,3 +129,11 @@ register_backend(
     tunable=("tk", "nsplit"), epilogue_ok=lambda ep: True,
     description="hand-written Hopper int4 kernel: unpack, scale, dot, "
                 "fused epilogue (the paper's dequantize-then-GeMM baseline)")
+
+register_backend(
+    "msgemm_torch", modes=("msgemm",), run=run_msgemm_torch, priority=50,
+    description="produce/consume msGeMM in plain torch (per-chunk scales)")
+
+register_backend(
+    "int4_torch", modes=("int4_dequant",), run=run_int4_torch, priority=50,
+    description="dequantize (uniform grid or learned codebook) -> matmul")

@@ -10,11 +10,9 @@ the CUDA paged-attention kernel dequantizes K/V on chip at read time.
   :func:`blocks_for_bytes`, :func:`capacity_table` — pool tensors and the
   capacity arithmetic the engine sizes pools with;
 * :mod:`repro_torch.kvq.attention` — the paged-attention backends
-  (importing this package registers them).
-
-Fitting a codebook (the reference's ``fit_kv_codebook`` and
-``kv_reconstruction_error``) waits for the calibration slice; a spec with
-an explicit 16-value codebook works.
+  (importing this package registers them);
+* :func:`fit_kv_codebook` — the Lloyd-fitted 16-entry KV codebook of
+  :mod:`repro_torch.kvq.fit` (lazy: pulls in calib only when called).
 """
 
 from repro_torch.kvq import attention  # noqa: F401  (registers backends)
@@ -26,3 +24,10 @@ from repro_torch.kvq.quantize import (  # noqa: F401
     kv_dequantize, kv_quantize, pack_codes, unpack_codes,
 )
 from repro_torch.kvq.spec import KVQuantSpec  # noqa: F401
+
+
+def fit_kv_codebook(*args, **kwargs):
+    """Lazy re-export of :func:`repro_torch.kvq.fit.fit_kv_codebook` (keeps
+    calib out of the serving import path)."""
+    from repro_torch.kvq.fit import fit_kv_codebook as _fit
+    return _fit(*args, **kwargs)

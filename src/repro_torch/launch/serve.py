@@ -49,8 +49,11 @@ Flags of slices not ported yet are not defined, so argparse refuses them:
 ``--shard-impl`` and ``--force-host-devices`` (ROADMAP A13, multi-GPU);
 ``--faults``, ``--fault-seed``, ``--watchdog``, ``--deadline-s``,
 ``--ttft-deadline-s`` and ``--max-queue`` (A10, resilience).
-``--kv-codebook learned`` is refused: fitting the codebook needs
-``kvq/fit.py`` (A4).
+
+``--kv-bits 4 --kv-codebook learned`` fits the pool's 16-entry table once,
+from the model's own K/V on a seeded batch (``repro_torch.kvq.fit``), and
+prints it; at 16 and 8 bits the flag is ignored with a note, as in the
+reference.
 
 ``--backend`` takes the registry's names.  A paged-attention backend
 (``paged_attn_torch``, ``paged_attn_cuda``) forces the route of a
@@ -224,12 +227,31 @@ def make_request_stream(args, cfg):
                           max_prompt=args.prompt_len, seed=args.seed)
 
 
-def kv_spec_from_args(args, kv_backend=None) -> KVQuantSpec | None:
-    """--kv-bits -> KVQuantSpec (None at 16 bits), with the forced
-    attention backend if any."""
+def kv_spec_from_args(args, params, cfg, kv_backend=None
+                      ) -> KVQuantSpec | None:
+    """--kv-bits/--kv-codebook -> KVQuantSpec (None at 16 bits), with the
+    forced attention backend if any.  A learned codebook is fitted here,
+    once, from the model's own K/V activations on a batch drawn from
+    ``--seed`` (repro_torch.kvq.fit)."""
     if args.kv_bits == 16:
+        if args.kv_codebook == "learned":
+            print("[serve] --kv-codebook learned ignored at --kv-bits 16")
         return None
-    return KVQuantSpec(bits=args.kv_bits, backend=kv_backend)
+    codebook = None
+    if args.kv_codebook == "learned":
+        if args.kv_bits != 4:
+            print("[serve] --kv-codebook learned ignored at --kv-bits 8 "
+                  "(codebooks are a 4-bit construct)")
+        else:
+            from repro_torch import kvq
+
+            codebook = kvq.fit_kv_codebook(params, cfg, seed=args.seed,
+                                           device=args.device)
+            print("[serve] fitted 16-entry KV codebook from model "
+                  "activations: "
+                  + " ".join(f"{v:.4f}" for v in codebook), flush=True)
+    return KVQuantSpec(bits=args.kv_bits, codebook=codebook,
+                       backend=kv_backend)
 
 
 def check_static(results, params, cfg, device: torch.device,
@@ -261,9 +283,9 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
     launches are counted over the engine's run alone (not the check)."""
     from repro_torch.serving import Engine
 
-    kv_spec = kv_spec_from_args(args, kv_backend)
+    kv_spec = kv_spec_from_args(args, params, cfg, kv_backend)
     if kv_spec is not None:
-        print(f"[serve] quantized KV cache: kv{kv_spec.bits}, attention "
+        print(f"[serve] quantized KV cache: {kv_spec.describe()}, attention "
               f"through {kv_attention.select(kv_spec, device.type)}")
     engine = Engine(params, cfg, max_slots=args.max_slots,
                     block_size=args.block_size,
@@ -358,8 +380,8 @@ def parse_args(argv=None):
                          "8/4 = quantized codes + per-slot scales")
     ap.add_argument("--kv-codebook", default="uniform",
                     choices=["uniform", "learned"],
-                    help="4-bit code map; 'learned' needs kvq/fit.py, not "
-                         "ported yet")
+                    help="4-bit code map; 'learned' fits the table from "
+                         "the model's K/V activations (--kv-bits 4)")
     ap.add_argument("--kv-pool-mib", type=float, default=0,
                     help="size the KV pool by a device-byte budget (MiB) "
                          "instead of --num-blocks")
@@ -403,11 +425,7 @@ def parse_args(argv=None):
                     help="perf-model calibration.json for "
                          "--check-regressions (default: $REPRO_CALIBRATION "
                          "or the user cache dir)")
-    args = ap.parse_args(argv)
-    if args.kv_codebook == "learned":
-        ap.error("--kv-codebook learned fits a codebook with kvq/fit.py, "
-                 "which is not ported yet (ROADMAP A4)")
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:

@@ -50,18 +50,20 @@ def linear_init(in_dim: int, out_dim: int, cfg, quant=qlinear.DENSE, *,
         dtype=getattr(torch, cfg.param_dtype), init_scale=scale))
 
 
-def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, act="none",
-                 bias=None, residual=None, out_dtype=None) -> torch.Tensor:
+def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, tag=None,
+                 act="none", bias=None, residual=None, out_dtype=None
+                 ) -> torch.Tensor:
     """``act``/``bias``/``residual``/``out_dtype`` describe the tail
     ``y = act(Wx + bias) + residual`` (cast to ``out_dtype``); it becomes an
-    Epilogue that the msGeMM kernel fuses into its final write."""
+    Epilogue that the msGeMM kernel fuses into its final write.  ``tag``
+    names the linear for the calibration observer (core.linear.apply)."""
     ep = None
     if act != "none" or bias is not None or residual is not None \
             or out_dtype is not None:
         ep = Epilogue(act=act, bias=bias is not None,
                       residual=residual is not None, out_dtype=out_dtype)
-    return qlinear.apply(p, x, quant, in_dim=in_dim, epilogue=ep, bias=bias,
-                         residual=residual)
+    return qlinear.apply(p, x, quant, in_dim=in_dim, tag=tag, epilogue=ep,
+                         bias=bias, residual=residual)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -100,9 +102,12 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg, quant=None, *,
     act_name = {"swiglu": "silu", "geglu": "gelu",
                 "gelu": "gelu"}[cfg.mlp_activation]
     if hasattr(p, "gate"):
-        up = linear_apply(p.up, x, q, in_dim=cfg.d_model)
-        gate = linear_apply(p.gate, x, q, in_dim=cfg.d_model, act=act_name)
+        up = linear_apply(p.up, x, q, in_dim=cfg.d_model, tag="up")
+        gate = linear_apply(p.gate, x, q, in_dim=cfg.d_model, tag="gate",
+                            act=act_name)
         h = gate * up
     else:
-        h = linear_apply(p.up, x, q, in_dim=cfg.d_model, act=act_name)
-    return linear_apply(p.down, h, q, in_dim=h.shape[-1], residual=residual)
+        h = linear_apply(p.up, x, q, in_dim=cfg.d_model, tag="up",
+                         act=act_name)
+    return linear_apply(p.down, h, q, in_dim=h.shape[-1], tag="down",
+                        residual=residual)

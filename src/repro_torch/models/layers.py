@@ -60,9 +60,12 @@ def attn_init(cfg, *, generator: torch.Generator, device=None) -> Attention:
 def _qkv(p: Attention, cfg, x, positions):
     B = x.shape[0]
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = common.linear_apply(p.wq, x, cfg.quant, in_dim=cfg.d_model)
-    k = common.linear_apply(p.wk, x, cfg.quant, in_dim=cfg.d_model)
-    v = common.linear_apply(p.wv, x, cfg.quant, in_dim=cfg.d_model)
+    q = common.linear_apply(p.wq, x, cfg.quant, in_dim=cfg.d_model,
+                            tag="wq")
+    k = common.linear_apply(p.wk, x, cfg.quant, in_dim=cfg.d_model,
+                            tag="wk")
+    v = common.linear_apply(p.wv, x, cfg.quant, in_dim=cfg.d_model,
+                            tag="wv")
     q = q.reshape(B, -1, h, dh)
     k = k.reshape(B, -1, hk, dh)
     v = v.reshape(B, -1, hk, dh)
@@ -134,7 +137,7 @@ def attn_apply(p: Attention, cfg, x, positions, *, window: int = 0,
             if causal else None
         out = _sdpa(cfg, q, k, v, m)
     out = common.linear_apply(p.wo, out, cfg.quant,
-                              in_dim=cfg.num_heads * cfg.head_dim,
+                              in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
                               residual=residual)
     return (out, k, v) if return_kv else out
 
@@ -152,7 +155,7 @@ def attn_decode(p: Attention, cfg, x, cache_k, cache_v, pos, *,
     m = view_mask(Skv, pos[:, None], window=window)[:, 0]
     out = _sdpa(cfg, q, cache_k, cache_v, m[:, None, None, :])
     out = common.linear_apply(p.wo, out, cfg.quant,
-                              in_dim=cfg.num_heads * cfg.head_dim,
+                              in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
                               residual=residual)
     return out, cache_k, cache_v
 
@@ -188,7 +191,7 @@ def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,
         m = view_mask(view_slots.shape[1], positions, window=window)
         out = _sdpa(cfg, q, kp[vs], vp[vs], m[:, None])
     out = common.linear_apply(p.wo, out, cfg.quant,
-                              in_dim=cfg.num_heads * cfg.head_dim,
+                              in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
                               residual=residual)
     return out, cache
 

@@ -140,7 +140,8 @@ def logits_from_hidden(params: Transformer, cfg: ModelConfig, x):
                               params.embedding.to(torch.float32).t())
     else:
         logits = common.linear_apply(params.lm_head, x, cfg.quant,
-                                     in_dim=cfg.d_model).to(torch.float32)
+                                     in_dim=cfg.d_model, tag="lm_head"
+                                     ).to(torch.float32)
     return common.softcap(logits, cfg.final_logit_softcap)
 
 

@@ -241,10 +241,11 @@ def test_dispatch_selects_and_rejects():
     assert dispatch.plan(t_spec.DENSE, 16, 24, 4).backend == "dense"
     i4_spec = t_spec.QuantSpec(mode="int4_dequant")
     assert dispatch.plan(i4_spec, 16, 24, 4).backend == "int4_cuda"
-    # int4 with a learned codebook has no port backend yet
-    with pytest.raises(ValueError, match="no backend"):
-        dispatch.plan(t_spec.QuantSpec(mode="int4_dequant",
-                                       codebook="learned"), 16, 24, 4)
+    # int4 with a learned codebook goes to the dequantize-then-matmul
+    # backend (the int4 kernel takes the uniform grid only)
+    assert dispatch.plan(t_spec.QuantSpec(mode="int4_dequant",
+                                          codebook="learned"),
+                         16, 24, 4).backend == "int4_torch"
     w = torch.randn(16, 24, generator=torch.Generator().manual_seed(0))
     p = t_linear.from_dense(w, ms_spec)
     x = torch.randn(2, 24)

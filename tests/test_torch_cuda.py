@@ -622,3 +622,79 @@ def test_engine_autotune_on_the_card(mode, tmp_path):
         assert r_eng.exec_plans == g_eng.exec_plans
     finally:
         dispatch.set_cache_path(None)
+
+
+def _calibrate_small(device):
+    """The gemma-2b SMOKE model from seed 0 on the CPU, moved to
+    ``device``, calibrated there (msgemm, d=3, learned per-layer tables)."""
+    from repro_torch import calib, configs
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.device import generator
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke("gemma_2b")
+    model = transformer.init_params(cfg, generator=generator(0, "cpu"),
+                                    device="cpu").to(device)
+    stream = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=33, global_batch=4))
+    return calib.calibrate(model, cfg, stream,
+                           calib.Recipe(calib_steps=2, kmeans_iters=10),
+                           quant=QuantSpec(mode="msgemm", d=3,
+                                           scale_block=36),
+                           device=device), cfg
+
+
+@pytest.mark.cuda
+def test_calibrate_on_the_card_matches_the_cpu():
+    """Stats, Lloyd and the nearest-code searches on the card (float64
+    there) give the CPU's codebooks within 1e-6 and the same codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    cpu, _ = _calibrate_small("cpu")
+    gpu, _ = _calibrate_small("cuda")
+    assert set(gpu.codebooks) == set(cpu.codebooks)
+    for path, cb in cpu.codebooks.items():
+        assert gpu.codebooks[path].device.type == "cuda"
+        np.testing.assert_allclose(gpu.codebooks[path].cpu().numpy(),
+                                   cb.numpy(), rtol=1e-6, atol=1e-6)
+    agg_c, agg_g = cpu.report["aggregate"], gpu.report["aggregate"]
+    assert agg_g["learned_weighted_err"] < agg_g["uniform_weighted_err"]
+    np.testing.assert_allclose(agg_g["learned_weighted_err"],
+                               agg_c["learned_weighted_err"], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_learned_msgemm_graph_route_matches_eager_route():
+    """The msGeMM kernel with each linear's learned table as its basis:
+    a captured step gives the eager route's tokens and launches, 7 per
+    layer and step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    res, cfg = _calibrate_small("cuda")
+    qcfg = cfg.replace(quant=res.quant)
+    for path, cb in res.codebooks.items():
+        assert not torch.equal(cb.cpu(), packing.b_values()), path
+    g_toks, g_launches, g_eng = _serve_small(res.params, qcfg, None)
+    e_toks, e_launches, e_eng = _serve_small(res.params, qcfg, False)
+    assert g_eng.runner.cuda_graph and not e_eng.runner.cuda_graph
+    assert g_toks == e_toks and g_launches == e_launches
+    assert g_launches["msgemm"] == 7 * cfg.num_layers * g_eng.num_steps
+
+
+@pytest.mark.cuda
+def test_observer_refuses_a_capture():
+    """A host-side accumulation cannot sit inside a CUDA graph: record()
+    raises while the stream is captured."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.calib import StatsCollector
+
+    col = StatsCollector()
+    x = torch.ones(2, 8, device="cuda")
+    col.record("wq", x)  # eager: fine
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph):
+            col.record("wq", x * 2)
+    assert col.get("wq", 8).count == 2

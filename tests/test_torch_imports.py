@@ -35,6 +35,10 @@ MUST_IMPORT = {
     "repro_torch.obs.artifacts", "repro_torch.obs.__main__",
     "repro_torch.core.complexity", "repro_torch.dispatch.plan",
     "repro_torch.dispatch.autotune", "repro_torch.dispatch.__main__",
+    "repro_torch.calib", "repro_torch.calib.codebook",
+    "repro_torch.calib.stats", "repro_torch.calib.fit",
+    "repro_torch.calib.quality", "repro_torch.kvq.fit",
+    "repro_torch.data.pipeline", "repro_torch.runtime.train",
 }
 
 

@@ -352,9 +352,10 @@ def test_linear_apply_and_dispatch(storage):
                            epilogue=ep, bias=b, residual=r)
     torch.testing.assert_close(
         fused, torch.nn.functional.silu(got + b) + r, rtol=1e-6, atol=1e-6)
-    # int4 with a learned codebook has no port backend yet
-    with pytest.raises(ValueError, match="no backend"):
-        dispatch.plan(QuantSpec(**dict(kw, codebook="learned")), 16, 50, 10)
+    # int4 with a learned codebook goes to the dequantize-then-matmul
+    # backend (the kernel takes the uniform grid only)
+    assert dispatch.plan(QuantSpec(**dict(kw, codebook="learned")),
+                         16, 50, 10).backend == "int4_torch"
 
 
 # ------------------------------------------------------------ model / engine

@@ -124,15 +124,32 @@ def test_serve_cli_static_engine():
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "model=2"], ["--faults", "all"], ["--watchdog"],
-    ["--kv-bits", "4", "--kv-codebook", "learned"],
-], ids=["mesh", "faults", "watchdog", "learned-codebook"])
-def test_serve_cli_refuses_unported_flags(flags, capsys):
+], ids=["mesh", "faults", "watchdog"])
+def test_serve_cli_refuses_unported_flags(flags):
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
                     *flags])
     assert exc.value.code == 2
-    if "learned" in flags:
-        assert "kvq/fit.py" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_serve_cli_learned_kv_codebook(bits, capsys):
+    """--kv-codebook learned fits the pool's table from the model's K/V at
+    kv4 (printed; --check passes on it) and is ignored with the
+    reference's note at kv8 and kv16."""
+    out = _main("gemma_2b", "--quant", "msgemm", "--kv-bits", str(bits),
+                "--kv-codebook", "learned")
+    assert out["checked"] == 3
+    text = capsys.readouterr().out
+    spec = out["kv_spec"]
+    if bits == 4:
+        assert spec.codebook is not None and spec.codebook[0] == 0.0
+        assert "fitted 16-entry KV codebook" in text
+        assert " ".join(f"{v:.4f}" for v in spec.codebook) in text
+    else:
+        assert f"--kv-codebook learned ignored at --kv-bits {bits}" in text
+        assert (spec is None) == (bits == 16)
+        assert spec is None or spec.codebook is None
 
 
 def test_serve_cli_refuses_a_backend_that_cannot_run_the_weights():

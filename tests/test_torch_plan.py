@@ -279,7 +279,7 @@ def test_forced_backend_falls_back_for_specs_it_cannot_run():
 def test_quarantine_skips_a_backend_and_never_empties_selection():
     alt = registry.register_backend(
         "msgemm_alt", modes=("msgemm",), run=registry.get_backend(
-            "msgemm_cuda").run, priority=10)
+            "msgemm_cuda").run, priority=55)
     try:
         assert dispatch.plan(MS, 16, 24, 8,
                              device_type="cpu").backend == "msgemm_cuda"
@@ -296,7 +296,10 @@ def test_quarantine_skips_a_backend_and_never_empties_selection():
         forced = ExecPolicy(backend="msgemm_cuda")
         assert dispatch.plan(MS, 16, 24, 8, device_type="cpu",
                              policy=forced).backend == alt.name
-        dispatch.quarantine_backend("int4_cuda")  # the only int4 path
+        dispatch.quarantine_backend("int4_cuda")
+        assert dispatch.plan(I4, 16, 24, 8,
+                             device_type="cpu").backend == "int4_torch"
+        dispatch.quarantine_backend("int4_torch")  # every int4 path
         assert dispatch.plan(I4, 16, 24, 8,
                              device_type="cpu").backend == "int4_cuda"
         dispatch.clear_quarantine()
