@@ -125,6 +125,33 @@ Phases, any failure exits non-zero before the last line is printed:
    --check`` through ``paged_attn_cuda`` and ``paged_attn_torch`` (the
    direct fit's table, the same tokens, 18 attention launches a step on
    the kernel route).
+   Every fault-free engine run of these phases and of phase 5 must use no
+   rung of the resilience layer (``check_clean``: no shed, retry, NaN
+   quarantine, replan or KV rebuild, no fault plan armed, no backend
+   quarantined).  Then the resilience phase (``repro_torch.faults``, the
+   engine's retry, NaN guard, replan ladder, watchdog, deadlines and
+   shedding, ``repro_torch.checkpoint``), full-width gemma-2b msgemm on
+   the graph route, the stream above, the reference chaos benchmark's
+   schedules with seed 0: a clean run; ``latency``, ``oom``,
+   ``step_fail`` and ``disconnect`` each alone (survivors == the clean
+   run, retries == ``step_fail``'s fires, one ``disconnected`` request,
+   126 msGeMM launches every replayed step); ``nan_logits`` (2
+   quarantined requests, a replan that quarantines ``msgemm_cuda`` and
+   captures both step shapes again on ``msgemm_torch``: 126 launches a
+   step before it, 0 after; step ms before and after, both captures'
+   times, survivors == clean reported); ``nan_logits`` again on that
+   engine, down to ``dense_fallback``; on a fresh engine back on the
+   kernel, ``hang`` under ``Watchdog(min_steps=3, min_timeout_s=0.5)``
+   after a warm run (a hang, a replan, every request ok); the artifact
+   classes on copies in ``chiprun_out/resilience/`` (the plan phase's
+   cache and the fitted calibration quarantined on load and rebuilt; a
+   checkpoint of full-width gemma-2b msgemm cut to 2 layers, step 2
+   corrupted, step 1 restored bit for bit and served with the saved
+   model's tokens); all six serving classes at once with
+   ``max_queue=8``, ``deadline_s=30`` and the watchdog (every request
+   terminal; SLO attainment, shed rate, retries, replans); and the serve
+   CLI with ``--faults ... --watchdog --max-queue 64 --deadline-s 600
+   --check``.  Every armed run disarms and clears the quarantine after.
 5. gemma2-9b — full-width gemma2-9b (42 layers, d_model 3584, vocab
    256000) from seed 0 through the port's serve CLI
    (``repro_torch.launch.serve.main``, in process): msgemm weights with
@@ -976,21 +1003,52 @@ def phase_attn_kernels():
 NEW_TOKENS, PROMPT_LEN = 16, 16
 
 
+def request_stream(cfg):
+    """The 6-request stream every engine run of the main paths serves."""
+    from repro_torch.serving import poisson_stream
+
+    return poisson_stream(6, cfg.vocab_size, max_new_tokens=NEW_TOKENS,
+                          rate=50.0, min_prompt=PROMPT_LEN // 4,
+                          max_prompt=PROMPT_LEN, seed=0)
+
+
+def make_engine(model, cfg, **engine_kw):
+    """A continuous engine with the serve CLI's defaults."""
+    from repro_torch.serving import Engine
+
+    return Engine(model, cfg, max_slots=4, block_size=8, prefill_chunk=8,
+                  max_model_len=PROMPT_LEN + NEW_TOKENS, **engine_kw)
+
+
+def check_clean(tag, m):
+    """A fault-free run took no rung of the degradation ladder: no shed,
+    retry, NaN quarantine, replan or KV rebuild in its metrics ``m``, no
+    fault plan armed, no backend quarantined.  A kernel that produced
+    NaNs would otherwise pass a phase by being replanned away."""
+    from repro_torch import dispatch, obs
+
+    used = {k: m[k] for k in ("shed", "step_retries", "nan_quarantined",
+                              "replans", "kv_rebuilds") if m[k]}
+    check(not used, f"[{tag}] a fault-free run used the resilience "
+                    f"layer: {used}")
+    armed = obs.registry().gauge("faults_armed").value
+    check(armed == 0, f"[{tag}] {armed} fault classes armed")
+    check(not dispatch.quarantined(),
+          f"[{tag}] backends quarantined: {dispatch.quarantined()}")
+
+
 def serve(tag, model, cfg, **engine_kw):
     """Serve the request stream once through the continuous engine with
     the serve CLI's defaults.  Every kernel's launch count is set to 0
     just before the run and read just after it.  Checks that every
-    request finished with all its tokens."""
+    request finished with all its tokens and that the run used no rung of
+    the resilience layer (:func:`check_clean`)."""
     import torch
 
     from repro_torch.launch.serve import KERNELS as counters
-    from repro_torch.serving import Engine, poisson_stream
 
-    reqs = poisson_stream(6, cfg.vocab_size, max_new_tokens=NEW_TOKENS,
-                          rate=50.0, min_prompt=PROMPT_LEN // 4,
-                          max_prompt=PROMPT_LEN, seed=0)
-    engine = Engine(model, cfg, max_slots=4, block_size=8, prefill_chunk=8,
-                    max_model_len=PROMPT_LEN + NEW_TOKENS, **engine_kw)
+    reqs = request_stream(cfg)
+    engine = make_engine(model, cfg, **engine_kw)
     route = "graph" if engine.runner.cuda_graph else "eager"
     check(route == ("eager" if engine_kw.get("cuda_graph") is False
                     else "graph"), f"[{tag}] engine took the {route} route")
@@ -1012,6 +1070,7 @@ def serve(tag, model, cfg, **engine_kw):
               f"[{tag}] request {rid}: status {seq.status}, "
               f"{len(seq.generated)} tokens")
     s = engine.metrics()
+    check_clean(tag, s)
     print(f"[{tag}] {route} route: served {len(results)} requests, "
           f"{s['generated_tokens']} tokens in {run_s:.2f}s over {steps} steps "
           f"({run_s * 1e3 / steps:.2f} ms a step) "
@@ -1241,6 +1300,7 @@ def phase_profile(tag, model, cfg, **engine_kw):
         check(engine.num_steps == steps,
               f"[profile {tag} {route}] {engine.num_steps} steps profiled, "
               f"{steps} unprofiled")
+        check_clean(f"profile {tag} {route}", engine.metrics())
         # device-side events only (kernels, copies): a CPU op's device time
         # would count its kernels a second time
         rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1947,17 +2007,452 @@ def phase_calib(untuned=None, untuned_int4=None):
     return out
 
 
+# ------------------------------------------------------- resilience phase
+# the reference chaos benchmark's per-class schedules
+# (benchmarks/chaos_serve.py), with its seed
+RES_SPECS = {
+    "latency": "latency:p=1.0,after=2,max=3,mag=0.02",
+    "oom": "oom:p=0.5,after=1,max=4",
+    "nan_logits": "nan_logits:p=1.0,after=3,max=2",
+    "step_fail": "step_fail:p=1.0,after=2,max=2",
+    "hang": "hang:p=1.0,after=4,max=1,mag=0.1",
+    "disconnect": "disconnect:p=1.0,after=2,max=1",
+}
+RES_SEED = 0
+TERMINAL = {"ok", "shed", "deadline", "disconnected", "quarantined"}
+
+
+def serve_armed(tag, engine, reqs, spec=None):
+    """Serve ``reqs`` through ``engine`` with ``spec`` armed (seed
+    RES_SEED; None: disarmed), disarming in a ``finally``; the quarantine
+    is left to the caller.  Each step's wall ms and msGeMM launches are
+    recorded around ``engine._run_step`` (which returns once the step's
+    tokens reach the host), each replan's wall ms around
+    ``engine._replan``.  Every request must reach a terminal status."""
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.kernels.ops import KERNELS
+
+    ms = KERNELS["msgemm"]
+    steps, replans = [], []
+    for mod in KERNELS.values():
+        mod.launches = 0
+    run_step, replan = engine._run_step, engine._replan
+
+    def timed_step(name, *arrays):
+        before, t0 = ms.launches, time.perf_counter()
+        out = run_step(name, *arrays)
+        steps.append(dict(kind=name, ms=(time.perf_counter() - t0) * 1e3,
+                          msgemm=ms.launches - before))
+        return out
+
+    def timed_replan(reason):
+        t0 = time.perf_counter()
+        replan(reason)
+        torch.cuda.synchronize()
+        replans.append(dict(reason=reason, at_step=len(steps),
+                            ms=(time.perf_counter() - t0) * 1e3))
+
+    engine._run_step, engine._replan = timed_step, timed_replan
+    plan = faults.arm(spec, seed=RES_SEED) if spec else None
+    t0 = time.perf_counter()
+    try:
+        results = engine.run(reqs)
+        torch.cuda.synchronize()
+    finally:
+        faults.disarm()
+        del engine._run_step, engine._replan
+    run_s = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in KERNELS.items()}
+    statuses = {rid: seq.status for rid, seq in results.items()}
+    check(sorted(results) == sorted(r.rid for r in reqs)
+          and set(statuses.values()) <= TERMINAL,
+          f"[{tag}] requests not terminal: {statuses}")
+    fires = {} if plan is None else {c: plan.fires(c)
+                                     for c in plan.armed_classes()}
+    m = engine.metrics()
+    return dict(tag=tag, spec=spec, fires=fires, statuses=statuses,
+                tokens={rid: seq.generated for rid, seq in results.items()},
+                metrics=m, steps=steps, replans=replans, run_s=run_s,
+                launches=launches,
+                backends=sorted({p.backend
+                                 for p in engine.exec_plans.values()}))
+
+
+def step_ms(steps, kind=None):
+    """Median wall ms of the recorded steps (of one kind; nan if none)."""
+    xs = sorted(s["ms"] for s in steps if kind in (None, s["kind"]))
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def kinds_ms(steps):
+    """Median prefill and decode step ms, as one string and a dict."""
+    d = {k: step_ms(steps, k) for k in ("prefill", "decode")}
+    return f"prefill {d['prefill']:.2f} / decode {d['decode']:.2f} ms", d
+
+
+def res_line(run, card, extra=""):
+    m = run["metrics"]
+    print(f"[res {run['tag']}] {run['spec'] or 'disarmed'}: fires "
+          f"{run['fires']}, statuses {sorted(run['statuses'].values())}, "
+          f"{len(run['steps'])} steps (median {step_ms(run['steps']):.2f} "
+          f"ms), shed {m['shed']}, cancelled {m['cancelled']}, retries "
+          f"{m['step_retries']}, nan {m['nan_quarantined']}, replans "
+          f"{m['replans']}, backends {run['backends']}{extra} ({card})",
+          flush=True)
+
+
+def phase_resilience(card):
+    """The resilience layer at full-width gemma-2b msgemm on the graph
+    route, the stream of :func:`serve`; ``card`` is the report line
+    (name, power limit) every figure here is taken on.  Clean run, each
+    transient class (tokens == clean, launches 126 a replayed step), NaN
+    guard and replan (re-capture onto msgemm_torch, 0 msGeMM launches a
+    step), the second replan onto dense_fallback, the watchdog's hang
+    escalation, the artifact classes (plan cache, calibration, a 2-layer
+    checkpoint restored and served), every class at once, and the serve
+    CLI with --faults --check."""
+    import gc
+
+    import torch
+
+    from repro_torch import dispatch
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.distributed.watchdog import Watchdog
+
+    t_phase = time.perf_counter()
+    print(f"[res] card: {card}", flush=True)
+    spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
+    model, cfg, build_s, _ = build_gemma(spec)
+    gemms = 7 * cfg.num_layers
+    reqs = request_stream(cfg)
+    out = {}
+
+    t0 = time.perf_counter()
+    clean_eng = make_engine(model, cfg)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    clean = serve_armed("clean", clean_eng, reqs)
+    check_clean("res clean", clean["metrics"])
+    check(all(st["msgemm"] == gemms for st in clean["steps"]),
+          f"[res clean] msGeMM launches a step {clean['steps']}")
+    del clean_eng
+    res_line(clean, card, f"; build capture {capture_ms:.1f} ms")
+    out["clean"] = dict(clean, capture_ms=capture_ms)
+
+    # transient classes: survivors token-identical, every replayed step on
+    # the kernel
+    for cls in ("latency", "oom", "step_fail", "disconnect"):
+        try:
+            run = serve_armed(cls, make_engine(model, cfg), reqs,
+                              RES_SPECS[cls])
+        finally:
+            dispatch.clear_quarantine()
+        m, fires = run["metrics"], run["fires"][cls]
+        check(fires > 0, f"[res {cls}] the plan never fired")
+        live = {r: t for r, t in run["tokens"].items()
+                if run["statuses"][r] == "ok"}
+        check(all(t == clean["tokens"][r] for r, t in live.items()),
+              f"[res {cls}] survivors differ from the clean run")
+        check(all(st["msgemm"] == gemms for st in run["steps"]),
+              f"[res {cls}] a replayed step launched other than {gemms} "
+              "msGeMM kernels")
+        check(m["step_retries"] == (fires if cls == "step_fail" else 0),
+              f"[res {cls}] {m['step_retries']} retries, {fires} fires")
+        check(m["replans"] == m["nan_quarantined"] == 0,
+              f"[res {cls}] replanned")
+        lost = sorted(s for s in run["statuses"].values() if s != "ok")
+        check(lost == (["disconnected"] if cls == "disconnect" else []),
+              f"[res {cls}] non-ok statuses {lost}")
+        res_line(run, card,
+                 f"; {len(live)}/{len(reqs)} finished, all == clean")
+        out[cls] = run
+
+    # NaN guard: two quarantined sequences, then a replan that captures
+    # both step shapes again on msgemm_torch; then a second replan on the
+    # same engine reaches the bottom rung, dense_fallback
+    eng = make_engine(model, cfg)
+    runner = eng.runner
+    captures = runner.captures
+    recaptures = []
+    recapture = runner.recapture
+
+    def timed_recapture():
+        t0 = time.perf_counter()
+        recapture()
+        torch.cuda.synchronize()
+        recaptures.append((time.perf_counter() - t0) * 1e3)
+
+    runner.recapture = timed_recapture
+    try:
+        nan = serve_armed("nan_logits", eng, reqs, RES_SPECS["nan_logits"])
+        m, fires = nan["metrics"], nan["fires"]["nan_logits"]
+        quarantined = sum(s == "quarantined"
+                          for s in nan["statuses"].values())
+        check(fires == 2 and quarantined == fires == m["nan_quarantined"],
+              f"[res nan] {quarantined} quarantined, {fires} fires")
+        check(m["replans"] >= 1 and dispatch.is_quarantined("msgemm_cuda"),
+              f"[res nan] replans {m['replans']}, quarantine "
+              f"{dispatch.quarantined()}")
+        check(runner.captures == captures + 2 and nan["backends"] ==
+              ["msgemm_torch"], f"[res nan] captures {captures} -> "
+              f"{runner.captures}, backends {nan['backends']}")
+        at = nan["replans"][0]["at_step"]
+        before, after = nan["steps"][:at], nan["steps"][at:]
+        check(before and after
+              and all(st["msgemm"] == gemms for st in before)
+              and all(st["msgemm"] == 0 for st in after),
+              f"[res nan] msGeMM launches a step around the replan: "
+              f"{[st['msgemm'] for st in nan['steps']]}")
+        same = sum(t == clean["tokens"][r] for r, t in nan["tokens"].items()
+                   if nan["statuses"][r] == "ok")
+        (b_txt, b_ms), (a_txt, a_ms) = kinds_ms(before), kinds_ms(after)
+        nan.update(same_as_clean=same, recapture_ms=list(recaptures),
+                   before_ms=b_ms, after_ms=a_ms)
+        res_line(nan, card,
+                 f"; step {b_txt} on msgemm_cuda -> {a_txt} on "
+                 f"msgemm_torch; replan {nan['replans'][0]['ms']:.1f} ms "
+                 f"(re-capture {recaptures[0]:.1f} ms, build capture "
+                 f"{capture_ms:.1f} ms); {same} survivors == clean "
+                 "(reported, not gated)")
+        out["nan_logits"] = nan
+
+        eng.reset_metrics()
+        ladder = serve_armed("ladder", eng, reqs, RES_SPECS["nan_logits"])
+        check(ladder["metrics"]["replans"] >= 1
+              and ladder["backends"] == ["dense_fallback"]
+              and dispatch.is_quarantined("msgemm_torch"),
+              f"[res ladder] backends {ladder['backends']}, quarantine "
+              f"{dispatch.quarantined()}")
+        at = ladder["replans"][0]["at_step"]
+        tail = ladder["steps"][at:]
+        check(tail and all(st["msgemm"] == 0 for st in ladder["steps"]),
+              "[res ladder] msGeMM launched on the torch rungs")
+        (t_txt, t_ms), (d_txt, d_ms) = (kinds_ms(ladder["steps"][:at]),
+                                        kinds_ms(tail))
+        ladder.update(torch_ms=t_ms, dense_ms=d_ms,
+                      recapture_ms=recaptures[-1])
+        res_line(ladder, card,
+                 f"; step {t_txt} on msgemm_torch -> {d_txt} on "
+                 f"dense_fallback (re-capture {recaptures[-1]:.1f} ms)")
+        out["ladder"] = ladder
+    finally:
+        dispatch.clear_quarantine()
+        del eng, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the next engine is back on the kernel; a hang escalates to a replan
+    wd = Watchdog(min_steps=3, min_timeout_s=0.5)
+    eng = make_engine(model, cfg, watchdog=wd)
+    try:
+        warm = serve_armed("hang-warm", eng, reqs)
+        check_clean("res hang-warm", warm["metrics"])
+        check(warm["backends"] == [] and
+              all(st["msgemm"] == gemms for st in warm["steps"]),
+              "[res hang-warm] not back on msgemm_cuda at 126 a step")
+        eng.reset_metrics()
+        hang = serve_armed("hang", eng, reqs, RES_SPECS["hang"])
+        check(wd.hang_count >= 1 and hang["metrics"]["replans"] >= 1,
+              f"[res hang] hangs {wd.hang_count}, replans "
+              f"{hang['metrics']['replans']}")
+        check(set(hang["statuses"].values()) == {"ok"},
+              f"[res hang] statuses {hang['statuses']}")
+        hang["hang_count"] = wd.hang_count
+        res_line(hang, card, f"; watchdog hangs {wd.hang_count}, replan "
+                 f"{hang['replans'][0]['ms']:.1f} ms")
+        out["hang"] = hang
+    finally:
+        dispatch.clear_quarantine()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out["artifacts"] = res_artifacts(reqs, card)
+
+    # every serving class at once, under a deadline and a bounded queue
+    eng = make_engine(model, cfg, max_queue=8, deadline_s=30.0,
+                      watchdog=True)
+    try:
+        serve_armed("combined-warm", eng, reqs[:1])
+        eng.reset_metrics()
+        combined = serve_armed(
+            "combined", eng, reqs,
+            ";".join(RES_SPECS[c] for c in RES_SPECS))
+    finally:
+        dispatch.clear_quarantine()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    m = combined["metrics"]
+    ok = sum(s == "ok" for s in combined["statuses"].values())
+    combined.update(slo_attainment=ok / len(reqs),
+                    shed_rate=m["shed"] / len(reqs))
+    check(sum(combined["fires"].values()) > 0,
+          "[res combined] the plan never fired")
+    res_line(combined, card,
+             f"; SLO attainment {combined['slo_attainment']:.3f}, shed "
+             f"rate {combined['shed_rate']:.3f}")
+    out["combined"] = combined
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cli = serve_cli("res cli", [
+        "--quant", "msgemm", "--faults", RES_CLI_FAULTS, "--fault-seed",
+        str(RES_SEED), "--watchdog", "--max-queue", "64", "--deadline-s",
+        "600", "--check"], dict(msgemm=gemms), arch="gemma_2b", clean=False)
+    check(cli["checked"] == len(reqs) and cli["metrics"]["step_retries"] == 2,
+          f"[res cli] checked {cli['checked']}, retries "
+          f"{cli['metrics']['step_retries']}")
+    print(f"[res cli] --faults with --check: {cli['checked']}/{len(reqs)} "
+          f"== static generate, {cli['metrics']['step_retries']} retries, "
+          f"{cli['step_ms']:.2f} ms a step ({card})", flush=True)
+    out["cli"] = cli
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[res] phase {out['phase_s']:.1f}s ({card})", flush=True)
+    return out
+
+
+RES_CLI_FAULTS = ("latency:p=1.0,after=2,max=3,mag=0.02;"
+                  "oom:p=0.5,after=1,max=4;step_fail:p=1.0,after=2,max=2")
+RES_DIR = ROOT / "chiprun_out" / "resilience"
+
+
+def res_artifacts(reqs, card):
+    """The artifact classes on copies in chiprun_out/resilience/: the plan
+    phase's cache and the fitted calibration, each corrupted by its fault
+    class on save, quarantined aside on load (empty / None), and
+    round-tripping after a rebuild; a checkpoint of full-width gemma-2b
+    msgemm cut to 2 layers, step 2 corrupted, restored from step 1 bit for
+    bit, and the restored model serving the stream's first two requests
+    with the saved model's tokens.  The checkpoint is deleted after."""
+    import shutil
+
+    import torch
+
+    from repro_torch import dispatch, faults
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.device import generator
+    from repro_torch.models import transformer
+    from repro_torch.obs import perfmodel as pm
+
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    RES_DIR.mkdir(parents=True)
+    out = {}
+
+    path = RES_DIR / "plan_cache.json"
+    shutil.copy(PLAN_CACHE, path)
+    cache = dispatch.set_cache_path(path)
+    plans = {k: cache.get(k)
+             for k in sorted(json.loads(path.read_text())["plans"])}
+    check(plans, f"[res plan cache] {PLAN_CACHE} holds no plan")
+    try:
+        faults.arm("corrupt_plan_cache", seed=RES_SEED)
+        cache.save()
+    finally:
+        faults.disarm()
+    empty = len(dispatch.set_cache_path(path))
+    aside = sorted(p.name for p in RES_DIR.glob("plan_cache.json.quar*"))
+    cache = dispatch.set_cache_path(path)
+    for k, p in plans.items():
+        cache.put(k, p, persist=False)
+    cache.save()
+    back = dispatch.set_cache_path(path)
+    check(empty == 0 and aside and len(back) == len(plans) and all(
+        back.get(k) == p for k, p in plans.items()),
+        f"[res plan cache] read back {empty} plans, quarantined {aside}, "
+        f"rebuilt {len(back)} of {len(plans)}")
+    dispatch.set_cache_path(PLAN_CACHE)
+    print(f"[res plan cache] corrupt save -> 0 plans read, {aside[0]} "
+          f"aside; rebuilt {len(plans)} plans round-trip", flush=True)
+    out["plan_cache"] = dict(plans=len(plans), quarantined=aside)
+
+    path = RES_DIR / "calibration.json"
+    shutil.copy(CALIBRATION, path)
+    cal = pm.load_calibration(path)
+    check(cal is not None, f"[res calibration] {CALIBRATION} did not load")
+    try:
+        faults.arm("corrupt_calibration", seed=RES_SEED)
+        cal.save(path)
+    finally:
+        faults.disarm()
+    gone = pm.load_calibration(path)
+    aside = sorted(p.name for p in RES_DIR.glob("calibration.json.quar*"))
+    cal.save(path)
+    back = pm.load_calibration(path)
+    check(gone is None and aside and back is not None
+          and back.as_dict() == cal.as_dict(),
+          f"[res calibration] read back {gone}, quarantined {aside}")
+    print(f"[res calibration] corrupt save -> None, {aside[0]} aside; "
+          "rebuilt calibration round-trips", flush=True)
+    out["calibration"] = dict(quarantined=aside)
+
+    spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
+    small = CONFIG.replace(num_layers=2)
+    saved = transformer.init_params(small, generator=generator(0, "cuda"),
+                                    device="cuda", quant=spec)
+    state = saved.state_dict()
+    ckpt = RES_DIR / "checkpoint"
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(str(ckpt), keep=3)
+    mgr.save(1, state)
+    try:
+        faults.arm("corrupt_checkpoint", seed=RES_SEED)
+        mgr.save(2, state)
+    finally:
+        faults.disarm()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, restored = mgr.restore_latest(state, device="cuda")
+    restore_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    check(step == 1 and mgr.all_steps() == [1]
+          and (ckpt / "step_000000002.quarantined").is_dir()
+          and list(restored) == list(state)
+          and all(torch.equal(restored[k], v) for k, v in state.items()),
+          f"[res checkpoint] restored step {step}, steps {mgr.all_steps()}")
+    model2 = transformer.init_params(small, generator=generator(1, "cuda"),
+                                     device="cuda", quant=spec)
+    model2.load_state_dict(restored)
+    qcfg = small.replace(quant=spec)
+    toks = {}
+    for name, m in (("saved", saved), ("restored", model2)):
+        eng = make_engine(m, qcfg)
+        res = eng.run(reqs[:2])
+        check_clean(f"res checkpoint {name}", eng.metrics())
+        check(all(res[r.rid].status == "ok" for r in reqs[:2]),
+              f"[res checkpoint] {name} model did not finish")
+        toks[name] = {r.rid: res[r.rid].generated for r in reqs[:2]}
+    check(toks["saved"] == toks["restored"],
+          f"[res checkpoint] restored model tokens {toks['restored']} != "
+          f"saved {toks['saved']}")
+    shutil.rmtree(ckpt)
+    print(f"[res checkpoint] gemma-2b msgemm, full width, 2 layers "
+          f"({nbytes / 2**30:.2f} GiB, {len(state)} leaves): steps 1 and 2 "
+          f"saved in {save_s:.1f}s, step 2 corrupted and quarantined, step "
+          f"1 restored bit for bit in {restore_s:.1f}s; the restored model "
+          f"serves requests 0-1 with the saved model's tokens ({card})",
+          flush=True)
+    out["checkpoint"] = dict(bytes=nbytes, leaves=len(state), save_s=save_s,
+                             restore_s=restore_s, tokens=toks["restored"])
+    return out
+
+
 # ------------------------------------------------- gemma2-9b, the serve CLI
 LONG_PROMPT = dict(prompt_len=5000, seed=0)  # draws one 4,440-token prompt
 
 
-def serve_cli(tag, argv, per_step, arch="gemma2_9b"):
+def serve_cli(tag, argv, per_step, arch="gemma2_9b", clean=True):
     """One in-process run of ``repro_torch.launch.serve.main`` with
     ``arch``, every launch count set to 0 just before and read just
     after.  Checks full width, that every request finished, and that the
     engine's run launched each kernel exactly ``per_step[name]`` times a
-    step (0 if unnamed).  Returns what chip_smoke.json keeps of the run;
-    the model is freed."""
+    step (0 if unnamed); with ``clean`` (a run without ``--faults``) that
+    it used no rung of the resilience layer.  Returns what
+    chip_smoke.json keeps of the run; the model is freed."""
     import torch
 
     from repro_torch import configs
@@ -1983,6 +2478,8 @@ def serve_cli(tag, argv, per_step, arch="gemma2_9b"):
     check(steps > 0 and all(s.status == "ok"
                             for s in out["results"].values()),
           f"[{tag}] not every request finished")
+    if clean:
+        check_clean(tag, m)
     want = {name: per_step.get(name, 0) * steps for name in cli.KERNELS}
     check(launches == want, f"[{tag}] engine launches {launches} != {want} "
                             f"({per_step} a step over {steps} steps)")
@@ -2188,6 +2685,12 @@ def main() -> int:
     os.environ["REPRO_CALIBRATION"] = str(CALIBRATION)
     dispatch.set_cache_path(PLAN_CACHE)
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"nvidia-smi failed: {smi.stderr.strip()}"
+
     t0 = time.perf_counter()
     libs = nvcc.build_all(verbose=True)
     build_s = time.perf_counter() - t0
@@ -2240,13 +2743,8 @@ def main() -> int:
     plan_path["cli"] = phase_plan_cli()
     dispatch.set_cache_path(PLAN_CACHE)  # the serve CLI pointed it away
     calib_path = phase_calib(main_path, int4_path)
+    res_path = phase_resilience(card)
     gemma2 = phase_gemma2_9b()
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else f"nvidia-smi failed: {smi.stderr.strip()}"
 
     def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b",
                     x_dtype="float32"):
@@ -2282,7 +2780,10 @@ def main() -> int:
             + [calib_path["kv4_learned"][r] for r in ("kernel", "torch")]
             + [gemma2[k] for k in ("msgemm", "int4", "long", "msgemm-eager",
                                    "int4-eager", "long-eager")]
-            + [gemma2["kv8"][r] for r in ("kernel", "torch")])
+            + [gemma2["kv8"][r] for r in ("kernel", "torch")]
+            + [res_path[k] for k in ("clean", "latency", "oom", "step_fail",
+                                     "disconnect", "nan_logits", "ladder",
+                                     "hang", "combined", "cli")])
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])
                 for name in ("msgemm", "int4_matmul", "paged_attention")}
@@ -2338,7 +2839,8 @@ def main() -> int:
         card=card, build_s=build_s, ptxas=nvcc.reports, cases=cases,
         int4_cases=int4_cases, attn_cases=attn_cases, flash=flash,
         main=main_path, kvq=kvq_path,
-        int4=int4_path, plan=plan_path, calib=calib_path, gemma2_9b=gemma2,
+        int4=int4_path, plan=plan_path, calib=calib_path,
+        resilience=res_path, gemma2_9b=gemma2,
         gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     for key, e in ([("gemma-2b msgemm", kernels[0]),

@@ -17,6 +17,8 @@ the paper's ``M (out, in)``.  How a linear runs is decided per shape by
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import torch
 from torch import nn
 
@@ -113,3 +115,8 @@ def apply(params, x: torch.Tensor, spec: QuantSpec = DENSE, *,
     return dispatch.execute(params, x, spec, in_dim=in_dim,
                             plan_override=plan, epilogue=epilogue, bias=bias,
                             residual=residual)
+
+
+def serving_config(cfg: QuantSpec, mode: str) -> QuantSpec:
+    """A layer's serving-time spec: ``cfg`` with its mode replaced."""
+    return replace(cfg, mode=mode)

@@ -29,17 +29,24 @@ def _tuple_codes_np(d: int) -> np.ndarray:
     return np.stack(cols, axis=1)  # (16^d, d) codes, big-endian
 
 
-def tuple_codes(d: int, device=None) -> torch.Tensor:
-    """(16^d, d) int64: row i holds the d codes of flat index i."""
+@functools.lru_cache(maxsize=None)
+def _tuple_codes_on(d: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_tuple_codes_np(d), dtype=torch.int64,
                            device=device)
+
+
+def tuple_codes(d: int, device=None) -> torch.Tensor:
+    """(16^d, d) int64: row i holds the d codes of flat index i (made once
+    per device and read only, so a CUDA graph capture can use it)."""
+    return _tuple_codes_on(d, torch.device(device or "cpu"))
 
 
 def tuple_basis(d: int, dtype=torch.float32, *, codebook=None,
                 device=None) -> torch.Tensor:
     """C_d (16^d, d): row i holds (C(i_0), ..., C(i_{d-1})); ``codebook``
     (16,) replaces the uniform int4 map (entry 0 must be 0)."""
-    values = (packing.b_values(dtype, device) if codebook is None
+    values = (packing.device_values(torch.device(device or "cpu")).to(dtype)
+              if codebook is None
               else torch.as_tensor(codebook, dtype=dtype, device=device))
     return values[tuple_codes(d, values.device)]
 
@@ -64,7 +71,10 @@ def consume(lut: torch.Tensor, packed_idx: torch.Tensor, *,
     """Phase 2 (Eq. 5).  lut (16^d, k/d, b), packed_idx (m, k/d) -> (m, b).
 
     ``scales`` (§3.3 row blocks) are applied per chunk, as the reference's
-    jnp consume does; the kernel factors them per scale block instead."""
+    jnp consume does; the kernel factors them per scale block instead.
+    ``chunk`` columns of the table are gathered at once (one indexing op,
+    an (m, chunk, b) slab) and summed, and the chunks are added in order:
+    at ``chunk=1`` the sum is the reference's, term by term."""
     n, kc, b = lut.shape
     m = packed_idx.shape[0]
     if scales is not None:
@@ -78,13 +88,13 @@ def consume(lut: torch.Tensor, packed_idx: torch.Tensor, *,
     idx = packed_idx.long()
     acc = torch.zeros((m, b), dtype=lut.dtype, device=lut.device)
     for j0 in range(0, kc, chunk):
-        g = torch.stack([lut[:, j, :][idx[:, j]]
-                         for j in range(j0, min(j0 + chunk, kc))])
+        j1 = min(j0 + chunk, kc)
+        js = torch.arange(j0, j1, device=lut.device)
+        g = lut[idx[:, j0:j1], js]  # (m, c, b)
         if scales is not None:
-            q = torch.stack([scales[:, min(j // cpd, scales.shape[1] - 1)]
-                             for j in range(j0, min(j0 + chunk, kc))])
+            q = scales[:, (js // cpd).clamp(max=scales.shape[1] - 1)]
             g = g * q[..., None].to(lut.dtype)
-        acc = acc + g.sum(0)
+        acc = acc + g.sum(1)
     return acc
 
 

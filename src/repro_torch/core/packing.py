@@ -14,6 +14,8 @@ of d with code 0, whose value is 0.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -30,10 +32,25 @@ def b_values(dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.as_tensor(v, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def device_values(device: torch.device) -> torch.Tensor:
+    """:func:`b_values` in f32 on ``device``, made once per device (read
+    only): a host-to-device copy is illegal inside a CUDA graph capture,
+    so every op a captured step runs reads the table from here."""
+    return b_values(torch.float32, device)
+
+
 def b_hat(values: torch.Tensor) -> torch.Tensor:
     """Inverse map: int4 value -> 4-bit code (§3.2), e.g. -1 -> 0b1111."""
     v = torch.as_tensor(values).to(torch.int32)
     return torch.where(v >= 0, v, v + NLEVELS).to(torch.uint8)
+
+
+def check_int4(values) -> None:
+    """Raise ValueError when any value lies outside [INT4_MIN, INT4_MAX]."""
+    v = np.asarray(values)
+    if v.size and (v.min() < INT4_MIN or v.max() > INT4_MAX):
+        raise ValueError(f"values outside int4 range [{INT4_MIN},{INT4_MAX}]")
 
 
 def pad_k(arr: torch.Tensor, d: int, axis: int = -1, value=0) -> torch.Tensor:

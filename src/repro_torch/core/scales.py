@@ -90,7 +90,7 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     """Reconstruct the dense matrix."""
     m, k = qt.shape
     dev = qt.codes.device
-    values = (packing.b_values(torch.float32, dev) if qt.codebook is None
+    values = (packing.device_values(dev) if qt.codebook is None
               else torch.as_tensor(qt.codebook, dtype=torch.float32,
                                    device=dev))
     vals = values[qt.codes.long()]

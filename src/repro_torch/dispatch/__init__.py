@@ -28,8 +28,8 @@ from repro_torch.core.epilogue import Epilogue, apply_epilogue
 from repro_torch.core.spec import QuantSpec
 from repro_torch.dispatch.registry import (  # noqa: F401
     Backend, available_backends, backend_names, clear_quarantine,
-    get_backend, is_quarantined, quarantine_backend, quarantined,
-    register_backend, select_backend,
+    device_kind, get_backend, is_quarantined, quarantine_backend,
+    quarantined, register_backend, select_backend, unregister_backend,
 )
 from repro_torch.dispatch.plan import (  # noqa: F401
     DEFAULT_POLICY, ExecPlan, ExecPolicy, PlanRequest, collecting,

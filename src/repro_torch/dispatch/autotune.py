@@ -125,6 +125,7 @@ class PlanCache:
         return self
 
     def save(self) -> None:
+        from repro_torch import faults
         from repro_torch.obs import artifacts
 
         payload = {"version": _CACHE_VERSION, "plans": {
@@ -135,6 +136,9 @@ class PlanCache:
             payload["timings"] = {k: self._timings[k]
                                   for k in sorted(self._timings)}
         artifacts.atomic_write_json(self.path, artifacts.stamp_crc(payload))
+        ev = faults.fire("corrupt_plan_cache")
+        if ev is not None:
+            faults.corrupt_file(self.path, ev)
 
     def get(self, key: str) -> ExecPlan | None:
         if not self._loaded:

@@ -15,8 +15,15 @@
   backend for learned int4 weights, as ``int4_jnp`` is in the reference
   (``int4_pallas`` refuses codebooks).
 
+* ``dense_fallback``: dequantize to dense, then ``torch.matmul`` (the
+  counterpart of the reference's ``dense_fallback``); priority -100, the
+  bottom rung of the degradation ladder (``msgemm_cuda`` ->
+  ``msgemm_torch`` -> ``dense_fallback``, ``int4_cuda`` -> ``int4_torch``
+  -> ``dense_fallback``), selected only when the rungs above are
+  quarantined (the engine's NaN guard and watchdog escalation).
+
 On CPU tensors each kernel backend runs its kernel's plain PyTorch
-version.  ``dense_fallback`` waits for the resilience slice.
+version.
 """
 
 from __future__ import annotations
@@ -97,6 +104,9 @@ def run_int4_torch(spec, plan, params, x, *, k, epilogue=None, bias=None,
     return torch.matmul(x, scales.dequantize(qt, x.dtype).t())
 
 
+CONSUME_SLAB = 1 << 25  # f32 entries (128 MiB) gathered per consume step
+
+
 def run_msgemm_torch(spec, plan, params, x, *, k, epilogue=None, bias=None,
                      residual=None):
     m = params["scales"].shape[0]
@@ -106,14 +116,27 @@ def run_msgemm_torch(spec, plan, params, x, *, k, epilogue=None, bias=None,
                         codebook=params.get("codebook"))
     idx = (params["idx"] if spec.storage == "packed_idx"
            else packing.indices_from_storage(params["u8"], d, k))
+    # gather a slab of about CONSUME_SLAB table entries per step: a few
+    # ops per GeMM, so a CUDA graph of the step stays small
+    chunk = max(1, CONSUME_SLAB // (m * table.shape[2]))
     y = lut.consume(table, idx, scales=params["scales"],
-                    scale_block=spec.scale_block, d=d)
+                    scale_block=spec.scale_block, d=d, chunk=chunk)
     return y.t().reshape(*batch, m).to(x.dtype)
 
 
 register_backend(
     "dense", modes=("bf16",), run=run_dense, priority=100,
     description="dense matmul (the paper's naive GeMM, Eq. 14)")
+
+# the last-resort path for quantized modes: below every other backend,
+# selected only when the rest of the ladder is quarantined.  It computes
+# what int4_torch does (dequantize, then matmul), as the reference's
+# dense_fallback computes what its int4_jnp does, for msgemm weights too.
+register_backend(
+    "dense_fallback", modes=("msgemm", "int4_dequant"),
+    run=run_int4_torch, priority=-100,
+    description="dequantize -> dense matmul; quarantine-safe bottom rung "
+                "of the degradation ladder (kernel -> torch -> dense)")
 
 register_backend(
     "msgemm_cuda", modes=("msgemm",), run=run_msgemm_cuda, priority=60,

@@ -1,7 +1,7 @@
 """Pluggable execution-backend registry; port of repro.dispatch.registry
 (registration, capability checks, selection by priority and device, and
-the process-local quarantine that selection skips; its callers, the NaN
-guard and the watchdog, wait for the resilience slice).
+the process-local quarantine that selection skips, which the serving
+engine's NaN guard and watchdog escalation fill).
 
 A backend's ``run`` has the signature::
 
@@ -15,6 +15,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
+
+import torch
 
 from repro_torch import obs
 from repro_torch.core.spec import QuantSpec
@@ -118,6 +120,13 @@ def register_backend(name: str, *, modes, run, is_available=_always,
     return be
 
 
+def unregister_backend(name: str) -> None:
+    """Drop a backend (a no-op for unknown names)."""
+    _REGISTRY.pop(name, None)
+    _QUARANTINED.pop(name, None)
+    _quarantine_changed()
+
+
 def get_backend(name: str) -> Backend:
     try:
         return _REGISTRY[name]
@@ -131,10 +140,17 @@ def backend_names() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def available_backends(spec: QuantSpec, d: int, device_type: str
-                       ) -> list[Backend]:
-    """Backends that can run ``spec`` on ``device_type``, best first
-    (priority descending, then name)."""
+def device_kind() -> str:
+    """The device type auto-selection keys on when none is given: ``cuda``
+    where a card is present, else ``cpu``."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def available_backends(spec: QuantSpec, d: int,
+                       device_type: str | None = None) -> list[Backend]:
+    """Backends that can run ``spec`` on ``device_type`` (default
+    :func:`device_kind`), best first (priority descending, then name)."""
+    device_type = device_type or device_kind()
     cands = [b for b in _REGISTRY.values()
              if b.supports(spec, d) and b.is_available(device_type)]
     if _QUARANTINED:
@@ -144,8 +160,10 @@ def available_backends(spec: QuantSpec, d: int, device_type: str
     return sorted(cands, key=lambda b: (-b.priority, b.name))
 
 
-def select_backend(spec: QuantSpec, d: int, device_type: str) -> Backend:
+def select_backend(spec: QuantSpec, d: int, device_type: str | None = None
+                   ) -> Backend:
     """Deterministic auto-selection: the highest-priority capable backend."""
+    device_type = device_type or device_kind()
     cands = available_backends(spec, d, device_type)
     if not cands:
         raise ValueError(

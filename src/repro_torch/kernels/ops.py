@@ -158,11 +158,6 @@ def launch_counts() -> dict[str, int]:
     return {name: mod.launches for name, mod in KERNELS.items()}
 
 
-@functools.lru_cache(maxsize=None)
-def _int4_values(device: torch.device) -> torch.Tensor:
-    return packing.b_values(torch.float32, device)
-
-
 def msgemm(idx: torch.Tensor, x: torch.Tensor, d: int, *,
            scales: torch.Tensor, scale_block: int = 36,
            codebook: torch.Tensor | None = None, tiles: Tiles | None = None,
@@ -191,7 +186,7 @@ def msgemm(idx: torch.Tensor, x: torch.Tensor, d: int, *,
     m, kc = idx.shape
     if tiles is None:
         tiles = msgemm_tiles(m, kc, x.shape[1], d, scale_block)
-    values = (_int4_values(x.device) if codebook is None
+    values = (packing.device_values(x.device) if codebook is None
               else codebook.to(torch.float32).contiguous())
     f32 = lambda t: None if t is None else t.to(torch.float32)  # noqa: E731
     # x and the residual go as they are when the kernel reads their type

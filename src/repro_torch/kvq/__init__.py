@@ -12,7 +12,8 @@ the CUDA paged-attention kernel dequantizes K/V on chip at read time.
 * :mod:`repro_torch.kvq.attention` — the paged-attention backends
   (importing this package registers them);
 * :func:`fit_kv_codebook` — the Lloyd-fitted 16-entry KV codebook of
-  :mod:`repro_torch.kvq.fit` (lazy: pulls in calib only when called).
+  :mod:`repro_torch.kvq.fit`, and :func:`kv_reconstruction_error`, its
+  quality measure (both lazy: they pull in calib only when called).
 """
 
 from repro_torch.kvq import attention  # noqa: F401  (registers backends)
@@ -31,3 +32,9 @@ def fit_kv_codebook(*args, **kwargs):
     calib out of the serving import path)."""
     from repro_torch.kvq.fit import fit_kv_codebook as _fit
     return _fit(*args, **kwargs)
+
+
+def kv_reconstruction_error(*args, **kwargs):
+    """Lazy re-export of :func:`repro_torch.kvq.fit.kv_reconstruction_error`."""
+    from repro_torch.kvq.fit import kv_reconstruction_error as _err
+    return _err(*args, **kwargs)

@@ -22,13 +22,8 @@ from repro_torch.kvq.spec import KVQuantSpec
 def codebook_tensor(values: tuple, device: torch.device) -> torch.Tensor:
     """A spec's codebook as an f32 tensor on ``device``, made once: a
     host-to-device copy per call would be illegal inside a CUDA graph
-    capture (so is the uniform grid's, :func:`_int4_grid`)."""
+    capture (so is the uniform grid's, ``packing.device_values``)."""
     return torch.tensor(values, dtype=torch.float32, device=device)
-
-
-@functools.lru_cache(maxsize=None)
-def _int4_grid(device: torch.device) -> torch.Tensor:
-    return packing.b_values(torch.float32, device)
 
 
 def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -81,7 +76,7 @@ def decode_values(codes: torch.Tensor, spec: KVQuantSpec) -> torch.Tensor:
         return codebook_tensor(spec.codebook, codes.device)[c]
     if spec.bits == 8:
         return torch.where(c < 128, c, c - 256).to(torch.float32)
-    return _int4_grid(codes.device)[c]
+    return packing.device_values(codes.device)[c]
 
 
 def kv_dequantize(packed: torch.Tensor, scales: torch.Tensor,

@@ -44,11 +44,20 @@ the static path under the same policy and cache.
 slower than 3x its prediction; without a calibration of this device's
 partition it skips with a note.
 
+Resilience as in the reference (continuous engine): ``--max-queue N``
+sheds submissions beyond that queue depth, ``--deadline-s`` and
+``--ttft-deadline-s`` set default SLOs (expired requests are cancelled),
+``--watchdog`` times every step and escalates a hang to a backend
+quarantine and replan, and ``--faults SPEC --fault-seed N`` arms
+deterministic fault injection (``repro_torch.faults``; without
+``--faults`` the plan comes from ``REPRO_FAULTS`` / ``REPRO_FAULT_SEED``
+when set).  A run with sheds, cancellations, retries or replans prints a
+``resilience:`` line, and ``--check`` skips the requests that did not
+finish.
+
 Flags of slices not ported yet are not defined, so argparse refuses them:
 ``--mesh``, ``--mesh-rules``, ``--shard-collective``, ``--shard-pipeline``,
-``--shard-impl`` and ``--force-host-devices`` (ROADMAP A13, multi-GPU);
-``--faults``, ``--fault-seed``, ``--watchdog``, ``--deadline-s``,
-``--ttft-deadline-s`` and ``--max-queue`` (A10, resilience).
+``--shard-impl`` and ``--force-host-devices`` (ROADMAP A13, multi-GPU).
 
 ``--kv-bits 4 --kv-codebook learned`` fits the pool's 16-entry table once,
 from the model's own K/V on a seeded batch (``repro_torch.kvq.fit``), and
@@ -73,7 +82,7 @@ import time
 
 import torch
 
-from repro_torch import configs, dispatch, obs
+from repro_torch import configs, dispatch, faults, obs
 from repro_torch.core.spec import QuantSpec
 from repro_torch.device import generator, resolve
 from repro_torch.kernels.ops import KERNELS, launch_counts
@@ -296,7 +305,11 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
                                    if args.kv_pool_mib else None),
                     cuda_graph=False if args.no_cuda_graph else None,
                     backend=gemm_backend(args), autotune=args.autotune,
-                    autotune_cache=args.autotune_cache)
+                    autotune_cache=args.autotune_cache,
+                    max_queue=args.max_queue or None,
+                    deadline_s=args.deadline_s or None,
+                    ttft_deadline_s=args.ttft_deadline_s or None,
+                    watchdog=args.watchdog or None)
     reqs = make_request_stream(args, cfg)
     print(f"[serve] continuous engine: {len(reqs)} requests, prompt lens "
           f"{sorted(len(r.prompt) for r in reqs)}, rate="
@@ -339,6 +352,11 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
           f"{s['preemptions']}"
           + ("" if peak is None else f", peak {peak / 2**30:.2f} GiB")
           + f"; launches {launches}", flush=True)
+    if s["shed"] or s["cancelled"] or s["step_retries"] or s["replans"]:
+        print(f"[serve] resilience: shed={s['shed']} "
+              f"cancelled={s['cancelled']} retries={s['step_retries']} "
+              f"nan_quarantined={s['nan_quarantined']} "
+              f"replans={s['replans']}", flush=True)
     out = dict(results=results, metrics=s, steps=engine.num_steps,
                run_s=dt, launches=launches, kv_spec=kv_spec,
                cuda_graph=engine.runner.cuda_graph,
@@ -387,6 +405,25 @@ def parse_args(argv=None):
                          "instead of --num-blocks")
     ap.add_argument("--check", action="store_true",
                     help="assert token parity vs the static generate path")
+    # resilience (continuous engine; README §Resilience)
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="shed submissions beyond this waiting-queue "
+                         "depth (0: unbounded)")
+    ap.add_argument("--deadline-s", type=float, default=0,
+                    help="default per-request total-latency SLO; expired "
+                         "requests are cancelled cleanly (0: none)")
+    ap.add_argument("--ttft-deadline-s", type=float, default=0,
+                    help="default first-token SLO (0: none)")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="arm the per-step hang watchdog (hangs escalate "
+                         "to a backend quarantine + replan)")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="arm deterministic fault injection: 'all' or "
+                         "'cls:p=..,after=..,max=..,mag=..;cls2' "
+                         "(classes: repro_torch.faults.CLASSES; overrides "
+                         "REPRO_FAULTS)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the injected-fault schedule")
     ap.add_argument("--backend", default="auto",
                     choices=["auto"] + dispatch.backend_names(),
                     help="force a registered backend (see the module's "
@@ -434,6 +471,15 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve(args.device)
     kv_backend = backends_from_args(args)
+    if args.faults:
+        plan = faults.arm(faults.FaultPlan(faults.parse_spec(args.faults),
+                                           seed=args.fault_seed))
+        print(f"[serve] fault injection armed: {plan.describe()}")
+    else:
+        plan = faults.plan_from_env()  # REPRO_FAULTS / REPRO_FAULT_SEED
+        if plan is not None:
+            print(f"[serve] fault injection armed from env: "
+                  f"{plan.describe()}")
     # tracing must be on before the engine captures its step: device marks
     # are staged at capture, so a later enable records host spans only;
     # the sentinel reads the kernel_gemm_s series those marks fill
@@ -484,6 +530,8 @@ def main(argv=None) -> dict:
             print(f"[serve] wrote metrics snapshot {args.metrics_json}")
         if prom is not None:
             prom.shutdown()
+        if plan is not None:
+            faults.disarm()  # the plan was this run's: leave none armed
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import linear as qlinear
-from repro_torch.core.epilogue import Epilogue
+from repro_torch.core.epilogue import Epilogue, act_fn
 
 
 class Norm(nn.Module):
@@ -64,6 +64,14 @@ def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, tag=None,
                       residual=residual is not None, out_dtype=out_dtype)
     return qlinear.apply(p, x, quant, in_dim=in_dim, tag=tag, epilogue=ep,
                          bias=bias, residual=residual)
+
+
+def activation(name: str):
+    """The activation function ``name`` (gelu, silu, relu); gelu is the
+    tanh approximation, as the reference's ``jax.nn.gelu``."""
+    if name not in ("gelu", "silu", "relu"):
+        raise KeyError(name)
+    return act_fn(name)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -255,10 +255,14 @@ class Calibration:
                 "created_unix": self.created_unix}
 
     def save(self, path: str | os.PathLike) -> Path:
+        from repro_torch import faults
         from repro_torch.obs import artifacts
 
         p = Path(path)
         artifacts.atomic_write_json(p, artifacts.stamp_crc(self.as_dict()))
+        ev = faults.fire("corrupt_calibration")
+        if ev is not None:
+            faults.corrupt_file(p, ev)
         return p
 
 

@@ -1,5 +1,6 @@
 """Continuous-batching serving over the paged KV pool; port of
-repro.serving (core loop only)."""
+repro.serving (engine with its resilience layer, scheduler, block pool,
+requests)."""
 
 from repro_torch.serving.engine import Engine  # noqa: F401
 from repro_torch.serving.kv_blocks import BlockPool  # noqa: F401

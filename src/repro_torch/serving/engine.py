@@ -29,20 +29,40 @@ series and span names (``serving_*``, ``kv_*``, ``engine.prefill_chunk``,
 ``engine.decode_step``, ``request.submit``/``finish``), so the two
 engines' snapshots compare key by key.
 
-Deliberately not ported here: the reference's step retry, NaN quarantine
-and replan to a fallback backend, watchdog, deadlines, shedding and
-fault hooks.  Each would hide a failing kernel; they arrive with the
-resilience slice.  A failing step raises.
+Resilience, as in the reference (README §Resilience): per-request
+deadlines with clean cancellation, queue-depth and deadline-aware load
+shedding, bounded step retry with exponential backoff, a NaN/Inf logit
+guard that quarantines the offending sequence and, on repeat, the
+suspect GeMM backends, replanning down the ladder (``msgemm_cuda`` ->
+``msgemm_torch`` -> ``dense_fallback``), and watchdog hang escalation
+doing the same.  Fault injection lives behind ``repro_torch.faults``
+(one None check a site when disarmed).  Where the card changes things:
+
+* the per-row finite flag is computed inside the step, so inside the
+  captured graph, and comes to the host in the tokens' one copy;
+* a replan drops both graphs and their memory pool and captures the two
+  step shapes again on the new plans (``StepRunner.recapture``, the
+  counterpart of the reference's re-jit), after the step has returned:
+  never inside a step the watchdog times, never inside a capture;
+* nothing is donated (the pool is written in place, and a re-run of a
+  step writes the same slots with the same values), so a retry is
+  token-identical and there is no KV rebuild (``kv_rebuilds`` stays 0);
+* no fault site runs inside a capture or its warm-up (those call
+  ``StepRunner._step`` and allocate no blocks), so the fault
+  opportunities line up with the reference engine's one for one.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 import time
 
 import numpy as np
 import torch
 
-from repro_torch import dispatch, kvq, obs
+from repro_torch import dispatch, faults, kvq, obs
+from repro_torch.distributed.watchdog import Watchdog
 from repro_torch.kernels.ops import KERNELS
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import serve as SV
@@ -100,8 +120,13 @@ class _Shape:
             torch.arange(batch * chunk, dtype=torch.int32).remainder(
                 block_size).view(batch, chunk))
         self.dev = {k: v.to(device) for k, v in self.host.items()}
+        self.drop_graph()
+
+    def drop_graph(self) -> None:
+        """Forget the graph and its static outputs (their memory goes back
+        to the graph's pool once nothing else holds them)."""
         self.graph = None
-        self.tokens = self.logits = None
+        self.out = self.logits = None
         self.launches: list[tuple] = []
         self.marks: list = []
 
@@ -114,8 +139,9 @@ class StepRunner:
 
     Each call copies the host arrays into static device buffers
     (``non_blocking`` from pinned staging on CUDA), runs the step, and
-    returns the greedy tokens on the host (one device-to-host copy) and
-    the logits on the device.  With ``cuda_graph`` each shape is warmed
+    returns the greedy tokens and the per-row finite flags on the host
+    (one device-to-host copy of both, computed inside the step) and the
+    logits on the device.  With ``cuda_graph`` each shape is warmed
     up once eagerly on a side stream (which builds the kernels and sets
     their shared-memory limits) and captured as a CUDA graph into one
     memory pool shared by both shapes; every call replays it.  The logits
@@ -131,7 +157,9 @@ class StepRunner:
     running them, so they are taken back and added again on every
     replay; the modules' ``launches`` read the same per step on both
     routes.  Device marks (``repro_torch.obs``) staged at the capture are
-    recorded by every replay and resolved after it.
+    recorded by every replay and resolved after it.  ``captures`` counts
+    the shapes captured so far (two at build, two more per
+    :meth:`recapture`).
     """
 
     def __init__(self, params, cfg: ModelConfig, kv, device: torch.device,
@@ -144,13 +172,30 @@ class StepRunner:
         self.policy = policy
         self.shapes = {name: _Shape(b, c, width, block_size, device)
                        for name, (b, c) in shapes.items()}
+        self.captures = 0
         self.exec_plans: dict = {}
         if policy is not None:
             self.exec_plans = self.resolve_plans()
         if cuda_graph:
-            pool = torch.cuda.graph_pool_handle()
-            for shape in self.shapes.values():
-                self._capture(shape, pool)
+            self._capture_all()
+
+    def _capture_all(self) -> None:
+        pool = torch.cuda.graph_pool_handle()  # one pool for both shapes
+        for shape in self.shapes.values():
+            self._capture(shape, pool)
+
+    def recapture(self) -> None:
+        """Drop both graphs and release their memory pool, then capture
+        both step shapes again under the current plans: a replayed graph
+        would still launch the kernels it was captured with.  A no-op on
+        the eager route."""
+        if not self.cuda_graph:
+            return
+        torch.cuda.synchronize(self.device)
+        for shape in self.shapes.values():
+            shape.drop_graph()
+        torch.cuda.empty_cache()
+        self._capture_all()
 
     def resolve_plans(self) -> dict:
         """Collect the plan keys of both step shapes by running each
@@ -172,7 +217,11 @@ class StepRunner:
                 self.params, self.cfg, shape.dev["tokens"], self.kv,
                 shape.dev["positions"], shape.dev["write_slots"],
                 shape.dev["view_slots"], shape.dev["last_idx"])
-            return SV.greedy(logits), logits
+            # the greedy tokens and the per-row finite flags (the NaN
+            # guard's input) in one (2, B) buffer: one copy to the host
+            out = torch.stack([SV.greedy(logits), torch.isfinite(
+                logits).all(-1).to(torch.int32)])
+            return out, logits
 
     def _capture(self, shape: _Shape, pool) -> None:
         tr = obs.tracer()
@@ -187,7 +236,8 @@ class StepRunner:
         before = {mod: mod.launches for mod in KERNELS.values()}
         shape.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(shape.graph, pool=pool):
-            shape.tokens, shape.logits = self._step(shape)
+            shape.out, shape.logits = self._step(shape)
+        self.captures += 1
         shape.launches = [(mod, mod.launches - n) for mod, n in
                           before.items() if mod.launches != n]
         for mod, n in before.items():
@@ -196,7 +246,8 @@ class StepRunner:
 
     def __call__(self, name: str, *arrays: np.ndarray):
         """One step of shape ``name`` on host arrays in ``STEP_INPUTS``
-        order.  Returns (greedy tokens (B,) numpy, logits (B, V) device)."""
+        order.  Returns (greedy tokens (B,) numpy, finite flags (B,)
+        numpy, logits (B, V) device)."""
         shape = self.shapes[name]
         for key, a in zip(STEP_INPUTS, arrays):
             shape.host[key].numpy()[...] = a
@@ -206,13 +257,13 @@ class StepRunner:
             shape.graph.replay()
             for mod, n in shape.launches:
                 mod.launches += n
-            tokens, logits, marks = shape.tokens, shape.logits, shape.marks
+            out, logits, marks = shape.out, shape.logits, shape.marks
         else:
-            tokens, logits = self._step(shape)
+            out, logits = self._step(shape)
             marks = obs.tracer().take_marks()
-        host = tokens.cpu().numpy()
+        host = out.cpu().numpy()
         obs.tracer().resolve_marks(marks, t0)
-        return host, logits
+        return host[0], host[1], logits
 
 
 class Engine:
@@ -239,6 +290,21 @@ class Engine:
     autotuning False/True/'model'/'full', and the plan-cache file); with
     any of backend or autotune set, every GeMM's plan is resolved at
     build (``exec_plans``), tuned plans included, before the capture.
+
+    Resilience, with the reference's defaults: max_queue sheds submissions
+    beyond this waiting-queue depth (status 'shed', ``serving_shed_total``;
+    None: unbounded).  deadline_s / ttft_deadline_s: default SLOs for
+    requests that carry none; expired requests are cancelled with status
+    'deadline', and a request whose deadline the p95 queue wait already
+    exceeds is shed at submission.  step_retries / retry_backoff_s:
+    bounded retry of a failed step with exponential backoff
+    (token-identical: the retried step writes the same pool slots).
+    watchdog: a ``distributed.watchdog.Watchdog`` (True:
+    ``Watchdog(min_steps=3, min_timeout_s=0.5)``) timing every step; a
+    hang escalates after the step returns to a quarantine of the suspect
+    backends and a replan.  nan_replan_after: non-finite-logit events
+    (each quarantines its sequence, status 'quarantined') after which the
+    guard also quarantines the suspect backends and replans.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
@@ -248,7 +314,13 @@ class Engine:
                  kv_pool_bytes: int | None = None, on_token=None,
                  clock=time.perf_counter, sample_seed: int = 0,
                  cuda_graph: bool | None = None, backend: str | None = None,
-                 autotune: bool | str = False, autotune_cache=None):
+                 autotune: bool | str = False, autotune_cache=None,
+                 max_queue: int | None = None,
+                 deadline_s: float | None = None,
+                 ttft_deadline_s: float | None = None,
+                 step_retries: int = 2, retry_backoff_s: float = 0.02,
+                 watchdog: Watchdog | bool | None = None,
+                 nan_replan_after: int = 2):
         self.params = params
         if kv_quant is not None:
             cfg = cfg.replace(kv_quant=kv_quant)
@@ -277,10 +349,36 @@ class Engine:
         self._sample_seed = sample_seed
         self._rngs: dict[int, np.random.Generator] = {}
         self.finished: list[Sequence] = []
+        self.rejected: list[Sequence] = []  # shed / cancelled / ...
         self.num_prefill_steps = 0
         self.num_decode_steps = 0
         # peak concurrently-admitted sequences before the first preemption
         self.max_resident_seqs = 0
+        # ---- resilience knobs and state
+        self.max_queue = max_queue
+        self.default_deadline_s = deadline_s
+        self.default_ttft_deadline_s = ttft_deadline_s
+        self.step_retries = step_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.nan_replan_after = nan_replan_after
+        self.num_shed = 0
+        self.num_step_retries = 0
+        self.num_nan_events = 0
+        self.num_replans = 0
+        # nothing is donated, so no failure can consume the pool: kept as a
+        # metric of the reference's that is always 0 here
+        self.num_kv_rebuilds = 0
+        # any deadline anywhere flips this; the per-step scan is skipped
+        # otherwise
+        self._deadline_watch = bool(deadline_s or ttft_deadline_s)
+        self._hang_flag = threading.Event()
+        if watchdog is True:
+            # serving steps are ms-scale: mean*hang_factor would be
+            # microseconds, so the floor carries the timeout
+            watchdog = Watchdog(min_steps=3, min_timeout_s=0.5)
+        self._watchdog = watchdog or None
+        if self._watchdog is not None and self._watchdog.on_hang is None:
+            self._watchdog.on_hang = self._hang_flag.set
         self._export_kv_gauges(num_blocks, cache_dtype)
         if cuda_graph is None:
             cuda_graph = self.device.type == "cuda"
@@ -298,7 +396,12 @@ class Engine:
             width=self.max_blocks_per_seq * block_size,
             block_size=block_size, cuda_graph=cuda_graph,
             policy=self._policy)
-        self.exec_plans = self.runner.exec_plans
+
+    @property
+    def exec_plans(self) -> dict:
+        """{plan key: plan} the step runs on (empty until resolved: at
+        build with a policy, else at the first replan)."""
+        return self.runner.exec_plans
 
     def _export_kv_gauges(self, num_blocks: int, cache_dtype) -> None:
         """Pool-capacity gauges (kv_* prefix, not serving_*: capacity is a
@@ -339,7 +442,10 @@ class Engine:
     def submit(self, req: Request, *, arrival: float | None = None
                ) -> Sequence:
         """Queue a request; ``arrival`` backdates ``t_arrival`` (engine
-        seconds).  Requests over the model or pool budget raise."""
+        seconds).  Malformed requests (over the model or pool budget)
+        raise; load problems do not: a full queue or a hopeless deadline
+        sheds the request (the returned Sequence has status 'shed' and
+        never enters the scheduler)."""
         total = len(req.prompt) + req.max_new_tokens
         if total > self.max_model_len:
             raise ValueError(
@@ -349,8 +455,28 @@ class Engine:
             raise ValueError(
                 f"request {req.rid}: needs {self.pool.blocks_for(total)} "
                 f"blocks, pool holds {self.pool.capacity}")
+        if (req.deadline_s is None and req.ttft_deadline_s is None and
+                (self.default_deadline_s or self.default_ttft_deadline_s)):
+            req = dataclasses.replace(
+                req, deadline_s=self.default_deadline_s,
+                ttft_deadline_s=self.default_ttft_deadline_s)
         seq = Sequence(req=req,
                        t_arrival=self.now if arrival is None else arrival)
+        if req.deadline_s is not None or req.ttft_deadline_s is not None:
+            self._deadline_watch = True
+        shed_reason = None
+        if self.max_queue is not None and \
+                len(self.scheduler.waiting) >= self.max_queue:
+            shed_reason = "queue_full"
+        elif req.deadline_s is not None:
+            # deadline-aware admission: a p95 queue wait past the whole
+            # budget is a promise the engine knows it cannot keep
+            p95 = obs.registry().histogram(
+                "serving_queue_wait_s").percentile(95)
+            if p95 is not None and p95 > req.deadline_s:
+                shed_reason = "deadline_hopeless"
+        if shed_reason is not None:
+            return self._shed(seq, shed_reason)
         self.scheduler.add(seq)
         obs.registry().counter("serving_requests_submitted_total",
                                help="requests queued").inc()
@@ -358,24 +484,200 @@ class Engine:
                              rid=req.rid, prompt_tokens=len(req.prompt))
         return seq
 
+    def _shed(self, seq: Sequence, reason: str) -> Sequence:
+        seq.status = "shed"
+        seq.phase = Phase.FINISHED
+        seq.t_finish = self.now
+        self.num_shed += 1
+        self.rejected.append(seq)
+        obs.registry().counter(
+            "serving_shed_total",
+            help="requests rejected at admission (load shedding)",
+            reason=reason).inc()
+        obs.tracer().instant("request.shed", cat="serving",
+                             rid=seq.req.rid, reason=reason)
+        return seq
+
+    def cancel(self, seq: Sequence, reason: str = "cancelled") -> Sequence:
+        """Terminate a queued or running sequence: scheduler resources
+        freed, status recorded, counted, never an exception.  Idempotent
+        on sequences already terminal."""
+        if seq.phase is Phase.FINISHED:
+            return seq
+        self.scheduler.remove(seq)
+        seq.status = reason
+        seq.t_finish = self.now
+        self.rejected.append(seq)
+        obs.registry().counter(
+            "serving_cancelled_total",
+            help="live sequences cancelled (deadline/disconnect/guard)",
+            reason=reason).inc()
+        obs.tracer().instant("request.cancel", cat="serving",
+                             rid=seq.req.rid, reason=reason,
+                             generated=len(seq.generated))
+        return seq
+
+    def _enforce_deadlines(self, done: list) -> None:
+        now = self.now
+        for seq in list(self.scheduler.waiting) + list(self.scheduler.running):
+            req = seq.req
+            if req.deadline_s is not None and \
+                    now - seq.t_arrival > req.deadline_s:
+                done.append(self.cancel(seq, "deadline"))
+            elif req.ttft_deadline_s is not None and \
+                    seq.t_first_token is None and \
+                    now - seq.t_arrival > req.ttft_deadline_s:
+                done.append(self.cancel(seq, "deadline"))
+
     # -------------------------------------------------------------- step
     def step(self) -> list[Sequence]:
         """One engine iteration (one prefill chunk OR one decode batch).
-        Returns the sequences that finished this iteration."""
+        Returns the sequences that terminated this iteration: finished
+        (status 'ok') or cancelled (deadline, disconnect, quarantine; see
+        ``Sequence.status``)."""
         done: list[Sequence] = []
+        injecting = faults.active() is not None
+        if injecting:
+            ev = faults.fire("latency")
+            if ev is not None:
+                time.sleep(ev.magnitude)  # step-latency spike
+            self._maybe_disconnect(done)
+        if self._deadline_watch:
+            self._enforce_deadlines(done)
         act = self.scheduler.schedule()
         self._sample_depths()
         if act is None:
-            if self.scheduler.waiting:
+            if self.scheduler.waiting and not injecting:
                 raise RuntimeError(
                     "engine stalled: waiting requests but nothing running "
                     "and the head cannot be admitted")
+            # under injection a transient (injected OOM) admission miss is
+            # expected: report idle and let the caller step again
             return done
         if act[0] == "prefill":
             self._prefill_chunk(act[1], act[2], act[3], done)
         else:
             self._decode_batch(act[1], done)
+        if self._hang_flag.is_set():
+            self._escalate_hang()
         return done
+
+    def _maybe_disconnect(self, done: list) -> None:
+        live = [s for s in self.scheduler.running if not s.done]
+        if not live:
+            return
+        ev = faults.fire("disconnect")
+        if ev is not None:
+            victim = live[int(ev.rng.integers(len(live)))]
+            done.append(self.cancel(victim, "disconnected"))
+
+    def _run_step(self, name: str, *arrays):
+        """The guarded step call: watchdog timing, the ``hang`` and
+        ``step_fail`` fault sites, and bounded retry with backoff.  The
+        injected failure raises before the runner is called, and a re-run
+        writes the same pool slots with the same values, so a retried
+        step is token-identical.  Returns the runner's (tokens, finite
+        flags, logits)."""
+        attempt = 0
+        while True:
+            wd = self._watchdog
+            try:
+                if wd is not None:
+                    wd.step_started()
+                try:
+                    ev = faults.fire("hang")
+                    if ev is not None:
+                        # stalling past the armed hang timer models a
+                        # wedged step and drives the same escalation
+                        floor = 0.0
+                        if wd is not None and wd._timer is not None:
+                            floor = wd._timer.interval * 1.2
+                        time.sleep(max(ev.magnitude, floor))
+                    ev = faults.fire("step_fail")
+                    if ev is not None:
+                        raise faults.InjectedFault("step_fail", ev)
+                    return self.runner(name, *arrays)
+                finally:
+                    if wd is not None:
+                        wd.step_finished()
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception:
+                attempt += 1
+                self.num_step_retries += 1
+                obs.registry().counter(
+                    "serving_step_retries_total",
+                    help="engine step failures retried").inc()
+                if attempt > self.step_retries:
+                    raise
+                time.sleep(self.retry_backoff_s * 2 ** (attempt - 1))
+
+    # -------------------------------------------------------- degradation
+    def _escalate_hang(self) -> None:
+        """Watchdog hang escalation, run right after the stalled step
+        returned: count it, quarantine the suspect backends and replan."""
+        self._hang_flag.clear()
+        obs.registry().counter(
+            "serving_hang_escalations_total",
+            help="watchdog hangs escalated to a backend replan").inc()
+        self._replan("hang")
+
+    def _replan(self, reason: str) -> None:
+        """Quarantine the backends the current plans run on (one rung of
+        the kernel -> torch -> dense_fallback ladder), resolve the plans
+        again on what remains and capture both step shapes again: the
+        counterpart of the reference's re-jit.  Runs between steps, never
+        inside one."""
+        self.num_replans += 1
+        obs.registry().counter(
+            "serving_replans_total",
+            help="step replans after hang/NaN escalation",
+            reason=reason).inc()
+        runner = self.runner
+        if not runner.exec_plans:
+            # never resolved at build (no policy): resolve now so the
+            # suspects are known by name
+            runner.exec_plans = runner.resolve_plans()
+        suspects = sorted({p.backend for p in runner.exec_plans.values()}
+                          - {"dense", "dense_fallback"})
+        for name in suspects:
+            dispatch.quarantine_backend(name, reason)
+        if self._policy is not None and self._policy.backend in suspects:
+            self._policy = dataclasses.replace(self._policy, backend=None)
+        runner.policy = self._policy
+        runner.exec_plans = runner.resolve_plans()
+        runner.recapture()
+        obs.tracer().instant("engine.replan", cat="serving",
+                             reason=reason, quarantined=",".join(suspects))
+
+    def _check_finite(self, rows, ok, done: list) -> set:
+        """NaN/Inf logit guard.  ``rows``: [(seq, row)] consuming a token
+        this step; ``ok``: the step's per-row finite flags.  Non-finite
+        rows (organic or injected) are quarantined: the sequence is
+        cancelled instead of poisoning the batch, and once
+        ``nan_replan_after`` events have accumulated the suspect backends
+        are quarantined too.  Returns the ids of quarantined sequences."""
+        if not rows:
+            return set()
+        bad = {i for (_, i) in rows if not bool(ok[i])}
+        ev = faults.fire("nan_logits")
+        if ev is not None:
+            bad.add(rows[int(ev.rng.integers(len(rows)))][1])
+        if not bad:
+            return set()
+        out = set()
+        for seq, i in rows:
+            if i not in bad:
+                continue
+            self.num_nan_events += 1
+            obs.registry().counter(
+                "serving_nan_quarantined_total",
+                help="sequences quarantined on non-finite logits").inc()
+            done.append(self.cancel(seq, "quarantined"))
+            out.add(id(seq))
+        if self.num_nan_events >= self.nan_replan_after:
+            self._replan("nan_logits")
+        return out
 
     def _sample_depths(self) -> None:
         """Per-iteration queue/occupancy samples (gauge = live view for
@@ -410,11 +712,13 @@ class Engine:
         with obs.tracer().span("engine.prefill_chunk", cat="serving",
                                rid=seq.req.rid, start=start, end=end), \
                 _StepTimer(self, "prefill"):
-            tok, logits = self.runner("prefill", tokens, positions, ws, vs,
-                                      last)
+            tok, ok, logits = self._run_step("prefill", tokens, positions,
+                                             ws, vs, last)
         self.num_prefill_steps += 1
         seq.prefill_pos = end
         if end == len(toks):  # prompt fully ingested -> first new token
+            if self._check_finite([(seq, 0)], ok, done):
+                return
             seq.phase = Phase.DECODE
             self._append(seq, self._pick(seq, tok[0], logits[0]), done)
 
@@ -447,14 +751,18 @@ class Engine:
         with obs.tracer().span("engine.decode_step", cat="serving",
                                batch=len(active)), \
                 _StepTimer(self, "decode"):
-            tok, logits = self.runner("decode", tokens, positions, ws, vs,
-                                      last)
+            tok, ok, logits = self._run_step("decode", tokens, positions,
+                                             ws, vs, last)
         self.num_decode_steps += 1
         obs.registry().histogram(
             "serving_decode_batch_occupancy",
             help="live rows per decode iteration (of max_slots)",
             buckets=DEPTH_BUCKETS).observe(len(active))
+        # only live rows are guarded: idle slots attend scratch
+        bad = self._check_finite([(s, s.slot) for s in active], ok, done)
         for seq in active:
+            if id(seq) in bad:
+                continue
             self._append(seq, self._pick(seq, tok[seq.slot],
                                          logits[seq.slot]), done)
 
@@ -517,12 +825,16 @@ class Engine:
 
         def _take():
             req = pending.pop(0)
-            self.submit(req, arrival=min(req.arrival_time, self.now))
+            seq = self.submit(req, arrival=min(req.arrival_time, self.now))
+            if seq.status != "ok":  # shed at admission: terminal already
+                results[req.rid] = seq
 
         while pending or self.scheduler.has_work():
             while pending and pending[0].arrival_time <= self.now:
                 _take()
             if not self.scheduler.has_work():
+                if not pending:
+                    break  # everything left was shed at submission
                 if wait_for_arrivals:
                     time.sleep(max(0.0, pending[0].arrival_time - self.now))
                 _take()
@@ -536,9 +848,15 @@ class Engine:
         e.g. after a warm-up stream, without touching queued or running
         work.  The kv_* capacity gauges stay."""
         self.finished = []
+        self.rejected = []
         self.num_prefill_steps = 0
         self.num_decode_steps = 0
         self.max_resident_seqs = 0
+        self.num_shed = 0
+        self.num_step_retries = 0
+        self.num_nan_events = 0
+        self.num_replans = 0
+        self.num_kv_rebuilds = 0
         self.scheduler.num_preemptions = 0
         self.scheduler.num_admitted = 0
         self.scheduler.num_evicted_blocks = 0
@@ -589,6 +907,13 @@ class Engine:
             "ttft_p95_s": pct(ttft, 95),
             "intertoken_p50_s": inter.percentile(50),
             "intertoken_p95_s": inter.percentile(95),
+            # ---- resilience
+            "shed": self.num_shed,
+            "cancelled": len(self.rejected) - self.num_shed,
+            "step_retries": self.num_step_retries,
+            "nan_quarantined": self.num_nan_events,
+            "replans": self.num_replans,
+            "kv_rebuilds": self.num_kv_rebuilds,
             "preempt_thrash": self.scheduler.num_thrash,
             "queue_wait_p95_s": reg.histogram(
                 "serving_queue_wait_s").percentile(95),

@@ -1,5 +1,5 @@
-"""Paged KV cache plumbing (a copy of repro.serving.kv_blocks without the
-fault-injection hook): a fixed-size block pool with a free-list
+"""Paged KV cache plumbing (a copy of repro.serving.kv_blocks): a
+fixed-size block pool with a free-list
 allocator, per-sequence block tables, and the flat "cache view" index
 arrays the paged attention path consumes (models.layers.attn_paged).
 
@@ -18,6 +18,8 @@ from __future__ import annotations
 from collections import deque
 
 import numpy as np
+
+from repro_torch import faults
 
 SCRATCH = 0  # reserved block id — never allocated, never trusted
 
@@ -49,9 +51,12 @@ class BlockPool:
         return -(-num_tokens // self.block_size)
 
     def alloc(self, n: int) -> list[int] | None:
-        """All-or-nothing allocation of ``n`` blocks (None on exhaustion)."""
+        """All-or-nothing allocation of ``n`` blocks (None on exhaustion,
+        organic or injected by the ``oom`` fault class)."""
         if n > len(self._free):
             return None
+        if faults.fire("oom") is not None:
+            return None  # injected: the signal real pool pressure gives
         out = [self._free.popleft() for _ in range(n)]
         self._free_set.difference_update(out)
         return out

@@ -263,3 +263,68 @@ def test_dispatch_selects_and_rejects():
     plain = dispatch.execute(p, x, ms_spec)
     torch.testing.assert_close(fused, t_ep.apply_epilogue(plain, ep, b, r),
                                rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------------- small parts
+def test_serving_config_check_int4_and_activation_match():
+    """linear.serving_config, packing.check_int4 and common.activation
+    against the reference's on the same inputs."""
+    from repro.models import common as j_common
+    from repro_torch.models import common as t_common
+
+    for mode in ("msgemm", "int4_dequant", "bf16"):
+        spec = dict(d=3, scale_block=36, storage="packed_u8")
+        got = t_linear.serving_config(t_spec.QuantSpec(**spec), mode)
+        want = j_linear.serving_config(j_spec.QuantSpec(**spec), mode)
+        assert isinstance(got, t_spec.QuantSpec)
+        assert (got.mode, got.d, got.scale_block, got.storage,
+                got.codebook) == (want.mode, want.d, want.scale_block,
+                                  want.storage, want.codebook)
+    for values in ([], [0], [-8, 7], [[3, -2], [7, -8]], [8], [-9, 0],
+                   np.array([1, 2, 100])):
+        outcomes = []
+        for check in (t_pack.check_int4, j_pack.check_int4):
+            try:
+                check(values)
+                outcomes.append("ok")
+            except ValueError:
+                outcomes.append("ValueError")
+        assert outcomes[0] == outcomes[1], values
+    x = np.linspace(-6, 6, 97).astype(np.float32)
+    for name in ("gelu", "silu", "relu"):
+        np.testing.assert_allclose(
+            t_common.activation(name)(_t(x)).numpy(),
+            np.asarray(j_common.activation(name)(jnp.asarray(x))),
+            rtol=1e-6, atol=1e-6)
+    for mod in (t_common, j_common):
+        with pytest.raises(KeyError):
+            mod.activation("tanh")
+
+
+def test_registry_unregister_and_device_kind():
+    """dispatch.unregister_backend and registry.device_kind as in the
+    reference: a registered backend outranks the built-ins until it is
+    dropped, and auto-selection without a device keys on device_kind
+    ('cpu' here, as the reference's on the CPU)."""
+    from repro import dispatch as j_dispatch
+    from repro_torch import dispatch as t_dispatch
+
+    assert t_dispatch.device_kind() == t_dispatch.registry.device_kind() \
+        == j_dispatch.registry.device_kind() == "cpu"
+    ms = t_spec.QuantSpec(mode="msgemm", d=3, scale_block=36)
+    default = t_dispatch.select_backend(ms, 3).name
+    assert default == t_dispatch.select_backend(ms, 3, "cpu").name
+    try:
+        t_dispatch.register_backend(
+            "msgemm_custom", modes=("msgemm",), priority=999,
+            run=lambda spec, plan, params, x, *, k: x)
+        assert t_dispatch.select_backend(ms, 3).name == "msgemm_custom"
+        assert t_dispatch.plan(ms, 16, 36, 2, device_type="cpu").backend \
+            == "msgemm_custom"
+    finally:
+        t_dispatch.unregister_backend("msgemm_custom")
+    assert "msgemm_custom" not in t_dispatch.backend_names()
+    assert t_dispatch.select_backend(ms, 3).name == default
+    assert t_dispatch.plan(ms, 16, 36, 2, device_type="cpu").backend \
+        == default
+    t_dispatch.unregister_backend("no_such_backend")  # a no-op

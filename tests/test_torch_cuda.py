@@ -698,3 +698,76 @@ def test_observer_refuses_a_capture():
         with torch.cuda.graph(graph):
             col.record("wq", x * 2)
     assert col.get("wq", 8).count == 2
+
+
+@pytest.mark.cuda
+def test_finite_flag_comes_from_the_graph():
+    """The per-row finite flag is computed inside the captured step and
+    comes back with the tokens in one (2, B) buffer: a replay over a
+    poisoned norm flags every row, a replay after the repair none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.serving.engine import STEP_INPUTS
+
+    params, cfg, _ = _small_engine_model("msgemm")
+    eng = _small_engine(params, cfg, None)
+    shape = eng.runner.shapes["decode"]
+    assert shape.graph is not None and tuple(shape.out.shape) == (2, 4)
+    idle = [shape.host[k].numpy().copy() for k in STEP_INPUTS]
+    assert eng.runner("decode", *idle)[1].tolist() == [1] * 4
+    scale = params.final_norm.scale
+    saved = scale.clone()
+    scale.fill_(float("nan"))  # the graph reads the buffer in place
+    try:
+        _, ok, logits = eng.runner("decode", *idle)
+        assert ok.tolist() == [0] * 4
+        assert not torch.isfinite(logits).any()
+    finally:
+        scale.copy_(saved)
+    assert eng.runner("decode", *idle)[1].tolist() == [1] * 4
+
+
+@pytest.mark.cuda
+def test_nan_replan_recaptures_onto_the_torch_rung():
+    """Two injected NaN rows quarantine their sequences and then the
+    kernel's backend: the engine captures both step shapes again on
+    msgemm_torch, so msGeMM launches go from 7 a layer each step to 0,
+    and every request ends (ok or quarantined)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch import dispatch, faults
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.serving import poisson_stream
+
+    params, cfg, _ = _small_engine_model("msgemm")
+    eng = _small_engine(params, cfg, None)
+    assert eng.runner.captures == 2
+    launches = []
+    run_step = eng._run_step
+
+    def counted(name, *arrays):
+        before = KERNELS["msgemm"].launches
+        out = run_step(name, *arrays)
+        launches.append(KERNELS["msgemm"].launches - before)
+        return out
+
+    eng._run_step = counted
+    reqs = poisson_stream(6, cfg.vocab_size, max_new_tokens=8, rate=0.0,
+                          min_prompt=3, max_prompt=16, seed=0)
+    faults.arm("nan_logits:p=1.0,after=3,max=2")
+    try:
+        res = eng.run(reqs, wait_for_arrivals=False)
+        faults.disarm()
+        assert eng.num_replans == 1 and eng.runner.captures == 4
+        assert dispatch.is_quarantined("msgemm_cuda")
+        assert {p.backend for p in eng.exec_plans.values()} == \
+            {"msgemm_torch"}
+        k = launches.index(0)
+        assert k > 0 and launches[:k] == [7 * cfg.num_layers] * k
+        assert set(launches[k:]) == {0}
+        statuses = [res[rid].status for rid in range(len(reqs))]
+        assert statuses.count("quarantined") == 2
+        assert set(statuses) == {"ok", "quarantined"}
+    finally:
+        faults.disarm()
+        dispatch.clear_quarantine()

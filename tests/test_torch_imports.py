@@ -39,6 +39,9 @@ MUST_IMPORT = {
     "repro_torch.calib.stats", "repro_torch.calib.fit",
     "repro_torch.calib.quality", "repro_torch.kvq.fit",
     "repro_torch.data.pipeline", "repro_torch.runtime.train",
+    "repro_torch.faults", "repro_torch.faults.plan",
+    "repro_torch.distributed", "repro_torch.distributed.watchdog",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
 }
 
 

@@ -99,6 +99,21 @@ def test_fit_kv_codebook_and_errors_match_reference(smoke):
     assert errs["learned"] <= errs["uniform"]
 
 
+def test_lazy_kv_reconstruction_error_matches_reference(smoke):
+    """``kvq.kv_reconstruction_error``, the package's lazy re-export, gives
+    the reference's ``repro.kvq.kv_reconstruction_error`` within 1e-6."""
+    from repro import kvq as jkvq
+
+    jp, jcfg, model, tcfg, batches = smoke
+    for bits in (4, 8):
+        got = kvq.kv_reconstruction_error(model, tcfg, batches,
+                                          kvq.KVQuantSpec(bits),
+                                          device="cpu")
+        want = jkvq.kv_reconstruction_error(jp, jcfg, batches,
+                                            JKVSpec(bits))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
 def test_fit_kv_codebook_draws_its_own_tokens():
     """Without batches or tokens the fit draws a (2, 32) batch from a
     torch.Generator seeded with ``seed`` (the reference's jax.random draw

@@ -123,13 +123,48 @@ def test_serve_cli_static_engine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "model=2"], ["--faults", "all"], ["--watchdog"],
-], ids=["mesh", "faults", "watchdog"])
+    ["--mesh", "model=2"], ["--shard-impl", "ring"],
+    ["--force-host-devices", "4"],
+], ids=["mesh", "shard-impl", "force-host-devices"])
 def test_serve_cli_refuses_unported_flags(flags):
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
                     *flags])
     assert exc.value.code == 2
+
+
+@pytest.mark.parametrize("flags,env", [
+    (["--faults", "step_fail:p=1.0,after=2,max=2;oom:p=0.5,after=1,max=4",
+      "--fault-seed", "0"], None),
+    ([], "step_fail:p=1.0,after=2,max=2"),
+    (["--watchdog", "--max-queue", "64", "--deadline-s", "600",
+      "--ttft-deadline-s", "600"], None),
+], ids=["faults", "env", "watchdog"])
+def test_serve_cli_resilience_flags(flags, env, capsys, monkeypatch):
+    """The reference's resilience flags: --faults (or REPRO_FAULTS) arms
+    the plan for the run, the retried steps keep --check's parity and are
+    printed; --watchdog and the SLO flags change nothing on a clean run.
+    The plan is disarmed when main returns."""
+    from repro_torch import faults, obs
+
+    if env is not None:
+        monkeypatch.setenv("REPRO_FAULTS", env)
+        monkeypatch.setenv("REPRO_FAULT_SEED", "0")
+    try:
+        out = _main("gemma_2b", "--quant", "msgemm", *flags)
+    finally:
+        faults.disarm()
+    assert out["checked"] == 3
+    m, text = out["metrics"], capsys.readouterr().out
+    assert faults.active() is None
+    assert obs.registry().gauge("faults_armed").value == 0
+    if flags[:1] == ["--watchdog"]:
+        assert m["step_retries"] == m["shed"] == m["cancelled"] == 0
+        assert "fault injection armed" not in text
+    else:
+        assert m["step_retries"] == 2
+        assert "fault injection armed" in text
+        assert "[serve] resilience: shed=0 cancelled=0 retries=2" in text
 
 
 @pytest.mark.parametrize("bits", [4, 8, 16])

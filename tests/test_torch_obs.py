@@ -332,7 +332,7 @@ def test_step_runner_cpu_route_matches_paged_step_and_static(pair):
                   kv_blocks.write_slots(blocks, start, n, 4, bs)[None],
                   kv_blocks.view_slots(blocks, 4, bs)[None],
                   np.array([n - 1], np.int32))
-        tok, logits = runner("prefill", *arrays)
+        tok, ok, logits = runner("prefill", *arrays)
         with torch.no_grad():
             want, _ = SV.paged_step(model, tcfg, *[torch.from_numpy(a)
                                                    for a in arrays[:1]],
@@ -340,6 +340,7 @@ def test_step_runner_cpu_route_matches_paged_step_and_static(pair):
                                             for a in arrays[1:]])
         assert torch.equal(logits, want)
         assert tok.tolist() == SV.greedy(want).tolist()
+        assert ok.tolist() == [1]  # the per-row finite flag
     toks.append(int(tok[0]))
     for i in range(3):  # decode in row 1 of 2; row 0 idles on scratch
         pos = len(prompt) + i
@@ -350,7 +351,7 @@ def test_step_runner_cpu_route_matches_paged_step_and_static(pair):
                   np.stack([np.zeros(W, np.int32),
                             kv_blocks.view_slots(blocks, 4, bs)]),
                   np.zeros(2, np.int32))
-        tok, logits = runner("decode", *arrays)
+        tok, ok, logits = runner("decode", *arrays)
         with torch.no_grad():
             want, _ = SV.paged_step(model, tcfg, torch.from_numpy(arrays[0]),
                                     kv_b, *[torch.from_numpy(a)

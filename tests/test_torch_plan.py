@@ -299,7 +299,10 @@ def test_quarantine_skips_a_backend_and_never_empties_selection():
         dispatch.quarantine_backend("int4_cuda")
         assert dispatch.plan(I4, 16, 24, 8,
                              device_type="cpu").backend == "int4_torch"
-        dispatch.quarantine_backend("int4_torch")  # every int4 path
+        dispatch.quarantine_backend("int4_torch")  # down the ladder
+        assert dispatch.plan(I4, 16, 24, 8,
+                             device_type="cpu").backend == "dense_fallback"
+        dispatch.quarantine_backend("dense_fallback")  # every int4 path
         assert dispatch.plan(I4, 16, 24, 8,
                              device_type="cpu").backend == "int4_cuda"
         dispatch.clear_quarantine()
