@@ -35,6 +35,21 @@ Phases, any failure exits non-zero before the last line is printed:
      its tiles (contraction splits) and its time before the redesign
      (``OLD_INT4_MS``); the none/relu epilogues bit-exact on random
      floats too;
+   * the int4 GeMM over an expert stack, one launch for all experts, at
+     qwen2-moe's expert shapes (60 experts, 1408 x 2048 up and gate,
+     2048 x 1408 down, b = 16 at decode and 4 at a prefill chunk) and
+     llama4-maverick's (128 experts, 8192 x 5120, 5120 x 8192, b = 16),
+     bf16 x as the dispatch passes it: bit-exact against the plain version
+     (a per-expert loop of the one-linear plain version) on exact and on
+     random inputs (silu within one bf16 ulp), timed against its bound
+     (bytes, or the multiply-adds at the bf16 tensor-core rate) and
+     ``torch.matmul`` of the dequantized f32 stack;
+   * both GeMMs, not timed, at every GeMM shape the other architectures'
+     engines run (``arch_gemms``: qwen2-moe's, llama4-maverick's,
+     codeqwen1.5-7b's, starcoder2-15b's and gpt3-175b's attention
+     projections, dense and shared-expert MLPs, and untied vocab heads),
+     bf16 x and residual in the engine's layout, the layers at b = 1, 4,
+     8, 15 and the heads at b = 1, 4, 8;
    Both GeMMs: bit-exact on exact inputs (integer activations,
    power-of-two scales); rtol = atol = 1e-5 on random floats with f32
    output, one bf16 ulp (rtol = 2^-7) with bf16 output (kernel and plain
@@ -42,10 +57,12 @@ Phases, any failure exits non-zero before the last line is printed:
    * paged attention over the quantized pool at gemma-2b decode
      (B=4, C=1) and prefill-chunk (B=1, C=8) shapes, each at kv8, kv4 and
      kv4 with a codebook, a long context (B=8, W=4096) at kv8 and kv4, a
-     soft-capped windowed GQA case, and gemma2-9b's served kv8 decode
-     step.  The kernel, its plain version and the torch backend (gather,
-     dequantize, sdpa) agree within rtol = atol = 2e-5 on f32 outputs, one
-     bf16 ulp on bf16 outputs.
+     soft-capped windowed GQA case, gemma2-9b's served kv8 decode
+     step, and head dim 128 at kv8: qwen2-moe's and codeqwen's decode
+     (one query head a kv head), llama4's (5) and starcoder2's (12), and
+     qwen2-moe's prefill chunk.  The kernel, its plain version and the
+     torch backend (gather, dequantize, sdpa) agree within rtol = atol =
+     2e-5 on f32 outputs, one bf16 ulp on bf16 outputs.
    Each case is timed: kernel, plain version, one PyTorch call as a
    yardstick (``torch.matmul`` on the dequantized weight; sdpa on the
    dequantized view) and the least time the card could take.
@@ -165,7 +182,30 @@ Phases, any failure exits non-zero before the last line is printed:
    prompt tokens, past the 4096-token window, with int4 weights and
    ``--check``.  The msgemm, int4 and long runs again with
    ``--no-cuda-graph``: the same tokens.
-6. report  — the card's name and power limit, then a ``kernels`` JSON line.
+6. arch    — the other architectures at full width from seed 0 through
+   the serve CLI (``repro_torch.launch.serve.main``, in process, the graph
+   route, the 6-request stream): qwen2-moe-a2.7b at full depth with
+   msgemm weights (169 msGeMM launches a step: 7 a layer and the untied
+   vocab head; 72 int4 launches, one a layer and expert projection over
+   its 60-expert stack; its ``dropped_frac``), then on the same weights
+   the eager route (the same tokens) and a kv8 pool through the
+   paged-attention kernel (24 launches a step, head dim 128) on the graph
+   and the eager route (the same tokens) and through the torch route
+   (its agreement with the kernel route reported: a top-k router turns
+   the routes' last-bit differences into other experts); llama4-maverick
+   cut to 2 layers (one dense, one MoE block: top-1 of 128 experts,
+   qk-norm) the same way; codeqwen1.5-7b at full depth with msgemm and
+   with int4 weights, starcoder2-15b at full depth and gpt3-175b cut to 2
+   layers with msgemm weights through the CLI (bf16 activations; tokens
+   == static generate up to static generate's first near-tie, a top-two
+   gap of at most one bf16 ulp: an untied head's bf16 logits often tie
+   at full width), then each on the same weights with f32 activations
+   through the engine, tokens == static generate; codeqwen's f32 model
+   also with a kv8 pool through the paged-attention kernel (32 launches
+   a step, head dim 128) and through the torch route, the same tokens.
+   ``--profile`` adds both MoE models' step profile and the device ms a
+   step of the vocab head and of the expert stacks (GeMM marks).
+7. report  — the card's name and power limit, then a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Needs no network; imports nothing of JAX.
@@ -246,20 +286,23 @@ def work(m, k, b, d, sb, has_bias, has_res, out_bytes, x_bytes=4):
     return nbytes, ops
 
 
-def with_bound(result, nbytes, nops):
+def with_bound(result, nbytes, nops, mma_ops=0):
     """Add the least time the card could take: bytes over the HBM rate or
-    operations over the f32 rate, whichever is larger."""
+    operations over their peak rate, whichever is larger: ``nops`` at the
+    f32 rate outside the tensor cores, ``mma_ops`` (multiply-adds that the
+    bf16 tensor cores do exactly, with f32 accumulation) at their rate."""
     dev = card()
     t_bytes = nbytes / dev.mem_bw * 1e3
-    t_ops = nops / dev.vector_flops * 1e3
-    result.update(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
+    t_ops = (nops / dev.vector_flops + mma_ops / dev.matmul_flops) * 1e3
+    result.update(bytes=nbytes, ops=nops, mma_ops=mma_ops,
+                  bound_ms=max(t_bytes, t_ops),
                   bound_by="bytes" if t_bytes >= t_ops else "operations")
     return result
 
 
 def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
               act, bias, residual, out_dtype, engine_layout,
-              x_dtype=None, **kw):
+              x_dtype=None, timed=True, **kw):
     """Check ``kernel(weight, x, scales, **kw)`` against ``plain`` on exact
     inputs (integer x, power-of-two scales: bit-exact unless gelu/silu)
     and on random floats (within one ulp of the output type: the two share
@@ -268,7 +311,8 @@ def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
     scales)``, the dequantized f32 weight.  ``engine_layout``: x (k, b)
     and the residual (m, b) are transposed views of (b, k) and (b, m)
     buffers, as the dispatch backends pass the model's activations.
-    ``x_dtype``: the type of x and the residual (float32 when None)."""
+    ``x_dtype``: the type of x and the residual (float32 when None).
+    ``timed=False``: the two checks only."""
     import torch
 
     from repro_torch.kernels import ops
@@ -307,6 +351,8 @@ def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
             torch.testing.assert_close(got.float(), want.float(), **tol,
                                        msg=lambda s: f"{name}: {s}")
         result["exact_max_abs_err" if exact else "max_abs_err"] = err
+    if not timed:
+        return result
     # timing, on the random-float inputs
     wbytes = weight.numel() * weight.element_size()
     copies = ops.copies_past_l2(wbytes)
@@ -329,7 +375,7 @@ def gemm_case(result, g, weight, kernel, plain, dense, *, m, k, b, nsb,
 
 def kernel_case(name, m, k, b, *, d=3, sb=36, act="none", bias=False,
                 residual=False, codebook=False, out_dtype=None,
-                engine_layout=False, x_dtype=None, seed=0):
+                engine_layout=False, x_dtype=None, seed=0, timed=True):
     """One msGeMM kernel-vs-plain case (see :func:`gemm_case`)."""
     import torch
 
@@ -364,7 +410,7 @@ def kernel_case(name, m, k, b, *, d=3, sb=36, act="none", bias=False,
                        * torch.repeat_interleave(sc, sb, 1)[:, :k]),
         m=m, k=k, b=b, nsb=nsb, act=act, bias=bias, residual=residual,
         out_dtype=out_dtype, engine_layout=engine_layout, x_dtype=x_dtype,
-        d=d, scale_block=sb, tiles=tiles)
+        timed=timed, d=d, scale_block=sb, tiles=tiles)
     return with_bound(result, *work(
         m, k, b, d, sb, bias, residual,
         torch.empty((), dtype=out_dtype).element_size(),
@@ -624,16 +670,19 @@ def phase_sweep_attention():
 
 
 def int4_work(m, k, b, sb, has_bias, has_res, out_bytes, x_bytes=4):
-    """(bytes, ops) the int4 GeMM needs: packed codes, scales, x and the
-    residual (at ``x_bytes`` an element, the type the kernel reads) read
-    once, the output written once; one scale multiply per weight, one
-    multiply-add per (weight, column), the epilogue's adds."""
+    """(bytes, ops, mma_ops) the int4 GeMM needs: packed codes, scales, x
+    and the residual (at ``x_bytes`` an element, the type the kernel
+    reads) read once, the output written once; one scale multiply per
+    weight and the epilogue's adds at the f32 rate; one multiply-add per
+    (weight, column), on the bf16 tensor cores when x is 2 bytes (a 4-bit
+    code times a bf16 value is exact there), else at the f32 rate."""
     nsb = -(-k // sb)
     nbytes = (m * -(-k // 2) + m * nsb * 4 + k * b * x_bytes
               + m * b * out_bytes + (m * 4 if has_bias else 0)
               + (m * b * x_bytes if has_res else 0))
-    ops = m * k + 2 * m * k * b + m * b * (int(has_bias) + int(has_res))
-    return nbytes, ops
+    ops = m * k + m * b * (int(has_bias) + int(has_res))
+    fma = 2 * m * k * b
+    return (nbytes, ops, fma) if x_bytes == 2 else (nbytes, ops + fma, 0)
 
 
 # Device ms of the int4 kernel before its redesign (32-row blocks walking
@@ -656,7 +705,7 @@ OLD_INT4_MS = {
 
 def int4_case(name, m, k, b, *, sb=36, act="none", bias=False,
               residual=False, out_dtype=None, engine_layout=False,
-              x_dtype=None, seed=0):
+              x_dtype=None, seed=0, timed=True):
     """One int4 kernel-vs-plain case (see :func:`gemm_case`); the
     none/relu epilogues bit-exact on random floats too."""
     import torch
@@ -686,7 +735,7 @@ def int4_case(name, m, k, b, *, sb=36, act="none", bias=False,
         lambda u, sc: i4.dequantize(u, sc, k, sb),
         m=m, k=k, b=b, nsb=nsb, act=act, bias=bias, residual=residual,
         out_dtype=out_dtype, engine_layout=engine_layout, x_dtype=x_dtype,
-        scale_block=sb, tiles=tiles)
+        timed=timed, scale_block=sb, tiles=tiles)
     # kernel and plain version round every sum alike: none/relu bit-exact
     # on the random floats too
     check(act not in ("none", "relu") or result["max_abs_err"] == 0.0,
@@ -976,6 +1025,15 @@ def attn_specs():
     specs += [("gemma2-9b-long-kv8",
                dict(B=4, C=1, H=16, hk=8, dh=256, bs=8, W=4096, bits=8,
                     softcap=50.0, window=4096))]
+    # head dim 128, the arch phase's served kv8 steps: qwen2-moe and
+    # codeqwen (one query head a kv head) at decode and a prefill chunk,
+    # llama4-maverick (5) and starcoder2 (12) at decode
+    for name, H, hk in (("qwen2-moe", 16, 16), ("codeqwen", 32, 32),
+                        ("llama4", 40, 8), ("starcoder2", 48, 4)):
+        specs += [(f"{name}-decode-kv8",
+                   dict(B=4, C=1, H=H, hk=hk, dh=128, bs=8, W=32, bits=8))]
+    specs += [("qwen2-moe-prefill-kv8",
+               dict(B=1, C=8, H=16, hk=16, dh=128, bs=8, W=32, bits=8))]
     return specs
 
 
@@ -1037,28 +1095,43 @@ def check_clean(tag, m):
           f"[{tag}] backends quarantined: {dispatch.quarantined()}")
 
 
-def serve(tag, model, cfg, **engine_kw):
+def serve(tag, model, cfg, keep_logits=False, **engine_kw):
     """Serve the request stream once through the continuous engine with
-    the serve CLI's defaults.  Every kernel's launch count is set to 0
+    the serve CLI's defaults.  Every kernel's launch count (and a MoE
+    model's routed-slot counts, read into ``dropped_frac``) is set to 0
     just before the run and read just after it.  Checks that every
     request finished with all its tokens and that the run used no rung of
-    the resilience layer (:func:`check_clean`)."""
+    the resilience layer (:func:`check_clean`).  ``keep_logits``: the
+    run also returns each request's logits, one (V,) row a token."""
     import torch
 
     from repro_torch.launch.serve import KERNELS as counters
+    from repro_torch.models import moe as M
 
     reqs = request_stream(cfg)
     engine = make_engine(model, cfg, **engine_kw)
+    logits = {}
+    if keep_logits:
+        pick = engine._pick
+
+        def keep(seq, tok, row):
+            # a copy: row may be a graph's static output
+            logits.setdefault(seq.req.rid, []).append(row.float().clone())
+            return pick(seq, tok, row)
+
+        engine._pick = keep
     route = "graph" if engine.runner.cuda_graph else "eager"
     check(route == ("eager" if engine_kw.get("cuda_graph") is False
                     else "graph"), f"[{tag}] engine took the {route} route")
     for mod in counters.values():
         mod.launches = 0
+    M.reset_route_counts(model)
     t0 = time.perf_counter()
     results = engine.run(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
+    dropped = M.dropped_frac(model)
     steps = engine.num_steps
     check(steps > 0, f"[{tag}] the engine took no step")
     check(launches["flash_attention"] == 0,
@@ -1081,6 +1154,7 @@ def serve(tag, model, cfg, **engine_kw):
           flush=True)
     return dict(reqs=reqs, run_s=run_s, steps=steps, launches=launches,
                 metrics=s, route=route, step_ms=run_s * 1e3 / steps,
+                dropped_frac=dropped, logits=logits,
                 tokens={rid: seq.generated for rid, seq in results.items()},
                 exec_plans=engine.exec_plans)
 
@@ -2445,14 +2519,17 @@ def res_artifacts(reqs, card):
 LONG_PROMPT = dict(prompt_len=5000, seed=0)  # draws one 4,440-token prompt
 
 
-def serve_cli(tag, argv, per_step, arch="gemma2_9b", clean=True):
+def serve_cli(tag, argv, per_step, arch="gemma2_9b", clean=True,
+              keep=False):
     """One in-process run of ``repro_torch.launch.serve.main`` with
     ``arch``, every launch count set to 0 just before and read just
-    after.  Checks full width, that every request finished, and that the
-    engine's run launched each kernel exactly ``per_step[name]`` times a
-    step (0 if unnamed); with ``clean`` (a run without ``--faults``) that
-    it used no rung of the resilience layer.  Returns what
-    chip_smoke.json keeps of the run; the model is freed."""
+    after.  Checks full width (the depth ``--num-layers`` asks for, else
+    the config's), that every request finished, and that the engine's run
+    launched each kernel exactly ``per_step[name]`` times a step (0 if
+    unnamed); with ``clean`` (a run without ``--faults``) that it used no
+    rung of the resilience layer.  Returns what chip_smoke.json keeps of
+    the run; the model is freed unless ``keep`` (then the run holds it
+    under ``model`` and ``cfg``)."""
     import torch
 
     from repro_torch import configs
@@ -2471,10 +2548,12 @@ def serve_cli(tag, argv, per_step, arch="gemma2_9b", clean=True):
     wall_s = time.perf_counter() - t0
     total = cli.launch_counts()
     cfg = out.pop("cfg")
-    del out["params"]
+    model = out.pop("params")
     steps, launches, m = out["steps"], out["launches"], out["metrics"]
-    check(cfg.replace(quant=CONFIG.quant) == CONFIG,
-          f"[{tag}] not {arch} at full width: {cfg}")
+    depth = (int(argv[argv.index("--num-layers") + 1])
+             if "--num-layers" in argv else CONFIG.num_layers)
+    check(cfg.replace(quant=CONFIG.quant) == CONFIG.replace(num_layers=depth),
+          f"[{tag}] not {arch} at full width and {depth} layers: {cfg}")
     check(steps > 0 and all(s.status == "ok"
                             for s in out["results"].values()),
           f"[{tag}] not every request finished")
@@ -2499,8 +2578,12 @@ def serve_cli(tag, argv, per_step, arch="gemma2_9b", clean=True):
                prompts=[len(s.req.prompt) for s in out["results"].values()],
                kv_codebook=(None if out.get("kv_spec") is None
                             else out["kv_spec"].codebook),
+               dropped_frac=out.get("dropped_frac"), layers=cfg.num_layers,
                tokens={rid: s.generated for rid, s in out["results"].items()})
     del out
+    if keep:
+        run.update(model=model, cfg=cfg)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[{tag}] build {run['build']['build_s']:.1f}s, buffers "
@@ -2510,8 +2593,10 @@ def serve_cli(tag, argv, per_step, arch="gemma2_9b", clean=True):
           f"{m['latency_p50_s'] * 1e3:.1f}ms p95 "
           f"{m['latency_p95_s'] * 1e3:.1f}ms over {steps} steps "
           f"({run['step_ms']:.2f} ms a step); engine "
-          f"launches {launches}; with the check {total} "
-          f"[{wall_s:.1f}s]", flush=True)
+          f"launches {launches}; with the check {total}"
+          + ("" if run["dropped_frac"] is None
+             else f"; moe dropped_frac {run['dropped_frac']:.6f}")
+          + f" [{wall_s:.1f}s]", flush=True)
     return run
 
 
@@ -2642,6 +2727,543 @@ def phase_gemma2_9b():
     return out
 
 
+# -------------------------------------------- the archs' GeMMs (phase 2)
+ARCH_NAMES = ("qwen2_moe", "llama4_maverick", "codeqwen15_7b",
+              "starcoder2_15b", "gpt3_175b")
+# b of the layers' GeMMs: static generate's decode, the engine's decode (4
+# slots) and prefill chunk (8), and static generate's prefill of the
+# stream's longest prompt (15: a ragged column tile); the vocab head runs
+# the last position only in static generate (b = 1)
+ARCH_WIDTHS, HEAD_WIDTHS = (1, 4, 8, 15), (1, 4, 8)
+
+
+def arch_gemms(arch):
+    """(layer GeMMs, head GeMMs) of ``arch`` at full width, each (name, m,
+    k, epilogue kwargs): the distinct GeMMs its engine runs through the
+    weight kernel.  The attention projections (wv as wk), the dense MLP's
+    (down with the block's residual), the shared experts' MLP (no
+    residual) and the untied vocab head; shapes among ``GEMMA_GEMMS``
+    (held at b = 1, 4, 8 already) left out."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    short = arch.split("_")[0]
+    d = cfg.d_model
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    act = {"swiglu": "silu", "geglu": "gelu",
+           "gelu": "gelu"}[cfg.mlp_activation]
+    mlps = []  # (d_ff, its down projection takes the block's residual)
+    if any(cfg.kind(i) != "moe" for i in range(cfg.num_layers)):
+        mlps.append((cfg.d_ff, True))
+    if cfg.num_shared_experts:
+        mlps.append((cfg.shared_expert_d_ff or cfg.num_shared_experts
+                     * (cfg.moe_d_ff or cfg.d_ff), False))
+    gemms = [("wq", q, d, {}), ("wk", kv, d, {}),
+             ("wo", d, q, dict(residual=True))]
+    for ff, res in mlps:
+        gemms += ([("gate", ff, d, dict(act=act)), ("up", ff, d, {})]
+                  if cfg.mlp_activation in ("swiglu", "geglu")
+                  else [("up", ff, d, dict(act=act))])
+        gemms.append(("down", d, ff, dict(residual=True)) if res
+                     else ("shared-down", d, ff, {}))
+    seen = {(m, k, tuple(sorted(e.items()))) for _, m, k, e in GEMMA_GEMMS}
+    layer = []
+    for name, m, k, e in gemms:
+        key = (m, k, tuple(sorted(e.items())))
+        if key not in seen:
+            seen.add(key)
+            layer.append((f"{short}-{name}", m, k, e))
+    head = ([] if cfg.tie_embeddings
+            else [(f"{short}-head", cfg.vocab_size, d, {})])
+    return layer, head
+
+
+def phase_arch_gemms():
+    """Both weight kernels against their plain versions at every GeMM
+    shape of the other architectures' engines (:func:`arch_gemms`), bf16
+    x and residual in the engine's layout, bf16 out (as the serve CLI
+    runs them): the layers at ``ARCH_WIDTHS``, the vocab heads at
+    ``HEAD_WIDTHS``.  Held as the gemma cases are: bit-exact on exact
+    inputs, within one bf16 ulp on random floats (the int4 kernel's
+    none/relu epilogues bit-exact there too).  Not timed: the gemma cases
+    time both kernels."""
+    import torch
+
+    bf16 = torch.bfloat16
+    out = dict(msgemm=[], int4=[])
+    seed = 500
+    for arch in ARCH_NAMES:
+        layer, head = arch_gemms(arch)
+        for name, m, k, b, ep in (engine_specs(layer, ARCH_WIDTHS, bf16)
+                                  + engine_specs(head, HEAD_WIDTHS, bf16)):
+            for kind, case, tiles in (("msgemm", kernel_case, tiles_str),
+                                      ("int4", int4_case, int4_tiles_str)):
+                t0 = time.perf_counter()
+                r = case(name, m, k, b, seed=seed, timed=False, **ep)
+                seed += 1
+                out[kind].append(r)
+                print(f"[arch-gemm] {kind:6s} {name:20s} m={m:6d} k={k:5d} "
+                      f"b={b:2d} act={r['act']:4s} "
+                      f"res={int(r['residual'])} "
+                      f"err={r['max_abs_err']:.3g} "
+                      f"exact_err={r['exact_max_abs_err']:.3g} "
+                      f"[{tiles(r['tiles'])}] "
+                      f"[{time.perf_counter() - t0:.1f}s]", flush=True)
+        torch.cuda.empty_cache()
+    print(f"[arch-gemm] {len(out['msgemm'])} msGeMM and {len(out['int4'])} "
+          f"int4 cases agree with their plain versions", flush=True)
+    return out
+
+
+# ------------------------------------------------------ experts (phase 2)
+# (name, E, m, k, b, act) of the MoE configs' expert linears: qwen2-moe's
+# at decode (4 slots x capacity 4) and its gate at a prefill chunk (1 x 4);
+# llama4-maverick's at decode
+EXPERT_CASES = [
+    ("qwen2-moe-up", 60, 1408, 2048, 16, "none"),
+    ("qwen2-moe-gate", 60, 1408, 2048, 16, "silu"),
+    ("qwen2-moe-down", 60, 2048, 1408, 16, "none"),
+    ("qwen2-moe-gate-prefill", 60, 1408, 2048, 4, "silu"),
+    ("llama4-up", 128, 8192, 5120, 16, "none"),
+    ("llama4-down", 128, 5120, 8192, 16, "none"),
+]
+
+
+def expert_case(name, E, m, k, b, act, *, sb=36, seed=0):
+    """The int4 kernel over an expert stack (u8 (E, m, k/2), scales (E, m,
+    nsb), x (E, k, b) as transposed views of the dispatch's (E, b, k)
+    bf16 buffer, bf16 out, one launch) against its plain version (a loop
+    of the one-linear plain version over the experts), at the tiles the
+    engine picks: bit-exact on exact inputs, and on random floats too
+    unless the epilogue is silu (one bf16 ulp).  Timed: kernel, plain
+    version, and ``torch.matmul`` of the dequantized f32 stack (one
+    batched call, a matmul an expert) as the yardstick."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import ops
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nsb = -(-k // sb)
+    u8 = torch.empty((E, m, -(-k // 2)), dtype=torch.uint8, device="cuda")
+    for e in range(E):  # one expert's codes at a time
+        u8[e] = packing.pack_storage(torch.randint(
+            0, 16, (m, k), generator=g, device="cuda", dtype=torch.uint8))
+    tiles = ops.int4_tiles(m, k, b, E)
+    kw = dict(scale_block=sb, tiles=tiles, act=act, out_dtype=bf16)
+    r = dict(name=name, experts=E, m=m, k=k, b=b, scale_block=sb, act=act,
+             x_dtype="bfloat16", out_dtype="bfloat16", tiles=tiles._asdict())
+    for exact in (True, False):
+        if exact:
+            sc = 2.0 ** torch.randint(-2, 3, (E, m, nsb), generator=g,
+                                      device="cuda").float()
+            x = torch.randint(-4, 5, (E, b, k), generator=g, device="cuda")
+        else:
+            sc = torch.rand((E, m, nsb), generator=g, device="cuda") + 0.1
+            x = torch.randn((E, b, k), generator=g, device="cuda")
+        x = x.to(bf16).transpose(1, 2)
+        before = i4.launches
+        got = i4.int4_matmul_cuda(u8, sc, x, **kw)
+        torch.cuda.synchronize()
+        check(i4.launches == before + 1,
+              f"[experts] {name}: {i4.launches - before} launches, not one")
+        want = i4.int4_matmul_plain(u8, sc, x, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        if act == "none":
+            check(err == 0.0, f"[experts] {name}: kernel != plain "
+                              f"({'exact' if exact else 'random'} inputs, "
+                              f"max abs err {err})")
+        else:
+            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL,
+                                       msg=lambda s: f"[experts] {name}: {s}")
+        r["exact_max_abs_err" if exact else "max_abs_err"] = err
+        del want
+    r["ms"] = device_ms([lambda: i4.int4_matmul_cuda(u8, sc, x, **kw)],
+                        reps=20)
+    r["plain_ms"] = wall_ms(lambda: i4.int4_matmul_plain(u8, sc, x, **kw),
+                            reps=1)
+    w = torch.empty((E, m, k), device="cuda")
+    for e in range(E):
+        w[e] = i4.dequantize(u8[e], sc[e], k, sb)
+    xf = x.float()
+    r["library_ms"] = device_ms([lambda: torch.matmul(w, xf)], reps=20)
+    del w, xf, u8
+    torch.cuda.empty_cache()
+    return with_bound(r, *(E * n for n in int4_work(m, k, b, sb, False,
+                                                     False, 2, 2)))
+
+
+def phase_int4_experts():
+    cases = []
+    for i, spec in enumerate(EXPERT_CASES):
+        t0 = time.perf_counter()
+        r = expert_case(*spec, seed=300 + i)
+        cases.append(r)
+        print(f"[experts] {r['name']:22s} E={r['experts']:3d} m={r['m']:5d} "
+              f"k={r['k']:5d} b={r['b']:2d} act={r['act']:4s} "
+              f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.1f}ms "
+              f"matmul={r['library_ms']:.4f}ms bound={r['bound_ms']:.4f}ms "
+              f"({r['bound_by']}, {r['ms'] / r['bound_ms']:.1f}x) "
+              f"err={r['max_abs_err']:.3g} exact_err="
+              f"{r['exact_max_abs_err']:.3g} [{int4_tiles_str(r['tiles'])}] "
+              f"[{time.perf_counter() - t0:.1f}s]", flush=True)
+    return cases
+
+
+# ------------------------------------------------------- the arch phase
+def moe_profile(tag, model, cfg):
+    """A MoE model's stream once more on the graph route with tracing on:
+    the device ms (CUDA events around each GeMM, recorded by the graph's
+    replays) of the untied vocab head, of the expert stacks and of the
+    other GeMMs, summed over the run, from ``kernel_gemm_s``."""
+    import torch
+
+    from repro_torch import obs
+
+    obs.registry().reset(prefix="kernel_")
+    obs.enable_tracing(clear=True)
+    try:
+        engine = make_engine(model, cfg)
+        engine.run(request_stream(cfg))
+        torch.cuda.synchronize()
+        obs.tracer().resolve_marks(obs.tracer().take_marks())
+    finally:
+        obs.disable_tracing()
+    sums = dict(head=0.0, experts=0.0, other=0.0)
+    calls = dict(head=0, experts=0, other=0)
+    for row in obs.registry().snapshot()["histograms"]:
+        if row["name"] != "kernel_gemm_s" or not row["count"]:
+            continue
+        lb = row["labels"]
+        part = ("experts" if "e" in lb else
+                "head" if int(lb["m"]) == cfg.vocab_size else "other")
+        sums[part] += row["sum"] * 1e3
+        calls[part] += row["count"]
+    steps = engine.num_steps
+    check(calls["head"] == steps and calls["experts"] > 0,
+          f"[{tag} profile] {calls} GeMM marks over {steps} steps")
+    out = dict(steps=steps, device_ms=sums, calls=calls,
+               ms_a_step={p: v / steps for p, v in sums.items()})
+    print(f"[{tag} profile] device ms a step (GeMM marks, {steps} steps): "
+          f"vocab head {out['ms_a_step']['head']:.3f}, experts "
+          f"{out['ms_a_step']['experts']:.3f} ({calls['experts']} calls), "
+          f"other GeMMs {out['ms_a_step']['other']:.3f}", flush=True)
+    return out
+
+
+def moe_launches(cfg):
+    """(msGeMM, int4) launches of one engine step of a msgemm-weight MoE
+    model: an attention block's four projections in every layer, the
+    dense MLP's three (or two) or the shared experts' in every layer,
+    the untied head; one int4 launch for each expert projection of each
+    MoE layer (the whole stack in one)."""
+    mlp = 3 if cfg.mlp_activation in ("swiglu", "geglu") else 2
+    moe_layers = sum(cfg.kind(i) == "moe" for i in range(cfg.num_layers))
+    dense = cfg.num_layers - moe_layers
+    shared = mlp if cfg.num_shared_experts else 0
+    msgemm = (4 * cfg.num_layers + mlp * dense + shared * moe_layers
+              + (0 if cfg.tie_embeddings else 1))
+    return msgemm, mlp * moe_layers
+
+
+def dense_launches(cfg):
+    """msGeMM (or int4) launches of one engine step of a dense model."""
+    mlp = 3 if cfg.mlp_activation in ("swiglu", "geglu") else 2
+    return (4 + mlp) * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+
+
+def serve_moe(tag, arch, extra, profile):
+    """A MoE model through the serve CLI (graph route, f32 pool, msgemm
+    weights, no --check: capacity drops may differ from static generate,
+    in the reference too), then on the same weights through the engine:
+    the eager route (the CLI run's tokens); the kv8 pool through the
+    paged-attention kernel (one launch a layer and step) on the graph
+    and the eager route (the same tokens), and through the torch route.
+    The kernel and the torch route differ in the last bits (phase 2 holds
+    them within a bf16 ulp at these shapes), and a top-k router turns a
+    last-bit difference into another expert, so their tokens are
+    reported, not gated; codeqwen holds them equal at head dim 128 with
+    f32 activations (:func:`serve_dense`)."""
+    import torch
+
+    from repro_torch import configs, kvq
+
+    cfg0 = configs.get_config(arch)
+    if "--num-layers" in extra:
+        cfg0 = cfg0.replace(
+            num_layers=int(extra[extra.index("--num-layers") + 1]))
+    ms, i4 = moe_launches(cfg0)
+    per = dict(msgemm=ms, int4_matmul=i4)
+    run = serve_cli(tag, ["--quant", "msgemm", *extra], per, arch=arch,
+                    keep=True)
+    model, cfg = run.pop("model"), run.pop("cfg")
+    check(run["dropped_frac"] is not None,
+          f"[{tag}] no dropped_frac for a MoE model")
+    eager = serve(f"{tag}-eager", model, cfg, cuda_graph=False)
+    check(eager["tokens"] == run["tokens"]
+          and eager["steps"] == run["steps"]
+          and eager["dropped_frac"] == run["dropped_frac"],
+          f"[{tag}] eager route tokens {eager['tokens']} (dropped_frac "
+          f"{eager['dropped_frac']}) != graph route {run['tokens']} "
+          f"({run['dropped_frac']})")
+    want = {n: per.get(n, 0) * eager["steps"] for n in eager["launches"]}
+    check(eager["launches"] == want,
+          f"[{tag}] eager route launches {eager['launches']} != {want}")
+    print(f"[{tag}] eager route == graph route (the CLI's), token for "
+          f"token; step {eager['step_ms']:.2f} ms eager, "
+          f"{run['step_ms']:.2f} ms graph", flush=True)
+    eager.pop("reqs")
+    kv = {}
+    for route, backend, graph in (("kernel", None, None),
+                                  ("kernel-eager", None, False),
+                                  ("torch", "paged_attn_torch", None)):
+        r = serve(f"{tag}-kv8-{route}", model, cfg,
+                  kv_quant=kvq.KVQuantSpec(8, backend=backend),
+                  **({} if graph is None else dict(cuda_graph=graph)))
+        attn = cfg.num_layers if backend is None else 0
+        want = dict(msgemm=ms * r["steps"], int4_matmul=i4 * r["steps"],
+                    paged_attention=attn * r["steps"], flash_attention=0)
+        check(r["launches"] == want,
+              f"[{tag} kv8 {route}] launches {r['launches']} != {want}")
+        r.pop("reqs")
+        kv[route] = r
+    check(kv["kernel"]["tokens"] == kv["kernel-eager"]["tokens"]
+          and kv["kernel"]["dropped_frac"]
+          == kv["kernel-eager"]["dropped_frac"],
+          f"[{tag} kv8] kernel route, graph {kv['kernel']['tokens']} != "
+          f"eager {kv['kernel-eager']['tokens']}")
+    toks, other = kv["kernel"]["tokens"], kv["torch"]["tokens"]
+    same = sum(toks[rid] == other[rid] for rid in toks)
+    lead = [next((i for i, (a, b) in enumerate(zip(toks[rid], other[rid]))
+                  if a != b), len(toks[rid])) for rid in sorted(toks)]
+    kv["same_as_torch_route"], kv["leading_agreement"] = same, lead
+    print(f"[{tag} kv8] kernel route: graph == eager, token for token "
+          f"({cfg.num_layers} attention launches a step, head dim "
+          f"{cfg.head_dim}, {cfg.num_heads // cfg.num_kv_heads} query heads "
+          f"a kv head); {same}/{len(toks)} requests equal the torch "
+          f"route's tokens, tokens agreeing before the first difference "
+          f"{lead}; dropped_frac {kv['kernel']['dropped_frac']:.6f}",
+          flush=True)
+    run.update(eager=eager, kv8=kv, per_step=per)
+    if profile:
+        run["profile"] = phase_profile(tag, model, cfg)
+        run["gemm_profile"] = moe_profile(tag, model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at ``v`` (8 significant bits)."""
+    return 2.0 ** (math.frexp(abs(v))[1] - 8) if v else 2.0**-133
+
+
+def static_logits(model, cfg, prompt, n):
+    """Static ``generate``'s greedy tokens for ``prompt``, its logits (n,
+    V) step by step, and the largest difference between those and one
+    full-sequence ``transformer.forward`` of the prompt and the tokens
+    (teacher-forced): two correct evaluations of the same logits at
+    other batch widths, so their difference is the model's rounding
+    scale at this precision."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.runtime import serve as SV
+
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    S = toks.shape[1]
+    cache = SV.init_cache(cfg, 1, S + n, device="cuda")
+    with torch.no_grad():
+        logits, cache = SV.prefill_step(model, cfg, toks, cache)
+        out, rows = [], []
+        for i in range(n):
+            rows.append(logits[0].float())
+            tok = SV.greedy(logits)
+            out.append(int(tok[0]))
+            pos = torch.full((1,), S + i, dtype=torch.int64, device="cuda")
+            logits, cache = SV.decode_step(model, cfg, tok, cache, pos)
+        steps = torch.stack(rows)
+        seq = torch.tensor([list(prompt) + out[:-1]], dtype=torch.int32,
+                           device="cuda")
+        full = transformer.forward(model, cfg, seq)[0, S - 1:].float()
+    return out, steps, float((full - steps).abs().max())
+
+
+def static_agreement(tag, model, cfg, tokens):
+    """The engine's bf16 tokens against static ``generate``'s.  The untied
+    head writes bf16 logits, and the engine rounds otherwise than static
+    generate (other GeMM batch widths, so other contraction splits, and
+    attention shapes): two logits that round one ulp each the other way
+    swap where static generate's top two are at most two bf16 ulps of
+    its top logit apart (a near-tie).  Every request must agree at least
+    up to static generate's first near-tie; where they part is reported
+    with the gap in ulps, beside D, the largest difference between static
+    generate's step-by-step logits and a teacher-forced forward of the
+    same tokens over the six requests: how far two correct evaluations
+    of this model's logits differ."""
+    import torch
+
+    reqs = request_stream(cfg)
+    rows, scale = [], 0.0
+    for rid, toks in sorted(tokens.items()):
+        ref, logits, d = static_logits(model, cfg, reqs[rid].prompt,
+                                       NEW_TOKENS)
+        top = torch.topk(logits, 2, dim=-1).values
+        tops, gaps = top[:, 0].tolist(), (top[:, 0] - top[:, 1]).tolist()
+        ulps = [g / bf16_ulp(t) for g, t in zip(gaps, tops)]
+        scale = max(scale, d / bf16_ulp(max(tops)))
+        n = len(ref)
+        lead = next((i for i, (a, b) in enumerate(zip(toks, ref))
+                     if a != b), n)
+        rows.append(dict(rid=rid, agree=lead, rounding=d,
+                         first_tie=next((i for i, u in enumerate(ulps)
+                                         if u <= 2), n),
+                         ulps_at_part=ulps[lead] if lead < n else None,
+                         min_ulps=min(ulps)))
+    print(f"[{tag}] bf16: engine == static generate on "
+          f"{sum(r['agree'] == NEW_TOKENS for r in rows)}/{len(rows)} "
+          f"requests; steps agreeing {[r['agree'] for r in rows]}, static "
+          f"generate's first near-tie (top two <= 2 ulps apart) "
+          f"{[r['first_tie'] for r in rows]}, its top-two gap in ulps "
+          f"where they part {[r['ulps_at_part'] for r in rows]}; D "
+          f"{scale:.2f} ulps of the top logit", flush=True)
+    bad = [r["rid"] for r in rows if r["agree"] < r["first_tie"]]
+    check(not bad, f"[{tag}] bf16 engine tokens part from static generate "
+                   f"before its first near-tie on requests {bad}")
+    return dict(rounding_ulps=scale, rows=rows)
+
+
+# f32 logits (about 5 in size) of two attention routes over a kv8 pool:
+# a last-bit difference can flip a K/V entry's int8 code by one step (1/127
+# of its slot's largest value), which moves later logits by a few 1e-2; a
+# route that reads the wrong head, slot or scale moves them by units
+LOGIT_TOL = 0.1
+
+
+def route_agreement(tag, a, b):
+    """Two engine runs on the same model and stream that differ only in
+    their attention route (runs with ``keep_logits``): per request, the
+    steps their tokens agree; at every step both saw the same tokens
+    (up to and including the first that parts) their f32 logits must
+    agree within ``LOGIT_TOL``, so tokens part only where the second
+    route's top two logits are closer than the routes' difference."""
+    import torch
+
+    agree, gaps, diff = [], [], 0.0
+    for rid in sorted(a["tokens"]):
+        ta, tb = a["tokens"][rid], b["tokens"][rid]
+        lead = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                    len(ta))
+        agree.append(lead)
+        for i in range(min(lead + 1, len(ta))):
+            diff = max(diff, float((a["logits"][rid][i]
+                                    - b["logits"][rid][i]).abs().max()))
+        if lead < len(ta):
+            top = torch.topk(b["logits"][rid][lead], 2).values
+            gaps.append(float(top[0] - top[1]))
+        else:
+            gaps.append(None)
+    check(diff <= LOGIT_TOL, f"[{tag}] the routes' logits differ by {diff} "
+                             f"(> {LOGIT_TOL}) before their tokens part")
+    for r in (a, b):
+        r.pop("logits")
+    return dict(kernel=a, torch=b, agree=agree, gap_at_part=gaps,
+                same=sum(n == NEW_TOKENS for n in agree),
+                max_logit_diff=diff)
+
+
+def serve_dense(tag, arch, quant, extra=(), kv8=False):
+    """A dense model through the serve CLI (bf16 activations, the graph
+    route), its weight kernel launched once a linear and step, held to
+    static ``generate`` up to its first near-tie
+    (:func:`static_agreement`); then the same weights with f32
+    activations through the engine, whose tokens must equal static
+    ``generate``'s, and the same launches a step.  With ``kv8``, the f32
+    model again with a kv8 pool through the paged-attention kernel (one
+    launch a layer and step) and through the torch route: the same
+    tokens."""
+    import torch
+
+    from repro_torch import configs, kvq
+
+    cfg0 = configs.get_config(arch)
+    if "--num-layers" in extra:
+        cfg0 = cfg0.replace(
+            num_layers=int(extra[extra.index("--num-layers") + 1]))
+    kernel = "msgemm" if quant == "msgemm" else "int4_matmul"
+    per = dense_launches(cfg0)
+    run = serve_cli(tag, ["--quant", quant, *extra], {kernel: per},
+                    arch=arch, keep=True)
+    model, cfg = run.pop("model"), run.pop("cfg")
+    run["bf16_vs_static"] = static_agreement(tag, model, cfg, run["tokens"])
+    f32 = cfg.replace(dtype="float32")
+    r32 = serve(f"{tag}-f32", model, f32)
+    check(r32["launches"][kernel] == per * r32["steps"],
+          f"[{tag}-f32] {kernel} launches {r32['launches'][kernel]} != "
+          f"{per} x {r32['steps']}")
+    check_static(f"{tag}-f32", model, f32, r32)
+    print(f"[{tag}-f32] engine tokens == static generate for every request",
+          flush=True)
+    r32.pop("reqs")
+    run["f32"] = r32
+    if kv8:
+        kv = {}
+        for route, backend in (("kernel", None),
+                               ("torch", "paged_attn_torch")):
+            r = serve(f"{tag}-f32-kv8-{route}", model, f32, keep_logits=True,
+                      kv_quant=kvq.KVQuantSpec(8, backend=backend))
+            want = {n: 0 for n in r["launches"]}
+            want[kernel] = per * r["steps"]
+            want["paged_attention"] = (cfg.num_layers * r["steps"]
+                                       if backend is None else 0)
+            check(r["launches"] == want, f"[{tag}-f32 kv8 {route}] "
+                                         f"launches {r['launches']} != {want}")
+            r.pop("reqs")
+            kv[route] = r
+        kv.update(route_agreement(f"{tag}-f32 kv8", kv.pop("kernel"),
+                                  kv.pop("torch")))
+        print(f"[{tag}-f32 kv8] paged-attention kernel against the torch "
+              f"route ({cfg.num_layers} launches a step, head dim "
+              f"{cfg.head_dim}, {cfg.num_heads // cfg.num_kv_heads} query "
+              f"head a kv head): {kv['same']}/{len(kv['agree'])} requests "
+              f"token for token, steps agreeing {kv['agree']}; logits "
+              f"within {kv['max_logit_diff']:.3g} of each other wherever "
+              f"both routes had read the same tokens (at most "
+              f"{LOGIT_TOL}); the torch route's top-two gap where they "
+              f"part {kv['gap_at_part']}", flush=True)
+        run["f32_kv8"] = kv
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_arch(profile=False):
+    """The other architectures at full width from seed 0 through the serve
+    CLI: qwen2-moe-a2.7b at full depth (graph == eager, with the f32 and
+    the kv8 pool), llama4-maverick cut to 2 layers (one dense, one MoE
+    block: top-1 of 128 experts, qk-norm), codeqwen1.5-7b at full depth
+    (msgemm and int4), starcoder2-15b at full depth and gpt3-175b cut to
+    2 layers (msgemm), the dense models' tokens held to static generate
+    (:func:`serve_dense`; codeqwen's kv8 kernel == the torch route)."""
+    out = {"qwen2-moe": serve_moe("arch qwen2-moe", "qwen2_moe", [],
+                                  profile)}
+    out["llama4"] = serve_moe("arch llama4", "llama4_maverick",
+                              ["--num-layers", "2"], profile)
+    out["codeqwen-msgemm"] = serve_dense(
+        "arch codeqwen msgemm", "codeqwen15_7b", "msgemm", kv8=True)
+    out["codeqwen-int4"] = serve_dense("arch codeqwen int4",
+                                       "codeqwen15_7b", "int4_dequant")
+    out["starcoder2"] = serve_dense("arch starcoder2", "starcoder2_15b",
+                                    "msgemm")
+    out["gpt3"] = serve_dense("arch gpt3", "gpt3_175b", "msgemm",
+                              ["--num-layers", "2"])
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2711,6 +3333,8 @@ def main() -> int:
         return 0
     cases = phase_kernels()
     int4_cases = phase_int4_kernels()
+    expert_cases = phase_int4_experts()
+    arch_gemm = phase_arch_gemms()
     attn_cases = phase_attn_kernels()
     flash = phase_flash()
     main_path = phase_main()
@@ -2745,6 +3369,7 @@ def main() -> int:
     calib_path = phase_calib(main_path, int4_path)
     res_path = phase_resilience(card)
     gemma2 = phase_gemma2_9b()
+    arch = phase_arch(profile=args.profile)
 
     def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b",
                     x_dtype="float32"):
@@ -2757,15 +3382,20 @@ def main() -> int:
         layer += [dict(c, name=c["name"].replace("wk", "wv"))
                   for c in layer if c["name"].endswith("wk")]
         tot = {key: sum(c[key] for c in layer)
-               for key in ("ms", "plain_ms", "library_ms", "bytes", "ops")}
+               for key in ("ms", "plain_ms", "library_ms", "bytes", "ops",
+                           "mma_ops")}
         return with_bound(
             {"max_abs_err": max(c["max_abs_err"] for c in gemm_cases),
              "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "library_ms": tot["library_ms"],
              "shape": f"sum of one {model} layer's 7 GeMMs at b=4, "
                       f"{x_dtype} x"},
-            tot["bytes"], tot["ops"])
+            tot["bytes"], tot["ops"], tot["mma_ops"])
 
+    # the MoE models' runs: their int4 launches are the expert stacks'
+    moe_runs = [r for key in ("qwen2-moe", "llama4") for r in (
+        arch[key], arch[key]["eager"], *(arch[key]["kv8"][r] for r in (
+            "kernel", "kernel-eager", "torch")))]
     # every path's engine runs, each read with the counts set to 0 before
     runs = ([main_path, main_path["eager"], int4_path, int4_path["eager"],
              kvq_path["kv8"]["kernel-eager"]]
@@ -2783,22 +3413,46 @@ def main() -> int:
             + [gemma2["kv8"][r] for r in ("kernel", "torch")]
             + [res_path[k] for k in ("clean", "latency", "oom", "step_fail",
                                      "disconnect", "nan_logits", "ladder",
-                                     "hang", "combined", "cli")])
+                                     "hang", "combined", "cli")]
+            + moe_runs + [arch[k] for k in ("codeqwen-msgemm",
+                                            "codeqwen-int4", "starcoder2",
+                                            "gpt3")]
+            + [arch[k]["f32"] for k in ("codeqwen-msgemm", "codeqwen-int4",
+                                        "starcoder2", "gpt3")]
+            + [arch["codeqwen-msgemm"]["f32_kv8"][r]
+               for r in ("kernel", "torch")])
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])
                 for name in ("msgemm", "int4_matmul", "paged_attention")}
     decode = next(c for c in attn_cases if c["name"] == "decode-kv8")
+    up = next(c for c in expert_cases if c["name"] == "qwen2-moe-up")
     fl = next(c for c in flash["cases"] if c["dtype"] == "bfloat16"
               and c["name"] == "gemma-2b-prefill-8k")
     kernels = [
         {"name": "msgemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/msgemm.cu",
          "replaces": "src/repro/kernels/msgemm.py:252",
-         "launches": launched["msgemm"], **layer_entry(cases)},
+         "launches": launched["msgemm"],
+         **layer_entry(cases + arch_gemm["msgemm"])},
         {"name": "int4_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/int4_matmul.cu",
          "replaces": "src/repro/kernels/int4_matmul.py:165",
-         "launches": launched["int4_matmul"], **layer_entry(int4_cases)},
+         "launches": launched["int4_matmul"],
+         **layer_entry(int4_cases + arch_gemm["int4"])},
+        {"name": "int4_matmul_experts", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/int4_matmul.cu",
+         "replaces": "src/repro/kernels/int4_matmul.py:165",
+         "launches": sum(r["launches"]["int4_matmul"] for r in moe_runs),
+         "max_abs_err": max(c["max_abs_err"] for c in expert_cases),
+         "ms": up["ms"], "plain_ms": up["plain_ms"],
+         "bound_ms": up["bound_ms"], "bound_by": up["bound_by"],
+         "library_ms": up["library_ms"],
+         "shape": "qwen2-moe's up over its 60-expert stack at decode, one "
+                  "launch: E=60, m=1408, k=2048, b=16 (4 slots x capacity "
+                  "4), bf16 x and out; launches are the MoE engine runs' "
+                  "int4 launches (experts only: their dense linears run "
+                  "msGeMM); library_ms is torch.matmul of the dequantized "
+                  "f32 stack"},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:157",
@@ -2837,7 +3491,9 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, ptxas=nvcc.reports, cases=cases,
-        int4_cases=int4_cases, attn_cases=attn_cases, flash=flash,
+        int4_cases=int4_cases, expert_cases=expert_cases,
+        arch_gemm_cases=arch_gemm,
+        attn_cases=attn_cases, flash=flash, arch=arch,
         main=main_path, kvq=kvq_path,
         int4=int4_path, plan=plan_path, calib=calib_path,
         resilience=res_path, gemma2_9b=gemma2,

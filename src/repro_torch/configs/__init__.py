@@ -3,22 +3,34 @@
 One module per ported architecture, each exporting ``CONFIG`` (the exact
 public config) and ``SMOKE`` (a reduced config of the same family for CPU
 tests).  ``get_config(name)`` / ``get_smoke(name)`` take a module name or
-one of its public aliases.  The reference's other architectures need
-block kinds, encoder-decoder and frontends that the port does not have
-yet (ROADMAP A11): asking for any other name raises NotImplementedError.
+one of its public aliases; ``shapes.py`` holds the input-shape cells.
+The reference's other architectures need block kinds (mamba, xLSTM),
+encoder-decoder and frontends that the port does not have yet (ROADMAP
+A11c, A11d): asking for any other name raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("gemma_2b", "gemma2_9b")
+ARCHS = (
+    "llama4_maverick",
+    "qwen2_moe",
+    "gemma_2b",
+    "codeqwen15_7b",
+    "starcoder2_15b",
+    "gemma2_9b",
+    "gpt3_175b",  # the paper's own model (not in the assigned pool)
+)
 
 ALIASES = {
+    "llama4-maverick-400b-a17b": "llama4_maverick",
+    "qwen2-moe-a2.7b": "qwen2_moe",
     "gemma-2b": "gemma_2b",
+    "codeqwen1.5-7b": "codeqwen15_7b",
+    "starcoder2-15b": "starcoder2_15b",
     "gemma2-9b": "gemma2_9b",
 }
-
 
 
 def _module(name: str):

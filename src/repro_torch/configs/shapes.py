@@ -1,0 +1,105 @@
+"""Input-shape cells for the (architecture x shape) grid; port of
+repro.configs.shapes.
+
+  train_4k      seq_len=4096    global_batch=256   -> train step
+  prefill_32k   seq_len=32768   global_batch=32    -> serve prefill
+  decode_32k    seq_len=32768   global_batch=128   -> serve step (1 token,
+                                                      KV cache @ 32k)
+  long_500k     seq_len=524288  global_batch=1     -> serve step, only for
+                                                      sub-quadratic archs
+
+Skip rule: long_500k runs only for family ssm/hybrid; every
+full-attention arch skips it.  The reference's ``jax.ShapeDtypeStruct``
+stand-ins are :class:`Spec` here, a (shape, dtype) pair that allocates
+nothing (the port's ``device.resolve`` has no ``meta`` device).  The
+encoder-decoder and vision-frontend specs wait for their slices (ROADMAP
+A11d), as their configs do.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+
+@dataclass(frozen=True)
+class Shape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": Shape("train_4k", 4096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524288, 1, "decode"),
+}
+
+
+class Spec(NamedTuple):
+    """An input's shape and dtype, with no storage."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def subquadratic(cfg: ModelConfig) -> bool:
+    """True if sequence mixing is sub-quadratic (long_500k eligibility):
+    the reference's ``ModelConfig.subquadratic``, by family."""
+    return cfg.family in ("ssm", "hybrid")
+
+
+def applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
+    """(runs?, reason-if-skipped)."""
+    if shape_name == "long_500k" and not subquadratic(cfg):
+        return False, ("full-attention sequence mixing is quadratic at "
+                       "524288 tokens (DESIGN.md §5 skip)")
+    return True, ""
+
+
+def cells(cfg: ModelConfig):
+    """All live (shape, skip-reason) rows for this arch — 4 per arch."""
+    return {s: applicable(cfg, s) for s in SHAPES}
+
+
+def train_input_specs(cfg: ModelConfig, shape: Shape, *, batch=None) -> dict:
+    """Stand-ins for a train step's batch (no allocation)."""
+    B = batch or shape.global_batch
+    S = shape.seq_len
+    return {"tokens": Spec((B, S), torch.int32),
+            "labels": Spec((B, S), torch.int32)}
+
+
+def prefill_input_specs(cfg: ModelConfig, shape: Shape, *, batch=None
+                        ) -> dict:
+    specs = train_input_specs(cfg, shape, batch=batch)
+    specs.pop("labels")
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, shape: Shape, *, batch=None,
+                       cache_dtype=torch.bfloat16) -> dict:
+    """Inputs of a decode step: one new token, its position, and the
+    per-layer seq_len-deep K/V caches of ``models.transformer.init_cache``
+    (one ``{"k", "v"}`` dict a layer)."""
+    B = batch or shape.global_batch
+    kv = Spec((B, shape.seq_len, cfg.num_kv_heads, cfg.head_dim),
+              cache_dtype)
+    return {"token": Spec((B,), torch.int32),
+            "pos": Spec((B,), torch.int32),
+            "cache": [{"k": kv, "v": kv} for _ in range(cfg.num_layers)]}
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, **kw) -> dict:
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        return train_input_specs(cfg, shape, **kw)
+    if shape.kind == "prefill":
+        return prefill_input_specs(cfg, shape, **kw)
+    return decode_input_specs(cfg, shape, **kw)

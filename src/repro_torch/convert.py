@@ -5,9 +5,14 @@ leaves (``jax.tree.map(np.asarray, params)``) and hands it here, so the
 port never imports JAX.  Blocks stacked ``(G, ...)`` along the scan axis
 under ``blocks["{i}:{kind}"]`` become one module per layer (layer
 ``g * len(pattern) + i``); so do a calibrated tree's stacked ``(G, 16)``
-codebooks, one ``(16,)`` table per layer.  :func:`port_path` maps a
-reference param path (a calibration report's or codebook's key) and its
-slice to the port's module path.
+codebooks, one ``(16,)`` table per layer.  A ``{i}:moe`` block's router,
+expert stacks ``(E, ...)`` and shared MLP become a ``models.moe.MoE``;
+quantized experts are stored two codes a byte (``core.spec.expert_spec``):
+the reference's msgemm-mode expert indices are unpacked to their codes
+and repacked, the same codes and scales in the int4 kernel's layout.
+:func:`port_path` maps a reference param path (a calibration report's or
+codebook's key; expert leaves included) and its slice to the port's
+module path.
 """
 
 from __future__ import annotations
@@ -17,11 +22,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core.linear import QLinear
 from repro_torch.core.spec import QuantSpec
 from repro_torch.device import resolve
 from repro_torch.kvq.spec import KVQuantSpec
-from repro_torch.models import common, layers, transformer
+from repro_torch.models import common, layers, moe, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -59,16 +65,45 @@ def _norm(tree: dict, device) -> common.Norm:
                        _t(tree["bias"], device) if "bias" in tree else None)
 
 
-def _block(tree: dict, device) -> transformer.Block:
-    a, m = tree["attn"], tree["mlp"]
+def _mlp(m: dict, device) -> common.MLP:
+    return common.MLP(_linear(m["up"], device), _linear(m["down"], device),
+                      _linear(m["gate"], device) if "gate" in m else None)
+
+
+def _experts(tree: dict, k: int, cfg: ModelConfig, device) -> QLinear:
+    """An expert stack's leaves; LUT indices (E, m, ceil(k/d)) become the
+    codes two a byte (E, m, ceil(k/2)) that ``expert_spec`` stores."""
+    if "idx" not in tree:
+        return _linear(tree, device)
+    leaves = {n: _t(v, device) for n, v in tree.items() if n != "idx"}
+    idx = _t(tree["idx"], device)
+    d = cfg.quant.resolve_d(k, idx.shape[-2])
+    leaves["u8"] = packing.storage_from_indices(idx, d, k).contiguous()
+    return QLinear(leaves)
+
+
+def _moe(tree: dict, cfg: ModelConfig, device) -> moe.MoE:
+    ex = tree["experts"]
+    d, mdff = cfg.d_model, cfg.moe_d_ff or cfg.d_ff
+    experts = moe.Experts(
+        _experts(ex["up"], d, cfg, device),
+        _experts(ex["down"], mdff, cfg, device),
+        _experts(ex["gate"], d, cfg, device) if "gate" in ex else None)
+    return moe.MoE(_linear(tree["router"], device), experts,
+                   _mlp(tree["shared"], device) if "shared" in tree
+                   else None)
+
+
+def _block(tree: dict, cfg: ModelConfig, device) -> transformer.Block:
+    a = tree["attn"]
     norms = ((_norm(a["q_norm"], device), _norm(a["k_norm"], device))
              if "q_norm" in a else ())
     attn = layers.Attention(*(_linear(a[n], device)
                               for n in ("wq", "wk", "wv", "wo")), *norms)
-    mlp = common.MLP(_linear(m["up"], device), _linear(m["down"], device),
-                     _linear(m["gate"], device) if "gate" in m else None)
+    ffn = (dict(moe=_moe(tree["moe"], cfg, device)) if "moe" in tree
+           else dict(mlp=_mlp(tree["mlp"], device)))
     return transformer.Block(_norm(tree["ln1"], device), attn,
-                             _norm(tree["ln2"], device), mlp)
+                             _norm(tree["ln2"], device), **ffn)
 
 
 def _index(tree, g: int):
@@ -86,7 +121,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None
     for layer in range(cfg.num_layers):
         g, i = divmod(layer, len(pattern))
         blocks.append(_block(_index(tree["blocks"][f"{i}:{pattern[i]}"], g),
-                             dev))
+                             cfg, dev))
     head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
     return transformer.Transformer(_t(tree["embedding"], dev),
                                    _norm(tree["final_norm"], dev), blocks,
@@ -96,8 +131,10 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None
 def port_path(path: str, g: int, cfg: ModelConfig) -> str:
     """The port's module path of slice ``g`` of the reference param path
     ``path``: ``blocks/{i}:{kind}/attn/wq`` -> ``blocks.{layer}.attn.wq``
-    with layer ``g * len(cfg.block_pattern) + i``; an unstacked path
-    (``lm_head``) keeps its name (and g is 0)."""
+    with layer ``g * len(cfg.block_pattern) + i`` (an expert stack,
+    ``blocks/{i}:moe/moe/experts/up`` -> ``blocks.{layer}.moe.experts.up``,
+    keeps its expert axis); an unstacked path (``lm_head``) keeps its name
+    (and g is 0)."""
     parts = path.split("/")
     if parts[0] != "blocks":
         return ".".join(parts)

@@ -99,6 +99,11 @@ def unpack_indices(idx: torch.Tensor, d: int, k: int) -> torch.Tensor:
     return c[..., :k].to(torch.uint8)
 
 
+def storage_from_indices(idx: torch.Tensor, d: int, k: int) -> torch.Tensor:
+    """The 2-codes/byte storage of LUT indices (the int4 kernel's layout)."""
+    return pack_storage(unpack_indices(idx, d, k))
+
+
 def indices_from_storage(packed_u8: torch.Tensor, d: int, k: int
                          ) -> torch.Tensor:
     """LUT indices from the 2-codes/byte storage: for d=2 the byte is the

@@ -70,6 +70,19 @@ class QuantSpec:
 DENSE = QuantSpec(mode="bf16")
 
 
+def expert_spec(spec: QuantSpec) -> QuantSpec:
+    """The spec a MoE expert stack is stored and run under: quantized
+    experts run ``int4_dequant`` in every quantized mode, as the
+    reference's ``moe._expert_ffn`` runs them in msgemm mode (an expert's
+    m is below 16^d, so a LUT cannot amortize), and are stored two codes
+    a byte (``packed_u8``, the int4 kernel's layout: the same codes and
+    scales as the reference's indices, which the kernel would otherwise
+    repack every step); dense experts stay ``bf16``."""
+    if spec.mode == "bf16":
+        return spec
+    return replace(spec, mode="int4_dequant", storage="packed_u8")
+
+
 def as_spec(spec) -> QuantSpec:
     """``spec`` itself when it is a QuantSpec; TypeError otherwise."""
     if isinstance(spec, QuantSpec):

@@ -76,13 +76,28 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
     a backend that can fuses it (``msgemm_cuda``, ``int4_cuda``);
     otherwise the same ops run after the GeMM (``apply_epilogue``).
     ``bias`` is (m,); ``residual`` matches the output (..., m).
+
+    An expert stack (the MoE block's linears: params with a leading
+    expert axis E, x (E, ..., k)) plans per expert shape, its key
+    carrying E (``plan_key``), and runs int4_dequant or bf16 weights;
+    its epilogue takes no bias or residual.
     """
     k = in_dim if in_dim is not None else _infer_k(params, spec)
-    m = (params["w"].shape[0] if spec.mode == "bf16"
-         else params["scales"].shape[0])
-    batch = math.prod(x.shape[:-1]) if x.ndim > 1 else 1
+    lead = params["w"] if spec.mode == "bf16" else params["scales"]
+    m = lead.shape[-2]
+    experts = lead.shape[0] if lead.dim() == 3 else 0
+    if experts:
+        if spec.mode == "msgemm":
+            raise ValueError("an expert stack runs int4_dequant or bf16 "
+                             "weights, not msgemm (models.moe)")
+        if x.ndim < 2 or x.shape[0] != experts:
+            raise ValueError(f"x {tuple(x.shape)} does not lead with the "
+                             f"stack's {experts} experts")
+        batch = math.prod(x.shape[1:-1])
+    else:
+        batch = math.prod(x.shape[:-1]) if x.ndim > 1 else 1
     p = plan_override or plan(spec, m, k, batch, device_type=x.device.type,
-                              policy=policy)
+                              policy=policy, experts=experts)
     be = get_backend(p.backend)
     d = plan_d(spec, m, k)
     if not be.supports(spec, d):
@@ -103,7 +118,8 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
             "dispatch_epilogue_total",
             help="non-identity epilogues by fused/unfused execution",
             fused="true" if fuse else "false").inc()
-    mark = f"gemm.{be.name}.m{m}.k{k}.b{batch}"
+    mark = f"gemm.{be.name}.m{m}.k{k}.b{batch}" + (
+        f".e{experts}" if experts else "")
     x = obs.mark_begin(x, mark)
     if fuse:
         y = be.run(spec, p, params, x, k=k, epilogue=epilogue, bias=bias,
@@ -111,11 +127,12 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
     else:
         y = be.run(spec, p, params, x, k=k)
     if obs.tracer().enabled:
+        labels = {"backend": be.name, "m": m, "k": k, "b": batch,
+                  "mode": spec.mode, "d": d, "sb": spec.scale_block,
+                  "tiles": tiles_label(p.tiles)}
+        if experts:
+            labels["e"] = experts
         y = obs.mark_end(y, mark, cat="gemm", hist="kernel_gemm_s",
-                         hist_labels={
-                             "backend": be.name, "m": m, "k": k, "b": batch,
-                             "mode": spec.mode, "d": d,
-                             "sb": spec.scale_block,
-                             "tiles": tiles_label(p.tiles)})
+                         hist_labels=labels)
     return y if fuse else apply_epilogue(y, epilogue, bias=bias,
                                          residual=residual)

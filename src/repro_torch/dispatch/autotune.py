@@ -193,19 +193,20 @@ def set_cache_path(path: str | os.PathLike | None) -> PlanCache:
 
 # ------------------------------------------------------------ candidates
 def candidate_plans(spec: QuantSpec, d: int, m: int, k: int, batch: int,
-                    backend: str, device_type: str = "cuda"
-                    ) -> list[ExecPlan]:
+                    backend: str, device_type: str = "cuda",
+                    experts: int = 0) -> list[ExecPlan]:
     """The tile choices to time for one key, always with the heuristic's:
     ``ops.msgemm_variants`` (rows per block, the best splits of each) and
     ``ops.int4_variants`` (split counts), the variants ``chip_smoke.py
     --sweep`` times.  On the CPU, where the plain versions run, the first
-    ``CPU_CANDIDATES`` only (the heuristic's kept)."""
-    base = heuristic_plan(spec, d, m, k, batch, backend)
+    ``CPU_CANDIDATES`` only (the heuristic's kept).  An expert stack's
+    (``experts`` E > 0) are ``ops.int4_variants`` of its batched grid."""
+    base = heuristic_plan(spec, d, m, k, batch, backend, experts)
     if backend == "msgemm_cuda":
         tiles = ops.msgemm_variants(m, -(-k // d), batch, d,
                                     spec.scale_block)
     elif backend == "int4_cuda":
-        tiles = ops.int4_variants(m, k, batch)
+        tiles = ops.int4_variants(m, k, batch, max(experts, 1))
     else:
         return [base]
     out = list(dict.fromkeys([dataclasses.replace(base, tiles=t)
@@ -219,13 +220,14 @@ def candidate_plans(spec: QuantSpec, d: int, m: int, k: int, batch: int,
 
 # ------------------------------------------------------------- synthetic
 def _synthetic_call(spec: QuantSpec, d: int, m: int, k: int, batch: int,
-                    device: torch.device):
+                    device: torch.device, experts: int = 0):
     """(copies, x) shaped exactly like the real linear call, made with
     numpy from a fixed seed: codes, scales, and bf16 x (the engine's
     activations) on ``device``.  ``copies``: the params, and on the card
     copies of the weight past the L2 (``ops.copies_past_l2``), which a
     timed call cycles over as an engine step reads each layer's weights
-    from HBM."""
+    from HBM.  An expert stack repeats one expert's codes and scales E
+    times (the kernel's time does not depend on the values)."""
     from repro_torch.core import packing
 
     rng = np.random.default_rng(0)
@@ -238,7 +240,11 @@ def _synthetic_call(spec: QuantSpec, d: int, m: int, k: int, batch: int,
         params["idx"] = packing.pack_indices(codes, d).contiguous()
     else:
         params["u8"] = packing.pack_storage(codes).contiguous()
-    x = torch.from_numpy(rng.standard_normal((batch, k)).astype(
+    lead = (experts,) if experts else ()
+    if experts:
+        params = {n: t.expand(experts, *t.shape).contiguous()
+                  for n, t in params.items()}
+    x = torch.from_numpy(rng.standard_normal((*lead, batch, k)).astype(
         np.float32)).to(device, torch.bfloat16)
     name = "idx" if "idx" in params else "u8"
     w = params[name]
@@ -293,7 +299,7 @@ def _model_prune(cands: list[ExecPlan], spec: QuantSpec, d: int, m: int,
 def autotune(spec: QuantSpec, m: int, k: int, batch: int, backend: str, *,
              device_type: str = "cuda", acc_dtype: str = "float32",
              reps: int | None = None, persist: bool = True,
-             search: str = "auto") -> ExecPlan:
+             search: str = "auto", experts: int = 0) -> ExecPlan:
     """Time the candidates of one key on ``device_type``; cache and return
     the winner (the cached plan at once when the key is known).
 
@@ -304,19 +310,24 @@ def autotune(spec: QuantSpec, m: int, k: int, batch: int, backend: str, *,
     otherwise (``dispatch_autotune_model_fallback_total``).  ``reps``:
     the calls timed (``ops.time_call``); by default on the card 20 or two
     a weight copy, whichever is more, as ``chip_smoke.py --sweep`` times
-    the same variants, and the best of 2 on the CPU."""
+    the same variants, and the best of 2 on the CPU.  ``experts``: the E
+    of an expert stack (m, k, batch one expert's); the calibrated model
+    prices one linear, so its pruning ranks a stack's candidates by one
+    expert's grid."""
     from repro_torch.obs import perfmodel
 
     device = device_name(device_type)
     be = registry.get_backend(backend)
     d = plan_d(spec, m, k)
-    key = plan_key(backend, spec, d, m, k, batch, device, acc_dtype)
+    key = plan_key(backend, spec, d, m, k, batch, device, acc_dtype,
+                   experts=experts)
     hit = cache().get(key)
     if hit is not None:
         return hit
     if not be.tunable:
-        return heuristic_plan(spec, d, m, k, batch, backend)
-    cands = candidate_plans(spec, d, m, k, batch, backend, device_type)
+        return heuristic_plan(spec, d, m, k, batch, backend, experts)
+    cands = candidate_plans(spec, d, m, k, batch, backend, device_type,
+                            experts)
     interpret = device_type != "cuda"  # the plain versions run
     pruned = 0
     if search in ("model", "auto") and len(cands) > MODEL_TOP_K:
@@ -329,7 +340,7 @@ def autotune(spec: QuantSpec, m: int, k: int, batch: int, backend: str, *,
                              "the full sweep (no matching calibration)",
                         backend=backend).inc()
         else:
-            base = heuristic_plan(spec, d, m, k, batch, backend)
+            base = heuristic_plan(spec, d, m, k, batch, backend, experts)
             kept = _model_prune(cands, spec, d, m, k, batch, backend,
                                 base, calib)
             pruned = len(cands) - len(kept)
@@ -338,7 +349,7 @@ def autotune(spec: QuantSpec, m: int, k: int, batch: int, backend: str, *,
                         help="candidates skipped by model-guided search",
                         backend=backend).inc(pruned)
     dev = torch.device(device_type)
-    copies, x = _synthetic_call(spec, d, m, k, batch, dev)
+    copies, x = _synthetic_call(spec, d, m, k, batch, dev, experts)
     if reps is None:
         reps = max(20, 2 * len(copies)) if dev.type == "cuda" else 2
     with obs.tracer().span("autotune", cat="dispatch", key=key,
@@ -371,15 +382,17 @@ def warm(requests, *, policy: ExecPolicy | None = None,
     for req in dict.fromkeys(requests):
         d = plan_d(req.spec, req.m, req.k)
         key = plan_key(req.backend, req.spec, d, req.m, req.k, req.batch,
-                       device_name(req.device_type), policy.acc_dtype)
+                       device_name(req.device_type), policy.acc_dtype,
+                       experts=req.experts)
         if policy.autotune and registry.get_backend(req.backend).tunable:
             p = autotune(req.spec, req.m, req.k, req.batch, req.backend,
                          device_type=req.device_type,
                          acc_dtype=policy.acc_dtype, persist=persist,
-                         search=policy.search)
+                         search=policy.search, experts=req.experts)
         else:
             p = cache().get(key) or heuristic_plan(
-                req.spec, d, req.m, req.k, req.batch, req.backend)
+                req.spec, d, req.m, req.k, req.batch, req.backend,
+                req.experts)
         out[key] = p
     return out
 

@@ -24,6 +24,13 @@
 
 On CPU tensors each kernel backend runs its kernel's plain PyTorch
 version.
+
+``dense``, ``int4_cuda``, ``int4_torch`` and ``dense_fallback`` also run
+an expert stack, the MoE block's linears: params with a leading expert
+axis (``w`` (E, m, k); ``u8``/``idx`` (E, m, .), ``scales`` (E, m, nsb))
+and x (E, ..., k) -> y (E, ..., m), the int4 kernel in one launch for
+all E.  The msGeMM backends take one linear only (the reference runs its
+experts int4 in msgemm mode too: ``models.moe``).
 """
 
 from __future__ import annotations
@@ -42,6 +49,10 @@ def run_dense(spec, plan, params, x, *, k, epilogue=None, bias=None,
               residual=None):
     w = params["w"]
     dt = torch.promote_types(x.dtype, w.dtype)
+    if w.dim() == 3:  # an expert stack: one matmul an expert
+        return torch.matmul(x.reshape(w.shape[0], -1, k).to(dt),
+                            w.to(dt).transpose(1, 2)
+                            ).reshape(*x.shape[:-1], -1).to(x.dtype)
     return torch.matmul(x.to(dt), w.to(dt).t()).to(x.dtype)
 
 
@@ -73,12 +84,19 @@ def run_msgemm_cuda(spec, plan, params, x, *, k, epilogue=None, bias=None,
 
 def run_int4_cuda(spec, plan, params, x, *, k, epilogue=None, bias=None,
                   residual=None):
-    m = params["scales"].shape[0]
+    m = params["scales"].shape[-2]
     # packed_u8 weights go to the kernel as stored; packed_idx ones are
     # repacked to two codes a byte per call, as the reference does
     u8 = (params["u8"] if spec.storage == "packed_u8" else
-          packing.pack_storage(packing.unpack_indices(
-              params["idx"], spec.resolve_d(k, m), k)))
+          packing.storage_from_indices(params["idx"], spec.resolve_d(k, m),
+                                       k))
+    if u8.dim() == 3:  # an expert stack: x (E, ..., k), one launch
+        E = u8.shape[0]
+        y = kops.int4_matmul(
+            u8, params["scales"], x.reshape(E, -1, k).transpose(1, 2),
+            scale_block=spec.scale_block, tiles=plan.tiles,
+            epilogue=_final_dtype(epilogue, x))
+        return y.transpose(1, 2).reshape(*x.shape[:-1], m)
     batch = x.shape[:-1]
     y = kops.int4_matmul(
         u8, params["scales"], x.reshape(-1, k).t(),
@@ -96,8 +114,18 @@ def _codes(params, spec, k: int, d: int) -> torch.Tensor:
 
 def run_int4_torch(spec, plan, params, x, *, k, epilogue=None, bias=None,
                    residual=None):
-    m = params["scales"].shape[0]
+    m = params["scales"].shape[-2]
     codes = _codes(params, spec, k, spec.resolve_d(k, m))
+    if codes.dim() == 3:  # an expert stack: each expert on its own table
+        E = codes.shape[0]
+        cb = params.get("codebook")
+        w = torch.stack([scales.dequantize(scales.QuantizedTensor(
+            codes=codes[e], scales=params["scales"][e],
+            block=spec.scale_block, shape=(m, k),
+            codebook=None if cb is None else cb[e]), x.dtype)
+            for e in range(E)])
+        return torch.matmul(x.reshape(E, -1, k), w.transpose(1, 2)
+                            ).reshape(*x.shape[:-1], m)
     qt = scales.QuantizedTensor(
         codes=codes, scales=params["scales"], block=spec.scale_block,
         shape=(m, k), codebook=params.get("codebook"))

@@ -147,6 +147,7 @@ class PlanRequest(NamedTuple):
     batch: int
     backend: str
     device_type: str = "cuda"
+    experts: int = 0  # the stack's E; 0 for one linear
 
 
 _collector: list | None = None
@@ -197,25 +198,29 @@ def device_name(device_type: str) -> str:
 
 def plan_key(backend: str, spec: QuantSpec, d: int, m: int, k: int,
              batch: int, device: str, acc_dtype: str = "float32",
-             shard: str = "-") -> str:
+             shard: str = "-", experts: int = 0) -> str:
     """Shape key of the persistent plan cache, in the reference's field
     order.  ``device`` is :func:`device_name`'s; ``shard`` stays '-'
-    until sharded planning is ported."""
+    until sharded planning is ported.  An expert stack (``experts`` E >
+    0: m, k and batch are one expert's) appends ``|e{E}``; a single
+    linear's key is the reference's."""
     return (f"{device}|{backend}|{spec.mode}|d{d}|sb{spec.scale_block}|"
             f"{spec.storage}|cb{spec.codebook}|m{m}|k{k}|b{batch}|"
-            f"acc{acc_dtype}|sh{shard}")
+            f"acc{acc_dtype}|sh{shard}"
+            + (f"|e{experts}" if experts else ""))
 
 
 # ------------------------------------------------------------ heuristics
 def heuristic_plan(spec: QuantSpec, d: int, m: int, k: int, batch: int,
-                   backend: str) -> ExecPlan:
+                   backend: str, experts: int = 0) -> ExecPlan:
     """The shape heuristic's tiles (``ops.msgemm_tiles``,
     ``ops.int4_tiles``) as an explicit plan."""
     if backend == "msgemm_cuda":
         return ExecPlan(backend=backend, tiles=ops.msgemm_tiles(
             m, math.ceil(k / d), batch, d, spec.scale_block))
     if backend == "int4_cuda":
-        return ExecPlan(backend=backend, tiles=ops.int4_tiles(m, k, batch))
+        return ExecPlan(backend=backend, tiles=ops.int4_tiles(
+            m, k, batch, max(experts, 1)))
     return ExecPlan(backend=backend)
 
 
@@ -242,15 +247,17 @@ def select(spec: QuantSpec, d: int, device_type: str,
 
 
 def plan(spec: QuantSpec, m: int, k: int, batch: int = 1, *,
-         device_type: str = "cuda", policy: ExecPolicy | None = None
-         ) -> ExecPlan:
+         device_type: str = "cuda", policy: ExecPolicy | None = None,
+         experts: int = 0) -> ExecPlan:
     """Resolve the execution of one (spec, shape) on ``device_type``
-    (m, k: the linear's out and in dims; batch: the flattened rows)."""
+    (m, k: the linear's out and in dims; batch: the flattened rows;
+    experts: the E of an expert stack, whose m, k and batch are one
+    expert's, 0 for one linear)."""
     policy = policy or _default_policy
     if policy.plan is not None:
         return policy.plan
     if _collector is None:
-        key = (spec, m, k, batch, device_type, policy)
+        key = (spec, m, k, batch, device_type, policy, experts)
         hit = _memo.get(key)
         if hit is not None:
             return hit
@@ -259,8 +266,8 @@ def plan(spec: QuantSpec, m: int, k: int, batch: int = 1, *,
     if _collector is not None:
         # collection is a dry run: no resolution, nothing counted
         _collector.append(PlanRequest(spec, m, k, batch, be.name,
-                                      device_type))
-        return heuristic_plan(spec, d, m, k, batch, be.name)
+                                      device_type, experts))
+        return heuristic_plan(spec, d, m, k, batch, be.name, experts)
 
     reg = obs.registry()
     reg.counter("dispatch_backend_selected_total",
@@ -269,7 +276,7 @@ def plan(spec: QuantSpec, m: int, k: int, batch: int = 1, *,
 
     device = device_name(device_type)
     cached = at.cache().get(plan_key(be.name, spec, d, m, k, batch, device,
-                                     policy.acc_dtype))
+                                     policy.acc_dtype, experts=experts))
     reg.counter("dispatch_plan_cache_total",
                 help="persistent plan-cache lookups",
                 result="hit" if cached is not None else "miss").inc()
@@ -277,9 +284,10 @@ def plan(spec: QuantSpec, m: int, k: int, batch: int = 1, *,
         p = cached
     elif policy.autotune and be.tunable and not _capturing():
         p = at.autotune(spec, m, k, batch, be.name, device_type=device_type,
-                        acc_dtype=policy.acc_dtype, search=policy.search)
+                        acc_dtype=policy.acc_dtype, search=policy.search,
+                        experts=experts)
     else:
-        p = heuristic_plan(spec, d, m, k, batch, be.name)
+        p = heuristic_plan(spec, d, m, k, batch, be.name, experts)
         if policy.autotune and be.tunable:
             return p  # a capture kept it from tuning: resolve again later
     _memo[key] = p

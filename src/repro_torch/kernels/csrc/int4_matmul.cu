@@ -9,7 +9,10 @@
 //   -I csrc -o libint4_matmul.so int4_matmul.cu
 // Plain C interface, loaded with ctypes.
 //
-// Work split.  The grid is (row tiles, contraction splits, column tiles).
+// Work split.  The grid is (row tiles, contraction splits, experts x
+// column tiles): a stack of E experts' linears (the MoE block's, one
+// launch for all of them) runs as E independent GeMMs whose operands sit
+// at per-expert strides; a plain linear is E = 1.
 // A block of 8 warps owns RPW output rows a warp (4; 2 at TB = 8, where
 // the accumulators of 4 would not fit the registers), TB batch columns
 // and one split: a range of whole 256-code steps of k, as many splits as
@@ -35,7 +38,8 @@
 // added by an xor-shuffle tree (16, 8, 4, 2, 1).  With one split, lane 0
 // applies the epilogue cast(act(acc + bias) + residual); with several,
 // each split writes its partial sums to a (nsplit, b, m) workspace and a
-// second kernel adds them in split order, then applies the epilogue.  No
+// second kernel adds them in split order, then applies the epilogue (the
+// workspace is per expert, (E, nsplit, b, m)).  No
 // atomics: the result does not depend on which block ends first.  The
 // plain PyTorch version repeats exactly these sums, so the two agree bit
 // for bit except inside gelu/silu's tanh/exp.
@@ -67,9 +71,11 @@ struct Params {
   const float* bias;     // (m,) or null
   const void* res;       // res[row * rs_m + col * rs_b] or null, res_type
   void* out;             // out[row * os_m + col * os_b]
-  float* ws;             // (nsplit, b, m) partial sums when nsplit > 1
+  float* ws;             // (E, nsplit, b, m) partial sums when nsplit > 1
   int m, k, kb, b, nsb, scale_block, tk, sc_pitch, split_steps, nsplit;
   long long xs_k, xs_b, rs_m, rs_b, os_m, os_b;
+  int experts, col_tiles;  // the stack's E; ceil(b / TB)
+  long long u8_e, sc_e, xs_e, os_e;  // per-expert strides (elements)
   int act, out_type, res_type;
   unsigned sb_magic;     // floor(2^32 / scale_block) + 1; 0 for 1
   int x_vec;             // x's k stride 1 and its columns 16-byte aligned
@@ -151,10 +157,15 @@ int4_kernel(const Params p) {
   const int brow = blockIdx.x * kWarps * RPW;  // the block's first row
   const int row0 = brow + warp * RPW;
   const int split = blockIdx.y;
-  const int col0 = blockIdx.z * TB;
+  const int ex = blockIdx.z / p.col_tiles;  // the expert
+  const int col0 = (blockIdx.z - ex * p.col_tiles) * TB;
   const int k_begin = split * p.split_steps * kStep;
   const int k_end = min(p.k, k_begin + p.split_steps * kStep);
-  const XT* x = static_cast<const XT*>(p.x);
+  // the expert's operands
+  const XT* x = static_cast<const XT*>(p.x) + ex * p.xs_e;
+  const uint8_t* u8 = p.u8 + ex * p.u8_e;
+  const float* scales = p.scales + ex * p.sc_e;
+  const long long out0 = ex * p.os_e;
 
   float acc[RPW][TB], seg[RPW][TB], sc[RPW];
 #pragma unroll
@@ -190,7 +201,7 @@ int4_kernel(const Params p) {
     for (int r = 0; r < RPW; ++r) {
       const int row = row0 + r;
       next[r] = row < p.m
-          ? load_word<VEC>(p.u8 + static_cast<long long>(row) * p.kb,
+          ? load_word<VEC>(u8 + static_cast<long long>(row) * p.kb,
                            kb0 >> 1, p.kb)
           : 0u;
     }
@@ -237,7 +248,7 @@ int4_kernel(const Params p) {
         const int blk = blk0 + e - r * p.sc_pitch;
         const int row = brow + r;
         v[i] = (e < ns && row < p.m && blk < p.nsb)
-                   ? __ldg(p.scales + static_cast<long long>(row) * p.nsb + blk)
+                   ? __ldg(scales + static_cast<long long>(row) * p.nsb + blk)
                    : 0.0f;
       }
 #pragma unroll
@@ -328,32 +339,36 @@ int4_kernel(const Params p) {
                     p.res ? epi::load(p.res, row * p.rs_m + col * p.rs_b,
                                       p.res_type)
                           : 0.0f,
-                    p.out, row * p.os_m + col * p.os_b, p.out_type);
+                    p.out, out0 + row * p.os_m + col * p.os_b, p.out_type);
       } else {
-        p.ws[(static_cast<long long>(split) * p.b + col) * p.m + row] =
-            acc[r][c];
+        p.ws[((static_cast<long long>(ex) * p.nsplit + split) * p.b + col) *
+                 p.m + row] = acc[r][c];
       }
     }
   }
 }
 
-// the splits' partial sums added in split order, then the epilogue
+// the splits' partial sums added in split order, then the epilogue; one
+// thread an (expert, column, row)
 constexpr int kReduceThreads = 256;
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_kernel(const Params p) {
-  const long long e =
+  const long long i =
       static_cast<long long>(blockIdx.x) * kReduceThreads + threadIdx.x;
   const long long mb = static_cast<long long>(p.m) * p.b;
-  if (e >= mb) return;
+  if (i >= mb * p.experts) return;
+  const long long ex = i / mb;
+  const long long e = i - ex * mb;
   const int row = static_cast<int>(e % p.m);
   const int col = static_cast<int>(e / p.m);
-  float t = p.ws[e];
-  for (int s = 1; s < p.nsplit; ++s) t = __fadd_rn(t, p.ws[s * mb + e]);
+  const float* ws = p.ws + ex * p.nsplit * mb;
+  float t = ws[e];
+  for (int s = 1; s < p.nsplit; ++s) t = __fadd_rn(t, ws[s * mb + e]);
   epi::finish(t, p.bias != nullptr, p.bias ? p.bias[row] : 0.0f, p.act,
               p.res != nullptr,
               p.res ? epi::load(p.res, row * p.rs_m + col * p.rs_b, p.res_type)
                     : 0.0f,
-              p.out, row * p.os_m + col * p.os_b, p.out_type);
+              p.out, ex * p.os_e + row * p.os_m + col * p.os_b, p.out_type);
 }
 
 // shared memory of a block: the x tile and the tile's scales
@@ -370,7 +385,8 @@ cudaError_t launch(const Params& p, bool vec, cudaStream_t stream) {
   void (*kern)(const Params) =
       vec ? &int4_kernel<XT, TB, true> : &int4_kernel<XT, TB, false>;
   constexpr int rows = kWarps * rows_per_warp(TB);
-  const dim3 grid((p.m + rows - 1) / rows, p.nsplit, (p.b + TB - 1) / TB);
+  const dim3 grid((p.m + rows - 1) / rows, p.nsplit,
+                  static_cast<unsigned>(p.experts) * p.col_tiles);
   kern<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -400,12 +416,18 @@ extern "C" int int4_matmul_launch(
     int nsplit, int tb,
     int vec, long long xs_k, long long xs_b, long long rs_m, long long rs_b,
     long long os_m, long long os_b, int act, int out_type, int x_type,
-    int res_type, unsigned sb_magic, int x_vec, void* stream) {
+    int res_type, unsigned sb_magic, int x_vec, int experts,
+    long long xs_e, long long os_e, void* stream) {
+  const int col_tiles = tb > 0 ? (b + tb - 1) / tb : 0;
   Params p{u8, scales, x, bias, res, out, ws, m, k, kb, b, nsb, scale_block,
            tk, sc_pitch, split_steps, nsplit, xs_k, xs_b, rs_m, rs_b, os_m,
-           os_b, act, out_type, res_type, sb_magic, x_vec};
+           os_b, experts, col_tiles,
+           static_cast<long long>(m) * kb, static_cast<long long>(m) * nsb,
+           xs_e, os_e, act, out_type, res_type, sb_magic, x_vec};
   if (tk <= 0 || tk % kStep || split_steps <= 0 || nsplit <= 0 ||
-      sc_pitch < tk / scale_block + 2 || (nsplit > 1 && ws == nullptr)) {
+      sc_pitch < tk / scale_block + 2 || (nsplit > 1 && ws == nullptr) ||
+      experts <= 0 || tb <= 0 ||
+      static_cast<long long>(experts) * col_tiles > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -419,7 +441,7 @@ extern "C" int int4_matmul_launch(
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nsplit > 1) {
-    const long long mb = static_cast<long long>(m) * b;
+    const long long mb = static_cast<long long>(m) * b * experts;
     reduce_kernel<<<static_cast<unsigned>((mb + kReduceThreads - 1) /
                                           kReduceThreads),
                     kReduceThreads, 0, s>>>(p);

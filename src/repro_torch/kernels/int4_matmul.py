@@ -45,6 +45,14 @@ What the design does about it.
   arithmetic.
 * x and the residual are read in their own type (f32, or the engine's
   bf16 or f16) and widened in registers, so the wrapper copies nothing.
+* A stack of experts in one launch.  The MoE block's expert linears
+  (u8 (E, m, k/2), scales (E, m, nsb), x (E, k, b) -> (E, m, b)) run as
+  E independent GeMMs whose operands sit at per-expert strides: the grid's
+  third axis walks experts times column tiles, the split workspace is
+  per expert, and ``ops.int4_tiles`` counts E times the blocks.  The
+  reference vmaps ``linear_apply`` over the experts (its ``int4_jnp``
+  backend, a dequantize then matmul, ran them on the TPU); here the whole
+  stack's bytes stream through one grid.
 No tensor cores: ``mma``/``wgmma`` on dequantized bf16 tiles is the
 kernel's later work.  Ragged k (a last scale block shorter than
 ``scale_block``, an odd k) and ragged rows and columns are masked in the
@@ -82,7 +90,9 @@ SMEM_BLOCK = 48 * 1024  # shared memory a block stages at most (the
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
              + [ctypes.c_longlong] * 6
              + [ctypes.c_int] * 4
-             + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_uint, ctypes.c_int, ctypes.c_int]
+             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+MAX_GRID_Z = 65535  # experts x column tiles of one launch
 
 # Kernel launches since the last reset; only int4_matmul_cuda adds to it,
 # once a call (a split call's reduction kernel is not counted apart).
@@ -139,19 +149,28 @@ def split_steps(k: int, nsplit: int) -> tuple[int, int]:
 
 
 def _check(u8, scales, x, scale_block, bias, residual):
-    """Validate shapes and devices; returns (m, k, b, nsb)."""
-    if u8.dim() != 2 or x.dim() != 2:
-        raise ValueError(f"u8 (m, k/2) and x (k, b) must be 2-D, got "
+    """Validate shapes and devices; returns (E, m, k, b, nsb), E = 0 for
+    one linear (2-D operands), the expert count for a stack (3-D)."""
+    if u8.dim() not in (2, 3) or x.dim() != u8.dim():
+        raise ValueError(f"u8 (m, k/2) and x (k, b), or an expert stack u8 "
+                         f"(E, m, k/2) and x (E, k, b), got "
                          f"{tuple(u8.shape)} and {tuple(x.shape)}")
-    m, kb = u8.shape
-    k, b = x.shape
+    E = u8.shape[0] if u8.dim() == 3 else 0
+    if E and (x.shape[0] != E or E < 1):
+        raise ValueError(f"u8 stacks {E} experts, x {x.shape[0]}")
+    if E and (bias is not None or residual is not None):
+        raise ValueError("an expert stack takes no bias or residual")
+    m, kb = u8.shape[-2:]
+    k, b = x.shape[-2:]
     if kb != -(-k // 2):
         raise ValueError(f"u8 has {kb} bytes a row, x has k={k}")
     if scale_block < 1:
         raise ValueError(f"scale_block={scale_block} must be >= 1")
     nsb = -(-k // scale_block)
-    if tuple(scales.shape) != (m, nsb):
-        raise ValueError(f"scales {tuple(scales.shape)} != {(m, nsb)}")
+    lead = (E,) if E else ()
+    if tuple(scales.shape) != (*lead, m, nsb):
+        raise ValueError(f"scales {tuple(scales.shape)} != "
+                         f"{(*lead, m, nsb)}")
     if bias is not None and tuple(bias.shape) != (m,):
         raise ValueError(f"bias {tuple(bias.shape)} != {(m,)}")
     if residual is not None and tuple(residual.shape) != (m, b):
@@ -160,7 +179,7 @@ def _check(u8, scales, x, scale_block, bias, residual):
                     ("residual", residual)):
         if t is not None and t.device != u8.device:
             raise ValueError(f"{name} on {t.device}, u8 on {u8.device}")
-    return m, k, b, nsb
+    return E, m, k, b, nsb
 
 
 def int4_matmul_cuda(u8: torch.Tensor, scales: torch.Tensor,
@@ -175,10 +194,12 @@ def int4_matmul_cuda(u8: torch.Tensor, scales: torch.Tensor,
     bias (m,) f32 contiguous; residual (m, b) float32, bfloat16 or
     float16, any strides.  The result is an (m, b) view of a (b, m)
     buffer, so the model's row-major layout is its transpose without a
-    copy.
+    copy.  An expert stack: u8 (E, m, ceil(k/2)) and scales (E, m, nsb)
+    contiguous, x (E, k, b) any strides, no bias or residual, one launch
+    for all E; the result an (E, m, b) view of an (E, b, m) buffer.
     """
     global launches
-    m, k, b, nsb = _check(u8, scales, x, scale_block, bias, residual)
+    E, m, k, b, nsb = _check(u8, scales, x, scale_block, bias, residual)
     if u8.device.type != "cuda":
         raise ValueError(f"int4_matmul_cuda needs CUDA tensors, got "
                          f"{u8.device}")
@@ -202,31 +223,39 @@ def int4_matmul_cuda(u8: torch.Tensor, scales: torch.Tensor,
     if (k + STEP) * scale_block >= 2**32:  # the kernel's block_of
         raise ValueError(f"k={k} x scale_block={scale_block} too large")
     per, nsplit = split_steps(k, tiles.nsplit)
+    ne = max(E, 1)
+    if ne * -(-b // tiles.tb) > MAX_GRID_Z:
+        raise ValueError(f"{ne} experts x {-(-b // tiles.tb)} column tiles "
+                         f"exceed the grid's {MAX_GRID_Z}")
     dev = u8.device
-    out = torch.empty((b, m), dtype=out_dtype, device=dev).t()
-    ws = (torch.empty((nsplit, b, m), dtype=torch.float32, device=dev)
+    out = torch.empty((ne, b, m), dtype=out_dtype, device=dev).transpose(1, 2)
+    ws = (torch.empty((ne, nsplit, b, m), dtype=torch.float32, device=dev)
           if nsplit > 1 else None)
     # 4-byte word loads need every row start 4-byte aligned
-    vec = int(u8.shape[1] % 4 == 0 and u8.data_ptr() % 4 == 0)
-    # x staged with 16-byte loads along k where each column allows them
-    x_vec = int(x.stride(0) == 1 and x.data_ptr() % 16 == 0
-                and (b == 1 or x.stride(1) * x.element_size() % 16 == 0))
+    vec = int(u8.shape[-1] % 4 == 0 and u8.data_ptr() % 4 == 0)
+    # x staged with 16-byte loads along k where each column (of each
+    # expert) allows them
+    xe = x.element_size()
+    x_vec = int(x.stride(-2) == 1 and x.data_ptr() % 16 == 0
+                and (b == 1 or x.stride(-1) * xe % 16 == 0)
+                and (E <= 1 or x.stride(0) * xe % 16 == 0))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rs = residual.stride() if residual is not None else (0, 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = nvcc.load("int4_matmul", "int4_matmul_launch", _ARGTYPES)(
         ptr(u8), ptr(scales), ptr(x), ptr(bias), ptr(residual), ptr(out),
-        ptr(ws), m, k, u8.shape[1], b, nsb, scale_block, tk,
-        tk // scale_block + 2, per, nsplit, tiles.tb, vec, x.stride(0), x.stride(1), rs[0], rs[1],
-        out.stride(0), out.stride(1), ACTS[act], OUT_TYPES[out_dtype],
-        OUT_TYPES[x.dtype],
+        ptr(ws), m, k, u8.shape[-1], b, nsb, scale_block, tk,
+        tk // scale_block + 2, per, nsplit, tiles.tb, vec, x.stride(-2),
+        x.stride(-1), rs[0], rs[1], out.stride(1), out.stride(2),
+        ACTS[act], OUT_TYPES[out_dtype], OUT_TYPES[x.dtype],
         OUT_TYPES[residual.dtype] if residual is not None else 0,
-        0 if scale_block == 1 else 2**32 // scale_block + 1, x_vec, stream)
+        0 if scale_block == 1 else 2**32 // scale_block + 1, x_vec, ne,
+        x.stride(0) if E else 0, out.stride(0), stream)
     if err != 0:
         raise RuntimeError(f"int4 kernel launch failed: CUDA error {err} "
-                           f"(m={m}, k={k}, b={b}, tiles={tiles})")
+                           f"(E={E}, m={m}, k={k}, b={b}, tiles={tiles})")
     launches += 1
-    return out
+    return out if E else out[0]
 
 
 def _codes(u8: torch.Tensor, k: int) -> torch.Tensor:
@@ -293,8 +322,13 @@ def int4_matmul_plain(u8: torch.Tensor, scales: torch.Tensor,
     per-lane segment sums over k = 256·S + 8·L + t, one scale multiply a
     segment, the shuffle tree; the splits added in order; the epilogue.
     Of ``tiles`` only ``nsplit`` counts (one split when None).  x and the
-    residual of any float type are widened to f32, which is exact."""
-    m, k, b, nsb = _check(u8, scales, x, scale_block, bias, residual)
+    residual of any float type are widened to f32, which is exact.  An
+    expert stack runs expert by expert, each as one linear."""
+    E, m, k, b, nsb = _check(u8, scales, x, scale_block, bias, residual)
+    if E:
+        return torch.stack([int4_matmul_plain(
+            u8[e], scales[e], x[e], scale_block=scale_block, tiles=tiles,
+            act=act, out_dtype=out_dtype) for e in range(E)])
     dev = u8.device
     per, nsplit = split_steps(k, tiles.nsplit if tiles is not None else 1)
     ns = per * nsplit

@@ -207,9 +207,11 @@ def msgemm(idx: torch.Tensor, x: torch.Tensor, d: int, *,
 
 
 @functools.lru_cache(maxsize=None)
-def int4_tiles(m: int, k: int, b: int) -> Int4Tiles:
+def int4_tiles(m: int, k: int, b: int, e: int = 1) -> Int4Tiles:
     """Hopper tile choice for the int4 kernel, a function of the shape
-    alone: tb columns per block (the batch, rounded up to 1, 2, 4 or 8);
+    alone (``e``: the experts of a stacked launch, whose grid holds e
+    times the blocks): tb columns per block (the batch, rounded up to 1,
+    2, 4 or 8);
     nsplit, the contraction splits (whole 256-code steps) whose blocks
     end soonest on NUM_SMS SMs; and an x tile of tk codes, a split's
     range at most, that keeps tb·tk floats at 32 KiB of shared memory.
@@ -232,31 +234,32 @@ def int4_tiles(m: int, k: int, b: int) -> Int4Tiles:
             continue
         tiles = Int4Tiles(tb=tb, tk=min(per * _i4.STEP, 8192 // tb),
                           nsplit=n)
-        cost = int4_span(m, k, b, tiles)
+        cost = int4_span(m, k, b, tiles, e)
         if best is None or cost < best[0]:
             best = (cost, tiles)
     return best[1]
 
 
-def int4_span(m: int, k: int, b: int, tiles: Int4Tiles) -> int:
+def int4_span(m: int, k: int, b: int, tiles: Int4Tiles, e: int = 1) -> int:
     """The split picker's cost of ``tiles``, in 256-code steps: the blocks
-    spread evenly over NUM_SMS SMs, and an SM takes its share of blocks
-    (never less than two blocks' worth) times a block's steps plus
-    INT4_BLOCK_OVERHEAD (also the perf model's work term)."""
-    blocks = -(-m // _i4.rows_per_block(tiles.tb)) * -(-b // tiles.tb)
+    (of all ``e`` experts of a stacked launch) spread evenly over NUM_SMS
+    SMs, and an SM takes its share of blocks (never less than two blocks'
+    worth) times a block's steps plus INT4_BLOCK_OVERHEAD (also the perf
+    model's work term, which prices one linear: e = 1)."""
+    blocks = -(-m // _i4.rows_per_block(tiles.tb)) * -(-b // tiles.tb) * e
     per, splits = _i4.split_steps(k, tiles.nsplit)
     return (max(2, -(-blocks * splits // NUM_SMS))
             * (per + INT4_BLOCK_OVERHEAD))
 
 
-def int4_variants(m: int, k: int, b: int) -> list[Int4Tiles]:
+def int4_variants(m: int, k: int, b: int, e: int = 1) -> list[Int4Tiles]:
     """The int4 tile choices worth timing at one shape (the autotuner's
     candidates, ``chip_smoke.py --sweep int4``'s variants): the picker's
     tb with every split count that :func:`int4_matmul.split_steps` admits
     (no empty split) up to four times the picker's, each with its tk
     derived as :func:`int4_tiles` derives it.  The picker's choice is one
     of them."""
-    picked = int4_tiles(m, k, b)
+    picked = int4_tiles(m, k, b, e)
     out = []
     for n in range(1, 4 * picked.nsplit + 1):
         per, splits = _i4.split_steps(k, n)
@@ -278,7 +281,9 @@ def int4_matmul(u8: torch.Tensor, scales: torch.Tensor, x: torch.Tensor, *,
     scales (m, ceil(k/scale_block)); x (k, b) or (k,).  ``epilogue`` is
     fused: ``bias`` is (m,), ``residual`` (m, b) column layout.  The output
     dtype is ``epilogue.out_dtype``, float32 when unset.  A ragged last
-    scale block and odd k are masked in the kernel, not padded.
+    scale block and odd k are masked in the kernel, not padded.  An
+    expert stack (u8 (E, m, k/2), scales (E, m, nsb), x (E, k, b)) runs
+    in one launch to y (E, m, b); its epilogue takes no bias or residual.
     """
     ep = epilogue or Epilogue()
     if ep.bias != (bias is not None) or ep.residual != (residual is not None):
@@ -291,7 +296,8 @@ def int4_matmul(u8: torch.Tensor, scales: torch.Tensor, x: torch.Tensor, *,
         if residual is not None and residual.ndim == 1:
             residual = residual[:, None]
     if tiles is None:
-        tiles = int4_tiles(u8.shape[0], x.shape[0], x.shape[1])
+        tiles = int4_tiles(u8.shape[-2], x.shape[-2], x.shape[-1],
+                           u8.shape[0] if u8.ndim == 3 else 1)
     f32 = lambda t: None if t is None else t.to(torch.float32)  # noqa: E731
     # x and the residual go as they are when the kernel reads their type
     # (the engine's bf16 activations); the widening to f32 is exact

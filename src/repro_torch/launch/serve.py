@@ -59,6 +59,18 @@ Flags of slices not ported yet are not defined, so argparse refuses them:
 ``--mesh``, ``--mesh-rules``, ``--shard-collective``, ``--shard-pipeline``,
 ``--shard-impl`` and ``--force-host-devices`` (ROADMAP A13, multi-GPU).
 
+Every ported architecture serves (``repro_torch.configs.ARCHS``: the
+gemma, codeqwen1.5, starcoder2 and gpt3 dense models, and the qwen2-moe
+and llama4-maverick MoE models, whose experts run the int4 kernel in one
+launch a projection).  The build line gives the weights' GiB and the
+build's peak; a MoE model's run also prints ``dropped_frac``, the share
+of routed (token, expert) slots past capacity over the run (pads and idle
+rows included).  ``--check`` holds the continuous engine to static
+``generate``: a MoE model may legitimately differ where capacity drops
+differ (a prefill chunk's pads take capacity), as in the reference.
+``--num-layers N`` cuts the depth (the widths stay the config's), for
+models whose full depth does not fit one card.
+
 ``--kv-bits 4 --kv-codebook learned`` fits the pool's 16-entry table once,
 from the model's own K/V on a seeded batch (``repro_torch.kvq.fit``), and
 prints it; at 16 and 8 bits the flag is ignored with a note, as in the
@@ -88,6 +100,7 @@ from repro_torch.device import generator, resolve
 from repro_torch.kernels.ops import KERNELS, launch_counts
 from repro_torch.kvq import KVQuantSpec
 from repro_torch.kvq import attention as kv_attention
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.quant import quantized_size_bytes
 from repro_torch.runtime import serve as SV
@@ -114,6 +127,8 @@ def build_model(args, device: torch.device):
     Returns (params, cfg, figures)."""
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if args.num_layers:
+        cfg = cfg.replace(num_layers=args.num_layers)
     spec = quant_spec(args)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -214,6 +229,7 @@ def run_static(args, params, cfg, device: torch.device):
         plans = warm_generate(params, cfg, tokens, policy)
         print(f"[serve] resolved {len(plans)} exec plans before the run "
               f"(cache={dispatch.cache().path})")
+    M.reset_route_counts(params)
     t0 = time.perf_counter()
     out = SV.generate(params, cfg, tokens, max_new_tokens=args.new_tokens)
     _sync(device)
@@ -221,7 +237,17 @@ def run_static(args, params, cfg, device: torch.device):
     print(f"[serve] generated {tuple(out.shape)} in {dt:.2f}s "
           f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
     print(out[:, :12].tolist())
-    return dict(tokens=out, run_s=dt)
+    return dict(tokens=out, run_s=dt, dropped_frac=report_dropped(params))
+
+
+def report_dropped(params) -> float | None:
+    """Print and return a MoE model's dropped_frac since the counters'
+    last reset (None, and nothing printed, for a dense model)."""
+    frac = M.dropped_frac(params)
+    if frac is not None:
+        print(f"[serve] moe dropped_frac over the run: {frac:.6f}",
+              flush=True)
+    return frac
 
 
 def make_request_stream(args, cfg):
@@ -328,11 +354,13 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     before = launch_counts()
+    M.reset_route_counts(params)
     t0 = time.perf_counter()
     results = engine.run(reqs)
     _sync(device)
     dt = time.perf_counter() - t0
     after = launch_counts()
+    dropped = report_dropped(params)
     launches = {name: after[name] - before[name] for name in KERNELS}
     for rid in sorted(results):
         m = results[rid].metrics()
@@ -360,7 +388,7 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
     out = dict(results=results, metrics=s, steps=engine.num_steps,
                run_s=dt, launches=launches, kv_spec=kv_spec,
                cuda_graph=engine.runner.cuda_graph,
-               exec_plans=engine.exec_plans)
+               exec_plans=engine.exec_plans, dropped_frac=dropped)
     if args.check:
         out["checked"] = check_static(results, params, cfg, device,
                                       exec_policy(args))
@@ -374,6 +402,9 @@ def parse_args(argv=None):
                     "weights (static or continuous engine).")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the model's depth to N layers (0: the "
+                         "config's); the widths stay the config's")
     ap.add_argument("--quant", default="msgemm",
                     choices=["bf16", "int4_dequant", "msgemm"])
     ap.add_argument("--d", type=int, default=3, help="LUT depth (paper d)")

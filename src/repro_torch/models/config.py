@@ -1,8 +1,10 @@
 """Port-side model configuration; the fields of repro.models.config.
-ModelConfig that the attn/local decoder-only path reads.
+ModelConfig that the decoder-only path reads (``attn``, ``local`` and
+``moe`` blocks), ``num_groups``, ``with_quant`` and the analytic
+:func:`param_count`.
 
-Other block kinds (moe, mamba, xLSTM), encoder-decoder and modality
-frontends wait for their slices, and are rejected here.
+Other block kinds (mamba, xLSTM), encoder-decoder and modality frontends
+wait for their slices, and are rejected here.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from dataclasses import dataclass, field
 from repro_torch.core.spec import DENSE, QuantSpec
 from repro_torch.kvq.spec import KVQuantSpec
 
-BLOCK_KINDS = ("attn", "local")
+BLOCK_KINDS = ("attn", "local", "moe")
 
 
 @dataclass(frozen=True)
@@ -45,6 +47,15 @@ class ModelConfig:
     embed_scale: bool = False  # gemma: embeddings scaled by sqrt(d)
     tie_embeddings: bool = False
 
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0  # per-expert hidden dim (0 -> d_ff)
+    num_shared_experts: int = 0
+    shared_expert_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.0
+    moe_groups: int = 16  # the reference's dispatch groups (sharding only)
+
     dtype: str = "float32"  # activation compute dtype
     param_dtype: str = "float32"
     quant: QuantSpec = field(default_factory=lambda: DENSE)
@@ -70,5 +81,44 @@ class ModelConfig:
         """Block kind of layer ``layer`` (the pattern repeats)."""
         return self.block_pattern[layer % len(self.block_pattern)]
 
+    @property
+    def num_groups(self) -> int:
+        """How many times the block pattern repeats."""
+        return self.num_layers // len(self.block_pattern)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def with_quant(self, mode: str, **kw) -> "ModelConfig":
+        return self.replace(quant=dataclasses.replace(self.quant, mode=mode,
+                                                      **kw))
+
+
+def param_count(cfg: ModelConfig) -> dict:
+    """Analytic parameter counts, total and active per token, for the
+    block kinds the port has; the reference's formulas."""
+    d, dff = cfg.d_model, cfg.d_ff
+    h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    attn = d * (h * dh) + 2 * d * (hk * dh) + (h * dh) * d
+
+    def mlp(ff):
+        return (3 if cfg.mlp_activation in ("swiglu", "geglu") else 2) \
+            * d * ff
+
+    total = active = embed
+    for kind in cfg.block_pattern:
+        if kind in ("attn", "local"):
+            p = a = attn + mlp(dff)
+        else:  # moe
+            mdff = cfg.moe_d_ff or dff
+            # shared experts fuse into one dense MLP of summed hidden dim
+            shared = (mlp(cfg.shared_expert_d_ff
+                          or cfg.num_shared_experts * mdff)
+                      if cfg.num_shared_experts else 0)
+            router = d * cfg.num_experts
+            p = attn + cfg.num_experts * mlp(mdff) + shared + router
+            a = attn + router + shared + cfg.num_experts_per_tok * mlp(mdff)
+        total += p * cfg.num_groups
+        active += a * cfg.num_groups
+    return {"total": total, "active": active}

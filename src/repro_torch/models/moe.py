@@ -1,0 +1,214 @@
+"""Mixture-of-Experts FFN: top-k routing, capacity-bounded sort-free
+dispatch (one-hot cumsum positions + scatter), shared experts, aux terms;
+port of repro.models.moe.
+
+Expert weights are stacked (E, d_ff, d) in one :class:`QLinear` per
+projection, and each projection of all E experts runs as one call: on
+the card one launch of the int4 kernel over the stack (``dispatch``'s
+expert axis), where the reference vmaps ``linear_apply`` over the
+experts.  The dispatch is per example, as the reference's (``moe_groups``
+only shapes the reference's sharding), and has no data-dependent shape,
+no ``.item()`` and no ``nonzero``, so a step that runs it can be captured
+as a CUDA graph.
+
+``MoE.route_counts`` (int64 (2,) on the router's device: routed slots
+kept, routed slots in all) adds up every ``moe_apply`` of the module, a
+CUDA graph's replays included; :func:`dropped_frac` reads it over a run
+and :func:`reset_route_counts` zeroes it.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core import linear as qlinear
+from repro_torch.core.spec import expert_spec
+from repro_torch.models import common
+from repro_torch.quant.quantize import stack_experts
+
+
+class Experts(nn.Module):
+    """The stacked up / down (+ gate for GeGLU/SwiGLU) expert linears."""
+
+    def __init__(self, up, down, gate=None):
+        super().__init__()
+        self.up, self.down = up, down
+        if gate is not None:
+            self.gate = gate
+
+
+class MoE(nn.Module):
+    """router (``w`` (E, d) f32, never quantized), the expert stacks, and
+    the shared experts' fused MLP when the config has them."""
+
+    def __init__(self, router: qlinear.QLinear, experts: Experts,
+                 shared: common.MLP | None = None):
+        super().__init__()
+        self.router, self.experts = router, experts
+        if shared is not None:
+            self.shared = shared
+        # a plain attribute, not a buffer: run-time counters are no weight
+        self.route_counts = torch.zeros(2, dtype=torch.int64,
+                                        device=router.w.device)
+
+
+def _stack_init(E: int, in_dim: int, out_dim: int, cfg, quant, *,
+                generator, device) -> qlinear.QLinear:
+    """E experts' linears, each drawn as ``common.linear_init`` draws one
+    and stored under ``expert_spec(quant)`` (``quantize.stack_experts``:
+    no more than one expert's dense weight exists at a time)."""
+    return qlinear.QLinear(stack_experts(
+        E, lambda e: qlinear.init(in_dim, out_dim, generator=generator,
+                                  device=device)["w"],
+        quant, dtype=getattr(torch, cfg.param_dtype)))
+
+
+def moe_init(cfg, *, generator: torch.Generator, device=None,
+             quant=None) -> MoE:
+    """Random router, experts and shared MLP.  The experts are drawn one at
+    a time and, with ``quant`` (or a quantized ``cfg.quant``), quantized
+    under ``expert_spec`` right after each is drawn; the shared MLP follows
+    ``cfg.quant`` (``init_params`` quantizes it with the block)."""
+    d = cfg.d_model
+    mdff = cfg.moe_d_ff or cfg.d_ff
+    E = cfg.num_experts
+    kw = dict(generator=generator, device=device)
+    w = torch.empty((E, d), device=device)
+    nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=generator)
+    router = qlinear.QLinear({"w": w * d**-0.5})
+    spec = quant if quant is not None else cfg.quant
+    gated = cfg.mlp_activation in ("swiglu", "geglu")
+    experts = Experts(_stack_init(E, d, mdff, cfg, spec, **kw),
+                      _stack_init(E, mdff, d, cfg, spec, **kw),
+                      _stack_init(E, d, mdff, cfg, spec, **kw)
+                      if gated else None)
+    shared = None
+    if cfg.num_shared_experts:
+        sdff = cfg.shared_expert_d_ff or cfg.num_shared_experts * mdff
+        shared = common.mlp_init(cfg, sdff, **kw)
+    return MoE(router, experts, shared)
+
+
+def _expert_ffn(pe: Experts, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x (E, C, d) -> (E, C, d) through the stacked linears, each one call
+    for all experts.  Quantized experts run ``int4_dequant`` in msgemm mode
+    too (``expert_spec``): an expert's m is below 16^d, so the LUT
+    produce cannot amortize, and each expert would need its own LUT over
+    its routed activations.  The 'moe_' tags keep the experts' input
+    statistics apart from the dense MLPs' in the calibration observer; the
+    activation rides the linear's fused epilogue."""
+    q = expert_spec(cfg.quant)
+    act_name = {"swiglu": "silu", "geglu": "gelu",
+                "gelu": "gelu"}[cfg.mlp_activation]
+
+    def lin(name, h, act="none"):
+        return common.linear_apply(getattr(pe, name), h, q,
+                                   in_dim=h.shape[-1], tag=f"moe_{name}",
+                                   act=act)
+
+    if hasattr(pe, "gate"):
+        up = lin("up", x)
+        h = lin("gate", x, act_name) * up
+    else:
+        h = lin("up", x, act_name)
+    return lin("down", h)
+
+
+def route(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None
+          ) -> dict:
+    """The routing of x (B, S, d): f32 router ``logits`` (B, S, E), the
+    top-k experts ``eidx`` (B, S, K) and their softmaxed ``gates``, the
+    per-example ``capacity`` C, the (B, S*K, E) ``onehot`` of the slots'
+    experts in (s, k) order, ``keep`` (B, S*K: the slot's position in its
+    expert is below C) and ``dest`` (B, S*K: ``e·C + pos``, or the
+    sentinel E·C for a dropped slot)."""
+    B, S, _ = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    logits = torch.einsum("bsd,ed->bse", x.to(torch.float32),
+                          p.router.w.to(torch.float32))
+    gates, eidx = torch.topk(logits, K, dim=-1)  # sorted, as lax.top_k
+    gates = torch.softmax(gates, dim=-1)
+    if capacity is None:
+        capacity = max(int(S * K / E * cfg.capacity_factor), 4)
+    C = capacity
+    flat = eidx.reshape(B, S * K)
+    oh = (flat[..., None] == torch.arange(E, device=x.device)).to(
+        torch.int32)
+    pos = ((torch.cumsum(oh, dim=1) - 1) * oh).sum(-1)
+    keep = pos < C
+    return dict(logits=logits, gates=gates, eidx=eidx, capacity=C,
+                onehot=oh, keep=keep,
+                dest=torch.where(keep, flat * C + pos, E * C))
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
+    """x (B, S, d) -> (y (B, S, d), aux dict of 0-d f32 tensors).
+
+    Switch-style capacity dispatch, one group per example as the
+    reference's: top-k over the f32 router logits, softmax over the k;
+    each (token, k) slot's position in its expert from a one-hot cumsum
+    in (s, k) order; slot ``e·C + pos`` of an (E·C + 1, d) buffer per
+    example, the last row the sentinel that takes every dropped slot
+    (pos >= C) and is dropped.  Only the sentinel row receives duplicate
+    indices, so the scatter (``index_copy_``) is deterministic wherever
+    it is read.  The experts see (E, B·C, d); their outputs are gathered
+    back per slot, weighted by the kept gates and summed over k; the
+    shared MLP adds on.  ``aux``: the Switch ``load_balance`` term and
+    ``dropped_frac``, the share of slots past capacity."""
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    r = route(p, x, cfg, capacity=capacity)
+    C, keep, dest = r["capacity"], r["keep"], r["dest"]
+
+    rows = E * C + 1
+    slots = (torch.arange(B, device=x.device)[:, None] * rows
+             + dest).reshape(-1)
+    xr = x[:, :, None, :].expand(B, S, K, d).reshape(B * S * K, d)
+    buf = x.new_zeros((B * rows, d))
+    buf.index_copy_(0, slots, xr)
+    dispatched = (buf.view(B, rows, d)[:, :E * C].reshape(B, E, C, d)
+                  .transpose(0, 1).reshape(E, B * C, d))
+
+    out = _expert_ffn(p.experts, dispatched, cfg)  # (E, B*C, d)
+    out = out.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+    padded = torch.cat([out, out.new_zeros((B, 1, d))], dim=1)
+    gathered = padded.reshape(B * rows, d).index_select(0, slots) \
+        .reshape(B, S, K, d)
+    w = (r["gates"] * keep.reshape(B, S, K)).to(gathered.dtype)
+    y = torch.einsum("bskd,bsk->bsd", gathered, w)
+
+    if hasattr(p, "shared"):
+        y = y + common.mlp_apply(p.shared, x, cfg).to(y.dtype)
+
+    probs = torch.softmax(r["logits"], dim=-1)
+    me = probs.mean(dim=(0, 1))
+    ce = r["onehot"].reshape(B, S, K, E).sum(2).to(torch.float32) \
+        .mean(dim=(0, 1))
+    aux = {"load_balance": E * torch.sum(me * ce),
+           "dropped_frac": 1.0 - keep.to(torch.float32).mean()}
+    p.route_counts[0] += keep.sum()
+    p.route_counts[1] += keep.numel()
+    return y.to(x.dtype), aux
+
+
+def _moes(model: nn.Module):
+    return [m for m in model.modules() if isinstance(m, MoE)]
+
+
+def reset_route_counts(model: nn.Module) -> None:
+    """Zero every MoE block's routed-slot counters."""
+    for m in _moes(model):
+        m.route_counts.zero_()
+
+
+def dropped_frac(model: nn.Module) -> float | None:
+    """Slots dropped past capacity over every MoE block and call since the
+    last reset (pads and idle engine rows included, as the reference's
+    aux term counts them); None for a model without MoE blocks or
+    before any routing."""
+    counts = [m.route_counts for m in _moes(model)]
+    if not counts:
+        return None
+    kept, total = (int(v) for v in torch.stack(counts).sum(0).tolist())
+    return None if total == 0 else 1.0 - kept / total

@@ -1,6 +1,6 @@
-"""Decoder-only model assembly for ``attn``/``local`` blocks — embeddings,
-the block stack, dense and paged KV caches, forward / prefill / decode;
-port of repro.models.transformer.
+"""Decoder-only model assembly for ``attn``/``local``/``moe`` blocks —
+embeddings, the block stack, dense and paged KV caches, forward / prefill
+/ decode; port of repro.models.transformer.
 
 Blocks live in an ``nn.ModuleList`` (one module per layer) where the
 reference stacks them ``(G, ...)`` for ``lax.scan``; caches are a list of
@@ -15,25 +15,34 @@ from torch import nn
 
 from repro_torch import kvq
 from repro_torch.device import resolve
-from repro_torch.models import common, layers
+from repro_torch.models import common, layers, moe
 from repro_torch.models.config import ModelConfig
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP block."""
+    """Pre-norm attention block with an MLP (``attn``, ``local``) or a MoE
+    FFN (``moe``)."""
 
-    def __init__(self, ln1, attn, ln2, mlp):
+    def __init__(self, ln1, attn, ln2, mlp=None, moe=None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
+        if mlp is not None:
+            self.mlp = mlp
+        if moe is not None:
+            self.moe = moe
 
 
-def block_init(cfg: ModelConfig, *, generator: torch.Generator,
-               device=None) -> Block:
+def block_init(cfg: ModelConfig, kind: str = "attn", *,
+               generator: torch.Generator, device=None, quant=None) -> Block:
+    """A block of ``kind``; a ``moe`` block's experts are drawn and, with
+    ``quant``, quantized one expert at a time (``moe.moe_init``)."""
     kw = dict(generator=generator, device=device)
+    ffn = (dict(moe=moe.moe_init(cfg, quant=quant, **kw)) if kind == "moe"
+           else dict(mlp=common.mlp_init(cfg, cfg.d_ff, **kw)))
     return Block(common.norm_init(cfg.d_model, cfg.norm, device=device),
                  layers.attn_init(cfg, **kw),
                  common.norm_init(cfg.d_model, cfg.norm, device=device),
-                 common.mlp_init(cfg, cfg.d_ff, **kw))
+                 **ffn)
 
 
 class Transformer(nn.Module):
@@ -57,7 +66,8 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     With ``quant`` (a QuantSpec), every block — and an untied lm_head — is
     quantized by ``quant.quantize_model`` right after it is drawn, so no
     more than one block's dense weights exist at a time (this is how a
-    full-width model fits the card); the caller then serves with
+    full-width model fits the card); a MoE block's experts, one expert's
+    dense weights at a time.  The caller then serves with
     ``cfg.replace(quant=quant)``.
     """
     from repro_torch.quant import quantize_model
@@ -67,8 +77,8 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     emb = torch.empty((cfg.vocab_size, cfg.d_model), device=dev)
     nn.init.trunc_normal_(emb, a=-2.0, b=2.0, generator=generator)
     blocks = []
-    for _ in range(cfg.num_layers):
-        blk = block_init(cfg, **kw)
+    for layer in range(cfg.num_layers):
+        blk = block_init(cfg, cfg.kind(layer), quant=quant, **kw)
         if quant is not None:
             quantize_model(blk, quant)
         blocks.append(blk)
@@ -91,7 +101,8 @@ def block_apply(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
     (full sequence, writes the prompt's K/V at 0), ``decode`` (one token
     at ``pos``), ``paged`` (``paged`` = (write_slots, view_slots) over the
     layer's block pool).  The block input rides the out-projection's and
-    the down-projection's fused residual epilogues.  Returns x."""
+    the down-projection's fused residual epilogues; a MoE FFN's output is
+    added to it (the reference's ``_ffn``).  Returns x."""
     window = cfg.sliding_window if kind == "local" else 0
     h = common.norm_apply(p.ln1, x, cfg.norm, rms_offset=cfg.rms_offset)
     if mode == "paged":
@@ -111,6 +122,9 @@ def block_apply(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
         x = layers.attn_apply(p.attn, cfg, h, positions, window=window,
                               residual=x)
     h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
+    if kind == "moe":
+        y, _ = moe.moe_apply(p.moe, h, cfg)
+        return x + y
     return common.mlp_apply(p.mlp, h, cfg, residual=x)
 
 

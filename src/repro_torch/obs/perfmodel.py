@@ -614,6 +614,8 @@ def samples_from_snapshot(doc: dict, *, device: str | None = None,
         lb = row.get("labels", {})
         if not {"backend", "m", "k", "b", "mode", "d", "sb"} <= set(lb):
             continue
+        if "e" in lb:  # an expert stack: the model prices one linear
+            continue
         p50 = row.get("p50")
         if not p50:
             continue

@@ -535,6 +535,75 @@ def test_engine_graph_route_matches_eager_route(mode):
         cfg.num_layers * g_eng.num_steps if mode == "kv8" else 0)
 
 
+# (E, sb, m, k, b, act): expert stacks, the last scale block ragged
+# (k = 1408), a split contraction, b past one column tile
+I4_EXPERT_SHAPES = [
+    (3, 36, 40, 1408, 4, "none"),
+    (4, 36, 24, 600, 9, "silu"),
+    (60, 36, 1408, 2048, 16, "none"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,sb,m,k,b,act", I4_EXPERT_SHAPES)
+def test_int4_expert_stack_matches_plain(E, sb, m, k, b, act):
+    """One launch over the stack, bit-exact against the plain version (a
+    per-expert loop) with bf16 x in the dispatch's layout, at the
+    picker's split and at two splits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import int4_matmul as i4
+
+    rng = np.random.default_rng(E + m + k + b)
+    codes = torch.from_numpy(rng.integers(0, 16, size=(E, m, k))
+                             .astype(np.uint8))
+    u8 = packing.pack_storage(codes).contiguous().cuda()
+    sc = torch.from_numpy((np.abs(rng.standard_normal(
+        (E, m, -(-k // sb)))) + 0.1).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((E, b, k)).astype(np.float32)) \
+        .cuda().to(torch.bfloat16).transpose(1, 2)
+    base = ops.int4_tiles(m, k, b, E)
+    for tiles in {base, base._replace(nsplit=2)}:
+        kw = dict(scale_block=sb, tiles=tiles, act=act,
+                  out_dtype=torch.bfloat16)
+        before = i4.launches
+        got = i4.int4_matmul_cuda(u8, sc, x, **kw)
+        assert i4.launches == before + 1
+        want = i4.int4_matmul_plain(u8, sc, x, **kw)
+        torch.cuda.synchronize()
+        if act == "none":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2**-7, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2_moe", "llama4_maverick"])
+def test_moe_engine_graph_route_matches_eager_route(arch):
+    """A MoE model's dispatch captures: graph replays give the eager
+    route's tokens and launches, the expert stacks one int4 launch a
+    projection and MoE layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch import configs
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.device import generator
+    from repro_torch.models import transformer
+
+    spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
+    cfg = configs.get_smoke(arch)
+    params = transformer.init_params(cfg, generator=generator(0, "cuda"),
+                                     device="cuda", quant=spec)
+    cfg = cfg.replace(quant=spec)
+    g_toks, g_launches, g_eng = _serve_small(params, cfg, None)
+    e_toks, e_launches, e_eng = _serve_small(params, cfg, False)
+    assert g_eng.runner.cuda_graph and not e_eng.runner.cuda_graph
+    assert g_toks == e_toks and g_launches == e_launches
+    moe_layers = sum(cfg.kind(i) == "moe" for i in range(cfg.num_layers))
+    assert g_launches["int4_matmul"] == 3 * moe_layers * g_eng.num_steps
+
+
 @pytest.mark.cuda
 def test_traced_capture_times_gemms_inside_a_replay():
     """Tracing on at capture: every replay records the gemm marks, which

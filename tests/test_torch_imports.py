@@ -42,6 +42,10 @@ MUST_IMPORT = {
     "repro_torch.faults", "repro_torch.faults.plan",
     "repro_torch.distributed", "repro_torch.distributed.watchdog",
     "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+    "repro_torch.models.moe", "repro_torch.configs.shapes",
+    "repro_torch.configs.codeqwen15_7b", "repro_torch.configs.starcoder2_15b",
+    "repro_torch.configs.gpt3_175b", "repro_torch.configs.qwen2_moe",
+    "repro_torch.configs.llama4_maverick",
 }
 
 

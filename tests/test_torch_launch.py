@@ -32,7 +32,10 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serving import Engine, Request  # noqa: E402
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "gemma2_9b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", [
+    "gemma_2b", "gemma2_9b", "gemma2-9b", "codeqwen15_7b", "codeqwen1.5-7b",
+    "starcoder2_15b", "gpt3_175b", "qwen2_moe", "qwen2-moe-a2.7b",
+    "llama4_maverick"])
 def test_configs_equal_reference(arch):
     for get in ("get_config", "get_smoke"):
         want = convert.config_from_jax(getattr(j_configs, get)(arch))
@@ -43,7 +46,7 @@ def test_unported_arch_refused():
     with pytest.raises(NotImplementedError, match="A11"):
         configs.get_config("xlstm_1b3")
     with pytest.raises(NotImplementedError, match="A11"):
-        configs.get_smoke("qwen2-moe-a2.7b")
+        configs.get_smoke("whisper-medium")
     with pytest.raises(NotImplementedError, match="ported: "):
         configs.get_config("no-such-model")
     with pytest.raises(NotImplementedError):
