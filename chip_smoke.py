@@ -43,13 +43,20 @@ Phases, any failure exits non-zero before the last line is printed:
      (a per-expert loop of the one-linear plain version) on exact and on
      random inputs (silu within one bf16 ulp), timed against its bound
      (bytes, or the multiply-adds at the bf16 tensor-core rate) and
-     ``torch.matmul`` of the dequantized f32 stack;
+     ``torch.matmul`` of the dequantized f32 stack; jamba-v0.1's 16-expert
+     stack too (14336 x 4096 up and gate, 4096 x 14336 down, b = 16: the
+     static path's 4 rows x capacity 4);
    * both GeMMs, not timed, at every GeMM shape the other architectures'
-     engines run (``arch_gemms``: qwen2-moe's, llama4-maverick's,
+     serve paths run (``arch_gemms``: qwen2-moe's, llama4-maverick's,
      codeqwen1.5-7b's, starcoder2-15b's and gpt3-175b's attention
-     projections, dense and shared-expert MLPs, and untied vocab heads),
-     bf16 x and residual in the engine's layout, the layers at b = 1, 4,
-     8, 15 and the heads at b = 1, 4, 8;
+     projections, dense and shared-expert MLPs, and untied vocab heads;
+     jamba-v0.1's Mamba in/x/out projections (x_proj 288 x 8192 with f32
+     x and out), MLP, attention and head; xlstm-1.3b's mLSTM up, o-gate
+     and down projections, its sLSTM MLP (2730 x 2048, 2048 x 2730: a
+     ragged last scale block) and head), bf16 x and residual in the
+     engine's layout, the layers at b = 1, 4, 8, 15 and the heads at
+     b = 1, 4, 8 (the recurrent models': static generate's b = 1, 4, 16,
+     64 and 1, 4);
    Both GeMMs: bit-exact on exact inputs (integer activations,
    power-of-two scales); rtol = atol = 1e-5 on random floats with f32
    output, one bf16 ulp (rtol = 2^-7) with bf16 output (kernel and plain
@@ -205,7 +212,24 @@ Phases, any failure exits non-zero before the last line is printed:
    a step, head dim 128) and through the torch route, the same tokens.
    ``--profile`` adds both MoE models' step profile and the device ms a
    step of the vocab head and of the expert stacks (GeMM marks).
-7. report  — the card's name and power limit, then a ``kernels`` JSON line.
+7. recurrent — jamba-v0.1-52b (32 layers: Mamba, attention and 16-expert
+   MoE) and xlstm-1.3b (48 layers: mLSTM and sLSTM) at full width and
+   depth from seed 0 through the serve CLI's static engine (batch 4,
+   16-token prompts, 16 new tokens; the paged engine refuses recurrent
+   models, as the reference's does): jamba and xlstm with msgemm weights,
+   xlstm with int4 weights.  Each run: exactly 149 msGeMM and 48 int4
+   launches a step (jamba), 145 msGeMM (xlstm) or 145 int4 (xlstm int4),
+   times the 16 steps; weights GiB, build s, peak GiB, then static
+   generate again on the CLI's prompts, timed (prefill ms, decode ms a
+   step, tokens/s; the CLI's tokens); the teacher-forced check (static
+   generate's step-by-step logits against one forward of the same
+   tokens, a MoE model at a drop-free capacity: with f32 activations on
+   the same weights within ``F32_STATE_TOL``; in bf16 the difference and
+   the greedy tokens' agreement reported); where a
+   decode step's device time goes (GeMM marks: experts, head, other
+   weight GeMMs; torch.profiler: device busy ms, the weight kernels and
+   the rest, the scans among it); jamba's ``dropped_frac``.
+8. report  — the card's name and power limit, then a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Needs no network; imports nothing of JAX.
@@ -458,12 +482,12 @@ def engine_specs(gemms, widths, x_dtype=None):
     """(name, m, k, b, kwargs) of ``gemms`` at each batch width, as the
     engine runs them: x and residual transposed views, bf16 out; x and
     the residual in ``x_dtype`` (float32 when None; the engine's are
-    bfloat16)."""
+    bfloat16); a GeMM's own kwargs (Mamba's f32 x_proj) take precedence."""
     import torch
 
     xd = {} if x_dtype is None else dict(x_dtype=x_dtype)
-    return [(n, m, k, b, dict(e, out_dtype=torch.bfloat16,
-                              engine_layout=True, **xd))
+    return [(n, m, k, b, dict(dict(out_dtype=torch.bfloat16,
+                                   engine_layout=True, **xd), **e))
             for b in widths for n, m, k, e in gemms if n != "wv"]
 
 
@@ -2729,43 +2753,71 @@ def phase_gemma2_9b():
 
 # -------------------------------------------- the archs' GeMMs (phase 2)
 ARCH_NAMES = ("qwen2_moe", "llama4_maverick", "codeqwen15_7b",
-              "starcoder2_15b", "gpt3_175b")
+              "starcoder2_15b", "gpt3_175b", "jamba_v01", "xlstm_1b3")
 # b of the layers' GeMMs: static generate's decode, the engine's decode (4
 # slots) and prefill chunk (8), and static generate's prefill of the
 # stream's longest prompt (15: a ragged column tile); the vocab head runs
 # the last position only in static generate (b = 1)
 ARCH_WIDTHS, HEAD_WIDTHS = (1, 4, 8, 15), (1, 4, 8)
+# the recurrent models serve through static generate alone: decode at the
+# serve CLI's batch (4) and at 1 (the teacher-forced check), prefill at
+# 4 x 16 and 1 x 16 prompt tokens; the head at 1 and 4
+RECURRENT = ("jamba_v01", "xlstm_1b3")
+RECURRENT_WIDTHS, RECURRENT_HEAD_WIDTHS = (1, 4, 16, 64), (1, 4)
 
 
 def arch_gemms(arch):
     """(layer GeMMs, head GeMMs) of ``arch`` at full width, each (name, m,
-    k, epilogue kwargs): the distinct GeMMs its engine runs through the
-    weight kernel.  The attention projections (wv as wk), the dense MLP's
-    (down with the block's residual), the shared experts' MLP (no
-    residual) and the untied vocab head; shapes among ``GEMMA_GEMMS``
-    (held at b = 1, 4, 8 already) left out."""
+    k, kwargs): the distinct GeMMs its serve path runs through the weight
+    kernel.  The attention projections (wv as wk), the dense MLP's (down
+    with the block's residual), the shared experts' MLP (no residual),
+    Mamba's in/x/out projections (x_proj reads the conv branch's f32
+    activations and writes f32), the mLSTM's up, o-gate and down
+    projections, the sLSTM's GeGLU MLP (no residual) and the untied vocab
+    head; shapes among ``GEMMA_GEMMS`` (held at b = 1, 4, 8 already) left
+    out."""
+    import torch
+
     from repro_torch import configs
 
     cfg = configs.get_config(arch)
     short = arch.split("_")[0]
+    kinds = set(cfg.block_pattern)
     d = cfg.d_model
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     act = {"swiglu": "silu", "geglu": "gelu",
            "gelu": "gelu"}[cfg.mlp_activation]
-    mlps = []  # (d_ff, its down projection takes the block's residual)
-    if any(cfg.kind(i) != "moe" for i in range(cfg.num_layers)):
-        mlps.append((cfg.d_ff, True))
+    mlps = []  # (prefix, d_ff, activation, gated, down takes the residual)
+    if kinds & {"attn", "local", "mamba"}:
+        mlps.append(("", cfg.d_ff, act,
+                     cfg.mlp_activation in ("swiglu", "geglu"), True))
     if cfg.num_shared_experts:
-        mlps.append((cfg.shared_expert_d_ff or cfg.num_shared_experts
-                     * (cfg.moe_d_ff or cfg.d_ff), False))
-    gemms = [("wq", q, d, {}), ("wk", kv, d, {}),
-             ("wo", d, q, dict(residual=True))]
-    for ff, res in mlps:
-        gemms += ([("gate", ff, d, dict(act=act)), ("up", ff, d, {})]
-                  if cfg.mlp_activation in ("swiglu", "geglu")
-                  else [("up", ff, d, dict(act=act))])
-        gemms.append(("down", d, ff, dict(residual=True)) if res
-                     else ("shared-down", d, ff, {}))
+        mlps.append(("shared-", cfg.shared_expert_d_ff
+                     or cfg.num_shared_experts * (cfg.moe_d_ff or cfg.d_ff),
+                     act, cfg.mlp_activation in ("swiglu", "geglu"), False))
+    if "slstm" in kinds:
+        mlps.append(("sl-", int(d * cfg.slstm_mlp_factor), "gelu", True,
+                     False))
+    gemms = []
+    if kinds & {"attn", "local", "moe"}:
+        gemms += [("wq", q, d, {}), ("wk", kv, d, {}),
+                  ("wo", d, q, dict(residual=True))]
+    if kinds & {"mamba", "mamba_moe"}:
+        di = cfg.mamba_d_inner
+        f32 = dict(x_dtype=torch.float32, out_dtype=torch.float32)
+        gemms += [("in_proj", 2 * di, d, {}),
+                  ("x_proj", cfg.dt_rank + 2 * cfg.mamba_d_state, di, f32),
+                  ("out_proj", d, di, {})]
+    if "mlstm" in kinds:
+        di = int(d * cfg.xlstm_proj_factor)
+        gemms += [("xl_up", 2 * di, d, {}), ("xl_o", di, d, {}),
+                  ("xl_down", d, di, {})]
+    for pre, ff, a, gated, res in mlps:
+        gemms += ([(f"{pre}gate", ff, d, dict(act=a)),
+                   (f"{pre}up", ff, d, {})]
+                  if gated else [(f"{pre}up", ff, d, dict(act=a))])
+        gemms.append((f"{pre}down", d, ff, dict(residual=True) if res
+                      else {}))
     seen = {(m, k, tuple(sorted(e.items()))) for _, m, k, e in GEMMA_GEMMS}
     layer = []
     for name, m, k, e in gemms:
@@ -2780,13 +2832,14 @@ def arch_gemms(arch):
 
 def phase_arch_gemms():
     """Both weight kernels against their plain versions at every GeMM
-    shape of the other architectures' engines (:func:`arch_gemms`), bf16
-    x and residual in the engine's layout, bf16 out (as the serve CLI
-    runs them): the layers at ``ARCH_WIDTHS``, the vocab heads at
-    ``HEAD_WIDTHS``.  Held as the gemma cases are: bit-exact on exact
-    inputs, within one bf16 ulp on random floats (the int4 kernel's
-    none/relu epilogues bit-exact there too).  Not timed: the gemma cases
-    time both kernels."""
+    shape of the other architectures' serve paths (:func:`arch_gemms`),
+    bf16 x and residual in the engine's layout, bf16 out (as the serve
+    CLI runs them; Mamba's x_proj f32): the layers at ``ARCH_WIDTHS``
+    (the recurrent models' at ``RECURRENT_WIDTHS``), the vocab heads at
+    ``HEAD_WIDTHS`` (``RECURRENT_HEAD_WIDTHS``).  Held as the gemma cases
+    are: bit-exact on exact inputs, within one bf16 ulp on random floats
+    (the int4 kernel's none/relu epilogues bit-exact there too).  Not
+    timed: the gemma cases time both kernels."""
     import torch
 
     bf16 = torch.bfloat16
@@ -2794,8 +2847,11 @@ def phase_arch_gemms():
     seed = 500
     for arch in ARCH_NAMES:
         layer, head = arch_gemms(arch)
-        for name, m, k, b, ep in (engine_specs(layer, ARCH_WIDTHS, bf16)
-                                  + engine_specs(head, HEAD_WIDTHS, bf16)):
+        widths, head_widths = ((RECURRENT_WIDTHS, RECURRENT_HEAD_WIDTHS)
+                               if arch in RECURRENT
+                               else (ARCH_WIDTHS, HEAD_WIDTHS))
+        for name, m, k, b, ep in (engine_specs(layer, widths, bf16)
+                                  + engine_specs(head, head_widths, bf16)):
             for kind, case, tiles in (("msgemm", kernel_case, tiles_str),
                                       ("int4", int4_case, int4_tiles_str)):
                 t0 = time.perf_counter()
@@ -2818,7 +2874,8 @@ def phase_arch_gemms():
 # ------------------------------------------------------ experts (phase 2)
 # (name, E, m, k, b, act) of the MoE configs' expert linears: qwen2-moe's
 # at decode (4 slots x capacity 4) and its gate at a prefill chunk (1 x 4);
-# llama4-maverick's at decode
+# llama4-maverick's at decode; jamba's on the static path (batch 4 x
+# capacity 4, at decode and at a 16-token prefill alike)
 EXPERT_CASES = [
     ("qwen2-moe-up", 60, 1408, 2048, 16, "none"),
     ("qwen2-moe-gate", 60, 1408, 2048, 16, "silu"),
@@ -2826,6 +2883,9 @@ EXPERT_CASES = [
     ("qwen2-moe-gate-prefill", 60, 1408, 2048, 4, "silu"),
     ("llama4-up", 128, 8192, 5120, 16, "none"),
     ("llama4-down", 128, 5120, 8192, 16, "none"),
+    ("jamba-up", 16, 14336, 4096, 16, "none"),
+    ("jamba-gate", 16, 14336, 4096, 16, "silu"),
+    ("jamba-down", 16, 4096, 14336, 16, "none"),
 ]
 
 
@@ -3061,35 +3121,37 @@ def bf16_ulp(v: float) -> float:
     return 2.0 ** (math.frexp(abs(v))[1] - 8) if v else 2.0**-133
 
 
-def static_logits(model, cfg, prompt, n):
-    """Static ``generate``'s greedy tokens for ``prompt``, its logits (n,
-    V) step by step, and the largest difference between those and one
-    full-sequence ``transformer.forward`` of the prompt and the tokens
-    (teacher-forced): two correct evaluations of the same logits at
-    other batch widths, so their difference is the model's rounding
-    scale at this precision."""
+def static_logits(model, cfg, prompts, n):
+    """Static ``generate``'s greedy tokens for ``prompts`` (B, S), its
+    logits (B, n, V) step by step, and the largest difference between
+    those and one full-sequence ``transformer.forward`` of the prompts and
+    the tokens (teacher-forced), with the forward's logits (B, n, V): two
+    correct evaluations of the same logits at other batch widths, so
+    their difference is the model's rounding scale at this precision
+    (and, for a recurrent model, the proof that the state decode carries
+    is the one a full pass computes)."""
     import torch
 
     from repro_torch.models import transformer
     from repro_torch.runtime import serve as SV
 
-    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
-    S = toks.shape[1]
-    cache = SV.init_cache(cfg, 1, S + n, device="cuda")
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
+    B, S = toks.shape
+    cache = SV.init_cache(cfg, B, S + n, device="cuda")
     with torch.no_grad():
         logits, cache = SV.prefill_step(model, cfg, toks, cache)
         out, rows = [], []
         for i in range(n):
-            rows.append(logits[0].float())
+            rows.append(logits.float())
             tok = SV.greedy(logits)
-            out.append(int(tok[0]))
-            pos = torch.full((1,), S + i, dtype=torch.int64, device="cuda")
+            out.append(tok)
+            pos = torch.full((B,), S + i, dtype=torch.int64, device="cuda")
             logits, cache = SV.decode_step(model, cfg, tok, cache, pos)
-        steps = torch.stack(rows)
-        seq = torch.tensor([list(prompt) + out[:-1]], dtype=torch.int32,
-                           device="cuda")
-        full = transformer.forward(model, cfg, seq)[0, S - 1:].float()
-    return out, steps, float((full - steps).abs().max())
+        steps = torch.stack(rows, dim=1)
+        out = torch.stack(out, dim=1)
+        seq = torch.cat([toks, out[:, :-1]], dim=1)
+        full = transformer.forward(model, cfg, seq)[:, S - 1:].float()
+    return out.tolist(), steps, float((full - steps).abs().max()), full
 
 
 def static_agreement(tag, model, cfg, tokens):
@@ -3109,8 +3171,9 @@ def static_agreement(tag, model, cfg, tokens):
     reqs = request_stream(cfg)
     rows, scale = [], 0.0
     for rid, toks in sorted(tokens.items()):
-        ref, logits, d = static_logits(model, cfg, reqs[rid].prompt,
-                                       NEW_TOKENS)
+        ref, logits, d, _ = static_logits(model, cfg, [reqs[rid].prompt],
+                                          NEW_TOKENS)
+        ref, logits = ref[0], logits[0]
         top = torch.topk(logits, 2, dim=-1).values
         tops, gaps = top[:, 0].tolist(), (top[:, 0] - top[:, 1]).tolist()
         ulps = [g / bf16_ulp(t) for g, t in zip(gaps, tops)]
@@ -3264,6 +3327,273 @@ def phase_arch(profile=False):
     return out
 
 
+# -------------------------------------------------- the recurrent phase
+# f32 activations: the largest difference allowed between static
+# generate's step-by-step logits and a teacher-forced forward of the same
+# tokens.  Two correct evaluations differ by the rounding of other batch
+# widths (other contraction splits) over the depth: 1.2e-5 at jamba-v0.1
+# and 1.8e-5 at xlstm-1.3b (full depth, logits about 5; this phase on an
+# H100 at 700 W); a decode state that is not the one a full pass computes
+# moves SMOKE logits by 0.26-0.86 (the reference's padded sLSTM)
+F32_STATE_TOL = 1e-3
+
+
+def recurrent_launches(cfg):
+    """(msGeMM, int4) launches of one static step of a recurrent model
+    with msgemm weights: 3 a Mamba layer (in, x, out projections), 3 a
+    dense MLP (Mamba and attention layers), 4 an attention layer, 3 an
+    mLSTM layer (up, o-gate, down), 3 an sLSTM layer (its GeGLU MLP), the
+    untied head; one int4 launch for each expert projection of a
+    ``mamba_moe`` layer (the whole stack in one)."""
+    per = {"attn": 4 + 3, "mamba": 3 + 3, "mamba_moe": 3, "mlstm": 3,
+           "slstm": 3}
+    kinds = [cfg.kind(i) for i in range(cfg.num_layers)]
+    msgemm = sum(per[k] for k in kinds) + (0 if cfg.tie_embeddings else 1)
+    return msgemm, 3 * kinds.count("mamba_moe")
+
+
+def timed_generate(model, cfg, prompts, n):
+    """Static ``generate`` on ``prompts`` (B, S), timed on the host clock
+    with a synchronise after the prefill and after the last decode step:
+    (tokens (B, n) list, prefill ms, decode ms a step)."""
+    import torch
+
+    from repro_torch.runtime import serve as SV
+
+    B, S = prompts.shape
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = SV.init_cache(cfg, B, S + n, device="cuda")
+        logits, cache = SV.prefill_step(model, cfg, prompts, cache)
+        tok = SV.greedy(logits)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [tok]
+        for i in range(n - 1):
+            pos = torch.full((B,), S + i, dtype=torch.int64, device="cuda")
+            logits, cache = SV.decode_step(model, cfg, tok, cache, pos)
+            tok = SV.greedy(logits)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (torch.stack(out, dim=1).tolist(), (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3 / (n - 1))
+
+
+def decode_breakdown(tag, model, cfg, prompts, n=4):
+    """Where a static decode step's time goes: ``n`` decode steps after a
+    prefill, once with tracing on (the device ms of the GeMMs by GeMM
+    marks: the expert stacks, the vocab head, the other weight GeMMs) and
+    once under torch.profiler (device busy ms, the two weight kernels'
+    device ms, the rest: the scans, element-wise ops and copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.runtime import serve as SV
+
+    B, S = prompts.shape
+
+    def prefill():
+        cache = SV.init_cache(cfg, B, S + n, device="cuda")
+        logits, cache = SV.prefill_step(model, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        return logits, cache
+
+    def decode(logits, cache):
+        for i in range(n):
+            pos = torch.full((B,), S + i, dtype=torch.int64, device="cuda")
+            logits, cache = SV.decode_step(model, cfg, SV.greedy(logits),
+                                           cache, pos)
+        torch.cuda.synchronize()
+
+    with torch.no_grad():
+        obs.enable_tracing(clear=True)
+        try:
+            state = prefill()
+            obs.tracer().resolve_marks(obs.tracer().take_marks())
+            obs.registry().reset(prefix="kernel_")
+            decode(*state)
+            obs.tracer().resolve_marks(obs.tracer().take_marks())
+        finally:
+            obs.disable_tracing()
+        gemm = dict(head=0.0, experts=0.0, other=0.0)
+        for row in obs.registry().snapshot()["histograms"]:
+            if row["name"] != "kernel_gemm_s" or not row["count"]:
+                continue
+            lb = row["labels"]
+            part = ("experts" if "e" in lb else
+                    "head" if int(lb["m"]) == cfg.vocab_size else "other")
+            gemm[part] += row["sum"] * 1e3 / n
+        state = prefill()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode(*state)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    check(busy > 0, f"[{tag} breakdown] the profiler saw no device time")
+    # the two weight kernels and their split reductions (not PyTorch's
+    # own reduce kernels, which live in at::native)
+    weight = sum(t for name, t, _ in rows
+                 if any(w in name for w in (
+                     "msgemm_kernel", "int4_kernel",
+                     "(anonymous namespace)::reduce_kernel")))
+    out = dict(steps=n, gemm_ms=gemm, profiled_wall_ms=wall_ms,
+               device_busy_ms=busy, weight_kernels_ms=weight,
+               other_device_ms=busy - weight,
+               top=[dict(name=k[:120], device_ms=t, count=c)
+                    for k, t, c in rows[:10]])
+    print(f"[{tag} breakdown] a decode step ({n} steps): GeMM marks: "
+          f"experts {gemm['experts']:.3f} ms, vocab head {gemm['head']:.3f}, "
+          f"other weight GeMMs {gemm['other']:.3f}; profiled: wall "
+          f"{wall_ms:.2f} ms, device busy {busy:.3f} (weight kernels "
+          f"{weight:.3f}, the rest {busy - weight:.3f})", flush=True)
+    for t in out["top"]:
+        print(f"[{tag} breakdown]   {t['device_ms']:8.3f}ms a step "
+              f"x{t['count']:5d} {t['name'][:90]}")
+    return out
+
+
+def teacher_forced(tag, model, cfg, prompts, n):
+    """Static ``generate``'s logits step by step against one teacher-forced
+    forward of the same tokens (:func:`static_logits`), on the served
+    prompts.  The gate is the f32 run: with f32 activations on the same
+    weights the largest difference D must stay within ``F32_STATE_TOL``,
+    the proof that the state decode carries is the one a full pass
+    computes.  The model's bf16 run is reported, not gated: D in ulps of
+    the top logit, and per row the steps before the forward's greedy
+    token first differs from the step path's, beside the row's first
+    near-tie (top two at most two bf16 ulps apart).  The forward's GeMMs
+    run at other batch widths (other contraction splits) and its mLSTM
+    in other chunks, so bf16 roundings part the two by several ulps over
+    48 recurrent layers (7 at xlstm-1.3b), more than a near-tie, and a
+    router turns a last-bit difference into another expert (jamba).
+    A MoE model runs both at a drop-free capacity (``capacity_factor`` =
+    E: C = S·K slots an expert): at the served capacity the forward over
+    S + n tokens would drop slots that the steps keep."""
+    if cfg.num_experts:
+        cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
+    toks, steps, d16, full = static_logits(model, cfg, prompts, n)
+    check(bool(steps.isfinite().all() and full.isfinite().all()),
+          f"[{tag}] non-finite logits")
+    top = steps.topk(2, dim=-1).values
+    rows = []
+    for r in range(len(toks)):
+        ulps = [(a - b) / bf16_ulp(a) for a, b in top[r].tolist()]
+        part = next((i for i, (a, b) in enumerate(
+            zip(toks[r], full[r].argmax(-1).tolist())) if a != b), n)
+        rows.append(dict(agree=part, first_tie=next(
+            (i for i, u in enumerate(ulps) if u <= 2), n),
+            min_ulps=min(ulps)))
+    ulps16 = d16 / bf16_ulp(float(top[..., 0].abs().max()))
+    f32 = cfg.replace(dtype="float32")
+    toks32, _, d32, _ = static_logits(model, f32, prompts, n)
+    print(f"[{tag}] teacher-forced forward against static generate's steps: "
+          f"f32 D {d32:.3g} (at most {F32_STATE_TOL}); bf16 (reported) D "
+          f"{d16:.4g} ({ulps16:.2f} ulps of the top logit), tokens agreeing "
+          f"{[r['agree'] for r in rows]} of {n}, first near-ties "
+          f"{[r['first_tie'] for r in rows]}", flush=True)
+    check(d32 <= F32_STATE_TOL,
+          f"[{tag}] f32: static generate's logits differ from the "
+          f"teacher-forced forward's by {d32} (> {F32_STATE_TOL})")
+    return dict(bf16_max_diff=d16, bf16_rounding_ulps=ulps16, rows=rows,
+                f32_max_diff=d32, f32_tokens=toks32)
+
+
+def serve_recurrent(tag, arch, quant):
+    """A recurrent model at full width and depth from seed 0 through the
+    serve CLI's static engine (``repro_torch.launch.serve.main``, in
+    process; the CLI's batch 4, 16-token prompts, 16 new tokens): every
+    kernel count set to 0 just before and read just after, exactly the
+    per-step weight-kernel launches (:func:`recurrent_launches`) times the
+    16 steps, no attention kernel; then on the same weights: static
+    generate again, timed (prefill ms, decode ms a step; the CLI's
+    tokens), the teacher-forced check (:func:`teacher_forced`) and the
+    decode step's breakdown (:func:`decode_breakdown`)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as cli
+
+    CONFIG = configs.get_config(arch)
+    argv = ["--arch", arch, "--engine", "static", "--quant", quant]
+    print(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    for mod in cli.KERNELS.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    total = cli.launch_counts()
+    model, cfg = out.pop("params"), out.pop("cfg")
+    check(cfg.replace(quant=CONFIG.quant) == CONFIG,
+          f"[{tag}] not {arch} at full width and depth: {cfg}")
+    prompts, tokens = out["prompts"], out["tokens"]
+    B, n = tokens.shape
+    ms, i4 = recurrent_launches(cfg)
+    per = (dict(msgemm=ms, int4_matmul=i4) if quant == "msgemm"
+           else dict(int4_matmul=ms + i4))
+    want = {name: per.get(name, 0) * n for name in cli.KERNELS}
+    check(out["launches"] == want and total == want,
+          f"[{tag}] launches {out['launches']} (all of the CLI's {total}) "
+          f"!= {want} ({per} a step over {n} steps)")
+    check(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
+          f"[{tag}] tokens out of the vocabulary")
+    check((out["dropped_frac"] is not None) == (i4 > 0),
+          f"[{tag}] dropped_frac {out['dropped_frac']}")
+    peak = torch.cuda.max_memory_allocated()
+    toks, prefill_ms, decode_ms = timed_generate(model, cfg, prompts, n)
+    check(toks == tokens.tolist(), f"[{tag}] a second static generate "
+                                   f"gave {toks}, the CLI {tokens.tolist()}")
+    tok_s = B * n / (prefill_ms + decode_ms * (n - 1)) * 1e3
+    b = out["build"]
+    run = dict(arch=arch, quant=quant, layers=cfg.num_layers, batch=B,
+               prompt_len=prompts.shape[1], new_tokens=n, steps=n,
+               launches=out["launches"], per_step=per,
+               build_s=b["build_s"], buffer_bytes=b["buffer_bytes"],
+               build_peak_bytes=b["build_peak_bytes"], peak_bytes=peak,
+               cli_run_s=out["run_s"], wall_s=wall_s, prefill_ms=prefill_ms,
+               decode_ms=decode_ms, tok_per_s=tok_s,
+               dropped_frac=out["dropped_frac"], tokens=toks)
+    print(f"[{tag}] {cfg.num_layers} layers, d_model {cfg.d_model}: build "
+          f"{b['build_s']:.1f}s, weights {b['buffer_bytes'] / 2**30:.2f} GiB "
+          f"(build peak {b['build_peak_bytes'] / 2**30:.2f}), run peak "
+          f"{peak / 2**30:.2f} GiB; static generate B={B}, {n} steps: "
+          f"prefill {prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step, "
+          f"{tok_s:.2f} tok/s (the CLI's run {out['run_s']:.2f}s); launches "
+          f"{out['launches']} ({per} a step)"
+          + ("" if out["dropped_frac"] is None
+             else f"; moe dropped_frac {out['dropped_frac']:.6f}")
+          + f" [{wall_s:.1f}s]", flush=True)
+    run["teacher_forced"] = teacher_forced(tag, model, cfg, prompts, n)
+    run["breakdown"] = decode_breakdown(tag, model, cfg, prompts)
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_recurrent():
+    """The recurrent blocks at full width and depth from seed 0 through the
+    serve CLI's static engine: jamba-v0.1 (32 layers: Mamba, attention,
+    16-expert MoE) and xlstm-1.3b (48 layers: mLSTM, sLSTM) with msgemm
+    weights, xlstm-1.3b with int4 weights (:func:`serve_recurrent`)."""
+    return {"jamba": serve_recurrent("rec jamba", "jamba_v01", "msgemm"),
+            "xlstm": serve_recurrent("rec xlstm", "xlstm_1b3", "msgemm"),
+            "xlstm-int4": serve_recurrent("rec xlstm int4", "xlstm_1b3",
+                                          "int4_dequant")}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3370,6 +3700,7 @@ def main() -> int:
     res_path = phase_resilience(card)
     gemma2 = phase_gemma2_9b()
     arch = phase_arch(profile=args.profile)
+    recurrent = phase_recurrent()
 
     def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b",
                     x_dtype="float32"):
@@ -3395,7 +3726,7 @@ def main() -> int:
     # the MoE models' runs: their int4 launches are the expert stacks'
     moe_runs = [r for key in ("qwen2-moe", "llama4") for r in (
         arch[key], arch[key]["eager"], *(arch[key]["kv8"][r] for r in (
-            "kernel", "kernel-eager", "torch")))]
+            "kernel", "kernel-eager", "torch")))] + [recurrent["jamba"]]
     # every path's engine runs, each read with the counts set to 0 before
     runs = ([main_path, main_path["eager"], int4_path, int4_path["eager"],
              kvq_path["kv8"]["kernel-eager"]]
@@ -3420,7 +3751,8 @@ def main() -> int:
             + [arch[k]["f32"] for k in ("codeqwen-msgemm", "codeqwen-int4",
                                         "starcoder2", "gpt3")]
             + [arch["codeqwen-msgemm"]["f32_kv8"][r]
-               for r in ("kernel", "torch")])
+               for r in ("kernel", "torch")]
+            + [recurrent[k] for k in ("xlstm", "xlstm-int4")])
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])
                 for name in ("msgemm", "int4_matmul", "paged_attention")}
@@ -3450,9 +3782,9 @@ def main() -> int:
          "shape": "qwen2-moe's up over its 60-expert stack at decode, one "
                   "launch: E=60, m=1408, k=2048, b=16 (4 slots x capacity "
                   "4), bf16 x and out; launches are the MoE engine runs' "
-                  "int4 launches (experts only: their dense linears run "
-                  "msGeMM); library_ms is torch.matmul of the dequantized "
-                  "f32 stack"},
+                  "and jamba's static run's int4 launches (experts only: "
+                  "their dense linears run msGeMM); library_ms is "
+                  "torch.matmul of the dequantized f32 stack"},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:157",
@@ -3496,7 +3828,7 @@ def main() -> int:
         attn_cases=attn_cases, flash=flash, arch=arch,
         main=main_path, kvq=kvq_path,
         int4=int4_path, plan=plan_path, calib=calib_path,
-        resilience=res_path, gemma2_9b=gemma2,
+        resilience=res_path, gemma2_9b=gemma2, recurrent=recurrent,
         gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     for key, e in ([("gemma-2b msgemm", kernels[0]),

@@ -11,9 +11,10 @@ repro.configs.shapes.
 Skip rule: long_500k runs only for family ssm/hybrid; every
 full-attention arch skips it.  The reference's ``jax.ShapeDtypeStruct``
 stand-ins are :class:`Spec` here, a (shape, dtype) pair that allocates
-nothing (the port's ``device.resolve`` has no ``meta`` device).  The
-encoder-decoder and vision-frontend specs wait for their slices (ROADMAP
-A11d), as their configs do.
+nothing (the decode cache's are read off ``transformer.block_cache`` on
+the ``meta`` device, as the reference's ``jax.eval_shape`` of
+``init_cache``).  The encoder-decoder and vision-frontend specs wait for
+their slices (ROADMAP A11d), as their configs do.
 """
 
 from __future__ import annotations
@@ -83,17 +84,26 @@ def prefill_input_specs(cfg: ModelConfig, shape: Shape, *, batch=None
     return specs
 
 
+def _cache_specs(cfg: ModelConfig, B: int, max_len: int, dtype) -> list:
+    """Mirror ``models.transformer.init_cache`` as Specs, one dict a layer:
+    seq_len-deep K/V for an attention layer, the recurrent state (of no
+    sequence length) otherwise."""
+    from repro_torch.models import transformer  # local to avoid cycles
+
+    return [{name: Spec(tuple(t.shape), t.dtype) for name, t in
+             transformer.block_cache(cfg, cfg.kind(i), B, max_len, dtype,
+                                     device="meta").items()}
+            for i in range(cfg.num_layers)]
+
+
 def decode_input_specs(cfg: ModelConfig, shape: Shape, *, batch=None,
                        cache_dtype=torch.bfloat16) -> dict:
     """Inputs of a decode step: one new token, its position, and the
-    per-layer seq_len-deep K/V caches of ``models.transformer.init_cache``
-    (one ``{"k", "v"}`` dict a layer)."""
+    per-layer caches of ``models.transformer.init_cache``."""
     B = batch or shape.global_batch
-    kv = Spec((B, shape.seq_len, cfg.num_kv_heads, cfg.head_dim),
-              cache_dtype)
     return {"token": Spec((B,), torch.int32),
             "pos": Spec((B,), torch.int32),
-            "cache": [{"k": kv, "v": kv} for _ in range(cfg.num_layers)]}
+            "cache": _cache_specs(cfg, B, shape.seq_len, cache_dtype)}
 
 
 def input_specs(cfg: ModelConfig, shape_name: str, **kw) -> dict:

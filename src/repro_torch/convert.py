@@ -5,11 +5,14 @@ leaves (``jax.tree.map(np.asarray, params)``) and hands it here, so the
 port never imports JAX.  Blocks stacked ``(G, ...)`` along the scan axis
 under ``blocks["{i}:{kind}"]`` become one module per layer (layer
 ``g * len(pattern) + i``); so do a calibrated tree's stacked ``(G, 16)``
-codebooks, one ``(16,)`` table per layer.  A ``{i}:moe`` block's router,
-expert stacks ``(E, ...)`` and shared MLP become a ``models.moe.MoE``;
-quantized experts are stored two codes a byte (``core.spec.expert_spec``):
-the reference's msgemm-mode expert indices are unpacked to their codes
-and repacked, the same codes and scales in the int4 kernel's layout.
+codebooks, one ``(16,)`` table per layer.  A ``{i}:moe`` (or
+``{i}:mamba_moe``) block's router, expert stacks ``(E, ...)`` and shared
+MLP become a ``models.moe.MoE``; quantized experts are stored two codes a
+byte (``core.spec.expert_spec``): the reference's msgemm-mode expert
+indices are unpacked to their codes and repacked, the same codes and
+scales in the int4 kernel's layout.  A ``{i}:mamba``, ``{i}:mlstm`` or
+``{i}:slstm`` block's dicts become ``common.Tree`` modules under the
+reference's names (``mamba.Mamba``, ``xlstm.MLSTM``, ``xlstm.SLSTM``).
 :func:`port_path` maps a reference param path (a calibration report's or
 codebook's key; expert leaves included) and its slice to the port's
 module path.
@@ -27,8 +30,10 @@ from repro_torch.core.linear import QLinear
 from repro_torch.core.spec import QuantSpec
 from repro_torch.device import resolve
 from repro_torch.kvq.spec import KVQuantSpec
-from repro_torch.models import common, layers, moe, transformer
+from repro_torch.models import (common, layers, mamba, moe, transformer,
+                                xlstm)
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant.quantize import QUANTIZABLE
 
 
 # the reference's paged-attention backends and their port counterparts
@@ -94,16 +99,48 @@ def _moe(tree: dict, cfg: ModelConfig, device) -> moe.MoE:
                    else None)
 
 
-def _block(tree: dict, cfg: ModelConfig, device) -> transformer.Block:
+def _parts(tree: dict, device) -> dict:
+    """A recurrent block's dict, key by key: norms, the MLP, the linears
+    of the weight kernels (``QUANTIZABLE``), the other dicts of plain
+    weights (``dt_proj``, ``xl_q``, ``sl_w``, ...) and tensors."""
+    out = {}
+    for k, v in tree.items():
+        if k.startswith("norm"):
+            out[k] = _norm(v, device)
+        elif k == "mlp":
+            out[k] = _mlp(v, device)
+        elif k in QUANTIZABLE:
+            out[k] = _linear(v, device)
+        elif isinstance(v, dict):
+            out[k] = common.Tree(**{n: _t(a, device) for n, a in v.items()})
+        else:
+            out[k] = _t(v, device)
+    return out
+
+
+def _ffn(tree: dict, cfg: ModelConfig, device) -> dict:
+    return (dict(moe=_moe(tree["moe"], cfg, device)) if "moe" in tree
+            else dict(mlp=_mlp(tree["mlp"], device)))
+
+
+def _block(tree: dict, kind: str, cfg: ModelConfig, device):
+    if kind == "mlstm":
+        return xlstm.MLSTM(**_parts(tree, device))
+    if kind == "slstm":
+        return xlstm.SLSTM(**_parts(tree, device))
+    if kind in ("mamba", "mamba_moe"):
+        return transformer.Block(
+            ln1=_norm(tree["ln1"], device),
+            mamba=mamba.Mamba(**_parts(tree["mamba"], device)),
+            ln2=_norm(tree["ln2"], device), **_ffn(tree, cfg, device))
     a = tree["attn"]
     norms = ((_norm(a["q_norm"], device), _norm(a["k_norm"], device))
              if "q_norm" in a else ())
     attn = layers.Attention(*(_linear(a[n], device)
                               for n in ("wq", "wk", "wv", "wo")), *norms)
-    ffn = (dict(moe=_moe(tree["moe"], cfg, device)) if "moe" in tree
-           else dict(mlp=_mlp(tree["mlp"], device)))
-    return transformer.Block(_norm(tree["ln1"], device), attn,
-                             _norm(tree["ln2"], device), **ffn)
+    return transformer.Block(ln1=_norm(tree["ln1"], device), attn=attn,
+                             ln2=_norm(tree["ln2"], device),
+                             **_ffn(tree, cfg, device))
 
 
 def _index(tree, g: int):
@@ -121,7 +158,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None
     for layer in range(cfg.num_layers):
         g, i = divmod(layer, len(pattern))
         blocks.append(_block(_index(tree["blocks"][f"{i}:{pattern[i]}"], g),
-                             cfg, dev))
+                             pattern[i], cfg, dev))
     head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
     return transformer.Transformer(_t(tree["embedding"], dev),
                                    _norm(tree["final_norm"], dev), blocks,
@@ -133,8 +170,10 @@ def port_path(path: str, g: int, cfg: ModelConfig) -> str:
     ``path``: ``blocks/{i}:{kind}/attn/wq`` -> ``blocks.{layer}.attn.wq``
     with layer ``g * len(cfg.block_pattern) + i`` (an expert stack,
     ``blocks/{i}:moe/moe/experts/up`` -> ``blocks.{layer}.moe.experts.up``,
-    keeps its expert axis); an unstacked path (``lm_head``) keeps its name
-    (and g is 0)."""
+    keeps its expert axis; ``blocks/{i}:mamba/mamba/in_proj`` ->
+    ``blocks.{layer}.mamba.in_proj``, ``blocks/{i}:mlstm/xl_up`` ->
+    ``blocks.{layer}.xl_up``); an unstacked path (``lm_head``) keeps its
+    name (and g is 0)."""
     parts = path.split("/")
     if parts[0] != "blocks":
         return ".".join(parts)

@@ -60,14 +60,18 @@ Flags of slices not ported yet are not defined, so argparse refuses them:
 ``--shard-impl`` and ``--force-host-devices`` (ROADMAP A13, multi-GPU).
 
 Every ported architecture serves (``repro_torch.configs.ARCHS``: the
-gemma, codeqwen1.5, starcoder2 and gpt3 dense models, and the qwen2-moe
-and llama4-maverick MoE models, whose experts run the int4 kernel in one
-launch a projection).  The build line gives the weights' GiB and the
-build's peak; a MoE model's run also prints ``dropped_frac``, the share
-of routed (token, expert) slots past capacity over the run (pads and idle
-rows included).  ``--check`` holds the continuous engine to static
-``generate``: a MoE model may legitimately differ where capacity drops
-differ (a prefill chunk's pads take capacity), as in the reference.
+gemma, codeqwen1.5, starcoder2 and gpt3 dense models, the qwen2-moe and
+llama4-maverick MoE models, whose experts run the int4 kernel in one
+launch a projection, and the recurrent jamba-v0.1 (Mamba, attention and
+MoE) and xlstm-1.3b (mLSTM, sLSTM)).  The recurrent models serve through
+``--engine static`` only: the paged pool holds K/V, so ``--engine
+continuous`` raises NotImplementedError for them, as in the reference.
+The build line gives the weights' GiB and the build's peak; a MoE
+model's run also prints ``dropped_frac``, the share of routed (token,
+expert) slots past capacity over the run (pads and idle rows included).
+``--check`` holds the continuous engine to static ``generate``: a MoE
+model may legitimately differ where capacity drops differ (a prefill
+chunk's pads take capacity), as in the reference.
 ``--num-layers N`` cuts the depth (the widths stay the config's), for
 models whose full depth does not fit one card.
 
@@ -220,7 +224,9 @@ def warm_generate(params, cfg, tokens, policy) -> dict:
 
 
 def run_static(args, params, cfg, device: torch.device):
-    """Batched greedy generation on random prompts from ``--seed``."""
+    """Batched greedy generation on random prompts from ``--seed``.  Kernel
+    launches are counted over ``generate`` alone (not the autotuner's
+    warm-up)."""
     g = generator(args.seed, device)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=g, device=device, dtype=torch.int32)
@@ -230,14 +236,19 @@ def run_static(args, params, cfg, device: torch.device):
         print(f"[serve] resolved {len(plans)} exec plans before the run "
               f"(cache={dispatch.cache().path})")
     M.reset_route_counts(params)
+    before = launch_counts()
     t0 = time.perf_counter()
     out = SV.generate(params, cfg, tokens, max_new_tokens=args.new_tokens)
     _sync(device)
     dt = time.perf_counter() - t0
+    after = launch_counts()
+    launches = {name: after[name] - before[name] for name in KERNELS}
     print(f"[serve] generated {tuple(out.shape)} in {dt:.2f}s "
-          f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+          f"({args.batch * args.new_tokens / dt:.1f} tok/s); launches "
+          f"{launches}")
     print(out[:, :12].tolist())
-    return dict(tokens=out, run_s=dt, dropped_frac=report_dropped(params))
+    return dict(prompts=tokens, tokens=out, run_s=dt, launches=launches,
+                dropped_frac=report_dropped(params))
 
 
 def report_dropped(params) -> float | None:

@@ -1,6 +1,7 @@
-"""Shared building blocks — norms, linear glue, soft-cap, MLP; port of
-repro.models.common.  The port is single-device for now, so the
-reference's sharding constraints have no counterpart here.
+"""Shared building blocks — norms, linear glue, soft-cap, MLP, the
+recurrences' chunked scan; port of repro.models.common.  The port is
+single-device for now, so the reference's sharding constraints have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -10,6 +11,28 @@ from torch import nn
 
 from repro_torch.core import linear as qlinear
 from repro_torch.core.epilogue import Epilogue, act_fn
+
+
+def truncated_normal(shape, scale: float, *, generator: torch.Generator,
+                     device=None) -> torch.Tensor:
+    """A normal draw truncated to [-2, 2], times ``scale`` (f32)."""
+    t = torch.empty(shape, device=device)
+    nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=generator)
+    return t * scale
+
+
+class Tree(nn.Module):
+    """One module per dict of the reference's param tree: each key a child
+    module (a linear, a norm, an MLP) or a tensor buffer (the plain
+    weights of a recurrent block), under the reference's name."""
+
+    def __init__(self, **parts):
+        super().__init__()
+        for name, v in parts.items():
+            if isinstance(v, nn.Module):
+                self.add_module(name, v)
+            else:
+                self.register_buffer(name, v)
 
 
 class Norm(nn.Module):
@@ -77,6 +100,22 @@ def activation(name: str):
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """gemma2 logit soft-capping: cap * tanh(x / cap)."""
     return cap * torch.tanh(x / cap) if cap else x
+
+
+def chunked_scan(step, carry, xs: tuple, *, chunk: int):
+    """Run ``carry, y = step(carry, x_t)`` over the leading (time) axis T of
+    the tensors ``xs``; returns (carry, ys stacked on a leading T axis).
+    The reference's two-level ``lax.scan`` checkpoints the carry once a
+    chunk for the backward pass; serving has none, so the chunks only
+    keep its contract: T is a multiple of ``chunk`` when ``chunk < T``."""
+    T = xs[0].shape[0]
+    if chunk < T and T % chunk:
+        raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    ys = []
+    for t in range(T):
+        carry, y = step(carry, tuple(x[t] for x in xs))
+        ys.append(y)
+    return carry, torch.stack(ys)
 
 
 class MLP(nn.Module):

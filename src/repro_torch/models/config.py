@@ -1,10 +1,17 @@
 """Port-side model configuration; the fields of repro.models.config.
-ModelConfig that the decoder-only path reads (``attn``, ``local`` and
-``moe`` blocks), ``num_groups``, ``with_quant`` and the analytic
-:func:`param_count`.
+ModelConfig that the decoder-only path reads, ``num_groups``,
+``with_quant`` and the analytic :func:`param_count`.  Block kinds:
 
-Other block kinds (mamba, xLSTM), encoder-decoder and modality frontends
-wait for their slices, and are rejected here.
+    'attn'       global self-attention + MLP
+    'local'      sliding-window self-attention + MLP
+    'moe'        self-attention + MoE FFN
+    'mamba'      Mamba-1 selective-scan block + MLP       (jamba)
+    'mamba_moe'  Mamba block + MoE FFN                    (jamba)
+    'mlstm'      xLSTM matrix-memory block                (xlstm)
+    'slstm'      xLSTM scalar-memory block                (xlstm)
+
+Encoder-decoder and modality frontends wait for their slice, and their
+fields are not here.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ from dataclasses import dataclass, field
 from repro_torch.core.spec import DENSE, QuantSpec
 from repro_torch.kvq.spec import KVQuantSpec
 
-BLOCK_KINDS = ("attn", "local", "moe")
+BLOCK_KINDS = ("attn", "local", "moe", "mamba", "mamba_moe", "mlstm",
+               "slstm")
 
 
 @dataclass(frozen=True)
@@ -56,6 +64,20 @@ class ModelConfig:
     router_aux_loss: float = 0.0
     moe_groups: int = 16  # the reference's dispatch groups (sharding only)
 
+    # Mamba (jamba)
+    mamba_d_state: int = 16
+    mamba_expand: int = 2
+    mamba_d_conv: int = 4
+    mamba_dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+    mamba_chunk: int = 128
+
+    # xLSTM
+    xlstm_proj_factor: float = 2.0
+    slstm_mlp_factor: float = 4 / 3
+    xlstm_conv: int = 4
+    xlstm_chunk: int = 128
+    xlstm_parallel: bool = True  # chunkwise-parallel mLSTM for prefill
+
     dtype: str = "float32"  # activation compute dtype
     param_dtype: str = "float32"
     quant: QuantSpec = field(default_factory=lambda: DENSE)
@@ -86,6 +108,19 @@ class ModelConfig:
         """How many times the block pattern repeats."""
         return self.num_layers // len(self.block_pattern)
 
+    @property
+    def dt_rank(self) -> int:
+        return self.mamba_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def attention_free(self) -> bool:
+        return not any(k in ("attn", "local", "moe")
+                       for k in self.block_pattern)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -95,8 +130,8 @@ class ModelConfig:
 
 
 def param_count(cfg: ModelConfig) -> dict:
-    """Analytic parameter counts, total and active per token, for the
-    block kinds the port has; the reference's formulas."""
+    """Analytic parameter counts, total and active per token; the
+    reference's formulas."""
     d, dff = cfg.d_model, cfg.d_ff
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
@@ -106,12 +141,38 @@ def param_count(cfg: ModelConfig) -> dict:
         return (3 if cfg.mlp_activation in ("swiglu", "geglu") else 2) \
             * d * ff
 
+    def mamba():
+        di, n, dr = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.dt_rank
+        return (d * 2 * di + cfg.mamba_d_conv * di + di * (dr + 2 * n)
+                + dr * di + di * n + di + di * d)
+
+    def mlstm():
+        di = int(d * cfg.xlstm_proj_factor)
+        dh_ = di // h
+        # up(2x) + block-diag q/k/v + scalar i/f gates + o gate + conv + down
+        return (d * 2 * di + 3 * h * dh_ * dh_ + 2 * h * di + d * di
+                + cfg.xlstm_conv * di + di * d)
+
+    def slstm():
+        # 4 gates x (input W + recurrent R) + GeGLU MLP
+        return 4 * (d * d + d * d) + 3 * d * int(d * cfg.slstm_mlp_factor)
+
     total = active = embed
+    mdff = cfg.moe_d_ff or dff
     for kind in cfg.block_pattern:
         if kind in ("attn", "local"):
             p = a = attn + mlp(dff)
+        elif kind == "mamba":
+            p = a = mamba() + mlp(dff)
+        elif kind == "mamba_moe":
+            router = d * cfg.num_experts
+            p = mamba() + cfg.num_experts * mlp(mdff) + router
+            a = mamba() + cfg.num_experts_per_tok * mlp(mdff) + router
+        elif kind == "mlstm":
+            p = a = mlstm()
+        elif kind == "slstm":
+            p = a = slstm()
         else:  # moe
-            mdff = cfg.moe_d_ff or dff
             # shared experts fuse into one dense MLP of summed hidden dim
             shared = (mlp(cfg.shared_expert_d_ff
                           or cfg.num_shared_experts * mdff)

@@ -1,11 +1,15 @@
-"""Decoder-only model assembly for ``attn``/``local``/``moe`` blocks —
-embeddings, the block stack, dense and paged KV caches, forward / prefill
-/ decode; port of repro.models.transformer.
+"""Decoder-only model assembly — embeddings, the block stack of any
+``BLOCK_KINDS`` mix, dense and paged caches, forward / prefill / decode;
+port of repro.models.transformer.
 
 Blocks live in an ``nn.ModuleList`` (one module per layer) where the
 reference stacks them ``(G, ...)`` for ``lax.scan``; caches are a list of
-per-layer ``{"k", "v"}`` dicts.  Functions take the model as ``params``,
-like the reference's param trees, and update caches in place.
+per-layer dicts: ``{"k", "v"}`` for an attention layer, the recurrent
+state otherwise (``{"ssm", "conv"}`` Mamba, ``{"C", "n", "m", "conv"}``
+mLSTM, ``{"h", "c", "n", "m"}`` sLSTM).  Functions take the model as
+``params``, like the reference's param trees, and update caches in
+place.  The paged pool holds K/V only: recurrent kinds are refused in
+paged mode, as in the reference.
 """
 
 from __future__ import annotations
@@ -15,34 +19,64 @@ from torch import nn
 
 from repro_torch import kvq
 from repro_torch.device import resolve
-from repro_torch.models import common, layers, moe
+from repro_torch.models import common, layers, mamba, moe, xlstm
 from repro_torch.models.config import ModelConfig
 
+ATTENTION_KINDS = ("attn", "local", "moe")
 
-class Block(nn.Module):
-    """Pre-norm attention block with an MLP (``attn``, ``local``) or a MoE
-    FFN (``moe``)."""
 
-    def __init__(self, ln1, attn, ln2, mlp=None, moe=None):
-        super().__init__()
-        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
-        if mlp is not None:
-            self.mlp = mlp
-        if moe is not None:
-            self.moe = moe
+class Block(common.Tree):
+    """Pre-norm block: ``ln1``, the sequence mixer (``attn`` for the
+    attention kinds, ``mamba`` for ``mamba``/``mamba_moe``), ``ln2`` and
+    the FFN (``mlp``, or ``moe`` for ``moe``/``mamba_moe``)."""
 
 
 def block_init(cfg: ModelConfig, kind: str = "attn", *,
-               generator: torch.Generator, device=None, quant=None) -> Block:
-    """A block of ``kind``; a ``moe`` block's experts are drawn and, with
-    ``quant``, quantized one expert at a time (``moe.moe_init``)."""
+               generator: torch.Generator, device=None, quant=None
+               ) -> nn.Module:
+    """A block of ``kind``; a ``moe`` or ``mamba_moe`` block's experts are
+    drawn and, with ``quant``, quantized one expert at a time
+    (``moe.moe_init``)."""
     kw = dict(generator=generator, device=device)
-    ffn = (dict(moe=moe.moe_init(cfg, quant=quant, **kw)) if kind == "moe"
-           else dict(mlp=common.mlp_init(cfg, cfg.d_ff, **kw)))
-    return Block(common.norm_init(cfg.d_model, cfg.norm, device=device),
-                 layers.attn_init(cfg, **kw),
-                 common.norm_init(cfg.d_model, cfg.norm, device=device),
-                 **ffn)
+    if kind == "mlstm":
+        return xlstm.mlstm_init(cfg, **kw)
+    if kind == "slstm":
+        return xlstm.slstm_init(cfg, **kw)
+
+    def norm():
+        return common.norm_init(cfg.d_model, cfg.norm, device=device)
+
+    def ffn():
+        return (dict(moe=moe.moe_init(cfg, quant=quant, **kw))
+                if kind in ("moe", "mamba_moe")
+                else dict(mlp=common.mlp_init(cfg, cfg.d_ff, **kw)))
+
+    if kind in ("mamba", "mamba_moe"):
+        return Block(ln1=norm(), mamba=mamba.mamba_init(cfg, **kw),
+                     ln2=norm(), **ffn())
+    f = ffn()  # an attention block draws its FFN before its attention
+    return Block(ln1=norm(), attn=layers.attn_init(cfg, **kw), ln2=norm(),
+                 **f)
+
+
+def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                dtype, *, device=None) -> dict:
+    """One layer's decode cache.  ``dtype`` applies to the K/V tensors; a
+    recurrent state's conv tail takes the activations' dtype
+    (``cfg.dtype``) and the rest of it stays f32, as in the reference.
+    ``device="meta"`` gives the shapes and dtypes without storage."""
+    if kind in ATTENTION_KINDS:
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    state_dt = getattr(torch, cfg.dtype)
+    if kind in ("mamba", "mamba_moe"):
+        return mamba.init_state(cfg, batch, state_dt, device=device)
+    if kind == "mlstm":
+        return xlstm.mlstm_state(cfg, batch, state_dt, device=device)
+    if kind == "slstm":
+        return xlstm.slstm_state(cfg, batch, state_dt, device=device)
+    raise ValueError(kind)
 
 
 class Transformer(nn.Module):
@@ -67,7 +101,9 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     quantized by ``quant.quantize_model`` right after it is drawn, so no
     more than one block's dense weights exist at a time (this is how a
     full-width model fits the card); a MoE block's experts, one expert's
-    dense weights at a time.  The caller then serves with
+    dense weights at a time.  A recurrent block's plain weights (conv,
+    dt_proj, A_log, D; the mLSTM's q/k/v and gates; the sLSTM's W and R)
+    stay f32.  The caller then serves with
     ``cfg.replace(quant=quant)``.
     """
     from repro_torch.quant import quantize_model
@@ -94,15 +130,45 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                                              device=dev), blocks, head)
 
 
-def block_apply(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
+def _ffn(p, cfg: ModelConfig, x):
+    """The block's second half: the MLP with the block input riding the
+    down projection's fused residual epilogue, or the MoE FFN's output
+    added to it (the reference's ``_ffn``)."""
+    h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
+    if hasattr(p, "moe"):
+        y, _ = moe.moe_apply(p.moe, h, cfg)
+        return x + y
+    return common.mlp_apply(p.mlp, h, cfg, residual=x)
+
+
+def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
                 mode: str = "train", cache: dict | None = None, pos=None,
                 paged=None):
     """One block.  mode: ``train`` (full sequence, no cache), ``prefill``
-    (full sequence, writes the prompt's K/V at 0), ``decode`` (one token
-    at ``pos``), ``paged`` (``paged`` = (write_slots, view_slots) over the
-    layer's block pool).  The block input rides the out-projection's and
-    the down-projection's fused residual epilogues; a MoE FFN's output is
-    added to it (the reference's ``_ffn``).  Returns x."""
+    (full sequence, writes the prompt's K/V at 0, or the state after it),
+    ``decode`` (one token at ``pos``), ``paged`` (``paged`` =
+    (write_slots, view_slots) over the layer's block pool; attention
+    kinds only).  An attention block's input rides the out-projection's
+    and the down-projection's fused residual epilogues; a recurrent
+    block writes its new state into ``cache``.  Returns x."""
+    if mode == "paged" and kind not in ATTENTION_KINDS:
+        raise NotImplementedError(
+            f"paged serving supports attention block kinds only, got {kind!r}")
+    if kind not in ATTENTION_KINDS:
+        if kind in ("mamba", "mamba_moe"):
+            h = common.norm_apply(p.ln1, x, cfg.norm,
+                                  rms_offset=cfg.rms_offset)
+            y, state = mamba.mamba_apply(p.mamba, cfg, h, state=cache)
+            x = _ffn(p, cfg, x + y)
+        elif kind == "mlstm":
+            x, state = xlstm.mlstm_block_apply(p, cfg, x, state=cache)
+        elif kind == "slstm":
+            x, state = xlstm.slstm_block_apply(p, cfg, x, state=cache)
+        else:
+            raise ValueError(kind)
+        if cache is not None:
+            cache.update(state)
+        return x
     window = cfg.sliding_window if kind == "local" else 0
     h = common.norm_apply(p.ln1, x, cfg.norm, rms_offset=cfg.rms_offset)
     if mode == "paged":
@@ -121,11 +187,7 @@ def block_apply(p: Block, cfg: ModelConfig, kind: str, x, positions, *,
     else:
         x = layers.attn_apply(p.attn, cfg, h, positions, window=window,
                               residual=x)
-    h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
-    if kind == "moe":
-        y, _ = moe.moe_apply(p.moe, h, cfg)
-        return x + y
-    return common.mlp_apply(p.mlp, h, cfg, residual=x)
+    return _ffn(p, cfg, x)
 
 
 def _stack_apply(params: Transformer, cfg: ModelConfig, x, positions, *,
@@ -173,12 +235,12 @@ def forward(params: Transformer, cfg: ModelConfig, tokens) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, *, device=None) -> list[dict]:
-    """Per-layer dense (batch, max_len, Hk, Dh) K/V caches for decode."""
+    """Per-layer decode caches (:func:`block_cache`): dense (batch,
+    max_len, Hk, Dh) K/V for an attention layer, the zero recurrent state
+    (whose size does not depend on ``max_len``) otherwise."""
     dev = resolve(device)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            for _ in range(cfg.num_layers)]
+    return [block_cache(cfg, cfg.kind(i), batch, max_len, dtype, device=dev)
+            for i in range(cfg.num_layers)]
 
 
 def prefill(params: Transformer, cfg: ModelConfig, tokens, cache):
@@ -198,7 +260,13 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     sequences own disjoint blocks through host-side block tables.
     ``kv_spec`` (default ``cfg.kv_quant``) lays each pool out as the
     quantized {"k", "k_scale", "v", "v_scale"} of repro_torch.kvq.pool:
-    the same block and slot indexing, fewer bytes per token."""
+    the same block and slot indexing, fewer bytes per token.  Recurrent
+    (attention-free) block kinds are not paged: NotImplementedError, as in
+    the reference, so the continuous engine refuses their models."""
+    for kind in cfg.block_pattern:
+        if kind not in ATTENTION_KINDS:
+            raise NotImplementedError(
+                f"paged KV cache for block kind {kind!r}")
     dev = resolve(device)
     if kv_spec is None:
         kv_spec = cfg.kv_quant

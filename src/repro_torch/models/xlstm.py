@@ -1,0 +1,289 @@
+"""xLSTM blocks (arXiv:2405.04517): mLSTM (matrix memory, per-head C in
+R^{dh x dh}) and sLSTM (scalar memory with recurrent memory mixing), both
+with exponential gating and a max-stabilizer state m; port of
+repro.models.xlstm.
+
+The mLSTM has two exact forms: the sequential recurrence (decode, one
+step a token) and the chunkwise-parallel one (prefill), attention-like
+inside a chunk of ``xlstm_chunk`` positions with the state carried from
+chunk to chunk.  The sLSTM is sequential.  Every recurrence here runs
+over the true sequence length: the reference pads the time axis to a
+multiple of ``xlstm_chunk`` when L > xlstm_chunk, which is exact for the
+mLSTM (a zero step rescales C, n and m alike) but not for the sLSTM,
+whose recurrent mixing ``h @ R.T`` moves the state on every padded step;
+so the reference's sLSTM hands decode a wrong state after such a prompt,
+and the port's does not (ROADMAP C).
+
+``xl_up``, ``xl_o``, ``xl_down`` and the sLSTM's GeGLU MLP go through the
+weight kernels; the block-diagonal q/k/v, the scalar gates and the
+sLSTM's W and R stay plain f32 products, as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common
+from repro_torch.models.mamba import _causal_conv  # the shared depthwise conv
+
+
+def _dims(cfg):
+    """(di, H, dh) of the mLSTM: dh is ``di // H``, not ``cfg.head_dim``."""
+    di = int(cfg.d_model * cfg.xlstm_proj_factor)
+    return di, cfg.num_heads, di // cfg.num_heads
+
+
+# =========================================================== mLSTM block
+class MLSTM(common.Tree):
+    """norm, xl_up, xl_conv_w (K, di), xl_conv_b, xl_q/xl_k/xl_v {w (H, dh,
+    dh)}, xl_gates {w (2H, di), b}, xl_o, xl_down, lskip: the reference's
+    ``mlstm_init`` tree."""
+
+
+def mlstm_init(cfg, *, generator: torch.Generator, device=None) -> MLSTM:
+    d = cfg.d_model
+    di, H, dh = _dims(cfg)
+    kw = dict(generator=generator, device=device)
+    lin = lambda i, o: common.linear_init(i, o, cfg, cfg.quant, **kw)  # noqa: E731
+    bd = lambda: common.Tree(w=common.truncated_normal(  # noqa: E731
+        (H, dh, dh), dh**-0.5, **kw))
+    xl_up = lin(d, 2 * di)
+    conv_w = common.truncated_normal((cfg.xlstm_conv, di),
+                                     cfg.xlstm_conv**-0.5, **kw)
+    q, k, v = bd(), bd(), bd()
+    gates = common.Tree(
+        w=common.truncated_normal((2 * H, di), di**-0.5, **kw),
+        b=torch.cat([torch.zeros(H, device=device),
+                     3.0 * torch.ones(H, device=device)]))  # f bias 3
+    return MLSTM(norm=common.norm_init(d, cfg.norm, device=device),
+                 xl_up=xl_up, xl_conv_w=conv_w,
+                 xl_conv_b=torch.zeros(di, device=device),
+                 xl_q=q, xl_k=k, xl_v=v, xl_gates=gates, xl_o=lin(d, di),
+                 xl_down=lin(di, d), lskip=torch.ones(di, device=device))
+
+
+def _blockdiag(w, x, B, L, H, dh):
+    """x (B, L, di) -> per-head block-diagonal projection (B, L, H, dh);
+    w (H, out, in)."""
+    xh = x.reshape(B, L, H, dh).to(torch.float32)
+    return torch.einsum("blhd,hed->blhe", xh, w)
+
+
+def _mlstm_step(state, inp):
+    """Stabilized mLSTM recurrence (paper eqs. 19-27).
+
+    state: C (B,H,dh,dh), n (B,H,dh), m (B,H)
+    inp:   q,k,v (B,H,dh); i~, f~ (B,H)
+    """
+    C, n, m = state
+    q, k, v, it, ft = inp
+    m_new = torch.maximum(ft + m, it)
+    i_p = torch.exp(it - m_new)[..., None]
+    f_p = torch.exp(ft + m - m_new)[..., None]
+    C = f_p[..., None] * C + i_p[..., None] * (v[..., :, None]
+                                               * k[..., None, :])
+    n = f_p * n + i_p * k
+    num = torch.einsum("bhij,bhj->bhi", C, q)
+    # C/n are exp(-m)-stabilized, so the paper's max(|n.q|, 1) floor is
+    # exp(-m) in stabilized units
+    den = torch.maximum(torch.einsum("bhj,bhj->bh", n, q).abs(),
+                        torch.exp(-m_new))
+    return (C, n, m_new), num / den[..., None]
+
+
+def _scan(step, state, xs, chunk: int):
+    """``common.chunked_scan`` over the true length T of ``xs``: the whole
+    chunks, then the ragged rest (no padding)."""
+    T = xs[0].shape[0]
+    head = T - T % chunk if T > chunk else T
+    state, ys = common.chunked_scan(step, state, tuple(x[:head] for x in xs),
+                                    chunk=chunk)
+    if head < T:
+        state, rest = common.chunked_scan(
+            step, state, tuple(x[head:] for x in xs), chunk=chunk)
+        ys = torch.cat([ys, rest])
+    return state, ys
+
+
+def mlstm_sequence(q, k, v, it, ft, state, *, chunk: int = 128):
+    """The sequential form.  q/k/v (B, L, H, dh); it/ft (B, L, H).
+    Returns (h (B, L, H, dh), state)."""
+    xs = tuple(t.movedim(1, 0) for t in (q, k, v, it, ft))
+    state, hs = _scan(_mlstm_step, state, xs, chunk)
+    return hs.movedim(0, 1), state
+
+
+def _mlstm_chunk_parallel(state, inp):
+    """One chunk of the parallel (attention-like) stabilized mLSTM.
+
+    state: C (B,H,dh,dh), n (B,H,dh), m (B,H) — absolute stabilizer.
+    inp:   q,k,v (B,W,H,dh); it,ft (B,W,H)  (ft already log-sigmoid).
+
+    Within the chunk, position t sees
+        h_t = [ exp(m0-a_t)·q_t C0  +  Σ_{s<=t} exp(g_s-a_t)(q_t·k_s) v_s ]
+              / max(|den_t|, exp(-m_t))
+    with b_t = Σ_{s<=t} f̃_s,  g_s = ĩ_s - b_s,
+    a_t = max(m0, cummax g),  m_t = b_t + a_t: the sequential recurrence
+    rearranged.  m0 = -inf (the initial state) gives exp(m0 - a_t) = 0,
+    never NaN: a_t is finite.
+    """
+    C0, n0, m0 = state
+    q, k, v, it, ft = inp
+    W = q.shape[1]
+    b = torch.cumsum(ft, dim=1)  # (B, W, H)
+    g = it - b
+    a = torch.maximum(m0[:, None], torch.cummax(g, dim=1).values)
+    m = b + a
+
+    # intra-chunk: D[t, s] = exp(g_s - a_t), s <= t
+    decay = torch.exp(g[:, None, :, :] - a[:, :, None, :])  # (B, t, s, H)
+    mask = torch.ones((W, W), dtype=torch.bool, device=q.device).tril()
+    decay = torch.where(mask[None, :, :, None], decay, 0.0)
+    w_ts = torch.einsum("bthd,bshd->btsh", q, k) * decay
+    num = torch.einsum("btsh,bshd->bthd", w_ts, v)
+    den = w_ts.sum(dim=2)  # (B, t, H)
+
+    # inter-chunk: carried memory, decayed to position t.  C[i, j] = v_i k_j,
+    # retrieval contracts the k index: (C0 q)_i = sum_j C0[i, j] q_j.
+    scale0 = torch.exp(m0[:, None] - a)  # (B, W, H)
+    num = num + torch.einsum("bthd,bhed->bthe", q, C0) * scale0[..., None]
+    den = den + torch.einsum("bthd,bhd->bth", q, n0) * scale0
+
+    h = num / torch.maximum(den.abs(), torch.exp(-m))[..., None]
+
+    # carry to the next chunk (position W)
+    aW, bW = a[:, -1], b[:, -1]  # (B, H)
+    wk = torch.exp(g - aW[:, None])  # (B, W, H)
+    carry = torch.exp(m0 - aW)
+    C = (torch.einsum("bshd,bshe,bsh->bhde", v, k, wk)
+         + carry[..., None, None] * C0)
+    n = torch.einsum("bshd,bsh->bhd", k, wk) + carry[..., None] * n0
+    return (C, n, bW + aW), h
+
+
+def mlstm_sequence_parallel(q, k, v, it, ft, state, *, chunk: int = 128):
+    """The chunkwise-parallel form, chunks of ``chunk`` positions (the last
+    one ragged), the state carried between them; equal to
+    :func:`mlstm_sequence`."""
+    hs = []
+    for s in range(0, q.shape[1], chunk):
+        state, h = _mlstm_chunk_parallel(
+            state, tuple(t[:, s:s + chunk] for t in (q, k, v, it, ft)))
+        hs.append(h)
+    return torch.cat(hs, dim=1), state
+
+
+def mlstm_block_apply(p: MLSTM, cfg, x, *, state=None):
+    """x (B, L, d) -> (x + block(x), {"C", "n", "m", "conv"}).  Prefill
+    (L > 1, ``cfg.xlstm_parallel``) takes the parallel form, decode the
+    sequential step."""
+    B, L, d = x.shape
+    di, H, dh = _dims(cfg)
+    h_in = common.norm_apply(p.norm, x, cfg.norm)
+    ab = common.linear_apply(p.xl_up, h_in, cfg.quant, in_dim=d,
+                             tag="xl_up")
+    a, b = torch.split(ab, di, dim=-1)
+    tail = state["conv"] if state is not None else None
+    ac, new_tail = _causal_conv(a, p.xl_conv_w, p.xl_conv_b, tail)
+    ac = F.silu(ac)
+    q = _blockdiag(p.xl_q.w, ac, B, L, H, dh)
+    k = _blockdiag(p.xl_k.w, ac, B, L, H, dh) * dh**-0.5
+    v = _blockdiag(p.xl_v.w, a, B, L, H, dh)
+    gates = ac.to(torch.float32) @ p.xl_gates.w.t() + p.xl_gates.b
+    it = gates[..., :H]
+    ft = F.logsigmoid(gates[..., H:])
+    o = torch.sigmoid(common.linear_apply(p.xl_o, h_in, cfg.quant, in_dim=d,
+                                          tag="xl_o").to(torch.float32))
+    st = ((state["C"], state["n"], state["m"]) if state is not None
+          else tuple(mlstm_state(cfg, B, device=x.device)[n]
+                     for n in ("C", "n", "m")))
+    seq_fn = (mlstm_sequence_parallel if L > 1 and cfg.xlstm_parallel
+              else mlstm_sequence)
+    hseq, (C, n, m) = seq_fn(q, k, v, it, ft, st, chunk=cfg.xlstm_chunk)
+    hseq = hseq.reshape(B, L, di) * o
+    # learnable skip from the conv branch
+    hseq = (hseq + p.lskip * ac.to(torch.float32)).to(x.dtype)
+    out = common.linear_apply(p.xl_down, hseq * F.silu(b), cfg.quant,
+                              in_dim=di, tag="xl_down")
+    return x + out, {"C": C, "n": n, "m": m, "conv": new_tail}
+
+
+def mlstm_state(cfg, batch: int, dtype=torch.float32, *, device=None
+                ) -> dict:
+    """The initial state: C, n zero and the stabilizer m at -inf (f32),
+    the conv tail (batch, K-1, di) in ``dtype``."""
+    di, H, dh = _dims(cfg)
+    return {"C": torch.zeros((batch, H, dh, dh), device=device),
+            "n": torch.zeros((batch, H, dh), device=device),
+            "m": torch.full((batch, H), -torch.inf, device=device),
+            "conv": torch.zeros((batch, cfg.xlstm_conv - 1, di), dtype=dtype,
+                                device=device)}
+
+
+# =========================================================== sLSTM block
+class SLSTM(common.Tree):
+    """norm, norm2, sl_w {w (4d, d), b}, sl_r {w (4d, d)}, mlp (GeGLU):
+    the reference's ``slstm_init`` tree."""
+
+
+def _mlp_cfg(cfg):
+    return cfg.replace(mlp_activation="geglu")
+
+
+def slstm_init(cfg, *, generator: torch.Generator, device=None) -> SLSTM:
+    d = cfg.d_model
+    kw = dict(generator=generator, device=device)
+    w = common.truncated_normal((4 * d, d), d**-0.5, **kw)
+    r = common.truncated_normal((4 * d, d), d**-0.5, **kw)
+    b = torch.cat([torch.zeros(2 * d, device=device),
+                   3.0 * torch.ones(d, device=device),
+                   torch.zeros(d, device=device)])
+    return SLSTM(norm=common.norm_init(d, cfg.norm, device=device),
+                 norm2=common.norm_init(d, cfg.norm, device=device),
+                 sl_w=common.Tree(w=w, b=b), sl_r=common.Tree(w=r),
+                 mlp=common.mlp_init(_mlp_cfg(cfg),
+                                     int(d * cfg.slstm_mlp_factor), **kw))
+
+
+def _slstm_step(state, wx, R):
+    """state: (h, c, n, m) each (B, d); wx (B, 4d) precomputed W x_t + b."""
+    h, c, n, m = state
+    zifo = wx + h @ R.t()  # memory mixing through the recurrent matrix
+    z, it, ft, o = torch.chunk(zifo, 4, dim=-1)
+    ft = F.logsigmoid(ft)
+    m_new = torch.maximum(ft + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(ft + m - m_new)
+    c_new = f_p * c + i_p * torch.tanh(z)
+    n_new = f_p * n + i_p
+    h_new = torch.sigmoid(o) * c_new / torch.clamp(n_new, min=1e-6)
+    return (h_new, c_new, n_new, m_new), h_new
+
+
+def slstm_block_apply(p: SLSTM, cfg, x, *, state=None):
+    """x (B, L, d) -> (x + sLSTM + MLP, {"h", "c", "n", "m"}: the state
+    after the L true steps)."""
+    B, L, d = x.shape
+    xi = common.norm_apply(p.norm, x, cfg.norm).to(torch.float32)
+    wx = xi @ p.sl_w.w.t() + p.sl_w.b  # (B, L, 4d)
+    if state is None:
+        state = slstm_state(cfg, B, device=x.device)
+    st = tuple(state[n] for n in ("h", "c", "n", "m"))
+    R = p.sl_r.w
+    (h, c, n, m), hs = _scan(lambda s, xt: _slstm_step(s, xt[0], R), st,
+                             (wx.movedim(1, 0),), cfg.xlstm_chunk)
+    x = x + hs.movedim(0, 1).to(x.dtype)
+    mcfg = _mlp_cfg(cfg)
+    x = x + common.mlp_apply(p.mlp, common.norm_apply(p.norm2, x, cfg.norm),
+                             mcfg)
+    return x, {"h": h, "c": c, "n": n, "m": m}
+
+
+def slstm_state(cfg, batch: int, dtype=torch.float32, *, device=None
+                ) -> dict:
+    """The initial state: h, c, n zero and m at -inf, (batch, d) f32
+    (``dtype`` is unused: the sLSTM keeps no activation-dtype tail)."""
+    z = lambda: torch.zeros((batch, cfg.d_model), device=device)  # noqa: E731
+    return {"h": z(), "c": z(), "n": z(),
+            "m": torch.full((batch, cfg.d_model), -torch.inf, device=device)}

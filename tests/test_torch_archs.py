@@ -80,6 +80,28 @@ def test_input_specs_mirror_the_reference():
             assert tuple(got["cache"][0]["k"].shape) == tuple(one.shape[1:])
 
 
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["jamba_v01", "xlstm_1b3"])
+def test_recurrent_decode_specs_mirror_the_reference(arch, shape):
+    """The decode cells' inputs of the recurrent configs at full width:
+    per layer here, stacked (G, ...) there — seq_len-deep K/V for
+    jamba's attention layers, the recurrent states (shapes and dtypes)
+    for the others."""
+    cfg, jcfg = configs.get_config(arch), j_configs.get_config(arch)
+    got = shapes.input_specs(cfg, shape, batch=2)
+    want = j_shapes.input_specs(jcfg, shape, batch=2)
+    for key in ("token", "pos"):
+        assert tuple(got[key].shape) == tuple(want[key].shape)
+    assert len(got["cache"]) == cfg.num_layers
+    for layer, spec in enumerate(got["cache"]):
+        i = layer % len(cfg.block_pattern)
+        ref = want["cache"][f"{i}:{cfg.kind(layer)}"]
+        assert sorted(spec) == sorted(ref)
+        for name, s in spec.items():
+            assert (cfg.num_groups, *s.shape) == tuple(ref[name].shape)
+            assert str(s.dtype).split(".")[1] == str(ref[name].dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _pair(arch):
     """The reference's SMOKE params quantized for msgemm, and the port's

@@ -45,7 +45,9 @@ MUST_IMPORT = {
     "repro_torch.models.moe", "repro_torch.configs.shapes",
     "repro_torch.configs.codeqwen15_7b", "repro_torch.configs.starcoder2_15b",
     "repro_torch.configs.gpt3_175b", "repro_torch.configs.qwen2_moe",
-    "repro_torch.configs.llama4_maverick",
+    "repro_torch.configs.llama4_maverick", "repro_torch.models.mamba",
+    "repro_torch.models.xlstm", "repro_torch.configs.jamba_v01",
+    "repro_torch.configs.xlstm_1b3",
 }
 
 

@@ -4,7 +4,10 @@ SMOKE weights (converted from the JAX package) with the JAX engine's
 greedy tokens, on prompts longer than SMOKE's 32-token window, at a
 full-precision and an int8 KV pool; ``repro_torch.launch.serve.main``
 passes its ``--check`` for both ported architectures at msgemm,
-int4_dequant and kv8, and refuses what is not ported."""
+int4_dequant and kv8, serves the recurrent jamba-v0.1 and xlstm-1.3b
+through ``--engine static`` (the reference's tokens' path; the
+continuous engine refuses them, as the reference's does), and refuses
+what is not ported."""
 
 import json
 
@@ -35,7 +38,8 @@ from repro_torch.serving import Engine, Request  # noqa: E402
 @pytest.mark.parametrize("arch", [
     "gemma_2b", "gemma2_9b", "gemma2-9b", "codeqwen15_7b", "codeqwen1.5-7b",
     "starcoder2_15b", "gpt3_175b", "qwen2_moe", "qwen2-moe-a2.7b",
-    "llama4_maverick"])
+    "llama4_maverick", "jamba_v01", "jamba-v0.1-52b", "xlstm_1b3",
+    "xlstm-1.3b"])
 def test_configs_equal_reference(arch):
     for get in ("get_config", "get_smoke"):
         want = convert.config_from_jax(getattr(j_configs, get)(arch))
@@ -43,14 +47,39 @@ def test_configs_equal_reference(arch):
 
 
 def test_unported_arch_refused():
-    with pytest.raises(NotImplementedError, match="A11"):
-        configs.get_config("xlstm_1b3")
-    with pytest.raises(NotImplementedError, match="A11"):
-        configs.get_smoke("whisper-medium")
+    """whisper-medium and phi-3-vision wait for the enc-dec and frontend
+    slice (ROADMAP A11d); a recurrent model is refused by the continuous
+    engine, whose paged pool holds K/V only, as in the reference."""
+    with pytest.raises(NotImplementedError, match="A11d"):
+        configs.get_config("whisper_medium")
+    with pytest.raises(NotImplementedError, match="A11d"):
+        configs.get_smoke("phi3_vision")
     with pytest.raises(NotImplementedError, match="ported: "):
         configs.get_config("no-such-model")
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "jamba_v01", "--smoke", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="paged KV cache"):
+        serve.main(["--arch", "jamba_v01", "--smoke", "--device", "cpu",
+                    "--engine", "continuous"])
+
+
+@pytest.mark.parametrize("arch,quant", [
+    ("jamba_v01", "msgemm"), ("xlstm_1b3", "msgemm"),
+    ("xlstm_1b3", "int4_dequant")])
+def test_serve_cli_static_recurrent(arch, quant):
+    """The serve CLI's static engine on a recurrent SMOKE model: the
+    tokens of static ``generate`` on the CLI's own prompts and weights,
+    no kernel launched on the CPU, and a MoE model's dropped_frac."""
+    from repro_torch.runtime import serve as SV
+
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--engine", "static", "--quant", quant, "--batch", "2",
+                      "--prompt-len", "6", "--new-tokens", "4"])
+    assert out["cfg"].quant.mode == quant
+    assert tuple(out["tokens"].shape) == (2, 4)
+    ref = SV.generate(out["params"], out["cfg"], out["prompts"],
+                      max_new_tokens=4)
+    assert torch.equal(out["tokens"], ref)
+    assert all(n == 0 for n in out["launches"].values())
+    assert (out["dropped_frac"] is not None) == (arch == "jamba_v01")
 
 
 @pytest.fixture(scope="module")
