@@ -56,7 +56,16 @@ Phases, any failure exits non-zero before the last line is printed:
      ragged last scale block) and head), bf16 x and residual in the
      engine's layout, the layers at b = 1, 4, 8, 15 and the heads at
      b = 1, 4, 8 (the recurrent models': static generate's b = 1, 4, 16,
-     64 and 1, 4);
+     64 and 1, 4; whisper-medium's and phi-3-vision's attention
+     projections, MLPs and heads at 1, 4, 64 and 1, 4);
+   * both GeMMs at the enc-dec and vision prefill widths
+     (``wide_case``): whisper's encoder and cross K/V GeMMs at b = 6000
+     (4 x 1500 frames) and phi-3-vision's prefill GeMMs at b = 2368 (4 x
+     592: 576 patches, 16 tokens), exact inputs against a float64
+     product of the dequantized weight (bit-exact without an activation),
+     random floats against the plain version on the first, a middle and
+     the last column tile, timed against f32 and bf16 ``torch.matmul``
+     on the dequantized weight;
    Both GeMMs: bit-exact on exact inputs (integer activations,
    power-of-two scales); rtol = atol = 1e-5 on random floats with f32
    output, one bf16 ulp (rtol = 2^-7) with bf16 output (kernel and plain
@@ -229,7 +238,23 @@ Phases, any failure exits non-zero before the last line is printed:
    decode step's device time goes (GeMM marks: experts, head, other
    weight GeMMs; torch.profiler: device busy ms, the weight kernels and
    the rest, the scans among it); jamba's ``dropped_frac``.
-8. report  — the card's name and power limit, then a ``kernels`` JSON line.
+8. enc-dec — whisper-medium (24 encoder and 24 decoder layers, cross
+   attention, learned decoder positions) and phi-3-vision-4.2b (32
+   layers, 576 patch embeddings ahead of the text) at full width and
+   depth from seed 0 through the serve CLI's static engine (batch 4,
+   16-token prompts, 16 new tokens, the CLI's stub frames (16) or
+   patches; the paged engine refuses both, as the reference's does):
+   whisper with msgemm and with int4 weights, phi-3 with msgemm weights;
+   then whisper with msgemm weights at 1500 frames (its 30-second
+   window) through ``runtime.serve.generate``.  Each run: exactly 385
+   weight-kernel launches at a whisper prefill (encoder 24 x 6, decoder
+   24 x 10, head) and 193 a decode step, 225 a phi-3 step; weights GiB,
+   build s, peak GiB; static generate again, timed (whisper's encoder
+   alone, prefill ms, decode ms a step, tokens/s); the teacher-forced
+   check (f32 within ``F32_STATE_TOL``, bf16 tokens up to the first
+   near-tie); a decode step's device time by part (the profiler's
+   kernel timeline: decoder GeMMs, cross attention, head, the rest).
+9. report  — the card's name and power limit, then a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Needs no network; imports nothing of JAX.
@@ -293,21 +318,31 @@ def wall_ms(fn, reps: int) -> float:
 
 # ----------------------------------------------------------------- phase 2
 def work(m, k, b, d, sb, has_bias, has_res, out_bytes, x_bytes=4):
-    """(bytes, ops) the function needs: each input read once (x and the
-    residual at ``x_bytes`` an element, the type the kernel reads), the
-    output written once; per chunk and column the LUT's 16·d distinct
-    products and one add per entry of each length 2..d (entries that
-    share a prefix share its sum), one gather-add per (row, chunk,
-    column), one multiply-add per (row, scale block, column), the
-    epilogue's adds."""
+    """(bytes, ops, mma_ops) the function needs: each input read once (x
+    and the residual at ``x_bytes`` an element, the type the kernel
+    reads), the output written once.  The product at the least time any
+    algorithm takes for it: with bf16 x (2 bytes), as ``int4_work`` prices
+    it, one multiply-add per (weight, column) on the bf16 tensor cores
+    (an int4 value times a bf16 value is exact there) and one lookup and
+    scale per weight at the f32 rate; with f32 x, at the f32 rate, the
+    fewer of the LUT algorithm's operations (per chunk and column the
+    LUT's 16·d distinct products and one add per entry of each length
+    2..d (entries that share a prefix share its sum), one gather-add per
+    (row, chunk, column), one multiply-add per (row, scale block,
+    column)) and the dequantized product's (one lookup and scale per
+    weight, one multiply-add per (weight, column)).  The epilogue's adds
+    at the f32 rate in every case."""
     kc, nsb = -(-k // d), -(-k // sb)
     nbytes = (m * kc * 4 + m * nsb * 4 + k * b * x_bytes + 16 * 4
               + m * b * out_bytes + (m * 4 if has_bias else 0)
               + (m * b * x_bytes if has_res else 0))
+    epilogue = m * b * (int(has_bias) + int(has_res))
+    fma = 2 * m * k * b
+    if x_bytes == 2:
+        return nbytes, m * k + epilogue, fma
     produce = 16 * d + sum(16**i for i in range(2, d + 1))
-    ops = (produce * kc * b + m * kc * b + 2 * m * nsb * b
-           + m * b * (int(has_bias) + int(has_res)))
-    return nbytes, ops
+    lut = produce * kc * b + m * kc * b + 2 * m * nsb * b
+    return nbytes, min(lut, m * k + fma) + epilogue, 0
 
 
 def with_bound(result, nbytes, nops, mma_ops=0):
@@ -2753,7 +2788,8 @@ def phase_gemma2_9b():
 
 # -------------------------------------------- the archs' GeMMs (phase 2)
 ARCH_NAMES = ("qwen2_moe", "llama4_maverick", "codeqwen15_7b",
-              "starcoder2_15b", "gpt3_175b", "jamba_v01", "xlstm_1b3")
+              "starcoder2_15b", "gpt3_175b", "jamba_v01", "xlstm_1b3",
+              "whisper_medium", "phi3_vision")
 # b of the layers' GeMMs: static generate's decode, the engine's decode (4
 # slots) and prefill chunk (8), and static generate's prefill of the
 # stream's longest prompt (15: a ragged column tile); the vocab head runs
@@ -2764,6 +2800,14 @@ ARCH_WIDTHS, HEAD_WIDTHS = (1, 4, 8, 15), (1, 4, 8)
 # 4 x 16 and 1 x 16 prompt tokens; the head at 1 and 4
 RECURRENT = ("jamba_v01", "xlstm_1b3")
 RECURRENT_WIDTHS, RECURRENT_HEAD_WIDTHS = (1, 4, 16, 64), (1, 4)
+# the enc-dec and vision models serve through static generate too: decode
+# at 4 and 1, whisper's decoder prefill and 16-frame encoder at 4 x 16;
+# the head at 1 and 4.  Their wide GeMMs (:func:`wide_case`): whisper's
+# encoder and cross K/V over 1500 frames (4 x 1500), phi-3-vision's
+# prefill over 576 patches and 16 tokens (4 x 592)
+ENCDEC = ("whisper_medium", "phi3_vision")
+ENCDEC_WIDTHS, ENCDEC_HEAD_WIDTHS = (1, 4, 64), (1, 4)
+WIDE = {"whisper_medium": 4 * 1500, "phi3_vision": 4 * 592}
 
 
 def arch_gemms(arch):
@@ -2848,7 +2892,9 @@ def phase_arch_gemms():
     for arch in ARCH_NAMES:
         layer, head = arch_gemms(arch)
         widths, head_widths = ((RECURRENT_WIDTHS, RECURRENT_HEAD_WIDTHS)
-                               if arch in RECURRENT
+                               if arch in RECURRENT else
+                               (ENCDEC_WIDTHS, ENCDEC_HEAD_WIDTHS)
+                               if arch in ENCDEC
                                else (ARCH_WIDTHS, HEAD_WIDTHS))
         for name, m, k, b, ep in (engine_specs(layer, widths, bf16)
                                   + engine_specs(head, head_widths, bf16)):
@@ -2868,7 +2914,149 @@ def phase_arch_gemms():
         torch.cuda.empty_cache()
     print(f"[arch-gemm] {len(out['msgemm'])} msGeMM and {len(out['int4'])} "
           f"int4 cases agree with their plain versions", flush=True)
+    out["wide"] = []
+    for arch in ENCDEC:
+        layer, _ = arch_gemms(arch)
+        for name, m, k, b, ep in engine_specs(layer, (WIDE[arch],),
+                                              torch.bfloat16):
+            for kind in ("msgemm", "int4"):
+                out["wide"].append(wide_case(kind, name, m, k, b, seed=seed,
+                                             **ep))
+                seed += 1
+        torch.cuda.empty_cache()
     return out
+
+
+def wide_case(kind, name, m, k, b, *, act="none", residual=False,
+              out_dtype=None, x_dtype=None, engine_layout=True, seed=0,
+              d=3, sb=36):
+    """One weight kernel (``kind``: msgemm or int4) at a prefill width of
+    thousands of columns, where the plain version would take minutes:
+    on exact inputs (integer x and residual, power-of-two scales) against
+    a float64 product of the dequantized weight (exact at any width, so
+    bit-exact without an activation); on random floats against the plain
+    version on three column tiles of the same launch, the first, one in
+    the middle and the last (a column's result depends on no other, and
+    the plain version takes the kernel's tiles, so its contraction
+    splits).  Then timed against ``torch.matmul`` on the dequantized
+    weight, in f32 (no TF32) and in bf16 on the tensor cores."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import msgemm as ms
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    out_dtype = out_dtype or torch.float32
+    x_dtype = x_dtype or torch.float32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nsb = -(-k // sb)
+    codes = torch.randint(0, 16, (m, k), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    if kind == "msgemm":
+        values = packing.b_values(torch.float32, "cuda")
+        weight = packing.pack_indices(codes, d).contiguous()
+        tiles = ops.msgemm_tiles(m, -(-k // d), b, d, sb)
+        kw = dict(d=d, scale_block=sb, tiles=tiles)
+        kernel = lambda x, sc, **e: ms.msgemm_cuda(  # noqa: E731
+            weight, x, sc, values, **kw, **e)
+        plain = lambda x, sc, **e: ms.msgemm_plain(  # noqa: E731
+            weight, x, sc, values, **kw, **e)
+        dense = lambda sc: (values[codes.long()]  # noqa: E731
+                            * torch.repeat_interleave(sc, sb, 1)[:, :k])
+        nbytes, nops, mma = work(
+            m, k, b, d, sb, False, residual,
+            torch.empty((), dtype=out_dtype).element_size(),
+            torch.empty((), dtype=x_dtype).element_size())
+    else:
+        weight = packing.pack_storage(codes).contiguous()
+        tiles = ops.int4_tiles(m, k, b)
+        kw = dict(scale_block=sb, tiles=tiles)
+        kernel = lambda x, sc, **e: i4.int4_matmul_cuda(  # noqa: E731
+            weight, sc, x, **kw, **e)
+        plain = lambda x, sc, **e: i4.int4_matmul_plain(  # noqa: E731
+            weight, sc, x, **kw, **e)
+        dense = lambda sc: i4.dequantize(weight, sc, k, sb)  # noqa: E731
+        nbytes, nops, mma = int4_work(
+            m, k, b, sb, False, residual,
+            torch.empty((), dtype=out_dtype).element_size(),
+            torch.empty((), dtype=x_dtype).element_size())
+
+    def cols(rows, draw):
+        return (draw(b, rows).to(x_dtype).t() if engine_layout
+                else draw(rows, b).to(x_dtype))
+
+    tol = FLOAT_TOL if out_dtype == torch.float32 else BF16_TOL
+    last = (b - 1) // tiles.tb * tiles.tb
+    mid = b // (2 * tiles.tb) * tiles.tb
+    picks = [list(range(c, min(c + tiles.tb, b))) for c in (0, mid, last)]
+    result = dict(name=name, kind=kind, m=m, k=k, b=b, act=act,
+                  residual=residual, tiles=tiles._asdict(),
+                  x_dtype=str(x_dtype).removeprefix("torch."),
+                  out_dtype=str(out_dtype).removeprefix("torch."),
+                  checked_columns=[p[0] for p in picks])
+    for exact in (True, False):
+        if exact:
+            sc = 2.0 ** torch.randint(-2, 3, (m, nsb), generator=g,
+                                      device="cuda").float()
+            rnd = lambda *s: torch.randint(  # noqa: E731
+                -4, 5, s, generator=g, device="cuda").float()
+        else:
+            sc = torch.rand((m, nsb), generator=g, device="cuda") + 0.1
+            rnd = lambda *s: torch.randn(  # noqa: E731
+                s, generator=g, device="cuda")
+        x = cols(k, rnd)
+        res = cols(m, rnd) if residual else None
+        got = kernel(x, sc, act=act, residual=res, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        if exact:
+            acc = (dense(sc).double() @ x.double()).float()
+            want = ms.epilogue_cols(acc, act, None, res, out_dtype)
+            err = float((got.float() - want.float()).abs().max())
+            if act == "none":
+                check(err == 0.0, f"{name} {kind} b={b}: kernel != float64 "
+                                  f"product on exact inputs ({err})")
+            else:
+                torch.testing.assert_close(
+                    got.float(), want.float(), **tol,
+                    msg=lambda s_: f"{name} {kind} b={b}: {s_}")
+            result["exact_max_abs_err"] = err
+            continue
+        err = 0.0
+        for pick in picks:
+            c = torch.tensor(pick, device="cuda")
+            want = plain(x[:, c], sc, act=act,
+                         residual=res[:, c] if res is not None else None,
+                         out_dtype=out_dtype)
+            part = got[:, c].float()
+            err = max(err, float((part - want.float()).abs().max()))
+            if kind == "int4" and act == "none":
+                check(err == 0.0, f"{name} {kind} b={b}: kernel != plain "
+                                  f"on random inputs ({err})")
+            torch.testing.assert_close(
+                part, want.float(), **tol,
+                msg=lambda s_: f"{name} {kind} b={b} cols {pick}: {s_}")
+        result["max_abs_err"] = err
+    result["ms"] = device_ms([lambda: kernel(x, sc, act=act, residual=res,
+                                             out_dtype=out_dtype)], reps=3)
+    w = dense(sc)
+    xf = x.float()
+    result["library_ms"] = device_ms([lambda: torch.matmul(w, xf)], reps=5)
+    wb, xb = w.to(torch.bfloat16), x.to(torch.bfloat16)
+    result["bf16_matmul_ms"] = device_ms([lambda: torch.matmul(wb, xb)],
+                                         reps=10)
+    del w, wb, xf, xb, got
+    with_bound(result, nbytes, nops, mma)
+    print(f"[wide-gemm] {kind:6s} {name:14s} m={m:6d} k={k:5d} b={b:5d} "
+          f"act={act:4s} res={int(residual)} exact_err="
+          f"{result['exact_max_abs_err']:.3g} err={result['max_abs_err']:.3g}"
+          f" (cols {result['checked_columns']}): kernel {result['ms']:.3f} "
+          f"ms, f32 matmul {result['library_ms']:.3f}, bf16 matmul "
+          f"{result['bf16_matmul_ms']:.3f}, bound {result['bound_ms']:.4f} "
+          f"({result['bound_by']}) [{time.perf_counter() - t0:.1f}s]",
+          flush=True)
+    return result
 
 
 # ------------------------------------------------------ experts (phase 2)
@@ -3121,36 +3309,57 @@ def bf16_ulp(v: float) -> float:
     return 2.0 ** (math.frexp(abs(v))[1] - 8) if v else 2.0**-133
 
 
+def card_batch(prompts):
+    """The batch of static ``generate`` on ``prompts`` (a (B, S) token
+    array or list, or a batch dict that also holds the stub frontend's
+    ``frames`` or ``patch_embeds``), its tokens on the card.  Its cache
+    and first decode position are ``runtime.serve.static_cache``'s, as
+    ``generate`` sizes them."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    batch = dict(transformer.as_batch(prompts))
+    batch["tokens"] = torch.as_tensor(batch["tokens"], dtype=torch.int32,
+                                      device="cuda")
+    return batch
+
+
 def static_logits(model, cfg, prompts, n):
-    """Static ``generate``'s greedy tokens for ``prompts`` (B, S), its
-    logits (B, n, V) step by step, and the largest difference between
-    those and one full-sequence ``transformer.forward`` of the prompts and
-    the tokens (teacher-forced), with the forward's logits (B, n, V): two
+    """Static ``generate``'s greedy tokens for ``prompts`` (B, S tokens, or
+    a batch dict with frames or patches: :func:`card_batch`), its logits
+    (B, n, V) step by step, and the largest difference between those and
+    one full-sequence ``transformer.forward`` of the same inputs and the
+    tokens (teacher-forced), with the forward's logits (B, n, V): two
     correct evaluations of the same logits at other batch widths, so
     their difference is the model's rounding scale at this precision
     (and, for a recurrent model, the proof that the state decode carries
-    is the one a full pass computes)."""
+    is the one a full pass computes; for an enc-dec or vision model, that
+    the cross cache and the patch offset are the forward's)."""
     import torch
 
     from repro_torch.models import transformer
     from repro_torch.runtime import serve as SV
 
-    toks = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
-    B, S = toks.shape
-    cache = SV.init_cache(cfg, B, S + n, device="cuda")
+    batch = card_batch(prompts)
+    B = batch["tokens"].shape[0]
+    # n decode steps after the prefill: generate's cache for n + 1 tokens
+    cache, pos0 = SV.static_cache(cfg, batch, n + 1)
     with torch.no_grad():
-        logits, cache = SV.prefill_step(model, cfg, toks, cache)
+        logits, cache = SV.prefill_step(model, cfg, batch, cache)
         out, rows = [], []
         for i in range(n):
             rows.append(logits.float())
             tok = SV.greedy(logits)
             out.append(tok)
-            pos = torch.full((B,), S + i, dtype=torch.int64, device="cuda")
+            pos = torch.full((B,), pos0 + i, dtype=torch.int64,
+                             device="cuda")
             logits, cache = SV.decode_step(model, cfg, tok, cache, pos)
         steps = torch.stack(rows, dim=1)
         out = torch.stack(out, dim=1)
-        seq = torch.cat([toks, out[:, :-1]], dim=1)
-        full = transformer.forward(model, cfg, seq)[:, S - 1:].float()
+        seq = torch.cat([batch["tokens"], out[:, :-1]], dim=1)
+        full = transformer.forward(model, cfg, dict(batch, tokens=seq))[
+            :, pos0 - 1:].float()
     return out.tolist(), steps, float((full - steps).abs().max()), full
 
 
@@ -3353,25 +3562,28 @@ def recurrent_launches(cfg):
 
 
 def timed_generate(model, cfg, prompts, n):
-    """Static ``generate`` on ``prompts`` (B, S), timed on the host clock
-    with a synchronise after the prefill and after the last decode step:
-    (tokens (B, n) list, prefill ms, decode ms a step)."""
+    """Static ``generate`` on ``prompts`` (B, S tokens, or a batch dict:
+    :func:`card_batch`), timed on the host clock with a synchronise after
+    the prefill and after the last decode step: (tokens (B, n) list,
+    prefill ms, decode ms a step)."""
     import torch
 
     from repro_torch.runtime import serve as SV
 
-    B, S = prompts.shape
+    batch = card_batch(prompts)
+    B = batch["tokens"].shape[0]
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cache = SV.init_cache(cfg, B, S + n, device="cuda")
-        logits, cache = SV.prefill_step(model, cfg, prompts, cache)
+        cache, pos0 = SV.static_cache(cfg, batch, n)
+        logits, cache = SV.prefill_step(model, cfg, batch, cache)
         tok = SV.greedy(logits)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = [tok]
         for i in range(n - 1):
-            pos = torch.full((B,), S + i, dtype=torch.int64, device="cuda")
+            pos = torch.full((B,), pos0 + i, dtype=torch.int64,
+                             device="cuda")
             logits, cache = SV.decode_step(model, cfg, tok, cache, pos)
             tok = SV.greedy(logits)
             out.append(tok)
@@ -3386,28 +3598,35 @@ def decode_breakdown(tag, model, cfg, prompts, n=4):
     prefill, once with tracing on (the device ms of the GeMMs by GeMM
     marks: the expert stacks, the vocab head, the other weight GeMMs) and
     once under torch.profiler (device busy ms, the two weight kernels'
-    device ms, the rest: the scans, element-wise ops and copies)."""
+    device ms, the rest: the scans, element-wise ops and copies; for an
+    enc-dec or vision model also :func:`timeline_parts`).  The profiler
+    traces one decode step first as its warm-up cycle, which it drops:
+    the first kernels after it starts can go unrecorded."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch import obs
     from repro_torch.runtime import serve as SV
 
-    B, S = prompts.shape
+    batch = card_batch(prompts)
+    B = batch["tokens"].shape[0]
 
     def prefill():
-        cache = SV.init_cache(cfg, B, S + n, device="cuda")
-        logits, cache = SV.prefill_step(model, cfg, prompts, cache)
+        # a warm-up decode step and n more: generate's cache for n + 2
+        cache, pos0 = SV.static_cache(cfg, batch, n + 2)
+        logits, cache = SV.prefill_step(model, cfg, batch, cache)
         torch.cuda.synchronize()
-        return logits, cache
+        return logits, cache, pos0
 
-    def decode(logits, cache):
-        for i in range(n):
-            pos = torch.full((B,), S + i, dtype=torch.int64, device="cuda")
+    def decode(logits, cache, pos0, first=0, count=n):
+        for i in range(first, first + count):
+            pos = torch.full((B,), pos0 + i, dtype=torch.int64,
+                             device="cuda")
             logits, cache = SV.decode_step(model, cfg, SV.greedy(logits),
                                            cache, pos)
         torch.cuda.synchronize()
+        return logits, cache, pos0
 
     with torch.no_grad():
         obs.enable_tracing(clear=True)
@@ -3429,14 +3648,21 @@ def decode_breakdown(tag, model, cfg, prompts, n=4):
             gemm[part] += row["sum"] * 1e3 / n
         state = prefill()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            state = decode(*state, count=1)  # the warm-up cycle
+            prof.step()
             t0 = time.perf_counter()
-            decode(*state)
+            decode(*state, first=1)
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            prof.step()
+    # the schedule's step annotation shows on the device lane too
     rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     check(busy > 0, f"[{tag} breakdown] the profiler saw no device time")
@@ -3456,13 +3682,21 @@ def decode_breakdown(tag, model, cfg, prompts, n=4):
           f"other weight GeMMs {gemm['other']:.3f}; profiled: wall "
           f"{wall_ms:.2f} ms, device busy {busy:.3f} (weight kernels "
           f"{weight:.3f}, the rest {busy - weight:.3f})", flush=True)
+    if cfg.is_encdec or cfg.frontend:
+        part = out["device_parts_ms"] = timeline_parts(cfg, prof, n)
+        print(f"[{tag} breakdown] device ms a step by part (profiler "
+              f"timeline): decoder GeMMs {part['decoder']:.3f}"
+              + (f", cross attention (q GeMM, attention over the source, "
+                 f"o GeMM) {part['cross']:.3f}" if cfg.is_encdec else "")
+              + f", vocab head {part['head']:.3f}, the rest "
+              f"{part['rest']:.3f}", flush=True)
     for t in out["top"]:
         print(f"[{tag} breakdown]   {t['device_ms']:8.3f}ms a step "
               f"x{t['count']:5d} {t['name'][:90]}")
     return out
 
 
-def teacher_forced(tag, model, cfg, prompts, n):
+def teacher_forced(tag, model, cfg, prompts, n, gate_bf16=False):
     """Static ``generate``'s logits step by step against one teacher-forced
     forward of the same tokens (:func:`static_logits`), on the served
     prompts.  The gate is the f32 run: with f32 activations on the same
@@ -3478,7 +3712,13 @@ def teacher_forced(tag, model, cfg, prompts, n):
     router turns a last-bit difference into another expert (jamba).
     A MoE model runs both at a drop-free capacity (``capacity_factor`` =
     E: C = S·K slots an expert): at the served capacity the forward over
-    S + n tokens would drop slots that the steps keep."""
+    S + n tokens would drop slots that the steps keep.  ``gate_bf16``
+    (the enc-dec and vision models: no router, no recurrence) gates the
+    bf16 run too: every row's tokens agree at least up to its first
+    near-tie, as :func:`static_agreement` holds the engine's.  At random
+    weights the near-ties come early, so that gate holds few steps a row
+    (printed as ``held``); the f32 check carries the proof.
+    ``prompts``: tokens, or a batch dict with frames or patches."""
     if cfg.num_experts:
         cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
     toks, steps, d16, full = static_logits(model, cfg, prompts, n)
@@ -3497,13 +3737,21 @@ def teacher_forced(tag, model, cfg, prompts, n):
     f32 = cfg.replace(dtype="float32")
     toks32, _, d32, _ = static_logits(model, f32, prompts, n)
     print(f"[{tag}] teacher-forced forward against static generate's steps: "
-          f"f32 D {d32:.3g} (at most {F32_STATE_TOL}); bf16 (reported) D "
+          f"f32 D {d32:.3g} (at most {F32_STATE_TOL}); bf16 "
+          f"({'gated' if gate_bf16 else 'reported'}) D "
           f"{d16:.4g} ({ulps16:.2f} ulps of the top logit), tokens agreeing "
           f"{[r['agree'] for r in rows]} of {n}, first near-ties "
-          f"{[r['first_tie'] for r in rows]}", flush=True)
+          f"{[r['first_tie'] for r in rows]}"
+          + (f"; the bf16 gate held {[r['first_tie'] for r in rows]} steps "
+             f"a row, {sum(r['first_tie'] for r in rows)} of "
+             f"{n * len(rows)}" if gate_bf16 else ""), flush=True)
     check(d32 <= F32_STATE_TOL,
           f"[{tag}] f32: static generate's logits differ from the "
           f"teacher-forced forward's by {d32} (> {F32_STATE_TOL})")
+    bad = [r for r, row in enumerate(rows) if row["agree"] < row["first_tie"]]
+    check(not (gate_bf16 and bad),
+          f"[{tag}] bf16: the forward's tokens part from static generate's "
+          f"before the first near-tie on rows {bad}")
     return dict(bf16_max_diff=d16, bf16_rounding_ulps=ulps16, rows=rows,
                 f32_max_diff=d32, f32_tokens=toks32)
 
@@ -3592,6 +3840,259 @@ def phase_recurrent():
             "xlstm": serve_recurrent("rec xlstm", "xlstm_1b3", "msgemm"),
             "xlstm-int4": serve_recurrent("rec xlstm int4", "xlstm_1b3",
                                           "int4_dequant")}
+
+
+# ---------------------------------------------------- the enc-dec phase
+def encdec_launches(cfg):
+    """(prefill, decode step) weight-kernel launches of static generate on
+    an enc-dec or vision model: 4 a self-attention and 2 an MLP (gelu: up,
+    down) or 3 (swiglu: gate too) a layer; an enc-dec model's decoder
+    layers also 2 for the cross attention (q, o) and at prefill its k and
+    v over the source, and its encoder layers at prefill; the untied head
+    once a step."""
+    layer = 4 + (3 if cfg.mlp_activation in ("swiglu", "geglu") else 2)
+    cross = 2 if cfg.is_encdec else 0
+    decode = cfg.num_layers * (layer + cross) + (0 if cfg.tie_embeddings
+                                                 else 1)
+    prefill = decode + cfg.encoder_layers * layer + cfg.num_layers * cross
+    return prefill, decode
+
+
+WEIGHT_KERNELS = ("msgemm_kernel", "int4_kernel")
+SPLIT_REDUCE = "(anonymous namespace)::reduce_kernel"  # not at::native's
+
+
+def timeline_parts(cfg, prof, n):
+    """An enc-dec or vision model's static decode step by part, device ms
+    from the profiler's kernel timeline over ``n`` steps: each weight
+    kernel launch with its split reduction, in call order (a layer's
+    self q, k, v, o, an enc-dec model's cross q and o, the MLP's; the
+    head last in a step); the decoder's GeMMs, the cross attention (every
+    kernel from its q GeMM's start to its o GeMM's reduction, the
+    attention over the source between them), the head, and the rest of
+    the device time.  GeMM marks cannot split an eager, host-bound step:
+    an event pair also spans the device's waits for the host.  The steps
+    are read back from the timeline's end, each checked by its head (its
+    longest weight kernel), so a kernel record the profiler lost at its
+    start costs that step alone; ``steps`` says how many were read."""
+    from torch.autograd import DeviceType
+
+    ks = sorted(((e.name, e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith("ProfilerStep")),
+                key=lambda k: k[1])
+    starts = [i for i, k in enumerate(ks)
+              if any(w in k[0] for w in WEIGHT_KERNELS)]
+    _, dec = encdec_launches(cfg)
+    n_read = min(n, len(starts) // dec)
+    check(n_read >= n - 1,
+          f"the profiler saw {len(starts)} weight kernels over {n} steps, "
+          f"want {dec} a step")
+    starts = starts[len(starts) - n_read * dec:]
+
+    def end(i):  # past launch i's split reduction
+        j = i + 1
+        while j < len(ks) and SPLIT_REDUCE in ks[j][0]:
+            j += 1
+        return j
+
+    def dur(a, b):
+        return sum(k[2] - k[1] for k in ks[a:b])
+
+    per_layer = (dec - 1) // cfg.num_layers
+    out = dict(decoder=0.0, cross=0.0, head=0.0)
+    for step in range(n_read):
+        w = starts[step * dec:(step + 1) * dec]
+        longest = max(w, key=lambda i: ks[i][2] - ks[i][1])
+        check(longest == w[-1], f"step {step} of the profiler's timeline "
+                                f"does not end in the head")
+        out["head"] += dur(w[-1], end(w[-1]))
+        for layer in range(cfg.num_layers):
+            g = w[layer * per_layer:(layer + 1) * per_layer]
+            for at, i in enumerate(g):
+                if cfg.is_encdec and at == 4:
+                    out["cross"] += dur(i, end(g[5]))
+                elif not (cfg.is_encdec and at == 5):
+                    out["decoder"] += dur(i, end(i))
+    out = {k: v / 1e3 / n_read for k, v in out.items()}
+    first = 0 if n_read == n else starts[0]  # a partial step: its GeMMs'
+    out["rest"] = dur(first, len(ks)) / 1e3 / n_read - sum(out.values())
+    out["steps"] = n_read
+    return out
+
+
+def static_run(tag, model, cfg, batch, want, run):
+    """The figures of a static ``generate`` run on ``batch`` whose tokens
+    and launches ``run`` already holds: exactly ``want`` launches, tokens
+    in the vocabulary; then on the same weights and inputs static
+    generate again, timed (prefill ms, decode ms a step, tokens/s; the
+    same tokens), the encoder alone (an enc-dec model's: wall ms of
+    ``transformer.encode``, synchronised), the teacher-forced check
+    (:func:`teacher_forced`) and the decode step's breakdown
+    (:func:`decode_breakdown`).  Adds them to ``run``."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    tokens = run["tokens_out"]
+    B, n = tokens.shape
+    check(run["launches"] == want,
+          f"[{tag}] launches {run['launches']} != {want}")
+    check(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
+          f"[{tag}] tokens out of the vocabulary")
+    run["peak_bytes"] = torch.cuda.max_memory_allocated()
+    toks, prefill_ms, decode_ms = timed_generate(model, cfg, batch, n)
+    check(toks == tokens.tolist(), f"[{tag}] a second static generate "
+                                   f"gave {toks}, the first {tokens.tolist()}")
+    run.update(tokens=toks, prefill_ms=prefill_ms, decode_ms=decode_ms,
+               tok_per_s=B * n / (prefill_ms + decode_ms * (n - 1)) * 1e3,
+               encoder_ms=None)
+    if cfg.is_encdec:  # one encode, synchronised, after a warm one
+        frames = batch["frames"]
+        with torch.no_grad():
+            run["encoder_ms"] = wall_ms(
+                lambda: transformer.encode(model, cfg, frames),
+                1 if frames.shape[1] > 64 else 3)
+    del run["tokens_out"]
+    src = (f"{batch['frames'].shape[1]} frames" if cfg.is_encdec
+           else f"{cfg.num_patches} patches")
+    print(f"[{tag}] static generate B={B}, {tokens.shape[1]} steps, "
+          f"{batch['tokens'].shape[1]}-token prompts, {src}: "
+          + (f"encoder {run['encoder_ms']:.2f} ms, " if cfg.is_encdec
+             else "")
+          + f"prefill {prefill_ms:.2f} ms, decode {decode_ms:.2f} ms a step, "
+          f"{run['tok_per_s']:.2f} tok/s; run peak "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB; launches {run['launches']}",
+          flush=True)
+    run["teacher_forced"] = teacher_forced(tag, model, cfg, batch, n,
+                                           gate_bf16=True)
+    run["breakdown"] = decode_breakdown(tag, model, cfg, batch)
+    return run
+
+
+def serve_encdec(tag, arch, quant):
+    """An enc-dec or vision model at full width and depth from seed 0
+    through the serve CLI's static engine (``repro_torch.launch.serve.
+    main``, in process: batch 4, 16-token prompts, 16 new tokens, the
+    CLI's stub frames or patches): every kernel count set to 0 just
+    before and read just after, exactly :func:`encdec_launches` (the
+    prefill's, then 15 decode steps'), no attention kernel; then
+    :func:`static_run` on the CLI's own inputs.  Returns (run, model)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as cli
+
+    CONFIG = configs.get_config(arch)
+    argv = ["--arch", arch, "--engine", "static", "--quant", quant]
+    print(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    for mod in cli.KERNELS.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    total = cli.launch_counts()
+    model, cfg = out.pop("params"), out.pop("cfg")
+    check(cfg.replace(quant=CONFIG.quant) == CONFIG,
+          f"[{tag}] not {arch} at full width and depth: {cfg}")
+    check(total == out["launches"],
+          f"[{tag}] the CLI launched {total}, its run {out['launches']}")
+    n = out["tokens"].shape[1]
+    pre, dec = encdec_launches(cfg)
+    kernel = "msgemm" if quant == "msgemm" else "int4_matmul"
+    want = {name: 0 for name in cli.KERNELS}
+    want[kernel] = pre + (n - 1) * dec
+    b = out["build"]
+    run = dict(arch=arch, quant=quant, layers=cfg.num_layers,
+               encoder_layers=cfg.encoder_layers,
+               batch=out["tokens"].shape[0],
+               prompt_len=out["prompts"].shape[1], new_tokens=n,
+               frames=(out["batch"]["frames"].shape[1] if cfg.is_encdec
+                       else None),
+               patches=cfg.num_patches or None, launches=out["launches"],
+               per_prefill=pre, per_decode=dec, build_s=b["build_s"],
+               buffer_bytes=b["buffer_bytes"],
+               build_peak_bytes=b["build_peak_bytes"],
+               cli_run_s=out["run_s"], wall_s=wall_s,
+               tokens_out=out["tokens"])
+    print(f"[{tag}] {cfg.num_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder" if cfg.is_encdec else "")
+          + f", d_model {cfg.d_model}: build {b['build_s']:.1f}s, weights "
+          f"{b['buffer_bytes'] / 2**30:.2f} GiB (build peak "
+          f"{b['build_peak_bytes'] / 2**30:.2f}); the CLI's run "
+          f"{out['run_s']:.2f}s, {pre} {kernel} launches at prefill, {dec} a "
+          f"decode step [{wall_s:.1f}s]", flush=True)
+    static_run(tag, model, cfg, out["batch"], want, run)
+    return run, model, cfg
+
+
+def whisper_long(tag, model, cfg, frames=1500):
+    """whisper through ``runtime.serve.generate`` directly at its
+    30-second window, ``frames`` encoder frames (3000 mel frames after the
+    stride-2 conv; the frontend a stub): batch 4, 16-token prompts and
+    ``frames`` frames from a generator seeded 0, 16 new tokens, the counts
+    set to 0 just before and read just after; then :func:`static_run`."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.launch import serve as cli
+    from repro_torch.runtime import serve as SV
+
+    g = generator(0, "cuda")
+    B, S, n = 4, 16, NEW_TOKENS
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda", dtype=torch.int32),
+             "frames": torch.randn((B, frames, cfg.d_model), generator=g,
+                                   device="cuda")}
+    print(f"[{tag}] runtime.serve.generate: B={B}, {S}-token prompts, "
+          f"{frames} frames, {n} new tokens", flush=True)
+    for mod in cli.KERNELS.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = SV.generate(model, cfg, batch, max_new_tokens=n)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = cli.launch_counts()
+    pre, dec = encdec_launches(cfg)
+    kernel = "msgemm" if cfg.quant.mode == "msgemm" else "int4_matmul"
+    want = {name: 0 for name in cli.KERNELS}
+    want[kernel] = pre + (n - 1) * dec
+    run = dict(arch="whisper_medium", quant=cfg.quant.mode,
+               layers=cfg.num_layers, encoder_layers=cfg.encoder_layers,
+               batch=B, prompt_len=S, new_tokens=n, frames=frames,
+               launches=launches, per_prefill=pre, per_decode=dec,
+               run_s=run_s, tokens_out=out)
+    return static_run(tag, model, cfg, batch, want, run)
+
+
+def phase_encdec():
+    """The encoder-decoder and the vision frontend at full width and depth
+    from seed 0 through the static path: whisper-medium (24 + 24 layers)
+    with msgemm and with int4 weights and phi-3-vision-4.2b (32 layers)
+    with msgemm weights through the serve CLI (:func:`serve_encdec`), and
+    whisper with msgemm weights at 1500 frames through
+    ``runtime.serve.generate`` (:func:`whisper_long`)."""
+    import torch
+
+    out = {}
+    out["whisper"], model, cfg = serve_encdec("encdec whisper",
+                                              "whisper_medium", "msgemm")
+    out["whisper-1500"] = whisper_long("encdec whisper 1500", model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, arch, quant in (("whisper-int4", "whisper_medium",
+                              "int4_dequant"),
+                             ("phi3", "phi3_vision", "msgemm")):
+        out[key], model, _ = serve_encdec(f"encdec {key}", arch, quant)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -3701,6 +4202,7 @@ def main() -> int:
     gemma2 = phase_gemma2_9b()
     arch = phase_arch(profile=args.profile)
     recurrent = phase_recurrent()
+    encdec = phase_encdec()
 
     def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b",
                     x_dtype="float32"):
@@ -3752,7 +4254,9 @@ def main() -> int:
                                         "starcoder2", "gpt3")]
             + [arch["codeqwen-msgemm"]["f32_kv8"][r]
                for r in ("kernel", "torch")]
-            + [recurrent[k] for k in ("xlstm", "xlstm-int4")])
+            + [recurrent[k] for k in ("xlstm", "xlstm-int4")]
+            + [encdec[k] for k in ("whisper", "whisper-1500", "whisper-int4",
+                                   "phi3")])
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])
                 for name in ("msgemm", "int4_matmul", "paged_attention")}
@@ -3829,6 +4333,7 @@ def main() -> int:
         main=main_path, kvq=kvq_path,
         int4=int4_path, plan=plan_path, calib=calib_path,
         resilience=res_path, gemma2_9b=gemma2, recurrent=recurrent,
+        encdec=encdec,
         gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     for key, e in ([("gemma-2b msgemm", kernels[0]),

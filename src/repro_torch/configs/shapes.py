@@ -9,12 +9,13 @@ repro.configs.shapes.
                                                       sub-quadratic archs
 
 Skip rule: long_500k runs only for family ssm/hybrid; every
-full-attention arch skips it.  The reference's ``jax.ShapeDtypeStruct``
+full-attention arch skips it.  Whisper maps seq_len to *encoder frames*
+with a fixed 448-token decoder target; a vision config's patches take
+``num_patches`` of seq_len.  The reference's ``jax.ShapeDtypeStruct``
 stand-ins are :class:`Spec` here, a (shape, dtype) pair that allocates
 nothing (the decode cache's are read off ``transformer.block_cache`` on
 the ``meta`` device, as the reference's ``jax.eval_shape`` of
-``init_cache``).  The encoder-decoder and vision-frontend specs wait for
-their slices (ROADMAP A11d), as their configs do.
+``init_cache``).
 """
 
 from __future__ import annotations
@@ -69,12 +70,31 @@ def cells(cfg: ModelConfig):
     return {s: applicable(cfg, s) for s in SHAPES}
 
 
+def _whisper_lens(cfg: ModelConfig, shape: Shape) -> tuple[int, int]:
+    """(encoder frames, decoder tokens) of an enc-dec cell."""
+    return shape.seq_len, min(cfg.max_seq_len, 448)
+
+
+def _embed_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
 def train_input_specs(cfg: ModelConfig, shape: Shape, *, batch=None) -> dict:
     """Stand-ins for a train step's batch (no allocation)."""
     B = batch or shape.global_batch
+    tok = torch.int32
+    if cfg.is_encdec:
+        src, dec = _whisper_lens(cfg, shape)
+        return {"frames": Spec((B, src, cfg.d_model), _embed_dtype(cfg)),
+                "tokens": Spec((B, dec), tok),
+                "labels": Spec((B, dec), tok)}
     S = shape.seq_len
-    return {"tokens": Spec((B, S), torch.int32),
-            "labels": Spec((B, S), torch.int32)}
+    if cfg.frontend == "image_patches":
+        P = cfg.num_patches
+        return {"patch_embeds": Spec((B, P, cfg.d_model), _embed_dtype(cfg)),
+                "tokens": Spec((B, S - P), tok),
+                "labels": Spec((B, S), tok)}  # patch positions IGNORE
+    return {"tokens": Spec((B, S), tok), "labels": Spec((B, S), tok)}
 
 
 def prefill_input_specs(cfg: ModelConfig, shape: Shape, *, batch=None
@@ -99,11 +119,16 @@ def _cache_specs(cfg: ModelConfig, B: int, max_len: int, dtype) -> list:
 def decode_input_specs(cfg: ModelConfig, shape: Shape, *, batch=None,
                        cache_dtype=torch.bfloat16) -> dict:
     """Inputs of a decode step: one new token, its position, and the
-    per-layer caches of ``models.transformer.init_cache``."""
+    per-layer caches of ``models.transformer.init_cache`` (an enc-dec
+    config's: the decoder target deep, the cross K/V at seq_len frames)."""
     B = batch or shape.global_batch
+    max_len = shape.seq_len
+    if cfg.is_encdec:
+        src, max_len = _whisper_lens(cfg, shape)
+        cfg = cfg.replace(max_source_len=src)
     return {"token": Spec((B,), torch.int32),
             "pos": Spec((B,), torch.int32),
-            "cache": _cache_specs(cfg, B, shape.seq_len, cache_dtype)}
+            "cache": _cache_specs(cfg, B, max_len, cache_dtype)}
 
 
 def input_specs(cfg: ModelConfig, shape_name: str, **kw) -> dict:

@@ -13,6 +13,8 @@ indices are unpacked to their codes and repacked, the same codes and
 scales in the int4 kernel's layout.  A ``{i}:mamba``, ``{i}:mlstm`` or
 ``{i}:slstm`` block's dicts become ``common.Tree`` modules under the
 reference's names (``mamba.Mamba``, ``xlstm.MLSTM``, ``xlstm.SLSTM``).
+An encoder-decoder tree's ``encoder`` becomes ``transformer.Encoder``
+(one block a layer) and its decoder blocks keep ``ln_cross``/``cross``.
 :func:`port_path` maps a reference param path (a calibration report's or
 codebook's key; expert leaves included) and its slice to the port's
 module path.
@@ -133,14 +135,20 @@ def _block(tree: dict, kind: str, cfg: ModelConfig, device):
             ln1=_norm(tree["ln1"], device),
             mamba=mamba.Mamba(**_parts(tree["mamba"], device)),
             ln2=_norm(tree["ln2"], device), **_ffn(tree, cfg, device))
-    a = tree["attn"]
+    cross = (dict(ln_cross=_norm(tree["ln_cross"], device),
+                  cross=_attention(tree["cross"], device))
+             if "cross" in tree else {})
+    return transformer.Block(ln1=_norm(tree["ln1"], device),
+                             attn=_attention(tree["attn"], device),
+                             ln2=_norm(tree["ln2"], device),
+                             **_ffn(tree, cfg, device), **cross)
+
+
+def _attention(a: dict, device) -> layers.Attention:
     norms = ((_norm(a["q_norm"], device), _norm(a["k_norm"], device))
              if "q_norm" in a else ())
-    attn = layers.Attention(*(_linear(a[n], device)
+    return layers.Attention(*(_linear(a[n], device)
                               for n in ("wq", "wk", "wv", "wo")), *norms)
-    return transformer.Block(ln1=_norm(tree["ln1"], device), attn=attn,
-                             ln2=_norm(tree["ln2"], device),
-                             **_ffn(tree, cfg, device))
 
 
 def _index(tree, g: int):
@@ -151,7 +159,9 @@ def _index(tree, g: int):
 
 def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None
                     ) -> transformer.Transformer:
-    """Build the port's model from the reference's numpy param tree."""
+    """Build the port's model from the reference's numpy param tree (an
+    encoder-decoder tree's ``encoder`` blocks, stacked ``encoder_layers``
+    deep under ``0:attn``, and ``pos_embedding`` too)."""
     dev = resolve(device)
     pattern = cfg.block_pattern
     blocks = []
@@ -160,9 +170,18 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None
         blocks.append(_block(_index(tree["blocks"][f"{i}:{pattern[i]}"], g),
                              pattern[i], cfg, dev))
     head = _linear(tree["lm_head"], dev) if "lm_head" in tree else None
+    encoder = pos = None
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        encoder = transformer.Encoder(
+            blocks=torch.nn.ModuleList(
+                _block(_index(enc["blocks"]["0:attn"], g), "attn", cfg, dev)
+                for g in range(cfg.encoder_layers)),
+            final_norm=_norm(enc["final_norm"], dev))
+        pos = _t(tree["pos_embedding"], dev)
     return transformer.Transformer(_t(tree["embedding"], dev),
                                    _norm(tree["final_norm"], dev), blocks,
-                                   head)
+                                   head, encoder, pos)
 
 
 def port_path(path: str, g: int, cfg: ModelConfig) -> str:
@@ -172,10 +191,13 @@ def port_path(path: str, g: int, cfg: ModelConfig) -> str:
     ``blocks/{i}:moe/moe/experts/up`` -> ``blocks.{layer}.moe.experts.up``,
     keeps its expert axis; ``blocks/{i}:mamba/mamba/in_proj`` ->
     ``blocks.{layer}.mamba.in_proj``, ``blocks/{i}:mlstm/xl_up`` ->
-    ``blocks.{layer}.xl_up``); an unstacked path (``lm_head``) keeps its
-    name (and g is 0)."""
+    ``blocks.{layer}.xl_up``; the encoder's ``encoder/blocks/0:attn/attn/
+    wq`` -> ``encoder.blocks.{g}.attn.wq``); an unstacked path
+    (``lm_head``) keeps its name (and g is 0)."""
     parts = path.split("/")
-    if parts[0] != "blocks":
+    if "blocks" not in parts[:2]:
         return ".".join(parts)
-    layer = g * len(cfg.block_pattern) + int(parts[1].split(":")[0])
-    return ".".join(["blocks", str(layer), *parts[2:]])
+    at = parts.index("blocks")  # 1 under "encoder", whose period is 1
+    period = len(cfg.block_pattern) if at == 0 else 1
+    layer = g * period + int(parts[at + 1].split(":")[0])
+    return ".".join([*parts[:at], "blocks", str(layer), *parts[at + 2:]])

@@ -22,6 +22,10 @@ class DataConfig:
     global_batch: int
     seed: int = 0
     mode: str = "lcg"  # lcg | uniform
+    frontend: str = ""  # '' | 'audio_frames' | 'image_patches'
+    d_model: int = 0  # frontend embedding dim
+    num_frames: int = 0
+    num_patches: int = 0
 
 
 class SyntheticStream:
@@ -30,7 +34,10 @@ class SyntheticStream:
 
     def host_batch(self, step: int) -> dict:
         """{"tokens", "labels"}: (global_batch, seq_len - 1) int32 numpy
-        arrays, labels the tokens shifted by one."""
+        arrays, labels the tokens shifted by one; with a frontend also
+        "frames" (global_batch, num_frames, d_model) or "patch_embeds"
+        (global_batch, num_patches, d_model), f32 normals drawn after the
+        tokens from the same stream."""
         cfg = self.cfg
         rng = np.random.default_rng(
             np.random.SeedSequence([cfg.seed, step]))
@@ -49,5 +56,12 @@ class SyntheticStream:
                             toks)
         else:
             toks = rng.integers(0, cfg.vocab_size, size=(B, S))
-        return {"tokens": toks[:, :-1].astype(np.int32),
-                "labels": toks[:, 1:].astype(np.int32)}
+        batch = {"tokens": toks[:, :-1].astype(np.int32),
+                 "labels": toks[:, 1:].astype(np.int32)}
+        if cfg.frontend == "audio_frames":
+            batch["frames"] = rng.standard_normal(
+                (B, cfg.num_frames, cfg.d_model)).astype(np.float32)
+        elif cfg.frontend == "image_patches":
+            batch["patch_embeds"] = rng.standard_normal(
+                (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+        return batch

@@ -63,9 +63,14 @@ Every ported architecture serves (``repro_torch.configs.ARCHS``: the
 gemma, codeqwen1.5, starcoder2 and gpt3 dense models, the qwen2-moe and
 llama4-maverick MoE models, whose experts run the int4 kernel in one
 launch a projection, and the recurrent jamba-v0.1 (Mamba, attention and
-MoE) and xlstm-1.3b (mLSTM, sLSTM)).  The recurrent models serve through
-``--engine static`` only: the paged pool holds K/V, so ``--engine
-continuous`` raises NotImplementedError for them, as in the reference.
+MoE) and xlstm-1.3b (mLSTM, sLSTM), the encoder-decoder whisper-medium
+and phi-3-vision-4.2b, with stub frontends).  The recurrent, enc-dec and
+vision models serve through ``--engine static`` only: the paged pool
+holds decoder K/V of plain token streams, so ``--engine continuous``
+raises NotImplementedError for them, as in the reference.  Their static
+run draws its stub inputs from ``--seed`` after the prompts, as the
+reference does: 16 frames (B, 16, d_model) for whisper, ``num_patches``
+patch embeddings for phi-3-vision.
 The build line gives the weights' GiB and the build's peak; a MoE
 model's run also prints ``dropped_frac``, the share of routed (token,
 expert) slots past capacity over the run (pads and idle rows included).
@@ -214,31 +219,51 @@ def check_run_regressions(args, device: torch.device) -> dict | None:
     return report
 
 
-def warm_generate(params, cfg, tokens, policy) -> dict:
-    """Resolve the plans static ``generate`` on ``tokens`` will request:
+def warm_generate(params, cfg, batch, policy) -> dict:
+    """Resolve the plans static ``generate`` on ``batch`` will request:
     one prefill and one decode step under ``dispatch.collecting()``
     enumerate the keys, which ``dispatch.warm`` tunes or looks up."""
     with dispatch.collecting() as reqs, dispatch.using_policy(policy):
-        SV.generate(params, cfg, tokens, max_new_tokens=2)
+        SV.generate(params, cfg, batch, max_new_tokens=2)
     return dispatch.warm(reqs, policy=policy)
 
 
-def run_static(args, params, cfg, device: torch.device):
-    """Batched greedy generation on random prompts from ``--seed``.  Kernel
-    launches are counted over ``generate`` alone (not the autotuner's
-    warm-up)."""
+STUB_FRAMES = 16  # the reference CLI's encoder frames for an enc-dec model
+
+
+def static_batch(args, cfg, device: torch.device) -> dict:
+    """The static run's inputs from ``--seed``: prompts (batch,
+    prompt_len), then the stub frontend's embeddings from the same
+    generator, frames (batch, 16, d_model) for an enc-dec config or
+    patch embeddings (batch, num_patches, d_model) for a vision one."""
     g = generator(args.seed, device)
-    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=g, device=device, dtype=torch.int32)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len), generator=g,
+        device=device, dtype=torch.int32)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((args.batch, STUB_FRAMES, cfg.d_model),
+                                      generator=g, device=device)
+    elif cfg.frontend == "image_patches":
+        batch["patch_embeds"] = torch.randn(
+            (args.batch, cfg.num_patches, cfg.d_model), generator=g,
+            device=device)
+    return batch
+
+
+def run_static(args, params, cfg, device: torch.device):
+    """Batched greedy generation on random inputs from ``--seed``
+    (:func:`static_batch`).  Kernel launches are counted over
+    ``generate`` alone (not the autotuner's warm-up)."""
+    batch = static_batch(args, cfg, device)
     policy = exec_policy(args)
     if policy is not None and policy.autotune:
-        plans = warm_generate(params, cfg, tokens, policy)
+        plans = warm_generate(params, cfg, batch, policy)
         print(f"[serve] resolved {len(plans)} exec plans before the run "
               f"(cache={dispatch.cache().path})")
     M.reset_route_counts(params)
     before = launch_counts()
     t0 = time.perf_counter()
-    out = SV.generate(params, cfg, tokens, max_new_tokens=args.new_tokens)
+    out = SV.generate(params, cfg, batch, max_new_tokens=args.new_tokens)
     _sync(device)
     dt = time.perf_counter() - t0
     after = launch_counts()
@@ -247,8 +272,8 @@ def run_static(args, params, cfg, device: torch.device):
           f"({args.batch * args.new_tokens / dt:.1f} tok/s); launches "
           f"{launches}")
     print(out[:, :12].tolist())
-    return dict(prompts=tokens, tokens=out, run_s=dt, launches=launches,
-                dropped_frac=report_dropped(params))
+    return dict(prompts=batch["tokens"], batch=batch, tokens=out, run_s=dt,
+                launches=launches, dropped_frac=report_dropped(params))
 
 
 def report_dropped(params) -> float | None:

@@ -10,8 +10,12 @@ ModelConfig that the decoder-only path reads, ``num_groups``,
     'mlstm'      xLSTM matrix-memory block                (xlstm)
     'slstm'      xLSTM scalar-memory block                (xlstm)
 
-Encoder-decoder and modality frontends wait for their slice, and their
-fields are not here.
+An encoder-decoder config (whisper) has ``encoder_layers`` > 0: that many
+non-causal 'attn' blocks over the source frames, and a cross attention in
+every decoder block.  A vision config (phi-3-vision) has ``frontend`` =
+'image_patches': ``num_patches`` precomputed patch embeddings prepended
+to the text.  Both frontends are stubs, as in the reference: the inputs
+are embeddings, not audio or pixels.
 """
 
 from __future__ import annotations
@@ -78,6 +82,14 @@ class ModelConfig:
     xlstm_chunk: int = 128
     xlstm_parallel: bool = True  # chunkwise-parallel mLSTM for prefill
 
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    max_source_len: int = 0  # encoder positions (frames)
+
+    # modality frontend stubs (precomputed embeddings)
+    frontend: str = ""  # '' | 'audio_frames' | 'image_patches'
+    num_patches: int = 0  # vlm: patch tokens prepended to text
+
     dtype: str = "float32"  # activation compute dtype
     param_dtype: str = "float32"
     quant: QuantSpec = field(default_factory=lambda: DENSE)
@@ -115,6 +127,10 @@ class ModelConfig:
     @property
     def mamba_d_inner(self) -> int:
         return self.mamba_expand * self.d_model
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
 
     @property
     def attention_free(self) -> bool:
@@ -182,4 +198,9 @@ def param_count(cfg: ModelConfig) -> dict:
             a = attn + router + shared + cfg.num_experts_per_tok * mlp(mdff)
         total += p * cfg.num_groups
         active += a * cfg.num_groups
+    if cfg.encoder_layers:
+        # the encoder's blocks and every decoder block's cross attention
+        extra = cfg.encoder_layers * (attn + mlp(dff)) + cfg.num_layers * attn
+        total += extra
+        active += extra
     return {"total": total, "active": active}

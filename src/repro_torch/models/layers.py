@@ -1,5 +1,7 @@
-"""Attention (GQA/MQA, RoPE, sliding window, soft-cap) with full-sequence,
-single-step-decode and paged paths; port of repro.models.layers.
+"""Attention (GQA/MQA, RoPE, sliding window, soft-cap, cross-attention)
+with full-sequence, single-step-decode and paged paths; port of
+repro.models.layers.  The reference's ``_chunk_mask`` (a q chunk's mask
+at a traced offset) is :func:`causal_mask` with ``offset``.
 
 The paged path keeps a full-precision KV pool, or with ``cfg.kv_quant``
 the quantized pool of repro_torch.kvq, read through its paged-attention
@@ -158,6 +160,32 @@ def attn_decode(p: Attention, cfg, x, cache_k, cache_v, pos, *,
                               in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
                               residual=residual)
     return out, cache_k, cache_v
+
+
+def cross_attn_apply(p: Attention, cfg, x, enc_k, enc_v, *, residual=None):
+    """Decoder cross-attention against the encoder's projected K/V
+    (B, S_src, Hk, Dh): q from ``wq``, no mask and no RoPE, ``residual``
+    riding ``wo``'s epilogue."""
+    B = x.shape[0]
+    q = common.linear_apply(p.wq, x, cfg.quant, in_dim=cfg.d_model,
+                            tag="wq").reshape(B, -1, cfg.num_heads,
+                                              cfg.head_dim)
+    out = _sdpa(cfg, q, enc_k, enc_v, None)
+    return common.linear_apply(p.wo, out, cfg.quant,
+                               in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
+                               residual=residual)
+
+
+def cross_kv(p: Attention, cfg, enc_out):
+    """The encoder output (B, S_src, d) projected once by ``wk``/``wv`` to
+    (B, S_src, Hk, Dh) each; prefill caches them for every decode step."""
+    B = enc_out.shape[0]
+    hk, dh = cfg.num_kv_heads, cfg.head_dim
+    k = common.linear_apply(p.wk, enc_out, cfg.quant, in_dim=cfg.d_model,
+                            tag="wk")
+    v = common.linear_apply(p.wv, enc_out, cfg.quant, in_dim=cfg.d_model,
+                            tag="wv")
+    return k.reshape(B, -1, hk, dh), v.reshape(B, -1, hk, dh)
 
 
 def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,

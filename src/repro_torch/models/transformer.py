@@ -1,15 +1,25 @@
-"""Decoder-only model assembly — embeddings, the block stack of any
-``BLOCK_KINDS`` mix, dense and paged caches, forward / prefill / decode;
-port of repro.models.transformer.
+"""Model assembly — embeddings, the block stack of any ``BLOCK_KINDS``
+mix, the encoder of an encoder-decoder config, dense and paged caches,
+forward / prefill / decode; port of repro.models.transformer.
 
 Blocks live in an ``nn.ModuleList`` (one module per layer) where the
 reference stacks them ``(G, ...)`` for ``lax.scan``; caches are a list of
-per-layer dicts: ``{"k", "v"}`` for an attention layer, the recurrent
-state otherwise (``{"ssm", "conv"}`` Mamba, ``{"C", "n", "m", "conv"}``
-mLSTM, ``{"h", "c", "n", "m"}`` sLSTM).  Functions take the model as
-``params``, like the reference's param trees, and update caches in
-place.  The paged pool holds K/V only: recurrent kinds are refused in
+per-layer dicts: ``{"k", "v"}`` for an attention layer (and
+``{"cross_k", "cross_v"}``, the projected source, in an encoder-decoder
+config), the recurrent state otherwise (``{"ssm", "conv"}`` Mamba,
+``{"C", "n", "m", "conv"}`` mLSTM, ``{"h", "c", "n", "m"}`` sLSTM).
+Functions take the model as ``params``, like the reference's param
+trees, and update caches in place.  The paged pool holds K/V only:
+recurrent kinds, encoder-decoder configs and frontends are refused in
 paged mode, as in the reference.
+
+A batch is the reference's dict: ``tokens`` (B, S), plus ``frames`` (B,
+S_src, d) for an encoder-decoder config or ``patch_embeds`` (B, P, d)
+for an 'image_patches' frontend (stubs: precomputed embeddings).  A bare
+tokens tensor stands for ``{"tokens": t}``.  The decoder of an
+encoder-decoder config adds learned positions (``pos_embedding``, one row
+for each of ``max_seq_len`` positions); a position past them raises
+ValueError (the reference reads NaN rows there).
 """
 
 from __future__ import annotations
@@ -28,15 +38,22 @@ ATTENTION_KINDS = ("attn", "local", "moe")
 class Block(common.Tree):
     """Pre-norm block: ``ln1``, the sequence mixer (``attn`` for the
     attention kinds, ``mamba`` for ``mamba``/``mamba_moe``), ``ln2`` and
-    the FFN (``mlp``, or ``moe`` for ``moe``/``mamba_moe``)."""
+    the FFN (``mlp``, or ``moe`` for ``moe``/``mamba_moe``); a decoder
+    block of an encoder-decoder config also ``ln_cross`` and ``cross``."""
+
+
+class Encoder(common.Tree):
+    """An encoder-decoder config's encoder: ``blocks`` (``encoder_layers``
+    plain 'attn' blocks, no cross attention) and its own ``final_norm``."""
 
 
 def block_init(cfg: ModelConfig, kind: str = "attn", *,
-               generator: torch.Generator, device=None, quant=None
-               ) -> nn.Module:
+               generator: torch.Generator, device=None, quant=None,
+               cross: bool = False) -> nn.Module:
     """A block of ``kind``; a ``moe`` or ``mamba_moe`` block's experts are
     drawn and, with ``quant``, quantized one expert at a time
-    (``moe.moe_init``)."""
+    (``moe.moe_init``).  ``cross``: an attention block also gets a cross
+    attention (``ln_cross``, ``cross``)."""
     kw = dict(generator=generator, device=device)
     if kind == "mlstm":
         return xlstm.mlstm_init(cfg, **kw)
@@ -55,8 +72,12 @@ def block_init(cfg: ModelConfig, kind: str = "attn", *,
         return Block(ln1=norm(), mamba=mamba.mamba_init(cfg, **kw),
                      ln2=norm(), **ffn())
     f = ffn()  # an attention block draws its FFN before its attention
-    return Block(ln1=norm(), attn=layers.attn_init(cfg, **kw), ln2=norm(),
-                 **f)
+    blk = Block(ln1=norm(), attn=layers.attn_init(cfg, **kw), ln2=norm(),
+                **f)
+    if cross:
+        blk.ln_cross = norm()
+        blk.cross = layers.attn_init(cfg, **kw)
+    return blk
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -64,11 +85,21 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     """One layer's decode cache.  ``dtype`` applies to the K/V tensors; a
     recurrent state's conv tail takes the activations' dtype
     (``cfg.dtype``) and the rest of it stays f32, as in the reference.
-    ``device="meta"`` gives the shapes and dtypes without storage."""
+    An encoder-decoder config's cross K/V hold ``cfg.max_source_len``
+    positions (``max_len`` when 0); prefill replaces them with the
+    projected source, so ``runtime.serve.generate`` sizes them at the
+    batch's source length.  ``device="meta"`` gives the shapes and dtypes
+    without storage."""
     if kind in ATTENTION_KINDS:
-        shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        def zeros(n):
+            return torch.zeros((batch, n, cfg.num_kv_heads, cfg.head_dim),
+                               dtype=dtype, device=device)
+
+        c = {"k": zeros(max_len), "v": zeros(max_len)}
+        if cfg.is_encdec:
+            src = cfg.max_source_len or max_len
+            c["cross_k"], c["cross_v"] = zeros(src), zeros(src)
+        return c
     state_dt = getattr(torch, cfg.dtype)
     if kind in ("mamba", "mamba_moe"):
         return mamba.init_state(cfg, batch, state_dt, device=device)
@@ -80,28 +111,34 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 class Transformer(nn.Module):
-    """embedding (vocab, d) f32, final_norm, blocks, and lm_head when the
-    embeddings are not tied."""
+    """embedding (vocab, d) f32, final_norm, blocks, lm_head when the
+    embeddings are not tied, and for an encoder-decoder config the
+    ``encoder`` and the decoder's learned ``pos_embedding`` (max_seq_len,
+    d) f32."""
 
     def __init__(self, embedding: torch.Tensor, final_norm: common.Norm,
-                 blocks: list[Block], lm_head=None):
+                 blocks: list[Block], lm_head=None, encoder=None,
+                 pos_embedding=None):
         super().__init__()
         self.register_buffer("embedding", embedding)
         self.final_norm = final_norm
         self.blocks = nn.ModuleList(blocks)
         if lm_head is not None:
             self.lm_head = lm_head
+        if encoder is not None:
+            self.encoder = encoder
+            self.register_buffer("pos_embedding", pos_embedding)
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device=None, quant=None) -> Transformer:
     """Random weights from ``generator`` (which must live on ``device``).
 
-    With ``quant`` (a QuantSpec), every block — and an untied lm_head — is
-    quantized by ``quant.quantize_model`` right after it is drawn, so no
-    more than one block's dense weights exist at a time (this is how a
-    full-width model fits the card); a MoE block's experts, one expert's
-    dense weights at a time.  A recurrent block's plain weights (conv,
+    With ``quant`` (a QuantSpec), every block (the encoder's too) — and
+    an untied lm_head — is quantized by ``quant.quantize_model`` right
+    after it is drawn, so no more than one block's dense weights exist at
+    a time (this is how a full-width model fits the card); a MoE block's
+    experts, one expert's dense weights at a time.  A recurrent block's plain weights (conv,
     dt_proj, A_log, D; the mLSTM's q/k/v and gates; the sLSTM's W and R)
     stay f32.  The caller then serves with
     ``cfg.replace(quant=quant)``.
@@ -112,12 +149,18 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     kw = dict(generator=generator, device=dev)
     emb = torch.empty((cfg.vocab_size, cfg.d_model), device=dev)
     nn.init.trunc_normal_(emb, a=-2.0, b=2.0, generator=generator)
-    blocks = []
-    for layer in range(cfg.num_layers):
-        blk = block_init(cfg, cfg.kind(layer), quant=quant, **kw)
-        if quant is not None:
-            quantize_model(blk, quant)
-        blocks.append(blk)
+
+    def blocks(n, kind=None, cross=False):
+        out = []
+        for layer in range(n):
+            blk = block_init(cfg, kind or cfg.kind(layer), quant=quant,
+                             cross=cross, **kw)
+            if quant is not None:
+                quantize_model(blk, quant)
+            out.append(blk)
+        return out
+
+    decoder = blocks(cfg.num_layers, cross=cfg.is_encdec)
     head = None
     if not cfg.tie_embeddings:
         head = common.linear_init(cfg.d_model, cfg.vocab_size, cfg,
@@ -126,8 +169,16 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
             holder = nn.Module()
             holder.lm_head = head
             quantize_model(holder, quant)
+    encoder = pos = None
+    if cfg.is_encdec:
+        encoder = Encoder(
+            blocks=nn.ModuleList(blocks(cfg.encoder_layers, "attn")),
+            final_norm=common.norm_init(cfg.d_model, cfg.norm, device=dev))
+        pos = common.truncated_normal((cfg.max_seq_len, cfg.d_model), 0.02,
+                                      **kw)
     return Transformer(emb, common.norm_init(cfg.d_model, cfg.norm,
-                                             device=dev), blocks, head)
+                                             device=dev), decoder, head,
+                       encoder, pos)
 
 
 def _ffn(p, cfg: ModelConfig, x):
@@ -143,14 +194,19 @@ def _ffn(p, cfg: ModelConfig, x):
 
 def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
                 mode: str = "train", cache: dict | None = None, pos=None,
-                paged=None):
+                paged=None, enc_out=None):
     """One block.  mode: ``train`` (full sequence, no cache), ``prefill``
     (full sequence, writes the prompt's K/V at 0, or the state after it),
     ``decode`` (one token at ``pos``), ``paged`` (``paged`` =
     (write_slots, view_slots) over the layer's block pool; attention
-    kinds only).  An attention block's input rides the out-projection's
-    and the down-projection's fused residual epilogues; a recurrent
-    block writes its new state into ``cache``.  Returns x."""
+    kinds only), ``encode`` (an encoder block: non-causal, no cache).  An
+    attention block's input rides the out-projection's and the
+    down-projection's fused residual epilogues; a recurrent block writes
+    its new state into ``cache``.  A decoder block with a cross attention
+    attends to ``enc_out`` (the encoder's output), projecting it at
+    prefill into ``cache["cross_k"/"cross_v"]`` (replaced, so their
+    length becomes the source's) and reading them at decode.  Returns
+    x."""
     if mode == "paged" and kind not in ATTENTION_KINDS:
         raise NotImplementedError(
             f"paged serving supports attention block kinds only, got {kind!r}")
@@ -186,26 +242,100 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
         cache["v"][:, :v.shape[1]] = v.to(cache["v"].dtype)
     else:
         x = layers.attn_apply(p.attn, cfg, h, positions, window=window,
-                              residual=x)
+                              causal=mode != "encode", residual=x)
+    if mode != "encode" and hasattr(p, "cross"):
+        hc = common.norm_apply(p.ln_cross, x, cfg.norm,
+                               rms_offset=cfg.rms_offset)
+        if mode == "decode":
+            ck, cv = cache["cross_k"], cache["cross_v"]
+        else:
+            ck, cv = layers.cross_kv(p.cross, cfg, enc_out)
+            if cache is not None:  # prefill
+                cache["cross_k"] = ck.to(cache["cross_k"].dtype)
+                cache["cross_v"] = cv.to(cache["cross_v"].dtype)
+        x = layers.cross_attn_apply(p.cross, cfg, hc, ck, cv, residual=x)
     return _ffn(p, cfg, x)
 
 
-def _stack_apply(params: Transformer, cfg: ModelConfig, x, positions, *,
-                 mode="train", cache=None, pos=None, paged=None):
-    for i, blk in enumerate(params.blocks):
-        x = block_apply(blk, cfg, cfg.kind(i), x, positions, mode=mode,
+def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
+                 mode="train", cache=None, pos=None, paged=None,
+                 enc_out=None):
+    """The decoder's ``blocks``, each of its pattern's kind, or in
+    ``encode`` mode the encoder's, all 'attn'."""
+    for i, blk in enumerate(blocks):
+        kind = "attn" if mode == "encode" else cfg.kind(i)
+        x = block_apply(blk, cfg, kind, x, positions, mode=mode,
                         cache=cache[i] if cache is not None else None,
-                        pos=pos, paged=paged)
+                        pos=pos, paged=paged, enc_out=enc_out)
     return x
 
 
-def embed_inputs(params: Transformer, cfg: ModelConfig, tokens):
+def as_batch(batch) -> dict:
+    """The reference's batch dict; a bare tokens tensor stands for
+    ``{"tokens": batch}``."""
+    return batch if isinstance(batch, dict) else {"tokens": batch}
+
+
+def embed_inputs(params: Transformer, cfg: ModelConfig, tokens, *,
+                 patch_embeds=None):
     """tokens (B, S) -> (B, S, d): gathered in f32, scaled by sqrt(d) for
-    gemma, then cast to ``cfg.dtype``."""
+    gemma, with a vision frontend's ``patch_embeds`` (B, P, d), cast to
+    f32, prepended; then cast to ``cfg.dtype``."""
     x = params.embedding[tokens.long()]
     if cfg.embed_scale:
         x = x * cfg.d_model**0.5
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x.to(getattr(torch, cfg.dtype))
+
+
+def _sinusoidal(S: int, d: int, device=None) -> torch.Tensor:
+    """(S, d) f32 encoder positions: sin in the even columns, cos in the
+    odd ones, the reference's divisor ``d // 2 - 1``."""
+    f32 = dict(device=device, dtype=torch.float32)
+    pos = torch.arange(S, **f32)[:, None]
+    rate = -torch.log(torch.tensor(10000.0, **f32)) / (d // 2 - 1)
+    div = torch.exp(torch.arange(0, d, 2, **f32) * rate)
+    pe = torch.zeros((S, d), device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def encode(params: Transformer, cfg: ModelConfig, frames) -> torch.Tensor:
+    """The encoder over ``frames`` (B, S_src, d) from the stub frontend:
+    cast to ``cfg.dtype``, plus sinusoidal positions cast alike, the
+    non-causal blocks, the encoder's final norm."""
+    x = frames.to(getattr(torch, cfg.dtype))
+    B, S = x.shape[:2]
+    x = x + _sinusoidal(S, cfg.d_model, x.device).to(x.dtype)
+    enc = params.encoder
+    x = _stack_apply(enc.blocks, cfg, x, _positions(B, S, x.device),
+                     mode="encode")
+    return common.norm_apply(enc.final_norm, x, cfg.norm,
+                             rms_offset=cfg.rms_offset)
+
+
+def _check_positions(cfg: ModelConfig, last: int) -> None:
+    if last >= cfg.max_seq_len:
+        raise ValueError(
+            f"{cfg.name}: decoder position {last} past the "
+            f"{cfg.max_seq_len} learned positions")
+
+
+def _inputs(params: Transformer, cfg: ModelConfig, batch):
+    """(x (B, S, d), enc_out or None) of a full-sequence pass: the encoder
+    over ``frames``, the embedded tokens (patches prepended), and the
+    decoder's learned positions 0..S-1."""
+    b = as_batch(batch)
+    enc_out = encode(params, cfg, b["frames"]) if cfg.is_encdec else None
+    x = embed_inputs(params, cfg, b["tokens"],
+                     patch_embeds=b.get("patch_embeds"))
+    if cfg.is_encdec:
+        S = x.shape[1]
+        _check_positions(cfg, S - 1)
+        x = x + params.pos_embedding[:S].to(x.dtype)
+    return x, enc_out
 
 
 def logits_from_hidden(params: Transformer, cfg: ModelConfig, x):
@@ -225,11 +355,13 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
 
-def forward(params: Transformer, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, V)."""
-    B, S = tokens.shape
-    x = embed_inputs(params, cfg, tokens)
-    x = _stack_apply(params, cfg, x, _positions(B, S, tokens.device))
+def forward(params: Transformer, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Full-sequence forward of a batch (tokens, + frames / patch_embeds)
+    -> logits (B, S, V), S counting the patches."""
+    x, enc_out = _inputs(params, cfg, batch)
+    B, S = x.shape[:2]
+    x = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
+                     enc_out=enc_out)
     return logits_from_hidden(params, cfg, x)
 
 
@@ -243,13 +375,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for i in range(cfg.num_layers)]
 
 
-def prefill(params: Transformer, cfg: ModelConfig, tokens, cache):
-    """Run the prompt, filling ``cache``.  Returns (logits_last (B, V),
-    cache)."""
-    B, S = tokens.shape
-    x = embed_inputs(params, cfg, tokens)
-    x = _stack_apply(params, cfg, x, _positions(B, S, tokens.device),
-                     mode="prefill", cache=cache)
+def prefill(params: Transformer, cfg: ModelConfig, batch, cache):
+    """Run the prompt (a batch: tokens, + frames / patch_embeds), filling
+    ``cache``.  Returns (logits_last (B, V), cache)."""
+    x, enc_out = _inputs(params, cfg, batch)
+    B, S = x.shape[:2]
+    x = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
+                     mode="prefill", cache=cache, enc_out=enc_out)
     return logits_from_hidden(params, cfg, x[:, -1:, :])[:, 0], cache
 
 
@@ -261,8 +393,12 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     ``kv_spec`` (default ``cfg.kv_quant``) lays each pool out as the
     quantized {"k", "k_scale", "v", "v_scale"} of repro_torch.kvq.pool:
     the same block and slot indexing, fewer bytes per token.  Recurrent
-    (attention-free) block kinds are not paged: NotImplementedError, as in
-    the reference, so the continuous engine refuses their models."""
+    (attention-free) block kinds, encoder-decoder configs and modality
+    frontends are not paged: NotImplementedError, as in the reference, so
+    the continuous engine refuses their models."""
+    if cfg.is_encdec or cfg.frontend:
+        raise NotImplementedError(
+            "paged serving supports plain decoder-only models")
     for kind in cfg.block_pattern:
         if kind not in ATTENTION_KINDS:
             raise NotImplementedError(
@@ -286,15 +422,22 @@ def forward_paged(params: Transformer, cfg: ModelConfig, tokens, pool,
     (C == 1) through the same code.  tokens/positions/write_slots (B, C);
     view_slots (B, W).  Returns (logits (B, C, V), pool)."""
     x = embed_inputs(params, cfg, tokens)
-    x = _stack_apply(params, cfg, x, positions, mode="paged", cache=pool,
-                     paged=(write_slots, view_slots))
+    x = _stack_apply(params.blocks, cfg, x, positions, mode="paged",
+                     cache=pool, paged=(write_slots, view_slots))
     return logits_from_hidden(params, cfg, x), pool
 
 
 def decode_step(params: Transformer, cfg: ModelConfig, token, cache, pos):
     """One decode step.  token (B,), pos (B,).  Returns (logits (B, V),
-    cache)."""
+    cache).  An encoder-decoder config adds the learned positions of
+    ``pos``: checked here when ``pos`` lies on the host; positions on the
+    card are the caller's to check (``runtime.serve.static_cache`` does,
+    once for a whole generation), so a step needs no sync."""
     x = embed_inputs(params, cfg, token[:, None])
-    x = _stack_apply(params, cfg, x, pos[:, None], mode="decode",
+    if cfg.is_encdec:
+        if pos.device.type == "cpu":
+            _check_positions(cfg, int(pos.max()))
+        x = x + params.pos_embedding[pos.long()][:, None].to(x.dtype)
+    x = _stack_apply(params.blocks, cfg, x, pos[:, None], mode="decode",
                      cache=cache, pos=pos)
     return logits_from_hidden(params, cfg, x)[:, 0], cache

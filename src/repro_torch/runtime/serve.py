@@ -29,8 +29,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return transformer.init_cache(cfg, batch, max_len, dtype, device=device)
 
 
-def prefill_step(params, cfg: ModelConfig, tokens, cache):
-    return transformer.prefill(params, cfg, tokens, cache)
+def prefill_step(params, cfg: ModelConfig, batch, cache):
+    """Prompt ingestion; ``batch`` as ``transformer.prefill`` takes it.
+    Returns (last logits, cache)."""
+    return transformer.prefill(params, cfg, batch, cache)
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos):
@@ -80,21 +82,52 @@ def decode_positions(cfg: ModelConfig, batch: int, seq_len: int, *,
                       device=device)
 
 
-@torch.no_grad()
-def generate(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-             max_new_tokens: int, max_len: int | None = None,
-             cache_dtype=torch.float32) -> torch.Tensor:
-    """Batched greedy generation (prefill + decode loop) on ``tokens``'
-    device.  tokens (B, S) -> (B, max_new_tokens) int32."""
+def static_cache(cfg: ModelConfig, batch, max_new_tokens: int, *,
+                 max_len: int | None = None, cache_dtype=torch.float32):
+    """(cache, pos0) of a static generation of ``max_new_tokens`` over
+    ``batch`` (as :func:`generate` takes it): the dense cache on the
+    tokens' device and the first decode position.
+
+    A vision frontend's ``num_patches`` count in the cache length and in
+    ``pos0``.  An encoder-decoder config's cross K/V are allocated at the
+    frames' length (the reference allocates them at ``max_source_len``
+    and prefill replaces them, which at whisper's 32768 would be 25.8 GB
+    of zeros at B = 4 with an f32 cache), and its last decode position,
+    ``pos0 + max_new_tokens - 2``, is checked here against its learned
+    positions, once, so that no decode step syncs to check its own."""
+    batch = transformer.as_batch(batch)
+    tokens = batch["tokens"]
     B, S = tokens.shape
-    max_len = max_len or (S + max_new_tokens)
-    cache = init_cache(cfg, B, max_len, cache_dtype, device=tokens.device)
-    logits, cache = prefill_step(params, cfg, tokens, cache)
+    extra = cfg.num_patches if cfg.frontend == "image_patches" else 0
+    pos0 = S + extra
+    max_len = max_len or (pos0 + max_new_tokens)
+    if cfg.is_encdec:
+        transformer._check_positions(cfg, pos0 + max_new_tokens - 2)
+        cfg = cfg.replace(max_source_len=batch["frames"].shape[1])
+    return init_cache(cfg, B, max_len, cache_dtype,
+                      device=tokens.device), pos0
+
+
+@torch.no_grad()
+def generate(params, cfg: ModelConfig, batch, *, max_new_tokens: int,
+             max_len: int | None = None,
+             cache_dtype=torch.float32) -> torch.Tensor:
+    """Batched greedy generation (prefill + decode loop) on the tokens'
+    device.  batch: tokens (B, S), + frames or patch_embeds (a bare tokens
+    tensor is the batch of its tokens) -> (B, max_new_tokens) int32.  The
+    cache and the first decode position are :func:`static_cache`'s."""
+    batch = transformer.as_batch(batch)
+    tokens = batch["tokens"]
+    cache, pos0 = static_cache(cfg, batch, max_new_tokens, max_len=max_len,
+                               cache_dtype=cache_dtype)
+    logits, cache = prefill_step(params, cfg, batch, cache)
     tok = greedy(logits)
     out = [tok]
     for i in range(max_new_tokens - 1):
-        # tok was produced for position S + i; decode it there for the next
-        pos = torch.full((B,), S + i, dtype=torch.int64, device=tokens.device)
+        # tok was produced for position pos0 + i; decode it there for the
+        # next
+        pos = torch.full((tokens.shape[0],), pos0 + i, dtype=torch.int64,
+                         device=tokens.device)
         logits, cache = decode_step(params, cfg, tok, cache, pos)
         tok = greedy(logits)
         out.append(tok)

@@ -4,7 +4,8 @@ RoPE, untied heads) and qwen2-moe-a2.7b and llama4-maverick (MoE blocks,
 top-4 and top-1 routing, shared experts, qk-norm).
 
 * ``param_count`` and ``shapes.cells`` equal the reference's for every
-  ported arch (full and SMOKE configs);
+  ported arch (full and SMOKE configs), and the input specs of the
+  enc-dec and vision configs' cells;
 * the forward logits of each new arch's SMOKE model, built from the
   reference's weights through ``convert``, within 1e-4 of the reference's
   (msgemm weights; the MoE experts run int4 in both packages);
@@ -78,6 +79,36 @@ def test_input_specs_mirror_the_reference():
             one = want["cache"]["0:moe"]["k"]
             assert len(got["cache"]) == cfg.num_layers == one.shape[0]
             assert tuple(got["cache"][0]["k"].shape) == tuple(one.shape[1:])
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["whisper_medium", "phi3_vision"])
+def test_frontend_input_specs_mirror_the_reference(arch, shape):
+    """The enc-dec and vision configs' cells at full width: whisper's
+    frames at seq_len and its 448-token decoder target, phi-3's patches
+    ahead of seq_len - 576 text tokens (shapes and dtypes); the decode
+    cache per layer here, stacked (G, ...) there, whisper's cross K/V at
+    seq_len frames."""
+    cfg, jcfg = configs.get_config(arch), j_configs.get_config(arch)
+    got = shapes.input_specs(cfg, shape, batch=2)
+    want = j_shapes.input_specs(jcfg, shape, batch=2)
+    assert sorted(got) == sorted(want)
+    for key, spec in got.items():
+        if key == "cache":
+            continue
+        assert tuple(spec.shape) == tuple(want[key].shape), key
+        assert str(spec.dtype).split(".")[1] == str(want[key].dtype), key
+    if "cache" in got:
+        assert len(got["cache"]) == cfg.num_layers
+        ref = want["cache"]["0:attn"]
+        for spec in got["cache"]:
+            assert sorted(spec) == sorted(ref)
+            for name, s in spec.items():
+                assert (cfg.num_groups, *s.shape) == tuple(ref[name].shape)
+                assert str(s.dtype).split(".")[1] == str(ref[name].dtype)
+        if cfg.is_encdec:
+            assert got["cache"][0]["cross_k"].shape[1] == 32768
+            assert got["cache"][0]["k"].shape[1] == 448
 
 
 @pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])

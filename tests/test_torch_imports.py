@@ -47,7 +47,8 @@ MUST_IMPORT = {
     "repro_torch.configs.gpt3_175b", "repro_torch.configs.qwen2_moe",
     "repro_torch.configs.llama4_maverick", "repro_torch.models.mamba",
     "repro_torch.models.xlstm", "repro_torch.configs.jamba_v01",
-    "repro_torch.configs.xlstm_1b3",
+    "repro_torch.configs.xlstm_1b3", "repro_torch.configs.whisper_medium",
+    "repro_torch.configs.phi3_vision",
 }
 
 

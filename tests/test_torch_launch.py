@@ -7,7 +7,7 @@ passes its ``--check`` for both ported architectures at msgemm,
 int4_dequant and kv8, serves the recurrent jamba-v0.1 and xlstm-1.3b
 through ``--engine static`` (the reference's tokens' path; the
 continuous engine refuses them, as the reference's does), and refuses
-what is not ported."""
+an unknown architecture."""
 
 import json
 
@@ -39,7 +39,8 @@ from repro_torch.serving import Engine, Request  # noqa: E402
     "gemma_2b", "gemma2_9b", "gemma2-9b", "codeqwen15_7b", "codeqwen1.5-7b",
     "starcoder2_15b", "gpt3_175b", "qwen2_moe", "qwen2-moe-a2.7b",
     "llama4_maverick", "jamba_v01", "jamba-v0.1-52b", "xlstm_1b3",
-    "xlstm-1.3b"])
+    "xlstm-1.3b", "whisper_medium", "whisper-medium", "phi3_vision",
+    "phi-3-vision-4.2b"])
 def test_configs_equal_reference(arch):
     for get in ("get_config", "get_smoke"):
         want = convert.config_from_jax(getattr(j_configs, get)(arch))
@@ -47,18 +48,21 @@ def test_configs_equal_reference(arch):
 
 
 def test_unported_arch_refused():
-    """whisper-medium and phi-3-vision wait for the enc-dec and frontend
-    slice (ROADMAP A11d); a recurrent model is refused by the continuous
-    engine, whose paged pool holds K/V only, as in the reference."""
-    with pytest.raises(NotImplementedError, match="A11d"):
-        configs.get_config("whisper_medium")
-    with pytest.raises(NotImplementedError, match="A11d"):
-        configs.get_smoke("phi3_vision")
+    """Every reference architecture is ported (the registries are equal),
+    so only an unknown name is refused; the continuous engine refuses a
+    recurrent model (its paged pool holds K/V only) and the enc-dec and
+    vision models (plain decoder-only streams only), as the reference's
+    does."""
+    assert configs.ARCHS == j_configs.ARCHS
+    assert configs.ALIASES == j_configs.ALIASES
     with pytest.raises(NotImplementedError, match="ported: "):
         configs.get_config("no-such-model")
-    with pytest.raises(NotImplementedError, match="paged KV cache"):
-        serve.main(["--arch", "jamba_v01", "--smoke", "--device", "cpu",
-                    "--engine", "continuous"])
+    for arch, match in (("jamba_v01", "paged KV cache"),
+                        ("whisper_medium", "decoder-only"),
+                        ("phi3_vision", "decoder-only")):
+        with pytest.raises(NotImplementedError, match=match):
+            serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--engine", "continuous"])
 
 
 @pytest.mark.parametrize("arch,quant", [
