@@ -254,7 +254,33 @@ Phases, any failure exits non-zero before the last line is printed:
    check (f32 within ``F32_STATE_TOL``, bf16 tokens up to the first
    near-tie); a decode step's device time by part (the profiler's
    kernel timeline: decoder GeMMs, cross attention, head, the rest).
-9. report  — the card's name and power limit, then a ``kernels`` JSON line.
+9. train   — training (``repro_torch.optim``, ``runtime.train``,
+   ``runtime.driver``, ``launch.train``): full-width, full-depth gemma-2b
+   (18 layers, f32 params and moments, bf16 activations, remat on) from
+   seed 0 takes 20 train steps of 8 x 128 tokens of the lcg
+   ``SyntheticStream`` under the train CLI's config (AdamW,
+   warmup_cosine(3e-3, 10, 20), clip 1.0): step ms (median of steps
+   2-20), tokens/s, peak GiB, loss and grad_norm at steps 1 and 20; every
+   loss finite, the last below the first, no hand-written kernel
+   launched (the train path's products are plain f32 matmuls, as the
+   reference's).  The optimizer state freed, the trained model's
+   held-out CE, the lcg rule's share of 16 greedy tokens after lcg
+   prompts and static generate's bf16 near-ties are reported, dense and
+   after ``quantize_model`` to msgemm (d=3, scale_block=36) in place;
+   the msgemm model serves the stream on the graph route (126 msGeMM
+   launches a step, tokens == static generate) and with a kv8 pool
+   through the paged-attention kernel (18 launches a step) and the
+   torch route (the same tokens).  Then gemma-2b cut to 2 layers takes
+   one step from the same weights and batch on the card and on the CPU:
+   loss and grad_norm within 1e-4 relative with f32 activations (gated),
+   the bf16 difference reported.  Then ``runtime.driver.run`` at 2
+   layers (f32 activations), checkpoints under
+   ``chiprun_out/train/``: a crash at step 3, a restart that resumes at
+   the step-2 checkpoint with the uninterrupted losses (rtol 1e-5); and
+   ``python -m repro_torch.launch.train --arch gemma_2b --smoke --steps
+   12`` on its default device, the card.  The directory is removed
+   after.  ``--only train`` runs the build and this phase alone.
+10. report — the card's name and power limit, then a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Needs no network; imports nothing of JAX.
@@ -267,6 +293,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -4096,6 +4123,391 @@ def phase_encdec():
 
 
 # ------------------------------------------------------------------- main
+# ----------------------------------------------------------------- train
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 128, 3e-3
+TRAIN_DIR = ROOT / "chiprun_out" / "train"
+# the card against the CPU: one step of gemma-2b cut to 2 layers
+CARD_CPU = dict(layers=2, batch=2, seq=64)
+CARD_CPU_TOL = 1e-4  # relative, loss and grad_norm with f32 activations
+DRIVER = dict(layers=2, steps=4, every=2, crash=3, batch=2, seq=64)
+LCG_PROMPT, LCG_ROWS = 32, 4
+
+
+def train_stream(seed=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """The lcg ``SyntheticStream`` the train phase draws from."""
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+
+    return SyntheticStream(DataConfig(vocab_size=CONFIG.vocab_size,
+                                      seq_len=seq + 1, global_batch=batch,
+                                      seed=seed))
+
+
+def train_config(steps):
+    """The train CLI's config: AdamW under warmup_cosine(lr, 10, steps),
+    clip 1.0; the model config's remat (on) applies."""
+    from repro_torch.optim import AdamWConfig, schedules
+    from repro_torch.runtime import train as RT
+
+    return RT.TrainConfig(optimizer=AdamWConfig(
+        lr=schedules.warmup_cosine(TRAIN_LR, 10, steps)))
+
+
+def train_full():
+    """Full-width, full-depth gemma-2b (bf16 activations, f32 params) from
+    seed 0: ``TRAIN_STEPS`` train steps of the lcg stream, each timed
+    (host clock, synchronised by reading the loss).  The train path runs
+    no hand-written kernel (the reference trains with plain products)."""
+    import torch
+
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.device import generator
+    from repro_torch.launch.serve import KERNELS
+    from repro_torch.runtime import train as RT
+
+    cfg, tcfg = CONFIG, train_config(TRAIN_STEPS)
+    data = train_stream()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = RT.init_state(cfg, tcfg, generator=generator(0, "cuda"),
+                          device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in state["opt"]["m"].values())
+    for mod in KERNELS.values():
+        mod.launches = 0
+    losses, gnorms, times = [], [], []
+    for step in range(TRAIN_STEPS):
+        batch = data.device_batch(step)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = RT.train_step(state, batch, cfg, tcfg)
+        losses.append(float(met["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t)
+        gnorms.append(float(met["grad_norm"]))
+    launches = {name: mod.launches for name, mod in KERNELS.items()}
+    check(not any(launches.values()),
+          f"[train] the train steps launched hand-written kernels: "
+          f"{launches}")
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"[train] non-finite loss or grad norm: {losses} {gnorms}")
+    check(losses[-1] < losses[0],
+          f"[train] loss did not fall: {losses[0]} -> {losses[-1]}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = dict(params=n_params, init_s=init_s, step_ms=step_ms,
+               first_step_ms=times[0] * 1e3,
+               tokens_per_s=tokens / (step_ms / 1e3), peak_gib=peak,
+               losses=losses, grad_norms=gnorms, step_s=times)
+    print(f"[train] gemma-2b full width and depth ({n_params:,} params, "
+          f"f32 params and moments, bf16 activations, remat on): state "
+          f"built in {init_s:.1f}s; {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, step {step_ms:.1f} ms (median of steps "
+          f"2-{TRAIN_STEPS}; step 1 {times[0] * 1e3:.1f} ms), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GiB; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad_norm "
+          f"{gnorms[0]:.4f} -> {gnorms[-1]:.4f}", flush=True)
+    return state, out
+
+
+def lcg_follow(model, cfg, stream, step=0):
+    """Greedy tokens of static ``generate`` after ``LCG_PROMPT``-token lcg
+    prompts (``LCG_ROWS`` rows of ``stream``'s batch ``step``), and how
+    many of them follow the lcg rule of their row (``stream.lcg_rule``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime import serve as SV
+
+    prompts = stream.host_batch(step)["tokens"][:LCG_ROWS, :LCG_PROMPT]
+    with torch.no_grad():
+        out = SV.generate(model, cfg, torch.as_tensor(prompts, device="cuda"),
+                          max_new_tokens=NEW_TOKENS).cpu().numpy()
+    pos = np.arange(LCG_PROMPT, LCG_PROMPT + NEW_TOKENS)[None, :]
+    want = stream.lcg_rule(step)(pos)[:LCG_ROWS]
+    return int((out == want).sum()), out.size
+
+
+def heldout_ce(model, cfg, stream, steps=2):
+    """Mean CE (nats) over ``steps`` batches of a held-out stream."""
+    import torch
+
+    from repro_torch.calib.stats import batches_from
+    from repro_torch.models import transformer
+    from repro_torch.runtime.train import cross_entropy
+
+    ces = []
+    with torch.no_grad():
+        for b in batches_from(stream, steps):
+            ce, _ = cross_entropy(transformer.forward(model, cfg,
+                                                      b["tokens"]),
+                                  b["labels"])
+            ces.append(float(ce))
+    return sum(ces) / len(ces)
+
+
+def near_ties(model, cfg):
+    """Static ``generate``'s top-two gaps, in bf16 ulps of the top logit,
+    at every step of the 6-request stream: the steps where they are at
+    most 2 ulps apart (near-ties) and each request's first one."""
+    import torch
+
+    gaps, first = [], []
+    for req in request_stream(cfg):
+        _, logits, _, _ = static_logits(model, cfg, [req.prompt], NEW_TOKENS)
+        top = torch.topk(logits[0], 2, dim=-1).values
+        ulps = [(t - s) / bf16_ulp(t) for t, s in top.tolist()]
+        gaps += ulps
+        first.append(next((i for i, u in enumerate(ulps) if u <= 2),
+                          NEW_TOKENS))
+    return dict(near_ties=sum(u <= 2 for u in gaps), steps=len(gaps),
+                first_tie=first, min_ulps=min(gaps),
+                median_ulps=statistics.median(gaps))
+
+
+def train_serve(model, cfg):
+    """The trained model, its optimizer state freed: held-out CE and the
+    lcg rule dense, then quantized in place to msgemm (d=3,
+    scale_block=36) and served: the stream on the graph route (126
+    msGeMM launches a step, tokens == static generate), then with a kv8
+    pool through the paged-attention kernel (18 launches a step) and the
+    torch route (the same tokens)."""
+    import torch
+
+    from repro_torch import kvq
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.quant import quantize_model
+
+    heldout = train_stream(seed=1, batch=4)
+    lcg = train_stream(seed=1, batch=LCG_ROWS, seq=LCG_PROMPT)
+    out = {"dense": dict(heldout_ce=heldout_ce(model, cfg, heldout),
+                         lcg=lcg_follow(model, cfg, lcg),
+                         ties=near_ties(model, cfg))}
+    spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
+    t0 = time.perf_counter()
+    quantize_model(model, spec)
+    torch.cuda.synchronize()
+    qcfg = cfg.replace(quant=spec)
+    out["quantize_s"] = time.perf_counter() - t0
+    out["msgemm"] = dict(heldout_ce=heldout_ce(model, qcfg, heldout),
+                         lcg=lcg_follow(model, qcfg, lcg),
+                         ties=near_ties(model, qcfg))
+    for k in ("dense", "msgemm"):
+        r = out[k]
+        t = r["ties"]
+        print(f"[train-serve] {k}: held-out mean CE {r['heldout_ce']:.4f} "
+              f"nats (perplexity {math.exp(min(r['heldout_ce'], 700)):.4g}), "
+              f"lcg rule followed by {r['lcg'][0]}/{r['lcg'][1]} greedy "
+              f"tokens; static generate's near-ties (top two <= 2 bf16 ulps "
+              f"apart) {t['near_ties']}/{t['steps']} steps, first "
+              f"{t['first_tie']}, top-two gap median {t['median_ulps']:.1f} "
+              f"ulps, min {t['min_ulps']:.2f}", flush=True)
+    run = serve("train-msgemm", model, qcfg)
+    steps, launches = run["steps"], run["launches"]
+    check(launches["msgemm"] == 126 * steps
+          and launches["paged_attention"] == 0
+          and launches["int4_matmul"] == 0,
+          f"[train-msgemm] launches {launches} != 126 msgemm x {steps}")
+    check_static("train-msgemm", model, qcfg, run)
+    print("[train-msgemm] engine tokens == static generate for every "
+          "request", flush=True)
+    run.pop("reqs")
+    out["engine"] = run
+    kv = {}
+    for route, backend in (("kernel", None), ("torch", "paged_attn_torch")):
+        tag = f"train-kv8-{route}"
+        r = serve(tag, model, qcfg, kv_quant=kvq.KVQuantSpec(
+            8, backend=backend))
+        want = 18 * r["steps"] if route == "kernel" else 0
+        check(r["launches"]["paged_attention"] == want
+              and r["launches"]["msgemm"] == 126 * r["steps"],
+              f"[{tag}] launches {r['launches']}: want {want} paged "
+              f"attention, 126 msgemm x {r['steps']}")
+        r.pop("reqs")
+        kv[route] = r
+    check(kv["kernel"]["tokens"] == kv["torch"]["tokens"],
+          f"[train-kv8] kernel route {kv['kernel']['tokens']} != torch "
+          f"route {kv['torch']['tokens']}")
+    print("[train-kv8] kernel route == torch route on every request; step "
+          f"{kv['kernel']['step_ms']:.2f} ms (the f32 pool's "
+          f"{run['step_ms']:.2f})", flush=True)
+    out["kv8"] = kv
+    return out
+
+
+def train_card_cpu():
+    """One train step of full-width gemma-2b cut to ``CARD_CPU['layers']``
+    layers from the same seed-0 weights and batch, on the card and on the
+    CPU with the same port code: loss and grad_norm with f32 activations
+    within ``CARD_CPU_TOL`` (gated); with bf16 activations reported."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.device import generator
+    from repro_torch.models import transformer
+    from repro_torch.runtime import train as RT
+
+    small = CONFIG.replace(num_layers=CARD_CPU["layers"])
+    data = train_stream(batch=CARD_CPU["batch"], seq=CARD_CPU["seq"])
+    card = transformer.init_params(small, generator=generator(0, "cuda"),
+                                   device="cuda")
+    pristine = {k: v.to("cpu", copy=True)
+                for k, v in card.state_dict().items()}
+    host = copy.deepcopy(card).cpu()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = small.replace(dtype=dtype)
+        got = {}
+        for key, dev, model in (("card", "cuda", card),
+                                ("cpu", "cpu", host)):
+            model.load_state_dict(pristine)
+            state = RT.state_for(model, train_config(TRAIN_STEPS))
+            t = time.perf_counter()
+            _, met = RT.train_step(state, data.device_batch(0, device=dev),
+                                   cfg, train_config(TRAIN_STEPS))
+            got[key] = {k: float(met[k]) for k in ("loss", "grad_norm")}
+            got[key]["s"] = time.perf_counter() - t
+            del state, met
+        rel = {k: abs(got["card"][k] - got["cpu"][k]) / abs(got["cpu"][k])
+               for k in ("loss", "grad_norm")}
+        out[dtype] = dict(got, rel=rel)
+        print(f"[train-card-cpu] {dtype} activations, {CARD_CPU['layers']} "
+              f"layers, {CARD_CPU['batch']} x {CARD_CPU['seq']} tokens: loss "
+              f"card {got['card']['loss']:.7f} cpu {got['cpu']['loss']:.7f} "
+              f"(rel {rel['loss']:.2e}), grad_norm card "
+              f"{got['card']['grad_norm']:.7f} cpu {got['cpu']['grad_norm']:.7f}"
+              f" (rel {rel['grad_norm']:.2e}); step {got['card']['s']:.2f}s "
+              f"card, {got['cpu']['s']:.2f}s cpu", flush=True)
+        if dtype == "float32":
+            check(max(rel.values()) <= CARD_CPU_TOL,
+                  f"[train-card-cpu] card and CPU differ by {rel} (f32 "
+                  f"activations; tolerance {CARD_CPU_TOL})")
+    del card, host, pristine
+    return out
+
+
+def train_driver():
+    """``runtime.driver.run`` at full width cut to ``DRIVER['layers']``
+    layers (f32 activations):
+    a crash at step ``DRIVER['crash']`` after the checkpoint at
+    ``DRIVER['every']``, then a restart that resumes there; its losses
+    against a plain ``train_step`` loop's within rtol 1e-5 (the embedding
+    gather's backward adds with atomics on the card).  Then the train CLI
+    at smoke width with its default device (the card)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.device import generator
+    from repro_torch.launch import train as LT
+    from repro_torch.runtime import train as RT
+    from repro_torch.runtime.driver import CrashInjector, DriverConfig, run
+
+    cfg = CONFIG.replace(num_layers=DRIVER["layers"], dtype="float32")
+    tcfg = train_config(DRIVER["steps"])
+    data = train_stream(batch=DRIVER["batch"], seq=DRIVER["seq"])
+    step_fn = RT.make_train_step(cfg, tcfg)
+
+    def fresh():
+        return RT.init_state(cfg, tcfg, generator=generator(0, "cuda"),
+                             device="cuda")
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    state = fresh()
+    want = []
+    for step in range(DRIVER["steps"]):
+        state, met = step_fn(state, data.device_batch(step))
+        want.append(float(met["loss"]))
+    del state, met
+    dcfg = DriverConfig(total_steps=DRIVER["steps"],
+                        checkpoint_every=DRIVER["every"], keep=1,
+                        checkpoint_dir=str(TRAIN_DIR / "driver"))
+    crash = CrashInjector(at_step=DRIVER["crash"])
+    state = fresh()
+    t0 = time.perf_counter()
+    crashed = None
+    try:
+        run(state, step_fn, data, dcfg, crash=crash, log=lambda *a: None)
+    except RuntimeError as e:
+        crashed = str(e)
+    check(crashed == f"injected crash at step {DRIVER['crash']}",
+          f"[train-driver] the injected crash did not fire as it should: "
+          f"{crashed!r}")
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = run(state, step_fn, data, dcfg, crash=crash, log=lambda *a: None)
+    second_s = time.perf_counter() - t0
+    got = {m["step"]: m["loss"] for m in res["metrics"]}
+    check(res["resumed_at"] == DRIVER["every"]
+          and sorted(got) == list(range(DRIVER["every"] + 1,
+                                        DRIVER["steps"] + 1)),
+          f"[train-driver] resumed at {res['resumed_at']}, steps "
+          f"{sorted(got)}")
+    for step, loss in got.items():
+        check(abs(loss - want[step - 1]) <= 1e-5 * abs(want[step - 1]),
+              f"[train-driver] step {step}: loss {loss} != uninterrupted "
+              f"{want[step - 1]} (rtol 1e-5)")
+    size = sum(f.stat().st_size for f in (TRAIN_DIR / "driver").rglob("*")
+               if f.is_file())
+    print(f"[train-driver] {DRIVER['layers']} layers: crash at step "
+          f"{DRIVER['crash']}, restart resumed at {res['resumed_at']}; losses "
+          f"{[got[s] for s in sorted(got)]} == uninterrupted "
+          f"{want[DRIVER['every']:]} (rtol 1e-5); run {first_s:.1f}s to the "
+          f"crash, {second_s:.1f}s resumed; checkpoint {size / 2**30:.2f} GiB",
+          flush=True)
+    resumed_at = res["resumed_at"]
+    del state, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = LT.main(["--arch", "gemma_2b", "--smoke", "--steps", "12",
+                   "--checkpoint-dir", str(TRAIN_DIR / "cli")])
+    cli_s = time.perf_counter() - t0
+    dev = next(iter(cli["state"]["opt"]["m"].values())).device
+    losses = [m["loss"] for m in cli["metrics"]]
+    check(dev.type == "cuda" and len(losses) == 12
+          and all(math.isfinite(v) for v in losses),
+          f"[train-cli] ran on {dev}, losses {losses}")
+    print(f"[train-cli] python -m repro_torch.launch.train --arch gemma_2b "
+          f"--smoke --steps 12: on {dev}, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} in {cli_s:.1f}s", flush=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return dict(uninterrupted=want, resumed=got, resumed_at=resumed_at,
+                crash_s=first_s, resume_s=second_s, checkpoint_bytes=size,
+                cli=dict(losses=losses, s=cli_s))
+
+
+def phase_train():
+    """Training (``repro_torch.optim``, ``runtime.train``, ``runtime.driver``,
+    ``launch.train``): full-width gemma-2b trained, quantized and served;
+    the card against the CPU; the driver and the CLI."""
+    import torch
+
+    from repro_torch.configs.gemma_2b import CONFIG
+
+    t0 = time.perf_counter()
+    state, out = train_full()
+    model = state.pop("params")
+    del state  # the moments: the served model keeps only its weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = train_serve(model, CONFIG)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_cpu"] = train_card_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["driver"] = train_driver()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[train] phase {out['phase_s']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4107,6 +4519,9 @@ def main() -> int:
                          "rows per block, flash tiles and stages, "
                          "paged-attention chunk lengths, int4 GeMM split "
                          "counts, or one of those (chiprun_out/sweep.json)")
+    ap.add_argument("--only", choices=("train",),
+                    help="only build, then run this phase (a probe: no "
+                         "kernels line and no ok line)")
     args = ap.parse_args()
     try:
         import torch
@@ -4162,6 +4577,14 @@ def main() -> int:
         out.mkdir(exist_ok=True)
         (out / "sweep.json").write_text(json.dumps(rows, indent=1))
         return 0
+    if args.only == "train":
+        train = phase_train()
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_train.json").write_text(json.dumps(
+            train, indent=1, default=str))
+        print(f"[report] total {time.perf_counter() - t_start:.1f}s")
+        return 0
     cases = phase_kernels()
     int4_cases = phase_int4_kernels()
     expert_cases = phase_int4_experts()
@@ -4203,6 +4626,7 @@ def main() -> int:
     arch = phase_arch(profile=args.profile)
     recurrent = phase_recurrent()
     encdec = phase_encdec()
+    train = phase_train()
 
     def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b",
                     x_dtype="float32"):
@@ -4256,7 +4680,9 @@ def main() -> int:
                for r in ("kernel", "torch")]
             + [recurrent[k] for k in ("xlstm", "xlstm-int4")]
             + [encdec[k] for k in ("whisper", "whisper-1500", "whisper-int4",
-                                   "phi3")])
+                                   "phi3")]
+            + [train["serve"]["engine"]]
+            + [train["serve"]["kv8"][r] for r in ("kernel", "torch")])
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])
                 for name in ("msgemm", "int4_matmul", "paged_attention")}
@@ -4333,7 +4759,7 @@ def main() -> int:
         main=main_path, kvq=kvq_path,
         int4=int4_path, plan=plan_path, calib=calib_path,
         resilience=res_path, gemma2_9b=gemma2, recurrent=recurrent,
-        encdec=encdec,
+        encdec=encdec, train=train,
         gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     for key, e in ([("gemma-2b msgemm", kernels[0]),

@@ -17,7 +17,9 @@ An encoder-decoder tree's ``encoder`` becomes ``transformer.Encoder``
 (one block a layer) and its decoder blocks keep ``ln_cross``/``cross``.
 :func:`port_path` maps a reference param path (a calibration report's or
 codebook's key; expert leaves included) and its slice to the port's
-module path.
+module path.  :func:`state_from_jax` carries a whole train state across:
+the params, the AdamW moments (each in the params' structure, so through
+the same mapping), ``count`` and ``step``.
 """
 
 from __future__ import annotations
@@ -201,3 +203,39 @@ def port_path(path: str, g: int, cfg: ModelConfig) -> str:
     period = len(cfg.block_pattern) if at == 0 else 1
     layer = g * period + int(parts[at + 1].split(":")[0])
     return ".".join([*parts[:at], "blocks", str(layer), *parts[at + 2:]])
+
+
+def _f32_tree(tree):
+    """``tree`` with f32 numpy leaves (the moments may be bf16 arrays,
+    which torch cannot take from numpy)."""
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    return np.asarray(tree, dtype=np.float32)
+
+
+def state_from_jax(state: dict, cfg: ModelConfig, *, device=None) -> dict:
+    """The port's train state (``runtime.train``) from the reference's,
+    as numpy trees: ``params`` through :func:`params_from_jax`; ``opt.m``
+    and ``opt.v`` the same way, kept under the names of the trainable
+    leaves and cast to the reference's moment dtype; ``opt.count`` and
+    ``step`` as 0-d int32 tensors."""
+    from repro_torch.runtime.train import trainable
+
+    dev = resolve(device)
+    model = params_from_jax(state["params"], cfg, device=dev)
+    names = list(trainable(model))
+    opt = state["opt"]
+    moments = {}
+    for key in ("m", "v"):
+        dt = (torch.bfloat16 if np.asarray(opt[key]["embedding"]).dtype.name
+              == "bfloat16" else torch.float32)
+        got = dict(params_from_jax(_f32_tree(opt[key]), cfg,
+                                   device=dev).named_buffers())
+        moments[key] = {n: got[n].to(dt) for n in names}
+
+    def scalar(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32, device=dev)
+
+    return {"params": model,
+            "opt": {**moments, "count": scalar(opt["count"])},
+            "step": scalar(state["step"])}

@@ -28,8 +28,8 @@ from repro_torch.core.spec import DENSE, QuantSpec
 
 
 class QLinear(nn.Module):
-    """One linear's weight leaves, held as buffers (no gradients: the
-    port serves)."""
+    """One linear's weight leaves, held as buffers (the train step turns
+    gradients on for the dense float ones while it runs)."""
 
     def __init__(self, params: dict[str, torch.Tensor]):
         super().__init__()
@@ -51,6 +51,23 @@ class QLinear(nn.Module):
 # one during calibration through set_observer; None costs nothing).  Kept
 # here so core never imports calib.
 _OBSERVER = None
+# True while a rematerialized forward is recomputed for the backward pass
+# (models.common.remat): side effects of the forward (the observer, MoE
+# route counts) are skipped then, so each counts once a forward.  A plain
+# global, not a thread-local: autograd may recompute on its own thread.
+_REPLAY = False
+
+
+def replaying() -> bool:
+    """Whether the forward now running is a remat recompute."""
+    return _REPLAY
+
+
+def set_replaying(flag: bool) -> bool:
+    """Set the recompute flag; returns its previous value."""
+    global _REPLAY
+    prev, _REPLAY = _REPLAY, flag
+    return prev
 
 
 def set_observer(obs) -> None:
@@ -107,8 +124,9 @@ def apply(params, x: torch.Tensor, spec: QuantSpec = DENSE, *,
     """x (..., in) -> y (..., out) through the dispatch registry.
     ``params`` is a dict of leaves or a :class:`QLinear`.  ``tag`` names
     this linear for the activation-statistics observer (calibration); it
-    does not change the computation."""
-    if _OBSERVER is not None and tag is not None:
+    does not change the computation, and a remat recompute does not
+    report again."""
+    if _OBSERVER is not None and tag is not None and not _REPLAY:
         _OBSERVER.record(tag, x)
     if isinstance(params, QLinear):
         params = params.params()

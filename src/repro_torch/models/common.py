@@ -1,5 +1,6 @@
 """Shared building blocks — norms, linear glue, soft-cap, MLP, the
-recurrences' chunked scan; port of repro.models.common.  The port is
+recurrences' chunked scan, rematerialization (:func:`remat`) for
+training; port of repro.models.common.  The port is
 single-device for now, so the reference's sharding constraints have no
 counterpart here.
 """
@@ -102,20 +103,88 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap) if cap else x
 
 
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for t in tree:
+            yield from _tensors(t)
+
+
+def needs_grad(*args) -> bool:
+    """Whether a backward pass can reach ``args``: grad mode is on and a
+    tensor among them (tuples searched) requires grad."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensors(args))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE
+            if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat(fn, *args, policy: str = "nothing"):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint``.  ``policy`` 'nothing' saves only the inputs;
+    'dots' also saves the outputs of the 2-D matmuls (the reference's
+    ``dots_with_no_batch_dims_saveable``: the linears, not the batched
+    attention einsums).  The recompute runs with
+    ``core.linear.replaying()`` set, so the forward's side effects (the
+    calibration observer, MoE route counts) happen once."""
+    from torch.utils.checkpoint import checkpoint
+
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"remat policy {policy!r}: 'nothing' or 'dots'")
+    calls = [0]
+
+    def once(*a):
+        calls[0] += 1
+        prev = qlinear.set_replaying(calls[0] > 1 or qlinear.replaying())
+        try:
+            return fn(*a)
+        finally:
+            qlinear.set_replaying(prev)
+
+    kw = {"context_fn": _dots_context} if policy == "dots" else {}
+    return checkpoint(once, *args, use_reentrant=False, **kw)
+
+
 def chunked_scan(step, carry, xs: tuple, *, chunk: int):
     """Run ``carry, y = step(carry, x_t)`` over the leading (time) axis T of
     the tensors ``xs``; returns (carry, ys stacked on a leading T axis).
-    The reference's two-level ``lax.scan`` checkpoints the carry once a
-    chunk for the backward pass; serving has none, so the chunks only
-    keep its contract: T is a multiple of ``chunk`` when ``chunk < T``."""
+    T is a multiple of ``chunk`` when ``chunk < T``.  As the reference's
+    two-level ``lax.scan``, with a backward pass to come
+    (:func:`needs_grad`) each chunk of steps is rematerialized: the carry
+    is saved once a chunk, not once a step, and the chunk's steps are
+    recomputed in the backward pass.  Values do not change."""
     T = xs[0].shape[0]
     if chunk < T and T % chunk:
         raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+
+    def run(carry, *xc):
+        ys = []
+        for t in range(xc[0].shape[0]):
+            carry, y = step(carry, tuple(x[t] for x in xc))
+            ys.append(y)
+        return carry, torch.stack(ys)
+
+    if not (chunk < T and needs_grad(carry, xs)):
+        return run(carry, *xs)
     ys = []
-    for t in range(T):
-        carry, y = step(carry, tuple(x[t] for x in xs))
+    for s in range(0, T, chunk):
+        carry, y = remat(run, carry, *(x[s:s + chunk] for x in xs))
         ys.append(y)
-    return carry, torch.stack(ys)
+    return carry, torch.cat(ys)
 
 
 class MLP(nn.Module):

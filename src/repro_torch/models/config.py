@@ -92,6 +92,11 @@ class ModelConfig:
 
     dtype: str = "float32"  # activation compute dtype
     param_dtype: str = "float32"
+    # training: recompute each block-pattern group's activations in the
+    # backward pass; 'nothing' saves only the group's input, 'dots' also
+    # the linears' outputs (models.common.remat).  Serving never remats.
+    remat: bool = True
+    remat_policy: str = "nothing"  # nothing | dots
     quant: QuantSpec = field(default_factory=lambda: DENSE)
     # quantized paged KV pool (None: full precision)
     kv_quant: KVQuantSpec | None = None

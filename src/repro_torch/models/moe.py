@@ -13,8 +13,9 @@ as a CUDA graph.
 
 ``MoE.route_counts`` (int64 (2,) on the router's device: routed slots
 kept, routed slots in all) adds up every ``moe_apply`` of the module, a
-CUDA graph's replays included; :func:`dropped_frac` reads it over a run
-and :func:`reset_route_counts` zeroes it.
+CUDA graph's replays included, but not a training forward's remat
+recompute; :func:`dropped_frac` reads it over a run and
+:func:`reset_route_counts` zeroes it.
 """
 
 from __future__ import annotations
@@ -187,8 +188,9 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
         .mean(dim=(0, 1))
     aux = {"load_balance": E * torch.sum(me * ce),
            "dropped_frac": 1.0 - keep.to(torch.float32).mean()}
-    p.route_counts[0] += keep.sum()
-    p.route_counts[1] += keep.numel()
+    if not qlinear.replaying():  # a remat recompute counts no slot twice
+        p.route_counts[0] += keep.sum()
+        p.route_counts[1] += keep.numel()
     return y.to(x.dtype), aux
 
 

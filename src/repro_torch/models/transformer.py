@@ -181,20 +181,24 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                        encoder, pos)
 
 
-def _ffn(p, cfg: ModelConfig, x):
+def _ffn(p, cfg: ModelConfig, x, aux: dict | None = None):
     """The block's second half: the MLP with the block input riding the
     down projection's fused residual epilogue, or the MoE FFN's output
-    added to it (the reference's ``_ffn``)."""
+    added to it (the reference's ``_ffn``); a MoE FFN's aux terms are
+    added into ``aux`` when given."""
     h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
     if hasattr(p, "moe"):
-        y, _ = moe.moe_apply(p.moe, h, cfg)
+        y, a = moe.moe_apply(p.moe, h, cfg)
+        if aux is not None:
+            for k, v in a.items():
+                aux[k] = aux[k] + v
         return x + y
     return common.mlp_apply(p.mlp, h, cfg, residual=x)
 
 
 def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
                 mode: str = "train", cache: dict | None = None, pos=None,
-                paged=None, enc_out=None):
+                paged=None, enc_out=None, aux: dict | None = None):
     """One block.  mode: ``train`` (full sequence, no cache), ``prefill``
     (full sequence, writes the prompt's K/V at 0, or the state after it),
     ``decode`` (one token at ``pos``), ``paged`` (``paged`` =
@@ -205,8 +209,9 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
     its new state into ``cache``.  A decoder block with a cross attention
     attends to ``enc_out`` (the encoder's output), projecting it at
     prefill into ``cache["cross_k"/"cross_v"]`` (replaced, so their
-    length becomes the source's) and reading them at decode.  Returns
-    x."""
+    length becomes the source's) and reading them at decode.  A MoE
+    FFN's ``load_balance`` and ``dropped_frac`` are added into ``aux``
+    when given.  Returns x."""
     if mode == "paged" and kind not in ATTENTION_KINDS:
         raise NotImplementedError(
             f"paged serving supports attention block kinds only, got {kind!r}")
@@ -215,7 +220,7 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
             h = common.norm_apply(p.ln1, x, cfg.norm,
                                   rms_offset=cfg.rms_offset)
             y, state = mamba.mamba_apply(p.mamba, cfg, h, state=cache)
-            x = _ffn(p, cfg, x + y)
+            x = _ffn(p, cfg, x + y, aux)
         elif kind == "mlstm":
             x, state = xlstm.mlstm_block_apply(p, cfg, x, state=cache)
         elif kind == "slstm":
@@ -254,20 +259,46 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
                 cache["cross_k"] = ck.to(cache["cross_k"].dtype)
                 cache["cross_v"] = cv.to(cache["cross_v"].dtype)
         x = layers.cross_attn_apply(p.cross, cfg, hc, ck, cv, residual=x)
-    return _ffn(p, cfg, x)
+    return _ffn(p, cfg, x, aux)
 
 
 def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                  mode="train", cache=None, pos=None, paged=None,
                  enc_out=None):
     """The decoder's ``blocks``, each of its pattern's kind, or in
-    ``encode`` mode the encoder's, all 'attn'."""
-    for i, blk in enumerate(blocks):
-        kind = "attn" if mode == "encode" else cfg.kind(i)
-        x = block_apply(blk, cfg, kind, x, positions, mode=mode,
-                        cache=cache[i] if cache is not None else None,
-                        pos=pos, paged=paged, enc_out=enc_out)
-    return x
+    ``encode`` mode the encoder's, all 'attn'.  Returns (x, aux): in
+    ``train`` mode the MoE blocks' ``load_balance`` and ``dropped_frac``
+    (0-d f32), summed within each group of ``len(block_pattern)`` layers
+    and then over the groups, as the reference's scan; None in the other
+    modes.  In ``train`` mode with a backward pass to come and
+    ``cfg.remat``, each group is rematerialized (``common.remat`` under
+    ``cfg.remat_policy``); serving modes never are."""
+    period = 1 if mode == "encode" else len(cfg.block_pattern)
+    train = mode == "train"
+    do_remat = cfg.remat and train and common.needs_grad(x)
+
+    def group(x, first):
+        # the sums start at 0.0, as the reference's zeros (0 + v == v)
+        aux = {"load_balance": 0.0, "dropped_frac": 0.0} if train else None
+        for i in range(first, min(first + period, len(blocks))):
+            kind = "attn" if mode == "encode" else cfg.kind(i)
+            x = block_apply(blocks[i], cfg, kind, x, positions, mode=mode,
+                            cache=cache[i] if cache is not None else None,
+                            pos=pos, paged=paged, enc_out=enc_out, aux=aux)
+        return x, aux
+
+    total = {"load_balance": 0.0, "dropped_frac": 0.0}
+    for first in range(0, len(blocks), period):
+        if do_remat:
+            x, aux = common.remat(group, x, first, policy=cfg.remat_policy)
+        else:
+            x, aux = group(x, first)
+        if train:
+            total = {k: total[k] + aux[k] for k in total}
+    if not train:
+        return x, None
+    return x, {k: torch.as_tensor(v, dtype=torch.float32, device=x.device)
+               for k, v in total.items()}
 
 
 def as_batch(batch) -> dict:
@@ -310,8 +341,8 @@ def encode(params: Transformer, cfg: ModelConfig, frames) -> torch.Tensor:
     B, S = x.shape[:2]
     x = x + _sinusoidal(S, cfg.d_model, x.device).to(x.dtype)
     enc = params.encoder
-    x = _stack_apply(enc.blocks, cfg, x, _positions(B, S, x.device),
-                     mode="encode")
+    x, _ = _stack_apply(enc.blocks, cfg, x, _positions(B, S, x.device),
+                        mode="encode")  # the encoder's aux is dropped
     return common.norm_apply(enc.final_norm, x, cfg.norm,
                              rms_offset=cfg.rms_offset)
 
@@ -355,14 +386,19 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
 
-def forward(params: Transformer, cfg: ModelConfig, batch) -> torch.Tensor:
+def forward(params: Transformer, cfg: ModelConfig, batch, *,
+            return_aux: bool = False):
     """Full-sequence forward of a batch (tokens, + frames / patch_embeds)
-    -> logits (B, S, V), S counting the patches."""
+    -> logits (B, S, V), S counting the patches; with ``return_aux``
+    (logits, aux), aux the MoE terms ``load_balance`` and
+    ``dropped_frac`` (0-d f32, zero without MoE blocks), as the
+    reference's forward returns."""
     x, enc_out = _inputs(params, cfg, batch)
     B, S = x.shape[:2]
-    x = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
-                     enc_out=enc_out)
-    return logits_from_hidden(params, cfg, x)
+    x, aux = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
+                          enc_out=enc_out)
+    logits = logits_from_hidden(params, cfg, x)
+    return (logits, aux) if return_aux else logits
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -380,8 +416,8 @@ def prefill(params: Transformer, cfg: ModelConfig, batch, cache):
     ``cache``.  Returns (logits_last (B, V), cache)."""
     x, enc_out = _inputs(params, cfg, batch)
     B, S = x.shape[:2]
-    x = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
-                     mode="prefill", cache=cache, enc_out=enc_out)
+    x, _ = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
+                        mode="prefill", cache=cache, enc_out=enc_out)
     return logits_from_hidden(params, cfg, x[:, -1:, :])[:, 0], cache
 
 
@@ -422,8 +458,8 @@ def forward_paged(params: Transformer, cfg: ModelConfig, tokens, pool,
     (C == 1) through the same code.  tokens/positions/write_slots (B, C);
     view_slots (B, W).  Returns (logits (B, C, V), pool)."""
     x = embed_inputs(params, cfg, tokens)
-    x = _stack_apply(params.blocks, cfg, x, positions, mode="paged",
-                     cache=pool, paged=(write_slots, view_slots))
+    x, _ = _stack_apply(params.blocks, cfg, x, positions, mode="paged",
+                        cache=pool, paged=(write_slots, view_slots))
     return logits_from_hidden(params, cfg, x), pool
 
 
@@ -438,6 +474,6 @@ def decode_step(params: Transformer, cfg: ModelConfig, token, cache, pos):
         if pos.device.type == "cpu":
             _check_positions(cfg, int(pos.max()))
         x = x + params.pos_embedding[pos.long()][:, None].to(x.dtype)
-    x = _stack_apply(params.blocks, cfg, x, pos[:, None], mode="decode",
-                     cache=cache, pos=pos)
+    x, _ = _stack_apply(params.blocks, cfg, x, pos[:, None], mode="decode",
+                        cache=cache, pos=pos)
     return logits_from_hidden(params, cfg, x)[:, 0], cache

@@ -165,11 +165,16 @@ def _mlstm_chunk_parallel(state, inp):
 def mlstm_sequence_parallel(q, k, v, it, ft, state, *, chunk: int = 128):
     """The chunkwise-parallel form, chunks of ``chunk`` positions (the last
     one ragged), the state carried between them; equal to
-    :func:`mlstm_sequence`."""
+    :func:`mlstm_sequence`.  With a backward pass to come, each chunk is
+    rematerialized (``common.remat``)."""
+    grad = common.needs_grad(state, q, k, v, it, ft)
     hs = []
     for s in range(0, q.shape[1], chunk):
-        state, h = _mlstm_chunk_parallel(
-            state, tuple(t[:, s:s + chunk] for t in (q, k, v, it, ft)))
+        inp = tuple(t[:, s:s + chunk] for t in (q, k, v, it, ft))
+        # each chunk rematerialized for the backward pass, as the
+        # reference's jax.checkpoint of the chunk function
+        state, h = (common.remat(_mlstm_chunk_parallel, state, inp) if grad
+                    else _mlstm_chunk_parallel(state, inp))
         hs.append(h)
     return torch.cat(hs, dim=1), state
 

@@ -48,7 +48,9 @@ MUST_IMPORT = {
     "repro_torch.configs.llama4_maverick", "repro_torch.models.mamba",
     "repro_torch.models.xlstm", "repro_torch.configs.jamba_v01",
     "repro_torch.configs.xlstm_1b3", "repro_torch.configs.whisper_medium",
-    "repro_torch.configs.phi3_vision",
+    "repro_torch.configs.phi3_vision", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+    "repro_torch.runtime.driver", "repro_torch.launch.train",
 }
 
 
