@@ -146,18 +146,17 @@ Phases, any failure exits non-zero before the last line is printed:
    times, the aggregate uniform and learned weighted errors (the learned
    must be lower), the linears with learned <= uniform and the peak
    memory are printed.  The GPTQ and model-scope recipes run at full
-   width on 2 layers; the quality report (perplexity with the mean CE,
-   logit MSE, top-1 agreement) covers the dense model, uniform msgemm from
+   width on 1 layer (2 before the mesh phases' cut); the quality report
+   (perplexity with the mean CE, logit MSE, top-1 agreement) covers the dense model, uniform msgemm from
    the same weights and the learned model; the learned K/V table and its
    reconstruction error against the uniform grid's are printed.  The
-   learned model serves the stream on the graph and the eager route
-   (tokens == static generate, 126 msGeMM launches a step, every linear
-   on its own learned table), a learned int4 model serves it on
-   ``int4_torch`` (every plan, tokens == static generate, no kernel
-   launched), and the serve CLI runs ``--kv-bits 4 --kv-codebook learned
-   --check`` through ``paged_attn_cuda`` and ``paged_attn_torch`` (the
-   direct fit's table, the same tokens, 18 attention launches a step on
-   the kernel route).
+   learned model serves the stream on the graph route (tokens == static
+   generate, 126 msGeMM launches a step, every linear on its own learned
+   table), a learned int4 model at 1 layer serves it on ``int4_torch``
+   (every plan, tokens == static generate, no kernel launched), and the
+   serve CLI runs ``--kv-bits 4 --kv-codebook learned --check`` through
+   ``paged_attn_cuda`` and ``paged_attn_torch`` (the direct fit's table,
+   the same tokens, 18 attention launches a step on the kernel route).
    Every fault-free engine run of these phases and of phase 5 must use no
    rung of the resilience layer (``check_clean``: no shed, retry, NaN
    quarantine, replan or KV rebuild, no fault plan armed, no backend
@@ -196,8 +195,9 @@ Phases, any failure exits non-zero before the last line is printed:
    event per GeMM and step from the graph replays); int4 weights with
    ``--check`` (294 int4 launches per step); and one request of 4,440
    prompt tokens, past the 4096-token window, with int4 weights and
-   ``--check``.  The msgemm, int4 and long runs again with
-   ``--no-cuda-graph``: the same tokens.
+   ``--check``, and that one again with ``--no-cuda-graph``: the same
+   tokens.  (The msgemm and int4 runs' ``--no-cuda-graph`` twins were
+   cut for the mesh phases' time: gemma-2b holds graph == eager.)
 6. arch    — the other architectures at full width from seed 0 through
    the serve CLI (``repro_torch.launch.serve.main``, in process, the graph
    route, the 6-request stream): qwen2-moe-a2.7b at full depth with
@@ -205,8 +205,8 @@ Phases, any failure exits non-zero before the last line is printed:
    vocab head; 72 int4 launches, one a layer and expert projection over
    its 60-expert stack; its ``dropped_frac``), then on the same weights
    the eager route (the same tokens) and a kv8 pool through the
-   paged-attention kernel (24 launches a step, head dim 128) on the graph
-   and the eager route (the same tokens) and through the torch route
+   paged-attention kernel (24 launches a step, head dim 128; its eager
+   twin was cut for the mesh phases' time) and through the torch route
    (its agreement with the kernel route reported: a top-k router turns
    the routes' last-bit differences into other experts); llama4-maverick
    cut to 2 layers (one dense, one MoE block: top-1 of 128 experts,
@@ -272,15 +272,41 @@ Phases, any failure exits non-zero before the last line is printed:
    through the paged-attention kernel (18 launches a step) and the
    torch route (the same tokens).  Then gemma-2b cut to 2 layers takes
    one step from the same weights and batch on the card and on the CPU:
-   loss and grad_norm within 1e-4 relative with f32 activations (gated),
-   the bf16 difference reported.  Then ``runtime.driver.run`` at 2
-   layers (f32 activations), checkpoints under
+   loss and grad_norm within 1e-4 relative with f32 activations (gated;
+   the bf16 step was cut for the mesh phases' time).  Then ``runtime.driver.run`` at 2 layers (f32
+   activations), checkpoints under
    ``chiprun_out/train/``: a crash at step 3, a restart that resumes at
    the step-2 checkpoint with the uninterrupted losses (rtol 1e-5); and
    ``python -m repro_torch.launch.train --arch gemma_2b --smoke --steps
    12`` on its default device, the card.  The directory is removed
    after.  ``--only train`` runs the build and this phase alone.
-10. report — the card's name and power limit, then a ``kernels`` JSON line.
+10. mesh    — tensor-parallel serving (``dispatch.shard``) and the
+   calibration of expert stacks.  ``[mesh-kernels ...]``: gemma-2b's 7
+   GeMMs at b = 4, msgemm and int4 weights, under the model=2 and
+   model=4 specs ``shard_spec_for`` derives (d=3 / scale_block=36, the
+   served spec: wq, wk, wv, gate, up column-parallel, wo and down whole;
+   wo and down row-parallel at d=2 / scale_block=32, also at
+   ``pipeline_chunks = 2``): every rank's local kernel call against its
+   plain version, the combined output within 1e-5 of max |y| of the
+   unsharded kernel's, device ms of a local call beside the unsharded
+   one.  ``[mesh ...]``: two ranks on ``cuda:0``
+   (``launch.mesh.run_ranks``, gloo, host-staged collectives) each
+   holding its shards of full-width gemma-2b msgemm, serving the main
+   phase's stream eagerly on a model=2 mesh: tokens == the main phase's
+   (a differing step must be a single-device near-tie, top two within
+   1e-4 relative; counted), 126 msGeMM launches a step on each rank, the
+   collectives a step by kind, each rank's step ms and peak GiB.
+   ``[mesh-nccl ...]``: the same engine with its two ranks on ``cuda:0``
+   and ``cuda:1``, joined by NCCL, when two cards are visible (skipped
+   on one card, as the script runs with no arguments).
+   ``[calib-moe ...]``: qwen2-moe at full width and 2 layers calibrated
+   (learned aggregate error <= uniform, a (60, 16) table an expert
+   stack), served (its learned expert stacks on ``int4_torch``), the
+   experts' device ms a step.  ``--only mesh`` runs the build and this
+   phase alone (with the main phase's reference run first).
+11. report — the seconds of every phase (each phase also prints a
+   ``[phase] <name> <s>`` line when it ends), the card's name and power
+   limit, then a ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Needs no network; imports nothing of JAX.
@@ -1318,7 +1344,9 @@ def phase_main():
 
     spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
     model, cfg, build_s, size = build_gemma(spec)
-    run = serve("main", model, cfg)
+    run = serve("main", model, cfg, keep_logits=True)
+    # each token's top-two gap: the mesh phase's near-tie allowance
+    run["top2_rel"] = top2_gaps(run.pop("logits"))
     steps, launches = run["steps"], run["launches"]
     check(launches["msgemm"] == 126 * steps,
           f"msgemm launches {launches['msgemm']} != 126 x {steps} engine "
@@ -1904,7 +1932,7 @@ def phase_flash():
 
 # ------------------------------------------------------- calibration phase
 CALIB_DATA = dict(vocab_size=256000, seq_len=129, global_batch=4, mode="lcg")
-CALIB_REDUCED_LAYERS = 2  # the gptq and model-scope recipes' depth
+CALIB_REDUCED_LAYERS = 1  # the gptq and model-scope recipes' depth
 
 
 def calib_line(tag, res, stats_s, fit_s):
@@ -1928,9 +1956,14 @@ def calib_line(tag, res, stats_s, fit_s):
           f"({agg['learned_weighted_err'] / agg['uniform_weighted_err']:.4f}"
           f"x); learned <= uniform at {better} of {len(leaves)} linears; "
           f"peak {line['peak_bytes'] / 2**30:.2f} GiB", flush=True)
-    check(agg["num_linears"] == len(leaves) == len(res.codebooks),
-          f"[{tag}] the report lists {len(leaves)} linears of "
-          f"{agg['num_linears']}")
+    # an expert stack counts one linear an expert, with one table each
+    tables = sum(t.shape[0] if t.dim() == 2 else 1
+                 for t in res.codebooks.values())
+    check(len(leaves) == len(res.codebooks)
+          and agg["num_linears"] == tables,
+          f"[{tag}] the report lists {len(leaves)} leaves and "
+          f"{agg['num_linears']} linears; {len(res.codebooks)} codebooks "
+          f"hold {tables} tables")
     check(math.isfinite(agg["learned_weighted_err"]),
           f"[{tag}] learned error not finite")
     return line
@@ -1979,11 +2012,11 @@ def phase_calib(untuned=None, untuned_int4=None):
     """Calibration (``repro_torch.calib``, ``kvq.fit``) at full-width
     gemma-2b on the card: dense weights from seed 0, learned per-layer
     msgemm tables at full depth (gate: aggregate learned error below
-    uniform's); the gptq and model-scope recipes at 2 layers; the quality
+    uniform's); the gptq and model-scope recipes at 1 layer; the quality
     report of dense, uniform and learned models; the learned model served
-    on both step routes (tokens == static generate, 126 msGeMM launches a
-    step, every linear on its own table); a learned int4 model on
-    int4_torch; and ``--kv-codebook learned`` kv4 through the serve CLI on
+    on the graph route (tokens == static generate, 126 msGeMM launches a
+    step, every linear on its own table); a learned int4 model at 1 layer
+    on int4_torch; and ``--kv-codebook learned`` kv4 through the serve CLI on
     both attention routes.  ``untuned``/``untuned_int4``: phase 4's
     uniform msgemm and int4 runs, printed beside."""
     import torch
@@ -2085,36 +2118,35 @@ def phase_calib(untuned=None, untuned_int4=None):
           f"[calib-msgemm] launches {launches} != 126 msGeMM x {steps} "
           "steps and no other kernel")
     check_static("calib-msgemm", res.params, qcfg, run)
-    run["eager"] = check_eager("calib-msgemm", res.params, qcfg, run,
-                               dict(msgemm=126))
     run.pop("reqs")
     run.pop("exec_plans")
-    run["eager"].pop("exec_plans")
     base = (f"; uniform msgemm (phase 4): {untuned['step_ms']:.2f} ms, "
             f"{untuned['metrics']['tok_per_s']:.1f} tok/s"
             if untuned else "")
     print(f"[calib-msgemm] learned tables: engine tokens == static "
-          f"generate on both routes, 126 msGeMM launches a step; "
+          f"generate, 126 msGeMM launches a step; "
           f"{run['step_ms']:.2f} ms a step, "
-          f"{run['metrics']['tok_per_s']:.1f} tok/s (graph), "
-          f"{run['eager']['step_ms']:.2f} ms eager{base}", flush=True)
+          f"{run['metrics']['tok_per_s']:.1f} tok/s (graph){base}",
+          flush=True)
     out["serve"] = run
     del res
     gc.collect()
     torch.cuda.empty_cache()
 
-    # learned int4: int4_torch (the int4 kernel takes the uniform grid)
-    dense = transformer.init_params(CONFIG, generator=generator(0, "cuda"),
-                                    device="cuda")
+    # learned int4: int4_torch (the int4 kernel takes the uniform grid),
+    # at the reduced depth
+    dense = transformer.init_params(
+        small_cfg, generator=generator(0, "cuda"), device="cuda")
     spec4 = QuantSpec(mode="int4_dequant", d=3, scale_block=36,
                       storage="packed_u8")
     res4, out["int4"] = timed_calibrate(
-        "calib int4", dense, CONFIG, stream, calib.Recipe(), spec4)
+        f"calib int4 ({CALIB_REDUCED_LAYERS} layers)", dense, small_cfg,
+        stream, calib.Recipe(), spec4)
     del dense
     gc.collect()
     torch.cuda.empty_cache()
     check_learned_tables("calib int4", res4)
-    q4 = CONFIG.replace(quant=res4.quant)
+    q4 = small_cfg.replace(quant=res4.quant)
     run4 = serve("calib-int4", res4.params, q4)
     check(all(n == 0 for n in run4["launches"].values()),
           f"[calib-int4] a kernel launched: {run4['launches']}")
@@ -2128,11 +2160,12 @@ def phase_calib(untuned=None, untuned_int4=None):
     check_static("calib-int4", res4.params, q4, run4)
     run4.pop("reqs")
     run4.pop("exec_plans")
-    base = (f"; uniform int4 (phase 4, the kernel): "
+    base = (f"; uniform int4 at full depth (phase 4, the kernel): "
             f"{untuned_int4['step_ms']:.2f} ms, "
             f"{untuned_int4['metrics']['tok_per_s']:.1f} tok/s"
             if untuned_int4 else "")
-    print(f"[calib-int4] learned tables on int4_torch for all "
+    print(f"[calib-int4] {CALIB_REDUCED_LAYERS} layer(s): learned tables "
+          f"on int4_torch for all "
           f"{len(reqs)} GeMM plans: engine tokens == static generate; "
           f"{run4['step_ms']:.2f} ms a step, "
           f"{run4['metrics']['tok_per_s']:.1f} tok/s (graph){base}",
@@ -2686,21 +2719,6 @@ def serve_cli(tag, argv, per_step, arch="gemma2_9b", clean=True,
     return run
 
 
-def cli_eager(tag, argv, per_step, graph_run):
-    """The same CLI run with ``--no-cuda-graph``: the graph route's tokens
-    (held to static ``generate``'s by its ``--check``) and steps."""
-    argv = [a for a in argv if a != "--check"]
-    run = serve_cli(f"{tag} eager", [*argv, "--no-cuda-graph"], per_step)
-    check(run["tokens"] == graph_run["tokens"] and
-          run["steps"] == graph_run["steps"],
-          f"[{tag}] eager route tokens {run['tokens']} != graph route "
-          f"{graph_run['tokens']}")
-    print(f"[{tag}] eager route == graph route, token for token; "
-          f"{run['metrics']['tok_per_s']:.2f} tok/s eager, "
-          f"{graph_run['metrics']['tok_per_s']:.2f} graph", flush=True)
-    return run
-
-
 def check_artifacts(run, metrics_path, trace_path, steps_per_kind):
     """The serve CLI's --metrics-json and --trace-out files: valid under
     the port's validators, with the reference's series names, and the
@@ -2741,14 +2759,32 @@ def check_artifacts(run, metrics_path, trace_path, steps_per_kind):
                 complete_events=count)
 
 
+def cli_eager(tag, argv, per_step, graph_run):
+    """The same CLI run with ``--no-cuda-graph``: the graph route's tokens
+    (held to static ``generate``'s by its ``--check``) and steps."""
+    argv = [a for a in argv if a != "--check"]
+    run = serve_cli(f"{tag} eager", [*argv, "--no-cuda-graph"], per_step)
+    check(run["tokens"] == graph_run["tokens"] and
+          run["steps"] == graph_run["steps"],
+          f"[{tag}] eager route tokens {run['tokens']} != graph route "
+          f"{graph_run['tokens']}")
+    print(f"[{tag}] eager route == graph route, token for token; "
+          f"{run['metrics']['tok_per_s']:.2f} tok/s eager, "
+          f"{graph_run['metrics']['tok_per_s']:.2f} graph", flush=True)
+    return run
+
+
 def phase_gemma2_9b():
     """gemma2-9b at full width (42 layers, d_model 3584, vocab 256000) from
-    seed 0 through the port's serve CLI: msgemm weights with --check, and
-    again on the eager route (--no-cuda-graph); the same weights at kv8
-    through the paged-attention kernel and through the torch route (that
-    run writes --metrics-json and --trace-out); int4 weights with --check
-    and eager; and one request longer than the 4096-token window, int4
-    weights, --check, and eager."""
+    seed 0 through the port's serve CLI: msgemm weights with --check; the
+    same weights at kv8 through the paged-attention kernel and through the
+    torch route (that run writes --metrics-json and --trace-out); int4
+    weights with --check; and one request longer than the 4096-token
+    window, int4 weights, --check, and again on the eager route
+    (--no-cuda-graph): the one eager run of local, soft-capped attention
+    past the window.  (The msgemm and int4 runs' eager twins were cut to
+    make room for the mesh phases: the eager route's tokens equal the
+    graph route's on gemma-2b's main, int4 and plan phases.)"""
     from repro_torch.configs.gemma2_9b import CONFIG
 
     gemms = 7 * CONFIG.num_layers  # weight GeMMs per engine step
@@ -2757,8 +2793,6 @@ def phase_gemma2_9b():
                                dict(msgemm=gemms))}
     check(out["msgemm"]["checked"] == 6,
           "[gemma2-9b msgemm] --check did not run")
-    out["msgemm-eager"] = cli_eager("gemma2-9b msgemm", msgemm,
-                                    dict(msgemm=gemms), out["msgemm"])
     runs = {}
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
@@ -2790,8 +2824,6 @@ def phase_gemma2_9b():
     out["int4"]["same_as_msgemm"] = sum(
         t == out["msgemm"]["tokens"][rid]
         for rid, t in out["int4"]["tokens"].items())
-    out["int4-eager"] = cli_eager("gemma2-9b int4", int4,
-                                  dict(int4_matmul=gemms), out["int4"])
 
     # past the window: int4 weights (3x faster a layer than msGeMM), the
     # prompt in 256-token prefill chunks, one slot
@@ -3254,8 +3286,9 @@ def serve_moe(tag, arch, extra, profile):
     weights, no --check: capacity drops may differ from static generate,
     in the reference too), then on the same weights through the engine:
     the eager route (the CLI run's tokens); the kv8 pool through the
-    paged-attention kernel (one launch a layer and step) on the graph
-    and the eager route (the same tokens), and through the torch route.
+    paged-attention kernel (one launch a layer and step) and through the
+    torch route (the kv8 kernel route's eager twin was cut for the mesh
+    phases' time: the f32 pool's graph == eager stands).
     The kernel and the torch route differ in the last bits (phase 2 holds
     them within a bf16 ulp at these shapes), and a top-k router turns a
     last-bit difference into another expert, so their tokens are
@@ -3291,12 +3324,9 @@ def serve_moe(tag, arch, extra, profile):
           f"{run['step_ms']:.2f} ms graph", flush=True)
     eager.pop("reqs")
     kv = {}
-    for route, backend, graph in (("kernel", None, None),
-                                  ("kernel-eager", None, False),
-                                  ("torch", "paged_attn_torch", None)):
+    for route, backend in (("kernel", None), ("torch", "paged_attn_torch")):
         r = serve(f"{tag}-kv8-{route}", model, cfg,
-                  kv_quant=kvq.KVQuantSpec(8, backend=backend),
-                  **({} if graph is None else dict(cuda_graph=graph)))
+                  kv_quant=kvq.KVQuantSpec(8, backend=backend))
         attn = cfg.num_layers if backend is None else 0
         want = dict(msgemm=ms * r["steps"], int4_matmul=i4 * r["steps"],
                     paged_attention=attn * r["steps"], flash_attention=0)
@@ -3304,18 +3334,13 @@ def serve_moe(tag, arch, extra, profile):
               f"[{tag} kv8 {route}] launches {r['launches']} != {want}")
         r.pop("reqs")
         kv[route] = r
-    check(kv["kernel"]["tokens"] == kv["kernel-eager"]["tokens"]
-          and kv["kernel"]["dropped_frac"]
-          == kv["kernel-eager"]["dropped_frac"],
-          f"[{tag} kv8] kernel route, graph {kv['kernel']['tokens']} != "
-          f"eager {kv['kernel-eager']['tokens']}")
     toks, other = kv["kernel"]["tokens"], kv["torch"]["tokens"]
     same = sum(toks[rid] == other[rid] for rid in toks)
     lead = [next((i for i, (a, b) in enumerate(zip(toks[rid], other[rid]))
                   if a != b), len(toks[rid])) for rid in sorted(toks)]
     kv["same_as_torch_route"], kv["leading_agreement"] = same, lead
-    print(f"[{tag} kv8] kernel route: graph == eager, token for token "
-          f"({cfg.num_layers} attention launches a step, head dim "
+    print(f"[{tag} kv8] kernel route: "
+          f"{cfg.num_layers} attention launches a step (head dim "
           f"{cfg.head_dim}, {cfg.num_heads // cfg.num_kv_heads} query heads "
           f"a kv head); {same}/{len(toks)} requests equal the torch "
           f"route's tokens, tokens agreeing before the first difference "
@@ -3622,7 +3647,8 @@ def timed_generate(model, cfg, prompts, n):
 
 def decode_breakdown(tag, model, cfg, prompts, n=4):
     """Where a static decode step's time goes: ``n`` decode steps after a
-    prefill, once with tracing on (the device ms of the GeMMs by GeMM
+    prefill (one prefill, its cache copied for the second pass), once with
+    tracing on (the device ms of the GeMMs by GeMM
     marks: the expert stacks, the vocab head, the other weight GeMMs) and
     once under torch.profiler (device busy ms, the two weight kernels'
     device ms, the rest: the scans, element-wise ops and copies; for an
@@ -3655,10 +3681,19 @@ def decode_breakdown(tag, model, cfg, prompts, n=4):
         torch.cuda.synchronize()
         return logits, cache, pos0
 
+    def snapshot(state):
+        """The prefill's (logits, cache, pos0) with every tensor copied:
+        the profiled pass decodes from it without a second prefill."""
+        logits, cache, pos0 = state
+        return (logits.clone(),
+                [{k: v.clone() if torch.is_tensor(v) else v
+                  for k, v in layer.items()} for layer in cache], pos0)
+
     with torch.no_grad():
         obs.enable_tracing(clear=True)
         try:
             state = prefill()
+            saved = snapshot(state)
             obs.tracer().resolve_marks(obs.tracer().take_marks())
             obs.registry().reset(prefix="kernel_")
             decode(*state)
@@ -3673,7 +3708,7 @@ def decode_breakdown(tag, model, cfg, prompts, n=4):
             part = ("experts" if "e" in lb else
                     "head" if int(lb["m"]) == cfg.vocab_size else "other")
             gemm[part] += row["sum"] * 1e3 / n
-        state = prefill()
+        state = saved
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -4340,7 +4375,8 @@ def train_card_cpu():
     """One train step of full-width gemma-2b cut to ``CARD_CPU['layers']``
     layers from the same seed-0 weights and batch, on the card and on the
     CPU with the same port code: loss and grad_norm with f32 activations
-    within ``CARD_CPU_TOL`` (gated); with bf16 activations reported."""
+    within ``CARD_CPU_TOL`` (gated).  (The bf16-activation step, reported
+    only, was cut for the mesh phases' time.)"""
     import copy
 
     import torch
@@ -4358,7 +4394,7 @@ def train_card_cpu():
                 for k, v in card.state_dict().items()}
     host = copy.deepcopy(card).cpu()
     out = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32",):
         cfg = small.replace(dtype=dtype)
         got = {}
         for key, dev, model in (("card", "cuda", card),
@@ -4508,6 +4544,491 @@ def phase_train():
     return out
 
 
+# ------------------------------------------------------- the mesh phases
+MESH_SIZES = (2, 4)  # the model axis of the in-process kernel check
+# d=3 / scale_block=36 splits no gemma-2b contraction on a shard boundary
+# (1024 and 8192 are no multiples of 36), so every row-parallel check
+# also runs at d=2 / scale_block=32, where shard_spec_for does derive
+# k-sharded wo and down
+MESH_ROW_SPEC = dict(d=2, scale_block=32)
+MESH_NEAR_TIE = 1e-4  # relative gap of the single-device top two
+
+
+class ShapeMesh:
+    """A mesh's axis sizes alone (what shard_spec_for reads)."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+def mesh_gemm_case(mode, name, m, k, n, *, d, sb, seed=0):
+    """One gemma-2b GeMM at b = 4 under the ``model=n`` spec that
+    ``shard_spec_for`` derives: every rank's local kernel call held to its
+    plain version (the existing gate), the row-parallel ones also at
+    ``pipeline_chunks = 2``; the ranks' outputs concatenated
+    (column-parallel) or their partials summed in rank order
+    (row-parallel), within 1e-5 of max |y| of the unsharded kernel's
+    output; device ms of a local call (every rank's, and every chunk's,
+    has the same shape: rank 0's first is timed) beside the unsharded
+    call's.  None when the spec leaves the linear whole (nothing local to
+    run)."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.dispatch.shard import shard_spec_for
+    from repro_torch.distributed.sharding import LINEAR_AXES
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import msgemm as ms
+    from repro_torch.kernels import ops
+
+    b = 4
+    storage = "packed_u8" if mode == "int4_dequant" else "packed_idx"
+    spec = QuantSpec(mode=mode, d=d, scale_block=sb, storage=storage)
+    s = shard_spec_for(spec, LINEAR_AXES[name], m, k, b,
+                       ShapeMesh(model=n), rules="serve")
+    if s is None:
+        return None
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randint(0, 16, (m, k), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    sc = torch.rand((m, -(-k // sb)), generator=g, device="cuda") + 0.1
+    x = torch.randn((k, b), generator=g, device="cuda")
+    kw = dict(act="none", bias=None, residual=None, out_dtype=torch.float32)
+    if mode == "msgemm":
+        w = packing.pack_indices(codes, d).contiguous()
+        values = packing.b_values(torch.float32, "cuda")
+        per = d  # k per weight column
+
+        def kernel(w_, sc_, x_):
+            return ms.msgemm_cuda(w_, x_, sc_, values, d=d, scale_block=sb,
+                                  tiles=ops.msgemm_tiles(
+                                      w_.shape[0], w_.shape[1], b, d, sb),
+                                  **kw)
+
+        def plain(w_, sc_, x_):
+            return ms.msgemm_plain(w_, x_, sc_, values, d=d, scale_block=sb,
+                                   tiles=ops.msgemm_tiles(
+                                       w_.shape[0], w_.shape[1], b, d, sb),
+                                   **kw)
+    else:
+        w = packing.pack_storage(codes).contiguous()
+        per = 2
+
+        def kernel(w_, sc_, x_):
+            return i4.int4_matmul_cuda(
+                w_, sc_, x_, scale_block=sb,
+                tiles=ops.int4_tiles(w_.shape[0], x_.shape[0], b), **kw)
+
+        def plain(w_, sc_, x_):
+            return i4.int4_matmul_plain(
+                w_, sc_, x_, scale_block=sb,
+                tiles=ops.int4_tiles(w_.shape[0], x_.shape[0], b), **kw)
+
+    def timed(w_, sc_, x_):
+        nbytes = w_.numel() * w_.element_size()
+        copies = ops.copies_past_l2(nbytes)
+        ws = [w_] + [w_.clone() for _ in range(copies - 1)]
+        return device_ms([lambda a=a: kernel(a, sc_, x_) for a in ws],
+                         reps=max(20, 2 * copies))
+
+    whole = kernel(w, sc, x)
+    out = dict(mode=mode, name=name, m=m, k=k, b=b, d=d, scale_block=sb,
+               model=n, spec=s.tag(), ms=timed(w, sc, x), local=[])
+    # pipeline_chunks=2 as shard_spec_for clamps it for this local k
+    chunkings = sorted({1, shard_spec_for(
+        spec, LINEAR_AXES[name], m, k, b, ShapeMesh(model=n), rules="serve",
+        pipeline_chunks=2).pipeline_chunks}) if s.k else (1,)
+    ymax = float(whole.abs().max())
+    for pc in chunkings:
+        parts, errs, local_ms = [], [], []
+        for r in range(n):
+            if s.m:
+                ml = m // n
+                w_r, sc_r, x_r = (w[r * ml:(r + 1) * ml],
+                                  sc[r * ml:(r + 1) * ml], x)
+                pieces = [(w_r, sc_r, x_r)]
+            else:
+                kl = k // n
+                w_r = w[:, r * kl // per:(r + 1) * kl // per]
+                sc_r = sc[:, r * kl // sb:(r + 1) * kl // sb]
+                x_r = x[r * kl:(r + 1) * kl]
+                kc = kl // pc
+                pieces = [(w_r[:, c * kc // per:(c + 1) * kc // per]
+                           .contiguous(),
+                           sc_r[:, c * kc // sb:(c + 1) * kc // sb]
+                           .contiguous(),
+                           x_r[c * kc:(c + 1) * kc].contiguous())
+                          for c in range(pc)]
+            y_r = None
+            for w_c, sc_c, x_c in pieces:
+                w_c, sc_c = w_c.contiguous(), sc_c.contiguous()
+                got = kernel(w_c, sc_c, x_c)
+                want = plain(w_c, sc_c, x_c)
+                torch.testing.assert_close(
+                    got, want, **FLOAT_TOL,
+                    msg=lambda m_: f"[mesh-kernels {mode} {name} model={n} "
+                                   f"rank {r} pc={pc}] kernel vs plain: {m_}")
+                errs.append(float((got - want).abs().max()))
+                if not local_ms:  # every rank's call has this shape
+                    local_ms.append(timed(w_c, sc_c, x_c))
+                y_r = got if y_r is None else y_r + got
+            parts.append(y_r)
+        comb = torch.cat(parts, 0) if s.m else sum(parts[1:], parts[0])
+        err = float((comb - whole).abs().max())
+        check(err <= 1e-5 * ymax,
+              f"[mesh-kernels {mode} {name} model={n} pc={pc}] combined "
+              f"output {err:.3e} from the unsharded kernel's (max |y| "
+              f"{ymax:.3e})")
+        out["local"].append(dict(pipeline_chunks=pc, calls=len(errs),
+                                 max_abs_err=max(errs), combined_err=err,
+                                 ymax=ymax, local_ms=local_ms[0]))
+        print(f"[mesh-kernels {mode} d{d} {name:4s} model={n} pc={pc}] "
+              f"{s.tag()}: {len(errs)} local calls, kernel vs plain "
+              f"{max(errs):.2e}, combined vs unsharded {err:.2e} (max |y| "
+              f"{ymax:.2e}); ms: unsharded {out['ms']:.4f}, a local call "
+              f"{local_ms[0]:.4f}", flush=True)
+    return out
+
+
+def phase_mesh_kernels():
+    """The kernels at the local shapes a tensor-parallel gemma-2b gives them
+    (:func:`mesh_gemm_case`): msGeMM and int4 weights, d=3 /
+    scale_block=36 (the served spec: column-parallel wq, wk, wv, gate,
+    up; wo and down whole) and the row-parallel wo and down at
+    ``MESH_ROW_SPEC``, under model=2 and model=4."""
+    cases, whole = [], []
+    for mode in ("msgemm", "int4_dequant"):
+        for name, m, k, _ in GEMMA_GEMMS:
+            for n in MESH_SIZES:
+                c = mesh_gemm_case(mode, name, m, k, n, d=3, sb=36)
+                if c is None:
+                    whole.append(f"{mode} {name} model={n}")
+                else:
+                    cases.append(c)
+                if name in ("wo", "down"):
+                    c = mesh_gemm_case(mode, name, m, k, n,
+                                       **{"d": MESH_ROW_SPEC["d"],
+                                          "sb": MESH_ROW_SPEC["scale_block"]})
+                    check(c is not None and "k=model" in c["spec"],
+                          f"[mesh-kernels] {mode} {name} model={n} is not "
+                          f"row-parallel at {MESH_ROW_SPEC}")
+                    cases.append(c)
+    print(f"[mesh-kernels] {len(cases)} sharded cases held; whole at d=3 / "
+          f"scale_block=36 (no aligned split): {', '.join(whole)}",
+          flush=True)
+    return dict(cases=cases, whole=whole)
+
+
+def mesh_reference():
+    """The main phase's run (msgemm gemma-2b, f32 pool, graph route) with
+    each token's single-device logits, for ``--only mesh``."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.spec import QuantSpec
+
+    model, cfg, _, _ = build_gemma(QuantSpec(mode="msgemm", d=3,
+                                             scale_block=36))
+    run = serve("mesh-ref", model, cfg, keep_logits=True)
+    run["top2_rel"] = top2_gaps(run.pop("logits"))
+    run.pop("reqs")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def top2_gaps(logits):
+    """{rid: [(top1 - top2) / |top1| of each token's logits row]}."""
+    import torch
+
+    out = {}
+    for rid, rows in logits.items():
+        top = torch.stack(rows).topk(2, dim=-1).values
+        out[rid] = ((top[:, 0] - top[:, 1]) / top[:, 0].abs()).tolist()
+    return out
+
+
+MESH_COLL_SHAPE = (4, 2048)  # a decode step's rows of a gemma-2b width
+
+
+def mesh_coll_input(rank):
+    """Rank ``rank``'s integer-valued input to the collective check (sums
+    of such values are exact in any order)."""
+    import torch
+
+    g = torch.Generator().manual_seed(1000 + rank)
+    return torch.randint(-64, 65, MESH_COLL_SHAPE, generator=g).float()
+
+
+def mesh_collectives(device):
+    """Every collective of ``distributed.collectives`` on a CUDA tensor
+    over the model axis (the group's own and the rings), on this rank's
+    :func:`mesh_coll_input`: {name: result on the host}."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
+
+    mesh = sharding.active_mesh()
+    y = mesh_coll_input(sharding.coord(mesh, "model")).to(device)
+    out = {}
+    for name in ("psum", "ring_psum"):
+        out[name] = getattr(coll, name)(y, "model")
+    for name in ("psum_scatter", "ring_reduce_scatter", "all_gather",
+                 "ring_all_gather"):
+        out[name] = getattr(coll, name)(y, "model", dim=-1)
+    check(all(t.device == y.device for t in out.values()),
+          "[mesh] a collective returned off the rank's device")
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def mesh_rank(rank, device, seed):
+    """One rank of the two-rank engine (``launch.mesh.run_ranks``): full
+    gemma-2b with msgemm weights from ``seed`` on ``device``, sharded
+    over a model=2 mesh, serving the main phase's stream eagerly.  Every
+    kernel's launches and the collectives are counted over the run
+    alone."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.device import generator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
+    t0 = time.perf_counter()
+    model = transformer.init_params(CONFIG, generator=generator(seed, device),
+                                    device=device, quant=spec)
+    cfg = CONFIG.replace(quant=spec)
+    mesh = make_mesh((2,), ("model",))
+    from repro_torch.distributed import sharding
+
+    with sharding.use(mesh, "serve"):
+        collectives = mesh_collectives(device)
+    engine = make_engine(model, cfg, mesh=mesh, cuda_graph=False)
+    del model  # the engine keeps this rank's shards
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    n_plans = len(engine.exec_plans)
+    n_sharded = sum(p.shard is not None for p in engine.exec_plans.values())
+    torch.cuda.reset_peak_memory_stats(device)
+    for mod in KERNELS.values():
+        mod.launches = 0
+    coll.reset_counts()
+    steps0 = engine.runner.steps_run
+    t0 = time.perf_counter()
+    results = engine.run(request_stream(cfg))
+    torch.cuda.synchronize(device)
+    run_s = time.perf_counter() - t0
+    steps = engine.runner.steps_run - steps0
+    return dict(rank=rank, device=str(device), build_s=build_s, run_s=run_s,
+                steps=steps, step_ms=run_s * 1e3 / max(steps, 1),
+                launches={n: mod.launches for n, mod in KERNELS.items()},
+                collectives=dict(coll.counts), transport=coll.transport(),
+                collective_check=collectives,
+                peak_bytes=torch.cuda.max_memory_allocated(device),
+                plans=n_plans, sharded=n_sharded,
+                tokens={rid: s.generated for rid, s in results.items()},
+                status={rid: s.status for rid, s in results.items()})
+
+
+def phase_mesh_engine(ref, card, devices=("cuda:0", "cuda:0"),
+                      tag="mesh"):
+    """Two ranks on ``devices`` with a model=2 mesh (one process each):
+    sharing ``cuda:0``, joined by gloo with host-staged collectives; on
+    two cards, by NCCL.  Each holds its shards of full-width gemma-2b
+    msgemm (f32 pool) and serves the main phase's 6-request stream
+    eagerly: tokens == the main phase's (a step where they differ must be
+    a single-device near-tie, top two within ``MESH_NEAR_TIE`` relative;
+    counted), 126 msGeMM launches a step on each rank and no
+    paged-attention one; collectives a step by kind, each rank's step ms
+    and peak GiB beside the card."""
+    from repro_torch.distributed.collectives import NCCL, STAGED
+    from repro_torch.launch.mesh import run_ranks
+
+    devices = list(devices)
+    want_transport = STAGED if len(set(devices)) == 1 else NCCL
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, 2, 0, devices=devices, timeout=600)
+    wall_s = time.perf_counter() - t0
+    lead = ranks[0]
+    check([r["device"] for r in ranks] == devices,
+          f"[{tag}] ranks ran on {[r['device'] for r in ranks]}")
+    check(all(r["transport"] == want_transport for r in ranks),
+          f"[{tag}] transport {[r['transport'] for r in ranks]} != "
+          f"{want_transport}")
+    import torch
+
+    xs = [mesh_coll_input(r) for r in range(2)]
+    total, half = xs[0] + xs[1], MESH_COLL_SHAPE[-1] // 2
+    for r in ranks:
+        want = dict(psum=total, ring_psum=total,
+                    psum_scatter=total[:, r["rank"] * half:
+                                       (r["rank"] + 1) * half],
+                    all_gather=torch.cat(xs, dim=-1))
+        want["ring_reduce_scatter"] = want["psum_scatter"]
+        want["ring_all_gather"] = want["all_gather"]
+        got = r.pop("collective_check")  # tensors: not for the report
+        for name, t in want.items():
+            check(torch.equal(got[name], t),
+                  f"[{tag}] rank {r['rank']}: {name} over {lead['transport']}"
+                  " differs from the sum or concatenation of the inputs")
+    print(f"[{tag}] every collective (psum, psum_scatter, all_gather and "
+          f"the three rings) on a {MESH_COLL_SHAPE} CUDA tensor == the "
+          f"sum or concatenation of the ranks' inputs, exactly", flush=True)
+    ties, diff_steps = 0, []
+    for rid, want in sorted(ref["tokens"].items()):
+        got = lead["tokens"][rid]
+        check(lead["status"][rid] == "ok" and len(got) == NEW_TOKENS,
+              f"[{tag}] request {rid}: status {lead['status'][rid]}, "
+              f"{len(got)} tokens")
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+        if first is not None:
+            gap = ref["top2_rel"][rid][first]
+            check(gap <= MESH_NEAR_TIE,
+                  f"[{tag}] request {rid} step {first}: token {got[first]} "
+                  f"!= {want[first]}, single-device top two {gap:.2e} apart "
+                  f"(more than {MESH_NEAR_TIE})")
+            ties += 1
+            diff_steps.append((rid, first, gap))
+    for r in ranks:
+        check(r["tokens"] == lead["tokens"],
+              f"[{tag}] rank {r['rank']} returned other tokens")
+        want = dict(msgemm=126 * r["steps"], paged_attention=0,
+                    int4_matmul=0, flash_attention=0)
+        check(r["launches"] == want,
+              f"[{tag}] rank {r['rank']} launches {r['launches']} != {want} "
+              f"over {r['steps']} steps")
+    per_step = {k: v / lead["steps"] for k, v in lead["collectives"].items()}
+    for r in ranks:
+        print(f"[{tag}] rank {r['rank']} on {r['device']}: build "
+              f"{r['build_s']:.1f}s, {r['steps']} steps in {r['run_s']:.2f}s "
+              f"({r['step_ms']:.2f} ms a step), peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; launches {r['launches']}",
+              flush=True)
+    where = "one card" if len(set(devices)) == 1 else "two cards"
+    print(f"[{tag}] 2 ranks on {where} ({card}), transport "
+          f"{lead['transport']}: {lead['plans']} plans resolved at build, "
+          f"{lead['sharded']} sharded; collectives a step "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(per_step.items()))
+          + f"; tokens == the main phase's on {6 - ties}/6 requests, "
+          f"{ties} near-tie steps {diff_steps}; phase wall {wall_s:.1f}s",
+          flush=True)
+    return dict(ranks=ranks, wall_s=wall_s, near_ties=ties,
+                near_tie_steps=diff_steps, collectives_a_step=per_step,
+                launches=dict(msgemm=sum(r["launches"]["msgemm"]
+                                         for r in ranks)))
+
+
+def phase_calib_moe():
+    """Calibration of expert stacks (the repair of this slice) on the card:
+    qwen2-moe at full width, 2 layers (the serve CLI's ``--num-layers``
+    cut), dense weights from seed 0; the learned aggregate weighted error
+    at most the uniform one, one (60, 16) table an expert stack; the
+    calibrated model served through the engine (graph route), its dense
+    linears on msGeMM with their tables and its learned expert stacks on
+    ``int4_torch`` (no int4 kernel launch); the experts' device ms a step
+    from GeMM marks, beside the kernel's 43.36 ms of a full 24-layer
+    qwen2-moe step (PERF.md §5)."""
+    import gc
+
+    import torch
+
+    from repro_torch import calib
+    from repro_torch.configs.qwen2_moe import CONFIG
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.device import generator
+    from repro_torch.models import transformer
+
+    cfg = CONFIG.replace(num_layers=2)
+    dense = transformer.init_params(cfg, generator=generator(0, "cuda"),
+                                    device="cuda")
+    stream = SyntheticStream(DataConfig(**dict(
+        CALIB_DATA, vocab_size=cfg.vocab_size)))
+    res, line = timed_calibrate(
+        "calib-moe", dense, cfg, stream,
+        calib.Recipe(calib_steps=2, kmeans_iters=8, sample_limit=1 << 17),
+        QuantSpec(mode="msgemm", d=3, scale_block=36))
+    del dense
+    gc.collect()
+    check(line["learned_weighted_err"] <= line["uniform_weighted_err"],
+          "[calib-moe] learned aggregate error above the uniform grid's")
+    for layer in range(cfg.num_layers):
+        for lin in ("up", "gate", "down"):
+            cb = res.codebooks[f"blocks.{layer}.moe.experts.{lin}"]
+            check(tuple(cb.shape) == (cfg.num_experts, 16),
+                  f"[calib-moe] {lin} of layer {layer}: tables "
+                  f"{tuple(cb.shape)}")
+    check_learned_tables("calib-moe", res)
+    qcfg = cfg.replace(quant=res.quant)
+    ms_step, i4_step = moe_launches(cfg)
+    run = serve("calib-moe", res.params, qcfg)
+    want = dict(msgemm=ms_step * run["steps"], int4_matmul=0,
+                paged_attention=0, flash_attention=0)
+    check(run["launches"] == want,
+          f"[calib-moe] launches {run['launches']} != {want} (learned "
+          "expert stacks run int4_torch)")
+    run.pop("reqs")
+    prof = moe_profile("calib-moe", res.params, qcfg)
+    experts = prof["ms_a_step"]["experts"]
+    print(f"[calib-moe] served: {run['steps']} steps, {run['step_ms']:.2f} "
+          f"ms a step; learned expert stacks on int4_torch "
+          f"{experts:.3f} ms a step over {cfg.num_layers} layers "
+          f"({experts / cfg.num_layers:.3f} a layer), the uniform stacks' "
+          f"int4 kernel 43.36 ms a 24-layer step ({43.36 / 24:.3f} a layer; "
+          "PERF.md §5)", flush=True)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(calib=line, serve=run, profile=prof)
+
+
+def phase_mesh(card, ref=None):
+    """The mesh phases: the in-process kernel check, the two-rank engine
+    against ``ref`` (the main phase's run with its top-two gaps; built
+    here when None), the same engine on two cards joined by NCCL where
+    two are visible, the calibration of expert stacks."""
+    import torch
+
+    out = {"kernels": phase("mesh-kernels", phase_mesh_kernels)}
+    if ref is None:
+        ref = phase("mesh-ref", mesh_reference)
+    out["engine"] = phase("mesh", phase_mesh_engine, ref, card)
+    if torch.cuda.device_count() >= 2:
+        out["engine_nccl"] = phase("mesh-nccl", phase_mesh_engine, ref,
+                                   card, ("cuda:0", "cuda:1"), "mesh-nccl")
+    else:
+        print("[mesh-nccl] skipped: one card (two ranks on two cards, "
+              "joined by NCCL, run where two are visible)", flush=True)
+    out["calib_moe"] = phase("calib-moe", phase_calib_moe)
+    return out
+
+
+PHASE_S: dict = {}
+
+
+def phase(name, fn, *args, **kw):
+    """Run one phase; print and keep its seconds (``[phase] name s``)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"[phase] {name} {PHASE_S[name]:.1f}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4519,9 +5040,12 @@ def main() -> int:
                          "rows per block, flash tiles and stages, "
                          "paged-attention chunk lengths, int4 GeMM split "
                          "counts, or one of those (chiprun_out/sweep.json)")
-    ap.add_argument("--only", choices=("train",),
+    ap.add_argument("--only", choices=("train", "mesh"),
                     help="only build, then run this phase (a probe: no "
-                         "kernels line and no ok line)")
+                         "kernels line and no ok line); 'mesh' runs the "
+                         "mesh phases (kernels at local shapes, the "
+                         "two-rank engine, the calibration of expert "
+                         "stacks)")
     args = ap.parse_args()
     try:
         import torch
@@ -4564,6 +5088,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] {', '.join(p.name for p in libs.values())} in "
           f"{build_s:.1f}s", flush=True)
+    PHASE_S["build"] = build_s
+    print(f"[phase] build {build_s:.1f}", flush=True)
 
     if args.sweep:
         rows = []
@@ -4577,23 +5103,25 @@ def main() -> int:
         out.mkdir(exist_ok=True)
         (out / "sweep.json").write_text(json.dumps(rows, indent=1))
         return 0
-    if args.only == "train":
-        train = phase_train()
+    if args.only:
+        res = phase(args.only, phase_train) if args.only == "train" else \
+            phase_mesh(card)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
-        (out / "chip_smoke_train.json").write_text(json.dumps(
-            train, indent=1, default=str))
+        (out / f"chip_smoke_{args.only}.json").write_text(json.dumps(
+            dict(result=res, phase_s=PHASE_S), indent=1, default=str))
         print(f"[report] total {time.perf_counter() - t_start:.1f}s")
         return 0
-    cases = phase_kernels()
-    int4_cases = phase_int4_kernels()
-    expert_cases = phase_int4_experts()
-    arch_gemm = phase_arch_gemms()
-    attn_cases = phase_attn_kernels()
-    flash = phase_flash()
-    main_path = phase_main()
+    cases = phase("kernels", phase_kernels)
+    int4_cases = phase("int4-kernels", phase_int4_kernels)
+    expert_cases = phase("int4-experts", phase_int4_experts)
+    arch_gemm = phase("arch-gemms", phase_arch_gemms)
+    attn_cases = phase("attn-kernels", phase_attn_kernels)
+    flash = phase("flash", phase_flash)
+    main_path = phase("main", phase_main)
     model, cfg = main_path.pop("model"), main_path.pop("cfg")
-    kvq_path = phase_main_kvq(model, cfg, main_path["tokens"])
+    kvq_path = phase("main-kvq", phase_main_kvq, model, cfg,
+                     main_path["tokens"])
     if args.profile:
         from repro_torch.kvq import KVQuantSpec
 
@@ -4604,29 +5132,30 @@ def main() -> int:
     check(len(dispatch.cache()) == 0,
           "[plan] the untuned paths wrote the plan cache")
     obs.registry().reset(prefix="kernel_")
-    plan_path = {"msgemm": phase_plan("plan-msgemm", model, cfg, main_path,
-                                      dict(msgemm=126))}
+    plan_path = {"msgemm": phase("plan-msgemm", phase_plan, "plan-msgemm",
+                                 model, cfg, main_path, dict(msgemm=126))}
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    int4_path = phase_main_int4(main_path["tokens"])
+    int4_path = phase("main-int4", phase_main_int4, main_path["tokens"])
     model, cfg = int4_path.pop("model"), int4_path.pop("cfg")
     if args.profile:
         int4_path["profile"] = phase_profile("int4", model, cfg)
-    plan_path["int4"] = phase_plan("plan-int4", model, cfg, int4_path,
-                                   dict(int4_matmul=126))
+    plan_path["int4"] = phase("plan-int4", phase_plan, "plan-int4", model,
+                              cfg, int4_path, dict(int4_matmul=126))
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    plan_path["cli"] = phase_plan_cli()
+    plan_path["cli"] = phase("plan-cli", phase_plan_cli)
     dispatch.set_cache_path(PLAN_CACHE)  # the serve CLI pointed it away
-    calib_path = phase_calib(main_path, int4_path)
-    res_path = phase_resilience(card)
-    gemma2 = phase_gemma2_9b()
-    arch = phase_arch(profile=args.profile)
-    recurrent = phase_recurrent()
-    encdec = phase_encdec()
-    train = phase_train()
+    calib_path = phase("calib", phase_calib, main_path, int4_path)
+    res_path = phase("resilience", phase_resilience, card)
+    gemma2 = phase("gemma2-9b", phase_gemma2_9b)
+    arch = phase("arch", phase_arch, profile=args.profile)
+    recurrent = phase("recurrent", phase_recurrent)
+    encdec = phase("encdec", phase_encdec)
+    train = phase("train", phase_train)
+    mesh = phase_mesh(card, main_path)
 
     def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b",
                     x_dtype="float32"):
@@ -4652,7 +5181,7 @@ def main() -> int:
     # the MoE models' runs: their int4 launches are the expert stacks'
     moe_runs = [r for key in ("qwen2-moe", "llama4") for r in (
         arch[key], arch[key]["eager"], *(arch[key]["kv8"][r] for r in (
-            "kernel", "kernel-eager", "torch")))] + [recurrent["jamba"]]
+            "kernel", "torch")))] + [recurrent["jamba"]]
     # every path's engine runs, each read with the counts set to 0 before
     runs = ([main_path, main_path["eager"], int4_path, int4_path["eager"],
              kvq_path["kv8"]["kernel-eager"]]
@@ -4662,11 +5191,10 @@ def main() -> int:
                for mode in ("msgemm", "int4") for r in ("", "eager",
                                                         "traced")]
             + [plan_path["cli"][r] for r in ("tune", "sentinel")]
-            + [calib_path["serve"], calib_path["serve"]["eager"],
+            + [calib_path["serve"],
                calib_path["int4"]["serve"]]
             + [calib_path["kv4_learned"][r] for r in ("kernel", "torch")]
-            + [gemma2[k] for k in ("msgemm", "int4", "long", "msgemm-eager",
-                                   "int4-eager", "long-eager")]
+            + [gemma2[k] for k in ("msgemm", "int4", "long", "long-eager")]
             + [gemma2["kv8"][r] for r in ("kernel", "torch")]
             + [res_path[k] for k in ("clean", "latency", "oom", "step_fail",
                                      "disconnect", "nan_logits", "ladder",
@@ -4682,7 +5210,9 @@ def main() -> int:
             + [encdec[k] for k in ("whisper", "whisper-1500", "whisper-int4",
                                    "phi3")]
             + [train["serve"]["engine"]]
-            + [train["serve"]["kv8"][r] for r in ("kernel", "torch")])
+            + [train["serve"]["kv8"][r] for r in ("kernel", "torch")]
+            + [mesh["calib_moe"]["serve"]] + mesh["engine"]["ranks"]
+            + mesh.get("engine_nccl", {}).get("ranks", []))
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])
                 for name in ("msgemm", "int4_matmul", "paged_attention")}
@@ -4759,7 +5289,7 @@ def main() -> int:
         main=main_path, kvq=kvq_path,
         int4=int4_path, plan=plan_path, calib=calib_path,
         resilience=res_path, gemma2_9b=gemma2, recurrent=recurrent,
-        encdec=encdec, train=train,
+        encdec=encdec, train=train, mesh=mesh, phase_s=PHASE_S,
         gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     for key, e in ([("gemma-2b msgemm", kernels[0]),
@@ -4767,6 +5297,8 @@ def main() -> int:
         print(f"[report] {key} layer: kernel {e['ms']:.4f} ms, matmul "
               f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
               f"({e['shape']})")
+    print("[report] phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_S.items()))
     print(f"[report] total {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -44,7 +44,7 @@ from repro_torch.calib import stats as calib_stats
 from repro_torch.calib.codebook import Codebook, uniform_values
 from repro_torch.core import linear as qlinear
 from repro_torch.core import packing, scales
-from repro_torch.core.spec import QuantSpec
+from repro_torch.core.spec import QuantSpec, expert_spec
 from repro_torch.device import resolve
 from repro_torch.quant.quantize import QUANTIZABLE
 
@@ -92,7 +92,8 @@ class Recipe:
 class CalibResult:
     params: Any                   # the servable quantized model
     quant: Any                    # the QuantSpec it was built for
-    codebooks: dict               # module path -> (16,) value table
+    codebooks: dict               # module path -> (16,) value table, (E, 16)
+    #                               for an expert stack
     report: dict                  # per-layer + aggregate weighted errors
     collector: Any                # the StatsCollector (for inspection)
 
@@ -276,12 +277,19 @@ def _sample_weights(s, wb_shape, cw_b) -> torch.Tensor:
 
 # ---------------------------------------------------------------- walking
 def _quantizable_leaves(model) -> list:
-    """(module path, name, QLinear) of every dense quantizable linear."""
+    """(module path, name, QLinear) of every dense quantizable linear; a
+    MoE block's expert stacks (``w`` (E, out, in)) among them."""
     return [(path, path.rsplit(".", 1)[-1], mod)
             for path, mod in model.named_modules()
             if isinstance(mod, qlinear.QLinear)
             and path.rsplit(".", 1)[-1] in QUANTIZABLE
             and "w" in mod.params()]
+
+
+def _tag_for(path: str, name: str) -> str:
+    """The statistics tag of a leaf: an expert stack's inputs are recorded
+    under ``moe_<name>`` (``models.moe``), apart from the dense MLP's."""
+    return ("moe_" + name) if "experts" in path.split(".") else name
 
 
 def _reference_groups(leaves, cfg) -> list:
@@ -321,6 +329,14 @@ def calibrate(model, cfg, data, recipe: Recipe = Recipe(), *, quant=None,
     ``device`` (default: the card) is where the model lives and the fit
     runs.
 
+    A MoE block's expert stack is fitted one table an expert, from the
+    statistics its block records under ``moe_<name>`` (the reference's
+    slices of its stacked leaf): its codebook is (E, 16), its leaves are
+    stored under ``core.spec.expert_spec`` (int4 codes two a byte) and,
+    learned, it runs on ``int4_torch``.  Its report entry averages its
+    experts' errors, and each expert counts as one linear in the
+    aggregate, as the reference counts slices.
+
     Returns a :class:`CalibResult` whose ``params`` is a new model that
     serves through every path under ``cfg.replace(quant=result.quant)``;
     ``model`` is left as it was.
@@ -350,11 +366,11 @@ def calibrate(model, cfg, data, recipe: Recipe = Recipe(), *, quant=None,
         zs, ws = [], []
         per_leaf = max(recipe.sample_limit // max(len(groups), 1), 4096)
         for group in groups:
-            name = group[0][1]
+            tag = _tag_for(group[0][0], group[0][1])
             w = torch.cat([mod.params()["w"] for _, _, mod in group])
-            w = w.to(torch.float64)
+            w = w.to(torch.float64).reshape(-1, w.shape[-1])
             s, wb, cw_b = fit_block_scales(w, uniform, quant.scale_block,
-                                           colw_for(name, w.shape[-1]))
+                                           colw_for(tag, w.shape[-1]))
             z = (wb / s[..., None]).reshape(-1)
             wt = _sample_weights(s, wb.shape, cw_b)
             if z.numel() > per_leaf:
@@ -371,43 +387,62 @@ def calibrate(model, cfg, data, recipe: Recipe = Recipe(), *, quant=None,
     modules = dict(out.named_modules())
     codebooks: dict[str, torch.Tensor] = {}
     report: dict[str, dict] = {}
-    sum_uni, sum_learned = 0.0, 0.0
+    sum_uni, sum_learned, n = 0.0, 0.0, 0
     for path, name, mod in leaves:
         w = mod.params()["w"]
-        w64 = w.to(torch.float64)
+        tag = _tag_for(path, name)
         k = w.shape[-1]
-        colw = colw_for(name, k)
-        H = (collector.get(name, k).hessian
+        colw = colw_for(tag, k)
+        H = (collector.get(tag, k).hessian
              if recipe.rounding == "gptq" else None)
-        if recipe.method == "uniform" or (
-                recipe.scope == "model" and model_values is None):
-            values = uniform
-        elif recipe.scope == "model":
-            values = model_values
+        # an expert stack is fitted expert by expert, one table each, as
+        # the reference fits each slice of its stacked leaf
+        stack = w.dim() == 3
+        parts, tables, leaf_uni, leaf_new = [], [], 0.0, 0.0
+        for w2 in (w.unbind(0) if stack else (w,)):
+            w64 = w2.to(torch.float64)
+            if recipe.method == "uniform" or (
+                    recipe.scope == "model" and model_values is None):
+                values = uniform
+            elif recipe.scope == "model":
+                values = model_values
+            else:
+                s, wb, cw_b = fit_block_scales(w64, uniform,
+                                               quant.scale_block, colw)
+                values = fit_codebook((wb / s[..., None]).reshape(-1),
+                                      _sample_weights(s, wb.shape, cw_b),
+                                      iters=recipe.kmeans_iters,
+                                      sample_limit=recipe.sample_limit)
+                del s, wb, cw_b
+                Codebook(values=values).check()
+            qt = quantize_slice(w64, quant, values, col_weights=colw, H=H,
+                                recipe=recipe)
+            del w64
+            w32 = w2.to(torch.float32)
+            qt_uni = scales.quantize_int4(w32, quant.scale_block)
+            e_uni = float(scales.weighted_quantization_error(w32, qt_uni,
+                                                             colw))
+            e_new = float(scales.weighted_quantization_error(w32, qt, colw))
+            del w32, qt_uni
+            leaf_uni += e_uni
+            leaf_new += e_new
+            parts.append(qt)
+            tables.append(values)
+        sum_uni += leaf_uni
+        sum_learned += leaf_new
+        n += len(parts)
+        if stack:
+            spec = expert_spec(quant)
+            leaves_e = [qlinear.from_quantized(qt, spec) for qt in parts]
+            modules[path].load({key: torch.stack([p[key] for p in leaves_e])
+                                for key in leaves_e[0]})
+            codebooks[path] = torch.stack(tables)
         else:
-            s, wb, cw_b = fit_block_scales(w64, uniform, quant.scale_block,
-                                           colw)
-            values = fit_codebook((wb / s[..., None]).reshape(-1),
-                                  _sample_weights(s, wb.shape, cw_b),
-                                  iters=recipe.kmeans_iters,
-                                  sample_limit=recipe.sample_limit)
-            del s, wb, cw_b
-            Codebook(values=values).check()
-        qt = quantize_slice(w64, quant, values, col_weights=colw, H=H,
-                            recipe=recipe)
-        del w64
-        w32 = w.to(torch.float32)
-        qt_uni = scales.quantize_int4(w32, quant.scale_block)
-        e_uni = float(scales.weighted_quantization_error(w32, qt_uni, colw))
-        e_new = float(scales.weighted_quantization_error(w32, qt, colw))
-        del w32, qt_uni
-        sum_uni += e_uni
-        sum_learned += e_new
-        modules[path].load(qlinear.from_quantized(qt, quant))
-        codebooks[path] = values
-        report[path] = {"uniform_weighted_err": e_uni,
-                        "learned_weighted_err": e_new}
-    n = len(leaves)
+            modules[path].load(qlinear.from_quantized(parts[0], quant))
+            codebooks[path] = tables[0]
+        report[path] = {"uniform_weighted_err": leaf_uni / len(parts),
+                        "learned_weighted_err": leaf_new / len(parts)}
+        del parts
     report["aggregate"] = {
         "num_linears": n,
         "uniform_weighted_err": sum_uni / max(n, 1),

@@ -7,8 +7,9 @@ paths; ``plan()`` maps (spec, m, k, batch, device) to a frozen
 :class:`ExecPlan` from an explicit plan, the persistent autotune cache,
 the autotuner or the shape heuristic (``dispatch.plan``);
 ``execute()`` runs one linear through it under the process's default
-:class:`ExecPolicy` (``using_policy``).  Sharding waits for the multi-GPU
-slice.
+:class:`ExecPolicy` (``using_policy``).  Under an active mesh
+(``distributed.sharding.use``) a linear that names its logical axes runs
+sharded (``dispatch.shard.run_sharded``) on this rank's leaves.
 
 Each ``execute`` reports through ``repro_torch.obs`` under the reference's
 names: ``dispatch_epilogue_total{fused}`` once per call that carries a
@@ -37,6 +38,11 @@ from repro_torch.dispatch.plan import (  # noqa: F401
     set_default_policy, using_policy,
 )
 from repro_torch.dispatch import backends as _backends  # noqa: F401 (registers)
+from repro_torch.dispatch import shard  # noqa: F401
+from repro_torch.distributed import sharding
+from repro_torch.dispatch.shard import (  # noqa: F401
+    ShardSpec, mesh_tag, plan_shard_tag, shard_spec_for,
+)
 # the tuner function lives at dispatch.autotune.autotune: the bare name is
 # not re-exported, so the ``autotune`` submodule stays addressable
 from repro_torch.dispatch.autotune import (  # noqa: F401
@@ -67,7 +73,8 @@ def _infer_k(params: dict, spec: QuantSpec) -> int:
 def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
             plan_override: ExecPlan | None = None,
             policy: ExecPolicy | None = None,
-            epilogue: Epilogue | None = None, bias=None, residual=None):
+            epilogue: Epilogue | None = None, bias=None, residual=None,
+            shard_axes: tuple | None = None, out_dim: int | None = None):
     """Run one linear ``x (..., k) -> y (..., m)`` through the registry.
 
     Execution choices: ``plan_override`` > ``policy`` > the process's
@@ -81,10 +88,19 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
     expert axis E, x (E, ..., k)) plans per expert shape, its key
     carrying E (``plan_key``), and runs int4_dequant or bf16 weights;
     its epilogue takes no bias or residual.
+
+    ``shard_axes`` (the weight's logical (out, in) axis names) makes the
+    linear mesh-aware: under an active mesh its plan carries a ShardSpec
+    and it runs on this rank's leaves (``params``, cut at build by
+    ``dispatch.shard.shard_linear``; ``out_dim`` is then the whole m),
+    one contraction collective and the epilogue after it
+    (``dispatch.shard.run_sharded``).  ``batch`` counts the step's whole
+    rows when they are split over the ranks (``sharding.split_rows``);
+    whole rows are not batch-sharded.
     """
     k = in_dim if in_dim is not None else _infer_k(params, spec)
     lead = params["w"] if spec.mode == "bf16" else params["scales"]
-    m = lead.shape[-2]
+    m = out_dim if out_dim is not None else lead.shape[-2]
     experts = lead.shape[0] if lead.dim() == 3 else 0
     if experts:
         if spec.mode == "msgemm":
@@ -96,8 +112,22 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
         batch = math.prod(x.shape[1:-1])
     else:
         batch = math.prod(x.shape[:-1]) if x.ndim > 1 else 1
-    p = plan_override or plan(spec, m, k, batch, device_type=x.device.type,
-                              policy=policy, experts=experts)
+    mesh = None
+    if shard_axes is not None and not experts and x.ndim > 1:
+        mesh = sharding.active_mesh()
+    if mesh is not None:
+        # the batch axis shards the rows only where they are split: the
+        # engine's step (sharding.split_rows); whole rows derive none
+        rows = sharding.rows_factor()
+        p = plan_override or plan(spec, m, k, batch * rows,
+                                  device_type=x.device.type, policy=policy,
+                                  shard_axes=shard_axes,
+                                  lead_batch=x.shape[0] * rows
+                                  if rows > 1 else 1)
+    else:
+        p = plan_override or plan(spec, m, k, batch,
+                                  device_type=x.device.type, policy=policy,
+                                  experts=experts)
     be = get_backend(p.backend)
     d = plan_d(spec, m, k)
     if not be.supports(spec, d):
@@ -118,6 +148,10 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
             "dispatch_epilogue_total",
             help="non-identity epilogues by fused/unfused execution",
             fused="true" if fuse else "false").inc()
+    if mesh is not None and p.shard is not None and p.shard.is_sharded:
+        return shard.run_sharded(be, spec, p, params, x, k=k, m=m,
+                                 mesh=mesh, epilogue=epilogue, bias=bias,
+                                 residual=residual, fuse=fuse)
     mark = f"gemm.{be.name}.m{m}.k{k}.b{batch}" + (
         f".e{experts}" if experts else "")
     x = obs.mark_begin(x, mark)

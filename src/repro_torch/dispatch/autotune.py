@@ -1,5 +1,9 @@
 """Shape-keyed autotuner with a persistent JSON plan cache; port of
-repro.dispatch.autotune (the shard-variant tuner waits for multi-GPU).
+repro.dispatch.autotune.  Sharded plans key and tune on their local
+shard shapes (``dispatch.plan``); the reference's shard-variant tuner
+(pipeline chunks and collective impl timed per key) is not ported
+(ROADMAP A13c): its table, ``shard_variants``, round-trips through the
+cache file, and nothing plans from it.
 
 For a (spec, m, k, batch, backend, device) key the tuner times every
 candidate tile choice of the Hopper kernel on synthetic data shaped
@@ -97,6 +101,7 @@ class PlanCache:
         self.path = Path(path) if path is not None else default_cache_path()
         self._plans: dict[str, ExecPlan] = {}
         self._timings: dict[str, list] = {}
+        self._variants: dict[str, dict] = {}
         self._loaded = False
 
     def load(self) -> "PlanCache":
@@ -116,11 +121,15 @@ class PlanCache:
             t = raw.get("timings")
             if isinstance(t, dict):
                 self._timings.update(t)
+            v = raw.get("shard_variants")
+            if isinstance(v, dict):
+                self._variants.update(v)
         except (KeyError, ValueError, TypeError, AttributeError):
             # parsed and CRC-clean but schema-invalid (e.g. hand-edited):
             # quarantine like any other corruption and start empty
             self._plans.clear()
             self._timings.clear()
+            self._variants.clear()
             artifacts.quarantine(self.path, "plan_cache", reason="schema")
         return self
 
@@ -135,6 +144,10 @@ class PlanCache:
         if self._timings:
             payload["timings"] = {k: self._timings[k]
                                   for k in sorted(self._timings)}
+        if self._variants:
+            # additive table: a file without it loads as before
+            payload["shard_variants"] = {k: self._variants[k]
+                                         for k in sorted(self._variants)}
         artifacts.atomic_write_json(self.path, artifacts.stamp_crc(payload))
         ev = faults.fire("corrupt_plan_cache")
         if ev is not None:
@@ -161,6 +174,22 @@ class PlanCache:
         if not self._loaded:
             self.load()
         return self._timings.get(key)
+
+    def shard_variant(self, key: str) -> dict | None:
+        """The tuned (pipeline_chunks, collective_impl) of a sharded key,
+        or None."""
+        if not self._loaded:
+            self.load()
+        return self._variants.get(key)
+
+    def put_shard_variant(self, key: str, variant: dict, *,
+                          persist: bool = True) -> None:
+        if not self._loaded:
+            self.load()
+        self._variants[key] = dict(variant)
+        invalidate()
+        if persist:
+            self.save()
 
     def timing_keys(self) -> list[str]:
         if not self._loaded:
@@ -299,9 +328,12 @@ def _model_prune(cands: list[ExecPlan], spec: QuantSpec, d: int, m: int,
 def autotune(spec: QuantSpec, m: int, k: int, batch: int, backend: str, *,
              device_type: str = "cuda", acc_dtype: str = "float32",
              reps: int | None = None, persist: bool = True,
-             search: str = "auto", experts: int = 0) -> ExecPlan:
+             search: str = "auto", experts: int = 0,
+             tag: str = "-") -> ExecPlan:
     """Time the candidates of one key on ``device_type``; cache and return
-    the winner (the cached plan at once when the key is known).
+    the winner (the cached plan at once when the key is known).  ``tag``:
+    the key's shard field (``dispatch.shard.plan_shard_tag``; m, k and
+    batch are then one rank's kernel shape).
 
     ``search``: 'full' times every candidate; 'model' and 'auto' time the
     ``MODEL_TOP_K`` the calibrated perf model ranks best, the heuristic
@@ -320,7 +352,7 @@ def autotune(spec: QuantSpec, m: int, k: int, batch: int, backend: str, *,
     be = registry.get_backend(backend)
     d = plan_d(spec, m, k)
     key = plan_key(backend, spec, d, m, k, batch, device, acc_dtype,
-                   experts=experts)
+                   shard=tag, experts=experts)
     hit = cache().get(key)
     if hit is not None:
         return hit
@@ -375,25 +407,28 @@ def warm(requests, *, policy: ExecPolicy | None = None,
     ``dispatch.collecting()``.  With ``policy.autotune`` each tunable key
     is measured (its winner persisted); otherwise keys resolve to their
     cached winner, else to the heuristic, which is not written to the
-    cache, so a later tuning run can still improve it.  Returns {plan
-    key: plan}."""
+    cache, so a later tuning run can still improve it.  A sharded
+    request keys and tunes on its local kernel shape and its shard tag,
+    and its plan carries the request's ShardSpec.  Returns {plan key:
+    plan}."""
     policy = policy or ExecPolicy()
     out: dict[str, ExecPlan] = {}
     for req in dict.fromkeys(requests):
         d = plan_d(req.spec, req.m, req.k)
         key = plan_key(req.backend, req.spec, d, req.m, req.k, req.batch,
                        device_name(req.device_type), policy.acc_dtype,
-                       experts=req.experts)
+                       shard=req.tag, experts=req.experts)
         if policy.autotune and registry.get_backend(req.backend).tunable:
             p = autotune(req.spec, req.m, req.k, req.batch, req.backend,
                          device_type=req.device_type,
                          acc_dtype=policy.acc_dtype, persist=persist,
-                         search=policy.search, experts=req.experts)
+                         search=policy.search, experts=req.experts,
+                         tag=req.tag)
         else:
             p = cache().get(key) or heuristic_plan(
                 req.spec, d, req.m, req.k, req.batch, req.backend,
                 req.experts)
-        out[key] = p
+        out[key] = dataclasses.replace(p, shard=req.shard)
     return out
 
 

@@ -3,6 +3,11 @@ repro.dispatch.plan.
 
 ``plan(spec, m, k, batch) -> ExecPlan`` answers "how should THIS shape
 run on THIS device": which registered backend, and which Hopper tiles.
+Under an active mesh (``distributed.sharding.use``) a linear that names
+its logical axes (``shard_axes``) gets a ShardSpec
+(``dispatch.shard.shard_spec_for``), and its tiles, cache key and
+tuning are those of one rank's kernel shape (``ShardSpec.exec_mkb``),
+keyed by the shard tag.
 Plans come from three sources, in precedence order:
 
 1. an explicit ``ExecPolicy.plan`` override (tests, power users);
@@ -34,7 +39,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import NamedTuple
 
 import torch
@@ -42,6 +47,10 @@ import torch
 from repro_torch import obs
 from repro_torch.core.spec import QuantSpec
 from repro_torch.dispatch import registry
+from repro_torch.dispatch.shard import (
+    COLLECTIVE_IMPLS, COLLECTIVES, mesh_tag, plan_shard_tag, shard_spec_for,
+)
+from repro_torch.distributed.sharding import active_mesh, active_rules
 from repro_torch.kernels import ops
 from repro_torch.kernels.int4_matmul import Int4Tiles
 from repro_torch.kernels.msgemm import Tiles
@@ -60,6 +69,9 @@ class ExecPlan:
     epilogue : allow fusing a requested Epilogue into the kernel's
         writeback when the backend accepts it; False runs the same ops
         after the GeMM.
+    shard : the linear's layout on the active mesh
+        (``dispatch.shard.ShardSpec``), derived at plan time and never
+        persisted; None off-mesh or for a linear that runs whole.
     source : provenance, 'heuristic' | 'autotuned' | 'explicit';
         metadata only, excluded from equality and hash.
     """
@@ -67,6 +79,7 @@ class ExecPlan:
     backend: str
     tiles: Tiles | Int4Tiles | None = None
     epilogue: bool = True
+    shard: object = None
     source: str = field(default="heuristic", compare=False)
 
 
@@ -84,14 +97,34 @@ class ExecPolicy:
         the pruned sweep.  False tunes nothing.
     acc_dtype : accumulation type, part of the cache key; only float32.
     plan : an explicit ExecPlan (skips planning entirely).
+    shard_collective : how row-parallel linears resolve their partial
+        sums under a mesh: 'psum' | 'reduce_scatter'.
+    shard_pipeline : contraction chunks of a row-parallel linear (1: one
+        collective a linear).  The reference's 0 (its tuned variant of
+        the key) waits for the shard-variant tuner (ROADMAP A13c).
+    shard_impl : the collective's implementation: 'xla' (the group's
+        own) | 'ring' (point-to-point hops).
     """
 
     backend: str | None = None
     autotune: bool | str = False
     acc_dtype: str = "float32"
     plan: ExecPlan | None = None
+    shard_collective: str = "psum"
+    shard_pipeline: int = 1
+    shard_impl: str = "xla"
 
     def __post_init__(self):
+        if self.shard_collective not in COLLECTIVES:
+            raise ValueError(f"shard_collective={self.shard_collective!r} "
+                             f"must be one of {COLLECTIVES}")
+        if self.shard_impl not in COLLECTIVE_IMPLS:
+            raise ValueError(f"shard_impl={self.shard_impl!r} must be one "
+                             f"of {COLLECTIVE_IMPLS}")
+        if int(self.shard_pipeline) < 1:
+            raise ValueError(f"shard_pipeline={self.shard_pipeline} must "
+                             "be >= 1 (the tuned variant, 0, is not "
+                             "ported: ROADMAP A13c)")
         if self.acc_dtype not in ACC_DTYPES:
             raise ValueError(f"acc_dtype={self.acc_dtype!r} must be one of "
                              f"{ACC_DTYPES}: both kernels accumulate in f32")
@@ -139,7 +172,8 @@ def using_policy(policy: ExecPolicy | None):
 # ------------------------------------------------------- plan collection
 class PlanRequest(NamedTuple):
     """One collected plan() call; ``warm`` resolves it to exactly the
-    plan the later call will ask for."""
+    plan the later call will ask for.  m, k and batch are the kernel's
+    shape: one rank's under a ShardSpec (``shard``, keyed by ``tag``)."""
 
     spec: QuantSpec
     m: int
@@ -148,6 +182,8 @@ class PlanRequest(NamedTuple):
     backend: str
     device_type: str = "cuda"
     experts: int = 0  # the stack's E; 0 for one linear
+    shard: object = None
+    tag: str = "-"
 
 
 _collector: list | None = None
@@ -200,10 +236,12 @@ def plan_key(backend: str, spec: QuantSpec, d: int, m: int, k: int,
              batch: int, device: str, acc_dtype: str = "float32",
              shard: str = "-", experts: int = 0) -> str:
     """Shape key of the persistent plan cache, in the reference's field
-    order.  ``device`` is :func:`device_name`'s; ``shard`` stays '-'
-    until sharded planning is ported.  An expert stack (``experts`` E >
-    0: m, k and batch are one expert's) appends ``|e{E}``; a single
-    linear's key is the reference's."""
+    order.  ``device`` is :func:`device_name`'s; ``shard`` is the mesh /
+    shard tag (``dispatch.shard.plan_shard_tag``: '-' off-mesh), and a
+    sharded key's m, k and batch are one rank's kernel shape, so a plan
+    measured on one device is never replayed sharded, nor the reverse.
+    An expert stack (``experts`` E > 0: m, k and batch are one expert's)
+    appends ``|e{E}``; a single linear's key is the reference's."""
     return (f"{device}|{backend}|{spec.mode}|d{d}|sb{spec.scale_block}|"
             f"{spec.storage}|cb{spec.codebook}|m{m}|k{k}|b{batch}|"
             f"acc{acc_dtype}|sh{shard}"
@@ -246,28 +284,64 @@ def select(spec: QuantSpec, d: int, device_type: str,
     return registry.select_backend(spec, d, device_type)
 
 
+def _shard_of(spec: QuantSpec, m: int, k: int, batch: int, policy,
+              shard_axes, lead_batch):
+    """(ShardSpec or None, tag) of a linear under the active mesh."""
+    mesh = active_mesh()
+    shard = shard_spec_for(spec, shard_axes, m, k, batch, mesh,
+                           lead_batch=lead_batch,
+                           collective=policy.shard_collective,
+                           rules=active_rules(),
+                           pipeline_chunks=policy.shard_pipeline,
+                           collective_impl=policy.shard_impl)
+    if shard is not None and not shard.is_sharded:
+        shard = None
+    return shard, plan_shard_tag(shard, mesh)
+
+
 def plan(spec: QuantSpec, m: int, k: int, batch: int = 1, *,
          device_type: str = "cuda", policy: ExecPolicy | None = None,
-         experts: int = 0) -> ExecPlan:
+         experts: int = 0, shard_axes: tuple | None = None,
+         lead_batch: int | None = None) -> ExecPlan:
     """Resolve the execution of one (spec, shape) on ``device_type``
     (m, k: the linear's out and in dims; batch: the flattened rows;
     experts: the E of an expert stack, whose m, k and batch are one
-    expert's, 0 for one linear)."""
+    expert's, 0 for one linear).
+
+    ``shard_axes``: the weight's logical (out, in) axis names (the
+    ``distributed.sharding.LINEAR_AXES`` entry of its tag).  Under an
+    active mesh they derive the plan's ShardSpec; m, k and batch stay the
+    linear's whole dims and the batch its whole rows (``lead_batch``: the
+    activations' leading dim, what the batch axis shards; defaults to
+    ``batch``), while tiles, cache key and tuning take the local kernel
+    shape."""
     policy = policy or _default_policy
     if policy.plan is not None:
         return policy.plan
+    amesh = active_mesh()
+    mesh = amesh if shard_axes is not None else None
     if _collector is None:
         key = (spec, m, k, batch, device_type, policy, experts)
+        if amesh is not None:
+            key += (shard_axes, lead_batch, mesh_tag(amesh), active_rules())
         hit = _memo.get(key)
         if hit is not None:
             return hit
     d = plan_d(spec, m, k)
     be = select(spec, d, device_type, policy)
+    shard, tag = None, "-"
+    if mesh is not None:
+        shard, tag = _shard_of(spec, m, k, batch, policy, shard_axes,
+                               lead_batch)
+    elif amesh is not None:
+        tag = mesh_tag(amesh)
+    lm, lk, lb = shard.exec_mkb(m, k, batch) if shard else (m, k, batch)
     if _collector is not None:
         # collection is a dry run: no resolution, nothing counted
-        _collector.append(PlanRequest(spec, m, k, batch, be.name,
-                                      device_type, experts))
-        return heuristic_plan(spec, d, m, k, batch, be.name, experts)
+        _collector.append(PlanRequest(spec, lm, lk, lb, be.name,
+                                      device_type, experts, shard, tag))
+        return replace(heuristic_plan(spec, d, lm, lk, lb, be.name,
+                                      experts), shard=shard)
 
     reg = obs.registry()
     reg.counter("dispatch_backend_selected_total",
@@ -275,20 +349,23 @@ def plan(spec: QuantSpec, m: int, k: int, batch: int = 1, *,
     from repro_torch.dispatch import autotune as at
 
     device = device_name(device_type)
-    cached = at.cache().get(plan_key(be.name, spec, d, m, k, batch, device,
-                                     policy.acc_dtype, experts=experts))
+    cached = at.cache().get(plan_key(be.name, spec, d, lm, lk, lb, device,
+                                     policy.acc_dtype, tag,
+                                     experts=experts))
     reg.counter("dispatch_plan_cache_total",
                 help="persistent plan-cache lookups",
                 result="hit" if cached is not None else "miss").inc()
     if cached is not None:
         p = cached
     elif policy.autotune and be.tunable and not _capturing():
-        p = at.autotune(spec, m, k, batch, be.name, device_type=device_type,
+        p = at.autotune(spec, lm, lk, lb, be.name, device_type=device_type,
                         acc_dtype=policy.acc_dtype, search=policy.search,
-                        experts=experts)
+                        experts=experts, tag=tag)
     else:
-        p = heuristic_plan(spec, d, m, k, batch, be.name, experts)
+        p = heuristic_plan(spec, d, lm, lk, lb, be.name, experts)
         if policy.autotune and be.tunable:
-            return p  # a capture kept it from tuning: resolve again later
+            return replace(p, shard=shard)  # a capture kept it from
+            # tuning: resolve again later
+    p = replace(p, shard=shard)
     _memo[key] = p
     return p

@@ -1,0 +1,480 @@
+"""Logical-axis sharding rules; port of repro.distributed.sharding.
+
+Tensors are annotated with *logical* axis names; a rule table maps logical
+axes to mesh axes.  Spec construction is shape-aware and greedy, exactly
+as the reference's:
+
+* logical axes are resolved in PRIORITY order (e.g. 'expert' grabs the
+  'model' mesh axis before 'mlp' does, 'kvheads' before 'kv_seq');
+* a mesh axis is used at most once per spec;
+* a candidate mesh axis is skipped when the dim size is not divisible by
+  its size (qwen2-moe's 60 experts fall through to per-expert TP on
+  mlp=1408).
+
+A spec is a tuple with one entry a dim: None, a mesh axis name, or a
+tuple of names (only 'batch' folds, over 'pod' x 'data') — the
+reference's ``PartitionSpec`` as a tuple; :func:`compat.placements`
+turns it into DTensor placements.
+
+The tables are the reference's, copied.  The tree functions walk the
+port's modules (``param_specs``: buffer names such as
+``blocks.3.attn.wq.idx``, the names ``convert.port_path`` gives) and
+caches (a list of per-layer dicts).  The port's leaves carry no stacked
+'layers' dim (one module a layer), so a spec here is the reference's
+without its leading 'layers' entry; an expert stack keeps its leading
+'expert' dim.
+
+On the port's serving path a mesh runs as one process a device, each
+holding plain tensors: its own shard of every sharded weight and pool,
+and whole activations, except that a step's batch rows may be split over
+the batch axis (:func:`split_rows`, set by the engine).
+:func:`constrain` takes this rank's slice of a whole tensor along the
+dims its spec shards (no communication), and :func:`gather_rows` gathers
+split batch rows.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+
+import torch
+
+from repro_torch.distributed import compat
+
+# Resolution priority: earlier names grab contested mesh axes first.
+PRIORITY = (
+    "batch", "expert", "expert_out", "heads", "kvheads", "mlp", "vocab",
+    "embed", "mamba_inner", "xl_inner", "kv_seq", "seq", "capacity",
+    "stack", "layers", "head_dim", "conv", "state", "scales", "expert_in",
+    "none",
+)
+assert PRIORITY.index("seq") > PRIORITY.index("heads")
+
+# logical axis -> candidate mesh axes, tried in order.
+ACT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),  # folded: batch shards over pod x data
+    # sequence-parallel fallback: when heads/kvheads cannot take the model
+    # axis (llama4: 40 heads, gemma-2b: 8 heads on model=16), activations
+    # shard over seq instead, bounding the attention-logits footprint.
+    # PRIORITY puts 'seq' after heads/kvheads/mlp, so it only fires when
+    # those fail divisibility.
+    "seq": ("model",),
+    "kv_seq": ("model",),  # decode caches: shard seq when heads cannot
+    "heads": ("model",),
+    "kvheads": ("model",),
+    "head_dim": (),
+    "embed": (),
+    "mlp": ("model",),
+    "vocab": ("model",),
+    "expert": ("model",),
+    # dispatch capacity dim = (examples x per-example slots): the major
+    # factor is the batch, so 'data' sharding stays representable; without
+    # it the dispatch buffers replicate when E can't take 'model'
+    # (qwen2-moe: 5.4 GB/device -> 335 MB).
+    "capacity": ("data",),
+    # Expert FFN weights: out-dim takes the first free of model/data, the
+    # in (contraction) dim stays replicated.  With E | model (llama4,
+    # jamba) experts are then fully (expert x data)-sharded with NO FSDP
+    # gather — tokens move to experts (EP all-to-all), not weights to
+    # tokens.  With E unshardable (qwen2-moe 60) this degrades gracefully
+    # to per-expert TP on 'model'.
+    "expert_out": ("model", "data"),
+    "expert_in": (),
+    "mamba_inner": ("model",),
+    "xl_inner": ("model",),
+    "state": (),
+    "conv": (),
+    "stack": (),
+    "layers": (),
+    "scales": (),
+    "none": (),
+}
+
+# Param tables: 2D FSDP x TP — big output dims on 'model', the residual
+# ('embed') dim additionally on 'data' (ZeRO-3).  Expert FFN weights get
+# the mlp dim on 'data' when 'model' is already taken by the expert dim.
+PARAM_RULES: dict[str, tuple[str, ...]] = dict(
+    ACT_RULES,
+    embed=("data",),
+    batch=(),
+    kv_seq=(),
+)
+
+# A rule-set bundle selectable per run (cfg.logical_rules).
+RULE_SETS = {
+    "default": (ACT_RULES, PARAM_RULES),
+    # serving at batch=1 (long_500k): nothing to gain from data-parallel
+    # activations; keep params TP-only so no all-gathers on the hot path.
+    "serve_tp": (
+        dict(ACT_RULES, batch=()),
+        dict(PARAM_RULES, embed=()),
+    ),
+    # batched serving (the continuous engine): activations keep the full
+    # default table (batch over data, kvheads over model), but params
+    # drop the embed/data FSDP dim — weights are TP-resident, so the
+    # sharded quantized linears (repro_torch.dispatch.shard) see their
+    # storage sharding exactly match their local shapes and the hot path
+    # issues no per-layer FSDP gathers.
+    "serve": (ACT_RULES, dict(PARAM_RULES, embed=())),
+}
+
+
+class _Ctx(threading.local):
+    mesh = None
+    rules: str = "default"
+    rows: str | None = None  # the mesh axis a step's batch rows split over
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def use(mesh, rules: str = "default"):
+    """Activate a mesh + rule set for logical constraints."""
+    if rules not in RULE_SETS:
+        raise ValueError(f"rules={rules!r}: one of {sorted(RULE_SETS)}")
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = mesh, rules
+    try:
+        with compat.set_mesh(mesh):
+            yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def active_mesh():
+    return _CTX.mesh
+
+
+def active_rules() -> str:
+    return _CTX.rules
+
+
+def _resolve(axes: tuple, shape: tuple, mesh, table: dict) -> tuple:
+    """Greedy shape-aware logical->mesh resolution."""
+    sizes = compat.axes_of(mesh)
+    order = sorted(
+        range(len(axes)),
+        key=lambda i: PRIORITY.index(axes[i]) if axes[i] in PRIORITY else 99,
+    )
+    used: set[str] = set()
+    out: list = [None] * len(axes)
+    for i in order:
+        name = axes[i]
+        if name is None or name == "none":
+            continue
+        fold = name == "batch"  # only batch folds ('pod' x 'data')
+        for cand in table.get(name, ()):
+            if cand not in sizes or cand in used:
+                continue
+            if shape[i] % sizes[cand] == 0:
+                out[i] = cand if out[i] is None else tuple(
+                    (out[i] if isinstance(out[i], tuple) else (out[i],))
+                    + (cand,))
+                used.add(cand)
+                if not fold:
+                    break  # fallback semantics: first available candidate
+        # combined divisibility for folded axes
+        if isinstance(out[i], tuple):
+            total = math.prod(sizes[a] for a in out[i])
+            if shape[i] % total != 0:
+                out[i] = out[i][0]
+    return tuple(out)
+
+
+def spec_for(axes: tuple, shape: tuple, *, mesh=None, kind: str = "act",
+             rules: str | None = None) -> tuple:
+    """The spec of a tensor of logical ``axes`` and ``shape``; ``()``
+    without a mesh (the reference's ``P()``)."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return ()
+    act, par = RULE_SETS[rules or _CTX.rules]
+    return _resolve(tuple(axes), tuple(shape), mesh,
+                    act if kind == "act" else par)
+
+
+# ------------------------------------------------------ per-rank tensors
+def coord(mesh, axis: str) -> int:
+    """This rank's index along ``axis``."""
+    return int(mesh.get_local_rank(axis))
+
+
+def _names(entry) -> tuple:
+    return () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+def local_slice(x: torch.Tensor, spec: tuple, mesh, *,
+                skip=()) -> torch.Tensor:
+    """This rank's block of a whole tensor ``x`` under ``spec`` (dims in
+    ``skip`` left whole); a view where it can be one."""
+    sizes = compat.axes_of(mesh)
+    for dim, entry in enumerate(spec):
+        if dim in skip:
+            continue
+        for name in _names(entry):  # a folded entry splits major-first
+            n = sizes[name]
+            if n == 1:
+                continue
+            size = x.shape[dim] // n
+            x = x.narrow(dim, coord(mesh, name) * size, size)
+    return x
+
+
+def local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """The shape of this rank's block of a ``shape`` tensor under
+    ``spec``."""
+    sizes = compat.axes_of(mesh)
+    return tuple(s // math.prod(sizes[a] for a in _names(e))
+                 for s, e in zip(shape, spec))
+
+
+def _batch_dims(axes: tuple) -> tuple:
+    return tuple(i for i, a in enumerate(axes) if a == "batch")
+
+
+def constrain(x: torch.Tensor, *axes):
+    """This rank's slice of the whole tensor ``x`` along the dims the
+    active rules shard (no communication), the counterpart of the
+    reference's ``with_sharding_constraint``; the 'batch' dim is left as
+    it is (the engine places rows, :func:`split_rows`).  Without a mesh
+    returns ``x`` itself."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    if len(axes) != x.ndim:
+        raise ValueError(f"axes {axes} vs shape {tuple(x.shape)}")
+    spec = spec_for(axes, _whole_shape(x.shape, axes, mesh), mesh=mesh)
+    return local_slice(x, spec, mesh, skip=_batch_dims(axes))
+
+
+def _whole_shape(shape, axes, mesh) -> tuple:
+    """The shape whose rules decide a constraint: a split batch dim counts
+    at its whole size."""
+    rows = _CTX.rows
+    if rows is None:
+        return tuple(shape)
+    n = compat.axes_of(mesh)[rows]
+    return tuple(s * n if a == "batch" else s for s, a in zip(shape, axes))
+
+
+@contextlib.contextmanager
+def split_rows(axis: str | None):
+    """While active, a step's batch rows are split over ``axis`` (None:
+    whole on every rank): the engine sets it around a step whose inputs it
+    placed so."""
+    prev, _CTX.rows = _CTX.rows, axis
+    try:
+        yield
+    finally:
+        _CTX.rows = prev
+
+
+def row_axis() -> str | None:
+    return _CTX.rows if _CTX.mesh is not None else None
+
+
+def rows_factor() -> int:
+    """How many ranks share the step's batch rows (1: rows whole)."""
+    axis = row_axis()
+    return 1 if axis is None else compat.axes_of(_CTX.mesh)[axis]
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's batch rows (dim 0) of a step whose rows are split;
+    ``x`` itself otherwise."""
+    axis = row_axis()
+    if axis is None:
+        return x
+    from repro_torch.distributed import collectives as coll
+
+    return coll.all_gather(x, axis, dim=0, mesh=_CTX.mesh)
+
+
+# ---------------------------------------------------------------------------
+# Param-tree spec inference
+# ---------------------------------------------------------------------------
+# Each linear/param leaf lives under a descriptive key; the table maps that
+# key to logical axes of the *dense* (out, in) orientation.  Quantized
+# layouts ('idx', 'u8', 'scales') inherit the same logical axes (their
+# second dim is a packed function of 'in').  Leading stacked dims
+# ('layers', 'expert') are prepended by the tree walker based on depth.
+
+LINEAR_AXES: dict[str, tuple] = {
+    "wq": ("heads", "embed"),
+    "wk": ("kvheads", "embed"),
+    "wv": ("kvheads", "embed"),
+    "wo": ("embed", "heads"),
+    "up": ("mlp", "embed"),
+    "gate": ("mlp", "embed"),
+    "down": ("embed", "mlp"),
+    "router": ("expert", "embed"),
+    "lm_head": ("vocab", "embed"),
+    "in_proj": ("mamba_inner", "embed"),
+    "x_proj": ("none", "mamba_inner"),
+    "dt_proj": ("mamba_inner", "none"),
+    "out_proj": ("embed", "mamba_inner"),
+    "xl_up": ("xl_inner", "embed"),
+    "xl_o": ("xl_inner", "embed"),
+    "xl_gates": ("none", "xl_inner"),
+    "xl_down": ("embed", "xl_inner"),
+    "sl_w": ("embed", "none"),
+    "sl_r": ("embed", "none"),
+}
+VECTOR_AXES: dict[str, tuple] = {
+    "embedding": ("vocab", "embed"),
+    "scale": ("none",),
+    "bias": ("none",),
+    "A_log": ("mamba_inner", "state"),
+    "D": ("mamba_inner",),
+    "conv_w": ("conv", "mamba_inner"),
+    "conv_b": ("mamba_inner",),
+    "xl_conv_w": ("conv", "xl_inner"),
+    "xl_conv_b": ("xl_inner",),
+    "xl_q": ("heads", "head_dim", "head_dim"),
+    "xl_k": ("heads", "head_dim", "head_dim"),
+    "xl_v": ("heads", "head_dim", "head_dim"),
+}
+
+
+def _leaf_axes(names: list, leaf_ndim: int) -> tuple:
+    """Logical axes of the leaf at path ``names`` (its module and buffer
+    names, outermost first)."""
+    anc = None
+    for n in reversed(names):
+        if n in LINEAR_AXES or n in VECTOR_AXES:
+            anc = n
+            break
+    leaf = names[-1]
+    is_expert = any(n == "experts" for n in names)
+    if anc in LINEAR_AXES:
+        base = LINEAR_AXES[anc]
+        if is_expert and anc in ("up", "gate", "down"):
+            base = ("expert_out", "expert_in")
+        if leaf in ("w", "idx", "u8"):
+            axes = base
+        elif leaf == "scales":
+            axes = (base[0], "scales")
+        elif leaf == "codebook":
+            axes = ("scales",)  # 16-entry value table: replicated
+        elif leaf in ("b", "bias"):
+            axes = (base[0],)
+        else:
+            axes = base
+    elif anc in VECTOR_AXES:
+        axes = VECTOR_AXES[anc]
+    else:
+        axes = ("none",) * leaf_ndim
+    # prepend stacked dims (experts; the port has no scan groups)
+    extra = leaf_ndim - len(axes)
+    if extra < 0:
+        axes = axes[-leaf_ndim:] if leaf_ndim else ()
+        extra = 0
+    prefix = []
+    for e in range(extra):
+        if is_expert and e == extra - 1 and anc in ("up", "gate", "down"):
+            prefix.append("expert")
+        else:
+            prefix.append("layers")
+    return tuple(prefix) + tuple(axes)
+
+
+def _leaves(tree) -> dict:
+    """{dotted name: shape} of a module's buffers, or of a dict of
+    tensors / shapes."""
+    if isinstance(tree, torch.nn.Module):
+        return {n: tuple(t.shape) for n, t in tree.named_buffers()}
+    return {n: tuple(getattr(t, "shape", t)) for n, t in tree.items()}
+
+
+def param_specs(params, mesh, rules: str = "default") -> dict:
+    """{buffer name: spec} of a model (or a dict of name -> tensor or
+    shape)."""
+    return {name: spec_for(_leaf_axes(name.split("."), len(shape)), shape,
+                           mesh=mesh, kind="param", rules=rules)
+            for name, shape in _leaves(params).items()}
+
+
+def shardings(params, mesh, rules: str = "default") -> dict:
+    """{buffer name: DTensor placements} of :func:`param_specs`."""
+    return {name: compat.placements(spec, mesh)
+            for name, spec in param_specs(params, mesh, rules).items()}
+
+
+# Decode/prefill cache leaves.
+CACHE_AXES: dict[str, tuple] = {
+    "k": ("batch", "kv_seq", "kvheads", "head_dim"),
+    "v": ("batch", "kv_seq", "kvheads", "head_dim"),
+    "cross_k": ("batch", "kv_seq", "kvheads", "head_dim"),
+    "cross_v": ("batch", "kv_seq", "kvheads", "head_dim"),
+    "ssm": ("batch", "mamba_inner", "state"),
+    "conv": ("batch", "conv", "mamba_inner"),
+    "C": ("batch", "heads", "head_dim", "head_dim"),
+    "n": ("batch", "heads", "head_dim"),
+    "m": ("batch", "heads"),
+    "h": ("batch", "embed"),
+    "c": ("batch", "embed"),
+}
+
+
+def cache_specs(cache, mesh, rules: str = "default") -> list[dict]:
+    """Specs of a ``transformer.init_cache`` list (one dict a layer)."""
+
+    def one(name, shape):
+        axes = CACHE_AXES.get(name, ("none",) * len(shape))
+        if len(axes) != len(shape):  # xlstm 'm' vs mamba trees etc.
+            axes = ("none",) * len(shape)
+        return spec_for(axes, shape, mesh=mesh, kind="act", rules=rules)
+
+    return [{n: one(n, s) for n, s in _leaves(layer).items()}
+            for layer in cache]
+
+
+# Paged-serving KV block pools (runtime.serve.init_paged_cache): the
+# reference's leaves are (G, num_blocks, block_size, Hk, Dh), the port's
+# one pool a layer without the leading 'layers' entry.  The pool has no
+# batch dim — sequences own block subsets via host-side tables — so only
+# the kvheads/head_dim tail shards (kvheads over 'model' per ACT_RULES);
+# the block and slot dims stay replicated: scatter/gather by flat slot id
+# must find every sequence's blocks on every data shard.
+PAGED_CACHE_AXES: dict[str, tuple] = {
+    # full-precision values *or* quantized u8 codes (last dim Dh or the
+    # packed Dhp — 'head_dim' maps to () in serve rules, so both shard
+    # identically: replicated tail, kvheads on 'model')
+    "k": ("layers", "none", "none", "kvheads", "head_dim"),
+    "v": ("layers", "none", "none", "kvheads", "head_dim"),
+    # quantized-pool scale leaves (repro_torch.kvq.pool): (nb, bs, Hk)
+    # f32, same (block, slot) replication + kvheads placement as the
+    # codes so a flat slot id addresses codes and scales on the same shard
+    "k_scale": ("layers", "none", "none", "kvheads"),
+    "v_scale": ("layers", "none", "none", "kvheads"),
+}
+
+
+def paged_cache_specs(pool, mesh, rules: str = "default") -> list[dict]:
+    """Specs of a ``runtime.serve.init_paged_cache`` list."""
+
+    def one(name, shape):
+        axes = PAGED_CACHE_AXES.get(
+            name, ("layers",) + ("none",) * len(shape))[1:]
+        return spec_for(axes, shape, mesh=mesh, kind="act", rules=rules)
+
+    return [{n: one(n, s) for n, s in _leaves(layer).items()}
+            for layer in pool]
+
+
+def batch_specs(batch, mesh, rules: str = "default") -> dict:
+    """Specs of data batches / serve inputs by rank."""
+
+    def one(name, shape):
+        if name in ("token", "pos"):
+            axes = ("batch",)
+        else:
+            axes = {1: ("batch",), 2: ("batch", "seq"),
+                    3: ("batch", "seq", "embed")}[len(shape)]
+        return spec_for(axes, shape, mesh=mesh, kind="act", rules=rules)
+
+    return {n: one(n, s) for n, s in _leaves(batch).items()}

@@ -312,6 +312,44 @@ def int4_matmul(u8: torch.Tensor, scales: torch.Tensor, x: torch.Tensor, *,
     return y[:, 0] if squeeze else y
 
 
+def k_chunk_params(params: dict, *, k: int, chunks: int, d: int = 1,
+                   scale_block: int = 1) -> list[dict]:
+    """Split a quantized linear's packed params into ``chunks``
+    contraction slices — the chunked consume of pipelined sharded
+    execution (``dispatch.shard``).
+
+    Every packed leaf stores the contraction dim in columns at its own
+    density: ``w`` (dense) has k columns, ``idx`` k/d packed tuples,
+    ``u8`` k/2 nibble pairs, ``scales`` k/scale_block blocks.  Chunk c of
+    leaf L is columns [c*w_L, (c+1)*w_L) with ``w_L = cols_L // chunks``
+    (a view); ``codebook`` (and any other leaf) has no contraction dim
+    and goes into every chunk.  Feeding chunk c's dict and the matching
+    k-slice of x through the same backend gives that chunk's partial
+    product.  k must be chunk-aligned at every density (``shard_spec_for``
+    admits only such chunk counts); ValueError otherwise."""
+    chunks = max(int(chunks), 1)
+    if chunks == 1:
+        return [dict(params)]
+    cols = {"w": k, "idx": k // max(int(d), 1), "u8": k // 2,
+            "scales": k // max(int(scale_block), 1)}
+    out = []
+    for c in range(chunks):
+        sl = {}
+        for name, leaf in params.items():
+            width = cols.get(name)
+            if width is None:  # codebook etc.: no contraction dim
+                sl[name] = leaf
+                continue
+            if width % chunks:
+                raise ValueError(
+                    f"k_chunk_params: leaf {name!r} has {width} "
+                    f"contraction columns, not divisible by {chunks}")
+            w = width // chunks
+            sl[name] = leaf.narrow(1, c * w, w)
+        out.append(sl)
+    return out
+
+
 def copies_past_l2(nbytes: int, cap: int = MAX_COPIES) -> int:
     """How many copies of an ``nbytes`` weight a timed call cycles over:
     enough to pass ``L2_FLUSH_BYTES``, at most ``cap``."""

@@ -15,8 +15,10 @@ and ``codebook``):
                         device; forced by name on the CPU it runs the
                         kernel's plain version.
 
-``KVQuantSpec.backend`` forces one by name.  The reference's mesh pin
-waits for the multi-GPU slice.
+``KVQuantSpec.backend`` forces one by name.  Under an active mesh
+(``distributed.sharding.use``) :func:`select` pins ``paged_attn_torch``,
+as the reference pins its jnp route: each rank attends over its own
+heads of its pool shard.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.dispatch import registry
+from repro_torch.distributed.sharding import active_mesh
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kvq.quantize import codebook_tensor, kv_dequantize
 from repro_torch.kvq.spec import KVQuantSpec
@@ -98,8 +101,8 @@ registry.register_backend(
 
 
 def select(spec: KVQuantSpec, device_type: str = "cuda") -> str:
-    """The backend serving ``spec`` on ``device_type`` (forced override,
-    else registry priority)."""
+    """The backend serving ``spec`` on ``device_type`` (forced override >
+    mesh pin > registry priority)."""
     if spec.backend is not None:
         be = registry.get_backend(spec.backend)
         if "paged_attn" not in be.modes:
@@ -107,6 +110,8 @@ def select(spec: KVQuantSpec, device_type: str = "cuda") -> str:
                 f"backend {spec.backend!r} is not a paged-attention "
                 f"backend (modes={be.modes})")
         return spec.backend
+    if active_mesh() is not None:
+        return "paged_attn_torch"
     query = _AttnQuery("paged_attn", KV_STORAGE, spec.codebook_kind)
     return registry.select_backend(query, 1, device_type).name
 

@@ -55,9 +55,25 @@ when set).  A run with sheds, cancellations, retries or replans prints a
 ``resilience:`` line, and ``--check`` skips the requests that did not
 finish.
 
-Flags of slices not ported yet are not defined, so argparse refuses them:
-``--mesh``, ``--mesh-rules``, ``--shard-collective``, ``--shard-pipeline``,
-``--shard-impl`` and ``--force-host-devices`` (ROADMAP A13, multi-GPU).
+Tensor-parallel serving: ``--mesh model=2`` (or ``model=2,data=2``) serves
+the continuous engine over a device mesh, one process a mesh device
+(``launch.mesh.run_ranks``), each rank on its own card (``cuda:<rank>``)
+holding its shard of the weights and the pool; global rank 0 prints.
+A mesh larger than the visible cards is refused, unless
+``--force-host-devices N`` allows N CPU ranks (with ``--device cpu``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \
+        --smoke --device cpu --engine continuous --check \
+        --mesh model=2,data=2 --force-host-devices 4
+
+``--mesh-rules`` picks the logical-axis rules ('serve', 'serve_tp'),
+``--shard-collective`` how row-parallel linears meet ('psum',
+'reduce_scatter'), ``--shard-pipeline`` their contraction chunks and
+``--shard-impl`` the collective ('xla': the group's own, 'ring').  The
+run prints ``[serve] mesh {...}: N plans resolved at build, M sharded``.
+Only dense decoders serve on a mesh, through ``--engine continuous``; a
+MoE, recurrent, encoder-decoder or vision model is refused (ROADMAP
+A13c).
 
 Every ported architecture serves (``repro_torch.configs.ARCHS``: the
 gemma, codeqwen1.5, starcoder2 and gpt3 dense models, the qwen2-moe and
@@ -98,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import time
 
@@ -185,7 +202,10 @@ def exec_policy(args) -> dispatch.ExecPolicy | None:
     backend = gemm_backend(args)
     if backend is None and not args.autotune:
         return None
-    return dispatch.ExecPolicy(backend=backend, autotune=args.autotune)
+    return dispatch.ExecPolicy(backend=backend, autotune=args.autotune,
+                               shard_collective=args.shard_collective,
+                               shard_pipeline=args.shard_pipeline,
+                               shard_impl=args.shard_impl)
 
 
 def check_run_regressions(args, device: torch.device) -> dict | None:
@@ -349,9 +369,11 @@ def check_static(results, params, cfg, device: torch.device,
     return len(live)
 
 
-def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
-    """Serve the request stream through the continuous engine.  Kernel
-    launches are counted over the engine's run alone (not the check)."""
+def run_continuous(args, params, cfg, device: torch.device, kv_backend=None,
+                   mesh=None):
+    """Serve the request stream through the continuous engine (on ``mesh``
+    when given: this rank's engine).  Kernel launches are counted over
+    the engine's run alone (not the check)."""
     from repro_torch.serving import Engine
 
     kv_spec = kv_spec_from_args(args, params, cfg, kv_backend)
@@ -371,7 +393,11 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
                     max_queue=args.max_queue or None,
                     deadline_s=args.deadline_s or None,
                     ttft_deadline_s=args.ttft_deadline_s or None,
-                    watchdog=args.watchdog or None)
+                    watchdog=args.watchdog or None, mesh=mesh,
+                    mesh_rules=args.mesh_rules,
+                    shard_collective=args.shard_collective,
+                    shard_pipeline=args.shard_pipeline,
+                    shard_impl=args.shard_impl)
     reqs = make_request_stream(args, cfg)
     print(f"[serve] continuous engine: {len(reqs)} requests, prompt lens "
           f"{sorted(len(r.prompt) for r in reqs)}, rate="
@@ -380,7 +406,18 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None):
           f"{args.prefill_chunk}, step "
           f"{'CUDA graphs' if engine.runner.cuda_graph else 'eager'}",
           flush=True)
-    if engine.exec_plans:
+    if mesh is not None:
+        from repro_torch.distributed.compat import axes_of
+        from repro_torch.launch.mesh import mesh_devices
+
+        n_sharded = sum(1 for p in engine.exec_plans.values()
+                        if p.shard is not None)
+        print(f"[serve] mesh {axes_of(mesh)}: {len(engine.exec_plans)} "
+              f"plans resolved at build, "
+              f"{n_sharded} sharded (rules={args.mesh_rules}, collective="
+              f"{args.shard_collective}, {mesh_devices(mesh)} ranks on "
+              f"{device.type})", flush=True)
+    elif engine.exec_plans:
         tuned = sum(p.source == "autotuned"
                     for p in engine.exec_plans.values())
         print(f"[serve] resolved {len(engine.exec_plans)} exec plans at "
@@ -508,6 +545,25 @@ def parse_args(argv=None):
                          "or ~/.cache/msgemm-repro-torch/plans.json)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no fallback")
+    # tensor-parallel serving (repro_torch.dispatch.shard over a mesh)
+    ap.add_argument("--mesh", default=None,
+                    help="serve tensor-parallel over a device mesh, e.g. "
+                         "'model=2' or 'model=2,data=2' (continuous "
+                         "engine; one process a mesh device)")
+    ap.add_argument("--mesh-rules", default="serve",
+                    choices=["serve", "serve_tp"],
+                    help="logical-axis rule set (distributed.sharding)")
+    ap.add_argument("--shard-collective", default="psum",
+                    choices=["psum", "reduce_scatter"],
+                    help="how row-parallel linears resolve partial sums")
+    ap.add_argument("--shard-pipeline", type=int, default=1,
+                    help="contraction chunks of a row-parallel linear "
+                         "(1: one collective a linear)")
+    ap.add_argument("--shard-impl", default="xla", choices=["xla", "ring"],
+                    help="the collective: the group's own, or a ring of "
+                         "point-to-point hops")
+    ap.add_argument("--force-host-devices", type=int, default=0,
+                    help="allow a mesh of up to N CPU ranks (--device cpu)")
     ap.add_argument("--no-cuda-graph", action="store_true",
                     help="run the continuous engine's step eagerly instead "
                          "of replaying its captured CUDA graphs")
@@ -536,6 +592,13 @@ def main(argv=None) -> dict:
     """Run the CLI on ``argv``.  Returns params, cfg, the build figures and
     the run's results."""
     args = parse_args(argv)
+    if args.mesh:
+        return serve_mesh(args, argv)
+    if (args.mesh_rules, args.shard_collective, args.shard_pipeline,
+            args.shard_impl, args.force_host_devices) != (
+            "serve", "psum", 1, "xla", 0):
+        raise SystemExit("--mesh-rules, --shard-* and --force-host-devices "
+                         "apply only with --mesh")
     device = resolve(args.device)
     kv_backend = backends_from_args(args)
     if args.faults:
@@ -599,6 +662,75 @@ def main(argv=None) -> dict:
             prom.shutdown()
         if plan is not None:
             faults.disarm()  # the plan was this run's: leave none armed
+
+
+def serve_mesh(args, argv) -> dict:
+    """``--mesh``: check the request in this process, then serve it from
+    one process a mesh device; returns rank 0's figures (the run's tokens
+    by request id, metrics, launches, plan counts, the check)."""
+    from repro_torch.launch import mesh as MS
+    from repro_torch.serving.engine import check_mesh_model
+
+    shape, axes = MS.parse_mesh(args.mesh)
+    need = math.prod(shape)
+    if args.shard_pipeline < 1:
+        raise SystemExit(f"--shard-pipeline {args.shard_pipeline}: 1 or more "
+                         "(the tuned variant, 0, is ROADMAP A13c)")
+    if args.engine != "continuous":
+        raise SystemExit("--mesh serves through --engine continuous (a "
+                         "static engine on a mesh is ROADMAP A13c)")
+    cfg = (configs.get_smoke(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    check_mesh_model(cfg)
+    MS.force_host_devices(args.force_host_devices)
+    dev = torch.device(args.device)
+    if args.force_host_devices:
+        if dev.type != "cpu":
+            raise SystemExit("--force-host-devices starts CPU ranks: pass "
+                             "--device cpu")
+        have = MS.host_devices()
+        devices = ["cpu"] * need
+    else:
+        have = MS.visible_devices(dev.type)
+        devices = [f"cuda:{r}" for r in range(need)]
+    if need > have:
+        raise SystemExit(
+            f"--mesh {args.mesh} needs {need} devices but only {have} are "
+            f"visible ({dev.type}); pass --force-host-devices {need} with "
+            "--device cpu for CPU ranks")
+    from repro_torch.distributed import collectives as coll
+
+    print(f"[serve] starting {need} ranks on {devices} for mesh "
+          f"{dict(zip(axes, shape))} (backend: {coll.backend_for(devices)})",
+          flush=True)
+    out = MS.run_ranks(_mesh_rank, need, argv, shape, axes, devices=devices)
+    return out[0]
+
+
+def _mesh_rank(rank, device, argv, shape, axes) -> dict:
+    """One rank of ``--mesh``: build the model from ``--seed`` on this
+    rank's device, serve the stream on the mesh (rank 0 prints, checks
+    and reports)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import mesh as MS
+
+    args = parse_args(argv)
+    args.device = str(device)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else \
+        contextlib.nullcontext()
+    with quiet:
+        params, cfg, build = build_model(args, device)
+        mesh = MS.make_mesh(shape, axes)
+        run = run_continuous(args, params, cfg, device, mesh=mesh)
+    return dict(build=build, tokens={rid: seq.generated for rid, seq in
+                                     run["results"].items()},
+                metrics=run["metrics"], steps=run["steps"],
+                launches=run["launches"], checked=run.get("checked"),
+                plans=len(run["exec_plans"]),
+                sharded=sum(1 for p in run["exec_plans"].values()
+                            if p.shard is not None))
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Shared building blocks — norms, linear glue, soft-cap, MLP, the
 recurrences' chunked scan, rematerialization (:func:`remat`) for
-training; port of repro.models.common.  The port is
-single-device for now, so the reference's sharding constraints have no
-counterpart here.
+training; port of repro.models.common.  A linear names its logical
+weight axes (``distributed.sharding.LINEAR_AXES`` of its tag), so under
+an active mesh it runs sharded (``dispatch.shard``); its output comes
+back whole, so the MLP needs no constraint between its projections.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from torch import nn
 
 from repro_torch.core import linear as qlinear
 from repro_torch.core.epilogue import Epilogue, act_fn
+from repro_torch.distributed.sharding import LINEAR_AXES
 
 
 def truncated_normal(shape, scale: float, *, generator: torch.Generator,
@@ -80,14 +82,18 @@ def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, tag=None,
     """``act``/``bias``/``residual``/``out_dtype`` describe the tail
     ``y = act(Wx + bias) + residual`` (cast to ``out_dtype``); it becomes an
     Epilogue that the msGeMM kernel fuses into its final write.  ``tag``
-    names the linear for the calibration observer (core.linear.apply)."""
+    names the linear for the calibration observer (core.linear.apply),
+    and its ``LINEAR_AXES`` entry rides along as the weight's logical
+    axes: under an active mesh the plan shards the linear by them (an
+    expert stack's 'moe_' tags have no entry and stay whole)."""
     ep = None
     if act != "none" or bias is not None or residual is not None \
             or out_dtype is not None:
         ep = Epilogue(act=act, bias=bias is not None,
                       residual=residual is not None, out_dtype=out_dtype)
     return qlinear.apply(p, x, quant, in_dim=in_dim, tag=tag, epilogue=ep,
-                         bias=bias, residual=residual)
+                         bias=bias, residual=residual,
+                         shard_axes=LINEAR_AXES.get(tag))
 
 
 def activation(name: str):

@@ -5,7 +5,12 @@ at a traced offset) is :func:`causal_mask` with ``offset``.
 
 The paged path keeps a full-precision KV pool, or with ``cfg.kv_quant``
 the quantized pool of repro_torch.kvq, read through its paged-attention
-backends.
+backends.  Under an active mesh (``distributed.sharding.use``) each rank
+holds its shard of the pool (kv heads over 'model' when they divide,
+``PAGED_CACHE_AXES``): a step's new K/V rows are gathered over the batch
+axis when its rows are split (the pool is whole over 'data'), constrained
+to the pool's heads, written, and attended by this rank's query heads;
+the heads' outputs are gathered before ``wo``.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import torch
 from torch import nn
 
 from repro_torch import kvq
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
 from repro_torch.models import common
 
 NEG_INF = -1e30  # finite mask value: masked entries get probability exactly 0
@@ -204,6 +211,9 @@ def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,
     Returns (out, cache).
     """
     q, k, v = _qkv(p, cfg, x, positions)
+    heads_axis = None
+    if sharding.active_mesh() is not None:
+        q, k, v, write_slots, heads_axis = _mesh_heads(q, k, v, write_slots)
     if cfg.kv_quant is not None:
         out = _attn_paged_quantized(cfg, q, k, v, cache, positions,
                                     write_slots, view_slots, window=window)
@@ -218,10 +228,38 @@ def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,
         vs = view_slots.long()
         m = view_mask(view_slots.shape[1], positions, window=window)
         out = _sdpa(cfg, q, kp[vs], vp[vs], m[:, None])
+    if heads_axis is not None:
+        out = coll.all_gather(out, heads_axis, dim=-1)
     out = common.linear_apply(p.wo, out, cfg.quant,
                               in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
                               residual=residual)
     return out, cache
+
+
+def _mesh_heads(q, k, v, write_slots):
+    """A paged step's tensors on this rank of the active mesh.  The pool is
+    whole over the batch axis, so every rank writes every row's new K/V:
+    they and their slots are gathered when the step's rows are split.
+    The new rows are constrained to the pool's kv heads (its shard when
+    they divide the model axis); the query heads are cut to the ones
+    those kv heads serve when the kv heads split, or when there is one
+    (every query head attends it), and stay whole otherwise (each rank
+    then attends every head).  Returns (q, k, v, write_slots, the axis
+    the attention output's heads are gathered over, or None)."""
+    k, v = sharding.gather_rows(k), sharding.gather_rows(v)
+    write_slots = sharding.gather_rows(write_slots)
+    B, C, hk, dh = k.shape
+    k = sharding.constrain(k.reshape(B * C, hk, dh), "none", "kvheads",
+                           "head_dim").reshape(B, C, -1, dh)
+    v = sharding.constrain(v.reshape(B * C, hk, dh), "none", "kvheads",
+                           "head_dim").reshape(B, C, -1, dh)
+    q_spec = sharding.spec_for(("none", "none", "heads", "head_dim"),
+                               q.shape)
+    axis = q_spec[2]
+    if axis is None or (k.shape[2] == hk and hk > 1):
+        return q, k, v, write_slots, None
+    q = sharding.local_slice(q, q_spec, sharding.active_mesh())
+    return q, k, v, write_slots, axis
 
 
 def _attn_paged_quantized(cfg, q, k, v, cache, positions, write_slots,

@@ -20,6 +20,11 @@ tokens tensor stands for ``{"tokens": t}``.  The decoder of an
 encoder-decoder config adds learned positions (``pos_embedding``, one row
 for each of ``max_seq_len`` positions); a position past them raises
 ValueError (the reference reads NaN rows there).
+
+Under an active mesh (``distributed.sharding.use``, the paged serving
+path) the embedding table may hold this rank's vocab rows
+(:func:`vocab_axis`): the lookup sums the ranks' rows and the tied head
+gathers the ranks' logit columns.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from torch import nn
 
 from repro_torch import kvq
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
 from repro_torch.models import common, layers, mamba, moe, xlstm
 from repro_torch.models.config import ModelConfig
 
@@ -307,12 +314,44 @@ def as_batch(batch) -> dict:
     return batch if isinstance(batch, dict) else {"tokens": batch}
 
 
+def vocab_axis(cfg: ModelConfig) -> str | None:
+    """The mesh axis the embedding table's rows (the vocab) are split
+    over under the active mesh (``sharding.param_specs``' rule for it),
+    or None: no mesh, or a table each rank holds whole."""
+    if sharding.active_mesh() is None:
+        return None
+    spec = sharding.spec_for(sharding.VECTOR_AXES["embedding"],
+                             (cfg.vocab_size, cfg.d_model), kind="param")
+    if spec[1] is not None:
+        raise NotImplementedError(
+            "an embedding split over its model dim (the 'default' rules' "
+            "FSDP storage) is not served; use the 'serve' or 'serve_tp' "
+            "rules (ROADMAP A13c)")
+    return spec[0]
+
+
+def _embed_lookup(params: Transformer, cfg: ModelConfig, tokens):
+    """Rows of the embedding table for ``tokens``.  With the table's vocab
+    split over the mesh each rank looks up the tokens in its rows, zeros
+    the others, and the ranks' rows are summed (exact: one is nonzero)."""
+    axis = vocab_axis(cfg)
+    if axis is None:
+        return params.embedding[tokens.long()]
+    rows = params.embedding.shape[0]
+    local = tokens.long() - sharding.coord(sharding.active_mesh(),
+                                           axis) * rows
+    mine = (local >= 0) & (local < rows)
+    x = params.embedding[torch.where(mine, local, 0)]
+    x = torch.where(mine[..., None], x, 0.0)
+    return coll.psum(x, axis)
+
+
 def embed_inputs(params: Transformer, cfg: ModelConfig, tokens, *,
                  patch_embeds=None):
     """tokens (B, S) -> (B, S, d): gathered in f32, scaled by sqrt(d) for
     gemma, with a vision frontend's ``patch_embeds`` (B, P, d), cast to
     f32, prepended; then cast to ``cfg.dtype``."""
-    x = params.embedding[tokens.long()]
+    x = _embed_lookup(params, cfg, tokens)
     if cfg.embed_scale:
         x = x * cfg.d_model**0.5
     if patch_embeds is not None:
@@ -375,6 +414,9 @@ def logits_from_hidden(params: Transformer, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
         logits = torch.matmul(x.to(torch.float32),
                               params.embedding.to(torch.float32).t())
+        axis = vocab_axis(cfg)
+        if axis is not None:  # this rank's vocab columns: gather them
+            logits = coll.all_gather(logits, axis, dim=-1)
     else:
         logits = common.linear_apply(params.lm_head, x, cfg.quant,
                                      in_dim=cfg.d_model, tag="lm_head"

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import resolve
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
@@ -40,11 +41,72 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     dtype=torch.float32, *, device=None, kv_spec=None):
+                     dtype=torch.float32, *, device=None, kv_spec=None,
+                     mesh=None, rules: str = "serve"):
     """Paged KV block pool; ``kv_spec`` (default ``cfg.kv_quant``) selects
-    the quantized codes + scales layout (repro_torch.kvq)."""
-    return transformer.init_paged_cache(cfg, num_blocks, block_size, dtype,
-                                        device=device, kv_spec=kv_spec)
+    the quantized codes + scales layout (repro_torch.kvq).  With ``mesh``
+    each leaf is this rank's shard under ``rules``
+    (``distributed.sharding.paged_cache_specs``: kv heads over 'model'
+    when they divide, block and slot dims whole), zero-filled as the
+    whole pool is."""
+    if mesh is None:
+        return transformer.init_paged_cache(cfg, num_blocks, block_size,
+                                             dtype, device=device,
+                                             kv_spec=kv_spec)
+    from repro_torch.distributed import sharding
+
+    # one (1, 1)-slot pool gives each leaf's name, dtype and tail dims
+    proto = transformer.init_paged_cache(cfg, 1, 1, dtype, device="cpu",
+                                         kv_spec=kv_spec)
+    whole = [{name: (num_blocks, block_size, *t.shape[2:])
+              for name, t in layer.items()} for layer in proto]
+    specs = sharding.paged_cache_specs(whole, mesh, rules)
+    dev = resolve(device)
+    return [{name: torch.zeros(sharding.local_shape(shape, spec[name], mesh),
+                               dtype=p[name].dtype, device=dev)
+             for name, shape in layer.items()}
+            for layer, spec, p in zip(whole, specs, proto)]
+
+
+def shard_params(params, cfg: ModelConfig, mesh, rules: str = "serve"):
+    """This rank's copy of a dense decoder for serving on ``mesh``: every
+    attention and MLP linear (and an untied ``lm_head``) holds its shard
+    of the layout ``dispatch.shard.shard_spec_for`` derives from its
+    ``LINEAR_AXES`` entry — the layout its kernel runs at, so a linear
+    whose packed storage cannot split on the shard boundary stays whole —
+    with ``out_dim`` set to its whole m; the embedding holds its rows
+    under ``sharding.param_specs`` (the vocab over 'model' when it
+    divides); norms stay whole.  ``params`` is left as it was: the copy
+    shares every leaf it does not cut."""
+    import copy
+
+    from repro_torch.core import linear as qlinear
+    from repro_torch.dispatch.shard import shard_linear
+    from repro_torch.distributed import sharding
+
+    out = copy.deepcopy(params, {id(t): t for t in params.buffers()})
+    in_dims = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
+               "wo": cfg.num_heads * cfg.head_dim, "up": cfg.d_model,
+               "gate": cfg.d_model, "down": cfg.d_ff,
+               "lm_head": cfg.d_model}
+    for path, mod in out.named_modules():
+        name = path.rsplit(".", 1)[-1]
+        if not isinstance(mod, qlinear.QLinear) or name not in in_dims:
+            continue
+        leaves = mod.params()
+        m = (leaves["w"] if "w" in leaves else leaves["scales"]).shape[0]
+        local = shard_linear(cfg.quant, sharding.LINEAR_AXES[name], leaves,
+                             m, in_dims[name], mesh, rules=rules)
+        if local is not leaves:
+            mod.load(local)
+            mod.out_dim = m
+    with sharding.use(mesh, rules):
+        axis = transformer.vocab_axis(cfg)
+    if axis is not None:
+        spec = (axis, None)
+        out.register_buffer("embedding", sharding.local_slice(
+            params.embedding, spec, mesh).contiguous().clone())
+    return out
 
 
 def paged_step(params, cfg: ModelConfig, tokens, pool, positions,

@@ -50,10 +50,27 @@ doing the same.  Fault injection lives behind ``repro_torch.faults``
 * no fault site runs inside a capture or its warm-up (those call
   ``StepRunner._step`` and allocate no blocks), so the fault
   opportunities line up with the reference engine's one for one.
+
+Tensor-parallel serving (``Engine(mesh=...)``): one engine a rank of the
+mesh (``launch.mesh.run_ranks``), each holding its shard of the weights
+(``runtime.serve.shard_params``) and of the pool
+(``init_paged_cache(..., mesh=)``); every GeMM plan is resolved at build
+under the mesh, and every step runs under it, each quantized linear on
+its local shard shape (``dispatch.shard``).  The host side must agree on
+every rank, so global rank 0 leads: it alone runs the scheduler,
+deadlines and faults, and broadcasts each step's host arrays (and a
+replan, and the end of the run with its results); the other ranks follow
+in :meth:`Engine.run`.  A step's batch rows are split over the batch
+axis when they divide it (``sharding.split_rows``), and its logits are
+gathered whole before the tokens are picked, so every rank picks the
+same ones.  The mesh engine is eager: a step's collectives are staged
+through host memory when ranks share a card, which a CUDA graph cannot
+hold, and capturing NCCL's is ROADMAP A13c.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -62,6 +79,8 @@ import numpy as np
 import torch
 
 from repro_torch import dispatch, faults, kvq, obs
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import compat, sharding
 from repro_torch.distributed.watchdog import Watchdog
 from repro_torch.kernels.ops import KERNELS
 from repro_torch.models.config import ModelConfig
@@ -107,7 +126,15 @@ class _Shape:
     launches and the device marks staged at its capture."""
 
     def __init__(self, batch: int, chunk: int, width: int, block_size: int,
-                 device: torch.device):
+                 device: torch.device, rows: str | None = None,
+                 parts: int = 1):
+        # under a mesh the device buffers hold this rank's rows: the
+        # batch split over ``rows`` in ``parts`` (1: whole)
+        self.rows, self.parts = rows, parts
+        self.full = dict(tokens=(batch, chunk), positions=(batch, chunk),
+                         write_slots=(batch, chunk),
+                         view_slots=(batch, width), last_idx=(batch,))
+        batch //= parts
         shapes = dict(tokens=(batch, chunk), positions=(batch, chunk),
                       write_slots=(batch, chunk), view_slots=(batch, width),
                       last_idx=(batch,))
@@ -164,20 +191,49 @@ class StepRunner:
 
     def __init__(self, params, cfg: ModelConfig, kv, device: torch.device,
                  shapes: dict, *, width: int, block_size: int,
-                 cuda_graph: bool, policy=None):
+                 cuda_graph: bool, policy=None, mesh=None,
+                 rules: str = "serve"):
         if cuda_graph and device.type != "cuda":
             raise ValueError(f"cuda_graph needs a CUDA device, not {device}")
         self.params, self.cfg, self.kv, self.device = params, cfg, kv, device
         self.cuda_graph = cuda_graph
         self.policy = policy
-        self.shapes = {name: _Shape(b, c, width, block_size, device)
+        self.mesh, self.rules = mesh, rules
+        self.shapes = {name: _Shape(b, c, width, block_size, device,
+                                    *self._rows_of(b))
                        for name, (b, c) in shapes.items()}
+        self._names = sorted(self.shapes)
         self.captures = 0
+        self.steps_run = 0  # steps run by __call__ (a follower's included)
         self.exec_plans: dict = {}
         if policy is not None:
             self.exec_plans = self.resolve_plans()
         if cuda_graph:
             self._capture_all()
+
+    def _rows_of(self, batch: int) -> tuple:
+        """(the mesh axis a step of ``batch`` rows is split over, or None;
+        the number of parts): the batch axis of the rules when it divides
+        the rows, as the reference places its step inputs."""
+        if self.mesh is None:
+            return None, 1
+        axis = sharding.spec_for(("batch",), (batch,), mesh=self.mesh,
+                                 rules=self.rules)[0]
+        if isinstance(axis, tuple):
+            raise NotImplementedError(
+                f"batch rows folded over {axis}: the mesh engine splits "
+                "rows over one axis (ROADMAP A13c)")
+        return axis, (1 if axis is None
+                      else compat.axes_of(self.mesh)[axis])
+
+    @contextlib.contextmanager
+    def _mesh_step(self, shape: _Shape):
+        if self.mesh is None:
+            yield
+            return
+        with sharding.use(self.mesh, self.rules), \
+                sharding.split_rows(shape.rows):
+            yield
 
     def _capture_all(self) -> None:
         pool = torch.cuda.graph_pool_handle()  # one pool for both shapes
@@ -212,11 +268,14 @@ class StepRunner:
         return dispatch.warm(reqs, policy=self.policy)
 
     def _step(self, shape: _Shape):
-        with torch.no_grad(), dispatch.using_policy(self.policy):
+        with torch.no_grad(), dispatch.using_policy(self.policy), \
+                self._mesh_step(shape):
             logits, _ = SV.paged_step(
                 self.params, self.cfg, shape.dev["tokens"], self.kv,
                 shape.dev["positions"], shape.dev["write_slots"],
                 shape.dev["view_slots"], shape.dev["last_idx"])
+            # every rank's rows: all pick the same tokens
+            logits = sharding.gather_rows(logits)
             # the greedy tokens and the per-row finite flags (the NaN
             # guard's input) in one (2, B) buffer: one copy to the host
             out = torch.stack([SV.greedy(logits), torch.isfinite(
@@ -247,8 +306,21 @@ class StepRunner:
     def __call__(self, name: str, *arrays: np.ndarray):
         """One step of shape ``name`` on host arrays in ``STEP_INPUTS``
         order.  Returns (greedy tokens (B,) numpy, finite flags (B,)
-        numpy, logits (B, V) device)."""
+        numpy, logits (B, V) device).  Under a mesh the leader's call
+        broadcasts the arrays, and the followers run the same step
+        (:meth:`receive`)."""
+        if self.mesh is not None:
+            self.send(OP_STEP, self._names.index(name))
+            arrays = self._broadcast_arrays(self.shapes[name], arrays)
+        return self._run(name, arrays)
+
+    def _run(self, name: str, arrays):
         shape = self.shapes[name]
+        self.steps_run += 1
+        if shape.parts > 1:  # this rank's rows
+            c = sharding.coord(self.mesh, shape.rows)
+            n = shape.full["tokens"][0] // shape.parts
+            arrays = [a[c * n:(c + 1) * n] for a in arrays]
         for key, a in zip(STEP_INPUTS, arrays):
             shape.host[key].numpy()[...] = a
             shape.dev[key].copy_(shape.host[key], non_blocking=True)
@@ -264,6 +336,44 @@ class StepRunner:
         host = out.cpu().numpy()
         obs.tracer().resolve_marks(marks, t0)
         return host[0], host[1], logits
+
+    # ------------------------------------------------ leader / followers
+    def send(self, op: int, arg: int = 0) -> None:
+        """The leader's next instruction to its followers."""
+        coll.broadcast(torch.tensor([op, arg], dtype=torch.int64))
+
+    def _broadcast_arrays(self, shape: _Shape, arrays=None) -> list:
+        """The leader's whole step arrays on every rank (one int32
+        buffer)."""
+        sizes = [int(np.prod(shape.full[k])) for k in STEP_INPUTS]
+        if arrays is not None:
+            buf = torch.from_numpy(np.concatenate(
+                [np.asarray(a, np.int32).reshape(-1) for a in arrays]))
+        else:
+            buf = torch.empty(sum(sizes), dtype=torch.int32)
+        coll.broadcast(buf)
+        parts = buf.numpy()
+        out, at = [], 0
+        for key, n in zip(STEP_INPUTS, sizes):
+            out.append(parts[at:at + n].reshape(shape.full[key]))
+            at += n
+        return out
+
+    def receive(self) -> tuple:
+        """A follower's next instruction from the leader: (op, arg), and
+        for a step the step's own result."""
+        head = coll.broadcast(torch.zeros(2, dtype=torch.int64))
+        op, arg = int(head[0]), int(head[1])
+        if op == OP_STEP:
+            name = self._names[arg]
+            arrays = self._broadcast_arrays(self.shapes[name])
+            self._run(name, arrays)
+        return op, arg
+
+
+# leader -> followers instructions of a mesh engine (StepRunner.receive)
+OP_STEP, OP_REPLAN, OP_STOP = 1, 2, 3
+REPLAN_REASONS = ("hang", "nan_logits")
 
 
 class Engine:
@@ -305,6 +415,20 @@ class Engine:
     backends and a replan.  nan_replan_after: non-finite-logit events
     (each quarantines its sequence, status 'quarantined') after which the
     guard also quarantines the suspect backends and replans.
+
+    Tensor parallelism: mesh is a ``DeviceMesh`` over the ranks
+    (``launch.mesh.make_mesh``), one engine a rank, built on every rank
+    from the same whole ``params`` (each keeps its shards:
+    ``runtime.serve.shard_params``; ``params`` is left as it was).
+    mesh_rules: the logical-axis rule set ('serve': batch rows over
+    'data', weights over 'model'; 'serve_tp': no row split).
+    shard_collective ('psum' | 'reduce_scatter'), shard_pipeline
+    (contraction chunks of a row-parallel linear; 0: the cache's tuned
+    variant) and shard_impl ('xla' | 'ring') go into the ExecPolicy.
+    Every rank calls :meth:`run`; global rank 0 leads and returns, on
+    every rank, its results.  Dense decoders with 'attn' and 'local'
+    blocks only (NotImplementedError otherwise, ROADMAP A13c), eager only
+    (``cuda_graph=True`` raises ValueError).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
@@ -320,10 +444,18 @@ class Engine:
                  ttft_deadline_s: float | None = None,
                  step_retries: int = 2, retry_backoff_s: float = 0.02,
                  watchdog: Watchdog | bool | None = None,
-                 nan_replan_after: int = 2):
-        self.params = params
+                 nan_replan_after: int = 2, mesh=None,
+                 mesh_rules: str = "serve", shard_collective: str = "psum",
+                 shard_pipeline: int = 1, shard_impl: str = "xla"):
         if kv_quant is not None:
             cfg = cfg.replace(kv_quant=kv_quant)
+        self.mesh, self.mesh_rules = mesh, mesh_rules
+        self.is_leader = True
+        if mesh is not None:
+            cuda_graph = _check_mesh(cfg, mesh, mesh_rules, cuda_graph)
+            self.is_leader = torch.distributed.get_rank() == 0
+            params = SV.shard_params(params, cfg, mesh, mesh_rules)
+        self.params = params
         self.cfg = cfg
         self.device = params.embedding.device
         self.max_model_len = max_model_len or cfg.max_seq_len
@@ -338,7 +470,8 @@ class Engine:
                 num_blocks = max_slots * self.max_blocks_per_seq + 1
         self.pool = BlockPool(num_blocks, block_size)
         self.kv = SV.init_paged_cache(cfg, num_blocks, block_size,
-                                      cache_dtype, device=self.device)
+                                      cache_dtype, device=self.device,
+                                      mesh=mesh, rules=mesh_rules)
         self.scheduler = Scheduler(self.pool, max_slots=max_slots,
                                    prefill_chunk=prefill_chunk, clock=clock)
         self.max_slots = max_slots
@@ -383,19 +516,22 @@ class Engine:
         if cuda_graph is None:
             cuda_graph = self.device.type == "cuda"
         # with no backend and no autotune request the policy is None and
-        # the process default applies, exactly as before
+        # the process default applies, exactly as before; a mesh always
+        # resolves its (sharded) plans at build, as the reference's does
         self._policy = None
-        if backend is not None or autotune:
+        if backend is not None or autotune or mesh is not None:
             if autotune_cache is not None:
                 dispatch.set_cache_path(autotune_cache)
-            self._policy = dispatch.ExecPolicy(backend=backend,
-                                               autotune=autotune)
+            self._policy = dispatch.ExecPolicy(
+                backend=backend, autotune=autotune,
+                shard_collective=shard_collective,
+                shard_pipeline=shard_pipeline, shard_impl=shard_impl)
         self.runner = StepRunner(
             params, cfg, self.kv, self.device,
             {"prefill": (1, prefill_chunk), "decode": (max_slots, 1)},
             width=self.max_blocks_per_seq * block_size,
             block_size=block_size, cuda_graph=cuda_graph,
-            policy=self._policy)
+            policy=self._policy, mesh=mesh, rules=mesh_rules)
 
     @property
     def exec_plans(self) -> dict:
@@ -577,10 +713,17 @@ class Engine:
         injected failure raises before the runner is called, and a re-run
         writes the same pool slots with the same values, so a retried
         step is token-identical.  Returns the runner's (tokens, finite
-        flags, logits)."""
+        flags, logits).
+
+        Under a mesh a failure inside the runner is not retried: the
+        leader has already told its followers to step, and they wait in
+        the step's collectives, which a retry's new instruction would
+        pair with unlike ones.  It raises on the leader, whose end ends
+        every rank's run (``launch.mesh.run_ranks``)."""
         attempt = 0
         while True:
             wd = self._watchdog
+            in_runner = False
             try:
                 if wd is not None:
                     wd.step_started()
@@ -596,6 +739,7 @@ class Engine:
                     ev = faults.fire("step_fail")
                     if ev is not None:
                         raise faults.InjectedFault("step_fail", ev)
+                    in_runner = True
                     return self.runner(name, *arrays)
                 finally:
                     if wd is not None:
@@ -603,6 +747,8 @@ class Engine:
             except (KeyboardInterrupt, SystemExit):
                 raise
             except Exception:
+                if in_runner and self.mesh is not None:
+                    raise
                 attempt += 1
                 self.num_step_retries += 1
                 obs.registry().counter(
@@ -627,7 +773,10 @@ class Engine:
         the kernel -> torch -> dense_fallback ladder), resolve the plans
         again on what remains and capture both step shapes again: the
         counterpart of the reference's re-jit.  Runs between steps, never
-        inside one."""
+        inside one; a mesh leader first tells its followers to do the
+        same (the resolution's idle steps hold collectives)."""
+        if self.mesh is not None and self.is_leader:
+            self.runner.send(OP_REPLAN, REPLAN_REASONS.index(reason))
         self.num_replans += 1
         obs.registry().counter(
             "serving_replans_total",
@@ -818,6 +967,8 @@ class Engine:
         seconds after the call; with ``wait_for_arrivals`` the engine
         sleeps through idle gaps, otherwise future arrivals are pulled
         forward when it would idle."""
+        if not self.is_leader:
+            return self._follow()
         pending = sorted(requests, key=lambda r: (r.arrival_time, r.rid))
         results: dict[int, Sequence] = {}
         if not self.scheduler.has_work() and not self.finished:
@@ -840,7 +991,20 @@ class Engine:
                 _take()
             for seq in self.step():
                 results[seq.req.rid] = seq
+        if self.mesh is not None:
+            self.runner.send(OP_STOP)
+            coll.broadcast_object(results)
         return results
+
+    def _follow(self) -> dict[int, Sequence]:
+        """A mesh follower's :meth:`run`: the leader's steps and replans,
+        until it ends the run; returns the leader's results."""
+        while True:
+            op, arg = self.runner.receive()
+            if op == OP_REPLAN:
+                self._replan(REPLAN_REASONS[arg])
+            elif op == OP_STOP:
+                return coll.broadcast_object(None)
 
     def reset_metrics(self) -> None:
         """Drop finished-request history, step counters and the serving_*
@@ -922,3 +1086,41 @@ class Engine:
     def summary(self) -> dict:
         """Alias of :meth:`metrics`."""
         return self.metrics()
+
+
+def check_mesh_model(cfg: ModelConfig) -> None:
+    """NotImplementedError unless the mesh engine serves ``cfg``: dense
+    decoders with 'attn' and 'local' blocks."""
+    if cfg.is_encdec or cfg.frontend or any(
+            kind not in ("attn", "local") for kind in cfg.block_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: under a mesh the engine serves dense decoders "
+            f"with 'attn' and 'local' blocks, not {cfg.block_pattern}"
+            + (" (encoder-decoder)" if cfg.is_encdec else "")
+            + (f" (frontend {cfg.frontend})" if cfg.frontend else "")
+            + "; MoE, recurrent, encoder-decoder and vision models on a "
+              "mesh are ROADMAP A13c")
+
+
+def _check_mesh(cfg: ModelConfig, mesh, rules: str, cuda_graph) -> bool:
+    """Refuse what the mesh engine does not serve; returns the step route
+    (eager: see the module's docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import mesh_devices
+
+    check_mesh_model(cfg)
+    if rules not in ("serve", "serve_tp"):
+        raise NotImplementedError(
+            f"mesh_rules={rules!r}: the mesh engine serves the 'serve' and "
+            "'serve_tp' rules (FSDP storage is ROADMAP A13c)")
+    if cuda_graph:
+        raise ValueError("cuda_graph=True under a mesh: the mesh engine "
+                         "runs eagerly (a step holding host-staged "
+                         "collectives cannot be captured; capturing NCCL's "
+                         "is ROADMAP A13c)")
+    if mesh_devices(mesh) != dist.get_world_size():
+        raise ValueError(f"the mesh spans {mesh_devices(mesh)} of the "
+                         f"{dist.get_world_size()} ranks: the engine needs "
+                         "every rank on the mesh")
+    return False

@@ -51,6 +51,9 @@ MUST_IMPORT = {
     "repro_torch.configs.phi3_vision", "repro_torch.optim",
     "repro_torch.optim.adamw", "repro_torch.optim.schedules",
     "repro_torch.runtime.driver", "repro_torch.launch.train",
+    "repro_torch.distributed.compat", "repro_torch.distributed.sharding",
+    "repro_torch.distributed.collectives", "repro_torch.dispatch.shard",
+    "repro_torch.launch.mesh",
 }
 
 

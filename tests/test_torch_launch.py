@@ -163,10 +163,16 @@ def test_serve_cli_static_engine():
     ["--force-host-devices", "4"],
 ], ids=["mesh", "shard-impl", "force-host-devices"])
 def test_serve_cli_refuses_unported_flags(flags):
+    """The mesh flags are ported (slice 15) and refused where they do not
+    apply: ``--mesh`` on the static engine, the shard and host-device
+    flags without ``--mesh``; each with a message, before anything is
+    built."""
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
                     *flags])
-    assert exc.value.code == 2
+    want = ("--engine continuous" if flags[0] == "--mesh"
+            else "apply only with --mesh")
+    assert isinstance(exc.value.code, str) and want in exc.value.code
 
 
 @pytest.mark.parametrize("flags,env", [
