@@ -138,7 +138,9 @@ Phases, any failure exits non-zero before the last line is printed:
    -m repro_torch.obs --check-regressions`` exits 0 on the training
    sources and 1 with the slowest timing row x100.  Every timing (the
    tuner's, phase 2's, the sweeps') is ``kernels.ops.time_call``: calls
-   back to back over copies of the weights past the L2, behind a sleep.
+   back to back over copies of the weights past the L2, behind a sleep
+   (a window the host fell behind is timed again).  A failing sentinel
+   echoes its ranked report to standard error.
    Then the calibration phase (``repro_torch.calib``, ``kvq.fit``): dense
    full-width gemma-2b from seed 0 is calibrated on the card at full
    depth to learned per-layer msgemm tables (``Recipe()``, 4 batches of
@@ -188,46 +190,54 @@ Phases, any failure exits non-zero before the last line is printed:
    256000) from seed 0 through the port's serve CLI
    (``repro_torch.launch.serve.main``, in process): msgemm weights with
    ``--check`` (294 msGeMM launches per step, no other kernel); the same
-   model at ``--kv-bits 8`` through the paged-attention kernel (42
-   launches per step) and through the torch route (same tokens), that run
-   writing ``--metrics-json`` and ``--trace-out`` (both valid under the
+   model at ``--kv-bits 8`` through the paged-attention kernel (one
+   launch a layer and step) and through the torch route (same tokens),
+   that run
+   writing ``--metrics-json`` and ``--trace-out`` (both kv8 runs cut to
+   ``CUT_LAYERS`` = 8 layers, 8 attention and 56 msGeMM launches a step,
+   for the mesh-training phases' time; both valid under the
    port's validators, the reference's series names, one ``gemm.*`` device
    event per GeMM and step from the graph replays); int4 weights with
-   ``--check`` (294 int4 launches per step); and one request of 4,440
-   prompt tokens, past the 4096-token window, with int4 weights and
-   ``--check``, and that one again with ``--no-cuda-graph``: the same
-   tokens.  (The msgemm and int4 runs' ``--no-cuda-graph`` twins were
+   ``--check`` and one request of 4,440 prompt tokens, past the
+   4096-token window, with int4 weights and ``--check``, and that one
+   again with ``--no-cuda-graph``: the same tokens (these three cut to 8
+   layers, 56 int4 launches a step, for the mesh-training phases' time).  (The msgemm and int4 runs' ``--no-cuda-graph`` twins were
    cut for the mesh phases' time: gemma-2b holds graph == eager.)
 6. arch    — the other architectures at full width from seed 0 through
    the serve CLI (``repro_torch.launch.serve.main``, in process, the graph
-   route, the 6-request stream): qwen2-moe-a2.7b at full depth with
-   msgemm weights (169 msGeMM launches a step: 7 a layer and the untied
-   vocab head; 72 int4 launches, one a layer and expert projection over
-   its 60-expert stack; its ``dropped_frac``), then on the same weights
+   route, the 6-request stream): qwen2-moe-a2.7b cut to 8 of its 24
+   layers with msgemm weights (57 msGeMM launches a step: 7 a layer and
+   the untied vocab head; 24 int4 launches, one a layer and expert
+   projection over its 60-expert stack; its ``dropped_frac``), then on the same weights
    the eager route (the same tokens) and a kv8 pool through the
    paged-attention kernel (24 launches a step, head dim 128; its eager
    twin was cut for the mesh phases' time) and through the torch route
    (its agreement with the kernel route reported: a top-k router turns
    the routes' last-bit differences into other experts); llama4-maverick
    cut to 2 layers (one dense, one MoE block: top-1 of 128 experts,
-   qk-norm) the same way; codeqwen1.5-7b at full depth with msgemm and
-   with int4 weights, starcoder2-15b at full depth and gpt3-175b cut to 2
-   layers with msgemm weights through the CLI (bf16 activations; tokens
+   qk-norm) the same way; codeqwen1.5-7b cut to 8 layers with msgemm
+   and with int4 weights, starcoder2-15b cut to 8 layers (these cuts and
+   qwen2-moe's pay for the mesh-training phases) and
+   gpt3-175b cut to 2 layers with msgemm weights through the CLI (bf16
+   activations; tokens
    == static generate up to static generate's first near-tie, a top-two
    gap of at most one bf16 ulp: an untied head's bf16 logits often tie
    at full width), then each on the same weights with f32 activations
    through the engine, tokens == static generate; codeqwen's f32 model
    also with a kv8 pool through the paged-attention kernel (32 launches
-   a step, head dim 128) and through the torch route, the same tokens.
-   ``--profile`` adds both MoE models' step profile and the device ms a
+   a step at 8 layers, head dim 128) and through the torch route, the
+   same tokens.  ``--profile`` adds both MoE models' step profile and the device ms a
    step of the vocab head and of the expert stacks (GeMM marks).
-7. recurrent — jamba-v0.1-52b (32 layers: Mamba, attention and 16-expert
-   MoE) and xlstm-1.3b (48 layers: mLSTM and sLSTM) at full width and
-   depth from seed 0 through the serve CLI's static engine (batch 4,
+7. recurrent — jamba-v0.1-52b cut to 8 of its 32 layers (one period of
+   its pattern: Mamba, attention and 16-expert MoE; the cut pays for the
+   mesh-training phases) and xlstm-1.3b (48 layers: mLSTM and sLSTM) at
+   full width from seed 0 through the serve CLI's static engine (batch 4,
    16-token prompts, 16 new tokens; the paged engine refuses recurrent
    models, as the reference's does): jamba and xlstm with msgemm weights,
-   xlstm with int4 weights.  Each run: exactly 149 msGeMM and 48 int4
-   launches a step (jamba), 145 msGeMM (xlstm) or 145 int4 (xlstm int4),
+   xlstm cut to 8 layers (one period) with int4 weights.  Each run:
+   exactly its weight launches a step (jamba at 32 layers: 149 msGeMM
+   and 48 int4; at 8: 38 and 12), 145 msGeMM (xlstm) or 25 int4 (xlstm
+   int4 at 8 layers),
    times the 16 steps; weights GiB, build s, peak GiB, then static
    generate again on the CLI's prompts, timed (prefill ms, decode ms a
    step, tokens/s; the CLI's tokens); the teacher-forced check (static
@@ -239,16 +249,20 @@ Phases, any failure exits non-zero before the last line is printed:
    weight GeMMs; torch.profiler: device busy ms, the weight kernels and
    the rest, the scans among it); jamba's ``dropped_frac``.
 8. enc-dec — whisper-medium (24 encoder and 24 decoder layers, cross
-   attention, learned decoder positions) and phi-3-vision-4.2b (32
-   layers, 576 patch embeddings ahead of the text) at full width and
-   depth from seed 0 through the serve CLI's static engine (batch 4,
+   attention, learned decoder positions) at full depth and
+   phi-3-vision-4.2b cut to 8 of its 32 layers (576 patch embeddings
+   ahead of the text; the cut pays for the mesh-training phases) at full
+   width from seed 0 through the serve CLI's static engine (batch 4,
    16-token prompts, 16 new tokens, the CLI's stub frames (16) or
    patches; the paged engine refuses both, as the reference's does):
-   whisper with msgemm and with int4 weights, phi-3 with msgemm weights;
-   then whisper with msgemm weights at 1500 frames (its 30-second
-   window) through ``runtime.serve.generate``.  Each run: exactly 385
-   weight-kernel launches at a whisper prefill (encoder 24 x 6, decoder
-   24 x 10, head) and 193 a decode step, 225 a phi-3 step; weights GiB,
+   whisper with msgemm weights and, its decoder cut to 8 layers (a cut
+   for the mesh-training phases), with int4 weights, phi-3 with msgemm
+   weights; then whisper with msgemm weights at 1500 frames (its
+   30-second window) through ``runtime.serve.generate``.  Each run:
+   exactly 385 weight-kernel launches at a whisper prefill (encoder 24 x
+   6, decoder 24 x 10, head) and 193 a decode step (225 and 65 with 8
+   decoder layers), 7 a phi-3 layer and step and its head (57 at 8
+   layers); weights GiB,
    build s, peak GiB; static generate again, timed (whisper's encoder
    alone, prefill ms, decode ms a step, tokens/s); the teacher-forced
    check (f32 within ``F32_STATE_TOL``, bf16 tokens up to the first
@@ -302,8 +316,30 @@ Phases, any failure exits non-zero before the last line is printed:
    ``[calib-moe ...]``: qwen2-moe at full width and 2 layers calibrated
    (learned aggregate error <= uniform, a (60, 16) table an expert
    stack), served (its learned expert stacks on ``int4_torch``), the
-   experts' device ms a step.  ``--only mesh`` runs the build and this
-   phase alone (with the main phase's reference run first).
+   experts' device ms a step.  ``[train-mesh ...]``: training on a mesh
+   (FSDP x TP): full-width gemma-2b cut to 2 layers (f32, remat, AdamW,
+   the train phase's 8 x 128 lcg tokens) from four ranks sharing
+   ``cuda:0`` over host-staged gloo on (data=2, model=2), 3 steps, a
+   checkpoint of whole leaves, 2 more: each step's loss and grad_norm
+   within 1e-4 of the same steps on the card alone, every rank's the
+   same, no hand-written kernel launched; one forward and backward with
+   the int8 FSDP gather (loss within 1e-3 of the f32 gather's), one step
+   with ``int8_pod`` on (pod=2, data=1, model=2) (its loss the f32
+   step's, its grad_norm within 1e-3 of the card alone's, its residual
+   nonzero); the checkpoint restored onto one device here, whose
+   next 2 steps equal the mesh's within 1e-4; each rank's step ms,
+   tokens/s and peak GiB, the collectives a step by kind, bytes and
+   seconds.  ``[train-mesh-nccl ...]``: the same mesh at full depth
+   (18 layers), one rank a card over NCCL, 3 steps, held to the card
+   alone within 1e-4, where four cards are visible.  ``[dryrun ...]``
+   (in a whole run after the train phase, with no other phase running):
+   ``python -m repro_torch.launch.dryrun --arch gemma_2b --shape
+   train_4k`` on the 256- and the 512-device production mesh, the two
+   cells side by side on the host (fake process group, fake tensors):
+   each ``ok``, arguments and peak GiB a device, the collectives by
+   kind.  ``--only mesh`` runs the build and
+   this phase alone (with the main phase's reference run first), then
+   the dry run.
 11. report — the seconds of every phase (each phase also prints a
    ``[phase] <name> <s>`` line when it ends), the card's name and power
    limit, then a ``kernels`` JSON line.
@@ -315,7 +351,9 @@ The last line is ``{"ok": true, "device": {...}}``.  Details go to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -329,6 +367,19 @@ ROOT = Path(__file__).resolve().parent
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2**-7, atol=1e-5)  # one bf16 ulp
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)   # tests/test_kvq.py's, two routes
+# the depth cut (widths stay the config's) that pays for the mesh-training
+# phases: jamba's and phi-3's static runs, qwen2-moe's, codeqwen's and
+# starcoder2's engine runs, xlstm's int4 run, gemma2-9b's two kv8 runs
+CUT_LAYERS = 8
+
+
+def cut(cfg, extra):
+    """``cfg`` at the depth ``--num-layers`` of ``extra`` asks for."""
+    extra = list(extra)
+    if "--num-layers" in extra:
+        return cfg.replace(
+            num_layers=int(extra[extra.index("--num-layers") + 1]))
+    return cfg
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1681,7 +1732,12 @@ def obs_cli(tag, argv, want_rc):
     from repro_torch.obs.__main__ import main as obs_main
 
     print(f"[{tag}] python -m repro_torch.obs {' '.join(argv)}", flush=True)
-    rc = obs_main(argv)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    if rc != want_rc:  # the report's ranked rows, beside the traceback
+        print(buf.getvalue(), end="", file=sys.stderr, flush=True)
     check(rc == want_rc, f"[{tag}] exit {rc}, want {want_rc}")
 
 
@@ -1702,6 +1758,7 @@ def phase_plan_cli():
     sources and 1 once the slowest timing row is x100."""
     from repro_torch import obs
     from repro_torch.dispatch import autotune as at
+    from repro_torch.kernels import ops
     from repro_torch.obs import perfmodel as pm
 
     PLAN_CLI.unlink(missing_ok=True)
@@ -1772,7 +1829,9 @@ def phase_plan_cli():
           f"from {cal.fit['n_samples']} samples; the sentinel passed "
           f"{report['n_samples']} series of the next run (0 candidates "
           f"timed) and the training sources at {pm.DEFAULT_TOLERANCE:g}x, "
-          f"and flagged {key}'s slowest row x100", flush=True)
+          f"and flagged {key}'s slowest row x100; {ops.time_call_retries} "
+          "timing windows of this run re-timed after a host stall",
+          flush=True)
     obs.registry().reset(prefix="kernel_")
     return dict(tune=tuned, sentinel=again, timed=timed,
                 calibration=cal.as_dict(), x100_key=key)
@@ -2777,8 +2836,9 @@ def cli_eager(tag, argv, per_step, graph_run):
 def phase_gemma2_9b():
     """gemma2-9b at full width (42 layers, d_model 3584, vocab 256000) from
     seed 0 through the port's serve CLI: msgemm weights with --check; the
-    same weights at kv8 through the paged-attention kernel and through the
-    torch route (that run writes --metrics-json and --trace-out); int4
+    same weights cut to ``CUT_LAYERS`` layers at kv8 through the
+    paged-attention kernel and through the torch route (that run writes
+    --metrics-json and --trace-out); int4, cut alike,
     weights with --check; and one request longer than the 4096-token
     window, int4 weights, --check, and again on the eager route
     (--no-cuda-graph): the one eager run of local, soft-capped attention
@@ -2799,31 +2859,31 @@ def phase_gemma2_9b():
     paths = (str(outdir / "serve_metrics.json"),
              str(outdir / "serve_trace.json"))
     for route, extra, attn in (
-            ("kernel", [], CONFIG.num_layers),
+            ("kernel", [], CUT_LAYERS),
             ("torch", ["--backend", "paged_attn_torch", "--metrics-json",
                        paths[0], "--trace-out", paths[1]], 0)):
         runs[route] = serve_cli(
             f"gemma2-9b kv8 {route}",
-            ["--quant", "msgemm", "--kv-bits", "8", *extra],
-            dict(msgemm=gemms, paged_attention=attn))
+            ["--quant", "msgemm", "--kv-bits", "8", "--num-layers",
+             str(CUT_LAYERS), *extra],
+            dict(msgemm=7 * CUT_LAYERS, paged_attention=attn))
     for rid, toks in runs["kernel"]["tokens"].items():
         check(toks == runs["torch"]["tokens"][rid],
               f"[gemma2-9b kv8] request {rid}: kernel route {toks} != torch "
               f"route {runs['torch']['tokens'][rid]}")
-    same = sum(t == out["msgemm"]["tokens"][rid]
-               for rid, t in runs["kernel"]["tokens"].items())
-    print(f"[gemma2-9b kv8] kernel and torch routes agree on every request; "
-          f"{same}/6 equal the f32 pool's tokens", flush=True)
-    out["kv8"] = dict(runs, same_as_f32_pool=same)
+    print(f"[gemma2-9b kv8] kernel and torch routes agree on every request "
+          f"({CUT_LAYERS} layers)", flush=True)
+    out["kv8"] = dict(runs)
     out["artifacts"] = check_artifacts(
-        runs["torch"], *paths, dict(gemm=gemms, kv_dequant=CONFIG.num_layers))
+        runs["torch"], *paths, dict(gemm=7 * CUT_LAYERS,
+                                    kv_dequant=CUT_LAYERS))
 
-    int4 = ["--quant", "int4_dequant", "--check"]
-    out["int4"] = serve_cli("gemma2-9b int4", int4, dict(int4_matmul=gemms))
+    cut_gemms = 7 * CUT_LAYERS
+    int4 = ["--quant", "int4_dequant", "--check", "--num-layers",
+            str(CUT_LAYERS)]
+    out["int4"] = serve_cli("gemma2-9b int4", int4,
+                            dict(int4_matmul=cut_gemms))
     check(out["int4"]["checked"] == 6, "[gemma2-9b int4] --check did not run")
-    out["int4"]["same_as_msgemm"] = sum(
-        t == out["msgemm"]["tokens"][rid]
-        for rid, t in out["int4"]["tokens"].items())
 
     # past the window: int4 weights (3x faster a layer than msGeMM), the
     # prompt in 256-token prefill chunks, one slot
@@ -2831,14 +2891,15 @@ def phase_gemma2_9b():
         "--quant", "int4_dequant", "--check", "--num-requests", "1",
         "--max-slots", "1", "--prefill-chunk", "256",
         "--prompt-len", str(LONG_PROMPT["prompt_len"]),
-        "--seed", str(LONG_PROMPT["seed"])]
-    long = serve_cli("gemma2-9b long", long_argv, dict(int4_matmul=gemms))
+        "--seed", str(LONG_PROMPT["seed"]), "--num-layers", str(CUT_LAYERS)]
+    long = serve_cli("gemma2-9b long", long_argv,
+                     dict(int4_matmul=cut_gemms))
     check(long["prompts"][0] > CONFIG.sliding_window and long["checked"] == 1,
           f"[gemma2-9b long] prompt {long['prompts']} not past the window "
           f"{CONFIG.sliding_window}, or unchecked")
     out["long"] = long
     out["long-eager"] = cli_eager("gemma2-9b long", long_argv,
-                                  dict(int4_matmul=gemms), long)
+                                  dict(int4_matmul=cut_gemms), long)
     print(f"[gemma2-9b long] a {long['prompts'][0]}-token prompt (window "
           f"{CONFIG.sliding_window}) served, tokens == static generate",
           flush=True)
@@ -3567,22 +3628,26 @@ def serve_dense(tag, arch, quant, extra=(), kv8=False):
 
 def phase_arch(profile=False):
     """The other architectures at full width from seed 0 through the serve
-    CLI: qwen2-moe-a2.7b at full depth (graph == eager, with the f32 and
-    the kv8 pool), llama4-maverick cut to 2 layers (one dense, one MoE
-    block: top-1 of 128 experts, qk-norm), codeqwen1.5-7b at full depth
-    (msgemm and int4), starcoder2-15b at full depth and gpt3-175b cut to
-    2 layers (msgemm), the dense models' tokens held to static generate
+    CLI: qwen2-moe-a2.7b cut to ``CUT_LAYERS`` layers (graph == eager,
+    with the f32 and the kv8 pool), llama4-maverick cut to 2 layers (one
+    dense, one MoE block: top-1 of 128 experts, qk-norm), codeqwen1.5-7b
+    cut to ``CUT_LAYERS`` layers with msgemm and with int4,
+    starcoder2-15b cut to ``CUT_LAYERS`` layers and gpt3-175b to 2
+    (msgemm), the dense models' tokens held to static generate
     (:func:`serve_dense`; codeqwen's kv8 kernel == the torch route)."""
-    out = {"qwen2-moe": serve_moe("arch qwen2-moe", "qwen2_moe", [],
+    cut_depth = ["--num-layers", str(CUT_LAYERS)]
+    out = {"qwen2-moe": serve_moe("arch qwen2-moe", "qwen2_moe", cut_depth,
                                   profile)}
     out["llama4"] = serve_moe("arch llama4", "llama4_maverick",
                               ["--num-layers", "2"], profile)
     out["codeqwen-msgemm"] = serve_dense(
-        "arch codeqwen msgemm", "codeqwen15_7b", "msgemm", kv8=True)
+        "arch codeqwen msgemm", "codeqwen15_7b", "msgemm", cut_depth,
+        kv8=True)
     out["codeqwen-int4"] = serve_dense("arch codeqwen int4",
-                                       "codeqwen15_7b", "int4_dequant")
+                                       "codeqwen15_7b", "int4_dequant",
+                                       cut_depth)
     out["starcoder2"] = serve_dense("arch starcoder2", "starcoder2_15b",
-                                    "msgemm")
+                                    "msgemm", cut_depth)
     out["gpt3"] = serve_dense("arch gpt3", "gpt3_175b", "msgemm",
                               ["--num-layers", "2"])
     return out
@@ -3818,10 +3883,11 @@ def teacher_forced(tag, model, cfg, prompts, n, gate_bf16=False):
                 f32_max_diff=d32, f32_tokens=toks32)
 
 
-def serve_recurrent(tag, arch, quant):
-    """A recurrent model at full width and depth from seed 0 through the
-    serve CLI's static engine (``repro_torch.launch.serve.main``, in
-    process; the CLI's batch 4, 16-token prompts, 16 new tokens): every
+def serve_recurrent(tag, arch, quant, extra=()):
+    """A recurrent model at full width from seed 0 through the serve CLI's
+    static engine (``repro_torch.launch.serve.main``, in process; the
+    CLI's batch 4, 16-token prompts, 16 new tokens), at full depth or the
+    ``--num-layers`` of ``extra``: every
     kernel count set to 0 just before and read just after, exactly the
     per-step weight-kernel launches (:func:`recurrent_launches`) times the
     16 steps, no attention kernel; then on the same weights: static
@@ -3833,8 +3899,8 @@ def serve_recurrent(tag, arch, quant):
     from repro_torch import configs
     from repro_torch.launch import serve as cli
 
-    CONFIG = configs.get_config(arch)
-    argv = ["--arch", arch, "--engine", "static", "--quant", quant]
+    CONFIG = cut(configs.get_config(arch), extra)
+    argv = ["--arch", arch, "--engine", "static", "--quant", quant, *extra]
     print(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
     for mod in cli.KERNELS.values():
@@ -3847,7 +3913,8 @@ def serve_recurrent(tag, arch, quant):
     total = cli.launch_counts()
     model, cfg = out.pop("params"), out.pop("cfg")
     check(cfg.replace(quant=CONFIG.quant) == CONFIG,
-          f"[{tag}] not {arch} at full width and depth: {cfg}")
+          f"[{tag}] not {arch} at full width and {CONFIG.num_layers} "
+          f"layers: {cfg}")
     prompts, tokens = out["prompts"], out["tokens"]
     B, n = tokens.shape
     ms, i4 = recurrent_launches(cfg)
@@ -3894,14 +3961,18 @@ def serve_recurrent(tag, arch, quant):
 
 
 def phase_recurrent():
-    """The recurrent blocks at full width and depth from seed 0 through the
-    serve CLI's static engine: jamba-v0.1 (32 layers: Mamba, attention,
-    16-expert MoE) and xlstm-1.3b (48 layers: mLSTM, sLSTM) with msgemm
-    weights, xlstm-1.3b with int4 weights (:func:`serve_recurrent`)."""
-    return {"jamba": serve_recurrent("rec jamba", "jamba_v01", "msgemm"),
+    """The recurrent blocks at full width from seed 0 through the serve
+    CLI's static engine: jamba-v0.1 cut to ``CUT_LAYERS`` layers (one
+    period of its pattern: Mamba, attention, 16-expert MoE) and
+    xlstm-1.3b at full depth (48 layers: mLSTM, sLSTM) with msgemm
+    weights, xlstm-1.3b cut to ``CUT_LAYERS`` layers (one period: 7
+    mLSTM, 1 sLSTM) with int4 weights (:func:`serve_recurrent`)."""
+    return {"jamba": serve_recurrent("rec jamba", "jamba_v01", "msgemm",
+                                     ["--num-layers", str(CUT_LAYERS)]),
             "xlstm": serve_recurrent("rec xlstm", "xlstm_1b3", "msgemm"),
             "xlstm-int4": serve_recurrent("rec xlstm int4", "xlstm_1b3",
-                                          "int4_dequant")}
+                                          "int4_dequant",
+                                          ["--num-layers", str(CUT_LAYERS)])}
 
 
 # ---------------------------------------------------- the enc-dec phase
@@ -4032,10 +4103,11 @@ def static_run(tag, model, cfg, batch, want, run):
     return run
 
 
-def serve_encdec(tag, arch, quant):
-    """An enc-dec or vision model at full width and depth from seed 0
-    through the serve CLI's static engine (``repro_torch.launch.serve.
-    main``, in process: batch 4, 16-token prompts, 16 new tokens, the
+def serve_encdec(tag, arch, quant, extra=()):
+    """An enc-dec or vision model at full width from seed 0, at full depth
+    or the ``--num-layers`` of ``extra``, through the serve CLI's static
+    engine (``repro_torch.launch.serve.main``, in process: batch 4,
+    16-token prompts, 16 new tokens, the
     CLI's stub frames or patches): every kernel count set to 0 just
     before and read just after, exactly :func:`encdec_launches` (the
     prefill's, then 15 decode steps'), no attention kernel; then
@@ -4045,8 +4117,8 @@ def serve_encdec(tag, arch, quant):
     from repro_torch import configs
     from repro_torch.launch import serve as cli
 
-    CONFIG = configs.get_config(arch)
-    argv = ["--arch", arch, "--engine", "static", "--quant", quant]
+    CONFIG = cut(configs.get_config(arch), extra)
+    argv = ["--arch", arch, "--engine", "static", "--quant", quant, *extra]
     print(f"[{tag}] python -m repro_torch.launch.serve {' '.join(argv)}",
           flush=True)
     for mod in cli.KERNELS.values():
@@ -4059,7 +4131,8 @@ def serve_encdec(tag, arch, quant):
     total = cli.launch_counts()
     model, cfg = out.pop("params"), out.pop("cfg")
     check(cfg.replace(quant=CONFIG.quant) == CONFIG,
-          f"[{tag}] not {arch} at full width and depth: {cfg}")
+          f"[{tag}] not {arch} at full width and {CONFIG.num_layers} "
+          f"layers: {cfg}")
     check(total == out["launches"],
           f"[{tag}] the CLI launched {total}, its run {out['launches']}")
     n = out["tokens"].shape[1]
@@ -4132,10 +4205,12 @@ def whisper_long(tag, model, cfg, frames=1500):
 
 
 def phase_encdec():
-    """The encoder-decoder and the vision frontend at full width and depth
-    from seed 0 through the static path: whisper-medium (24 + 24 layers)
-    with msgemm and with int4 weights and phi-3-vision-4.2b (32 layers)
-    with msgemm weights through the serve CLI (:func:`serve_encdec`), and
+    """The encoder-decoder and the vision frontend at full width from seed
+    0 through the static path: whisper-medium (24 + 24 layers) with
+    msgemm weights, its decoder cut to ``CUT_LAYERS`` layers with int4
+    weights, and phi-3-vision-4.2b cut to
+    ``CUT_LAYERS`` of its 32 layers with msgemm weights through the serve
+    CLI (:func:`serve_encdec`), and
     whisper with msgemm weights at 1500 frames through
     ``runtime.serve.generate`` (:func:`whisper_long`)."""
     import torch
@@ -4147,10 +4222,13 @@ def phase_encdec():
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    for key, arch, quant in (("whisper-int4", "whisper_medium",
-                              "int4_dequant"),
-                             ("phi3", "phi3_vision", "msgemm")):
-        out[key], model, _ = serve_encdec(f"encdec {key}", arch, quant)
+    for key, arch, quant, extra in (
+            ("whisper-int4", "whisper_medium", "int4_dequant",
+             ("--num-layers", str(CUT_LAYERS))),
+            ("phi3", "phi3_vision", "msgemm",
+             ("--num-layers", str(CUT_LAYERS)))):
+        out[key], model, _ = serve_encdec(f"encdec {key}", arch, quant,
+                                          extra)
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -5014,6 +5092,413 @@ def phase_mesh(card, ref=None):
         print("[mesh-nccl] skipped: one card (two ranks on two cards, "
               "joined by NCCL, run where two are visible)", flush=True)
     out["calib_moe"] = phase("calib-moe", phase_calib_moe)
+    out["train_mesh"] = phase("train-mesh", phase_train_mesh, card)
+    if torch.cuda.device_count() >= 4:
+        out["train_mesh_nccl"] = phase("train-mesh-nccl",
+                                       phase_train_mesh_nccl, card)
+    else:
+        print("[train-mesh-nccl] skipped: fewer than 4 cards (the 2x2 mesh "
+              "one rank a card over NCCL runs where four are visible)",
+              flush=True)
+    return out
+
+
+# ------------------------------------------------------- training on a mesh
+# full-width gemma-2b cut to 2 layers (the card/CPU step's and the
+# driver's depth), the train phase's batch (8 x 128 lcg tokens, seed 0),
+# f32 activations, AdamW, remat; 3 steps on (data=2, model=2), a
+# checkpoint, 2 more
+TRAIN_MESH = dict(layers=2, steps=3, more=2)
+TRAIN_MESH_TOL = 1e-4  # relative: loss and grad_norm, mesh vs one card
+# relative limits of the int8 paths against f32, each between its sound
+# reading on the card (1.9e-5 and 6.4e-5) and a broken path's: a gather
+# without its scale, or a mean over 2 pods without its /2 (1.0)
+INT8_GATHER_TOL = 1e-3  # the int8 FSDP gather's loss vs the f32 gather's
+INT8_POD_TOL = 1e-3  # int8_pod's step-1 grad_norm vs the card alone's
+TRAIN_MESH_DIR = ROOT / "chiprun_out" / "train_mesh"
+
+
+def train_mesh_cfg(layers=TRAIN_MESH["layers"]):
+    from repro_torch.configs.gemma_2b import CONFIG
+
+    return CONFIG.replace(num_layers=layers, dtype="float32")
+
+
+def train_mesh_steps(state, cfg, tcfg, data, steps, device, mesh=None,
+                     first=0):
+    """``steps`` train steps from batch ``first``: (losses, grad norms,
+    step ms (host clock, synchronised), collectives of each step by kind:
+    {kind: [count, bytes, seconds]}, the seconds with
+    ``collectives.set_timing`` on)."""
+    import torch
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.runtime import train as RT
+
+    losses, gnorms, ms, colls = [], [], [], []
+    for step in range(first, first + steps):
+        batch = data.device_batch(step, device=device, mesh=mesh)
+        torch.cuda.synchronize(device)
+        coll.reset_counts()
+        t = time.perf_counter()
+        state, met = RT.train_step(state, batch, cfg, tcfg)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t) * 1e3)
+        colls.append({k: [coll.counts[k], coll.nbytes[k], coll.seconds[k]]
+                      for k in sorted(coll.counts)})
+    return losses, gnorms, ms, colls
+
+
+def train_mesh_rank(rank, device, layers, steps, more):
+    """One rank of the mesh training run (``launch.mesh.run_ranks``):
+    full-width gemma-2b at ``layers`` layers from seed 0 cut to this
+    rank's blocks of a (data=2, model=2) mesh; one forward and backward
+    with the int8 FSDP gather from the initial state; ``steps`` steps, a
+    checkpoint (whole leaves, rank 0 writes), ``more`` steps; then one
+    step of a fresh state on (pod=2, data=1, model=2) with
+    ``grad_compression="int8_pod"``.  Hand-written kernel launches are
+    counted over the whole run."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.device import generator
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import driver
+    from repro_torch.runtime import train as RT
+
+    from repro_torch.distributed import collectives as coll
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    coll.set_timing(True)  # staged collectives synchronise anyway
+    for mod in KERNELS.values():
+        mod.launches = 0
+    cfg = train_mesh_cfg(layers)
+    tcfg = train_config(TRAIN_STEPS)
+    data = train_stream()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    t0 = time.perf_counter()
+    state = RT.init_state(cfg, tcfg, generator=generator(0, device),
+                          device=device, mesh=mesh)
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    names = list(state["opt"]["m"])
+    b0 = data.device_batch(0, device=device, mesh=mesh)
+    t0 = time.perf_counter()
+    i8_loss, _, i8_grads = RT._grads(
+        state["params"], names, cfg.replace(fsdp_int8_gather=True), tcfg, b0,
+        mesh=mesh, specs=state["specs"])
+    i8 = dict(loss=float(i8_loss), finite=bool(all(
+        torch.isfinite(g).all() for g in i8_grads.values())),
+        s=time.perf_counter() - t0)
+    del i8_grads, b0
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, gnorms, ms, colls = train_mesh_steps(state, cfg, tcfg, data,
+                                                 steps, device, mesh)
+    peak = torch.cuda.max_memory_allocated(device)
+    t0 = time.perf_counter()
+    CheckpointManager(str(TRAIN_MESH_DIR), keep=1).save(
+        steps, driver._tree(state), shardings=driver.shardings(state))
+    save_s = time.perf_counter() - t0
+    more_losses, more_gnorms, more_ms, _ = train_mesh_steps(
+        state, cfg, tcfg, data, more, device, mesh, first=steps)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    pod_mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    ptcfg = RT.TrainConfig(optimizer=tcfg.optimizer,
+                           grad_compression="int8_pod")
+    pstate = RT.init_state(cfg, ptcfg, generator=generator(0, device),
+                           device=device, mesh=pod_mesh)
+    pod = train_mesh_steps(pstate, cfg, ptcfg, data, 1, device, pod_mesh)
+    residual = max(float(t.abs().max())
+                   for t in pstate["opt"]["residual"].values())
+    del pstate
+    from repro_torch.distributed.collectives import transport
+
+    return dict(rank=rank, device=str(device), init_s=init_s, losses=losses,
+                grad_norms=gnorms, step_ms=ms, collectives=colls,
+                peak_bytes=peak, save_s=save_s, more_losses=more_losses,
+                more_grad_norms=more_gnorms, more_ms=more_ms, int8_gather=i8,
+                int8_pod=dict(loss=pod[0][0], grad_norm=pod[1][0],
+                              ms=pod[2][0], collectives=pod[3][0],
+                              residual_max=residual),
+                transport=transport(),
+                launches={n: mod.launches for n, mod in KERNELS.items()})
+
+
+def phase_train_mesh(card):
+    """Training on a mesh (FSDP x TP: ``init_state(..., mesh=)``,
+    ``constrain_params``, the tensor-parallel blocks, ``int8_all_gather``,
+    ``optim.compression``, the checkpoint of whole leaves): full-width
+    gemma-2b at 2 layers, four ranks sharing ``cuda:0`` over host-staged
+    gloo (``train_mesh_rank``), held to the same run on the card alone:
+    each step's loss and grad_norm within ``TRAIN_MESH_TOL``; the int8
+    FSDP gather's loss within ``INT8_GATHER_TOL`` of the f32 gather's;
+    the mesh's step-3 checkpoint restored onto one device (1x1) here,
+    whose next 2 steps equal the mesh's within ``TRAIN_MESH_TOL``; the
+    int8_pod step's loss the f32 step's (the loss precedes the gradient
+    mean), its grad_norm within ``INT8_POD_TOL`` of the card alone's
+    and its residual nonzero.  Per rank: step ms, tokens/s, peak GiB; the
+    collectives a step by kind and bytes.  No hand-written kernel runs."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.device import generator
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.runtime import driver
+    from repro_torch.runtime import train as RT
+
+    cfg, tcfg, data = train_mesh_cfg(), train_config(TRAIN_STEPS), \
+        train_stream()
+    steps, more = TRAIN_MESH["steps"], TRAIN_MESH["more"]
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    state = RT.init_state(cfg, tcfg, generator=generator(0, "cuda"),
+                          device="cuda")
+    one = train_mesh_steps(state, cfg, tcfg, data, steps + more, "cuda")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(train_mesh_rank, 4, TRAIN_MESH["layers"], steps, more,
+                      devices=["cuda:0"] * 4, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    lead = ranks[0]
+    for r in ranks:
+        check(r["launches"] == {n: 0 for n in r["launches"]},
+              f"[train-mesh] rank {r['rank']} launched hand-written kernels: "
+              f"{r['launches']}")
+        check([r["losses"], r["more_losses"]] == [lead["losses"],
+                                                  lead["more_losses"]],
+              f"[train-mesh] rank {r['rank']}'s losses differ from rank 0's")
+        check([{k: v[:2] for k, v in c.items()} for c in r["collectives"]]
+              == [{k: v[:2] for k, v in c.items()}
+                  for c in lead["collectives"]],
+              f"[train-mesh] rank {r['rank']} issued other collectives")
+    got = lead["losses"] + lead["more_losses"]
+    got_gn = lead["grad_norms"] + lead["more_grad_norms"]
+    rel = max(max(abs(a - b) / abs(b) for a, b in zip(got, one[0])),
+              max(abs(a - b) / abs(b) for a, b in zip(got_gn, one[1])))
+    check(rel <= TRAIN_MESH_TOL,
+          f"[train-mesh] mesh losses {got} / grad norms {got_gn} vs one "
+          f"card's {one[0]} / {one[1]}: rel {rel:.2e} > {TRAIN_MESH_TOL}")
+    i8 = lead["int8_gather"]
+    i8_rel = abs(i8["loss"] - got[0]) / abs(got[0])
+    check(i8["finite"] and i8_rel <= INT8_GATHER_TOL,
+          f"[train-mesh] int8 FSDP gather: loss {i8['loss']} vs f32 "
+          f"{got[0]} (rel {i8_rel:.2e}), finite {i8['finite']}")
+    pod = lead["int8_pod"]
+    pod_rel = abs(pod["loss"] - got[0]) / abs(got[0])
+    pod_gn_rel = abs(pod["grad_norm"] - one[1][0]) / abs(one[1][0])
+    check(all(math.isfinite(v) for v in (pod["loss"], pod["grad_norm"]))
+          and pod_rel <= TRAIN_MESH_TOL and pod_gn_rel <= INT8_POD_TOL
+          and pod["residual_max"] > 0,
+          f"[train-mesh] int8_pod step: loss {pod['loss']} vs {got[0]}, "
+          f"grad_norm {pod['grad_norm']} vs {one[1][0]} (rel "
+          f"{pod_gn_rel:.2e}, tol {INT8_POD_TOL}), residual max "
+          f"{pod['residual_max']}")
+    # the mesh's step-3 checkpoint onto one device, 2 more steps
+    t0 = time.perf_counter()
+    state = RT.init_state(cfg, tcfg, generator=generator(1, "cuda"),
+                          device="cuda")
+    state = driver._restore(CheckpointManager(str(TRAIN_MESH_DIR)), steps,
+                            state)
+    restore_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in TRAIN_MESH_DIR.rglob("*")
+               if f.is_file())
+    after = train_mesh_steps(state, cfg, tcfg, data, more, "cuda",
+                             first=steps)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    rel11 = max(abs(a - b) / abs(b)
+                for a, b in zip(after[0], lead["more_losses"]))
+    check(rel11 <= TRAIN_MESH_TOL,
+          f"[train-mesh] restored onto 1x1: losses {after[0]} vs the mesh's "
+          f"{lead['more_losses']} (rel {rel11:.2e})")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for r in ranks:
+        step_ms = statistics.median(r["step_ms"][1:] + r["more_ms"])
+        r["median_step_ms"] = step_ms
+        print(f"[train-mesh] rank {r['rank']} on {r['device']} ({card}, "
+              f"{r['transport']}): step {step_ms:.1f} ms (median of steps "
+              f"2-{steps + more}; step 1 {r['step_ms'][0]:.1f} ms), "
+              f"{tokens / (step_ms / 1e3):.0f} tokens/s, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; state built in "
+              f"{r['init_s']:.1f}s, checkpoint saved in {r['save_s']:.1f}s",
+              flush=True)
+    per_step = lead["collectives"][-1]
+    coll_s = sum(v[2] for v in per_step.values())
+    print(f"[train-mesh] collectives a step (rank 0, step {steps}): "
+          + ", ".join(f"{k} {c} ({b / 2**20:.1f} MiB, {t * 1e3:.0f} ms)"
+                      for k, (c, b, t) in per_step.items())
+          + f"; {coll_s * 1e3:.0f} ms of the step's "
+          f"{lead['step_ms'][-1]:.0f} in collectives", flush=True)
+    one_ms = statistics.median(one[2][1:])
+    print(f"[train-mesh] gemma-2b full width, {TRAIN_MESH['layers']} layers, "
+          f"f32, remat, {TRAIN_BATCH} x {TRAIN_SEQ} tokens on (data=2, "
+          f"model=2), 4 ranks sharing one card ({card}): losses {got} == one "
+          f"card's {one[0]}, grad norms within rel {rel:.2e} (tol "
+          f"{TRAIN_MESH_TOL}); one card {one_ms:.1f} ms a step; ranks' run "
+          f"{ranks_s:.1f}s", flush=True)
+    print(f"[train-mesh] int8 FSDP gather: loss {i8['loss']:.6f} vs f32 "
+          f"{got[0]:.6f} (rel {i8_rel:.2e}, tol {INT8_GATHER_TOL}); int8_pod "
+          f"on (pod=2, data=1, model=2): loss {pod['loss']:.6f}, grad_norm "
+          f"{pod['grad_norm']:.6f} vs {one[1][0]:.6f} (rel {pod_gn_rel:.2e}, "
+          f"tol {INT8_POD_TOL}), step {pod['ms']:.1f} ms, residual max "
+          f"{pod['residual_max']:.3e}; collectives "
+          + ", ".join(f"{k} {v[0]}" for k, v in pod["collectives"].items()),
+          flush=True)
+    print(f"[train-mesh] step-{steps} checkpoint ({size / 2**30:.2f} GiB, "
+          f"whole leaves) restored onto one device in {restore_s:.1f}s: "
+          f"losses {after[0]} == the mesh's {lead['more_losses']} (rel "
+          f"{rel11:.2e})", flush=True)
+    return dict(ranks=ranks, one_card=dict(losses=one[0], grad_norms=one[1],
+                                           step_ms=one[2]),
+                rel=rel, int8_rel=i8_rel, int8_pod_rel=pod_gn_rel,
+                restored=dict(
+                    losses=after[0], rel=rel11, s=restore_s),
+                checkpoint_bytes=size, ranks_s=ranks_s)
+
+
+def train_nccl_rank(rank, device, steps):
+    """One rank of the (data=2, model=2) run at full depth, one card a
+    rank over NCCL: ``steps`` steps."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.distributed.collectives import transport
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import train as RT
+
+    from repro_torch.distributed import collectives as coll
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    coll.set_timing(True)
+    cfg = train_mesh_cfg(18)
+    tcfg = train_config(TRAIN_STEPS)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    state = RT.init_state(cfg, tcfg, generator=generator(0, device),
+                          device=device, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, gnorms, ms, colls = train_mesh_steps(
+        state, cfg, tcfg, train_stream(), steps, device, mesh)
+    return dict(rank=rank, device=str(device), losses=losses,
+                grad_norms=gnorms, step_ms=ms, collectives=colls[-1],
+                peak_bytes=torch.cuda.max_memory_allocated(device),
+                transport=transport())
+
+
+def phase_train_mesh_nccl(card):
+    """The (data=2, model=2) run at full depth (18 layers) one rank a card
+    over NCCL, 3 steps, held to the same steps on ``cuda:0`` alone: each
+    step's loss and grad_norm within ``TRAIN_MESH_TOL``, every rank
+    alike; step ms, tokens/s and peak GiB per rank, the collectives a
+    step."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.distributed.collectives import NCCL
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.runtime import train as RT
+
+    cfg, tcfg = train_mesh_cfg(18), train_config(TRAIN_STEPS)
+    state = RT.init_state(cfg, tcfg, generator=generator(0, "cuda"),
+                          device="cuda")
+    one = train_mesh_steps(state, cfg, tcfg, train_stream(),
+                           TRAIN_MESH["steps"], "cuda")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(train_nccl_rank, 4, TRAIN_MESH["steps"],
+                      devices=[f"cuda:{i}" for i in range(4)], timeout=900)
+    lead = ranks[0]
+    for r in ranks:
+        check(r["transport"] == NCCL and r["losses"] == lead["losses"]
+              and r["grad_norms"] == lead["grad_norms"],
+              f"[train-mesh-nccl] rank {r['rank']}: {r['transport']}, "
+              f"losses {r['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(lead["losses"] + lead["grad_norms"], one[0] + one[1]))
+    check(rel <= TRAIN_MESH_TOL,
+          f"[train-mesh-nccl] losses {lead['losses']} / grad norms "
+          f"{lead['grad_norms']} vs one card's {one[0]} / {one[1]}: rel "
+          f"{rel:.2e} > {TRAIN_MESH_TOL}")
+    print(f"[train-mesh-nccl] 18 layers: losses {lead['losses']} == one "
+          f"card's {one[0]}, grad norms within rel {rel:.2e} (tol "
+          f"{TRAIN_MESH_TOL}); one card {statistics.median(one[2][1:]):.1f} "
+          "ms a step", flush=True)
+    for r in ranks:
+        step_ms = statistics.median(r["step_ms"][1:])
+        print(f"[train-mesh-nccl] rank {r['rank']} on {r['device']} "
+              f"({card}): step {step_ms:.1f} ms, "
+              f"{TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3):.0f} tokens/s, "
+              f"peak {r['peak_bytes'] / 2**30:.2f} GiB; losses {r['losses']}",
+              flush=True)
+    print("[train-mesh-nccl] collectives a step: " + ", ".join(
+        f"{k} {c} ({b / 2**20:.1f} MiB, {t * 1e3:.0f} ms)"
+        for k, (c, b, t) in lead["collectives"].items()), flush=True)
+    return dict(ranks=ranks, one_card=dict(losses=one[0],
+                                           grad_norms=one[1],
+                                           step_ms=one[2]), rel=rel)
+
+
+DRYRUN_DIR = ROOT / "chiprun_out" / "dryrun"
+
+
+def start_dryrun():
+    """Start the dry run's two cells, each a process of its own on the host
+    alone (no card: a fake process group and fake tensors): ``python -m
+    repro_torch.launch.dryrun --arch gemma_2b --shape train_4k`` on the
+    single (16 x 16) and the multi-pod (2 x 16 x 16) production mesh.
+    Returns ({mesh: process}, the start time)."""
+    import shutil
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = {mesh: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gemma_2b", "--shape", "train_4k", "--mesh", mesh, "--out",
+         str(DRYRUN_DIR)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for mesh in ("single", "multi")}
+    return procs, time.perf_counter()
+
+
+def phase_dryrun():
+    """The dry run's two cells (:func:`start_dryrun`), with no other phase
+    running: each ``ok``, its GiB per device and collectives by kind; the
+    seconds from their start to their collection."""
+    procs, t0 = start_dryrun()
+    out = {}
+    for mesh, proc in procs.items():
+        text, _ = proc.communicate(timeout=900)
+        check(proc.returncode == 0,
+              f"[dryrun] {mesh}: exit {proc.returncode}\n{text[-4000:]}")
+        cell = json.loads((DRYRUN_DIR / f"gemma_2b__train_4k__{mesh}__bf16"
+                           ".json").read_text())
+        check(cell["status"] == "ok", f"[dryrun] {mesh}: {cell}")
+        mem = cell["memory"]
+        print(f"[dryrun] gemma-2b train_4k on {cell['mesh']} "
+              f"({cell['devices']} ranks, one rank faked on the host): "
+              f"arguments {mem['argument_bytes_per_device'] / 2**30:.3f} "
+              f"GiB/device, peak {mem['peak_bytes_per_device'] / 2**30:.3f} "
+              f"GiB/device (MemTracker), {cell['local_batch']} rows a rank "
+              f"in {cell['microbatches']} microbatches, step "
+              f"{cell['step_s']:.1f}s on the host; collectives "
+              + ", ".join(f"{k} {v['count']} ({v['bytes'] / 2**30:.2f} GiB)"
+                          for k, v in cell["collectives"].items()),
+              flush=True)
+        out[mesh] = cell
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[dryrun] both cells done, collected {out['wall_s']:.1f}s after "
+          "they started", flush=True)
     return out
 
 
@@ -5045,7 +5530,7 @@ def main() -> int:
                          "kernels line and no ok line); 'mesh' runs the "
                          "mesh phases (kernels at local shapes, the "
                          "two-rank engine, the calibration of expert "
-                         "stacks)")
+                         "stacks, training on a mesh, the dry run)")
     args = ap.parse_args()
     try:
         import torch
@@ -5104,8 +5589,11 @@ def main() -> int:
         (out / "sweep.json").write_text(json.dumps(rows, indent=1))
         return 0
     if args.only:
-        res = phase(args.only, phase_train) if args.only == "train" else \
-            phase_mesh(card)
+        if args.only == "train":
+            res = phase(args.only, phase_train)
+        else:
+            res = phase_mesh(card)
+            res["dryrun"] = phase("dryrun", phase_dryrun)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / f"chip_smoke_{args.only}.json").write_text(json.dumps(
@@ -5155,6 +5643,7 @@ def main() -> int:
     recurrent = phase("recurrent", phase_recurrent)
     encdec = phase("encdec", phase_encdec)
     train = phase("train", phase_train)
+    dryrun = phase("dryrun", phase_dryrun)
     mesh = phase_mesh(card, main_path)
 
     def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b",
@@ -5289,7 +5778,8 @@ def main() -> int:
         main=main_path, kvq=kvq_path,
         int4=int4_path, plan=plan_path, calib=calib_path,
         resilience=res_path, gemma2_9b=gemma2, recurrent=recurrent,
-        encdec=encdec, train=train, mesh=mesh, phase_s=PHASE_S,
+        encdec=encdec, train=train, mesh=mesh, dryrun=dryrun,
+        phase_s=PHASE_S,
         gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))
     for key, e in ([("gemma-2b msgemm", kernels[0]),

@@ -20,8 +20,15 @@ A tree is a torch ``state_dict()`` or a nested dict of tensors or numpy
 arrays; the manifest keeps each leaf's name (nested keys joined with
 ``/``).  Leaves are saved from the host; bf16 leaves are stored as f32,
 as in the reference, and restore casts back exactly.  ``restore`` places
-tensor leaves on ``device`` (default: the target leaf's device) where the
-reference takes shardings; re-sharding comes with the multi-GPU slice.
+tensor leaves on ``device`` (default: the target leaf's device).
+
+On a mesh (``shardings``, a :class:`~repro_torch.distributed.sharding.
+TreeSharding`: the mesh and each leaf's spec) the tree holds this rank's
+blocks: ``save`` gathers every leaf whole (each rank takes part), rank 0
+writes the same files a single device writes, and every rank waits for
+it; ``restore`` cuts each whole leaf to this rank's block.  So a restore
+is elastic: a checkpoint of any mesh, or of one device, restores onto
+any mesh whose rules divide its shapes.
 """
 
 from __future__ import annotations
@@ -112,49 +119,105 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, tree, *, extra: dict | None = None) -> None:
+    def save(self, step: int, tree, *, extra: dict | None = None,
+             shardings=None) -> None:
         """Write ``tree`` as step ``step``.  The leaves are copied to the
         host here; with ``async_save`` the files are written on a thread
-        (one in flight at a time; :meth:`wait` joins it)."""
+        (one in flight at a time; :meth:`wait` joins it).  With
+        ``shardings`` (every rank calls it) the leaves are assembled whole
+        by rank 0, which alone writes the step, at once
+        (:meth:`_save_sharded`); every rank returns when it is
+        published."""
         if self._thread is not None:
             self._thread.join()  # one in-flight async save at a time
             self._thread = None
         named = _flatten(tree)
+        if shardings is not None:
+            self._save_sharded(step, named, extra, shardings)
+            return
         host = [(name, *_host(leaf)) for name, leaf in named]
-
-        def write():
-            from repro_torch import faults
-            from repro_torch.obs import artifacts
-
-            tmp = self._step_dir(step) + ".tmp"
-            final = self._step_dir(step)
-            if os.path.exists(tmp):
-                shutil.rmtree(tmp)
-            os.makedirs(tmp)
-            index = []
-            for i, (name, a, dtype) in enumerate(host):
-                file = f"leaf_{i:05d}.npy"
-                np.save(os.path.join(tmp, file), a)
-                index.append({"file": file, "name": name,
-                              "shape": list(a.shape), "dtype": dtype,
-                              "crc": _file_crc(os.path.join(tmp, file))})
-            manifest = {"step": step, "leaves": index, "extra": extra or {}}
-            artifacts.stamp_crc(manifest)
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump(manifest, f)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.replace(tmp, final)  # atomic publish
-            ev = faults.fire("corrupt_checkpoint")
-            if ev is not None:
-                faults.corrupt_file(os.path.join(final, "manifest.json"), ev)
-            self._gc()
-
         if self.async_save:
-            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host, extra), daemon=True)
             self._thread.start()
         else:
-            write()
+            self._write(step, host, extra)
+
+    def _save_sharded(self, step: int, named: list, extra, shardings):
+        """The blocks cross through the checkpoint directory, which every
+        rank reads on restore anyway: each rank but the first writes the
+        blocks no other rank writes (those at coordinate 0 on the axes
+        that do not split their leaf) into ``step_N.shards/``; rank 0
+        assembles every whole leaf from them and its own and writes the
+        step as one device does, then removes the blocks.  (Through the
+        process group every rank would receive every leaf: gigabytes
+        through host memory when ranks share a card.)"""
+        import torch.distributed as dist
+
+        from repro_torch.distributed import sharding
+
+        mesh = shardings.mesh
+        shards = self._step_dir(step) + ".shards"
+        me, lead = dist.get_rank(), sharding.is_lead(mesh)
+        if lead:
+            shutil.rmtree(shards, ignore_errors=True)
+            os.makedirs(shards)
+        sharding.mesh_barrier(mesh)
+        for i, (name, leaf) in enumerate(named):
+            spec = shardings.specs.get(name)
+            if spec and not lead and sharding.writes_block(spec, mesh):
+                np.save(os.path.join(shards, f"{i:05d}.{me}.npy"),
+                        _host(leaf)[0])
+        sharding.mesh_barrier(mesh)
+        if lead:
+            host = []
+            for i, (name, leaf) in enumerate(named):
+                a, dtype = _host(leaf)
+                spec = shardings.specs.get(name)
+                if spec:
+                    whole = np.empty(sharding.whole_shape(a.shape, spec,
+                                                          mesh), a.dtype)
+                    for rank, coords in sharding.block_owners(spec, mesh):
+                        block = a if rank == me else np.load(os.path.join(
+                            shards, f"{i:05d}.{rank}.npy"), mmap_mode="r")
+                        whole[sharding.local_index(whole.shape, spec, mesh,
+                                                   coords=coords)] = block
+                    a = whole
+                host.append((name, a, dtype))
+            self._write(step, host, extra)
+            shutil.rmtree(shards)
+        sharding.mesh_barrier(mesh)
+
+    def _write(self, step: int, host: list, extra: dict | None) -> None:
+        """Write the (name, array, dtype) leaves ``host`` as step ``step``:
+        into the step's .tmp directory, then published by one rename."""
+
+        from repro_torch import faults
+        from repro_torch.obs import artifacts
+
+        tmp = self._step_dir(step) + ".tmp"
+        final = self._step_dir(step)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        index = []
+        for i, (name, a, dtype) in enumerate(host):
+            file = f"leaf_{i:05d}.npy"
+            np.save(os.path.join(tmp, file), a)
+            index.append({"file": file, "name": name,
+                          "shape": list(a.shape), "dtype": dtype,
+                          "crc": _file_crc(os.path.join(tmp, file))})
+        manifest = {"step": step, "leaves": index, "extra": extra or {}}
+        artifacts.stamp_crc(manifest)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)  # atomic publish
+        ev = faults.fire("corrupt_checkpoint")
+        if ev is not None:
+            faults.corrupt_file(os.path.join(final, "manifest.json"), ev)
+        self._gc()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -167,11 +230,14 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------- load
-    def restore(self, step: int, target_tree, *, device=None):
+    def restore(self, step: int, target_tree, *, device=None,
+                shardings=None):
         """Restore into the structure of ``target_tree`` (names, shapes
         and dtypes validated; the target's dtypes are restored).  Tensor
         leaves go to ``device``, default the target leaf's device; numpy
-        leaves come back as numpy arrays."""
+        leaves come back as numpy arrays.  With ``shardings`` the target
+        holds this rank's blocks: each saved (whole) leaf is cut to this
+        rank's block of its spec, whose shape the target's must be."""
         self.wait()
         d = self._step_dir(step)
         manifest = self._verify(step)
@@ -184,8 +250,21 @@ class CheckpointManager:
                 f"match the target's {names[:4]}... ({len(names)})")
         out = []
         for meta, (name, tgt) in zip(manifest["leaves"], named):
-            a = np.load(os.path.join(d, meta["file"]))
-            if list(a.shape) != list(tgt.shape):
+            spec = shardings.specs.get(name) if shardings is not None \
+                else None
+            a = np.load(os.path.join(d, meta["file"]),
+                        mmap_mode="r" if spec else None)
+            if spec:
+                from repro_torch.distributed import sharding
+
+                idx = sharding.local_index(a.shape, spec, shardings.mesh)
+                if idx is None or tuple(i.stop - i.start for i in idx) \
+                        != tuple(tgt.shape):
+                    raise ValueError(
+                        f"{name}: the saved {tuple(a.shape)} does not cut "
+                        f"to this rank's {tuple(tgt.shape)} under {spec}")
+                a = np.array(a[idx])  # a copy: the file is mapped read-only
+            elif list(a.shape) != list(tgt.shape):
                 raise ValueError(f"{name}: shape mismatch {a.shape} vs "
                                  f"{tuple(tgt.shape)}")
             if isinstance(tgt, torch.Tensor):
@@ -235,14 +314,15 @@ class CheckpointManager:
         return artifacts.quarantine(
             self._step_dir(step), "checkpoint", reason=reason)
 
-    def restore_latest(self, target_tree, *, device=None):
+    def restore_latest(self, target_tree, *, device=None, shardings=None):
         """Restore the newest step that passes verification.  Corrupt
         steps are quarantined aside and the next older one is tried;
         ``(None, None)`` only when no step verifies."""
         self.wait()
         for step in reversed(self.all_steps()):
             try:
-                return step, self.restore(step, target_tree, device=device)
+                return step, self.restore(step, target_tree, device=device,
+                                          shardings=shardings)
             except CheckpointCorrupt as e:
                 self.quarantine(step)
                 logging.getLogger(__name__).warning(

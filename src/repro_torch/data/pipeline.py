@@ -5,8 +5,8 @@ port and the reference see the same tokens and labels, and a resumed run
 sees the same stream with no iterator state to persist.  A learnable
 'lcg' mode gives training and quality runs sequences with structure;
 'uniform' draws tokens uniformly.  ``device_batch`` places a step's batch
-on a device (one device: sharding comes with the multi-GPU slice); a
-background thread (``prefetch``) overlaps host generation with compute.
+on a device (on a mesh, this rank's rows of it); a background thread
+(``prefetch``) overlaps host generation with compute.
 """
 
 from __future__ import annotations
@@ -88,15 +88,23 @@ class SyntheticStream:
                 (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
         return batch
 
-    def device_batch(self, step: int, device=None) -> dict:
+    def device_batch(self, step: int, device=None, mesh=None) -> dict:
         """:meth:`host_batch` as torch tensors on ``device`` (default the
         GPU, ``device.resolve``): tokens and labels int32, frames and
         patches f32.  With an 'image_patches' frontend the labels get
         ``num_patches`` IGNORE labels in front, so they span the logits
         (patches, then text); the reference's ``host_batch`` leaves that
-        to its caller."""
+        to its caller.  On ``mesh``, this rank's rows: block ``pod x
+        data`` coordinate of the batch split over those axes
+        (``sharding.batch_rows``; the reference's 'batch' rule folds
+        both), so the ranks' rows together are the whole batch."""
         dev = resolve(device)
         hb = self.host_batch(step)
+        if mesh is not None:
+            from repro_torch.distributed.sharding import batch_rows
+
+            first, n = batch_rows(self.cfg.global_batch, mesh)
+            hb = {k: v[first:first + n] for k, v in hb.items()}
         if self.cfg.frontend == "image_patches":
             lab = hb["labels"]
             pad = np.full((lab.shape[0], self.cfg.num_patches), IGNORE,

@@ -11,12 +11,13 @@ import torch
 
 
 def resolve(device=None) -> torch.device:
-    """``None`` -> ``cuda``; a CUDA device must exist, a CPU one always does."""
+    """``None`` -> ``cuda``; a CUDA device must exist, a CPU one always does.
+    ``meta`` (shapes and dtypes, no storage) serves the dry run's state."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device found; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev!s}; use 'cuda' or 'cpu'")
     return dev
 

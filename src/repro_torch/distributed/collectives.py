@@ -6,9 +6,11 @@ group's backend by layout: when each rank has a card of its own, NCCL
 carries CUDA tensors on the card (gloo beside it carries host tensors,
 the leader's step arrays); when ranks share a card (NCCL refuses two
 ranks of one communicator on one device) or run on the CPU, the group is
-gloo, and a CUDA tensor crosses it from host memory: copied to the host,
-reduced or gathered there, and copied back.  :func:`transport` names
-which of the two a group uses.  Compute stays on the rank's device.
+gloo, and a CUDA tensor crosses it from host memory: copied to the host
+(into pinned memory, about ten times faster both ways than pageable),
+reduced or gathered there, and copied back (a gather's blocks are
+concatenated on the card).  :func:`transport` names which of the two a
+group uses.  Compute stays on the rank's device.
 
 * :func:`psum`, :func:`psum_scatter`, :func:`all_gather`,
   :func:`broadcast` — the group's own collectives over one mesh axis
@@ -20,17 +22,34 @@ which of the two a group uses.  Compute stays on the rank's device.
   point-to-point hops over the axis's group (``batch_isend_irecv``),
   with the reference's block-to-rank assignment: rank p of the axis ends
   with block p;
+* :func:`pmax` — the elementwise maximum over one mesh axis;
+* :func:`ad_all_gather`, :func:`ad_psum_scatter`, :func:`ad_psum`,
+  :func:`ad_identity` — the forms the train step differentiates through
+  (autograd functions): an all-gather whose backward reduce-scatters (or,
+  for a gather whose consumers run replicated, takes this rank's block),
+  a reduce-scatter whose backward all-gathers, a psum whose backward
+  passes the cotangent through, and an identity whose backward psums
+  (the input of a column-parallel region, whose ranks each see a part
+  of its gradient);
+* :func:`int8_all_gather` — an FSDP gather in int8 (one scale a leaf,
+  the pmax of the shards' max |x|), whose backward reduce-scatters the
+  cotangent;
 * :func:`collective_cost` — the analytic (hops, bytes) model, the
   reference's unchanged.
 
 ``counts`` tallies the collectives issued, by kind (a ring counts each
-hop), the way a kernel module counts its launches.  The reference's
-``int8_all_gather`` (compressed FSDP gathers for training) is not ported
-(ROADMAP A13c).
+hop), the way a kernel module counts its launches, and ``nbytes`` the
+bytes of their results on this rank (a reduce-scatter counts as one
+whatever carries it: over host-staged gloo it is an all-reduce and a
+slice).  With :func:`set_timing` on, ``seconds`` adds up the host-clock
+time of each blocking collective by kind, the device synchronised before
+and after it (off by default: the synchronisation costs a wait).
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from collections import Counter
 
 import torch
@@ -41,12 +60,44 @@ from repro_torch.distributed import compat
 NCCL = "nccl"
 STAGED = "gloo, host-staged"
 
-# collectives issued since the last reset, by kind
+# collectives issued since the last reset, by kind, and their result bytes
 counts: Counter = Counter()
+nbytes: Counter = Counter()
+seconds: Counter = Counter()
+_TIMING = False
 
 
 def reset_counts() -> None:
     counts.clear()
+    nbytes.clear()
+    seconds.clear()
+
+
+def set_timing(on: bool) -> None:
+    """Time every blocking collective into ``seconds`` (by kind)."""
+    global _TIMING
+    _TIMING = bool(on)
+
+
+@contextlib.contextmanager
+def _timed(kind: str, t: torch.Tensor):
+    if not _TIMING:
+        yield
+        return
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        seconds[kind] += time.perf_counter() - t0
+
+
+def _count(kind: str, result: torch.Tensor) -> None:
+    counts[kind] += 1
+    nbytes[kind] += result.numel() * result.element_size()
 
 
 def _mesh(mesh):
@@ -84,15 +135,26 @@ def transport(group=None) -> str:
 def _wire(t: torch.Tensor, group) -> torch.Tensor:
     """A fresh contiguous copy of ``t`` for a collective to work on in
     place (never the caller's tensor): on the card when NCCL carries it,
-    else in host memory."""
+    else in host memory (pinned for a CUDA tensor)."""
     if t.is_cuda and transport(group) == NCCL:
         return t.detach().clone(memory_format=torch.contiguous_format)
+    if t.is_cuda:
+        return torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=True).copy_(t.detach())
     return t.detach().to("cpu", copy=True).contiguous()
+
+
+def _back(h: torch.Tensor, device) -> torch.Tensor:
+    """A wire buffer's contents on ``device`` (from pinned memory without
+    waiting: the caching host allocator keeps the buffer until the copy
+    is done)."""
+    return h.to(device, non_blocking=h.is_pinned())
 
 
 def psum(y: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
     """The sum of ``y`` over the ranks of ``axis`` (all-reduce)."""
-    return psum_async(y, axis, mesh=mesh).wait()
+    with _timed("all_reduce", y):
+        return psum_async(y, axis, mesh=mesh).wait()
 
 
 class Pending:
@@ -105,20 +167,30 @@ class Pending:
     def wait(self) -> torch.Tensor:
         if self.work is not None:
             self.work.wait()
-        return self.host.to(self.device)
+        return _back(self.host, self.device)
 
 
-def psum_async(y: torch.Tensor, axis: str, *, mesh=None) -> Pending:
+def psum_async(y: torch.Tensor, axis: str, *, mesh=None,
+               op=dist.ReduceOp.SUM, kind: str = "all_reduce") -> Pending:
     """:func:`psum` issued without waiting: compute issued before
-    ``wait()`` runs while the reduction is in flight."""
+    ``wait()`` runs while the reduction is in flight.  ``op``: the
+    reduction; ``kind``: the name it is counted under ('' for none)."""
     mesh = _mesh(mesh)
     if _size(mesh, axis) == 1:
         return Pending(y, None, y.device)
     group = mesh.get_group(axis)
     h = _wire(y, group)
-    counts["all_reduce"] += 1
-    work = dist.all_reduce(h, group=group, async_op=True)
+    if kind:
+        _count(kind, h)
+    work = dist.all_reduce(h, op=op, group=group, async_op=True)
     return Pending(h, work, y.device)
+
+
+def pmax(y: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+    """The elementwise maximum of ``y`` over the ranks of ``axis``."""
+    with _timed("all_reduce_max", y):
+        return psum_async(y, axis, mesh=mesh, op=dist.ReduceOp.MAX,
+                          kind="all_reduce_max").wait()
 
 
 def psum_scatter(y: torch.Tensor, axis: str, *, dim: int = -1,
@@ -135,14 +207,26 @@ def psum_scatter(y: torch.Tensor, axis: str, *, dim: int = -1,
         return y
     group = mesh.get_group(axis)
     size = y.shape[dim] // n
-    if y.is_cuda and transport(group) == NCCL:
-        h = y.detach().movedim(dim, 0).contiguous()
-        out = h.new_empty((size,) + h.shape[1:])
-        counts["reduce_scatter"] += 1
-        dist.reduce_scatter_tensor(out, h, group=group)
-        return out.movedim(0, dim).contiguous()
-    s = psum(y, axis, mesh=mesh)
-    return s.narrow(dim, mesh.get_local_rank(axis) * size, size).contiguous()
+    with _timed("reduce_scatter", y):
+        if y.is_cuda and transport(group) == NCCL:
+            h = y.detach().movedim(dim, 0).contiguous()
+            out = h.new_empty((size,) + h.shape[1:])
+            _count("reduce_scatter", out)
+            dist.reduce_scatter_tensor(out, h, group=group)
+            return out.movedim(0, dim).contiguous()
+        # the whole sum in host memory; this rank's block cut on the
+        # device (a CUDA tensor's whole sum goes back: pinned copies cost
+        # less than a strided cut on the host)
+        h = _wire(y, group)
+        dist.all_reduce(h, group=group)
+        if not h.is_pinned():
+            h = h.narrow(dim, mesh.get_local_rank(axis) * size, size)
+        out = _back(h, y.device)
+        if h.is_pinned():
+            out = out.narrow(dim, mesh.get_local_rank(axis) * size, size)
+        out = out.contiguous()
+        _count("reduce_scatter", out)
+        return out
 
 
 def all_gather(y: torch.Tensor, axis: str, *, dim: int = -1,
@@ -154,18 +238,24 @@ def all_gather(y: torch.Tensor, axis: str, *, dim: int = -1,
     if n == 1:
         return y
     group = mesh.get_group(axis)
-    h = _wire(y, group)
-    outs = [torch.empty_like(h) for _ in range(n)]
-    counts["all_gather"] += 1
-    dist.all_gather(outs, h, group=group)
-    return torch.cat(outs, dim=dim).to(y.device)
+    with _timed("all_gather", y):
+        # the blocks land in one buffer (pinned with the wire), and are
+        # concatenated on the rank's device
+        h = _wire(y, group)
+        flat = torch.empty(n * h.numel(), dtype=h.dtype, device=h.device,
+                           pin_memory=h.is_pinned())
+        dist.all_gather_into_tensor(flat, h.reshape(-1), group=group)
+        blocks = _back(flat, y.device).view((n,) + tuple(h.shape))
+        out = torch.cat(blocks.unbind(0), dim=dim)
+    _count("all_gather", out)
+    return out
 
 
 def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """``t`` overwritten in place with global rank ``src``'s (over
     ``group``, default the whole world); returns ``t``."""
     h = _wire(t, group)
-    counts["broadcast"] += 1
+    _count("broadcast", h)
     dist.broadcast(h, src, group=group)
     t.copy_(h)
     return t
@@ -185,7 +275,7 @@ def _hop(t: torch.Tensor, group, nxt: int, prv: int) -> torch.Tensor:
     """Send ``t`` (a wire buffer) to the next rank and receive the
     previous one's."""
     r = torch.empty_like(t)
-    counts["ring_hop"] += 1
+    _count("ring_hop", r)
     ops = [dist.P2POp(dist.isend, t.contiguous(), nxt, group),
            dist.P2POp(dist.irecv, r, prv, group)]
     for w in dist.batch_isend_irecv(ops):
@@ -304,3 +394,143 @@ def broadcast_object(obj, src: int = 0, group=None):
     counts["broadcast"] += 1
     dist.broadcast_object_list(box, src=src, group=group)
     return box[0]
+
+
+# ---------------------------------------------------------------- autograd
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh, reduce_grad):
+        ctx.args = (axis, dim, mesh, reduce_grad)
+        return all_gather(x, axis, dim=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, ct):
+        axis, dim, mesh, reduce_grad = ctx.args
+        if reduce_grad:
+            return psum_scatter(ct, axis, dim=dim, mesh=mesh), \
+                None, None, None, None
+        from repro_torch.distributed.sharding import coord
+
+        size = ct.shape[dim] // _size(mesh, axis)
+        return ct.narrow(dim, coord(mesh, axis) * size, size).contiguous(), \
+            None, None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.args = (axis, dim, mesh)
+        return psum_scatter(x, axis, dim=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, ct):
+        axis, dim, mesh = ctx.args
+        return all_gather(ct, axis, dim=dim, mesh=mesh), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return psum(x, axis, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None
+
+
+class _Identity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.args = (axis, mesh)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        axis, mesh = ctx.args
+        return psum(ct, axis, mesh=mesh), None, None
+
+
+def ad_all_gather(x: torch.Tensor, axis: str, *, dim: int, mesh=None,
+                  reduce_grad: bool = True) -> torch.Tensor:
+    """:func:`all_gather` of ``x`` along ``dim``, differentiable.  Its
+    backward reduce-scatters the cotangent (each rank's covers its own
+    rows or heads: the sum over the ranks is the gradient), or with
+    ``reduce_grad=False`` takes this rank's block of it (the consumers
+    ran replicated, so every rank holds the whole gradient)."""
+    mesh = _mesh(mesh)
+    if _size(mesh, axis) == 1:
+        return x
+    return _AllGather.apply(x, axis, dim % x.ndim, mesh, reduce_grad)
+
+
+def ad_psum_scatter(x: torch.Tensor, axis: str, *, dim: int,
+                    mesh=None) -> torch.Tensor:
+    """:func:`psum_scatter`, differentiable: its backward all-gathers."""
+    mesh = _mesh(mesh)
+    if _size(mesh, axis) == 1:
+        return x
+    return _PsumScatter.apply(x, axis, dim % x.ndim, mesh)
+
+
+def ad_psum(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+    """:func:`psum`, differentiable: the output of a row-parallel region.
+    Every rank continues with the same sum, so each holds the whole
+    cotangent, and the backward passes it through."""
+    mesh = _mesh(mesh)
+    if _size(mesh, axis) == 1:
+        return x
+    return _Psum.apply(x, axis, mesh)
+
+
+def ad_identity(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+    """``x`` itself, whose backward psums the cotangent over ``axis``: the
+    input of a column-parallel region (or a replicated weight used there),
+    where each rank's backward sees only its shard's part of the
+    gradient."""
+    mesh = _mesh(mesh)
+    if _size(mesh, axis) == 1:
+        return x
+    return _Identity.apply(x, axis, mesh)
+
+
+def spec_dim(spec: tuple, axis: str):
+    """The dim of ``spec`` that ``axis`` shards, or None."""
+    for i, e in enumerate(spec):
+        if e == axis or (isinstance(e, tuple) and axis in e):
+            return i
+    return None
+
+
+class _Int8AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.args = (axis, dim, mesh)
+        xf = x.to(torch.float32)
+        amax = pmax(xf.abs().amax(), axis, mesh=mesh)
+        scale = torch.where(amax > 0, amax / 127.0, 1.0)
+        q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+        g = all_gather(q, axis, dim=dim, mesh=mesh)
+        return (g.to(torch.float32) * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        axis, dim, mesh = ctx.args
+        return psum_scatter(ct, axis, dim=dim, mesh=mesh), None, None, None
+
+
+def int8_all_gather(x: torch.Tensor, mesh, spec: tuple, *,
+                    axis: str = "data") -> torch.Tensor:
+    """Gather the ``axis``-sharded dim of this rank's block ``x`` (under
+    ``spec``) in int8, the reference's steps: the pmax of the shards'
+    max |x| (f32), ``scale = amax / 127`` (1 where amax is 0), round,
+    clip to ±127, gather the codes, multiply by the scale and cast back.
+    The backward reduce-scatters the cotangent over ``axis`` (straight
+    through the quantization): each rank's covers its own batch rows,
+    where the reference's arrives already reduced and is sliced."""
+    dim = spec_dim(spec, axis)
+    if dim is None or _size(mesh, axis) == 1:
+        return x
+    if isinstance(spec[dim], tuple) and spec[dim][-1] != axis:
+        raise ValueError(f"int8_all_gather over {axis!r}: spec {spec} "
+                         "folds another axis inside it")
+    return _Int8AllGather.apply(x, axis, dim, mesh)

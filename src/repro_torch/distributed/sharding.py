@@ -38,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -222,6 +223,60 @@ def local_slice(x: torch.Tensor, spec: tuple, mesh, *,
             size = x.shape[dim] // n
             x = x.narrow(dim, coord(mesh, name) * size, size)
     return x
+
+
+def local_index(shape: tuple, spec: tuple, mesh, *, coords=None):
+    """This rank's block (or the one at ``coords``, {axis: index}) of a
+    whole ``shape`` under ``spec`` as a tuple of slices (a folded entry
+    splits major-first, as :func:`local_slice`); None when a dim does not
+    divide by its axes."""
+    sizes = compat.axes_of(mesh)
+    out = []
+    for dim, s in enumerate(shape):
+        start, size = 0, s
+        entry = spec[dim] if dim < len(spec) else None
+        for name in _names(entry):
+            if size % sizes[name]:
+                return None
+            size //= sizes[name]
+            c = coords[name] if coords is not None else coord(mesh, name)
+            start += c * size
+        out.append(slice(start, start + size))
+    return tuple(out)
+
+
+def whole_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """The whole shape of a block of ``shape`` under ``spec``."""
+    sizes = compat.axes_of(mesh)
+    return tuple(s * math.prod(sizes[a] for a in _names(e))
+                 for s, e in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def _spec_axes(spec: tuple) -> set:
+    return {a for e in spec for a in _names(e)}
+
+
+def writes_block(spec: tuple, mesh) -> bool:
+    """Whether this rank is the one that writes its block of a leaf under
+    ``spec``: coordinate 0 on every axis that does not split it."""
+    split = _spec_axes(spec)
+    return all(coord(mesh, a) == 0 for a in compat.axes_of(mesh)
+               if a not in split)
+
+
+def block_owners(spec: tuple, mesh) -> list:
+    """(global rank, {axis: coordinate}) of each rank that writes a block
+    of a leaf under ``spec`` (:func:`writes_block`): one a block."""
+    import numpy as np
+
+    axes, split = list(compat.axes_of(mesh)), _spec_axes(spec)
+    ranks = mesh.mesh.cpu().numpy()
+    out = []
+    for idx in np.ndindex(ranks.shape):
+        coords = dict(zip(axes, idx))
+        if all(coords[a] == 0 for a in axes if a not in split):
+            out.append((int(ranks[idx]), coords))
+    return out
 
 
 def local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
@@ -478,3 +533,181 @@ def batch_specs(batch, mesh, rules: str = "default") -> dict:
         return spec_for(axes, shape, mesh=mesh, kind="act", rules=rules)
 
     return {n: one(n, s) for n, s in _leaves(batch).items()}
+
+
+# ---------------------------------------------------------------------------
+# Training on a mesh: the state's shards, the FSDP gather
+# ---------------------------------------------------------------------------
+# Axes a training step's batch rows split over (the 'batch' rule folds
+# them): each rank holds its rows; the rest of the mesh ('model') holds
+# them all.
+BATCH_AXES = ("pod", "data")
+
+
+def batch_axes(mesh) -> tuple:
+    """The axes of ``mesh`` that split a train step's batch rows (size >
+    1 only), major first."""
+    sizes = compat.axes_of(mesh)
+    return tuple(a for a in BATCH_AXES if sizes.get(a, 1) > 1)
+
+
+def batch_rows(batch: int, mesh) -> tuple[int, int]:
+    """(first row, row count) of this rank's rows of a ``batch``-row global
+    batch: block ``pod_coord * data + data_coord`` of ``pod x data``.
+    ValueError unless the batch divides over those axes."""
+    sizes = compat.axes_of(mesh)
+    axes = batch_axes(mesh)
+    n = math.prod(sizes[a] for a in axes)
+    if batch % n:
+        raise ValueError(f"a global batch of {batch} rows does not split "
+                         f"over {dict((a, sizes[a]) for a in axes)}")
+    block = 0
+    for a in axes:
+        block = block * sizes[a] + coord(mesh, a)
+    return block * (batch // n), batch // n
+
+
+def _owner(module: torch.nn.Module, name: str):
+    """(the module holding buffer ``name``, its leaf name)."""
+    path, _, leaf = name.rpartition(".")
+    return (module.get_submodule(path) if path else module), leaf
+
+
+def shard_model(model: torch.nn.Module, mesh, rules: str = "default"
+                ) -> dict:
+    """Cut every buffer of ``model`` (whole) to this rank's block under
+    ``param_specs`` (in place, each block a contiguous copy), and record
+    the specs on the model and on each of its blocks (``shard_specs``,
+    names relative to the module) for :func:`constrain_params`.  Returns
+    {buffer name: spec}."""
+    specs = param_specs(model, mesh, rules)
+    for name, spec in specs.items():
+        mod, leaf = _owner(model, name)
+        mod._buffers[leaf] = local_slice(mod._buffers[leaf], spec,
+                                         mesh).contiguous().clone()
+    model.shard_specs = specs
+    for prefix, mod in model.named_modules():
+        if prefix.count(".") == 1 and prefix.startswith("blocks."):
+            mod.shard_specs = {n[len(prefix) + 1:]: s
+                               for n, s in specs.items()
+                               if n.startswith(prefix + ".")}
+    return specs
+
+
+MOMENTS = ("m", "v", "residual")  # per-leaf optimizer trees
+
+
+class TreeSharding(NamedTuple):
+    """How a tree's leaves lie on a mesh: ``specs`` maps a leaf's
+    flattened name (nested keys joined with '/', as the checkpoint
+    manager names them) to its spec; a leaf it does not name is whole on
+    every rank."""
+
+    mesh: object
+    specs: dict
+
+
+def is_lead(mesh) -> bool:
+    """Whether this rank is the mesh's first (coordinate 0 on every
+    axis): the one that writes what all of them hold."""
+    return all(coord(mesh, a) == 0 for a in compat.axes_of(mesh))
+
+
+def mesh_barrier(mesh) -> None:
+    """Return once every rank of ``mesh`` has called it: a host scalar
+    summed over each axis in turn (a sum over the whole mesh)."""
+    from repro_torch.distributed import collectives as coll
+
+    t = torch.zeros(())
+    for a in compat.axes_of(mesh):
+        t = coll.psum(t, a, mesh=mesh)
+
+
+def shard_state(state: dict, mesh, rules: str = "default") -> dict:
+    """A whole train state (``runtime.train``) cut to this rank's blocks
+    in place: the model's buffers (:func:`shard_model`) and the per-leaf
+    optimizer trees under the same specs; ``count`` and ``step`` stay
+    whole.  Records ``state["mesh"]`` and ``state["specs"]``."""
+    specs = shard_model(state["params"], mesh, rules)
+    for key in MOMENTS:
+        if key in state["opt"]:
+            state["opt"][key] = {
+                n: local_slice(t, specs[n], mesh).contiguous().clone()
+                for n, t in state["opt"][key].items()}
+    state["mesh"], state["specs"] = mesh, specs
+    return state
+
+
+def gather_leaf(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole tensor of this rank's block ``x`` under ``spec`` (every
+    rank calls it and gets it): the inverse of :func:`local_slice`."""
+    from repro_torch.distributed import collectives as coll
+
+    for dim, entry in enumerate(spec):
+        for name in reversed(_names(entry)):  # minor axis first
+            x = coll.all_gather(x, name, dim=dim, mesh=mesh)
+    return x
+
+
+def gather_state(state: dict) -> dict:
+    """A sharded train state gathered whole, as the checkpoint tree of the
+    single-device state: {"params": {name: tensor}, "opt": {"m", "v",
+    ("residual",) "count"}, "step"}.  Every rank calls it (collectives)
+    and gets it; a leaf whole on every rank (and every leaf without
+    ``state["mesh"]``) is the state's own tensor, not a copy."""
+    mesh, specs = state.get("mesh"), state.get("specs")
+
+    def whole(name, t):
+        return t if mesh is None else gather_leaf(t, specs[name], mesh)
+
+    params = {n: whole(n, t) for n, t in state["params"].state_dict().items()}
+    opt = {k: ({n: whole(n, t) for n, t in v.items()} if k in MOMENTS else v)
+           for k, v in state["opt"].items()}
+    return {"params": params, "opt": opt, "step": state["step"]}
+
+
+def _map_buffers(module: torch.nn.Module, fn, prefix: str = ""):
+    """A shallow copy of ``module`` (and its submodules) whose buffers are
+    ``fn(name, buffer)`` (names relative to ``module``); ``module`` is
+    untouched."""
+    import copy
+
+    new = copy.copy(module)
+    new.__dict__["_buffers"] = {n: fn(prefix + n, t)
+                                for n, t in module._buffers.items()}
+    new.__dict__["_modules"] = {
+        n: _map_buffers(m, fn, f"{prefix}{n}.")
+        for n, m in module._modules.items()}
+    return new
+
+
+def _gather_fsdp(t: torch.Tensor, spec: tuple, mesh, int8: bool):
+    from repro_torch.distributed import collectives as coll
+
+    dim = coll.spec_dim(spec, "data")
+    if dim is None or compat.axes_of(mesh).get("data", 1) == 1:
+        return t
+    if int8 and t.is_floating_point():
+        return coll.int8_all_gather(t, mesh, spec, axis="data")
+    return coll.ad_all_gather(t, "data", dim=dim, mesh=mesh)
+
+
+def constrain_params(tree, *, int8_gather: bool = False, specs=None):
+    """A param (sub)tree with its FSDP ('data'-sharded) dims gathered, at
+    the top of a layer group (the reference pins the group to its storage
+    sharding there).  ``tree``: a module of a sharded model (its
+    ``shard_specs``, :func:`shard_model`) or a dict of tensors with their
+    ``specs``.  Each gathered leaf's gradient is reduce-scattered back to
+    this rank's block (``collectives.ad_all_gather``); with
+    ``int8_gather`` a float leaf crosses in int8
+    (``collectives.int8_all_gather``).  Without a mesh returns ``tree``
+    itself."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return tree
+    if isinstance(tree, torch.nn.Module):
+        specs = tree.shard_specs if specs is None else specs
+        return _map_buffers(tree, lambda n, t: _gather_fsdp(
+            t, specs[n], mesh, int8_gather))
+    return {n: _gather_fsdp(t, specs[n], mesh, int8_gather)
+            for n, t in tree.items()}

@@ -13,6 +13,7 @@ padding, which decides what queries past the last key see.
 from __future__ import annotations
 
 import functools
+import gc
 import heapq
 import math
 import time
@@ -54,6 +55,16 @@ MAX_COPIES = 256
 # cycles the card sleeps per timed call while the host enqueues the calls
 # (200 us at 2 GHz): the events then bracket the kernels, not the host
 SLEEP_CYCLES_PER_CALL = 400_000
+# calls a timed window queues behind one sleep: a few launches each stay
+# far inside the launch queue (about a thousand entries), which one window
+# of 512 int4 GeMM calls filled on an H100: the host then waited there
+# until the sleep ended, and every such window read as a stalled one
+CALLS_PER_WINDOW = 64
+# timings of one window at most: a window whose sleep ran out before the
+# host queued its last call is timed again behind twice the sleep
+TIME_ATTEMPTS = 4
+# windows timed again because the host fell behind the card's sleep
+time_call_retries = 0
 # m x kc from which 2048-row blocks beat 1024-row ones at tb = 1 (on the
 # card: gemma-2b gate and down, 11.2M, faster; wq, 1.4M, slower)
 ROW_CHUNKS_2048 = 4_000_000
@@ -363,8 +374,15 @@ def time_call(fns, device: torch.device, reps: int) -> float:
     the card: ``reps`` calls cycling over ``fns``, queued back to back
     behind a sleep (so the host enqueues them while the card is busy) and
     bracketed by two CUDA events, as a graph replay runs a step's kernels;
-    device time over ``reps``.  On the CPU: the best wall time of
-    ``reps`` calls of ``fns[0]``."""
+    device time over ``reps``.  The calls go in windows of at most
+    ``CALLS_PER_WINDOW``, each behind its own sleep, so the host never
+    fills the launch queue and waits there for the sleep to end.  Where a
+    sleep ended before the host had queued the window's last call (the
+    host fell behind: a busy core, a stall), the card may have idled
+    between calls, so that window is timed again behind twice the sleep,
+    which the later windows keep, up to ``TIME_ATTEMPTS`` times; the
+    least is kept (an idle gap only adds).  On the CPU: the best wall
+    time of ``reps`` calls of ``fns[0]``."""
     for f in fns[:2]:
         f()
     reps = max(reps, 1)
@@ -375,16 +393,36 @@ def time_call(fns, device: torch.device, reps: int) -> float:
             fns[0]()
             best = min(best, time.perf_counter() - t0)
         return best
-    torch.cuda.synchronize(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(reps * SLEEP_CYCLES_PER_CALL)
-    start.record()
-    for i in range(reps):
-        fns[i % len(fns)]()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3 / reps
+    global time_call_retries
+    sleep_per_call = SLEEP_CYCLES_PER_CALL
+    total_ms = 0.0
+    collecting = gc.isenabled()
+    for lo in range(0, reps, CALLS_PER_WINDOW):
+        hi = min(reps, lo + CALLS_PER_WINDOW)
+        best_ms = math.inf
+        for attempt in range(TIME_ATTEMPTS):
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            gc.disable()  # no collection while the calls are queued
+            try:
+                torch.cuda._sleep((hi - lo) * sleep_per_call)
+                start.record()
+                for i in range(lo, hi):
+                    fns[i % len(fns)]()
+                end.record()
+                covered = not start.query()  # still asleep: no gap
+            finally:
+                if collecting:
+                    gc.enable()
+            end.synchronize()
+            best_ms = min(best_ms, start.elapsed_time(end))
+            if covered or attempt + 1 == TIME_ATTEMPTS:
+                break
+            time_call_retries += 1
+            sleep_per_call *= 2
+        total_ms += best_ms
+    return total_ms / 1e3 / reps
 
 
 def profile_gemm(kind: str, m: int, k: int, b: int, *, d: int = 3,

@@ -1,0 +1,265 @@
+"""Dry run of the train step on the production meshes; port of
+repro.launch.dryrun.
+
+A cell is one (architecture x input shape) on the single-pod mesh (data
+16 x model 16 = 256 ranks) or the two-pod one (pod 2 x data 16 x model 16
+= 512).  It is built for one rank of that mesh, in this process, with no
+device behind it: a ``fake`` process group of the mesh's size
+(``torch.testing._internal.distributed.fake_pg.FakeStore``: collectives
+return at once), and the rank's state and batch as fake tensors
+(``FakeTensorMode``: shapes and dtypes, no storage).  The cell then runs
+one real ``runtime.train.train_step`` of the port on them, and records:
+
+* ``memory.argument_bytes_per_device`` — the rank's local state (its
+  blocks of the params and moments, count and step) and batch rows,
+  exactly;
+* ``memory.peak_bytes_per_device`` — the peak of the tensors the step
+  holds, ``torch.distributed._tools.mem_tracker.MemTracker`` around it
+  (XLA's ``memory_analysis`` in the reference);
+* ``collectives`` — by kind, the count and result bytes of what the step
+  issues (``distributed.collectives.counts`` / ``nbytes``);
+* ``step_s`` — the seconds the step took here (Python's, not a device's).
+
+Train cells run for the dense decoders (training on a mesh runs 'attn' /
+'local' blocks).  Prefill and decode cells need the static engine on a
+mesh, and every other architecture its blocks on a mesh: both are
+reported ``skipped`` with that reason (ROADMAP A13c).  A cell that raises
+is ``failed``, and the CLI exits 1.  Results go to ``--out`` (default
+``dryrun_out/``), one JSON file a cell:
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma_2b \\
+        --shape train_4k --mesh both --out dryrun_out
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+import traceback
+
+import torch
+
+from repro_torch import configs
+from repro_torch.configs import shapes as shp
+from repro_torch.models import transformer
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import train as RT
+
+DEFAULT_OUT = "dryrun_out"
+
+# Per-arch train-cell memory policy, the reference's (its non-dense
+# archs are skipped on a mesh until ROADMAP A13c).
+TRAIN_OVERRIDES = {
+    "llama4_maverick": {"param_dtype": "bfloat16", "opt_dtype": "bfloat16",
+                        "grad_dtype": "bfloat16", "microbatches": 8},
+    "jamba_v01": {"microbatches": 8},
+}
+MESHES = {False: ((16, 16), ("data", "model")),
+          True: ((2, 16, 16), ("pod", "data", "model"))}
+SERVE_SKIP = ("a {kind} cell needs the static engine on a mesh "
+              "(ROADMAP A13c)")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def state_bytes(state: dict, batch: dict) -> int:
+    """The bytes of a rank's state (model buffers, optimizer trees, count,
+    step) and batch rows."""
+    from repro_torch.distributed.sharding import MOMENTS
+
+    n = sum(_nbytes(b) for b in state["params"].buffers())
+    for key, v in state["opt"].items():
+        n += sum(_nbytes(t) for t in v.values()) if key in MOMENTS \
+            else _nbytes(v)
+    return n + _nbytes(state["step"]) + sum(_nbytes(t)
+                                            for t in batch.values())
+
+
+def _to_fake(state: dict, batch_shapes: dict) -> dict:
+    """Every tensor of a (meta) state, and the batch, as a fake tensor of
+    its shape and dtype (called inside the ``FakeTensorMode``)."""
+    from repro_torch.distributed.sharding import MOMENTS
+
+    def fake(t):
+        return torch.empty(t.shape, dtype=t.dtype)
+
+    for mod in state["params"].modules():
+        for n, b in mod._buffers.items():
+            mod._buffers[n] = fake(b)
+    state["opt"] = {k: ({n: fake(t) for n, t in v.items()}
+                        if k in MOMENTS else fake(v))
+                    for k, v in state["opt"].items()}
+    state["step"] = fake(state["step"])
+    return {k: torch.empty(s.shape, dtype=s.dtype)
+            for k, s in batch_shapes.items()}
+
+
+def measure(cfg, tcfg, batch_shapes: dict, mesh_shape: tuple, axes: tuple,
+            *, rank: int = 0, seed: int = 0) -> dict:
+    """One train step of ``cfg`` for rank ``rank`` of a fake mesh of
+    ``mesh_shape`` / ``axes``: the rank's state (whole model drawn on the
+    meta device, cut to its blocks, then faked) and its rows of a batch
+    of ``batch_shapes`` ({name: shapes.Spec} of the whole batch).
+    Returns the memory, collectives and seconds (the module doc)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import batch_rows
+    from repro_torch.launch.mesh import make_mesh
+
+    world = math.prod(mesh_shape)
+    if dist.is_initialized():
+        raise RuntimeError("the dry run starts its own (fake) process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(mesh_shape, axes)
+        state = RT.init_state(cfg, tcfg, generator=torch.Generator(
+        ).manual_seed(seed), device="meta", mesh=mesh)
+        B = next(iter(batch_shapes.values())).shape[0]
+        _, rows = batch_rows(B, mesh)
+        local = {k: shp.Spec((rows,) + tuple(s.shape[1:]), s.dtype)
+                 for k, s in batch_shapes.items()}
+        with FakeTensorMode():
+            batch = _to_fake(state, local)
+            args = state_bytes(state, batch)
+            tracker = MemTracker()
+            tracker.track_external(state["params"], *batch.values(),
+                                   *[t for k, v in state["opt"].items()
+                                     if isinstance(v, dict)
+                                     for t in v.values()])
+            coll.reset_counts()
+            t0 = time.perf_counter()
+            with tracker:
+                RT.train_step(state, batch, cfg, tcfg)
+            step_s = time.perf_counter() - t0
+            peak = tracker.get_tracker_snapshot("peak")
+        counts = {k: {"count": coll.counts[k], "bytes": coll.nbytes[k]}
+                  for k in sorted(coll.counts)}
+    finally:
+        dist.destroy_process_group()
+    total = max((v.get("Total", 0) for v in peak.values()), default=0)
+    return {"memory": {"argument_bytes_per_device": args,
+                       "peak_bytes_per_device": total,
+                       "total_per_device_gb": round(total / 2**30, 3),
+                       "peak_by_category": {str(d): dict(v)
+                                            for d, v in peak.items()}},
+            "collectives": counts, "step_s": step_s,
+            "local_batch": rows, "rank": rank}
+
+
+def train_configs(arch: str, *, smoke: bool = False):
+    """(model config, train config) of an arch's train cell: the
+    reference's ``TRAIN_OVERRIDES`` (4 microbatches by default)."""
+    base = configs.get_smoke(arch) if smoke else configs.get_config(arch)
+    ov = TRAIN_OVERRIDES.get(arch, {})
+    cfg = base.replace(**{k: v for k, v in ov.items() if k == "param_dtype"})
+    tcfg = RT.TrainConfig(
+        optimizer=AdamWConfig(state_dtype=ov.get("opt_dtype", "float32")),
+        grad_accum_dtype=ov.get("grad_dtype", "float32"),
+        microbatches=ov.get("microbatches", 4))
+    return cfg, tcfg
+
+
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
+             smoke: bool = False, verbose: bool = True) -> dict:
+    """One cell: ``ok`` with its figures, or ``skipped`` with the reason.
+    Raises where the step fails (the CLI records ``failed``)."""
+    label = f"{arch}/{shape_name}/{'multi' if multi_pod else 'single'}/bf16"
+    cfg, tcfg = train_configs(arch, smoke=smoke)
+    shape = shp.SHAPES[shape_name]
+    ok, reason = shp.applicable(cfg, shape_name)
+    if ok and shape.kind != "train":
+        ok, reason = False, SERVE_SKIP.format(kind=shape.kind)
+    if ok:
+        try:
+            transformer.check_train_mesh(cfg)
+        except NotImplementedError as e:
+            ok, reason = False, str(e)
+    if not ok:
+        if verbose:
+            print(f"[dryrun] {label}: skipped ({reason})", flush=True)
+        return {"cell": label, "status": "skipped", "reason": reason}
+    mesh_shape, axes = MESHES[multi_pod]
+    res = measure(cfg, tcfg, shp.input_specs(cfg, shape_name), mesh_shape,
+                  axes)
+    out = {"cell": label, "status": "ok", "arch": arch,
+           "shape": shape_name, "smoke": smoke,
+           "mesh": "x".join(map(str, mesh_shape)),
+           "devices": math.prod(mesh_shape), "quant": "bf16",
+           "microbatches": tcfg.microbatches, **res}
+    if verbose:
+        mem = res["memory"]
+        print(f"[dryrun] {label}: step {res['step_s']:.1f}s (host), "
+              f"arguments {mem['argument_bytes_per_device'] / 2**30:.3f} "
+              f"GiB/device, peak {mem['total_per_device_gb']} GiB/device; "
+              "collectives "
+              + ", ".join(f"{k}:{v['count']}({v['bytes'] / 2**20:.1f}MiB)"
+                          for k, v in res["collectives"].items()),
+              flush=True)
+    return out
+
+
+def save_result(res: dict, out_dir: str) -> str:
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, res["cell"].replace("/", "__") + ".json")
+    with open(path, "w") as f:
+        json.dump(res, f, indent=1)
+    return path
+
+
+def main(argv=None) -> list[dict]:
+    """Run the CLI on ``argv``; returns the cells' results.  SystemExit(1)
+    when a cell failed."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced config (a quick check)")
+    ap.add_argument("--out", default=DEFAULT_OUT,
+                    help=f"result directory (default {DEFAULT_OUT}/)")
+    args = ap.parse_args(argv)
+
+    archs = configs.ARCHS if (args.all or not args.arch) else [args.arch]
+    shapes = list(shp.SHAPES) if (args.all or not args.shape) \
+        else [args.shape]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    results, failures = [], 0
+    for arch in archs:
+        for shape_name in shapes:
+            for multi in meshes:
+                try:
+                    res = run_cell(arch, shape_name, multi_pod=multi,
+                                   smoke=args.smoke)
+                except Exception as e:  # a failure here is a system bug
+                    traceback.print_exc()
+                    res = {"cell": f"{arch}/{shape_name}/"
+                                   f"{'multi' if multi else 'single'}/bf16",
+                           "status": "failed",
+                           "error": f"{type(e).__name__}: {e}"}
+                    failures += 1
+                save_result(res, args.out)
+                results.append(res)
+    ok = sum(r["status"] == "ok" for r in results)
+    sk = sum(r["status"] == "skipped" for r in results)
+    print(f"[dryrun] done: {ok} ok, {sk} skipped, {failures} FAILED "
+          f"(results in {args.out}/)")
+    if failures:
+        raise SystemExit(1)
+    return results
+
+
+if __name__ == "__main__":
+    main()

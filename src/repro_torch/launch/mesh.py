@@ -17,7 +17,9 @@ Inside a rank, :func:`make_mesh` lays the group out as a
   serve CLI's ``--force-host-devices``;
 * :func:`visible_devices` — the devices a mesh may span without it;
 * :func:`make_production_mesh` — the reference's (16, 16) and
-  (2, 16, 16) shapes, over a world of exactly that size.
+  (2, 16, 16) shapes, over a world of exactly that size;
+* :func:`parse_mesh` — the serve CLI's 'axis=N,...' spelling;
+  :func:`parse_train_mesh` — the train CLI's 'DxM' / 'PxDxM'.
 
 A rank's device is given explicitly (``cuda:<n>`` or ``cpu``); a rank
 that cannot reach its device fails the run, and a mesh never quietly
@@ -105,6 +107,22 @@ def mesh_devices(mesh) -> int:
     from repro_torch.distributed import compat
 
     return math.prod(compat.axes_of(mesh).values())
+
+
+TRAIN_AXES = {1: ("data",), 2: ("data", "model"),
+              3: ("pod", "data", "model")}
+
+
+def parse_train_mesh(s: str) -> tuple[tuple, tuple]:
+    """The train CLI's spelling, the reference's: '1x1', 'DxM' for
+    (data, model), 'PxDxM' for (pod, data, model) (and 'D' for data
+    alone): '2x2' -> ((2, 2), ('data', 'model'))."""
+    parts = s.split("x")
+    if len(parts) not in TRAIN_AXES or not all(
+            p.isdigit() and int(p) >= 1 for p in parts):
+        raise ValueError(f"--mesh {s!r}: expected 'DxM' (data x model) or "
+                         "'PxDxM' (pod x data x model), e.g. 2x2")
+    return tuple(int(p) for p in parts), TRAIN_AXES[len(parts)]
 
 
 def parse_mesh(s: str) -> tuple[tuple, tuple]:

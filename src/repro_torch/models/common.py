@@ -4,6 +4,12 @@ training; port of repro.models.common.  A linear names its logical
 weight axes (``distributed.sharding.LINEAR_AXES`` of its tag), so under
 an active mesh it runs sharded (``dispatch.shard``); its output comes
 back whole, so the MLP needs no constraint between its projections.
+
+Training on a mesh runs the MLP tensor-parallel instead
+(:func:`mlp_apply_tp`, on the weights ``constrain_params`` gathered over
+'data'): up and gate column-parallel over 'model', their outputs kept
+sharded into a row-parallel ``down`` and one psum, each linear a plain
+product of this rank's block (:func:`local_linear`).
 """
 
 from __future__ import annotations
@@ -12,7 +18,8 @@ import torch
 from torch import nn
 
 from repro_torch.core import linear as qlinear
-from repro_torch.core.epilogue import Epilogue, act_fn
+from repro_torch.core.epilogue import Epilogue, act_fn, apply_epilogue
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import LINEAR_AXES
 
 
@@ -165,6 +172,23 @@ def remat(fn, *args, policy: str = "nothing"):
     return checkpoint(once, *args, use_reentrant=False, **kw)
 
 
+def local_linear(w: torch.Tensor, x: torch.Tensor, *, tag=None,
+                 act: str = "none") -> torch.Tensor:
+    """``act(x @ w.T)`` for this rank's dense weight block ``w`` (out,
+    in), as a plain product whatever mesh is active (the training
+    mesh's tensor-parallel linears; ``tag`` still reaches the calibration
+    observer)."""
+    ep = Epilogue(act=act) if act != "none" else None
+    return qlinear.apply({"w": w}, x, qlinear.DENSE, in_dim=w.shape[-1],
+                         tag=tag, epilogue=ep)
+
+
+def add_residual(y: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    """``y + residual`` as the fused residual epilogue computes it (f32,
+    cast back)."""
+    return apply_epilogue(y, Epilogue(residual=True), residual=residual)
+
+
 def chunked_scan(step, carry, xs: tuple, *, chunk: int):
     """Run ``carry, y = step(carry, x_t)`` over the leading (time) axis T of
     the tensors ``xs``; returns (carry, ys stacked on a leading T axis).
@@ -233,3 +257,28 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg, quant=None, *,
                          act=act_name)
     return linear_apply(p.down, h, q, in_dim=h.shape[-1], tag="down",
                         residual=residual)
+
+
+def mlp_apply_tp(p: MLP, x: torch.Tensor, cfg, *, residual, d_ff: int,
+                 axis: str = "model") -> torch.Tensor:
+    """:func:`mlp_apply` of a training step on a mesh, on this rank's
+    weights (gathered over 'data').  When they hold a block of the
+    hidden dim (``d_ff`` split over ``axis``), up and gate are
+    column-parallel and their product stays sharded into a row-parallel
+    ``down`` that ends in a psum; ``x`` enters through
+    ``collectives.ad_identity``, whose backward sums the ranks' parts of
+    its gradient.  Otherwise every rank runs the whole MLP."""
+    act_name = {"swiglu": "silu", "geglu": "gelu",
+                "gelu": "gelu"}[cfg.mlp_activation]
+    tp = p.up.w.shape[0] != d_ff
+    if tp:
+        x = coll.ad_identity(x, axis)
+    if hasattr(p, "gate"):
+        h = local_linear(p.gate.w, x, tag="gate", act=act_name) \
+            * local_linear(p.up.w, x, tag="up")
+    else:
+        h = local_linear(p.up.w, x, tag="up", act=act_name)
+    y = local_linear(p.down.w, h, tag="down")
+    if tp:
+        y = coll.ad_psum(y, axis)
+    return add_residual(y, residual)

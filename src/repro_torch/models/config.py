@@ -97,6 +97,14 @@ class ModelConfig:
     # the linears' outputs (models.common.remat).  Serving never remats.
     remat: bool = True
     remat_policy: str = "nothing"  # nothing | dots
+    # training on a mesh (distributed.sharding.constrain_params): gather
+    # each group's FSDP ('data'-sharded) weights in int8, one scale a leaf
+    # (the pmax of the shards' max |w|), dequantized after the gather
+    fsdp_int8_gather: bool = False
+    # keep each group's gathered weights for the backward pass, so remat
+    # does not gather them again (more memory: one group's weights)
+    save_gathered_weights: bool = False
+    logical_rules: str = "default"  # distributed.sharding.RULE_SETS key
     quant: QuantSpec = field(default_factory=lambda: DENSE)
     # quantized paged KV pool (None: full precision)
     kv_quant: KVQuantSpec | None = None

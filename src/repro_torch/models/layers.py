@@ -11,6 +11,13 @@ holds its shard of the pool (kv heads over 'model' when they divide,
 axis when its rows are split (the pool is whole over 'data'), constrained
 to the pool's heads, written, and attended by this rank's query heads;
 the heads' outputs are gathered before ``wo``.
+
+A training step on a mesh runs :func:`attn_apply_tp` instead, on the
+weights ``constrain_params`` gathered over 'data': with the query heads
+split over 'model', wq is column-parallel, its heads stay sharded
+through the attention into a row-parallel ``wo`` that ends in a psum,
+and each rank computes the kv heads its query heads read (whole when
+they do not split: MQA); otherwise every rank runs the whole attention.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from torch import nn
 
 from repro_torch import kvq
 from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import compat
 from repro_torch.distributed import sharding
 from repro_torch.models import common
 
@@ -280,3 +288,84 @@ def _attn_paged_quantized(cfg, q, k, v, cache, positions, write_slots,
             0, ws, scales.reshape(-1, hk))
     return kvq.attention.run(spec, cfg, q, cache, view_slots, positions,
                              window=window)
+
+
+# ------------------------------------------------------- training on a mesh
+def _whole_rows(w: torch.Tensor, rows: int, dim: int, axis: str, *,
+                partial: bool) -> torch.Tensor:
+    """``w`` whole along ``dim`` (``rows`` long): as it is when it is whole,
+    else gathered over ``axis``.  ``partial``: the consumers on this rank
+    use part of it (their gradients sum over the ranks: a reduce-scatter
+    back); otherwise they run replicated (this rank's block of the whole
+    gradient).  A whole weight with ``partial`` consumers enters through
+    ``ad_identity``, so its gradient sums the ranks' parts too."""
+    if w.shape[dim] != rows:
+        return coll.ad_all_gather(w, axis, dim=dim, reduce_grad=partial)
+    return coll.ad_identity(w, axis) if partial else w
+
+
+def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
+                  residual, axis: str = "model"):
+    """:func:`attn_apply` (causal, no cache) of a training step on a mesh,
+    ``residual`` added after ``wo``.  When the query heads divide the
+    ``axis`` size M, this rank runs heads [r·H/M, (r+1)·H/M) (r its
+    coordinate): wq's block is its heads' rows, ``x`` enters through
+    ``ad_identity``, the kv heads those heads read come from wk/wv's
+    block, or from the whole weights (gathered over ``axis`` when their
+    rows split finer than a head), and ``wo``'s block ends in a psum.
+    Otherwise each rank runs every head, on weights gathered whole."""
+    mesh = sharding.active_mesh()
+    M = compat.axes_of(mesh).get(axis, 1)
+    h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, S, _ = x.shape
+    tp = M > 1 and h % M == 0
+    if tp:
+        r = sharding.coord(mesh, axis)
+        hl = h // M
+        q0, g = r * hl, h // hk
+        kv0, kv1 = q0 // g, (q0 + hl - 1) // g + 1
+        if hl % (kv1 - kv0) or any((q0 + i) // g - kv0 != i // (hl // (
+                kv1 - kv0)) for i in range(hl)):
+            raise NotImplementedError(
+                f"{cfg.name}: {hl} query heads a rank do not group evenly "
+                f"over kv heads {kv0}..{kv1 - 1} (ROADMAP A13c)")
+        wq, wo = p.wq.w, p.wo.w  # this rank's heads' rows and columns
+        if wq.shape[0] != hl * dh or wo.shape[1] != hl * dh:
+            raise NotImplementedError(
+                f"{cfg.name}: wq {tuple(wq.shape)} / wo {tuple(wo.shape)} "
+                f"are not split over {axis!r} as the heads are (rules "
+                f"{sharding.active_rules()!r})")
+        x = coll.ad_identity(x, axis)
+
+        def kv_weight(w):
+            if hk % M == 0 and w.shape[0] == hk * dh // M:
+                return w  # this rank's kv heads are the ones it reads
+            w = _whole_rows(w, hk * dh, 0, axis, partial=True)
+            return w[kv0 * dh:kv1 * dh]
+
+        wk, wv = kv_weight(p.wk.w), kv_weight(p.wv.w)
+    else:
+        hl = h
+        wq = _whole_rows(p.wq.w, h * dh, 0, axis, partial=False)
+        wk = _whole_rows(p.wk.w, hk * dh, 0, axis, partial=False)
+        wv = _whole_rows(p.wv.w, hk * dh, 0, axis, partial=False)
+        wo = _whole_rows(p.wo.w, h * dh, 1, axis, partial=False)
+    q = common.local_linear(wq, x, tag="wq").reshape(B, S, hl, dh)
+    k = common.local_linear(wk, x, tag="wk").reshape(B, S, -1, dh)
+    v = common.local_linear(wv, x, tag="wv").reshape(B, S, -1, dh)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    C = cfg.attn_chunk
+    if C and S > C and S % C == 0:
+        out = torch.cat([_sdpa(cfg, q[:, i:i + C], k, v,
+                               causal_mask(C, S, window=window, offset=i,
+                                           device=x.device))
+                         for i in range(0, S, C)], dim=1)
+    else:
+        out = _sdpa(cfg, q, k, v, causal_mask(S, S, window=window,
+                                              device=x.device))
+    y = common.local_linear(wo, out, tag="wo")
+    if tp:
+        y = coll.ad_psum(y, axis)
+    return common.add_residual(y, residual)

@@ -25,9 +25,22 @@ Under an active mesh (``distributed.sharding.use``, the paged serving
 path) the embedding table may hold this rank's vocab rows
 (:func:`vocab_axis`): the lookup sums the ranks' rows and the tied head
 gathers the ranks' logit columns.
+
+:func:`forward` under an active mesh is a training step's, on a model
+cut by ``sharding.shard_model`` (FSDP x TP, the 'default' rules): the
+top-level leaves and, at the top of each layer group, the group's are
+gathered over 'data' (``sharding.constrain_params``; with
+``cfg.save_gathered_weights`` outside the group's remat, so the
+backward pass does not gather them again); the blocks run
+tensor-parallel over 'model' (``layers.attn_apply_tp``,
+``common.mlp_apply_tp``); the vocab-split embedding's lookup ends in a
+psum, and the logits stay split over the vocab into the loss.  Dense
+decoders only (:func:`check_train_mesh`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -219,6 +232,8 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
     length becomes the source's) and reading them at decode.  A MoE
     FFN's ``load_balance`` and ``dropped_frac`` are added into ``aux``
     when given.  Returns x."""
+    if mode == "train" and sharding.active_mesh() is not None:
+        return _block_apply_tp(p, cfg, kind, x, positions)
     if mode == "paged" and kind not in ATTENTION_KINDS:
         raise NotImplementedError(
             f"paged serving supports attention block kinds only, got {kind!r}")
@@ -269,6 +284,37 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
     return _ffn(p, cfg, x, aux)
 
 
+TRAIN_MESH_KINDS = ("attn", "local")
+
+
+def check_train_mesh(cfg: ModelConfig) -> None:
+    """NotImplementedError unless ``cfg`` is a dense decoder, the configs
+    a mesh trains ('attn' / 'local' blocks, no encoder, no frontend, no
+    qk-norm: no dense config has one)."""
+    bad = sorted(set(cfg.block_pattern) - set(TRAIN_MESH_KINDS))
+    if bad or cfg.is_encdec or cfg.frontend or cfg.qk_norm:
+        what = (f"block kinds {bad}" if bad else
+                "an encoder" if cfg.is_encdec else
+                f"a {cfg.frontend} frontend" if cfg.frontend else "qk-norm")
+        raise NotImplementedError(
+            f"{cfg.name}: training on a mesh runs dense decoders "
+            f"({'/'.join(TRAIN_MESH_KINDS)} blocks); {what} on a mesh "
+            "waits for ROADMAP A13c")
+
+
+def _block_apply_tp(p, cfg: ModelConfig, kind: str, x, positions):
+    """A dense block of a training step on a mesh, on its weights gathered
+    over 'data': tensor-parallel attention and MLP over 'model'."""
+    if kind not in TRAIN_MESH_KINDS:
+        check_train_mesh(cfg)
+    window = cfg.sliding_window if kind == "local" else 0
+    h = common.norm_apply(p.ln1, x, cfg.norm, rms_offset=cfg.rms_offset)
+    x = layers.attn_apply_tp(p.attn, cfg, h, positions, window=window,
+                             residual=x)
+    h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
+    return common.mlp_apply_tp(p.mlp, h, cfg, residual=x, d_ff=cfg.d_ff)
+
+
 def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                  mode="train", cache=None, pos=None, paged=None,
                  enc_out=None):
@@ -283,13 +329,30 @@ def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
     period = 1 if mode == "encode" else len(cfg.block_pattern)
     train = mode == "train"
     do_remat = cfg.remat and train and common.needs_grad(x)
+    mesh = sharding.active_mesh() if train else None
+    rules = sharding.active_rules()
 
-    def group(x, first):
+    def gather(first):
+        """The group's blocks with their weights gathered over 'data'."""
+        return [sharding.constrain_params(
+            blocks[i], int8_gather=cfg.fsdp_int8_gather)
+            for i in range(first, min(first + period, len(blocks)))]
+
+    def group(x, first, gathered=None):
+        if mesh is not None:
+            # a remat recompute may run on autograd's own thread, where
+            # the (thread-local) mesh context is not set
+            with sharding.use(mesh, rules):
+                return run_group(x, first, gathered or gather(first))
+        return run_group(x, first, None)
+
+    def run_group(x, first, gathered):
         # the sums start at 0.0, as the reference's zeros (0 + v == v)
         aux = {"load_balance": 0.0, "dropped_frac": 0.0} if train else None
         for i in range(first, min(first + period, len(blocks))):
             kind = "attn" if mode == "encode" else cfg.kind(i)
-            x = block_apply(blocks[i], cfg, kind, x, positions, mode=mode,
+            blk = blocks[i] if gathered is None else gathered[i - first]
+            x = block_apply(blk, cfg, kind, x, positions, mode=mode,
                             cache=cache[i] if cache is not None else None,
                             pos=pos, paged=paged, enc_out=enc_out, aux=aux)
         return x, aux
@@ -297,7 +360,12 @@ def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
     total = {"load_balance": 0.0, "dropped_frac": 0.0}
     for first in range(0, len(blocks), period):
         if do_remat:
-            x, aux = common.remat(group, x, first, policy=cfg.remat_policy)
+            # saved gathered weights come from outside the remat, so its
+            # recompute reads them instead of gathering again
+            kept = gather(first) if mesh is not None \
+                and cfg.save_gathered_weights else None
+            x, aux = common.remat(functools.partial(group, gathered=kept),
+                                  x, first, policy=cfg.remat_policy)
         else:
             x, aux = group(x, first)
         if train:
@@ -330,20 +398,24 @@ def vocab_axis(cfg: ModelConfig) -> str | None:
     return spec[0]
 
 
-def _embed_lookup(params: Transformer, cfg: ModelConfig, tokens):
-    """Rows of the embedding table for ``tokens``.  With the table's vocab
-    split over the mesh each rank looks up the tokens in its rows, zeros
-    the others, and the ranks' rows are summed (exact: one is nonzero)."""
-    axis = vocab_axis(cfg)
+def _embed(table: torch.Tensor, cfg: ModelConfig, tokens,
+           axis: str | None) -> torch.Tensor:
+    """Rows of the embedding ``table`` for ``tokens``, in f32 and scaled
+    by sqrt(d) for gemma.  With ``axis`` the table holds this rank's
+    block of the vocab along it: each rank looks up the tokens in its
+    rows, zeros the others, and the ranks' rows are summed (exact: one is
+    nonzero; ``ad_psum``, so a training step differentiates it)."""
+    tokens = tokens.long()
     if axis is None:
-        return params.embedding[tokens.long()]
-    rows = params.embedding.shape[0]
-    local = tokens.long() - sharding.coord(sharding.active_mesh(),
-                                           axis) * rows
-    mine = (local >= 0) & (local < rows)
-    x = params.embedding[torch.where(mine, local, 0)]
-    x = torch.where(mine[..., None], x, 0.0)
-    return coll.psum(x, axis)
+        x = table[tokens]
+    else:
+        rows = table.shape[0]
+        local = tokens - sharding.coord(sharding.active_mesh(), axis) * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], table[torch.where(mine, local, 0)],
+                        0.0)
+        x = coll.ad_psum(x, axis)
+    return x * cfg.d_model**0.5 if cfg.embed_scale else x
 
 
 def embed_inputs(params: Transformer, cfg: ModelConfig, tokens, *,
@@ -351,9 +423,7 @@ def embed_inputs(params: Transformer, cfg: ModelConfig, tokens, *,
     """tokens (B, S) -> (B, S, d): gathered in f32, scaled by sqrt(d) for
     gemma, with a vision frontend's ``patch_embeds`` (B, P, d), cast to
     f32, prepended; then cast to ``cfg.dtype``."""
-    x = _embed_lookup(params, cfg, tokens)
-    if cfg.embed_scale:
-        x = x * cfg.d_model**0.5
+    x = _embed(params.embedding, cfg, tokens, vocab_axis(cfg))
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x.to(getattr(torch, cfg.dtype))
@@ -408,12 +478,17 @@ def _inputs(params: Transformer, cfg: ModelConfig, batch):
     return x, enc_out
 
 
+def _tied_head(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Logits of a tied head: ``x`` against the embedding ``table`` (or
+    this rank's vocab rows of it) in f32."""
+    return torch.matmul(x.to(torch.float32), table.to(torch.float32).t())
+
+
 def logits_from_hidden(params: Transformer, cfg: ModelConfig, x):
     x = common.norm_apply(params.final_norm, x, cfg.norm,
                           rms_offset=cfg.rms_offset)
     if cfg.tie_embeddings:
-        logits = torch.matmul(x.to(torch.float32),
-                              params.embedding.to(torch.float32).t())
+        logits = _tied_head(x, params.embedding)
         axis = vocab_axis(cfg)
         if axis is not None:  # this rank's vocab columns: gather them
             logits = coll.all_gather(logits, axis, dim=-1)
@@ -434,12 +509,51 @@ def forward(params: Transformer, cfg: ModelConfig, batch, *,
     -> logits (B, S, V), S counting the patches; with ``return_aux``
     (logits, aux), aux the MoE terms ``load_balance`` and
     ``dropped_frac`` (0-d f32, zero without MoE blocks), as the
-    reference's forward returns."""
+    reference's forward returns.  Under an active mesh, a training
+    step's forward on this rank's rows: logits (B, S, V / model) when
+    the vocab splits over 'model' (:func:`_forward_tp`)."""
+    if sharding.active_mesh() is not None:
+        return _forward_tp(params, cfg, batch, return_aux)
     x, enc_out = _inputs(params, cfg, batch)
     B, S = x.shape[:2]
     x, aux = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
                           enc_out=enc_out)
     logits = logits_from_hidden(params, cfg, x)
+    return (logits, aux) if return_aux else logits
+
+
+def _forward_tp(params: Transformer, cfg: ModelConfig, batch,
+                return_aux: bool):
+    """:func:`forward` of a training step on a mesh (a model cut by
+    ``sharding.shard_model``).  The top-level leaves are gathered over
+    'data' once (the tied table serves the lookup and the head, so its
+    gradient sums both before the reduce-scatter).  A table split over
+    the vocab looks up this rank's rows and sums them over 'model' (one
+    rank holds each token's); the head's input enters through
+    ``ad_identity`` and its logits keep this rank's vocab columns."""
+    check_train_mesh(cfg)
+    axis = "model"
+    top = sharding.constrain_params(
+        {n: t for n, t in params.named_buffers()
+         if not n.startswith("blocks.")},
+        specs=params.shard_specs, int8_gather=cfg.fsdp_int8_gather)
+    emb, V = top["embedding"], cfg.vocab_size
+    x = _embed(emb, cfg, as_batch(batch)["tokens"],
+               axis if emb.shape[0] != V else None
+               ).to(getattr(torch, cfg.dtype))
+    B, S = x.shape[:2]
+    x, aux = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device))
+    x = common.norm_apply(
+        common.Norm(top["final_norm.scale"], top.get("final_norm.bias")), x,
+        cfg.norm, rms_offset=cfg.rms_offset)
+    w = emb if cfg.tie_embeddings else top["lm_head.w"]
+    if w.shape[0] != V:
+        x = coll.ad_identity(x, axis)
+    if cfg.tie_embeddings:
+        logits = _tied_head(x, w)
+    else:
+        logits = common.local_linear(w, x, tag="lm_head").to(torch.float32)
+    logits = common.softcap(logits, cfg.final_logit_softcap)
     return (logits, aux) if return_aux else logits
 
 

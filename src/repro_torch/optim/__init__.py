@@ -1,7 +1,7 @@
-"""Optimizer and schedules; port of repro.optim (``compression``, the
-int8 cross-pod gradient reduction, comes with the multi-GPU slice)."""
+"""Optimizer, schedules and the int8 cross-pod gradient reduction
+(``compression``); port of repro.optim."""
 
-from repro_torch.optim import schedules  # noqa: F401
+from repro_torch.optim import compression, schedules  # noqa: F401
 from repro_torch.optim.adamw import (  # noqa: F401
     AdamWConfig,
     adamw_init,

@@ -51,20 +51,46 @@ def adamw_init(params: dict, cfg: AdamWConfig | None = None) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree: dict, *, specs: dict | None = None,
+                mesh=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.  On
+    ``mesh`` the leaves are this rank's blocks under ``specs``: each
+    leaf's squares are summed once across the mesh, by a psum over
+    exactly the axes that split it (a leaf whole on an axis is counted
+    once, not once a rank)."""
+    sq = {n: torch.sum(torch.square(g.to(torch.float32)))
+          for n, g in tree.items()}
+    if mesh is None:
+        return torch.sqrt(torch.sum(torch.stack(list(sq.values()))))
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import compat
+
+    sizes = compat.axes_of(mesh)
+    groups: dict[tuple, list] = {}
+    for n, v in sq.items():
+        axes = tuple(a for a in sizes if sizes[a] > 1
+                     and coll.spec_dim(specs[n], a) is not None)
+        groups.setdefault(axes, []).append(v)
+    total = []
+    for axes, vs in groups.items():
+        t = torch.sum(torch.stack(vs))
+        for a in axes:
+            t = coll.psum(t, a, mesh=mesh)
+        total.append(t)
+    return torch.sqrt(torch.sum(torch.stack(total)))
 
 
 @torch.no_grad()
-def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig):
+def adamw_update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
+                 *, specs: dict | None = None, mesh=None):
     """One step.  Writes the new params and moments into ``params`` and
     ``state``'s tensors in place; returns (params, new state dict (its
     ``count`` incremented), {"grad_norm", "lr"}), as the reference's
-    (new_params, new_state, metrics)."""
+    (new_params, new_state, metrics).  On ``mesh`` every leaf is this
+    rank's block under ``specs``, and the clip's norm the whole tree's
+    (:func:`global_norm`)."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs=specs, mesh=mesh)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip else None)
     lr = cfg.lr(count)

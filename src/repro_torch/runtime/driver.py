@@ -7,9 +7,18 @@
 * preemption-style graceful stop (save + return) on request.
 
 A checkpoint holds the train state as a nested dict: ``params`` the
-model's ``state_dict()``, ``opt`` (``m``, ``v``, ``count``) and ``step``;
-restoring loads the params back into the model in place.  One device:
-re-sharding on restore comes with the multi-GPU slice.
+model's ``state_dict()``, ``opt`` (``m``, ``v``, ``count``, and
+``residual`` with ``int8_pod``) and ``step``; restoring loads the params
+back into the model in place.  The residual is each pod's own
+quantization error, so it is saved with a leading axis of one entry a
+pod (split over 'pod'): a restore onto a mesh with the same pod count
+gives every pod its own back, and one onto another pod count raises.  On a mesh (a state from
+``runtime.train.init_state(..., mesh=)``, every rank running ``run``)
+the checkpoint holds the whole leaves, written by rank 0; a run resumes
+from the latest step onto whatever mesh its state lies on (each rank
+cuts its blocks), takes its rows of each batch, and stops on a crash or
+a preemption at the same step on every rank, so no rank waits on a
+collective another will never issue.
 """
 
 from __future__ import annotations
@@ -25,6 +34,10 @@ from repro_torch.distributed.watchdog import Watchdog
 
 # the reference's /tmp/repro_ckpt, under the temporary directory in use
 DEFAULT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+def _quiet(*args) -> None:
+    pass
 
 
 @dataclass
@@ -49,15 +62,58 @@ class CrashInjector:
 
 
 def _tree(state: dict) -> dict:
-    return {"params": state["params"].state_dict(), "opt": state["opt"],
+    opt = state["opt"]
+    if "residual" in opt:  # one block a pod (:func:`shardings`)
+        opt = dict(opt, residual={n: r[None]
+                                  for n, r in opt["residual"].items()})
+    return {"params": state["params"].state_dict(), "opt": opt,
             "step": state["step"]}
 
 
+def shardings(state: dict):
+    """The ``TreeSharding`` of a state's checkpoint tree on its mesh (None
+    on one device): params and the moments under the leaves' specs, the
+    residual's leading axis over 'pod' (where the mesh has one) before
+    them; ``count`` and ``step`` whole."""
+    mesh = state.get("mesh")
+    if mesh is None:
+        return None
+    from repro_torch.distributed import compat
+    from repro_torch.distributed.sharding import TreeSharding
+
+    pod = "pod" if "pod" in compat.axes_of(mesh) else None
+    specs = {}
+    for key, lead in (("params", ()), ("opt/m", ()), ("opt/v", ()),
+                      ("opt/residual", (pod,))):
+        specs.update({f"{key}/{n}": lead + tuple(s)
+                      for n, s in state["specs"].items()})
+    return TreeSharding(mesh, specs)
+
+
 def _restore(ckpt: CheckpointManager, step: int, state: dict) -> dict:
-    tree = ckpt.restore(step, _tree(state))
+    tree = ckpt.restore(step, _tree(state), shardings=shardings(state))
     state["params"].load_state_dict(tree["params"])
-    return {"params": state["params"], "opt": tree["opt"],
-            "step": tree["step"]}
+    opt = tree["opt"]
+    if "residual" in opt:
+        opt["residual"] = {n: r[0] for n, r in opt["residual"].items()}
+    return dict(state, opt=opt, step=tree["step"])
+
+
+def _stopping(stop_flag, mesh) -> bool:
+    """The preemption flag, raised on every rank when any rank's is."""
+    if not stop_flag:
+        return False
+    if mesh is None:
+        return bool(stop_flag[0])
+    import torch
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import compat
+
+    t = torch.tensor(float(bool(stop_flag[0])))
+    for a in compat.axes_of(mesh):
+        t = coll.pmax(t, a, mesh=mesh)
+    return bool(t)
 
 
 def run(state: dict, step_fn: Callable, data, dcfg: DriverConfig, *,
@@ -67,7 +123,15 @@ def run(state: dict, step_fn: Callable, data, dcfg: DriverConfig, *,
     metrics)`` on ``data.device_batch(step, device=device)`` for the
     steps not yet done.  Returns {'state', 'metrics' (one dict a step:
     its number and every 0-d metric as a float), 'resumed_at',
-    'preempted', and 'watchdog' when it ran to the end}."""
+    'preempted', and 'watchdog' when it ran to the end}.  On a mesh
+    (``state["mesh"]``) every rank calls it; only rank 0 logs."""
+    mesh = state.get("mesh")
+    tree_sh = shardings(state)
+    if mesh is not None:
+        from repro_torch.distributed.sharding import is_lead
+
+        if not is_lead(mesh):
+            log = _quiet
     ckpt = CheckpointManager(dcfg.checkpoint_dir, keep=dcfg.keep)
     start = 0
     latest = ckpt.latest_step()
@@ -78,13 +142,13 @@ def run(state: dict, step_fn: Callable, data, dcfg: DriverConfig, *,
     wd = Watchdog()
     history = []
     for step in range(start, dcfg.total_steps):
-        if stop_flag and stop_flag[0]:  # preemption signal
-            ckpt.save(step, _tree(state))
+        if _stopping(stop_flag, mesh):  # preemption signal
+            ckpt.save(step, _tree(state), shardings=tree_sh)
             ckpt.wait()
             log(f"[driver] preempted; saved at step {step}")
             return {"state": state, "metrics": history, "resumed_at": start,
                     "preempted": True}
-        batch = data.device_batch(step, device=device)
+        batch = data.device_batch(step, device=device, mesh=mesh)
         wd.step_started()
         if crash is not None:
             crash.maybe_crash(step)
@@ -100,7 +164,7 @@ def run(state: dict, step_fn: Callable, data, dcfg: DriverConfig, *,
                            if hasattr(v, "shape") and v.shape == ()}})
         if (step + 1) % dcfg.checkpoint_every == 0 \
                 or step + 1 == dcfg.total_steps:
-            ckpt.save(step + 1, _tree(state))
+            ckpt.save(step + 1, _tree(state), shardings=tree_sh)
     ckpt.wait()
     return {"state": state, "metrics": history, "resumed_at": start,
             "preempted": False, "watchdog": {"stragglers": wd.straggler_count,

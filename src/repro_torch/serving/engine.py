@@ -72,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import threading
 import time
 
@@ -294,8 +295,16 @@ class StepRunner:
         tr.take_marks()  # the warm-up's marks time no user step
         before = {mod: mod.launches for mod in KERNELS.values()}
         shape.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(shape.graph, pool=pool):
-            shape.out, shape.logits = self._step(shape)
+        # no collection while capturing: a dropped engine held by a cycle
+        # would free its graphs mid-capture, which invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(shape.graph, pool=pool):
+                shape.out, shape.logits = self._step(shape)
+        finally:
+            if collecting:
+                gc.enable()
         self.captures += 1
         shape.launches = [(mod, mod.launches - n) for mod, n in
                           before.items() if mod.launches != n]

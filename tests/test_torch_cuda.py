@@ -535,6 +535,44 @@ def test_engine_graph_route_matches_eager_route(mode):
         cfg.num_layers * g_eng.num_steps if mode == "kv8" else 0)
 
 
+@pytest.mark.cuda
+def test_capture_survives_a_dropped_engine_in_a_cycle(monkeypatch):
+    """An engine held only by a reference cycle becomes garbage while the
+    next engine captures its graphs, and the collector's youngest
+    generation would run: it is not collected during the capture
+    (freeing its graphs there would invalidate the capture), and the new
+    engine gives the eager route's tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import gc
+
+    from repro_torch.runtime import serve as SV
+
+    params, cfg, kw = _small_engine_model("msgemm")
+    holder = [_small_engine(params, cfg, None)]
+    real = SV.paged_step
+
+    def step(*args, **kwargs):
+        if holder and torch.cuda.is_current_stream_capturing():
+            box = [holder.pop()]  # the old engine, held by a young cycle
+            box.append(box)
+            del box
+            junk = [[] for _ in range(1000)]  # allocations: collections
+            del junk
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(SV, "paged_step", step)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        g_toks, _, g_eng = _serve_small(params, cfg, None)
+    finally:
+        gc.set_threshold(*threshold)
+    assert not holder and g_eng.runner.cuda_graph
+    e_toks, _, _ = _serve_small(params, cfg, False)
+    assert g_toks == e_toks
+
+
 # (E, sb, m, k, b, act): expert stacks, the last scale block ragged
 # (k = 1408), a split contraction, b past one column tile
 I4_EXPERT_SHAPES = [
@@ -840,3 +878,46 @@ def test_nan_replan_recaptures_onto_the_torch_rung():
     finally:
         faults.disarm()
         dispatch.clear_quarantine()
+
+
+@pytest.mark.cuda
+def test_time_call_retimes_a_window_the_host_stalled():
+    """A host stall longer than the card's sleep leaves the card idle
+    inside the timed window; ``time_call`` sees the sleep over before the
+    last call was queued and times the window again, so the stall does
+    not reach the result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import time
+
+    dev = torch.device("cuda")
+    a = torch.randn(1024, 1024, device=dev)
+    reps = 20
+    clean = ops.time_call([lambda: a @ a], dev, reps)
+    calls = [0]
+
+    def stalling():
+        calls[0] += 1
+        if calls[0] == 2 + reps // 2:  # mid-window of the first timing
+            time.sleep(reps * 1e-3)  # five times the window's sleep
+        return a @ a
+
+    before = ops.time_call_retries
+    stalled = ops.time_call([stalling], dev, reps)
+    assert ops.time_call_retries > before
+    assert stalled < 1.5 * clean, (stalled, clean)
+
+
+@pytest.mark.cuda
+def test_time_call_keeps_the_launch_queue_short():
+    """512 calls of three launches each: queued as one window they would
+    fill the launch queue, and the host would wait there until the sleep
+    ended, which reads as a stall; in windows of ``CALLS_PER_WINDOW`` the
+    host stays ahead of every sleep and nothing is timed again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    a = torch.zeros(256, device="cuda")
+    before = ops.time_call_retries
+    ops.time_call([lambda: (a + 1).mul_(2).sub_(2)], torch.device("cuda"),
+                  512)
+    assert ops.time_call_retries == before

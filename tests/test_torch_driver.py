@@ -16,7 +16,8 @@ the train CLI and the train -> quantize -> serve workflow.
 * ``python -m repro_torch.launch.train --smoke --device cpu`` runs, a
   second call resumes from its checkpoint directory, and its losses equal
   ``driver.run`` over ``train_step`` built by hand; ``--mesh 2x2`` is
-  refused, and without ``--device cpu`` and a GPU it raises;
+  refused without the devices it needs, and without ``--device cpu`` and
+  a GPU it raises;
 * train -> quantize -> serve (the twin of ``tests/test_system.py``'s
   workflow test): the port trains the reference's CFG model 8 steps on
   the lcg stream (the loss falls),

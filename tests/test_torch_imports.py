@@ -53,8 +53,11 @@ MUST_IMPORT = {
     "repro_torch.runtime.driver", "repro_torch.launch.train",
     "repro_torch.distributed.compat", "repro_torch.distributed.sharding",
     "repro_torch.distributed.collectives", "repro_torch.dispatch.shard",
-    "repro_torch.launch.mesh",
+    "repro_torch.launch.mesh", "repro_torch.optim.compression",
+    "repro_torch.launch.dryrun",
 }
+# the port's modules that the reference has no counterpart of
+PORT_ONLY = {"__init__.py", "convert.py", "device.py", "kernels/nvcc.py"}
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -68,3 +71,15 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert len(names) >= 30 and MUST_IMPORT <= names, \
         sorted(MUST_IMPORT - names)
     assert bad == "", f"the port imported {bad}"
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The two packages' module files differ only by the port's own
+    additions (the reference's package has no top-level __init__)."""
+    def modules(pkg):
+        root = SRC / pkg
+        return {str(p.relative_to(root)) for p in root.rglob("*.py")}
+
+    ref, port = modules("repro"), modules("repro_torch")
+    assert ref - port == set(), sorted(ref - port)
+    assert port - ref == PORT_ONLY, sorted(port - ref)

@@ -305,3 +305,49 @@ def test_serve_cli_needs_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "gemma_2b", "--smoke"])
+
+
+def test_train_cli_on_a_mesh_trains_and_resumes(tmp_path, capfd):
+    """``--mesh 2x2 --device cpu --force-host-devices 4``: four gloo
+    ranks train 3 steps (checkpoints at 2 and 3), a second call resumes
+    at 3 and runs step 4; each step's loss within rtol 1e-4 of the same
+    run on one device (``--mesh 1x1``)."""
+    from repro_torch.launch import train as LT
+
+    base = ["--arch", "gemma_2b", "--smoke", "--device", "cpu",
+            "--checkpoint-every", "2", "--seq-len", "16"]
+    mesh = base + ["--mesh", "2x2", "--force-host-devices", "4",
+                   "--checkpoint-dir", str(tmp_path / "mesh")]
+    first = LT.main(mesh + ["--steps", "3"])
+    again = LT.main(mesh + ["--steps", "4"])
+    one = LT.main(base + ["--steps", "4", "--checkpoint-dir",
+                          str(tmp_path / "one")])
+    assert (first["resumed_at"], again["resumed_at"]) == (0, 3)
+    got = {m["step"]: m["loss"] for m in first["metrics"] + again["metrics"]}
+    want = {m["step"]: m["loss"] for m in one["metrics"]}
+    assert sorted(got) == sorted(want) == [1, 2, 3, 4]
+    for s in want:
+        np.testing.assert_allclose(got[s], want[s], rtol=1e-4, err_msg=s)
+    out = capfd.readouterr().out
+    assert "[train] 4 ranks" in out and "resumed_at=3" in out
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh", "2x2", "--device", "cpu", "--force-host-devices", "2"],
+     "needs 4 devices but only 2"),
+    (["--mesh", "2x2", "--device", "cpu"], "needs 4 devices but only 0"),
+    (["--mesh", "2x2", "--force-host-devices", "4"], "--device cpu"),
+    (["--mesh", "2by2"], "expected 'DxM'"),
+    (["--mesh", "1x2x2x2"], "expected 'DxM'"),
+    (["--mesh", "0x2"], "expected 'DxM'"),
+], ids=["too-large", "no-host-devices", "host-devices-on-cuda",
+        "spelling", "four-axes", "zero"])
+def test_train_cli_refuses_bad_meshes(flags, match, capsys, monkeypatch):
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import train as LT
+
+    monkeypatch.delenv(MS.HOST_DEVICES_ENV, raising=False)
+
+    with pytest.raises(SystemExit):
+        LT.parse_args(["--arch", "gemma_2b", *flags])
+    assert match in capsys.readouterr().err

@@ -24,7 +24,7 @@ SMOKE config, and what every architecture's step must do.
   ``train_step`` at SMOKE gives a finite positive loss and changes
   every trainable leaf class;
 * a quantized model is refused; ``grad_compression`` other than 'none'
-  waits for the multi-GPU slice; ``convert.state_from_jax`` keeps bf16
+  and 'int8_pod' is a ValueError; ``convert.state_from_jax`` keeps bf16
   moments bf16.
 """
 
@@ -230,8 +230,10 @@ def test_quantized_model_refused():
     with pytest.raises(ValueError, match="quantized"):
         RT.train_step(state, torch_batch(batch(cfg)), cfg.replace(quant=spec),
                       RT.TrainConfig())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        RT.TrainConfig(grad_compression="int8_pod")
+    with pytest.raises(ValueError, match="grad_compression"):
+        RT.TrainConfig(grad_compression="int8_dcn")
+    assert RT.TrainConfig(grad_compression="int8_pod").grad_compression \
+        == "int8_pod"
 
 
 def test_state_from_jax_keeps_bf16_moments():

@@ -1,0 +1,366 @@
+"""Training on a mesh (FSDP x TP; ``runtime.train`` on a state cut by
+``sharding.shard_state``) against the port's single-device step and the
+reference's ``repro.runtime.train.train_step``, on gemma-2b's SMOKE
+config (MQA: one kv head, so wk, wv and the norms are whole on the model
+axis while their consumers are split) and gemma2-9b's (local windows,
+soft-caps), from the reference's init state, three steps of 4 x 16
+tokens:
+
+* meshes (data=2, model=2) and (pod=2, data=1, model=2), each without
+  microbatches or remat and with ``microbatches=2`` and remat: each
+  step's loss, metrics and grad_norm (on every rank), gradients (every
+  leaf, gathered whole), m, v and params within the
+  ``tests/torch_train_parity.py`` tolerances of the single-device step
+  from the same state (gathered whole before the step); step 1 within
+  them of the reference's;
+* remat with ``save_gathered_weights`` computes the same and does not
+  gather over 'data' again (remat alone gathers twice); ``fsdp_int8_gather``
+  gives a finite step within 1% of the f32 gather's loss;
+* every rank of a case issues the same collectives; the autograd
+  collectives' outputs and gradients are exact;
+* ``collectives.int8_all_gather``'s output equals the reference's
+  ``dequantize_int8(*quantize_int8(...))`` of the gathered block
+  exactly, and its gradient is the reduce-scatter of the ranks'
+  cotangents, exactly;
+* ``grad_compression="int8_pod"``: the mean over 'pod' of the pods'
+  gradients, and the residual, bit-exact with the reference's
+  ``compressed_pmean_tree`` under ``jax.vmap`` on the pod gradients
+  (block by block of the model axis, as each rank reduces its block;
+  XLA's flushed subnormals aside);
+* a MoE config on a mesh raises NotImplementedError.
+
+One spawn of four gloo ranks runs every case (``tests/torch_train_ranks.
+py``).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+from torch_plan_isolation import (  # noqa: E402,F401  (autouse)
+    isolated_plan_cache, isolated_plan_cache_module)
+# one intra-op thread each: the suite runs in parallel workers
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import torch_train_parity as P  # noqa: E402
+import torch_train_ranks as R  # noqa: E402
+from repro.optim import AdamWConfig as JAdamW  # noqa: E402
+from repro.optim import compression as JC  # noqa: E402
+from repro.runtime import train as JRT  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.launch.mesh import run_ranks  # noqa: E402
+from repro_torch.runtime import train as RT  # noqa: E402
+
+ARCHS = ("gemma_2b", "gemma2_9b")
+MESHES = {"d2m2": ((2, 2), ("data", "model")),
+          "p2d1m2": ((2, 1, 2), ("pod", "data", "model"))}
+VARIANTS = {"plain": ({}, {"remat": False}),
+            "mb2remat": ({"microbatches": 2}, {"remat": True})}
+B, S, STEPS = 4, 16, 3
+CASES = {f"{a}-{m}-{v}": dict(arch=a, shape=MESHES[m][0], axes=MESHES[m][1],
+                              tkw=VARIANTS[v][0], over=VARIANTS[v][1])
+         for a in ARCHS for m in MESHES for v in VARIANTS}
+EXTRA = {  # gemma-2b on (data=2, model=2): (TrainConfig, config fields)
+    "remat": ({}, {"remat": True}),
+    "saved": ({}, {"remat": True, "save_gathered_weights": True}),
+    "int8gather": ({}, {"remat": False, "fsdp_int8_gather": True}),
+}
+for _k, (_t, _o) in EXTRA.items():
+    CASES[f"gemma_2b-d2m2-{_k}"] = dict(arch="gemma_2b", shape=(2, 2),
+                                        axes=("data", "model"), tkw=_t,
+                                        over=_o)
+CASES["gemma_2b-p2d1m2-int8pod"] = dict(
+    arch="gemma_2b", shape=(2, 1, 2), axes=("pod", "data", "model"),
+    tkw={"grad_compression": "int8_pod"}, over={"remat": False})
+
+
+@functools.lru_cache(maxsize=None)
+def _init(arch):
+    """(reference config, reference init state, the port's weights and
+    the 3 numpy batches)."""
+    jcfg, jstate = P.ref_state(arch, JRT.TrainConfig(optimizer=JAdamW()))
+    state, _ = P.port_state(jstate, jcfg)
+    weights = {n: t.numpy().copy()
+               for n, t in state["params"].state_dict().items()}
+    batches = [P.batch(jcfg, B=B, S=S, seed=1 + s) for s in range(STEPS)]
+    return jcfg, jstate, weights, batches
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    weights = {a: _init(a)[2] for a in ARCHS}
+    batches = {a: _init(a)[3] for a in ARCHS}
+    return run_ranks(R.train_mesh_rank, R.WORLD, CASES, weights, batches,
+                     timeout=300)
+
+
+def _single_step(case, k: int, before: dict) -> dict:
+    """The port's single-device step ``k`` (0-based) of ``case`` from the
+    whole state ``before``: its gradients, metrics and the state after."""
+    jcfg, jstate, _, batches = _init(case["arch"])
+    state, cfg = P.port_state(jstate, jcfg)
+    over = {n: v for n, v in case["over"].items()
+            if n not in ("save_gathered_weights", "fsdp_int8_gather")}
+    cfg = cfg.replace(**over)
+    tcfg = R.train_config({n: v for n, v in case["tkw"].items()
+                           if n != "grad_compression"})
+    state["params"].load_state_dict({n: torch.from_numpy(a.copy()) for n, a
+                                     in before["params"].items()})
+    for key in ("m", "v"):
+        state["opt"][key] = {n: torch.from_numpy(a.copy())
+                             for n, a in before[key].items()}
+    state["opt"]["count"] = torch.tensor(before["count"], dtype=torch.int32)
+    tb = P.torch_batch(batches[k])
+    _, _, g = RT._grads(state["params"], list(state["opt"]["m"]), cfg, tcfg,
+                        tb)
+    state, met = RT.train_step(state, tb, cfg, tcfg)
+    return {"grads": {n: t.numpy() for n, t in g.items()},
+            "metrics": {n: float(v) for n, v in met.items()},
+            "after": {"params": {n: t.numpy() for n, t in
+                                 state["params"].state_dict().items()},
+                      **{k: {n: t.numpy() for n, t in state["opt"][k].items()}
+                         for k in ("m", "v")},
+                      "count": int(state["opt"]["count"])}}
+
+
+def _close(got, want, tol, what):
+    for n, w in want.items():
+        np.testing.assert_allclose(got[n], w, **tol, err_msg=f"{what} {n}")
+
+
+def _direction(m, v, k):
+    """Adam's direction at step ``k`` from its moments after the step."""
+    ocfg = JAdamW()
+    mh = m.astype(np.float64) / (1 - ocfg.b1 ** k)
+    vh = v.astype(np.float64) / (1 - ocfg.b2 ** k)
+    return mh / (np.sqrt(vh) + ocfg.eps)
+
+
+def _check_params(got, want, lr):
+    """Params after a step from the same state within TOL plus ``lr`` times
+    the difference of the two steps' directions (read off the moments,
+    which are held to TOL themselves): where a gradient sits near zero,
+    Adam turns its last-bit noise into up to ``lr`` of movement (as
+    ``torch_train_parity.close_params``)."""
+    k = want["count"]
+    assert got["count"] == k
+    for name, w in want["params"].items():
+        extra = np.abs(_direction(got["m"][name], got["v"][name], k)
+                       - _direction(want["m"][name], want["v"][name], k)
+                       ) * lr * 1.01
+        g = got["params"][name]
+        bad = np.abs(g - w) > P.TOL["atol"] + P.TOL["rtol"] * np.abs(w) \
+            + extra
+        assert not bad.any(), (name, k, g[bad][:4], w[bad][:4])
+
+
+MAIN = [k for k in CASES if k.rsplit("-", 1)[1] in VARIANTS] + \
+    ["gemma_2b-d2m2-remat", "gemma_2b-d2m2-saved"]
+
+
+@pytest.mark.parametrize("key", MAIN)
+def test_mesh_step_matches_single_device(ranks, key):
+    """Each of the three mesh steps against the single-device step from
+    the same (gathered) state, on the whole batch."""
+    case = CASES[key]
+    for k, rec in enumerate(ranks[0][key]["steps"]):
+        want = _single_step(case, k, rec["before"])
+        for r, res in enumerate(ranks):
+            for name, v in want["metrics"].items():
+                np.testing.assert_allclose(
+                    res[key]["steps"][k]["metrics"][name], v, **P.TOL,
+                    err_msg=f"rank {r} step {k + 1} {name}")
+        _close(rec["grads"], want["grads"], P.TOL, f"step {k + 1} grad")
+        _close(rec["after"]["m"], want["after"]["m"], P.TOL,
+               f"step {k + 1} m")
+        _close(rec["after"]["v"], want["after"]["v"], P.V_TOL,
+               f"step {k + 1} v")
+        _check_params(rec["after"], want["after"], want["metrics"]["lr"])
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch, tkw_items):
+    jcfg, jstate, _, batches = _init(arch)
+    jtcfg = JRT.TrainConfig(optimizer=JAdamW(), **dict(tkw_items))
+    new, jm = P.ref_step(jcfg, jtcfg)(
+        jstate, {k: jnp.asarray(v) for k, v in batches[0].items()})
+    return new, {k: float(v) for k, v in jm.items()}
+
+
+@pytest.mark.parametrize("key", [k for k in CASES
+                                 if k.rsplit("-", 1)[1] in VARIANTS])
+def test_mesh_step_matches_reference(ranks, key):
+    """Step 1 against ``repro.runtime.train.train_step`` (its gradients
+    read back from its first moment, as ``torch_train_parity`` does)."""
+    case = CASES[key]
+    from repro_torch import convert
+
+    jcfg = _init(case["arch"])[0]
+    cfg = convert.config_from_jax(jcfg)
+    new, jm = _reference(case["arch"], tuple(sorted(case["tkw"].items())))
+    got = ranks[0][key]["steps"][0]
+    for k, v in jm.items():
+        np.testing.assert_allclose(got["metrics"][k], v, **P.TOL, err_msg=k)
+    ocfg = JAdamW()
+    gn = np.float32(jm["grad_norm"])
+    scale = min(np.float32(1.0), np.float32(ocfg.grad_clip) / (gn + 1e-9))
+    want_m = P.ref_leaves(new["opt"]["m"], cfg)
+    want_g = {n: m / np.float32((1 - ocfg.b1) * scale)
+              for n, m in want_m.items()}
+    _close(got["grads"], want_g, P.TOL, "grad")
+    _close(got["after"]["m"], want_m, P.TOL, "m")
+    _close(got["after"]["v"], P.ref_leaves(new["opt"]["v"], cfg), P.V_TOL,
+           "v")
+    got_scale = min(1.0, ocfg.grad_clip / (got["metrics"]["grad_norm"]
+                                           + 1e-9))
+    P.close_params({n: torch.from_numpy(v)
+                    for n, v in got["after"]["params"].items()},
+                   P.ref_leaves(new["params"], cfg),
+                   {n: g * got_scale for n, g in got["grads"].items()},
+                   {n: g * scale for n, g in want_g.items()}, jm["lr"],
+                   ocfg.eps)
+
+
+def test_ranks_issue_the_same_collectives(ranks):
+    for key in CASES:
+        counts = [res[key]["counts"] for res in ranks]
+        assert counts[0] and all(c == counts[0] for c in counts), key
+    # remat gathers each group's weights again in the backward pass;
+    # saved gathered weights are not gathered again over 'data' (the
+    # recompute still gathers the MQA kv weights over 'model': 2 a layer)
+    gathers = {k: ranks[0][f"gemma_2b-d2m2-{k}"]["counts"]["all_gather"]
+               for k in ("plain", "remat", "saved")}
+    layers = 2
+    assert gathers["saved"] == gathers["plain"] + 2 * layers \
+        < gathers["remat"], gathers
+
+
+def test_int8_fsdp_gather_step(ranks):
+    got = [s["metrics"] for s in ranks[0]["gemma_2b-d2m2-int8gather"]["steps"]]
+    f32 = [s["metrics"] for s in ranks[0]["gemma_2b-d2m2-plain"]["steps"]]
+    for s in range(STEPS):
+        assert np.isfinite(got[s]["loss"]) and np.isfinite(
+            got[s]["grad_norm"])
+        assert abs(got[s]["loss"] - f32[s]["loss"]) <= 1e-2 * f32[s]["loss"]
+    assert got[0]["loss"] != f32[0]["loss"]  # the int8 weights did run
+
+
+def test_autograd_collectives(ranks):
+    """Over 'data' on (data=2, model=2), rank (d, m) holding x_d and
+    cotangent c_d (exact small integers): the all-gather's gradient is
+    the reduce-scatter of the ranks' cotangents (or, for replicated
+    consumers, this rank's block of its own), the reduce-scatter's the
+    all-gather of them, the psum's the cotangent itself and the
+    identity's their sum."""
+    for r, res in enumerate(ranks):
+        d, m = r // 2, r % 2
+        x = [R.ad_input(i, m, "x") for i in range(2)]
+        c = [R.ad_input(i, m, "c") for i in range(2)]
+        got = res["ad"]
+        np.testing.assert_array_equal(got["all_gather"]["out"],
+                                      np.concatenate(x))
+        # each rank's cotangent covers the gathered rows: c_d twice
+        np.testing.assert_array_equal(got["all_gather"]["grad"],
+                                      c[0] + c[1])
+        np.testing.assert_array_equal(got["all_gather_replicated"]["grad"],
+                                      c[d])
+        half = slice(2 * d, 2 * d + 2)
+        np.testing.assert_array_equal(got["psum_scatter"]["out"],
+                                      (x[0] + x[1])[half])
+        np.testing.assert_array_equal(got["psum_scatter"]["grad"],
+                                      np.concatenate([c[0][:2], c[1][:2]]))
+        np.testing.assert_array_equal(got["psum"]["out"], x[0] + x[1])
+        np.testing.assert_array_equal(got["psum"]["grad"], c[d])
+        np.testing.assert_array_equal(got["identity"]["out"], x[d])
+        np.testing.assert_array_equal(got["identity"]["grad"], c[0] + c[1])
+
+
+@pytest.mark.parametrize("key", ["data", "data_model"])
+def test_int8_all_gather_matches_reference(ranks, key):
+    """The forward is the reference's quantize/dequantize of the block
+    gathered over 'data' (its scale the pmax of the shards' maxima: over
+    'data' only), exactly; the gradient under cotangents whose sum over
+    the data ranks is ``arange`` is ``arange``'s block, exactly."""
+    x = R.int8_input()
+    for r, res in enumerate(ranks):
+        got = res["int8"][key]
+        cols = slice(None) if key == "data" else \
+            slice((r % 2) * 3, (r % 2 + 1) * 3)
+        want = np.asarray(JC.dequantize_int8(*JC.quantize_int8(
+            jnp.asarray(x[:, cols]))))
+        np.testing.assert_array_equal(got["out"], want, err_msg=f"rank {r}")
+        np.testing.assert_array_equal(got["grad"], got["want_grad"])
+
+
+def test_int8_pod_mean_matches_vmapped_reference(ranks):
+    """On (pod=2, data=1, model=2), rank 2p + m holds pod p's gradients'
+    model block m: the reference's ``compressed_pmean_tree`` over the
+    two pods' blocks (vmapped), from a zero residual, gives the mesh
+    step's mean and new residual bit for bit."""
+    key = "gemma_2b-p2d1m2-int8pod"
+    weights = _init("gemma_2b")[2]
+
+    class Shape:
+        shape = {"pod": 2, "data": 1, "model": 2}
+
+    specs = sharding.param_specs(weights, Shape, "default")
+    pods = [ranks[0][key]["steps"][0], ranks[2][key]["steps"][0]]
+    for n, spec in specs.items():
+        dim = next((i for i, e in enumerate(spec) if e == "model"), None)
+        for m in range(2 if dim is not None else 1):
+            def block(a):
+                if dim is None:
+                    return a
+                size = a.shape[dim] // 2
+                return np.take(a, range(m * size, (m + 1) * size), axis=dim)
+
+            g = jnp.stack([jnp.asarray(block(p["pod_grads"][n]))
+                           for p in pods])
+            mean, res = jax.vmap(
+                lambda t: JC.compressed_pmean_tree({"g": t}, "pod"),
+                axis_name="pod")(g)
+            np.testing.assert_array_equal(block(pods[0]["grads"][n]),
+                                          np.asarray(mean["g"][0]),
+                                          err_msg=n)
+            for i, p in enumerate(pods):
+                got, want = block(p["after"]["residual"][n]), \
+                    np.asarray(res["g"][i])
+                # XLA on the CPU flushes subnormal results to zero; torch
+                # keeps them: bit-exact everywhere else (ROADMAP C)
+                differ = got != want
+                assert not differ.any() or (
+                    np.abs(got[differ]) < np.finfo(np.float32).tiny).all() \
+                    and (want[differ] == 0).all(), (n, got[differ][:4])
+    plain = ranks[0]["gemma_2b-p2d1m2-plain"]["steps"][0]["metrics"]
+    np.testing.assert_allclose(pods[0]["metrics"]["loss"], plain["loss"],
+                               **P.TOL)
+
+
+def test_moe_on_a_mesh_raises(ranks):
+    assert all("A13c" in res["moe"] for res in ranks)
+    assert "dense decoders" in ranks[0]["moe"]
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("qwen2_moe", {}), ("jamba_v01", {}), ("xlstm_1b3", {}),
+    ("whisper_medium", {}), ("phi3_vision", {}),
+    ("gemma_2b", {"qk_norm": True}),
+    ("gemma_2b", {}), ("gemma2_9b", {}), ("codeqwen15_7b", {}),
+    ("starcoder2_15b", {}), ("gpt3_175b", {}),
+])
+def test_only_dense_decoders_train_on_a_mesh(arch, over):
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke(arch).replace(**over)
+    if arch in ("gemma_2b", "gemma2_9b", "codeqwen15_7b", "starcoder2_15b",
+                "gpt3_175b") and not over:
+        transformer.check_train_mesh(cfg)
+        return
+    with pytest.raises(NotImplementedError, match="A13c"):
+        transformer.check_train_mesh(cfg)
