@@ -230,14 +230,16 @@ Phases, any failure exits non-zero before the last line is printed:
    step of the vocab head and of the expert stacks (GeMM marks).
 7. recurrent — jamba-v0.1-52b cut to 8 of its 32 layers (one period of
    its pattern: Mamba, attention and 16-expert MoE; the cut pays for the
-   mesh-training phases) and xlstm-1.3b (48 layers: mLSTM and sLSTM) at
-   full width from seed 0 through the serve CLI's static engine (batch 4,
+   mesh-training phases) and xlstm-1.3b cut to 16 of its 48 layers (two
+   periods of 7 mLSTM and an sLSTM; the cut pays for the mesh-serving
+   phases) at full width from seed 0 through the serve CLI's static
+   engine (batch 4,
    16-token prompts, 16 new tokens; the paged engine refuses recurrent
    models, as the reference's does): jamba and xlstm with msgemm weights,
    xlstm cut to 8 layers (one period) with int4 weights.  Each run:
    exactly its weight launches a step (jamba at 32 layers: 149 msGeMM
-   and 48 int4; at 8: 38 and 12), 145 msGeMM (xlstm) or 25 int4 (xlstm
-   int4 at 8 layers),
+   and 48 int4; at 8: 38 and 12), 145 msGeMM (xlstm at 48 layers; 49
+   at 16) or 25 int4 (xlstm int4 at 8 layers),
    times the 16 steps; weights GiB, build s, peak GiB, then static
    generate again on the CLI's prompts, timed (prefill ms, decode ms a
    step, tokens/s; the CLI's tokens); the teacher-forced check (static
@@ -294,22 +296,45 @@ Phases, any failure exits non-zero before the last line is printed:
    ``python -m repro_torch.launch.train --arch gemma_2b --smoke --steps
    12`` on its default device, the card.  The directory is removed
    after.  ``--only train`` runs the build and this phase alone.
-10. mesh    — tensor-parallel serving (``dispatch.shard``) and the
-   calibration of expert stacks.  ``[mesh-kernels ...]``: gemma-2b's 7
-   GeMMs at b = 4, msgemm and int4 weights, under the model=2 and
-   model=4 specs ``shard_spec_for`` derives (d=3 / scale_block=36, the
-   served spec: wq, wk, wv, gate, up column-parallel, wo and down whole;
-   wo and down row-parallel at d=2 / scale_block=32, also at
-   ``pipeline_chunks = 2``): every rank's local kernel call against its
+10. mesh    — tensor-parallel serving (``dispatch.shard``, the
+   training layout: column-parallel outputs kept sharded into their
+   row-parallel consumer) and the calibration of expert stacks.
+   ``[mesh-kernels ...]``: gemma-2b's 7 GeMMs at b = 4, msgemm and int4
+   weights, under the model=2 and model=4 specs ``shard_spec_for``
+   derives (d=3 / scale_block=36, the served spec: wq, wk, wv, gate, up
+   column-parallel, wo and down whole; wo and down row-parallel at d=2 /
+   scale_block=32, also at ``pipeline_chunks = 2``), and the Mamba and
+   mLSTM projections at their model=2 shard shapes (jamba's in_proj,
+   x_proj, out_proj, xlstm's xl_up, xl_o, xl_down; the row-parallel ones
+   at d=2 / scale_block=32): every rank's local kernel call against its
    plain version, the combined output within 1e-5 of max |y| of the
    unsharded kernel's, device ms of a local call beside the unsharded
-   one.  ``[mesh ...]``: two ranks on ``cuda:0``
+   one; qwen2-moe's up and down expert stacks at E/2 = 30 (a rank's
+   experts at model=2) through the int4 kernel against its plain
+   version.  ``[mesh ...]``: two ranks on ``cuda:0``
    (``launch.mesh.run_ranks``, gloo, host-staged collectives) each
    holding its shards of full-width gemma-2b msgemm, serving the main
    phase's stream eagerly on a model=2 mesh: tokens == the main phase's
    (a differing step must be a single-device near-tie, top two within
    1e-4 relative; counted), 126 msGeMM launches a step on each rank, the
    collectives a step by kind, each rank's step ms and peak GiB.
+   ``[mesh-moe ...]``: full-width qwen2-moe at 2 layers through the
+   paged engine on two ranks sharing ``cuda:0`` (expert-parallel: 30
+   experts a rank, one int4 launch a projection a rank): tokens == the
+   single-device engine's on the same weights but at a near-tie (as
+   ``[mesh ...]``), every rank's ``dropped_frac`` equal to the single
+   device's.
+   ``[mesh-static ...]``: the static engine on a model=2 mesh, two
+   ranks sharing ``cuda:0``: full-width gemma-2b (its decode cache split
+   over the sequence), jamba (8 layers: one period of its pattern, each
+   block kind), xlstm (8: its mLSTM and sLSTM), whisper (16 frames) and
+   phi-3-vision at 2
+   layers, and gemma-2b with two kv heads (no split: the split's
+   control), msgemm weights, f32 activations, against the single-device
+   static ``generate``: every step's logits within 1e-3 (the static
+   path's gate) and within 1e-5 of the largest |logit|, tokens equal
+   but at a near-tie, each rank's weight launches the single device's;
+   the split softmax alone against one device's within 1e-5 of |v|.
    ``[mesh-nccl ...]``: the same engine with its two ranks on ``cuda:0``
    and ``cuda:1``, joined by NCCL, when two cards are visible (skipped
    on one card, as the script runs with no arguments).
@@ -317,27 +342,28 @@ Phases, any failure exits non-zero before the last line is printed:
    (learned aggregate error <= uniform, a (60, 16) table an expert
    stack), served (its learned expert stacks on ``int4_torch``), the
    experts' device ms a step.  ``[train-mesh ...]``: training on a mesh
-   (FSDP x TP): full-width gemma-2b cut to 2 layers (f32, remat, AdamW,
+   (FSDP x TP): full-width gemma-2b cut to 1 layer (f32, remat, AdamW,
    the train phase's 8 x 128 lcg tokens) from four ranks sharing
-   ``cuda:0`` over host-staged gloo on (data=2, model=2), 3 steps, a
-   checkpoint of whole leaves, 2 more: each step's loss and grad_norm
+   ``cuda:0`` over host-staged gloo on (data=2, model=2), 1 step, a
+   checkpoint of whole leaves, 1 more: each step's loss and grad_norm
    within 1e-4 of the same steps on the card alone, every rank's the
    same, no hand-written kernel launched; one forward and backward with
    the int8 FSDP gather (loss within 1e-3 of the f32 gather's), one step
    with ``int8_pod`` on (pod=2, data=1, model=2) (its loss the f32
    step's, its grad_norm within 1e-3 of the card alone's, its residual
    nonzero); the checkpoint restored onto one device here, whose
-   next 2 steps equal the mesh's within 1e-4; each rank's step ms,
+   next step equals the mesh's within 1e-4; each rank's step ms,
    tokens/s and peak GiB, the collectives a step by kind, bytes and
    seconds.  ``[train-mesh-nccl ...]``: the same mesh at full depth
    (18 layers), one rank a card over NCCL, 3 steps, held to the card
    alone within 1e-4, where four cards are visible.  ``[dryrun ...]``
    (in a whole run after the train phase, with no other phase running):
    ``python -m repro_torch.launch.dryrun --arch gemma_2b --shape
-   train_4k`` on the 256- and the 512-device production mesh, the two
-   cells side by side on the host (fake process group, fake tensors):
-   each ``ok``, arguments and peak GiB a device, the collectives by
-   kind.  ``--only mesh`` runs the build and
+   train_4k`` on the 256- and the 512-device production mesh, and
+   ``--shape prefill_32k`` and ``decode_32k`` (msgemm weights, the serve
+   rules) on the 256-device one, the four cells side by side on the host
+   (fake process group, fake tensors): each ``ok``, arguments and peak
+   GiB a device, the collectives by kind.  ``--only mesh`` runs the build and
    this phase alone (with the main phase's reference run first), then
    the dry run.
 11. report — the seconds of every phase (each phase also prints a
@@ -3964,12 +3990,14 @@ def phase_recurrent():
     """The recurrent blocks at full width from seed 0 through the serve
     CLI's static engine: jamba-v0.1 cut to ``CUT_LAYERS`` layers (one
     period of its pattern: Mamba, attention, 16-expert MoE) and
-    xlstm-1.3b at full depth (48 layers: mLSTM, sLSTM) with msgemm
-    weights, xlstm-1.3b cut to ``CUT_LAYERS`` layers (one period: 7
-    mLSTM, 1 sLSTM) with int4 weights (:func:`serve_recurrent`)."""
+    xlstm-1.3b cut to ``2 * CUT_LAYERS`` of its 48 layers (two periods
+    of 7 mLSTM and an sLSTM; the cut pays for the mesh-serving phases)
+    with msgemm weights, xlstm-1.3b cut to ``CUT_LAYERS`` layers (one
+    period) with int4 weights (:func:`serve_recurrent`)."""
     return {"jamba": serve_recurrent("rec jamba", "jamba_v01", "msgemm",
                                      ["--num-layers", str(CUT_LAYERS)]),
-            "xlstm": serve_recurrent("rec xlstm", "xlstm_1b3", "msgemm"),
+            "xlstm": serve_recurrent("rec xlstm", "xlstm_1b3", "msgemm",
+                                     ["--num-layers", str(2 * CUT_LAYERS)]),
             "xlstm-int4": serve_recurrent("rec xlstm int4", "xlstm_1b3",
                                           "int4_dequant",
                                           ["--num-layers", str(CUT_LAYERS)])}
@@ -4793,10 +4821,38 @@ def phase_mesh_kernels():
                           f"[mesh-kernels] {mode} {name} model={n} is not "
                           f"row-parallel at {MESH_ROW_SPEC}")
                     cases.append(c)
-    print(f"[mesh-kernels] {len(cases)} sharded cases held; whole at d=3 / "
-          f"scale_block=36 (no aligned split): {', '.join(whole)}",
-          flush=True)
-    return dict(cases=cases, whole=whole)
+    # the recurrent blocks' msGeMM projections at their shard shapes
+    # (model=2): jamba's Mamba (d_inner 8192) and xlstm's mLSTM (xl_inner
+    # 4096), the served d=3 spec, the row-parallel ones also at
+    # MESH_ROW_SPEC (at d=3 their local contraction splits no scale block)
+    for name, m, k in (("in_proj", 16384, 4096), ("x_proj", 288, 8192),
+                       ("out_proj", 4096, 8192), ("xl_up", 8192, 2048),
+                       ("xl_o", 4096, 2048), ("xl_down", 2048, 4096)):
+        c = mesh_gemm_case("msgemm", name, m, k, 2, d=3, sb=36)
+        if c is None:
+            whole.append(f"msgemm {name} model=2")
+            c = mesh_gemm_case("msgemm", name, m, k, 2,
+                               d=MESH_ROW_SPEC["d"],
+                               sb=MESH_ROW_SPEC["scale_block"])
+            check(c is not None and "k=model" in c["spec"],
+                  f"[mesh-kernels] msgemm {name} is not row-parallel at "
+                  f"{MESH_ROW_SPEC}")
+        cases.append(c)
+    print(f"[mesh-kernels] {len(cases)} sharded cases held; whole (no "
+          f"aligned split): {', '.join(whole)}", flush=True)
+    # the expert stack a rank holds where 'model' splits the experts:
+    # qwen2-moe's up and down at E/2 = 30
+    experts = [expert_case(f"qwen2-moe-{name}-E30", 30, m, k, 16, "none",
+                           seed=700 + i)
+               for i, (name, m, k) in enumerate((("up", 1408, 2048),
+                                                 ("down", 2048, 1408)))]
+    for r in experts:
+        print(f"[mesh-kernels experts] {r['name']} E={r['experts']} "
+              f"m={r['m']} k={r['k']} b={r['b']}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms, "
+              f"kernel vs plain {r['max_abs_err']:.3g} (exact inputs "
+              f"{r['exact_max_abs_err']:.3g})", flush=True)
+    return dict(cases=cases, whole=whole, experts=experts)
 
 
 def mesh_reference():
@@ -5074,11 +5130,398 @@ def phase_calib_moe():
     return dict(calib=line, serve=run, profile=prof)
 
 
+# -------------------------------------------- every family served on a mesh
+# qwen2-moe at full width, 2 layers: the paged engine on two ranks sharing
+# cuda:0 (60 experts at model=2: expert-parallel, 30 a rank)
+MESH_MOE_LAYERS = 2
+# (arch, depth) of the static engine on a mesh, full width: 2 layers, or
+# the one period of a block pattern that holds each block kind (jamba's 8:
+# Mamba, Mamba + MoE, attention; xlstm's 8: 7 mLSTM and an sLSTM; a
+# depth must be a whole number of periods); whisper's encoder at 2 too
+MESH_STATIC = (("gemma_2b", 2), ("jamba_v01", 8), ("xlstm_1b3", 8),
+               ("whisper_medium", 2), ("phi3_vision", 2))
+# gemma-2b with two kv heads: they take 'model', so the decode cache splits
+# its heads, not its sequence: the same step without the split softmax
+MESH_STATIC_KV2 = "gemma_2b kv2"
+# a family's logits on the mesh within this share of the single device's
+# largest |logit| too (readings on an NVIDIA H100 80GB HBM3 at 700 W:
+# 1.35e-7 to 7.54e-7, one or two f32 ulps; gemma-2b's logits reach 3,610,
+# so its F32_STATE_TOL binds, the others' this)
+MESH_STATIC_REL_TOL = 1e-5
+# the split softmax (layers._sdpa_split) against layers._sdpa on the same
+# inputs, at gemma-2b's decode shapes with logits in the hundreds: within
+# this share of the largest |v| (an attention output is a convex
+# combination of v's rows)
+SPLIT_SOFTMAX_TOL = 1e-5
+MESH_STATIC_BATCH, MESH_STATIC_PROMPT, MESH_STATIC_NEW = 4, 16, 8
+MESH_STATIC_FRAMES = 16  # whisper's stub frames, the serve CLI's
+
+
+def moe_mesh_cfg(layers=MESH_MOE_LAYERS):
+    from repro_torch.configs.qwen2_moe import CONFIG
+    from repro_torch.core.spec import QuantSpec
+
+    spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
+    return CONFIG.replace(num_layers=layers), spec
+
+
+def mesh_moe_rank(rank, device, seed):
+    """One rank of the two-rank MoE engine: full-width qwen2-moe at
+    ``MESH_MOE_LAYERS`` layers with msgemm weights from ``seed`` on
+    ``device``, sharded over a model=2 mesh (expert-parallel), serving
+    the main phase's stream eagerly; launches, collectives and the
+    routed-slot counters over the run alone."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg0, spec = moe_mesh_cfg()
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg0, generator=generator(seed, device),
+                                    device=device, quant=spec)
+    cfg = cfg0.replace(quant=spec)
+    mesh = make_mesh((2,), ("model",))
+    engine = make_engine(model, cfg, mesh=mesh, cuda_graph=False)
+    # the engine's copy holds this rank's experts and shares the
+    # routed-slot counters
+    counted = engine.params
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    for mod in KERNELS.values():
+        mod.launches = 0
+    M.reset_route_counts(counted)
+    coll.reset_counts()
+    steps0 = engine.runner.steps_run
+    t0 = time.perf_counter()
+    results = engine.run(request_stream(cfg))
+    torch.cuda.synchronize(device)
+    run_s = time.perf_counter() - t0
+    steps = engine.runner.steps_run - steps0
+    return dict(rank=rank, build_s=build_s, run_s=run_s, steps=steps,
+                step_ms=run_s * 1e3 / max(steps, 1),
+                launches={n: mod.launches for n, mod in KERNELS.items()},
+                collectives=dict(coll.counts),
+                dropped_frac=M.dropped_frac(counted),
+                experts_a_rank=engine.params.blocks[0].moe.experts.up
+                .scales.shape[0],
+                tokens={rid: s.generated for rid, s in results.items()},
+                status={rid: s.status for rid, s in results.items()})
+
+
+def phase_mesh_moe(card, devices=("cuda:0", "cuda:0"), tag="mesh-moe"):
+    """qwen2-moe served by the paged engine on two ranks on ``devices``
+    (sharing cuda:0: gloo, host-staged; on two cards: NCCL): each rank
+    holds 30 of the 60 experts and runs them in one int4 launch
+    a projection (its dense linears msGeMM, as on one device); tokens ==
+    the single-device engine's on the same weights (graph route), a
+    differing step a single-device near-tie (top two within
+    ``MESH_NEAR_TIE`` relative); every rank's ``dropped_frac`` equal to
+    the single device's."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer
+
+    cfg0, spec = moe_mesh_cfg()
+    model = transformer.init_params(cfg0, generator=generator(0, "cuda"),
+                                    device="cuda", quant=spec)
+    cfg = cfg0.replace(quant=spec)
+    ref = serve(f"{tag}-ref", model, cfg, keep_logits=True)
+    gaps = top2_gaps(ref.pop("logits"))
+    ref.pop("reqs")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_moe_rank, 2, 0, devices=list(devices),
+                      timeout=600)
+    wall_s = time.perf_counter() - t0
+    lead = ranks[0]
+    ms, i4 = moe_launches(cfg)
+    ties = []
+    for rid, want in sorted(ref["tokens"].items()):
+        got = lead["tokens"][rid]
+        check(lead["status"][rid] == "ok" and len(got) == NEW_TOKENS,
+              f"[{tag}] request {rid}: status {lead['status'][rid]}")
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+        if first is not None:
+            gap = gaps[rid][first]
+            check(gap <= MESH_NEAR_TIE,
+                  f"[{tag}] request {rid} step {first}: token "
+                  f"{got[first]} != {want[first]}, single-device top two "
+                  f"{gap:.2e} apart (more than {MESH_NEAR_TIE})")
+            ties.append((rid, first, gap))
+    for r in ranks:
+        check(r["tokens"] == lead["tokens"],
+              f"[{tag}] rank {r['rank']} returned other tokens")
+        check(r["dropped_frac"] == ref["dropped_frac"],
+              f"[{tag}] rank {r['rank']} dropped_frac {r['dropped_frac']} "
+              f"!= the single device's {ref['dropped_frac']}")
+        check(r["experts_a_rank"] == cfg.num_experts // 2,
+              f"[{tag}] rank {r['rank']} holds {r['experts_a_rank']} "
+              "experts")
+        want = dict(msgemm=ms * r["steps"], int4_matmul=i4 * r["steps"],
+                    paged_attention=0, flash_attention=0)
+        check(r["launches"] == want,
+              f"[{tag}] rank {r['rank']} launches {r['launches']} != "
+              f"{want} over {r['steps']} steps")
+    per_step = {k: v / lead["steps"] for k, v in lead["collectives"].items()}
+    where = "one card" if len(set(devices)) == 1 else "two cards"
+    print(f"[{tag}] qwen2-moe {cfg.num_layers} layers, 2 ranks on {where} "
+          f"({card}): {cfg.num_experts // 2} experts a rank, one int4 "
+          f"launch a projection ({i4} a step), {ms} msGeMM a step; "
+          f"{lead['steps']} steps at {lead['step_ms']:.2f} ms (single "
+          f"device graph route {ref['step_ms']:.2f}); collectives a step "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(per_step.items()))
+          + f"; dropped_frac {lead['dropped_frac']:.6f} (== single device "
+          f"{ref['dropped_frac']:.6f}); tokens == the single device's on "
+          f"{6 - len(ties)}/6 requests, near-tie steps {ties}; phase wall "
+          f"{wall_s:.1f}s", flush=True)
+    return dict(ranks=ranks, ref=ref, near_tie_steps=ties, wall_s=wall_s,
+                collectives_a_step=per_step)
+
+
+def mesh_static_cfg(arch, layers, kv_heads=None):
+    """(full-width config at ``layers`` layers, f32 activations, msgemm
+    weights; the spec) of a ``MESH_STATIC`` entry, with ``kv_heads`` kv
+    heads where given."""
+    from repro_torch import configs
+    from repro_torch.core.spec import QuantSpec
+
+    cfg = configs.get_config(arch).replace(num_layers=layers,
+                                           dtype="float32")
+    if kv_heads is not None:
+        cfg = cfg.replace(num_kv_heads=kv_heads)
+    if cfg.is_encdec:
+        cfg = cfg.replace(encoder_layers=layers)
+    return cfg, QuantSpec(mode="msgemm", d=3, scale_block=36)
+
+
+def mesh_static_batch(cfg, device, seed=1):
+    import torch
+
+    from repro_torch.device import generator
+
+    g = generator(seed, device)
+    B = MESH_STATIC_BATCH
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (B, MESH_STATIC_PROMPT), generator=g,
+                                     device=device, dtype=torch.int32)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((B, MESH_STATIC_FRAMES, cfg.d_model),
+                                      generator=g, device=device)
+    elif cfg.frontend == "image_patches":
+        batch["patch_embeds"] = torch.randn((B, cfg.num_patches,
+                                             cfg.d_model), generator=g,
+                                            device=device)
+    return batch
+
+
+def mesh_static_rank(rank, device, seed):
+    """One rank of the static engine on a model=2 mesh, for every
+    ``MESH_STATIC`` model: the whole model from ``seed``, static
+    ``generate`` on one device (rank 0 alone: its tokens and step
+    logits), then this rank's ``shard_params`` copy through ``generate``
+    on the mesh (launches and collectives over it alone)."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.runtime import serve as SV
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((2,), ("model",))
+    out = {"split_softmax": split_softmax_case(mesh, device)}
+    cases = [(arch, arch, layers, None) for arch, layers in MESH_STATIC]
+    cases.append((MESH_STATIC_KV2, "gemma_2b", 2, 2))
+    for name, arch, layers, kv_heads in cases:
+        cfg0, spec = mesh_static_cfg(arch, layers, kv_heads)
+        t0 = time.perf_counter()
+        model = transformer.init_params(
+            cfg0, generator=generator(seed, device), device=device,
+            quant=spec)
+        cfg = cfg0.replace(quant=spec)
+        batch = mesh_static_batch(cfg, device)
+        r = dict(arch=arch, layers=layers)
+        if rank == 0:
+            one = []
+            for mod in KERNELS.values():
+                mod.launches = 0
+            r["single"] = SV.generate(model, cfg, batch,
+                                      max_new_tokens=MESH_STATIC_NEW,
+                                      step_logits=one).tolist()
+            r["single_launches"] = {n: m.launches
+                                    for n, m in KERNELS.items()}
+        local = SV.shard_params(model, cfg, mesh)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["build_s"] = time.perf_counter() - t0
+        for mod in KERNELS.values():
+            mod.launches = 0
+        coll.reset_counts()
+        many = []
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        r["mesh"] = SV.generate(local, cfg, batch,
+                                max_new_tokens=MESH_STATIC_NEW, mesh=mesh,
+                                step_logits=many).tolist()
+        torch.cuda.synchronize(device)
+        r["run_s"] = time.perf_counter() - t0
+        r["launches"] = {n: m.launches for n, m in KERNELS.items()}
+        r["collectives"] = dict(coll.counts)
+        if rank == 0:
+            # step 0 is the prefill's logits, the others decode steps'
+            diffs = [float((a - b).abs().max()) for a, b in zip(many, one)]
+            top = torch.stack(one, dim=1).float().topk(2, dim=-1).values
+            r["diffs"] = diffs
+            r["max_abs_diff"] = max(diffs)
+            r["scale"] = max(float(t.abs().max()) for t in one)
+            r["top2_gap"] = (top[..., 0] - top[..., 1]).tolist()
+            r["finite"] = bool(all(t.isfinite().all() for t in many))
+        del local, many
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = r
+    return out
+
+
+def split_softmax_case(mesh, device, seed=5):
+    """``layers._sdpa_split`` on this rank's half of the key positions
+    against ``layers._sdpa`` on all of them, the same inputs on both
+    ranks: gemma-2b's decode shapes (4 rows, 8 query heads over its one
+    kv head of 256, the mesh-static cache's 24 positions), q scaled so the
+    logits reach the hundreds, each row's last position drawn (a rank's
+    block fully masked in some rows).  Returns the largest difference and
+    the largest |v|."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.distributed import sharding
+    from repro_torch.models import layers as L
+
+    cfg, _ = mesh_static_cfg("gemma_2b", 2)
+    g = generator(seed, device)
+    B, H, dh = MESH_STATIC_BATCH, cfg.num_heads, cfg.head_dim
+    S = MESH_STATIC_PROMPT + MESH_STATIC_NEW
+    q = 100 * torch.randn((B, 1, H, dh), generator=g, device=device)
+    k = torch.randn((B, S, 1, dh), generator=g, device=device)
+    v = torch.randn((B, S, 1, dh), generator=g, device=device)
+    pos = torch.randint(0, S, (B,), generator=g, device=device)
+    r, n = sharding.coord(mesh, sharding.TP_AXIS), S // 2
+    whole = L.view_mask(S, pos[:, None])[:, None, None, 0]
+    mine = L.view_mask(n, pos[:, None] - r * n)[:, None, None, 0]
+    with sharding.use(mesh, "serve"):
+        got = L._sdpa_split(cfg, q, k[:, r * n:(r + 1) * n],
+                            v[:, r * n:(r + 1) * n], mine,
+                            sharding.TP_AXIS)
+    want = L._sdpa(cfg, q, k, v, whole)
+    top = (q.reshape(B, H, dh) @ k[:, :, 0].transpose(1, 2)).abs().max()
+    return dict(max_abs_err=float((got - want).abs().max()),
+                v_max=float(v.abs().max()),
+                logit_max=float(top) * dh**-0.5)
+
+
+def phase_mesh_static(card, devices=("cuda:0", "cuda:0"),
+                      tag="mesh-static"):
+    """The static engine on a mesh (``runtime.serve.generate(mesh=)``),
+    two ranks sharing cuda:0: full-width gemma-2b (one kv head: the
+    decode cache splits its sequence), jamba (each block kind once), xlstm
+    (7 mLSTM and the sLSTM), whisper (16 frames) and phi-3-vision, at 2
+    layers or the depth named in ``MESH_STATIC``, msgemm weights, f32
+    activations, batch 4 x 16, and gemma-2b with two kv heads (its cache
+    split by heads: the same step without the split softmax).  Held
+    against the single-device static ``generate`` on the same weights with
+    the static path's gate (§2 of PERF.md): every step's logits within
+    ``F32_STATE_TOL`` and within ``MESH_STATIC_REL_TOL`` of the largest
+    |logit|, finite; its tokens equal, a differing token only where the
+    single-device top two are within ``2 * F32_STATE_TOL``; each rank
+    launches the weight kernels the single device does.  The split
+    softmax alone is held against one device's within
+    ``SPLIT_SOFTMAX_TOL`` (:func:`split_softmax_case`)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_static_rank, 2, 0, devices=list(devices),
+                      timeout=900)
+    wall_s = time.perf_counter() - t0
+    lead = ranks[0]
+    sm = [r["split_softmax"] for r in ranks]
+    for r, s in enumerate(sm):
+        check(s["max_abs_err"] <= SPLIT_SOFTMAX_TOL * s["v_max"],
+              f"[{tag}] rank {r}: the split softmax {s['max_abs_err']:.3g} "
+              f"from one device's (more than {SPLIT_SOFTMAX_TOL} of "
+              f"|v| {s['v_max']:.3g})")
+    print(f"[{tag}] split softmax (2 ranks' halves of 24 positions) vs "
+          f"one device's, logits up to {sm[0]['logit_max']:.1f}: "
+          f"{max(s['max_abs_err'] for s in sm):.3g} (at most "
+          f"{SPLIT_SOFTMAX_TOL} of |v| {sm[0]['v_max']:.3g})", flush=True)
+    for arch in [a for a, _ in MESH_STATIC] + [MESH_STATIC_KV2]:
+        r = lead[arch]
+        check(r["finite"], f"[{tag} {arch}] non-finite logits")
+        limit = min(F32_STATE_TOL, MESH_STATIC_REL_TOL * r["scale"])
+        check(r["max_abs_diff"] <= limit,
+              f"[{tag} {arch}] logits {r['max_abs_diff']:.3g} from "
+              f"the single device's (more than {limit:.3g}: "
+              f"{F32_STATE_TOL}, or {MESH_STATIC_REL_TOL} of the largest "
+              f"|logit| {r['scale']:.4g})")
+        for row, (got, want) in enumerate(zip(r["mesh"], r["single"])):
+            first = next((i for i, (a, b) in enumerate(zip(got, want))
+                          if a != b), None)
+            check(first is None or r["top2_gap"][row][first]
+                  <= 2 * F32_STATE_TOL,
+                  f"[{tag} {arch}] row {row} step {first}: token "
+                  f"{got[first] if first is not None else None} != "
+                  f"{want[first] if first is not None else None}, not a "
+                  "near-tie")
+        for other in ranks:
+            check(other[arch]["mesh"] == r["mesh"],
+                  f"[{tag} {arch}] ranks returned other tokens")
+            check(other[arch]["launches"] == r["single_launches"],
+                  f"[{tag} {arch}] rank launches "
+                  f"{other[arch]['launches']} != one device's "
+                  f"{r['single_launches']}")
+        same = sum(a == b for a, b in zip(r["mesh"], r["single"]))
+        steps = MESH_STATIC_NEW
+        print(f"[{tag} {arch}] {r['layers']} layers, 2 ranks on "
+              f"{'one card' if len(set(devices)) == 1 else 'two cards'} "
+              f"({card}): tokens == one device's on {same}/"
+              f"{len(r['mesh'])} rows, logits within "
+              f"{r['max_abs_diff']:.3g} (at most {limit:.3g}; "
+              f"prefill step {r['diffs'][0]:.3g}, decode steps "
+              f"{max(r['diffs'][1:]):.3g}; largest |logit| "
+              f"{r['scale']:.4g}, diff/|logit| "
+              f"{r['max_abs_diff'] / r['scale']:.3g}); "
+              f"generate {r['run_s'] * 1e3 / steps:.2f} ms a token step "
+              f"({r['run_s']:.2f}s for {steps} tokens, build "
+              f"{r['build_s']:.1f}s); launches {r['launches']}; "
+              "collectives "
+              + ", ".join(f"{k} {v}" for k, v in
+                          sorted(r["collectives"].items())), flush=True)
+    print(f"[{tag}] 5 families and {MESH_STATIC_KV2} held; phase wall "
+          f"{wall_s:.1f}s", flush=True)
+    return dict(ranks=ranks, wall_s=wall_s)
+
+
 def phase_mesh(card, ref=None):
     """The mesh phases: the in-process kernel check, the two-rank engine
     against ``ref`` (the main phase's run with its top-two gaps; built
-    here when None), the same engine on two cards joined by NCCL where
-    two are visible, the calibration of expert stacks."""
+    here when None), the two-rank MoE engine and static engine, each on
+    two cards joined by NCCL too where two are visible, the calibration
+    of expert stacks, training on a mesh."""
     import torch
 
     out = {"kernels": phase("mesh-kernels", phase_mesh_kernels)}
@@ -5091,6 +5534,14 @@ def phase_mesh(card, ref=None):
     else:
         print("[mesh-nccl] skipped: one card (two ranks on two cards, "
               "joined by NCCL, run where two are visible)", flush=True)
+    out["moe"] = phase("mesh-moe", phase_mesh_moe, card)
+    out["static"] = phase("mesh-static", phase_mesh_static, card)
+    if torch.cuda.device_count() >= 2:
+        two = ("cuda:0", "cuda:1")
+        out["moe_nccl"] = phase("mesh-moe-nccl", phase_mesh_moe, card, two,
+                                "mesh-moe-nccl")
+        out["static_nccl"] = phase("mesh-static-nccl", phase_mesh_static,
+                                   card, two, "mesh-static-nccl")
     out["calib_moe"] = phase("calib-moe", phase_calib_moe)
     out["train_mesh"] = phase("train-mesh", phase_train_mesh, card)
     if torch.cuda.device_count() >= 4:
@@ -5104,11 +5555,11 @@ def phase_mesh(card, ref=None):
 
 
 # ------------------------------------------------------- training on a mesh
-# full-width gemma-2b cut to 2 layers (the card/CPU step's and the
-# driver's depth), the train phase's batch (8 x 128 lcg tokens, seed 0),
-# f32 activations, AdamW, remat; 3 steps on (data=2, model=2), a
-# checkpoint, 2 more
-TRAIN_MESH = dict(layers=2, steps=3, more=2)
+# full-width gemma-2b cut to 1 layer (the cut pays for the mesh-serving
+# phases), the train phase's batch (8 x 128 lcg tokens, seed 0), f32
+# activations, AdamW, remat; 1 step on (data=2, model=2), a checkpoint,
+# 1 more
+TRAIN_MESH = dict(layers=1, steps=1, more=1)
 TRAIN_MESH_TOL = 1e-4  # relative: loss and grad_norm, mesh vs one card
 # relative limits of the int8 paths against f32, each between its sound
 # reading on the card (1.9e-5 and 6.4e-5) and a broken path's: a gather
@@ -5234,12 +5685,13 @@ def phase_train_mesh(card):
     """Training on a mesh (FSDP x TP: ``init_state(..., mesh=)``,
     ``constrain_params``, the tensor-parallel blocks, ``int8_all_gather``,
     ``optim.compression``, the checkpoint of whole leaves): full-width
-    gemma-2b at 2 layers, four ranks sharing ``cuda:0`` over host-staged
-    gloo (``train_mesh_rank``), held to the same run on the card alone:
-    each step's loss and grad_norm within ``TRAIN_MESH_TOL``; the int8
-    FSDP gather's loss within ``INT8_GATHER_TOL`` of the f32 gather's;
-    the mesh's step-3 checkpoint restored onto one device (1x1) here,
-    whose next 2 steps equal the mesh's within ``TRAIN_MESH_TOL``; the
+    gemma-2b at ``TRAIN_MESH``'s depth, four ranks sharing ``cuda:0``
+    over host-staged gloo (``train_mesh_rank``), held to the same run on
+    the card alone: each step's loss and grad_norm within
+    ``TRAIN_MESH_TOL``; the int8 FSDP gather's loss within
+    ``INT8_GATHER_TOL`` of the f32 gather's; the mesh's checkpoint after
+    its first steps restored onto one device (1x1) here, whose next steps
+    equal the mesh's within ``TRAIN_MESH_TOL``; the
     int8_pod step's loss the f32 step's (the loss precedes the gradient
     mean), its grad_norm within ``INT8_POD_TOL`` of the card alone's
     and its residual nonzero.  Per rank: step ms, tokens/s, peak GiB; the
@@ -5302,7 +5754,7 @@ def phase_train_mesh(card):
           f"grad_norm {pod['grad_norm']} vs {one[1][0]} (rel "
           f"{pod_gn_rel:.2e}, tol {INT8_POD_TOL}), residual max "
           f"{pod['residual_max']}")
-    # the mesh's step-3 checkpoint onto one device, 2 more steps
+    # the mesh's checkpoint onto one device, the steps after it
     t0 = time.perf_counter()
     state = RT.init_state(cfg, tcfg, generator=generator(1, "cuda"),
                           device="cuda")
@@ -5452,53 +5904,64 @@ def phase_train_mesh_nccl(card):
 DRYRUN_DIR = ROOT / "chiprun_out" / "dryrun"
 
 
+# the dry run's cells: (shape, mesh, quant) of gemma-2b, each a process
+DRYRUN_CELLS = (("train_4k", "single", "bf16"), ("train_4k", "multi", "bf16"),
+                ("prefill_32k", "single", "msgemm"),
+                ("decode_32k", "single", "msgemm"))
+
+
 def start_dryrun():
-    """Start the dry run's two cells, each a process of its own on the host
-    alone (no card: a fake process group and fake tensors): ``python -m
-    repro_torch.launch.dryrun --arch gemma_2b --shape train_4k`` on the
-    single (16 x 16) and the multi-pod (2 x 16 x 16) production mesh.
-    Returns ({mesh: process}, the start time)."""
+    """Start the dry run's cells (``DRYRUN_CELLS``), each a process of its
+    own on the host alone (no card: a fake process group and fake
+    tensors): ``python -m repro_torch.launch.dryrun --arch gemma_2b
+    --shape S --mesh M``, the train step on the single (16 x 16) and the
+    multi-pod (2 x 16 x 16) production mesh, a prefill and a decode step
+    (msgemm weights, the serve rules) on the single-pod one.  Returns
+    ({cell: process}, the start time)."""
     import shutil
 
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
-    procs = {mesh: subprocess.Popen(
+    procs = {cell: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "gemma_2b", "--shape", "train_4k", "--mesh", mesh, "--out",
+         "gemma_2b", "--shape", cell[0], "--mesh", cell[1], "--out",
          str(DRYRUN_DIR)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for mesh in ("single", "multi")}
+        stderr=subprocess.STDOUT, text=True) for cell in DRYRUN_CELLS}
     return procs, time.perf_counter()
 
 
 def phase_dryrun():
-    """The dry run's two cells (:func:`start_dryrun`), with no other phase
+    """The dry run's cells (:func:`start_dryrun`), with no other phase
     running: each ``ok``, its GiB per device and collectives by kind; the
     seconds from their start to their collection."""
     procs, t0 = start_dryrun()
     out = {}
-    for mesh, proc in procs.items():
+    for (shape, mesh, quant), proc in procs.items():
+        name = f"{shape}/{mesh}"
         text, _ = proc.communicate(timeout=900)
         check(proc.returncode == 0,
-              f"[dryrun] {mesh}: exit {proc.returncode}\n{text[-4000:]}")
-        cell = json.loads((DRYRUN_DIR / f"gemma_2b__train_4k__{mesh}__bf16"
+              f"[dryrun] {name}: exit {proc.returncode}\n{text[-4000:]}")
+        cell = json.loads((DRYRUN_DIR / f"gemma_2b__{shape}__{mesh}__{quant}"
                            ".json").read_text())
-        check(cell["status"] == "ok", f"[dryrun] {mesh}: {cell}")
+        check(cell["status"] == "ok", f"[dryrun] {name}: {cell}")
         mem = cell["memory"]
-        print(f"[dryrun] gemma-2b train_4k on {cell['mesh']} "
+        how = (f"in {cell['microbatches']} microbatches" if shape ==
+               "train_4k" else f"msgemm d={cell['d']} weights, "
+               f"'{cell['rules']}' rules")
+        print(f"[dryrun] gemma-2b {shape} on {cell['mesh']} "
               f"({cell['devices']} ranks, one rank faked on the host): "
               f"arguments {mem['argument_bytes_per_device'] / 2**30:.3f} "
               f"GiB/device, peak {mem['peak_bytes_per_device'] / 2**30:.3f} "
               f"GiB/device (MemTracker), {cell['local_batch']} rows a rank "
-              f"in {cell['microbatches']} microbatches, step "
-              f"{cell['step_s']:.1f}s on the host; collectives "
-              + ", ".join(f"{k} {v['count']} ({v['bytes'] / 2**30:.2f} GiB)"
+              f"{how}, step {cell['step_s']:.1f}s on the host; collectives "
+              + ", ".join(f"{k} {v['count']} ({v['bytes'] / 2**30:.3f} GiB)"
                           for k, v in cell["collectives"].items()),
               flush=True)
-        out[mesh] = cell
+        out[name] = cell
     out["wall_s"] = time.perf_counter() - t0
-    print(f"[dryrun] both cells done, collected {out['wall_s']:.1f}s after "
-          "they started", flush=True)
+    print(f"[dryrun] {len(DRYRUN_CELLS)} cells done, collected "
+          f"{out['wall_s']:.1f}s after they started", flush=True)
     return out
 
 
@@ -5670,7 +6133,15 @@ def main() -> int:
     # the MoE models' runs: their int4 launches are the expert stacks'
     moe_runs = [r for key in ("qwen2-moe", "llama4") for r in (
         arch[key], arch[key]["eager"], *(arch[key]["kv8"][r] for r in (
-            "kernel", "torch")))] + [recurrent["jamba"]]
+            "kernel", "torch")))] + [recurrent["jamba"]] + [
+        r for key in ("moe", "moe_nccl") for r in mesh.get(key, {}).get(
+            "ranks", [])] + [
+        r["jamba_v01"] for key in ("static", "static_nccl")
+        for r in mesh.get(key, {}).get("ranks", [])]
+    # the static mesh runs of the families without experts
+    static_runs = [r[arch_] for key in ("static", "static_nccl")
+                   for r in mesh.get(key, {}).get("ranks", [])
+                   for arch_, _ in MESH_STATIC if arch_ != "jamba_v01"]
     # every path's engine runs, each read with the counts set to 0 before
     runs = ([main_path, main_path["eager"], int4_path, int4_path["eager"],
              kvq_path["kv8"]["kernel-eager"]]
@@ -5701,7 +6172,7 @@ def main() -> int:
             + [train["serve"]["engine"]]
             + [train["serve"]["kv8"][r] for r in ("kernel", "torch")]
             + [mesh["calib_moe"]["serve"]] + mesh["engine"]["ranks"]
-            + mesh.get("engine_nccl", {}).get("ranks", []))
+            + mesh.get("engine_nccl", {}).get("ranks", []) + static_runs)
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])
                 for name in ("msgemm", "int4_matmul", "paged_attention")}
@@ -5731,9 +6202,10 @@ def main() -> int:
          "shape": "qwen2-moe's up over its 60-expert stack at decode, one "
                   "launch: E=60, m=1408, k=2048, b=16 (4 slots x capacity "
                   "4), bf16 x and out; launches are the MoE engine runs' "
-                  "and jamba's static run's int4 launches (experts only: "
-                  "their dense linears run msGeMM); library_ms is "
-                  "torch.matmul of the dequantized f32 stack"},
+                  "and jamba's static runs' int4 launches, on one device "
+                  "and on a mesh (experts only: their dense linears run "
+                  "msGeMM); library_ms is torch.matmul of the dequantized "
+                  "f32 stack"},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:157",

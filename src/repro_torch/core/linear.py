@@ -29,11 +29,13 @@ from repro_torch.core.spec import DENSE, QuantSpec
 
 class QLinear(nn.Module):
     """One linear's weight leaves, held as buffers (the train step turns
-    gradients on for the dense float ones while it runs).  On a mesh the
-    leaves are this rank's shard, and ``out_dim`` records the linear's
-    whole output dim (``serving.engine`` places the model so); None when
-    the leaves are whole."""
+    gradients on for the dense float ones while it runs).  On a mesh
+    ``runtime.serve.shard_params`` records the layout it cut: ``axes``,
+    the logical axes the plan shards the linear by (None: every rank
+    runs it whole), and ``out_dim``, the whole output dim where the
+    leaves are this rank's shard (None when they are whole)."""
 
+    axes: tuple | None = None
     out_dim: int | None = None
 
     def __init__(self, params: dict[str, torch.Tensor]):
@@ -126,13 +128,15 @@ def from_quantized(qt: scales.QuantizedTensor, spec: QuantSpec) -> dict:
 def apply(params, x: torch.Tensor, spec: QuantSpec = DENSE, *,
           in_dim: int | None = None, tag: str | None = None, plan=None,
           epilogue=None, bias=None, residual=None,
-          shard_axes: tuple | None = None) -> torch.Tensor:
+          shard_axes: tuple | None = None, keep_local: bool = False,
+          x_axis: str | None = None) -> torch.Tensor:
     """x (..., in) -> y (..., out) through the dispatch registry.
     ``params`` is a dict of leaves or a :class:`QLinear`.  ``tag`` names
     this linear for the activation-statistics observer (calibration); it
     does not change the computation, and a remat recompute does not
     report again.  ``shard_axes``: the weight's logical axes, which make
-    it run sharded under an active mesh (``dispatch.execute``)."""
+    it run sharded under an active mesh (``dispatch.execute``, which also
+    takes ``keep_local`` and ``x_axis``)."""
     if _OBSERVER is not None and tag is not None and not _REPLAY:
         _OBSERVER.record(tag, x)
     out_dim = None
@@ -142,7 +146,8 @@ def apply(params, x: torch.Tensor, spec: QuantSpec = DENSE, *,
     return dispatch.execute(params, x, spec, in_dim=in_dim,
                             plan_override=plan, epilogue=epilogue, bias=bias,
                             residual=residual, shard_axes=shard_axes,
-                            out_dim=out_dim)
+                            out_dim=out_dim, keep_local=keep_local,
+                            x_axis=x_axis)
 
 
 def serving_config(cfg: QuantSpec, mode: str) -> QuantSpec:

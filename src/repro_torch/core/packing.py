@@ -14,8 +14,6 @@ of d with code 0, whose value is 0.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -32,12 +30,23 @@ def b_values(dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.as_tensor(v, dtype=dtype, device=device)
 
 
-@functools.lru_cache(maxsize=None)
+_DEVICE_VALUES: dict[torch.device, torch.Tensor] = {}
+
+
 def device_values(device: torch.device) -> torch.Tensor:
     """:func:`b_values` in f32 on ``device``, made once per device (read
     only): a host-to-device copy is illegal inside a CUDA graph capture,
-    so every op a captured step runs reads the table from here."""
-    return b_values(torch.float32, device)
+    so every op a captured step runs reads the table from here.  One made
+    under a fake-tensor mode (the dry run's) is not kept: a real call
+    later in the process could not read it."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    t = _DEVICE_VALUES.get(device)
+    if t is None:
+        t = b_values(torch.float32, device)
+        if not isinstance(t, FakeTensor):
+            _DEVICE_VALUES[device] = t
+    return t
 
 
 def b_hat(values: torch.Tensor) -> torch.Tensor:

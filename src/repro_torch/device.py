@@ -26,3 +26,11 @@ def generator(seed: int, device=None) -> torch.Generator:
     """A seeded ``torch.Generator`` on ``device`` (random draws on the GPU
     need a generator that lives there)."""
     return torch.Generator(device=resolve(device)).manual_seed(int(seed))
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (shape and dtype, no storage: the
+    dry run's)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)

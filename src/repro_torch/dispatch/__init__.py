@@ -74,7 +74,8 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
             plan_override: ExecPlan | None = None,
             policy: ExecPolicy | None = None,
             epilogue: Epilogue | None = None, bias=None, residual=None,
-            shard_axes: tuple | None = None, out_dim: int | None = None):
+            shard_axes: tuple | None = None, out_dim: int | None = None,
+            keep_local: bool = False, x_axis: str | None = None):
     """Run one linear ``x (..., k) -> y (..., m)`` through the registry.
 
     Execution choices: ``plan_override`` > ``policy`` > the process's
@@ -97,6 +98,12 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
     (``dispatch.shard.run_sharded``).  ``batch`` counts the step's whole
     rows when they are split over the ranks (``sharding.split_rows``);
     whole rows are not batch-sharded.
+
+    ``keep_local``: a column-parallel output comes back as this rank's
+    block of m (whole otherwise).  ``x_axis``: ``x`` holds this rank's
+    block of k over that mesh axis (a column-parallel output kept
+    local); a plan that shards k over the same axis takes it as it is,
+    any other gathers it whole first (one all-gather).
     """
     k = in_dim if in_dim is not None else _infer_k(params, spec)
     lead = params["w"] if spec.mode == "bf16" else params["scales"]
@@ -148,10 +155,20 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
             "dispatch_epilogue_total",
             help="non-identity epilogues by fused/unfused execution",
             fused="true" if fuse else "false").inc()
-    if mesh is not None and p.shard is not None and p.shard.is_sharded:
+    sharded = mesh is not None and p.shard is not None \
+        and p.shard.is_sharded
+    x_local = False
+    if x_axis is not None:
+        x_local = sharded and p.shard.k == x_axis
+        if not x_local:  # this linear reads the whole row
+            from repro_torch.distributed import collectives as coll
+
+            x = coll.all_gather(x, x_axis, dim=-1)
+    if sharded:
         return shard.run_sharded(be, spec, p, params, x, k=k, m=m,
                                  mesh=mesh, epilogue=epilogue, bias=bias,
-                                 residual=residual, fuse=fuse)
+                                 residual=residual, fuse=fuse,
+                                 keep_local=keep_local, x_local=x_local)
     mark = f"gemm.{be.name}.m{m}.k{k}.b{batch}" + (
         f".e{experts}" if experts else "")
     x = obs.mark_begin(x, mark)

@@ -29,14 +29,19 @@ shard) runs once.
   when no contraction collective separates them, applied exactly once
   after the collective when one does.
 
-Where the reference leaves a column-parallel output m-sharded for the
-compiler to gather in its consumer, the port's explicit per-rank
-program gathers it here (over the same axis, ``distributed.collectives``),
-so every linear returns its whole output to the model code.  That layout
-is temporary (ROADMAP A13c): it gathers outputs that a row-parallel
-consumer would take sharded (the heads through attention into ``wo``, up
-and gate into ``down``), and gathers a reduce-scattered output back, so
-``reduce_scatter`` moves what ``psum`` does.
+Serving runs the training layout (``layers.attn_apply_tp``,
+``common.mlp_apply_tp``): a column-parallel output stays on its axis
+into the row-parallel linear that consumes it.  The model code asks for
+it: ``keep_local`` returns a column-parallel output as this rank's block
+of its m axis, and ``x_local`` takes a row-parallel input that already
+is this rank's k slice (``dispatch.execute``'s ``x_axis``: the heads
+through attention into ``wo``, up and gate into ``down``, a Mamba's or
+an mLSTM's channels into its out projection).  The gather over an
+output's axis (``distributed.collectives``) then runs only where a
+consumer needs the whole row: a column-parallel output asked for whole
+(the tied head's logits, a head layout the ranks cannot split), and a
+reduce-scattered output, which the next norm reads whole, so
+``reduce_scatter`` still moves what ``psum`` does.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import obs
-from repro_torch.core.epilogue import apply_epilogue
+from repro_torch.core.epilogue import Epilogue, apply_epilogue, torch_dtype
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import compat
 from repro_torch.distributed import sharding as shd
@@ -314,12 +319,14 @@ class _Done:
 
 def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
                 mesh, epilogue=None, bias=None, residual=None,
-                fuse: bool = False):
+                fuse: bool = False, keep_local: bool = False,
+                x_local: bool = False):
     """Run one planned linear on this rank's shard.
 
     ``params`` are this rank's leaves (:func:`shard_linear`), ``x`` whole
     along k (its batch rows this rank's when the step's rows are split),
-    ``bias`` (m,) and ``residual`` (..., m) whole.  The backend sees
+    or with ``x_local`` (a row-parallel plan only) already this rank's k
+    slice; ``bias`` (m,) and ``residual`` (..., m) whole.  The backend sees
     local shapes — exactly the shapes ``dispatch.plan`` planned tiles
     for.  With a k-sharded (row-parallel) linear the epilogue runs once
     after the contraction collective; otherwise it fuses into the
@@ -332,8 +339,9 @@ def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
     is folded in only after that compute was issued (the group's
     all-reduce runs asynchronously meanwhile; ring hops are sequential).
 
-    The output comes back whole along m: a column-parallel (or
-    reduce-scattered) result is gathered over its axis.
+    The output comes back whole along m: a reduce-scattered result is
+    gathered over its axis, and so is a column-parallel one unless
+    ``keep_local`` asks for this rank's block of it.
     """
     s = plan.shard
     sizes = compat.axes_of(mesh)
@@ -356,7 +364,11 @@ def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
                          f"this rank's {m_local} of {m} (shard_linear)")
     rank_k = shd.coord(mesh, s.k) if s.k else 0
     rank_m = shd.coord(mesh, out_m) if out_m else 0
-    x_l = x.narrow(-1, rank_k * k_local, k_local) if s.k else x
+    if x_local and (s.k is None or x.shape[-1] != k_local):
+        raise ValueError(f"x of {x.shape[-1]} columns is not this rank's "
+                         f"{k_local} of a row-parallel k={k}")
+    x_l = x.narrow(-1, rank_k * k_local, k_local) \
+        if s.k and not x_local else x
     b_l = bias.narrow(0, rank_m * m_local, m_local) \
         if out_m and bias is not None else bias
     r_l = residual.narrow(-1, rank_m * m_local, m_local) \
@@ -374,6 +386,19 @@ def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
         return obs.mark_end(y, mk_compute, cat="shard",
                             hist="shard_compute_s",
                             hist_labels={"tag": tagname})
+
+    # a row-parallel linear's partial sums cross the collective in f32
+    # (a kernel writes them so), and are cast once, after the epilogue
+    out_dtype = (torch_dtype(epilogue.out_dtype) if epilogue is not None
+                 and epilogue.out_dtype else x.dtype)
+    f32 = Epilogue(out_dtype="float32")
+
+    def partial(p_c, x_c):
+        if x_c.dtype == torch.float32:
+            return compute_chunk(p_c, x_c)
+        if backend.epilogue_ok(f32) and inner_plan.epilogue:
+            return compute_chunk(p_c, x_c, epilogue=f32)
+        return compute_chunk(p_c, x_c).to(torch.float32)
 
     def issue(y):
         """Start the planned collective over the k-sharded partials: an
@@ -403,8 +428,8 @@ def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
     # row-parallel: partial sums over the local k slice; the epilogue
     # must see the resolved sum, never the per-shard partials
     elif pc == 1:
-        y = apply_epilogue(retire(issue(compute_chunk(params, x_l))),
-                           epilogue, bias=b_l, residual=r_l)
+        y = apply_epilogue(retire(issue(partial(params, x_l))),
+                           epilogue, bias=b_l, residual=r_l).to(out_dtype)
     else:
         d_pack = 1 if spec.mode == "bf16" else int(spec.d)
         sb_pack = 1 if spec.mode == "bf16" else int(spec.scale_block)
@@ -415,7 +440,7 @@ def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
         pending = None  # the chunk whose collective is in flight
         for ci in range(pc):
             p_c = {n: t.contiguous() for n, t in p_chunks[ci].items()}
-            y_c = compute_chunk(p_c, x_chunks[ci].contiguous())
+            y_c = partial(p_c, x_chunks[ci].contiguous())
             if pending is not None:
                 # retire the previous chunk only after this chunk's
                 # compute was issued
@@ -424,7 +449,8 @@ def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
             pending = issue(y_c)
         done = retire(pending)
         y = done if out is None else out + done
-        y = apply_epilogue(y, epilogue, bias=b_l, residual=r_l)
-    if out_m is not None:
+        y = apply_epilogue(y, epilogue, bias=b_l,
+                           residual=r_l).to(out_dtype)
+    if out_m is not None and not (keep_local and s.k is None):
         y = coll.all_gather(y, out_m, dim=-1, mesh=mesh)
     return y

@@ -122,10 +122,17 @@ RULE_SETS = {
 }
 
 
+# The mesh axis tensor parallelism runs over: every rule that shards a
+# weight's heads, hidden or channel dim maps it to 'model'.
+TP_AXIS = "model"
+
+
 class _Ctx(threading.local):
     mesh = None
     rules: str = "default"
-    rows: str | None = None  # the mesh axis a step's batch rows split over
+    # the mesh axis (or folded axes, major first) a step's batch rows
+    # split over
+    rows: str | tuple | None = None
 
 
 _CTX = _Ctx()
@@ -151,6 +158,13 @@ def active_mesh():
 
 def active_rules() -> str:
     return _CTX.rules
+
+
+def tp_size(mesh=None) -> int:
+    """The size of :data:`TP_AXIS` on ``mesh`` (default the active one);
+    1 without a mesh or without that axis."""
+    mesh = mesh or _CTX.mesh
+    return 1 if mesh is None else compat.axes_of(mesh).get(TP_AXIS, 1)
 
 
 def _resolve(axes: tuple, shape: tuple, mesh, table: dict) -> tuple:
@@ -309,17 +323,18 @@ def constrain(x: torch.Tensor, *axes):
 def _whole_shape(shape, axes, mesh) -> tuple:
     """The shape whose rules decide a constraint: a split batch dim counts
     at its whole size."""
-    rows = _CTX.rows
-    if rows is None:
+    if _CTX.rows is None:
         return tuple(shape)
-    n = compat.axes_of(mesh)[rows]
+    n = rows_factor()
     return tuple(s * n if a == "batch" else s for s, a in zip(shape, axes))
 
 
 @contextlib.contextmanager
-def split_rows(axis: str | None):
-    """While active, a step's batch rows are split over ``axis`` (None:
-    whole on every rank): the engine sets it around a step whose inputs it
+def split_rows(axis):
+    """While active, a step's batch rows are split over ``axis`` (a mesh
+    axis, or a tuple of them folded major first as a 'batch' spec entry
+    folds them; None: whole on every rank): the engine and
+    ``runtime.serve.generate`` set it around a step whose inputs they
     placed so."""
     prev, _CTX.rows = _CTX.rows, axis
     try:
@@ -328,14 +343,15 @@ def split_rows(axis: str | None):
         _CTX.rows = prev
 
 
-def row_axis() -> str | None:
+def row_axis():
     return _CTX.rows if _CTX.mesh is not None else None
 
 
 def rows_factor() -> int:
     """How many ranks share the step's batch rows (1: rows whole)."""
     axis = row_axis()
-    return 1 if axis is None else compat.axes_of(_CTX.mesh)[axis]
+    sizes = compat.axes_of(_CTX.mesh) if axis is not None else {}
+    return math.prod(sizes[a] for a in _names(axis))
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
@@ -346,7 +362,22 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
         return x
     from repro_torch.distributed import collectives as coll
 
-    return coll.all_gather(x, axis, dim=0, mesh=_CTX.mesh)
+    for name in reversed(_names(axis)):  # minor axis first
+        x = coll.all_gather(x, name, dim=0, mesh=_CTX.mesh)
+    return x
+
+
+def psum_rows(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ranks that split a step's batch rows (a
+    count over the whole batch); ``x`` itself when the rows are whole."""
+    axis = row_axis()
+    if axis is None:
+        return x
+    from repro_torch.distributed import collectives as coll
+
+    for name in _names(axis):
+        x = coll.psum(x, name, mesh=_CTX.mesh)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +517,25 @@ def cache_specs(cache, mesh, rules: str = "default") -> list[dict]:
 
     return [{n: one(n, s) for n, s in _leaves(layer).items()}
             for layer in cache]
+
+
+def static_cache_specs(cache, kinds, mesh, rules: str = "serve",
+                       whole=()) -> list[dict]:
+    """The specs the port's static engine holds a cache under: those of
+    :func:`cache_specs`, except for the layers whose mixer each rank runs
+    whole (their state keeps only its batch split).  ``kinds``: each
+    layer's block kind; ``whole``: the kinds run whole on this mesh.  An
+    sLSTM is always one of them: its state (B, d) is the 'embed' axis,
+    whole under the serve rules, where the reference's table names its
+    ``m`` by 'heads' for GSPMD to reshard."""
+    specs = cache_specs(cache, mesh, rules)
+    for layer, kind, spec in zip(cache, kinds, specs):
+        if kind == "slstm" or kind in whole:
+            for name, shape in _leaves(layer).items():
+                spec[name] = spec_for(
+                    ("batch",) + ("none",) * (len(shape) - 1), shape,
+                    mesh=mesh, kind="act", rules=rules)
+    return specs
 
 
 # Paged-serving KV block pools (runtime.serve.init_paged_cache): the

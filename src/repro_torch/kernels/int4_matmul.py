@@ -79,6 +79,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import is_fake
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.msgemm import ACTS, OUT_TYPES, epilogue_cols
 
@@ -359,9 +360,30 @@ def int4_matmul_plain(u8: torch.Tensor, scales: torch.Tensor,
     return epilogue_cols(total, act, bias, residual, out_dtype)
 
 
+def int4_matmul_fake(u8: torch.Tensor, scales: torch.Tensor,
+                     x: torch.Tensor, *, scale_block: int, tiles: Int4Tiles,
+                     act: str = "none", bias=None, residual=None,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's call on fake tensors: what :func:`int4_matmul_cuda`
+    allocates (its output and its k-split workspace), with no launch."""
+    E, m, k, b, nsb = _check(u8, scales, x, scale_block, bias, residual)
+    ne = max(E, 1)
+    _, nsplit = split_steps(k, tiles.nsplit)
+    out = torch.empty((ne, b, m), dtype=out_dtype,
+                      device=u8.device).transpose(1, 2)
+    if nsplit > 1:
+        torch.empty((ne, nsplit, b, m), dtype=torch.float32,
+                    device=u8.device)
+    return out if E else out[0]
+
+
 def int4_matmul(u8, scales, x, **kw) -> torch.Tensor:
     """Route by device: the kernel for CUDA tensors, the plain version for
-    CPU tensors; anything else raises.  There is no fallback."""
+    CPU tensors, the kernel's allocations alone for fake ones
+    (:func:`int4_matmul_fake`); anything else raises.  There is no
+    fallback."""
+    if is_fake(x):
+        return int4_matmul_fake(u8, scales, x, **kw)
     if x.device.type == "cuda":
         return int4_matmul_cuda(u8, scales, x, **kw)
     if x.device.type == "cpu":

@@ -61,6 +61,7 @@ import torch
 
 from repro_torch.core import lut as lut_mod
 from repro_torch.core.epilogue import act_fn
+from repro_torch.device import is_fake
 from repro_torch.kernels import nvcc
 
 # the codes of csrc/epilogue.cuh's Act and DType enums
@@ -262,10 +263,33 @@ def msgemm_plain(idx: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
     return epilogue_cols(total, act, bias, residual, out_dtype)
 
 
+def msgemm_fake(idx: torch.Tensor, x: torch.Tensor, scales: torch.Tensor,
+                values: torch.Tensor, *, d: int, scale_block: int,
+                tiles: Tiles, act: str = "none", bias=None, residual=None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's call on fake tensors: what :func:`msgemm_cuda`
+    allocates (its output, its k-split workspace and, at d = 4, its table
+    scratch), with no launch.  The plain version's tables, which the
+    kernel keeps in shared memory, are never allocated."""
+    m, k, kc, b, cpb, nsb = _check(idx, x, scales, values, d, scale_block,
+                                   bias, residual)
+    gx, nsplit, gz = grid(m, kc, b, tiles)
+    out = torch.empty((b, m), dtype=out_dtype, device=idx.device).t()
+    if nsplit > 1:
+        torch.empty((nsplit, b, m), dtype=torch.float32, device=idx.device)
+    if d == 4:
+        torch.empty(gx * nsplit * gz * 2 * 16**4 * tiles.tb,
+                    dtype=torch.float32, device=idx.device)
+    return out
+
+
 def msgemm(idx, x, scales, values, **kw) -> torch.Tensor:
     """Route by device: the kernel for CUDA tensors, the plain version for
-    CPU tensors; anything else raises.  There is no fallback from one to
-    the other."""
+    CPU tensors, the kernel's allocations alone for fake ones
+    (:func:`msgemm_fake`); anything else raises.  There is no fallback
+    from one to the other."""
+    if is_fake(x):
+        return msgemm_fake(idx, x, scales, values, **kw)
     if x.device.type == "cuda":
         return msgemm_cuda(idx, x, scales, values, **kw)
     if x.device.type == "cpu":

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.epilogue import Epilogue, torch_dtype
+from repro_torch.device import is_fake
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import int4_matmul as _i4
 from repro_torch.kernels import msgemm as _ms
@@ -205,7 +206,8 @@ def msgemm(idx: torch.Tensor, x: torch.Tensor, d: int, *,
     own = lambda t: t if t is None or t.dtype in _ms.OUT_TYPES \
         else f32(t)  # noqa: E731
     idx = idx.to(torch.int32).contiguous()
-    if idx.data_ptr() % 16:  # the kernel copies 16-byte vectors of idx
+    # the kernel copies 16-byte vectors of idx (a fake one has no address)
+    if not is_fake(idx) and idx.data_ptr() % 16:
         idx = idx.clone()
     y = _ms.msgemm(
         idx, own(x),

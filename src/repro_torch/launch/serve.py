@@ -56,9 +56,10 @@ when set).  A run with sheds, cancellations, retries or replans prints a
 finish.
 
 Tensor-parallel serving: ``--mesh model=2`` (or ``model=2,data=2``) serves
-the continuous engine over a device mesh, one process a mesh device
+either engine over a device mesh, one process a mesh device
 (``launch.mesh.run_ranks``), each rank on its own card (``cuda:<rank>``)
-holding its shard of the weights and the pool; global rank 0 prints.
+holding its shard of the weights and of the pool or cache; global rank 0
+prints.
 A mesh larger than the visible cards is refused, unless
 ``--force-host-devices N`` allows N CPU ranks (with ``--device cpu``):
 
@@ -71,9 +72,12 @@ A mesh larger than the visible cards is refused, unless
 'reduce_scatter'), ``--shard-pipeline`` their contraction chunks and
 ``--shard-impl`` the collective ('xla': the group's own, 'ring').  The
 run prints ``[serve] mesh {...}: N plans resolved at build, M sharded``.
-Only dense decoders serve on a mesh, through ``--engine continuous``; a
-MoE, recurrent, encoder-decoder or vision model is refused (ROADMAP
-A13c).
+``--engine continuous`` serves decoders ('attn', 'local' and 'moe'
+blocks) on a mesh; ``--engine static`` every family (static
+``generate``, SPMD over the ranks: the rows split over 'data', rank 0's
+tokens the run's; ``--check`` holds them to a single-device ``generate``
+of the same weights).  ``--shard-pipeline 0`` (the tuned variant) is
+refused.
 
 Every ported architecture serves (``repro_torch.configs.ARCHS``: the
 gemma, codeqwen1.5, starcoder2 and gpt3 dense models, the qwen2-moe and
@@ -270,20 +274,32 @@ def static_batch(args, cfg, device: torch.device) -> dict:
     return batch
 
 
-def run_static(args, params, cfg, device: torch.device):
+def run_static(args, params, cfg, device: torch.device, mesh=None):
     """Batched greedy generation on random inputs from ``--seed``
     (:func:`static_batch`).  Kernel launches are counted over
-    ``generate`` alone (not the autotuner's warm-up)."""
+    ``generate`` alone (not the autotuner's warm-up).  On ``mesh`` this
+    rank serves its shard (``runtime.serve.shard_params``) of ``params``
+    (whole) under ``--mesh-rules``, and the collectives are counted too;
+    with ``--check`` rank 0 holds the tokens to a single-device
+    ``generate`` of ``params``."""
     batch = static_batch(args, cfg, device)
     policy = exec_policy(args)
     if policy is not None and policy.autotune:
         plans = warm_generate(params, cfg, batch, policy)
         print(f"[serve] resolved {len(plans)} exec plans before the run "
               f"(cache={dispatch.cache().path})")
+    run_params, kw = params, {}
+    if mesh is not None:
+        from repro_torch.distributed import collectives as coll
+
+        run_params = SV.shard_params(params, cfg, mesh, args.mesh_rules)
+        kw = dict(mesh=mesh, rules=args.mesh_rules)
+        coll.reset_counts()
     M.reset_route_counts(params)
     before = launch_counts()
     t0 = time.perf_counter()
-    out = SV.generate(params, cfg, batch, max_new_tokens=args.new_tokens)
+    out = SV.generate(run_params, cfg, batch, max_new_tokens=args.new_tokens,
+                      **kw)
     _sync(device)
     dt = time.perf_counter() - t0
     after = launch_counts()
@@ -292,8 +308,27 @@ def run_static(args, params, cfg, device: torch.device):
           f"({args.batch * args.new_tokens / dt:.1f} tok/s); launches "
           f"{launches}")
     print(out[:, :12].tolist())
-    return dict(prompts=batch["tokens"], batch=batch, tokens=out, run_s=dt,
-                launches=launches, dropped_frac=report_dropped(params))
+    res = dict(prompts=batch["tokens"], batch=batch, tokens=out, run_s=dt,
+               launches=launches, dropped_frac=report_dropped(params))
+    if mesh is not None:
+        from repro_torch.distributed import collectives as coll
+        from repro_torch.distributed.compat import axes_of
+
+        res["collectives"] = dict(coll.counts)
+        print(f"[serve] mesh {axes_of(mesh)}: static generate, collectives "
+              f"{dict(sorted(coll.counts.items()))} (rules="
+              f"{args.mesh_rules})", flush=True)
+        if args.check and torch.distributed.get_rank() == 0:
+            ref = SV.generate(params, cfg, batch,
+                              max_new_tokens=args.new_tokens)
+            same = torch.equal(ref, out)
+            print(f"[serve] single-device parity check: "
+                  f"{'identical' if same else 'DIFFERENT'}", flush=True)
+            if not same:
+                raise SystemExit("the mesh's static generate diverged from "
+                                 "the single-device one")
+            res["checked"] = args.batch
+    return res
 
 
 def report_dropped(params) -> float | None:
@@ -676,12 +711,10 @@ def serve_mesh(args, argv) -> dict:
     if args.shard_pipeline < 1:
         raise SystemExit(f"--shard-pipeline {args.shard_pipeline}: 1 or more "
                          "(the tuned variant, 0, is ROADMAP A13c)")
-    if args.engine != "continuous":
-        raise SystemExit("--mesh serves through --engine continuous (a "
-                         "static engine on a mesh is ROADMAP A13c)")
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    check_mesh_model(cfg)
+    if args.engine == "continuous":
+        check_mesh_model(cfg)
     MS.force_host_devices(args.force_host_devices)
     dev = torch.device(args.device)
     if args.force_host_devices:
@@ -723,6 +756,14 @@ def _mesh_rank(rank, device, argv, shape, axes) -> dict:
     with quiet:
         params, cfg, build = build_model(args, device)
         mesh = MS.make_mesh(shape, axes)
+        if args.engine == "static":
+            with dispatch.using_policy(exec_policy(args)):
+                run = run_static(args, params, cfg, device, mesh=mesh)
+            return dict(build=build, tokens=run["tokens"].cpu().tolist(),
+                        launches=run["launches"],
+                        collectives=run["collectives"],
+                        checked=run.get("checked"),
+                        dropped_frac=run["dropped_frac"])
         run = run_continuous(args, params, cfg, device, mesh=mesh)
     return dict(build=build, tokens={rid: seq.generated for rid, seq in
                                      run["results"].items()},

@@ -1,9 +1,13 @@
 """Shared building blocks — norms, linear glue, soft-cap, MLP, the
 recurrences' chunked scan, rematerialization (:func:`remat`) for
-training; port of repro.models.common.  A linear names its logical
-weight axes (``distributed.sharding.LINEAR_AXES`` of its tag), so under
-an active mesh it runs sharded (``dispatch.shard``); its output comes
-back whole, so the MLP needs no constraint between its projections.
+training; port of repro.models.common.  Serving on a mesh runs each
+linear by the layout ``runtime.serve.shard_params`` cut and recorded on
+it (``QLinear.axes``, from ``distributed.sharding.LINEAR_AXES``), so
+under an active mesh it runs sharded (``dispatch.shard``), in the
+training layout: where shard_params split the
+MLP's hidden dim over 'model' (:func:`col_sharded`), up and gate keep
+their outputs sharded into a row-parallel ``down`` (``x_axis``), whose
+collective resolves the sum with the residual in its epilogue once.
 
 Training on a mesh runs the MLP tensor-parallel instead
 (:func:`mlp_apply_tp`, on the weights ``constrain_params`` gathered over
@@ -20,7 +24,7 @@ from torch import nn
 from repro_torch.core import linear as qlinear
 from repro_torch.core.epilogue import Epilogue, act_fn, apply_epilogue
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import LINEAR_AXES
+from repro_torch.distributed import sharding
 
 
 def truncated_normal(shape, scale: float, *, generator: torch.Generator,
@@ -84,15 +88,19 @@ def linear_init(in_dim: int, out_dim: int, cfg, quant=qlinear.DENSE, *,
 
 
 def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, tag=None,
-                 act="none", bias=None, residual=None, out_dtype=None
+                 act="none", bias=None, residual=None, out_dtype=None,
+                 local: bool = False, x_axis: str | None = None
                  ) -> torch.Tensor:
     """``act``/``bias``/``residual``/``out_dtype`` describe the tail
     ``y = act(Wx + bias) + residual`` (cast to ``out_dtype``); it becomes an
     Epilogue that the msGeMM kernel fuses into its final write.  ``tag``
-    names the linear for the calibration observer (core.linear.apply),
-    and its ``LINEAR_AXES`` entry rides along as the weight's logical
-    axes: under an active mesh the plan shards the linear by them (an
-    expert stack's 'moe_' tags have no entry and stay whole)."""
+    names the linear for the calibration observer (core.linear.apply).
+    Under an active mesh the plan shards the linear by the logical axes
+    ``runtime.serve.shard_params`` recorded on it (``QLinear.axes``; a
+    linear it left whole, an expert stack among them, runs whole).  On a
+    mesh ``local`` keeps a column-parallel output as this rank's block,
+    and ``x_axis`` says ``x`` is this rank's block of k over that axis
+    (``dispatch.execute``)."""
     ep = None
     if act != "none" or bias is not None or residual is not None \
             or out_dtype is not None:
@@ -100,7 +108,24 @@ def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, tag=None,
                       residual=residual is not None, out_dtype=out_dtype)
     return qlinear.apply(p, x, quant, in_dim=in_dim, tag=tag, epilogue=ep,
                          bias=bias, residual=residual,
-                         shard_axes=LINEAR_AXES.get(tag))
+                         shard_axes=getattr(p, "axes", None),
+                         keep_local=local, x_axis=x_axis)
+
+
+def out_rows(p) -> int:
+    """A linear's whole output dim: ``out_dim`` where its leaves are this
+    rank's shard, else its leaves' rows."""
+    if p.out_dim is not None:
+        return p.out_dim
+    lead = p.w if hasattr(p, "w") else p.scales
+    return lead.shape[-2]
+
+
+def col_sharded(p) -> bool:
+    """Whether a linear's leaves hold this rank's block of its output
+    rows (``runtime.serve.shard_params`` cut it column-parallel)."""
+    lead = p.w if hasattr(p, "w") else p.scales
+    return p.out_dim is not None and lead.shape[-2] < p.out_dim
 
 
 def activation(name: str):
@@ -243,20 +268,24 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg, quant=None, *,
               residual=None) -> torch.Tensor:
     """MLP with the element-wise tail folded into the linears' epilogues:
     the (gate's) activation into its projection, ``residual`` (the block
-    input) into the down projection."""
+    input) into the down projection.  On a mesh whose ranks hold blocks
+    of the hidden dim (:func:`col_sharded`), up and gate return this
+    rank's block and ``down`` takes it as its k slice (row-parallel, or
+    gathered whole where its packed storage cannot split there)."""
     q = quant if quant is not None else cfg.quant
     act_name = {"swiglu": "silu", "geglu": "gelu",
                 "gelu": "gelu"}[cfg.mlp_activation]
+    local = col_sharded(p.up)
+    kw = dict(in_dim=cfg.d_model, local=local)
     if hasattr(p, "gate"):
-        up = linear_apply(p.up, x, q, in_dim=cfg.d_model, tag="up")
-        gate = linear_apply(p.gate, x, q, in_dim=cfg.d_model, tag="gate",
-                            act=act_name)
+        up = linear_apply(p.up, x, q, tag="up", **kw)
+        gate = linear_apply(p.gate, x, q, tag="gate", act=act_name, **kw)
         h = gate * up
     else:
-        h = linear_apply(p.up, x, q, in_dim=cfg.d_model, tag="up",
-                         act=act_name)
-    return linear_apply(p.down, h, q, in_dim=h.shape[-1], tag="down",
-                        residual=residual)
+        h = linear_apply(p.up, x, q, tag="up", act=act_name, **kw)
+    return linear_apply(p.down, h, q, in_dim=out_rows(p.up), tag="down",
+                        residual=residual,
+                        x_axis=sharding.TP_AXIS if local else None)
 
 
 def mlp_apply_tp(p: MLP, x: torch.Tensor, cfg, *, residual, d_ff: int,

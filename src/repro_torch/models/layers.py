@@ -5,12 +5,24 @@ at a traced offset) is :func:`causal_mask` with ``offset``.
 
 The paged path keeps a full-precision KV pool, or with ``cfg.kv_quant``
 the quantized pool of repro_torch.kvq, read through its paged-attention
-backends.  Under an active mesh (``distributed.sharding.use``) each rank
-holds its shard of the pool (kv heads over 'model' when they divide,
-``PAGED_CACHE_AXES``): a step's new K/V rows are gathered over the batch
-axis when its rows are split (the pool is whole over 'data'), constrained
-to the pool's heads, written, and attended by this rank's query heads;
-the heads' outputs are gathered before ``wo``.
+backends.
+
+Serving on a mesh (``distributed.sharding.use``) runs the training
+layout, by the :func:`head_layout` that ``runtime.serve.shard_params``
+cut the weights by and recorded (``Attention.layout``): where the query heads split evenly over
+'model' (and the kv heads do too, or there is one), wq returns this
+rank's heads, wk/wv its kv heads (every kv head, from whole weights, when
+there is one), attention runs on them and ``wo`` takes its heads' output
+as its k slice.  Otherwise every rank attends every head, as before: the
+projections' outputs are gathered whole.  The paged pool holds this
+rank's kv heads (``PAGED_CACHE_AXES``; whole when they do not split), and
+a step's new K/V rows are gathered over the batch axis when its rows are
+split (the pool is whole over 'data').  The static decode cache holds
+this rank's kv heads, or, where the kv heads cannot take 'model', this
+rank's block of the sequence (``CACHE_AXES``' 'kv_seq'): prefill writes
+each rank's positions, decode writes the new K/V on the rank that owns
+``pos``, and every rank attends every head over its positions, the ranks'
+partial softmax combined (:func:`_sdpa_split`).
 
 A training step on a mesh runs :func:`attn_apply_tp` instead, on the
 weights ``constrain_params`` gathered over 'data': with the query heads
@@ -21,6 +33,8 @@ they do not split: MQA); otherwise every rank runs the whole attention.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -53,8 +67,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # ---------------------------------------------------------------- attention
+class HeadLayout(NamedTuple):
+    """How attention's heads lie on the 'model' axis (``M`` ranks, this
+    one ``r``): ``q_local`` — this rank runs query heads [r·H/M,
+    (r+1)·H/M), from wq's block; ``kv_local`` — and holds kv heads
+    [r·Hk/M, (r+1)·Hk/M) (its cache and pool too).  With ``q_local`` but
+    not ``kv_local`` there is one kv head, which every rank computes
+    whole."""
+
+    M: int = 1
+    r: int = 0
+    q_local: bool = False
+    kv_local: bool = False
+
+    @property
+    def kv_whole(self) -> bool:
+        """wk/wv held whole by every rank (one kv head)."""
+        return self.q_local and not self.kv_local
+
+    @property
+    def seq_split(self) -> bool:
+        """The static cache splits its sequence over 'model'."""
+        return self.M > 1 and not self.kv_local
+
+
+def head_layout(cfg, mesh) -> HeadLayout:
+    """The :class:`HeadLayout` of ``cfg`` on ``mesh``
+    (``runtime.serve.shard_params`` cuts the weights by it and records it
+    as ``Attention.layout``)."""
+    M = sharding.tp_size(mesh)
+    if M == 1:
+        return HeadLayout()
+    h, hk = cfg.num_heads, cfg.num_kv_heads
+    kv_local = hk % M == 0
+    return HeadLayout(M, sharding.coord(mesh, sharding.TP_AXIS),
+                      h % M == 0 and (kv_local or hk == 1), kv_local)
+
+
 class Attention(nn.Module):
-    """wq / wk / wv / wo linears (+ q/k norms when ``cfg.qk_norm``)."""
+    """wq / wk / wv / wo linears (+ q/k norms when ``cfg.qk_norm``).
+    ``layout``: the :class:`HeadLayout` ``runtime.serve.shard_params`` cut
+    the heads by on a mesh (every head on one device otherwise)."""
+
+    layout = HeadLayout()
 
     def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
         super().__init__()
@@ -74,18 +129,21 @@ def attn_init(cfg, *, generator: torch.Generator, device=None) -> Attention:
                      lin(h * dh, d), *norms)
 
 
+def _kv(p: Attention, cfg, x):
+    """wk/wv of ``x``: this rank's kv heads, or all of them."""
+    kw = dict(in_dim=cfg.d_model, local=p.layout.kv_local)
+    k = common.linear_apply(p.wk, x, cfg.quant, tag="wk", **kw)
+    v = common.linear_apply(p.wv, x, cfg.quant, tag="wv", **kw)
+    shape = (*x.shape[:2], -1, cfg.head_dim)
+    return k.reshape(shape), v.reshape(shape)
+
+
 def _qkv(p: Attention, cfg, x, positions):
-    B = x.shape[0]
-    h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
     q = common.linear_apply(p.wq, x, cfg.quant, in_dim=cfg.d_model,
-                            tag="wq")
-    k = common.linear_apply(p.wk, x, cfg.quant, in_dim=cfg.d_model,
-                            tag="wk")
-    v = common.linear_apply(p.wv, x, cfg.quant, in_dim=cfg.d_model,
-                            tag="wv")
-    q = q.reshape(B, -1, h, dh)
-    k = k.reshape(B, -1, hk, dh)
-    v = v.reshape(B, -1, hk, dh)
+                            tag="wq", local=p.layout.q_local)
+    q = q.reshape(*x.shape[:2], -1, dh)
+    k, v = _kv(p, cfg, x)
     if cfg.qk_norm:
         q = common.norm_apply(p.q_norm, q, "rmsnorm")
         k = common.norm_apply(p.k_norm, k, "rmsnorm")
@@ -110,6 +168,60 @@ def _sdpa(cfg, q, k, v, mask) -> torch.Tensor:
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
     return out.reshape(B, Sq, h * dh).to(q.dtype)
+
+
+def _sdpa_split(cfg, q, k, v, mask, axis: str) -> torch.Tensor:
+    """:func:`_sdpa` where ``k``/``v`` (B, Sl, Hk, Dh) are this rank's
+    block of the key positions over ``axis`` (``mask`` (B|1, 1, Sq, Sl)
+    or None) and ``q`` holds every head: each rank's logits, their max
+    over the ranks (``collectives.pmax``), then the exp-sums and the
+    weighted values summed over the ranks in one psum.  Returns (B, Sq,
+    H·Dh), the same on every rank."""
+    B, Sq, h, dh = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(B, Sq, hk, h // hk, dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                          k.to(torch.float32)) * dh**-0.5
+    logits = common.softcap(logits, cfg.attn_logit_softcap)
+    if mask is not None:
+        logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    top = coll.pmax(logits.amax(dim=-1, keepdim=True), axis)
+    probs = torch.exp(logits - top)
+    both = torch.cat([torch.einsum("bhgqk,bkhd->bhgqd", probs,
+                                   v.to(torch.float32)),
+                      probs.sum(dim=-1, keepdim=True)], dim=-1)
+    both = coll.psum(both, axis)
+    out = both[..., :dh] / both[..., dh:]  # (B, Hk, G, Sq, Dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, h * dh).to(q.dtype)
+
+
+def _wo(p: Attention, cfg, out, *, local: bool, residual=None):
+    """``wo`` of the heads' output: this rank's heads (``local``: its k
+    slice) or every head."""
+    return common.linear_apply(
+        p.wo, out, cfg.quant, in_dim=cfg.num_heads * cfg.head_dim,
+        tag="wo", residual=residual,
+        x_axis=sharding.TP_AXIS if local else None)
+
+
+def seq_block(t: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
+    """This rank's block of ``t``'s positions (dim 1) where the static
+    cache splits its sequence; ``t`` itself otherwise."""
+    if not lay.seq_split:
+        return t
+    n = t.shape[1] // lay.M
+    return t.narrow(1, lay.r * n, n)
+
+
+def write_prefill(cache: dict, name: str, t: torch.Tensor,
+                  lay: HeadLayout) -> None:
+    """Write a prompt's K or V ``t`` (B, S, ., Dh) at positions 0..S-1
+    of ``cache[name]``: where the cache splits its sequence, the
+    positions of this rank's block."""
+    c = cache[name]
+    lo = lay.r * c.shape[1] if lay.seq_split else 0
+    n = max(0, min(t.shape[1] - lo, c.shape[1]))
+    c[:, :n] = t[:, lo:lo + n].to(c.dtype)
 
 
 def causal_mask(Sq: int, Skv: int, *, window: int = 0, offset: int = 0,
@@ -141,6 +253,7 @@ def attn_apply(p: Attention, cfg, x, positions, *, window: int = 0,
     output projection's epilogue.  Above ``cfg.attn_chunk`` the queries
     run in chunks (exact math, bounded logits memory)."""
     B, S, _ = x.shape
+    lay = p.layout
     q, k, v = _qkv(p, cfg, x, positions)
     C = cfg.attn_chunk
     if C and S > C and S % C == 0:
@@ -153,54 +266,72 @@ def attn_apply(p: Attention, cfg, x, positions, *, window: int = 0,
         m = causal_mask(S, S, window=window, device=x.device) \
             if causal else None
         out = _sdpa(cfg, q, k, v, m)
-    out = common.linear_apply(p.wo, out, cfg.quant,
-                              in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
-                              residual=residual)
+    out = _wo(p, cfg, out, local=lay.q_local, residual=residual)
     return (out, k, v) if return_kv else out
+
+
+def _gather_heads(q: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
+    """Every query head (dim 2) where this rank holds its own only."""
+    return coll.all_gather(q, sharding.TP_AXIS, dim=2) if lay.q_local \
+        else q
 
 
 def attn_decode(p: Attention, cfg, x, cache_k, cache_v, pos, *,
                 window: int = 0, residual=None):
     """Single-token decode.  x (B, 1, d); cache (B, Skv, Hk, Dh); pos (B,).
     The new K/V are written into the caches in place (the reference
-    returns updated copies)."""
+    returns updated copies).  Where the cache holds this rank's block of
+    the sequence (:attr:`HeadLayout.seq_split`), the rank owning ``pos``
+    writes, and every head attends over each rank's block
+    (:func:`_sdpa_split`)."""
+    lay = p.layout
     q, k, v = _qkv(p, cfg, x, pos[:, None])
     B, Skv = cache_k.shape[0], cache_k.shape[1]
     rows = torch.arange(B, device=x.device)
-    cache_k[rows, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, pos] = v[:, 0].to(cache_v.dtype)
-    m = view_mask(Skv, pos[:, None], window=window)[:, 0]
-    out = _sdpa(cfg, q, cache_k, cache_v, m[:, None, None, :])
-    out = common.linear_apply(p.wo, out, cfg.quant,
-                              in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
-                              residual=residual)
+    if lay.seq_split:
+        lo = lay.r * Skv
+        own = ((pos >= lo) & (pos < lo + Skv))[:, None, None]
+        at = (pos - lo).clamp(0, Skv - 1)
+        for c, t in ((cache_k, k), (cache_v, v)):
+            c[rows, at] = torch.where(own, t[:, 0].to(c.dtype), c[rows, at])
+        m = view_mask(Skv, pos[:, None] - lo, window=window)[:, 0]
+        out = _sdpa_split(cfg, _gather_heads(q, lay), cache_k, cache_v,
+                          m[:, None, None, :], sharding.TP_AXIS)
+        local = False
+    else:
+        cache_k[rows, pos] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, pos] = v[:, 0].to(cache_v.dtype)
+        m = view_mask(Skv, pos[:, None], window=window)[:, 0]
+        out = _sdpa(cfg, q, cache_k, cache_v, m[:, None, None, :])
+        local = lay.q_local
+    out = _wo(p, cfg, out, local=local, residual=residual)
     return out, cache_k, cache_v
 
 
-def cross_attn_apply(p: Attention, cfg, x, enc_k, enc_v, *, residual=None):
+def cross_attn_apply(p: Attention, cfg, x, enc_k, enc_v, *, residual=None,
+                     split: bool = False):
     """Decoder cross-attention against the encoder's projected K/V
     (B, S_src, Hk, Dh): q from ``wq``, no mask and no RoPE, ``residual``
-    riding ``wo``'s epilogue."""
-    B = x.shape[0]
+    riding ``wo``'s epilogue.  ``split``: ``enc_k``/``enc_v`` are this
+    rank's block of the source positions (the decode cache's, where its
+    sequence splits), combined over the ranks."""
+    lay = p.layout
     q = common.linear_apply(p.wq, x, cfg.quant, in_dim=cfg.d_model,
-                            tag="wq").reshape(B, -1, cfg.num_heads,
-                                              cfg.head_dim)
+                            tag="wq", local=lay.q_local)
+    q = q.reshape(*x.shape[:2], -1, cfg.head_dim)
+    if split:
+        out = _sdpa_split(cfg, _gather_heads(q, lay), enc_k, enc_v, None,
+                          sharding.TP_AXIS)
+        return _wo(p, cfg, out, local=False, residual=residual)
     out = _sdpa(cfg, q, enc_k, enc_v, None)
-    return common.linear_apply(p.wo, out, cfg.quant,
-                               in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
-                               residual=residual)
+    return _wo(p, cfg, out, local=lay.q_local, residual=residual)
 
 
 def cross_kv(p: Attention, cfg, enc_out):
     """The encoder output (B, S_src, d) projected once by ``wk``/``wv`` to
-    (B, S_src, Hk, Dh) each; prefill caches them for every decode step."""
-    B = enc_out.shape[0]
-    hk, dh = cfg.num_kv_heads, cfg.head_dim
-    k = common.linear_apply(p.wk, enc_out, cfg.quant, in_dim=cfg.d_model,
-                            tag="wk")
-    v = common.linear_apply(p.wv, enc_out, cfg.quant, in_dim=cfg.d_model,
-                            tag="wv")
-    return k.reshape(B, -1, hk, dh), v.reshape(B, -1, hk, dh)
+    (B, S_src, Hk, Dh) each (this rank's kv heads on a mesh that splits
+    them); prefill caches them for every decode step."""
+    return _kv(p, cfg, enc_out)
 
 
 def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,
@@ -218,10 +349,13 @@ def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,
 
     Returns (out, cache).
     """
+    lay = p.layout
     q, k, v = _qkv(p, cfg, x, positions)
-    heads_axis = None
     if sharding.active_mesh() is not None:
-        q, k, v, write_slots, heads_axis = _mesh_heads(q, k, v, write_slots)
+        # the pool is whole over the batch axis: every rank writes every
+        # row's new K/V
+        k, v = sharding.gather_rows(k), sharding.gather_rows(v)
+        write_slots = sharding.gather_rows(write_slots)
     if cfg.kv_quant is not None:
         out = _attn_paged_quantized(cfg, q, k, v, cache, positions,
                                     write_slots, view_slots, window=window)
@@ -236,38 +370,8 @@ def attn_paged(p: Attention, cfg, x, cache: dict, positions, write_slots,
         vs = view_slots.long()
         m = view_mask(view_slots.shape[1], positions, window=window)
         out = _sdpa(cfg, q, kp[vs], vp[vs], m[:, None])
-    if heads_axis is not None:
-        out = coll.all_gather(out, heads_axis, dim=-1)
-    out = common.linear_apply(p.wo, out, cfg.quant,
-                              in_dim=cfg.num_heads * cfg.head_dim, tag="wo",
-                              residual=residual)
+    out = _wo(p, cfg, out, local=lay.q_local, residual=residual)
     return out, cache
-
-
-def _mesh_heads(q, k, v, write_slots):
-    """A paged step's tensors on this rank of the active mesh.  The pool is
-    whole over the batch axis, so every rank writes every row's new K/V:
-    they and their slots are gathered when the step's rows are split.
-    The new rows are constrained to the pool's kv heads (its shard when
-    they divide the model axis); the query heads are cut to the ones
-    those kv heads serve when the kv heads split, or when there is one
-    (every query head attends it), and stay whole otherwise (each rank
-    then attends every head).  Returns (q, k, v, write_slots, the axis
-    the attention output's heads are gathered over, or None)."""
-    k, v = sharding.gather_rows(k), sharding.gather_rows(v)
-    write_slots = sharding.gather_rows(write_slots)
-    B, C, hk, dh = k.shape
-    k = sharding.constrain(k.reshape(B * C, hk, dh), "none", "kvheads",
-                           "head_dim").reshape(B, C, -1, dh)
-    v = sharding.constrain(v.reshape(B * C, hk, dh), "none", "kvheads",
-                           "head_dim").reshape(B, C, -1, dh)
-    q_spec = sharding.spec_for(("none", "none", "heads", "head_dim"),
-                               q.shape)
-    axis = q_spec[2]
-    if axis is None or (k.shape[2] == hk and hk > 1):
-        return q, k, v, write_slots, None
-    q = sharding.local_slice(q, q_spec, sharding.active_mesh())
-    return q, k, v, write_slots, axis
 
 
 def _attn_paged_quantized(cfg, q, k, v, cache, positions, write_slots,

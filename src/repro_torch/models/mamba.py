@@ -14,6 +14,16 @@ SSM state and the conv tail as the cache (linear in the sequence length).
 ``common.linear_apply``, so through the weight kernels; ``dt_proj`` and
 the scan are plain f32 PyTorch, as the reference computes them outside
 any Pallas kernel.
+
+On a mesh whose 'model' axis divides d_inner (:func:`tensor_parallel`,
+recorded as ``Mamba.tp``) each rank runs its block of the channels
+(``mamba_inner``):
+``in_proj`` is column-parallel, its rows cut so that this rank's block
+holds its channels of both halves (``runtime.serve.shard_params``), the
+conv, ``dt_proj``, the scan, ``D`` and the state are this rank's
+channels, ``x_proj`` contracts over them (its dt/B/C partials summed in
+f32) and ``out_proj`` is row-parallel.  Otherwise every rank runs the
+block whole.
 """
 
 from __future__ import annotations
@@ -23,12 +33,17 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models import common
 
 
 class Mamba(common.Tree):
     """in_proj, conv_w (K, di), conv_b, x_proj, dt_proj {w (di, dt_rank),
-    b}, A_log (di, N), D, out_proj: the reference's ``mamba_init`` tree."""
+    b}, A_log (di, N), D, out_proj: the reference's ``mamba_init`` tree.
+    ``tp``: ``runtime.serve.shard_params`` cut this rank's channels
+    (:func:`tensor_parallel`)."""
+
+    tp = False
 
 
 def mamba_init(cfg, *, generator: torch.Generator, device=None) -> Mamba:
@@ -64,11 +79,20 @@ def _causal_conv(x, w, b, tail=None):
     return out + b, new_tail
 
 
-def _ssm_params(p: Mamba, cfg, xc):
-    """xc (B, L, di) -> dt (B, L, di), B/C (B, L, N), all f32."""
+def tensor_parallel(cfg, mesh) -> bool:
+    """Whether the ranks of 'model' on ``mesh`` split the block's
+    channels."""
+    M = sharding.tp_size(mesh)
+    return M > 1 and cfg.mamba_d_inner % M == 0
+
+
+def _ssm_params(p: Mamba, cfg, xc, tp: bool = False):
+    """xc (B, L, di) -> dt (B, L, di), B/C (B, L, N), all f32 (di: this
+    rank's channels with ``tp``)."""
     n, dr = cfg.mamba_d_state, cfg.dt_rank
-    proj = common.linear_apply(p.x_proj, xc, cfg.quant,
-                               in_dim=xc.shape[-1], tag="x_proj")
+    proj = common.linear_apply(
+        p.x_proj, xc, cfg.quant, in_dim=cfg.mamba_d_inner, tag="x_proj",
+        x_axis=sharding.TP_AXIS if tp else None)
     dtr, Bm, Cm = torch.split(proj.to(torch.float32), [dr, n, n], dim=-1)
     dt = torch.logaddexp(dtr @ p.dt_proj.w.t() + p.dt_proj.b,
                          torch.zeros((), device=xc.device))  # softplus
@@ -99,14 +123,15 @@ def _scan_chunked(dA, dBu, C, h0, chunk: int):
 def mamba_apply(p: Mamba, cfg, x, *, state=None):
     """Full-sequence pass, or one decode step at L = 1 with ``state``.
     x (B, L, d) -> (y (B, L, d), {"ssm", "conv"}: the state after x)."""
-    di = cfg.mamba_d_inner
+    tp = p.tp
     xz = common.linear_apply(p.in_proj, x, cfg.quant, in_dim=cfg.d_model,
-                             tag="in_proj")
+                             tag="in_proj", local=tp)
+    di = xz.shape[-1] // 2  # this rank's channels
     xs, z = torch.split(xz, di, dim=-1)
     tail = state["conv"] if state is not None else None
     xc, new_tail = _causal_conv(xs, p.conv_w, p.conv_b, tail)
     xc = F.silu(xc)
-    dt, Bm, Cm = _ssm_params(p, cfg, xc)
+    dt, Bm, Cm = _ssm_params(p, cfg, xc, tp)
     A = -torch.exp(p.A_log)  # (di, N)
     xf = xc.to(torch.float32)
     dA = torch.exp(dt[..., None] * A)  # (B, L, di, N)
@@ -117,8 +142,9 @@ def mamba_apply(p: Mamba, cfg, x, *, state=None):
     y, h_last = _scan_chunked(dA, dBu, Cm, h0, cfg.mamba_chunk)
     y = y + p.D * xf
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    out = common.linear_apply(p.out_proj, y, cfg.quant, in_dim=di,
-                              tag="out_proj")
+    out = common.linear_apply(
+        p.out_proj, y, cfg.quant, in_dim=cfg.mamba_d_inner, tag="out_proj",
+        x_axis=sharding.TP_AXIS if tp else None)
     return out, {"ssm": h_last, "conv": new_tail}
 
 

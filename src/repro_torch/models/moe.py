@@ -16,6 +16,22 @@ kept, routed slots in all) adds up every ``moe_apply`` of the module, a
 CUDA graph's replays included, but not a training forward's remat
 recompute; :func:`dropped_frac` reads it over a run and
 :func:`reset_route_counts` zeroes it.
+
+Serving on a mesh (:func:`expert_layout`, recorded as
+``Experts.layout``; the reference's priority:
+'expert' takes 'model' before 'expert_out'): every rank routes every
+token alike, on the router it keeps whole (an (E, d) f32 weight: no
+gather of router logits is needed), so its counters read as one
+device's (a step whose rows split over 'data' sums its counts over
+them).  Where 'model' divides E the block is expert-parallel: a rank
+holds E/M experts and runs them in one launch a projection over their
+slots.  Otherwise, where it divides the experts' hidden dim, each expert
+is tensor-parallel: up and gate hold this rank's block of the hidden dim
+and ``down`` the matching block of its contraction
+(``runtime.serve.shard_params``; whole where the packed storage cannot
+split there, and then the hidden block is gathered).  Either way a
+rank's combine is a partial sum of the experts' outputs, and one psum
+over 'model' ends it.  A shared expert runs as any MLP on a mesh.
 """
 
 from __future__ import annotations
@@ -25,12 +41,20 @@ from torch import nn
 
 from repro_torch.core import linear as qlinear
 from repro_torch.core.spec import expert_spec
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
 from repro_torch.models import common
 from repro_torch.quant.quantize import stack_experts
 
 
 class Experts(nn.Module):
-    """The stacked up / down (+ gate for GeGLU/SwiGLU) expert linears."""
+    """The stacked up / down (+ gate for GeGLU/SwiGLU) expert linears.
+    What ``runtime.serve.shard_params`` cut on a mesh: ``layout``, the
+    :func:`expert_layout` (None: whole), and ``down_local``, whether
+    ``down`` holds this rank's block of its contraction ('tp')."""
+
+    layout = None
+    down_local = False
 
     def __init__(self, up, down, gate=None):
         super().__init__()
@@ -91,6 +115,18 @@ def moe_init(cfg, *, generator: torch.Generator, device=None,
     return MoE(router, experts, shared)
 
 
+def expert_layout(cfg, mesh) -> str | None:
+    """How the ranks of 'model' on ``mesh`` hold the expert stacks: 'ep'
+    (E/M experts a rank), 'tp' (a block of every expert's hidden dim) or
+    None (whole)."""
+    M = sharding.tp_size(mesh)
+    if M == 1:
+        return None
+    if cfg.num_experts % M == 0:
+        return "ep"
+    return "tp" if (cfg.moe_d_ff or cfg.d_ff) % M == 0 else None
+
+
 def _expert_ffn(pe: Experts, x: torch.Tensor, cfg) -> torch.Tensor:
     """x (E, C, d) -> (E, C, d) through the stacked linears, each one call
     for all experts.  Quantized experts run ``int4_dequant`` in msgemm mode
@@ -113,6 +149,8 @@ def _expert_ffn(pe: Experts, x: torch.Tensor, cfg) -> torch.Tensor:
         h = lin("gate", x, act_name) * up
     else:
         h = lin("up", x, act_name)
+    if pe.layout == "tp" and not pe.down_local:
+        h = coll.all_gather(h, sharding.TP_AXIS, dim=-1)  # whole down
     return lin("down", h)
 
 
@@ -171,13 +209,27 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
     dispatched = (buf.view(B, rows, d)[:, :E * C].reshape(B, E, C, d)
                   .transpose(0, 1).reshape(E, B * C, d))
 
-    out = _expert_ffn(p.experts, dispatched, cfg)  # (E, B*C, d)
+    lay = p.experts.layout
+    if lay == "ep":  # this rank's experts; the others' rows stay zero
+        El = E // sharding.tp_size()
+        e0 = sharding.coord(sharding.active_mesh(), sharding.TP_AXIS) * El
+        mine = _expert_ffn(p.experts, dispatched[e0:e0 + El], cfg)
+        out = mine.new_zeros((E,) + mine.shape[1:])
+        out[e0:e0 + El] = mine
+    else:
+        out = _expert_ffn(p.experts, dispatched, cfg)  # (E, B*C, d)
     out = out.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
     padded = torch.cat([out, out.new_zeros((B, 1, d))], dim=1)
     gathered = padded.reshape(B * rows, d).index_select(0, slots) \
         .reshape(B, S, K, d)
-    w = (r["gates"] * keep.reshape(B, S, K)).to(gathered.dtype)
-    y = torch.einsum("bskd,bsk->bsd", gathered, w)
+    w = r["gates"] * keep.reshape(B, S, K)
+    if lay == "ep" or (lay == "tp" and p.experts.down_local):
+        # each rank's part of the sum, summed over the ranks in f32
+        y = coll.psum(torch.einsum("bskd,bsk->bsd",
+                                   gathered.to(torch.float32), w),
+                      sharding.TP_AXIS).to(gathered.dtype)
+    else:
+        y = torch.einsum("bskd,bsk->bsd", gathered, w.to(gathered.dtype))
 
     if hasattr(p, "shared"):
         y = y + common.mlp_apply(p.shared, x, cfg).to(y.dtype)
@@ -189,8 +241,12 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
     aux = {"load_balance": E * torch.sum(me * ce),
            "dropped_frac": 1.0 - keep.to(torch.float32).mean()}
     if not qlinear.replaying():  # a remat recompute counts no slot twice
-        p.route_counts[0] += keep.sum()
-        p.route_counts[1] += keep.numel()
+        if sharding.row_axis() is None:
+            p.route_counts[0] += keep.sum()
+            p.route_counts[1] += keep.numel()
+        else:  # every rank's rows
+            p.route_counts += sharding.psum_rows(torch.stack(
+                [keep.sum(), torch.tensor(keep.numel(), device=x.device)]))
     return y.to(x.dtype), aux
 
 

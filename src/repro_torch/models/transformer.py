@@ -21,10 +21,18 @@ encoder-decoder config adds learned positions (``pos_embedding``, one row
 for each of ``max_seq_len`` positions); a position past them raises
 ValueError (the reference reads NaN rows there).
 
-Under an active mesh (``distributed.sharding.use``, the paged serving
-path) the embedding table may hold this rank's vocab rows
-(:func:`vocab_axis`): the lookup sums the ranks' rows and the tied head
-gathers the ranks' logit columns.
+Under an active mesh (``distributed.sharding.use``: the paged engine,
+static ``runtime.serve.generate``, the dry run's serve cells) every
+serving mode (``prefill``, ``decode``, ``paged``, ``encode``) runs every
+block kind on this rank's shard of a model cut by
+``runtime.serve.shard_params``, in the training layout: attention on this
+rank's heads, the MLP and a MoE block's experts (expert-parallel, or
+each expert tensor-parallel) on its block of the hidden dim, a Mamba and
+an mLSTM on its channels, each row-parallel projection ending in one
+collective; an sLSTM runs whole.  The embedding table may hold this
+rank's vocab rows (:func:`vocab_axis`): the lookup sums the ranks' rows
+and the tied head gathers the ranks' logit columns; a vision frontend's
+patch embeddings enter whole on every rank.
 
 :func:`forward` under an active mesh is a training step's, on a model
 cut by ``sharding.shard_model`` (FSDP x TP, the 'default' rules): the
@@ -46,7 +54,7 @@ import torch
 from torch import nn
 
 from repro_torch import kvq
-from repro_torch.device import resolve
+from repro_torch.device import is_fake, resolve
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding
 from repro_torch.models import common, layers, mamba, moe, xlstm
@@ -265,22 +273,28 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
     elif cache is not None:  # prefill
         x, k, v = layers.attn_apply(p.attn, cfg, h, positions, window=window,
                                     return_kv=True, residual=x)
-        cache["k"][:, :k.shape[1]] = k.to(cache["k"].dtype)
-        cache["v"][:, :v.shape[1]] = v.to(cache["v"].dtype)
+        layers.write_prefill(cache, "k", k, p.attn.layout)
+        layers.write_prefill(cache, "v", v, p.attn.layout)
     else:
         x = layers.attn_apply(p.attn, cfg, h, positions, window=window,
                               causal=mode != "encode", residual=x)
     if mode != "encode" and hasattr(p, "cross"):
         hc = common.norm_apply(p.ln_cross, x, cfg.norm,
                                rms_offset=cfg.rms_offset)
+        split = False
         if mode == "decode":
             ck, cv = cache["cross_k"], cache["cross_v"]
+            split = p.cross.layout.seq_split
         else:
             ck, cv = layers.cross_kv(p.cross, cfg, enc_out)
-            if cache is not None:  # prefill
-                cache["cross_k"] = ck.to(cache["cross_k"].dtype)
-                cache["cross_v"] = cv.to(cache["cross_v"].dtype)
-        x = layers.cross_attn_apply(p.cross, cfg, hc, ck, cv, residual=x)
+            if cache is not None:  # prefill: this rank's block, if split
+                lay = p.cross.layout
+                cache["cross_k"] = layers.seq_block(ck, lay).to(
+                    cache["cross_k"].dtype)
+                cache["cross_v"] = layers.seq_block(cv, lay).to(
+                    cache["cross_v"].dtype)
+        x = layers.cross_attn_apply(p.cross, cfg, hc, ck, cv, residual=x,
+                                    split=split)
     return _ffn(p, cfg, x, aux)
 
 
@@ -569,7 +583,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(params: Transformer, cfg: ModelConfig, batch, cache):
     """Run the prompt (a batch: tokens, + frames / patch_embeds), filling
-    ``cache``.  Returns (logits_last (B, V), cache)."""
+    ``cache`` (None: the forward over the prompt alone, as the dry run's
+    prefill cell lowers it).  Returns (logits_last (B, V), cache)."""
     x, enc_out = _inputs(params, cfg, batch)
     B, S = x.shape[:2]
     x, _ = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
@@ -627,7 +642,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, token, cache, pos):
     once for a whole generation), so a step needs no sync."""
     x = embed_inputs(params, cfg, token[:, None])
     if cfg.is_encdec:
-        if pos.device.type == "cpu":
+        if pos.device.type == "cpu" and not is_fake(pos):
             _check_positions(cfg, int(pos.max()))
         x = x + params.pos_embedding[pos.long()][:, None].to(x.dtype)
     x, _ = _stack_apply(params.blocks, cfg, x, pos[:, None], mode="decode",

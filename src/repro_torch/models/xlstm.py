@@ -17,6 +17,18 @@ and the port's does not (ROADMAP C).
 ``xl_up``, ``xl_o``, ``xl_down`` and the sLSTM's GeGLU MLP go through the
 weight kernels; the block-diagonal q/k/v, the scalar gates and the
 sLSTM's W and R stay plain f32 products, as in the reference.
+
+On a mesh whose 'model' axis divides the mLSTM's heads
+(:func:`mlstm_tensor_parallel`, recorded as ``MLSTM.tp``) each rank runs
+its heads (``xl_inner``):
+``xl_up`` and ``xl_o`` column-parallel (``xl_up``'s rows cut so that
+this rank's block holds its channels of both halves,
+``runtime.serve.shard_params``), the conv, the block-diagonal q/k/v, the
+cell and its state (C, n, m) on its heads, the gates' contraction over
+the channels summed over the ranks (f32), ``xl_down`` row-parallel.
+Otherwise every rank runs the mLSTM whole.  The sLSTM's W and R ('embed'
+axes) stay whole under the serve rules; its MLP runs tensor-parallel as
+any MLP does.
 """
 
 from __future__ import annotations
@@ -24,6 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding
 from repro_torch.models import common
 from repro_torch.models.mamba import _causal_conv  # the shared depthwise conv
 
@@ -34,11 +48,21 @@ def _dims(cfg):
     return di, cfg.num_heads, di // cfg.num_heads
 
 
+def mlstm_tensor_parallel(cfg, mesh) -> bool:
+    """Whether the ranks of 'model' on ``mesh`` split the mLSTM's
+    heads."""
+    M = sharding.tp_size(mesh)
+    return M > 1 and cfg.num_heads % M == 0
+
+
 # =========================================================== mLSTM block
 class MLSTM(common.Tree):
     """norm, xl_up, xl_conv_w (K, di), xl_conv_b, xl_q/xl_k/xl_v {w (H, dh,
     dh)}, xl_gates {w (2H, di), b}, xl_o, xl_down, lskip: the reference's
-    ``mlstm_init`` tree."""
+    ``mlstm_init`` tree.  ``tp``: ``runtime.serve.shard_params`` cut this
+    rank's heads (:func:`mlstm_tensor_parallel`)."""
+
+    tp = False
 
 
 def mlstm_init(cfg, *, generator: torch.Generator, device=None) -> MLSTM:
@@ -184,10 +208,13 @@ def mlstm_block_apply(p: MLSTM, cfg, x, *, state=None):
     (L > 1, ``cfg.xlstm_parallel``) takes the parallel form, decode the
     sequential step."""
     B, L, d = x.shape
-    di, H, dh = _dims(cfg)
+    di_all, H_all, dh = _dims(cfg)
+    tp = p.tp
+    col = dict(in_dim=d, local=tp)
     h_in = common.norm_apply(p.norm, x, cfg.norm)
-    ab = common.linear_apply(p.xl_up, h_in, cfg.quant, in_dim=d,
-                             tag="xl_up")
+    ab = common.linear_apply(p.xl_up, h_in, cfg.quant, tag="xl_up", **col)
+    di = ab.shape[-1] // 2  # this rank's channels
+    H = di // dh  # and heads
     a, b = torch.split(ab, di, dim=-1)
     tail = state["conv"] if state is not None else None
     ac, new_tail = _causal_conv(a, p.xl_conv_w, p.xl_conv_b, tail)
@@ -195,13 +222,19 @@ def mlstm_block_apply(p: MLSTM, cfg, x, *, state=None):
     q = _blockdiag(p.xl_q.w, ac, B, L, H, dh)
     k = _blockdiag(p.xl_k.w, ac, B, L, H, dh) * dh**-0.5
     v = _blockdiag(p.xl_v.w, a, B, L, H, dh)
-    gates = ac.to(torch.float32) @ p.xl_gates.w.t() + p.xl_gates.b
-    it = gates[..., :H]
-    ft = F.logsigmoid(gates[..., H:])
-    o = torch.sigmoid(common.linear_apply(p.xl_o, h_in, cfg.quant, in_dim=d,
-                                          tag="xl_o").to(torch.float32))
+    gates = ac.to(torch.float32) @ p.xl_gates.w.t()
+    if tp:  # every head's gates contract over every rank's channels
+        gates = coll.psum(gates, sharding.TP_AXIS)
+    gates = gates + p.xl_gates.b
+    h0 = sharding.coord(sharding.active_mesh(), sharding.TP_AXIS) * H \
+        if tp else 0
+    it = gates[..., h0:h0 + H]
+    ft = F.logsigmoid(gates[..., H_all + h0:H_all + h0 + H])
+    o = torch.sigmoid(common.linear_apply(p.xl_o, h_in, cfg.quant,
+                                          tag="xl_o", **col)
+                      .to(torch.float32))
     st = ((state["C"], state["n"], state["m"]) if state is not None
-          else tuple(mlstm_state(cfg, B, device=x.device)[n]
+          else tuple(mlstm_state(cfg, B, device=x.device, heads=H)[n]
                      for n in ("C", "n", "m")))
     seq_fn = (mlstm_sequence_parallel if L > 1 and cfg.xlstm_parallel
               else mlstm_sequence)
@@ -209,16 +242,20 @@ def mlstm_block_apply(p: MLSTM, cfg, x, *, state=None):
     hseq = hseq.reshape(B, L, di) * o
     # learnable skip from the conv branch
     hseq = (hseq + p.lskip * ac.to(torch.float32)).to(x.dtype)
-    out = common.linear_apply(p.xl_down, hseq * F.silu(b), cfg.quant,
-                              in_dim=di, tag="xl_down")
+    out = common.linear_apply(
+        p.xl_down, hseq * F.silu(b), cfg.quant, in_dim=di_all,
+        tag="xl_down", x_axis=sharding.TP_AXIS if tp else None)
     return x + out, {"C": C, "n": n, "m": m, "conv": new_tail}
 
 
-def mlstm_state(cfg, batch: int, dtype=torch.float32, *, device=None
-                ) -> dict:
+def mlstm_state(cfg, batch: int, dtype=torch.float32, *, device=None,
+                heads: int | None = None) -> dict:
     """The initial state: C, n zero and the stabilizer m at -inf (f32),
-    the conv tail (batch, K-1, di) in ``dtype``."""
+    the conv tail (batch, K-1, di) in ``dtype``; of ``heads`` heads (and
+    their channels) where a rank holds some of them."""
     di, H, dh = _dims(cfg)
+    if heads is not None:
+        di, H = heads * dh, heads
     return {"C": torch.zeros((batch, H, dh, dh), device=device),
             "n": torch.zeros((batch, H, dh), device=device),
             "m": torch.full((batch, H), -torch.inf, device=device),

@@ -435,9 +435,9 @@ class Engine:
     (contraction chunks of a row-parallel linear; 0: the cache's tuned
     variant) and shard_impl ('xla' | 'ring') go into the ExecPolicy.
     Every rank calls :meth:`run`; global rank 0 leads and returns, on
-    every rank, its results.  Dense decoders with 'attn' and 'local'
-    blocks only (NotImplementedError otherwise, ROADMAP A13c), eager only
-    (``cuda_graph=True`` raises ValueError).
+    every rank, its results.  Decoders with 'attn', 'local' and 'moe'
+    blocks only (NotImplementedError otherwise: :func:`check_mesh_model`),
+    eager only (``cuda_graph=True`` raises ValueError).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
@@ -1098,17 +1098,20 @@ class Engine:
 
 
 def check_mesh_model(cfg: ModelConfig) -> None:
-    """NotImplementedError unless the mesh engine serves ``cfg``: dense
-    decoders with 'attn' and 'local' blocks."""
+    """NotImplementedError unless the mesh engine serves ``cfg``: decoders
+    with 'attn', 'local' and 'moe' blocks.  Recurrent, encoder-decoder and
+    vision models have no paged state, on a mesh as on one device; the
+    static engine serves them on a mesh (``runtime.serve.generate``)."""
     if cfg.is_encdec or cfg.frontend or any(
-            kind not in ("attn", "local") for kind in cfg.block_pattern):
+            kind not in ("attn", "local", "moe")
+            for kind in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: under a mesh the engine serves dense decoders "
-            f"with 'attn' and 'local' blocks, not {cfg.block_pattern}"
+            f"{cfg.name}: the paged engine serves decoders with 'attn', "
+            f"'local' and 'moe' blocks, not {cfg.block_pattern}"
             + (" (encoder-decoder)" if cfg.is_encdec else "")
             + (f" (frontend {cfg.frontend})" if cfg.frontend else "")
-            + "; MoE, recurrent, encoder-decoder and vision models on a "
-              "mesh are ROADMAP A13c")
+            + "; serve it through the static engine, which runs every "
+              "family on a mesh")
 
 
 def _check_mesh(cfg: ModelConfig, mesh, rules: str, cuda_graph) -> bool:

@@ -7,7 +7,9 @@ batch fake tensors, runs one real train step.
   for each rank, its collectives by kind (count and bytes) are equal,
   and its argument bytes equal the real rank's state plus batch bytes;
   the peak from ``MemTracker`` covers the arguments;
-* MoE and serve cells come back ``skipped`` with a reason (ROADMAP A13c);
+* the train cells of the non-dense archs come back ``skipped`` with a
+  reason naming the ROADMAP entry (A13c); the serve cells are
+  ``tests/test_torch_dryrun_serve.py``'s;
 * the CLI writes one JSON file a cell under ``--out`` and nothing else
   (``benchmarks/results/`` untouched); a cell that raises is ``failed``
   and the CLI exits 1.
@@ -58,8 +60,8 @@ def test_fake_cell_equals_a_real_step(real, rank):
 
 @pytest.mark.parametrize("arch,shape,match", [
     ("qwen2_moe", "train_4k", "A13c"),
-    ("gemma_2b", "decode_32k", "static engine on a mesh"),
-    ("gemma_2b", "prefill_32k", "static engine on a mesh"),
+    ("jamba_v01", "train_4k", "A13c"),
+    ("whisper_medium", "train_4k", "A13c"),
     ("gemma_2b", "long_500k", "quadratic"),
 ])
 def test_unported_cells_are_skipped(arch, shape, match):

@@ -159,18 +159,19 @@ def test_serve_cli_static_engine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "model=2"], ["--shard-impl", "ring"],
+    ["--mesh", "model=2", "--shard-pipeline", "0"], ["--shard-impl", "ring"],
     ["--force-host-devices", "4"],
 ], ids=["mesh", "shard-impl", "force-host-devices"])
 def test_serve_cli_refuses_unported_flags(flags):
-    """The mesh flags are ported (slice 15) and refused where they do not
-    apply: ``--mesh`` on the static engine, the shard and host-device
-    flags without ``--mesh``; each with a message, before anything is
-    built."""
+    """The mesh flags are ported and refused where they do not apply:
+    ``--mesh`` with the tuned shard variant (``--shard-pipeline 0``, not
+    ported), the shard and host-device flags without ``--mesh``; each
+    with a message, before anything is built (``--mesh`` serves both
+    engines)."""
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
                     *flags])
-    want = ("--engine continuous" if flags[0] == "--mesh"
+    want = ("--shard-pipeline 0" if flags[0] == "--mesh"
             else "apply only with --mesh")
     assert isinstance(exc.value.code, str) and want in exc.value.code
 
@@ -351,3 +352,18 @@ def test_train_cli_refuses_bad_meshes(flags, match, capsys, monkeypatch):
     with pytest.raises(SystemExit):
         LT.parse_args(["--arch", "gemma_2b", *flags])
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["jamba_v01", "whisper_medium"])
+def test_serve_cli_static_engine_on_a_mesh(arch, capfd):
+    """``--engine static --mesh``: static ``generate`` SPMD over two host
+    ranks; ``--check`` holds rank 0's tokens to a single-device
+    ``generate`` of the same weights (exact)."""
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--engine", "static", "--check", "--new-tokens", "3",
+                      "--mesh", "model=2", "--force-host-devices", "2"])
+    text = capfd.readouterr().out
+    assert "[serve] mesh {'model': 2}: static generate" in text
+    assert "single-device parity check: identical" in text
+    assert out["checked"] == 4 and len(out["tokens"]) == 4
+    assert out["collectives"]["all_reduce"] > 0

@@ -11,8 +11,9 @@ sharded engine is held to the single-device engines: greedy tokens equal
 for msgemm, int4_dequant and bf16 weights, under reduce_scatter,
 pipelining (2 chunks), mid-stream preemption and with a kv8 pool. Also:
 plans resolved at build and keyed by the mesh, an off-mesh cache entry
-never replayed sharded, the refusals (a MoE model, ``cuda_graph=True``,
-the 'default' rules), and the serve CLI's ``--mesh``.
+never replayed sharded, the refusals (a recurrent model, which has no
+paged state, ``cuda_graph=True``, the 'default' rules), and the serve
+CLI's ``--mesh``.
 """
 
 import numpy as np
@@ -40,8 +41,7 @@ from repro_torch.serving import Engine, Request  # noqa: E402
 
 CFG = JModelConfig(num_layers=2, d_model=32, num_heads=4, num_kv_heads=2,
                    d_ff=64, vocab_size=64, max_seq_len=64)
-MOE_CFG = CFG.replace(block_pattern=("attn", "moe"), num_experts=4,
-                      num_experts_per_tok=2)
+REC_CFG = CFG.replace(block_pattern=("attn", "mamba"))
 BASE = dict(max_slots=4, block_size=4, prefill_chunk=4, max_model_len=32)
 PREEMPT = dict(max_slots=2, block_size=4, prefill_chunk=8, num_blocks=7,
                max_model_len=16)
@@ -93,8 +93,8 @@ def weights():
     for mode in ("msgemm", "int4_dequant", "bf16"):
         tree, jcfg = _ref_tree(mode)
         out[mode] = (tree, jcfg, convert.config_from_jax(jcfg))
-    # the MoE refusal reads the config alone
-    out["moe"] = (None, MOE_CFG, convert.config_from_jax(MOE_CFG))
+    # the recurrent refusal reads the config alone
+    out["recurrent"] = (None, REC_CFG, convert.config_from_jax(REC_CFG))
     return out
 
 
@@ -179,7 +179,7 @@ def test_mesh_replan_reaches_every_rank(sharded):
 def test_mesh_engine_refusals(sharded):
     assert sharded[0]["refusals"] == {"cuda_graph": "ValueError",
                                       "default_rules": "NotImplementedError",
-                                      "moe": "NotImplementedError"}
+                                      "recurrent": "NotImplementedError"}
 
 
 def test_cli_serves_on_a_mesh_of_host_ranks(capfd):
@@ -202,13 +202,14 @@ def test_cli_refuses_what_it_cannot_serve_on_a_mesh(monkeypatch):
     with pytest.raises(SystemExit, match="needs 4 devices"):
         CLI.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
                   "--engine", "continuous", "--mesh", "model=4"])
-    with pytest.raises(NotImplementedError, match="A13c"):
-        CLI.main(["--arch", "qwen2_moe", "--smoke", "--device", "cpu",
+    with pytest.raises(NotImplementedError, match="static engine"):
+        CLI.main(["--arch", "xlstm_1b3", "--smoke", "--device", "cpu",
                   "--engine", "continuous", "--mesh", "model=2",
                   "--force-host-devices", "2"])
-    with pytest.raises(SystemExit, match="engine continuous"):
+    with pytest.raises(SystemExit, match="shard-pipeline 0"):
         CLI.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
-                  "--mesh", "model=2", "--force-host-devices", "2"])
+                  "--mesh", "model=2", "--force-host-devices", "2",
+                  "--shard-pipeline", "0"])
 
 
 def test_mesh_runner_failure_is_fatal_on_every_rank(weights, tmp_path):

@@ -1,0 +1,49 @@
+"""The static engine on a mesh, on the CPU (1 of 2): ``runtime.serve.
+generate`` run SPMD by two gloo ranks on (model=2)
+(``launch.mesh.run_ranks``; the rank body in
+``tests/torch_mesh_ranks.py``, the cases in
+``tests/torch_mesh_static_cases.py``), each rank on its ``shard_params``
+copy, for the SMOKE configs of gemma-2b (MQA: one kv head, so the decode
+cache splits its sequence over 'model') and jamba-v0.1 (Mamba, attention
+and MoE blocks), msgemm weights at d=2 / scale_block=8 (every projection
+splits on the boundary): tokens equal to the reference's
+``repro.runtime.serve.generate`` on the same weights and inputs (exact),
+every step's logits within 1e-4 of the port's single-device run.
+xlstm-1.3b, whisper-medium and phi-3-vision are in
+``tests/test_torch_mesh_static_more.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+from torch_plan_isolation import (  # noqa: E402,F401  (autouse)
+    isolated_plan_cache, isolated_plan_cache_module)
+
+import torch_mesh_static_cases as C  # noqa: E402
+from repro import configs as j_configs  # noqa: E402
+
+ARCHS = ("gemma_2b", "jamba_v01")
+
+
+@pytest.fixture(scope="module")
+def cases():
+    return {arch: C.case(arch) for arch in ARCHS}
+
+
+@pytest.fixture(scope="module")
+def ranks(cases):
+    return C.run(cases)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_static_generate_on_a_mesh_equals_reference(cases, ranks, arch):
+    C.check(cases[arch][0], ranks, arch)
+
+
+def test_split_sequence_decode_combines_partial_softmax(ranks):
+    """gemma-2b's one kv head cannot take 'model': the decode cache splits
+    its sequence, and each decode layer takes the max of the ranks'
+    logits (all_reduce_max) and sums their exp-sums and values."""
+    layers = j_configs.get_smoke("gemma_2b").num_layers
+    counts = ranks[0]["gemma_2b"]["collectives"]
+    assert counts["all_reduce_max"] == layers * (C.NEW - 1)

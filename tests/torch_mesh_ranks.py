@@ -132,8 +132,8 @@ def engine_rank(rank, device, trees, tcfgs, scenarios):
     """The continuous engine on a (data=2, model=2) mesh: for each
     scenario (name, weights key, Engine kwargs, prompts, new tokens),
     tokens by request id, the preemptions, the exec plans' keys and
-    shard tags; then the refusals (the MoE one reads its config alone,
-    before any weight)."""
+    shard tags; then the refusals (the recurrent one reads its config
+    alone, before any weight)."""
     from repro_torch import convert, faults
     from repro_torch.serving import Engine, Request
 
@@ -179,8 +179,8 @@ def engine_rank(rank, device, trees, tcfgs, scenarios):
             ("default_rules", lambda: Engine(models["msgemm"],
                                              tcfgs["msgemm"], mesh=mesh,
                                              mesh_rules="default")),
-            ("moe", lambda: Engine(models["msgemm"], tcfgs["moe"],
-                                   mesh=mesh))):
+            ("recurrent", lambda: Engine(models["msgemm"],
+                                         tcfgs["recurrent"], mesh=mesh))):
         try:
             fn()
             refusals[what] = None
@@ -222,3 +222,131 @@ def runner_failure_rank(rank, device, tree, tcfg, prompts, path):
             with open(path, "w") as f:
                 json.dump(dict(calls=len(calls),
                                retries=eng.num_step_retries), f)
+
+
+# ----------------------------------------- the training layout in serving
+def _counting_runner(eng):
+    """Wrap ``eng``'s step runner so that each step it runs records its
+    collectives by kind: [(step shape name, {kind: count})]."""
+    steps = []
+    run = eng.runner._run
+
+    def counted(name, arrays):
+        coll.reset_counts()
+        out = run(name, arrays)
+        steps.append((name, dict(coll.counts)))
+        return out
+
+    eng.runner._run = counted
+    return steps
+
+
+def layout_rank(rank, device, trees, tcfgs, shape, axes, kw, prompts, new):
+    """The continuous engine on a ``shape`` / ``axes`` mesh for each
+    weights key of ``trees``: tokens by request id, each step's
+    collectives (:func:`_counting_runner`), and the MoE blocks'
+    dropped_frac."""
+    from repro_torch import convert
+    from repro_torch.models import moe
+    from repro_torch.serving import Engine, Request
+
+    mesh = make_mesh(shape, axes)
+    out = {}
+    for key, tree in trees.items():
+        model = convert.params_from_jax(tree, tcfgs[key], device="cpu")
+        eng = Engine(model, tcfgs[key], mesh=mesh, **kw)
+        steps = _counting_runner(eng)
+        moe.reset_route_counts(model)
+        res = eng.run([Request(rid=i, prompt=p, max_new_tokens=new)
+                       for i, p in enumerate(prompts)])
+        out[key] = dict(tokens={rid: s.generated for rid, s in res.items()},
+                        steps=steps, dropped=moe.dropped_frac(model),
+                        plans={k: (p.backend, None if p.shard is None
+                                   else p.shard.tag())
+                               for k, p in eng.exec_plans.items()})
+    return out
+
+
+def static_rank(rank, device, cases, new, shape, axes):
+    """Static ``generate`` of each case {name: (numpy tree, port cfg,
+    numpy batch)} on one device and on a ``shape`` / ``axes`` mesh (this
+    rank's ``shard_params`` copy): tokens and every step's logits of
+    both, and the mesh run's collectives."""
+    from repro_torch import convert
+    from repro_torch.runtime import serve as SV
+
+    mesh = make_mesh(shape, axes)
+    out = {}
+    for name, (tree, tcfg, batch) in cases.items():
+        model = convert.params_from_jax(tree, tcfg, device="cpu")
+        b = {k: torch.from_numpy(v) for k, v in batch.items()}
+        one, many = [], []
+        single = SV.generate(model, tcfg, b, max_new_tokens=new,
+                             step_logits=one)
+        local = SV.shard_params(model, tcfg, mesh)
+        coll.reset_counts()
+        sharded = SV.generate(local, tcfg, b, max_new_tokens=new,
+                              mesh=mesh, step_logits=many)
+        out[name] = dict(single=single, sharded=sharded,
+                         single_logits=one, sharded_logits=many,
+                         collectives=dict(coll.counts))
+    return out
+
+
+def serve_cell_rank(rank, device, cfg, shapes, mesh_shape, axes, seed):
+    """A real step of each dry-run serve cell ``shapes`` on this rank of a
+    ``mesh_shape`` / ``axes`` mesh: the model drawn from ``seed`` (whole,
+    then cut by ``shard_params``), the rank's inputs built as the dry run
+    builds them (``launch.dryrun.serve_inputs``, random tokens, a decode
+    at position ``seq_len - 1`` over a zero cache).  Returns each cell's
+    collectives (count and bytes by kind) and argument bytes."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.runtime import serve as SV
+
+    mesh = make_mesh(mesh_shape, axes)
+    whole = transformer.init_params(
+        cfg, generator=torch.Generator().manual_seed(seed), device="cpu",
+        quant=cfg.quant)
+    params = SV.shard_params(whole, cfg, mesh, dryrun.SERVE_RULES)
+    g = torch.Generator().manual_seed(seed + 1)
+    out = {}
+    for shape in shapes:
+        def make(dims, dtype, name, seq=shape.seq_len):
+            if name in ("tokens", "token"):
+                return torch.randint(0, cfg.vocab_size, dims, generator=g,
+                                     dtype=dtype)
+            if name == "pos":
+                return torch.full(dims, seq - 1, dtype=dtype)
+            return torch.zeros(dims, dtype=dtype)
+
+        inputs, row = dryrun.serve_inputs(cfg, shape, mesh, make=make)
+        coll.reset_counts()
+        dryrun.serve_step(params, cfg, shape.kind, inputs, mesh, row)
+        out[shape.name] = dict(
+            collectives={k: {"count": coll.counts[k],
+                             "bytes": coll.nbytes[k]}
+                         for k in sorted(coll.counts)},
+            argument_bytes=dryrun.serve_bytes(params, inputs))
+    return out
+
+
+def moe_counts_rank(rank, device, tree, tcfg, shape, axes, kw, prompts,
+                    new):
+    """The continuous engine on a MoE model on a ``shape`` / ``axes``
+    mesh: tokens, the MoE blocks' routed-slot counters summed (kept,
+    total) and dropped_frac."""
+    from repro_torch import convert
+    from repro_torch.models import moe
+    from repro_torch.serving import Engine, Request
+
+    mesh = make_mesh(shape, axes)
+    model = convert.params_from_jax(tree, tcfg, device="cpu")
+    eng = Engine(model, tcfg, mesh=mesh, **kw)
+    moe.reset_route_counts(model)  # the build's idle steps route too
+    res = eng.run([Request(rid=i, prompt=p, max_new_tokens=new)
+                   for i, p in enumerate(prompts)])
+    counts = torch.stack([m.route_counts for m in moe._moes(model)])
+    return dict(tokens={rid: s.generated for rid, s in res.items()},
+                counts=counts.sum(0).tolist(),
+                dropped=moe.dropped_frac(model))

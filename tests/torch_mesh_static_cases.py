@@ -1,0 +1,69 @@
+"""Shared cases of the static-engine-on-a-mesh tests
+(``tests/test_torch_mesh_static*.py``): the reference's SMOKE weights and
+inputs of an architecture, its tokens from ``repro.runtime.serve.generate``,
+and the checks of a two-rank (model=2) run of the port's ``generate``
+(``tests/torch_mesh_ranks.static_rank``) against them."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+import torch_mesh_ranks as R
+from repro import configs as j_configs
+from repro.core.spec import QuantSpec as JSpec
+from repro.models import transformer as JT
+from repro.quant import quantize_model as j_quantize
+from repro.runtime import serve as JSV
+from repro_torch import convert
+from repro_torch.launch.mesh import run_ranks
+
+SPEC = dict(mode="msgemm", d=2, scale_block=8)
+B, T, NEW, FRAMES = 2, 6, 4, 8
+# absolute, on SMOKE logits a few units in size: the mesh sums the same
+# products in another order (row-parallel psums, the split-sequence
+# softmax), which moves them by about 1e-6
+LOGIT_TOL = 1e-4
+
+
+def case(arch):
+    """(reference tokens, numpy tree, port cfg, numpy batch) of ``arch``'s
+    SMOKE config with msgemm weights at :data:`SPEC`."""
+    jcfg = j_configs.get_smoke(arch)
+    spec = JSpec(**SPEC)
+    jp = jax.jit(lambda p: j_quantize(p, jcfg, spec))(
+        JT.init_params(jax.random.PRNGKey(0), jcfg))
+    jcfg = jcfg.replace(quant=spec)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, jcfg.vocab_size,
+                                    size=(B, T)).astype(np.int32)}
+    if jcfg.is_encdec:
+        batch["frames"] = rng.normal(
+            size=(B, FRAMES, jcfg.d_model)).astype(np.float32)
+    elif jcfg.frontend == "image_patches":
+        batch["patch_embeds"] = rng.normal(
+            size=(B, jcfg.num_patches, jcfg.d_model)).astype(np.float32)
+    want = JSV.generate(jp, jcfg, {k: jnp.asarray(v)
+                                   for k, v in batch.items()},
+                        max_new_tokens=NEW)
+    return (np.asarray(want), jax.tree.map(np.asarray, jp),
+            convert.config_from_jax(jcfg), batch)
+
+
+def run(cases):
+    """Both ranks' results of every case, one spawn."""
+    return run_ranks(R.static_rank, 2, {a: c[1:] for a, c in cases.items()},
+                     NEW, (2,), ("model",), timeout=300)
+
+
+def check(want, ranks, arch):
+    """Every rank's tokens (single-device and mesh) equal the reference's,
+    and each mesh step's logits are within :data:`LOGIT_TOL` of the
+    single-device step's."""
+    for r in ranks:
+        got = r[arch]
+        assert got["single"].tolist() == want.tolist()
+        assert got["sharded"].tolist() == want.tolist()
+        assert len(got["sharded_logits"]) == NEW
+        for a, b in zip(got["sharded_logits"], got["single_logits"]):
+            assert float((a - b).abs().max()) <= LOGIT_TOL
+        assert got["collectives"].get("all_reduce", 0) > 0
