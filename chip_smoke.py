@@ -286,11 +286,11 @@ Phases, any failure exits non-zero before the last line is printed:
    the msgemm model serves the stream on the graph route (126 msGeMM
    launches a step, tokens == static generate) and with a kv8 pool
    through the paged-attention kernel (18 launches a step) and the
-   torch route (the same tokens).  Then gemma-2b cut to 2 layers takes
+   torch route (the same tokens).  Then gemma-2b cut to 1 layer takes
    one step from the same weights and batch on the card and on the CPU:
    loss and grad_norm within 1e-4 relative with f32 activations (gated;
-   the bf16 step was cut for the mesh phases' time).  Then ``runtime.driver.run`` at 2 layers (f32
-   activations), checkpoints under
+   the bf16 step was cut for the mesh phases' time).  Then
+   ``runtime.driver.run`` at 1 layer (f32 activations), checkpoints under
    ``chiprun_out/train/``: a crash at step 3, a restart that resumes at
    the step-2 checkpoint with the uninterrupted losses (rtol 1e-5); and
    ``python -m repro_torch.launch.train --arch gemma_2b --smoke --steps
@@ -354,18 +354,30 @@ Phases, any failure exits non-zero before the last line is printed:
    nonzero); the checkpoint restored onto one device here, whose
    next step equals the mesh's within 1e-4; each rank's step ms,
    tokens/s and peak GiB, the collectives a step by kind, bytes and
-   seconds.  ``[train-mesh-nccl ...]``: the same mesh at full depth
+   seconds.  ``[train-mesh-families ...]``: every family trains on
+   that mesh, full width, one step each, all in one spawn of the four
+   ranks: qwen2-moe at 1 layer (expert-parallel, 30 experts a rank),
+   jamba at 1 (its Mamba block on each rank's channels), xlstm-1.3b at 8
+   (7 mLSTM on each rank's heads, the sLSTM whole), whisper-medium at 2
+   + 2 over 1500 stub frames (the encoder and the cross attention on
+   each rank's heads), phi-3-vision at 2 with 576 patches: loss,
+   grad_norm, load_balance and dropped_frac within 1e-4 of one step on
+   the card alone, every rank's alike, no hand-written kernel launched;
+   step ms, peak GiB a rank, the collectives by kind and bytes.
+   ``[train-mesh-nccl ...]``: the same mesh at full depth
    (18 layers), one rank a card over NCCL, 3 steps, held to the card
    alone within 1e-4, where four cards are visible.  ``[dryrun ...]``
-   (in a whole run after the train phase, with no other phase running):
-   ``python -m repro_torch.launch.dryrun --arch gemma_2b --shape
-   train_4k`` on the 256- and the 512-device production mesh, and
+   (under ``--only mesh`` only, after the mesh phases, with no other
+   phase running; a whole run leaves it out since the every-family
+   mesh-training phase): ``python -m repro_torch.launch.dryrun --arch
+   gemma_2b --shape train_4k`` on the 256- and the 512-device
+   production mesh, and
    ``--shape prefill_32k`` and ``decode_32k`` (msgemm weights, the serve
    rules) on the 256-device one, the four cells side by side on the host
    (fake process group, fake tensors): each ``ok``, arguments and peak
-   GiB a device, the collectives by kind.  ``--only mesh`` runs the build and
-   this phase alone (with the main phase's reference run first), then
-   the dry run.
+   GiB a device, the collectives by kind.  ``--only mesh`` runs the
+   build and this phase alone (with the main phase's reference run
+   first), then the dry run.
 11. report — the seconds of every phase (each phase also prints a
    ``[phase] <name> <s>`` line when it ends), the card's name and power
    limit, then a ``kernels`` JSON line.
@@ -4267,10 +4279,11 @@ def phase_encdec():
 # ----------------------------------------------------------------- train
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 128, 3e-3
 TRAIN_DIR = ROOT / "chiprun_out" / "train"
-# the card against the CPU: one step of gemma-2b cut to 2 layers
-CARD_CPU = dict(layers=2, batch=2, seq=64)
+# the card against the CPU: one step of gemma-2b cut to 1 layer (2
+# before the every-family mesh-training phase was paid for)
+CARD_CPU = dict(layers=1, batch=2, seq=64)
 CARD_CPU_TOL = 1e-4  # relative, loss and grad_norm with f32 activations
-DRIVER = dict(layers=2, steps=4, every=2, crash=3, batch=2, seq=64)
+DRIVER = dict(layers=1, steps=4, every=2, crash=3, batch=2, seq=64)
 LCG_PROMPT, LCG_ROWS = 32, 4
 
 
@@ -5544,6 +5557,8 @@ def phase_mesh(card, ref=None):
                                    card, two, "mesh-static-nccl")
     out["calib_moe"] = phase("calib-moe", phase_calib_moe)
     out["train_mesh"] = phase("train-mesh", phase_train_mesh, card)
+    out["train_families"] = phase("train-mesh-families",
+                                  phase_train_families, card)
     if torch.cuda.device_count() >= 4:
         out["train_mesh_nccl"] = phase("train-mesh-nccl",
                                        phase_train_mesh_nccl, card)
@@ -5817,6 +5832,161 @@ def phase_train_mesh(card):
                 restored=dict(
                     losses=after[0], rel=rel11, s=restore_s),
                 checkpoint_bytes=size, ranks_s=ranks_s)
+
+
+# ------------------------------------------- every family trains on a mesh
+# full width, at a depth that fits beside the other phases, one step each
+# on the train phase's batch (8 x 128 lcg tokens, seed 0), f32
+# activations, AdamW, remat: qwen2-moe 1 layer (~1.19 B parameters, 60
+# experts over model=2: expert-parallel), jamba 1 layer (the first of its
+# pattern, a Mamba block and MLP), xlstm-1.3b 8 (7 mLSTM and the sLSTM),
+# whisper-medium 2 + 2
+# over 1500 stub frames, phi-3-vision 2 with 576 patches.  llama4 (one
+# MoE layer is ~16 B parameters) and jamba's mamba_moe layer (~2.8 B,
+# ~45 GB of f32 AdamW state) train on a mesh in the CPU tests at SMOKE
+# width only.
+TRAIN_FAMILIES = (("qwen2_moe", dict(num_layers=1)),
+                  ("jamba_v01", dict(num_layers=1,
+                                     block_pattern=("mamba",))),
+                  ("xlstm_1b3", dict(num_layers=8)),
+                  ("whisper_medium", dict(num_layers=2, encoder_layers=2)),
+                  ("phi3_vision", dict(num_layers=2)))
+FAMILY_FRAMES = 1500  # whisper's 30-second window of stub frames
+FAMILY_METRICS = ("loss", "grad_norm", "load_balance", "dropped_frac")
+
+
+def family_cfg(arch, extra):
+    from repro_torch import configs
+
+    return configs.get_config(arch).replace(dtype="float32", **extra)
+
+
+def family_step(cfg, device, mesh=None):
+    """One train step of ``cfg`` from seed 0 on batch 0 of the train
+    phase's lcg stream (whisper's frames, phi-3's patches added; on
+    ``mesh``, this rank's rows): its ``FAMILY_METRICS``, step ms (host
+    clock, synchronised), peak bytes allocated, the collectives by kind
+    ([count, bytes])."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.device import generator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.runtime import train as RT
+
+    tcfg = train_config(TRAIN_STEPS)
+    state = RT.init_state(cfg, tcfg, generator=generator(0, device),
+                          device=device, mesh=mesh)
+    data = SyntheticStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ + 1,
+        global_batch=TRAIN_BATCH, seed=0, frontend=cfg.frontend,
+        d_model=cfg.d_model, num_frames=FAMILY_FRAMES,
+        num_patches=cfg.num_patches))
+    batch = data.device_batch(0, device=device, mesh=mesh)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    coll.reset_counts()
+    t0 = time.perf_counter()
+    state, met = RT.train_step(state, batch, cfg, tcfg)
+    met = {k: float(met[k]) for k in FAMILY_METRICS}
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    out = dict(metrics=met, ms=ms,
+               peak_bytes=torch.cuda.max_memory_allocated(device),
+               params=sum(t.numel() for t in state["params"].buffers()),
+               collectives={k: [coll.counts[k], coll.nbytes[k]]
+                            for k in sorted(coll.counts)})
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_families_rank(rank, device, families):
+    """One rank of the (data=2, model=2) mesh: one step of each of
+    ``families`` ({arch, config fields}) from seed 0 (:func:`family_step`);
+    hand-written kernel launches counted over the whole run."""
+    import torch
+
+    from repro_torch.distributed.collectives import transport
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for mod in KERNELS.values():
+        mod.launches = 0
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {arch: family_step(family_cfg(arch, extra), device, mesh)
+           for arch, extra in families}
+    return dict(rank=rank, device=str(device), families=out,
+                transport=transport(),
+                launches={n: mod.launches for n, mod in KERNELS.items()})
+
+
+def phase_train_families(card):
+    """Every model family trains on a mesh (``moe.moe_apply_tp``,
+    ``mamba.mamba_apply_tp``, ``xlstm.*_block_apply_tp``, the encoder and
+    cross attention, the patches ahead of the text): each of
+    ``TRAIN_FAMILIES`` at full width, one step on the card alone, then
+    one step on (data=2, model=2), four ranks sharing ``cuda:0`` over
+    host-staged gloo, all families in one spawn of the ranks.  Each
+    family's loss, grad_norm, load_balance and dropped_frac within
+    ``TRAIN_MESH_TOL`` of the card alone's (relative; a zero must stay
+    zero), every rank's metrics and collectives alike, no hand-written
+    kernel launched.  Per family: step ms, peak GiB a rank, the
+    collectives by kind and bytes."""
+    from repro_torch.launch.mesh import run_ranks
+
+    one = {arch: family_step(family_cfg(arch, extra), "cuda")
+           for arch, extra in TRAIN_FAMILIES}
+    t0 = time.perf_counter()
+    ranks = run_ranks(train_families_rank, 4, TRAIN_FAMILIES,
+                      devices=["cuda:0"] * 4, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    lead = ranks[0]
+    out = dict(one_card=one, ranks=ranks, ranks_s=ranks_s, rel={})
+    for r in ranks:
+        check(r["launches"] == {n: 0 for n in r["launches"]},
+              f"[train-mesh-families] rank {r['rank']} launched "
+              f"hand-written kernels: {r['launches']}")
+    for arch, extra in TRAIN_FAMILIES:
+        fam = [r["families"][arch] for r in ranks]
+        for r, f in zip(ranks, fam):
+            check(f["metrics"] == fam[0]["metrics"]
+                  and f["collectives"] == fam[0]["collectives"],
+                  f"[train-mesh-families] {arch}: rank {r['rank']}'s "
+                  "metrics or collectives differ from rank 0's")
+        got, want = fam[0]["metrics"], one[arch]["metrics"]
+        rel = max(abs(got[k] - want[k]) / abs(want[k]) if want[k]
+                  else abs(got[k]) * math.inf if got[k] else 0.0
+                  for k in FAMILY_METRICS)
+        out["rel"][arch] = rel
+        check(rel <= TRAIN_MESH_TOL,
+              f"[train-mesh-families] {arch}: mesh {got} vs one card's "
+              f"{want}: rel {rel:.2e} > {TRAIN_MESH_TOL}")
+        cfg = family_cfg(arch, extra)
+        print(f"[train-mesh-families] {arch} full width, {cfg.num_layers} "
+              f"layer(s)"
+              + (f" + {cfg.encoder_layers} encoder" if cfg.is_encdec else "")
+              + f", {one[arch]['params']:,} params, f32, remat, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens on (data=2, model=2), 4 "
+              f"ranks sharing one card ({card}, {lead['transport']}): "
+              + ", ".join(f"{k} {got[k]:.6g}" for k in FAMILY_METRICS)
+              + f" == one card's within rel {rel:.2e} (tol "
+              f"{TRAIN_MESH_TOL}); step "
+              + "/".join(f"{f['ms']:.0f}" for f in fam)
+              + f" ms a rank (one card {one[arch]['ms']:.0f}), peak "
+              + "/".join(f"{f['peak_bytes'] / 2**30:.2f}" for f in fam)
+              + f" GiB a rank (one card "
+              f"{one[arch]['peak_bytes'] / 2**30:.2f}); collectives (rank 0) "
+              + ", ".join(f"{k} {c} ({b / 2**20:.1f} MiB)"
+                          for k, (c, b) in fam[0]["collectives"].items()),
+              flush=True)
+    print(f"[train-mesh-families] {len(TRAIN_FAMILIES)} families, one spawn "
+          f"of 4 ranks: {ranks_s:.1f}s; no hand-written kernel launched",
+          flush=True)
+    return out
 
 
 def train_nccl_rank(rank, device, steps):
@@ -6106,7 +6276,6 @@ def main() -> int:
     recurrent = phase("recurrent", phase_recurrent)
     encdec = phase("encdec", phase_encdec)
     train = phase("train", phase_train)
-    dryrun = phase("dryrun", phase_dryrun)
     mesh = phase_mesh(card, main_path)
 
     def layer_entry(gemm_cases, gemms=GEMMA_GEMMS, model="gemma-2b",
@@ -6250,7 +6419,7 @@ def main() -> int:
         main=main_path, kvq=kvq_path,
         int4=int4_path, plan=plan_path, calib=calib_path,
         resilience=res_path, gemma2_9b=gemma2, recurrent=recurrent,
-        encdec=encdec, train=train, mesh=mesh, dryrun=dryrun,
+        encdec=encdec, train=train, mesh=mesh,
         phase_s=PHASE_S,
         gemma2_9b_layers=layers,
         kernels=kernels, total_s=time.perf_counter() - t_start), indent=1))

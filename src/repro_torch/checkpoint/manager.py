@@ -26,7 +26,8 @@ On a mesh (``shardings``, a :class:`~repro_torch.distributed.sharding.
 TreeSharding`: the mesh and each leaf's spec) the tree holds this rank's
 blocks: ``save`` gathers every leaf whole (each rank takes part), rank 0
 writes the same files a single device writes, and every rank waits for
-it; ``restore`` cuts each whole leaf to this rank's block.  So a restore
+it; ``restore`` cuts each whole leaf to this rank's block (a two-halves
+leaf's, ``TreeSharding.halves``, from both halves).  So a restore
 is elastic: a checkpoint of any mesh, or of one device, restores onto
 any mesh whose rules divide its shapes.
 """
@@ -182,11 +183,25 @@ class CheckpointManager:
                             shards, f"{i:05d}.{rank}.npy"), mmap_mode="r")
                         whole[sharding.local_index(whole.shape, spec, mesh,
                                                    coords=coords)] = block
-                    a = whole
+                    a = self._halves(whole, name, shardings, sharding
+                                     .from_blocks)
                 host.append((name, a, dtype))
             self._write(step, host, extra)
             shutil.rmtree(shards)
         sharding.mesh_barrier(mesh)
+
+    @staticmethod
+    def _halves(a, name: str, shardings, fn):
+        """``fn`` (``sharding.to_blocks`` / ``from_blocks``) of a
+        two-halves leaf's whole array (the single-device order on disk);
+        ``a`` itself for any other leaf."""
+        from repro_torch.distributed import sharding
+
+        dim = shardings.halves.get(name)
+        if dim is None:
+            return a
+        return fn(a, sharding.halves_parts(shardings.specs[name],
+                                           shardings.mesh, dim), dim)
 
     def _write(self, step: int, host: list, extra: dict | None) -> None:
         """Write the (name, array, dtype) leaves ``host`` as step ``step``:
@@ -257,6 +272,7 @@ class CheckpointManager:
             if spec:
                 from repro_torch.distributed import sharding
 
+                a = self._halves(a, name, shardings, sharding.to_blocks)
                 idx = sharding.local_index(a.shape, spec, shardings.mesh)
                 if idx is None or tuple(i.stop - i.start for i in idx) \
                         != tuple(tgt.shape):

@@ -88,7 +88,8 @@ class SyntheticStream:
                 (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
         return batch
 
-    def device_batch(self, step: int, device=None, mesh=None) -> dict:
+    def device_batch(self, step: int, device=None, mesh=None,
+                     microbatches: int = 1) -> dict:
         """:meth:`host_batch` as torch tensors on ``device`` (default the
         GPU, ``device.resolve``): tokens and labels int32, frames and
         patches f32.  With an 'image_patches' frontend the labels get
@@ -97,14 +98,17 @@ class SyntheticStream:
         to its caller.  On ``mesh``, this rank's rows: block ``pod x
         data`` coordinate of the batch split over those axes
         (``sharding.batch_rows``; the reference's 'batch' rule folds
-        both), so the ranks' rows together are the whole batch."""
+        both), so the ranks' rows together are the whole batch; with
+        ``microbatches`` A, that block of each of the A microbatches
+        (``sharding.local_rows``), so the ranks' microbatch i is the
+        single device's."""
         dev = resolve(device)
         hb = self.host_batch(step)
         if mesh is not None:
-            from repro_torch.distributed.sharding import batch_rows
+            from repro_torch.distributed.sharding import local_rows
 
-            first, n = batch_rows(self.cfg.global_batch, mesh)
-            hb = {k: v[first:first + n] for k, v in hb.items()}
+            hb = {k: local_rows(v, mesh, microbatches)
+                  for k, v in hb.items()}
         if self.cfg.frontend == "image_patches":
             lab = hb["labels"]
             pad = np.full((lab.shape[0], self.cfg.num_patches), IGNORE,

@@ -28,7 +28,8 @@ group uses.  Compute stays on the rank's device.
   (autograd functions): an all-gather whose backward reduce-scatters (or,
   for a gather whose consumers run replicated, takes this rank's block),
   a reduce-scatter whose backward all-gathers, a psum whose backward
-  passes the cotangent through, and an identity whose backward psums
+  passes the cotangent through (or, for ranks that each use a part of
+  the sum, psums it), and an identity whose backward psums
   (the input of a column-parallel region, whose ranks each see a part
   of its gradient);
 * :func:`int8_all_gather` — an FSDP gather in int8 (one scale a leaf,
@@ -472,14 +473,20 @@ def ad_psum_scatter(x: torch.Tensor, axis: str, *, dim: int,
     return _PsumScatter.apply(x, axis, dim % x.ndim, mesh)
 
 
-def ad_psum(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+def ad_psum(x: torch.Tensor, axis: str, *, mesh=None,
+            partial: bool = False) -> torch.Tensor:
     """:func:`psum`, differentiable: the output of a row-parallel region.
     Every rank continues with the same sum, so each holds the whole
-    cotangent, and the backward passes it through."""
+    cotangent, and the backward passes it through.  ``partial``: the
+    ranks go on to use different parts of the sum (their channels' or
+    heads' share of it, a share of a loss), so each holds a part of the
+    cotangent, and the backward sums them over ``axis`` too (the sum
+    followed by :func:`ad_identity`)."""
     mesh = _mesh(mesh)
     if _size(mesh, axis) == 1:
         return x
-    return _Psum.apply(x, axis, mesh)
+    y = _Psum.apply(x, axis, mesh)
+    return _Identity.apply(y, axis, mesh) if partial else y
 
 
 def ad_identity(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:

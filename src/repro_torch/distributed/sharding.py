@@ -601,6 +601,22 @@ def batch_axes(mesh) -> tuple:
     return tuple(a for a in BATCH_AXES if sizes.get(a, 1) > 1)
 
 
+def local_rows(x, mesh, microbatches: int = 1):
+    """This rank's rows (dim 0) of a whole batch tensor ``x`` (numpy or
+    torch) of ``B`` rows: of each of the ``microbatches`` blocks of B / A
+    rows (the step's microbatches, in order), this rank's block of its
+    rows (:func:`batch_rows`), concatenated.  So microbatch i of the
+    rank's rows is its share of the global microbatch i, which the
+    single-device step takes whole; with one microbatch, rows ``first``
+    to ``first + n``.  ValueError unless the rows divide."""
+    B, A = x.shape[0], microbatches
+    if B % A:
+        raise ValueError(f"{B} rows do not split into {A} microbatches")
+    first, n = batch_rows(B // A, mesh)
+    per = x.reshape((A, B // A) + tuple(x.shape[1:]))[:, first:first + n]
+    return per.reshape((A * n,) + tuple(x.shape[1:]))
+
+
 def batch_rows(batch: int, mesh) -> tuple[int, int]:
     """(first row, row count) of this rank's rows of a ``batch``-row global
     batch: block ``pod_coord * data + data_coord`` of ``pod x data``.
@@ -617,6 +633,68 @@ def batch_rows(batch: int, mesh) -> tuple[int, int]:
     return block * (batch // n), batch // n
 
 
+# Leaves whose rows hold two halves (x and z) of one projection: on a
+# mesh that splits their rows, a rank's block is its block of each half
+# ([x_r, z_r]), as the model code and serving (runtime.serve.
+# shard_params) read it.  The whole leaf is kept in the single-device
+# order; :func:`to_blocks` reorders its rows so that the contiguous cut
+# of :func:`local_slice` gives those blocks, :func:`from_blocks` undoes
+# it.
+HALVES = ("in_proj", "xl_up")
+
+
+def is_halves(name: str) -> bool:
+    """Whether the buffer ``name`` (dotted) is a two-halves leaf."""
+    parts = name.split(".")
+    return len(parts) >= 2 and parts[-2] in HALVES and parts[-1] == "w"
+
+
+def halves_parts(spec: tuple, mesh, dim: int = 0) -> int:
+    """How many blocks ``spec`` cuts ``dim`` of a leaf into on ``mesh``."""
+    entry = spec[dim] if dim < len(spec) else None
+    return math.prod(compat.axes_of(mesh)[a] for a in _names(entry))
+
+
+def _reorder(t, dim: int, lead: tuple, order):
+    """``t`` with ``dim`` viewed as ``lead + (rest,)`` and those lead
+    dims permuted by ``order`` (numpy or torch), flattened back."""
+    shape = tuple(t.shape)
+    view = t.reshape(shape[:dim] + lead + (-1,) + shape[dim + 1:])
+    perm = list(range(view.ndim))
+    perm[dim:dim + len(lead)] = [dim + i for i in order]
+    view = view.transpose(*perm) if not isinstance(t, torch.Tensor) \
+        else view.permute(*perm)
+    return view.reshape(shape)
+
+
+def to_blocks(t, parts: int, dim: int = 0):
+    """A two-halves leaf's rows along ``dim`` (single-device order [x,
+    z]) reordered to [x_0, z_0, x_1, z_1, ...] over ``parts`` blocks, so
+    block p of a contiguous cut is [x_p, z_p]; ``t`` itself for one
+    part.  ValueError unless each half divides."""
+    if parts == 1:
+        return t
+    if t.shape[dim] % (2 * parts):
+        raise ValueError(f"two halves of {t.shape[dim] // 2} rows do not "
+                         f"split into {parts} blocks")
+    return _reorder(t, dim, (2, parts), (1, 0))
+
+
+def from_blocks(t, parts: int, dim: int = 0):
+    """The inverse of :func:`to_blocks` (differentiable on torch)."""
+    if parts == 1:
+        return t
+    return _reorder(t, dim, (parts, 2), (1, 0))
+
+
+def _cut(t: torch.Tensor, name: str, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` named ``name`` (a
+    two-halves leaf's from both halves), a contiguous copy."""
+    if is_halves(name):
+        t = to_blocks(t, halves_parts(spec, mesh))
+    return local_slice(t, spec, mesh).contiguous().clone()
+
+
 def _owner(module: torch.nn.Module, name: str):
     """(the module holding buffer ``name``, its leaf name)."""
     path, _, leaf = name.rpartition(".")
@@ -626,18 +704,18 @@ def _owner(module: torch.nn.Module, name: str):
 def shard_model(model: torch.nn.Module, mesh, rules: str = "default"
                 ) -> dict:
     """Cut every buffer of ``model`` (whole) to this rank's block under
-    ``param_specs`` (in place, each block a contiguous copy), and record
-    the specs on the model and on each of its blocks (``shard_specs``,
-    names relative to the module) for :func:`constrain_params`.  Returns
-    {buffer name: spec}."""
+    ``param_specs`` (in place, each block a contiguous copy; a two-halves
+    leaf's block from both halves, :data:`HALVES`), and record the specs
+    on the model and on each of its blocks, the encoder's too
+    (``shard_specs``, names relative to the module) for
+    :func:`constrain_params`.  Returns {buffer name: spec}."""
     specs = param_specs(model, mesh, rules)
     for name, spec in specs.items():
         mod, leaf = _owner(model, name)
-        mod._buffers[leaf] = local_slice(mod._buffers[leaf], spec,
-                                         mesh).contiguous().clone()
+        mod._buffers[leaf] = _cut(mod._buffers[leaf], name, spec, mesh)
     model.shard_specs = specs
     for prefix, mod in model.named_modules():
-        if prefix.count(".") == 1 and prefix.startswith("blocks."):
+        if prefix.rpartition(".")[0] in ("blocks", "encoder.blocks"):
             mod.shard_specs = {n[len(prefix) + 1:]: s
                                for n, s in specs.items()
                                if n.startswith(prefix + ".")}
@@ -651,10 +729,12 @@ class TreeSharding(NamedTuple):
     """How a tree's leaves lie on a mesh: ``specs`` maps a leaf's
     flattened name (nested keys joined with '/', as the checkpoint
     manager names them) to its spec; a leaf it does not name is whole on
-    every rank."""
+    every rank.  ``halves`` maps a two-halves leaf (:data:`HALVES`) to the
+    dim that holds its halves: its blocks are cut from both."""
 
     mesh: object
     specs: dict
+    halves: dict = {}
 
 
 def is_lead(mesh) -> bool:
@@ -681,9 +761,8 @@ def shard_state(state: dict, mesh, rules: str = "default") -> dict:
     specs = shard_model(state["params"], mesh, rules)
     for key in MOMENTS:
         if key in state["opt"]:
-            state["opt"][key] = {
-                n: local_slice(t, specs[n], mesh).contiguous().clone()
-                for n, t in state["opt"][key].items()}
+            state["opt"][key] = {n: _cut(t, n, specs[n], mesh)
+                                 for n, t in state["opt"][key].items()}
     state["mesh"], state["specs"] = mesh, specs
     return state
 
@@ -708,7 +787,11 @@ def gather_state(state: dict) -> dict:
     mesh, specs = state.get("mesh"), state.get("specs")
 
     def whole(name, t):
-        return t if mesh is None else gather_leaf(t, specs[name], mesh)
+        if mesh is None:
+            return t
+        t = gather_leaf(t, specs[name], mesh)
+        return from_blocks(t, halves_parts(specs[name], mesh)) \
+            if is_halves(name) else t
 
     params = {n: whole(n, t) for n, t in state["params"].state_dict().items()}
     opt = {k: ({n: whole(n, t) for n, t in v.items()} if k in MOMENTS else v)

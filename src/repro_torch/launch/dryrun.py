@@ -38,10 +38,11 @@ tables.  Every cell records:
   issues (``distributed.collectives.counts`` / ``nbytes``);
 * ``step_s`` — the seconds the step took here (Python's, not a device's).
 
-Train cells run for the dense decoders (training on a mesh runs 'attn' /
-'local' blocks); another architecture's is reported ``skipped`` with the
-reason (ROADMAP A13c).  A cell that raises is ``failed``, and the CLI
-exits 1.  Results go to ``--out`` (default ``dryrun_out/``), one JSON
+Train cells run for every architecture; a cell whose config a mesh
+cannot split (``transformer.check_train_mesh``) or that does not apply
+(``configs.shapes.applicable``) is reported ``skipped`` with the
+reason.  A cell that raises is ``failed``, and the CLI exits 1.
+Results go to ``--out`` (default ``dryrun_out/``), one JSON
 file a cell:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma_2b \\
@@ -62,6 +63,7 @@ import torch
 from repro_torch import configs
 from repro_torch.configs import shapes as shp
 from repro_torch.core.spec import QuantSpec
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import transformer
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import serve as SV
@@ -69,8 +71,7 @@ from repro_torch.runtime import train as RT
 
 DEFAULT_OUT = "dryrun_out"
 
-# Per-arch train-cell memory policy, the reference's (its non-dense
-# archs are skipped on a mesh until ROADMAP A13c).
+# Per-arch train-cell memory policy, the reference's.
 TRAIN_OVERRIDES = {
     "llama4_maverick": {"param_dtype": "bfloat16", "opt_dtype": "bfloat16",
                         "grad_dtype": "bfloat16", "microbatches": 8},
@@ -103,16 +104,15 @@ def state_bytes(state: dict, batch: dict) -> int:
 
 
 def _to_fake(state: dict, batch_shapes: dict) -> dict:
-    """Every tensor of a (meta) state, and the batch, as a fake tensor of
-    its shape and dtype (called inside the ``FakeTensorMode``)."""
+    """Every tensor of a (meta) state (a MoE block's routed-slot counters
+    too), and the batch, as a fake tensor of its shape and dtype (called
+    inside the ``FakeTensorMode``)."""
     from repro_torch.distributed.sharding import MOMENTS
 
     def fake(t):
         return torch.empty(t.shape, dtype=t.dtype)
 
-    for mod in state["params"].modules():
-        for n, b in mod._buffers.items():
-            mod._buffers[n] = fake(b)
+    _fake_module(state["params"])
     state["opt"] = {k: ({n: fake(t) for n, t in v.items()}
                         if k in MOMENTS else fake(v))
                     for k, v in state["opt"].items()}
@@ -347,7 +347,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     ok, reason = shp.applicable(cfg, shape_name)
     if ok and train:
         try:
-            transformer.check_train_mesh(cfg)
+            shape, axes = MESHES[multi_pod]
+            transformer.check_train_mesh(cfg, MeshShape(dict(zip(axes,
+                                                                 shape))))
         except NotImplementedError as e:
             ok, reason = False, str(e)
     if not ok:

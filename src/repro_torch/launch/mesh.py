@@ -36,6 +36,7 @@ import shutil
 import tempfile
 import time
 import traceback
+from typing import NamedTuple
 
 import torch
 
@@ -101,6 +102,13 @@ def make_production_mesh(*, multi_pod: bool = False):
                          f"needs a world of {math.prod(shape)} ranks, not "
                          f"{world}")
     return make_mesh(shape, axes)
+
+
+class MeshShape(NamedTuple):
+    """A mesh's shape alone, ``{axis: size}``, where a check needs no
+    process group (``compat.axes_of`` reads it as a mesh's)."""
+
+    shape: dict
 
 
 def mesh_devices(mesh) -> int:

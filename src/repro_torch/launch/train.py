@@ -27,9 +27,19 @@ ranks:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma_2b \
         --smoke --device cpu --mesh 2x2 --force-host-devices 4 --steps 3
 
-A checkpoint holds whole leaves, so a run resumes onto any mesh (or
-``1x1``) whose rules divide the shapes.  ``final loss`` is rank 0's (the
-whole batch's).  Dense decoders only on a mesh (ROADMAP A13c).
+Every architecture trains on a mesh (MoE blocks expert-parallel or each
+expert tensor-parallel, Mamba and mLSTM blocks on their channels and
+heads, the sLSTM whole, whisper's encoder, phi-3's patches), e.g.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_moe \
+        --smoke --device cpu --mesh 2x2 --force-host-devices 4 --steps 3
+
+A mesh a config cannot split is refused before any rank starts
+(``transformer.check_train_mesh``).  With ``--microbatches`` A each rank
+takes its share of each of the A microbatches, so a mesh step computes
+the single device's.  A checkpoint holds whole leaves, so a run resumes
+onto any mesh (or ``1x1``) whose rules divide the shapes.  ``final
+loss`` is rank 0's (the whole batch's).
 """
 
 from __future__ import annotations
@@ -108,7 +118,7 @@ def _train(args, dev, mesh=None) -> dict:
                DriverConfig(total_steps=args.steps,
                             checkpoint_every=args.checkpoint_every,
                             checkpoint_dir=args.checkpoint_dir),
-               device=dev)
+               device=dev, microbatches=args.microbatches)
 
 
 def _mesh_devices(args) -> list[str]:
@@ -136,7 +146,8 @@ def main(argv=None) -> dict:
     else:
         cfg = (configs.get_smoke(args.arch) if args.smoke
                else configs.get_config(args.arch))
-        transformer.check_train_mesh(cfg)
+        transformer.check_train_mesh(cfg, MS.MeshShape(
+            dict(zip(args.mesh_axes, args.mesh_shape))))
         devices = _mesh_devices(args)
         print(f"[train] {len(devices)} ranks on {devices} for mesh "
               f"{dict(zip(args.mesh_axes, args.mesh_shape))}", flush=True)

@@ -208,6 +208,21 @@ def local_linear(w: torch.Tensor, x: torch.Tensor, *, tag=None,
                          tag=tag, epilogue=ep)
 
 
+def whole_rows(w: torch.Tensor, rows: int, dim: int, axis: str, *,
+               partial: bool) -> torch.Tensor:
+    """``w`` whole along ``dim`` (``rows`` long) in a training step on a
+    mesh: as it is when it is whole, else gathered over ``axis``.
+    ``partial``: the consumers on this rank use part of it (their
+    gradients sum over the ranks: a reduce-scatter back); otherwise they
+    run replicated (this rank's block of the whole gradient, which every
+    rank holds: summing it again would count it once a rank).  A whole
+    weight with ``partial`` consumers enters through ``ad_identity``, so
+    its gradient sums the ranks' parts too."""
+    if w.shape[dim] != rows:
+        return coll.ad_all_gather(w, axis, dim=dim, reduce_grad=partial)
+    return coll.ad_identity(w, axis) if partial else w
+
+
 def add_residual(y: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
     """``y + residual`` as the fused residual epilogue computes it (f32,
     cast back)."""
@@ -296,7 +311,8 @@ def mlp_apply_tp(p: MLP, x: torch.Tensor, cfg, *, residual, d_ff: int,
     column-parallel and their product stays sharded into a row-parallel
     ``down`` that ends in a psum; ``x`` enters through
     ``collectives.ad_identity``, whose backward sums the ranks' parts of
-    its gradient.  Otherwise every rank runs the whole MLP."""
+    its gradient.  Otherwise every rank runs the whole MLP.  ``residual``
+    None: the MLP's output alone (a MoE block's shared experts)."""
     act_name = {"swiglu": "silu", "geglu": "gelu",
                 "gelu": "gelu"}[cfg.mlp_activation]
     tp = p.up.w.shape[0] != d_ff
@@ -310,4 +326,4 @@ def mlp_apply_tp(p: MLP, x: torch.Tensor, cfg, *, residual, d_ff: int,
     y = local_linear(p.down.w, h, tag="down")
     if tp:
         y = coll.ad_psum(y, axis)
-    return add_residual(y, residual)
+    return y if residual is None else add_residual(y, residual)

@@ -25,11 +25,14 @@ each rank's positions, decode writes the new K/V on the rank that owns
 partial softmax combined (:func:`_sdpa_split`).
 
 A training step on a mesh runs :func:`attn_apply_tp` instead, on the
-weights ``constrain_params`` gathered over 'data': with the query heads
-split over 'model', wq is column-parallel, its heads stay sharded
-through the attention into a row-parallel ``wo`` that ends in a psum,
-and each rank computes the kv heads its query heads read (whole when
-they do not split: MQA); otherwise every rank runs the whole attention.
+weights ``constrain_params`` gathered over 'data' — the decoder's causal
+attention, the encoder's non-causal one and the cross attention: with
+the query heads split over 'model', wq is column-parallel, its heads
+stay sharded through the attention (qk-norm too) into a row-parallel
+``wo`` that ends in a psum, and each rank computes the kv heads its
+query heads read (whole when they do not split: MQA), of the encoder's
+output in a cross attention; otherwise every rank runs the whole
+attention.
 """
 
 from __future__ import annotations
@@ -395,44 +398,47 @@ def _attn_paged_quantized(cfg, q, k, v, cache, positions, write_slots,
 
 
 # ------------------------------------------------------- training on a mesh
-def _whole_rows(w: torch.Tensor, rows: int, dim: int, axis: str, *,
-                partial: bool) -> torch.Tensor:
-    """``w`` whole along ``dim`` (``rows`` long): as it is when it is whole,
-    else gathered over ``axis``.  ``partial``: the consumers on this rank
-    use part of it (their gradients sum over the ranks: a reduce-scatter
-    back); otherwise they run replicated (this rank's block of the whole
-    gradient).  A whole weight with ``partial`` consumers enters through
-    ``ad_identity``, so its gradient sums the ranks' parts too."""
-    if w.shape[dim] != rows:
-        return coll.ad_all_gather(w, axis, dim=dim, reduce_grad=partial)
-    return coll.ad_identity(w, axis) if partial else w
+def _kv_rows(w, cfg, M: int, kv0: int, kv1: int, axis: str):
+    """This rank's rows of ``wk``/``wv`` for kv heads kv0..kv1-1 (those
+    its query heads read): its own block when the kv heads split over
+    ``axis`` as the query heads do, else cut from the whole weight,
+    gathered where its rows split finer than a head (its consumers are
+    this rank's heads: their gradients sum over the ranks)."""
+    hk, dh = cfg.num_kv_heads, cfg.head_dim
+    if hk % M == 0 and w.shape[0] == hk * dh // M:
+        return w
+    w = common.whole_rows(w, hk * dh, 0, axis, partial=True)
+    return w[kv0 * dh:kv1 * dh]
 
 
 def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
-                  residual, axis: str = "model"):
-    """:func:`attn_apply` (causal, no cache) of a training step on a mesh,
-    ``residual`` added after ``wo``.  When the query heads divide the
-    ``axis`` size M, this rank runs heads [r·H/M, (r+1)·H/M) (r its
-    coordinate): wq's block is its heads' rows, ``x`` enters through
-    ``ad_identity``, the kv heads those heads read come from wk/wv's
-    block, or from the whole weights (gathered over ``axis`` when their
-    rows split finer than a head), and ``wo``'s block ends in a psum.
-    Otherwise each rank runs every head, on weights gathered whole."""
+                  residual, causal: bool = True, kv=None,
+                  axis: str = "model"):
+    """:func:`attn_apply` of a training step on a mesh, ``residual`` added
+    after ``wo``: causal (a decoder's), or with ``causal=False`` an
+    encoder's non-causal self-attention, or with ``kv`` (B, S_src, d),
+    the encoder's output, a decoder's cross attention (keys and values
+    from ``kv``, no mask and no RoPE: :func:`cross_attn_apply`).  When
+    the query heads divide the ``axis`` size M, this rank runs heads
+    [r·H/M, (r+1)·H/M) (r its coordinate): wq's block is its heads' rows,
+    ``x`` (and ``kv``) enter through ``ad_identity``, the kv heads those
+    heads read come from wk/wv's block, or from the whole weights
+    (gathered over ``axis`` when their rows split finer than a head), the
+    qk-norm scales (over ``head_dim``, so local) through ``ad_identity``,
+    and ``wo``'s block ends in a psum.  Otherwise each rank runs every
+    head, on weights gathered whole."""
     mesh = sharding.active_mesh()
     M = compat.axes_of(mesh).get(axis, 1)
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B, S, _ = x.shape
     tp = M > 1 and h % M == 0
+    # qk-norm on self-attention only, as attn_apply / cross_attn_apply
+    norms = (p.q_norm.scale, p.k_norm.scale) \
+        if cfg.qk_norm and kv is None else None
     if tp:
         r = sharding.coord(mesh, axis)
         hl = h // M
-        q0, g = r * hl, h // hk
-        kv0, kv1 = q0 // g, (q0 + hl - 1) // g + 1
-        if hl % (kv1 - kv0) or any((q0 + i) // g - kv0 != i // (hl // (
-                kv1 - kv0)) for i in range(hl)):
-            raise NotImplementedError(
-                f"{cfg.name}: {hl} query heads a rank do not group evenly "
-                f"over kv heads {kv0}..{kv1 - 1} (ROADMAP A13c)")
+        kv0, kv1 = _kv_span(cfg, M, r)
         wq, wo = p.wq.w, p.wo.w  # this rank's heads' rows and columns
         if wq.shape[0] != hl * dh or wo.shape[1] != hl * dh:
             raise NotImplementedError(
@@ -440,36 +446,70 @@ def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
                 f"are not split over {axis!r} as the heads are (rules "
                 f"{sharding.active_rules()!r})")
         x = coll.ad_identity(x, axis)
-
-        def kv_weight(w):
-            if hk % M == 0 and w.shape[0] == hk * dh // M:
-                return w  # this rank's kv heads are the ones it reads
-            w = _whole_rows(w, hk * dh, 0, axis, partial=True)
-            return w[kv0 * dh:kv1 * dh]
-
-        wk, wv = kv_weight(p.wk.w), kv_weight(p.wv.w)
+        if kv is not None:
+            kv = coll.ad_identity(kv, axis)
+        wk = _kv_rows(p.wk.w, cfg, M, kv0, kv1, axis)
+        wv = _kv_rows(p.wv.w, cfg, M, kv0, kv1, axis)
+        if norms is not None:
+            norms = tuple(coll.ad_identity(n, axis) for n in norms)
     else:
         hl = h
-        wq = _whole_rows(p.wq.w, h * dh, 0, axis, partial=False)
-        wk = _whole_rows(p.wk.w, hk * dh, 0, axis, partial=False)
-        wv = _whole_rows(p.wv.w, hk * dh, 0, axis, partial=False)
-        wo = _whole_rows(p.wo.w, h * dh, 1, axis, partial=False)
+        whole = common.whole_rows
+        wq = whole(p.wq.w, h * dh, 0, axis, partial=False)
+        wk = whole(p.wk.w, hk * dh, 0, axis, partial=False)
+        wv = whole(p.wv.w, hk * dh, 0, axis, partial=False)
+        wo = whole(p.wo.w, h * dh, 1, axis, partial=False)
+    src = x if kv is None else kv
     q = common.local_linear(wq, x, tag="wq").reshape(B, S, hl, dh)
-    k = common.local_linear(wk, x, tag="wk").reshape(B, S, -1, dh)
-    v = common.local_linear(wv, x, tag="wv").reshape(B, S, -1, dh)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    C = cfg.attn_chunk
-    if C and S > C and S % C == 0:
-        out = torch.cat([_sdpa(cfg, q[:, i:i + C], k, v,
-                               causal_mask(C, S, window=window, offset=i,
-                                           device=x.device))
-                         for i in range(0, S, C)], dim=1)
+    k = common.local_linear(wk, src, tag="wk").reshape(
+        B, src.shape[1], -1, dh)
+    v = common.local_linear(wv, src, tag="wv").reshape(
+        B, src.shape[1], -1, dh)
+    if norms is not None:
+        q = common.norm_apply(common.Norm(norms[0]), q, "rmsnorm")
+        k = common.norm_apply(common.Norm(norms[1]), k, "rmsnorm")
+    if kv is not None:  # cross attention: every source position
+        out = _sdpa(cfg, q, k, v, None)
     else:
-        out = _sdpa(cfg, q, k, v, causal_mask(S, S, window=window,
-                                              device=x.device))
+        if cfg.use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        C = cfg.attn_chunk
+        if C and S > C and S % C == 0:
+            out = torch.cat([_sdpa(cfg, q[:, i:i + C], k, v,
+                                   causal_mask(C, S, window=window,
+                                               offset=i, device=x.device)
+                                   if causal else None)
+                             for i in range(0, S, C)], dim=1)
+        else:
+            out = _sdpa(cfg, q, k, v, causal_mask(
+                S, S, window=window, device=x.device) if causal else None)
     y = common.local_linear(wo, out, tag="wo")
     if tp:
         y = coll.ad_psum(y, axis)
     return common.add_residual(y, residual)
+
+
+def _kv_span(cfg, M: int, r: int) -> tuple[int, int]:
+    """(first, last + 1) of the kv heads that rank ``r``'s H/M query
+    heads read; NotImplementedError where those heads do not group
+    evenly over them."""
+    h, hk = cfg.num_heads, cfg.num_kv_heads
+    hl, g = h // M, h // hk
+    q0 = r * hl
+    kv0, kv1 = q0 // g, (q0 + hl - 1) // g + 1
+    if hl % (kv1 - kv0) or any((q0 + i) // g - kv0 != i // (hl // (
+            kv1 - kv0)) for i in range(hl)):
+        raise NotImplementedError(
+            f"{cfg.name}: {hl} query heads a rank do not group evenly "
+            f"over kv heads {kv0}..{kv1 - 1} (ROADMAP A13c)")
+    return kv0, kv1
+
+
+def check_train_heads(cfg, M: int) -> None:
+    """NotImplementedError where a training step on a mesh of ``M``
+    ranks over 'model' cannot split the query heads (:func:`_kv_span`
+    of every rank)."""
+    if M > 1 and cfg.num_heads % M == 0:
+        for r in range(M):
+            _kv_span(cfg, M, r)

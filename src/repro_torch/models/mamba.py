@@ -6,9 +6,11 @@ from one chunk to the next; inside a chunk a Hillis–Steele doubling scan
 (log2(chunk) steps of the reference's ``(a, b)`` combine) gives every
 position's state at once.  A ragged last chunk is simply shorter, where
 the reference pads it with ``dA = 1`` and ``dBu = 0``, which leaves the
-state as it is: both give the same state.  Single-token decode is the
-same code at L = 1, one recurrence step ``h = dBu + dA * h``, with the
-SSM state and the conv tail as the cache (linear in the sequence length).
+state as it is: both give the same state.  A training forward scans all
+chunks at once, and their ends alike (:func:`_scan_chunked`).
+Single-token decode is the same code at L = 1, one recurrence step ``h =
+dBu + dA * h``, with the SSM state and the conv tail as the cache
+(linear in the sequence length).
 
 ``in_proj``, ``x_proj`` and ``out_proj`` go through
 ``common.linear_apply``, so through the weight kernels; ``dt_proj`` and
@@ -23,7 +25,8 @@ holds its channels of both halves (``runtime.serve.shard_params``), the
 conv, ``dt_proj``, the scan, ``D`` and the state are this rank's
 channels, ``x_proj`` contracts over them (its dt/B/C partials summed in
 f32) and ``out_proj`` is row-parallel.  Otherwise every rank runs the
-block whole.
+block whole.  A training step on a mesh runs the same layout
+(:func:`mamba_apply_tp`) on the leaves ``sharding.shard_model`` cut.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding
 from repro_torch.models import common
 
@@ -86,66 +90,142 @@ def tensor_parallel(cfg, mesh) -> bool:
     return M > 1 and cfg.mamba_d_inner % M == 0
 
 
-def _ssm_params(p: Mamba, cfg, xc, tp: bool = False):
-    """xc (B, L, di) -> dt (B, L, di), B/C (B, L, N), all f32 (di: this
-    rank's channels with ``tp``)."""
-    n, dr = cfg.mamba_d_state, cfg.dt_rank
-    proj = common.linear_apply(
-        p.x_proj, xc, cfg.quant, in_dim=cfg.mamba_d_inner, tag="x_proj",
-        x_axis=sharding.TP_AXIS if tp else None)
-    dtr, Bm, Cm = torch.split(proj.to(torch.float32), [dr, n, n], dim=-1)
-    dt = torch.logaddexp(dtr @ p.dt_proj.w.t() + p.dt_proj.b,
-                         torch.zeros((), device=xc.device))  # softplus
-    return dt, Bm, Cm
+def _doubling(a, b, dim: int):
+    """Hillis–Steele inclusive scan along ``dim`` of the pairs (a, b)
+    under the reference's combine(l, r) = (al·ar, bl·ar + br):
+    log2(n) steps, each over every position at once."""
+    n, step = a.shape[dim], 1
+    while step < n:
+        lo, hi = step, n - step
+        b = torch.cat([b.narrow(dim, 0, lo), b.narrow(dim, 0, hi)
+                       * a.narrow(dim, lo, hi) + b.narrow(dim, lo, hi)],
+                      dim=dim)
+        a = torch.cat([a.narrow(dim, 0, lo), a.narrow(dim, 0, hi)
+                       * a.narrow(dim, lo, hi)], dim=dim)
+        step *= 2
+    return a, b
 
 
 def _scan_chunked(dA, dBu, C, h0, chunk: int):
     """h_t = dA_t * h_{t-1} + dBu_t ; y_t = <C_t, h_t>.
 
     dA/dBu (B, L, di, N), C (B, L, N), h0 (B, di, N).  Returns (y (B, L,
-    di), h_L)."""
+    di), h_L).  Each chunk of ``chunk`` positions is scanned by
+    :func:`_doubling`.  Without a backward pass to come the chunks run
+    one after the other, the state carried between them (memory bounded
+    by a chunk; a ragged last chunk is simply shorter, where the
+    reference pads it with dA = 1 and dBu = 0, which leaves the state as
+    it is).  With one, the autograd graph keeps every chunk's steps
+    anyway, so all chunks are scanned at once (the ragged one padded as
+    the reference pads it) and the chunks' ends, scanned alike, give
+    each chunk's incoming state: the number of steps does not grow with
+    L, and the sums differ from the chunk-by-chunk ones in rounding
+    only."""
+    if common.needs_grad(dA, dBu, C, h0):
+        return _scan_all(dA, dBu, C, h0, chunk)
     L = dA.shape[1]
     h, ys = h0, []
     for s in range(0, L, chunk):
-        a, b = dA[:, s:s + chunk], dBu[:, s:s + chunk]
-        step = 1
-        while step < a.shape[1]:  # combine(l, r) = (al*ar, bl*ar + br)
-            b = torch.cat([b[:, :step], b[:, :-step] * a[:, step:]
-                           + b[:, step:]], dim=1)
-            a = torch.cat([a[:, :step], a[:, :-step] * a[:, step:]], dim=1)
-            step *= 2
+        a, b = _doubling(dA[:, s:s + chunk], dBu[:, s:s + chunk], 1)
         h_all = b + a * h[:, None]  # (B, W, di, N)
         ys.append(torch.einsum("bldn,bln->bld", h_all, C[:, s:s + chunk]))
         h = h_all[:, -1]
     return torch.cat(ys, dim=1), h
 
 
-def mamba_apply(p: Mamba, cfg, x, *, state=None):
-    """Full-sequence pass, or one decode step at L = 1 with ``state``.
-    x (B, L, d) -> (y (B, L, d), {"ssm", "conv"}: the state after x)."""
-    tp = p.tp
-    xz = common.linear_apply(p.in_proj, x, cfg.quant, in_dim=cfg.d_model,
-                             tag="in_proj", local=tp)
-    di = xz.shape[-1] // 2  # this rank's channels
+def _scan_all(dA, dBu, C, h0, chunk: int):
+    """:func:`_scan_chunked` with every chunk scanned at once."""
+    B, L, di, N = dA.shape
+    W = min(chunk, L)
+    nc = -(-L // W)
+    pad = nc * W - L
+    if pad:
+        dA = torch.cat([dA, dA.new_ones((B, pad, di, N))], dim=1)
+        dBu = torch.cat([dBu, dBu.new_zeros((B, pad, di, N))], dim=1)
+        C = torch.cat([C, C.new_zeros((B, pad, N))], dim=1)
+    a, b = _doubling(dA.reshape(B, nc, W, di, N),
+                     dBu.reshape(B, nc, W, di, N), 2)
+    ends_a, ends_b = _doubling(a[:, :, -1], b[:, :, -1], 1)
+    h_in = torch.cat([h0[:, None], (ends_b + ends_a * h0[:, None])[:, :-1]],
+                     dim=1)  # (B, nc, di, N): each chunk's incoming state
+    h_all = (b + a * h_in[:, :, None]).reshape(B, nc * W, di, N)
+    y = torch.einsum("bldn,bln->bld", h_all, C)
+    return y[:, :L], h_all[:, L - 1]
+
+
+def _mix(p: Mamba, cfg, xz, x_proj, dtype, state=None):
+    """The block between its input and output projections: ``xz`` (B, L,
+    2·di: this rank's channels of x, then of z) -> (y (B, L, di) in
+    ``dtype``, the state after it): the causal conv, ``x_proj`` (a map
+    of the conv's output to f32 (B, L, dt_rank + 2N): dt's rank, B and
+    C), ``dt_proj``, the scan from ``state`` (or zeros), ``D`` and the
+    gate by z."""
+    di = xz.shape[-1] // 2
     xs, z = torch.split(xz, di, dim=-1)
     tail = state["conv"] if state is not None else None
     xc, new_tail = _causal_conv(xs, p.conv_w, p.conv_b, tail)
     xc = F.silu(xc)
-    dt, Bm, Cm = _ssm_params(p, cfg, xc, tp)
+    n, dr = cfg.mamba_d_state, cfg.dt_rank
+    dtr, Bm, Cm = torch.split(x_proj(xc), [dr, n, n], dim=-1)
+    dt = torch.logaddexp(dtr @ p.dt_proj.w.t() + p.dt_proj.b,
+                         torch.zeros((), device=xc.device))  # softplus
     A = -torch.exp(p.A_log)  # (di, N)
     xf = xc.to(torch.float32)
     dA = torch.exp(dt[..., None] * A)  # (B, L, di, N)
     dBu = (dt * xf)[..., None] * Bm[:, :, None, :]
     h0 = (state["ssm"] if state is not None else
-          x.new_zeros((x.shape[0], di, cfg.mamba_d_state),
-                      dtype=torch.float32))
+          xz.new_zeros((xz.shape[0], di, n), dtype=torch.float32))
     y, h_last = _scan_chunked(dA, dBu, Cm, h0, cfg.mamba_chunk)
     y = y + p.D * xf
-    y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
+    y = (y * F.silu(z.to(torch.float32))).to(dtype)
+    return y, {"ssm": h_last, "conv": new_tail}
+
+
+def mamba_apply(p: Mamba, cfg, x, *, state=None):
+    """Full-sequence pass, or one decode step at L = 1 with ``state``.
+    x (B, L, d) -> (y (B, L, d), {"ssm", "conv"}: the state after x)."""
+    axis = sharding.TP_AXIS if p.tp else None
+    xz = common.linear_apply(p.in_proj, x, cfg.quant, in_dim=cfg.d_model,
+                             tag="in_proj", local=p.tp)
+
+    def x_proj(xc):  # its dt/B/C partials summed in f32 on a mesh
+        return common.linear_apply(
+            p.x_proj, xc, cfg.quant, in_dim=cfg.mamba_d_inner,
+            tag="x_proj", x_axis=axis).to(torch.float32)
+
+    y, state = _mix(p, cfg, xz, x_proj, x.dtype, state)
     out = common.linear_apply(
         p.out_proj, y, cfg.quant, in_dim=cfg.mamba_d_inner, tag="out_proj",
-        x_axis=sharding.TP_AXIS if tp else None)
-    return out, {"ssm": h_last, "conv": new_tail}
+        x_axis=axis)
+    return out, state
+
+
+def mamba_apply_tp(p: Mamba, cfg, x, *, axis: str = "model"):
+    """:func:`mamba_apply` (full sequence, no state) of a training step
+    on a mesh, on this rank's weights gathered over 'data' (a model cut
+    by ``sharding.shard_model``).  Where its leaves hold this rank's
+    channels (``mamba_inner`` split over ``axis``; ``in_proj``'s rows its
+    channels of both halves, ``sharding.HALVES``): ``x`` enters through
+    ``ad_identity``, ``in_proj`` and ``dt_proj`` are column-parallel,
+    the conv, the scan, ``A_log`` and ``D`` local to the channels,
+    ``x_proj``'s partial dt/B/C are summed over ``axis`` in f32 by an
+    ``ad_psum`` whose backward sums the ranks' cotangents too (each
+    rank's channels use all of dt's rank, B and C), and ``out_proj`` is
+    row-parallel, ending in ``ad_psum``.  Otherwise every rank runs the
+    block whole.  Returns y (B, L, d)."""
+    tp = p.in_proj.w.shape[0] != 2 * cfg.mamba_d_inner
+    if tp:
+        x = coll.ad_identity(x, axis)
+    xz = common.local_linear(p.in_proj.w, x, tag="in_proj")
+
+    def x_proj(xc):
+        proj = common.local_linear(p.x_proj.w, xc, tag="x_proj").to(
+            torch.float32)
+        return coll.ad_psum(proj, axis, partial=True) if tp else proj
+
+    y, _ = _mix(p, cfg, xz, x_proj, x.dtype)
+    out = common.local_linear(p.out_proj.w, y, tag="out_proj")
+    return coll.ad_psum(out, axis) if tp else out
 
 
 def init_state(cfg, batch: int, dtype=torch.float32, *, device=None

@@ -31,7 +31,10 @@ and ``down`` the matching block of its contraction
 (``runtime.serve.shard_params``; whole where the packed storage cannot
 split there, and then the hidden block is gathered).  Either way a
 rank's combine is a partial sum of the experts' outputs, and one psum
-over 'model' ends it.  A shared expert runs as any MLP on a mesh.
+over 'model' ends it.  A shared expert runs as any MLP on a mesh.  A
+training step on a mesh runs the same layouts on the stacks
+``sharding.shard_model`` cut (:func:`moe_apply_tp`), its aux terms the
+whole batch's.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from torch import nn
 from repro_torch.core import linear as qlinear
 from repro_torch.core.spec import expert_spec
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed import sharding
+from repro_torch.distributed import compat, sharding
 from repro_torch.models import common
 from repro_torch.quant.quantize import stack_experts
 
@@ -154,9 +157,10 @@ def _expert_ffn(pe: Experts, x: torch.Tensor, cfg) -> torch.Tensor:
     return lin("down", h)
 
 
-def route(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None
-          ) -> dict:
-    """The routing of x (B, S, d): f32 router ``logits`` (B, S, E), the
+def route(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None,
+          weight: torch.Tensor | None = None) -> dict:
+    """The routing of x (B, S, d) (by ``weight``, default the router's
+    own): f32 router ``logits`` (B, S, E), the
     top-k experts ``eidx`` (B, S, K) and their softmaxed ``gates``, the
     per-example ``capacity`` C, the (B, S*K, E) ``onehot`` of the slots'
     experts in (s, k) order, ``keep`` (B, S*K: the slot's position in its
@@ -164,8 +168,9 @@ def route(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None
     sentinel E·C for a dropped slot)."""
     B, S, _ = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
+    w = p.router.w if weight is None else weight
     logits = torch.einsum("bsd,ed->bse", x.to(torch.float32),
-                          p.router.w.to(torch.float32))
+                          w.to(torch.float32))
     gates, eidx = torch.topk(logits, K, dim=-1)  # sorted, as lax.top_k
     gates = torch.softmax(gates, dim=-1)
     if capacity is None:
@@ -195,19 +200,11 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
     back per slot, weighted by the kept gates and summed over k; the
     shared MLP adds on.  ``aux``: the Switch ``load_balance`` term and
     ``dropped_frac``, the share of slots past capacity."""
-    B, S, d = x.shape
+    B, S, _ = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     r = route(p, x, cfg, capacity=capacity)
-    C, keep, dest = r["capacity"], r["keep"], r["dest"]
-
-    rows = E * C + 1
-    slots = (torch.arange(B, device=x.device)[:, None] * rows
-             + dest).reshape(-1)
-    xr = x[:, :, None, :].expand(B, S, K, d).reshape(B * S * K, d)
-    buf = x.new_zeros((B * rows, d))
-    buf.index_copy_(0, slots, xr)
-    dispatched = (buf.view(B, rows, d)[:, :E * C].reshape(B, E, C, d)
-                  .transpose(0, 1).reshape(E, B * C, d))
+    C, keep = r["capacity"], r["keep"]
+    dispatched, slots = _dispatch(x, r, E)
 
     lay = p.experts.layout
     if lay == "ep":  # this rank's experts; the others' rows stay zero
@@ -218,10 +215,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
         out[e0:e0 + El] = mine
     else:
         out = _expert_ffn(p.experts, dispatched, cfg)  # (E, B*C, d)
-    out = out.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
-    padded = torch.cat([out, out.new_zeros((B, 1, d))], dim=1)
-    gathered = padded.reshape(B * rows, d).index_select(0, slots) \
-        .reshape(B, S, K, d)
+    gathered = _slot_rows(out, slots, B, S, K, C)
     w = r["gates"] * keep.reshape(B, S, K)
     if lay == "ep" or (lay == "tp" and p.experts.down_local):
         # each rank's part of the sum, summed over the ranks in f32
@@ -236,8 +230,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
 
     probs = torch.softmax(r["logits"], dim=-1)
     me = probs.mean(dim=(0, 1))
-    ce = r["onehot"].reshape(B, S, K, E).sum(2).to(torch.float32) \
-        .mean(dim=(0, 1))
+    ce = _expert_counts(r, B, S, K, E).mean(dim=(0, 1))
     aux = {"load_balance": E * torch.sum(me * ce),
            "dropped_frac": 1.0 - keep.to(torch.float32).mean()}
     if not qlinear.replaying():  # a remat recompute counts no slot twice
@@ -247,6 +240,155 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
         else:  # every rank's rows
             p.route_counts += sharding.psum_rows(torch.stack(
                 [keep.sum(), torch.tensor(keep.numel(), device=x.device)]))
+    return y.to(x.dtype), aux
+
+
+def _dispatch(x: torch.Tensor, r: dict, E: int):
+    """(the (E, B·C, d) rows each expert sees, the flat slot of every
+    (token, k) in the (B·(E·C + 1), d) buffer): each slot's token row
+    written to ``e·C + pos`` of its example's rows, the last row the
+    sentinel that takes every dropped slot."""
+    B, S, d = x.shape
+    C, K = r["capacity"], r["eidx"].shape[-1]
+    rows = E * C + 1
+    slots = (torch.arange(B, device=x.device)[:, None] * rows
+             + r["dest"]).reshape(-1)
+    xr = x[:, :, None, :].expand(B, S, K, d).reshape(B * S * K, d)
+    buf = x.new_zeros((B * rows, d))
+    buf.index_copy_(0, slots, xr)
+    return (buf.view(B, rows, d)[:, :E * C].reshape(B, E, C, d)
+            .transpose(0, 1).reshape(E, B * C, d)), slots
+
+
+def _slot_rows(out: torch.Tensor, slots, B: int, S: int, K: int, C: int):
+    """The experts' outputs (E, B·C, d) read back per (token, k) slot:
+    (B, S, K, d), a dropped slot's row zero."""
+    E, d = out.shape[0], out.shape[-1]
+    out = out.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+    padded = torch.cat([out, out.new_zeros((B, 1, d))], dim=1)
+    return padded.reshape(B * (E * C + 1), d).index_select(0, slots) \
+        .reshape(B, S, K, d)
+
+
+def _expert_counts(r: dict, B: int, S: int, K: int, E: int):
+    """(B, S, E) f32: how many of each token's k slots chose each
+    expert."""
+    return r["onehot"].reshape(B, S, K, E).sum(2).to(torch.float32)
+
+
+def train_layout(pe: Experts, cfg, mesh) -> str | None:
+    """The layout of the expert stacks in a training step on ``mesh`` (a
+    model cut by ``sharding.shard_model``, gathered over 'data'): the
+    :func:`expert_layout` of ``cfg``, decided as serving decides it.
+    NotImplementedError where the stacks' leaves are not cut so (the
+    rules gave 'model' to another dim)."""
+    lay = expert_layout(cfg, mesh)
+    E, mdff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+    M = sharding.tp_size(mesh)
+    want = {"ep": (E // M, mdff), "tp": (E, mdff // M), None: (E, mdff)}
+    got = tuple(pe.up.w.shape[:2])
+    if got != want[lay]:
+        raise NotImplementedError(
+            f"{cfg.name}: the expert stacks' leaves {got} (experts, hidden) "
+            f"are not cut as the {lay!r} layout on model={M} needs "
+            f"({want[lay]}; rules {sharding.active_rules()!r})")
+    return lay
+
+
+def moe_apply_tp(p: MoE, x: torch.Tensor, cfg, *, axis: str = "model"):
+    """:func:`moe_apply` of a training step on a mesh (its context
+    active), on this rank's rows and its weights gathered over 'data':
+    (y, aux), aux this rank's shares of the whole batch's terms (their
+    sum over 'pod' x 'data' is the single device's).
+
+    The router is whole on every rank (gathered over ``axis`` where its
+    rows split), so every rank routes its rows alike and the routing,
+    the gates and the aux terms run replicated over ``axis``.  In the
+    :func:`train_layout` 'ep' (E/M experts a rank) or 'tp' (a block of
+    every expert's hidden dim, ``down`` row-parallel on the matching
+    columns, cut from its whole stack) each rank computes a part of the
+    combine: the dispatched rows and the gates enter through
+    ``ad_identity`` (their gradients sum the ranks' parts) and the
+    combine ends in one ``ad_psum`` over ``axis`` in f32; with neither,
+    each rank runs every expert whole.  The shared experts run through
+    ``common.mlp_apply_tp``.
+
+    ``load_balance`` is E·Σ me·ce with ``me`` and ``ce`` the whole
+    batch's means: the rows' sums (and the kept and routed slot counts)
+    summed over the batch axes in one psum whose backward sums the
+    ranks' cotangents too, so each rank's rows get their part of the
+    gradient once; each rank hands on 1/n of the term and of
+    ``dropped_frac`` (n the ranks sharing the rows), which the step's
+    psum of the metrics adds back up.  ``route_counts`` adds the whole
+    batch's slots on every rank."""
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    mesh = sharding.active_mesh()
+    M = sharding.tp_size(mesh)
+    lay = train_layout(p.experts, cfg, mesh)
+    router = common.whole_rows(p.router.w, E, 0, axis, partial=False)
+    r = route(p, x, cfg, weight=router)
+    C, keep = r["capacity"], r["keep"]
+    pe = p.experts
+    act = {"swiglu": "silu", "geglu": "gelu",
+           "gelu": "gelu"}[cfg.mlp_activation]
+    xd = coll.ad_identity(x, axis) if lay else x
+    dispatched, slots = _dispatch(xd, r, E)
+    if lay == "ep":
+        El = E // M
+        e0 = sharding.coord(mesh, axis) * El
+        dispatched = dispatched[e0:e0 + El]
+        down = pe.down.w
+    elif lay == "tp":
+        mdff = cfg.moe_d_ff or cfg.d_ff
+        n = mdff // M
+        down = common.whole_rows(pe.down.w, d, 1, axis, partial=True
+                                 ).narrow(2, sharding.coord(mesh, axis) * n, n)
+    else:
+        down = common.whole_rows(pe.down.w, d, 1, axis, partial=False)
+    if hasattr(pe, "gate"):  # as _expert_ffn, each stack one call
+        up = common.local_linear(pe.up.w, dispatched, tag="moe_up")
+        h = common.local_linear(pe.gate.w, dispatched, tag="moe_gate",
+                                act=act) * up
+    else:
+        h = common.local_linear(pe.up.w, dispatched, tag="moe_up", act=act)
+    mine = common.local_linear(down, h, tag="moe_down")
+    if lay == "ep":
+        out = mine.new_zeros((E,) + mine.shape[1:])
+        out[e0:e0 + El] = mine
+    else:
+        out = mine
+    gathered = _slot_rows(out, slots, B, S, K, C)
+    w = r["gates"] * keep.reshape(B, S, K)
+    if lay:
+        w = coll.ad_identity(w, axis)
+        y = coll.ad_psum(torch.einsum("bskd,bsk->bsd",
+                                      gathered.to(torch.float32), w),
+                         axis).to(gathered.dtype)
+    else:
+        y = torch.einsum("bskd,bsk->bsd", gathered, w.to(gathered.dtype))
+    if hasattr(p, "shared"):
+        sdff = cfg.shared_expert_d_ff or cfg.num_shared_experts * (
+            cfg.moe_d_ff or cfg.d_ff)
+        y = y + common.mlp_apply_tp(p.shared, x, cfg, residual=None,
+                                    d_ff=sdff, axis=axis).to(y.dtype)
+    probs = torch.softmax(r["logits"], dim=-1)
+    counts = _expert_counts(r, B, S, K, E)
+    stats = torch.cat([probs.sum(dim=(0, 1)), counts.sum(dim=(0, 1)),
+                       torch.stack([keep.sum().to(torch.float32),
+                                    torch.tensor(float(keep.numel()),
+                                                 device=x.device)])])
+    ranks = 1
+    for a in sharding.batch_axes(mesh):
+        stats = coll.ad_psum(stats, a, partial=True)
+        ranks *= compat.axes_of(mesh)[a]
+    me, ce = stats[:E] / (B * S * ranks), stats[E:2 * E] / (B * S * ranks)
+    kept, slots_all = stats[2 * E], stats[2 * E + 1]
+    aux = {"load_balance": E * torch.sum(me * ce) / ranks,
+           "dropped_frac": (1.0 - kept / slots_all) / ranks}
+    if not qlinear.replaying():  # a remat recompute counts no slot twice
+        p.route_counts += torch.stack([kept, slots_all]).detach().to(
+            torch.int64)
     return y.to(x.dtype), aux
 
 

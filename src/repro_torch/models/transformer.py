@@ -42,8 +42,12 @@ gathered over 'data' (``sharding.constrain_params``; with
 backward pass does not gather them again); the blocks run
 tensor-parallel over 'model' (``layers.attn_apply_tp``,
 ``common.mlp_apply_tp``); the vocab-split embedding's lookup ends in a
-psum, and the logits stay split over the vocab into the loss.  Dense
-decoders only (:func:`check_train_mesh`).
+psum, and the logits stay split over the vocab into the loss.  Every
+block kind trains so (:func:`_block_apply_tp`: a MoE block's experts
+expert-parallel or each tensor-parallel, a Mamba on its channels, an
+mLSTM on its heads, an sLSTM whole), and so do the encoder, the cross
+attention, a vision frontend's patches and qk-norm; a mesh that cannot
+split a layout is refused (:func:`check_train_mesh`).
 """
 
 from __future__ import annotations
@@ -241,7 +245,8 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
     FFN's ``load_balance`` and ``dropped_frac`` are added into ``aux``
     when given.  Returns x."""
     if mode == "train" and sharding.active_mesh() is not None:
-        return _block_apply_tp(p, cfg, kind, x, positions)
+        return _block_apply_tp(p, cfg, kind, x, positions, enc_out=enc_out,
+                               aux=aux)
     if mode == "paged" and kind not in ATTENTION_KINDS:
         raise NotImplementedError(
             f"paged serving supports attention block kinds only, got {kind!r}")
@@ -298,35 +303,75 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
     return _ffn(p, cfg, x, aux)
 
 
-TRAIN_MESH_KINDS = ("attn", "local")
+def check_train_mesh(cfg: ModelConfig, mesh=None) -> None:
+    """NotImplementedError (naming ROADMAP A13c) where a training step of
+    ``cfg`` cannot run on ``mesh`` (a ``DeviceMesh``, or any object whose
+    ``shape`` is its {axis: size}; None: no check): the query heads a
+    rank would run do not group evenly over the kv heads; or a
+    two-halves leaf (``sharding.HALVES``: Mamba's ``in_proj``, the
+    mLSTM's ``xl_up``) whose rows split over 'model' while its halves do
+    not.  Every block kind, an encoder, a frontend and qk-norm train on
+    a mesh."""
+    M = sharding.tp_size(mesh) if mesh is not None else 1
+    if M == 1:
+        return
+    layers.check_train_heads(cfg, M)
+    halves = {"mamba": (cfg.mamba_d_inner, ("mamba", "mamba_moe")),
+              "mLSTM": (xlstm._dims(cfg)[0], ("mlstm",))}
+    for name, (half, kinds) in halves.items():
+        if set(kinds) & set(cfg.block_pattern) and (2 * half) % M == 0 \
+                and half % M:
+            raise NotImplementedError(
+                f"{cfg.name}: the {name} block's two halves of {half} "
+                f"channels do not split over model={M} while its rows do "
+                "(ROADMAP A13c)")
 
 
-def check_train_mesh(cfg: ModelConfig) -> None:
-    """NotImplementedError unless ``cfg`` is a dense decoder, the configs
-    a mesh trains ('attn' / 'local' blocks, no encoder, no frontend, no
-    qk-norm: no dense config has one)."""
-    bad = sorted(set(cfg.block_pattern) - set(TRAIN_MESH_KINDS))
-    if bad or cfg.is_encdec or cfg.frontend or cfg.qk_norm:
-        what = (f"block kinds {bad}" if bad else
-                "an encoder" if cfg.is_encdec else
-                f"a {cfg.frontend} frontend" if cfg.frontend else "qk-norm")
-        raise NotImplementedError(
-            f"{cfg.name}: training on a mesh runs dense decoders "
-            f"({'/'.join(TRAIN_MESH_KINDS)} blocks); {what} on a mesh "
-            "waits for ROADMAP A13c")
+def _ffn_tp(p, cfg: ModelConfig, x, aux: dict | None):
+    """:func:`_ffn` of a training step on a mesh: the MLP
+    tensor-parallel, or the MoE FFN's (``moe.moe_apply_tp``), its aux
+    shares added into ``aux``."""
+    h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
+    if hasattr(p, "moe"):
+        y, a = moe.moe_apply_tp(p.moe, h, cfg)
+        if aux is not None:
+            for k, v in a.items():
+                aux[k] = aux[k] + v
+        return x + y
+    return common.mlp_apply_tp(p.mlp, h, cfg, residual=x, d_ff=cfg.d_ff)
 
 
-def _block_apply_tp(p, cfg: ModelConfig, kind: str, x, positions):
-    """A dense block of a training step on a mesh, on its weights gathered
-    over 'data': tensor-parallel attention and MLP over 'model'."""
-    if kind not in TRAIN_MESH_KINDS:
-        check_train_mesh(cfg)
+def _block_apply_tp(p, cfg: ModelConfig, kind: str, x, positions, *,
+                    enc_out=None, aux: dict | None = None,
+                    causal: bool = True):
+    """A block of a training step on a mesh, on its weights gathered over
+    'data', tensor-parallel over 'model' where its layout splits: the
+    attention kinds (``layers.attn_apply_tp``; ``causal=False`` for an
+    encoder block, and a decoder block's cross attention over
+    ``enc_out``), the MLP or the MoE FFN, a Mamba on its channels, an
+    mLSTM on its heads, an sLSTM whole (``mamba.mamba_apply_tp``,
+    ``xlstm.*_block_apply_tp``).  A MoE FFN's aux shares are added into
+    ``aux``."""
+    if kind in ("mamba", "mamba_moe"):
+        h = common.norm_apply(p.ln1, x, cfg.norm, rms_offset=cfg.rms_offset)
+        return _ffn_tp(p, cfg, x + mamba.mamba_apply_tp(p.mamba, cfg, h),
+                       aux)
+    if kind == "mlstm":
+        return xlstm.mlstm_block_apply_tp(p, cfg, x)
+    if kind == "slstm":
+        return xlstm.slstm_block_apply_tp(p, cfg, x)
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(kind)
     window = cfg.sliding_window if kind == "local" else 0
     h = common.norm_apply(p.ln1, x, cfg.norm, rms_offset=cfg.rms_offset)
     x = layers.attn_apply_tp(p.attn, cfg, h, positions, window=window,
-                             residual=x)
-    h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
-    return common.mlp_apply_tp(p.mlp, h, cfg, residual=x, d_ff=cfg.d_ff)
+                             residual=x, causal=causal)
+    if causal and hasattr(p, "cross"):
+        hc = common.norm_apply(p.ln_cross, x, cfg.norm,
+                               rms_offset=cfg.rms_offset)
+        x = layers.attn_apply_tp(p.cross, cfg, hc, None, residual=x,
+                                 kv=enc_out)
+    return _ffn_tp(p, cfg, x, aux)
 
 
 def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
@@ -539,24 +584,38 @@ def forward(params: Transformer, cfg: ModelConfig, batch, *,
 def _forward_tp(params: Transformer, cfg: ModelConfig, batch,
                 return_aux: bool):
     """:func:`forward` of a training step on a mesh (a model cut by
-    ``sharding.shard_model``).  The top-level leaves are gathered over
-    'data' once (the tied table serves the lookup and the head, so its
-    gradient sums both before the reduce-scatter).  A table split over
-    the vocab looks up this rank's rows and sums them over 'model' (one
-    rank holds each token's); the head's input enters through
+    ``sharding.shard_model``), taking what :func:`_inputs` takes.  The
+    top-level leaves (the encoder's final norm among them) are gathered
+    over 'data' once (the tied table serves the lookup and the head, so
+    its gradient sums both before the reduce-scatter).  A table split
+    over the vocab looks up this rank's rows and sums them over 'model'
+    (one rank holds each token's); a vision frontend's patch embeddings
+    go ahead of the text, whole on every rank; an encoder-decoder
+    config's ``frames`` run through the encoder's blocks, each gathered
+    over 'data' and run tensor-parallel and non-causal, and the decoder
+    adds its learned positions.  The head's input enters through
     ``ad_identity`` and its logits keep this rank's vocab columns."""
-    check_train_mesh(cfg)
+    mesh = sharding.active_mesh()
+    check_train_mesh(cfg, mesh)
     axis = "model"
     top = sharding.constrain_params(
         {n: t for n, t in params.named_buffers()
-         if not n.startswith("blocks.")},
+         if not n.startswith(("blocks.", "encoder.blocks."))},
         specs=params.shard_specs, int8_gather=cfg.fsdp_int8_gather)
+    b = as_batch(batch)
+    enc_out = _encode_tp(params, cfg, b["frames"], top) \
+        if cfg.is_encdec else None
     emb, V = top["embedding"], cfg.vocab_size
-    x = _embed(emb, cfg, as_batch(batch)["tokens"],
-               axis if emb.shape[0] != V else None
-               ).to(getattr(torch, cfg.dtype))
+    x = _embed(emb, cfg, b["tokens"], axis if emb.shape[0] != V else None)
+    if b.get("patch_embeds") is not None:
+        x = torch.cat([b["patch_embeds"].to(x.dtype), x], dim=1)
+    x = x.to(getattr(torch, cfg.dtype))
     B, S = x.shape[:2]
-    x, aux = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device))
+    if cfg.is_encdec:
+        _check_positions(cfg, S - 1)
+        x = x + top["pos_embedding"][:S].to(x.dtype)
+    x, aux = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
+                          enc_out=enc_out)
     x = common.norm_apply(
         common.Norm(top["final_norm.scale"], top.get("final_norm.bias")), x,
         cfg.norm, rms_offset=cfg.rms_offset)
@@ -569,6 +628,25 @@ def _forward_tp(params: Transformer, cfg: ModelConfig, batch,
         logits = common.local_linear(w, x, tag="lm_head").to(torch.float32)
     logits = common.softcap(logits, cfg.final_logit_softcap)
     return (logits, aux) if return_aux else logits
+
+
+def _encode_tp(params: Transformer, cfg: ModelConfig, frames, top: dict):
+    """:func:`encode` of a training step on a mesh: each encoder block
+    gathered over 'data' and run non-causal and tensor-parallel (no
+    remat, as the single device's encoder), then its final norm (from
+    the gathered top-level leaves ``top``)."""
+    x = frames.to(getattr(torch, cfg.dtype))
+    B, S = x.shape[:2]
+    x = x + _sinusoidal(S, cfg.d_model, x.device).to(x.dtype)
+    positions = _positions(B, S, x.device)
+    for blk in params.encoder.blocks:
+        x = _block_apply_tp(sharding.constrain_params(
+            blk, int8_gather=cfg.fsdp_int8_gather), cfg, "attn", x,
+            positions, causal=False)
+    return common.norm_apply(
+        common.Norm(top["encoder.final_norm.scale"],
+                    top.get("encoder.final_norm.bias")), x, cfg.norm,
+        rms_offset=cfg.rms_offset)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

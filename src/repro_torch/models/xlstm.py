@@ -28,7 +28,9 @@ cell and its state (C, n, m) on its heads, the gates' contraction over
 the channels summed over the ranks (f32), ``xl_down`` row-parallel.
 Otherwise every rank runs the mLSTM whole.  The sLSTM's W and R ('embed'
 axes) stay whole under the serve rules; its MLP runs tensor-parallel as
-any MLP does.
+any MLP does.  A training step on a mesh runs the same layouts
+(:func:`mlstm_block_apply_tp`, :func:`slstm_block_apply_tp`) on the
+leaves ``sharding.shard_model`` cut.
 """
 
 from __future__ import annotations
@@ -203,49 +205,133 @@ def mlstm_sequence_parallel(q, k, v, it, ft, state, *, chunk: int = 128):
     return torch.cat(hs, dim=1), state
 
 
-def mlstm_block_apply(p: MLSTM, cfg, x, *, state=None):
-    """x (B, L, d) -> (x + block(x), {"C", "n", "m", "conv"}).  Prefill
-    (L > 1, ``cfg.xlstm_parallel``) takes the parallel form, decode the
-    sequential step."""
-    B, L, d = x.shape
-    di_all, H_all, dh = _dims(cfg)
-    tp = p.tp
-    col = dict(in_dim=d, local=tp)
-    h_in = common.norm_apply(p.norm, x, cfg.norm)
-    ab = common.linear_apply(p.xl_up, h_in, cfg.quant, tag="xl_up", **col)
+def _mix(cfg, ab, w: dict, gates_of, o, dtype, state=None, h0: int = 0):
+    """The mLSTM between its projections: ``ab`` (B, L, 2·di: this rank's
+    channels of a, then of b) -> (the input of ``xl_down`` (B, L, di) in
+    ``dtype``, the state after it).  ``w``: this rank's ``conv_w``,
+    ``conv_b``, ``q``, ``k``, ``v`` and ``lskip``; ``gates_of`` maps the
+    conv's output to every head's f32 gates with their bias (B, L, 2H),
+    of which this rank reads heads ``h0`` on; ``o`` the f32 output gate
+    (B, L, di).  Prefill (L > 1, ``cfg.xlstm_parallel``) takes the
+    parallel form, decode the sequential step, from ``state`` (or the
+    initial one)."""
+    B, L = ab.shape[:2]
+    _, H_all, dh = _dims(cfg)
     di = ab.shape[-1] // 2  # this rank's channels
     H = di // dh  # and heads
     a, b = torch.split(ab, di, dim=-1)
     tail = state["conv"] if state is not None else None
-    ac, new_tail = _causal_conv(a, p.xl_conv_w, p.xl_conv_b, tail)
+    ac, new_tail = _causal_conv(a, w["conv_w"], w["conv_b"], tail)
     ac = F.silu(ac)
-    q = _blockdiag(p.xl_q.w, ac, B, L, H, dh)
-    k = _blockdiag(p.xl_k.w, ac, B, L, H, dh) * dh**-0.5
-    v = _blockdiag(p.xl_v.w, a, B, L, H, dh)
-    gates = ac.to(torch.float32) @ p.xl_gates.w.t()
-    if tp:  # every head's gates contract over every rank's channels
-        gates = coll.psum(gates, sharding.TP_AXIS)
-    gates = gates + p.xl_gates.b
-    h0 = sharding.coord(sharding.active_mesh(), sharding.TP_AXIS) * H \
-        if tp else 0
+    q = _blockdiag(w["q"], ac, B, L, H, dh)
+    k = _blockdiag(w["k"], ac, B, L, H, dh) * dh**-0.5
+    v = _blockdiag(w["v"], a, B, L, H, dh)
+    gates = gates_of(ac)
     it = gates[..., h0:h0 + H]
     ft = F.logsigmoid(gates[..., H_all + h0:H_all + h0 + H])
-    o = torch.sigmoid(common.linear_apply(p.xl_o, h_in, cfg.quant,
-                                          tag="xl_o", **col)
-                      .to(torch.float32))
     st = ((state["C"], state["n"], state["m"]) if state is not None
-          else tuple(mlstm_state(cfg, B, device=x.device, heads=H)[n]
+          else tuple(mlstm_state(cfg, B, device=ab.device, heads=H)[n]
                      for n in ("C", "n", "m")))
     seq_fn = (mlstm_sequence_parallel if L > 1 and cfg.xlstm_parallel
               else mlstm_sequence)
     hseq, (C, n, m) = seq_fn(q, k, v, it, ft, st, chunk=cfg.xlstm_chunk)
     hseq = hseq.reshape(B, L, di) * o
     # learnable skip from the conv branch
-    hseq = (hseq + p.lskip * ac.to(torch.float32)).to(x.dtype)
+    hseq = (hseq + w["lskip"] * ac.to(torch.float32)).to(dtype)
+    return hseq * F.silu(b), {"C": C, "n": n, "m": m, "conv": new_tail}
+
+
+def mlstm_block_apply(p: MLSTM, cfg, x, *, state=None):
+    """x (B, L, d) -> (x + block(x), {"C", "n", "m", "conv"}).  Prefill
+    (L > 1, ``cfg.xlstm_parallel``) takes the parallel form, decode the
+    sequential step."""
+    d = x.shape[-1]
+    di_all, _, dh = _dims(cfg)
+    tp = p.tp
+    col = dict(in_dim=d, local=tp)
+    h_in = common.norm_apply(p.norm, x, cfg.norm)
+    ab = common.linear_apply(p.xl_up, h_in, cfg.quant, tag="xl_up", **col)
+
+    def gates_of(ac):
+        gates = ac.to(torch.float32) @ p.xl_gates.w.t()
+        if tp:  # every head's gates contract over every rank's channels
+            gates = coll.psum(gates, sharding.TP_AXIS)
+        return gates + p.xl_gates.b
+
+    h0 = sharding.coord(sharding.active_mesh(), sharding.TP_AXIS) * (
+        ab.shape[-1] // 2 // dh) if tp else 0
+    o = torch.sigmoid(common.linear_apply(p.xl_o, h_in, cfg.quant,
+                                          tag="xl_o", **col)
+                      .to(torch.float32))
+    w = dict(conv_w=p.xl_conv_w, conv_b=p.xl_conv_b, q=p.xl_q.w, k=p.xl_k.w,
+             v=p.xl_v.w, lskip=p.lskip)
+    y, state = _mix(cfg, ab, w, gates_of, o, x.dtype, state, h0)
     out = common.linear_apply(
-        p.xl_down, hseq * F.silu(b), cfg.quant, in_dim=di_all,
-        tag="xl_down", x_axis=sharding.TP_AXIS if tp else None)
-    return x + out, {"C": C, "n": n, "m": m, "conv": new_tail}
+        p.xl_down, y, cfg.quant, in_dim=di_all, tag="xl_down",
+        x_axis=sharding.TP_AXIS if tp else None)
+    return x + out, state
+
+
+def mlstm_block_apply_tp(p: MLSTM, cfg, x, *, axis: str = "model"):
+    """:func:`mlstm_block_apply` (full sequence, no state) of a training
+    step on a mesh, on this rank's weights gathered over 'data' (a model
+    cut by ``sharding.shard_model``).  Where its leaves hold this rank's
+    channels (``xl_inner`` split over ``axis``; ``xl_up``'s rows its
+    channels of both halves, ``sharding.HALVES``) and the heads divide
+    the ``axis`` size M, the block runs on this rank's heads: the
+    normed input enters through ``ad_identity`` into the column-parallel
+    ``xl_up`` and ``xl_o``, the conv, q/k/v and the cell are local, the
+    gates' contraction over the channels is summed over ``axis`` by an
+    ``ad_psum`` and its bias added before one ``ad_identity`` (each rank
+    reads its heads' gates, so the backward sums the ranks' cotangents),
+    the whole ``lskip`` enters through ``ad_identity`` before this
+    rank's channels of it are read, and ``xl_down`` is row-parallel,
+    ending in ``ad_psum``.  Where the channels split but the heads do
+    not, each rank gathers every leaf whole (``xl_up`` back to the
+    single-device order) and runs the block whole, as it does where
+    nothing splits.  Returns x + block(x)."""
+    di_all, H_all, dh = _dims(cfg)
+    whole = common.whole_rows
+    split = p.xl_up.w.shape[0] != 2 * di_all
+    mesh = sharding.active_mesh()
+    M = sharding.tp_size(mesh)
+    tp = split and H_all % M == 0
+    h_in = common.norm_apply(p.norm, x, cfg.norm)
+    up, down, o_w = p.xl_up.w, p.xl_down.w, p.xl_o.w
+    w = dict(conv_w=p.xl_conv_w, conv_b=p.xl_conv_b, q=p.xl_q.w, k=p.xl_k.w,
+             v=p.xl_v.w, lskip=p.lskip)
+    gates_w = p.xl_gates.w
+    h0 = 0
+    if tp:
+        h_in = coll.ad_identity(h_in, axis)
+        n = up.shape[0] // 2
+        r = sharding.coord(mesh, axis)
+        w["lskip"] = coll.ad_identity(w["lskip"], axis).narrow(0, r * n, n)
+        h0 = r * (n // dh)
+    elif split:
+        kw = dict(partial=False)
+        up = sharding.from_blocks(whole(up, 2 * di_all, 0, axis, **kw), M)
+        w["conv_w"] = whole(w["conv_w"], di_all, 1, axis, **kw)
+        w["conv_b"] = whole(w["conv_b"], di_all, 0, axis, **kw)
+        for name in ("q", "k", "v"):
+            w[name] = whole(w[name], H_all, 0, axis, **kw)
+        gates_w = whole(gates_w, di_all, 1, axis, **kw)
+        o_w = whole(o_w, di_all, 0, axis, **kw)
+        down = whole(down, di_all, 1, axis, **kw)
+    ab = common.local_linear(up, h_in, tag="xl_up")
+
+    def gates_of(ac):
+        gates = ac.to(torch.float32) @ gates_w.t()
+        if tp:
+            return coll.ad_identity(coll.ad_psum(gates, axis)
+                                    + p.xl_gates.b, axis)
+        return gates + p.xl_gates.b
+
+    o = torch.sigmoid(common.local_linear(o_w, h_in, tag="xl_o")
+                      .to(torch.float32))
+    y, _ = _mix(cfg, ab, w, gates_of, o, x.dtype, h0=h0)
+    out = common.local_linear(down, y, tag="xl_down")
+    return x + (coll.ad_psum(out, axis) if tp else out)
 
 
 def mlstm_state(cfg, batch: int, dtype=torch.float32, *, device=None,
@@ -303,10 +389,10 @@ def _slstm_step(state, wx, R):
     return (h_new, c_new, n_new, m_new), h_new
 
 
-def slstm_block_apply(p: SLSTM, cfg, x, *, state=None):
-    """x (B, L, d) -> (x + sLSTM + MLP, {"h", "c", "n", "m"}: the state
-    after the L true steps)."""
-    B, L, d = x.shape
+def _recurrence(p: SLSTM, cfg, x, state=None):
+    """(x plus the sLSTM's outputs over x's L true steps from ``state``
+    (or the initial one), the state after them)."""
+    B = x.shape[0]
     xi = common.norm_apply(p.norm, x, cfg.norm).to(torch.float32)
     wx = xi @ p.sl_w.w.t() + p.sl_w.b  # (B, L, 4d)
     if state is None:
@@ -315,11 +401,31 @@ def slstm_block_apply(p: SLSTM, cfg, x, *, state=None):
     R = p.sl_r.w
     (h, c, n, m), hs = _scan(lambda s, xt: _slstm_step(s, xt[0], R), st,
                              (wx.movedim(1, 0),), cfg.xlstm_chunk)
-    x = x + hs.movedim(0, 1).to(x.dtype)
-    mcfg = _mlp_cfg(cfg)
+    return x + hs.movedim(0, 1).to(x.dtype), {"h": h, "c": c, "n": n,
+                                              "m": m}
+
+
+def slstm_block_apply(p: SLSTM, cfg, x, *, state=None):
+    """x (B, L, d) -> (x + sLSTM + MLP, {"h", "c", "n", "m"}: the state
+    after the L true steps)."""
+    x, state = _recurrence(p, cfg, x, state)
     x = x + common.mlp_apply(p.mlp, common.norm_apply(p.norm2, x, cfg.norm),
-                             mcfg)
-    return x, {"h": h, "c": c, "n": n, "m": m}
+                             _mlp_cfg(cfg))
+    return x, state
+
+
+def slstm_block_apply_tp(p: SLSTM, cfg, x, *, axis: str = "model"):
+    """:func:`slstm_block_apply` (full sequence, no state) of a training
+    step on a mesh: the recurrence runs whole on every rank (W and R
+    gathered over 'data', the 'embed' axes, never split over ``axis``),
+    so every rank holds their whole gradients and none is summed over
+    ``axis``; the GeGLU MLP runs as any MLP of the step does
+    (``common.mlp_apply_tp``).  Returns the block's output."""
+    x, _ = _recurrence(p, cfg, x)
+    return common.mlp_apply_tp(
+        p.mlp, common.norm_apply(p.norm2, x, cfg.norm), _mlp_cfg(cfg),
+        residual=x, d_ff=int(x.shape[-1] * cfg.slstm_mlp_factor),
+        axis=axis)
 
 
 def slstm_state(cfg, batch: int, dtype=torch.float32, *, device=None

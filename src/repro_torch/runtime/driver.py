@@ -74,20 +74,23 @@ def shardings(state: dict):
     """The ``TreeSharding`` of a state's checkpoint tree on its mesh (None
     on one device): params and the moments under the leaves' specs, the
     residual's leading axis over 'pod' (where the mesh has one) before
-    them; ``count`` and ``step`` whole."""
+    them, the two-halves leaves (``sharding.HALVES``) marked; ``count``
+    and ``step`` whole."""
     mesh = state.get("mesh")
     if mesh is None:
         return None
     from repro_torch.distributed import compat
-    from repro_torch.distributed.sharding import TreeSharding
+    from repro_torch.distributed.sharding import TreeSharding, is_halves
 
     pod = "pod" if "pod" in compat.axes_of(mesh) else None
-    specs = {}
+    specs, halves = {}, {}
     for key, lead in (("params", ()), ("opt/m", ()), ("opt/v", ()),
                       ("opt/residual", (pod,))):
         specs.update({f"{key}/{n}": lead + tuple(s)
                       for n, s in state["specs"].items()})
-    return TreeSharding(mesh, specs)
+        halves.update({f"{key}/{n}": len(lead) for n in state["specs"]
+                       if is_halves(n)})
+    return TreeSharding(mesh, specs, halves)
 
 
 def _restore(ckpt: CheckpointManager, step: int, state: dict) -> dict:
@@ -118,10 +121,13 @@ def _stopping(stop_flag, mesh) -> bool:
 
 def run(state: dict, step_fn: Callable, data, dcfg: DriverConfig, *,
         device=None, crash: CrashInjector | None = None,
-        stop_flag: list | None = None, log: Callable = print) -> dict:
+        stop_flag: list | None = None, log: Callable = print,
+        microbatches: int = 1) -> dict:
     """Run (or resume) training: ``step_fn(state, batch) -> (state,
     metrics)`` on ``data.device_batch(step, device=device)`` for the
-    steps not yet done.  Returns {'state', 'metrics' (one dict a step:
+    steps not yet done (on a mesh, this rank's share of each of the
+    step's ``microbatches``, which must be ``step_fn``'s).  Returns
+    {'state', 'metrics' (one dict a step:
     its number and every 0-d metric as a float), 'resumed_at',
     'preempted', and 'watchdog' when it ran to the end}.  On a mesh
     (``state["mesh"]``) every rank calls it; only rank 0 logs."""
@@ -148,7 +154,8 @@ def run(state: dict, step_fn: Callable, data, dcfg: DriverConfig, *,
             log(f"[driver] preempted; saved at step {step}")
             return {"state": state, "metrics": history, "resumed_at": start,
                     "preempted": True}
-        batch = data.device_batch(step, device=device, mesh=mesh)
+        batch = data.device_batch(step, device=device, mesh=mesh,
+                                  microbatches=microbatches)
         wd.step_started()
         if crash is not None:
             crash.maybe_crash(step)

@@ -27,9 +27,15 @@ reduce-scatters over 'data', leaves whole over 'data' are psummed over
 it, and the mean over 'pod' goes through ``optim.compression`` with
 ``grad_compression="int8_pod"`` (its error-feedback residual in
 ``state["opt"]["residual"]``).  The clip's norm counts every element
-once (``optim.adamw.global_norm``).  Dense decoders only
+once (``optim.adamw.global_norm``).  A MoE block's ``load_balance`` is
+the product of the whole batch's means, each rank handing the loss its
+share (``moe.moe_apply_tp``), and ``dropped_frac`` the whole batch's
+share, so both equal the single device's.  Every model family trains so;
+a mesh that cannot split a layout is refused
 (``transformer.check_train_mesh``); on a 1x1 mesh, or none, the step is
-the single-device one.
+the single-device one.  With ``microbatches`` A, a rank's microbatch i
+is its share of the single device's microbatch i when its rows are
+placed so (``SyntheticStream.device_batch(..., microbatches=A)``).
 """
 
 from __future__ import annotations
@@ -133,7 +139,7 @@ def loss_fn(model, cfg: ModelConfig, tcfg: TrainConfig, batch: dict, *,
     times the summed ``load_balance`` over (MoE blocks in the pattern x
     groups); metrics ``ce``, ``z_loss``, ``load_balance``,
     ``dropped_frac``.  On ``mesh`` (its context active), this rank's
-    shares of them (:func:`cross_entropy`)."""
+    shares of them (:func:`cross_entropy`, ``moe.moe_apply_tp``)."""
     logits, aux = transformer.forward(model, cfg, batch, return_aux=True)
     split = mesh is not None and logits.shape[-1] != cfg.vocab_size
     ce, zl = cross_entropy(logits, batch["labels"], mesh=mesh,
@@ -235,17 +241,18 @@ def _grads_local(model, names, cfg, tcfg, batch, mesh=None):
 
 
 def train_mesh(mesh, cfg: ModelConfig):
-    """``mesh`` when it spans more than one device (a dense ``cfg``, else
-    NotImplementedError), None for none or a 1x1 mesh."""
+    """``mesh`` when it spans more than one device (NotImplementedError
+    where ``cfg`` cannot train on it, ``transformer.check_train_mesh``),
+    None for none or a 1x1 mesh."""
     if mesh is None or mesh_devices(mesh) == 1:
         return None
-    transformer.check_train_mesh(cfg)
+    transformer.check_train_mesh(cfg, mesh)
     return mesh
 
 
 def init_state(cfg: ModelConfig, tcfg: TrainConfig | None = None, *,
                generator: torch.Generator, device=None, mesh=None) -> dict:
-    """A dense model from ``generator`` (``transformer.init_params``), zero
+    """A model from ``generator`` (``transformer.init_params``), zero
     moments in the optimizer's ``state_dtype`` and step 0.  On ``mesh``,
     this rank's blocks (the whole model is drawn, then cut, so every
     mesh starts from the single-device weights)."""

@@ -7,8 +7,10 @@ batch fake tensors, runs one real train step.
   for each rank, its collectives by kind (count and bytes) are equal,
   and its argument bytes equal the real rank's state plus batch bytes;
   the peak from ``MemTracker`` covers the arguments;
-* the train cells of the non-dense archs come back ``skipped`` with a
-  reason naming the ROADMAP entry (A13c); the serve cells are
+* the same for qwen2-moe SMOKE (expert-parallel, its aux terms' psum);
+* the train cells of a MoE, a hybrid recurrent and an encoder-decoder
+  arch come back ``ok``; a cell that does not apply (gemma-2b's
+  ``long_500k``) ``skipped`` with the reason; the serve cells are
   ``tests/test_torch_dryrun_serve.py``'s;
 * the CLI writes one JSON file a cell under ``--out`` and nothing else
   (``benchmarks/results/`` untouched); a cell that raises is ``failed``
@@ -41,27 +43,57 @@ RESULTS = Path(__file__).resolve().parents[1] / "benchmarks" / "results"
 @pytest.fixture(scope="module")
 def real():
     return run_ranks(R.dryrun_rank, R.WORLD, SHAPE, AXES, BATCH, TKW,
-                     timeout=120)
+                     ("gemma_2b", "qwen2_moe"), timeout=120)
+
+
+def _fake_cell(arch, rank):
+    cfg = configs.get_smoke(arch)
+    specs = {k: shp.Spec(BATCH, torch.int32) for k in ("tokens", "labels")}
+    return dryrun.measure(cfg, R.train_config(TKW), specs, SHAPE, AXES,
+                          rank=rank)
 
 
 @pytest.mark.parametrize("rank", [0, 3])
 def test_fake_cell_equals_a_real_step(real, rank):
-    cfg = configs.get_smoke("gemma_2b")
-    specs = {k: shp.Spec(BATCH, torch.int32) for k in ("tokens", "labels")}
-    got = dryrun.measure(cfg, R.train_config(TKW), specs, SHAPE, AXES,
-                         rank=rank)
-    assert got["collectives"] == real[rank]["collectives"]
+    got = _fake_cell("gemma_2b", rank)
+    want = real[rank]["gemma_2b"]
+    assert got["collectives"] == want["collectives"]
     assert got["memory"]["argument_bytes_per_device"] == \
-        real[rank]["argument_bytes"]
+        want["argument_bytes"]
     assert got["memory"]["peak_bytes_per_device"] >= \
         got["memory"]["argument_bytes_per_device"] > 0
     assert got["local_batch"] == BATCH[0] // 2
 
 
+@pytest.mark.parametrize("rank", [0, 3])
+def test_fake_moe_cell_equals_a_real_step(real, rank):
+    """qwen2-moe SMOKE ('ep': 3 experts a rank, its aux terms' psum over
+    'data'): the fake-mode cell's collectives and argument bytes are the
+    real rank's."""
+    got = _fake_cell("qwen2_moe", rank)
+    want = real[rank]["qwen2_moe"]
+    assert got["collectives"] == want["collectives"]
+    assert got["memory"]["argument_bytes_per_device"] == \
+        want["argument_bytes"]
+    assert got["memory"]["peak_bytes_per_device"] >= \
+        got["memory"]["argument_bytes_per_device"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe", "jamba_v01",
+                                  "whisper_medium"])
+def test_non_dense_train_cells_run(arch):
+    """The train cells of a MoE, a hybrid recurrent and an
+    encoder-decoder arch run (once reported skipped): ``ok``, with
+    arguments, a peak and collectives."""
+    res = dryrun.run_cell(arch, "train_4k", multi_pod=False, smoke=True,
+                          verbose=False)
+    assert res["status"] == "ok", res
+    assert res["memory"]["peak_bytes_per_device"] >= \
+        res["memory"]["argument_bytes_per_device"] > 0
+    assert res["collectives"]["all_gather"]["count"] > 0
+
+
 @pytest.mark.parametrize("arch,shape,match", [
-    ("qwen2_moe", "train_4k", "A13c"),
-    ("jamba_v01", "train_4k", "A13c"),
-    ("whisper_medium", "train_4k", "A13c"),
     ("gemma_2b", "long_500k", "quadratic"),
 ])
 def test_unported_cells_are_skipped(arch, shape, match):

@@ -27,13 +27,13 @@ tokens:
   ``compressed_pmean_tree`` under ``jax.vmap`` on the pod gradients
   (block by block of the model axis, as each rank reduces its block;
   XLA's flushed subnormals aside);
-* a MoE config on a mesh raises NotImplementedError.
+* every arch (qk-norm too) takes a mesh step on (data=2, model=2) that
+  equals its single-device step, on every rank (the families' own mesh
+  tests are ``test_torch_train_mesh_{moe,recurrent,encdec}.py``).
 
 One spawn of four gloo ranks runs every case (``tests/torch_train_ranks.
 py``).
 """
-
-import functools
 
 import numpy as np
 import pytest
@@ -47,21 +47,19 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import torch_train_mesh_check as C  # noqa: E402
 import torch_train_parity as P  # noqa: E402
 import torch_train_ranks as R  # noqa: E402
-from repro.optim import AdamWConfig as JAdamW  # noqa: E402
 from repro.optim import compression as JC  # noqa: E402
-from repro.runtime import train as JRT  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
-from repro_torch.runtime import train as RT  # noqa: E402
 
 ARCHS = ("gemma_2b", "gemma2_9b")
 MESHES = {"d2m2": ((2, 2), ("data", "model")),
           "p2d1m2": ((2, 1, 2), ("pod", "data", "model"))}
 VARIANTS = {"plain": ({}, {"remat": False}),
             "mb2remat": ({"microbatches": 2}, {"remat": True})}
-B, S, STEPS = 4, 16, 3
+STEPS = 3  # of C.B x C.S tokens
 CASES = {f"{a}-{m}-{v}": dict(arch=a, shape=MESHES[m][0], axes=MESHES[m][1],
                               tkw=VARIANTS[v][0], over=VARIANTS[v][1])
          for a in ARCHS for m in MESHES for v in VARIANTS}
@@ -79,16 +77,21 @@ CASES["gemma_2b-p2d1m2-int8pod"] = dict(
     tkw={"grad_compression": "int8_pod"}, over={"remat": False})
 
 
-@functools.lru_cache(maxsize=None)
 def _init(arch):
     """(reference config, reference init state, the port's weights and
     the 3 numpy batches)."""
-    jcfg, jstate = P.ref_state(arch, JRT.TrainConfig(optimizer=JAdamW()))
-    state, _ = P.port_state(jstate, jcfg)
-    weights = {n: t.numpy().copy()
-               for n, t in state["params"].state_dict().items()}
-    batches = [P.batch(jcfg, B=B, S=S, seed=1 + s) for s in range(STEPS)]
-    return jcfg, jstate, weights, batches
+    return C.init(arch, (), STEPS)
+
+
+# every arch (and gemma-2b with qk-norm) takes one step on (data=2,
+# model=2) in the same spawn
+EVERY_ARCH = [
+    ("qwen2_moe", {}), ("jamba_v01", {}), ("xlstm_1b3", {}),
+    ("whisper_medium", {}), ("phi3_vision", {}),
+    ("gemma_2b", {"qk_norm": True}),
+    ("gemma_2b", {}), ("gemma2_9b", {}), ("codeqwen15_7b", {}),
+    ("starcoder2_15b", {}), ("gpt3_175b", {}),
+]
 
 
 @pytest.fixture(scope="module")
@@ -96,67 +99,7 @@ def ranks():
     weights = {a: _init(a)[2] for a in ARCHS}
     batches = {a: _init(a)[3] for a in ARCHS}
     return run_ranks(R.train_mesh_rank, R.WORLD, CASES, weights, batches,
-                     timeout=300)
-
-
-def _single_step(case, k: int, before: dict) -> dict:
-    """The port's single-device step ``k`` (0-based) of ``case`` from the
-    whole state ``before``: its gradients, metrics and the state after."""
-    jcfg, jstate, _, batches = _init(case["arch"])
-    state, cfg = P.port_state(jstate, jcfg)
-    over = {n: v for n, v in case["over"].items()
-            if n not in ("save_gathered_weights", "fsdp_int8_gather")}
-    cfg = cfg.replace(**over)
-    tcfg = R.train_config({n: v for n, v in case["tkw"].items()
-                           if n != "grad_compression"})
-    state["params"].load_state_dict({n: torch.from_numpy(a.copy()) for n, a
-                                     in before["params"].items()})
-    for key in ("m", "v"):
-        state["opt"][key] = {n: torch.from_numpy(a.copy())
-                             for n, a in before[key].items()}
-    state["opt"]["count"] = torch.tensor(before["count"], dtype=torch.int32)
-    tb = P.torch_batch(batches[k])
-    _, _, g = RT._grads(state["params"], list(state["opt"]["m"]), cfg, tcfg,
-                        tb)
-    state, met = RT.train_step(state, tb, cfg, tcfg)
-    return {"grads": {n: t.numpy() for n, t in g.items()},
-            "metrics": {n: float(v) for n, v in met.items()},
-            "after": {"params": {n: t.numpy() for n, t in
-                                 state["params"].state_dict().items()},
-                      **{k: {n: t.numpy() for n, t in state["opt"][k].items()}
-                         for k in ("m", "v")},
-                      "count": int(state["opt"]["count"])}}
-
-
-def _close(got, want, tol, what):
-    for n, w in want.items():
-        np.testing.assert_allclose(got[n], w, **tol, err_msg=f"{what} {n}")
-
-
-def _direction(m, v, k):
-    """Adam's direction at step ``k`` from its moments after the step."""
-    ocfg = JAdamW()
-    mh = m.astype(np.float64) / (1 - ocfg.b1 ** k)
-    vh = v.astype(np.float64) / (1 - ocfg.b2 ** k)
-    return mh / (np.sqrt(vh) + ocfg.eps)
-
-
-def _check_params(got, want, lr):
-    """Params after a step from the same state within TOL plus ``lr`` times
-    the difference of the two steps' directions (read off the moments,
-    which are held to TOL themselves): where a gradient sits near zero,
-    Adam turns its last-bit noise into up to ``lr`` of movement (as
-    ``torch_train_parity.close_params``)."""
-    k = want["count"]
-    assert got["count"] == k
-    for name, w in want["params"].items():
-        extra = np.abs(_direction(got["m"][name], got["v"][name], k)
-                       - _direction(want["m"][name], want["v"][name], k)
-                       ) * lr * 1.01
-        g = got["params"][name]
-        bad = np.abs(g - w) > P.TOL["atol"] + P.TOL["rtol"] * np.abs(w) \
-            + extra
-        assert not bad.any(), (name, k, g[bad][:4], w[bad][:4])
+                     EVERY_ARCH, timeout=300)
 
 
 MAIN = [k for k in CASES if k.rsplit("-", 1)[1] in VARIANTS] + \
@@ -167,29 +110,7 @@ MAIN = [k for k in CASES if k.rsplit("-", 1)[1] in VARIANTS] + \
 def test_mesh_step_matches_single_device(ranks, key):
     """Each of the three mesh steps against the single-device step from
     the same (gathered) state, on the whole batch."""
-    case = CASES[key]
-    for k, rec in enumerate(ranks[0][key]["steps"]):
-        want = _single_step(case, k, rec["before"])
-        for r, res in enumerate(ranks):
-            for name, v in want["metrics"].items():
-                np.testing.assert_allclose(
-                    res[key]["steps"][k]["metrics"][name], v, **P.TOL,
-                    err_msg=f"rank {r} step {k + 1} {name}")
-        _close(rec["grads"], want["grads"], P.TOL, f"step {k + 1} grad")
-        _close(rec["after"]["m"], want["after"]["m"], P.TOL,
-               f"step {k + 1} m")
-        _close(rec["after"]["v"], want["after"]["v"], P.V_TOL,
-               f"step {k + 1} v")
-        _check_params(rec["after"], want["after"], want["metrics"]["lr"])
-
-
-@functools.lru_cache(maxsize=None)
-def _reference(arch, tkw_items):
-    jcfg, jstate, _, batches = _init(arch)
-    jtcfg = JRT.TrainConfig(optimizer=JAdamW(), **dict(tkw_items))
-    new, jm = P.ref_step(jcfg, jtcfg)(
-        jstate, {k: jnp.asarray(v) for k, v in batches[0].items()})
-    return new, {k: float(v) for k, v in jm.items()}
+    C.matches_single_device(ranks, key, CASES[key], STEPS)
 
 
 @pytest.mark.parametrize("key", [k for k in CASES
@@ -197,33 +118,7 @@ def _reference(arch, tkw_items):
 def test_mesh_step_matches_reference(ranks, key):
     """Step 1 against ``repro.runtime.train.train_step`` (its gradients
     read back from its first moment, as ``torch_train_parity`` does)."""
-    case = CASES[key]
-    from repro_torch import convert
-
-    jcfg = _init(case["arch"])[0]
-    cfg = convert.config_from_jax(jcfg)
-    new, jm = _reference(case["arch"], tuple(sorted(case["tkw"].items())))
-    got = ranks[0][key]["steps"][0]
-    for k, v in jm.items():
-        np.testing.assert_allclose(got["metrics"][k], v, **P.TOL, err_msg=k)
-    ocfg = JAdamW()
-    gn = np.float32(jm["grad_norm"])
-    scale = min(np.float32(1.0), np.float32(ocfg.grad_clip) / (gn + 1e-9))
-    want_m = P.ref_leaves(new["opt"]["m"], cfg)
-    want_g = {n: m / np.float32((1 - ocfg.b1) * scale)
-              for n, m in want_m.items()}
-    _close(got["grads"], want_g, P.TOL, "grad")
-    _close(got["after"]["m"], want_m, P.TOL, "m")
-    _close(got["after"]["v"], P.ref_leaves(new["opt"]["v"], cfg), P.V_TOL,
-           "v")
-    got_scale = min(1.0, ocfg.grad_clip / (got["metrics"]["grad_norm"]
-                                           + 1e-9))
-    P.close_params({n: torch.from_numpy(v)
-                    for n, v in got["after"]["params"].items()},
-                   P.ref_leaves(new["params"], cfg),
-                   {n: g * got_scale for n, g in got["grads"].items()},
-                   {n: g * scale for n, g in want_g.items()}, jm["lr"],
-                   ocfg.eps)
+    C.matches_reference(ranks, key, CASES[key], STEPS)
 
 
 def test_ranks_issue_the_same_collectives(ranks):
@@ -341,26 +236,35 @@ def test_int8_pod_mean_matches_vmapped_reference(ranks):
                                **P.TOL)
 
 
-def test_moe_on_a_mesh_raises(ranks):
-    assert all("A13c" in res["moe"] for res in ranks)
-    assert "dense decoders" in ranks[0]["moe"]
+def test_moe_on_a_mesh_steps(ranks):
+    """A MoE config takes a mesh step (where it was refused before its
+    layouts trained): qwen2-moe on (data=2, model=2), expert-parallel,
+    from ``init_state(..., mesh=)``: every rank's metrics the single
+    device's, its aux terms among them."""
+    want = R.arch_step("qwen2_moe", {})
+    for res in ranks:
+        got = res["archs"]["qwen2_moe-{}"]
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, **P.TOL, err_msg=k)
+    assert want["load_balance"] > 0
 
 
-@pytest.mark.parametrize("arch,over", [
-    ("qwen2_moe", {}), ("jamba_v01", {}), ("xlstm_1b3", {}),
-    ("whisper_medium", {}), ("phi3_vision", {}),
-    ("gemma_2b", {"qk_norm": True}),
-    ("gemma_2b", {}), ("gemma2_9b", {}), ("codeqwen15_7b", {}),
-    ("starcoder2_15b", {}), ("gpt3_175b", {}),
-])
-def test_only_dense_decoders_train_on_a_mesh(arch, over):
+@pytest.mark.parametrize("arch,over", EVERY_ARCH)
+def test_every_arch_trains_on_a_mesh(ranks, arch, over):
+    """``check_train_mesh`` accepts every arch on (data=2, model=2), and
+    its mesh step (from ``init_state(..., mesh=)`` and the lcg stream's
+    ``device_batch(..., mesh=)``) gives the single device's metrics on
+    every rank."""
     from repro_torch import configs
+    from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import transformer
 
     cfg = configs.get_smoke(arch).replace(**over)
-    if arch in ("gemma_2b", "gemma2_9b", "codeqwen15_7b", "starcoder2_15b",
-                "gpt3_175b") and not over:
-        transformer.check_train_mesh(cfg)
-        return
-    with pytest.raises(NotImplementedError, match="A13c"):
-        transformer.check_train_mesh(cfg)
+    transformer.check_train_mesh(cfg, MeshShape({"data": 2, "model": 2}))
+    want = R.arch_step(arch, over)
+    for r, res in enumerate(ranks):
+        got = res["archs"][f"{arch}-{over}"]
+        assert all(np.isfinite(v) for v in got.values())
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, **P.TOL,
+                                       err_msg=f"rank {r} {k}")

@@ -1,0 +1,76 @@
+"""Encoder-decoder and vision training on a mesh against the port's
+single-device step and the reference's ``repro.runtime.train.
+train_step``, from the reference's init state, two steps of 4 x 16
+tokens with ``microbatches=2`` and remat:
+
+* whisper-medium (12 stub frames) on (data=2, model=2) and (pod=2,
+  data=1, model=2): the encoder's non-causal blocks tensor-parallel
+  over this rank's heads, the decoder's learned positions, its cross
+  attention on this rank's heads of the encoder output;
+* phi-3-vision on (data=2, model=2): its 8 patch embeddings ahead of the
+  text, IGNORE labels over them.
+
+Each step's loss, metrics, grad_norm (on every rank), every gradient,
+m, v and params within the ``tests/torch_train_parity.py`` tolerances of
+the single-device step from the same (gathered) state; step 1 within
+them of the reference's; every rank issues the same collectives.  One
+spawn of four gloo ranks runs every case (``tests/torch_train_ranks.
+py``).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+from torch_plan_isolation import (  # noqa: E402,F401  (autouse)
+    isolated_plan_cache, isolated_plan_cache_module)
+# one intra-op thread each: the suite runs in parallel workers
+torch.set_num_threads(1)
+
+import torch_train_mesh_check as C  # noqa: E402
+import torch_train_ranks as R  # noqa: E402
+from repro_torch.launch.mesh import run_ranks  # noqa: E402
+
+STEPS = 2
+MB, REMAT = {"microbatches": 2}, {"remat": True}
+CASES = {
+    "whisper_medium-d2m2": C.case("whisper_medium", (2, 2),
+                                  ("data", "model"), MB, REMAT),
+    "whisper_medium-p2d1m2": C.case("whisper_medium", (2, 1, 2),
+                                    ("pod", "data", "model"), MB, REMAT),
+    "phi3_vision-d2m2": C.case("phi3_vision", (2, 2), ("data", "model"),
+                               MB, REMAT),
+}
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    weights, batches = C.inputs(CASES, STEPS)
+    return run_ranks(R.cases_rank, R.WORLD, CASES, weights, batches,
+                     timeout=300)
+
+
+@pytest.mark.parametrize("key", CASES)
+def test_mesh_step_matches_single_device(ranks, key):
+    C.matches_single_device(ranks, key, CASES[key], STEPS)
+
+
+@pytest.mark.parametrize("key", CASES)
+def test_mesh_step_matches_reference(ranks, key):
+    C.matches_reference(ranks, key, CASES[key], STEPS)
+
+
+@pytest.mark.parametrize("key", CASES)
+def test_ranks_issue_the_same_collectives(ranks, key):
+    C.same_collectives(ranks, key)
+
+
+def test_encoder_and_cross_attention_are_trained(ranks):
+    """The mesh step reaches every weight of the encoder and of the cross
+    attentions: each gets a nonzero gradient (its value is held to the
+    single device's by ``test_mesh_step_matches_single_device``)."""
+    rec = ranks[0]["whisper_medium-d2m2"]["steps"][0]
+    names = [n for n in rec["grads"]
+             if n.startswith("encoder.blocks.") or ".cross." in n]
+    assert names
+    assert all(abs(rec["grads"][n]).max() > 0 for n in names
+               if n.endswith(".w")), names

@@ -84,16 +84,23 @@ def model_from(cfg, weights: dict):
     return model
 
 
-def local_batch(batch: dict, mesh) -> dict:
-    """This rank's rows of a whole numpy batch."""
-    first, n = sharding.batch_rows(next(iter(batch.values())).shape[0],
-                                   mesh)
-    return {k: torch.from_numpy(v[first:first + n]) for k, v in batch.items()}
+def local_batch(batch: dict, mesh, microbatches: int = 1) -> dict:
+    """This rank's rows of a whole numpy batch (its share of each
+    microbatch, ``sharding.local_rows``)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        sharding.local_rows(v, mesh, microbatches)))
+        for k, v in batch.items()}
 
 
 def whole(tree: dict, specs: dict, mesh) -> dict:
-    return {n: _np(sharding.gather_leaf(t, specs[n], mesh))
-            for n, t in tree.items()}
+    """Every leaf of ``tree`` (this rank's blocks under ``specs``)
+    gathered whole, a two-halves leaf back in the single-device order."""
+    def one(n, t):
+        t = sharding.gather_leaf(t, specs[n], mesh)
+        return sharding.from_blocks(t, sharding.halves_parts(
+            specs[n], mesh)) if sharding.is_halves(n) else t
+
+    return {n: _np(one(n, t)) for n, t in tree.items()}
 
 
 def _whole_state(state) -> dict:
@@ -119,7 +126,7 @@ def run_case(case: dict, weights: dict, batches: list, rank: int) -> dict:
     specs, names = state["specs"], list(state["opt"]["m"])
     out = {"steps": []}
     for step, b in enumerate(batches):
-        b = local_batch(b, mesh)
+        b = local_batch(b, mesh, tcfg.microbatches)
         rec = {"before": _whole_state(state)}
         _, _, pod_grads = RT._grads(state["params"], names, cfg, tcfg, b,
                                     mesh=mesh, specs=specs)
@@ -202,23 +209,135 @@ def autograd_collectives(rank: int) -> dict:
     return out
 
 
-def train_mesh_rank(rank, device, cases, weights, batches):
+def train_mesh_rank(rank, device, cases, weights, batches, archs):
     """Every case of ``cases`` ({key: {arch, shape, axes, tkw, over}}),
-    the autograd collectives, the int8 gather, and the refusal of a MoE
-    config on a mesh."""
-    out = {"int8": int8_gather(rank), "ad": autograd_collectives(rank)}
+    the autograd collectives, the int8 gather, and one step of each of
+    ``archs`` on (data=2, model=2) (:func:`arch_steps`)."""
+    out = {"int8": int8_gather(rank), "ad": autograd_collectives(rank),
+           "archs": arch_steps(archs)}
     for key, case in cases.items():
         out[key] = run_case(case, weights[case["arch"]],
                             batches[case["arch"]], rank)
-    mesh = make_mesh((2, 2), ("data", "model"))
-    try:
-        RT.init_state(configs.get_smoke("qwen2_moe"), RT.TrainConfig(),
-                      generator=torch.Generator().manual_seed(0),
-                      device="cpu", mesh=mesh)
-        out["moe"] = None
-    except NotImplementedError as e:
-        out["moe"] = str(e)
     return out
+
+
+def cases_rank(rank, device, cases, weights, batches, root=None):
+    """Every case of ``cases`` from its own ``weights[key]`` and
+    ``batches[key]`` (:func:`run_case`; None on a rank outside its
+    mesh); with ``root``, also :func:`halves_round_trips` there."""
+    out = {key: run_case(case, weights[key], batches[key], rank)
+           for key, case in cases.items()}
+    if root is not None:
+        out["halves"] = halves_round_trips(rank, root)
+    return out
+
+
+def _bits(a: dict, b: dict) -> list:
+    """The names whose tensors differ in a bit (or in shape)."""
+    return sorted(n for n in a if not torch.equal(a[n], b[n]))
+
+
+def _whole_trees(tree: dict) -> dict:
+    """A ``gather_state`` tree as {'params/name' | 'm/name' | 'v/name':
+    tensor}."""
+    out = {f"params/{n}": t for n, t in tree["params"].items()}
+    for k in ("m", "v"):
+        out.update({f"{k}/{n}": t for n, t in tree["opt"][k].items()})
+    return out
+
+
+def halves_round_trips(rank: int, root: str) -> dict:
+    """The two-halves leaves (Mamba's ``in_proj``, the mLSTM's ``xl_up``)
+    of jamba and xlstm SMOKE on (data=2, model=2), after one step: this
+    rank's block is its channels of both halves (then its 'data' block of
+    the columns); the state gathered whole (``gather_state``) and cut
+    again (``shard_state``) gives the same blocks; its checkpoint
+    restored onto one device gives the gathered leaves, and restored
+    onto (data=1, model=4) and gathered, the same, bit for bit.  Returns
+    {arch: {check: the names that differ}}."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    out = {}
+    mesh = make_mesh((2, 2), ("data", "model"))
+    for arch, name in (("jamba_v01", "blocks.0.mamba.in_proj.w"),
+                       ("xlstm_1b3", "blocks.0.xl_up.w")):
+        cfg, tcfg = smoke(arch, {}), train_config({})
+        whole_w = dict(fresh_state(cfg, tcfg)["params"].named_buffers())[name]
+        state = fresh_state(cfg, tcfg, mesh)
+        r, half = sharding.coord(mesh, "model"), whole_w.shape[0] // 2
+        n = half // 2
+        want = torch.cat([whole_w[r * n:(r + 1) * n],
+                          whole_w[half + r * n:half + (r + 1) * n]])
+        want = sharding.local_slice(want, (None, state["specs"][name][1]),
+                                    mesh)
+        res = {"block": [] if torch.equal(dict(state["params"]
+                                               .named_buffers())[name], want)
+               else [name]}
+        batch = arch_stream(cfg).device_batch(0, device="cpu", mesh=mesh)
+        state, _ = RT.train_step(state, batch, cfg, tcfg)
+        tree = sharding.gather_state(state)
+        whole = _whole_trees(tree)
+        again = RT.state_for(model_from(cfg, {n: t.numpy() for n, t in
+                                              tree["params"].items()}), tcfg)
+        for k in ("m", "v"):
+            again["opt"][k] = {n: t.clone() for n, t in tree["opt"][k].items()}
+        again = sharding.shard_state(again, mesh, cfg.logical_rules)
+        res["reshard"] = _bits(
+            {**{f"params/{n}": t for n, t in
+                state["params"].state_dict().items()},
+             **{f"{k}/{n}": t for k in ("m", "v")
+                for n, t in state["opt"][k].items()}},
+            {**{f"params/{n}": t for n, t in
+                again["params"].state_dict().items()},
+             **{f"{k}/{n}": t for k in ("m", "v")
+                for n, t in again["opt"][k].items()}})
+        d = f"{root}/{arch}"
+        CheckpointManager(d).save(1, driver._tree(state),
+                                  shardings=driver.shardings(state))
+        if rank == 0:
+            one = driver._restore(CheckpointManager(d), 1,
+                                  fresh_state(cfg, tcfg))
+            res["onto_1x1"] = _bits(whole, _whole_trees(
+                {"params": one["params"].state_dict(), "opt": one["opt"]}))
+        m14 = make_mesh((1, 4), ("data", "model"))
+        other = driver._restore(CheckpointManager(d), 1,
+                                fresh_state(cfg, tcfg, m14))
+        res["onto_1x4"] = _bits(whole, _whole_trees(
+            sharding.gather_state(other)))
+        out[arch] = res
+    return out
+
+
+ARCH_BATCH = (4, 16)  # a one-step run of every arch: 4 rows of 16 tokens
+
+
+def arch_stream(cfg) -> SyntheticStream:
+    """The lcg stream of :func:`arch_steps` (whisper 8 stub frames,
+    phi-3 its patches ahead of the text)."""
+    B, S = ARCH_BATCH
+    return SyntheticStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S + 1, global_batch=B, seed=0,
+        frontend=cfg.frontend, d_model=cfg.d_model, num_frames=8,
+        num_patches=cfg.num_patches))
+
+
+def arch_step(arch: str, over: dict, mesh=None) -> dict:
+    """One step of ``arch``'s SMOKE config (fields ``over``) from seed 0
+    on batch 0 of :func:`arch_stream` (on ``mesh``, this rank's rows):
+    its metrics."""
+    cfg = smoke(arch, over)
+    tcfg = train_config({})
+    state = fresh_state(cfg, tcfg, mesh)
+    batch = arch_stream(cfg).device_batch(0, device="cpu", mesh=mesh)
+    _, met = RT.train_step(state, batch, cfg, tcfg)
+    return {k: float(v) for k, v in met.items()}
+
+
+def arch_steps(archs) -> dict:
+    """:func:`arch_step` of each (arch, over) of ``archs`` on (data=2,
+    model=2), by ``f"{arch}-{over}"``."""
+    mesh = make_mesh((2, 2), ("data", "model"))
+    return {f"{a}-{o}": arch_step(a, o, mesh) for a, o in archs}
 
 
 # ---------------------------------------------------------- checkpoints
@@ -356,25 +475,29 @@ def local_equal(a: dict, b: dict) -> bool:
 
 
 # ------------------------------------------------------------- dry run
-def dryrun_rank(rank, device, shape, axes, batch_shape, tkw):
-    """One real train step of gemma-2b SMOKE on ``shape``/``axes``: this
-    rank's collectives by kind (count, bytes) and its state-plus-batch
-    bytes, for the fake-mode cell to equal."""
+def dryrun_rank(rank, device, shape, axes, batch_shape, tkw, archs):
+    """One real train step of each of ``archs``' SMOKE configs on
+    ``shape``/``axes``: by arch, this rank's collectives by kind (count,
+    bytes) and its state-plus-batch bytes, for the fake-mode cell to
+    equal."""
     from repro_torch.launch import dryrun
 
-    cfg = configs.get_smoke("gemma_2b")
-    tcfg = train_config(tkw)
-    mesh = make_mesh(shape, axes)
-    state = fresh_state(cfg, tcfg, mesh)
-    B, S = batch_shape
-    g = np.random.default_rng(0)
-    b = {k: g.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-         for k in ("tokens", "labels")}
-    b = local_batch(b, mesh)
-    args = dryrun.state_bytes(state, b)
-    coll.reset_counts()
-    RT.train_step(state, b, cfg, tcfg)
-    return {"argument_bytes": args,
-            "collectives": {k: {"count": coll.counts[k],
-                                "bytes": coll.nbytes[k]}
-                            for k in sorted(coll.counts)}}
+    out = {}
+    for arch in archs:
+        cfg = configs.get_smoke(arch)
+        tcfg = train_config(tkw)
+        mesh = make_mesh(shape, axes)
+        state = fresh_state(cfg, tcfg, mesh)
+        B, S = batch_shape
+        g = np.random.default_rng(0)
+        b = {k: g.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+             for k in ("tokens", "labels")}
+        b = local_batch(b, mesh, tcfg.microbatches)
+        args = dryrun.state_bytes(state, b)
+        coll.reset_counts()
+        RT.train_step(state, b, cfg, tcfg)
+        out[arch] = {"argument_bytes": args,
+                     "collectives": {k: {"count": coll.counts[k],
+                                         "bytes": coll.nbytes[k]}
+                                     for k in sorted(coll.counts)}}
+    return out
