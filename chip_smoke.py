@@ -318,6 +318,26 @@ Phases, any failure exits non-zero before the last line is printed:
    (a differing step must be a single-device near-tie, top two within
    1e-4 relative; counted), 126 msGeMM launches a step on each rank, the
    collectives a step by kind, each rank's step ms and peak GiB.
+   ``[mesh-tune ...]``: the shard-variant tuner, two ranks sharing
+   ``cuda:0`` on model=2, full-width gemma-2b at 2 layers with msgemm at
+   d=2 / scale_block=32 (so wo and down are row-parallel), an engine
+   with ``shard_pipeline=0`` and the kernel tiles untuned: every tuned
+   key (wo's and down's at the decode and prefill rows) with its
+   variants' seconds, hops, bytes and winner; both ranks hold the same
+   winners and plans, the tokens equal the single device's on the same
+   weights but at a near-tie, each rank's msGeMM launches what the
+   winners imply, a rebuild from the cache times no candidate; then
+   ``python -m repro_torch.obs --calibrate`` on that cache (in process,
+   beside a few tuned kernel keys) fits the collective term, and a
+   build with it and ``autotune="model"`` times at most 3 variants a
+   key.  ``[mesh-fsdp ...]``: FSDP weight storage, two ranks sharing
+   ``cuda:0`` on data=2, the same model under the 'default' rules and
+   then 'serve': tokens equal the single device's, launches equal the
+   'serve' run's, each cut leaf half its 'serve' bytes; each rank's
+   resident weight bytes under both, the gathers a step by kind and
+   bytes, step ms and peak GiB; whisper's static engine (2 + 2 layers,
+   16 frames, batch 4, f32) under 'default', its logits within the
+   ``[mesh-static ...]`` gate of one device's.
    ``[mesh-moe ...]``: full-width qwen2-moe at 2 layers through the
    paged engine on two ranks sharing ``cuda:0`` (expert-parallel: 30
    experts a rank, one int4 launch a projection a rank): tokens == the
@@ -354,7 +374,9 @@ Phases, any failure exits non-zero before the last line is printed:
    nonzero); the checkpoint restored onto one device here, whose
    next step equals the mesh's within 1e-4; each rank's step ms,
    tokens/s and peak GiB, the collectives a step by kind, bytes and
-   seconds.  ``[train-mesh-families ...]``: every family trains on
+   seconds.  ``[train-mesh-families ...]`` (under ``--only mesh``
+   only since the layout-tuner and FSDP-serving phases, which it pays
+   for): every family trains on
    that mesh, full width, one step each, all in one spawn of the four
    ranks: qwen2-moe at 1 layer (expert-parallel, 30 experts a rank),
    jamba at 1 (its Mamba block on each rank's channels), xlstm-1.3b at 8
@@ -372,8 +394,8 @@ Phases, any failure exits non-zero before the last line is printed:
    mesh-training phase): ``python -m repro_torch.launch.dryrun --arch
    gemma_2b --shape train_4k`` on the 256- and the 512-device
    production mesh, and
-   ``--shape prefill_32k`` and ``decode_32k`` (msgemm weights, the serve
-   rules) on the 256-device one, the four cells side by side on the host
+   ``--shape prefill_32k`` and ``decode_32k`` (msgemm weights, the
+   'default' rules: FSDP weight storage) on the 256-device one, the four cells side by side on the host
    (fake process group, fake tensors): each ``ok``, arguments and peak
    GiB a device, the collectives by kind.  ``--only mesh`` runs the
    build and this phase alone (with the main phase's reference run
@@ -4945,7 +4967,6 @@ def mesh_rank(rank, device, seed):
     from repro_torch.core.spec import QuantSpec
     from repro_torch.device import generator
     from repro_torch.distributed import collectives as coll
-    from repro_torch.kernels.ops import KERNELS
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer
 
@@ -4969,25 +4990,10 @@ def mesh_rank(rank, device, seed):
     build_s = time.perf_counter() - t0
     n_plans = len(engine.exec_plans)
     n_sharded = sum(p.shard is not None for p in engine.exec_plans.values())
-    torch.cuda.reset_peak_memory_stats(device)
-    for mod in KERNELS.values():
-        mod.launches = 0
-    coll.reset_counts()
-    steps0 = engine.runner.steps_run
-    t0 = time.perf_counter()
-    results = engine.run(request_stream(cfg))
-    torch.cuda.synchronize(device)
-    run_s = time.perf_counter() - t0
-    steps = engine.runner.steps_run - steps0
-    return dict(rank=rank, device=str(device), build_s=build_s, run_s=run_s,
-                steps=steps, step_ms=run_s * 1e3 / max(steps, 1),
-                launches={n: mod.launches for n, mod in KERNELS.items()},
-                collectives=dict(coll.counts), transport=coll.transport(),
-                collective_check=collectives,
-                peak_bytes=torch.cuda.max_memory_allocated(device),
+    return dict(rank=rank, device=str(device), build_s=build_s,
+                transport=coll.transport(), collective_check=collectives,
                 plans=n_plans, sharded=n_sharded,
-                tokens={rid: s.generated for rid, s in results.items()},
-                status={rid: s.status for rid, s in results.items()})
+                **_engine_run(engine, cfg, device))
 
 
 def phase_mesh_engine(ref, card, devices=("cuda:0", "cuda:0"),
@@ -5034,22 +5040,8 @@ def phase_mesh_engine(ref, card, devices=("cuda:0", "cuda:0"),
     print(f"[{tag}] every collective (psum, psum_scatter, all_gather and "
           f"the three rings) on a {MESH_COLL_SHAPE} CUDA tensor == the "
           f"sum or concatenation of the ranks' inputs, exactly", flush=True)
-    ties, diff_steps = 0, []
-    for rid, want in sorted(ref["tokens"].items()):
-        got = lead["tokens"][rid]
-        check(lead["status"][rid] == "ok" and len(got) == NEW_TOKENS,
-              f"[{tag}] request {rid}: status {lead['status'][rid]}, "
-              f"{len(got)} tokens")
-        first = next((i for i, (a, b) in enumerate(zip(got, want))
-                      if a != b), None)
-        if first is not None:
-            gap = ref["top2_rel"][rid][first]
-            check(gap <= MESH_NEAR_TIE,
-                  f"[{tag}] request {rid} step {first}: token {got[first]} "
-                  f"!= {want[first]}, single-device top two {gap:.2e} apart "
-                  f"(more than {MESH_NEAR_TIE})")
-            ties += 1
-            diff_steps.append((rid, first, gap))
+    diff_steps = _near_ties(tag, ref, lead["tokens"], lead["status"])
+    ties = len(diff_steps)
     for r in ranks:
         check(r["tokens"] == lead["tokens"],
               f"[{tag}] rank {r['rank']} returned other tokens")
@@ -5529,18 +5521,510 @@ def phase_mesh_static(card, devices=("cuda:0", "cuda:0"),
     return dict(ranks=ranks, wall_s=wall_s)
 
 
-def phase_mesh(card, ref=None):
+# --------------------------- the layout tuner and FSDP storage (on a mesh)
+# full-width gemma-2b cut to 2 layers with msgemm weights at
+# MESH_ROW_SPEC (at d=3 / scale_block 36 neither wo's nor down's
+# contraction splits on model=2, so no linear would be row-parallel and
+# nothing would be tuned), the main stream, an f32 pool; its own
+# single-device reference
+MESH_TUNE_LAYERS = 2
+MESH_TUNE_DIR = ROOT / "chiprun_out" / "mesh_tune"
+
+
+def mesh_tune_cfg():
+    """:data:`MESH_TUNE_LAYERS`-layer gemma-2b with msgemm weights at
+    :data:`MESH_ROW_SPEC`."""
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.core.spec import QuantSpec
+
+    return CONFIG.replace(num_layers=MESH_TUNE_LAYERS,
+                          quant=QuantSpec(mode="msgemm", **MESH_ROW_SPEC))
+
+
+def mesh_tune_rows(cfg) -> dict:
+    """{(linear, step kind): (its contraction a rank on model=2, the
+    step's rows)} of the row-parallel keys the tuner times: wo over the
+    heads, down over the hidden dim, at the decode rows (the engine's 4
+    slots) and the prefill rows (one 8-position chunk)."""
+    hd = cfg.num_heads * cfg.head_dim
+    return {(lin, kind): (k // 2, b)
+            for lin, k in (("wo", hd), ("down", cfg.d_ff))
+            for kind, b in (("decode", 4), ("prefill", 8))}
+
+
+def mesh_tune_model(device, seed=0):
+    """(model, cfg) of :func:`mesh_tune_cfg` from ``seed`` on ``device``."""
+    from repro_torch.device import generator
+    from repro_torch.models import transformer
+
+    cfg = mesh_tune_cfg()
+    model = transformer.init_params(cfg, generator=generator(seed, device),
+                                    device=device, quant=cfg.quant)
+    return model, cfg
+
+
+def mesh_tune_reference():
+    """The single device's run of :func:`mesh_tune_model` (graph route):
+    its tokens, launches and each token's top-two gap."""
+    import torch
+
+    model, cfg = mesh_tune_model("cuda")
+    run = serve("mesh-tune-ref", model, cfg, keep_logits=True)
+    run["top2_rel"] = top2_gaps(run.pop("logits"))
+    run.pop("reqs")
+    run.pop("exec_plans")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def _engine_run(engine, cfg, device):
+    """Serve the main stream on a mesh engine with every kernel's launches
+    and the collectives counted over the run alone: tokens, status,
+    steps by kind (the leader's), launches, collectives (count and bytes
+    by kind), seconds, peak bytes."""
+    import torch
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.ops import KERNELS
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    for mod in KERNELS.values():
+        mod.launches = 0
+    coll.reset_counts()
+    steps0 = engine.runner.steps_run
+    t0 = time.perf_counter()
+    results = engine.run(request_stream(cfg))
+    torch.cuda.synchronize(device)
+    run_s = time.perf_counter() - t0
+    steps = engine.runner.steps_run - steps0
+    return dict(tokens={rid: s.generated for rid, s in results.items()},
+                status={rid: s.status for rid, s in results.items()},
+                steps=steps, prefill_steps=engine.num_prefill_steps,
+                decode_steps=engine.num_decode_steps, run_s=run_s,
+                step_ms=run_s * 1e3 / max(steps, 1),
+                launches={n: mod.launches for n, mod in KERNELS.items()},
+                collectives=dict(coll.counts), coll_bytes=dict(coll.nbytes),
+                peak_bytes=torch.cuda.max_memory_allocated(device))
+
+
+def mesh_tune_rank(rank, device, seed, paths):
+    """One rank of the layout tuner on a model=2 mesh: an engine with
+    ``shard_pipeline=0`` (kernel tiles untuned) times every row-parallel
+    key's collective layouts at build, then serves the main stream; a
+    rebuild from the cache file; rank 0 then tunes a few unsharded
+    kernel keys into that file and fits a calibration from it
+    (``python -m repro_torch.obs --calibrate``, in process), and both
+    ranks build a third engine with it and ``autotune="model"`` on a
+    fresh cache file."""
+    import torch
+
+    from repro_torch import dispatch, obs
+    from repro_torch.dispatch import autotune as at
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, cfg = mesh_tune_model(device, seed)
+    mesh = make_mesh((2,), ("model",))
+
+    def build(cache, **kw):
+        at.num_timed_candidates = 0
+        t0 = time.perf_counter()
+        eng = make_engine(model, cfg, mesh=mesh, cuda_graph=False,
+                          shard_pipeline=0, autotune_cache=str(cache), **kw)
+        torch.cuda.synchronize(device)
+        plans = {k: (p.backend, p.shard.tag() if p.shard else None,
+                     str(p.tiles)) for k, p in eng.exec_plans.items()}
+        return eng, plans, at.num_timed_candidates, \
+            time.perf_counter() - t0
+
+    eng, plans, timed, build_s = build(paths["cache"])
+    table = dispatch.cache()
+    out = dict(rank=rank, device=str(device), timed=timed, build_s=build_s,
+               plans=plans, variants={k: table.shard_variant(k)
+                                      for k in table.variant_keys()})
+    out.update(_engine_run(eng, cfg, device))
+    del eng
+    gc.collect()
+    eng, again, out["rebuilt_timed"], _ = build(paths["cache"])
+    out["rebuilt_same"] = again == plans
+    del eng
+    gc.collect()
+    fit = None
+    if rank == 0:
+        # the kernel constants --calibrate fits beside the collective
+        # term: wo's and down's one-shot and 2-chunk shapes, unsharded
+        for k, b in mesh_tune_rows(cfg).values():
+            for kc in (k, k // 2):
+                at.autotune(cfg.quant, cfg.d_model, kc, b, "msgemm_cuda",
+                            device_type=torch.device(device).type)
+        from repro_torch.obs.__main__ import main as obs_main
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = obs_main(["--calibrate", "--plan-cache",
+                           str(paths["cache"]), "--calibration",
+                           str(paths["calibration"])])
+        from repro_torch.obs import perfmodel as pm
+
+        cal = pm.load_calibration(paths["calibration"])
+        fit = dict(rc=rc, text=buf.getvalue(),
+                   collective=None if cal is None else cal.collective)
+    fit = coll.broadcast_object(fit)  # and a barrier
+    os.environ["REPRO_CALIBRATION"] = str(paths["calibration"])
+    pruned = obs.registry().counter("dispatch_autotune_model_pruned_total",
+                                    backend="shard_variants")
+    before = pruned.value
+    eng, model_plans, out["model_timed"], out["model_build_s"] = build(
+        paths["cache3"], autotune="model")
+    table = dispatch.cache()
+    out.update(fit=fit, model_plans=model_plans,
+               model_pruned=pruned.value - before,
+               model_variants={k: [(r["pipeline_chunks"],
+                                    r["collective_impl"])
+                                   for r in table.shard_variant(k)["rows"]]
+                               for k in table.variant_keys()})
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _near_ties(tag, ref, tokens, status=None):
+    """Hold ``tokens`` ({rid: generated}) to the single-device ``ref``: a
+    request whose tokens differ must differ first at a single-device
+    near-tie (top two within ``MESH_NEAR_TIE`` relative).  Returns the
+    differing (rid, step, gap)."""
+    diff = []
+    for rid, want in sorted(ref["tokens"].items()):
+        got = tokens[rid]
+        check(len(got) == NEW_TOKENS and (status is None
+                                          or status[rid] == "ok"),
+              f"[{tag}] request {rid}: {len(got)} tokens, status "
+              f"{None if status is None else status[rid]}")
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+        if first is not None:
+            gap = ref["top2_rel"][rid][first]
+            check(gap <= MESH_NEAR_TIE,
+                  f"[{tag}] request {rid} step {first}: token {got[first]} "
+                  f"!= {want[first]}, single-device top two {gap:.2e} apart "
+                  f"(more than {MESH_NEAR_TIE})")
+            diff.append((rid, first, gap))
+    return diff
+
+
+def phase_mesh_tune(card):
+    """The shard-variant tuner on the card: two ranks sharing cuda:0 over
+    host-staged gloo on model=2, :func:`mesh_tune_model` served with
+    ``shard_pipeline=0`` and kernel-tile tuning off (so the comparison
+    isolates the collective layout).  Prints every tuned key (wo's and
+    down's, decode and prefill rows) with its rows (chunks, implementation,
+    seconds, hops, bytes) and winner.  Gates: both ranks hold the same
+    winners and plans; the tokens equal the single device's (the
+    near-tie rule); each rank's msGeMM launches equal what the winners
+    imply (a layer: 5 + wo's chunks + down's chunks, by step kind); a
+    rebuild from the cache times no candidate and gives the same plans;
+    the calibration fitted from the cache file has a collective block,
+    and a third build with it and ``autotune="model"`` times at most
+    ``MODEL_TOP_K`` variants a key, the one-shot among them."""
+    import shutil
+
+    import torch
+
+    from repro_torch.dispatch.autotune import MODEL_TOP_K
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.obs.perfmodel import parse_plan_key
+
+    ref = mesh_tune_reference()
+    shutil.rmtree(MESH_TUNE_DIR, ignore_errors=True)
+    MESH_TUNE_DIR.mkdir(parents=True)
+    paths = {n: str(MESH_TUNE_DIR / f) for n, f in (
+        ("cache", "plans.json"), ("cache3", "plans_model.json"),
+        ("calibration", "calibration.json"))}
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_tune_rank, 2, 0, paths,
+                      devices=["cuda:0", "cuda:0"], timeout=900)
+    wall_s = time.perf_counter() - t0
+    lead = ranks[0]
+    table = json.loads(Path(paths["cache"]).read_text())["shard_variants"]
+    rows = {v: n for n, v in mesh_tune_rows(mesh_tune_cfg()).items()}
+    tuned = {(parse_plan_key(k)["k"], parse_plan_key(k)["b"]): k
+             for k in table}
+    check(set(tuned) == set(rows) and set(table) == set(lead["variants"]),
+          f"[mesh-tune] tuned keys {sorted(table)}: want wo's and down's "
+          "at the decode and prefill rows")
+    winners = {}
+    for kb, key in sorted(tuned.items()):
+        var, info = table[key], parse_plan_key(key)
+        lin, kind = rows[kb]
+        winners[(lin, kind)] = int(var["pipeline_chunks"])
+        check(sum(r["winner"] for r in var["rows"]) == 1,
+              f"[mesh-tune] {key}: not one winner")
+        print(f"[mesh-tune] {lin} {kind} (m={info['m']}, k={info['k']} a "
+              f"rank, b={info['b']}): winner {var['pipeline_chunks']} x "
+              f"{var['collective_impl']}; rows " + "; ".join(
+                  f"{r['pipeline_chunks']} x {r['collective_impl']} "
+                  f"{r['s'] * 1e3:.3f} ms, {r['hops']} hops, "
+                  f"{r['bytes'] / 1024:.1f} KiB" for r in var["rows"]),
+              flush=True)
+    for r in ranks:
+        check(r["variants"] == lead["variants"] and r["plans"] ==
+              lead["plans"], f"[mesh-tune] rank {r['rank']} chose other "
+              "winners or plans")
+        check(r["rebuilt_timed"] == 0 and r["rebuilt_same"],
+              f"[mesh-tune] rank {r['rank']}: the rebuild timed "
+              f"{r['rebuilt_timed']} candidates (same plans: "
+              f"{r['rebuilt_same']})")
+        check(r["tokens"] == lead["tokens"],
+              f"[mesh-tune] rank {r['rank']} returned other tokens")
+    ties = _near_ties("mesh-tune", ref, lead["tokens"], lead["status"])
+    L = MESH_TUNE_LAYERS
+    want = sum(lead[f"{kind}_steps"] * L * (5 + winners[("wo", kind)]
+                                            + winners[("down", kind)])
+               for kind in ("prefill", "decode"))
+    for r in ranks:
+        got = r["launches"]
+        check(got == dict(msgemm=want, paged_attention=0, int4_matmul=0,
+                          flash_attention=0),
+              f"[mesh-tune] rank {r['rank']} launches {got}, want {want} "
+              f"msGeMM ({lead['prefill_steps']} prefill and "
+              f"{lead['decode_steps']} decode steps, winners {winners})")
+    fit = lead["fit"]
+    check(fit["rc"] == 0 and fit["collective"],
+          f"[mesh-tune] --calibrate exit {fit['rc']}, collective block "
+          f"{fit['collective']}: {fit['text']}")
+    c = fit["collective"]
+    print(f"[mesh-tune] python -m repro_torch.obs --calibrate --plan-cache "
+          f"{paths['cache']}: " + fit["text"].strip().splitlines()[-1],
+          flush=True)
+    print(f"[mesh-tune] collective term: coll_call_s {c['coll_call_s']:.4g}, "
+          f"coll_hop_s {c['coll_hop_s']:.4g}, coll_byte_s "
+          f"{c['coll_byte_s']:.4g}; n_samples {c['n_samples']}, rms_err_s "
+          f"{c['rms_err_s']:.4g}", flush=True)
+    for r in ranks:
+        check(r["model_variants"] == lead["model_variants"]
+              and r["model_plans"] == lead["model_plans"],
+              f"[mesh-tune] rank {r['rank']}: the model-guided build chose "
+              "other winners or plans")
+    for key, rows in sorted(lead["model_variants"].items()):
+        check(len(rows) <= MODEL_TOP_K and (1, "xla") in rows,
+              f"[mesh-tune] model-guided build timed {rows} for {key}")
+    print(f"[mesh-tune] model-guided build (autotune='model', the fitted "
+          f"calibration): variants timed a key "
+          f"{sorted(len(v) for v in lead['model_variants'].values())}, "
+          f"{int(lead['model_pruned'])} pruned, {lead['model_timed']} candidates "
+          f"in all (tiles too), build {lead['model_build_s']:.1f}s",
+          flush=True)
+    print(f"[mesh-tune] 2 ranks on one card ({card}): build "
+          f"{lead['build_s']:.1f}s timing {lead['timed']} candidates; "
+          f"{lead['steps']} steps at {lead['step_ms']:.2f} ms (single "
+          f"device graph route {ref['step_ms']:.2f}); launches "
+          f"{lead['launches']} ({want} implied by the winners); rebuild "
+          f"timed 0; tokens == the single device's on {6 - len(ties)}/6 "
+          f"requests, near-tie steps {ties}; peak "
+          f"{max(r['peak_bytes'] for r in ranks) / 2**30:.2f} GiB; phase "
+          f"wall {wall_s:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    return dict(ranks=ranks, ref=ref, winners={f"{a} {b}": v for (a, b), v
+                                               in winners.items()},
+                near_tie_steps=ties, wall_s=wall_s)
+
+
+def _resident(params, names=None) -> int:
+    """Bytes of ``params``' buffers (those named in ``names`` only)."""
+    return sum(t.numel() * t.element_size()
+               for n, t in params.named_buffers()
+               if names is None or n in names)
+
+
+def mesh_fsdp_rank(rank, device, seed):
+    """One rank of FSDP weight storage on a data=2 mesh:
+    :func:`mesh_tune_model` served under 'default' (each rank stores its
+    'data' block of every leaf whose model dim takes 'data') and then
+    under 'serve', the rows split over 'data'; then whisper's static
+    engine (2 + 2 layers, 16 frames, batch 4, f32) under 'default'
+    against one device's ``generate`` of the same weights (every rank
+    runs both; its rows of the step logits)."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.runtime import serve as SV
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, cfg = mesh_tune_model(device, seed)
+    mesh = make_mesh((2,), ("data",))
+    out = dict(rank=rank, device=str(device))
+    cut = None
+    for rules in ("default", "serve"):
+        eng = make_engine(model, cfg, mesh=mesh, cuda_graph=False,
+                          mesh_rules=rules)
+        if cut is None:
+            cut = {(f"{p}." if p else "") + k
+                   for p, mod in eng.params.named_modules()
+                   for k in getattr(mod, "fsdp", {})}
+        r = dict(resident=_resident(eng.params),
+                 resident_cut=_resident(eng.params, cut), cut_leaves=len(cut))
+        r.update(_engine_run(eng, cfg, device))
+        out[rules] = r
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    wcfg, spec = mesh_static_cfg("whisper_medium", 2)
+    wmodel = transformer.init_params(wcfg, generator=generator(seed, device),
+                                     device=device, quant=spec)
+    wcfg = wcfg.replace(quant=spec)
+    batch = mesh_static_batch(wcfg, device)
+    one, many = [], []
+    for mod in KERNELS.values():
+        mod.launches = 0
+    single = SV.generate(wmodel, wcfg, batch,
+                         max_new_tokens=MESH_STATIC_NEW, step_logits=one)
+    single_launches = {n: m.launches for n, m in KERNELS.items()}
+    local = SV.shard_params(wmodel, wcfg, mesh, "default")
+    del wmodel
+    gc.collect()
+    for mod in KERNELS.values():
+        mod.launches = 0
+    coll.reset_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    tokens = SV.generate(local, wcfg, batch, max_new_tokens=MESH_STATIC_NEW,
+                         mesh=mesh, rules="default", step_logits=many)
+    torch.cuda.synchronize(device)
+    run_s = time.perf_counter() - t0
+    n = many[0].shape[0]
+    first = sharding.coord(mesh, "data") * n
+    diffs = [float((a - b[first:first + n]).abs().max())
+             for a, b in zip(many, one)]
+    top = torch.stack(one, dim=1).float().topk(2, dim=-1).values
+    out["whisper"] = dict(
+        single=single.tolist(), mesh=tokens.tolist(), diffs=diffs,
+        max_abs_diff=max(diffs), run_s=run_s,
+        scale=max(float(t.abs().max()) for t in one),
+        top2_gap=(top[..., 0] - top[..., 1]).tolist(),
+        finite=bool(all(t.isfinite().all() for t in many)),
+        launches={n_: m.launches for n_, m in KERNELS.items()},
+        single_launches=single_launches, collectives=dict(coll.counts))
+    del local, many, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_fsdp(card, ref):
+    """FSDP weight storage on the card: two ranks sharing cuda:0 over
+    host-staged gloo on data=2, :func:`mesh_tune_model` serving the main
+    stream under 'default' and then 'serve' (the rows split over
+    'data'), and whisper's static engine under 'default'.  Gates: the
+    tokens equal the single device's (``ref``, the near-tie rule) under
+    both rules; each rank's launches under 'default' equal the 'serve'
+    run's, over the same steps; every leaf the rules cut holds half its
+    'serve' bytes; whisper's logits within the static gate of
+    ``[mesh-static ...]`` and its tokens equal one device's but at a
+    near-tie.  Prints each rank's resident weight bytes under both
+    rules, the gathers a step by kind and bytes, the step ms and the
+    peak GiB."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_fsdp_rank, 2, 0, devices=["cuda:0", "cuda:0"],
+                      timeout=900)
+    wall_s = time.perf_counter() - t0
+    lead = ranks[0]
+    ties = {}
+    for rules in ("default", "serve"):
+        ties[rules] = _near_ties(f"mesh-fsdp {rules}", ref,
+                                 lead[rules]["tokens"], lead[rules]["status"])
+    for r in ranks:
+        d, sv = r["default"], r["serve"]
+        for rules in ("default", "serve"):
+            check(r[rules]["tokens"] == lead[rules]["tokens"],
+                  f"[mesh-fsdp {rules}] rank {r['rank']} returned other "
+                  "tokens")
+        check(d["launches"] == sv["launches"] and d["steps"] == sv["steps"],
+              f"[mesh-fsdp] rank {r['rank']} launches {d['launches']} over "
+              f"{d['steps']} steps under 'default', {sv['launches']} over "
+              f"{sv['steps']} under 'serve'")
+        check(d["cut_leaves"] > 0 and 2 * d["resident_cut"]
+              == sv["resident_cut"],
+              f"[mesh-fsdp] rank {r['rank']}: the {d['cut_leaves']} cut "
+              f"leaves hold {d['resident_cut']} bytes, 'serve' "
+              f"{sv['resident_cut']}")
+        per_step = {k: (v / d["steps"], d["coll_bytes"][k] / d["steps"])
+                    for k, v in d["collectives"].items()}
+        print(f"[mesh-fsdp] rank {r['rank']} ({card}): resident weights "
+              f"{d['resident'] / 2**30:.3f} GiB under 'default', "
+              f"{sv['resident'] / 2**30:.3f} under 'serve' (the "
+              f"{d['cut_leaves']} leaves with a model dim: "
+              f"{d['resident_cut'] / 2**20:.1f} / "
+              f"{sv['resident_cut'] / 2**20:.1f} MiB); a step: "
+              + ", ".join(f"{k} {c:.2f} ({b / 2**20:.2f} MiB)"
+                          for k, (c, b) in sorted(per_step.items()))
+              + f"; {d['steps']} steps at {d['step_ms']:.2f} ms ('serve' "
+              f"{sv['step_ms']:.2f}); peak {d['peak_bytes'] / 2**30:.2f} "
+              f"GiB ('serve' {sv['peak_bytes'] / 2**30:.2f}); launches "
+              f"{d['launches']}", flush=True)
+    w = lead["whisper"]
+    check(w["finite"], "[mesh-fsdp whisper] non-finite logits")
+    limit = min(F32_STATE_TOL, MESH_STATIC_REL_TOL * w["scale"])
+    for r in ranks:
+        wr = r["whisper"]
+        check(wr["max_abs_diff"] <= limit,
+              f"[mesh-fsdp whisper] rank {r['rank']}: logits "
+              f"{wr['max_abs_diff']:.3g} from one device's (more than "
+              f"{limit:.3g})")
+        check(wr["mesh"] == w["mesh"] and wr["launches"] ==
+              wr["single_launches"],
+              f"[mesh-fsdp whisper] rank {r['rank']}: tokens or launches "
+              f"{wr['launches']} != one device's {wr['single_launches']}")
+    for row, (got, want) in enumerate(zip(w["mesh"], w["single"])):
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+        check(first is None or w["top2_gap"][row][first]
+              <= 2 * F32_STATE_TOL,
+              f"[mesh-fsdp whisper] row {row} step {first}: not a near-tie")
+    same = sum(a == b for a, b in zip(w["mesh"], w["single"]))
+    print(f"[mesh-fsdp whisper] 2 + 2 layers under 'default' on data=2: "
+          f"tokens == one device's on {same}/{len(w['mesh'])} rows, logits "
+          f"within {max(r['whisper']['max_abs_diff'] for r in ranks):.3g} "
+          f"(at most {limit:.3g}; largest |logit| {w['scale']:.4g}); "
+          f"{w['run_s'] * 1e3 / MESH_STATIC_NEW:.2f} ms a token step; "
+          f"launches {w['launches']}; collectives "
+          + ", ".join(f"{k} {v}" for k, v in sorted(w["collectives"].items())),
+          flush=True)
+    print(f"[mesh-fsdp] 2 ranks on one card: tokens == the single device's "
+          f"on {6 - len(ties['default'])}/6 ('default') and "
+          f"{6 - len(ties['serve'])}/6 ('serve') requests, near-tie steps "
+          f"{ties}; phase wall {wall_s:.1f}s", flush=True)
+    return dict(ranks=ranks, near_tie_steps=ties, wall_s=wall_s)
+
+
+def phase_mesh(card, ref=None, families=False):
     """The mesh phases: the in-process kernel check, the two-rank engine
     against ``ref`` (the main phase's run with its top-two gaps; built
-    here when None), the two-rank MoE engine and static engine, each on
-    two cards joined by NCCL too where two are visible, the calibration
-    of expert stacks, training on a mesh."""
+    here when None), the layout tuner and FSDP storage, the two-rank MoE
+    engine and static engine, each on two cards joined by NCCL too where
+    two are visible, the calibration of expert stacks, training on a
+    mesh (every family's too with ``families``: ``--only mesh``)."""
     import torch
 
     out = {"kernels": phase("mesh-kernels", phase_mesh_kernels)}
     if ref is None:
         ref = phase("mesh-ref", mesh_reference)
     out["engine"] = phase("mesh", phase_mesh_engine, ref, card)
+    out["tune"] = phase("mesh-tune", phase_mesh_tune, card)
+    out["fsdp"] = phase("mesh-fsdp", phase_mesh_fsdp, card,
+                        out["tune"]["ref"])
     if torch.cuda.device_count() >= 2:
         out["engine_nccl"] = phase("mesh-nccl", phase_mesh_engine, ref,
                                    card, ("cuda:0", "cuda:1"), "mesh-nccl")
@@ -5557,8 +6041,12 @@ def phase_mesh(card, ref=None):
                                    card, two, "mesh-static-nccl")
     out["calib_moe"] = phase("calib-moe", phase_calib_moe)
     out["train_mesh"] = phase("train-mesh", phase_train_mesh, card)
-    out["train_families"] = phase("train-mesh-families",
-                                  phase_train_families, card)
+    if families:
+        out["train_families"] = phase("train-mesh-families",
+                                      phase_train_families, card)
+    else:
+        print("[train-mesh-families] runs under --only mesh (moved there "
+              "to pay for [mesh-tune ...] and [mesh-fsdp ...])", flush=True)
     if torch.cuda.device_count() >= 4:
         out["train_mesh_nccl"] = phase("train-mesh-nccl",
                                        phase_train_mesh_nccl, card)
@@ -6225,7 +6713,7 @@ def main() -> int:
         if args.only == "train":
             res = phase(args.only, phase_train)
         else:
-            res = phase_mesh(card)
+            res = phase_mesh(card, families=True)
             res["dryrun"] = phase("dryrun", phase_dryrun)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -6341,6 +6829,9 @@ def main() -> int:
             + [train["serve"]["engine"]]
             + [train["serve"]["kv8"][r] for r in ("kernel", "torch")]
             + [mesh["calib_moe"]["serve"]] + mesh["engine"]["ranks"]
+            + [mesh["tune"]["ref"]] + mesh["tune"]["ranks"]
+            + [r[k] for r in mesh["fsdp"]["ranks"]
+               for k in ("default", "serve", "whisper")]
             + mesh.get("engine_nccl", {}).get("ranks", []) + static_runs)
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])

@@ -1,9 +1,19 @@
 """Shape-keyed autotuner with a persistent JSON plan cache; port of
 repro.dispatch.autotune.  Sharded plans key and tune on their local
-shard shapes (``dispatch.plan``); the reference's shard-variant tuner
-(pipeline chunks and collective impl timed per key) is not ported
-(ROADMAP A13c): its table, ``shard_variants``, round-trips through the
-cache file, and nothing plans from it.
+shard shapes (``dispatch.plan``).  With ``ExecPolicy.shard_pipeline=0``
+the shard-variant tuner (:func:`tune_shard_variants`) times each
+row-parallel linear's collective layouts (:data:`SHARD_VARIANT_GRID`:
+pipeline chunks x the group's own all-reduce or a ring) as whole
+``dispatch.shard.run_sharded`` calls and keeps the winner in the cache's
+``shard_variants`` table, from which ``dispatch.plan`` replays it.
+
+On a mesh every rank is a process of its own and times its own calls,
+while all of them must run one plan a key (unlike ones would issue
+mismatched collectives).  So a candidate's time is the slowest rank's
+(one maximum over the mesh of each rank's best times), every rank picks
+the winner from those same numbers (ties: the first candidate), and
+only the mesh's leader writes the cache file; this holds for the
+kernel-tile winners too.
 
 For a (spec, m, k, batch, backend, device) key the tuner times every
 candidate tile choice of the Hopper kernel on synthetic data shaped
@@ -42,7 +52,9 @@ reloaded file, times no candidate.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -191,6 +203,12 @@ class PlanCache:
         if persist:
             self.save()
 
+    def variant_keys(self) -> list[str]:
+        """The base keys of the ``shard_variants`` table, sorted."""
+        if not self._loaded:
+            self.load()
+        return sorted(self._variants)
+
     def timing_keys(self) -> list[str]:
         if not self._loaded:
             self.load()
@@ -324,12 +342,37 @@ def _model_prune(cands: list[ExecPlan], spec: QuantSpec, d: int, m: int,
     return keep
 
 
+# ------------------------------------------------------ mesh agreement
+def _mesh_max(values: list[float], mesh) -> list[float]:
+    """Each of ``values`` maximized over every rank of ``mesh`` (host
+    tensors over each axis in turn; not counted as the model's
+    collectives)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import compat
+
+    t = torch.tensor(values, dtype=torch.float64)
+    for axis in compat.axes_of(mesh):
+        t = coll.psum_async(t, axis, mesh=mesh, op=dist.ReduceOp.MAX,
+                            kind="").wait()
+    return t.tolist()
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes the cache file: off a mesh, or as the
+    mesh's leader (the ranks of a host share the file)."""
+    from repro_torch.distributed import sharding
+
+    return mesh is None or sharding.is_lead(mesh)
+
+
 # -------------------------------------------------------------- autotune
 def autotune(spec: QuantSpec, m: int, k: int, batch: int, backend: str, *,
              device_type: str = "cuda", acc_dtype: str = "float32",
              reps: int | None = None, persist: bool = True,
              search: str = "auto", experts: int = 0,
-             tag: str = "-") -> ExecPlan:
+             tag: str = "-", mesh=None) -> ExecPlan:
     """Time the candidates of one key on ``device_type``; cache and return
     the winner (the cached plan at once when the key is known).  ``tag``:
     the key's shard field (``dispatch.shard.plan_shard_tag``; m, k and
@@ -386,9 +429,12 @@ def autotune(spec: QuantSpec, m: int, k: int, batch: int, backend: str, *,
         reps = max(20, 2 * len(copies)) if dev.type == "cuda" else 2
     with obs.tracer().span("autotune", cat="dispatch", key=key,
                            candidates=len(cands), model_pruned=pruned):
-        timed = [(_time_plan(be, spec, p, copies, x, k, reps), i, p)
-                 for i, p in enumerate(cands)]
+        times = [_time_plan(be, spec, p, copies, x, k, reps)
+                 for p in cands]
     del copies
+    if mesh is not None:
+        times = _mesh_max(times, mesh)
+    timed = [(t, i, p) for i, (t, p) in enumerate(zip(times, cands))]
     best_s, best_i, winner = min(timed, key=lambda t: t[:2])
     winner = dataclasses.replace(winner, source="autotuned")
     # the candidates' timings ride along: they calibrate the perf model
@@ -396,8 +442,182 @@ def autotune(spec: QuantSpec, m: int, k: int, batch: int, backend: str, *,
     rows = [{"s": t, **tile_fields(p.tiles), "winner": i == best_i,
              "interpret": interpret, "device": device}
             for t, i, p in sorted(timed, key=lambda t: t[:2])]
-    cache().put(key, winner, persist=persist, timings=rows)
+    cache().put(key, winner, persist=persist and _writes(mesh),
+                timings=rows)
     return winner
+
+
+# ------------------------------------------------ collective variants
+# (pipeline_chunks, collective_impl) candidates timed for every
+# row-parallel linear when ExecPolicy.shard_pipeline is 0; chunk counts
+# that do not split the local contraction on the packed storage's
+# boundaries are dropped for that linear
+SHARD_VARIANT_GRID = ((1, "xla"), (1, "ring"), (2, "ring"), (4, "ring"),
+                      (2, "xla"))
+
+
+def _variant_prune(variants: list, shard, m: int, batch: int, device: str,
+                   interpret: bool, search: str) -> list:
+    """The variants to time: with a calibration of this partition that
+    has a collective block, the ``MODEL_TOP_K`` that
+    ``perfmodel.predict_collective`` ranks fastest, the one-shot (1,
+    'xla') always among them; without one, all
+    (``dispatch_autotune_model_fallback_total{backend="shard_variants"}``).
+    """
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.obs import perfmodel
+
+    if search not in ("model", "auto") or len(variants) <= MODEL_TOP_K:
+        return list(variants)
+    calib = perfmodel.load_calibration(device=device, interpret=interpret)
+    reg = obs.registry()
+    if calib is None or not calib.collective:
+        reg.counter("dispatch_autotune_model_fallback_total",
+                    help="model-guided searches that fell back to "
+                         "the full sweep (no matching calibration)",
+                    backend="shard_variants").inc()
+        return list(variants)
+    n = shard.axis_size(shard.k)
+    elems = m * (batch // shard.axis_size(shard.batch))
+
+    def pred(v):
+        pc, impl = v
+        hops, nbytes = coll.collective_cost(
+            impl=impl, collective=shard.collective, axis_size=n,
+            elems=elems, pipeline_chunks=pc)
+        return perfmodel.predict_collective(
+            calls=pc, hops=hops, nbytes=nbytes, collective=calib.collective)
+
+    keep = sorted(variants, key=pred)[:MODEL_TOP_K]
+    if (1, "xla") not in keep:
+        keep[-1] = (1, "xla")
+    reg.counter("dispatch_autotune_model_pruned_total",
+                help="candidates skipped by model-guided search",
+                backend="shard_variants").inc(len(variants) - len(keep))
+    return keep
+
+
+def variant_grid(spec: QuantSpec, shard, k: int) -> list:
+    """The :data:`SHARD_VARIANT_GRID` entries a row-parallel linear of
+    whole in-dim ``k`` can run: a chunk count must split the local
+    contraction on the packed storage's boundaries
+    (``dispatch.shard._quant_aligned``)."""
+    from repro_torch.dispatch.shard import _quant_aligned
+
+    k_local = k // shard.axis_size(shard.k)
+    return list(dict.fromkeys(
+        (pc, impl) for pc, impl in SHARD_VARIANT_GRID
+        if pc == 1 or (k_local % pc == 0
+                       and _quant_aligned(spec, k_local // pc))))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def tune_shard_variants(spec: QuantSpec, m: int, k: int, batch: int,
+                        backend: str, shard, mesh, *,
+                        device_type: str = "cuda",
+                        acc_dtype: str = "float32", reps: int | None = None,
+                        persist: bool = True, search: str = "auto") -> dict:
+    """Time the collective layouts of one row-parallel linear on ``mesh``
+    (every rank calls it, with the same arguments) and cache the winner.
+
+    ``m``, ``k`` and ``batch`` are the linear's whole dims and rows,
+    ``shard`` its one-shot ShardSpec.  Each candidate of
+    :func:`variant_grid` (pruned by :func:`_variant_prune`) re-shapes
+    it, takes a kernel plan at its chunk shape (the cached winner, else
+    the heuristic: tiles and layout tune apart), and a whole
+    ``dispatch.shard.run_sharded`` call (its kernels at the chunk shapes
+    and its collectives; no epilogue) on synthetic operands of this
+    rank's shard is timed: once to warm, then ``reps`` times (default 5
+    on the card, 2 on the CPU), each between a barrier of the mesh and
+    the device's synchronization, on the host clock (a host-staged
+    collective blocks the host inside the call, where device events
+    would not time it).  Every rank runs every candidate the same number
+    of times in the same order; a candidate's time is the slowest rank's
+    best, so all ranks pick the same winner (ties: grid order).  Its
+    (pipeline_chunks, collective_impl) goes into the ``shard_variants``
+    table under the one-shot key, with every candidate's row (seconds,
+    and ``collectives.collective_cost``'s hops and bytes: the data of
+    ``perfmodel.fit_collective``); only the mesh's leader writes the
+    file.  A key already in the table is returned at once."""
+    global num_timed_candidates
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.dispatch import shard as _shard
+
+    device = device_name(device_type)
+    base = dataclasses.replace(shard, pipeline_chunks=1,
+                               collective_impl="xla")
+    d = plan_d(spec, m, k)
+    blm, blk, blb = base.exec_mkb(m, k, batch)
+    base_key = plan_key(backend, spec, d, blm, blk, blb, device, acc_dtype,
+                        shard=base.tag())
+    hit = cache().shard_variant(base_key)
+    if hit is not None:
+        return hit
+    cands = _variant_prune(variant_grid(spec, shard, k), shard, m, batch,
+                           device, device_type != "cuda", search)
+    be = registry.get_backend(backend)
+    dev = torch.device(device_type)
+    lb = batch // shard.axis_size(shard.batch)
+    k_local = k // shard.axis_size(shard.k)
+    copies, x = _synthetic_call(spec, d, m, k_local, lb, dev)
+    params = copies[0]
+    del copies
+    if reps is None:
+        reps = 5 if dev.type == "cuda" else 2
+    n = shard.axis_size(shard.k)
+    times = []
+    with obs.tracer().span("autotune.shard_variants", cat="dispatch",
+                           key=base_key, candidates=len(cands)):
+        for pc, impl in cands:
+            cand = dataclasses.replace(shard, pipeline_chunks=pc,
+                                       collective_impl=impl)
+            clm, clk, clb = cand.exec_mkb(m, k, batch)
+            p = cache().get(plan_key(backend, spec, d, clm, clk, clb,
+                                     device, acc_dtype, shard=cand.tag())
+                            ) or heuristic_plan(spec, d, clm, clk, clb,
+                                                backend)
+            p = dataclasses.replace(p, shard=cand)
+
+            def call():
+                return _shard.run_sharded(be, spec, p, params, x, k=k, m=m,
+                                          mesh=mesh, x_local=True)
+
+            num_timed_candidates += 1
+            call()  # warm
+            _sync(dev)
+            best = math.inf
+            for _ in range(reps):
+                _mesh_max([0.0], mesh)  # a barrier
+                t0 = time.perf_counter()
+                call()
+                _sync(dev)
+                best = min(best, time.perf_counter() - t0)
+            times.append(best)
+            obs.registry().counter(
+                "dispatch_autotune_candidates_total",
+                help="tile candidates measured",
+                backend="shard_variants").inc()
+    times = _mesh_max(times, mesh)
+    rows = []
+    for (pc, impl), t in zip(cands, times):
+        hops, nbytes = coll.collective_cost(
+            impl=impl, collective=shard.collective, axis_size=n,
+            elems=m * lb, pipeline_chunks=pc)
+        rows.append({"s": t, "pipeline_chunks": pc, "collective_impl": impl,
+                     "hops": hops, "bytes": nbytes, "device": device,
+                     "winner": False})
+    best = min(range(len(rows)), key=lambda i: (rows[i]["s"], i))
+    rows[best]["winner"] = True
+    variant = {"pipeline_chunks": rows[best]["pipeline_chunks"],
+               "collective_impl": rows[best]["collective_impl"],
+               "rows": sorted(rows, key=lambda r: r["s"])}
+    cache().put_shard_variant(base_key, variant,
+                              persist=persist and _writes(mesh))
+    return variant
 
 
 def warm(requests, *, policy: ExecPolicy | None = None,
@@ -409,26 +629,54 @@ def warm(requests, *, policy: ExecPolicy | None = None,
     cached winner, else to the heuristic, which is not written to the
     cache, so a later tuning run can still improve it.  A sharded
     request keys and tunes on its local kernel shape and its shard tag,
-    and its plan carries the request's ShardSpec.  Returns {plan key:
-    plan}."""
+    and its plan carries the request's ShardSpec.
+
+    Under an active mesh (every rank calls it on the same requests) the
+    tuned winners are the mesh's (:func:`autotune`'s ``mesh``), and with
+    ``policy.shard_pipeline == 0`` every row-parallel request's
+    collective layout is tuned first (:func:`tune_shard_variants`, from
+    its one-shot layout): the winner re-shapes the request, so its
+    kernel plan is keyed and tuned at the winner's chunk shape, as
+    ``dispatch.plan`` asks for it.  The variants are timed even with
+    ``policy.autotune`` off (the kernel plans are then the cached or
+    heuristic ones, so the comparison isolates the layout).  Returns
+    {plan key: plan}."""
+    from repro_torch.distributed.sharding import active_mesh
+
     policy = policy or ExecPolicy()
+    mesh = active_mesh()
     out: dict[str, ExecPlan] = {}
     for req in dict.fromkeys(requests):
-        d = plan_d(req.spec, req.m, req.k)
-        key = plan_key(req.backend, req.spec, d, req.m, req.k, req.batch,
+        shard, tag = req.shard, req.tag
+        m, k, batch = req.m, req.k, req.batch
+        if policy.shard_pipeline == 0 and mesh is not None \
+                and shard is not None and shard.k is not None:
+            gm = m * shard.axis_size(shard.m)
+            gk = k * shard.axis_size(shard.k) * shard.pipeline_chunks
+            gb = batch * shard.axis_size(shard.batch)
+            var = tune_shard_variants(
+                req.spec, gm, gk, gb, req.backend, shard, mesh,
+                device_type=req.device_type, acc_dtype=policy.acc_dtype,
+                persist=persist, search=policy.search)
+            shard = dataclasses.replace(
+                shard, pipeline_chunks=int(var["pipeline_chunks"]),
+                collective_impl=str(var["collective_impl"]))
+            tag = shard.tag()
+            m, k, batch = shard.exec_mkb(gm, gk, gb)
+        d = plan_d(req.spec, m, k)
+        key = plan_key(req.backend, req.spec, d, m, k, batch,
                        device_name(req.device_type), policy.acc_dtype,
-                       shard=req.tag, experts=req.experts)
+                       shard=tag, experts=req.experts)
         if policy.autotune and registry.get_backend(req.backend).tunable:
-            p = autotune(req.spec, req.m, req.k, req.batch, req.backend,
+            p = autotune(req.spec, m, k, batch, req.backend,
                          device_type=req.device_type,
                          acc_dtype=policy.acc_dtype, persist=persist,
                          search=policy.search, experts=req.experts,
-                         tag=req.tag)
+                         tag=tag, mesh=mesh)
         else:
             p = cache().get(key) or heuristic_plan(
-                req.spec, d, req.m, req.k, req.batch, req.backend,
-                req.experts)
-        out[key] = dataclasses.replace(p, shard=req.shard)
+                req.spec, d, m, k, batch, req.backend, req.experts)
+        out[key] = dataclasses.replace(p, shard=shard)
     return out
 
 

@@ -7,7 +7,9 @@ Under an active mesh (``distributed.sharding.use``) a linear that names
 its logical axes (``shard_axes``) gets a ShardSpec
 (``dispatch.shard.shard_spec_for``), and its tiles, cache key and
 tuning are those of one rank's kernel shape (``ShardSpec.exec_mkb``),
-keyed by the shard tag.
+keyed by the shard tag.  With ``ExecPolicy.shard_pipeline=0`` a
+row-parallel linear derives its one-shot layout first, then replays the
+collective layout the shard-variant tuner cached for that key.
 Plans come from three sources, in precedence order:
 
 1. an explicit ``ExecPolicy.plan`` override (tests, power users);
@@ -100,8 +102,9 @@ class ExecPolicy:
     shard_collective : how row-parallel linears resolve their partial
         sums under a mesh: 'psum' | 'reduce_scatter'.
     shard_pipeline : contraction chunks of a row-parallel linear (1: one
-        collective a linear).  The reference's 0 (its tuned variant of
-        the key) waits for the shard-variant tuner (ROADMAP A13c).
+        collective a linear); 0: the layout the shard-variant tuner
+        chose for the key (``dispatch.autotune.tune_shard_variants``,
+        run by ``warm``), the one-shot layout where the cache has none.
     shard_impl : the collective's implementation: 'xla' (the group's
         own) | 'ring' (point-to-point hops).
     """
@@ -121,10 +124,9 @@ class ExecPolicy:
         if self.shard_impl not in COLLECTIVE_IMPLS:
             raise ValueError(f"shard_impl={self.shard_impl!r} must be one "
                              f"of {COLLECTIVE_IMPLS}")
-        if int(self.shard_pipeline) < 1:
+        if int(self.shard_pipeline) < 0:
             raise ValueError(f"shard_pipeline={self.shard_pipeline} must "
-                             "be >= 1 (the tuned variant, 0, is not "
-                             "ported: ROADMAP A13c)")
+                             "be >= 0 (0: the tuned variant)")
         if self.acc_dtype not in ACC_DTYPES:
             raise ValueError(f"acc_dtype={self.acc_dtype!r} must be one of "
                              f"{ACC_DTYPES}: both kernels accumulate in f32")
@@ -285,15 +287,19 @@ def select(spec: QuantSpec, d: int, device_type: str,
 
 
 def _shard_of(spec: QuantSpec, m: int, k: int, batch: int, policy,
-              shard_axes, lead_batch):
-    """(ShardSpec or None, tag) of a linear under the active mesh."""
+              shard_axes, lead_batch, variant: tuple | None = None):
+    """(ShardSpec or None, tag) of a linear under the active mesh.  With
+    ``shard_pipeline`` 0 the one-shot layout, or ``variant`` ((chunks,
+    impl), the tuned one) when given."""
     mesh = active_mesh()
+    pc, impl = policy.shard_pipeline, policy.shard_impl
+    if pc == 0:
+        pc, impl = variant or (1, "xla")
     shard = shard_spec_for(spec, shard_axes, m, k, batch, mesh,
                            lead_batch=lead_batch,
                            collective=policy.shard_collective,
-                           rules=active_rules(),
-                           pipeline_chunks=policy.shard_pipeline,
-                           collective_impl=policy.shard_impl)
+                           rules=active_rules(), pipeline_chunks=pc,
+                           collective_impl=impl)
     if shard is not None and not shard.is_sharded:
         shard = None
     return shard, plan_shard_tag(shard, mesh)
@@ -349,6 +355,16 @@ def plan(spec: QuantSpec, m: int, k: int, batch: int = 1, *,
     from repro_torch.dispatch import autotune as at
 
     device = device_name(device_type)
+    if policy.shard_pipeline == 0 and shard is not None \
+            and shard.k is not None:
+        # the tuned layout of the one-shot key, when the cache has one
+        var = at.cache().shard_variant(plan_key(
+            be.name, spec, d, lm, lk, lb, device, policy.acc_dtype, tag))
+        if var is not None:
+            shard, tag = _shard_of(
+                spec, m, k, batch, policy, shard_axes, lead_batch,
+                (int(var["pipeline_chunks"]), str(var["collective_impl"])))
+            lm, lk, lb = shard.exec_mkb(m, k, batch)
     cached = at.cache().get(plan_key(be.name, spec, d, lm, lk, lb, device,
                                      policy.acc_dtype, tag,
                                      experts=experts))
@@ -360,7 +376,7 @@ def plan(spec: QuantSpec, m: int, k: int, batch: int = 1, *,
     elif policy.autotune and be.tunable and not _capturing():
         p = at.autotune(spec, lm, lk, lb, be.name, device_type=device_type,
                         acc_dtype=policy.acc_dtype, search=policy.search,
-                        experts=experts, tag=tag)
+                        experts=experts, tag=tag, mesh=amesh)
     else:
         p = heuristic_plan(spec, d, lm, lk, lb, be.name, experts)
         if policy.autotune and be.tunable:

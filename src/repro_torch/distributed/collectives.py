@@ -231,15 +231,16 @@ def psum_scatter(y: torch.Tensor, axis: str, *, dim: int = -1,
 
 
 def all_gather(y: torch.Tensor, axis: str, *, dim: int = -1,
-               mesh=None) -> torch.Tensor:
+               mesh=None, kind: str = "all_gather") -> torch.Tensor:
     """The ranks' ``y`` of ``axis`` concatenated along ``dim`` in axis
-    order."""
+    order; counted under ``kind`` (serving's gathers of FSDP-stored
+    weights count as ``fsdp_gather``)."""
     mesh = _mesh(mesh)
     n = _size(mesh, axis)
     if n == 1:
         return y
     group = mesh.get_group(axis)
-    with _timed("all_gather", y):
+    with _timed(kind, y):
         # the blocks land in one buffer (pinned with the wire), and are
         # concatenated on the rank's device
         h = _wire(y, group)
@@ -248,7 +249,7 @@ def all_gather(y: torch.Tensor, axis: str, *, dim: int = -1,
         dist.all_gather_into_tensor(flat, h.reshape(-1), group=group)
         blocks = _back(flat, y.device).view((n,) + tuple(h.shape))
         out = torch.cat(blocks.unbind(0), dim=dim)
-    _count("all_gather", out)
+    _count(kind, out)
     return out
 
 

@@ -30,7 +30,11 @@ and whole activations, except that a step's batch rows may be split over
 the batch axis (:func:`split_rows`, set by the engine).
 :func:`constrain` takes this rank's slice of a whole tensor along the
 dims its spec shards (no communication), and :func:`gather_rows` gathers
-split batch rows.
+split batch rows.  Under the 'default' rules serving also stores the
+weights FSDP-style (:func:`fsdp_store`): a rank keeps its 'data' block
+of every leaf whose model dim takes 'data', and a block's leaves are
+gathered back into the 'serve' layout for each step
+(:func:`gather_fsdp`).
 """
 
 from __future__ import annotations
@@ -844,3 +848,94 @@ def constrain_params(tree, *, int8_gather: bool = False, specs=None):
             t, specs[n], mesh, int8_gather))
     return {n: _gather_fsdp(t, specs[n], mesh, int8_gather)
             for n, t in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Serving with FSDP weight storage (the 'default' rules)
+# ---------------------------------------------------------------------------
+FSDP_AXIS = "data"
+# the modules a serving copy gathers its 'data' blocks for: each block
+# (the encoder's too) at the top of the block, an untied head before it
+# runs; the embedding table is read in its blocks (models.transformer)
+FSDP_MODULES = ("blocks", "encoder.blocks")
+
+
+def fsdp_store(model: torch.nn.Module, specs: dict, mesh) -> dict:
+    """Cut, in place, this rank's 'data' block of every leaf of ``model``
+    (a serving copy, its leaves in the 'serve' layout) whose spec in
+    ``specs`` (``param_specs(whole model, mesh, "default")``) puts 'data'
+    on a dim, each block a contiguous copy.  The cut is made on the leaf
+    as it is stored, so it keeps the packed layout whole: a packed
+    column is a msGeMM d-tuple or an int4 byte of two codes, and a scale
+    leaf is cut only where its rows are the model dim; 'data' never
+    takes a two-halves leaf's rows (``mamba_inner`` and ``xl_inner`` map
+    to 'model' alone).  A leaf whose stored dim does not divide stays
+    whole, the reference's divisibility rule; it is counted in
+    ``serve_fsdp_whole_leaves_total``.  The cut dims are recorded on the
+    modules that gather them (:func:`gather_fsdp`): ``fsdp`` ({relative
+    name: dim}) on each block, the encoder's too, and on ``lm_head``;
+    the table's own is ``model.fsdp["embedding"]``.  Returns {buffer
+    name: dim} of every cut leaf."""
+    from repro_torch import obs
+    from repro_torch.distributed import collectives as coll
+
+    n = compat.axes_of(mesh).get(FSDP_AXIS, 1)
+    cut: dict = {}
+    if n == 1:
+        return cut
+    c = coord(mesh, FSDP_AXIS)
+    for name, spec in specs.items():
+        dim = coll.spec_dim(spec, FSDP_AXIS)
+        if dim is None:
+            continue
+        if is_halves(name) and dim == 0:
+            raise ValueError(f"{name}: 'data' cuts a two-halves leaf's rows")
+        mod, leaf = _owner(model, name)
+        t = mod._buffers[leaf]
+        if t.shape[dim] % n:
+            obs.registry().counter(
+                "serve_fsdp_whole_leaves_total",
+                help="leaves whose 'data' dim does not divide, stored "
+                     "whole under the 'default' rules").inc()
+            continue
+        size = t.shape[dim] // n
+        mod._buffers[leaf] = t.narrow(dim, c * size, size).contiguous() \
+            .clone()
+        cut[name] = dim
+    owners = [p for p, _ in model.named_modules()
+              if p.rpartition(".")[0] in FSDP_MODULES or p == "lm_head"]
+    for prefix in owners:
+        model.get_submodule(prefix).fsdp = {
+            k[len(prefix) + 1:]: d for k, d in cut.items()
+            if k.startswith(prefix + ".")}
+    model.fsdp = {k: d for k, d in cut.items()
+                  if not any(k.startswith(p + ".") for p in owners)}
+    if set(model.fsdp) - {"embedding"}:
+        raise ValueError(f"'data' cuts leaves no module gathers: "
+                         f"{sorted(set(model.fsdp) - {'embedding'})}")
+    return cut
+
+
+def gather_fsdp(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` with its 'data' blocks (its ``fsdp`` record,
+    :func:`fsdp_store`) gathered whole over 'data' (counted as
+    ``fsdp_gather``): a shallow copy in the 'serve' layout, held for one
+    step and freed after it; ``module`` itself when it stores nothing cut
+    or no mesh is active."""
+    fsdp = getattr(module, "fsdp", None)
+    mesh = _CTX.mesh
+    if not fsdp or mesh is None:
+        return module
+    from repro_torch.distributed import collectives as coll
+
+    return _map_buffers(module, lambda n, t: coll.all_gather(
+        t, FSDP_AXIS, dim=fsdp[n], mesh=mesh, kind="fsdp_gather")
+        if n in fsdp else t)
+
+
+def rows_block(x: torch.Tensor) -> torch.Tensor:
+    """This rank's batch rows (dim 0) of the whole batch ``x`` of a step
+    whose rows are split (the inverse of :func:`gather_rows`); ``x``
+    itself otherwise."""
+    axis = row_axis()
+    return x if axis is None else local_slice(x, (axis,), _CTX.mesh)

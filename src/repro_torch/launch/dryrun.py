@@ -20,10 +20,12 @@ then runs one real step of the port on them:
 
 A serve cell's weights are the reference's ``serve_quant_config``
 default (msgemm, d = 3, scale_block 36, ``packed_idx``), cut by
-``runtime.serve.shard_params`` under the port's serving rules ('serve':
-the reference lowers its serve cells under 'default', whose FSDP weight
-storage the port does not serve, ROADMAP C); the rows split over 'pod' x
-'data' as ``sharding.batch_specs`` splits them, the cache as
+``runtime.serve.shard_params`` under the 'default' rules, as the
+reference's CLI lowers its serve cells: each rank stores its 'data'
+block of the leaves whose model dim takes 'data' (FSDP storage) and
+gathers a block's at the top of the block (``--serve-rules serve``
+keeps every rank's whole 'model' shard instead); the rows split over
+'pod' x 'data' as ``sharding.batch_specs`` splits them, the cache as
 ``runtime.serve.mesh_specs`` does.  On fake tensors the GeMM kernels
 allocate what their CUDA launch does (``kernels.msgemm.msgemm_fake``,
 ``kernels.int4_matmul.int4_matmul_fake``), never the plain version's
@@ -82,7 +84,7 @@ MESHES = {False: ((16, 16), ("data", "model")),
 # the reference's serve_quant_config default (DRYRUN_D=3, packed_idx)
 SERVE_QUANT = QuantSpec(mode="msgemm", d=3, scale_block=36,
                         storage="packed_idx")
-SERVE_RULES = "serve"
+SERVE_RULES = "default"  # the reference CLI's; --serve-rules serve too
 CACHE_DTYPE = torch.bfloat16  # the reference's DRYRUN_CACHE_DTYPE default
 
 
@@ -335,9 +337,11 @@ def train_configs(arch: str, *, smoke: bool = False):
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
-             smoke: bool = False, verbose: bool = True) -> dict:
+             smoke: bool = False, verbose: bool = True,
+             rules: str = SERVE_RULES) -> dict:
     """One cell: ``ok`` with its figures, or ``skipped`` with the reason.
-    Raises where the step fails (the CLI records ``failed``)."""
+    ``rules``: a serve cell's rule set.  Raises where the step fails (the
+    CLI records ``failed``)."""
     shape = shp.SHAPES[shape_name]
     train = shape.kind == "train"
     quant = "bf16" if train else SERVE_QUANT.mode
@@ -363,8 +367,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         extra = {"microbatches": tcfg.microbatches}
     else:
         res = measure_serve(serve_config(arch, smoke=smoke), shape_name,
-                            mesh_shape, axes)
-        extra = {"rules": SERVE_RULES, "d": SERVE_QUANT.d,
+                            mesh_shape, axes, rules=rules)
+        extra = {"rules": rules, "d": SERVE_QUANT.d,
                  "scale_block": SERVE_QUANT.scale_block,
                  "storage": SERVE_QUANT.storage}
     out = {"cell": label, "status": "ok", "arch": arch,
@@ -403,6 +407,10 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config (a quick check)")
+    ap.add_argument("--serve-rules", default=SERVE_RULES,
+                    choices=["default", "serve"],
+                    help="the serve cells' rule set (default: "
+                         "%(default)s, FSDP weight storage)")
     ap.add_argument("--out", default=DEFAULT_OUT,
                     help=f"result directory (default {DEFAULT_OUT}/)")
     args = ap.parse_args(argv)
@@ -418,7 +426,8 @@ def main(argv=None) -> list[dict]:
             for multi in meshes:
                 try:
                     res = run_cell(arch, shape_name, multi_pod=multi,
-                                   smoke=args.smoke)
+                                   smoke=args.smoke,
+                                   rules=args.serve_rules)
                 except Exception as e:  # a failure here is a system bug
                     traceback.print_exc()
                     quant = "bf16" if shp.SHAPES[shape_name].kind == \

@@ -70,14 +70,18 @@ A mesh larger than the visible cards is refused, unless
 ``--mesh-rules`` picks the logical-axis rules ('serve', 'serve_tp'),
 ``--shard-collective`` how row-parallel linears meet ('psum',
 'reduce_scatter'), ``--shard-pipeline`` their contraction chunks and
-``--shard-impl`` the collective ('xla': the group's own, 'ring').  The
+``--shard-impl`` the collective ('xla': the group's own, 'ring';
+``--shard-pipeline 0`` tunes both for each row-parallel linear at build,
+``dispatch.autotune.tune_shard_variants``, and replays the cached
+winners).  ``--mesh-rules default`` stores the weights FSDP-style as
+well: each rank keeps its 'data' block of every leaf whose model dim
+takes 'data', gathered a block at a time for each step.  The
 run prints ``[serve] mesh {...}: N plans resolved at build, M sharded``.
 ``--engine continuous`` serves decoders ('attn', 'local' and 'moe'
 blocks) on a mesh; ``--engine static`` every family (static
 ``generate``, SPMD over the ranks: the rows split over 'data', rank 0's
 tokens the run's; ``--check`` holds them to a single-device ``generate``
-of the same weights).  ``--shard-pipeline 0`` (the tuned variant) is
-refused.
+of the same weights).
 
 Every ported architecture serves (``repro_torch.configs.ARCHS``: the
 gemma, codeqwen1.5, starcoder2 and gpt3 dense models, the qwen2-moe and
@@ -204,7 +208,9 @@ def gemm_backend(args) -> str | None:
 def exec_policy(args) -> dispatch.ExecPolicy | None:
     """The CLI's execution choices as an ExecPolicy (None: defaults)."""
     backend = gemm_backend(args)
-    if backend is None and not args.autotune:
+    if backend is None and not args.autotune and (
+            args.shard_collective, args.shard_pipeline,
+            args.shard_impl) == ("psum", 1, "xla"):
         return None
     return dispatch.ExecPolicy(backend=backend, autotune=args.autotune,
                                shard_collective=args.shard_collective,
@@ -243,13 +249,22 @@ def check_run_regressions(args, device: torch.device) -> dict | None:
     return report
 
 
-def warm_generate(params, cfg, batch, policy) -> dict:
+def warm_generate(params, cfg, batch, policy, *, mesh=None,
+                  rules: str = "serve") -> dict:
     """Resolve the plans static ``generate`` on ``batch`` will request:
     one prefill and one decode step under ``dispatch.collecting()``
-    enumerate the keys, which ``dispatch.warm`` tunes or looks up."""
+    enumerate the keys, which ``dispatch.warm`` tunes or looks up (on
+    ``mesh``, every rank with its ``shard_params`` copy: the ranks tune
+    together, the collective layouts too under ``shard_pipeline`` 0)."""
+    from repro_torch.distributed import sharding
+
     with dispatch.collecting() as reqs, dispatch.using_policy(policy):
-        SV.generate(params, cfg, batch, max_new_tokens=2)
-    return dispatch.warm(reqs, policy=policy)
+        SV.generate(params, cfg, batch, max_new_tokens=2, mesh=mesh,
+                    rules=rules)
+    if mesh is None:
+        return dispatch.warm(reqs, policy=policy)
+    with sharding.use(mesh, rules):
+        return dispatch.warm(reqs, policy=policy)
 
 
 STUB_FRAMES = 16  # the reference CLI's encoder frames for an enc-dec model
@@ -284,7 +299,7 @@ def run_static(args, params, cfg, device: torch.device, mesh=None):
     ``generate`` of ``params``."""
     batch = static_batch(args, cfg, device)
     policy = exec_policy(args)
-    if policy is not None and policy.autotune:
+    if policy is not None and policy.autotune and mesh is None:
         plans = warm_generate(params, cfg, batch, policy)
         print(f"[serve] resolved {len(plans)} exec plans before the run "
               f"(cache={dispatch.cache().path})")
@@ -294,6 +309,10 @@ def run_static(args, params, cfg, device: torch.device, mesh=None):
 
         run_params = SV.shard_params(params, cfg, mesh, args.mesh_rules)
         kw = dict(mesh=mesh, rules=args.mesh_rules)
+        if policy is not None:
+            plans = warm_generate(run_params, cfg, batch, policy, **kw)
+            print(f"[serve] resolved {len(plans)} exec plans on the mesh "
+                  "before the run", flush=True)
         coll.reset_counts()
     M.reset_route_counts(params)
     before = launch_counts()
@@ -586,14 +605,19 @@ def parse_args(argv=None):
                          "'model=2' or 'model=2,data=2' (continuous "
                          "engine; one process a mesh device)")
     ap.add_argument("--mesh-rules", default="serve",
-                    choices=["serve", "serve_tp"],
-                    help="logical-axis rule set (distributed.sharding)")
+                    choices=["serve", "default", "serve_tp"],
+                    help="logical-axis rule set (distributed.sharding): "
+                         "'serve' (weights over 'model', rows over "
+                         "'data'), 'default' (the same, the weights also "
+                         "stored cut over 'data', FSDP), 'serve_tp' (no "
+                         "row split)")
     ap.add_argument("--shard-collective", default="psum",
                     choices=["psum", "reduce_scatter"],
                     help="how row-parallel linears resolve partial sums")
     ap.add_argument("--shard-pipeline", type=int, default=1,
                     help="contraction chunks of a row-parallel linear "
-                         "(1: one collective a linear)")
+                         "(1: one collective a linear; 0: tune the "
+                         "chunks and the collective at build)")
     ap.add_argument("--shard-impl", default="xla", choices=["xla", "ring"],
                     help="the collective: the group's own, or a ring of "
                          "point-to-point hops")
@@ -708,9 +732,9 @@ def serve_mesh(args, argv) -> dict:
 
     shape, axes = MS.parse_mesh(args.mesh)
     need = math.prod(shape)
-    if args.shard_pipeline < 1:
-        raise SystemExit(f"--shard-pipeline {args.shard_pipeline}: 1 or more "
-                         "(the tuned variant, 0, is ROADMAP A13c)")
+    if args.shard_pipeline < 0:
+        raise SystemExit(f"--shard-pipeline {args.shard_pipeline}: 0 (tuned) "
+                         "or a chunk count")
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     if args.engine == "continuous":
@@ -757,6 +781,8 @@ def _mesh_rank(rank, device, argv, shape, axes) -> dict:
         params, cfg, build = build_model(args, device)
         mesh = MS.make_mesh(shape, axes)
         if args.engine == "static":
+            if args.autotune_cache is not None:
+                dispatch.set_cache_path(args.autotune_cache)
             with dispatch.using_policy(exec_policy(args)):
                 run = run_static(args, params, cfg, device, mesh=mesh)
             return dict(build=build, tokens=run["tokens"].cpu().tolist(),

@@ -32,7 +32,14 @@ an mLSTM on its channels, each row-parallel projection ending in one
 collective; an sLSTM runs whole.  The embedding table may hold this
 rank's vocab rows (:func:`vocab_axis`): the lookup sums the ranks' rows
 and the tied head gathers the ranks' logit columns; a vision frontend's
-patch embeddings enter whole on every rank.
+patch embeddings enter whole on every rank.  Under the 'default' rules
+(FSDP storage, ``sharding.fsdp_store``) each block's leaves stored cut
+over 'data' are gathered at the top of the block for the step
+(``sharding.gather_fsdp``) and an untied head's before it runs; the
+table's columns are gathered only where that moves fewer bytes than
+the activations: a decode step's lookup gathers the looked-up
+activations over 'data' and its tied head sums partial logits over
+'data' (:func:`_embed_fsdp`, :func:`_tied_head_fsdp`).
 
 :func:`forward` under an active mesh is a training step's, on a model
 cut by ``sharding.shard_model`` (FSDP x TP, the 'default' rules): the
@@ -410,7 +417,10 @@ def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
         aux = {"load_balance": 0.0, "dropped_frac": 0.0} if train else None
         for i in range(first, min(first + period, len(blocks))):
             kind = "attn" if mode == "encode" else cfg.kind(i)
-            blk = blocks[i] if gathered is None else gathered[i - first]
+            # serving: a block stored cut over 'data' is gathered for this
+            # step (freed after it); training's groups come gathered
+            blk = sharding.gather_fsdp(blocks[i]) if gathered is None \
+                else gathered[i - first]
             x = block_apply(blk, cfg, kind, x, positions, mode=mode,
                             cache=cache[i] if cache is not None else None,
                             pos=pos, paged=paged, enc_out=enc_out, aux=aux)
@@ -447,18 +457,12 @@ def vocab_axis(cfg: ModelConfig) -> str | None:
     or None: no mesh, or a table each rank holds whole."""
     if sharding.active_mesh() is None:
         return None
-    spec = sharding.spec_for(sharding.VECTOR_AXES["embedding"],
-                             (cfg.vocab_size, cfg.d_model), kind="param")
-    if spec[1] is not None:
-        raise NotImplementedError(
-            "an embedding split over its model dim (the 'default' rules' "
-            "FSDP storage) is not served; use the 'serve' or 'serve_tp' "
-            "rules (ROADMAP A13c)")
-    return spec[0]
+    return sharding.spec_for(sharding.VECTOR_AXES["embedding"],
+                             (cfg.vocab_size, cfg.d_model), kind="param")[0]
 
 
 def _embed(table: torch.Tensor, cfg: ModelConfig, tokens,
-           axis: str | None) -> torch.Tensor:
+           axis: str | None, *, scale: bool = True) -> torch.Tensor:
     """Rows of the embedding ``table`` for ``tokens``, in f32 and scaled
     by sqrt(d) for gemma.  With ``axis`` the table holds this rank's
     block of the vocab along it: each rank looks up the tokens in its
@@ -474,6 +478,37 @@ def _embed(table: torch.Tensor, cfg: ModelConfig, tokens,
         x = torch.where(mine[..., None], table[torch.where(mine, local, 0)],
                         0.0)
         x = coll.ad_psum(x, axis)
+    return x * cfg.d_model**0.5 if cfg.embed_scale and scale else x
+
+
+def _fsdp_table(table: torch.Tensor, cfg: ModelConfig) -> bool:
+    """Whether a serving copy stores the embedding ``table``'s columns (its
+    model dim) cut over 'data' (the 'default' rules' FSDP storage)."""
+    return table.shape[1] != cfg.d_model
+
+
+def _gather_table(table: torch.Tensor) -> torch.Tensor:
+    """The table's columns gathered whole over 'data' (its rows stay this
+    rank's vocab block)."""
+    return coll.all_gather(table, sharding.FSDP_AXIS, dim=1,
+                           kind="fsdp_gather")
+
+
+def _embed_fsdp(table: torch.Tensor, cfg: ModelConfig, tokens,
+                axis: str | None) -> torch.Tensor:
+    """:func:`_embed` from a table whose columns are this rank's block over
+    'data', by whichever moves fewer bytes: where the whole step has
+    fewer tokens than the table has rows here (decode), every rank looks
+    up the whole step's tokens in its columns, the looked-up columns are
+    gathered over 'data' and the rank keeps its rows; otherwise (a long
+    prefill) the table's columns are gathered and the rank looks up its
+    own tokens.  Both are exact."""
+    if tokens.numel() * sharding.rows_factor() >= table.shape[0]:
+        return _embed(_gather_table(table), cfg, tokens, axis)
+    whole = sharding.gather_rows(tokens)
+    x = coll.all_gather(_embed(table, cfg, whole, axis, scale=False),
+                        sharding.FSDP_AXIS, dim=-1)
+    x = sharding.rows_block(x)
     return x * cfg.d_model**0.5 if cfg.embed_scale else x
 
 
@@ -482,7 +517,8 @@ def embed_inputs(params: Transformer, cfg: ModelConfig, tokens, *,
     """tokens (B, S) -> (B, S, d): gathered in f32, scaled by sqrt(d) for
     gemma, with a vision frontend's ``patch_embeds`` (B, P, d), cast to
     f32, prepended; then cast to ``cfg.dtype``."""
-    x = _embed(params.embedding, cfg, tokens, vocab_axis(cfg))
+    embed = _embed_fsdp if _fsdp_table(params.embedding, cfg) else _embed
+    x = embed(params.embedding, cfg, tokens, vocab_axis(cfg))
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x.to(getattr(torch, cfg.dtype))
@@ -543,18 +579,41 @@ def _tied_head(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), table.to(torch.float32).t())
 
 
+def _tied_head_fsdp(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """:func:`_tied_head` against a table whose columns are this rank's
+    block over 'data', by whichever moves fewer bytes: where the whole
+    step has fewer rows than the model dim (the head sees a step's last
+    positions), the whole step's rows against those columns, the
+    partial logits summed over 'data' and this rank's rows kept;
+    otherwise against the table's columns gathered over 'data'."""
+    d = x.shape[-1]
+    if x[..., 0].numel() * sharding.rows_factor() >= d:
+        return _tied_head(x, _gather_table(table))
+    whole = sharding.gather_rows(x)
+    n = table.shape[1]
+    c = sharding.coord(sharding.active_mesh(), sharding.FSDP_AXIS)
+    part = _tied_head(whole.narrow(-1, c * n, n), table)
+    return sharding.rows_block(coll.psum(part, sharding.FSDP_AXIS))
+
+
 def logits_from_hidden(params: Transformer, cfg: ModelConfig, x):
+    """The head over the final norm of ``x``: the tied table (this rank's
+    vocab rows of it gathered over their axis; its columns summed over
+    'data' where they are stored cut), or the untied ``lm_head``
+    (gathered over 'data' first where it is stored cut)."""
     x = common.norm_apply(params.final_norm, x, cfg.norm,
                           rms_offset=cfg.rms_offset)
     if cfg.tie_embeddings:
-        logits = _tied_head(x, params.embedding)
+        table = params.embedding
+        logits = (_tied_head_fsdp if _fsdp_table(table, cfg)
+                  else _tied_head)(x, table)
         axis = vocab_axis(cfg)
         if axis is not None:  # this rank's vocab columns: gather them
             logits = coll.all_gather(logits, axis, dim=-1)
     else:
-        logits = common.linear_apply(params.lm_head, x, cfg.quant,
-                                     in_dim=cfg.d_model, tag="lm_head"
-                                     ).to(torch.float32)
+        logits = common.linear_apply(sharding.gather_fsdp(params.lm_head),
+                                     x, cfg.quant, in_dim=cfg.d_model,
+                                     tag="lm_head").to(torch.float32)
     return common.softcap(logits, cfg.final_logit_softcap)
 
 

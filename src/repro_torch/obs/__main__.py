@@ -14,7 +14,11 @@ the measurement sources given (``--plan-cache`` autotune timings,
 ``--bench`` files of ``kernels.ops.profile_gemm`` rows, ``--metrics``
 serve snapshots with ``kernel_gemm_s`` series; the plan cache at its
 default path when none is named), in the partition most samples belong
-to, and writes a versioned calibration.json.
+to, and writes a versioned calibration.json.  From the ``shard_variants``
+tables of the same plan caches it also fits the collective-time term
+(``obs.perfmodel.fit_collective``, the calibration's ``collective``
+block; left out when the tables hold too few rows) and prints how many
+variant rows the fit used.
 
 ``--check-regressions`` reads the same sources and fails (exit 1) when
 any timing of the calibration's partition exceeds ``--tolerance`` x the
@@ -36,14 +40,19 @@ from repro_torch.obs import perfmodel as pm
 from repro_torch.obs import validate_snapshot_file, validate_trace_file
 
 
+def _plan_caches(args) -> list:
+    """The plan caches the CLI reads (None: the process default, when no
+    source is named)."""
+    if not args.plan_cache and not args.bench and not args.metrics:
+        return [None]
+    return list(args.plan_cache)
+
+
 def _gather_samples(args) -> tuple[list, list]:
     """(samples, source descriptions) from the CLI's source flags."""
     samples: list = []
     sources: list = []
-    plan_caches = list(args.plan_cache)
-    if not plan_caches and not args.bench and not args.metrics:
-        plan_caches = [None]  # default: the process plan cache
-    for p in plan_caches:
+    for p in _plan_caches(args):
         got, untagged = pm.samples_from_plan_cache(p)
         samples += got
         sources.append(f"plan-cache:{p or 'default'}")
@@ -114,12 +123,21 @@ def main(argv=None) -> int:
         except ValueError as e:
             problems.append(f"calibrate: {e}")
         else:
+            rows = [r for p in _plan_caches(args)
+                    for r in pm.collective_rows_from_plan_cache(p)]
+            coll = pm.fit_collective(rows, device=cal.device)
+            if coll is not None:
+                cal.collective = coll
             out = cal.save(calib_path)
             print(f"calibrated {cal.device} interpret={cal.interpret} "
                   f"from {cal.fit['n_samples']} samples (rms rel err "
                   f"{cal.fit['rms_rel_err']:.2f}, median "
                   f"{cal.fit['median_abs_rel_err']:.2f}, max "
-                  f"{cal.fit['max_abs_rel_err']:.2f}) -> {out}")
+                  f"{cal.fit['max_abs_rel_err']:.2f}); collective term "
+                  + (f"from {coll['n_samples']} variant rows (rms err "
+                     f"{coll['rms_err_s']:.3e} s)" if coll else
+                     f"not fitted ({len(rows)} variant rows)")
+                  + f" -> {out}")
 
     if args.check_regressions and not problems:
         cal = pm.load_calibration(calib_path)

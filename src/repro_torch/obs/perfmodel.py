@@ -1,6 +1,5 @@
 """Analytical kernel-time model, calibration, and regression sentinel;
-port of repro.obs.perfmodel (its collective-time term waits for the
-multi-GPU slice).
+port of repro.obs.perfmodel, with its collective-time term.
 
 ``obs.costs`` prices a GeMM against an idealized roofline; this module
 predicts the time of the port's own kernels from five per-device
@@ -33,8 +32,19 @@ plan key's: ``cuda:<the card's name>``, or ``cpu``.  ``interpret`` keeps
 the reference's name and means "the plain PyTorch version ran" (true on
 the CPU, false for a kernel), so a CPU fit never judges the card.
 
+The collective-time term (:func:`predict_collective`) prices a
+row-parallel linear's collective layout (pipeline chunks, the group's
+own all-reduce or a ring) as a delta from its one-shot plan, from three
+constants fitted by :func:`fit_collective` to the shard-variant tuner's
+timing rows (the plan cache's ``shard_variants`` tables); it is stored
+as the calibration's optional ``collective`` block.  Those rows are
+partitioned by ``device`` alone: the card's name says whether a kernel
+or the plain version ran, so the reference's ``interpret`` tag is not
+carried there.
+
 Consumers: ``dispatch.autotune`` ranks candidates by :func:`predict` and
-times only the predicted best few; ``python -m repro_torch.obs
+times only the predicted best few (the variant grid by
+:func:`predict_collective`); ``python -m repro_torch.obs
 --check-regressions`` and ``serve --check-regressions`` compare measured
 times with the model (the regression sentinel): a measurement is an
 outlier when ``measured > tolerance * predicted`` (``DEFAULT_TOLERANCE``
@@ -57,6 +67,16 @@ DEFAULT_TOLERANCE = 3.0
 # model constants, in feature-vector order (the fit solves for these)
 CONSTANT_NAMES = ("launch_s", "step_s", "produce_s_per_flop",
                   "consume_s_per_op", "hbm_s_per_byte")
+
+# collective-time term: the extra time of a row-parallel linear's
+# collective layout over its one-shot plan,
+#   dt = coll_call_s * d(kernel calls) + coll_hop_s * d(hops)
+#      + coll_byte_s * d(bytes)
+# fitted per device from the plan cache's shard_variants timing rows.
+# Unlike CONSTANT_NAMES these may fit negative: a negative hop or byte
+# coefficient is overlap measured (more hops hiding under compute).  The
+# block is optional in calibration.json (the version stays 1).
+COLLECTIVE_CONSTANT_NAMES = ("coll_call_s", "coll_hop_s", "coll_byte_s")
 
 # rough per-element op counts of the epilogue activations
 _ACT_OPS = {"none": 0.0, "relu": 1.0, "gelu": 8.0, "silu": 6.0}
@@ -239,6 +259,9 @@ class Calibration:
     sources: list = field(default_factory=list)
     version: int = CALIBRATION_VERSION
     created_unix: float = 0.0
+    # fitted COLLECTIVE_CONSTANT_NAMES with their fit diagnostics; empty
+    # when no shard-variant timings existed
+    collective: dict = field(default_factory=dict)
 
     def matches(self, device: str, interpret: bool) -> bool:
         return self.device == device and self.interpret == bool(interpret)
@@ -247,12 +270,15 @@ class Calibration:
         return self.constants.get(backend) or self.constants["*"]
 
     def as_dict(self) -> dict:
-        return {"version": self.version, "device": self.device,
-                "interpret": self.interpret,
-                "constants": {bk: dict(c)
-                              for bk, c in self.constants.items()},
-                "fit": dict(self.fit), "sources": list(self.sources),
-                "created_unix": self.created_unix}
+        out = {"version": self.version, "device": self.device,
+               "interpret": self.interpret,
+               "constants": {bk: dict(c)
+                             for bk, c in self.constants.items()},
+               "fit": dict(self.fit), "sources": list(self.sources),
+               "created_unix": self.created_unix}
+        if self.collective:
+            out["collective"] = dict(self.collective)
+        return out
 
     def save(self, path: str | os.PathLike) -> Path:
         from repro_torch import faults
@@ -307,6 +333,23 @@ def validate_calibration(doc: dict) -> list[str]:
     fit_ = doc.get("fit")
     if not isinstance(fit_, dict) or "n_samples" not in (fit_ or {}):
         errs.append("fit block missing n_samples")
+    # the collective block is optional and checked only when present; its
+    # constants may be negative (a delta from the one-shot plan), so only
+    # finiteness is required
+    coll = doc.get("collective")
+    if coll is not None:
+        if not isinstance(coll, dict):
+            errs.append("collective block not an object")
+        else:
+            for name in COLLECTIVE_CONSTANT_NAMES:
+                v = coll.get(name)
+                if not isinstance(v, (int, float)):
+                    errs.append(f"collective.{name} missing or "
+                                f"non-numeric")
+                elif not math.isfinite(v):
+                    errs.append(f"collective.{name}={v} not finite")
+            if "n_samples" not in coll:
+                errs.append("collective block missing n_samples")
     return errs
 
 
@@ -338,7 +381,8 @@ def load_calibration(path: str | os.PathLike | None = None, *,
                    for bk, block in doc["constants"].items()},
         fit=doc.get("fit", {}), sources=doc.get("sources", []),
         version=doc["version"],
-        created_unix=float(doc.get("created_unix", 0.0)))
+        created_unix=float(doc.get("created_unix", 0.0)),
+        collective=doc.get("collective") or {})
     if (device is not None and cal.device != device) or \
             (interpret is not None and cal.interpret != bool(interpret)):
         return None
@@ -422,6 +466,110 @@ def predict(plan, spec, m: int, k: int, batch: int, *,
 def predict_sample(s: Sample, calib: Calibration | None) -> PredictedCost:
     return predict_features(sample_features(s), calib, s.device,
                             backend=s.backend)
+
+
+# =====================================================================
+# collective-time term (row-parallel linears' collective layouts)
+# =====================================================================
+def collective_features(*, impl: str, collective: str, axis_size: int,
+                        m: int, b: int, pipeline_chunks: int = 1,
+                        dtype_bytes: int = 4) -> dict:
+    """(calls, hops, bytes) of resolving one row-parallel linear whose
+    partial output on a rank is (b, m) f32 under the given collective
+    layout: ``distributed.collectives.collective_cost``'s hops and bytes,
+    summed over the pipeline chunks."""
+    from repro_torch.distributed import collectives as coll
+
+    hops, nbytes = coll.collective_cost(
+        impl=impl, collective=collective, axis_size=axis_size,
+        elems=m * b, dtype_bytes=dtype_bytes,
+        pipeline_chunks=pipeline_chunks)
+    return {"calls": max(int(pipeline_chunks), 1), "hops": hops,
+            "bytes": nbytes}
+
+
+def predict_collective(*, calls: float, hops: float, nbytes: float,
+                       collective: dict) -> float:
+    """Predicted time delta (seconds, may be negative) of a collective
+    layout over the one-shot plan of the same linear, from a fitted
+    ``Calibration.collective`` block.  The tuner ranks variants by it;
+    the one-shot baseline they share cancels."""
+    return (collective.get("coll_call_s", 0.0) * (calls - 1)
+            + collective.get("coll_hop_s", 0.0) * hops
+            + collective.get("coll_byte_s", 0.0) * nbytes)
+
+
+def collective_rows_from_plan_cache(path: str | os.PathLike | None = None
+                                    ) -> list[dict]:
+    """The timing rows of the plan cache's ``shard_variants`` tables, each
+    with its base key (the rows of one key share their compute, so only
+    deltas within a key mean anything)."""
+    from repro_torch.dispatch import autotune as at
+
+    cache = at.PlanCache(path).load()
+    out = []
+    for key in cache.variant_keys():
+        for row in cache.shard_variant(key).get("rows", []):
+            out.append(dict(row, key=key))
+    return out
+
+
+def _row_device(rows: list[dict]) -> str | None:
+    """The device most rows were measured on (ties: the first name)."""
+    counts: dict[str, int] = {}
+    for r in rows:
+        if r.get("device") is not None:
+            counts[r["device"]] = counts.get(r["device"], 0) + 1
+    return max(sorted(counts), key=counts.get) if counts else None
+
+
+def fit_collective(rows: list[dict], *,
+                   device: str | None = None) -> dict | None:
+    """Least-squares fit of COLLECTIVE_CONSTANT_NAMES to the shard-variant
+    timing rows of ``device`` (None: the device most rows name).  Each
+    key's one-shot row (1 chunk, 'xla') is its baseline; every other row
+    of the key gives one equation
+
+        s - s_base = call_s (pc - 1) + hop_s (hops - hops_base)
+                     + byte_s (bytes - bytes_base)
+
+    solved by plain (signed) least squares: a negative coefficient is
+    overlap measured.  None when fewer equations than constants exist
+    (the tuner then times every variant)."""
+    import numpy as np
+
+    if device is None:
+        device = _row_device(rows)
+    by_key: dict[str, list[dict]] = {}
+    for r in rows:
+        if r.get("device") == device:
+            by_key.setdefault(r.get("key", "?"), []).append(r)
+    A, y = [], []
+    for key, group in sorted(by_key.items()):
+        base = next((r for r in group
+                     if int(r.get("pipeline_chunks", 1)) == 1
+                     and r.get("collective_impl") == "xla"), None)
+        if base is None:
+            continue
+        for r in group:
+            if r is base:
+                continue
+            A.append([int(r.get("pipeline_chunks", 1)) - 1,
+                      float(r.get("hops", 0)) - float(base.get("hops", 0)),
+                      float(r.get("bytes", 0.0))
+                      - float(base.get("bytes", 0.0))])
+            y.append(float(r["s"]) - float(base["s"]))
+    if len(y) < len(COLLECTIVE_CONSTANT_NAMES):
+        return None
+    A_arr, y_arr = np.asarray(A, float), np.asarray(y, float)
+    theta, *_ = np.linalg.lstsq(A_arr, y_arr, rcond=None)
+    if not np.isfinite(theta).all():
+        return None
+    resid = A_arr @ theta - y_arr
+    out = {n: float(v) for n, v in zip(COLLECTIVE_CONSTANT_NAMES, theta)}
+    out["n_samples"] = len(y)
+    out["rms_err_s"] = float(np.sqrt(np.mean(resid ** 2)))
+    return out
 
 
 # =====================================================================

@@ -95,6 +95,15 @@ def shard_params(params, cfg: ModelConfig, mesh, rules: str = "serve"):
       over 'model' when it divides); norms, an sLSTM's W and R, and
       every leaf of a mixer that does not split stay whole.
 
+    ``rules`` 'default' (FSDP storage) stores, on top of that layout,
+    this rank's 'data' block of every leaf whose model dim takes 'data'
+    under ``sharding.param_specs(params, mesh, "default")``
+    (``sharding.fsdp_store``); the model code gathers a block's for each
+    step (``sharding.gather_fsdp``), and the embedding table's columns
+    are read in their blocks (``models.transformer``).  The activation
+    rules of 'default' and 'serve' are the same, so everything else is
+    the 'serve' layout.
+
     ``params`` is left as it was: the copy shares every leaf it does not
     cut, and a MoE block's routed-slot counters."""
     import copy
@@ -104,6 +113,10 @@ def shard_params(params, cfg: ModelConfig, mesh, rules: str = "serve"):
     from repro_torch.distributed import sharding
     from repro_torch.models import common, layers, mamba, moe, xlstm
 
+    fsdp = sharding.param_specs(params, mesh, "default") \
+        if rules == "default" else None
+    if rules == "default":
+        rules = "serve"  # the same layout, stored cut over 'data' below
     memo = {id(t): t for t in params.buffers()}
     memo.update({id(m.route_counts): m.route_counts
                  for m in params.modules() if isinstance(m, moe.MoE)})
@@ -212,6 +225,8 @@ def shard_params(params, cfg: ModelConfig, mesh, rules: str = "serve"):
         spec = (axis, None)
         out.register_buffer("embedding", sharding.local_slice(
             params.embedding, spec, mesh).contiguous().clone())
+    if fsdp is not None:
+        sharding.fsdp_store(out, fsdp, mesh)
     return out
 
 

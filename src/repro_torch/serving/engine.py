@@ -65,7 +65,13 @@ axis when they divide it (``sharding.split_rows``), and its logits are
 gathered whole before the tokens are picked, so every rank picks the
 same ones.  The mesh engine is eager: a step's collectives are staged
 through host memory when ranks share a card, which a CUDA graph cannot
-hold, and capturing NCCL's is ROADMAP A13c.
+hold, and capturing NCCL's is ROADMAP A13c.  Under the 'default' rules
+each rank stores its 'data' block of the weights whose model dim takes
+'data' (FSDP storage), and each block gathers them at the top of the
+block for the step (``models.transformer``).  With ``shard_pipeline=0``
+the build tunes every row-parallel linear's collective layout
+(``dispatch.autotune.tune_shard_variants``, through ``warm``; the ranks
+agree on each winner) and the steps replay the winners.
 """
 
 from __future__ import annotations
@@ -266,7 +272,10 @@ class StepRunner:
             for shape in self.shapes.values():
                 self._step(shape)
         tr.take_marks()  # the collection's marks time no step
-        return dispatch.warm(reqs, policy=self.policy)
+        if self.mesh is None:
+            return dispatch.warm(reqs, policy=self.policy)
+        with sharding.use(self.mesh, self.rules):  # every rank tunes
+            return dispatch.warm(reqs, policy=self.policy)
 
     def _step(self, shape: _Shape):
         with torch.no_grad(), dispatch.using_policy(self.policy), \
@@ -430,10 +439,13 @@ class Engine:
     from the same whole ``params`` (each keeps its shards:
     ``runtime.serve.shard_params``; ``params`` is left as it was).
     mesh_rules: the logical-axis rule set ('serve': batch rows over
-    'data', weights over 'model'; 'serve_tp': no row split).
+    'data', weights over 'model'; 'default': the same, with the weights'
+    model dim stored cut over 'data' and gathered a block at a time;
+    'serve_tp': no row split).
     shard_collective ('psum' | 'reduce_scatter'), shard_pipeline
-    (contraction chunks of a row-parallel linear; 0: the cache's tuned
-    variant) and shard_impl ('xla' | 'ring') go into the ExecPolicy.
+    (contraction chunks of a row-parallel linear; 0: tuned at build,
+    ``dispatch.autotune.tune_shard_variants``) and shard_impl ('xla' |
+    'ring') go into the ExecPolicy.
     Every rank calls :meth:`run`; global rank 0 leads and returns, on
     every rank, its results.  Decoders with 'attn', 'local' and 'moe'
     blocks only (NotImplementedError otherwise: :func:`check_mesh_model`),
@@ -1115,17 +1127,18 @@ def check_mesh_model(cfg: ModelConfig) -> None:
 
 
 def _check_mesh(cfg: ModelConfig, mesh, rules: str, cuda_graph) -> bool:
-    """Refuse what the mesh engine does not serve; returns the step route
-    (eager: see the module's docstring)."""
+    """Refuse what the mesh engine does not serve (a model without paged
+    state, an unknown rule set, CUDA graphs, a mesh without every rank);
+    returns the step route (eager: see the module's docstring).  Every
+    rule set serves: 'default' stores the weights cut over 'data' too."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import mesh_devices
 
     check_mesh_model(cfg)
-    if rules not in ("serve", "serve_tp"):
-        raise NotImplementedError(
-            f"mesh_rules={rules!r}: the mesh engine serves the 'serve' and "
-            "'serve_tp' rules (FSDP storage is ROADMAP A13c)")
+    if rules not in ("default", "serve", "serve_tp"):
+        raise ValueError(f"mesh_rules={rules!r}: one of 'default', "
+                         "'serve', 'serve_tp'")
     if cuda_graph:
         raise ValueError("cuda_graph=True under a mesh: the mesh engine "
                          "runs eagerly (a step holding host-staged "

@@ -5,10 +5,13 @@ tensors, running one real prefill or decode step.
 
 * a prefill cell and a decode cell of gemma-2b SMOKE (one kv head: the
   decode cache splits its sequence over 'model') on (data=2, model=2),
-  at a small shape, against a real four-rank gloo run of the same steps
+  at a small shape, under the 'default' rules (the dry run's default:
+  FSDP weight storage, the blocks' weights gathered over 'data') and
+  under 'serve', against a real four-rank gloo run of the same steps
   (``tests/torch_mesh_ranks.serve_cell_rank``): for each rank, its
   collectives by kind (count and bytes) and its argument bytes (weights,
-  inputs, cache) are equal; the peak covers the arguments;
+  inputs, cache) are equal; the peak covers the arguments; 'default'
+  holds fewer argument bytes than 'serve';
 * on fake tensors the GeMM kernels allocate what their CUDA launch does,
   never the plain msGeMM's tables: a msGeMM call's fake output has the
   kernel's (m, b) shape and layout;
@@ -42,12 +45,14 @@ def real():
                      timeout=120)
 
 
+@pytest.mark.parametrize("rules", ["default", "serve"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: s.name)
 @pytest.mark.parametrize("rank", [0, 3])
-def test_fake_serve_cell_equals_a_real_step(real, shape, rank):
+def test_fake_serve_cell_equals_a_real_step(real, shape, rank, rules):
     cfg = dryrun.serve_config("gemma_2b", smoke=True)
-    got = dryrun.measure_serve(cfg, shape, SHAPE, AXES, rank=rank)
-    want = real[rank][shape.name]
+    got = dryrun.measure_serve(cfg, shape, SHAPE, AXES, rank=rank,
+                               rules=rules)
+    want = real[rank][rules][shape.name]
     assert got["collectives"] == want["collectives"]
     assert got["memory"]["argument_bytes_per_device"] == \
         want["argument_bytes"]
@@ -57,6 +62,10 @@ def test_fake_serve_cell_equals_a_real_step(real, shape, rank):
     if shape.kind == "decode":  # the split-sequence softmax
         assert got["collectives"]["all_reduce_max"]["count"] == \
             cfg.num_layers
+    if rules == "default":  # each block's weights, gathered over 'data'
+        assert got["collectives"]["fsdp_gather"]["count"] > 0
+        assert want["argument_bytes"] < \
+            real[rank]["serve"][shape.name]["argument_bytes"]
 
 
 def test_fake_msgemm_allocates_the_kernels_output_only():
@@ -111,4 +120,4 @@ def test_every_serve_cell_runs(arch):
                               smoke=True, verbose=False)
         assert res["status"] == ("ok" if ok else "skipped"), res
         if ok:
-            assert res["quant"] == "msgemm" and res["rules"] == "serve"
+            assert res["quant"] == "msgemm" and res["rules"] == "default"

@@ -159,19 +159,18 @@ def test_serve_cli_static_engine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "model=2", "--shard-pipeline", "0"], ["--shard-impl", "ring"],
+    ["--mesh", "model=2", "--shard-pipeline", "-1"], ["--shard-impl", "ring"],
     ["--force-host-devices", "4"],
 ], ids=["mesh", "shard-impl", "force-host-devices"])
 def test_serve_cli_refuses_unported_flags(flags):
     """The mesh flags are ported and refused where they do not apply:
-    ``--mesh`` with the tuned shard variant (``--shard-pipeline 0``, not
-    ported), the shard and host-device flags without ``--mesh``; each
-    with a message, before anything is built (``--mesh`` serves both
-    engines)."""
+    ``--mesh`` with a chunk count below 0 (0 tunes the layout), the
+    shard and host-device flags without ``--mesh``; each with a message,
+    before anything is built (``--mesh`` serves both engines)."""
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
                     *flags])
-    want = ("--shard-pipeline 0" if flags[0] == "--mesh"
+    want = ("--shard-pipeline -1" if flags[0] == "--mesh"
             else "apply only with --mesh")
     assert isinstance(exc.value.code, str) and want in exc.value.code
 

@@ -9,11 +9,15 @@ heads, d=2 / scale_block=8, so every linear shards on model=2).
 The reference's own mesh engine fails under this JAX (ROADMAP C), so the
 sharded engine is held to the single-device engines: greedy tokens equal
 for msgemm, int4_dequant and bf16 weights, under reduce_scatter,
-pipelining (2 chunks), mid-stream preemption and with a kv8 pool. Also:
-plans resolved at build and keyed by the mesh, an off-mesh cache entry
-never replayed sharded, the refusals (a recurrent model, which has no
-paged state, ``cuda_graph=True``, the 'default' rules), and the serve
-CLI's ``--mesh``.
+pipelining (2 chunks), mid-stream preemption, with a kv8 pool, under
+the 'default' rules (the weights also stored cut over 'data', FSDP) for
+msgemm and int4_dequant weights, and with the collective layouts tuned
+(``shard_pipeline=0``: the twin of the reference's
+``test_shard_variant_autotune_roundtrip``). Also: plans resolved at
+build and keyed by the mesh, an off-mesh cache entry never replayed
+sharded, the refusals (a recurrent model, which has no paged state,
+``cuda_graph=True``, an unknown rule set), and the serve CLI's
+``--mesh`` (``--shard-pipeline 0`` and ``--mesh-rules default`` too).
 """
 
 import numpy as np
@@ -68,11 +72,20 @@ SCENARIOS = [
     # a kv8 pool, its kv heads split over 'model' with the weights
     ("kv8", "msgemm", dict(BASE, kv_quant=TKV(bits=8)),
      _prompts((6, 4), 7), 4),
+    # FSDP storage: each rank keeps its 'data' block of the weights
+    ("default_rules", "msgemm", dict(BASE, mesh_rules="default"),
+     _prompts((5, 9, 3, 7), 1), 4),
+    ("default_rules_int4", "int4_dequant",
+     dict(BASE, mesh_rules="default"), _prompts((5, 9, 3, 7), 1), 4),
+    # the collective layouts tuned at build (engine_rank's round trip)
+    ("tuned", "msgemm", dict(BASE, shard_pipeline=0), _prompts((5, 9), 6),
+     4),
 ]
 # NaN logits injected on the leader: its guard quarantines the sequences
 # and replans; the followers replan with it
 REPLAN = ("replan", "msgemm", BASE, _prompts((5, 6, 4), 8), 4)
-MESH_KW = ("shard_collective", "shard_pipeline", "shard_impl")
+MESH_KW = ("shard_collective", "shard_pipeline", "shard_impl",
+           "mesh_rules")
 
 
 def _ref_tree(mode, cfg=CFG):
@@ -99,12 +112,20 @@ def weights():
 
 
 @pytest.fixture(scope="module")
-def sharded(weights):
+def tune_caches(tmp_path_factory):
+    """The plan-cache files of the 'tuned' scenario's builds: the layout
+    tuner's, then the one that tunes the kernel tiles too."""
+    d = tmp_path_factory.mktemp("tuned")
+    return str(d / "plans.json"), str(d / "tiles.json")
+
+
+@pytest.fixture(scope="module")
+def sharded(weights, tune_caches):
     """The four ranks' results of every scenario, one spawn."""
     trees = {k: v[0] for k, v in weights.items() if v[0] is not None}
     tcfgs = {k: v[2] for k, v in weights.items()}
     return run_ranks(R.engine_rank, 4, trees, tcfgs, SCENARIOS + [REPLAN],
-                     timeout=300)
+                     tune_caches, timeout=300)
 
 
 def _single(weights, key, kw, prompts, new):
@@ -178,8 +199,60 @@ def test_mesh_replan_reaches_every_rank(sharded):
 
 def test_mesh_engine_refusals(sharded):
     assert sharded[0]["refusals"] == {"cuda_graph": "ValueError",
-                                      "default_rules": "NotImplementedError",
+                                      "unknown_rules": "ValueError",
                                       "recurrent": "NotImplementedError"}
+
+
+@pytest.mark.parametrize("name", ["default_rules", "default_rules_int4"])
+def test_default_rules_store_weights_cut_over_data(sharded, name):
+    """Under 'default' a rank holds fewer weight bytes than under 'serve'
+    (its 'data' block of every leaf whose model dim takes 'data'), on
+    the same plans."""
+    serve = "msgemm" if name == "default_rules" else "int4_dequant"
+    for r in sharded:
+        assert r[name]["resident"] < 0.75 * r[serve]["resident"]
+        assert r[name]["plans"] == r[serve]["plans"]
+
+
+def test_shard_variant_tuner_round_trip(sharded, tune_caches):
+    """``shard_pipeline=0``: the first build times the variant grid of
+    every row-parallel key and persists one winner a key with its rows
+    (hops and bytes included); a rebuild from the file times none and
+    gives equal plans; every rank holds the same winners and plans (the
+    slowest rank's times decide), the kernel-tile winners too; the run
+    replays the winners (its tokens: the scenario test)."""
+    import json
+
+    doc = json.loads(open(tune_caches[0]).read())
+    table = doc["shard_variants"]
+    assert table
+    for key, v in table.items():
+        assert "/k=model/" in key and "/pc" not in key
+        assert {"pipeline_chunks", "collective_impl", "rows"} <= set(v)
+        assert sum(r["winner"] for r in v["rows"]) == 1
+        win = next(r for r in v["rows"] if r["winner"])
+        assert (win["pipeline_chunks"], win["collective_impl"]) == \
+            (v["pipeline_chunks"], v["collective_impl"])
+        assert all({"s", "hops", "bytes", "device"} <= set(r)
+                   and "interpret" not in r for r in v["rows"])
+        assert (1, "xla") in {(r["pipeline_chunks"], r["collective_impl"])
+                              for r in v["rows"]}
+    runs = [r["tuned"] for r in sharded]
+    assert runs[0]["tuner"]["timed"] == sum(len(v["rows"])
+                                            for v in table.values())
+    for r in runs:
+        t = r["tuner"]
+        assert t["rebuilt_timed"] == 0 and t["rebuilt_same"]
+        assert t["variants"] == runs[0]["tuner"]["variants"]
+        assert {k: v["pipeline_chunks"] for k, v in t["variants"].items()} \
+            == {k: v["pipeline_chunks"] for k, v in table.items()}
+        assert t["tile_plans"] == runs[0]["tuner"]["tile_plans"]
+        assert r["plans"] == runs[0]["plans"]
+    tags = {t for _, t in runs[0]["plans"].values() if t and "/k=" in t}
+    winners = {(v["pipeline_chunks"], v["collective_impl"])
+               for v in table.values()}
+    if winners != {(1, "xla")}:
+        assert any("/pc" in t for t in tags)
 
 
 def test_cli_serves_on_a_mesh_of_host_ranks(capfd):
@@ -206,10 +279,14 @@ def test_cli_refuses_what_it_cannot_serve_on_a_mesh(monkeypatch):
         CLI.main(["--arch", "xlstm_1b3", "--smoke", "--device", "cpu",
                   "--engine", "continuous", "--mesh", "model=2",
                   "--force-host-devices", "2"])
-    with pytest.raises(SystemExit, match="shard-pipeline 0"):
-        CLI.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
-                  "--mesh", "model=2", "--force-host-devices", "2",
-                  "--shard-pipeline", "0"])
+    # --shard-pipeline 0 (once refused) tunes the layouts, here with the
+    # weights stored cut over 'data'
+    out = CLI.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
+                    "--engine", "continuous", "--check", "--num-requests",
+                    "2", "--new-tokens", "3", "--mesh", "data=2,model=2",
+                    "--force-host-devices", "4", "--shard-pipeline", "0",
+                    "--mesh-rules", "default"])
+    assert out["checked"] == 2 and out["sharded"] > 0
 
 
 def test_mesh_runner_failure_is_fatal_on_every_rank(weights, tmp_path):

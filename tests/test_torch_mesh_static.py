@@ -8,7 +8,9 @@ cache splits its sequence over 'model') and jamba-v0.1 (Mamba, attention
 and MoE blocks), msgemm weights at d=2 / scale_block=8 (every projection
 splits on the boundary): tokens equal to the reference's
 ``repro.runtime.serve.generate`` on the same weights and inputs (exact),
-every step's logits within 1e-4 of the port's single-device run.
+every step's logits within 1e-4 of the port's single-device run; and
+each again on (data=2) under the 'default' rules (FSDP weight storage,
+the rows split), tokens equal to the reference's.
 xlstm-1.3b, whisper-medium and phi-3-vision are in
 ``tests/test_torch_mesh_static_more.py``.
 """
@@ -40,6 +42,14 @@ def test_static_generate_on_a_mesh_equals_reference(cases, ranks, arch):
     C.check(cases[arch][0], ranks, arch)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_static_generate_under_default_rules_equals_reference(cases, ranks,
+                                                              arch):
+    """The same weights stored cut over 'data' (the 'default' rules, FSDP)
+    on a (data=2) mesh: tokens equal the reference's."""
+    C.check_default(cases[arch][0], ranks, arch)
+
+
 def test_split_sequence_decode_combines_partial_softmax(ranks):
     """gemma-2b's one kv head cannot take 'model': the decode cache splits
     its sequence, and each decode layer takes the max of the ranks'
@@ -47,3 +57,20 @@ def test_split_sequence_decode_combines_partial_softmax(ranks):
     layers = j_configs.get_smoke("gemma_2b").num_layers
     counts = ranks[0]["gemma_2b"]["collectives"]
     assert counts["all_reduce_max"] == layers * (C.NEW - 1)
+
+
+def test_fsdp_table_routes_equal_one_device(ranks):
+    """A table stored cut over 'data': the lookup is exact by both routes
+    (the looked-up activations gathered, or the table's columns), the
+    tied head within 1e-6 of one device's (its partial logits summed
+    over 'data' in another order), exact from the gathered columns."""
+    for r in ranks:
+        got = r["fsdp_table"]
+        assert set(got) == {"embed-activations", "embed-table",
+                            "head-partial", "head-table"}
+        for route, (a, b) in got.items():
+            assert a.shape == b.shape
+            if route == "head-partial":
+                assert float((a - b).abs().max()) <= 1e-6
+            else:
+                assert torch.equal(a, b), route

@@ -5,7 +5,8 @@ whole), whisper-medium (the encoder's and the cross attention's heads
 split) and phi-3-vision (the patch embeddings whole on every rank):
 tokens equal to the reference's ``repro.runtime.serve.generate``
 (exact), every step's logits within 1e-4 of the port's single-device
-run.
+run; and each again on (data=2) under the 'default' rules (FSDP weight
+storage, the rows split), tokens equal to the reference's.
 """
 
 import pytest
@@ -32,3 +33,11 @@ def ranks(cases):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_static_generate_on_a_mesh_equals_reference(cases, ranks, arch):
     C.check(cases[arch][0], ranks, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_static_generate_under_default_rules_equals_reference(cases, ranks,
+                                                              arch):
+    """The same weights stored cut over 'data' (the 'default' rules, FSDP)
+    on a (data=2) mesh: tokens equal the reference's."""
+    C.check_default(cases[arch][0], ranks, arch)

@@ -533,22 +533,29 @@ def test_k_chunk_params_matches_reference(chunks):
 
 @pytest.mark.parametrize("chunks", [0, -1])
 def test_shard_pipeline_below_one_refused(chunks):
-    """The reference's ``shard_pipeline=0`` (its tuned variant) waits for
-    the shard-variant tuner (ROADMAP A13c): the policy and the serve
-    CLI refuse it, and a stored variant never changes a plan."""
+    """``shard_pipeline`` below 0 is refused by the policy and the serve
+    CLI; 0 (the tuned variant) derives the one-shot layout first and
+    replays the variant the cache stores for that key, as the
+    reference's ``plan`` does (the one-shot layout where none is
+    stored)."""
     from repro_torch.launch import serve as S
 
-    with pytest.raises(ValueError, match="shard_pipeline"):
-        dispatch.ExecPolicy(shard_pipeline=chunks)
-    with pytest.raises(SystemExit, match="--shard-pipeline"):
-        S.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
-                "--engine", "continuous", "--mesh", "model=2",
-                "--force-host-devices", "2",
-                "--shard-pipeline", str(chunks)])
     axes = ("embed", "mlp")
-    with shd.use(MESH42, "serve"):
+    if chunks < 0:
+        with pytest.raises(ValueError, match="shard_pipeline"):
+            dispatch.ExecPolicy(shard_pipeline=chunks)
+        with pytest.raises(SystemExit, match="--shard-pipeline"):
+            S.main(["--arch", "gemma_2b", "--smoke", "--device", "cpu",
+                    "--engine", "continuous", "--mesh", "model=2",
+                    "--force-host-devices", "2",
+                    "--shard-pipeline", str(chunks)])
+        return
+    policy = dispatch.ExecPolicy(shard_pipeline=chunks)
+    with shd.use(MESH42, "serve"), dispatch.using_policy(policy):
         base = dispatch.plan(SPEC, 32, 64, 4, device_type="cpu",
                              shard_axes=axes, lead_batch=4)
+        assert base.shard.pipeline_chunks == 1
+        assert base.shard.collective_impl == "xla"
         lm, lk, lb = base.shard.exec_mkb(32, 64, 4)
         key = dispatch.plan_key(base.backend, SPEC, 2, lm, lk, lb, "cpu",
                                 shard=base.shard.tag())
@@ -557,10 +564,74 @@ def test_shard_pipeline_below_one_refused(chunks):
                                      persist=False)
         again = dispatch.plan(SPEC, 32, 64, 4, device_type="cpu",
                               shard_axes=axes, lead_batch=4)
-    assert again.shard == base.shard
-    assert base.shard.pipeline_chunks == 1
+    assert (again.shard.pipeline_chunks, again.shard.collective_impl) == \
+        (2, "ring")
+    assert again.shard.tag() == base.shard.tag() + "/pc2.ring"
 
 
+class _RankMesh(FakeMesh):
+    """A shape-only mesh seen from its rank at coordinate 0 of every
+    axis: ``runtime.serve.shard_params`` cuts that rank's blocks."""
+
+    def get_local_rank(self, axis):
+        return 0
+
+
+DATA_CUT_ARCHS = ("gemma_2b", "jamba_v01", "qwen2_moe", "whisper_medium")
+DATA_CUT_MESHES = {"data2.model2": dict(data=2, model=2),
+                   "data4": dict(data=4),
+                   "data16.model16": dict(data=16, model=16)}
+
+
+@pytest.mark.parametrize("mode", ["msgemm", "int4_dequant"])
+@pytest.mark.parametrize("mesh", sorted(DATA_CUT_MESHES))
+@pytest.mark.parametrize("arch", DATA_CUT_ARCHS)
+def test_default_rules_store_the_reference_data_cut(arch, mesh, mode):
+    """``shard_params(..., "default")`` stores every leaf as 'serve' does,
+    except that a leaf whose dim takes 'data' under the reference's
+    ``param_specs(..., "default")`` (on its packed leaves) holds its
+    1/data block of that dim, where the stored dim divides; the cut is
+    recorded on the block (or the head) that gathers it."""
+    jcfg = j_configs.get_smoke(arch)
+    tcfg = convert.config_from_jax(jcfg)
+    storage = "packed_u8" if mode == "int4_dequant" else "packed_idx"
+    jq = JSpec(mode=mode, d=2, scale_block=8, storage=storage)
+    jshapes = jax.eval_shape(lambda: j_quantize(
+        JT.init_params(jax.random.PRNGKey(0), jcfg), jcfg, jq))
+    tq = QuantSpec(mode=mode, d=2, scale_block=8, storage=storage)
+    model = TT.init_params(tcfg, generator=generator(0, "cpu"),
+                           device="cpu", quant=tq)
+    tcfg = tcfg.replace(quant=tq)
+    fm = _RankMesh(**DATA_CUT_MESHES[mesh])
+    n = fm.shape["data"]
+    ref = _ref_leaves(jshd.param_specs(jshapes, fm, "default"))
+    shapes = _ref_leaves(jshapes)
+    want = _port_map({p: _pad(s, len(shapes[p].shape))
+                      for p, s in ref.items()}, tcfg)
+    serve = dict(TSV.shard_params(model, tcfg, fm, "serve").named_buffers())
+    local = TSV.shard_params(model, tcfg, fm, "default")
+    got = dict(local.named_buffers())
+    assert set(got) == set(serve)
+    # an msgemm model's expert stacks are int4 in the port, msgemm in the
+    # reference: those leaves differ, and the port's own 'default' specs
+    # (held to the reference's above) decide them
+    own = shd.param_specs(model, fm, "default")
+    experts = {n for n in set(got) ^ set(want) if ".experts." in n}
+    assert set(got) ^ set(want) == experts
+    want = {n: want[n] if n in want else ("whole", own[n]) for n in got}
+    recorded = {(f"{p}." if p else "") + k: d
+                for p, mod in local.named_modules()
+                for k, d in getattr(mod, "fsdp", {}).items()}
+    cut = {}
+    for name, (kind, s) in want.items():
+        s = s[1:] if kind == "stacked" else s
+        dim = coll.spec_dim(s, "data")
+        shape = list(serve[name].shape)
+        if dim is not None and shape[dim] % n == 0:
+            shape[dim] //= n
+            cut[name] = dim
+        assert list(got[name].shape) == shape, name
+    assert cut and recorded == cut
 def test_production_mesh_needs_its_world():
     """The reference's production shapes build only over a world of
     exactly their size; this single process has none."""

@@ -128,12 +128,46 @@ def linears_rank(rank, device, n):
     return out
 
 
-def engine_rank(rank, device, trees, tcfgs, scenarios):
+def _plans(eng) -> dict:
+    return {k: (p.backend, None if p.shard is None else p.shard.tag())
+            for k, p in eng.exec_plans.items()}
+
+
+def _tuner_round_trip(model, tcfg, mesh, kw, caches) -> dict:
+    """The ``shard_pipeline=0`` scenario's builds beside its run: how many
+    candidates the first build timed, this rank's variant table, a
+    rebuild from the cache file (its timed count, its plans equal the
+    first build's), and a build that also tunes the kernel tiles (its
+    plans and tiles), each on the cache file ``caches`` names."""
+    from repro_torch.dispatch import autotune as at
+    from repro_torch.serving import Engine
+
+    at.num_timed_candidates = 0
+    first = Engine(model, tcfg, mesh=mesh, autotune_cache=caches[0], **kw)
+    out = dict(timed=at.num_timed_candidates,
+               variants={k: dispatch.cache().shard_variant(k)
+                         for k in dispatch.cache().variant_keys()})
+    at.num_timed_candidates = 0
+    again = Engine(model, tcfg, mesh=mesh, autotune_cache=caches[0], **kw)
+    out.update(rebuilt_timed=at.num_timed_candidates,
+               rebuilt_same=again.exec_plans == first.exec_plans)
+    tiles = Engine(model, tcfg, mesh=mesh, autotune=True,
+                   autotune_cache=caches[1], **kw)
+    out["tile_plans"] = {k: (p.backend, str(p.tiles), p.shard.tag()
+                             if p.shard else None)
+                         for k, p in tiles.exec_plans.items()}
+    dispatch.set_cache_path(caches[0])  # the run replays the first's
+    return out
+
+
+def engine_rank(rank, device, trees, tcfgs, scenarios, caches=None):
     """The continuous engine on a (data=2, model=2) mesh: for each
     scenario (name, weights key, Engine kwargs, prompts, new tokens),
     tokens by request id, the preemptions, the exec plans' keys and
-    shard tags; then the refusals (the recurrent one reads its config
-    alone, before any weight)."""
+    shard tags; the 'tuned' scenario (``shard_pipeline=0``) also its
+    tuner round trip on the cache files ``caches``
+    (:func:`_tuner_round_trip`); then the refusals (the recurrent one
+    reads its config alone, before any weight)."""
     from repro_torch import convert, faults
     from repro_torch.serving import Engine, Request
 
@@ -150,6 +184,10 @@ def engine_rank(rank, device, trees, tcfgs, scenarios):
                 off = pkey.rsplit("|sh", 1)[0] + "|sh-"
                 dispatch.cache().put(off, dispatch.ExecPlan(
                     "msgemm_torch"), persist=False)
+        tuner = None
+        if name == "tuned":
+            tuner = _tuner_round_trip(models[key], tcfgs[key], mesh, kw,
+                                      caches)
         eng = Engine(models[key], tcfgs[key], mesh=mesh, **kw)
         if name == "replan" and rank == 0:
             # NaN logits on the leader alone: its guard replans, and the
@@ -162,23 +200,24 @@ def engine_rank(rank, device, trees, tcfgs, scenarios):
         finally:
             faults.disarm()
             dispatch.clear_quarantine()
+            if tuner is not None:
+                dispatch.set_cache_path(None)
         out[name] = dict(
             tokens={rid: s.generated for rid, s in res.items()},
             status={rid: s.status for rid, s in res.items()},
             replans=eng.num_replans,
             preemptions=eng.scheduler.num_preemptions,
-            plans={k: (p.backend, None if p.shard is None
-                       else p.shard.tag())
-                   for k, p in eng.exec_plans.items()},
-            leader=eng.is_leader)
+            plans=_plans(eng), leader=eng.is_leader,
+            resident=sum(b.numel() * b.element_size()
+                         for b in eng.params.buffers()), tuner=tuner)
     refusals = {}
     for what, fn in (
             ("cuda_graph", lambda: Engine(models["msgemm"],
                                           tcfgs["msgemm"], mesh=mesh,
                                           cuda_graph=True)),
-            ("default_rules", lambda: Engine(models["msgemm"],
+            ("unknown_rules", lambda: Engine(models["msgemm"],
                                              tcfgs["msgemm"], mesh=mesh,
-                                             mesh_rules="default")),
+                                             mesh_rules="fsdp")),
             ("recurrent", lambda: Engine(models["msgemm"],
                                          tcfgs["recurrent"], mesh=mesh))):
         try:
@@ -271,11 +310,17 @@ def static_rank(rank, device, cases, new, shape, axes):
     """Static ``generate`` of each case {name: (numpy tree, port cfg,
     numpy batch)} on one device and on a ``shape`` / ``axes`` mesh (this
     rank's ``shard_params`` copy): tokens and every step's logits of
-    both, and the mesh run's collectives."""
+    both, and the mesh run's collectives.  Then each case again on a
+    (data=2) mesh of the first two ranks under the 'default' rules (the
+    weights stored cut over 'data', the rows split): its tokens, its
+    steps' logits (this rank's rows, from ``default_row``), its
+    collectives and this rank's resident weight bytes under 'default'
+    and under 'serve'."""
     from repro_torch import convert
     from repro_torch.runtime import serve as SV
 
     mesh = make_mesh(shape, axes)
+    data = make_mesh((2,), ("data",))
     out = {}
     for name, (tree, tcfg, batch) in cases.items():
         model = convert.params_from_jax(tree, tcfg, device="cpu")
@@ -290,25 +335,75 @@ def static_rank(rank, device, cases, new, shape, axes):
         out[name] = dict(single=single, sharded=sharded,
                          single_logits=one, sharded_logits=many,
                          collectives=dict(coll.counts))
+        fsdp, steps = SV.shard_params(model, tcfg, data, "default"), []
+        coll.reset_counts()
+        tokens = SV.generate(fsdp, tcfg, b, max_new_tokens=new, mesh=data,
+                             rules="default", step_logits=steps)
+        out[name].update(
+            default=tokens, default_logits=steps,
+            default_row=sharding.coord(data, "data") * steps[0].shape[0],
+            default_collectives=dict(coll.counts),
+            resident={rules: sum(t.numel() * t.element_size()
+                                 for t in SV.shard_params(
+                                     model, tcfg, data, rules).buffers())
+                      for rules in ("default", "serve")})
+    out["fsdp_table"] = _fsdp_table_paths(data)
     return out
 
 
-def serve_cell_rank(rank, device, cfg, shapes, mesh_shape, axes, seed):
+def _fsdp_table_paths(mesh) -> dict:
+    """The embedding lookup and the tied head from a table stored cut over
+    'data' (``transformer._embed_fsdp``, ``_tied_head_fsdp``), both of
+    their routes (the activations gathered, or the table's columns),
+    against one device's on this rank's rows: {route: (got, want)}."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import transformer as TT
+
+    cfg = SimpleNamespace(d_model=8, embed_scale=True)
+    g = torch.Generator().manual_seed(3)
+    c = sharding.coord(mesh, "data")
+    out = {}
+    with sharding.use(mesh, "default"), sharding.split_rows("data"):
+        for route, vocab in (("activations", 64), ("table", 6)):
+            table = torch.randn((vocab, 8), generator=g)
+            tokens = torch.randint(0, vocab, (4, 5), generator=g)
+            mine = sharding.local_slice(tokens, ("data",), mesh)
+            block = table[:, c * 4:(c + 1) * 4].contiguous()
+            out[f"embed-{route}"] = (TT._embed_fsdp(block, cfg, mine, None),
+                                     TT._embed(table, cfg, mine, None))
+        table = torch.randn((6, 8), generator=g)
+        block = table[:, c * 4:(c + 1) * 4].contiguous()
+        for route, positions in (("partial", 1), ("table", 3)):
+            x = torch.randn((4, positions, 8), generator=g)
+            mine = sharding.local_slice(x, ("data",), mesh)
+            out[f"head-{route}"] = (TT._tied_head_fsdp(mine, block),
+                                    TT._tied_head(mine, table))
+    return out
+
+
+def serve_cell_rank(rank, device, cfg, shapes, mesh_shape, axes, seed,
+                    rules=("default", "serve")):
     """A real step of each dry-run serve cell ``shapes`` on this rank of a
-    ``mesh_shape`` / ``axes`` mesh: the model drawn from ``seed`` (whole,
-    then cut by ``shard_params``), the rank's inputs built as the dry run
-    builds them (``launch.dryrun.serve_inputs``, random tokens, a decode
-    at position ``seq_len - 1`` over a zero cache).  Returns each cell's
-    collectives (count and bytes by kind) and argument bytes."""
+    ``mesh_shape`` / ``axes`` mesh under each of ``rules``: the model
+    drawn from ``seed`` (whole, then cut by ``shard_params``), the rank's
+    inputs built as the dry run builds them (``launch.dryrun.
+    serve_inputs``, random tokens, a decode at position ``seq_len - 1``
+    over a zero cache).  Returns {rules: {cell: its collectives (count
+    and bytes by kind) and argument bytes}}."""
+    mesh = make_mesh(mesh_shape, axes)
+    return {r: _serve_cells(cfg, shapes, mesh, seed, r) for r in rules}
+
+
+def _serve_cells(cfg, shapes, mesh, seed, rules):
     from repro_torch.launch import dryrun
     from repro_torch.models import transformer
     from repro_torch.runtime import serve as SV
 
-    mesh = make_mesh(mesh_shape, axes)
     whole = transformer.init_params(
         cfg, generator=torch.Generator().manual_seed(seed), device="cpu",
         quant=cfg.quant)
-    params = SV.shard_params(whole, cfg, mesh, dryrun.SERVE_RULES)
+    params = SV.shard_params(whole, cfg, mesh, rules)
     g = torch.Generator().manual_seed(seed + 1)
     out = {}
     for shape in shapes:
@@ -320,9 +415,11 @@ def serve_cell_rank(rank, device, cfg, shapes, mesh_shape, axes, seed):
                 return torch.full(dims, seq - 1, dtype=dtype)
             return torch.zeros(dims, dtype=dtype)
 
-        inputs, row = dryrun.serve_inputs(cfg, shape, mesh, make=make)
+        inputs, row = dryrun.serve_inputs(cfg, shape, mesh, rules,
+                                          make=make)
         coll.reset_counts()
-        dryrun.serve_step(params, cfg, shape.kind, inputs, mesh, row)
+        dryrun.serve_step(params, cfg, shape.kind, inputs, mesh, row,
+                          rules)
         out[shape.name] = dict(
             collectives={k: {"count": coll.counts[k],
                              "bytes": coll.nbytes[k]}

@@ -67,3 +67,21 @@ def check(want, ranks, arch):
         for a, b in zip(got["sharded_logits"], got["single_logits"]):
             assert float((a - b).abs().max()) <= LOGIT_TOL
         assert got["collectives"].get("all_reduce", 0) > 0
+
+
+def check_default(want, ranks, arch):
+    """The (data=2) run under the 'default' rules: every rank's tokens
+    equal the reference's, each step's logits (a rank's rows) are within
+    :data:`LOGIT_TOL` of the single device's same rows, the blocks
+    gathered their weights over 'data' every step, and a rank holds
+    fewer weight bytes than under 'serve'."""
+    for r in ranks:
+        got = r[arch]
+        assert got["default"].tolist() == want.tolist()
+        assert len(got["default_logits"]) == NEW
+        row = got["default_row"]
+        for a, b in zip(got["default_logits"], got["single_logits"]):
+            b = b[row:row + a.shape[0]]
+            assert float((a - b).abs().max()) <= LOGIT_TOL
+        assert got["default_collectives"]["fsdp_gather"] > 0
+        assert got["resident"]["default"] < got["resident"]["serve"]
