@@ -4876,11 +4876,17 @@ def phase_mesh_kernels():
     print(f"[mesh-kernels] {len(cases)} sharded cases held; whole (no "
           f"aligned split): {', '.join(whole)}", flush=True)
     # the expert stack a rank holds where 'model' splits the experts:
-    # qwen2-moe's up and down at E/2 = 30
-    experts = [expert_case(f"qwen2-moe-{name}-E30", 30, m, k, 16, "none",
-                           seed=700 + i)
-               for i, (name, m, k) in enumerate((("up", 1408, 2048),
-                                                 ("down", 2048, 1408)))]
+    # qwen2-moe's up and down at E/2 = 30; then the stacks the 'default'
+    # rules keep cut over 'data' along their out dim (the tokens move to
+    # them), at the shapes param_specs gives a rank, with the 16 slots of
+    # a decode step that every 'data' rank's tokens fill
+    specs = [(f"qwen2-moe-{name}-E30", (30, m, k))
+             for name, m, k in (("up", 1408, 2048), ("down", 2048, 1408))]
+    for mesh_name, stacks in moe_shard_shapes().items():
+        specs += [(f"qwen2-moe-{name}-{mesh_name}", shape)
+                  for name, shape in stacks.items()]
+    experts = [expert_case(name, E, m, k, 16, "none", seed=700 + i)
+               for i, (name, (E, m, k)) in enumerate(specs)]
     for r in experts:
         print(f"[mesh-kernels experts] {r['name']} E={r['experts']} "
               f"m={r['m']} k={r['k']} b={r['b']}: kernel {r['ms']:.4f} ms, "
@@ -4888,6 +4894,37 @@ def phase_mesh_kernels():
               f"kernel vs plain {r['max_abs_err']:.3g} (exact inputs "
               f"{r['exact_max_abs_err']:.3g})", flush=True)
     return dict(cases=cases, whole=whole, experts=experts)
+
+
+# the meshes qwen2-moe is served on under the 'default' rules: its expert
+# stacks' out dim takes 'data' on both (no 'model' axis; 'ep' on model=2)
+MESH_MOE_FSDP = (((2,), ("data",)), ((2, 2), ("data", "model")))
+
+
+def mesh_name(shape, axes) -> str:
+    return ",".join(f"{a}={n}" for a, n in zip(axes, shape))
+
+
+def moe_shard_shapes() -> dict:
+    """{mesh: {'up/gate' | 'down': (E, m, k)}}: the block of qwen2-moe's
+    dense expert stacks a rank holds under the 'default' rules on each
+    mesh of ``MESH_MOE_FSDP`` (``sharding.param_specs``, the out dim cut
+    over 'data', the experts over 'model')."""
+    from repro_torch.configs.qwen2_moe import CONFIG
+    from repro_torch.distributed import sharding
+
+    E, d, f = CONFIG.num_experts, CONFIG.d_model, CONFIG.moe_d_ff
+    whole = {"blocks.0.moe.experts.up.w": (E, f, d),
+             "blocks.0.moe.experts.down.w": (E, d, f)}
+    out = {}
+    for shape, axes in MESH_MOE_FSDP:
+        mesh = ShapeMesh(**dict(zip(axes, shape)))
+        specs = sharding.param_specs(whole, mesh, "default")
+        local = {n.split(".")[-2]: sharding.local_shape(s, specs[n], mesh)
+                 for n, s in whole.items()}
+        out[mesh_name(shape, axes)] = {"up/gate": local["up"],
+                                       "down": local["down"]}
+    return out
 
 
 def mesh_reference():
@@ -4954,39 +4991,34 @@ def mesh_collectives(device):
 
 
 def mesh_rank(rank, device, seed):
-    """One rank of the two-rank engine (``launch.mesh.run_ranks``): full
-    gemma-2b with msgemm weights from ``seed`` on ``device``, sharded
-    over a model=2 mesh, serving the main phase's stream eagerly.  Every
-    kernel's launches and the collectives are counted over the run
-    alone."""
-    import gc
-
+    """One rank of the two-rank engine (``launch.mesh.run_ranks``): its
+    copy of full gemma-2b with msgemm weights from ``seed``, drawn on
+    ``device`` a block at a time for a model=2 mesh
+    (``runtime.serve.init_shard``), serving the main phase's stream
+    eagerly.  Every kernel's launches and the collectives are counted
+    over the run alone."""
     import torch
 
     from repro_torch.configs.gemma_2b import CONFIG
     from repro_torch.core.spec import QuantSpec
     from repro_torch.device import generator
     from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import transformer
+    from repro_torch.runtime import serve as SV
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = QuantSpec(mode="msgemm", d=3, scale_block=36)
     t0 = time.perf_counter()
-    model = transformer.init_params(CONFIG, generator=generator(seed, device),
-                                    device=device, quant=spec)
-    cfg = CONFIG.replace(quant=spec)
     mesh = make_mesh((2,), ("model",))
-    from repro_torch.distributed import sharding
-
+    model = SV.init_shard(CONFIG, mesh, generator=generator(seed, device),
+                          device=device, quant=spec)
+    cfg = CONFIG.replace(quant=spec)
     with sharding.use(mesh, "serve"):
         collectives = mesh_collectives(device)
     engine = make_engine(model, cfg, mesh=mesh, cuda_graph=False)
-    del model  # the engine keeps this rank's shards
-    gc.collect()
     torch.cuda.synchronize(device)
-    torch.cuda.empty_cache()
     build_s = time.perf_counter() - t0
     n_plans = len(engine.exec_plans)
     n_sharded = sum(p.shard is not None for p in engine.exec_plans.values())
@@ -5171,11 +5203,12 @@ def moe_mesh_cfg(layers=MESH_MOE_LAYERS):
 
 
 def mesh_moe_rank(rank, device, seed):
-    """One rank of the two-rank MoE engine: full-width qwen2-moe at
-    ``MESH_MOE_LAYERS`` layers with msgemm weights from ``seed`` on
-    ``device``, sharded over a model=2 mesh (expert-parallel), serving
-    the main phase's stream eagerly; launches, collectives and the
-    routed-slot counters over the run alone."""
+    """One rank of the two-rank MoE engine: its copy of full-width
+    qwen2-moe at ``MESH_MOE_LAYERS`` layers with msgemm weights from
+    ``seed``, drawn on ``device`` a block at a time for a model=2 mesh
+    (expert-parallel), serving the main phase's stream eagerly;
+    launches, collectives and the routed-slot counters over the run
+    alone."""
     import torch
 
     from repro_torch.device import generator
@@ -5183,22 +5216,16 @@ def mesh_moe_rank(rank, device, seed):
     from repro_torch.kernels.ops import KERNELS
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe as M
-    from repro_torch.models import transformer
+    from repro_torch.runtime import serve as SV
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg0, spec = moe_mesh_cfg()
     t0 = time.perf_counter()
-    model = transformer.init_params(cfg0, generator=generator(seed, device),
-                                    device=device, quant=spec)
-    cfg = cfg0.replace(quant=spec)
     mesh = make_mesh((2,), ("model",))
-    engine = make_engine(model, cfg, mesh=mesh, cuda_graph=False)
-    # the engine's copy holds this rank's experts and shares the
-    # routed-slot counters
-    counted = engine.params
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    counted = SV.init_shard(cfg0, mesh, generator=generator(seed, device),
+                            device=device, quant=spec)
+    cfg = cfg0.replace(quant=spec)
+    engine = make_engine(counted, cfg, mesh=mesh, cuda_graph=False)
     build_s = time.perf_counter() - t0
     for mod in KERNELS.values():
         mod.launches = 0
@@ -5241,7 +5268,7 @@ def phase_mesh_moe(card, devices=("cuda:0", "cuda:0"), tag="mesh-moe"):
                                     device="cuda", quant=spec)
     cfg = cfg0.replace(quant=spec)
     ref = serve(f"{tag}-ref", model, cfg, keep_logits=True)
-    gaps = top2_gaps(ref.pop("logits"))
+    gaps = ref["top2_rel"] = top2_gaps(ref.pop("logits"))
     ref.pop("reqs")
     del model
     gc.collect()
@@ -5294,6 +5321,144 @@ def phase_mesh_moe(card, devices=("cuda:0", "cuda:0"), tag="mesh-moe"):
           f"{wall_s:.1f}s", flush=True)
     return dict(ranks=ranks, ref=ref, near_tie_steps=ties, wall_s=wall_s,
                 collectives_a_step=per_step)
+
+
+def mesh_moe_fsdp_rank(rank, device, seed, shape, axes):
+    """One rank of qwen2-moe (``moe_mesh_cfg``, the mesh-moe phase's
+    weights) under the 'default' rules on a ``shape`` / ``axes`` mesh: its
+    copy drawn a block at a time (``runtime.serve.init_shard``), the
+    expert stacks kept cut over 'data' along their out dim, serving the
+    main stream eagerly.  Returns the run (``_engine_run``: tokens,
+    launches, collectives by kind and bytes, step ms, peak), the build's
+    bytes and peak, ``dropped_frac``, each stack's shape a rank and its
+    ``data_out``, the leaves a step gathers (the blocks' and the head's
+    ``fsdp`` records: their bytes a step, and any of them a stack's)."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import serve as SV
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg0, spec = moe_mesh_cfg()
+    mesh = make_mesh(shape, axes)
+    torch.cuda.reset_peak_memory_stats(device)
+    model = SV.init_shard(cfg0, mesh, "default", generator=generator(
+        seed, device), device=device, quant=spec)
+    torch.cuda.synchronize(device)
+    out = dict(rank=rank, built_bytes=torch.cuda.memory_allocated(device),
+               build_peak_bytes=torch.cuda.max_memory_allocated(device))
+    cfg = cfg0.replace(quant=spec)
+    n = dict(zip(axes, shape))["data"]
+    gathered = [f"{p}.{k}" for p, mod in model.named_modules()
+                for k in getattr(mod, "fsdp", {}) if p]
+    ex = model.blocks[0].moe.experts
+    out.update(
+        gathered_a_step=n * _resident(model, gathered),
+        stacks_gathered=[k for k in gathered if sharding.is_stack(k)],
+        data_out=[m.data_out for m in model.modules()
+                  if isinstance(m, M.Experts)],
+        stack_rows={name: tuple(getattr(ex, name).scales.shape[:2])
+                    for name in ("up", "gate", "down")},
+        resident=_resident(model))
+    engine = make_engine(model, cfg, mesh=mesh, cuda_graph=False,
+                         mesh_rules="default")
+    M.reset_route_counts(model)  # the build's idle steps route too
+    out.update(_engine_run(engine, cfg, device))
+    out["dropped_frac"] = M.dropped_frac(model)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_moe_fsdp(card, ref):
+    """qwen2-moe (2 layers, msgemm dense linears, int4 expert stacks, f32
+    pool) served under the 'default' rules by ranks sharing ``cuda:0``
+    over host-staged gloo, on data=2 (two ranks) and on (data=2,
+    model=2) (four ranks, expert-parallel): each rank draws only its
+    copy, and its expert stacks stay cut over 'data' along their out dim
+    while the tokens move to them (``models.moe``).  Gates, each run:
+    tokens == the single device's (``ref``, the mesh-moe phase's, under
+    the near-tie rule), ``dropped_frac`` equal; a rank's launches a step
+    the single device's (an int4 launch a stack and MoE layer, msGeMM as
+    one device); no stack leaf among the leaves gathered for a step (the
+    ``fsdp`` records), each stack held cut (``data_out``), and the
+    ``fsdp_gather`` bytes of the run exactly those records' over its
+    steps; the token collectives issued.  Prints each run's token
+    collectives by kind and bytes a step, the step ms, the build and
+    run peaks."""
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg, _ = moe_mesh_cfg()
+    ms, i4 = moe_launches(cfg)
+    moved = ("expert_tokens", "expert_hidden", "expert_return")
+    out = {}
+    for shape, axes in MESH_MOE_FSDP:
+        name = mesh_name(shape, axes)
+        tag = f"mesh-fsdp qwen2-moe {name}"
+        n = math.prod(shape)
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_moe_fsdp_rank, n, 0, shape, axes,
+                          devices=["cuda:0"] * n, timeout=900)
+        wall_s = time.perf_counter() - t0
+        lead = ranks[0]
+        ties = _near_ties(tag, ref, lead["tokens"], lead["status"])
+        for r in ranks:
+            check(r["tokens"] == lead["tokens"],
+                  f"[{tag}] rank {r['rank']} returned other tokens")
+            check(r["dropped_frac"] == ref["dropped_frac"],
+                  f"[{tag}] rank {r['rank']} dropped_frac "
+                  f"{r['dropped_frac']} != the single device's "
+                  f"{ref['dropped_frac']}")
+            want = dict(msgemm=ms * r["steps"], int4_matmul=i4 * r["steps"],
+                        paged_attention=0, flash_attention=0)
+            check(r["launches"] == want,
+                  f"[{tag}] rank {r['rank']} launches {r['launches']} != "
+                  f"{want} over {r['steps']} steps")
+            check(not r["stacks_gathered"] and all(
+                d == ("up", "gate", "down") for d in r["data_out"]),
+                f"[{tag}] rank {r['rank']}: stacks gathered "
+                f"{r['stacks_gathered']}, held cut {r['data_out']}")
+            check(r["coll_bytes"].get("fsdp_gather", 0)
+                  == r["steps"] * r["gathered_a_step"],
+                  f"[{tag}] rank {r['rank']}: fsdp_gather "
+                  f"{r['coll_bytes'].get('fsdp_gather', 0)} bytes over "
+                  f"{r['steps']} steps, the records' "
+                  f"{r['gathered_a_step']} a step")
+            check(all(r["collectives"].get(k, 0) > 0 for k in moved),
+                  f"[{tag}] rank {r['rank']}: token collectives "
+                  f"{ {k: r['collectives'].get(k, 0) for k in moved} }")
+        steps = lead["steps"]
+        per_step = {k: (v / steps, lead["coll_bytes"][k] / steps)
+                    for k, v in sorted(lead["collectives"].items())}
+        for r in ranks:
+            print(f"[{tag}] rank {r['rank']} ({card}): stacks a rank "
+                  "(experts, rows) "
+                  + ", ".join(f"{k} {v}" for k, v in r["stack_rows"].items())
+                  + f", held cut {r['data_out'][0]}; resident "
+                  f"{r['resident'] / 2**30:.3f} GiB; built "
+                  f"{r['built_bytes'] / 2**30:.3f} GiB, build peak "
+                  f"{r['build_peak_bytes'] / 2**30:.3f}, run peak "
+                  f"{r['peak_bytes'] / 2**30:.3f}; {r['steps']} steps at "
+                  f"{r['step_ms']:.2f} ms; launches {r['launches']}",
+                  flush=True)
+        print(f"[{tag}] {n} ranks on one card ({card}): a step "
+              + ", ".join(f"{k} {c:.2f} ({b / 2**20:.3f} MiB)"
+                          for k, (c, b) in per_step.items())
+              + f"; fsdp_gather = the blocks' and head's records "
+              f"({lead['gathered_a_step'] / 2**20:.2f} MiB a step, no "
+              f"stack); dropped_frac {lead['dropped_frac']:.6f} (== single "
+              f"device); tokens == the single device's on "
+              f"{6 - len(ties)}/6 requests, near-tie steps {ties}; "
+              f"{steps} steps at {lead['step_ms']:.2f} ms (single device "
+              f"graph route {ref['step_ms']:.2f}); phase wall "
+              f"{wall_s:.1f}s", flush=True)
+        out[name] = dict(ranks=ranks, near_tie_steps=ties, wall_s=wall_s,
+                         collectives_a_step=per_step)
+    return out
 
 
 def mesh_static_cfg(arch, layers, kv_heads=None):
@@ -5552,14 +5717,21 @@ def mesh_tune_rows(cfg) -> dict:
             for kind, b in (("decode", 4), ("prefill", 8))}
 
 
-def mesh_tune_model(device, seed=0):
-    """(model, cfg) of :func:`mesh_tune_cfg` from ``seed`` on ``device``."""
+def mesh_tune_model(device, seed=0, mesh=None, rules="serve"):
+    """(model, cfg) of :func:`mesh_tune_cfg` from ``seed`` on ``device``:
+    the whole model, or with ``mesh`` this rank's copy for ``rules``
+    (``runtime.serve.init_shard``: no whole model on the device)."""
     from repro_torch.device import generator
     from repro_torch.models import transformer
+    from repro_torch.runtime import serve as SV
 
     cfg = mesh_tune_cfg()
-    model = transformer.init_params(cfg, generator=generator(seed, device),
-                                    device=device, quant=cfg.quant)
+    if mesh is None:
+        model = transformer.init_params(cfg, generator=generator(
+            seed, device), device=device, quant=cfg.quant)
+    else:
+        model = SV.init_shard(cfg, mesh, rules, generator=generator(
+            seed, device), device=device, quant=cfg.quant)
     return model, cfg
 
 
@@ -5627,8 +5799,8 @@ def mesh_tune_rank(rank, device, seed, paths):
     from repro_torch.launch.mesh import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    model, cfg = mesh_tune_model(device, seed)
     mesh = make_mesh((2,), ("model",))
+    model, cfg = mesh_tune_model(device, seed, mesh)
 
     def build(cache, **kw):
         at.num_timed_candidates = 0
@@ -5845,7 +6017,9 @@ def mesh_fsdp_rank(rank, device, seed):
     """One rank of FSDP weight storage on a data=2 mesh:
     :func:`mesh_tune_model` served under 'default' (each rank stores its
     'data' block of every leaf whose model dim takes 'data') and then
-    under 'serve', the rows split over 'data'; then whisper's static
+    under 'serve', the rows split over 'data', each from this rank's copy
+    drawn for those rules (no whole model on the card; its bytes after
+    the build and the build's peak kept); then whisper's static
     engine (2 + 2 layers, 16 frames, batch 4, f32) under 'default'
     against one device's ``generate`` of the same weights (every rank
     runs both; its rows of the step logits)."""
@@ -5860,25 +6034,32 @@ def mesh_fsdp_rank(rank, device, seed):
     from repro_torch.runtime import serve as SV
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    model, cfg = mesh_tune_model(device, seed)
     mesh = make_mesh((2,), ("data",))
     out = dict(rank=rank, device=str(device))
     cut = None
     for rules in ("default", "serve"):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        model, cfg = mesh_tune_model(device, seed, mesh, rules)
+        torch.cuda.synchronize(device)
+        r = dict(built_bytes=torch.cuda.memory_allocated(device),
+                 build_peak_bytes=torch.cuda.max_memory_allocated(device))
         eng = make_engine(model, cfg, mesh=mesh, cuda_graph=False,
                           mesh_rules=rules)
+        check(eng.params is model, f"[mesh-fsdp] rank {rank}: the engine "
+              "cut another copy of its rank's copy")
+        del model
         if cut is None:
             cut = {(f"{p}." if p else "") + k
                    for p, mod in eng.params.named_modules()
                    for k in getattr(mod, "fsdp", {})}
-        r = dict(resident=_resident(eng.params),
+        r.update(resident=_resident(eng.params),
                  resident_cut=_resident(eng.params, cut), cut_leaves=len(cut))
         r.update(_engine_run(eng, cfg, device))
         out[rules] = r
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    del model
     wcfg, spec = mesh_static_cfg("whisper_medium", 2)
     wmodel = transformer.init_params(wcfg, generator=generator(seed, device),
                                      device=device, quant=spec)
@@ -5931,9 +6112,11 @@ def phase_mesh_fsdp(card, ref):
     run's, over the same steps; every leaf the rules cut holds half its
     'serve' bytes; whisper's logits within the static gate of
     ``[mesh-static ...]`` and its tokens equal one device's but at a
-    near-tie.  Prints each rank's resident weight bytes under both
-    rules, the gathers a step by kind and bytes, the step ms and the
-    peak GiB."""
+    near-tie; the 'default' run's peak at most the 'serve' run's on each
+    rank (each rank draws only its copy, so the whole model is never on
+    the card).  Prints each rank's resident weight bytes under both
+    rules, the gathers a step by kind and bytes, the step ms, and each
+    rule's build and run peaks."""
     from repro_torch.launch.mesh import run_ranks
 
     t0 = time.perf_counter()
@@ -5960,6 +6143,10 @@ def phase_mesh_fsdp(card, ref):
               f"[mesh-fsdp] rank {r['rank']}: the {d['cut_leaves']} cut "
               f"leaves hold {d['resident_cut']} bytes, 'serve' "
               f"{sv['resident_cut']}")
+        check(d["peak_bytes"] <= sv["peak_bytes"],
+              f"[mesh-fsdp] rank {r['rank']}: the 'default' run's peak "
+              f"{d['peak_bytes'] / 2**30:.3f} GiB is above the 'serve' "
+              f"run's {sv['peak_bytes'] / 2**30:.3f}")
         per_step = {k: (v / d["steps"], d["coll_bytes"][k] / d["steps"])
                     for k, v in d["collectives"].items()}
         print(f"[mesh-fsdp] rank {r['rank']} ({card}): resident weights "
@@ -5971,8 +6158,13 @@ def phase_mesh_fsdp(card, ref):
               + ", ".join(f"{k} {c:.2f} ({b / 2**20:.2f} MiB)"
                           for k, (c, b) in sorted(per_step.items()))
               + f"; {d['steps']} steps at {d['step_ms']:.2f} ms ('serve' "
-              f"{sv['step_ms']:.2f}); peak {d['peak_bytes'] / 2**30:.2f} "
-              f"GiB ('serve' {sv['peak_bytes'] / 2**30:.2f}); launches "
+              f"{sv['step_ms']:.2f}); built "
+              f"{d['built_bytes'] / 2**30:.3f} GiB, build peak "
+              f"{d['build_peak_bytes'] / 2**30:.3f}, run peak "
+              f"{d['peak_bytes'] / 2**30:.3f} ('serve' "
+              f"{sv['built_bytes'] / 2**30:.3f}, "
+              f"{sv['build_peak_bytes'] / 2**30:.3f}, "
+              f"{sv['peak_bytes'] / 2**30:.3f}); launches "
               f"{d['launches']}", flush=True)
     w = lead["whisper"]
     check(w["finite"], "[mesh-fsdp whisper] non-finite logits")
@@ -6009,22 +6201,29 @@ def phase_mesh_fsdp(card, ref):
     return dict(ranks=ranks, near_tie_steps=ties, wall_s=wall_s)
 
 
-def phase_mesh(card, ref=None, families=False):
+def phase_mesh(card, ref=None, only=False):
     """The mesh phases: the in-process kernel check, the two-rank engine
     against ``ref`` (the main phase's run with its top-two gaps; built
-    here when None), the layout tuner and FSDP storage, the two-rank MoE
-    engine and static engine, each on two cards joined by NCCL too where
-    two are visible, the calibration of expert stacks, training on a
-    mesh (every family's too with ``families``: ``--only mesh``)."""
+    here when None), FSDP storage, the two-rank MoE engine, qwen2-moe
+    under the 'default' rules (tokens moved to the expert stacks), each
+    on two cards joined by NCCL too where two are visible, training on a
+    mesh.  With ``only`` (``--only mesh``) also the layout tuner, the
+    static engine, the calibration of expert stacks and every family's
+    training (moved there from the whole run to pay for newer phases)."""
     import torch
 
     out = {"kernels": phase("mesh-kernels", phase_mesh_kernels)}
     if ref is None:
         ref = phase("mesh-ref", mesh_reference)
     out["engine"] = phase("mesh", phase_mesh_engine, ref, card)
-    out["tune"] = phase("mesh-tune", phase_mesh_tune, card)
-    out["fsdp"] = phase("mesh-fsdp", phase_mesh_fsdp, card,
-                        out["tune"]["ref"])
+    if only:
+        out["tune"] = phase("mesh-tune", phase_mesh_tune, card)
+        tune_ref = out["tune"]["ref"]
+    else:
+        print("[mesh-tune] runs under --only mesh (moved there to pay for "
+              "[mesh-fsdp qwen2-moe ...])", flush=True)
+        tune_ref = phase("mesh-tune-ref", mesh_tune_reference)
+    out["fsdp"] = phase("mesh-fsdp", phase_mesh_fsdp, card, tune_ref)
     if torch.cuda.device_count() >= 2:
         out["engine_nccl"] = phase("mesh-nccl", phase_mesh_engine, ref,
                                    card, ("cuda:0", "cuda:1"), "mesh-nccl")
@@ -6032,16 +6231,24 @@ def phase_mesh(card, ref=None, families=False):
         print("[mesh-nccl] skipped: one card (two ranks on two cards, "
               "joined by NCCL, run where two are visible)", flush=True)
     out["moe"] = phase("mesh-moe", phase_mesh_moe, card)
-    out["static"] = phase("mesh-static", phase_mesh_static, card)
+    out["moe_fsdp"] = phase("mesh-fsdp-moe", phase_mesh_moe_fsdp, card,
+                            out["moe"]["ref"])
+    two = ("cuda:0", "cuda:1")
     if torch.cuda.device_count() >= 2:
-        two = ("cuda:0", "cuda:1")
         out["moe_nccl"] = phase("mesh-moe-nccl", phase_mesh_moe, card, two,
                                 "mesh-moe-nccl")
-        out["static_nccl"] = phase("mesh-static-nccl", phase_mesh_static,
-                                   card, two, "mesh-static-nccl")
-    out["calib_moe"] = phase("calib-moe", phase_calib_moe)
+    if only:
+        out["static"] = phase("mesh-static", phase_mesh_static, card)
+        if torch.cuda.device_count() >= 2:
+            out["static_nccl"] = phase("mesh-static-nccl",
+                                       phase_mesh_static, card, two,
+                                       "mesh-static-nccl")
+        out["calib_moe"] = phase("calib-moe", phase_calib_moe)
+    else:
+        print("[mesh-static] and [calib-moe] run under --only mesh (moved "
+              "there to pay for [mesh-fsdp qwen2-moe ...])", flush=True)
     out["train_mesh"] = phase("train-mesh", phase_train_mesh, card)
-    if families:
+    if only:
         out["train_families"] = phase("train-mesh-families",
                                       phase_train_families, card)
     else:
@@ -6713,7 +6920,7 @@ def main() -> int:
         if args.only == "train":
             res = phase(args.only, phase_train)
         else:
-            res = phase_mesh(card, families=True)
+            res = phase_mesh(card, only=True)
             res["dryrun"] = phase("dryrun", phase_dryrun)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -6793,6 +7000,7 @@ def main() -> int:
             "kernel", "torch")))] + [recurrent["jamba"]] + [
         r for key in ("moe", "moe_nccl") for r in mesh.get(key, {}).get(
             "ranks", [])] + [
+        r for run in mesh["moe_fsdp"].values() for r in run["ranks"]] + [
         r["jamba_v01"] for key in ("static", "static_nccl")
         for r in mesh.get(key, {}).get("ranks", [])]
     # the static mesh runs of the families without experts
@@ -6828,8 +7036,10 @@ def main() -> int:
                                    "phi3")]
             + [train["serve"]["engine"]]
             + [train["serve"]["kv8"][r] for r in ("kernel", "torch")]
-            + [mesh["calib_moe"]["serve"]] + mesh["engine"]["ranks"]
-            + [mesh["tune"]["ref"]] + mesh["tune"]["ranks"]
+            + [mesh[k]["serve"] for k in ("calib_moe",) if k in mesh]
+            + mesh["engine"]["ranks"]
+            + ([mesh["tune"]["ref"]] + mesh["tune"]["ranks"]
+               if "tune" in mesh else [])
             + [r[k] for r in mesh["fsdp"]["ranks"]
                for k in ("default", "serve", "whisper")]
             + mesh.get("engine_nccl", {}).get("ranks", []) + static_runs)

@@ -22,16 +22,20 @@ group uses.  Compute stays on the rank's device.
   point-to-point hops over the axis's group (``batch_isend_irecv``),
   with the reference's block-to-rank assignment: rank p of the axis ends
   with block p;
+* :func:`all_to_all` — block j of a tensor along one dim to rank j of
+  an axis, the blocks a rank receives concatenated along another dim
+  (the MoE's return of the experts' outputs to the tokens' ranks);
 * :func:`pmax` — the elementwise maximum over one mesh axis;
 * :func:`ad_all_gather`, :func:`ad_psum_scatter`, :func:`ad_psum`,
-  :func:`ad_identity` — the forms the train step differentiates through
-  (autograd functions): an all-gather whose backward reduce-scatters (or,
-  for a gather whose consumers run replicated, takes this rank's block),
-  a reduce-scatter whose backward all-gathers, a psum whose backward
-  passes the cotangent through (or, for ranks that each use a part of
-  the sum, psums it), and an identity whose backward psums
-  (the input of a column-parallel region, whose ranks each see a part
-  of its gradient);
+  :func:`ad_identity`, :func:`ad_all_to_all` — the forms the train step
+  differentiates through (autograd functions): an all-gather whose
+  backward reduce-scatters (or, for a gather whose consumers run
+  replicated, takes this rank's block), a reduce-scatter whose backward
+  all-gathers, a psum whose backward passes the cotangent through (or,
+  for ranks that each use a part of the sum, psums it), an identity
+  whose backward psums (the input of a column-parallel region, whose
+  ranks each see a part of its gradient), and an all-to-all whose
+  backward is the all-to-all with the two dims swapped;
 * :func:`int8_all_gather` — an FSDP gather in int8 (one scale a leaf,
   the pmax of the shards' max |x|), whose backward reduce-scatters the
   cotangent;
@@ -253,6 +257,37 @@ def all_gather(y: torch.Tensor, axis: str, *, dim: int = -1,
     return out
 
 
+def all_to_all(y: torch.Tensor, axis: str, *, split_dim: int,
+               concat_dim: int, mesh=None,
+               kind: str = "all_to_all") -> torch.Tensor:
+    """Block j of ``y`` along ``split_dim`` (which must divide by the axis
+    size N) sent to rank j of ``axis``; the N blocks this rank receives
+    concatenated along ``concat_dim`` in axis order.  Counted under
+    ``kind``, by the bytes of the result (the bytes sent too: every block
+    has one size)."""
+    mesh = _mesh(mesh)
+    n = _size(mesh, axis)
+    if n == 1:
+        return y
+    split_dim, concat_dim = split_dim % y.ndim, concat_dim % y.ndim
+    if y.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(y.shape)} "
+                         f"not divisible by axis {axis!r} size {n}")
+    group = mesh.get_group(axis)
+    with _timed(kind, y):
+        # the blocks one after another along dim 0, each contiguous
+        src = y.movedim(split_dim, 0)
+        h = _wire(src.reshape((n, src.shape[0] // n) + src.shape[1:]),
+                  group)
+        recv = torch.empty(h.shape, dtype=h.dtype, device=h.device,
+                           pin_memory=h.is_pinned())
+        dist.all_to_all_single(recv, h, group=group)
+        blocks = _back(recv, y.device).movedim(1, split_dim + 1)
+        out = torch.cat(blocks.unbind(0), dim=concat_dim)
+    _count(kind, out)
+    return out
+
+
 def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """``t`` overwritten in place with global rank ``src``'s (over
     ``group``, default the whole world); returns ``t``."""
@@ -401,21 +436,36 @@ def broadcast_object(obj, src: int = 0, group=None):
 # ---------------------------------------------------------------- autograd
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, dim, mesh, reduce_grad):
+    def forward(ctx, x, axis, dim, mesh, reduce_grad, kind):
         ctx.args = (axis, dim, mesh, reduce_grad)
-        return all_gather(x, axis, dim=dim, mesh=mesh)
+        return all_gather(x, axis, dim=dim, mesh=mesh, kind=kind)
 
     @staticmethod
     def backward(ctx, ct):
         axis, dim, mesh, reduce_grad = ctx.args
         if reduce_grad:
             return psum_scatter(ct, axis, dim=dim, mesh=mesh), \
-                None, None, None, None
+                None, None, None, None, None
         from repro_torch.distributed.sharding import coord
 
         size = ct.shape[dim] // _size(mesh, axis)
         return ct.narrow(dim, coord(mesh, axis) * size, size).contiguous(), \
-            None, None, None, None
+            None, None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim, mesh, kind):
+        ctx.args = (axis, split_dim, concat_dim, mesh, kind)
+        return all_to_all(x, axis, split_dim=split_dim,
+                          concat_dim=concat_dim, mesh=mesh, kind=kind)
+
+    @staticmethod
+    def backward(ctx, ct):
+        axis, split_dim, concat_dim, mesh, kind = ctx.args
+        return all_to_all(ct, axis, split_dim=concat_dim,
+                          concat_dim=split_dim, mesh=mesh, kind=kind), \
+            None, None, None, None, None
 
 
 class _PsumScatter(torch.autograd.Function):
@@ -453,16 +503,31 @@ class _Identity(torch.autograd.Function):
 
 
 def ad_all_gather(x: torch.Tensor, axis: str, *, dim: int, mesh=None,
-                  reduce_grad: bool = True) -> torch.Tensor:
-    """:func:`all_gather` of ``x`` along ``dim``, differentiable.  Its
-    backward reduce-scatters the cotangent (each rank's covers its own
-    rows or heads: the sum over the ranks is the gradient), or with
-    ``reduce_grad=False`` takes this rank's block of it (the consumers
-    ran replicated, so every rank holds the whole gradient)."""
+                  reduce_grad: bool = True,
+                  kind: str = "all_gather") -> torch.Tensor:
+    """:func:`all_gather` of ``x`` along ``dim`` (counted under ``kind``),
+    differentiable.  Its backward reduce-scatters the cotangent (each
+    rank's covers its own rows or heads: the sum over the ranks is the
+    gradient), or with ``reduce_grad=False`` takes this rank's block of
+    it (the consumers ran replicated, so every rank holds the whole
+    gradient)."""
     mesh = _mesh(mesh)
     if _size(mesh, axis) == 1:
         return x
-    return _AllGather.apply(x, axis, dim % x.ndim, mesh, reduce_grad)
+    return _AllGather.apply(x, axis, dim % x.ndim, mesh, reduce_grad, kind)
+
+
+def ad_all_to_all(x: torch.Tensor, axis: str, *, split_dim: int,
+                  concat_dim: int, mesh=None,
+                  kind: str = "all_to_all") -> torch.Tensor:
+    """:func:`all_to_all`, differentiable: the block of the cotangent that
+    each rank's block of the result came from goes back to that rank, an
+    all-to-all with ``split_dim`` and ``concat_dim`` swapped."""
+    mesh = _mesh(mesh)
+    if _size(mesh, axis) == 1:
+        return x
+    return _AllToAll.apply(x, axis, split_dim % x.ndim, concat_dim % x.ndim,
+                           mesh, kind)
 
 
 def ad_psum_scatter(x: torch.Tensor, axis: str, *, dim: int,

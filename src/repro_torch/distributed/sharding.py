@@ -35,6 +35,13 @@ weights FSDP-style (:func:`fsdp_store`): a rank keeps its 'data' block
 of every leaf whose model dim takes 'data', and a block's leaves are
 gathered back into the 'serve' layout for each step
 (:func:`gather_fsdp`).
+
+The expert stacks are the exception, in training and serving alike: a
+stack's 'data' dim is its out dim ('expert_out'), and the stack stays
+cut there.  The tokens move to the experts instead (``models.moe``, as
+the reference pins them), so no stack leaf is ever gathered over 'data';
+which projections are cut so is recorded as ``Experts.data_out``
+(:func:`record_stacks`).
 """
 
 from __future__ import annotations
@@ -699,6 +706,29 @@ def _cut(t: torch.Tensor, name: str, spec: tuple, mesh) -> torch.Tensor:
     return local_slice(t, spec, mesh).contiguous().clone()
 
 
+STACKS = ("up", "gate", "down")  # an Experts module's stacked linears
+
+
+def is_stack(name: str) -> bool:
+    """Whether the buffer ``name`` (dotted) is a leaf of an expert stack."""
+    parts = name.split(".")
+    return len(parts) >= 3 and parts[-3] == "experts" and \
+        parts[-2] in STACKS
+
+
+def record_stacks(module: torch.nn.Module, cut) -> None:
+    """Record on every ``Experts`` module under ``module`` (one with a
+    ``data_out`` attribute) which of its stacks are held cut over 'data'
+    along their out dim: those with a leaf among ``cut`` (buffer names
+    relative to ``module``)."""
+    for prefix, mod in module.named_modules():
+        if hasattr(mod, "data_out"):
+            head = f"{prefix}." if prefix else ""
+            mod.data_out = tuple(
+                n for n in STACKS
+                if any(k.startswith(f"{head}{n}.") for k in cut))
+
+
 def _owner(module: torch.nn.Module, name: str):
     """(the module holding buffer ``name``, its leaf name)."""
     path, _, leaf = name.rpartition(".")
@@ -718,6 +748,8 @@ def shard_model(model: torch.nn.Module, mesh, rules: str = "default"
         mod, leaf = _owner(model, name)
         mod._buffers[leaf] = _cut(mod._buffers[leaf], name, spec, mesh)
     model.shard_specs = specs
+    record_stacks(model, [n for n, s in specs.items()
+                          if is_stack(n) and _splits(s, "data", mesh)])
     for prefix, mod in model.named_modules():
         if prefix.rpartition(".")[0] in ("blocks", "encoder.blocks"):
             mod.shard_specs = {n[len(prefix) + 1:]: s
@@ -818,11 +850,19 @@ def _map_buffers(module: torch.nn.Module, fn, prefix: str = ""):
     return new
 
 
-def _gather_fsdp(t: torch.Tensor, spec: tuple, mesh, int8: bool):
+def _splits(spec: tuple, axis: str, mesh) -> bool:
+    """Whether ``spec`` cuts a dim over ``axis``, an axis of more than one
+    rank on ``mesh``."""
+    return axis in _spec_axes(spec) and compat.axes_of(mesh)[axis] > 1
+
+
+def _gather_fsdp(t: torch.Tensor, name: str, spec: tuple, mesh,
+                 int8: bool):
     from repro_torch.distributed import collectives as coll
 
     dim = coll.spec_dim(spec, "data")
-    if dim is None or compat.axes_of(mesh).get("data", 1) == 1:
+    if dim is None or compat.axes_of(mesh).get("data", 1) == 1 \
+            or is_stack(name):  # a stack stays cut: the tokens move
         return t
     if int8 and t.is_floating_point():
         return coll.int8_all_gather(t, mesh, spec, axis="data")
@@ -832,21 +872,22 @@ def _gather_fsdp(t: torch.Tensor, spec: tuple, mesh, int8: bool):
 def constrain_params(tree, *, int8_gather: bool = False, specs=None):
     """A param (sub)tree with its FSDP ('data'-sharded) dims gathered, at
     the top of a layer group (the reference pins the group to its storage
-    sharding there).  ``tree``: a module of a sharded model (its
-    ``shard_specs``, :func:`shard_model`) or a dict of tensors with their
-    ``specs``.  Each gathered leaf's gradient is reduce-scattered back to
-    this rank's block (``collectives.ad_all_gather``); with
-    ``int8_gather`` a float leaf crosses in int8
-    (``collectives.int8_all_gather``).  Without a mesh returns ``tree``
-    itself."""
+    sharding there), but for the expert stacks, which stay cut
+    (:func:`is_stack`: ``moe.moe_apply_tp`` moves the tokens to them).
+    ``tree``: a module of a sharded model (its ``shard_specs``,
+    :func:`shard_model`) or a dict of tensors with their ``specs``.  Each
+    gathered leaf's gradient is reduce-scattered back to this rank's
+    block (``collectives.ad_all_gather``); with ``int8_gather`` a float
+    leaf crosses in int8 (``collectives.int8_all_gather``).  Without a
+    mesh returns ``tree`` itself."""
     mesh = _CTX.mesh
     if mesh is None:
         return tree
     if isinstance(tree, torch.nn.Module):
         specs = tree.shard_specs if specs is None else specs
         return _map_buffers(tree, lambda n, t: _gather_fsdp(
-            t, specs[n], mesh, int8_gather))
-    return {n: _gather_fsdp(t, specs[n], mesh, int8_gather)
+            t, n, specs[n], mesh, int8_gather))
+    return {n: _gather_fsdp(t, n, specs[n], mesh, int8_gather)
             for n, t in tree.items()}
 
 
@@ -864,18 +905,40 @@ def fsdp_store(model: torch.nn.Module, specs: dict, mesh) -> dict:
     """Cut, in place, this rank's 'data' block of every leaf of ``model``
     (a serving copy, its leaves in the 'serve' layout) whose spec in
     ``specs`` (``param_specs(whole model, mesh, "default")``) puts 'data'
-    on a dim, each block a contiguous copy.  The cut is made on the leaf
-    as it is stored, so it keeps the packed layout whole: a packed
-    column is a msGeMM d-tuple or an int4 byte of two codes, and a scale
-    leaf is cut only where its rows are the model dim; 'data' never
-    takes a two-halves leaf's rows (``mamba_inner`` and ``xl_inner`` map
-    to 'model' alone).  A leaf whose stored dim does not divide stays
-    whole, the reference's divisibility rule; it is counted in
-    ``serve_fsdp_whole_leaves_total``.  The cut dims are recorded on the
-    modules that gather them (:func:`gather_fsdp`): ``fsdp`` ({relative
-    name: dim}) on each block, the encoder's too, and on ``lm_head``;
-    the table's own is ``model.fsdp["embedding"]``.  Returns {buffer
-    name: dim} of every cut leaf."""
+    on a dim (:func:`fsdp_cut`), and record the cut dims on the modules
+    that gather them (:func:`fsdp_record`): each block, the encoder's
+    too, and ``lm_head``; the table's own is ``model.fsdp["embedding"]``.
+    Returns {buffer name: dim} of every cut leaf."""
+    cut = fsdp_cut(model, specs, mesh)
+    if compat.axes_of(mesh).get(FSDP_AXIS, 1) == 1:
+        return cut
+    owners = [p for p, _ in model.named_modules()
+              if p.rpartition(".")[0] in FSDP_MODULES or p == "lm_head"]
+    for prefix in owners:
+        fsdp_record(model.get_submodule(prefix),
+                    {k[len(prefix) + 1:]: d for k, d in cut.items()
+                     if k.startswith(prefix + ".")})
+    model.fsdp = {k: d for k, d in cut.items()
+                  if not any(k.startswith(p + ".") for p in owners)}
+    if set(model.fsdp) - {"embedding"}:
+        raise ValueError(f"'data' cuts leaves no module gathers: "
+                         f"{sorted(set(model.fsdp) - {'embedding'})}")
+    return cut
+
+
+def fsdp_cut(module: torch.nn.Module, specs: dict, mesh) -> dict:
+    """Cut, in place, this rank's 'data' block of every leaf of ``module``
+    that ``specs`` ({buffer name relative to ``module``: its whole leaf's
+    spec under the 'default' rules}) cuts over 'data', each block a
+    contiguous copy.  The cut is made on the leaf as it is stored, so it
+    keeps the packed layout whole: a packed column is a msGeMM d-tuple or
+    an int4 byte of two codes, and a scale leaf is cut only where its
+    rows are the model dim; 'data' never takes a two-halves leaf's rows
+    (``mamba_inner`` and ``xl_inner`` map to 'model' alone).  A leaf
+    whose stored dim does not divide stays whole, the reference's
+    divisibility rule; it is counted in
+    ``serve_fsdp_whole_leaves_total``.  Returns {name: dim} of every cut
+    leaf."""
     from repro_torch import obs
     from repro_torch.distributed import collectives as coll
 
@@ -890,7 +953,7 @@ def fsdp_store(model: torch.nn.Module, specs: dict, mesh) -> dict:
             continue
         if is_halves(name) and dim == 0:
             raise ValueError(f"{name}: 'data' cuts a two-halves leaf's rows")
-        mod, leaf = _owner(model, name)
+        mod, leaf = _owner(module, name)
         t = mod._buffers[leaf]
         if t.shape[dim] % n:
             obs.registry().counter(
@@ -902,18 +965,16 @@ def fsdp_store(model: torch.nn.Module, specs: dict, mesh) -> dict:
         mod._buffers[leaf] = t.narrow(dim, c * size, size).contiguous() \
             .clone()
         cut[name] = dim
-    owners = [p for p, _ in model.named_modules()
-              if p.rpartition(".")[0] in FSDP_MODULES or p == "lm_head"]
-    for prefix in owners:
-        model.get_submodule(prefix).fsdp = {
-            k[len(prefix) + 1:]: d for k, d in cut.items()
-            if k.startswith(prefix + ".")}
-    model.fsdp = {k: d for k, d in cut.items()
-                  if not any(k.startswith(p + ".") for p in owners)}
-    if set(model.fsdp) - {"embedding"}:
-        raise ValueError(f"'data' cuts leaves no module gathers: "
-                         f"{sorted(set(model.fsdp) - {'embedding'})}")
     return cut
+
+
+def fsdp_record(owner: torch.nn.Module, cut: dict) -> None:
+    """Record on ``owner`` (a block or ``lm_head``) the leaves of ``cut``
+    ({name relative to ``owner``: dim}) that :func:`gather_fsdp` gathers
+    for a step: ``owner.fsdp``, every cut leaf but the expert stacks',
+    which stay cut (their out dim is 'data'; :func:`record_stacks`)."""
+    owner.fsdp = {k: d for k, d in cut.items() if not is_stack(k)}
+    record_stacks(owner, [k for k in cut if is_stack(k)])
 
 
 def gather_fsdp(module: torch.nn.Module) -> torch.nn.Module:

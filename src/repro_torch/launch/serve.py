@@ -155,10 +155,12 @@ def quant_spec(args) -> QuantSpec | None:
                      storage=storage)
 
 
-def build_model(args, device: torch.device):
+def build_model(args, device: torch.device, mesh=None):
     """Random weights from ``--seed``, drawn and quantized block by block
-    on ``device`` (no more than one block's dense weights at a time).
-    Returns (params, cfg, figures)."""
+    on ``device`` (no more than one block's dense weights at a time);
+    with ``mesh``, this rank's copy for ``--mesh-rules``, each block cut
+    as soon as it is drawn (``runtime.serve.init_shard``: the whole model
+    never exists).  Returns (params, cfg, figures)."""
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     if args.num_layers:
@@ -167,8 +169,13 @@ def build_model(args, device: torch.device):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    params = T.init_params(cfg, generator=generator(args.seed, device),
-                           device=device, quant=spec)
+    if mesh is None:
+        params = T.init_params(cfg, generator=generator(args.seed, device),
+                               device=device, quant=spec)
+    else:
+        params = SV.init_shard(cfg, mesh, args.mesh_rules,
+                               generator=generator(args.seed, device),
+                               device=device, quant=spec)
     _sync(device)
     build_s = time.perf_counter() - t0
     if spec is not None:
@@ -180,7 +187,8 @@ def build_model(args, device: torch.device):
         figures["build_peak_bytes"] = torch.cuda.max_memory_allocated(device)
         peak = f", peak {figures['build_peak_bytes'] / 2**30:.2f} GiB"
     print(f"[serve] {cfg.name} ({cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}) built with {args.quant} weights on {device} in "
+          f"{cfg.d_model}) built with {args.quant} weights on {device}"
+          + ("" if mesh is None else " (this rank's copy)") + " in "
           f"{build_s:.1f}s: {size / 2**30:.2f} GiB of buffers{peak}",
           flush=True)
     return params, cfg, figures
@@ -293,10 +301,11 @@ def run_static(args, params, cfg, device: torch.device, mesh=None):
     """Batched greedy generation on random inputs from ``--seed``
     (:func:`static_batch`).  Kernel launches are counted over
     ``generate`` alone (not the autotuner's warm-up).  On ``mesh`` this
-    rank serves its shard (``runtime.serve.shard_params``) of ``params``
-    (whole) under ``--mesh-rules``, and the collectives are counted too;
-    with ``--check`` rank 0 holds the tokens to a single-device
-    ``generate`` of ``params``."""
+    rank serves ``params``, its copy (:func:`build_model`), or its shard
+    of a whole ``params`` (``runtime.serve.shard_params``) under
+    ``--mesh-rules``, and the collectives are counted too; with
+    ``--check`` rank 0 holds the tokens to a single-device ``generate``
+    of the whole model, drawn after the run (:func:`whole_model`)."""
     batch = static_batch(args, cfg, device)
     policy = exec_policy(args)
     if policy is not None and policy.autotune and mesh is None:
@@ -307,7 +316,8 @@ def run_static(args, params, cfg, device: torch.device, mesh=None):
     if mesh is not None:
         from repro_torch.distributed import collectives as coll
 
-        run_params = SV.shard_params(params, cfg, mesh, args.mesh_rules)
+        if getattr(params, "served_on", None) is None:
+            run_params = SV.shard_params(params, cfg, mesh, args.mesh_rules)
         kw = dict(mesh=mesh, rules=args.mesh_rules)
         if policy is not None:
             plans = warm_generate(run_params, cfg, batch, policy, **kw)
@@ -338,7 +348,7 @@ def run_static(args, params, cfg, device: torch.device, mesh=None):
               f"{dict(sorted(coll.counts.items()))} (rules="
               f"{args.mesh_rules})", flush=True)
         if args.check and torch.distributed.get_rank() == 0:
-            ref = SV.generate(params, cfg, batch,
+            ref = SV.generate(whole_model(args, params, device), cfg, batch,
                               max_new_tokens=args.new_tokens)
             same = torch.equal(ref, out)
             print(f"[serve] single-device parity check: "
@@ -348,6 +358,15 @@ def run_static(args, params, cfg, device: torch.device, mesh=None):
                                  "the single-device one")
             res["checked"] = args.batch
     return res
+
+
+def whole_model(args, params, device: torch.device):
+    """``params`` when it is the whole model, else the whole model drawn
+    from ``--seed`` (a rank's copy is none: the check's single-device
+    reference is drawn after the mesh run)."""
+    if getattr(params, "served_on", None) is None:
+        return params
+    return build_model(args, device)[0]
 
 
 def report_dropped(params) -> float | None:
@@ -424,13 +443,17 @@ def check_static(results, params, cfg, device: torch.device,
 
 
 def run_continuous(args, params, cfg, device: torch.device, kv_backend=None,
-                   mesh=None):
+                   mesh=None, kv_spec=None):
     """Serve the request stream through the continuous engine (on ``mesh``
-    when given: this rank's engine).  Kernel launches are counted over
-    the engine's run alone (not the check)."""
+    when given: this rank's engine, on ``params`` its copy or the whole
+    model).  ``kv_spec``: the pool's, where the caller has it (a learned
+    codebook fitted on the whole model), else from the flags.  Kernel
+    launches are counted over the engine's run alone (not the check;
+    on a mesh rank 0 checks, on the whole model drawn after the run)."""
     from repro_torch.serving import Engine
 
-    kv_spec = kv_spec_from_args(args, params, cfg, kv_backend)
+    if kv_spec is None:
+        kv_spec = kv_spec_from_args(args, params, cfg, kv_backend)
     if kv_spec is not None:
         print(f"[serve] quantized KV cache: {kv_spec.describe()}, attention "
               f"through {kv_attention.select(kv_spec, device.type)}")
@@ -516,9 +539,11 @@ def run_continuous(args, params, cfg, device: torch.device, kv_backend=None,
                run_s=dt, launches=launches, kv_spec=kv_spec,
                cuda_graph=engine.runner.cuda_graph,
                exec_plans=engine.exec_plans, dropped_frac=dropped)
-    if args.check:
-        out["checked"] = check_static(results, params, cfg, device,
-                                      exec_policy(args))
+    if args.check and (mesh is None or torch.distributed.get_rank() == 0):
+        del engine
+        out["checked"] = check_static(results,
+                                      whole_model(args, params, device),
+                                      cfg, device, exec_policy(args))
     return out
 
 
@@ -765,9 +790,9 @@ def serve_mesh(args, argv) -> dict:
 
 
 def _mesh_rank(rank, device, argv, shape, axes) -> dict:
-    """One rank of ``--mesh``: build the model from ``--seed`` on this
-    rank's device, serve the stream on the mesh (rank 0 prints, checks
-    and reports)."""
+    """One rank of ``--mesh``: build this rank's copy of the model from
+    ``--seed`` on its device (:func:`build_model`), serve the stream on
+    the mesh (rank 0 prints, checks and reports)."""
     import contextlib
     import io
 
@@ -778,8 +803,16 @@ def _mesh_rank(rank, device, argv, shape, axes) -> dict:
     quiet = contextlib.redirect_stdout(io.StringIO()) if rank else \
         contextlib.nullcontext()
     with quiet:
-        params, cfg, build = build_model(args, device)
         mesh = MS.make_mesh(shape, axes)
+        kv_spec = None
+        if args.engine == "continuous" and args.kv_bits == 4 \
+                and args.kv_codebook == "learned":
+            # the fit runs the whole model: drawn, fitted and freed
+            # before the rank's copy is drawn
+            whole, cfg, _ = build_model(args, device)
+            kv_spec = kv_spec_from_args(args, whole, cfg)
+            del whole
+        params, cfg, build = build_model(args, device, mesh=mesh)
         if args.engine == "static":
             if args.autotune_cache is not None:
                 dispatch.set_cache_path(args.autotune_cache)
@@ -790,7 +823,8 @@ def _mesh_rank(rank, device, argv, shape, axes) -> dict:
                         collectives=run["collectives"],
                         checked=run.get("checked"),
                         dropped_frac=run["dropped_frac"])
-        run = run_continuous(args, params, cfg, device, mesh=mesh)
+        run = run_continuous(args, params, cfg, device, mesh=mesh,
+                             kv_spec=kv_spec)
     return dict(build=build, tokens={rid: seq.generated for rid, seq in
                                      run["results"].items()},
                 metrics=run["metrics"], steps=run["steps"],

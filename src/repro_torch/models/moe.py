@@ -35,6 +35,21 @@ over 'model' ends it.  A shared expert runs as any MLP on a mesh.  A
 training step on a mesh runs the same layouts on the stacks
 ``sharding.shard_model`` cut (:func:`moe_apply_tp`), its aux terms the
 whole batch's.
+
+Where a stack's out dim lies over 'data' (the reference's
+'expert_out', ``sharding.PARAM_RULES``: 'ep' on (data, model), as
+llama4, jamba and qwen2-moe at model=2, and every mesh with no 'model'
+axis) the stack stays cut there, in training and under the 'default'
+serving rules, and the tokens move to the experts, as the reference pins
+the dispatched slots to ``("expert", "capacity", "expert_in")`` and the
+hidden to ``("expert", "capacity", "expert_out")``
+(:class:`_ToExperts`): a rank gathers its experts' slots from every
+'data' rank (the tokens), runs up and gate on its block of the hidden
+dim, gathers the hidden whole over 'data' for ``down`` (whose
+contraction is whole in its leaf), runs ``down`` on its block of d, and
+returns each 'data' rank's slots with all d columns to it in one
+all-to-all; the psum over 'model' ends the combine as before.  No stack
+leaf is gathered; ``Experts.data_out`` names the stacks held so.
 """
 
 from __future__ import annotations
@@ -54,10 +69,14 @@ class Experts(nn.Module):
     """The stacked up / down (+ gate for GeGLU/SwiGLU) expert linears.
     What ``runtime.serve.shard_params`` cut on a mesh: ``layout``, the
     :func:`expert_layout` (None: whole), and ``down_local``, whether
-    ``down`` holds this rank's block of its contraction ('tp')."""
+    ``down`` holds this rank's block of its contraction ('tp');
+    ``data_out``, the stacks held cut over 'data' along their out dim
+    (``sharding.record_stacks``: the 'default' rules' serving copy, a
+    training step's model), which the tokens move to."""
 
     layout = None
     down_local = False
+    data_out = ()
 
     def __init__(self, up, down, gate=None):
         super().__init__()
@@ -147,14 +166,68 @@ def _expert_ffn(pe: Experts, x: torch.Tensor, cfg) -> torch.Tensor:
                                    in_dim=h.shape[-1], tag=f"moe_{name}",
                                    act=act)
 
+    moved = _ToExperts(pe, x.shape[1], split=_rows_over_data())
+    x = moved.tokens(x)
     if hasattr(pe, "gate"):
         up = lin("up", x)
         h = lin("gate", x, act_name) * up
     else:
         h = lin("up", x, act_name)
+    h = moved.hidden(h)
     if pe.layout == "tp" and not pe.down_local:
         h = coll.all_gather(h, sharding.TP_AXIS, dim=-1)  # whole down
-    return lin("down", h)
+    return moved.back(lin("down", h))
+
+
+def _rows_over_data() -> bool:
+    """Whether a serving step's batch rows are split over 'data'."""
+    axis = sharding.row_axis()
+    return sharding.FSDP_AXIS in (axis if isinstance(axis, tuple)
+                                  else (axis,))
+
+
+class _ToExperts:
+    """The tokens' way to the stacks held cut over 'data' along their out
+    dim (``pe.data_out``; the identity where none is), for slots
+    (El, n, d) of this rank's experts: :meth:`tokens` gathers every
+    'data' rank's slots (``split``: the step's rows, so its slots, are
+    split over 'data'; otherwise every rank holds them all),
+    :meth:`hidden` gathers a hidden cut along its dim whole for
+    ``down``, :meth:`back` returns each rank's slots with all d columns
+    to it.  ``train``: the autograd forms (a gather's backward
+    reduce-scatters: each rank's cotangent is its weight block's part of
+    the gradient; the all-to-all's is the reverse all-to-all)."""
+
+    def __init__(self, pe: Experts, n: int, *, split: bool,
+                 train: bool = False):
+        self.pe, self.n, self.train = pe, n, train
+        self.split = split and bool(pe.data_out)
+        self.c = sharding.coord(sharding.active_mesh(), sharding.FSDP_AXIS) \
+            if self.split else 0
+
+    def _gather(self, t, dim, kind):
+        if self.train:
+            return coll.ad_all_gather(t, sharding.FSDP_AXIS, dim=dim,
+                                      kind=kind)
+        return coll.all_gather(t, sharding.FSDP_AXIS, dim=dim, kind=kind)
+
+    def tokens(self, x):
+        return self._gather(x, 1, "expert_tokens") if self.split else x
+
+    def hidden(self, h):
+        return self._gather(h, -1, "expert_hidden") \
+            if "up" in self.pe.data_out else h
+
+    def back(self, y):
+        if "down" in self.pe.data_out:
+            if not self.split:
+                return self._gather(y, -1, "expert_return")
+            a2a = coll.ad_all_to_all if self.train else coll.all_to_all
+            return a2a(y, sharding.FSDP_AXIS, split_dim=1, concat_dim=-1,
+                       kind="expert_return")
+        if self.split:  # this rank's slots of outputs computed for all
+            return y.narrow(1, self.c * self.n, self.n)
+        return y
 
 
 def route(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None,
@@ -285,13 +358,15 @@ def train_layout(pe: Experts, cfg, mesh) -> str | None:
     lay = expert_layout(cfg, mesh)
     E, mdff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
     M = sharding.tp_size(mesh)
-    want = {"ep": (E // M, mdff), "tp": (E, mdff // M), None: (E, mdff)}
+    want = {"ep": (E // M, mdff), "tp": (E, mdff // M), None: (E, mdff)}[lay]
+    if "up" in pe.data_out:  # its out dim held cut over 'data' too
+        want = (want[0], want[1] // compat.axes_of(mesh)[sharding.FSDP_AXIS])
     got = tuple(pe.up.w.shape[:2])
-    if got != want[lay]:
+    if got != want:
         raise NotImplementedError(
             f"{cfg.name}: the expert stacks' leaves {got} (experts, hidden) "
             f"are not cut as the {lay!r} layout on model={M} needs "
-            f"({want[lay]}; rules {sharding.active_rules()!r})")
+            f"({want}; rules {sharding.active_rules()!r})")
     return lay
 
 
@@ -310,8 +385,11 @@ def moe_apply_tp(p: MoE, x: torch.Tensor, cfg, *, axis: str = "model"):
     combine: the dispatched rows and the gates enter through
     ``ad_identity`` (their gradients sum the ranks' parts) and the
     combine ends in one ``ad_psum`` over ``axis`` in f32; with neither,
-    each rank runs every expert whole.  The shared experts run through
-    ``common.mlp_apply_tp``.
+    each rank runs every expert whole.  Stacks held cut over 'data'
+    (``Experts.data_out``) take the tokens of every 'data' rank
+    (:class:`_ToExperts`, its autograd forms): their gradients are this
+    rank's block's whole, and no reduce-scatter follows.  The shared
+    experts run through ``common.mlp_apply_tp``.
 
     ``load_balance`` is E·Σ me·ce with ``me`` and ``ce`` the whole
     batch's means: the rows' sums (and the kept and routed slot counts)
@@ -344,15 +422,20 @@ def moe_apply_tp(p: MoE, x: torch.Tensor, cfg, *, axis: str = "model"):
         n = mdff // M
         down = common.whole_rows(pe.down.w, d, 1, axis, partial=True
                                  ).narrow(2, sharding.coord(mesh, axis) * n, n)
+    elif "down" in pe.data_out:
+        down = pe.down.w
     else:
         down = common.whole_rows(pe.down.w, d, 1, axis, partial=False)
+    moved = _ToExperts(pe, dispatched.shape[1], split=True, train=True)
+    dispatched = moved.tokens(dispatched)
     if hasattr(pe, "gate"):  # as _expert_ffn, each stack one call
         up = common.local_linear(pe.up.w, dispatched, tag="moe_up")
         h = common.local_linear(pe.gate.w, dispatched, tag="moe_gate",
                                 act=act) * up
     else:
         h = common.local_linear(pe.up.w, dispatched, tag="moe_up", act=act)
-    mine = common.local_linear(down, h, tag="moe_down")
+    mine = moved.back(common.local_linear(down, moved.hidden(h),
+                                          tag="moe_down"))
     if lay == "ep":
         out = mine.new_zeros((E,) + mine.shape[1:])
         out[e0:e0 + El] = mine

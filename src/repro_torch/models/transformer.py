@@ -35,7 +35,8 @@ and the tied head gathers the ranks' logit columns; a vision frontend's
 patch embeddings enter whole on every rank.  Under the 'default' rules
 (FSDP storage, ``sharding.fsdp_store``) each block's leaves stored cut
 over 'data' are gathered at the top of the block for the step
-(``sharding.gather_fsdp``) and an untied head's before it runs; the
+(``sharding.gather_fsdp``; an expert stack stays cut and the tokens move
+to it, ``models.moe``) and an untied head's before it runs; the
 table's columns are gathered only where that moves fewer bytes than
 the activations: a decode step's lookup gathers the looked-up
 activations over 'data' and its tied head sums partial logits over
@@ -44,7 +45,8 @@ activations over 'data' and its tied head sums partial logits over
 :func:`forward` under an active mesh is a training step's, on a model
 cut by ``sharding.shard_model`` (FSDP x TP, the 'default' rules): the
 top-level leaves and, at the top of each layer group, the group's are
-gathered over 'data' (``sharding.constrain_params``; with
+gathered over 'data' (``sharding.constrain_params``; the expert stacks
+stay cut, the tokens move to them; with
 ``cfg.save_gathered_weights`` outside the group's remat, so the
 backward pass does not gather them again); the blocks run
 tensor-parallel over 'model' (``layers.attn_apply_tp``,
@@ -170,7 +172,7 @@ class Transformer(nn.Module):
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
-                device=None, quant=None) -> Transformer:
+                device=None, quant=None, place=None) -> Transformer:
     """Random weights from ``generator`` (which must live on ``device``).
 
     With ``quant`` (a QuantSpec), every block (the encoder's too) — and
@@ -181,37 +183,47 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     dt_proj, A_log, D; the mLSTM's q/k/v and gates; the sLSTM's W and R)
     stay f32.  The caller then serves with
     ``cfg.replace(quant=quant)``.
+
+    ``place(name, part)`` returns what the model keeps of each part as
+    soon as it is whole: the embedding table (``embedding``), each block
+    once quantized (``blocks.i``, ``encoder.blocks.i``) and a module
+    holding the untied head (``lm_head``); ``runtime.serve.init_shard``
+    cuts each to a mesh rank's copy there, so no whole model exists.
+    The generator's draws do not depend on it.
     """
     from repro_torch.quant import quantize_model
 
     dev = resolve(device)
     kw = dict(generator=generator, device=dev)
+    place = place or (lambda name, part: part)
     emb = torch.empty((cfg.vocab_size, cfg.d_model), device=dev)
     nn.init.trunc_normal_(emb, a=-2.0, b=2.0, generator=generator)
+    emb = place("embedding", emb)
 
-    def blocks(n, kind=None, cross=False):
+    def blocks(n, kind=None, cross=False, prefix="blocks"):
         out = []
         for layer in range(n):
             blk = block_init(cfg, kind or cfg.kind(layer), quant=quant,
                              cross=cross, **kw)
             if quant is not None:
                 quantize_model(blk, quant)
-            out.append(blk)
+            out.append(place(f"{prefix}.{layer}", blk))
         return out
 
     decoder = blocks(cfg.num_layers, cross=cfg.is_encdec)
     head = None
     if not cfg.tie_embeddings:
-        head = common.linear_init(cfg.d_model, cfg.vocab_size, cfg,
-                                  cfg.quant, **kw)
+        holder = nn.Module()
+        holder.lm_head = common.linear_init(cfg.d_model, cfg.vocab_size,
+                                            cfg, cfg.quant, **kw)
         if quant is not None:
-            holder = nn.Module()
-            holder.lm_head = head
             quantize_model(holder, quant)
+        head = place("lm_head", holder).lm_head
     encoder = pos = None
     if cfg.is_encdec:
         encoder = Encoder(
-            blocks=nn.ModuleList(blocks(cfg.encoder_layers, "attn")),
+            blocks=nn.ModuleList(blocks(cfg.encoder_layers, "attn",
+                                        prefix="encoder.blocks")),
             final_norm=common.norm_init(cfg.d_model, cfg.norm, device=dev))
         pos = common.truncated_normal((cfg.max_seq_len, cfg.d_model), 0.02,
                                       **kw)

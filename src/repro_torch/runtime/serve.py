@@ -68,6 +68,14 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
             for layer, spec, p in zip(whole, specs, proto)]
 
 
+def served_on(mesh, rules: str) -> tuple:
+    """What a rank's copy of a model is for: the mesh's axes and the rule
+    set (a copy's ``served_on``)."""
+    from repro_torch.distributed import compat
+
+    return tuple(compat.axes_of(mesh).items()), rules
+
+
 def shard_params(params, cfg: ModelConfig, mesh, rules: str = "serve"):
     """This rank's copy of a model for serving on ``mesh``, in the layout
     the model code runs there (``models.transformer``'s docstring), each
@@ -102,25 +110,107 @@ def shard_params(params, cfg: ModelConfig, mesh, rules: str = "serve"):
     step (``sharding.gather_fsdp``), and the embedding table's columns
     are read in their blocks (``models.transformer``).  The activation
     rules of 'default' and 'serve' are the same, so everything else is
-    the 'serve' layout.
+    the 'serve' layout.  An expert stack cut so stays cut at every step
+    (its out dim is 'data': ``Experts.data_out``, the tokens move).
 
     ``params`` is left as it was: the copy shares every leaf it does not
-    cut, and a MoE block's routed-slot counters."""
+    cut, and a MoE block's routed-slot counters; a rank that must never
+    hold the whole model draws its copy with :func:`init_shard` instead.
+    The copy records what it is for (``served_on``, :func:`served_on`),
+    so ``Engine(mesh=)`` and ``generate(mesh=)`` take it as it is."""
     import copy
 
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+
+    if getattr(params, "served_on", None) is not None:
+        raise ValueError(f"params is already a rank's copy (for "
+                         f"{params.served_on}), not the whole model")
+    fsdp = sharding.param_specs(params, mesh, "default") \
+        if rules == "default" else None
+    memo = {id(t): t for t in params.buffers()}
+    memo.update({id(m.route_counts): m.route_counts
+                 for m in params.modules() if isinstance(m, moe.MoE)})
+    out = copy.deepcopy(params, memo)
+    _cut_layout(out, cfg, mesh)
+    out.register_buffer("embedding", _cut_table(params.embedding, cfg,
+                                                mesh))
+    if fsdp is not None:
+        sharding.fsdp_store(out, fsdp, mesh)
+    out.served_on = served_on(mesh, rules)
+    return out
+
+
+def init_shard(cfg: ModelConfig, mesh, rules: str = "serve", *,
+               generator: torch.Generator, device=None, quant=None):
+    """This rank's copy of ``transformer.init_params(cfg, generator=,
+    device=, quant=)`` for serving on ``mesh`` under ``rules``, equal to
+    :func:`shard_params` of that whole model, without ever holding it:
+    the model is drawn as ``init_params`` draws it (the same draws, so
+    the same values), and each part is cut to this rank's copy as soon
+    as it is whole (``init_params``'s ``place``).  At most one whole
+    block and the whole embedding table (until it is cut, before the
+    first block is drawn) are on ``device`` beside the copy.  The copy's
+    config is ``cfg.replace(quant=quant)``."""
+    from repro_torch.distributed import compat, sharding
+
+    qcfg = cfg if quant is None else cfg.replace(quant=quant)
+    fsdp = rules == "default" and \
+        compat.axes_of(mesh).get(sharding.FSDP_AXIS, 1) > 1
+    table_cut = {}
+
+    def place(name, part):
+        if name == "embedding":
+            holder = torch.nn.Module()
+            holder.register_buffer("embedding", _cut_table(part, qcfg, mesh))
+            if fsdp:
+                table_cut.update(sharding.fsdp_cut(holder, sharding.param_specs(
+                    {"embedding": tuple(part.shape)}, mesh, "default"), mesh))
+            return holder.embedding
+        specs = sharding.param_specs(part, mesh, "default") if fsdp else None
+        _cut_layout(part, qcfg, mesh)
+        if specs is not None:
+            cut = sharding.fsdp_cut(part, specs, mesh)
+            if name == "lm_head":  # the holder's head owns its record
+                sharding.fsdp_record(part.lm_head, {
+                    k.partition(".")[2]: d for k, d in cut.items()})
+            else:
+                sharding.fsdp_record(part, cut)
+        return part
+
+    model = transformer.init_params(cfg, generator=generator, device=device,
+                                    quant=quant, place=place)
+    if fsdp:
+        model.fsdp = table_cut
+    model.served_on = served_on(mesh, rules)
+    return model
+
+
+def _cut_table(table: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """This rank's rows of the embedding ``table`` (whole): its vocab
+    block over 'model' where the vocab takes it
+    (``transformer.vocab_axis``), else the table itself."""
+    from repro_torch.distributed import sharding
+
+    with sharding.use(mesh, "serve"):
+        axis = transformer.vocab_axis(cfg)
+    if axis is None:
+        return table
+    return sharding.local_slice(table, (axis, None), mesh).contiguous() \
+        .clone()
+
+
+def _cut_layout(root, cfg: ModelConfig, mesh) -> None:
+    """Cut, in place, every module of ``root`` (a model, a block, or a
+    module holding ``lm_head``) to this rank's part of the 'serve'
+    layout (:func:`shard_params`), and record the layout on the
+    modules."""
     from repro_torch.core.spec import expert_spec
     from repro_torch.dispatch.shard import _quant_aligned, shard_linear
     from repro_torch.distributed import sharding
     from repro_torch.models import common, layers, mamba, moe, xlstm
 
-    fsdp = sharding.param_specs(params, mesh, "default") \
-        if rules == "default" else None
-    if rules == "default":
-        rules = "serve"  # the same layout, stored cut over 'data' below
-    memo = {id(t): t for t in params.buffers()}
-    memo.update({id(m.route_counts): m.route_counts
-                 for m in params.modules() if isinstance(m, moe.MoE)})
-    out = copy.deepcopy(params, memo)
+    rules = "serve"
     M = sharding.tp_size(mesh)
     r = sharding.coord(mesh, sharding.TP_AXIS) if M > 1 else 0
 
@@ -155,7 +245,7 @@ def shard_params(params, cfg: ModelConfig, mesh, rules: str = "serve"):
             tree._buffers[name] = block(tree._buffers[name], dim, n)
 
     d = cfg.d_model
-    for mod in out.modules():
+    for mod in root.modules():
         if isinstance(mod, layers.Attention):
             mod.layout = layers.head_layout(cfg, mesh)
             cut(mod.wq, "wq", d)
@@ -217,17 +307,8 @@ def shard_params(params, cfg: ModelConfig, mesh, rules: str = "serve"):
                 channels(getattr(mod, name), ("w",), 0, H // M)
             cut(mod.xl_o, "xl_o", d)
             cut(mod.xl_down, "xl_down", di)
-    if hasattr(out, "lm_head"):
-        cut(out.lm_head, "lm_head", d)
-    with sharding.use(mesh, rules):
-        axis = transformer.vocab_axis(cfg)
-    if axis is not None:
-        spec = (axis, None)
-        out.register_buffer("embedding", sharding.local_slice(
-            params.embedding, spec, mesh).contiguous().clone())
-    if fsdp is not None:
-        sharding.fsdp_store(out, fsdp, mesh)
-    return out
+    if hasattr(root, "lm_head"):
+        cut(root.lm_head, "lm_head", d)
 
 
 def paged_step(params, cfg: ModelConfig, tokens, pool, positions,
@@ -358,7 +439,8 @@ def generate(params, cfg: ModelConfig, batch, *, max_new_tokens: int,
     cache and the first decode position are :func:`static_cache`'s.
 
     With ``mesh`` every rank calls it (SPMD, under ``sharding.use(mesh,
-    rules)``) with ``params`` its :func:`shard_params` copy and the whole
+    rules)``) with ``params`` its :func:`shard_params` (or
+    :func:`init_shard`) copy and the whole
     batch: each runs the rows ``sharding.batch_specs`` gives it (split
     over 'data' where they divide), on its block of the cache, and the
     ranks' tokens are gathered, so every rank returns the run's.

@@ -53,7 +53,7 @@ doing the same.  Fault injection lives behind ``repro_torch.faults``
 
 Tensor-parallel serving (``Engine(mesh=...)``): one engine a rank of the
 mesh (``launch.mesh.run_ranks``), each holding its shard of the weights
-(``runtime.serve.shard_params``) and of the pool
+(``runtime.serve.init_shard`` or ``shard_params``) and of the pool
 (``init_paged_cache(..., mesh=)``); every GeMM plan is resolved at build
 under the mesh, and every step runs under it, each quantized linear on
 its local shard shape (``dispatch.shard``).  The host side must agree on
@@ -68,7 +68,8 @@ through host memory when ranks share a card, which a CUDA graph cannot
 hold, and capturing NCCL's is ROADMAP A13c.  Under the 'default' rules
 each rank stores its 'data' block of the weights whose model dim takes
 'data' (FSDP storage), and each block gathers them at the top of the
-block for the step (``models.transformer``).  With ``shard_pipeline=0``
+block for the step (``models.transformer``), but for the expert stacks,
+which stay cut while the tokens move to them (``models.moe``).  With ``shard_pipeline=0``
 the build tunes every row-parallel linear's collective layout
 (``dispatch.autotune.tune_shard_variants``, through ``warm``; the ranks
 agree on each winner) and the steps replay the winners.
@@ -435,12 +436,18 @@ class Engine:
     guard also quarantines the suspect backends and replans.
 
     Tensor parallelism: mesh is a ``DeviceMesh`` over the ranks
-    (``launch.mesh.make_mesh``), one engine a rank, built on every rank
-    from the same whole ``params`` (each keeps its shards:
-    ``runtime.serve.shard_params``; ``params`` is left as it was).
+    (``launch.mesh.make_mesh``), one engine a rank, each serving this
+    rank's copy of the model.  ``params`` is that copy
+    (``runtime.serve.init_shard``, drawn a block at a time, so no whole
+    model is ever on the rank's device; the engine keeps it as it is),
+    or the whole model, which the engine cuts to its copy
+    (``runtime.serve.shard_params``) and does not keep: the copy shares
+    only the leaves it does not cut, so the whole model's memory is freed
+    when the caller drops ``params``.
     mesh_rules: the logical-axis rule set ('serve': batch rows over
     'data', weights over 'model'; 'default': the same, with the weights'
-    model dim stored cut over 'data' and gathered a block at a time;
+    model dim stored cut over 'data' and gathered a block at a time, the
+    expert stacks' kept cut while the tokens move to them;
     'serve_tp': no row split).
     shard_collective ('psum' | 'reduce_scatter'), shard_pipeline
     (contraction chunks of a row-parallel linear; 0: tuned at build,
@@ -475,7 +482,12 @@ class Engine:
         if mesh is not None:
             cuda_graph = _check_mesh(cfg, mesh, mesh_rules, cuda_graph)
             self.is_leader = torch.distributed.get_rank() == 0
-            params = SV.shard_params(params, cfg, mesh, mesh_rules)
+            mine = getattr(params, "served_on", None)
+            if mine is None:
+                params = SV.shard_params(params, cfg, mesh, mesh_rules)
+            elif mine != SV.served_on(mesh, mesh_rules):
+                raise ValueError(f"params is a rank's copy for {mine}, not "
+                                 f"for {SV.served_on(mesh, mesh_rules)}")
         self.params = params
         self.cfg = cfg
         self.device = params.embedding.device

@@ -9,6 +9,14 @@ in ``tests/torch_mesh_ranks.py`` (torch only).
   concatenation of the ranks' inputs, on dims that divide the axis and
   dims that do not: bit-exact on integer-valued inputs, within 1e-6 on
   random ones (a ring adds in another order);
+* the all-to-all (``collectives.all_to_all``: block j of a dim to rank
+  j, the received blocks concatenated along another) against a plain
+  split and concatenation of the ranks' inputs, exactly; its autograd
+  form's backward equal to the adjoint all-to-all (the two dims
+  swapped) and to the plain split of the cotangents; counted under its
+  kind with its bytes; the autograd gather under a kind of its own,
+  its backward the reduce-scatter of the cotangents; all of it through
+  the host-staged transport the CPU ranks use;
 * ``dispatch.execute`` of one linear sharded by ``run_sharded``
   (column-parallel; row-parallel under psum, reduce_scatter, both as
   rings, pipelined in 2 and 3 chunks) for msgemm, int4_dequant and bf16
@@ -84,6 +92,52 @@ def test_broadcast_and_coordinates(ranks, n):
         # the ring counts a hop each; psum_scatter is an all-reduce
         assert res[r]["counts"]["ring_hop"] > 0
         assert res[r]["counts"]["all_reduce"] > 0
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_all_to_all_equals_a_plain_split(ranks, n):
+    """Rank r's result is block r (along dim 1) of every rank's input,
+    concatenated along the last dim in rank order; the backward of the
+    autograd form sends each rank's cotangent block back where it came
+    from: the adjoint all-to-all, and the plain split of the
+    cotangents."""
+    res = ranks[n][0]
+    xs = [R.a2a_input(r, "x") for r in range(n)]
+    blk = R.A2A_SHAPE[1] // n
+    width = R.A2A_SHAPE[-1]
+    for r in range(n):
+        a = res[r]["a2a"]
+        want = torch.cat([x[:, r * blk:(r + 1) * blk] for x in xs], dim=-1)
+        assert torch.equal(a["y"], want) and torch.equal(a["plain"], want)
+        cs = [R.a2a_input(j, "c", tuple(want.shape)) for j in range(n)]
+        grad = torch.cat([c[..., r * width:(r + 1) * width] for c in cs],
+                         dim=1)
+        assert torch.equal(a["grad"], grad)
+        assert torch.equal(a["grad"], a["adjoint"])
+        # forward and backward, each counted by its result's bytes
+        assert a["count"] == 2 and a["nbytes"] == 2 * want.numel() * 4
+        assert a["indivisible"] == "ValueError"
+        assert res[r]["counts"]["all_to_all"] >= 2  # plain and adjoint
+        assert res[r]["transport"] == "gloo, host-staged"
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_autograd_gather_counts_its_kind(ranks, n):
+    """``ad_all_gather(kind=)``: the concatenation of the inputs, counted
+    under the kind; its backward this rank's block of the sum of every
+    rank's cotangent (the reduce-scatter)."""
+    res = ranks[n][0]
+    xs = [R.a2a_input(r, "x") for r in range(n)]
+    want = torch.cat(xs, dim=1)
+    cs = [R.a2a_input(j, "c", tuple(want.shape)) for j in range(n)]
+    total = sum(cs[1:], cs[0])
+    size = R.A2A_SHAPE[1]
+    for r in range(n):
+        assert torch.equal(res[r]["ag"]["y"], want)
+        assert torch.equal(res[r]["ag"]["grad"],
+                           total[:, r * size:(r + 1) * size])
+        assert res[r]["counts"]["expert_tokens"] == 1
+        assert res[r]["nbytes"]["expert_tokens"] == want.numel() * 4
 
 
 @pytest.mark.parametrize("layout", sorted(R.LAYOUTS))

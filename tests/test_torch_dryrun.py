@@ -7,7 +7,8 @@ batch fake tensors, runs one real train step.
   for each rank, its collectives by kind (count and bytes) are equal,
   and its argument bytes equal the real rank's state plus batch bytes;
   the peak from ``MemTracker`` covers the arguments;
-* the same for qwen2-moe SMOKE (expert-parallel, its aux terms' psum);
+* the same for qwen2-moe SMOKE (expert-parallel, its aux terms' psum,
+  the tokens moved to its expert stacks, which stay cut over 'data');
 * the train cells of a MoE, a hybrid recurrent and an encoder-decoder
   arch come back ``ok``; a cell that does not apply (gemma-2b's
   ``long_500k``) ``skipped`` with the reason; the serve cells are
@@ -68,11 +69,14 @@ def test_fake_cell_equals_a_real_step(real, rank):
 @pytest.mark.parametrize("rank", [0, 3])
 def test_fake_moe_cell_equals_a_real_step(real, rank):
     """qwen2-moe SMOKE ('ep': 3 experts a rank, its aux terms' psum over
-    'data'): the fake-mode cell's collectives and argument bytes are the
-    real rank's."""
+    'data'; the stacks' out dim over 'data', so the tokens move to them):
+    the fake-mode cell's collectives and argument bytes are the real
+    rank's, the tokens' collectives among them."""
     got = _fake_cell("qwen2_moe", rank)
     want = real[rank]["qwen2_moe"]
     assert got["collectives"] == want["collectives"]
+    for kind in ("expert_tokens", "expert_hidden", "expert_return"):
+        assert got["collectives"][kind]["count"] > 0, kind
     assert got["memory"]["argument_bytes_per_device"] == \
         want["argument_bytes"]
     assert got["memory"]["peak_bytes_per_device"] >= \

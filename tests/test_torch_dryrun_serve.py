@@ -11,7 +11,10 @@ tensors, running one real prefill or decode step.
   (``tests/torch_mesh_ranks.serve_cell_rank``): for each rank, its
   collectives by kind (count and bytes) and its argument bytes (weights,
   inputs, cache) are equal; the peak covers the arguments; 'default'
-  holds fewer argument bytes than 'serve';
+  holds fewer argument bytes than 'serve'; the same for qwen2-moe SMOKE
+  under 'default' ('ep' on model=2, the expert stacks kept cut over
+  'data' while the tokens move to them: none of them among the
+  ``fsdp_gather`` bytes, the tokens' collectives counted);
 * on fake tensors the GeMM kernels allocate what their CUDA launch does,
   never the plain msGeMM's tables: a msGeMM call's fake output has the
   kernel's (m, b) shape and layout;
@@ -42,6 +45,8 @@ SHAPES = (shp.Shape("prefill_t", 16, 4, "prefill"),
 def real():
     cfg = dryrun.serve_config("gemma_2b", smoke=True)
     return run_ranks(R.serve_cell_rank, 4, cfg, SHAPES, SHAPE, AXES, 0,
+                     ("default", "serve"),
+                     dryrun.serve_config("qwen2_moe", smoke=True),
                      timeout=120)
 
 
@@ -66,6 +71,22 @@ def test_fake_serve_cell_equals_a_real_step(real, shape, rank, rules):
         assert got["collectives"]["fsdp_gather"]["count"] > 0
         assert want["argument_bytes"] < \
             real[rank]["serve"][shape.name]["argument_bytes"]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: s.name)
+@pytest.mark.parametrize("rank", [0, 3])
+def test_fake_moe_serve_cell_equals_a_real_step(real, shape, rank):
+    cfg = dryrun.serve_config("qwen2_moe", smoke=True)
+    got = dryrun.measure_serve(cfg, shape, SHAPE, AXES, rank=rank,
+                               rules="default")
+    want = real[rank]["moe"][shape.name]
+    assert got["collectives"] == want["collectives"]
+    assert got["memory"]["argument_bytes_per_device"] == \
+        want["argument_bytes"]
+    assert got["memory"]["peak_bytes_per_device"] >= \
+        got["memory"]["argument_bytes_per_device"] > 0
+    for kind in ("expert_hidden", "expert_return", "fsdp_gather"):
+        assert got["collectives"][kind]["count"] > 0, kind
 
 
 def test_fake_msgemm_allocates_the_kernels_output_only():

@@ -2,11 +2,18 @@
 continuous engine on a mesh of gloo ranks, on the CPU
 (``launch.mesh.run_ranks``; the rank body in ``tests/torch_mesh_ranks.py``):
 at model=2 expert-parallel (3 experts a rank), at model=4 each expert
-tensor-parallel over its hidden dim (6 experts do not divide 4).  msgemm
-weights at d=2 / scale_block=8 (the experts int4 under ``expert_spec``).
-Tokens equal the port's single-device engine's, and the routed-slot
-counters (kept, total) and ``dropped_frac`` equal the single-device
-run's: every rank routes every token, and counts it once.
+tensor-parallel over its hidden dim (6 experts do not divide 4), and
+under the 'default' rules on data=2 (every rank all 6 experts' out-dim
+block) and on (data=2, model=2) ('ep', 3 experts a rank, their out dim
+over 'data'), where the expert stacks stay cut and the tokens move to
+them.  One spawn of two ranks (model=2, data=2) and one of four (model=4,
+data=2 x model=2).  msgemm weights at d=2 / scale_block=8 (the experts
+int4 under ``expert_spec``).  Tokens equal the port's single-device
+engine's, and the routed-slot counters (kept, total) and
+``dropped_frac`` equal the single-device run's: every rank routes every
+token, and counts it once.  Under 'default' no stack leaf is gathered
+over 'data' (neither for a step, nor by any all-gather of the run) and
+the token collectives are issued.
 """
 
 import numpy as np
@@ -60,17 +67,55 @@ def qwen():
         counts.sum(0).tolist(), moe.dropped_frac(model)
 
 
-@pytest.mark.parametrize("model_axis,layout", [(2, "ep"), (4, "tp")])
-def test_qwen2_moe_smoke_on_a_mesh(qwen, model_axis, layout):
-    tree, tcfg, tokens, counts, dropped = qwen
-    assert moe.expert_layout(tcfg, _ShapeMesh(model_axis)) == layout
-    ranks = run_ranks(R.moe_counts_rank, model_axis, tree, tcfg,
-                      (model_axis,), ("model",), BASE, QWEN_PROMPTS, 4,
-                      timeout=300)
-    for r in ranks:
+# (name, mesh shape, axes, rules) of each spawn's engines, by its ranks
+SCENARIOS = {
+    2: [("model2", (2,), ("model",), "serve"),
+        ("data2", (2,), ("data",), "default")],
+    4: [("model4", (4,), ("model",), "serve"),
+        ("data2.model2", (2, 2), ("data", "model"), "default")],
+}
+
+
+@pytest.fixture(scope="module")
+def spawns(qwen):
+    """{ranks: every rank's results of that spawn's scenarios}."""
+    tree, tcfg = qwen[:2]
+    return {n: run_ranks(R.moe_counts_rank, n, tree, tcfg, SCENARIOS[n],
+                         BASE, QWEN_PROMPTS, 4, timeout=300)
+            for n in SCENARIOS}
+
+
+def _same_as_one_device(qwen, runs):
+    _, _, tokens, counts, dropped = qwen
+    for r in runs:
         assert r["tokens"] == tokens
         assert r["counts"] == counts
         assert r["dropped"] == dropped
+
+
+@pytest.mark.parametrize("model_axis,layout", [(2, "ep"), (4, "tp")])
+def test_qwen2_moe_smoke_on_a_mesh(qwen, spawns, model_axis, layout):
+    tcfg = qwen[1]
+    assert moe.expert_layout(tcfg, _ShapeMesh(model_axis)) == layout
+    _same_as_one_device(qwen, [r[f"model{model_axis}"]
+                               for r in spawns[model_axis]])
+
+
+@pytest.mark.parametrize("world,name", [(2, "data2"), (4, "data2.model2")])
+def test_qwen2_moe_default_rules_move_tokens(qwen, spawns, world, name):
+    """'default' serving: tokens, counters and dropped_frac the single
+    device's; every stack held cut over 'data' on every rank, none among
+    the leaves a step gathers nor gathered whole by any all-gather of the
+    run, and the tokens' collectives (their slots gathered, the hidden
+    gathered for ``down``, the outputs returned) issued."""
+    runs = [r[name] for r in spawns[world]]
+    _same_as_one_device(qwen, runs)
+    for r in runs:
+        assert r["data_out"] == [("up", "gate", "down")] * 2
+        assert r["fsdp"] and not [k for k in r["fsdp"] if ".experts." in k]
+        assert r["stacks_gathered"] == []
+        for kind in ("expert_tokens", "expert_hidden", "expert_return"):
+            assert r["collectives"].get(kind, 0) > 0, kind
 
 
 class _ShapeMesh:

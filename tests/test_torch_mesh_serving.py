@@ -18,6 +18,9 @@ build and keyed by the mesh, an off-mesh cache entry never replayed
 sharded, the refusals (a recurrent model, which has no paged state,
 ``cuda_graph=True``, an unknown rule set), and the serve CLI's
 ``--mesh`` (``--shard-pipeline 0`` and ``--mesh-rules default`` too).
+A rank keeps none of the whole model's weights but its copy's, whether
+``Engine(mesh=)`` cut the copy or the serve CLI drew it a block at a
+time (weak references to the whole model's leaves).
 """
 
 import numpy as np
@@ -212,6 +215,23 @@ def test_default_rules_store_weights_cut_over_data(sharded, name):
     for r in sharded:
         assert r[name]["resident"] < 0.75 * r[serve]["resident"]
         assert r[name]["plans"] == r[serve]["plans"]
+
+
+@pytest.mark.parametrize("how", ["engine", "cli"])
+def test_mesh_rank_keeps_no_whole_model(sharded, how):
+    """After ``Engine(mesh=)`` cuts its copy from a whole model (which the
+    caller then drops), or the serve CLI draws a rank's copy a block at a
+    time, under 'default' on (data=2, model=2): of the whole model's
+    weight leaves (every linear's and expert stack's, a weak reference
+    to each taken before its cut) none is alive but those the copy
+    itself holds, and the cut ones are freed."""
+    for r in sharded:
+        got = r["ownership"][how]
+        assert got["leaves"] > 0 and got["freed"] > 0
+        assert got["stray"] == 0
+    if how == "cli":
+        assert sharded[0]["ownership"]["cli"]["served_on"] == (
+            (("data", 2), ("model", 2)), "default")
 
 
 def test_shard_variant_tuner_round_trip(sharded, tune_caches):

@@ -591,7 +591,9 @@ def test_default_rules_store_the_reference_data_cut(arch, mesh, mode):
     except that a leaf whose dim takes 'data' under the reference's
     ``param_specs(..., "default")`` (on its packed leaves) holds its
     1/data block of that dim, where the stored dim divides; the cut is
-    recorded on the block (or the head) that gathers it."""
+    recorded on the block (or the head) that gathers it, an expert
+    stack's on its ``Experts`` module instead (``data_out``: the stack
+    stays cut and the tokens move to it)."""
     jcfg = j_configs.get_smoke(arch)
     tcfg = convert.config_from_jax(jcfg)
     storage = "packed_u8" if mode == "int4_dequant" else "packed_idx"
@@ -631,7 +633,12 @@ def test_default_rules_store_the_reference_data_cut(arch, mesh, mode):
             shape[dim] //= n
             cut[name] = dim
         assert list(got[name].shape) == shape, name
-    assert cut and recorded == cut
+    stacks = {n for n in cut if shd.is_stack(n)}
+    assert cut and recorded == {n: d for n, d in cut.items()
+                                if n not in stacks}
+    held = {(f"{p}." if p else "") + s for p, mod in local.named_modules()
+            for s in getattr(mod, "data_out", ())}
+    assert held == {n.rpartition(".")[0] for n in stacks}
 def test_production_mesh_needs_its_world():
     """The reference's production shapes build only over a world of
     exactly their size; this single process has none."""

@@ -20,8 +20,12 @@ gradient, m, v and params within the ``tests/torch_train_parity.py``
 tolerances of the single-device step from the same (gathered) state;
 step 1 within them of the reference's; the routers' gradients the single
 device's, so the replicated routing is not summed over 'model' twice;
-every rank issues the same collectives.  One spawn of four gloo ranks
-runs every case (``tests/torch_train_ranks.py``).
+every rank issues the same collectives.  On (data=2, model=2) the expert
+stacks' out dim lies over 'data' ('ep'): the stacks stay cut there, no
+all-gather of the step gives a whole stack leaf, and the tokens move to
+them (their slots gathered, the hidden gathered for ``down``, the
+outputs returned in an all-to-all).  One spawn of four gloo ranks runs
+every case (``tests/torch_train_ranks.py``).
 """
 
 import numpy as np
@@ -106,3 +110,20 @@ def test_router_gradients_are_counted_once(ranks, key):
     names = [n for n in want if n.endswith("router.w")]
     assert names and all(np.abs(want[n]).max() > 0 for n in names)
     C.close(rec["grads"], want, P.TOL, "router grad", names)
+
+
+@pytest.mark.parametrize("key", ["qwen2_moe-ep", "llama4-ep"])
+def test_stacks_stay_cut_and_tokens_move(ranks, key):
+    for res in ranks:
+        r = res[key]
+        assert len(r["stacks"]) == 3 * _moe_layers(key)  # up, gate, down
+        assert r["stacks_gathered"] == []
+        for kind in ("expert_tokens", "expert_hidden", "expert_return"):
+            assert r["counts"].get(kind, 0) > 0, kind
+
+
+def _moe_layers(key) -> int:
+    from repro_torch import configs
+
+    cfg = configs.get_smoke(CASES[key]["arch"])
+    return sum(cfg.kind(i) == "moe" for i in range(cfg.num_layers))

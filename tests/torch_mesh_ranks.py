@@ -8,6 +8,10 @@ Every input is drawn from a seed, so the parent draws the same ones.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import weakref
+
 import torch
 
 from repro_torch import dispatch
@@ -42,6 +46,63 @@ LAYOUTS = {  # name -> (logical axes, ExecPolicy shard knobs)
                         dict(shard_pipeline=3, shard_impl="ring")),
 }
 MODES = ("msgemm", "int4_dequant", "bf16")
+
+
+# the all-to-all's input a rank: dim 1 splits over 2 and 4 ranks, the
+# blocks land along the last dim
+A2A_SHAPE = (2, 8, 3)
+
+
+def a2a_input(rank: int, what: str, shape=A2A_SHAPE) -> torch.Tensor:
+    """Rank ``rank``'s integer-valued input ``x`` or cotangent ``c`` of the
+    all-to-all (every sum exact)."""
+    g = torch.Generator().manual_seed(500 + 2 * rank + (what == "c"))
+    return torch.randint(-8, 9, shape, generator=g).float()
+
+
+@contextlib.contextmanager
+def recording_gathers(seen: list):
+    """While active, every ``collectives.all_gather`` (the autograd and
+    int8 gathers' too) appends (axis, kind, result shape) to ``seen``."""
+    orig = coll.all_gather
+
+    def record(y, axis, **kw):
+        out = orig(y, axis, **kw)
+        seen.append((axis, kw.get("kind", "all_gather"), tuple(out.shape)))
+        return out
+
+    coll.all_gather = record
+    try:
+        yield seen
+    finally:
+        coll.all_gather = orig
+
+
+def whole_stacks(model, n: int) -> dict:
+    """{name: shape} of the expert-stack leaves of ``model`` (a rank's
+    copy) held cut over 'data' along their out dim (``Experts.
+    data_out``), at the shape a gather over ``n`` 'data' ranks gives."""
+    from repro_torch.models import moe
+
+    out = {}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, moe.Experts):
+            for name in mod.data_out:
+                for leaf, t in getattr(mod, name).params().items():
+                    if leaf != "codebook":
+                        shape = list(t.shape)
+                        shape[1] *= n
+                        out[f"{prefix}.{name}.{leaf}"] = tuple(shape)
+    return out
+
+
+def stacks_gathered(seen: list, stacks: dict) -> list:
+    """The gathers of ``seen`` (:func:`recording_gathers`) over 'data' whose
+    result is a whole stack leaf of ``stacks`` (:func:`whole_stacks`) by
+    shape, outside the tokens' own kinds."""
+    shapes = set(stacks.values())
+    return [g for g in seen if g[0] == "data" and g[2] in shapes
+            and not g[1].startswith("expert_")]
 
 
 def coll_input(rank: int, shape, integer: bool) -> torch.Tensor:
@@ -92,6 +153,36 @@ def collectives_rank(rank, device, n):
                             y, "model", dim=dim)
                     except ValueError:
                         out[f"{key}-{fn}"] = "ValueError"
+        # the all-to-all and its autograd form: this rank's output, the
+        # gradient of sum(y * c), and the adjoint all-to-all of c
+        x = a2a_input(rank, "x").requires_grad_()
+        before = (coll.counts["expert_return"],
+                  coll.nbytes["expert_return"])
+        y = coll.ad_all_to_all(x, "model", split_dim=1, concat_dim=-1,
+                               kind="expert_return")
+        c = a2a_input(rank, "c", tuple(y.shape))
+        (grad,) = torch.autograd.grad((y * c).sum(), x)
+        out["a2a"] = dict(
+            y=y.detach(), grad=grad,
+            plain=coll.all_to_all(x.detach(), "model", split_dim=1,
+                                  concat_dim=-1),
+            adjoint=coll.all_to_all(c, "model", split_dim=-1,
+                                    concat_dim=1),
+            count=coll.counts["expert_return"] - before[0],
+            nbytes=coll.nbytes["expert_return"] - before[1])
+        try:
+            coll.all_to_all(torch.zeros(2, 3, 5), "model", split_dim=-1,
+                            concat_dim=0)
+            out["a2a"]["indivisible"] = None
+        except ValueError:
+            out["a2a"]["indivisible"] = "ValueError"
+        # the autograd gather under a kind of its own: counted so, its
+        # backward a reduce-scatter
+        x = a2a_input(rank, "x").requires_grad_()
+        g = coll.ad_all_gather(x, "model", dim=1, kind="expert_tokens")
+        cg = a2a_input(rank, "c", tuple(g.shape))
+        (ggrad,) = torch.autograd.grad((g * cg).sum(), x)
+        out["ag"] = dict(y=g.detach(), grad=ggrad)
         t = torch.full((3,), float(rank))
         out["broadcast"] = coll.broadcast(t)
         out["broadcast_object"] = coll.broadcast_object({"rank": rank})
@@ -99,6 +190,7 @@ def collectives_rank(rank, device, n):
         out["axis_size"] = compat.axis_size("model")
         out["transport"] = coll.transport(mesh.get_group("model"))
     out["counts"] = dict(coll.counts)
+    out["nbytes"] = dict(coll.nbytes)
     return out
 
 
@@ -157,6 +249,79 @@ def _tuner_round_trip(model, tcfg, mesh, kw, caches) -> dict:
                              if p.shard else None)
                          for k, p in tiles.exec_plans.items()}
     dispatch.set_cache_path(caches[0])  # the run replays the first's
+    return out
+
+
+@contextlib.contextmanager
+def watching_cuts(refs: list):
+    """While active, a weak reference to every weight leaf (each linear's
+    and expert stack's, codebooks aside) of every part
+    ``runtime.serve`` cuts to a rank's copy is appended to ``refs``, as
+    the part is before the cut: the whole model's leaves."""
+    from repro_torch.core.linear import QLinear
+    from repro_torch.runtime import serve as SV
+
+    orig = SV._cut_layout
+
+    def watch(root, cfg, mesh):
+        refs.extend(weakref.ref(t) for m in root.modules()
+                    if isinstance(m, QLinear)
+                    for n, t in m.params().items() if n != "codebook")
+        return orig(root, cfg, mesh)
+
+    SV._cut_layout = watch
+    try:
+        yield refs
+    finally:
+        SV._cut_layout = orig
+
+
+def _left_alive(refs: list, copy) -> dict:
+    """Of the whole model's leaves (``refs``): how many there were, how
+    many are freed, and how many are alive though the rank's ``copy``
+    does not hold them."""
+    gc.collect()
+    own = {id(t) for t in copy.buffers()}
+    alive = [r() for r in refs if r() is not None]
+    return dict(leaves=len(refs), freed=len(refs) - len(alive),
+                stray=sum(id(t) not in own for t in alive))
+
+
+def ownership(mesh) -> dict:
+    """A rank serving qwen2-moe SMOKE (expert stacks, a shared expert, an
+    untied head) under the 'default' rules keeps none of the whole
+    model's weight leaves but those its copy holds: built by
+    ``Engine(mesh=)`` from a whole model the caller then drops, and by
+    the serve CLI's build (``launch.serve.build_model`` with a mesh,
+    ``runtime.serve.init_shard``)."""
+    from repro_torch import configs
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.launch import serve as CLI
+    from repro_torch.models import transformer
+    from repro_torch.serving import Engine
+
+    cfg = configs.get_smoke("qwen2_moe")
+    spec = QuantSpec(mode="msgemm", d=2, scale_block=8)
+    out = {}
+    refs = []
+    with watching_cuts(refs):
+        model = transformer.init_params(
+            cfg, generator=torch.Generator().manual_seed(0), device="cpu",
+            quant=spec)
+        eng = Engine(model, cfg.replace(quant=spec), mesh=mesh,
+                     mesh_rules="default", max_slots=2, block_size=4,
+                     max_model_len=16)
+        del model
+    out["engine"] = _left_alive(refs, eng.params)
+    del eng
+    refs = []
+    args = CLI.parse_args(["--arch", "qwen2_moe", "--smoke", "--device",
+                           "cpu", "--d", "2", "--mesh", "data=2,model=2",
+                           "--mesh-rules", "default"])
+    with watching_cuts(refs), contextlib.redirect_stdout(None):
+        copy = CLI.build_model(args, torch.device("cpu"), mesh=mesh)[0]
+    out["cli"] = _left_alive(refs, copy)
+    out["cli"]["served_on"] = copy.served_on
     return out
 
 
@@ -226,6 +391,7 @@ def engine_rank(rank, device, trees, tcfgs, scenarios, caches=None):
         except (ValueError, NotImplementedError) as e:
             refusals[what] = type(e).__name__
     out["refusals"] = refusals
+    out["ownership"] = ownership(mesh)
     return out
 
 
@@ -383,16 +549,20 @@ def _fsdp_table_paths(mesh) -> dict:
 
 
 def serve_cell_rank(rank, device, cfg, shapes, mesh_shape, axes, seed,
-                    rules=("default", "serve")):
+                    rules=("default", "serve"), moe_cfg=None):
     """A real step of each dry-run serve cell ``shapes`` on this rank of a
     ``mesh_shape`` / ``axes`` mesh under each of ``rules``: the model
     drawn from ``seed`` (whole, then cut by ``shard_params``), the rank's
     inputs built as the dry run builds them (``launch.dryrun.
     serve_inputs``, random tokens, a decode at position ``seq_len - 1``
     over a zero cache).  Returns {rules: {cell: its collectives (count
-    and bytes by kind) and argument bytes}}."""
+    and bytes by kind) and argument bytes}}; with ``moe_cfg`` (a MoE
+    config) also its cells under 'default', as {"moe": ...}."""
     mesh = make_mesh(mesh_shape, axes)
-    return {r: _serve_cells(cfg, shapes, mesh, seed, r) for r in rules}
+    out = {r: _serve_cells(cfg, shapes, mesh, seed, r) for r in rules}
+    if moe_cfg is not None:
+        out["moe"] = _serve_cells(moe_cfg, shapes, mesh, seed, "default")
+    return out
 
 
 def _serve_cells(cfg, shapes, mesh, seed, rules):
@@ -428,22 +598,38 @@ def _serve_cells(cfg, shapes, mesh, seed, rules):
     return out
 
 
-def moe_counts_rank(rank, device, tree, tcfg, shape, axes, kw, prompts,
+def moe_counts_rank(rank, device, tree, tcfg, scenarios, kw, prompts,
                     new):
-    """The continuous engine on a MoE model on a ``shape`` / ``axes``
-    mesh: tokens, the MoE blocks' routed-slot counters summed (kept,
-    total) and dropped_frac."""
+    """The continuous engine on a MoE model, one engine a scenario (name,
+    mesh shape, axes, rule set): tokens, the MoE blocks' routed-slot
+    counters summed (kept, total), dropped_frac, the collectives by kind,
+    the all-gathers that gave a whole expert-stack leaf over 'data'
+    (:func:`stacks_gathered`), the stacks held cut (``data_out``) and the
+    leaves the blocks gather for a step (their ``fsdp`` records)."""
     from repro_torch import convert
     from repro_torch.models import moe
     from repro_torch.serving import Engine, Request
 
-    mesh = make_mesh(shape, axes)
-    model = convert.params_from_jax(tree, tcfg, device="cpu")
-    eng = Engine(model, tcfg, mesh=mesh, **kw)
-    moe.reset_route_counts(model)  # the build's idle steps route too
-    res = eng.run([Request(rid=i, prompt=p, max_new_tokens=new)
-                   for i, p in enumerate(prompts)])
-    counts = torch.stack([m.route_counts for m in moe._moes(model)])
-    return dict(tokens={rid: s.generated for rid, s in res.items()},
-                counts=counts.sum(0).tolist(),
-                dropped=moe.dropped_frac(model))
+    out = {}
+    for name, shape, axes, rules in scenarios:
+        mesh = make_mesh(shape, axes)
+        model = convert.params_from_jax(tree, tcfg, device="cpu")
+        eng = Engine(model, tcfg, mesh=mesh, mesh_rules=rules, **kw)
+        moe.reset_route_counts(model)  # the build's idle steps route too
+        coll.reset_counts()
+        seen = []
+        with recording_gathers(seen):
+            res = eng.run([Request(rid=i, prompt=p, max_new_tokens=new)
+                           for i, p in enumerate(prompts)])
+        counts = torch.stack([m.route_counts for m in moe._moes(model)])
+        out[name] = dict(
+            tokens={rid: s.generated for rid, s in res.items()},
+            counts=counts.sum(0).tolist(), dropped=moe.dropped_frac(model),
+            collectives=dict(coll.counts),
+            stacks_gathered=stacks_gathered(seen, whole_stacks(
+                eng.params, dict(zip(axes, shape)).get("data", 1))),
+            data_out=[m.data_out for m in eng.params.modules()
+                      if isinstance(m, moe.Experts)],
+            fsdp=sorted(f"{p}.{k}" for p, m in eng.params.named_modules()
+                        for k in getattr(m, "fsdp", {}) if p))
+    return out

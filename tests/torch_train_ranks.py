@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import torch_mesh_ranks as MR
 from repro_torch import configs
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.distributed import collectives as coll
@@ -115,8 +116,10 @@ def run_case(case: dict, weights: dict, batches: list, rank: int) -> dict:
     """One mesh training case: a step on each of ``batches`` from
     ``weights``.  Returns for each step, whole: the state before it
     (params, m, v, count), its gradients (and the pods' own, before
-    their mean over 'pod'), the state after it, its metrics; and the
-    collectives of the last step by kind."""
+    their mean over 'pod'), the state after it, its metrics; the
+    collectives of the last step by kind; the expert stacks held cut
+    over 'data' (whole shapes) and the last step's all-gathers that gave
+    one of them (``torch_mesh_ranks.stacks_gathered``)."""
     cfg, tcfg = smoke(case["arch"], case["over"]), train_config(case["tkw"])
     mesh = make_mesh(case["shape"], case["axes"])
     if not member(mesh, rank):
@@ -136,13 +139,22 @@ def run_case(case: dict, weights: dict, batches: list, rank: int) -> dict:
         rec["grads"] = whole(grads, specs, mesh)
         rec["pod_grads"] = whole(pod_grads, specs, mesh)
         del grads, pod_grads
+        seen = []
         if step == len(batches) - 1:
             coll.reset_counts()
-        state, met = RT.train_step(state, b, cfg, tcfg)
+            with MR.recording_gathers(seen):
+                state, met = RT.train_step(state, b, cfg, tcfg)
+        else:
+            state, met = RT.train_step(state, b, cfg, tcfg)
         rec["metrics"] = {k: float(v) for k, v in met.items()}
         rec["after"] = _whole_state(state)
         out["steps"].append(rec)
     out["counts"] = dict(coll.counts)
+    stacks = MR.whole_stacks(state["params"],
+                             dict(zip(case["axes"], case["shape"]))
+                             .get("data", 1))
+    out["stacks"] = stacks
+    out["stacks_gathered"] = MR.stacks_gathered(seen, stacks)
     return out
 
 
