@@ -319,7 +319,7 @@ Phases, any failure exits non-zero before the last line is printed:
    1e-4 relative; counted), 126 msGeMM launches a step on each rank, the
    collectives a step by kind, each rank's step ms and peak GiB.
    ``[mesh-tune ...]``: the shard-variant tuner, two ranks sharing
-   ``cuda:0`` on model=2, full-width gemma-2b at 2 layers with msgemm at
+   ``cuda:0`` on model=2, full-width gemma-2b at 1 layer with msgemm at
    d=2 / scale_block=32 (so wo and down are row-parallel), an engine
    with ``shard_pipeline=0`` and the kernel tiles untuned: every tuned
    key (wo's and down's at the decode and prefill rows) with its
@@ -343,7 +343,10 @@ Phases, any failure exits non-zero before the last line is printed:
    experts a rank, one int4 launch a projection a rank): tokens == the
    single-device engine's on the same weights but at a near-tie (as
    ``[mesh ...]``), every rank's ``dropped_frac`` equal to the single
-   device's.
+   device's.  ``[mesh-fsdp qwen2-moe ...]`` (under ``--only mesh``
+   only, moved there to pay for ``[mesh-seq ...]``): the same model
+   under the 'default' rules on data=2 and (data=2, model=2), its expert
+   stacks held cut over 'data' and the tokens moved to them.
    ``[mesh-static ...]``: the static engine on a model=2 mesh, two
    ranks sharing ``cuda:0``: full-width gemma-2b (its decode cache split
    over the sequence), jamba (8 layers: one period of its pattern, each
@@ -374,7 +377,20 @@ Phases, any failure exits non-zero before the last line is printed:
    nonzero); the checkpoint restored onto one device here, whose
    next step equals the mesh's within 1e-4; each rank's step ms,
    tokens/s and peak GiB, the collectives a step by kind, bytes and
-   seconds.  ``[train-mesh-families ...]`` (under ``--only mesh``
+   seconds.  ``[mesh-seq ...]``: sequence-parallel attention where the
+   query heads cannot take 'model', full-width gemma-2b (8 heads) on
+   model=3 from three ranks sharing ``cuda:0``: ``[mesh-seq serve]`` the
+   static ``generate`` at 2 layers, msgemm weights, f32, 2 x 6,144
+   prompt tokens (2,048 query positions a rank) and 16 new, against one
+   device's on the same weights (the static path's gate; tokens equal
+   but at a near-tie; each rank's msGeMM launches one device's; each
+   layer's prefill gathers its block's K and V and its output), each
+   rank's prefill ms and peak GiB beside one device's;
+   ``[mesh-seq train]`` two steps at 1 layer, f32, no remat, 8 x 132
+   lcg tokens on (data=1, model=3): losses and grad norms within 1e-4 of
+   the card alone, every rank's alike, no hand-written kernel, the
+   collectives a step by kind and bytes.  ``--only mesh-seq`` runs the build and this phase
+   alone.  ``[train-mesh-families ...]`` (under ``--only mesh``
    only since the layout-tuner and FSDP-serving phases, which it pays
    for): every family trains on
    that mesh, full width, one step each, all in one spawn of the four
@@ -5375,8 +5391,8 @@ def mesh_moe_fsdp_rank(rank, device, seed, shape, axes):
 
 
 def phase_mesh_moe_fsdp(card, ref):
-    """qwen2-moe (2 layers, msgemm dense linears, int4 expert stacks, f32
-    pool) served under the 'default' rules by ranks sharing ``cuda:0``
+    """qwen2-moe (``MESH_MOE_LAYERS``, msgemm dense linears, int4 expert
+    stacks, f32 pool) served under the 'default' rules by ranks sharing ``cuda:0``
     over host-staged gloo, on data=2 (two ranks) and on (data=2,
     model=2) (four ranks, expert-parallel): each rank draws only its
     copy, and its expert stacks stay cut over 'data' along their out dim
@@ -5687,12 +5703,12 @@ def phase_mesh_static(card, devices=("cuda:0", "cuda:0"),
 
 
 # --------------------------- the layout tuner and FSDP storage (on a mesh)
-# full-width gemma-2b cut to 2 layers with msgemm weights at
-# MESH_ROW_SPEC (at d=3 / scale_block 36 neither wo's nor down's
-# contraction splits on model=2, so no linear would be row-parallel and
-# nothing would be tuned), the main stream, an f32 pool; its own
-# single-device reference
-MESH_TUNE_LAYERS = 2
+# full-width gemma-2b cut to 1 layer (the cut from 2 pays for
+# [mesh-seq ...]) with msgemm weights at MESH_ROW_SPEC (at d=3 /
+# scale_block 36 neither wo's nor down's contraction splits on model=2,
+# so no linear would be row-parallel and nothing would be tuned), the
+# main stream, an f32 pool; its own single-device reference
+MESH_TUNE_LAYERS = 1
 MESH_TUNE_DIR = ROOT / "chiprun_out" / "mesh_tune"
 
 
@@ -6201,15 +6217,325 @@ def phase_mesh_fsdp(card, ref):
     return dict(ranks=ranks, near_tie_steps=ties, wall_s=wall_s)
 
 
+# ------------------------------- sequence-parallel attention (on a mesh)
+# full-width gemma-2b (8 query heads over its one kv head) on model=3, the
+# smallest mesh whose size does not divide its heads, three ranks sharing
+# cuda:0 over host-staged gloo.  Serving: 2 layers, msgemm weights (the
+# main path's), f32 activations, 2 prompts of 6,144 tokens (2,048 query
+# positions a rank), 16 new tokens through the static ``generate``.
+# Training: 1 layer, f32, two steps of 8 x 132 lcg tokens on (data=1,
+# model=3).
+MESH_SEQ = dict(layers=2, batch=2, prompt=6144, new=16, train_layers=1,
+                train_batch=8, train_seq=132)
+
+
+def mesh_seq_train_cfg():
+    """``MESH_SEQ``'s train config, remat off (the CPU tests hold the
+    split under remat)."""
+    return train_mesh_cfg(MESH_SEQ["train_layers"]).replace(remat=False)
+
+
+class _StepClock(list):
+    """A ``generate`` ``step_logits`` list that also keeps, as each step's
+    logits arrive, the host clock after a device sync and the device's
+    peak allocated bytes so far (its first entries: the prefill's)."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.device, self.at, self.peak = device, [], []
+
+    def append(self, t):
+        import torch
+
+        torch.cuda.synchronize(self.device)
+        self.at.append(time.perf_counter())
+        self.peak.append(torch.cuda.max_memory_allocated(self.device))
+        super().append(t)
+
+
+def mesh_seq_generate(model, cfg, batch, device, mesh=None):
+    """Static ``generate`` of ``MESH_SEQ['new']`` tokens (on ``mesh``
+    with ``model`` a rank's copy), launches and collectives counted from
+    0: its tokens, step logits, prefill ms (the cache's set-up
+    included), decode ms a step, the bytes allocated before it and the
+    peak to the prefill's end."""
+    import torch
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.runtime import serve as SV
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device)
+    for mod in KERNELS.values():
+        mod.launches = 0
+    coll.reset_counts()
+    steps = _StepClock(device)
+    t0 = time.perf_counter()
+    tokens = SV.generate(model, cfg, batch, max_new_tokens=MESH_SEQ["new"],
+                         mesh=mesh, step_logits=steps)
+    return dict(tokens=tokens.tolist(), logits=list(steps),
+                prefill_ms=(steps.at[0] - t0) * 1e3,
+                decode_ms=(steps.at[-1] - steps.at[0]) * 1e3
+                / (len(steps.at) - 1),
+                resident_bytes=resident, prefill_peak_bytes=steps.peak[0],
+                launches={n: m.launches for n, m in KERNELS.items()},
+                collectives={k: [coll.counts[k], coll.nbytes[k]]
+                             for k in sorted(coll.counts)})
+
+
+def mesh_seq_serve_rank(rank, device, seed):
+    """One rank of the sequence-parallel prefill on model=3: rank 0 first
+    runs the whole model's static ``generate`` alone (the single
+    device's tokens, logits, prefill ms and peak) and cuts its copy from
+    that model (``shard_params``); the others draw theirs
+    (``init_shard``: the same draws).  The attention stays whole, as the
+    heads cannot take 'model'.  After a barrier the ranks run
+    ``generate(mesh=)`` together.  Rank 0 compares the step logits;
+    tensors stay in the rank."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.runtime import serve as SV
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((3,), ("model",))
+    cfg0, spec = mesh_static_cfg("gemma_2b", MESH_SEQ["layers"])
+    cfg = cfg0.replace(quant=spec)
+    g = generator(1, device)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (MESH_SEQ["batch"], MESH_SEQ["prompt"]),
+        generator=g, device=device, dtype=torch.int32)}
+    out = dict(rank=rank, device=str(device))
+    single = None
+    if rank == 0:
+        model = transformer.init_params(
+            cfg0, generator=generator(seed, device), device=device,
+            quant=spec)
+        single = mesh_seq_generate(model, cfg, batch, device)
+        local = SV.shard_params(model, cfg, mesh)
+        del model
+    else:
+        local = SV.init_shard(cfg0, mesh, generator=generator(seed, device),
+                              device=device, quant=spec)
+    lay = local.blocks[0].attn.layout
+    out["q_whole"] = lay.q_whole
+    sharding.mesh_barrier(mesh)
+    run = mesh_seq_generate(local, cfg, batch, device, mesh)
+    del local
+    many = run.pop("logits")
+    if single is not None:
+        one = single.pop("logits")
+        diffs = [float((a - b).abs().max()) for a, b in zip(many, one)]
+        top = torch.stack(one, dim=1).float().topk(2, dim=-1).values
+        out.update(diffs=diffs, max_abs_diff=max(diffs),
+                   scale=max(float(t.abs().max()) for t in one),
+                   top2_gap=(top[..., 0] - top[..., 1]).tolist(),
+                   finite=bool(all(t.isfinite().all() for t in many)),
+                   single=single)
+        del one
+    del many
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mesh"] = run
+    return out
+
+
+def mesh_seq_rank(rank, device, seed):
+    """One rank of ``phase_mesh_seq``: :func:`mesh_seq_serve_rank`, then
+    two train steps of ``MESH_SEQ``'s gemma-2b on (data=1, model=3)
+    from ``seed``: their losses, grad norms and ms, the peak bytes, the
+    collectives of each step by kind (count, bytes, seconds) and the
+    launches over both."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import train as RT
+
+    out = {"serve": mesh_seq_serve_rank(rank, device, seed)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    coll.set_timing(True)
+    for mod in KERNELS.values():
+        mod.launches = 0
+    cfg = mesh_seq_train_cfg()
+    tcfg = train_config(TRAIN_STEPS)
+    data = train_stream(batch=MESH_SEQ["train_batch"],
+                        seq=MESH_SEQ["train_seq"])
+    mesh = make_mesh((1, 3), ("data", "model"))
+    state = RT.init_state(cfg, tcfg, generator=generator(seed, device),
+                          device=device, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, gnorms, ms, colls = train_mesh_steps(state, cfg, tcfg, data, 2,
+                                                 device, mesh)
+    out["train"] = dict(
+        rank=rank, losses=losses, grad_norms=gnorms, ms=ms,
+        collectives=colls,
+        peak_bytes=torch.cuda.max_memory_allocated(device),
+        launches={n: m.launches for n, m in KERNELS.items()})
+    return out
+
+
+def phase_mesh_seq(card):
+    """Sequence-parallel attention where the query heads cannot take
+    'model' (``layers.HeadLayout.q_whole``, ``layers.attn_apply_tp``):
+    ``MESH_SEQ``'s gemma-2b on model=3, three ranks sharing cuda:0, one
+    spawn (:func:`mesh_seq_rank`).
+
+    Serving: the static ``generate`` held to one device's on the same
+    weights with the static path's gate (§2 of PERF.md): every step's
+    logits within ``F32_STATE_TOL`` and within ``MESH_STATIC_REL_TOL`` of
+    the largest |logit|, finite; tokens equal, a differing token only at
+    a near-tie (top two within ``2 * F32_STATE_TOL``); every rank returns
+    the same tokens and launches the msGeMM kernel as one device does
+    (the attention's at its block's width); each layer's prefill gathers
+    its block's K and V and its output (the split ran).  Printed: each
+    rank's prefill ms and peak GiB beside the single device's.
+
+    Training: two steps' losses and grad norms within ``TRAIN_MESH_TOL``
+    of the card alone's, every rank's losses the same and grad norms
+    within it too; no hand-written kernel launched; the query positions
+    split.  Printed: each rank's step ms (step 1 pays the process's first
+    backward), peak GiB, the collectives a step by kind and bytes."""
+    import torch
+
+    from repro_torch.device import generator
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import train as RT
+
+    tag, gib = "mesh-seq", 2**30
+    cfg, tcfg = mesh_seq_train_cfg(), train_config(TRAIN_STEPS)
+    data = train_stream(batch=MESH_SEQ["train_batch"],
+                        seq=MESH_SEQ["train_seq"])
+    state = RT.init_state(cfg, tcfg, generator=generator(0, "cuda"),
+                          device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    one = train_mesh_steps(state, cfg, tcfg, data, 2, "cuda")
+    one_peak = torch.cuda.max_memory_allocated()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    both = run_ranks(mesh_seq_rank, 3, 0, devices=["cuda:0"] * 3,
+                     timeout=900)
+    ranks_s = time.perf_counter() - t0
+    ranks, tranks = [r["serve"] for r in both], [r["train"] for r in both]
+    lead = ranks[0]
+    single = lead["single"]
+    layers = MESH_SEQ["layers"]
+    limit = min(F32_STATE_TOL, MESH_STATIC_REL_TOL * lead["scale"])
+    check(lead["finite"], f"[{tag} serve] non-finite logits")
+    check(lead["max_abs_diff"] <= limit,
+          f"[{tag} serve] logits {lead['max_abs_diff']:.3g} from the single "
+          f"device's (more than {limit:.3g}: {F32_STATE_TOL}, or "
+          f"{MESH_STATIC_REL_TOL} of the largest |logit| "
+          f"{lead['scale']:.4g})")
+    got, want = lead["mesh"]["tokens"], single["tokens"]
+    for row, (a, b) in enumerate(zip(got, want)):
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        check(first is None or lead["top2_gap"][row][first]
+              <= 2 * F32_STATE_TOL,
+              f"[{tag} serve] row {row} step {first}: token "
+              f"{a[first] if first is not None else None} != "
+              f"{b[first] if first is not None else None}, not a near-tie")
+    for r in ranks:
+        run = r["mesh"]
+        check(r["q_whole"], f"[{tag} serve] rank {r['rank']}: the heads "
+              "split over model=3")
+        check(run["tokens"] == got,
+              f"[{tag} serve] rank {r['rank']} returned other tokens")
+        check(run["launches"] == single["launches"],
+              f"[{tag} serve] rank {r['rank']} launches {run['launches']} "
+              f"!= one device's {single['launches']}")
+        coll_ = run["collectives"]
+        check(coll_.get(L.SEQ_KV, [0])[0] == 2 * layers
+              and coll_.get(L.SEQ_OUT, [0])[0] == layers,
+              f"[{tag} serve] rank {r['rank']}: the prefill did not split "
+              f"its query positions ({coll_})")
+    same = sum(a == b for a, b in zip(got, want))
+    B, S = MESH_SEQ["batch"], MESH_SEQ["prompt"]
+    print(f"[{tag} serve] gemma-2b full width, {layers} layers, msgemm, "
+          f"f32, {B} x {S} prompt tokens + {MESH_SEQ['new']} on model=3 "
+          f"({S // 3} query positions a rank), 3 ranks on one card "
+          f"({card}): tokens == one device's on {same}/{B} rows; logits "
+          f"within {lead['max_abs_diff']:.3g} (at most {limit:.3g}; "
+          f"prefill step {lead['diffs'][0]:.3g}, decode steps "
+          f"{max(lead['diffs'][1:]):.3g}; largest |logit| "
+          f"{lead['scale']:.4g})", flush=True)
+    print(f"[{tag} serve] prefill: one device {single['prefill_ms']:.1f} "
+          f"ms, peak {single['prefill_peak_bytes'] / gib:.3f} GiB "
+          f"(resident {single['resident_bytes'] / gib:.3f}); "
+          + "; ".join(f"rank {r['rank']} {r['mesh']['prefill_ms']:.1f} ms, "
+                      f"peak {r['mesh']['prefill_peak_bytes'] / gib:.3f} "
+                      f"GiB (resident "
+                      f"{r['mesh']['resident_bytes'] / gib:.3f})"
+                      for r in ranks)
+          + f"; decode {lead['mesh']['decode_ms']:.2f} ms a step (one "
+          f"device {single['decode_ms']:.2f}); launches "
+          f"{lead['mesh']['launches']}; collectives a run "
+          + ", ".join(f"{k} {c} ({b / 2**20:.1f} MiB)"
+                      for k, (c, b) in lead["mesh"]["collectives"].items()),
+          flush=True)
+    tl = tranks[0]
+    rel = max(max(abs(a - b) / abs(b) for a, b in zip(tl["losses"], one[0])),
+              max(abs(a - b) / abs(b)
+                  for a, b in zip(tl["grad_norms"], one[1])))
+    check(rel <= TRAIN_MESH_TOL,
+          f"[{tag} train] losses {tl['losses']} / grad norms "
+          f"{tl['grad_norms']} vs the card alone's {one[0]} / {one[1]}: "
+          f"rel {rel:.2e} > {TRAIN_MESH_TOL}")
+    for r in tranks:
+        check(r["losses"] == tl["losses"] and all(
+            abs(a - b) <= TRAIN_MESH_TOL * abs(b)
+            for a, b in zip(r["grad_norms"], tl["grad_norms"])),
+              f"[{tag} train] rank {r['rank']}'s metrics {r['losses']} / "
+              f"{r['grad_norms']} differ from rank 0's")
+        check(r["launches"] == {n: 0 for n in r["launches"]},
+              f"[{tag} train] rank {r['rank']} launched hand-written "
+              f"kernels: {r['launches']}")
+        check(all(c.get(L.SEQ_OUT, [0])[0] > 0 for c in r["collectives"]),
+              f"[{tag} train] rank {r['rank']}: a step did not split its "
+              "query positions")
+    per_step = tl["collectives"][-1]
+    print(f"[{tag} train] gemma-2b full width, "
+          f"{MESH_SEQ['train_layers']} layer, f32, no remat, "
+          f"{MESH_SEQ['train_batch']} x {MESH_SEQ['train_seq']} tokens on "
+          f"(data=1, model=3), 3 ranks on one card ({card}): losses "
+          f"{tl['losses']}, grad norms {tl['grad_norms']} vs the card "
+          f"alone's {one[0]} / {one[1]} (rel {rel:.2e}, tol "
+          f"{TRAIN_MESH_TOL}); step 2 "
+          + ", ".join(f"rank {r['rank']} {r['ms'][1]:.1f} ms (step 1 "
+                      f"{r['ms'][0]:.1f}), peak "
+                      f"{r['peak_bytes'] / gib:.2f} GiB" for r in tranks)
+          + f" (card alone {one[2][1]:.1f} ms, peak {one_peak / gib:.2f}); "
+          "collectives of step 2 (rank 0): "
+          + ", ".join(f"{k} {c} ({b / 2**20:.1f} MiB, {t * 1e3:.0f} ms)"
+                      for k, (c, b, t) in per_step.items())
+          + f"; ranks' run {ranks_s:.1f}s", flush=True)
+    return dict(serve=ranks, train=dict(ranks=tranks, one_card=dict(
+        losses=one[0], grad_norms=one[1], ms=one[2], peak_bytes=one_peak),
+        rel=rel), ranks_s=ranks_s)
+
+
 def phase_mesh(card, ref=None, only=False):
     """The mesh phases: the in-process kernel check, the two-rank engine
     against ``ref`` (the main phase's run with its top-two gaps; built
-    here when None), FSDP storage, the two-rank MoE engine, qwen2-moe
-    under the 'default' rules (tokens moved to the expert stacks), each
-    on two cards joined by NCCL too where two are visible, training on a
-    mesh.  With ``only`` (``--only mesh``) also the layout tuner, the
-    static engine, the calibration of expert stacks and every family's
-    training (moved there from the whole run to pay for newer phases)."""
+    here when None), FSDP storage, the two-rank MoE engine, each on two
+    cards joined by NCCL too where two are visible, training on a mesh,
+    sequence-parallel attention.  With ``only`` (``--only mesh``) also
+    the layout tuner, qwen2-moe under the 'default' rules (tokens moved
+    to the expert stacks), the static engine, the calibration of expert
+    stacks and every family's training (moved there from the whole run
+    to pay for newer phases)."""
     import torch
 
     out = {"kernels": phase("mesh-kernels", phase_mesh_kernels)}
@@ -6231,8 +6557,12 @@ def phase_mesh(card, ref=None, only=False):
         print("[mesh-nccl] skipped: one card (two ranks on two cards, "
               "joined by NCCL, run where two are visible)", flush=True)
     out["moe"] = phase("mesh-moe", phase_mesh_moe, card)
-    out["moe_fsdp"] = phase("mesh-fsdp-moe", phase_mesh_moe_fsdp, card,
-                            out["moe"]["ref"])
+    if only:
+        out["moe_fsdp"] = phase("mesh-fsdp-moe", phase_mesh_moe_fsdp, card,
+                                out["moe"]["ref"])
+    else:
+        print("[mesh-fsdp qwen2-moe ...] runs under --only mesh (moved "
+              "there to pay for [mesh-seq ...])", flush=True)
     two = ("cuda:0", "cuda:1")
     if torch.cuda.device_count() >= 2:
         out["moe_nccl"] = phase("mesh-moe-nccl", phase_mesh_moe, card, two,
@@ -6248,6 +6578,7 @@ def phase_mesh(card, ref=None, only=False):
         print("[mesh-static] and [calib-moe] run under --only mesh (moved "
               "there to pay for [mesh-fsdp qwen2-moe ...])", flush=True)
     out["train_mesh"] = phase("train-mesh", phase_train_mesh, card)
+    out["seq"] = phase("mesh-seq", phase_mesh_seq, card)
     if only:
         out["train_families"] = phase("train-mesh-families",
                                       phase_train_families, card)
@@ -6853,12 +7184,14 @@ def main() -> int:
                          "rows per block, flash tiles and stages, "
                          "paged-attention chunk lengths, int4 GeMM split "
                          "counts, or one of those (chiprun_out/sweep.json)")
-    ap.add_argument("--only", choices=("train", "mesh"),
+    ap.add_argument("--only", choices=("train", "mesh", "mesh-seq"),
                     help="only build, then run this phase (a probe: no "
                          "kernels line and no ok line); 'mesh' runs the "
                          "mesh phases (kernels at local shapes, the "
                          "two-rank engine, the calibration of expert "
-                         "stacks, training on a mesh, the dry run)")
+                         "stacks, training on a mesh, sequence-parallel "
+                         "attention, the dry run); 'mesh-seq' the "
+                         "sequence-parallel attention alone")
     args = ap.parse_args()
     try:
         import torch
@@ -6919,6 +7252,8 @@ def main() -> int:
     if args.only:
         if args.only == "train":
             res = phase(args.only, phase_train)
+        elif args.only == "mesh-seq":
+            res = phase(args.only, phase_mesh_seq, card)
         else:
             res = phase_mesh(card, only=True)
             res["dryrun"] = phase("dryrun", phase_dryrun)
@@ -7000,7 +7335,8 @@ def main() -> int:
             "kernel", "torch")))] + [recurrent["jamba"]] + [
         r for key in ("moe", "moe_nccl") for r in mesh.get(key, {}).get(
             "ranks", [])] + [
-        r for run in mesh["moe_fsdp"].values() for r in run["ranks"]] + [
+        r for run in mesh.get("moe_fsdp", {}).values()
+        for r in run["ranks"]] + [
         r["jamba_v01"] for key in ("static", "static_nccl")
         for r in mesh.get(key, {}).get("ranks", [])]
     # the static mesh runs of the families without experts
@@ -7042,7 +7378,9 @@ def main() -> int:
                if "tune" in mesh else [])
             + [r[k] for r in mesh["fsdp"]["ranks"]
                for k in ("default", "serve", "whisper")]
-            + mesh.get("engine_nccl", {}).get("ranks", []) + static_runs)
+            + mesh.get("engine_nccl", {}).get("ranks", []) + static_runs
+            + [r["mesh"] for r in mesh["seq"]["serve"]]
+            + [mesh["seq"]["serve"][0]["single"]])
     launched = {name: sum(r["launches"][name] for r in runs
                           if name in r["launches"])
                 for name in ("msgemm", "int4_matmul", "paged_attention")}

@@ -222,6 +222,23 @@ def spec_for(axes: tuple, shape: tuple, *, mesh=None, kind: str = "act",
                     act if kind == "act" else par)
 
 
+def seq_axis(S: int, heads: int = 0, *, mesh=None) -> str | None:
+    """The mesh axis a full-sequence attention of ``S`` query positions
+    splits them over, or None: the 'seq' entry of its queries' spec
+    (batch, seq, heads, head_dim), as the reference pins them, under the
+    active rules.  ``ACT_RULES["seq"]`` gives 'seq' the 'model' axis
+    where 'heads' (before it in PRIORITY) did not take it and S divides
+    its size: the sequence-parallel fallback.  ``heads``: the query
+    heads where the port's layout could split them over 'model'; 0 where
+    it cannot (an uneven grouping over the kv heads), so they leave the
+    axis to 'seq' as heads that fail divisibility do."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return None
+    axes = ("batch", "seq", "heads" if heads else "none", "head_dim")
+    return spec_for(axes, (1, S, heads or 1, 1), mesh=mesh)[1]
+
+
 # ------------------------------------------------------ per-rank tensors
 def coord(mesh, axis: str) -> int:
     """This rank's index along ``axis``."""

@@ -37,7 +37,9 @@ tables.  Every cell records:
   holds, ``torch.distributed._tools.mem_tracker.MemTracker`` around it
   (XLA's ``memory_analysis`` in the reference);
 * ``collectives`` — by kind, the count and result bytes of what the step
-  issues (``distributed.collectives.counts`` / ``nbytes``);
+  issues (``distributed.collectives.counts`` / ``nbytes``; where the
+  query heads cannot take 'model', the query blocks' K/V and output
+  gathers as ``seq_kv_gather`` and ``seq_out_gather``);
 * ``step_s`` — the seconds the step took here (Python's, not a device's).
 
 Train cells run for every architecture; a cell whose config a mesh

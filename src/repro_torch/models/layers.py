@@ -24,6 +24,17 @@ each rank's positions, decode writes the new K/V on the rank that owns
 ``pos``, and every rank attends every head over its positions, the ranks'
 partial softmax combined (:func:`_sdpa_split`).
 
+Where the query heads cannot take 'model' (:attr:`HeadLayout.q_whole`)
+every rank holds the attention's weights whole, and a full-sequence pass
+(prefill, the encoder, a prefill's cross attention) splits its query
+positions over 'model' instead, as the reference's 'seq' rule does
+(``sharding.seq_axis``: where S divides the axis): this rank's block of
+S/M positions runs the projections, its queries attend over every
+key (K and V computed on the block and gathered), ``wo`` and the
+residual act on the block, and the blocks' outputs are gathered
+(:func:`_attn_seq`).  A softmax row sees all its keys, so no partial
+softmax is combined.
+
 A training step on a mesh runs :func:`attn_apply_tp` instead, on the
 weights ``constrain_params`` gathered over 'data' — the decoder's causal
 attention, the encoder's non-causal one and the cross attention: with
@@ -31,8 +42,10 @@ the query heads split over 'model', wq is column-parallel, its heads
 stay sharded through the attention (qk-norm too) into a row-parallel
 ``wo`` that ends in a psum, and each rank computes the kv heads its
 query heads read (whole when they do not split: MQA), of the encoder's
-output in a cross attention; otherwise every rank runs the whole
-attention.
+output in a cross attention; where the heads cannot split (their count,
+or an uneven grouping over the kv heads) the query positions split as
+in serving, on weights gathered whole; otherwise every rank runs the
+whole attention.
 """
 
 from __future__ import annotations
@@ -49,6 +62,9 @@ from repro_torch.distributed import sharding
 from repro_torch.models import common
 
 NEG_INF = -1e30  # finite mask value: masked entries get probability exactly 0
+# the collectives of a query block (``collectives.counts`` kinds): the
+# block's K and V gathered over the sequence, and the blocks' outputs
+SEQ_KV, SEQ_OUT = "seq_kv_gather", "seq_out_gather"
 
 
 # ---------------------------------------------------------------- RoPE
@@ -92,6 +108,14 @@ class HeadLayout(NamedTuple):
     def seq_split(self) -> bool:
         """The static cache splits its sequence over 'model'."""
         return self.M > 1 and not self.kv_local
+
+    @property
+    def q_whole(self) -> bool:
+        """The query heads cannot take 'model': every rank holds wq, wk,
+        wv and wo whole, and a full-sequence pass splits its query
+        positions over 'model' instead (:func:`_attn_seq`).  The cache
+        then splits its sequence too (:attr:`seq_split`)."""
+        return self.M > 1 and not self.q_local
 
 
 def head_layout(cfg, mesh) -> HeadLayout:
@@ -250,26 +274,69 @@ def view_mask(Skv: int, positions: torch.Tensor, *, window: int = 0
     return m
 
 
+def _attend(cfg, q, k, v, *, causal: bool = True, window: int = 0,
+            offset: int = 0) -> torch.Tensor:
+    """The queries ``q`` (B, Sq, H, Dh), at positions offset..offset+Sq-1,
+    over every key ``k``/``v`` (B, Skv, Hk, Dh): causal (+ window) at
+    their true positions, or unmasked.  Above ``cfg.attn_chunk`` the
+    queries run in chunks of it (exact math, bounded logits memory)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    C = cfg.attn_chunk
+    if not (C and Sq > C and Sq % C == 0):
+        C = Sq
+    outs = [_sdpa(cfg, q[:, i:i + C], k, v,
+                  causal_mask(C, Skv, window=window, offset=offset + i,
+                              device=q.device) if causal else None)
+            for i in range(0, Sq, C)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _seq_block(S: int, lay: HeadLayout, axis: str | None):
+    """(first position, length) of this rank's block of ``S`` query
+    positions split over ``axis`` (None: every position)."""
+    if axis is None:
+        return 0, S
+    n = S // lay.M
+    return lay.r * n, n
+
+
 def attn_apply(p: Attention, cfg, x, positions, *, window: int = 0,
                causal: bool = True, return_kv: bool = False, residual=None):
     """Full-sequence self-attention (prefill).  ``residual`` rides the
     output projection's epilogue.  Above ``cfg.attn_chunk`` the queries
-    run in chunks (exact math, bounded logits memory)."""
-    B, S, _ = x.shape
+    run in chunks (exact math, bounded logits memory).  Where the query
+    heads cannot take 'model' the query positions split over it
+    (:func:`_attn_seq`); ``return_kv`` returns every position's K/V."""
     lay = p.layout
+    axis = sharding.seq_axis(x.shape[1]) if lay.q_whole else None
+    if axis is not None:
+        return _attn_seq(p, cfg, x, positions, axis, window=window,
+                         causal=causal, return_kv=return_kv,
+                         residual=residual)
     q, k, v = _qkv(p, cfg, x, positions)
-    C = cfg.attn_chunk
-    if C and S > C and S % C == 0:
-        outs = [_sdpa(cfg, q[:, i:i + C], k, v,
-                      causal_mask(C, S, window=window, offset=i,
-                                  device=x.device) if causal else None)
-                for i in range(0, S, C)]
-        out = torch.cat(outs, dim=1)
-    else:
-        m = causal_mask(S, S, window=window, device=x.device) \
-            if causal else None
-        out = _sdpa(cfg, q, k, v, m)
+    out = _attend(cfg, q, k, v, causal=causal, window=window)
     out = _wo(p, cfg, out, local=lay.q_local, residual=residual)
+    return (out, k, v) if return_kv else out
+
+
+def _attn_seq(p: Attention, cfg, x, positions, axis: str, *, window: int,
+              causal: bool, return_kv: bool, residual):
+    """:func:`attn_apply` with the query positions split over ``axis``
+    (the attention's weights whole on every rank): this rank's block
+    [r·S/M, (r+1)·S/M) of ``x`` runs wq, wk and wv, qk-norm and RoPE at
+    its true positions; the block's K and V are gathered over ``axis``
+    (``SEQ_KV``), its queries attend over every key, causal at their
+    true offset; ``wo`` and the residual act on the block, and the
+    blocks' outputs are gathered (``SEQ_OUT``).  Returns the whole
+    output (B, S, d), and with ``return_kv`` the whole K/V."""
+    lo, n = _seq_block(x.shape[1], p.layout, axis)
+    q, k, v = _qkv(p, cfg, x.narrow(1, lo, n), positions.narrow(1, lo, n))
+    k = coll.all_gather(k, axis, dim=1, kind=SEQ_KV)
+    v = coll.all_gather(v, axis, dim=1, kind=SEQ_KV)
+    out = _attend(cfg, q, k, v, causal=causal, window=window, offset=lo)
+    out = _wo(p, cfg, out, local=False, residual=None if residual is None
+              else residual.narrow(1, lo, n))
+    out = coll.all_gather(out, axis, dim=1, kind=SEQ_OUT)
     return (out, k, v) if return_kv else out
 
 
@@ -317,8 +384,16 @@ def cross_attn_apply(p: Attention, cfg, x, enc_k, enc_v, *, residual=None,
     (B, S_src, Hk, Dh): q from ``wq``, no mask and no RoPE, ``residual``
     riding ``wo``'s epilogue.  ``split``: ``enc_k``/``enc_v`` are this
     rank's block of the source positions (the decode cache's, where its
-    sequence splits), combined over the ranks."""
+    sequence splits), combined over the ranks.  Otherwise, where the
+    query heads cannot take 'model', the queries split over the sequence
+    as in :func:`_attn_seq` (every source position on every rank)."""
     lay = p.layout
+    axis = sharding.seq_axis(x.shape[1]) if lay.q_whole and not split \
+        else None
+    lo, n = _seq_block(x.shape[1], lay, axis)
+    if axis is not None:  # a prefill's queries, split over the sequence
+        x = x.narrow(1, lo, n)
+        residual = None if residual is None else residual.narrow(1, lo, n)
     q = common.linear_apply(p.wq, x, cfg.quant, in_dim=cfg.d_model,
                             tag="wq", local=lay.q_local)
     q = q.reshape(*x.shape[:2], -1, cfg.head_dim)
@@ -327,7 +402,9 @@ def cross_attn_apply(p: Attention, cfg, x, enc_k, enc_v, *, residual=None,
                           sharding.TP_AXIS)
         return _wo(p, cfg, out, local=False, residual=residual)
     out = _sdpa(cfg, q, enc_k, enc_v, None)
-    return _wo(p, cfg, out, local=lay.q_local, residual=residual)
+    out = _wo(p, cfg, out, local=lay.q_local, residual=residual)
+    return out if axis is None else \
+        coll.all_gather(out, axis, dim=1, kind=SEQ_OUT)
 
 
 def cross_kv(p: Attention, cfg, enc_out):
@@ -418,20 +495,37 @@ def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
     after ``wo``: causal (a decoder's), or with ``causal=False`` an
     encoder's non-causal self-attention, or with ``kv`` (B, S_src, d),
     the encoder's output, a decoder's cross attention (keys and values
-    from ``kv``, no mask and no RoPE: :func:`cross_attn_apply`).  When
-    the query heads divide the ``axis`` size M, this rank runs heads
-    [r·H/M, (r+1)·H/M) (r its coordinate): wq's block is its heads' rows,
-    ``x`` (and ``kv``) enter through ``ad_identity``, the kv heads those
-    heads read come from wk/wv's block, or from the whole weights
-    (gathered over ``axis`` when their rows split finer than a head), the
-    qk-norm scales (over ``head_dim``, so local) through ``ad_identity``,
-    and ``wo``'s block ends in a psum.  Otherwise each rank runs every
-    head, on weights gathered whole."""
+    from ``kv``, no mask and no RoPE: :func:`cross_attn_apply`).
+
+    Where the query heads split over ``axis`` (:func:`heads_split`, M
+    ranks, r this one's coordinate), this rank runs heads [r·H/M,
+    (r+1)·H/M): wq's block is its heads' rows, ``x`` (and ``kv``) enter
+    through ``ad_identity``, the kv heads those heads read come from
+    wk/wv's block, or from the whole weights (gathered over ``axis`` when
+    their rows split finer than a head), the qk-norm scales (over
+    ``head_dim``, so local) through ``ad_identity``, and ``wo``'s block
+    ends in a psum.
+
+    Otherwise, where S divides M (``sharding.seq_axis``: the reference's
+    'seq' rule), the query positions split: the weights are gathered
+    whole, each leaf's gradient summed over the ranks (their consumers
+    see this rank's positions only), ``x`` (and ``kv``) and the norm
+    scales enter through ``ad_identity``; this rank's block [r·S/M,
+    (r+1)·S/M) of ``x`` runs the projections, RoPE at its true
+    positions; K and V are computed on the block (of ``kv``'s positions
+    too, where they divide M; else on all of them) and gathered
+    (``ad_all_gather``, whose backward reduce-scatters); the block's
+    queries attend over every key at their true offset, ``wo`` runs on
+    the block, and its output is gathered (its backward takes this
+    rank's block of the whole cotangent), so the residual comes out
+    whole.  Otherwise each rank runs every head, on weights gathered
+    whole."""
     mesh = sharding.active_mesh()
     M = compat.axes_of(mesh).get(axis, 1)
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B, S, _ = x.shape
-    tp = M > 1 and h % M == 0
+    tp = heads_split(cfg, M)
+    seq = sharding.seq_axis(S, h if tp else 0, mesh=mesh)
     # qk-norm on self-attention only, as attn_apply / cross_attn_apply
     norms = (p.q_norm.scale, p.k_norm.scale) \
         if cfg.qk_norm and kv is None else None
@@ -445,22 +539,37 @@ def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
                 f"{cfg.name}: wq {tuple(wq.shape)} / wo {tuple(wo.shape)} "
                 f"are not split over {axis!r} as the heads are (rules "
                 f"{sharding.active_rules()!r})")
+        wk = _kv_rows(p.wk.w, cfg, M, kv0, kv1, axis)
+        wv = _kv_rows(p.wv.w, cfg, M, kv0, kv1, axis)
+    else:
+        hl = h
+        part = seq is not None
+
+        def whole(w, rows, dim):
+            return common.whole_rows(w, rows, dim, axis, partial=part)
+
+        wq, wk = whole(p.wq.w, h * dh, 0), whole(p.wk.w, hk * dh, 0)
+        wv, wo = whole(p.wv.w, hk * dh, 0), whole(p.wo.w, h * dh, 1)
+    if tp or seq is not None:
         x = coll.ad_identity(x, axis)
         if kv is not None:
             kv = coll.ad_identity(kv, axis)
-        wk = _kv_rows(p.wk.w, cfg, M, kv0, kv1, axis)
-        wv = _kv_rows(p.wv.w, cfg, M, kv0, kv1, axis)
         if norms is not None:
             norms = tuple(coll.ad_identity(n, axis) for n in norms)
-    else:
-        hl = h
-        whole = common.whole_rows
-        wq = whole(p.wq.w, h * dh, 0, axis, partial=False)
-        wk = whole(p.wk.w, hk * dh, 0, axis, partial=False)
-        wv = whole(p.wv.w, hk * dh, 0, axis, partial=False)
-        wo = whole(p.wo.w, h * dh, 1, axis, partial=False)
     src = x if kv is None else kv
-    q = common.local_linear(wq, x, tag="wq").reshape(B, S, hl, dh)
+    lo, n, kv_seq = 0, S, False
+    if seq is not None:
+        r = sharding.coord(mesh, axis)
+        n = S // M
+        lo = r * n
+        x = x.narrow(1, lo, n)
+        if positions is not None:
+            positions = positions.narrow(1, lo, n)
+        kv_seq = src.shape[1] % M == 0
+        if kv_seq:
+            ns = src.shape[1] // M
+            src = src.narrow(1, r * ns, ns)
+    q = common.local_linear(wq, x, tag="wq").reshape(B, n, hl, dh)
     k = common.local_linear(wk, src, tag="wk").reshape(
         B, src.shape[1], -1, dh)
     v = common.local_linear(wv, src, tag="wv").reshape(
@@ -468,48 +577,43 @@ def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
     if norms is not None:
         q = common.norm_apply(common.Norm(norms[0]), q, "rmsnorm")
         k = common.norm_apply(common.Norm(norms[1]), k, "rmsnorm")
+    if kv is None and cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_seq:
+        k = coll.ad_all_gather(k, axis, dim=1, kind=SEQ_KV)
+        v = coll.ad_all_gather(v, axis, dim=1, kind=SEQ_KV)
     if kv is not None:  # cross attention: every source position
         out = _sdpa(cfg, q, k, v, None)
     else:
-        if cfg.use_rope:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-        C = cfg.attn_chunk
-        if C and S > C and S % C == 0:
-            out = torch.cat([_sdpa(cfg, q[:, i:i + C], k, v,
-                                   causal_mask(C, S, window=window,
-                                               offset=i, device=x.device)
-                                   if causal else None)
-                             for i in range(0, S, C)], dim=1)
-        else:
-            out = _sdpa(cfg, q, k, v, causal_mask(
-                S, S, window=window, device=x.device) if causal else None)
+        out = _attend(cfg, q, k, v, causal=causal, window=window,
+                      offset=lo)
     y = common.local_linear(wo, out, tag="wo")
     if tp:
         y = coll.ad_psum(y, axis)
+    elif seq is not None:
+        y = coll.ad_all_gather(y, axis, dim=1, reduce_grad=False,
+                               kind=SEQ_OUT)
     return common.add_residual(y, residual)
 
 
-def _kv_span(cfg, M: int, r: int) -> tuple[int, int]:
+def _kv_span(cfg, M: int, r: int) -> tuple[int, int] | None:
     """(first, last + 1) of the kv heads that rank ``r``'s H/M query
-    heads read; NotImplementedError where those heads do not group
-    evenly over them."""
+    heads read; None where those heads do not group evenly over them."""
     h, hk = cfg.num_heads, cfg.num_kv_heads
     hl, g = h // M, h // hk
     q0 = r * hl
     kv0, kv1 = q0 // g, (q0 + hl - 1) // g + 1
     if hl % (kv1 - kv0) or any((q0 + i) // g - kv0 != i // (hl // (
             kv1 - kv0)) for i in range(hl)):
-        raise NotImplementedError(
-            f"{cfg.name}: {hl} query heads a rank do not group evenly "
-            f"over kv heads {kv0}..{kv1 - 1} (ROADMAP A13c)")
+        return None
     return kv0, kv1
 
 
-def check_train_heads(cfg, M: int) -> None:
-    """NotImplementedError where a training step on a mesh of ``M``
-    ranks over 'model' cannot split the query heads (:func:`_kv_span`
-    of every rank)."""
-    if M > 1 and cfg.num_heads % M == 0:
-        for r in range(M):
-            _kv_span(cfg, M, r)
+def heads_split(cfg, M: int) -> bool:
+    """Whether a training step on a mesh of ``M`` ranks over 'model'
+    splits the query heads: they divide M and each rank's group evenly
+    over the kv heads they read (:func:`_kv_span`).  Otherwise the query
+    positions split where they divide M (:func:`attn_apply_tp`)."""
+    return M > 1 and cfg.num_heads % M == 0 and all(
+        _kv_span(cfg, M, r) is not None for r in range(M))

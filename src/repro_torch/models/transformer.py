@@ -26,10 +26,11 @@ static ``runtime.serve.generate``, the dry run's serve cells) every
 serving mode (``prefill``, ``decode``, ``paged``, ``encode``) runs every
 block kind on this rank's shard of a model cut by
 ``runtime.serve.shard_params``, in the training layout: attention on this
-rank's heads, the MLP and a MoE block's experts (expert-parallel, or
-each expert tensor-parallel) on its block of the hidden dim, a Mamba and
-an mLSTM on its channels, each row-parallel projection ending in one
-collective; an sLSTM runs whole.  The embedding table may hold this
+rank's heads (where they cannot take 'model', on whole weights, a full
+sequence's query positions split over 'model' instead), the MLP and a
+MoE block's experts (expert-parallel, or each expert tensor-parallel) on
+its block of the hidden dim, a Mamba and an mLSTM on its channels, each
+row-parallel projection ending in one collective; an sLSTM runs whole.  The embedding table may hold this
 rank's vocab rows (:func:`vocab_axis`): the lookup sums the ranks' rows
 and the tied head gathers the ranks' logit columns; a vision frontend's
 patch embeddings enter whole on every rank.  Under the 'default' rules
@@ -50,7 +51,9 @@ stay cut, the tokens move to them; with
 ``cfg.save_gathered_weights`` outside the group's remat, so the
 backward pass does not gather them again); the blocks run
 tensor-parallel over 'model' (``layers.attn_apply_tp``,
-``common.mlp_apply_tp``); the vocab-split embedding's lookup ends in a
+``common.mlp_apply_tp``; attention whose query heads cannot take 'model'
+splits its query positions there, the reference's 'seq' rule, and
+gathers its output, so the residual stays whole); the vocab-split embedding's lookup ends in a
 psum, and the logits stay split over the vocab into the loss.  Every
 block kind trains so (:func:`_block_apply_tp`: a MoE block's experts
 expert-parallel or each tensor-parallel, a Mamba on its channels, an
@@ -294,7 +297,8 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
     elif mode == "decode":
         x, _, _ = layers.attn_decode(p.attn, cfg, h, cache["k"], cache["v"],
                                      pos, window=window, residual=x)
-    elif cache is not None:  # prefill
+    elif cache is not None:  # prefill: every position's K/V, whatever
+        # block of the queries this rank ran; it writes its cache block
         x, k, v = layers.attn_apply(p.attn, cfg, h, positions, window=window,
                                     return_kv=True, residual=x)
         layers.write_prefill(cache, "k", k, p.attn.layout)
@@ -325,16 +329,16 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
 def check_train_mesh(cfg: ModelConfig, mesh=None) -> None:
     """NotImplementedError (naming ROADMAP A13c) where a training step of
     ``cfg`` cannot run on ``mesh`` (a ``DeviceMesh``, or any object whose
-    ``shape`` is its {axis: size}; None: no check): the query heads a
-    rank would run do not group evenly over the kv heads; or a
-    two-halves leaf (``sharding.HALVES``: Mamba's ``in_proj``, the
-    mLSTM's ``xl_up``) whose rows split over 'model' while its halves do
-    not.  Every block kind, an encoder, a frontend and qk-norm train on
-    a mesh."""
+    ``shape`` is its {axis: size}; None: no check): a two-halves leaf
+    (``sharding.HALVES``: Mamba's ``in_proj``, the mLSTM's ``xl_up``)
+    whose rows split over 'model' while its halves do not.  Every block
+    kind, an encoder, a frontend and qk-norm train on a mesh; query heads
+    that cannot split over 'model' (their count, or an uneven grouping
+    over the kv heads) split the query positions instead
+    (``layers.attn_apply_tp``)."""
     M = sharding.tp_size(mesh) if mesh is not None else 1
     if M == 1:
         return
-    layers.check_train_heads(cfg, M)
     halves = {"mamba": (cfg.mamba_d_inner, ("mamba", "mamba_moe")),
               "mLSTM": (xlstm._dims(cfg)[0], ("mlstm",))}
     for name, (half, kinds) in halves.items():
@@ -365,9 +369,10 @@ def _block_apply_tp(p, cfg: ModelConfig, kind: str, x, positions, *,
                     causal: bool = True):
     """A block of a training step on a mesh, on its weights gathered over
     'data', tensor-parallel over 'model' where its layout splits: the
-    attention kinds (``layers.attn_apply_tp``; ``causal=False`` for an
-    encoder block, and a decoder block's cross attention over
-    ``enc_out``), the MLP or the MoE FFN, a Mamba on its channels, an
+    attention kinds (``layers.attn_apply_tp``, over the query positions
+    where the heads cannot split; ``causal=False`` for an encoder block,
+    and a decoder block's cross attention over ``enc_out``), the MLP or
+    the MoE FFN, a Mamba on its channels, an
     mLSTM on its heads, an sLSTM whole (``mamba.mamba_apply_tp``,
     ``xlstm.*_block_apply_tp``).  A MoE FFN's aux shares are added into
     ``aux``."""
@@ -703,9 +708,10 @@ def _forward_tp(params: Transformer, cfg: ModelConfig, batch,
 
 def _encode_tp(params: Transformer, cfg: ModelConfig, frames, top: dict):
     """:func:`encode` of a training step on a mesh: each encoder block
-    gathered over 'data' and run non-causal and tensor-parallel (no
-    remat, as the single device's encoder), then its final norm (from
-    the gathered top-level leaves ``top``)."""
+    gathered over 'data' and run non-causal and tensor-parallel (over
+    the frames where the heads cannot split; no remat, as the single
+    device's encoder), then its final norm (from the gathered top-level
+    leaves ``top``)."""
     x = frames.to(getattr(torch, cfg.dtype))
     B, S = x.shape[:2]
     x = x + _sinusoidal(S, cfg.d_model, x.device).to(x.dtype)

@@ -86,11 +86,14 @@ def shard_params(params, cfg: ModelConfig, mesh, rules: str = "serve"):
     ``Experts.layout``, ``Mamba.tp`` and ``MLSTM.tp``:
 
     * attention (``layers.head_layout``): wq holds this rank's heads, wk
-      and wv its kv heads (whole where there is one kv head), where the
-      heads split; otherwise the layout ``dispatch.shard.shard_spec_for``
-      derives, as every other linear: wo, an MLP's up, gate (column-
-      parallel) and down (row-parallel where its packed storage splits on
-      the boundary, else whole), an untied ``lm_head``;
+      and wv its kv heads (whole where there is one kv head), wo the
+      heads' columns, where the heads split; otherwise all four whole (a
+      full sequence splits its query positions over 'model' instead,
+      ``HeadLayout.q_whole``);
+    * every other linear the layout ``dispatch.shard.shard_spec_for``
+      derives: an MLP's up, gate (column-parallel) and down (row-parallel
+      where its packed storage splits on the boundary, else whole), an
+      untied ``lm_head``;
     * a MoE block (``moe.expert_layout``): this rank's experts, or its
       block of each expert's hidden dim; the router whole;
     * a Mamba (``mamba.tensor_parallel``) and an mLSTM
@@ -248,6 +251,8 @@ def _cut_layout(root, cfg: ModelConfig, mesh) -> None:
     for mod in root.modules():
         if isinstance(mod, layers.Attention):
             mod.layout = layers.head_layout(cfg, mesh)
+            if mod.layout.q_whole:  # a full sequence splits its positions
+                continue
             cut(mod.wq, "wq", d)
             if not mod.layout.kv_whole:
                 cut(mod.wk, "wk", d)

@@ -9,6 +9,9 @@ batch fake tensors, runs one real train step.
   the peak from ``MemTracker`` covers the arguments;
 * the same for qwen2-moe SMOKE (expert-parallel, its aux terms' psum,
   the tokens moved to its expert stacks, which stay cut over 'data');
+* the same for gemma-2b SMOKE with 6 query heads over 3 kv heads, which
+  group unevenly over a rank's 3 heads, so the query positions split
+  over 'model' (the blocks' K/V and output gathers among the kinds);
 * the train cells of a MoE, a hybrid recurrent and an encoder-decoder
   arch come back ``ok``; a cell that does not apply (gemma-2b's
   ``long_500k``) ``skipped`` with the reason; the serve cells are
@@ -41,14 +44,19 @@ TKW = {"microbatches": 2}
 RESULTS = Path(__file__).resolve().parents[1] / "benchmarks" / "results"
 
 
+# 6 query heads over 3 kv heads: model=2 gives a rank heads reading kv
+# heads 0, 0, 1, so the query positions split instead
+SEQ = ("gemma_2b-h6kv3", "gemma_2b", {"num_heads": 6, "num_kv_heads": 3})
+
+
 @pytest.fixture(scope="module")
 def real():
     return run_ranks(R.dryrun_rank, R.WORLD, SHAPE, AXES, BATCH, TKW,
-                     ("gemma_2b", "qwen2_moe"), timeout=120)
+                     ("gemma_2b", "qwen2_moe", SEQ), timeout=120)
 
 
-def _fake_cell(arch, rank):
-    cfg = configs.get_smoke(arch)
+def _fake_cell(arch, rank, over=None):
+    cfg = configs.get_smoke(arch).replace(**(over or {}))
     specs = {k: shp.Spec(BATCH, torch.int32) for k in ("tokens", "labels")}
     return dryrun.measure(cfg, R.train_config(TKW), specs, SHAPE, AXES,
                           rank=rank)
@@ -56,14 +64,31 @@ def _fake_cell(arch, rank):
 
 @pytest.mark.parametrize("rank", [0, 3])
 def test_fake_cell_equals_a_real_step(real, rank):
-    got = _fake_cell("gemma_2b", rank)
-    want = real[rank]["gemma_2b"]
+    _check_dense_cell(real, rank, "gemma_2b")
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_fake_split_query_cell_equals_a_real_step(real, rank):
+    """The heads-cannot-split case of the test above: the query positions
+    split, each attention layer's K/V and output gathers counted by kind
+    alike in the fake cell and the real step."""
+    from repro_torch.models import layers as L
+
+    got = _check_dense_cell(real, rank, SEQ[0], SEQ[1], SEQ[2])
+    for kind in (L.SEQ_KV, L.SEQ_OUT):
+        assert got["collectives"][kind]["count"] > 0, kind
+
+
+def _check_dense_cell(real, rank, key, arch=None, over=None):
+    got = _fake_cell(arch or key, rank, over)
+    want = real[rank][key]
     assert got["collectives"] == want["collectives"]
     assert got["memory"]["argument_bytes_per_device"] == \
         want["argument_bytes"]
     assert got["memory"]["peak_bytes_per_device"] >= \
         got["memory"]["argument_bytes_per_device"] > 0
     assert got["local_batch"] == BATCH[0] // 2
+    return got
 
 
 @pytest.mark.parametrize("rank", [0, 3])

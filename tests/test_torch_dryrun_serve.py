@@ -15,6 +15,10 @@ tensors, running one real prefill or decode step.
   under 'default' ('ep' on model=2, the expert stacks kept cut over
   'data' while the tokens move to them: none of them among the
   ``fsdp_gather`` bytes, the tokens' collectives counted);
+* the same for gemma-2b SMOKE with 6 query heads over 3 kv heads, which
+  cannot take 'model' (the attention whole on every rank): the prefill
+  splits its query positions (the blocks' K/V and output gathers among
+  the kinds), decode splits the cache's;
 * on fake tensors the GeMM kernels allocate what their CUDA launch does,
   never the plain msGeMM's tables: a msGeMM call's fake output has the
   kernel's (m, b) shape and layout;
@@ -41,23 +45,53 @@ SHAPES = (shp.Shape("prefill_t", 16, 4, "prefill"),
           shp.Shape("decode_t", 16, 4, "decode"))
 
 
+def seq_config():
+    """gemma-2b SMOKE with 6 query heads over 3 kv heads: on model=2 the
+    kv heads do not split, so neither do the query heads."""
+    return dryrun.serve_config("gemma_2b", smoke=True).replace(
+        num_heads=6, num_kv_heads=3)
+
+
 @pytest.fixture(scope="module")
 def real():
     cfg = dryrun.serve_config("gemma_2b", smoke=True)
     return run_ranks(R.serve_cell_rank, 4, cfg, SHAPES, SHAPE, AXES, 0,
                      ("default", "serve"),
                      dryrun.serve_config("qwen2_moe", smoke=True),
-                     timeout=120)
+                     seq_config(), timeout=120)
 
 
 @pytest.mark.parametrize("rules", ["default", "serve"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: s.name)
 @pytest.mark.parametrize("rank", [0, 3])
 def test_fake_serve_cell_equals_a_real_step(real, shape, rank, rules):
-    cfg = dryrun.serve_config("gemma_2b", smoke=True)
+    _check_serve_cell(dryrun.serve_config("gemma_2b", smoke=True),
+                      real[rank], shape, rank, rules)
+
+
+@pytest.mark.parametrize("rules", ["default", "serve"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: s.name)
+@pytest.mark.parametrize("rank", [0, 3])
+def test_fake_split_query_serve_cell_equals_a_real_step(real, shape, rank,
+                                                        rules):
+    """The heads-cannot-split case of the test above: the prefill's query
+    positions split over 'model' (its K/V and output gathers counted by
+    kind alike), decode's cache positions."""
+    from repro_torch.models import layers as L
+
+    cfg = seq_config()
+    got = _check_serve_cell(cfg, real[rank]["seq"], shape, rank, rules)
+    split = shape.kind == "prefill"
+    assert got["collectives"].get(L.SEQ_KV, {}).get("count", 0) == \
+        (2 * cfg.num_layers if split else 0)
+    assert got["collectives"].get(L.SEQ_OUT, {}).get("count", 0) == \
+        (cfg.num_layers if split else 0)
+
+
+def _check_serve_cell(cfg, real, shape, rank, rules):
     got = dryrun.measure_serve(cfg, shape, SHAPE, AXES, rank=rank,
                                rules=rules)
-    want = real[rank][rules][shape.name]
+    want = real[rules][shape.name]
     assert got["collectives"] == want["collectives"]
     assert got["memory"]["argument_bytes_per_device"] == \
         want["argument_bytes"]
@@ -70,7 +104,8 @@ def test_fake_serve_cell_equals_a_real_step(real, shape, rank, rules):
     if rules == "default":  # each block's weights, gathered over 'data'
         assert got["collectives"]["fsdp_gather"]["count"] > 0
         assert want["argument_bytes"] < \
-            real[rank]["serve"][shape.name]["argument_bytes"]
+            real["serve"][shape.name]["argument_bytes"]
+    return got
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: s.name)

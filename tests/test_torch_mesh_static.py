@@ -10,7 +10,10 @@ splits on the boundary): tokens equal to the reference's
 ``repro.runtime.serve.generate`` on the same weights and inputs (exact),
 every step's logits within 1e-4 of the port's single-device run; and
 each again on (data=2) under the 'default' rules (FSDP weight storage,
-the rows split), tokens equal to the reference's.
+the rows split), tokens equal to the reference's.  gemma-2b with 3
+query heads, which cannot take 'model': its prefill splits the query
+positions over it (a 32-token prompt, 16 a rank in chunks of 8), the
+same checks.
 xlstm-1.3b, whisper-medium and phi-3-vision are in
 ``tests/test_torch_mesh_static_more.py``.
 """
@@ -24,12 +27,17 @@ from torch_plan_isolation import (  # noqa: E402,F401  (autouse)
 import torch_mesh_static_cases as C  # noqa: E402
 from repro import configs as j_configs  # noqa: E402
 
-ARCHS = ("gemma_2b", "jamba_v01")
+# gemma-2b with 3 query heads over its kv head: a prompt of 32 tokens,
+# in query chunks of 8
+SEQ = ("gemma_2b-h3", "gemma_2b", dict(num_heads=3, attn_chunk=8), 32)
+ARCHS = ("gemma_2b", "jamba_v01", SEQ[0])
 
 
 @pytest.fixture(scope="module")
 def cases():
-    return {arch: C.case(arch) for arch in ARCHS}
+    out = {arch: C.case(arch) for arch in ARCHS[:-1]}
+    out[SEQ[0]] = C.case(SEQ[1], SEQ[2], SEQ[3])
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -74,3 +82,19 @@ def test_fsdp_table_routes_equal_one_device(ranks):
                 assert float((a - b).abs().max()) <= 1e-6
             else:
                 assert torch.equal(a, b), route
+
+
+def test_prefill_splits_query_positions_where_heads_cannot(cases, ranks):
+    """With 3 query heads on model=2 every rank holds the attention
+    whole, and the prefill splits its 32 positions: each layer gathers
+    its block's K and V and its output once; decode splits the cache's
+    positions (the partial softmax combined) as for 4 heads."""
+    from repro_torch.models import layers as L
+
+    cfg = cases[SEQ[0]][2]
+    for r in ranks:
+        counts = r[SEQ[0]]["collectives"]
+        assert counts[L.SEQ_KV] == 2 * cfg.num_layers
+        assert counts[L.SEQ_OUT] == cfg.num_layers
+        assert counts["all_reduce_max"] == cfg.num_layers * (C.NEW - 1)
+        assert L.SEQ_KV not in r["gemma_2b"]["collectives"]

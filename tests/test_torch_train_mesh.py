@@ -29,7 +29,15 @@ tokens:
   XLA's flushed subnormals aside);
 * every arch (qk-norm too) takes a mesh step on (data=2, model=2) that
   equals its single-device step, on every rank (the families' own mesh
-  tests are ``test_torch_train_mesh_{moe,recurrent,encdec}.py``).
+  tests are ``test_torch_train_mesh_{moe,recurrent,encdec}.py``);
+* where the query heads cannot take 'model' the query positions split
+  over it (the reference's 'seq' rule): gemma-2b with 6 query heads over
+  its one kv head on (data=1, model=4), and with 6 over 3 kv heads on
+  (data=2, model=2), which group unevenly over a rank's 3 heads (once
+  refused), with microbatches and remat; each step, every leaf's
+  gradient among it, within the tolerances of the single device's, step
+  1 of the reference's; 16 positions on (data=1, model=3) do not divide,
+  so every rank runs every head there.
 
 One spawn of four gloo ranks runs every case (``tests/torch_train_ranks.
 py``).
@@ -52,7 +60,7 @@ import torch_train_parity as P  # noqa: E402
 import torch_train_ranks as R  # noqa: E402
 from repro.optim import compression as JC  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
-from repro_torch.launch.mesh import run_ranks  # noqa: E402
+from repro_torch.launch.mesh import MeshShape, run_ranks  # noqa: E402
 
 ARCHS = ("gemma_2b", "gemma2_9b")
 MESHES = {"d2m2": ((2, 2), ("data", "model")),
@@ -75,6 +83,17 @@ for _k, (_t, _o) in EXTRA.items():
 CASES["gemma_2b-p2d1m2-int8pod"] = dict(
     arch="gemma_2b", shape=(2, 1, 2), axes=("pod", "data", "model"),
     tkw={"grad_compression": "int8_pod"}, over={"remat": False})
+# query heads that cannot take 'model': the query positions split over it
+SEQ_CASES = {
+    "gemma_2b-h6-d1m4": C.case("gemma_2b", (1, 4), ("data", "model"),
+                               over={"num_heads": 6, "remat": False}),
+    "gemma_2b-h6kv3-d2m2": C.case(
+        "gemma_2b", (2, 2), ("data", "model"), {"microbatches": 2},
+        {"num_heads": 6, "num_kv_heads": 3, "remat": True}),
+    # 16 positions over model=3 (of the four ranks): no split
+    "gemma_2b-d1m3": C.case("gemma_2b", (1, 3), ("data", "model"),
+                            over={"remat": False}),
+}
 
 
 def _init(arch):
@@ -98,7 +117,9 @@ EVERY_ARCH = [
 def ranks():
     weights = {a: _init(a)[2] for a in ARCHS}
     batches = {a: _init(a)[3] for a in ARCHS}
-    return run_ranks(R.train_mesh_rank, R.WORLD, CASES, weights, batches,
+    seq_weights, seq_batches = C.inputs(SEQ_CASES, STEPS)
+    return run_ranks(R.train_mesh_rank, R.WORLD, {**CASES, **SEQ_CASES},
+                     {**weights, **seq_weights}, {**batches, **seq_batches},
                      EVERY_ARCH, timeout=300)
 
 
@@ -268,3 +289,40 @@ def test_every_arch_trains_on_a_mesh(ranks, arch, over):
         for k, v in want.items():
             np.testing.assert_allclose(got[k], v, **P.TOL,
                                        err_msg=f"rank {r} {k}")
+
+
+@pytest.mark.parametrize("key", SEQ_CASES)
+def test_split_query_positions_match_single_device(ranks, key):
+    C.matches_single_device(ranks, key, SEQ_CASES[key], STEPS)
+
+
+@pytest.mark.parametrize("key", SEQ_CASES)
+def test_split_query_positions_match_reference(ranks, key):
+    C.matches_reference(ranks, key, SEQ_CASES[key], STEPS)
+
+
+@pytest.mark.parametrize("key", SEQ_CASES)
+def test_split_query_positions_collectives(ranks, key):
+    """Every rank issues the same collectives; where the positions split,
+    each attention layer gathers its block's K and V and its output in
+    each microbatch's forward (again in its remat recompute); where they
+    do not divide, none of these (on model=3 nothing of gemma-2b's SMOKE
+    config splits: no collective at all)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+
+    counts = [res[key]["counts"] for res in ranks if res[key] is not None]
+    assert all(c == counts[0] for c in counts), key
+    c = SEQ_CASES[key]
+    cfg = R.smoke(c["arch"], c["over"])
+    M = dict(zip(c["axes"], c["shape"]))["model"]
+    transformer.check_train_mesh(cfg, MeshShape({"model": M}))
+    assert not L.heads_split(cfg, M)
+    counts = ranks[0][key]["counts"]
+    if C.S % M:
+        assert L.SEQ_KV not in counts and L.SEQ_OUT not in counts
+        return
+    runs = c["tkw"].get("microbatches", 1) * (2 if c["over"]["remat"]
+                                              else 1)
+    assert counts[L.SEQ_KV] == 2 * cfg.num_layers * runs
+    assert counts[L.SEQ_OUT] == cfg.num_layers * runs

@@ -8,7 +8,11 @@ tokens with ``microbatches=2`` and remat:
   over this rank's heads, the decoder's learned positions, its cross
   attention on this rank's heads of the encoder output;
 * phi-3-vision on (data=2, model=2): its 8 patch embeddings ahead of the
-  text, IGNORE labels over them.
+  text, IGNORE labels over them;
+* whisper-medium with 6 heads on (data=1, model=4), which cannot take
+  'model': the encoder's, the decoder's and the cross attention's query
+  positions split over it (the decoder's 16, the encoder's 12 frames, 3
+  a rank, K and V of each rank's block gathered).
 
 Each step's loss, metrics, grad_norm (on every rank), every gradient,
 m, v and params within the ``tests/torch_train_parity.py`` tolerances of
@@ -39,6 +43,9 @@ CASES = {
                                     ("pod", "data", "model"), MB, REMAT),
     "phi3_vision-d2m2": C.case("phi3_vision", (2, 2), ("data", "model"),
                                MB, REMAT),
+    "whisper_medium-h6-d1m4": C.case(
+        "whisper_medium", (1, 4), ("data", "model"), MB,
+        dict(REMAT, num_heads=6, num_kv_heads=6)),
 }
 
 
@@ -74,3 +81,20 @@ def test_encoder_and_cross_attention_are_trained(ranks):
     assert names
     assert all(abs(rec["grads"][n]).max() > 0 for n in names
                if n.endswith(".w")), names
+
+
+def test_split_query_positions_in_encoder_and_cross_attention(ranks):
+    """With 6 heads on model=4, every attention of the step splits its
+    query positions: each of the encoder's and the decoder's self
+    attentions and each cross attention gathers its block's K and V and
+    its output, in each microbatch's forward and its remat recompute."""
+    from repro_torch.models import layers as L
+
+    c = CASES["whisper_medium-h6-d1m4"]
+    cfg = R.smoke(c["arch"], c["over"])
+    counts = ranks[0]["whisper_medium-h6-d1m4"]["counts"]
+    # the encoder runs outside remat; the decoder's groups inside it
+    runs = c["tkw"]["microbatches"]
+    attns = cfg.encoder_layers + 2 * 2 * cfg.num_layers
+    assert counts[L.SEQ_OUT] == runs * attns
+    assert counts[L.SEQ_KV] == 2 * runs * attns

@@ -549,7 +549,7 @@ def _fsdp_table_paths(mesh) -> dict:
 
 
 def serve_cell_rank(rank, device, cfg, shapes, mesh_shape, axes, seed,
-                    rules=("default", "serve"), moe_cfg=None):
+                    rules=("default", "serve"), moe_cfg=None, seq_cfg=None):
     """A real step of each dry-run serve cell ``shapes`` on this rank of a
     ``mesh_shape`` / ``axes`` mesh under each of ``rules``: the model
     drawn from ``seed`` (whole, then cut by ``shard_params``), the rank's
@@ -557,11 +557,16 @@ def serve_cell_rank(rank, device, cfg, shapes, mesh_shape, axes, seed,
     serve_inputs``, random tokens, a decode at position ``seq_len - 1``
     over a zero cache).  Returns {rules: {cell: its collectives (count
     and bytes by kind) and argument bytes}}; with ``moe_cfg`` (a MoE
-    config) also its cells under 'default', as {"moe": ...}."""
+    config) also its cells under 'default', as {"moe": ...}, and with
+    ``seq_cfg`` (a config whose query heads cannot take 'model') its
+    cells under each of ``rules``, as {"seq": {rules: ...}}."""
     mesh = make_mesh(mesh_shape, axes)
     out = {r: _serve_cells(cfg, shapes, mesh, seed, r) for r in rules}
     if moe_cfg is not None:
         out["moe"] = _serve_cells(moe_cfg, shapes, mesh, seed, "default")
+    if seq_cfg is not None:
+        out["seq"] = {r: _serve_cells(seq_cfg, shapes, mesh, seed, r)
+                      for r in rules}
     return out
 
 

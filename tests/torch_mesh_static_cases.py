@@ -25,17 +25,18 @@ B, T, NEW, FRAMES = 2, 6, 4, 8
 LOGIT_TOL = 1e-4
 
 
-def case(arch):
+def case(arch, over=None, prompt=T):
     """(reference tokens, numpy tree, port cfg, numpy batch) of ``arch``'s
-    SMOKE config with msgemm weights at :data:`SPEC`."""
-    jcfg = j_configs.get_smoke(arch)
+    SMOKE config (with the config fields ``over``) with msgemm weights at
+    :data:`SPEC`, prompts of ``prompt`` tokens."""
+    jcfg = j_configs.get_smoke(arch).replace(**(over or {}))
     spec = JSpec(**SPEC)
     jp = jax.jit(lambda p: j_quantize(p, jcfg, spec))(
         JT.init_params(jax.random.PRNGKey(0), jcfg))
     jcfg = jcfg.replace(quant=spec)
     rng = np.random.default_rng(1)
     batch = {"tokens": rng.integers(0, jcfg.vocab_size,
-                                    size=(B, T)).astype(np.int32)}
+                                    size=(B, prompt)).astype(np.int32)}
     if jcfg.is_encdec:
         batch["frames"] = rng.normal(
             size=(B, FRAMES, jcfg.d_model)).astype(np.float32)

@@ -223,13 +223,14 @@ def autograd_collectives(rank: int) -> dict:
 
 def train_mesh_rank(rank, device, cases, weights, batches, archs):
     """Every case of ``cases`` ({key: {arch, shape, axes, tkw, over}}),
-    the autograd collectives, the int8 gather, and one step of each of
+    from the weights and batches under its key, or else its arch's; the
+    autograd collectives, the int8 gather, and one step of each of
     ``archs`` on (data=2, model=2) (:func:`arch_steps`)."""
     out = {"int8": int8_gather(rank), "ad": autograd_collectives(rank),
            "archs": arch_steps(archs)}
     for key, case in cases.items():
-        out[key] = run_case(case, weights[case["arch"]],
-                            batches[case["arch"]], rank)
+        src = key if key in weights else case["arch"]
+        out[key] = run_case(case, weights[src], batches[src], rank)
     return out
 
 
@@ -488,15 +489,17 @@ def local_equal(a: dict, b: dict) -> bool:
 
 # ------------------------------------------------------------- dry run
 def dryrun_rank(rank, device, shape, axes, batch_shape, tkw, archs):
-    """One real train step of each of ``archs``' SMOKE configs on
-    ``shape``/``axes``: by arch, this rank's collectives by kind (count,
-    bytes) and its state-plus-batch bytes, for the fake-mode cell to
-    equal."""
+    """One real train step of each of ``archs``' SMOKE configs (an entry
+    a name, or (key, name, config fields)) on ``shape``/``axes``: by
+    key, this rank's collectives by kind (count, bytes) and its
+    state-plus-batch bytes, for the fake-mode cell to equal."""
     from repro_torch.launch import dryrun
 
     out = {}
-    for arch in archs:
-        cfg = configs.get_smoke(arch)
+    for arch in archs:  # a name, or (key, name, config fields)
+        key, arch, over = (arch, arch, {}) if isinstance(arch, str) \
+            else arch
+        cfg = configs.get_smoke(arch).replace(**over)
         tcfg = train_config(tkw)
         mesh = make_mesh(shape, axes)
         state = fresh_state(cfg, tcfg, mesh)
@@ -508,7 +511,7 @@ def dryrun_rank(rank, device, shape, axes, batch_shape, tkw, archs):
         args = dryrun.state_bytes(state, b)
         coll.reset_counts()
         RT.train_step(state, b, cfg, tcfg)
-        out[arch] = {"argument_bytes": args,
+        out[key] = {"argument_bytes": args,
                      "collectives": {k: {"count": coll.counts[k],
                                          "bytes": coll.nbytes[k]}
                                      for k in sorted(coll.counts)}}
