@@ -375,17 +375,19 @@ Phases, any failure exits non-zero before the last line is printed:
    with ``int8_pod`` on (pod=2, data=1, model=2) (its loss the f32
    step's, its grad_norm within 1e-3 of the card alone's, its residual
    nonzero); the checkpoint restored onto one device here, whose
-   next step equals the mesh's within 1e-4; each rank's step ms,
-   tokens/s and peak GiB, the collectives a step by kind, bytes and
-   seconds.  ``[mesh-seq ...]``: sequence-parallel attention where the
+   next step equals the mesh's within 1e-4; the residual's positions
+   split over 'model' between blocks (each step's ``seq_in_gather`` and
+   ``seq_out_scatter`` counted); each rank's step ms, tokens/s and peak
+   GiB, the collectives a step by kind, bytes and seconds.  ``[mesh-seq ...]``: sequence-parallel attention where the
    query heads cannot take 'model', full-width gemma-2b (8 heads) on
    model=3 from three ranks sharing ``cuda:0``: ``[mesh-seq serve]`` the
    static ``generate`` at 2 layers, msgemm weights, f32, 2 x 6,144
    prompt tokens (2,048 query positions a rank) and 16 new, against one
    device's on the same weights (the static path's gate; tokens equal
    but at a near-tie; each rank's msGeMM launches one device's; each
-   layer's prefill gathers its block's K and V and its output), each
-   rank's prefill ms and peak GiB beside one device's;
+   layer's prefill gathers its block's K and V, and its MLP its block of
+   the residual, which splits too), each rank's prefill ms and peak GiB
+   beside one device's;
    ``[mesh-seq train]`` two steps at 1 layer, f32, no remat, 8 x 132
    lcg tokens on (data=1, model=3): losses and grad norms within 1e-4 of
    the card alone, every rank's alike, no hand-written kernel, the
@@ -5561,12 +5563,14 @@ def mesh_static_rank(rank, device, seed):
         coll.reset_counts()
         many = []
         torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         r["mesh"] = SV.generate(local, cfg, batch,
                                 max_new_tokens=MESH_STATIC_NEW, mesh=mesh,
                                 step_logits=many).tolist()
         torch.cuda.synchronize(device)
         r["run_s"] = time.perf_counter() - t0
+        r["peak_bytes"] = torch.cuda.max_memory_allocated(device)
         r["launches"] = {n: m.launches for n, m in KERNELS.items()}
         r["collectives"] = dict(coll.counts)
         if rank == 0:
@@ -5637,7 +5641,11 @@ def phase_mesh_static(card, devices=("cuda:0", "cuda:0"),
     single-device top two are within ``2 * F32_STATE_TOL``; each rank
     launches the weight kernels the single device does.  The split
     softmax alone is held against one device's within
-    ``SPLIT_SOFTMAX_TOL`` (:func:`split_softmax_case`)."""
+    ``SPLIT_SOFTMAX_TOL`` (:func:`split_softmax_case`).  Every rank's
+    prefill splits the residual's positions over 'model' (its blocks'
+    ``seq_in_gather`` counted, no output gathered).  Printed: each
+    rank's peak GiB over the run, the collectives by kind."""
+    from repro_torch.distributed.collectives import SEQ_IN
     from repro_torch.launch.mesh import run_ranks
 
     t0 = time.perf_counter()
@@ -5676,6 +5684,10 @@ def phase_mesh_static(card, devices=("cuda:0", "cuda:0"),
         for other in ranks:
             check(other[arch]["mesh"] == r["mesh"],
                   f"[{tag} {arch}] ranks returned other tokens")
+            c = other[arch]["collectives"]
+            check(c.get(SEQ_IN, 0) > 0 and "seq_out_gather" not in c,
+                  f"[{tag} {arch}] the prefill did not split the residual "
+                  f"over 'model' ({c})")
             check(other[arch]["launches"] == r["single_launches"],
                   f"[{tag} {arch}] rank launches "
                   f"{other[arch]['launches']} != one device's "
@@ -5693,7 +5705,10 @@ def phase_mesh_static(card, devices=("cuda:0", "cuda:0"),
               f"{r['max_abs_diff'] / r['scale']:.3g}); "
               f"generate {r['run_s'] * 1e3 / steps:.2f} ms a token step "
               f"({r['run_s']:.2f}s for {steps} tokens, build "
-              f"{r['build_s']:.1f}s); launches {r['launches']}; "
+              f"{r['build_s']:.1f}s), peak "
+              + "/".join(f"{o[arch]['peak_bytes'] / 2**30:.3f}"
+                         for o in ranks)
+              + f" GiB a rank; launches {r['launches']}; "
               "collectives "
               + ", ".join(f"{k} {v}" for k, v in
                           sorted(r["collectives"].items())), flush=True)
@@ -6396,17 +6411,21 @@ def phase_mesh_seq(card):
     a near-tie (top two within ``2 * F32_STATE_TOL``); every rank returns
     the same tokens and launches the msGeMM kernel as one device does
     (the attention's at its block's width); each layer's prefill gathers
-    its block's K and V and its output (the split ran).  Printed: each
-    rank's prefill ms and peak GiB beside the single device's.
+    its block's K and V, its MLP the normed block of the residual
+    (``seq_in_gather``: the residual splits too), and no output is
+    gathered.  Printed: each rank's prefill ms and peak GiB beside the
+    single device's.
 
     Training: two steps' losses and grad norms within ``TRAIN_MESH_TOL``
     of the card alone's, every rank's losses the same and grad norms
     within it too; no hand-written kernel launched; the query positions
-    split.  Printed: each rank's step ms (step 1 pays the process's first
+    and the residual split (``seq_kv_gather``, ``seq_in_gather``).
+    Printed: each rank's step ms (step 1 pays the process's first
     backward), peak GiB, the collectives a step by kind and bytes."""
     import torch
 
     from repro_torch.device import generator
+    from repro_torch.distributed import collectives as coll
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.models import layers as L
     from repro_torch.runtime import train as RT
@@ -6458,9 +6477,10 @@ def phase_mesh_seq(card):
               f"!= one device's {single['launches']}")
         coll_ = run["collectives"]
         check(coll_.get(L.SEQ_KV, [0])[0] == 2 * layers
-              and coll_.get(L.SEQ_OUT, [0])[0] == layers,
+              and coll_.get(coll.SEQ_IN, [0])[0] == layers
+              and "seq_out_gather" not in coll_,
               f"[{tag} serve] rank {r['rank']}: the prefill did not split "
-              f"its query positions ({coll_})")
+              f"its query positions and its residual ({coll_})")
     same = sum(a == b for a, b in zip(got, want))
     B, S = MESH_SEQ["batch"], MESH_SEQ["prompt"]
     print(f"[{tag} serve] gemma-2b full width, {layers} layers, msgemm, "
@@ -6502,9 +6522,11 @@ def phase_mesh_seq(card):
         check(r["launches"] == {n: 0 for n in r["launches"]},
               f"[{tag} train] rank {r['rank']} launched hand-written "
               f"kernels: {r['launches']}")
-        check(all(c.get(L.SEQ_OUT, [0])[0] > 0 for c in r["collectives"]),
+        check(all(c.get(L.SEQ_KV, [0])[0] > 0
+                  and c.get(coll.SEQ_IN, [0])[0] > 0
+                  and "seq_out_gather" not in c for c in r["collectives"]),
               f"[{tag} train] rank {r['rank']}: a step did not split its "
-              "query positions")
+              "query positions and its residual")
     per_step = tl["collectives"][-1]
     print(f"[{tag} train] gemma-2b full width, "
           f"{MESH_SEQ['train_layers']} layer, f32, no remat, "
@@ -6735,14 +6757,18 @@ def phase_train_mesh(card):
     equal the mesh's within ``TRAIN_MESH_TOL``; the
     int8_pod step's loss the f32 step's (the loss precedes the gradient
     mean), its grad_norm within ``INT8_POD_TOL`` of the card alone's
-    and its residual nonzero.  Per rank: step ms, tokens/s, peak GiB; the
-    collectives a step by kind and bytes.  No hand-written kernel runs."""
+    and its residual nonzero; the residual's 128 positions split over
+    'model' between blocks (each step's ``seq_in_gather`` and
+    ``seq_out_scatter`` counted).  Per rank: step ms, tokens/s, peak
+    GiB; the collectives a step by kind and bytes.  No hand-written
+    kernel runs."""
     import shutil
 
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.device import generator
+    from repro_torch.distributed.collectives import SEQ_IN, SEQ_OUT
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.runtime import driver
     from repro_torch.runtime import train as RT
@@ -6773,6 +6799,11 @@ def phase_train_mesh(card):
               == [{k: v[:2] for k, v in c.items()}
                   for c in lead["collectives"]],
               f"[train-mesh] rank {r['rank']} issued other collectives")
+        check(all(c.get(SEQ_IN, [0])[0] > 0 and c.get(SEQ_OUT, [0])[0] > 0
+                  and "seq_out_gather" not in c
+                  for c in r["collectives"]),
+              f"[train-mesh] rank {r['rank']}: a step did not split the "
+              f"residual over 'model' ({r['collectives']})")
     got = lead["losses"] + lead["more_losses"]
     got_gn = lead["grad_norms"] + lead["more_grad_norms"]
     rel = max(max(abs(a - b) / abs(b) for a, b in zip(got, one[0])),
@@ -6960,8 +6991,10 @@ def phase_train_families(card):
     family's loss, grad_norm, load_balance and dropped_frac within
     ``TRAIN_MESH_TOL`` of the card alone's (relative; a zero must stay
     zero), every rank's metrics and collectives alike, no hand-written
-    kernel launched.  Per family: step ms, peak GiB a rank, the
-    collectives by kind and bytes."""
+    kernel launched; the residual split over 'model' between blocks
+    (``seq_in_gather`` counted).  Per family: step ms, peak GiB a rank,
+    the collectives by kind and bytes."""
+    from repro_torch.distributed.collectives import SEQ_IN
     from repro_torch.launch.mesh import run_ranks
 
     one = {arch: family_step(family_cfg(arch, extra), "cuda")
@@ -6983,6 +7016,10 @@ def phase_train_families(card):
                   and f["collectives"] == fam[0]["collectives"],
                   f"[train-mesh-families] {arch}: rank {r['rank']}'s "
                   "metrics or collectives differ from rank 0's")
+        c = fam[0]["collectives"]
+        check(c.get(SEQ_IN, [0])[0] > 0 and "seq_out_gather" not in c,
+              f"[train-mesh-families] {arch}: the step did not split the "
+              f"residual over 'model' ({c})")
         got, want = fam[0]["metrics"], one[arch]["metrics"]
         rel = max(abs(got[k] - want[k]) / abs(want[k]) if want[k]
                   else abs(got[k]) * math.inf if got[k] else 0.0

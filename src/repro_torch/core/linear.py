@@ -129,14 +129,15 @@ def apply(params, x: torch.Tensor, spec: QuantSpec = DENSE, *,
           in_dim: int | None = None, tag: str | None = None, plan=None,
           epilogue=None, bias=None, residual=None,
           shard_axes: tuple | None = None, keep_local: bool = False,
-          x_axis: str | None = None) -> torch.Tensor:
+          x_axis: str | None = None,
+          seq_axis: str | None = None) -> torch.Tensor:
     """x (..., in) -> y (..., out) through the dispatch registry.
     ``params`` is a dict of leaves or a :class:`QLinear`.  ``tag`` names
     this linear for the activation-statistics observer (calibration); it
     does not change the computation, and a remat recompute does not
     report again.  ``shard_axes``: the weight's logical axes, which make
     it run sharded under an active mesh (``dispatch.execute``, which also
-    takes ``keep_local`` and ``x_axis``)."""
+    takes ``keep_local``, ``x_axis`` and ``seq_axis``)."""
     if _OBSERVER is not None and tag is not None and not _REPLAY:
         _OBSERVER.record(tag, x)
     out_dim = None
@@ -147,7 +148,7 @@ def apply(params, x: torch.Tensor, spec: QuantSpec = DENSE, *,
                             plan_override=plan, epilogue=epilogue, bias=bias,
                             residual=residual, shard_axes=shard_axes,
                             out_dim=out_dim, keep_local=keep_local,
-                            x_axis=x_axis)
+                            x_axis=x_axis, seq_axis=seq_axis)
 
 
 def serving_config(cfg: QuantSpec, mode: str) -> QuantSpec:

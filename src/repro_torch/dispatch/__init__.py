@@ -22,6 +22,7 @@ the plan's tiles as well (``obs.perfmodel`` prices the sample at them).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 from repro_torch import obs
@@ -75,7 +76,8 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
             policy: ExecPolicy | None = None,
             epilogue: Epilogue | None = None, bias=None, residual=None,
             shard_axes: tuple | None = None, out_dim: int | None = None,
-            keep_local: bool = False, x_axis: str | None = None):
+            keep_local: bool = False, x_axis: str | None = None,
+            seq_axis: str | None = None):
     """Run one linear ``x (..., k) -> y (..., m)`` through the registry.
 
     Execution choices: ``plan_override`` > ``policy`` > the process's
@@ -103,7 +105,13 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
     block of m (whole otherwise).  ``x_axis``: ``x`` holds this rank's
     block of k over that mesh axis (a column-parallel output kept
     local); a plan that shards k over the same axis takes it as it is,
-    any other gathers it whole first (one all-gather).
+    any other gathers it whole first (one all-gather).  ``seq_axis``:
+    the output comes back as this rank's block of its positions (dim -2
+    of a (B, S, k) ``x``) over that mesh axis, ``residual`` being that
+    block: a plan whose contraction splits over the same axis
+    reduce-scatters its partial sums over the positions instead of
+    summing them (``dispatch.shard.run_sharded``); any other computes the
+    whole output and keeps the block, the residual added on it.
     """
     k = in_dim if in_dim is not None else _infer_k(params, spec)
     lead = params["w"] if spec.mode == "bf16" else params["scales"]
@@ -135,6 +143,22 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
         p = plan_override or plan(spec, m, k, batch,
                                   device_type=x.device.type, policy=policy,
                                   experts=experts)
+    if seq_axis is not None and not (
+            mesh is not None and p.shard is not None
+            and p.shard.is_sharded and p.shard.k == seq_axis):
+        # no contraction collective over the positions' axis: the whole
+        # output, then this rank's block of it, the residual added there
+        tail = None
+        if epilogue is not None and epilogue.residual:
+            tail = Epilogue(residual=True, out_dtype=epilogue.out_dtype)
+            epilogue = dataclasses.replace(epilogue, residual=False,
+                                           out_dtype=None)
+            epilogue = None if epilogue.is_identity else epilogue
+        y = execute(params, x, spec, in_dim=in_dim, plan_override=p,
+                    epilogue=epilogue, bias=bias, shard_axes=shard_axes,
+                    out_dim=out_dim, keep_local=keep_local, x_axis=x_axis)
+        lo, n = sharding.seq_block(y.shape[-2], seq_axis)
+        return apply_epilogue(y.narrow(-2, lo, n), tail, residual=residual)
     be = get_backend(p.backend)
     d = plan_d(spec, m, k)
     if not be.supports(spec, d):
@@ -168,7 +192,8 @@ def execute(params: dict, x, spec: QuantSpec, *, in_dim: int | None = None,
         return shard.run_sharded(be, spec, p, params, x, k=k, m=m,
                                  mesh=mesh, epilogue=epilogue, bias=bias,
                                  residual=residual, fuse=fuse,
-                                 keep_local=keep_local, x_local=x_local)
+                                 keep_local=keep_local, x_local=x_local,
+                                 seq_axis=seq_axis)
     mark = f"gemm.{be.name}.m{m}.k{k}.b{batch}" + (
         f".e{experts}" if experts else "")
     x = obs.mark_begin(x, mark)

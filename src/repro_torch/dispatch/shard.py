@@ -320,7 +320,7 @@ class _Done:
 def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
                 mesh, epilogue=None, bias=None, residual=None,
                 fuse: bool = False, keep_local: bool = False,
-                x_local: bool = False):
+                x_local: bool = False, seq_axis: str | None = None):
     """Run one planned linear on this rank's shard.
 
     ``params`` are this rank's leaves (:func:`shard_linear`), ``x`` whole
@@ -341,7 +341,11 @@ def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
 
     The output comes back whole along m: a reduce-scattered result is
     gathered over its axis, and so is a column-parallel one unless
-    ``keep_local`` asks for this rank's block of it.
+    ``keep_local`` asks for this rank's block of it.  ``seq_axis`` (a
+    row-parallel plan over that axis only): the partial sums are
+    reduce-scattered over the positions (dim -2 of a (B, S, k) ``x``,
+    ``collectives.SEQ_OUT``) instead, and ``residual`` is this rank's
+    block of them, the residual stream's layout between blocks.
     """
     s = plan.shard
     sizes = compat.axes_of(mesh)
@@ -355,8 +359,12 @@ def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
     inner_plan = dataclasses.replace(plan, shard=None)
     # the m dim of y / bias / residual: m-sharded linears keep their own
     # axis; reduce_scatter hands the k axis over; psum leaves it whole
+    if seq_axis is not None and s.k != seq_axis:
+        raise ValueError(f"positions over {seq_axis!r} need a contraction "
+                         f"over it, not the plan's k={s.k!r}")
     out_m = s.m if s.k is None else (
-        s.k if s.collective == "reduce_scatter" else None)
+        s.k if s.collective == "reduce_scatter" and seq_axis is None
+        else None)
     m_local = m // s.axis_size(out_m)
     lead = next(iter(params.values()))
     if s.m is not None and lead.shape[0] != m_local:
@@ -404,6 +412,12 @@ def run_sharded(backend, spec, plan, params: dict, x, *, k: int, m: int,
         """Start the planned collective over the k-sharded partials: an
         all-reduce in flight, or the finished scatter / ring."""
         y = obs.mark_begin(y, mk_coll)
+        if seq_axis is not None:
+            if s.collective_impl == "ring":
+                return _Done(coll.ring_reduce_scatter(y, s.k, dim=-2,
+                                                      mesh=mesh))
+            return _Done(coll.psum_scatter(y, s.k, dim=-2, mesh=mesh,
+                                           kind=coll.SEQ_OUT))
         if s.collective == "reduce_scatter":
             fn = (coll.ring_reduce_scatter if s.collective_impl == "ring"
                   else coll.psum_scatter)

@@ -27,11 +27,13 @@ group uses.  Compute stays on the rank's device.
   (the MoE's return of the experts' outputs to the tokens' ranks);
 * :func:`pmax` — the elementwise maximum over one mesh axis;
 * :func:`ad_all_gather`, :func:`ad_psum_scatter`, :func:`ad_psum`,
-  :func:`ad_identity`, :func:`ad_all_to_all` — the forms the train step
-  differentiates through (autograd functions): an all-gather whose
-  backward reduce-scatters (or, for a gather whose consumers run
-  replicated, takes this rank's block), a reduce-scatter whose backward
-  all-gathers, a psum whose backward passes the cotangent through (or,
+  :func:`ad_identity`, :func:`ad_all_to_all`, :func:`ad_block` — the
+  forms the train step differentiates through (autograd functions): an
+  all-gather whose backward reduce-scatters (or, for a gather whose
+  consumers run replicated, takes this rank's block), a reduce-scatter
+  whose backward all-gathers, this rank's block of a replicated tensor
+  whose backward all-gathers, a psum whose backward passes the cotangent
+  through (or,
   for ranks that each use a part of the sum, psums it), an identity
   whose backward psums (the input of a column-parallel region, whose
   ranks each see a part of its gradient), and an all-to-all whose
@@ -64,6 +66,11 @@ from repro_torch.distributed import compat
 
 NCCL = "nccl"
 STAGED = "gloo, host-staged"
+# the kinds of the residual stream's collectives where its positions lie
+# over 'seq' (``sharding.residual_axis``): a block's input gathered
+# whole at its entry, and its row-parallel partial sums reduce-scattered
+# back onto this rank's positions at its exit
+SEQ_IN, SEQ_OUT = "seq_in_gather", "seq_out_scatter"
 
 # collectives issued since the last reset, by kind, and their result bytes
 counts: Counter = Counter()
@@ -199,9 +206,10 @@ def pmax(y: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
 
 
 def psum_scatter(y: torch.Tensor, axis: str, *, dim: int = -1,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, kind: str = "reduce_scatter") -> torch.Tensor:
     """This rank's block (along ``dim``) of the sum of ``y`` over
-    ``axis``: block p to rank p, as ``lax.psum_scatter(tiled=True)``."""
+    ``axis``: block p to rank p, as ``lax.psum_scatter(tiled=True)``;
+    counted under ``kind``."""
     mesh = _mesh(mesh)
     n = _size(mesh, axis)
     dim = dim % y.ndim
@@ -212,11 +220,11 @@ def psum_scatter(y: torch.Tensor, axis: str, *, dim: int = -1,
         return y
     group = mesh.get_group(axis)
     size = y.shape[dim] // n
-    with _timed("reduce_scatter", y):
+    with _timed(kind, y):
         if y.is_cuda and transport(group) == NCCL:
             h = y.detach().movedim(dim, 0).contiguous()
             out = h.new_empty((size,) + h.shape[1:])
-            _count("reduce_scatter", out)
+            _count(kind, out)
             dist.reduce_scatter_tensor(out, h, group=group)
             return out.movedim(0, dim).contiguous()
         # the whole sum in host memory; this rank's block cut on the
@@ -230,7 +238,7 @@ def psum_scatter(y: torch.Tensor, axis: str, *, dim: int = -1,
         if h.is_pinned():
             out = out.narrow(dim, mesh.get_local_rank(axis) * size, size)
         out = out.contiguous()
-        _count("reduce_scatter", out)
+        _count(kind, out)
         return out
 
 
@@ -470,14 +478,31 @@ class _AllToAll(torch.autograd.Function):
 
 class _PsumScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, dim, mesh):
+    def forward(ctx, x, axis, dim, mesh, kind):
         ctx.args = (axis, dim, mesh)
-        return psum_scatter(x, axis, dim=dim, mesh=mesh)
+        return psum_scatter(x, axis, dim=dim, mesh=mesh, kind=kind)
 
     @staticmethod
     def backward(ctx, ct):
         axis, dim, mesh = ctx.args
-        return all_gather(ct, axis, dim=dim, mesh=mesh), None, None, None
+        return all_gather(ct, axis, dim=dim, mesh=mesh), \
+            None, None, None, None
+
+
+class _Block(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        from repro_torch.distributed.sharding import coord
+
+        ctx.args = (axis, dim, mesh)
+        size = x.shape[dim] // _size(mesh, axis)
+        return x.narrow(dim, coord(mesh, axis) * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        axis, dim, mesh = ctx.args
+        return all_gather(ct.contiguous(), axis, dim=dim, mesh=mesh), \
+            None, None, None
 
 
 class _Psum(torch.autograd.Function):
@@ -531,12 +556,25 @@ def ad_all_to_all(x: torch.Tensor, axis: str, *, split_dim: int,
 
 
 def ad_psum_scatter(x: torch.Tensor, axis: str, *, dim: int,
-                    mesh=None) -> torch.Tensor:
-    """:func:`psum_scatter`, differentiable: its backward all-gathers."""
+                    mesh=None, kind: str = "reduce_scatter") -> torch.Tensor:
+    """:func:`psum_scatter` (counted under ``kind``), differentiable: its
+    backward all-gathers."""
     mesh = _mesh(mesh)
     if _size(mesh, axis) == 1:
         return x
-    return _PsumScatter.apply(x, axis, dim % x.ndim, mesh)
+    return _PsumScatter.apply(x, axis, dim % x.ndim, mesh, kind)
+
+
+def ad_block(x: torch.Tensor, axis: str, *, dim: int,
+             mesh=None) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, which every rank of
+    ``axis`` holds whole (no collective); its backward all-gathers the
+    ranks' cotangent blocks, so every rank holds the whole cotangent of
+    ``x``, as the consumers that computed it replicated need."""
+    mesh = _mesh(mesh)
+    if _size(mesh, axis) == 1:
+        return x
+    return _Block.apply(x, axis, dim % x.ndim, mesh)
 
 
 def ad_psum(x: torch.Tensor, axis: str, *, mesh=None,

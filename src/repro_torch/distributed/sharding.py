@@ -222,21 +222,27 @@ def spec_for(axes: tuple, shape: tuple, *, mesh=None, kind: str = "act",
                     act if kind == "act" else par)
 
 
-def seq_axis(S: int, heads: int = 0, *, mesh=None) -> str | None:
-    """The mesh axis a full-sequence attention of ``S`` query positions
-    splits them over, or None: the 'seq' entry of its queries' spec
-    (batch, seq, heads, head_dim), as the reference pins them, under the
-    active rules.  ``ACT_RULES["seq"]`` gives 'seq' the 'model' axis
-    where 'heads' (before it in PRIORITY) did not take it and S divides
-    its size: the sequence-parallel fallback.  ``heads``: the query
-    heads where the port's layout could split them over 'model'; 0 where
-    it cannot (an uneven grouping over the kv heads), so they leave the
-    axis to 'seq' as heads that fail divisibility do."""
+def residual_axis(S: int, *, mesh=None) -> str | None:
+    """The mesh axis the residual stream's ``S`` positions split over
+    between blocks, or None (whole on every rank): the 'seq' entry of
+    ``spec_for(("batch", "seq", "embed"), (1, S, 1))`` under the active
+    rules, as the reference pins the residual after the embedding and
+    after each block.  'embed' takes no mesh axis, so 'seq' gets 'model'
+    wherever S divides its size (never at decode, S = 1)."""
     mesh = mesh or _CTX.mesh
     if mesh is None:
         return None
-    axes = ("batch", "seq", "heads" if heads else "none", "head_dim")
-    return spec_for(axes, (1, S, heads or 1, 1), mesh=mesh)[1]
+    return spec_for(("batch", "seq", "embed"), (1, S, 1), mesh=mesh)[1]
+
+
+def seq_block(S: int, axis: str | None, mesh=None) -> tuple[int, int]:
+    """(first position, length) of this rank's block of ``S`` positions
+    split over ``axis`` (None: every position)."""
+    if axis is None:
+        return 0, S
+    mesh = mesh or _CTX.mesh
+    n = S // compat.axes_of(mesh)[axis]
+    return coord(mesh, axis) * n, n
 
 
 # ------------------------------------------------------ per-rank tensors

@@ -38,9 +38,15 @@ tables.  Every cell records:
   (XLA's ``memory_analysis`` in the reference);
 * ``collectives`` — by kind, the count and result bytes of what the step
   issues (``distributed.collectives.counts`` / ``nbytes``; where the
-  query heads cannot take 'model', the query blocks' K/V and output
-  gathers as ``seq_kv_gather`` and ``seq_out_gather``);
+  query heads cannot take 'model', the query blocks' K/V gathers as
+  ``seq_kv_gather``; where the sequence divides 'model', the residual's
+  block entry gathers and exit reduce-scatters as ``seq_in_gather`` and
+  ``seq_out_scatter``);
 * ``step_s`` — the seconds the step took here (Python's, not a device's).
+
+A recurrence that steps position by position runs, on fake tensors,
+through its allocations alone (the sLSTM's ``xlstm._SLSTMFake``), so
+xlstm's cells finish in minutes.
 
 Train cells run for every architecture; a cell whose config a mesh
 cannot split (``transformer.check_train_mesh``) or that does not apply

@@ -89,8 +89,8 @@ def linear_init(in_dim: int, out_dim: int, cfg, quant=qlinear.DENSE, *,
 
 def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, tag=None,
                  act="none", bias=None, residual=None, out_dtype=None,
-                 local: bool = False, x_axis: str | None = None
-                 ) -> torch.Tensor:
+                 local: bool = False, x_axis: str | None = None,
+                 seq: str | None = None) -> torch.Tensor:
     """``act``/``bias``/``residual``/``out_dtype`` describe the tail
     ``y = act(Wx + bias) + residual`` (cast to ``out_dtype``); it becomes an
     Epilogue that the msGeMM kernel fuses into its final write.  ``tag``
@@ -99,8 +99,10 @@ def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, tag=None,
     ``runtime.serve.shard_params`` recorded on it (``QLinear.axes``; a
     linear it left whole, an expert stack among them, runs whole).  On a
     mesh ``local`` keeps a column-parallel output as this rank's block,
-    and ``x_axis`` says ``x`` is this rank's block of k over that axis
-    (``dispatch.execute``)."""
+    and ``x_axis`` says ``x`` is this rank's block of k over that axis;
+    ``seq`` returns this rank's block of the output's positions (dim 1)
+    over that axis, ``residual`` being that block (``dispatch.execute``:
+    a row-parallel linear's partial sums reduce-scattered over them)."""
     ep = None
     if act != "none" or bias is not None or residual is not None \
             or out_dtype is not None:
@@ -109,7 +111,7 @@ def linear_apply(p, x, quant=qlinear.DENSE, *, in_dim=None, tag=None,
     return qlinear.apply(p, x, quant, in_dim=in_dim, tag=tag, epilogue=ep,
                          bias=bias, residual=residual,
                          shard_axes=getattr(p, "axes", None),
-                         keep_local=local, x_axis=x_axis)
+                         keep_local=local, x_axis=x_axis, seq_axis=seq)
 
 
 def out_rows(p) -> int:
@@ -229,6 +231,48 @@ def add_residual(y: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
     return apply_epilogue(y, Epilogue(residual=True), residual=residual)
 
 
+def seq_gather(x: torch.Tensor, axis: str | None, *,
+               partial: bool = False) -> torch.Tensor:
+    """A block's input whole over its positions (dim 1), from this rank's
+    block of the residual over ``axis`` (``sharding.residual_axis``;
+    None: ``x`` is whole), counted as ``collectives.SEQ_IN``.  In a
+    training step its backward reduce-scatters the cotangent where
+    ``partial`` (this rank's consumers each make a part of the whole
+    input's gradient: its heads, channels or hidden block), or else
+    takes this rank's block of it (they ran replicated)."""
+    if axis is None:
+        return x
+    return coll.ad_all_gather(x, axis, dim=1, reduce_grad=partial,
+                              kind=coll.SEQ_IN)
+
+
+def seq_scatter(y: torch.Tensor, axis: str | None, *,
+                partial: bool) -> torch.Tensor:
+    """A block's output back on this rank's block of the positions over
+    ``axis`` (None: ``y`` as it is): ``partial`` sums of a row-parallel
+    region reduce-scattered (``collectives.SEQ_OUT``; its backward
+    all-gathers), or this rank's block of a ``y`` every rank computed
+    whole (its backward all-gathers the cotangent)."""
+    if axis is None:
+        return y
+    if partial:
+        return coll.ad_psum_scatter(y, axis, dim=1, kind=coll.SEQ_OUT)
+    return coll.ad_block(y, axis, dim=1)
+
+
+def norm_block(p: Norm, x: torch.Tensor, kind: str, axis: str | None, *,
+               rms_offset: bool = False) -> torch.Tensor:
+    """:func:`norm_apply` of this rank's block of the positions over
+    ``axis``: the scale (and bias), whole on every rank, enter through
+    ``collectives.ad_identity`` when a backward pass can reach them, so
+    their gradient sums the ranks' positions."""
+    if axis is not None and needs_grad(p.scale):
+        bias = getattr(p, "bias", None)
+        p = Norm(coll.ad_identity(p.scale, axis),
+                 None if bias is None else coll.ad_identity(bias, axis))
+    return norm_apply(p, x, kind, rms_offset=rms_offset)
+
+
 def chunked_scan(step, carry, xs: tuple, *, chunk: int):
     """Run ``carry, y = step(carry, x_t)`` over the leading (time) axis T of
     the tensors ``xs``; returns (carry, ys stacked on a leading T axis).
@@ -280,16 +324,23 @@ def mlp_init(cfg, d_ff: int, quant=None, *, generator: torch.Generator,
 
 
 def mlp_apply(p: MLP, x: torch.Tensor, cfg, quant=None, *,
-              residual=None) -> torch.Tensor:
+              residual=None, seq: str | None = None,
+              gathered: bool = False) -> torch.Tensor:
     """MLP with the element-wise tail folded into the linears' epilogues:
     the (gate's) activation into its projection, ``residual`` (the block
     input) into the down projection.  On a mesh whose ranks hold blocks
     of the hidden dim (:func:`col_sharded`), up and gate return this
     rank's block and ``down`` takes it as its k slice (row-parallel, or
-    gathered whole where its packed storage cannot split there)."""
+    gathered whole where its packed storage cannot split there).
+    ``seq``: the residual's positions lie over that axis; ``x`` (unless
+    ``gathered``: whole already) and ``residual`` are this rank's block,
+    ``x`` is gathered whole and the output comes back as the block
+    (``down``'s partial sums reduce-scattered over the positions)."""
     q = quant if quant is not None else cfg.quant
     act_name = {"swiglu": "silu", "geglu": "gelu",
                 "gelu": "gelu"}[cfg.mlp_activation]
+    if not gathered:
+        x = seq_gather(x, seq)
     local = col_sharded(p.up)
     kw = dict(in_dim=cfg.d_model, local=local)
     if hasattr(p, "gate"):
@@ -300,11 +351,12 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg, quant=None, *,
         h = linear_apply(p.up, x, q, tag="up", act=act_name, **kw)
     return linear_apply(p.down, h, q, in_dim=out_rows(p.up), tag="down",
                         residual=residual,
-                        x_axis=sharding.TP_AXIS if local else None)
+                        x_axis=sharding.TP_AXIS if local else None, seq=seq)
 
 
 def mlp_apply_tp(p: MLP, x: torch.Tensor, cfg, *, residual, d_ff: int,
-                 axis: str = "model") -> torch.Tensor:
+                 axis: str = "model", seq: str | None = None,
+                 gathered: bool = False) -> torch.Tensor:
     """:func:`mlp_apply` of a training step on a mesh, on this rank's
     weights (gathered over 'data').  When they hold a block of the
     hidden dim (``d_ff`` split over ``axis``), up and gate are
@@ -312,11 +364,21 @@ def mlp_apply_tp(p: MLP, x: torch.Tensor, cfg, *, residual, d_ff: int,
     ``down`` that ends in a psum; ``x`` enters through
     ``collectives.ad_identity``, whose backward sums the ranks' parts of
     its gradient.  Otherwise every rank runs the whole MLP.  ``residual``
-    None: the MLP's output alone (a MoE block's shared experts)."""
+    None: the MLP's output alone (a MoE block's shared experts).
+
+    ``seq``: the residual's positions lie over that axis, and ``x``
+    (unless ``gathered``: whole already, every rank holding its whole
+    gradient) and ``residual`` are this rank's block.  ``x`` is gathered
+    whole at entry (:func:`seq_gather`, whose backward reduce-scatters
+    where the hidden splits), and ``down``'s partials end in a
+    reduce-scatter over the positions instead of the psum; a whole MLP's
+    output is cut to the block (:func:`seq_scatter`)."""
     act_name = {"swiglu": "silu", "geglu": "gelu",
                 "gelu": "gelu"}[cfg.mlp_activation]
     tp = p.up.w.shape[0] != d_ff
-    if tp:
+    if seq is not None and not gathered:
+        x = seq_gather(x, seq, partial=tp)
+    elif tp:
         x = coll.ad_identity(x, axis)
     if hasattr(p, "gate"):
         h = local_linear(p.gate.w, x, tag="gate", act=act_name) \
@@ -324,6 +386,8 @@ def mlp_apply_tp(p: MLP, x: torch.Tensor, cfg, *, residual, d_ff: int,
     else:
         h = local_linear(p.up.w, x, tag="up", act=act_name)
     y = local_linear(p.down.w, h, tag="down")
-    if tp:
+    if seq is not None:
+        y = seq_scatter(y, seq, partial=tp)
+    elif tp:
         y = coll.ad_psum(y, axis)
     return y if residual is None else add_residual(y, residual)

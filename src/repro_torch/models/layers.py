@@ -28,23 +28,26 @@ Where the query heads cannot take 'model' (:attr:`HeadLayout.q_whole`)
 every rank holds the attention's weights whole, and a full-sequence pass
 (prefill, the encoder, a prefill's cross attention) splits its query
 positions over 'model' instead, as the reference's 'seq' rule does
-(``sharding.seq_axis``: where S divides the axis): this rank's block of
-S/M positions runs the projections, its queries attend over every
-key (K and V computed on the block and gathered), ``wo`` and the
-residual act on the block, and the blocks' outputs are gathered
-(:func:`_attn_seq`).  A softmax row sees all its keys, so no partial
-softmax is combined.
+(``sharding.residual_axis``: where S divides the axis): this rank's
+block of S/M positions, the residual's block, runs the projections, its
+queries attend over every key (K and V computed on the block and
+gathered), and ``wo`` and the residual act on the block, which stays
+this rank's (:func:`_attn_seq`).  A softmax row sees all its keys, so
+no partial softmax is combined.  Where the heads split, the residual's
+block is gathered whole at entry and ``wo``'s partial sums are
+reduce-scattered over the positions.
 
 A training step on a mesh runs :func:`attn_apply_tp` instead, on the
 weights ``constrain_params`` gathered over 'data' — the decoder's causal
 attention, the encoder's non-causal one and the cross attention: with
 the query heads split over 'model', wq is column-parallel, its heads
 stay sharded through the attention (qk-norm too) into a row-parallel
-``wo`` that ends in a psum, and each rank computes the kv heads its
+``wo`` that ends in a reduce-scatter over the positions (a psum where
+the residual stays whole), and each rank computes the kv heads its
 query heads read (whole when they do not split: MQA), of the encoder's
 output in a cross attention; where the heads cannot split (their count,
-or an uneven grouping over the kv heads) the query positions split as
-in serving, on weights gathered whole; otherwise every rank runs the
+or an uneven grouping over the kv heads) the query positions split with
+the residual, on weights gathered whole; otherwise every rank runs the
 whole attention.
 """
 
@@ -62,9 +65,9 @@ from repro_torch.distributed import sharding
 from repro_torch.models import common
 
 NEG_INF = -1e30  # finite mask value: masked entries get probability exactly 0
-# the collectives of a query block (``collectives.counts`` kinds): the
-# block's K and V gathered over the sequence, and the blocks' outputs
-SEQ_KV, SEQ_OUT = "seq_kv_gather", "seq_out_gather"
+# the collective of a query block (a ``collectives.counts`` kind): the
+# block's K and V gathered over the sequence
+SEQ_KV = "seq_kv_gather"
 
 
 # ---------------------------------------------------------------- RoPE
@@ -222,13 +225,14 @@ def _sdpa_split(cfg, q, k, v, mask, axis: str) -> torch.Tensor:
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, h * dh).to(q.dtype)
 
 
-def _wo(p: Attention, cfg, out, *, local: bool, residual=None):
+def _wo(p: Attention, cfg, out, *, local: bool, residual=None, seq=None):
     """``wo`` of the heads' output: this rank's heads (``local``: its k
-    slice) or every head."""
+    slice) or every head; ``seq``: its output on this rank's block of
+    the positions over that axis (``common.linear_apply``)."""
     return common.linear_apply(
         p.wo, out, cfg.quant, in_dim=cfg.num_heads * cfg.head_dim,
         tag="wo", residual=residual,
-        x_axis=sharding.TP_AXIS if local else None)
+        x_axis=sharding.TP_AXIS if local else None, seq=seq)
 
 
 def seq_block(t: torch.Tensor, lay: HeadLayout) -> torch.Tensor:
@@ -291,52 +295,46 @@ def _attend(cfg, q, k, v, *, causal: bool = True, window: int = 0,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def _seq_block(S: int, lay: HeadLayout, axis: str | None):
-    """(first position, length) of this rank's block of ``S`` query
-    positions split over ``axis`` (None: every position)."""
-    if axis is None:
-        return 0, S
-    n = S // lay.M
-    return lay.r * n, n
-
-
 def attn_apply(p: Attention, cfg, x, positions, *, window: int = 0,
-               causal: bool = True, return_kv: bool = False, residual=None):
+               causal: bool = True, return_kv: bool = False, residual=None,
+               seq: str | None = None):
     """Full-sequence self-attention (prefill).  ``residual`` rides the
     output projection's epilogue.  Above ``cfg.attn_chunk`` the queries
-    run in chunks (exact math, bounded logits memory).  Where the query
-    heads cannot take 'model' the query positions split over it
-    (:func:`_attn_seq`); ``return_kv`` returns every position's K/V."""
+    run in chunks (exact math, bounded logits memory).  ``seq``: the
+    residual's positions lie over that axis (``sharding.
+    residual_axis``), ``x`` and ``residual`` are this rank's block of
+    them and so is the output; where the query heads split, the block is
+    gathered whole and ``wo``'s partial sums are reduce-scattered over
+    the positions, and where they cannot take 'model' the block's
+    queries run on whole weights (:func:`_attn_seq`).  ``return_kv``
+    returns every position's K/V (``positions`` are always whole)."""
     lay = p.layout
-    axis = sharding.seq_axis(x.shape[1]) if lay.q_whole else None
-    if axis is not None:
-        return _attn_seq(p, cfg, x, positions, axis, window=window,
+    if seq is not None and lay.q_whole:
+        return _attn_seq(p, cfg, x, positions, seq, window=window,
                          causal=causal, return_kv=return_kv,
                          residual=residual)
+    x = common.seq_gather(x, seq)
     q, k, v = _qkv(p, cfg, x, positions)
     out = _attend(cfg, q, k, v, causal=causal, window=window)
-    out = _wo(p, cfg, out, local=lay.q_local, residual=residual)
+    out = _wo(p, cfg, out, local=lay.q_local, residual=residual, seq=seq)
     return (out, k, v) if return_kv else out
 
 
 def _attn_seq(p: Attention, cfg, x, positions, axis: str, *, window: int,
               causal: bool, return_kv: bool, residual):
-    """:func:`attn_apply` with the query positions split over ``axis``
-    (the attention's weights whole on every rank): this rank's block
-    [r·S/M, (r+1)·S/M) of ``x`` runs wq, wk and wv, qk-norm and RoPE at
-    its true positions; the block's K and V are gathered over ``axis``
+    """:func:`attn_apply` on this rank's block ``x`` [r·S/M, (r+1)·S/M)
+    of the positions over ``axis`` (the attention's weights whole on
+    every rank): the block runs wq, wk and wv, qk-norm and RoPE at its
+    true positions; its K and V are gathered over ``axis``
     (``SEQ_KV``), its queries attend over every key, causal at their
-    true offset; ``wo`` and the residual act on the block, and the
-    blocks' outputs are gathered (``SEQ_OUT``).  Returns the whole
-    output (B, S, d), and with ``return_kv`` the whole K/V."""
-    lo, n = _seq_block(x.shape[1], p.layout, axis)
-    q, k, v = _qkv(p, cfg, x.narrow(1, lo, n), positions.narrow(1, lo, n))
+    true offset; ``wo`` and the residual act on the block, which is the
+    output (B, S/M, d); with ``return_kv`` also the whole K/V."""
+    lo, n = sharding.seq_block(positions.shape[1], axis)
+    q, k, v = _qkv(p, cfg, x, positions.narrow(1, lo, n))
     k = coll.all_gather(k, axis, dim=1, kind=SEQ_KV)
     v = coll.all_gather(v, axis, dim=1, kind=SEQ_KV)
     out = _attend(cfg, q, k, v, causal=causal, window=window, offset=lo)
-    out = _wo(p, cfg, out, local=False, residual=None if residual is None
-              else residual.narrow(1, lo, n))
-    out = coll.all_gather(out, axis, dim=1, kind=SEQ_OUT)
+    out = _wo(p, cfg, out, local=False, residual=residual)
     return (out, k, v) if return_kv else out
 
 
@@ -379,21 +377,20 @@ def attn_decode(p: Attention, cfg, x, cache_k, cache_v, pos, *,
 
 
 def cross_attn_apply(p: Attention, cfg, x, enc_k, enc_v, *, residual=None,
-                     split: bool = False):
+                     split: bool = False, seq: str | None = None):
     """Decoder cross-attention against the encoder's projected K/V
     (B, S_src, Hk, Dh): q from ``wq``, no mask and no RoPE, ``residual``
     riding ``wo``'s epilogue.  ``split``: ``enc_k``/``enc_v`` are this
     rank's block of the source positions (the decode cache's, where its
-    sequence splits), combined over the ranks.  Otherwise, where the
-    query heads cannot take 'model', the queries split over the sequence
-    as in :func:`_attn_seq` (every source position on every rank)."""
+    sequence splits), combined over the ranks.  ``seq``: ``x`` and
+    ``residual`` are this rank's block of the decoder's positions over
+    that axis, and so is the output: where the query heads cannot take
+    'model' the block's queries run on whole weights (every source
+    position on every rank), else the block is gathered and ``wo``'s
+    partial sums reduce-scattered over the positions."""
     lay = p.layout
-    axis = sharding.seq_axis(x.shape[1]) if lay.q_whole and not split \
-        else None
-    lo, n = _seq_block(x.shape[1], lay, axis)
-    if axis is not None:  # a prefill's queries, split over the sequence
-        x = x.narrow(1, lo, n)
-        residual = None if residual is None else residual.narrow(1, lo, n)
+    if seq is not None and not lay.q_whole:
+        x = common.seq_gather(x, seq)
     q = common.linear_apply(p.wq, x, cfg.quant, in_dim=cfg.d_model,
                             tag="wq", local=lay.q_local)
     q = q.reshape(*x.shape[:2], -1, cfg.head_dim)
@@ -402,9 +399,8 @@ def cross_attn_apply(p: Attention, cfg, x, enc_k, enc_v, *, residual=None,
                           sharding.TP_AXIS)
         return _wo(p, cfg, out, local=False, residual=residual)
     out = _sdpa(cfg, q, enc_k, enc_v, None)
-    out = _wo(p, cfg, out, local=lay.q_local, residual=residual)
-    return out if axis is None else \
-        coll.all_gather(out, axis, dim=1, kind=SEQ_OUT)
+    return _wo(p, cfg, out, local=lay.q_local, residual=residual,
+               seq=None if lay.q_whole else seq)
 
 
 def cross_kv(p: Attention, cfg, enc_out):
@@ -490,42 +486,44 @@ def _kv_rows(w, cfg, M: int, kv0: int, kv1: int, axis: str):
 
 def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
                   residual, causal: bool = True, kv=None,
-                  axis: str = "model"):
+                  axis: str = "model", seq: str | None = None):
     """:func:`attn_apply` of a training step on a mesh, ``residual`` added
     after ``wo``: causal (a decoder's), or with ``causal=False`` an
     encoder's non-causal self-attention, or with ``kv`` (B, S_src, d),
-    the encoder's output, a decoder's cross attention (keys and values
-    from ``kv``, no mask and no RoPE: :func:`cross_attn_apply`).
+    the encoder's output whole on every rank, a decoder's cross
+    attention (keys and values from ``kv``, no mask and no RoPE:
+    :func:`cross_attn_apply`).  ``seq``: the residual's positions lie
+    over that axis (``sharding.residual_axis``: S divides M), and ``x``,
+    ``residual`` and the output are this rank's block [r·S/M,
+    (r+1)·S/M) of them; ``positions`` are whole.
 
     Where the query heads split over ``axis`` (:func:`heads_split`, M
     ranks, r this one's coordinate), this rank runs heads [r·H/M,
-    (r+1)·H/M): wq's block is its heads' rows, ``x`` (and ``kv``) enter
-    through ``ad_identity``, the kv heads those heads read come from
-    wk/wv's block, or from the whole weights (gathered over ``axis`` when
-    their rows split finer than a head), the qk-norm scales (over
-    ``head_dim``, so local) through ``ad_identity``, and ``wo``'s block
-    ends in a psum.
+    (r+1)·H/M): wq's block is its heads' rows, ``x`` enters whole (the
+    block gathered, ``common.seq_gather``, whose backward
+    reduce-scatters; a whole ``x`` through ``ad_identity``), and so does
+    ``kv`` (through ``ad_identity``), the kv heads those heads read come
+    from wk/wv's block, or from the whole weights (gathered over
+    ``axis`` when their rows split finer than a head), the qk-norm
+    scales (over ``head_dim``, so local) through ``ad_identity``, and
+    ``wo``'s block ends in a reduce-scatter over the positions (a psum
+    where the residual is whole).
 
-    Otherwise, where S divides M (``sharding.seq_axis``: the reference's
-    'seq' rule), the query positions split: the weights are gathered
-    whole, each leaf's gradient summed over the ranks (their consumers
-    see this rank's positions only), ``x`` (and ``kv``) and the norm
-    scales enter through ``ad_identity``; this rank's block [r·S/M,
-    (r+1)·S/M) of ``x`` runs the projections, RoPE at its true
+    Otherwise, with the residual split, the query positions split as it
+    does (the reference's 'seq' rule): the weights are gathered whole,
+    each leaf's gradient summed over the ranks (their consumers see this
+    rank's positions only), ``kv`` and the norm scales enter through
+    ``ad_identity``; the block runs the projections, RoPE at its true
     positions; K and V are computed on the block (of ``kv``'s positions
     too, where they divide M; else on all of them) and gathered
     (``ad_all_gather``, whose backward reduce-scatters); the block's
-    queries attend over every key at their true offset, ``wo`` runs on
-    the block, and its output is gathered (its backward takes this
-    rank's block of the whole cotangent), so the residual comes out
-    whole.  Otherwise each rank runs every head, on weights gathered
-    whole."""
+    queries attend over every key at their true offset, and ``wo`` and
+    the residual act on the block.  Otherwise each rank runs every head,
+    on weights gathered whole."""
     mesh = sharding.active_mesh()
     M = compat.axes_of(mesh).get(axis, 1)
     h, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    B, S, _ = x.shape
     tp = heads_split(cfg, M)
-    seq = sharding.seq_axis(S, h if tp else 0, mesh=mesh)
     # qk-norm on self-attention only, as attn_apply / cross_attn_apply
     norms = (p.q_norm.scale, p.k_norm.scale) \
         if cfg.qk_norm and kv is None else None
@@ -541,6 +539,8 @@ def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
                 f"{sharding.active_rules()!r})")
         wk = _kv_rows(p.wk.w, cfg, M, kv0, kv1, axis)
         wv = _kv_rows(p.wv.w, cfg, M, kv0, kv1, axis)
+        x = common.seq_gather(x, seq, partial=True) if seq is not None \
+            else coll.ad_identity(x, axis)
     else:
         hl = h
         part = seq is not None
@@ -551,24 +551,22 @@ def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
         wq, wk = whole(p.wq.w, h * dh, 0), whole(p.wk.w, hk * dh, 0)
         wv, wo = whole(p.wv.w, hk * dh, 0), whole(p.wo.w, h * dh, 1)
     if tp or seq is not None:
-        x = coll.ad_identity(x, axis)
         if kv is not None:
             kv = coll.ad_identity(kv, axis)
         if norms is not None:
             norms = tuple(coll.ad_identity(n, axis) for n in norms)
+    B, n, _ = x.shape
     src = x if kv is None else kv
-    lo, n, kv_seq = 0, S, False
-    if seq is not None:
-        r = sharding.coord(mesh, axis)
-        n = S // M
-        lo = r * n
-        x = x.narrow(1, lo, n)
+    lo, kv_seq = 0, False
+    if seq is not None and not tp:
+        lo, n = sharding.seq_block(positions.shape[1] if positions
+                                   is not None else n * M, seq, mesh)
         if positions is not None:
             positions = positions.narrow(1, lo, n)
-        kv_seq = src.shape[1] % M == 0
-        if kv_seq:
-            ns = src.shape[1] // M
-            src = src.narrow(1, r * ns, ns)
+        kv_seq = kv is None or src.shape[1] % M == 0
+        if kv is not None and kv_seq:
+            src = src.narrow(1, *sharding.seq_block(src.shape[1], seq,
+                                                     mesh))
     q = common.local_linear(wq, x, tag="wq").reshape(B, n, hl, dh)
     k = common.local_linear(wk, src, tag="wk").reshape(
         B, src.shape[1], -1, dh)
@@ -590,10 +588,8 @@ def attn_apply_tp(p: Attention, cfg, x, positions, *, window: int = 0,
                       offset=lo)
     y = common.local_linear(wo, out, tag="wo")
     if tp:
-        y = coll.ad_psum(y, axis)
-    elif seq is not None:
-        y = coll.ad_all_gather(y, axis, dim=1, reduce_grad=False,
-                               kind=SEQ_OUT)
+        y = common.seq_scatter(y, seq, partial=True) if seq is not None \
+            else coll.ad_psum(y, axis)
     return common.add_residual(y, residual)
 
 

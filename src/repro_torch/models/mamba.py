@@ -181,10 +181,15 @@ def _mix(p: Mamba, cfg, xz, x_proj, dtype, state=None):
     return y, {"ssm": h_last, "conv": new_tail}
 
 
-def mamba_apply(p: Mamba, cfg, x, *, state=None):
+def mamba_apply(p: Mamba, cfg, x, *, state=None, seq: str | None = None):
     """Full-sequence pass, or one decode step at L = 1 with ``state``.
-    x (B, L, d) -> (y (B, L, d), {"ssm", "conv"}: the state after x)."""
+    x (B, L, d) -> (y (B, L, d), {"ssm", "conv"}: the state after x).
+    ``seq``: ``x`` and ``y`` are this rank's block of the positions over
+    that axis; the scan needs the whole sequence, so the block is
+    gathered and ``out_proj``'s partial sums reduce-scattered over the
+    positions."""
     axis = sharding.TP_AXIS if p.tp else None
+    x = common.seq_gather(x, seq)
     xz = common.linear_apply(p.in_proj, x, cfg.quant, in_dim=cfg.d_model,
                              tag="in_proj", local=p.tp)
 
@@ -196,11 +201,12 @@ def mamba_apply(p: Mamba, cfg, x, *, state=None):
     y, state = _mix(p, cfg, xz, x_proj, x.dtype, state)
     out = common.linear_apply(
         p.out_proj, y, cfg.quant, in_dim=cfg.mamba_d_inner, tag="out_proj",
-        x_axis=axis)
+        x_axis=axis, seq=seq)
     return out, state
 
 
-def mamba_apply_tp(p: Mamba, cfg, x, *, axis: str = "model"):
+def mamba_apply_tp(p: Mamba, cfg, x, *, axis: str = "model",
+                   seq: str | None = None):
     """:func:`mamba_apply` (full sequence, no state) of a training step
     on a mesh, on this rank's weights gathered over 'data' (a model cut
     by ``sharding.shard_model``).  Where its leaves hold this rank's
@@ -212,9 +218,16 @@ def mamba_apply_tp(p: Mamba, cfg, x, *, axis: str = "model"):
     ``ad_psum`` whose backward sums the ranks' cotangents too (each
     rank's channels use all of dt's rank, B and C), and ``out_proj`` is
     row-parallel, ending in ``ad_psum``.  Otherwise every rank runs the
-    block whole.  Returns y (B, L, d)."""
+    block whole.  ``seq``: ``x`` and y are this rank's block of the
+    positions over that axis: the block is gathered whole at entry
+    (``common.seq_gather``, in place of ``ad_identity``) and
+    ``out_proj``'s partials are reduce-scattered over the positions (a
+    whole block's output cut to this rank's positions).  Returns y (B,
+    L, d)."""
     tp = p.in_proj.w.shape[0] != 2 * cfg.mamba_d_inner
-    if tp:
+    if seq is not None:
+        x = common.seq_gather(x, seq, partial=tp)
+    elif tp:
         x = coll.ad_identity(x, axis)
     xz = common.local_linear(p.in_proj.w, x, tag="in_proj")
 
@@ -225,6 +238,8 @@ def mamba_apply_tp(p: Mamba, cfg, x, *, axis: str = "model"):
 
     y, _ = _mix(p, cfg, xz, x_proj, x.dtype)
     out = common.local_linear(p.out_proj.w, y, tag="out_proj")
+    if seq is not None:
+        return common.seq_scatter(out, seq, partial=tp)
     return coll.ad_psum(out, axis) if tp else out
 
 

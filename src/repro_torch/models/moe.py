@@ -259,8 +259,14 @@ def route(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None,
                 dest=torch.where(keep, flat * C + pos, E * C))
 
 
-def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
+def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None,
+              seq: str | None = None):
     """x (B, S, d) -> (y (B, S, d), aux dict of 0-d f32 tensors).
+    ``seq``: the residual's positions lie over that axis, ``x`` is this
+    rank's block of them and so is ``y``: the block is gathered and
+    routed whole (the capacity is per example over its whole sequence),
+    and the combine's sum over 'model' is reduce-scattered over the
+    positions (a combine every rank computes whole is cut to the block).
 
     Switch-style capacity dispatch, one group per example as the
     reference's: top-k over the f32 router logits, softmax over the k;
@@ -273,6 +279,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
     back per slot, weighted by the kept gates and summed over k; the
     shared MLP adds on.  ``aux``: the Switch ``load_balance`` term and
     ``dropped_frac``, the share of slots past capacity."""
+    x = common.seq_gather(x, seq)
     B, S, _ = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     r = route(p, x, cfg, capacity=capacity)
@@ -291,15 +298,19 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *, capacity: int | None = None):
     gathered = _slot_rows(out, slots, B, S, K, C)
     w = r["gates"] * keep.reshape(B, S, K)
     if lay == "ep" or (lay == "tp" and p.experts.down_local):
-        # each rank's part of the sum, summed over the ranks in f32
-        y = coll.psum(torch.einsum("bskd,bsk->bsd",
-                                   gathered.to(torch.float32), w),
-                      sharding.TP_AXIS).to(gathered.dtype)
+        # each rank's part of the sum, summed over the ranks in f32 (onto
+        # this rank's positions where the residual splits)
+        y = torch.einsum("bskd,bsk->bsd", gathered.to(torch.float32), w)
+        y = (coll.psum(y, sharding.TP_AXIS) if seq is None else
+             common.seq_scatter(y, seq, partial=True)).to(gathered.dtype)
     else:
-        y = torch.einsum("bskd,bsk->bsd", gathered, w.to(gathered.dtype))
+        y = common.seq_scatter(torch.einsum(
+            "bskd,bsk->bsd", gathered, w.to(gathered.dtype)), seq,
+            partial=False)
 
     if hasattr(p, "shared"):
-        y = y + common.mlp_apply(p.shared, x, cfg).to(y.dtype)
+        y = y + common.mlp_apply(p.shared, x, cfg, seq=seq,
+                                 gathered=True).to(y.dtype)
 
     probs = torch.softmax(r["logits"], dim=-1)
     me = probs.mean(dim=(0, 1))
@@ -370,11 +381,20 @@ def train_layout(pe: Experts, cfg, mesh) -> str | None:
     return lay
 
 
-def moe_apply_tp(p: MoE, x: torch.Tensor, cfg, *, axis: str = "model"):
+def moe_apply_tp(p: MoE, x: torch.Tensor, cfg, *, axis: str = "model",
+                 seq: str | None = None):
     """:func:`moe_apply` of a training step on a mesh (its context
     active), on this rank's rows and its weights gathered over 'data':
     (y, aux), aux this rank's shares of the whole batch's terms (their
-    sum over 'pod' x 'data' is the single device's).
+    sum over 'pod' x 'data' is the single device's).  ``seq``: the
+    residual's positions lie over that axis, and ``x`` and ``y`` are
+    this rank's block of them: the block is gathered whole at entry
+    (its backward takes this rank's block of the whole gradient, which
+    every rank holds) and routed whole, since the capacity is per
+    example over its whole sequence, so the routing, the drops and the
+    aux terms are one device's; the combine's psum becomes a
+    reduce-scatter over the positions (a combine every rank computes
+    whole is cut to the block), and so does the shared experts'.
 
     The router is whole on every rank (gathered over ``axis`` where its
     rows split), so every rank routes its rows alike and the routing,
@@ -399,6 +419,7 @@ def moe_apply_tp(p: MoE, x: torch.Tensor, cfg, *, axis: str = "model"):
     ``dropped_frac`` (n the ranks sharing the rows), which the step's
     psum of the metrics adds back up.  ``route_counts`` adds the whole
     batch's slots on every rank."""
+    x = common.seq_gather(x, seq)
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     mesh = sharding.active_mesh()
@@ -445,16 +466,19 @@ def moe_apply_tp(p: MoE, x: torch.Tensor, cfg, *, axis: str = "model"):
     w = r["gates"] * keep.reshape(B, S, K)
     if lay:
         w = coll.ad_identity(w, axis)
-        y = coll.ad_psum(torch.einsum("bskd,bsk->bsd",
-                                      gathered.to(torch.float32), w),
-                         axis).to(gathered.dtype)
+        y = torch.einsum("bskd,bsk->bsd", gathered.to(torch.float32), w)
+        y = (coll.ad_psum(y, axis) if seq is None else
+             common.seq_scatter(y, seq, partial=True)).to(gathered.dtype)
     else:
-        y = torch.einsum("bskd,bsk->bsd", gathered, w.to(gathered.dtype))
+        y = common.seq_scatter(torch.einsum(
+            "bskd,bsk->bsd", gathered, w.to(gathered.dtype)), seq,
+            partial=False)
     if hasattr(p, "shared"):
         sdff = cfg.shared_expert_d_ff or cfg.num_shared_experts * (
             cfg.moe_d_ff or cfg.d_ff)
         y = y + common.mlp_apply_tp(p.shared, x, cfg, residual=None,
-                                    d_ff=sdff, axis=axis).to(y.dtype)
+                                    d_ff=sdff, axis=axis, seq=seq,
+                                    gathered=True).to(y.dtype)
     probs = torch.softmax(r["logits"], dim=-1)
     counts = _expert_counts(r, B, S, K, E)
     stats = torch.cat([probs.sum(dim=(0, 1)), counts.sum(dim=(0, 1)),

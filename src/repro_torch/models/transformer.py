@@ -52,9 +52,21 @@ stay cut, the tokens move to them; with
 backward pass does not gather them again); the blocks run
 tensor-parallel over 'model' (``layers.attn_apply_tp``,
 ``common.mlp_apply_tp``; attention whose query heads cannot take 'model'
-splits its query positions there, the reference's 'seq' rule, and
-gathers its output, so the residual stays whole); the vocab-split embedding's lookup ends in a
-psum, and the logits stay split over the vocab into the loss.  Every
+splits its query positions there); the vocab-split embedding's lookup
+ends in a psum, and the logits stay split over the vocab into the loss.
+
+Where the sequence divides 'model' (``sharding.residual_axis``: the
+reference's 'seq' rule, as it pins the residual after the embedding and
+after each block) a training step, a full-sequence prefill and the
+encoder carry each rank's block [r·S/M, (r+1)·S/M) of the residual's
+positions between blocks: the lookup's sum becomes a reduce-scatter over
+them, the norms act on the block (their scales' gradients summed over
+'model'), each sequence mixer and FFN gathers its normed block whole at
+entry (``seq_in_gather``) and reduce-scatters its row-parallel partial
+sums back onto the block at exit (``seq_out_scatter``; a whole output is
+cut to it), and the head reads the gathered final norm (a prefill's last
+position alone).  Decode (S = 1), a sequence that does not divide and
+the paged engine's steps keep the residual whole (ROADMAP A13c).  Every
 block kind trains so (:func:`_block_apply_tp`: a MoE block's experts
 expert-parallel or each tensor-parallel, a Mamba on its channels, an
 mLSTM on its heads, an sLSTM whole), and so do the encoder, the cross
@@ -235,24 +247,26 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                        encoder, pos)
 
 
-def _ffn(p, cfg: ModelConfig, x, aux: dict | None = None):
+def _ffn(p, cfg: ModelConfig, x, aux: dict | None = None, seq=None):
     """The block's second half: the MLP with the block input riding the
     down projection's fused residual epilogue, or the MoE FFN's output
     added to it (the reference's ``_ffn``); a MoE FFN's aux terms are
-    added into ``aux`` when given."""
+    added into ``aux`` when given.  ``seq``: ``x`` is this rank's block
+    of the positions over that axis, and so is the output."""
     h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
     if hasattr(p, "moe"):
-        y, a = moe.moe_apply(p.moe, h, cfg)
+        y, a = moe.moe_apply(p.moe, h, cfg, seq=seq)
         if aux is not None:
             for k, v in a.items():
                 aux[k] = aux[k] + v
         return x + y
-    return common.mlp_apply(p.mlp, h, cfg, residual=x)
+    return common.mlp_apply(p.mlp, h, cfg, residual=x, seq=seq)
 
 
 def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
                 mode: str = "train", cache: dict | None = None, pos=None,
-                paged=None, enc_out=None, aux: dict | None = None):
+                paged=None, enc_out=None, aux: dict | None = None,
+                seq: str | None = None):
     """One block.  mode: ``train`` (full sequence, no cache), ``prefill``
     (full sequence, writes the prompt's K/V at 0, or the state after it),
     ``decode`` (one token at ``pos``), ``paged`` (``paged`` =
@@ -265,10 +279,13 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
     prefill into ``cache["cross_k"/"cross_v"]`` (replaced, so their
     length becomes the source's) and reading them at decode.  A MoE
     FFN's ``load_balance`` and ``dropped_frac`` are added into ``aux``
-    when given.  Returns x."""
+    when given.  ``seq`` (a full-sequence mode on a mesh): ``x`` is this
+    rank's block of the residual's positions over that axis
+    (``sharding.residual_axis``), and so is the output; ``positions``
+    and ``enc_out`` are whole.  Returns x."""
     if mode == "train" and sharding.active_mesh() is not None:
         return _block_apply_tp(p, cfg, kind, x, positions, enc_out=enc_out,
-                               aux=aux)
+                               aux=aux, seq=seq)
     if mode == "paged" and kind not in ATTENTION_KINDS:
         raise NotImplementedError(
             f"paged serving supports attention block kinds only, got {kind!r}")
@@ -276,12 +293,15 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
         if kind in ("mamba", "mamba_moe"):
             h = common.norm_apply(p.ln1, x, cfg.norm,
                                   rms_offset=cfg.rms_offset)
-            y, state = mamba.mamba_apply(p.mamba, cfg, h, state=cache)
-            x = _ffn(p, cfg, x + y, aux)
+            y, state = mamba.mamba_apply(p.mamba, cfg, h, state=cache,
+                                         seq=seq)
+            x = _ffn(p, cfg, x + y, aux, seq)
         elif kind == "mlstm":
-            x, state = xlstm.mlstm_block_apply(p, cfg, x, state=cache)
+            x, state = xlstm.mlstm_block_apply(p, cfg, x, state=cache,
+                                               seq=seq)
         elif kind == "slstm":
-            x, state = xlstm.slstm_block_apply(p, cfg, x, state=cache)
+            x, state = xlstm.slstm_block_apply(p, cfg, x, state=cache,
+                                               seq=seq)
         else:
             raise ValueError(kind)
         if cache is not None:
@@ -300,12 +320,12 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
     elif cache is not None:  # prefill: every position's K/V, whatever
         # block of the queries this rank ran; it writes its cache block
         x, k, v = layers.attn_apply(p.attn, cfg, h, positions, window=window,
-                                    return_kv=True, residual=x)
+                                    return_kv=True, residual=x, seq=seq)
         layers.write_prefill(cache, "k", k, p.attn.layout)
         layers.write_prefill(cache, "v", v, p.attn.layout)
     else:
         x = layers.attn_apply(p.attn, cfg, h, positions, window=window,
-                              causal=mode != "encode", residual=x)
+                              causal=mode != "encode", residual=x, seq=seq)
     if mode != "encode" and hasattr(p, "cross"):
         hc = common.norm_apply(p.ln_cross, x, cfg.norm,
                                rms_offset=cfg.rms_offset)
@@ -322,8 +342,8 @@ def block_apply(p: nn.Module, cfg: ModelConfig, kind: str, x, positions, *,
                 cache["cross_v"] = layers.seq_block(cv, lay).to(
                     cache["cross_v"].dtype)
         x = layers.cross_attn_apply(p.cross, cfg, hc, ck, cv, residual=x,
-                                    split=split)
-    return _ffn(p, cfg, x, aux)
+                                    split=split, seq=seq)
+    return _ffn(p, cfg, x, aux, seq)
 
 
 def check_train_mesh(cfg: ModelConfig, mesh=None) -> None:
@@ -350,23 +370,24 @@ def check_train_mesh(cfg: ModelConfig, mesh=None) -> None:
                 "(ROADMAP A13c)")
 
 
-def _ffn_tp(p, cfg: ModelConfig, x, aux: dict | None):
+def _ffn_tp(p, cfg: ModelConfig, x, aux: dict | None, seq=None):
     """:func:`_ffn` of a training step on a mesh: the MLP
     tensor-parallel, or the MoE FFN's (``moe.moe_apply_tp``), its aux
-    shares added into ``aux``."""
-    h = common.norm_apply(p.ln2, x, cfg.norm, rms_offset=cfg.rms_offset)
+    shares added into ``aux``; ``seq`` as :func:`_block_apply_tp`'s."""
+    h = common.norm_block(p.ln2, x, cfg.norm, seq, rms_offset=cfg.rms_offset)
     if hasattr(p, "moe"):
-        y, a = moe.moe_apply_tp(p.moe, h, cfg)
+        y, a = moe.moe_apply_tp(p.moe, h, cfg, seq=seq)
         if aux is not None:
             for k, v in a.items():
                 aux[k] = aux[k] + v
         return x + y
-    return common.mlp_apply_tp(p.mlp, h, cfg, residual=x, d_ff=cfg.d_ff)
+    return common.mlp_apply_tp(p.mlp, h, cfg, residual=x, d_ff=cfg.d_ff,
+                               seq=seq)
 
 
 def _block_apply_tp(p, cfg: ModelConfig, kind: str, x, positions, *,
                     enc_out=None, aux: dict | None = None,
-                    causal: bool = True):
+                    causal: bool = True, seq: str | None = None):
     """A block of a training step on a mesh, on its weights gathered over
     'data', tensor-parallel over 'model' where its layout splits: the
     attention kinds (``layers.attn_apply_tp``, over the query positions
@@ -375,32 +396,37 @@ def _block_apply_tp(p, cfg: ModelConfig, kind: str, x, positions, *,
     the MoE FFN, a Mamba on its channels, an
     mLSTM on its heads, an sLSTM whole (``mamba.mamba_apply_tp``,
     ``xlstm.*_block_apply_tp``).  A MoE FFN's aux shares are added into
-    ``aux``."""
+    ``aux``.  ``seq``: ``x`` and the output are this rank's block of the
+    residual's positions over that axis, as the reference pins the
+    residual: the norms act on the block (``common.norm_block``), each
+    sequence mixer and FFN gathers its normed block at entry and
+    reduce-scatters (or cuts) its output back onto the block."""
+    def norm(n, x):
+        return common.norm_block(n, x, cfg.norm, seq,
+                                 rms_offset=cfg.rms_offset)
+
     if kind in ("mamba", "mamba_moe"):
-        h = common.norm_apply(p.ln1, x, cfg.norm, rms_offset=cfg.rms_offset)
-        return _ffn_tp(p, cfg, x + mamba.mamba_apply_tp(p.mamba, cfg, h),
-                       aux)
+        y = mamba.mamba_apply_tp(p.mamba, cfg, norm(p.ln1, x), seq=seq)
+        return _ffn_tp(p, cfg, x + y, aux, seq)
     if kind == "mlstm":
-        return xlstm.mlstm_block_apply_tp(p, cfg, x)
+        return xlstm.mlstm_block_apply_tp(p, cfg, x, seq=seq)
     if kind == "slstm":
-        return xlstm.slstm_block_apply_tp(p, cfg, x)
+        return xlstm.slstm_block_apply_tp(p, cfg, x, seq=seq)
     if kind not in ATTENTION_KINDS:
         raise ValueError(kind)
     window = cfg.sliding_window if kind == "local" else 0
-    h = common.norm_apply(p.ln1, x, cfg.norm, rms_offset=cfg.rms_offset)
-    x = layers.attn_apply_tp(p.attn, cfg, h, positions, window=window,
-                             residual=x, causal=causal)
+    x = layers.attn_apply_tp(p.attn, cfg, norm(p.ln1, x), positions,
+                             window=window, residual=x, causal=causal,
+                             seq=seq)
     if causal and hasattr(p, "cross"):
-        hc = common.norm_apply(p.ln_cross, x, cfg.norm,
-                               rms_offset=cfg.rms_offset)
-        x = layers.attn_apply_tp(p.cross, cfg, hc, None, residual=x,
-                                 kv=enc_out)
-    return _ffn_tp(p, cfg, x, aux)
+        x = layers.attn_apply_tp(p.cross, cfg, norm(p.ln_cross, x), None,
+                                 residual=x, kv=enc_out, seq=seq)
+    return _ffn_tp(p, cfg, x, aux, seq)
 
 
 def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                  mode="train", cache=None, pos=None, paged=None,
-                 enc_out=None):
+                 enc_out=None, seq: str | None = None):
     """The decoder's ``blocks``, each of its pattern's kind, or in
     ``encode`` mode the encoder's, all 'attn'.  Returns (x, aux): in
     ``train`` mode the MoE blocks' ``load_balance`` and ``dropped_frac``
@@ -408,7 +434,9 @@ def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
     and then over the groups, as the reference's scan; None in the other
     modes.  In ``train`` mode with a backward pass to come and
     ``cfg.remat``, each group is rematerialized (``common.remat`` under
-    ``cfg.remat_policy``); serving modes never are."""
+    ``cfg.remat_policy``); serving modes never are.  ``seq``: ``x`` is
+    this rank's block of the residual's positions over that axis
+    between blocks (:func:`block_apply`)."""
     period = 1 if mode == "encode" else len(cfg.block_pattern)
     train = mode == "train"
     do_remat = cfg.remat and train and common.needs_grad(x)
@@ -440,7 +468,8 @@ def _stack_apply(blocks: nn.ModuleList, cfg: ModelConfig, x, positions, *,
                 else gathered[i - first]
             x = block_apply(blk, cfg, kind, x, positions, mode=mode,
                             cache=cache[i] if cache is not None else None,
-                            pos=pos, paged=paged, enc_out=enc_out, aux=aux)
+                            pos=pos, paged=paged, enc_out=enc_out, aux=aux,
+                            seq=seq)
         return x, aux
 
     total = {"load_balance": 0.0, "dropped_frac": 0.0}
@@ -479,12 +508,21 @@ def vocab_axis(cfg: ModelConfig) -> str | None:
 
 
 def _embed(table: torch.Tensor, cfg: ModelConfig, tokens,
-           axis: str | None, *, scale: bool = True) -> torch.Tensor:
+           axis: str | None, *, scale: bool = True, seq: str | None = None,
+           lead=None) -> torch.Tensor:
     """Rows of the embedding ``table`` for ``tokens``, in f32 and scaled
-    by sqrt(d) for gemma.  With ``axis`` the table holds this rank's
-    block of the vocab along it: each rank looks up the tokens in its
-    rows, zeros the others, and the ranks' rows are summed (exact: one is
-    nonzero; ``ad_psum``, so a training step differentiates it)."""
+    by sqrt(d) for gemma, after ``lead`` (B, P, d), a vision frontend's
+    patch embeddings, when given.  With ``axis`` the table holds this
+    rank's block of the vocab along it: each rank looks up the tokens in
+    its rows, zeros the others, and the ranks' rows are summed (exact:
+    one is nonzero; ``ad_psum``, so a training step differentiates it).
+    ``seq``: the rank keeps its block of the positions (``lead``'s
+    counted) over that axis: the sum becomes a reduce-scatter over them
+    (``lead`` entering on the first rank alone, zeros on the others), or
+    from a whole table the rank looks up every token and keeps its block
+    (``collectives.ad_block``: the table's gradient stays whole on every
+    rank, and the backward gathers the rows' cotangent, not the table's
+    sum)."""
     tokens = tokens.long()
     if axis is None:
         x = table[tokens]
@@ -494,8 +532,19 @@ def _embed(table: torch.Tensor, cfg: ModelConfig, tokens,
         mine = (local >= 0) & (local < rows)
         x = torch.where(mine[..., None], table[torch.where(mine, local, 0)],
                         0.0)
+    if cfg.embed_scale and scale:
+        x = x * cfg.d_model**0.5
+    if axis is not None and seq is not None:
+        if lead is not None:  # the patches' rows on the first rank alone
+            first = sharding.coord(sharding.active_mesh(), axis) == 0
+            x = torch.cat([(lead if first else torch.zeros_like(lead))
+                           .to(x.dtype), x], dim=1)
+        return coll.ad_psum_scatter(x, seq, dim=1, kind=coll.SEQ_OUT)
+    if axis is not None:
         x = coll.ad_psum(x, axis)
-    return x * cfg.d_model**0.5 if cfg.embed_scale and scale else x
+    if lead is not None:
+        x = torch.cat([lead.to(x.dtype), x], dim=1)
+    return x if seq is None else coll.ad_block(x, seq, dim=1)
 
 
 def _fsdp_table(table: torch.Tensor, cfg: ModelConfig) -> bool:
@@ -512,32 +561,41 @@ def _gather_table(table: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_fsdp(table: torch.Tensor, cfg: ModelConfig, tokens,
-                axis: str | None) -> torch.Tensor:
+                axis: str | None, *, seq: str | None = None,
+                lead=None) -> torch.Tensor:
     """:func:`_embed` from a table whose columns are this rank's block over
     'data', by whichever moves fewer bytes: where the whole step has
     fewer tokens than the table has rows here (decode), every rank looks
     up the whole step's tokens in its columns, the looked-up columns are
     gathered over 'data' and the rank keeps its rows; otherwise (a long
     prefill) the table's columns are gathered and the rank looks up its
-    own tokens.  Both are exact."""
+    own tokens.  Both are exact.  ``seq`` and ``lead`` as
+    :func:`_embed`'s (the first way, with patches, cuts the positions'
+    block from the whole rows)."""
     if tokens.numel() * sharding.rows_factor() >= table.shape[0]:
-        return _embed(_gather_table(table), cfg, tokens, axis)
+        return _embed(_gather_table(table), cfg, tokens, axis, seq=seq,
+                      lead=lead)
     whole = sharding.gather_rows(tokens)
-    x = coll.all_gather(_embed(table, cfg, whole, axis, scale=False),
+    x = coll.all_gather(_embed(table, cfg, whole, axis, scale=False,
+                               seq=seq if lead is None else None),
                         sharding.FSDP_AXIS, dim=-1)
     x = sharding.rows_block(x)
-    return x * cfg.d_model**0.5 if cfg.embed_scale else x
+    x = x * cfg.d_model**0.5 if cfg.embed_scale else x
+    if lead is None:
+        return x
+    x = torch.cat([lead.to(x.dtype), x], dim=1)
+    return x.narrow(1, *sharding.seq_block(x.shape[1], seq))
 
 
 def embed_inputs(params: Transformer, cfg: ModelConfig, tokens, *,
-                 patch_embeds=None):
+                 patch_embeds=None, seq: str | None = None):
     """tokens (B, S) -> (B, S, d): gathered in f32, scaled by sqrt(d) for
     gemma, with a vision frontend's ``patch_embeds`` (B, P, d), cast to
-    f32, prepended; then cast to ``cfg.dtype``."""
+    f32, prepended; then cast to ``cfg.dtype``.  ``seq``: this rank's
+    block of the positions (the patches' counted) over that axis."""
     embed = _embed_fsdp if _fsdp_table(params.embedding, cfg) else _embed
-    x = embed(params.embedding, cfg, tokens, vocab_axis(cfg))
-    if patch_embeds is not None:
-        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    x = embed(params.embedding, cfg, tokens, vocab_axis(cfg), seq=seq,
+              lead=patch_embeds)
     return x.to(getattr(torch, cfg.dtype))
 
 
@@ -557,15 +615,20 @@ def _sinusoidal(S: int, d: int, device=None) -> torch.Tensor:
 def encode(params: Transformer, cfg: ModelConfig, frames) -> torch.Tensor:
     """The encoder over ``frames`` (B, S_src, d) from the stub frontend:
     cast to ``cfg.dtype``, plus sinusoidal positions cast alike, the
-    non-causal blocks, the encoder's final norm."""
+    non-causal blocks, the encoder's final norm.  On a mesh whose
+    residual splits S_src (``sharding.residual_axis``) a rank carries
+    its block of the frames through the blocks and the norm, and the
+    output is gathered whole."""
     x = frames.to(getattr(torch, cfg.dtype))
     B, S = x.shape[:2]
     x = x + _sinusoidal(S, cfg.d_model, x.device).to(x.dtype)
+    seq = sharding.residual_axis(S)
+    x = x.narrow(1, *sharding.seq_block(S, seq))
     enc = params.encoder
     x, _ = _stack_apply(enc.blocks, cfg, x, _positions(B, S, x.device),
-                        mode="encode")  # the encoder's aux is dropped
-    return common.norm_apply(enc.final_norm, x, cfg.norm,
-                             rms_offset=cfg.rms_offset)
+                        mode="encode", seq=seq)  # the encoder's aux dropped
+    return common.seq_gather(common.norm_apply(
+        enc.final_norm, x, cfg.norm, rms_offset=cfg.rms_offset), seq)
 
 
 def _check_positions(cfg: ModelConfig, last: int) -> None:
@@ -575,18 +638,28 @@ def _check_positions(cfg: ModelConfig, last: int) -> None:
             f"{cfg.max_seq_len} learned positions")
 
 
-def _inputs(params: Transformer, cfg: ModelConfig, batch):
+def _seq_len(b: dict) -> int:
+    """A batch's full-sequence length: its tokens and patches."""
+    patches = b.get("patch_embeds")
+    return b["tokens"].shape[1] + (0 if patches is None
+                                   else patches.shape[1])
+
+
+def _inputs(params: Transformer, cfg: ModelConfig, batch,
+            seq: str | None = None):
     """(x (B, S, d), enc_out or None) of a full-sequence pass: the encoder
     over ``frames``, the embedded tokens (patches prepended), and the
-    decoder's learned positions 0..S-1."""
+    decoder's learned positions 0..S-1.  ``seq``: x is this rank's block
+    of the positions over that axis."""
     b = as_batch(batch)
     enc_out = encode(params, cfg, b["frames"]) if cfg.is_encdec else None
     x = embed_inputs(params, cfg, b["tokens"],
-                     patch_embeds=b.get("patch_embeds"))
+                     patch_embeds=b.get("patch_embeds"), seq=seq)
     if cfg.is_encdec:
-        S = x.shape[1]
+        S = _seq_len(b)
         _check_positions(cfg, S - 1)
-        x = x + params.pos_embedding[:S].to(x.dtype)
+        x = x + params.pos_embedding.narrow(
+            0, *sharding.seq_block(S, seq)).to(x.dtype)
     return x, enc_out
 
 
@@ -670,7 +743,18 @@ def _forward_tp(params: Transformer, cfg: ModelConfig, batch,
     config's ``frames`` run through the encoder's blocks, each gathered
     over 'data' and run tensor-parallel and non-causal, and the decoder
     adds its learned positions.  The head's input enters through
-    ``ad_identity`` and its logits keep this rank's vocab columns."""
+    ``ad_identity`` and its logits keep this rank's vocab columns.
+
+    Where the sequence (the patches counted) divides 'model'
+    (``sharding.residual_axis``, the reference's pin of the residual),
+    each rank carries its block [r·S/M, (r+1)·S/M) of the positions
+    between blocks: the lookup's sum becomes a reduce-scatter over them
+    (or a whole table looks up the block's tokens), the decoder's
+    learned positions are the block's, every block gathers its normed
+    input and reduce-scatters its output (``_block_apply_tp``), the
+    final norm acts on the block and the head's input is gathered whole
+    (``common.seq_gather``: its backward reduce-scatters where the vocab
+    splits)."""
     mesh = sharding.active_mesh()
     check_train_mesh(cfg, mesh)
     axis = "model"
@@ -682,21 +766,27 @@ def _forward_tp(params: Transformer, cfg: ModelConfig, batch,
     enc_out = _encode_tp(params, cfg, b["frames"], top) \
         if cfg.is_encdec else None
     emb, V = top["embedding"], cfg.vocab_size
-    x = _embed(emb, cfg, b["tokens"], axis if emb.shape[0] != V else None)
-    if b.get("patch_embeds") is not None:
-        x = torch.cat([b["patch_embeds"].to(x.dtype), x], dim=1)
+    S = _seq_len(b)
+    seq = sharding.residual_axis(S, mesh=mesh)
+    x = _embed(emb, cfg, b["tokens"], axis if emb.shape[0] != V else None,
+               seq=seq, lead=b.get("patch_embeds"))
     x = x.to(getattr(torch, cfg.dtype))
-    B, S = x.shape[:2]
-    if cfg.is_encdec:
+    B = x.shape[0]
+    if cfg.is_encdec:  # the block's rows of every rank's whole positions
         _check_positions(cfg, S - 1)
-        x = x + top["pos_embedding"][:S].to(x.dtype)
+        pos = top["pos_embedding"][:S]
+        if seq is not None:
+            pos = coll.ad_block(pos, seq, dim=0)
+        x = x + pos.to(x.dtype)
     x, aux = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
-                          enc_out=enc_out)
-    x = common.norm_apply(
+                          enc_out=enc_out, seq=seq)
+    x = common.norm_block(
         common.Norm(top["final_norm.scale"], top.get("final_norm.bias")), x,
-        cfg.norm, rms_offset=cfg.rms_offset)
+        cfg.norm, seq, rms_offset=cfg.rms_offset)
     w = emb if cfg.tie_embeddings else top["lm_head.w"]
-    if w.shape[0] != V:
+    if seq is not None:
+        x = common.seq_gather(x, seq, partial=w.shape[0] != V)
+    elif w.shape[0] != V:
         x = coll.ad_identity(x, axis)
     if cfg.tie_embeddings:
         logits = _tied_head(x, w)
@@ -711,19 +801,24 @@ def _encode_tp(params: Transformer, cfg: ModelConfig, frames, top: dict):
     gathered over 'data' and run non-causal and tensor-parallel (over
     the frames where the heads cannot split; no remat, as the single
     device's encoder), then its final norm (from the gathered top-level
-    leaves ``top``)."""
+    leaves ``top``).  Where the frames divide 'model' a rank carries its
+    block of them through the blocks and the norm, and the output is
+    gathered whole for the cross attentions (its backward takes this
+    rank's block of the whole gradient every rank holds)."""
     x = frames.to(getattr(torch, cfg.dtype))
     B, S = x.shape[:2]
     x = x + _sinusoidal(S, cfg.d_model, x.device).to(x.dtype)
+    seq = sharding.residual_axis(S)
+    x = x.narrow(1, *sharding.seq_block(S, seq))
     positions = _positions(B, S, x.device)
     for blk in params.encoder.blocks:
         x = _block_apply_tp(sharding.constrain_params(
             blk, int8_gather=cfg.fsdp_int8_gather), cfg, "attn", x,
-            positions, causal=False)
-    return common.norm_apply(
+            positions, causal=False, seq=seq)
+    return common.seq_gather(common.norm_block(
         common.Norm(top["encoder.final_norm.scale"],
-                    top.get("encoder.final_norm.bias")), x, cfg.norm,
-        rms_offset=cfg.rms_offset)
+                    top.get("encoder.final_norm.bias")), x, cfg.norm, seq,
+        rms_offset=cfg.rms_offset), seq)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -739,12 +834,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(params: Transformer, cfg: ModelConfig, batch, cache):
     """Run the prompt (a batch: tokens, + frames / patch_embeds), filling
     ``cache`` (None: the forward over the prompt alone, as the dry run's
-    prefill cell lowers it).  Returns (logits_last (B, V), cache)."""
-    x, enc_out = _inputs(params, cfg, batch)
-    B, S = x.shape[:2]
+    prefill cell lowers it).  Returns (logits_last (B, V), cache).  On
+    a mesh whose residual splits the prompt's positions
+    (``sharding.residual_axis``) each rank carries its block through the
+    blocks; the last position, on the last rank's block, is gathered
+    alone for the head (every rank's last, of which the last is kept)."""
+    S = _seq_len(as_batch(batch))
+    seq = sharding.residual_axis(S)
+    x, enc_out = _inputs(params, cfg, batch, seq)
+    B = x.shape[0]
     x, _ = _stack_apply(params.blocks, cfg, x, _positions(B, S, x.device),
-                        mode="prefill", cache=cache, enc_out=enc_out)
-    return logits_from_hidden(params, cfg, x[:, -1:, :])[:, 0], cache
+                        mode="prefill", cache=cache, enc_out=enc_out,
+                        seq=seq)
+    last = x[:, -1:, :]
+    if seq is not None:
+        last = coll.all_gather(last, seq, dim=1)[:, -1:]
+    return logits_from_hidden(params, cfg, last)[:, 0], cache
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,

@@ -28,16 +28,29 @@ cell and its state (C, n, m) on its heads, the gates' contraction over
 the channels summed over the ranks (f32), ``xl_down`` row-parallel.
 Otherwise every rank runs the mLSTM whole.  The sLSTM's W and R ('embed'
 axes) stay whole under the serve rules; its MLP runs tensor-parallel as
-any MLP does.  A training step on a mesh runs the same layouts
+any MLP does.
+
+A training step on a mesh runs the same layouts
 (:func:`mlstm_block_apply_tp`, :func:`slstm_block_apply_tp`) on the
 leaves ``sharding.shard_model`` cut.
+
+On fake tensors (the dry run) the sLSTM's step loop and the mLSTM's
+chunk loop run through twins that allocate what the loops hold and
+compute nothing (:class:`_SLSTMFake`, :class:`_MLSTMChunkFake`), so
+xlstm's cells at 4,096 and 32,768 positions finish in minutes.
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
+
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
+from repro_torch.device import is_fake
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding
 from repro_torch.models import common
@@ -194,15 +207,152 @@ def mlstm_sequence_parallel(q, k, v, it, ft, state, *, chunk: int = 128):
     :func:`mlstm_sequence`.  With a backward pass to come, each chunk is
     rematerialized (``common.remat``)."""
     grad = common.needs_grad(state, q, k, v, it, ft)
+    one = _mlstm_chunk_fake if is_fake(q) else _mlstm_chunk_parallel
     hs = []
     for s in range(0, q.shape[1], chunk):
         inp = tuple(t[:, s:s + chunk] for t in (q, k, v, it, ft))
         # each chunk rematerialized for the backward pass, as the
         # reference's jax.checkpoint of the chunk function
-        state, h = (common.remat(_mlstm_chunk_parallel, state, inp) if grad
-                    else _mlstm_chunk_parallel(state, inp))
+        state, h = (common.remat(one, state, inp) if grad
+                    else one(state, inp))
         hs.append(h)
     return torch.cat(hs, dim=1), state
+
+
+# ------------------------------------- fake-tensor twins (the dry run)
+class _Allocations(TorchDispatchMode):
+    """The bytes of the storages that the ops run under it create: live
+    (a storage counts until it is freed) and at their peak since
+    :meth:`reset`."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = 0
+        self._seen: set = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            if st._cdata in self._seen:
+                continue
+            self._seen.add(st._cdata)
+            self.live += st.nbytes()
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, st._cdata, st.nbytes())
+        return out
+
+    def _free(self, key, n):
+        self.live -= n
+        self._seen.discard(key)
+
+    def reset(self) -> int:
+        self.peak = self.live
+        return self.live
+
+
+_CHUNK_COST: dict = {}
+
+
+def _measure_chunk(key: tuple, out: dict) -> None:
+    """One rematerialized :func:`_mlstm_chunk_parallel` on fake tensors of
+    ``key``'s shapes and dtypes, forward and backward, its inputs
+    counted before either: out["cost"] = (the forward's peak bytes above
+    its start, the backward's, its recompute included).  The sequence's
+    inputs and the outputs' cotangents are slices of a longer sequence,
+    as a chunk of :func:`mlstm_sequence_parallel` sees them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def chunk_of(shape, dt):  # a chunk-long slice of two chunks' positions
+        return torch.empty((shape[0], 2 * shape[1], *shape[2:]),
+                           dtype=dt)[:, :shape[1]]
+
+    try:
+        with FakeTensorMode():
+            args = [torch.empty(shape, dtype=dt) if i < 3 else
+                    chunk_of(shape, dt) for i, (shape, dt) in enumerate(key)]
+            args = [a.requires_grad_() for a in args]
+            track = _Allocations()
+            with track:
+                args = [a.view_as(a) for a in args]
+                base = track.reset()
+                st, h = common.remat(_mlstm_chunk_parallel, tuple(args[:3]),
+                                     tuple(args[3:]))
+                fwd = track.peak - base
+                outs = (*st, h)
+                cts = [torch.ones_like(t) for t in st] + [chunk_of(
+                    h.shape, h.dtype)]
+                base = track.reset()
+                torch.autograd.grad(outs, args, cts)
+                out["cost"] = (fwd, track.peak - base)
+    except Exception as e:  # raised in the caller's thread
+        out["error"] = e
+
+
+def _chunk_cost(key: tuple) -> tuple[int, int]:
+    """:func:`_measure_chunk`'s cost of a chunk of ``key``'s shapes,
+    measured once a shape in a thread of its own, so that none of the
+    caller's dispatch modes (its fake mode, ``MemTracker``) or saved-
+    tensor hooks (remat's) sees it."""
+    if key not in _CHUNK_COST:
+        out: dict = {}
+        worker = threading.Thread(target=_measure_chunk, args=(key, out))
+        worker.start()
+        worker.join()
+        if "error" in out:
+            raise out["error"]
+        _CHUNK_COST[key] = out["cost"]
+    return _CHUNK_COST[key]
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+class _MLSTMChunkFake(torch.autograd.Function):
+    """:func:`_mlstm_chunk_parallel` over fake tensors (the dry run),
+    where its some forty ops a chunk, over every chunk of every layer and
+    pass, would take the cell past ten minutes: it allocates the chunk's
+    outputs and, in one piece each, the rest of the forward's peak and
+    of the backward's (its recompute included), as measured for these
+    shapes by :func:`_chunk_cost`; nothing is computed.  It saves an
+    input, as the chunk's ops do, so that remat keeps the chunk's inputs
+    (the carried state) for its recompute, and reads it back in the
+    backward, which runs the recompute."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, C0, n0, m0, q, k, v, it, ft):
+        outs = (C0.new_empty(C0.shape), n0.new_empty(n0.shape),
+                m0.new_empty(m0.shape), q.new_empty(q.shape))
+        work = q.new_empty((max(fwd - _nbytes(*outs), 0),),
+                           dtype=torch.uint8)
+        del work
+        ctx.save_for_backward(q)
+        ctx.cost = bwd - _nbytes(*outs)  # the recompute holds its outputs
+        ctx.ins = [(t.shape, t.dtype) for t in (C0, n0, m0, q, k, v, it, ft)]
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cts):
+        (like,) = ctx.saved_tensors
+        grads = [like.new_empty(shape, dtype=dt) if need else None
+                 for (shape, dt), need in zip(ctx.ins,
+                                              ctx.needs_input_grad[2:])]
+        every = sum(torch.Size(shape).numel() * dt.itemsize
+                    for shape, dt in ctx.ins)
+        work = like.new_empty((max(ctx.cost - every, 0),), dtype=torch.uint8)
+        del work
+        return (None, None, *grads)
+
+
+def _mlstm_chunk_fake(state, inp):
+    """:func:`_mlstm_chunk_parallel`'s allocations alone
+    (:class:`_MLSTMChunkFake`)."""
+    key = tuple((tuple(t.shape), t.dtype) for t in (*state, *inp))
+    C, n, m, h = _MLSTMChunkFake.apply(*_chunk_cost(key), *state, *inp)
+    return (C, n, m), h
 
 
 def _mix(cfg, ab, w: dict, gates_of, o, dtype, state=None, h0: int = 0):
@@ -241,15 +391,19 @@ def _mix(cfg, ab, w: dict, gates_of, o, dtype, state=None, h0: int = 0):
     return hseq * F.silu(b), {"C": C, "n": n, "m": m, "conv": new_tail}
 
 
-def mlstm_block_apply(p: MLSTM, cfg, x, *, state=None):
+def mlstm_block_apply(p: MLSTM, cfg, x, *, state=None,
+                      seq: str | None = None):
     """x (B, L, d) -> (x + block(x), {"C", "n", "m", "conv"}).  Prefill
     (L > 1, ``cfg.xlstm_parallel``) takes the parallel form, decode the
-    sequential step."""
+    sequential step.  ``seq``: ``x`` is this rank's block of the
+    positions over that axis, and so is the output: the normed block is
+    gathered and ``xl_down``'s partial sums reduce-scattered over the
+    positions."""
     d = x.shape[-1]
     di_all, _, dh = _dims(cfg)
     tp = p.tp
     col = dict(in_dim=d, local=tp)
-    h_in = common.norm_apply(p.norm, x, cfg.norm)
+    h_in = common.seq_gather(common.norm_apply(p.norm, x, cfg.norm), seq)
     ab = common.linear_apply(p.xl_up, h_in, cfg.quant, tag="xl_up", **col)
 
     def gates_of(ac):
@@ -268,11 +422,12 @@ def mlstm_block_apply(p: MLSTM, cfg, x, *, state=None):
     y, state = _mix(cfg, ab, w, gates_of, o, x.dtype, state, h0)
     out = common.linear_apply(
         p.xl_down, y, cfg.quant, in_dim=di_all, tag="xl_down",
-        x_axis=sharding.TP_AXIS if tp else None)
+        x_axis=sharding.TP_AXIS if tp else None, seq=seq)
     return x + out, state
 
 
-def mlstm_block_apply_tp(p: MLSTM, cfg, x, *, axis: str = "model"):
+def mlstm_block_apply_tp(p: MLSTM, cfg, x, *, axis: str = "model",
+                         seq: str | None = None):
     """:func:`mlstm_block_apply` (full sequence, no state) of a training
     step on a mesh, on this rank's weights gathered over 'data' (a model
     cut by ``sharding.shard_model``).  Where its leaves hold this rank's
@@ -289,21 +444,29 @@ def mlstm_block_apply_tp(p: MLSTM, cfg, x, *, axis: str = "model"):
     ending in ``ad_psum``.  Where the channels split but the heads do
     not, each rank gathers every leaf whole (``xl_up`` back to the
     single-device order) and runs the block whole, as it does where
-    nothing splits.  Returns x + block(x)."""
+    nothing splits.  ``seq``: ``x`` and the output are this rank's block
+    of the positions over that axis: the norm acts on the block
+    (``common.norm_block``), its output is gathered whole
+    (``common.seq_gather``, in place of ``ad_identity``) and ``xl_down``
+    reduce-scatters over the positions (a whole block's output is cut
+    to this rank's).  Returns x + block(x)."""
     di_all, H_all, dh = _dims(cfg)
     whole = common.whole_rows
     split = p.xl_up.w.shape[0] != 2 * di_all
     mesh = sharding.active_mesh()
     M = sharding.tp_size(mesh)
     tp = split and H_all % M == 0
-    h_in = common.norm_apply(p.norm, x, cfg.norm)
+    h_in = common.norm_block(p.norm, x, cfg.norm, seq)
     up, down, o_w = p.xl_up.w, p.xl_down.w, p.xl_o.w
     w = dict(conv_w=p.xl_conv_w, conv_b=p.xl_conv_b, q=p.xl_q.w, k=p.xl_k.w,
              v=p.xl_v.w, lskip=p.lskip)
     gates_w = p.xl_gates.w
     h0 = 0
-    if tp:
+    if seq is not None:
+        h_in = common.seq_gather(h_in, seq, partial=tp)
+    elif tp:
         h_in = coll.ad_identity(h_in, axis)
+    if tp:
         n = up.shape[0] // 2
         r = sharding.coord(mesh, axis)
         w["lskip"] = coll.ad_identity(w["lskip"], axis).narrow(0, r * n, n)
@@ -331,6 +494,8 @@ def mlstm_block_apply_tp(p: MLSTM, cfg, x, *, axis: str = "model"):
                       .to(torch.float32))
     y, _ = _mix(cfg, ab, w, gates_of, o, x.dtype, h0=h0)
     out = common.local_linear(down, y, tag="xl_down")
+    if seq is not None:
+        return x + common.seq_scatter(out, seq, partial=tp)
     return x + (coll.ad_psum(out, axis) if tp else out)
 
 
@@ -389,43 +554,108 @@ def _slstm_step(state, wx, R):
     return (h_new, c_new, n_new, m_new), h_new
 
 
-def _recurrence(p: SLSTM, cfg, x, state=None):
+class _SLSTMFake(torch.autograd.Function):
+    """The sLSTM's recurrence over fake tensors (the dry run), where the
+    step loop would trace every position of a long sequence: it
+    allocates, in one piece each, what the loop does (``common.
+    chunked_scan``: the outputs stacked over the time axis beside their
+    pieces, and with a backward pass to come the carry of every
+    rematerialized chunk but the first, which the loop keeps for it),
+    and in the backward the gradients of ``wx``, ``R`` and the state.
+    Nothing is computed."""
+
+    @staticmethod
+    def forward(ctx, wx, R, h, c, n, m, chunk):
+        T, B, d = wx.shape[0], wx.shape[1], R.shape[1]
+        pieces = wx.new_empty((T, B, d))  # the steps' outputs, stacked
+        hs = wx.new_empty((T, B, d))
+        del pieces
+        kept = wx.new_empty((0,))
+        if chunk < T and any(ctx.needs_input_grad):
+            kept = wx.new_empty((T // chunk - 1, 4, B, d))
+        ctx.chunk = chunk
+        ctx.save_for_backward(wx, R, kept)
+        return (hs,) + tuple(t.new_empty(t.shape) for t in (h, c, n, m))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        wx, R, _ = ctx.saved_tensors
+        state = [wx.new_empty(cts[1].shape) for _ in range(4)]
+        # a chunk's recompute keeps its steps' activations (about 18 of
+        # (B, d) a step) beside the gradient summed so far, and a step's
+        # gradient of the chunk's wx lands in a zero tensor of the
+        # chunk's size before it is added to the chunk's sum; then the
+        # chunk's gradient lands in a zero tensor of wx's size, which is
+        # added to the sum out of place
+        T, B, d = wx.shape[0], wx.shape[1], R.shape[1]
+        n = min(ctx.chunk, T)
+        grad = wx.new_empty(wx.shape)
+        steps = wx.new_empty((n, B, 18 * d))
+        step_part = wx.new_empty((2, n, B, 4 * d))
+        del steps, step_part
+        part, acc = wx.new_empty(wx.shape), wx.new_empty(wx.shape)
+        del part, acc
+        return (grad, R.new_empty(R.shape), *state, None)
+
+
+def _slstm_scan(wx, R, st: tuple, chunk: int):
+    """The sLSTM's steps over the time-major ``wx`` (T, B, 4d) from the
+    state ``st`` (h, c, n, m): (the state after them, the outputs (T, B,
+    d)); :class:`_SLSTMFake`'s allocations alone on fake tensors."""
+    if is_fake(wx):
+        hs, *last = _SLSTMFake.apply(wx, R, *st, chunk)
+        return tuple(last), hs
+    return _scan(lambda s, xt: _slstm_step(s, xt[0], R), st, (wx,), chunk)
+
+
+def _recurrence(p: SLSTM, cfg, x, state=None, seq: str | None = None):
     """(x plus the sLSTM's outputs over x's L true steps from ``state``
-    (or the initial one), the state after them)."""
-    B = x.shape[0]
-    xi = common.norm_apply(p.norm, x, cfg.norm).to(torch.float32)
-    wx = xi @ p.sl_w.w.t() + p.sl_w.b  # (B, L, 4d)
+    (or the initial one), the state after them).  ``seq``: ``x`` is
+    this rank's block of the positions over that axis, and so is the
+    output: the normed block is gathered whole, the recurrence runs
+    whole on every rank (its weights' gradients whole on each: none is
+    summed), and its outputs are cut to the block."""
+    xi = common.seq_gather(common.norm_block(p.norm, x, cfg.norm, seq), seq)
+    B = xi.shape[0]
+    wx = xi.to(torch.float32) @ p.sl_w.w.t() + p.sl_w.b  # (B, L, 4d)
     if state is None:
         state = slstm_state(cfg, B, device=x.device)
     st = tuple(state[n] for n in ("h", "c", "n", "m"))
-    R = p.sl_r.w
-    (h, c, n, m), hs = _scan(lambda s, xt: _slstm_step(s, xt[0], R), st,
-                             (wx.movedim(1, 0),), cfg.xlstm_chunk)
-    return x + hs.movedim(0, 1).to(x.dtype), {"h": h, "c": c, "n": n,
-                                              "m": m}
+    (h, c, n, m), hs = _slstm_scan(wx.movedim(1, 0), p.sl_r.w, st,
+                                   cfg.xlstm_chunk)
+    hs = common.seq_scatter(hs.movedim(0, 1), seq, partial=False)
+    return x + hs.to(x.dtype), {"h": h, "c": c, "n": n, "m": m}
 
 
-def slstm_block_apply(p: SLSTM, cfg, x, *, state=None):
+def slstm_block_apply(p: SLSTM, cfg, x, *, state=None,
+                      seq: str | None = None):
     """x (B, L, d) -> (x + sLSTM + MLP, {"h", "c", "n", "m"}: the state
-    after the L true steps)."""
-    x, state = _recurrence(p, cfg, x, state)
+    after the L true steps).  ``seq``: ``x`` and the output are this
+    rank's block of the positions over that axis (:func:`_recurrence`;
+    the MLP gathers its normed block, ``common.mlp_apply``)."""
+    x, state = _recurrence(p, cfg, x, state, seq)
     x = x + common.mlp_apply(p.mlp, common.norm_apply(p.norm2, x, cfg.norm),
-                             _mlp_cfg(cfg))
+                             _mlp_cfg(cfg), seq=seq)
     return x, state
 
 
-def slstm_block_apply_tp(p: SLSTM, cfg, x, *, axis: str = "model"):
+def slstm_block_apply_tp(p: SLSTM, cfg, x, *, axis: str = "model",
+                         seq: str | None = None):
     """:func:`slstm_block_apply` (full sequence, no state) of a training
     step on a mesh: the recurrence runs whole on every rank (W and R
     gathered over 'data', the 'embed' axes, never split over ``axis``),
     so every rank holds their whole gradients and none is summed over
     ``axis``; the GeGLU MLP runs as any MLP of the step does
-    (``common.mlp_apply_tp``).  Returns the block's output."""
-    x, _ = _recurrence(p, cfg, x)
+    (``common.mlp_apply_tp``).  ``seq``: ``x`` and the output are this
+    rank's block of the positions over that axis (the norms act on it,
+    their scales' gradients summed over the ranks; the recurrence's
+    input gathered and its output cut, :func:`_recurrence`).  Returns
+    the block's output."""
+    x, _ = _recurrence(p, cfg, x, seq=seq)
     return common.mlp_apply_tp(
-        p.mlp, common.norm_apply(p.norm2, x, cfg.norm), _mlp_cfg(cfg),
+        p.mlp, common.norm_block(p.norm2, x, cfg.norm, seq), _mlp_cfg(cfg),
         residual=x, d_ff=int(x.shape[-1] * cfg.slstm_mlp_factor),
-        axis=axis)
+        axis=axis, seq=seq)
 
 
 def slstm_state(cfg, batch: int, dtype=torch.float32, *, device=None

@@ -11,9 +11,16 @@ batch fake tensors, runs one real train step.
   the tokens moved to its expert stacks, which stay cut over 'data');
 * the same for gemma-2b SMOKE with 6 query heads over 3 kv heads, which
   group unevenly over a rank's 3 heads, so the query positions split
-  over 'model' (the blocks' K/V and output gathers among the kinds);
-* the train cells of a MoE, a hybrid recurrent and an encoder-decoder
-  arch come back ``ok``; a cell that does not apply (gemma-2b's
+  over 'model' (the blocks' K/V gathers among the kinds); in both the
+  residual's 16 positions split over 'model' between blocks, each
+  block's input gathered (``seq_in_gather``) and its row-parallel
+  output reduce-scattered (``seq_out_scatter``), counted alike;
+* on fake tensors the sLSTM's recurrence and the mLSTM's chunks
+  allocate what their loops do (``xlstm._SLSTMFake``,
+  ``xlstm._MLSTMChunkFake``): xlstm SMOKE's train cell peaks within 2%
+  of the loops' and holds the same arguments and collectives;
+* the train cells of a MoE, a hybrid recurrent, an xLSTM and an
+  encoder-decoder arch come back ``ok``; a cell that does not apply (gemma-2b's
   ``long_500k``) ``skipped`` with the reason; the serve cells are
   ``tests/test_torch_dryrun_serve.py``'s;
 * the CLI writes one JSON file a cell under ``--out`` and nothing else
@@ -35,6 +42,7 @@ torch.set_num_threads(1)
 import torch_train_ranks as R  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import shapes as shp  # noqa: E402
+from repro_torch.distributed import collectives as coll  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
 
@@ -70,13 +78,14 @@ def test_fake_cell_equals_a_real_step(real, rank):
 @pytest.mark.parametrize("rank", [0, 3])
 def test_fake_split_query_cell_equals_a_real_step(real, rank):
     """The heads-cannot-split case of the test above: the query positions
-    split, each attention layer's K/V and output gathers counted by kind
-    alike in the fake cell and the real step."""
+    split, each attention layer's K/V gathers and the residual's
+    collectives counted by kind alike in the fake cell and the real
+    step; the attention's output is not gathered."""
     from repro_torch.models import layers as L
 
     got = _check_dense_cell(real, rank, SEQ[0], SEQ[1], SEQ[2])
-    for kind in (L.SEQ_KV, L.SEQ_OUT):
-        assert got["collectives"][kind]["count"] > 0, kind
+    assert got["collectives"][L.SEQ_KV]["count"] > 0
+    assert "seq_out_gather" not in got["collectives"]
 
 
 def _check_dense_cell(real, rank, key, arch=None, over=None):
@@ -88,6 +97,8 @@ def _check_dense_cell(real, rank, key, arch=None, over=None):
     assert got["memory"]["peak_bytes_per_device"] >= \
         got["memory"]["argument_bytes_per_device"] > 0
     assert got["local_batch"] == BATCH[0] // 2
+    for kind in (coll.SEQ_IN, coll.SEQ_OUT):  # the residual split
+        assert got["collectives"][kind]["count"] > 0, kind
     return got
 
 
@@ -108,7 +119,36 @@ def test_fake_moe_cell_equals_a_real_step(real, rank):
         got["memory"]["argument_bytes_per_device"] > 0
 
 
-@pytest.mark.parametrize("arch", ["qwen2_moe", "jamba_v01",
+def test_xlstm_fake_twins_hold_the_loops_memory(monkeypatch):
+    """xlstm SMOKE's train cell on (data=2, model=2) at 4 x 512 tokens
+    (four chunks of each recurrence's remat): with the sLSTM's
+    recurrence and the mLSTM's chunks through their fake twins
+    (``xlstm._SLSTMFake``, ``xlstm._MLSTMChunkFake``) against the loops
+    themselves run on the fake tensors, the peak is within 2% and the
+    argument bytes and collectives are the same."""
+    from repro_torch.models import xlstm
+
+    cfg = configs.get_smoke("xlstm_1b3")
+    specs = {k: shp.Spec((4, 512), torch.int32) for k in ("tokens",
+                                                          "labels")}
+
+    def cell():
+        return dryrun.measure(cfg, R.train_config({}), specs, SHAPE, AXES,
+                              rank=0)
+
+    twin = cell()
+    monkeypatch.setattr(xlstm, "is_fake", lambda t: False)
+    loop = cell()
+    assert twin["collectives"] == loop["collectives"]
+    got, want = twin["memory"], loop["memory"]
+    assert got["argument_bytes_per_device"] == \
+        want["argument_bytes_per_device"]
+    assert abs(got["peak_bytes_per_device"]
+               - want["peak_bytes_per_device"]) \
+        <= 0.02 * want["peak_bytes_per_device"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe", "jamba_v01", "xlstm_1b3",
                                   "whisper_medium"])
 def test_non_dense_train_cells_run(arch):
     """The train cells of a MoE, a hybrid recurrent and an

@@ -17,8 +17,9 @@ tensors, running one real prefill or decode step.
   ``fsdp_gather`` bytes, the tokens' collectives counted);
 * the same for gemma-2b SMOKE with 6 query heads over 3 kv heads, which
   cannot take 'model' (the attention whole on every rank): the prefill
-  splits its query positions (the blocks' K/V and output gathers among
-  the kinds), decode splits the cache's;
+  splits its query positions with the residual's (the blocks' K/V
+  gathers, the blocks' input gathers and the lookup's reduce-scatter
+  among the kinds), decode splits the cache's;
 * on fake tensors the GeMM kernels allocate what their CUDA launch does,
   never the plain msGeMM's tables: a msGeMM call's fake output has the
   kernel's (m, b) shape and layout;
@@ -75,17 +76,25 @@ def test_fake_serve_cell_equals_a_real_step(real, shape, rank, rules):
 def test_fake_split_query_serve_cell_equals_a_real_step(real, shape, rank,
                                                         rules):
     """The heads-cannot-split case of the test above: the prefill's query
-    positions split over 'model' (its K/V and output gathers counted by
-    kind alike), decode's cache positions."""
+    positions split over 'model' with the residual's (its K/V gathers,
+    the MLPs' input gathers and the vocab-split lookup's reduce-scatter
+    counted by kind alike; at d=3 ``down``'s 128-wide k slice does not
+    split its packed storage, so ``down`` runs whole and keeps its block
+    of the positions), decode's cache positions."""
+    from repro_torch.distributed import collectives as coll
     from repro_torch.models import layers as L
 
     cfg = seq_config()
     got = _check_serve_cell(cfg, real[rank]["seq"], shape, rank, rules)
     split = shape.kind == "prefill"
-    assert got["collectives"].get(L.SEQ_KV, {}).get("count", 0) == \
-        (2 * cfg.num_layers if split else 0)
-    assert got["collectives"].get(L.SEQ_OUT, {}).get("count", 0) == \
-        (cfg.num_layers if split else 0)
+
+    def count(kind):
+        return got["collectives"].get(kind, {}).get("count", 0)
+
+    assert count(L.SEQ_KV) == (2 * cfg.num_layers if split else 0)
+    assert count(coll.SEQ_IN) == (cfg.num_layers if split else 0)
+    assert count(coll.SEQ_OUT) == (1 if split else 0)
+    assert count("seq_out_gather") == 0
 
 
 def _check_serve_cell(cfg, real, shape, rank, rules):

@@ -13,7 +13,10 @@ each again on (data=2) under the 'default' rules (FSDP weight storage,
 the rows split), tokens equal to the reference's.  gemma-2b with 3
 query heads, which cannot take 'model': its prefill splits the query
 positions over it (a 32-token prompt, 16 a rank in chunks of 8), the
-same checks.
+same checks.  Every prefill carries each rank's block of the residual's
+positions between blocks (each block's input gathered at its entry, its
+row-parallel output reduce-scattered back), and the tokens still equal
+the reference's.
 xlstm-1.3b, whisper-medium and phi-3-vision are in
 ``tests/test_torch_mesh_static_more.py``.
 """
@@ -48,6 +51,11 @@ def ranks(cases):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_static_generate_on_a_mesh_equals_reference(cases, ranks, arch):
     C.check(cases[arch][0], ranks, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_splits_the_residual(cases, ranks, arch):
+    C.check_split(cases, ranks, arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -87,14 +95,19 @@ def test_fsdp_table_routes_equal_one_device(ranks):
 def test_prefill_splits_query_positions_where_heads_cannot(cases, ranks):
     """With 3 query heads on model=2 every rank holds the attention
     whole, and the prefill splits its 32 positions: each layer gathers
-    its block's K and V and its output once; decode splits the cache's
+    its block's K and V once, and its output stays on the block; each
+    MLP gathers its normed input (``seq_in_gather``) and reduce-scatters
+    ``down``'s partial sums over the positions, as the vocab-split
+    lookup does (``seq_out_scatter``); decode splits the cache's
     positions (the partial softmax combined) as for 4 heads."""
+    from repro_torch.distributed import collectives as coll
     from repro_torch.models import layers as L
 
     cfg = cases[SEQ[0]][2]
     for r in ranks:
         counts = r[SEQ[0]]["collectives"]
         assert counts[L.SEQ_KV] == 2 * cfg.num_layers
-        assert counts[L.SEQ_OUT] == cfg.num_layers
+        assert counts[coll.SEQ_IN] == cfg.num_layers
+        assert counts[coll.SEQ_OUT] == cfg.num_layers + 1
         assert counts["all_reduce_max"] == cfg.num_layers * (C.NEW - 1)
         assert L.SEQ_KV not in r["gemma_2b"]["collectives"]

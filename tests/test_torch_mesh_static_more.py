@@ -6,7 +6,9 @@ split) and phi-3-vision (the patch embeddings whole on every rank):
 tokens equal to the reference's ``repro.runtime.serve.generate``
 (exact), every step's logits within 1e-4 of the port's single-device
 run; and each again on (data=2) under the 'default' rules (FSDP weight
-storage, the rows split), tokens equal to the reference's.
+storage, the rows split), tokens equal to the reference's.  The
+prefill carries each rank's block of the residual's positions (the
+patches counted; the encoder's frames alike).
 """
 
 import pytest
@@ -33,6 +35,11 @@ def ranks(cases):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_static_generate_on_a_mesh_equals_reference(cases, ranks, arch):
     C.check(cases[arch][0], ranks, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_splits_the_residual(cases, ranks, arch):
+    C.check_split(cases, ranks, arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -87,6 +87,24 @@ def test_tables_are_the_reference_tables():
     assert shd.PAGED_CACHE_AXES == jshd.PAGED_CACHE_AXES
 
 
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("rules", RULES)
+def test_residual_axis_is_the_reference_pin(mesh, rules):
+    """``sharding.residual_axis`` is the 'seq' entry of the reference's
+    spec for the residual stream, ``("batch", "seq", "embed")`` under the
+    same rules: 'model' wherever S divides it (decode's S = 1 never),
+    else None; None without a mesh."""
+    fm = MESHES[mesh]
+    rows = 2 * fm.shape["data"] * fm.shape.get("pod", 1)
+    for S in (1, 3, 12, 16, 4096, 4098, 32768):
+        want = _pad(jshd.spec_for(("batch", "seq", "embed"), (rows, S, 2048),
+                                  mesh=fm, rules=rules), 3)[1]
+        with shd.use(fm, rules):
+            assert shd.residual_axis(S) == want, S
+        assert want == ("model" if S % fm.shape["model"] == 0 else None)
+    assert shd.residual_axis(16) is None
+
+
 def test_batch_folds_over_pod_and_data():
     assert spec(("batch", "seq"), (256, 4096), mesh=POD) == \
         (("pod", "data"), "model")

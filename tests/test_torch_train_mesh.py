@@ -37,7 +37,16 @@ tokens:
   refused), with microbatches and remat; each step, every leaf's
   gradient among it, within the tolerances of the single device's, step
   1 of the reference's; 16 positions on (data=1, model=3) do not divide,
-  so every rank runs every head there.
+  so every rank runs every head there;
+* between blocks each rank carries its block of the residual's
+  positions (the reference's 'seq' rule, ``sharding.residual_axis``):
+  on every rank of every case the residual entering each block holds
+  S/M of its S positions, or all of them where S does not divide M
+  (model=3); gemma-2b on (data=1, model=2) (the split alone, no FSDP;
+  and with a 511-row table, whole on every rank) equals the single
+  device's and the reference's steps; each block's
+  normed input is gathered whole (``seq_in_gather``) and a row-parallel
+  output reduce-scattered back (``seq_out_scatter``), counted exactly.
 
 One spawn of four gloo ranks runs every case (``tests/torch_train_ranks.
 py``).
@@ -94,6 +103,15 @@ SEQ_CASES = {
     "gemma_2b-d1m3": C.case("gemma_2b", (1, 3), ("data", "model"),
                             over={"remat": False}),
 }
+# the residual split over 'model' alone, no FSDP; with 511 rows the
+# table cannot split over the vocab, so every rank looks up every token
+# and keeps its block of the positions
+SPLIT_CASES = {"gemma_2b-d1m2": C.case("gemma_2b", (1, 2),
+                                       ("data", "model"),
+                                       over={"remat": False}),
+               "gemma_2b-v511-d1m2": C.case(
+                   "gemma_2b", (1, 2), ("data", "model"),
+                   over={"remat": False, "vocab_size": 511})}
 
 
 def _init(arch):
@@ -117,8 +135,9 @@ EVERY_ARCH = [
 def ranks():
     weights = {a: _init(a)[2] for a in ARCHS}
     batches = {a: _init(a)[3] for a in ARCHS}
-    seq_weights, seq_batches = C.inputs(SEQ_CASES, STEPS)
-    return run_ranks(R.train_mesh_rank, R.WORLD, {**CASES, **SEQ_CASES},
+    seq_weights, seq_batches = C.inputs({**SEQ_CASES, **SPLIT_CASES}, STEPS)
+    return run_ranks(R.train_mesh_rank, R.WORLD,
+                     {**CASES, **SEQ_CASES, **SPLIT_CASES},
                      {**weights, **seq_weights}, {**batches, **seq_batches},
                      EVERY_ARCH, timeout=300)
 
@@ -304,10 +323,17 @@ def test_split_query_positions_match_reference(ranks, key):
 @pytest.mark.parametrize("key", SEQ_CASES)
 def test_split_query_positions_collectives(ranks, key):
     """Every rank issues the same collectives; where the positions split,
-    each attention layer gathers its block's K and V and its output in
-    each microbatch's forward (again in its remat recompute); where they
-    do not divide, none of these (on model=3 nothing of gemma-2b's SMOKE
-    config splits: no collective at all)."""
+    each attention layer gathers its block's K and V in each
+    microbatch's forward (again in its remat recompute), and so does
+    each MLP its normed input (``seq_in_gather``; the head's input once
+    a microbatch, outside remat), whose ``down`` reduce-scatters its
+    output over the positions where the hidden splits, as the vocab-split
+    lookup does once a microbatch (``seq_out_scatter``; a remat
+    recompute stops before a group's last op, so it issues none); the
+    attention's output stays on the block (no gather of it).  Where they do not
+    divide, none of these (on model=3 nothing of gemma-2b's SMOKE config
+    splits: no collective at all)."""
+    from repro_torch.distributed import collectives as coll
     from repro_torch.models import layers as L
     from repro_torch.models import transformer
 
@@ -319,10 +345,30 @@ def test_split_query_positions_collectives(ranks, key):
     transformer.check_train_mesh(cfg, MeshShape({"model": M}))
     assert not L.heads_split(cfg, M)
     counts = ranks[0][key]["counts"]
+    kinds = (L.SEQ_KV, coll.SEQ_IN, coll.SEQ_OUT)
     if C.S % M:
-        assert L.SEQ_KV not in counts and L.SEQ_OUT not in counts
+        assert not set(kinds) & set(counts), counts
         return
-    runs = c["tkw"].get("microbatches", 1) * (2 if c["over"]["remat"]
-                                              else 1)
-    assert counts[L.SEQ_KV] == 2 * cfg.num_layers * runs
-    assert counts[L.SEQ_OUT] == cfg.num_layers * runs
+    mb = c["tkw"].get("microbatches", 1)
+    runs = mb * (2 if c["over"]["remat"] else 1)
+    mlps = cfg.num_layers * runs
+    assert counts[L.SEQ_KV] == 2 * mlps
+    assert counts[coll.SEQ_IN] == mlps + mb
+    assert counts[coll.SEQ_OUT] == cfg.num_layers * mb * (
+        cfg.d_ff % M == 0) + mb * (cfg.vocab_size % M == 0)
+    assert "seq_out_gather" not in counts
+
+
+@pytest.mark.parametrize("key", SPLIT_CASES)
+def test_split_residual_matches_single_device(ranks, key):
+    C.matches_single_device(ranks, key, SPLIT_CASES[key], STEPS)
+
+
+@pytest.mark.parametrize("key", SPLIT_CASES)
+def test_split_residual_matches_reference(ranks, key):
+    C.matches_reference(ranks, key, SPLIT_CASES[key], STEPS)
+
+
+@pytest.mark.parametrize("key", [*CASES, *SEQ_CASES, *SPLIT_CASES])
+def test_residual_enters_each_block_split(ranks, key):
+    C.residual_blocks(ranks, key, {**CASES, **SEQ_CASES, **SPLIT_CASES}[key])

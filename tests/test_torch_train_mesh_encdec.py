@@ -14,6 +14,11 @@ tokens with ``microbatches=2`` and remat:
   positions split over it (the decoder's 16, the encoder's 12 frames, 3
   a rank, K and V of each rank's block gathered).
 
+The residual splits over 'model' between blocks: the decoder's 16
+positions (phi-3's 8 patches and 8 tokens), the encoder's 12 frames, a
+block of each on every rank; the encoder's output gathered once for the
+cross attentions.
+
 Each step's loss, metrics, grad_norm (on every rank), every gradient,
 m, v and params within the ``tests/torch_train_parity.py`` tolerances of
 the single-device step from the same (gathered) state; step 1 within
@@ -71,6 +76,12 @@ def test_ranks_issue_the_same_collectives(ranks, key):
     C.same_collectives(ranks, key)
 
 
+@pytest.mark.parametrize("key", CASES)
+def test_residual_enters_each_block_split(ranks, key):
+    C.residual_blocks(ranks, key, CASES[key],
+                      S_src=12 if key.startswith("whisper") else None)
+
+
 def test_encoder_and_cross_attention_are_trained(ranks):
     """The mesh step reaches every weight of the encoder and of the cross
     attentions: each gets a nonzero gradient (its value is held to the
@@ -86,8 +97,14 @@ def test_encoder_and_cross_attention_are_trained(ranks):
 def test_split_query_positions_in_encoder_and_cross_attention(ranks):
     """With 6 heads on model=4, every attention of the step splits its
     query positions: each of the encoder's and the decoder's self
-    attentions and each cross attention gathers its block's K and V and
-    its output, in each microbatch's forward and its remat recompute."""
+    attentions and each cross attention gathers its block's K and V, in
+    each microbatch's forward and its remat recompute, and its output
+    stays on the block.  Each MLP gathers its normed input
+    (``seq_in_gather``), as do the head and the encoder's output once a
+    microbatch, and reduce-scatters its output where its hidden splits,
+    as the vocab-split lookup does (``seq_out_scatter``; the decoder's
+    remat recompute stops before a group's closing reduce-scatter)."""
+    from repro_torch.distributed import collectives as coll
     from repro_torch.models import layers as L
 
     c = CASES["whisper_medium-h6-d1m4"]
@@ -96,5 +113,10 @@ def test_split_query_positions_in_encoder_and_cross_attention(ranks):
     # the encoder runs outside remat; the decoder's groups inside it
     runs = c["tkw"]["microbatches"]
     attns = cfg.encoder_layers + 2 * 2 * cfg.num_layers
-    assert counts[L.SEQ_OUT] == runs * attns
+    mlps = cfg.encoder_layers + 2 * cfg.num_layers
     assert counts[L.SEQ_KV] == 2 * runs * attns
+    assert counts[coll.SEQ_IN] == runs * (mlps + 2)
+    once = cfg.encoder_layers + cfg.num_layers
+    assert counts[coll.SEQ_OUT] == runs * (once * (cfg.d_ff % 4 == 0)
+                                           + (cfg.vocab_size % 4 == 0))
+    assert "seq_out_gather" not in counts

@@ -20,7 +20,11 @@ gradient, m, v and params within the ``tests/torch_train_parity.py``
 tolerances of the single-device step from the same (gathered) state;
 step 1 within them of the reference's; the routers' gradients the single
 device's, so the replicated routing is not summed over 'model' twice;
-every rank issues the same collectives.  On (data=2, model=2) the expert
+every rank issues the same collectives.  The residual splits its 16
+positions over 'model' between blocks (each rank's block enters every
+block), while each MoE FFN gathers its normed input and routes the whole
+sequence: every step's routed slots (kept, all) equal the single
+device's exactly.  On (data=2, model=2) the expert
 stacks' out dim lies over 'data' ('ep'): the stacks stay cut there, no
 all-gather of the step gives a whole stack leaf, and the tokens move to
 them (their slots gathered, the hidden gathered for ``down``, the
@@ -78,6 +82,16 @@ def test_mesh_step_matches_reference(ranks, key):
 @pytest.mark.parametrize("key", CASES)
 def test_ranks_issue_the_same_collectives(ranks, key):
     C.same_collectives(ranks, key)
+
+
+@pytest.mark.parametrize("key", CASES)
+def test_route_counts_equal_one_device(ranks, key):
+    C.same_routes(ranks, key, CASES[key], STEPS)
+
+
+@pytest.mark.parametrize("key", CASES)
+def test_residual_enters_each_block_split(ranks, key):
+    C.residual_blocks(ranks, key, CASES[key])
 
 
 @pytest.mark.parametrize("key", CASES)

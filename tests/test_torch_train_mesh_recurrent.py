@@ -18,7 +18,10 @@ the single-device step from the same (gathered) state; step 1 within
 them of the reference's; the sLSTM's and the routers' gradients the
 single device's (their consumers run replicated over 'model', so a sum
 over it would count them twice); every rank issues the same
-collectives.  The two-halves leaves (``in_proj``, ``xl_up``) are cut
+collectives; the residual enters every block (Mamba, MoE, attention,
+mLSTM, sLSTM) as this rank's block of the 16 positions, each sequence
+mixer gathering its normed input whole.  The two-halves leaves
+(``in_proj``, ``xl_up``) are cut
 from both halves and round-trip through ``gather_state`` /
 ``shard_state`` and a checkpoint restored onto one device and onto
 (data=1, model=4), bit for bit.  One spawn of four gloo ranks runs it
@@ -73,6 +76,16 @@ def test_mesh_step_matches_reference(ranks, key):
 @pytest.mark.parametrize("key", CASES)
 def test_ranks_issue_the_same_collectives(ranks, key):
     C.same_collectives(ranks, key)
+
+
+@pytest.mark.parametrize("key", CASES)
+def test_residual_enters_each_block_split(ranks, key):
+    C.residual_blocks(ranks, key, CASES[key])
+
+
+@pytest.mark.parametrize("key", [k for k in CASES if k.startswith("jamba")])
+def test_route_counts_equal_one_device(ranks, key):
+    C.same_routes(ranks, key, CASES[key], STEPS)
 
 
 @pytest.mark.parametrize("key", CASES)

@@ -78,6 +78,42 @@ def recording_gathers(seen: list):
         coll.all_gather = orig
 
 
+@contextlib.contextmanager
+def recording_blocks(seen: list):
+    """While active, every block a step runs appends (mode, its input's
+    positions) to ``seen``: a training step's on a mesh ('train', and
+    'encode' for an encoder block) and a serving mode's."""
+    from repro_torch.models import transformer as TT
+
+    tp, serve = TT._block_apply_tp, TT.block_apply
+
+    def record_tp(p, cfg, kind, x, *a, causal=True, **kw):
+        seen.append(("train" if causal else "encode", x.shape[1]))
+        return tp(p, cfg, kind, x, *a, causal=causal, **kw)
+
+    def record(p, cfg, kind, x, *a, mode="train", **kw):
+        if mode != "train":
+            seen.append((mode, x.shape[1]))
+        return serve(p, cfg, kind, x, *a, mode=mode, **kw)
+
+    TT._block_apply_tp, TT.block_apply = record_tp, record
+    try:
+        yield seen
+    finally:
+        TT._block_apply_tp, TT.block_apply = tp, serve
+
+
+def route_counts(model) -> list | None:
+    """The routed-slot counters (kept, all) summed over ``model``'s MoE
+    blocks, or None without MoE blocks."""
+    from repro_torch.models import moe
+
+    blocks = moe._moes(model)
+    if not blocks:
+        return None
+    return [int(v) for v in sum(m.route_counts for m in blocks).tolist()]
+
+
 def whole_stacks(model, n: int) -> dict:
     """{name: shape} of the expert-stack leaves of ``model`` (a rank's
     copy) held cut over 'data' along their out dim (``Experts.
@@ -496,11 +532,13 @@ def static_rank(rank, device, cases, new, shape, axes):
                              step_logits=one)
         local = SV.shard_params(model, tcfg, mesh)
         coll.reset_counts()
-        sharded = SV.generate(local, tcfg, b, max_new_tokens=new,
-                              mesh=mesh, step_logits=many)
+        with recording_blocks([]) as blocks:
+            sharded = SV.generate(local, tcfg, b, max_new_tokens=new,
+                                  mesh=mesh, step_logits=many)
         out[name] = dict(single=single, sharded=sharded,
                          single_logits=one, sharded_logits=many,
-                         collectives=dict(coll.counts))
+                         collectives=dict(coll.counts),
+                         blocks=sorted(set(blocks)))
         fsdp, steps = SV.shard_params(model, tcfg, data, "default"), []
         coll.reset_counts()
         tokens = SV.generate(fsdp, tcfg, b, max_new_tokens=new, mesh=data,

@@ -70,6 +70,33 @@ def check(want, ranks, arch):
         assert got["collectives"].get("all_reduce", 0) > 0
 
 
+def check_split(cases, ranks, arch):
+    """The mesh run's prefill carried each rank's block of the residual:
+    every prefill block's input held S/2 of the prompt's S positions (a
+    vision frontend's patches counted) where S divides the two ranks, an
+    encoder block's its frames' half; decode's one position each; the
+    blocks' inputs gathered (``seq_in_gather``) and their row-parallel
+    outputs reduce-scattered over the positions (``seq_out_scatter``)."""
+    from repro_torch.distributed import collectives as coll
+
+    _, _, cfg, batch = cases[arch]
+    S = batch["tokens"].shape[1] + cfg.num_patches
+
+    def part(n):
+        return n // 2 if n % 2 == 0 else n
+
+    want = {("prefill", part(S)), ("decode", 1)}
+    if cfg.is_encdec:
+        want.add(("encode", part(batch["frames"].shape[1])))
+    assert S % 2 == 0
+    for r in ranks:
+        got = r[arch]
+        assert set(map(tuple, got["blocks"])) == want, got["blocks"]
+        assert got["collectives"][coll.SEQ_IN] > 0
+        assert got["collectives"][coll.SEQ_OUT] > 0
+        assert "seq_out_gather" not in got["collectives"]
+
+
 def check_default(want, ranks, arch):
     """The (data=2) run under the 'default' rules: every rank's tokens
     equal the reference's, each step's logits (a rank's rows) are within

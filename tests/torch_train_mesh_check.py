@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import torch_mesh_ranks as MR
 import torch_train_parity as P
 import torch_train_ranks as R
 from repro.optim import AdamWConfig as JAdamW
@@ -58,8 +59,8 @@ def inputs(cases: dict, steps: int):
 
 def single_step(c: dict, k: int, before: dict, steps: int) -> dict:
     """The port's single-device step ``k`` (0-based) of case ``c`` from
-    the whole state ``before``: its gradients, metrics and the state
-    after."""
+    the whole state ``before``: its gradients, metrics, routed slots
+    (kept, all; None without MoE blocks) and the state after."""
     jcfg, jstate, _, batches = init(c["arch"], _items(c["over"]), steps)
     state, cfg = P.port_state(jstate, jcfg)
     over = {n: v for n, v in c["over"].items()
@@ -76,9 +77,14 @@ def single_step(c: dict, k: int, before: dict, steps: int) -> dict:
     tb = P.torch_batch(batches[k])
     _, _, g = RT._grads(state["params"], list(state["opt"]["m"]), cfg, tcfg,
                         tb)
+    routes = MR.route_counts(state["params"])
     state, met = RT.train_step(state, tb, cfg, tcfg)
+    if routes is not None:
+        routes = [a - b for a, b in zip(MR.route_counts(state["params"]),
+                                        routes)]
     return {"grads": {n: t.numpy() for n, t in g.items()},
             "metrics": {n: float(v) for n, v in met.items()},
+            "routes": routes,
             "after": {"params": {n: t.numpy() for n, t in
                                  state["params"].state_dict().items()},
                       **{k: {n: t.numpy() for n, t in state["opt"][k].items()}
@@ -184,6 +190,36 @@ def matches_reference(ranks, key: str, c: dict, steps: int) -> None:
                    {n: g * got_scale for n, g in got["grads"].items()},
                    {n: g * scale for n, g in want_g.items()}, jm["lr"],
                    ocfg.eps)
+
+
+def residual_blocks(ranks, key: str, c: dict, S: int = S,
+                    S_src: int | None = None) -> None:
+    """On every rank of case ``key``'s mesh, the residual entering each
+    block of the last step holds S/M of its S positions where they
+    divide the M ranks of 'model' (``sharding.residual_axis``), all S
+    otherwise; an encoder block's, of its ``S_src`` frames, alike."""
+    M = dict(zip(c["axes"], c["shape"])).get("model", 1)
+
+    def part(n):
+        return n // M if n % M == 0 else n
+
+    want = {("train", part(S))}
+    if S_src is not None:
+        want.add(("encode", part(S_src)))
+    for res in ranks:
+        if res[key] is not None:
+            assert set(map(tuple, res[key]["blocks"])) == want, key
+
+
+def same_routes(ranks, key: str, c: dict, steps: int) -> None:
+    """Each mesh step's routed slots (kept, all: the whole batch's, on
+    every rank) equal the single-device step's from the same state."""
+    for k, rec in enumerate(ranks[0][key]["steps"]):
+        want = single_step(c, k, rec["before"], steps)["routes"]
+        assert want is not None and want[1] > 0
+        for r, res in enumerate(ranks):
+            if res[key] is not None:
+                assert res[key]["steps"][k]["routes"] == want, (r, k)
 
 
 def same_collectives(ranks, key: str) -> None:

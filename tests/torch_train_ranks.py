@@ -119,7 +119,10 @@ def run_case(case: dict, weights: dict, batches: list, rank: int) -> dict:
     their mean over 'pod'), the state after it, its metrics; the
     collectives of the last step by kind; the expert stacks held cut
     over 'data' (whole shapes) and the last step's all-gathers that gave
-    one of them (``torch_mesh_ranks.stacks_gathered``)."""
+    one of them (``torch_mesh_ranks.stacks_gathered``); the residual's
+    positions entering each block of the last step
+    (``torch_mesh_ranks.recording_blocks``) and each step's routed slots
+    of a MoE config."""
     cfg, tcfg = smoke(case["arch"], case["over"]), train_config(case["tkw"])
     mesh = make_mesh(case["shape"], case["axes"])
     if not member(mesh, rank):
@@ -139,13 +142,18 @@ def run_case(case: dict, weights: dict, batches: list, rank: int) -> dict:
         rec["grads"] = whole(grads, specs, mesh)
         rec["pod_grads"] = whole(pod_grads, specs, mesh)
         del grads, pod_grads
-        seen = []
+        seen, blocks = [], []
+        routes = MR.route_counts(state["params"])
         if step == len(batches) - 1:
             coll.reset_counts()
-            with MR.recording_gathers(seen):
+            with MR.recording_gathers(seen), MR.recording_blocks(blocks):
                 state, met = RT.train_step(state, b, cfg, tcfg)
+            out["blocks"] = sorted(set(blocks))
         else:
             state, met = RT.train_step(state, b, cfg, tcfg)
+        if routes is not None:  # the step's routed slots (kept, all)
+            rec["routes"] = [a - b for a, b in zip(
+                MR.route_counts(state["params"]), routes)]
         rec["metrics"] = {k: float(v) for k, v in met.items()}
         rec["after"] = _whole_state(state)
         out["steps"].append(rec)
